@@ -17,6 +17,7 @@ import torch
 
 from rama_tpu_torch.config import ModelConfig
 from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
+from rama_tpu_torch.utils.platform import resolve_device
 
 
 def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -24,10 +25,12 @@ def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu",
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
                       dtype: torch.dtype | None = None) -> dict:
-    """numpy tree -> port params on `device`. Dense float leaves are cast to
-    `dtype` when given; RoPE tables (rope_cos/rope_sin) stay fp32."""
+    """numpy tree -> port params on `device` (cuda by default; raises without
+    a GPU). Dense float leaves are cast to `dtype` when given; RoPE tables
+    (rope_cos/rope_sin) stay fp32."""
+    device = resolve_device(device)
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):

@@ -1,6 +1,7 @@
 """Llama-2 forward pass in PyTorch — the port of rama_tpu/models/llama.py.
 
-Parameters are a plain dict of tensors: dense weights in the canonical
+Loaders and caches default to device="cuda" (raising without a GPU);
+pass device="cpu" to run on the CPU. Parameters are a plain dict of tensors: dense weights in the canonical
 (in, out) layout (forward is x @ W), or `QuantizedTensor` /
 `QuantizedEmbedding` leaves (ops/quant.py); per-layer weights are stacked
 (L, K, N). Math parity with the JAX package and the reference CPU path:
@@ -38,6 +39,7 @@ from rama_tpu_torch.ops.kernels.ffn import split_h13
 from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                       from_q80_file_layout, quantize_embedding,
                                       quantize_int8)
+from rama_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
@@ -73,9 +75,10 @@ class KVCache:
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: int | None = None,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+               dtype=torch.bfloat16, device="cuda") -> "KVCache":
         s = max_len or cfg.seq_len
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+        device = resolve_device(device)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -102,8 +105,9 @@ def _dense(a, dtype, device) -> torch.Tensor:
 
 
 def load_params(cfg: ModelConfig, np_params: dict, dtype=torch.bfloat16,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """numpy canonical params -> device tensors + precomputed RoPE tables."""
+    device = resolve_device(device)
     p = {k: _dense(v, dtype, device) for k, v in np_params.items()}
     p["rope_cos"], p["rope_sin"] = _rope_tables(cfg, device)
     return p
@@ -113,9 +117,10 @@ _QUANT_LAYER_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 
 def load_params_quantized(cfg: ModelConfig, qp: QuantParams, dtype=torch.bfloat16,
-                          device="cpu") -> Params:
+                          device="cuda") -> Params:
     """v2 (Q8_0) checkpoint -> quantized params keeping the file's int8 bytes
     (no requantization anywhere, including the shared classifier)."""
+    device = resolve_device(device)
     p: Params = {name: _dense(qp.norms[name], dtype, device)
                  for name in ("attn_norm", "ffn_norm", "final_norm")}
     eq, es = qp.quant["tok_embedding"]  # (V, D) int8, (V, D//gs) f32
@@ -137,11 +142,12 @@ def load_params_quantized(cfg: ModelConfig, qp: QuantParams, dtype=torch.bfloat1
 
 def quantize_params(cfg: ModelConfig, np_params: dict, bits: int = 8,
                     group_size: int = 64, dtype=torch.bfloat16,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     """Quantize canonical fp32 params at load time (weight-only INT8; int4
     is a later slice). The embedding and a shared classifier stay INT8."""
     if bits != 8:
         raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md)")
+    device = resolve_device(device)
     p: Params = {name: _dense(np_params[name], dtype, device)
                  for name in ("attn_norm", "ffn_norm", "final_norm")}
     for name in _QUANT_LAYER_NAMES:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
-from rama_tpu_torch.ops.kernels.quant_matmul import (GEMV_MAX_M, check_weight,
+from rama_tpu_torch.ops.kernels.quant_matmul import (FFN_MAX_M, check_weight,
                                                      layer_of, rows_per_cta,
                                                      split_k, weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
@@ -70,7 +70,7 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
     check_weight(w13, x.device)
     check_weight(w2, x.device)
     m, k = x.shape
-    require(m <= GEMV_MAX_M, f"the FFN kernel serves decode M <= {GEMV_MAX_M}, got {m}")
+    require(m <= FFN_MAX_M, f"the FFN kernel serves decode M <= {FFN_MAX_M}, got {m}")
     L, kq, h2 = w13.q.shape
     hdim, n = w2.q.shape[-2:]
     require(k == kq and h2 == 2 * hdim, f"w13 {tuple(w13.q.shape)} / w2 "

@@ -46,11 +46,18 @@ def test_dense_tree_cast_and_bf16_leaves():
                                   np.asarray(jp["wq"]).astype(np.float32))
 
 
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        params_from_numpy(torch_cfg(tiny_config()), {"final_norm": np.ones(4, np.float32)})
+
+
 def test_rejects_non_int8_quantized_leaf():
     tree = {"wo": {"q": np.zeros((4, 4), np.int32), "scales": np.ones((1, 4), np.float32),
                    "group_size": 4, "bits": 8, "il": 0}}
     with pytest.raises(TypeError, match="int8"):
-        params_from_numpy(torch_cfg(tiny_config()), tree)
+        params_from_numpy(torch_cfg(tiny_config()), tree, "cpu")
 
 
 @pytest.mark.parametrize("shared", [True, False])

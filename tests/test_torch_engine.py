@@ -32,7 +32,7 @@ def engine_setup():
     jcfg = tiny_config(seq_len=64)
     np_params = random_params(jcfg, seed=31)
     cfg = torch_cfg(jcfg)
-    params = load_params(cfg, np_params, dtype=torch.float32)
+    params = load_params(cfg, np_params, dtype=torch.float32, device="cpu")
     return jcfg, cfg, np_params, params, make_tokenizer(cfg.vocab_size)
 
 
@@ -266,7 +266,7 @@ def test_long_context_beyond_checkpoint_seq_len():
                             ("extended", cfg32,
                              EngineConfig(max_batch_size=2, max_seq_len=96))):
         cfg = torch_cfg(jc)
-        params = load_params(cfg, np_params, dtype=torch.float32)
+        params = load_params(cfg, np_params, dtype=torch.float32, device="cpu")
         r = Request(prompt="abab", steps=80, temperature=0.0, stop_at_eos=False)
         outs[label] = serve(cfg, params, tok, ecfg, [r])[1][0]
     assert len(outs["native96"]) == 80

@@ -34,7 +34,8 @@ def fused():
     jp = jl.fuse_params(jl.quantize_params(CFG, np_params, bits=8, group_size=64,
                                            dtype=jnp.float32), CFG)
     tp = tl.fuse_params(tl.quantize_params(torch_cfg(CFG), np_params, bits=8,
-                                           group_size=64, dtype=torch.float32),
+                                           group_size=64, dtype=torch.float32,
+                                           device="cpu"),
                         torch_cfg(CFG))
     return jp, tp
 

@@ -40,10 +40,11 @@ def both_params(jcfg, np_params, quant: str, gs: int = 16):
     cfg = torch_cfg(jcfg)
     if quant == "fp32":
         jp = jl.load_params(jcfg, np_params, dtype=jnp.float32)
-        tp = tl.load_params(cfg, np_params, dtype=torch.float32)
+        tp = tl.load_params(cfg, np_params, dtype=torch.float32, device="cpu")
     else:
         jp = jl.quantize_params(jcfg, np_params, bits=8, group_size=gs, dtype=jnp.float32)
-        tp = tl.quantize_params(cfg, np_params, bits=8, group_size=gs, dtype=torch.float32)
+        tp = tl.quantize_params(cfg, np_params, bits=8, group_size=gs, dtype=torch.float32,
+                                device="cpu")
     return cfg, jl.fuse_params(jp, jcfg), tl.fuse_params(tp, cfg)
 
 
@@ -58,7 +59,7 @@ def test_prefill_then_decode_logits_match(name, quant):
     cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=3), quant)
     toks = np.array([[1, 5, 9, 3, 7, 2, 8, 4]], np.int32)
     jc = jl.KVCache.create(jcfg, 1, 32, dtype=jnp.float32)
-    tc = tl.KVCache.create(cfg, 1, 32, dtype=torch.float32)
+    tc = tl.KVCache.create(cfg, 1, 32, dtype=torch.float32, device="cpu")
     lj, jc = jl.prefill(jp, jcfg, jnp.asarray(toks), jc)
     lt, tc = tl.prefill(tp, cfg, torch.from_numpy(toks).long(), tc)
     close(lt, lj)
@@ -82,7 +83,7 @@ def test_ragged_batch_forward_matches():
     idx = np.arange(t_pad)[None, :]
     pos_index = np.where(idx < lens[:, None], idx, t_pad - 1).astype(np.int32)
     jc = jl.KVCache.create(jcfg, 3, t_pad, dtype=jnp.float32)
-    tc = tl.KVCache.create(cfg, 3, t_pad, dtype=torch.float32)
+    tc = tl.KVCache.create(cfg, 3, t_pad, dtype=torch.float32, device="cpu")
     lj, jc = jl.forward(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos_index), jc,
                         plen=jnp.asarray(lens), logit_rows=jnp.asarray(lens - 1))
     lt, tc = tl.forward(tp, cfg, torch.from_numpy(toks).long(),
@@ -92,7 +93,7 @@ def test_ragged_batch_forward_matches():
     close(lt, lj)
     # decode at ragged positions on a longer cache
     jc2 = jl.KVCache.create(jcfg, 3, 32, dtype=jnp.float32)
-    tc2 = tl.KVCache.create(cfg, 3, 32, dtype=torch.float32)
+    tc2 = tl.KVCache.create(cfg, 3, 32, dtype=torch.float32, device="cpu")
     jc2 = jl.KVCache(k=jc2.k.at[:, :, :, :t_pad].set(jc.k), v=jc2.v.at[:, :, :, :t_pad].set(jc.v))
     tc2.k[:, :, :, :t_pad] = tc.k
     tc2.v[:, :, :, :t_pad] = tc.v
@@ -108,8 +109,8 @@ def test_plain_flag_matches_kernel_dispatch_on_cpu():
     jcfg = tiny_config(seq_len=32)
     cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=2), "int8")
     toks = torch.tensor([[1, 4, 6, 8]])
-    a, _ = tl.prefill(tp, cfg, toks, tl.KVCache.create(cfg, 1, 16, dtype=torch.float32))
-    b, _ = tl.prefill(tp, cfg, toks, tl.KVCache.create(cfg, 1, 16, dtype=torch.float32),
+    a, _ = tl.prefill(tp, cfg, toks, tl.KVCache.create(cfg, 1, 16, torch.float32, "cpu"))
+    b, _ = tl.prefill(tp, cfg, toks, tl.KVCache.create(cfg, 1, 16, torch.float32, "cpu"),
                       plain=True)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -142,7 +143,7 @@ def test_golden_chains(goldens, name, chain):
     cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=case["seed"]), quant)
     steps = goldens["steps"]
     temp = 0.0 if label == "greedy" else 0.9
-    cache = tl.KVCache.create(cfg, batch=1, max_len=steps, dtype=torch.float32)
+    cache = tl.KVCache.create(cfg, batch=1, max_len=steps, dtype=torch.float32, device="cpu")
     got = generate_prefill_decode(tp, cfg, goldens["prompt"], steps, temp, 0.9,
                                   jax_uniform_stream(goldens["key_seed"]), cache)
     assert got == case["chains"][chain]
@@ -158,12 +159,12 @@ def test_parity_loop_matches_jax_generate(temp):
     want = np.asarray(j_generate(jp, jcfg, jnp.asarray(prompt, jnp.int32), steps,
                                  len(prompt), temp, 0.9, __import__("jax").random.PRNGKey(5),
                                  jl.KVCache.create(jcfg, 1, steps, dtype=jnp.float32))).tolist()
-    cache = tl.KVCache.create(cfg, 1, steps, dtype=torch.float32)
+    cache = tl.KVCache.create(cfg, 1, steps, dtype=torch.float32, device="cpu")
     got = generate_prefill_decode(tp, cfg, prompt, steps, temp, 0.9,
                                   jax_uniform_stream(5), cache)
     assert got == want
     if temp == 0.0:
-        cache = tl.KVCache.create(cfg, 1, steps, dtype=torch.float32)
+        cache = tl.KVCache.create(cfg, 1, steps, dtype=torch.float32, device="cpu")
         scan = generate_scan(tp, cfg, prompt, steps, temp, 0.9, jax_uniform_stream(5), cache)
         assert scan[: len(prompt)] == prompt
         assert scan[len(prompt):] == want[len(prompt):]

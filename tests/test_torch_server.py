@@ -38,7 +38,7 @@ def served_engine():
     np_params = random_params(jcfg, seed=77)
     cfg = torch_cfg(jcfg)
     tok = make_newline_tokenizer(cfg.vocab_size)
-    eng = Engine(cfg, load_params(cfg, np_params, dtype=torch.float32), tok,
+    eng = Engine(cfg, load_params(cfg, np_params, dtype=torch.float32, device="cpu"), tok,
                  EngineConfig(max_batch_size=4))
     eng.start()
     yield jcfg, np_params, tok, eng
@@ -134,7 +134,7 @@ def test_gen_truncation_comment(served_engine):
 def test_gen_503_when_admission_full():
     jcfg = tiny_config(seq_len=32)
     cfg = torch_cfg(jcfg)
-    params = load_params(cfg, random_params(jcfg, seed=5), dtype=torch.float32)
+    params = load_params(cfg, random_params(jcfg, seed=5), dtype=torch.float32, device="cpu")
     # engine built but NOT started: nothing drains the bounded(30) queue
     eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size),
                  EngineConfig(max_batch_size=2))
@@ -171,7 +171,7 @@ def test_client_disconnect_cancels_request():
     the engine frees its slot."""
     jcfg = tiny_config(seq_len=64)
     cfg = torch_cfg(jcfg)
-    params = load_params(cfg, random_params(jcfg, seed=6), dtype=torch.float32)
+    params = load_params(cfg, random_params(jcfg, seed=6), dtype=torch.float32, device="cpu")
     eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size),
                  EngineConfig(max_batch_size=2, decode_tick=1))
     submitted = []
