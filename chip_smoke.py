@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the rama_tpu_torch port on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py                 # every phase, as the chip check runs it
+    python3 chip_smoke.py                 # every phase (the full check)
     python3 chip_smoke.py --phases build,kernels   # a subset while iterating
 
 Phases, in order (any failure raises and the script exits non-zero):
@@ -210,24 +210,25 @@ def phase_kernels(torch, results: dict) -> None:
     wcls = rq(1, D, cfg.vocab_size)
     wcls2 = type(wcls)(q=wcls.q[0].contiguous(), scales=wcls.scales[0].contiguous(),
                        group_size=gs)
-    err = 0.0
     for m in (1, 8, 128):
         x = rx(m, D)
         for l in (0, L - 1):
-            err = max(err, compare(torch, f"quant_matmul wqkv M={m} layer={l}",
+            compare(torch, f"quant_matmul wqkv M={m} layer={l}",
                                    qm.quant_matmul(x, wqkv, l),
-                                   qm.quant_matmul_plain(x, wqkv, l)))
+                                   qm.quant_matmul_plain(x, wqkv, l))
     x8 = rx(8, D)
-    err = max(err, compare(torch, "quant_matmul lm_head M=8 (2-D)",
-                           qm.quant_matmul(x8, wcls2), qm.quant_matmul_plain(x8, wcls2)))
+    compare(torch, "quant_matmul lm_head M=8 (2-D)",
+                           qm.quant_matmul(x8, wcls2), qm.quant_matmul_plain(x8, wcls2))
     # ragged: N not a multiple of 16, K of 9 groups of 32, odd M, fp32
     small = quantize_int8(torch.randn(2, 288, 1000, generator=torch.Generator().manual_seed(2)), 32)
     small = type(small)(q=small.q.to(dev), scales=small.scales.to(dev), group_size=32)
     for m, dt in ((3, bf), (40, bf), (5, torch.float32)):
         xs = rx(m, 288, dtype=dt)
-        err = max(err, compare(torch, f"quant_matmul ragged K=288 N=1000 M={m} {dt}",
+        compare(torch, f"quant_matmul ragged K=288 N=1000 M={m} {dt}",
                                qm.quant_matmul(xs, small, 1),
-                               qm.quant_matmul_plain(xs, small, 1)))
+                               qm.quant_matmul_plain(xs, small, 1))
+    err = compare(torch, "quant_matmul timed inputs (x8, wqkv layer 0)",
+                  qm.quant_matmul(x8, wqkv, 0), qm.quant_matmul_plain(x8, wqkv, 0))
     lay = Layered(L)
     t_k = time_ms(torch, lambda: qm.quant_matmul(x8, wqkv, lay.next()))
     t_p = time_ms(torch, lambda: qm.quant_matmul_plain(x8, wqkv, lay.next()), reps=5)
@@ -255,25 +256,26 @@ def phase_kernels(torch, results: dict) -> None:
     # -- kernel 2: ffn ---------------------------------------------------------
     il = phase_a_tile(H, gs) or 0
     w13, w2 = rq(L, D, 2 * H, il=il), rq(L, H, D)
-    err = 0.0
     for m in (1, 8):
         x = rx(m, D)
         for l in (0, L - 1):
-            err = max(err, compare(torch, f"ffn il={il} M={m} layer={l}",
+            compare(torch, f"ffn il={il} M={m} layer={l}",
                                    ffn_mod.ffn(x, w13, w2, l),
-                                   ffn_mod.ffn_plain(x, w13, w2, l)))
+                                   ffn_mod.ffn_plain(x, w13, w2, l))
     # plain [W1 | W3] layout and a ragged hidden dim (tiny's 176)
     w13p = type(w13)(q=w13.q[:2], scales=w13.scales[:2], group_size=gs, il=0)
     w2p = type(w2)(q=w2.q[:2], scales=w2.scales[:2], group_size=gs)
-    err = max(err, compare(torch, "ffn plain layout M=8", ffn_mod.ffn(x8, w13p, w2p, 1),
-                           ffn_mod.ffn_plain(x8, w13p, w2p, 1)))
+    compare(torch, "ffn plain layout M=8", ffn_mod.ffn(x8, w13p, w2p, 1),
+                           ffn_mod.ffn_plain(x8, w13p, w2p, 1))
     tg = torch.Generator().manual_seed(3)
     t13 = quantize_int8(torch.randn(1, 64, 352, generator=tg), 16)
     t2 = quantize_int8(torch.randn(1, 176, 64, generator=tg), 16)
     t13, t2 = t13.to(dev), t2.to(dev)
     xt = rx(3, 64)
-    err = max(err, compare(torch, "ffn tiny H=176 M=3", ffn_mod.ffn(xt, t13, t2, 0),
-                           ffn_mod.ffn_plain(xt, t13, t2, 0)))
+    compare(torch, "ffn tiny H=176 M=3", ffn_mod.ffn(xt, t13, t2, 0),
+                           ffn_mod.ffn_plain(xt, t13, t2, 0))
+    err = compare(torch, "ffn timed inputs (x8, layer 0)", ffn_mod.ffn(x8, w13, w2, 0),
+                  ffn_mod.ffn_plain(x8, w13, w2, 0))
     lay = Layered(L)
     t_k = time_ms(torch, lambda: ffn_mod.ffn(x8, w13, w2, lay.next()))
     t_p = time_ms(torch, lambda: ffn_mod.ffn_plain(x8, w13, w2, lay.next()), reps=5)
@@ -296,21 +298,23 @@ def phase_kernels(torch, results: dict) -> None:
     q = rx(B, cfg.n_heads, hd)
     pos = torch.tensor([0, 255, 256, 1023, 63, 64, 511, 700], dtype=torch.int32,
                        device=dev)
-    err = 0.0
     for l in (0, L - 1):
-        err = max(err, compare(torch, f"decode_attention B=8 S=1024 layer={l} "
+        compare(torch, f"decode_attention B=8 S=1024 layer={l} "
                                f"pos={pos.tolist()}",
                                da.decode_attention(q, kc, vc, pos, l),
-                               da.decode_attention_plain(q, kc, vc, pos, l)))
+                               da.decode_attention_plain(q, kc, vc, pos, l))
     # GQA (rep 2) with hd 48 and hd 16, fp32 and bf16
     for hd_s, dt in ((48, bf), (16, torch.float32)):
         kq = rx(2, 3, 2, 80, hd_s, dtype=dt)
         vq = rx(2, 3, 2, 80, hd_s, dtype=dt)
         qq = rx(3, 4, hd_s, dtype=dt)
         pq = torch.tensor([0, 64, 79], dtype=torch.int32, device=dev)
-        err = max(err, compare(torch, f"decode_attention GQA rep=2 hd={hd_s} {dt}",
+        compare(torch, f"decode_attention GQA rep=2 hd={hd_s} {dt}",
                                da.decode_attention(qq, kq, vq, pq, 1),
-                               da.decode_attention_plain(qq, kq, vq, pq, 1)))
+                               da.decode_attention_plain(qq, kq, vq, pq, 1))
+    err = compare(torch, "decode_attention timed inputs (layer 0)",
+                  da.decode_attention(q, kc, vc, pos, 0),
+                  da.decode_attention_plain(q, kc, vc, pos, 0))
     lay = Layered(L)
     t_k = time_ms(torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next()))
     t_p = time_ms(torch, lambda: da.decode_attention_plain(q, kc, vc, pos, lay.next()))
@@ -335,7 +339,6 @@ def phase_kernels(torch, results: dict) -> None:
     del kc, vc
 
     # -- kernel 4: prefill attention ---------------------------------------------
-    err = 0.0
     cases = ((8, 16, 16, [16, 5, 1, 9, 16, 2, 3, 12]),    # serving bucket, plen < T
              (2, 128, 128, [128, 77]),
              (1, 512, 1024, [300]))
@@ -343,19 +346,21 @@ def phase_kernels(torch, results: dict) -> None:
         qp = rx(b, t, cfg.n_heads, hd)
         kp, vp = rx(b, nkv, s, hd), rx(b, nkv, s, hd)
         pl = torch.tensor(plens, dtype=torch.int32, device=dev)
-        err = max(err, compare(torch, f"prefill_attention B={b} T={t} S={s} plen={plens}",
+        compare(torch, f"prefill_attention B={b} T={t} S={s} plen={plens}",
                                pa.prefill_attention(qp, kp, vp, pl),
-                               pa.prefill_attention_plain(qp, kp, vp, pl)))
+                               pa.prefill_attention_plain(qp, kp, vp, pl))
     for dt in (torch.float32,):
         qg, kg, vg = rx(2, 24, 4, 48, dtype=dt), rx(2, 2, 32, 48, dtype=dt), rx(2, 2, 32, 48, dtype=dt)
         plg = torch.tensor([24, 7], dtype=torch.int32, device=dev)
-        err = max(err, compare(torch, "prefill_attention GQA rep=2 hd=48 f32",
+        compare(torch, "prefill_attention GQA rep=2 hd=48 f32",
                                pa.prefill_attention(qg, kg, vg, plg),
-                               pa.prefill_attention_plain(qg, kg, vg, plg)))
+                               pa.prefill_attention_plain(qg, kg, vg, plg))
     b, t, s, plens = cases[0]
     qp = rx(b, t, cfg.n_heads, hd)
     kp, vp = rx(b, nkv, s, hd), rx(b, nkv, s, hd)
     pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+    err = compare(torch, "prefill_attention timed inputs",
+                  pa.prefill_attention(qp, kp, vp, pl), pa.prefill_attention_plain(qp, kp, vp, pl))
     t_k = time_ms(torch, lambda: pa.prefill_attention(qp, kp, vp, pl))
     t_p = time_ms(torch, lambda: pa.prefill_attention_plain(qp, kp, vp, pl))
     tpos = torch.arange(t, device=dev)

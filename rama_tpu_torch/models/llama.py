@@ -45,7 +45,7 @@ Params = dict[str, Any]
 
 __all__ = ["KVCache", "load_params", "load_params_quantized", "quantize_params",
            "fuse_params", "rmsnorm", "apply_rope", "forward", "prefill",
-           "decode_step", "split_h13", "params_to"]
+           "decode_step", "split_h13"]
 
 
 class _Ops:
@@ -158,10 +158,6 @@ def quantize_params(cfg: ModelConfig, np_params: dict, bits: int = 8,
                  else quantize_int8(np.asarray(np_params["wcls"]), group_size).to(device))
     p["rope_cos"], p["rope_sin"] = _rope_tables(cfg, device)
     return p
-
-
-def params_to(params: Params, device) -> Params:
-    return {k: v.to(device) for k, v in params.items()}
 
 
 def _pick_tile(dim: int, target: int, multiple: int) -> int | None:

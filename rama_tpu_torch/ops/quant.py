@@ -38,14 +38,6 @@ class QuantizedTensor:
     bits: int = 8
     il: int = 0
 
-    @property
-    def shape(self) -> tuple:
-        return tuple(self.q.shape)
-
-    @property
-    def device(self) -> torch.device:
-        return self.q.device
-
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(q=self.q.to(device), scales=self.scales.to(device),
                                group_size=self.group_size, bits=self.bits,
@@ -60,10 +52,6 @@ class QuantizedEmbedding:
     q: torch.Tensor
     scales: torch.Tensor
     group_size: int
-
-    @property
-    def device(self) -> torch.device:
-        return self.q.device
 
     def to(self, device) -> "QuantizedEmbedding":
         return QuantizedEmbedding(q=self.q.to(device),

@@ -127,3 +127,52 @@ def test_tiny_model_logits_kernels_equal_plain(dev):
         torch.testing.assert_close(lk, lp, atol=1e-3, rtol=0)
         tok_k, tok_p = torch.argmax(lk, dim=-1), torch.argmax(lp, dim=-1)
         assert tok_k.item() == tok_p.item()
+
+
+def test_engine_on_card_matches_cpu_engine(dev):
+    """The slim engine on the card (every kernel, decode ticks of 4, a prompt
+    truncated to fill the cache, a stream that runs to max_len, a sampled
+    stream) emits the same streams as the engine on the CPU."""
+    import numpy as np
+
+    from rama_tpu_torch.config import EngineConfig, ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=64)
+    rng = np.random.default_rng(3)
+    L, D, H, V = 2, 64, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.1).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, 32), "wv": (L, D, 32),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                        for i in range(V - 3)]
+    tok = Tokenizer(vocab, [0.0] * V)
+    outs = []
+    for device in ("cpu", dev):
+        eng = Engine(cfg, quantize_params(cfg, p, group_size=16, dtype=torch.float32,
+                                          device=device),
+                     tok, EngineConfig(max_batch_size=4, decode_tick=4))
+        reqs = [Request(prompt="ab" * 40, steps=8, temperature=0.0),
+                Request(prompt="abc", steps=100, temperature=0.0, stop_at_eos=False),
+                Request(prompt="zq", steps=20, temperature=0.9)]
+        eng.start()
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = []
+            for r in reqs:
+                toks = []
+                while (t := r.queue.get(timeout=120)) is not None:
+                    toks.append(t)
+                got.append(toks)
+        finally:
+            eng.stop()
+        assert all(r.error is None for r in reqs)
+        assert len(got[1]) == 64 - 4   # ran to the end of the cache
+        outs.append(got)
+    assert outs[0] == outs[1]

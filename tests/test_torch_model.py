@@ -168,3 +168,25 @@ def test_parity_loop_matches_jax_generate(temp):
         scan = generate_scan(tp, cfg, prompt, steps, temp, 0.9, jax_uniform_stream(5), cache)
         assert scan[: len(prompt)] == prompt
         assert scan[len(prompt):] == want[len(prompt):]
+
+
+@pytest.mark.parametrize("quant", ["fp32", "int8"])
+def test_unfused_params_give_the_fused_logits(quant):
+    """forward takes unfused (wq/wk/wv, w1/w3) params too, as rama_tpu's does;
+    fusing (and the int8 w13 interleave) changes no logit."""
+    jcfg = CONFIGS["stories15M"].replace(n_layers=2, vocab_size=256)
+    cfg = torch_cfg(jcfg)
+    np_params = random_params(jcfg, seed=6)
+    if quant == "fp32":
+        raw = tl.load_params(cfg, np_params, dtype=torch.float32, device="cpu")
+    else:
+        raw = tl.quantize_params(cfg, np_params, group_size=16, dtype=torch.float32,
+                                 device="cpu")
+    toks = torch.tensor([[1, 9, 4, 7, 3]])
+    outs = []
+    for params in (raw, tl.fuse_params(raw, cfg)):
+        cache = tl.KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+        logits, cache = tl.prefill(params, cfg, toks, cache)
+        step, _ = tl.decode_step(params, cfg, torch.tensor([5]), torch.tensor([5]), cache)
+        outs.append((logits, step))
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
