@@ -351,8 +351,11 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
     idx = pos_index.long().clamp(0, params["rope_cos"].shape[0] - 1)
     cos, sin = params["rope_cos"][idx], params["rope_sin"][idx]
     pos = pos_index[:, 0].to(torch.int32).contiguous()
+    # the fused FFN kernel serves decode-sized batches; larger ones take the
+    # split w13 / w2 matmuls (rama_tpu's ffn_tileable choice, by shape)
     fused_ffn = (isinstance(params.get("w13"), QuantizedTensor)
-                 and isinstance(params.get("w2"), QuantizedTensor))
+                 and isinstance(params.get("w2"), QuantizedTensor)
+                 and b <= _qm.FFN_MAX_M)
     for l in range(cfg.n_layers):
         xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
         q, k, v = _qkv(xb, params, cfg, l, ops)
