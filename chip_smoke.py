@@ -182,13 +182,15 @@ def phase_build() -> None:
 
 def phase_kernels(torch, results: dict) -> None:
     """Each kernel vs its plain version at 7B shapes and ragged edges."""
+    import torch.nn.functional as F
+
     from rama_tpu_torch.config import ModelConfig
     from rama_tpu_torch.models.llama import phase_a_tile
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
-    from rama_tpu_torch.ops.quant import quantize_int8
+    from rama_tpu_torch.ops.quant import QuantizedTensor, quantize_int8
 
     dev = torch.device("cuda")
     cfg = seven_b_config(ModelConfig)
@@ -197,7 +199,6 @@ def phase_kernels(torch, results: dict) -> None:
     L, D, H, gs = cfg.n_layers, cfg.dim, cfg.hidden_dim, 64
 
     def rq(l, k, n, il=0):
-        from rama_tpu_torch.ops.quant import QuantizedTensor
         q = torch.randint(-127, 128, (l, k, n), dtype=torch.int8, device=dev, generator=g)
         s = (torch.rand((l, k // gs, n), device=dev, generator=g) + 0.5) / (73 * math.sqrt(k))
         return QuantizedTensor(q=q, scales=s, group_size=gs, bits=8, il=il)
@@ -208,25 +209,25 @@ def phase_kernels(torch, results: dict) -> None:
     # -- kernel 1: quant_matmul ------------------------------------------------
     wqkv = rq(L, D, 3 * D)
     wcls = rq(1, D, cfg.vocab_size)
-    wcls2 = type(wcls)(q=wcls.q[0].contiguous(), scales=wcls.scales[0].contiguous(),
+    wcls2 = QuantizedTensor(q=wcls.q[0].contiguous(), scales=wcls.scales[0].contiguous(),
                        group_size=gs)
     for m in (1, 8, 128):
         x = rx(m, D)
         for l in (0, L - 1):
             compare(torch, f"quant_matmul wqkv M={m} layer={l}",
-                                   qm.quant_matmul(x, wqkv, l),
-                                   qm.quant_matmul_plain(x, wqkv, l))
+                    qm.quant_matmul(x, wqkv, l),
+                    qm.quant_matmul_plain(x, wqkv, l))
     x8 = rx(8, D)
     compare(torch, "quant_matmul lm_head M=8 (2-D)",
-                           qm.quant_matmul(x8, wcls2), qm.quant_matmul_plain(x8, wcls2))
+            qm.quant_matmul(x8, wcls2), qm.quant_matmul_plain(x8, wcls2))
     # ragged: N not a multiple of 16, K of 9 groups of 32, odd M, fp32
     small = quantize_int8(torch.randn(2, 288, 1000, generator=torch.Generator().manual_seed(2)), 32)
-    small = type(small)(q=small.q.to(dev), scales=small.scales.to(dev), group_size=32)
+    small = QuantizedTensor(q=small.q.to(dev), scales=small.scales.to(dev), group_size=32)
     for m, dt in ((3, bf), (40, bf), (5, torch.float32)):
         xs = rx(m, 288, dtype=dt)
         compare(torch, f"quant_matmul ragged K=288 N=1000 M={m} {dt}",
-                               qm.quant_matmul(xs, small, 1),
-                               qm.quant_matmul_plain(xs, small, 1))
+                qm.quant_matmul(xs, small, 1),
+                qm.quant_matmul_plain(xs, small, 1))
     err = compare(torch, "quant_matmul timed inputs (x8, wqkv layer 0)",
                   qm.quant_matmul(x8, wqkv, 0), qm.quant_matmul_plain(x8, wqkv, 0))
     lay = Layered(L)
@@ -260,20 +261,20 @@ def phase_kernels(torch, results: dict) -> None:
         x = rx(m, D)
         for l in (0, L - 1):
             compare(torch, f"ffn il={il} M={m} layer={l}",
-                                   ffn_mod.ffn(x, w13, w2, l),
-                                   ffn_mod.ffn_plain(x, w13, w2, l))
+                    ffn_mod.ffn(x, w13, w2, l),
+                    ffn_mod.ffn_plain(x, w13, w2, l))
     # plain [W1 | W3] layout and a ragged hidden dim (tiny's 176)
-    w13p = type(w13)(q=w13.q[:2], scales=w13.scales[:2], group_size=gs, il=0)
-    w2p = type(w2)(q=w2.q[:2], scales=w2.scales[:2], group_size=gs)
+    w13p = QuantizedTensor(q=w13.q[:2], scales=w13.scales[:2], group_size=gs, il=0)
+    w2p = QuantizedTensor(q=w2.q[:2], scales=w2.scales[:2], group_size=gs)
     compare(torch, "ffn plain layout M=8", ffn_mod.ffn(x8, w13p, w2p, 1),
-                           ffn_mod.ffn_plain(x8, w13p, w2p, 1))
+            ffn_mod.ffn_plain(x8, w13p, w2p, 1))
     tg = torch.Generator().manual_seed(3)
     t13 = quantize_int8(torch.randn(1, 64, 352, generator=tg), 16)
     t2 = quantize_int8(torch.randn(1, 176, 64, generator=tg), 16)
     t13, t2 = t13.to(dev), t2.to(dev)
     xt = rx(3, 64)
     compare(torch, "ffn tiny H=176 M=3", ffn_mod.ffn(xt, t13, t2, 0),
-                           ffn_mod.ffn_plain(xt, t13, t2, 0))
+            ffn_mod.ffn_plain(xt, t13, t2, 0))
     err = compare(torch, "ffn timed inputs (x8, layer 0)", ffn_mod.ffn(x8, w13, w2, 0),
                   ffn_mod.ffn_plain(x8, w13, w2, 0))
     lay = Layered(L)
@@ -300,9 +301,9 @@ def phase_kernels(torch, results: dict) -> None:
                        device=dev)
     for l in (0, L - 1):
         compare(torch, f"decode_attention B=8 S=1024 layer={l} "
-                               f"pos={pos.tolist()}",
-                               da.decode_attention(q, kc, vc, pos, l),
-                               da.decode_attention_plain(q, kc, vc, pos, l))
+                f"pos={pos.tolist()}",
+                da.decode_attention(q, kc, vc, pos, l),
+                da.decode_attention_plain(q, kc, vc, pos, l))
     # GQA (rep 2) with hd 48 and hd 16, fp32 and bf16
     for hd_s, dt in ((48, bf), (16, torch.float32)):
         kq = rx(2, 3, 2, 80, hd_s, dtype=dt)
@@ -310,15 +311,14 @@ def phase_kernels(torch, results: dict) -> None:
         qq = rx(3, 4, hd_s, dtype=dt)
         pq = torch.tensor([0, 64, 79], dtype=torch.int32, device=dev)
         compare(torch, f"decode_attention GQA rep=2 hd={hd_s} {dt}",
-                               da.decode_attention(qq, kq, vq, pq, 1),
-                               da.decode_attention_plain(qq, kq, vq, pq, 1))
+                da.decode_attention(qq, kq, vq, pq, 1),
+                da.decode_attention_plain(qq, kq, vq, pq, 1))
     err = compare(torch, "decode_attention timed inputs (layer 0)",
                   da.decode_attention(q, kc, vc, pos, 0),
                   da.decode_attention_plain(q, kc, vc, pos, 0))
     lay = Layered(L)
     t_k = time_ms(torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next()))
     t_p = time_ms(torch, lambda: da.decode_attention_plain(q, kc, vc, pos, lay.next()))
-    import torch.nn.functional as F
     vis = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
 
     def sdpa_decode():
@@ -347,14 +347,14 @@ def phase_kernels(torch, results: dict) -> None:
         kp, vp = rx(b, nkv, s, hd), rx(b, nkv, s, hd)
         pl = torch.tensor(plens, dtype=torch.int32, device=dev)
         compare(torch, f"prefill_attention B={b} T={t} S={s} plen={plens}",
-                               pa.prefill_attention(qp, kp, vp, pl),
-                               pa.prefill_attention_plain(qp, kp, vp, pl))
-    for dt in (torch.float32,):
-        qg, kg, vg = rx(2, 24, 4, 48, dtype=dt), rx(2, 2, 32, 48, dtype=dt), rx(2, 2, 32, 48, dtype=dt)
-        plg = torch.tensor([24, 7], dtype=torch.int32, device=dev)
-        compare(torch, "prefill_attention GQA rep=2 hd=48 f32",
-                               pa.prefill_attention(qg, kg, vg, plg),
-                               pa.prefill_attention_plain(qg, kg, vg, plg))
+                pa.prefill_attention(qp, kp, vp, pl),
+                pa.prefill_attention_plain(qp, kp, vp, pl))
+    f32 = torch.float32
+    qg, kg, vg = rx(2, 24, 4, 48, dtype=f32), rx(2, 2, 32, 48, dtype=f32), rx(2, 2, 32, 48, dtype=f32)
+    plg = torch.tensor([24, 7], dtype=torch.int32, device=dev)
+    compare(torch, "prefill_attention GQA rep=2 hd=48 f32",
+            pa.prefill_attention(qg, kg, vg, plg),
+            pa.prefill_attention_plain(qg, kg, vg, plg))
     b, t, s, plens = cases[0]
     qp = rx(b, t, cfg.n_heads, hd)
     kp, vp = rx(b, nkv, s, hd), rx(b, nkv, s, hd)

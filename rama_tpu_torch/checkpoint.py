@@ -38,7 +38,6 @@ the sizes the export writes, so GQA checkpoints parse correctly.
 from __future__ import annotations
 
 import mmap
-import os
 import struct
 from dataclasses import dataclass
 

@@ -83,18 +83,21 @@ def generate_prefill_decode(params, cfg: ModelConfig, prompt_ids: list[int],
 
 def generate_text(params, cfg: ModelConfig, tokenizer: Tokenizer, prompt: str,
                   steps: int | None = None, temperature: float = 1.0,
-                  top_p: float = 0.9, seed: int = 100, cache_dtype=torch.bfloat16,
+                  top_p: float = 0.9, seed: int = 100, cache_dtype=None,
                   fast: bool = True, next_u: UniformSource | None = None,
                   ) -> tuple[str, list[int]]:
     """Encode, generate, decode on the device the params live on.
-    Returns (text, emitted token ids)."""
+    Returns (text, emitted token ids). The cache takes the params' dtype
+    unless `cache_dtype` is given: the card's attention kernels take one
+    dtype for q and the cache (the JAX package defaults to a bf16 cache)."""
     steps = min(steps or 255, cfg.seq_len)
     prompt_ids = tokenizer.encode(prompt) if prompt else []
     if len(prompt_ids) >= steps:
         prompt_ids = prompt_ids[: steps - 1]
     next_u = next_u or _generator_source(seed)
     dev = params["final_norm"].device
-    cache = KVCache.create(cfg, batch=1, dtype=cache_dtype, device=dev)
+    cache = KVCache.create(cfg, batch=1, dtype=cache_dtype or params["final_norm"].dtype,
+                           device=dev)
     if fast and prompt_ids:
         ids = generate_prefill_decode(params, cfg, prompt_ids, steps, temperature,
                                       top_p, next_u, cache)

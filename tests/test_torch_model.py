@@ -207,3 +207,27 @@ def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch):
         logits, _ = tl.decode_step(tp, cfg, torch.arange(b) % 100, torch.zeros(b).long(), cache)
         assert logits.shape == (b, cfg.vocab_size) and torch.isfinite(logits).all()
         assert len(calls) == (cfg.n_layers if b <= qm.FFN_MAX_M else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generate_text_cache_takes_the_params_dtype(monkeypatch, dtype):
+    """generate_text's cache defaults to the params' dtype (the card's
+    attention kernels take one dtype for q and the cache); an explicit
+    cache_dtype still wins."""
+    from rama_tpu_torch.runtime import generate as tg
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    jcfg = tiny_config(seq_len=16)
+    cfg = torch_cfg(jcfg)
+    params = tl.fuse_params(tl.load_params(cfg, random_params(jcfg, seed=1), dtype=dtype,
+                                           device="cpu"), cfg)
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) * (1 + i // 26) for i in range(125)]
+    tok = Tokenizer(vocab, [0.0] * len(vocab))
+    made = []
+    create = tl.KVCache.create
+    monkeypatch.setattr(tg.KVCache, "create",
+                        lambda *a, **kw: made.append(kw["dtype"]) or create(*a, **kw))
+    for cache_dtype, want in ((None, dtype), (torch.float32, torch.float32)):
+        _, ids = tg.generate_text(params, cfg, tok, "ab", steps=6, temperature=0.0,
+                                  cache_dtype=cache_dtype)
+        assert len(ids) == 6 and made[-1] == want
