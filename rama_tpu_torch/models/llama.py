@@ -355,7 +355,7 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
     # split w13 / w2 matmuls (rama_tpu's ffn_tileable choice, by shape)
     fused_ffn = (isinstance(params.get("w13"), QuantizedTensor)
                  and isinstance(params.get("w2"), QuantizedTensor)
-                 and b <= _qm.FFN_MAX_M)
+                 and b <= _ffn.FFN_MAX_M)
     for l in range(cfg.n_layers):
         xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
         q, k, v = _qkv(xb, params, cfg, l, ops)

@@ -18,15 +18,15 @@ import torch.nn.functional as F
 
 from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
-from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, FFN_MAX_M,
-                                                     check_weight, layer_of,
-                                                     rows_per_cta, split_k,
-                                                     weight_ptrs)
+from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, check_weight,
+                                                     layer_of, rows_per_cta,
+                                                     split_k, weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 
 launches = 0  # wrapper calls that launched the kernels since the last reset
 
 _UNITS = 256      # hidden units per w13 CTA (csrc/ffn.cu)
+FFN_MAX_M = 32    # rows the kernels serve (csrc/ffn.cu: 8-row chunks above 8)
 
 _SIGNATURES = {
     "rama_ffn_w13": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],

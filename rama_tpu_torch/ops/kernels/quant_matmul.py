@@ -25,7 +25,6 @@ launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # the tiled kernel, which reads W once per 64 rows — so W streams once for
 # any M <= 64, and the 8-slot decode step takes the GEMV.
 GEMV_MAX_M = 8
-FFN_MAX_M = 32        # the FFN kernel serves M <= 32 (8-row chunks above 8)
 _TARGET_CTAS = 264    # two CTAs per SM on the H100's 132
 _QMV_COLS = 512       # output columns per GEMV CTA (csrc/qmv.cuh)
 _SMEM_X_BYTES = 48 * 1024

@@ -195,18 +195,16 @@ def test_unfused_params_give_the_fused_logits(quant):
 def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch):
     """Decode batches above the FFN kernel's M limit run the split w13 / w2
     matmuls instead of the fused FFN (the JAX package's shape-based choice)."""
-    from rama_tpu_torch.ops.kernels import quant_matmul as qm
-
     jcfg = tiny_config(seq_len=16)
     cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=5), "int8")
     calls = []
     monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a: calls.append(a) or tl._ffn.ffn(*a))
-    for b in (qm.FFN_MAX_M, qm.FFN_MAX_M + 1):
+    for b in (tl._ffn.FFN_MAX_M, tl._ffn.FFN_MAX_M + 1):
         calls.clear()
         cache = tl.KVCache.create(cfg, b, 16, torch.float32, "cpu")
         logits, _ = tl.decode_step(tp, cfg, torch.arange(b) % 100, torch.zeros(b).long(), cache)
         assert logits.shape == (b, cfg.vocab_size) and torch.isfinite(logits).all()
-        assert len(calls) == (cfg.n_layers if b <= qm.FFN_MAX_M else 0)
+        assert len(calls) == (cfg.n_layers if b <= tl._ffn.FFN_MAX_M else 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
