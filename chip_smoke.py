@@ -17,6 +17,10 @@ Phases, in order (any failure raises and the script exits non-zero):
            times of kernel, plain version and, where one PyTorch call
            computes the same function, that call (library_ms, a yardstick
            the port never calls)
+  kernels4 the same for the int4 instantiations of quant_matmul (decode
+           GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
+           int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
+           stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16
   model    Llama-2-7B int8 params from a seed on the card (untied
            classifier), kernel-path logits against the plain path
   generate generate_text, greedy, a few dozen tokens (non-degenerate)
@@ -25,14 +29,21 @@ Phases, in order (any failure raises and the script exits non-zero):
            /metrics
   profile  torch.profiler over 8-slot decode steps: host ms/step, device
            kernel ms/step by kernel, device busy share
+  model4   Llama-2-7B int4 params (int4 layers, int8 embedding and
+           classifier) from a seed on the card, logits against the plain path
+  serve4   the server on the int4 model: 8 concurrent /gen requests
+  profile4 the profile of 8-slot int4 decode steps
   cli      a small synthetic v2 checkpoint through `python -m
-           rama_tpu_torch.cli generate --device cuda`
+           rama_tpu_torch.cli generate --device cuda`, and a v0 one with
+           `--quant int4`
 
-The launch counters are set to 0 just before `generate` and read after
-`serve` (the main path); every kernel must have launched there. The line
-before last holds the card's name and power limit, the line before that
-the {"kernels": [...]} record, and the last line the {"ok": true, ...}
-result, which only a run of every phase prints.
+Two main paths, each with the launch counters set to 0 just before it and
+read just after: int8 (`generate` + `serve`), where every int8 kernel must
+have launched, and int4 (`serve4`), where every int4 kernel, the int8
+classifier's GEMV and both attention kernels must have. The line before
+last holds the card's name and power limit, the line before that the
+{"kernels": [...]} record, and the last line the {"ok": true, ...} result,
+which only a run of every phase prints.
 """
 
 from __future__ import annotations
@@ -54,9 +65,24 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
-ALL_PHASES = ("card", "build", "kernels", "model", "generate", "serve", "profile",
-              "cli")
+ALL_PHASES = ("card", "build", "kernels", "kernels4", "model", "generate", "serve",
+              "profile", "model4", "serve4", "profile4", "cli")
+INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
+
+# The two main paths: their phases (model check, main path, profile) and
+# the kernels each must launch, with the key of the kernels record that
+# takes each one's count ("launches" on the path of the kernel's own
+# weights; the int4 path also runs the int8 classifier's GEMV and the
+# attention kernels).
+INT8_PATH = dict(phases=("model", "generate", "serve", "profile"),
+                 record={"quant_matmul": "launches", "ffn": "launches",
+                         "decode_attention": "launches", "prefill_attention": "launches"})
+INT4_PATH = dict(phases=("model4", "serve4", "profile4"),
+                 record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
+                         "quant_matmul": "launches_int4_path",
+                         "decode_attention": "launches_int4_path",
+                         "prefill_attention": "launches_int4_path"})
 
 
 def log(msg: str) -> None:
@@ -133,6 +159,45 @@ def plant_prefill_edges(v_cache, plens, rows) -> None:
                 v_cache[b, :, r] *= 16
 
 
+def reset_launches(qm, ffn_mod, da, pa) -> None:
+    for counts in (qm.launches, ffn_mod.launches):
+        for bits in counts:
+            counts[bits] = 0
+    da.launches = pa.launches = 0
+
+
+def read_launches(qm, ffn_mod, da, pa) -> dict:
+    """Each kernel's launch count by the name of its kernels record."""
+    return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
+            "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
+            "decode_attention": da.launches, "prefill_attention": pa.launches}
+
+
+def matmul_bytes(w, m: int) -> float:
+    """Bytes one quant_matmul call must move: one layer's weight (1 byte a
+    value for int8, half for int4) and f32 scales, bf16 x (m, K) and y (m, N)."""
+    k, n = w.shape[-2:]
+    return k * n * w.bits / 8 + (k // w.group_size) * n * 4 + m * (k + n) * 2
+
+
+def time_quant_matmul(torch, qm, label: str, x, w, layer, n_layers: int) -> None:
+    """Kernel and plain times of one quant_matmul shape beside its bound,
+    the layer cycling as in a decode step (layer None: a 2-D weight)."""
+    from functools import partial
+
+    lay = Layered(n_layers)
+
+    def call(f):
+        return partial(f, x, w) if layer is None else lambda: f(x, w, lay.next())
+
+    t = time_ms(torch, call(qm.quant_matmul))
+    t_p = time_ms(torch, call(qm.quant_matmul_plain), reps=5)
+    m, (k, n) = x.shape[0], w.shape[-2:]
+    b, by = bound_ms(matmul_bytes(w, m), 2 * m * k * n)
+    log(f"[time] quant_matmul {label}: {t:.4f} ms, plain {t_p:.4f} ms (bound {b:.4f} ms, "
+        f"{by})")
+
+
 class Layered:
     """Cycle the layer index across timed launches, as a decode step does
     (consecutive launches on one layer would read its weights from L2)."""
@@ -154,18 +219,41 @@ def seven_b_config(ModelConfig):
                        shared_classifier=False)
 
 
-def random_int8_params(torch, cfg, device, seed: int = 0, gs: int = 64):
-    """Llama-2-7B int8 params from a seed, generated on the card, in the fused
-    layout (wqkv, il-interleaved w13), with an UNTIED classifier (a tied one
-    gives logits a self-match term that locks greedy decode onto one token).
-    Scales are sized so int8 weights act like ~N(0, 1/K) entries."""
+def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
+    """A stacked (l, k, n) int4 weight made on the card: the group size
+    quantize_int4 picks for this K, packed bytes whose two nibbles are drawn
+    from [-7, 7] (the range quantize_int4 produces, never -8), scales sized
+    so the weights act like ~N(0, 1/K) entries."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor, pick_int4_group_size
+
+    gs = pick_int4_group_size(k, gs)
+    lo, hi = ((torch.randint(0, 15, (l, k // 2, n), dtype=torch.uint8, device=device,
+                             generator=g) + 9) % 16 for _ in range(2))
+    s = (torch.rand((l, k // gs, n), device=device, generator=g) + 0.5) / (
+        INT4_STD * math.sqrt(k))
+    return QuantizedTensor(q=(lo | (hi << 4)).view(torch.int8), scales=s, group_size=gs,
+                           bits=4, il=il)
+
+
+def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64):
+    """Llama-2-7B int8 or int4 params from a seed, generated on the card
+    (quantizing 6.7 B fp32 weights on the host would take 27 GB and
+    minutes), in the fused layout (wqkv, il-interleaved w13), with an UNTIED
+    classifier (a tied one gives logits a self-match term that locks greedy
+    decode onto one token). int4 layer weights take quantize_int4's group
+    sizes (64 for K = 4096, 16 for w2's K = 11008); the embedding and the
+    classifier stay int8, as quantize_params(bits=4) leaves them. Scales are
+    sized so the weights act like ~N(0, 1/K) entries."""
     from rama_tpu_torch.models.llama import _rope_tables, phase_a_tile
-    from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
+    from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
+                                          pick_int4_group_size)
 
     g = torch.Generator(device=device).manual_seed(seed)
     L, D, H, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
 
     def qt(k, n, il=0):
+        if bits == 4:
+            return random_int4_qt(torch, L, k, n, gs, device, g, il=il)
         q = torch.randint(-127, 128, (L, k, n), dtype=torch.int8, device=device,
                           generator=g)
         s = torch.rand((L, k // gs, n), device=device, generator=g) + 0.5
@@ -180,13 +268,14 @@ def random_int8_params(torch, cfg, device, seed: int = 0, gs: int = 64):
                                              device=device, generator=g),
                              scales=emb_s.clone(), group_size=gs)
     bf = torch.bfloat16
+    gs2 = gs if bits == 8 else pick_int4_group_size(H, gs)
     p = {
         "tok_embedding": emb,
         "attn_norm": torch.ones((L, D), dtype=bf, device=device),
         "ffn_norm": torch.ones((L, D), dtype=bf, device=device),
         "final_norm": torch.ones((D,), dtype=bf, device=device),
         "wqkv": qt(D, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim),
-        "w13": qt(D, 2 * H, il=phase_a_tile(H, gs) or 0),
+        "w13": qt(D, 2 * H, il=phase_a_tile(H, bits, gs2) or 0),
         "wo": qt(D, D),
         "w2": qt(H, D),
         "wcls": cls.as_classifier(),
@@ -269,29 +358,22 @@ def phase_kernels(torch, results: dict) -> None:
     lay = Layered(L)
     t_k = time_ms(torch, lambda: qm.quant_matmul(x8, wqkv, lay.next()))
     t_p = time_ms(torch, lambda: qm.quant_matmul_plain(x8, wqkv, lay.next()), reps=5)
-    nb = D * 3 * D + (D // gs) * 3 * D * 4 + 8 * D * 2 + 8 * 3 * D * 2
-    b_ms, b_by = bound_ms(nb, 2 * 8 * D * 3 * D)
+    b_ms, b_by = bound_ms(matmul_bytes(wqkv, 8), 2 * 8 * D * 3 * D)
     results["quant_matmul"] = dict(
         name="quant_matmul", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
         replaces="rama_tpu/ops/pallas/quant_matmul.py:265", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int8 gs 64")
-    for label, (xx, w, l, n) in {
-        "wo M=8": (x8, rq(L, D, D), 0, D),
-        "lm_head M=8": (x8, wcls2, None, cfg.vocab_size),
-        "wqkv M=1": (rx(1, D), wqkv, 0, 3 * D),
-        "wqkv M=256 (prefill, tiled)": (rx(256, D), wqkv, 0, 3 * D),
+    for label, (xx, w, l) in {
+        "wo M=8": (x8, rq(L, D, D), 0),
+        "lm_head M=8": (x8, wcls2, None),
+        "wqkv M=1": (rx(1, D), wqkv, 0),
+        "wqkv M=256 (prefill, tiled)": (rx(256, D), wqkv, 0),
     }.items():
-        lay2 = Layered(L)
-        fn = ((lambda xx=xx, w=w: qm.quant_matmul(xx, w)) if l is None else
-              (lambda xx=xx, w=w: qm.quant_matmul(xx, w, lay2.next())))
-        t = time_ms(torch, fn)
-        m = xx.shape[0]
-        b, by = bound_ms(D * n * 1.0625 + m * (D + n) * 2, 2 * m * D * n)
-        log(f"[time] quant_matmul {label}: {t:.4f} ms (bound {b:.4f} ms, {by})")
+        time_quant_matmul(torch, qm, label, xx, w, l, L)
 
     # -- kernel 2: ffn ---------------------------------------------------------
-    il = phase_a_tile(H, gs) or 0
+    il = phase_a_tile(H, 8, gs) or 0
     w13, w2 = rq(L, D, 2 * H, il=il), rq(L, H, D)
     for m in (1, 8):
         x = rx(m, D)
@@ -316,7 +398,7 @@ def phase_kernels(torch, results: dict) -> None:
     lay = Layered(L)
     t_k = time_ms(torch, lambda: ffn_mod.ffn(x8, w13, w2, lay.next()))
     t_p = time_ms(torch, lambda: ffn_mod.ffn_plain(x8, w13, w2, lay.next()), reps=5)
-    nb = (D * 2 * H + H * D) * (1 + 4 / gs) + 8 * D * 2 * 2
+    nb = matmul_bytes(w13, 8) + matmul_bytes(w2, 8) - 8 * 2 * H * 2 - 8 * H * 2  # h on chip
     b_ms, b_by = bound_ms(nb, 2 * 8 * (D * 2 * H + H * D))
     results["ffn"] = dict(
         name="ffn", route="cuda", source="rama_tpu_torch/csrc/ffn.cu",
@@ -439,7 +521,120 @@ def phase_kernels(torch, results: dict) -> None:
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
 
 
-def phase_model(torch, cfg, params) -> None:
+def phase_kernels_int4(torch, results: dict) -> None:
+    """The int4 instantiations of quant_matmul and ffn vs their plain
+    versions, at the 7B int4 shapes and at the tiny / stories15M shapes."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import phase_a_tile
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor, quantize_int4
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    L, D, H = cfg.n_layers, cfg.dim, cfg.hidden_dim
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    # -- K1' / K2': quant_matmul, int4 -----------------------------------------
+    wqkv = random_int4_qt(torch, L, D, 3 * D, 64, dev, g)
+    wo = random_int4_qt(torch, L, D, D, 64, dev, g)
+    w2 = random_int4_qt(torch, L, H, D, 64, dev, g)
+    assert (wqkv.group_size, wo.group_size, w2.group_size) == (64, 64, 16)
+    for label, w in (("wqkv", wqkv), ("wo", wo), ("w2 gs 16", w2)):
+        for m in (1, 8):
+            x = rx(m, w.k_dim)
+            for l in (0, L - 1):
+                compare(torch, f"quant_matmul int4 {label} M={m} layer={l}",
+                        qm.quant_matmul(x, w, l), qm.quant_matmul_plain(x, w, l))
+        for m in (128, 256):  # prefill rows: the tiled GEMM
+            x = rx(m, w.k_dim)
+            compare(torch, f"quant_matmul int4 {label} M={m} (tiled) layer={L - 1}",
+                    qm.quant_matmul(x, w, L - 1), qm.quant_matmul_plain(x, w, L - 1))
+    w2d = QuantizedTensor(q=wqkv.q[1].contiguous(), scales=wqkv.scales[1].contiguous(),
+                          group_size=64, bits=4)
+    for m in (1, 8, 128):
+        x = rx(m, D)
+        compare(torch, f"quant_matmul int4 2-D (4096, 12288) M={m}",
+                qm.quant_matmul(x, w2d), qm.quant_matmul_plain(x, w2d))
+    # tiny (K 64 -> gs 4, K 176 -> gs 1) and stories15M (K 288 -> gs 2,
+    # K 768 -> gs 16) shapes, ragged N, fp32 and bf16 activations
+    tg = torch.Generator().manual_seed(5)
+    for k, n, req in ((64, 200, 8), (176, 64, 8), (288, 1000, 16), (768, 288, 16)):
+        w = quantize_int4(torch.randn(2, k, n, generator=tg), req).to(dev)
+        for m, dt in ((1, bf), (5, f32), (8, bf), (40, bf), (33, f32)):
+            x = rx(m, k, dtype=dt)
+            compare(torch, f"quant_matmul int4 K={k} gs={w.group_size} N={n} M={m} {dt}",
+                    qm.quant_matmul(x, w, 1), qm.quant_matmul_plain(x, w, 1))
+    x8 = rx(8, D)
+    err = compare(torch, "quant_matmul int4 timed inputs (x8, wqkv layer 0)",
+                  qm.quant_matmul(x8, wqkv, 0), qm.quant_matmul_plain(x8, wqkv, 0))
+    lay = Layered(L)
+    t_k = time_ms(torch, lambda: qm.quant_matmul(x8, wqkv, lay.next()))
+    t_p = time_ms(torch, lambda: qm.quant_matmul_plain(x8, wqkv, lay.next()), reps=5)
+    b_ms, b_by = bound_ms(matmul_bytes(wqkv, 8), 2 * 8 * D * 3 * D)
+    results["quant_matmul_int4"] = dict(
+        name="quant_matmul_int4", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
+        replaces="rama_tpu/ops/pallas/quant_matmul.py:152", max_abs_err=err,
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int4 gs 64")
+    for label, (xx, w, l) in {
+        "wo M=8": (x8, wo, 0),
+        "w2 gs 16 M=8": (rx(8, H), w2, 0),
+        "wqkv M=1": (rx(1, D), wqkv, 0),
+        "2-D (4096, 12288) M=8": (x8, w2d, None),
+        "wqkv M=256 (prefill, tiled)": (rx(256, D), wqkv, 0),
+        "w2 gs 16 M=256 (prefill, tiled)": (rx(256, H), w2, 0),
+    }.items():
+        time_quant_matmul(torch, qm, f"int4 {label}", xx, w, l, L)
+    del wqkv, wo
+
+    # -- K3': ffn, int4 --------------------------------------------------------
+    il = phase_a_tile(H, 4, w2.group_size) or 0
+    w13 = random_int4_qt(torch, L, D, 2 * H, 64, dev, g, il=il)
+    assert il == 256 and w13.group_size == 64
+    for m in (1, 8, ffn_mod.FFN_MAX_M):
+        x = rx(m, D)
+        for l in (0, L - 1):
+            compare(torch, f"ffn int4 il={il} M={m} layer={l}",
+                    ffn_mod.ffn(x, w13, w2, l), ffn_mod.ffn_plain(x, w13, w2, l))
+    for cfg_name, (d, h, req) in {"tiny": (64, 176, 8), "stories15M": (288, 768, 16)}.items():
+        t13 = quantize_int4(torch.randn(1, d, 2 * h, generator=tg), req).to(dev)
+        t2 = quantize_int4(torch.randn(1, h, d, generator=tg), req).to(dev)
+        til = phase_a_tile(h, 4, t2.group_size) or 0
+        t13 = QuantizedTensor(q=t13.q, scales=t13.scales, group_size=t13.group_size, bits=4,
+                              il=til)  # a column relabel: the same random function
+        for m, dt in ((3, bf), (8, f32)):
+            x = rx(m, d, dtype=dt)
+            compare(torch, f"ffn int4 {cfg_name} gs {t13.group_size}/{t2.group_size} il={til} "
+                    f"M={m} {dt}", ffn_mod.ffn(x, t13, t2, 0), ffn_mod.ffn_plain(x, t13, t2, 0))
+    err = compare(torch, "ffn int4 timed inputs (x8, layer 0)", ffn_mod.ffn(x8, w13, w2, 0),
+                  ffn_mod.ffn_plain(x8, w13, w2, 0))
+    lay = Layered(L)
+    t_k = time_ms(torch, lambda: ffn_mod.ffn(x8, w13, w2, lay.next()))
+    t_p = time_ms(torch, lambda: ffn_mod.ffn_plain(x8, w13, w2, lay.next()), reps=5)
+    nb = matmul_bytes(w13, 8) + matmul_bytes(w2, 8) - 8 * 2 * H * 2 - 8 * H * 2  # h on chip
+    b_ms, b_by = bound_ms(nb, 2 * 8 * (D * 2 * H + H * D))
+    results["ffn_int4"] = dict(
+        name="ffn_int4", route="cuda", source="rama_tpu_torch/csrc/ffn.cu",
+        replaces="rama_tpu/ops/pallas/ffn.py:252", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) int4 gs 64 il={il}, "
+              f"w2[l] (11008, 4096) int4 gs 16")
+    for m in (1, ffn_mod.FFN_MAX_M):
+        xm = rx(m, D)
+        t = time_ms(torch, lambda: ffn_mod.ffn(xm, w13, w2, lay.next()))
+        log(f"[time] ffn int4 M={m}: {t:.4f} ms")
+    for name in ("quant_matmul_int4", "ffn_int4"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def phase_model(torch, cfg, params, label: str = "int8") -> None:
     """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
 
@@ -449,13 +644,13 @@ def phase_model(torch, cfg, params) -> None:
     with torch.no_grad():
         lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)
         lp, _ = prefill(params, cfg, toks, caches[1], last_only=True, plain=True)
-        compare(torch, "7B logits prefill (kernels vs plain)", lk[:, -1], lp[:, -1])
+        compare(torch, f"7B {label} logits prefill (kernels vs plain)", lk[:, -1], lp[:, -1])
         tok = torch.argmax(lp[:, -1], dim=-1)
         for i in range(2):
             pos = torch.tensor([toks.shape[1] + i], device=dev)
             lk, _ = decode_step(params, cfg, tok, pos, caches[0])
             lp, _ = decode_step(params, cfg, tok, pos, caches[1], plain=True)
-            compare(torch, f"7B logits decode step {i} (kernels vs plain)", lk, lp)
+            compare(torch, f"7B {label} logits decode step {i} (kernels vs plain)", lk, lp)
             tok = torch.argmax(lp, dim=-1)
 
 
@@ -473,7 +668,7 @@ def phase_generate(torch, cfg, params, tokenizer) -> None:
         raise SystemExit(f"FAILED generate: degenerate trajectory {gen}")
 
 
-def phase_serve(torch, cfg, params, tokenizer, card: str) -> None:
+def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") -> None:
     import aiohttp
     from aiohttp import web
 
@@ -538,14 +733,14 @@ def phase_serve(torch, cfg, params, tokenizer, card: str) -> None:
     if stats["tokens_generated"] < total or stats["engine_errors"]:
         raise SystemExit(f"FAILED serve: /metrics {stats} vs {total} streamed")
     ttfts = sorted(t for t, _, _ in outs)
-    log(f"[serve] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
+    log(f"[{tag}] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
         f"{total / wall:.2f} tok/s aggregate; TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} "
         f"ms max {ttfts[-1] * 1e3:.1f} ms; decode_tok_per_s "
         f"{stats['decode_tok_per_s']:.2f} ({card})")
-    log(f"[serve] metrics phases {json.dumps(stats['phases'])}")
+    log(f"[{tag}] metrics phases {json.dumps(stats['phases'])}")
 
 
-def phase_profile(torch, cfg, params) -> None:
+def phase_profile(torch, cfg, params, tag: str = "profile") -> None:
     """torch.profiler over 8 decode steps at 8 slots (positions 64..71): host
     wall per step, device kernel time per step by kernel, device busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -573,17 +768,19 @@ def phase_profile(torch, cfg, params) -> None:
         if dt and ev.device_type.name == "CUDA":
             rows.append((dt, ev.key, ev.count))
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile] 8 slots x 8 decode steps: host wall {wall / 8 * 1e3:.3f} ms/step "
+    log(f"[{tag}] 8 slots x 8 decode steps: host wall {wall / 8 * 1e3:.3f} ms/step "
         f"(profiler on); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}")
     for dt, key, count in sorted(rows, reverse=True)[:12]:
-        log(f"[profile]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
+        log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
-        log("[profile] the profiler recorded no device time")
+        log(f"[{tag}] the profiler recorded no device time")
 
 
 def phase_cli(torch) -> None:
-    from rama_tpu_torch.checkpoint import save_v2
+    """The CLI on a synthetic stories15M-shaped checkpoint: a v2 file (int8
+    as stored) and a v0 file quantized to int4 at load."""
+    from rama_tpu_torch.checkpoint import save_v0, save_v2
     from rama_tpu_torch.config import ModelConfig
 
     cfg = ModelConfig(dim=288, hidden_dim=768, n_layers=2, n_heads=6, n_kv_heads=6,
@@ -599,15 +796,19 @@ def phase_cli(torch) -> None:
          "ffn_norm": np.ones((L, D), np.float32), "w1": w(L, D, H), "w2": w(L, H, D),
          "w3": w(L, D, H), "final_norm": np.ones(D, np.float32)}
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "synthetic_v2.bin")
-        save_v2(path, cfg, p, group_size=64)
-        cmd = [sys.executable, "-m", "rama_tpu_torch.cli", "generate", "-m", path,
-               "-t", str(ROOT / "tests" / "fixtures" / "tokenizer.bin"), "-p",
-               "Once upon a time", "-s", "32", "-r", "0", "--device", "cuda"]
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
-    log(f"[cli] rc {out.returncode}; stderr tail: {out.stderr.strip()[-300:]}")
-    if out.returncode != 0:
-        raise SystemExit(f"FAILED cli: {out.stderr[-2000:]}")
+        v2, v0 = os.path.join(d, "synthetic_v2.bin"), os.path.join(d, "synthetic_v0.bin")
+        save_v2(v2, cfg, p, group_size=64)
+        save_v0(v0, cfg, p)
+        for path, quant in ((v2, "auto"), (v0, "int4")):
+            cmd = [sys.executable, "-m", "rama_tpu_torch.cli", "generate", "-m", path,
+                   "-t", str(ROOT / "tests" / "fixtures" / "tokenizer.bin"), "-p",
+                   "Once upon a time", "-s", "32", "-r", "0", "--quant", quant,
+                   "--device", "cuda"]
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
+            log(f"[cli] --quant {quant} rc {out.returncode}; stderr tail: "
+                f"{out.stderr.strip()[-300:]}")
+            if out.returncode != 0:
+                raise SystemExit(f"FAILED cli --quant {quant}: {out.stderr[-2000:]}")
 
 
 def main() -> int:
@@ -644,41 +845,48 @@ def main() -> int:
     if "kernels" in phases:
         phase_kernels(torch, results)
         torch.cuda.empty_cache()
-    modules = {"quant_matmul": qm, "ffn": ffn_mod, "decode_attention": da,
-               "prefill_attention": pa}
-    main_path = {"generate", "serve"} <= set(phases)
-    if {"model", "generate", "serve", "profile"} & set(phases):
+    if "kernels4" in phases:
+        phase_kernels_int4(torch, results)
+        torch.cuda.empty_cache()
+    modules = (qm, ffn_mod, da, pa)
+    tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    for bits, path in ((8, INT8_PATH), (4, INT4_PATH)):
+        if not set(path["phases"]) & set(phases):
+            continue
         cfg = seven_b_config(ModelConfig)
         t0 = time.time()
-        params = random_int8_params(torch, cfg, torch.device("cuda"))
+        params = random_params(torch, cfg, torch.device("cuda"), bits=bits)
         torch.cuda.synchronize()
-        log(f"[model] Llama-2-7B int8 params on the card in {time.time() - t0:.1f} s, "
+        log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-        tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin",
-                                        cfg.vocab_size)
-        if "model" in phases:
-            phase_model(torch, cfg, params)
-        for mod in modules.values():
-            mod.launches = 0
-        if "generate" in phases:
+        model, *main_path, profile = path["phases"]
+        if model in phases:
+            phase_model(torch, cfg, params, f"int{bits}")
+        reset_launches(*modules)
+        if "generate" in main_path and "generate" in phases:
             phase_generate(torch, cfg, params, tokenizer)
-        if "serve" in phases:
-            phase_serve(torch, cfg, params, tokenizer, card)
-        launches = {name: mod.launches for name, mod in modules.items()}
-        log(f"[launches] main path: {launches}")
-        if main_path and min(launches.values()) == 0:
-            raise SystemExit(f"FAILED: a kernel never launched on the main path {launches}")
-        for name, r in results.items():
-            r["launches"] = launches[name]
-        if "profile" in phases:
-            phase_profile(torch, cfg, params)
+        if main_path[-1] in phases:
+            phase_serve(torch, cfg, params, tokenizer, card, tag=main_path[-1])
+        launches = read_launches(*modules)
+        log(f"[launches] int{bits} main path ({' + '.join(main_path)}): {launches}")
+        if set(main_path) <= set(phases):
+            idle = [k for k in path["record"] if launches[k] == 0]
+            if idle:
+                raise SystemExit(f"FAILED: {idle} never launched on the int{bits} main path "
+                                 f"{launches}")
+        for name, key in path["record"].items():
+            if name in results:
+                results[name][key] = launches[name]
+        if profile in phases:
+            phase_profile(torch, cfg, params, tag=profile)
         del params
         torch.cuda.empty_cache()
     if "cli" in phases:
         phase_cli(torch)
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "long_prompt")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "long_prompt",
+            "launches_int4_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--dtype", default="bfloat16", choices=list(_DTYPES))
     g.add_argument("--quant", default="auto", choices=["auto", "none", "int8", "int4"],
                    help="weight-only quantization: 'auto' keeps v2 files "
-                        "quantized and loads v0/v1 dense; int8 quantizes any "
-                        "input at load")
+                        "quantized and loads v0/v1 dense; int8 / int4 quantize "
+                        "any input at load")
     g.add_argument("--scale-dtype", default=None, choices=["bf16"])
     g.add_argument("--parity", action="store_true",
                    help="token-at-a-time loop (reference semantics) instead of "
@@ -56,8 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """The ROADMAP item a flag asks for that this port does not have yet."""
-    if args.quant == "int4":
-        return "--quant int4: int4 weights (int4 slice)"
     if args.scale_dtype:
         return "--scale-dtype: bf16-stored weight scales"
     if args.spec != "off" or args.draft_model:
@@ -82,14 +80,15 @@ def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
         qp = load_checkpoint_quantized(model)
         cfg = qp.config
         params = load_params_quantized(cfg, qp, dtype=tdtype, device=dev)
-    elif quant == "int8":
+    elif quant in ("int8", "int4"):
         cfg, np_params = load_checkpoint(model)
-        params = quantize_params(cfg, np_params, bits=8, dtype=tdtype, device=dev)
+        params = quantize_params(cfg, np_params, bits=8 if quant == "int8" else 4,
+                                 dtype=tdtype, device=dev)
     elif quant in ("auto", "none"):
         cfg, np_params = load_checkpoint(model)
         params = load_params(cfg, np_params, dtype=tdtype, device=dev)
     else:
-        raise NotImplementedError(f"--quant {quant} is not ported yet (ROADMAP.md)")
+        raise ValueError(f"unknown --quant {quant!r}")
     return cfg, fuse_params(params, cfg), tdtype
 
 

@@ -3,8 +3,9 @@ become the port's parameters, so both packages compute the same function.
 
 `params_from_numpy(cfg, tree, device)` takes a dict name -> leaf where a
 dense leaf is an `np.ndarray` and a quantized leaf is a dict
-{"q", "scales", "group_size", "bits", "il"} (int8 (.., K, N) values and
-fp32 (.., K//gs, N) scales in the kernel layout). The quantized
+{"q", "scales", "group_size", "bits", "il"} (int8 (.., K, N) values, or
+for bits 4 int8 (.., K//2, N) bytes of packed nibbles, and fp32
+(.., K//gs, N) scales in the kernel layout). The quantized
 `tok_embedding` is {"q", "scales", "group_size"} in the (V, D) row layout.
 Adapting a JAX pytree to this form is left to the caller (the tests do it),
 so this package never imports JAX.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from rama_tpu_torch.config import ModelConfig
+from rama_tpu_torch.ops.kernels.quant_matmul import check_weight
 from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
 from rama_tpu_torch.utils.platform import resolve_device
 
@@ -42,10 +44,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
                 out[name] = QuantizedEmbedding(q=q, scales=s,
                                                group_size=int(leaf["group_size"]))
             else:
-                out[name] = QuantizedTensor(q=q, scales=s,
-                                            group_size=int(leaf["group_size"]),
-                                            bits=int(leaf.get("bits", 8)),
-                                            il=int(leaf.get("il", 0)))
+                out[name] = qt = QuantizedTensor(q=q, scales=s,
+                                                 group_size=int(leaf["group_size"]),
+                                                 bits=int(leaf.get("bits", 8)),
+                                                 il=int(leaf.get("il", 0)))
+                check_weight(qt, q.device)  # bits, K a whole number of K blocks, scales
         elif name in ("rope_cos", "rope_sin"):
             out[name] = _tensor(leaf, device, torch.float32)
         else:

@@ -1,17 +1,23 @@
-// Split-K int8 weight-streaming GEMV for decode-sized M, shared by
-// quant_matmul.cu (wqkv, wo, lm_head) and ffn.cu (the w2 half of the FFN).
+// Split-K weight-streaming GEMV for decode-sized M, int8 or packed int4,
+// shared by quant_matmul.cu (wqkv, wo, lm_head) and ffn.cu (the w2 half of
+// the FFN).
 //
-// y (M, N) = x (M, K) @ dequant(q (K, N) int8, s (K/gs, N) f32), fp32
-// accumulation, output in x's dtype T.
+// y (M, N) = x (M, K) @ dequant(q, s (K/gs, N) f32), fp32 accumulation,
+// output in x's dtype T. q is (K, N) int8 for BITS 8, or (K/2, N) packed
+// int4 for BITS 4 in the JAX package's block-local split layout: byte row
+// j of packing block b (2*gs logical rows) holds logical row 2b*gs + j in
+// its low nibble (scale row 2b) and 2b*gs + gs + j in its high nibble
+// (scale row 2b + 1).
 //
 // Layout of the work: a CTA of 32 x 8 threads owns 512 output columns
-// (16 per lane: one 16-byte load of int8 weights per K row) for a range of
-// whole scale groups of K (the split) and MT rows of x (staged in shared
-// memory as fp32 and broadcast to the warp). The 8 warps of the CTA take
-// alternate K rows of each group and are summed through shared memory. The
-// split-K partials go to a fp32 workspace; the last CTA of a column tile
-// to finish (an integer ticket, no float atomics) adds the ks partials in
-// split order, so results are deterministic run to run.
+// (16 per lane: one 16-byte load of weight bytes per byte row) for a range
+// of whole K blocks (the split: scale groups for int8, packing blocks for
+// int4) and MT rows of x (staged in shared memory as fp32 and broadcast to
+// the warp). The 8 warps of the CTA take alternate byte rows and are summed
+// through shared memory. The split-K partials go to a fp32 workspace; the
+// last CTA of a column tile to finish (an integer ticket, no float atomics)
+// adds the ks partials in split order, so results are deterministic run to
+// run.
 #pragma once
 
 #include "common.cuh"
@@ -66,14 +72,65 @@ __device__ __forceinline__ void qmv_load_s(const float* __restrict__ srow, int c
   }
 }
 
+// Sign-extended nibbles of the 4 bytes of a little-endian word: byte c
+// holds lo[c] in bits 8c..8c+3 and hi[c] in bits 8c+4..8c+7. Shifting the
+// nibble to the top of an unsigned word and then arithmetically back down
+// sign-extends it without any signed left shift.
+__device__ __forceinline__ void unpack_int4x4(uint32_t w, float* lo, float* hi) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    lo[c] = static_cast<float>(static_cast<int32_t>(w << (28 - 8 * c)) >> 28);
+    hi[c] = static_cast<float>(static_cast<int32_t>(w << (24 - 8 * c)) >> 28);
+  }
+}
+
+// The nibbles of one packed byte (the scalar path at ragged edges).
+__device__ __forceinline__ void unpack_int4x1(int8_t b, float& lo, float& hi) {
+  const uint32_t u = static_cast<uint8_t>(b);
+  lo = static_cast<float>(static_cast<int32_t>(u << 28) >> 28);
+  hi = static_cast<float>(static_cast<int32_t>(u << 24) >> 28);
+}
+
+// 16 consecutive packed bytes of byte row `row` at column col0 as 16 low
+// and 16 high nibbles (zeros past N).
+__device__ __forceinline__ void qmv_load_w4(const int8_t* __restrict__ row, int col0,
+                                            int N, bool vec, float* lo, float* hi) {
+  if (vec) {
+    if (col0 < N) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(row + col0));
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack_int4x4(w[i], lo + 4 * i, hi + 4 * i);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) lo[c] = hi[c] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int n = col0 + c;
+      if (n < N) unpack_int4x1(row[n], lo[c], hi[c]);
+      else lo[c] = hi[c] = 0.f;
+    }
+  }
+}
+
+// Logical K rows per K block: a scale group (int8) or a packing block of
+// two scale groups (int4). Splits never cut a packing block, so both
+// nibble planes of a byte row meet the x slab of their own split.
+template <int BITS>
+__host__ __device__ __forceinline__ int qmv_block_rows(int gs) {
+  return BITS == 4 ? 2 * gs : gs;
+}
+
 // grid (ceil(N/512), ks, ceil(M/MT)), block (32, 8), dynamic shared memory
-// max(MT * groups_per_split * gs, 8 * 512) floats.
-template <typename T, int MT>
+// max(MT * blocks_per_split * block_rows, 8 * 512) floats.
+template <typename T, int MT, int BITS>
 __global__ void __launch_bounds__(kQmvLanes * kQmvWarps)
 qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
            const float* __restrict__ s, T* __restrict__ y,
            float* __restrict__ part, unsigned* __restrict__ tickets,
-           int M, int K, int N, int gs, int groups_per_split) {
+           int M, int K, int N, int gs, int blocks_per_split) {
   extern __shared__ float smem[];
   __shared__ bool is_last;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -83,11 +140,12 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   const int col0 = (blockIdx.x * kQmvLanes + tx) * 16;
   const int m0 = blockIdx.z * MT;
   const bool vec = (N % 16) == 0;
-  const int ngroups = K / gs;
-  const int g_begin = split * groups_per_split;
-  const int g_end = min(ngroups, g_begin + groups_per_split);
-  const int k_begin = g_begin * gs;
-  const int nk = max(g_end - g_begin, 0) * gs;
+  const int brows = qmv_block_rows<BITS>(gs);
+  const int nblocks = K / brows;
+  const int b_begin = split * blocks_per_split;
+  const int b_end = min(nblocks, b_begin + blocks_per_split);
+  const int k_begin = b_begin * brows;
+  const int nk = max(b_end - b_begin, 0) * brows;
 
   float* xs = smem;  // [MT][nk]
   for (int i = tid; i < MT * nk; i += nthreads) {
@@ -102,22 +160,54 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < 16; ++c) acc[m][c] = 0.f;
 
-  for (int g = g_begin; g < g_end; ++g) {
-    float sc[16];
-    qmv_load_s(s + (size_t)g * N, col0, N, vec, sc);
+  if constexpr (BITS == 8) {
+    for (int g = b_begin; g < b_end; ++g) {
+      float sc[16];
+      qmv_load_s(s + (size_t)g * N, col0, N, vec, sc);
 #pragma unroll 2
-    for (int r = ty; r < gs; r += kQmvWarps) {
-      const int k = g * gs + r;
-      float w[16];
-      qmv_load_w(q + (size_t)k * N, col0, N, vec, w);
+      for (int r = ty; r < gs; r += kQmvWarps) {
+        const int k = g * gs + r;
+        float w[16];
+        qmv_load_w(q + (size_t)k * N, col0, N, vec, w);
 #pragma unroll
-      for (int c = 0; c < 16; ++c) w[c] *= sc[c];
-      const float* xr = xs + (k - k_begin);
+        for (int c = 0; c < 16; ++c) w[c] *= sc[c];
+        const float* xr = xs + (k - k_begin);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xv = xr[m * nk];
+#pragma unroll
+          for (int c = 0; c < 16; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
+        }
+      }
+    }
+  } else {
+    // The split's byte rows, flat, 8 warps apart, so that every warp has
+    // work even when gs < 8. A warp reloads its two scale rows only when
+    // its byte row enters a new packing block.
+    const int nrows = nk / 2;
+    int cur = -1;
+    float sl[16], sh[16];
+#pragma unroll 2
+    for (int rr = ty; rr < nrows; rr += kQmvWarps) {
+      const int bl = rr / gs, j = rr - bl * gs;  // block in split, row in block
+      if (bl != cur) {
+        const int g = 2 * (b_begin + bl);
+        qmv_load_s(s + (size_t)g * N, col0, N, vec, sl);
+        qmv_load_s(s + (size_t)(g + 1) * N, col0, N, vec, sh);
+        cur = bl;
+      }
+      float lo[16], hi[16];
+      qmv_load_w4(q + (size_t)(k_begin / 2 + rr) * N, col0, N, vec, lo, hi);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) { lo[c] *= sl[c]; hi[c] *= sh[c]; }
+      const float* xl = xs + bl * 2 * gs + j;  // logical rows 2b*gs + j, + gs
+      const float* xh = xl + gs;
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float xv = xr[m * nk];
+        const float xlv = xl[m * nk], xhv = xh[m * nk];
 #pragma unroll
-        for (int c = 0; c < 16; ++c) acc[m][c] = fmaf(xv, w[c], acc[m][c]);
+        for (int c = 0; c < 16; ++c)
+          acc[m][c] = fmaf(xhv, hi[c], fmaf(xlv, lo[c], acc[m][c]));
       }
     }
   }
@@ -163,16 +253,16 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   if (tid == 0) *ticket = 0u;  // ready for the next launch
 }
 
-template <typename T, int MT>
+template <typename T, int MT, int BITS>
 cudaError_t launch_qmv_mt(const void* x, const void* q, const void* s, void* y,
                           void* part, void* tickets, int M, int K, int N, int gs,
-                          int ks, int gps, cudaStream_t stream) {
+                          int ks, int bps, cudaStream_t stream) {
   const dim3 grid((N + kQmvCols - 1) / kQmvCols, ks, (M + MT - 1) / MT);
   const dim3 block(kQmvLanes, kQmvWarps);
-  const size_t xs_floats = (size_t)MT * gps * gs;
+  const size_t xs_floats = (size_t)MT * bps * qmv_block_rows<BITS>(gs);
   const size_t red_floats = (size_t)kQmvWarps * kQmvCols;
   const size_t smem = sizeof(float) * (xs_floats > red_floats ? xs_floats : red_floats);
-  auto kern = qmv_kernel<T, MT>;
+  auto kern = qmv_kernel<T, MT, BITS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -181,29 +271,45 @@ cudaError_t launch_qmv_mt(const void* x, const void* q, const void* s, void* y,
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(s), static_cast<T*>(y),
-      static_cast<float*>(part), static_cast<unsigned*>(tickets), M, K, N, gs, gps);
+      static_cast<float*>(part), static_cast<unsigned*>(tickets), M, K, N, gs, bps);
   return cudaGetLastError();
 }
 
 // MT (rows of x per CTA) follows M: 1, 2, 4 or 8 (larger M runs in
 // 8-row chunks, each re-reading the weights).
-template <typename T>
+template <typename T, int BITS>
 cudaError_t launch_qmv(const void* x, const void* q, const void* s, void* y,
                        void* part, void* tickets, int M, int K, int N, int gs,
-                       int ks, int gps, cudaStream_t stream) {
-  if (M <= 1) return launch_qmv_mt<T, 1>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
-  if (M <= 2) return launch_qmv_mt<T, 2>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
-  if (M <= 4) return launch_qmv_mt<T, 4>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
-  return launch_qmv_mt<T, 8>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
+                       int ks, int bps, cudaStream_t stream) {
+  if (M <= 1) return launch_qmv_mt<T, 1, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (M <= 2) return launch_qmv_mt<T, 2, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (M <= 4) return launch_qmv_mt<T, 4, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  return launch_qmv_mt<T, 8, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
 }
 
-inline cudaError_t launch_qmv_dtype(int dtype, const void* x, const void* q, const void* s,
-                                    void* y, void* part, void* tickets, int M, int K,
-                                    int N, int gs, int ks, int gps, cudaStream_t stream) {
+// The C entries' dispatch: `bits` 8 or 4, `dtype` a DType code; `bps` is
+// K blocks per split (scale groups for int8, packing blocks for int4).
+template <typename T>
+cudaError_t launch_qmv_bits(int bits, const void* x, const void* q, const void* s, void* y,
+                            void* part, void* tickets, int M, int K, int N, int gs,
+                            int ks, int bps, cudaStream_t stream) {
+  if (bits == 8)
+    return launch_qmv<T, 8>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (bits == 4)
+    return launch_qmv<T, 4>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  return cudaErrorInvalidValue;
+}
+
+inline cudaError_t launch_qmv_dtype(int bits, int dtype, const void* x, const void* q,
+                                    const void* s, void* y, void* part, void* tickets,
+                                    int M, int K, int N, int gs, int ks, int bps,
+                                    cudaStream_t stream) {
   if (dtype == kBF16)
-    return launch_qmv<__nv_bfloat16>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
+    return launch_qmv_bits<__nv_bfloat16>(bits, x, q, s, y, part, tickets, M, K, N, gs, ks,
+                                          bps, stream);
   if (dtype == kF32)
-    return launch_qmv<float>(x, q, s, y, part, tickets, M, K, N, gs, ks, gps, stream);
+    return launch_qmv_bits<float>(bits, x, q, s, y, part, tickets, M, K, N, gs, ks, bps,
+                                  stream);
   return cudaErrorInvalidValue;
 }
 

@@ -38,7 +38,7 @@ from rama_tpu_torch.ops.kernels import quant_matmul as _qm
 from rama_tpu_torch.ops.kernels.ffn import split_h13
 from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                       from_q80_file_layout, quantize_embedding,
-                                      quantize_int8)
+                                      quantize_int4, quantize_int8)
 from rama_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
@@ -143,15 +143,18 @@ def load_params_quantized(cfg: ModelConfig, qp: QuantParams, dtype=torch.bfloat1
 def quantize_params(cfg: ModelConfig, np_params: dict, bits: int = 8,
                     group_size: int = 64, dtype=torch.bfloat16,
                     device="cuda") -> Params:
-    """Quantize canonical fp32 params at load time (weight-only INT8; int4
-    is a later slice). The embedding and a shared classifier stay INT8."""
-    if bits != 8:
-        raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md)")
+    """Quantize canonical fp32 params at load time (weight-only INT8, or INT4
+    in the block-local split packing). The embedding and the classifier,
+    shared or not, stay INT8, as in the JAX package: the lookup reads one
+    row per token, so int4 there would cost accuracy for no bandwidth."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    quant = quantize_int8 if bits == 8 else quantize_int4
     device = resolve_device(device)
     p: Params = {name: _dense(np_params[name], dtype, device)
                  for name in ("attn_norm", "ffn_norm", "final_norm")}
     for name in _QUANT_LAYER_NAMES:
-        p[name] = quantize_int8(np.asarray(np_params[name]), group_size).to(device)
+        p[name] = quant(np.asarray(np_params[name]), group_size).to(device)
     emb = quantize_embedding(np.asarray(np_params["tok_embedding"]), group_size)
     p["tok_embedding"] = emb.to(device)
     p["wcls"] = (p["tok_embedding"].as_classifier() if cfg.shared_classifier
@@ -170,11 +173,13 @@ def _pick_tile(dim: int, target: int, multiple: int) -> int | None:
     return best
 
 
-def phase_a_tile(h: int, gs2: int) -> int | None:
-    """The w13 interleave tile the JAX package picks for int8 weights
-    (rama_tpu/ops/pallas/ffn.py:59-63, phase_a_tile with bits=8), so both
-    packages lay fused w13 out identically."""
-    return _pick_tile(h, 256, int(np.lcm(gs2, 128)))
+def phase_a_tile(h: int, bits: int, gs2: int) -> int | None:
+    """The w13 interleave tile the JAX package picks
+    (rama_tpu/ops/pallas/ffn.py:59-63): a multiple of w2's scale group (of
+    its packing block, 2*gs2, for int4) and of 128, so both packages lay
+    fused w13 out identically."""
+    mult = 2 * gs2 if bits == 4 else gs2
+    return _pick_tile(h, 256, int(np.lcm(mult, 128)))
 
 
 def _concat_weights(ws):
@@ -201,15 +206,17 @@ def _interleave_w13(qt: QuantizedTensor, h: int, bh: int) -> QuantizedTensor:
 def fuse_params(params: Params, cfg: ModelConfig) -> Params:
     """Fuse wq/wk/wv into wqkv and w1/w3 into w13 (4 weight streams per
     layer instead of 7). Quantized w13 gets the JAX package's interleaved
-    column layout when its phase-A tile exists for these shapes."""
+    column layout when w13 and w2 have the same bits and the phase-A tile
+    exists for these shapes."""
     if "wqkv" in params:
         return params
     p = dict(params)
     p["wqkv"] = _concat_weights([p.pop("wq"), p.pop("wk"), p.pop("wv")])
     p["w13"] = _concat_weights([p.pop("w1"), p.pop("w3")])
     w13, w2 = p["w13"], p.get("w2")
-    if isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor):
-        bh = phase_a_tile(cfg.hidden_dim, w2.group_size)
+    if (isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor)
+            and w13.bits == w2.bits):
+        bh = phase_a_tile(cfg.hidden_dim, w13.bits, w2.group_size)
         if bh:
             p["w13"] = _interleave_w13(w13, cfg.hidden_dim, bh)
     return p
@@ -253,7 +260,7 @@ def _linear(x: torch.Tensor, w, ops: _Ops, layer: int | None = None) -> torch.Te
     if isinstance(w, QuantizedTensor):
         *lead, k = x.shape
         out = ops.quant_matmul(x.reshape(-1, k).contiguous(), w, layer)
-        return out.reshape(*lead, w.q.shape[-1])
+        return out.reshape(*lead, w.shape[-1])
     return x @ (w if layer is None else w[layer])
 
 
@@ -344,18 +351,19 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                           cache: KVCache, ops: _Ops):
     """T=1 decode step (rama_tpu's `_forward_decode_fused` without
     attn_block): layer-indexed quant_matmul for wqkv/wo, the cache row write
-    in place, layer-indexed decode attention, the fused int8 FFN."""
+    in place, layer-indexed decode attention, the fused quantized FFN."""
     b = tokens.shape[0]
     dtype = params["final_norm"].dtype
     x = _embed(params["tok_embedding"], tokens, dtype)            # (B, 1, D)
     idx = pos_index.long().clamp(0, params["rope_cos"].shape[0] - 1)
     cos, sin = params["rope_cos"][idx], params["rope_sin"][idx]
     pos = pos_index[:, 0].to(torch.int32).contiguous()
-    # the fused FFN kernel serves decode-sized batches; larger ones take the
-    # split w13 / w2 matmuls (rama_tpu's ffn_tileable choice, by shape)
-    fused_ffn = (isinstance(params.get("w13"), QuantizedTensor)
-                 and isinstance(params.get("w2"), QuantizedTensor)
-                 and b <= _ffn.FFN_MAX_M)
+    # the fused FFN kernel serves decode-sized batches of w13 / w2 with the
+    # same bits; others take the split w13 / w2 matmuls (rama_tpu's
+    # ffn_tileable choice, by shape and bits)
+    w13, w2 = params.get("w13"), params.get("w2")
+    fused_ffn = (isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor)
+                 and w13.bits == w2.bits and b <= _ffn.FFN_MAX_M)
     for l in range(cfg.n_layers):
         xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
         q, k, v = _qkv(xb, params, cfg, l, ops)

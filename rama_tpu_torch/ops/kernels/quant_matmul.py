@@ -1,14 +1,18 @@
-"""Kernel 1: int8 weight-only quantized matmul, y = x @ dequant(W[layer]).
+"""Kernel 1: weight-only quantized matmul, y = x @ dequant(W[layer]), with
+int8 or block-local packed int4 weights.
 
 The counterpart of `rama_tpu/ops/pallas/quant_matmul.py`'s
 `quant_matmul_layered` (stacked weights, layer chosen by the kernel's
 index maps) and `quant_matmul` (one 2-D weight): one CUDA kernel for both,
 the layer is a pointer offset computed here from a Python int
-(`csrc/quant_matmul.cu`, `csrc/qmv.cuh`).
+(`csrc/quant_matmul.cu`, `csrc/qmv.cuh`). The int8 and the int4 weights
+take sibling instantiations of the same kernels (a `bits` argument), and
+each has its own launch count.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-`quant_matmul_plain`. Any K that is a multiple of the group size and any N
-are taken; the ragged edges are masked in the kernel.
+`quant_matmul_plain`. Any K that is a multiple of the group size (of two
+group sizes, a packing block, for int4) and any N are taken; the ragged
+edges are masked in the kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
 from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# kernel launches since the last reset, by weight bits (chip_smoke reads them)
+launches = {8: 0, 4: 0}
 
 # M <= 8 takes the weight-streaming GEMV (one CTA serves all rows); larger M
 # the tiled kernel, which reads W once per 64 rows — so W streams once for
@@ -30,8 +35,8 @@ _QMV_COLS = 512       # output columns per GEMV CTA (csrc/qmv.cuh)
 _SMEM_X_BYTES = 48 * 1024
 
 _SIGNATURES = {
-    "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "rama_qmm": [P, P, P, P, I, I, I, I, I, P],
+    "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "rama_qmm": [P, P, P, P, I, I, I, I, I, I, P],
 }
 
 
@@ -53,56 +58,60 @@ def rows_per_cta(m: int) -> int:
     return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
 
 
-def split_k(ngroups: int, col_tiles: int, gs: int, mt: int) -> tuple[int, int]:
-    """(ks, groups per split) for the split-K GEMV: enough splits that the
-    grid covers ~2 CTAs per SM, whole scale groups per split, and the
-    split's x slab (mt x gps*gs fp32) within the shared-memory budget."""
-    ks = max(1, min(ngroups, -(-_TARGET_CTAS // col_tiles)))
-    gps = -(-ngroups // ks)
-    gps = max(1, min(gps, _SMEM_X_BYTES // (4 * mt * gs)))
-    return -(-ngroups // gps), gps
+def split_k(nblocks: int, col_tiles: int, block_rows: int, mt: int) -> tuple[int, int]:
+    """(ks, K blocks per split) for the split-K GEMV: enough splits that the
+    grid covers ~2 CTAs per SM, whole K blocks per split (QuantizedTensor.
+    k_block: scale groups for int8, packing blocks for int4), and the
+    split's x slab (mt x bps*block_rows fp32) within the shared-memory
+    budget."""
+    ks = max(1, min(nblocks, -(-_TARGET_CTAS // col_tiles)))
+    bps = -(-nblocks // ks)
+    bps = max(1, min(bps, _SMEM_X_BYTES // (4 * mt * block_rows)))
+    return -(-nblocks // bps), bps
 
 
 def weight_ptrs(qt: QuantizedTensor, layer: int | None) -> tuple[int, int]:
-    """Device addresses of W[layer]'s int8 values and fp32 scales."""
+    """Device addresses of W[layer]'s values (int8 or packed int4 bytes) and
+    fp32 scales."""
     if layer is None:
         require(qt.q.dim() == 2, f"2-D weight expected, got {tuple(qt.q.shape)}")
         return qt.q.data_ptr(), qt.scales.data_ptr()
     require(qt.q.dim() == 3, f"stacked (L, K, N) weight expected, got {tuple(qt.q.shape)}")
-    L, k, n = qt.q.shape
+    L = qt.q.shape[0]
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
-    return (qt.q.data_ptr() + layer * k * n,
-            qt.scales.data_ptr() + layer * (k // qt.group_size) * n * 4)
+    return (qt.q.data_ptr() + layer * qt.q.stride(0),
+            qt.scales.data_ptr() + layer * qt.scales.stride(0) * 4)
 
 
 def check_weight(qt: QuantizedTensor, device: torch.device) -> None:
-    require(qt.bits == 8, "only int8 weights are ported (int4 is a later slice)")
+    require(qt.bits in (8, 4), f"int8 or int4 weights expected, got bits={qt.bits}")
     require(qt.q.dtype == torch.int8 and qt.scales.dtype == torch.float32,
             f"int8 q / float32 scales expected, got {qt.q.dtype} / {qt.scales.dtype}")
     require(qt.q.device == device and qt.scales.device == device,
             "weight and activation on different devices")
     require(qt.q.is_contiguous() and qt.scales.is_contiguous(),
             "weight q and scales must be contiguous (row-major (.., K, N))")
-    k, n = qt.q.shape[-2:]
-    require(k % qt.group_size == 0, f"K={k} not a multiple of group size {qt.group_size}")
+    k, n = qt.k_dim, qt.q.shape[-1]
+    require(k % qt.k_block == 0, f"K={k} not a multiple of {qt.k_block} (the K block "
+            f"of an int{qt.bits} weight with group size {qt.group_size})")
     require(tuple(qt.scales.shape[-2:]) == (k // qt.group_size, n),
-            f"scales shape {tuple(qt.scales.shape)} does not match q {tuple(qt.q.shape)}")
+            f"scales shape {tuple(qt.scales.shape)} does not match the weight {qt.shape}")
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
                  layer: int | None = None) -> torch.Tensor:
     """x (M, K) @ dequant(qt[layer]) -> (M, N) in x's dtype, fp32 accumulation.
 
-    qt is (K, N) with layer None, or stacked (L, K, N) with an int layer."""
+    qt is (K, N) with layer None, or stacked (L, K, N) with an int layer
+    (int8, or int4 packed to (.., K//2, N))."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, qt, layer)
-    global launches
     require(x.device.type == "cuda", f"unsupported device {x.device}")
     require(x.dim() == 2 and x.is_contiguous(), "x must be a contiguous (M, K) matrix")
     check_weight(qt, x.device)
     m, k = x.shape
-    kq, n = qt.q.shape[-2:]
-    require(k == kq, f"K mismatch: x {k} vs weight {kq}")
+    n = qt.q.shape[-1]
+    require(k == qt.k_dim, f"K mismatch: x {k} vs weight {qt.k_dim}")
     dtype = build.dtype_code(x)
     qp, sp = weight_ptrs(qt, layer)
     gs = qt.group_size
@@ -114,15 +123,15 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
     if m <= GEMV_MAX_M:
         mt = rows_per_cta(m)
         col_tiles = -(-n // _QMV_COLS)
-        ks, gps = split_k(k // gs, col_tiles, gs, mt)
+        ks, bps = split_k(k // qt.k_block, col_tiles, qt.k_block, mt)
         part = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
                 if ks > 1 else y)
         tk = build.tickets(x.device, col_tiles * -(-m // mt))
         err = lib.rama_qmv(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
-                           tk.data_ptr(), m, k, n, gs, ks, gps, dtype, stream)
+                           tk.data_ptr(), m, k, n, gs, ks, bps, qt.bits, dtype, stream)
     else:
-        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, dtype,
-                           stream)
-    build.check(lib, err, "quant_matmul")
-    launches += 1
+        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, qt.bits,
+                           dtype, stream)
+    build.check(lib, err, f"quant_matmul (int{qt.bits})")
+    launches[qt.bits] += 1
     return y

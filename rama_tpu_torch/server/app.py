@@ -207,10 +207,6 @@ def main(argv=None) -> int:
             print(f"{flag}: {item} is not ported to rama_tpu_torch yet (ROADMAP.md)",
                   file=sys.stderr)
             return 2
-    if args.quant == "int4":
-        print("--quant int4: int4 weights are not ported to rama_tpu_torch yet "
-              "(ROADMAP.md)", file=sys.stderr)
-        return 2
     engine = load_engine(args.model, args.tokenizer, args.quant, args.dtype,
                          args.batch, max_seq_len=args.max_seq_len, device=args.device)
     engine.start()

@@ -5,6 +5,8 @@ imports JAX."""
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
@@ -65,3 +67,16 @@ def jax_uniform_stream(key_seed: int):
         return float(np.asarray(jax.random.uniform(sub, (1,)))[0])
 
     return next_u
+
+
+def write_tokenizer_bin(path, vocab_size) -> str:
+    """A llama2.c tokenizer.bin of single letters and filler tokens."""
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(ord("a") + i) for i in range(26)]
+    vocab += [f"t{i}" for i in range(vocab_size - len(vocab))]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", max(len(v.encode()) for v in vocab)))
+        for v in vocab:
+            b = v.encode()
+            f.write(struct.pack("<fi", 0.0, len(b)))
+            f.write(b)
+    return str(path)

@@ -1,6 +1,7 @@
 """chip_smoke.py's checks, on the CPU: the per-group comparison fails a
 kernel that drops one edge row of one slot, the planted edges make such a
-drop large, and a subset of phases never reads as a full run."""
+drop large, a subset of phases never reads as a full run, and the int4
+params it makes on the card have quantize_int4's layout."""
 
 import importlib.util
 import pathlib
@@ -70,3 +71,52 @@ def test_unknown_phase_is_refused(smoke, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         smoke.main()
     assert exc.value.code == 2
+
+
+def test_random_int4_params_have_quantize_int4_layout(smoke):
+    """The int4 params chip_smoke draws on the card (here on the CPU, at a
+    shrunken width that keeps 7B's group sizes and interleave tile): int4
+    layer weights with quantize_int4's group sizes, nibbles in [-7, 7],
+    int8 embedding and classifier; the plain forward gives finite logits."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
+    from rama_tpu_torch.ops.quant import unpack_int4
+
+    cfg = ModelConfig(dim=1024, hidden_dim=768, n_layers=1, n_heads=8, n_kv_heads=8,
+                      vocab_size=512, seq_len=16, shared_classifier=False)
+    p = smoke.random_params(torch, cfg, torch.device("cpu"), bits=4)
+    assert {n: (p[n].bits, p[n].group_size) for n in ("wqkv", "wo", "w13", "w2")} == \
+        {"wqkv": (4, 64), "wo": (4, 64), "w13": (4, 64), "w2": (4, 16)}
+    assert p["w13"].il == 256 and p["wcls"].bits == 8
+    assert p["w2"].q.shape == (1, 384, 1024) and p["w2"].scales.shape == (1, 48, 1024)
+    vals = unpack_int4(p["w13"].q, 64)
+    assert int(vals.min()) == -7 and int(vals.max()) == 7
+    cache = KVCache.create(cfg, 2, 16, dtype=torch.bfloat16, device="cpu")
+    logits, cache = prefill(p, cfg, torch.tensor([[1, 5, 9], [1, 7, 3]]), cache,
+                            last_only=True)
+    step, _ = decode_step(p, cfg, torch.tensor([4, 2]), torch.tensor([3, 3]), cache)
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    assert float(step.std()) > 0.1  # weights of ~N(0, 1/K) keep activations alive
+
+
+def test_launch_counters_read_and_reset(smoke):
+    """The counts the main paths are judged by: one per wrapper and weight
+    bits, set to 0 before each path."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    mods = (qm, ffn, da, pa)
+    saved = (dict(qm.launches), dict(ffn.launches), da.launches, pa.launches)
+    try:
+        qm.launches[4], ffn.launches[8], da.launches = 3, 2, 1
+        got = smoke.read_launches(*mods)
+        assert got["quant_matmul_int4"] == 3 and got["ffn"] == 2 and got["decode_attention"] == 1
+        assert set(got) >= set(smoke.INT8_PATH["record"]) | set(smoke.INT4_PATH["record"])
+        smoke.reset_launches(*mods)
+        assert not any(smoke.read_launches(*mods).values())
+    finally:
+        qm.launches.update(saved[0])
+        ffn.launches.update(saved[1])
+        da.launches, pa.launches = saved[2], saved[3]

@@ -1,32 +1,18 @@
 """rama_tpu_torch.cli `generate` end to end on tiny checkpoints on the CPU:
-flags parse, v0 and v2 checkpoints load, streams equal rama_tpu's CLI
-greedy output, unported flags exit with the ROADMAP item, and the default
+flags parse, v0 and v2 checkpoints load (dense, or quantized to int8 or
+int4 at load), streams equal rama_tpu's CLI greedy output, unported flags exit with the ROADMAP item, and the default
 device is cuda (raising without a GPU)."""
-
-import struct
 
 import pytest
 import torch
 
-from _torch_port import torch_cfg
+from _torch_port import torch_cfg, write_tokenizer_bin
 from rama_tpu.cli import main as j_main
 from rama_tpu.testing.ref_model import random_params, tiny_config
 from rama_tpu_torch.checkpoint import save_v0, save_v2
 from rama_tpu_torch.cli import main
 
 torch.set_num_threads(1)
-
-
-def write_tokenizer_bin(path, vocab_size):
-    vocab = ["<unk>", "<s>", "</s>"] + [chr(ord("a") + i) for i in range(26)]
-    vocab += [f"t{i}" for i in range(vocab_size - len(vocab))]
-    with open(path, "wb") as f:
-        f.write(struct.pack("<I", max(len(v.encode()) for v in vocab)))
-        for v in vocab:
-            b = v.encode()
-            f.write(struct.pack("<fi", 0.0, len(b)))
-            f.write(b)
-    return str(path)
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +32,7 @@ def run(argv, capsys, fn=main):
     return rc, cap.out, cap.err
 
 
-@pytest.mark.parametrize("quant,which", [("none", 0), ("int8", 0), ("auto", 1)])
+@pytest.mark.parametrize("quant,which", [("none", 0), ("int8", 0), ("int4", 0), ("auto", 1)])
 def test_generate_matches_jax_cli(artifacts, capsys, quant, which):
     model, tok = artifacts[which], artifacts[2]
     common = ["generate", "-m", model, "-t", tok, "-p", "abc", "-s", "12", "-r", "0.0",
@@ -76,7 +62,7 @@ def test_parity_loop_flag(artifacts, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quant", "int4"], "int4"), (["--scale-dtype", "bf16"], "scale"),
+    (["--scale-dtype", "bf16"], "scale"),
     (["--spec", "ngram"], "speculative"), (["-o", "chat"], "chat"),
 ])
 def test_unported_flags_exit_with_roadmap_item(artifacts, capsys, flags, item):
@@ -96,3 +82,17 @@ def test_default_device_is_cuda(artifacts):
         return
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["generate", "-m", model, "-t", tok])
+
+
+def test_int4_loads_int4_layers_and_int8_classifier(artifacts):
+    """--quant int4 quantizes the layer weights to packed int4 at load (gs
+    64 as in the JAX CLI, reduced per tensor) and keeps the embedding and
+    classifier int8."""
+    from rama_tpu_torch.cli import load_model
+
+    cfg, params, _ = load_model(artifacts[0], "int4", "float32", "cpu")
+    for name in ("wqkv", "wo", "w13", "w2"):
+        assert params[name].bits == 4, name
+        assert params[name].shape[-2] == params[name].q.shape[-2] * 2
+    assert params["wcls"].bits == 8
+    assert params["w2"].group_size == 1 and params["wqkv"].group_size == 4  # tiny: 176, 64

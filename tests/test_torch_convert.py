@@ -19,9 +19,10 @@ from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
 torch.set_num_threads(1)
 
 
-def test_quantized_tree_round_trip():
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_tree_round_trip(bits):
     jcfg = tiny_config(seq_len=32, shared_classifier=False)
-    jp = jl.fuse_params(jl.quantize_params(jcfg, random_params(jcfg, seed=2), bits=8,
+    jp = jl.fuse_params(jl.quantize_params(jcfg, random_params(jcfg, seed=2), bits=bits,
                                            group_size=16, dtype=jnp.float32), jcfg)
     tree = jax_tree_to_numpy(jp)
     tp = params_from_numpy(torch_cfg(jcfg), tree, "cpu")
@@ -30,6 +31,8 @@ def test_quantized_tree_round_trip():
     for name in ("wqkv", "w13", "wo", "w2", "wcls"):
         assert isinstance(tp[name], QuantizedTensor)
         assert tp[name].il == jp[name].il and tp[name].group_size == jp[name].group_size
+        assert tp[name].bits == jp[name].bits == (8 if name == "wcls" else bits)
+        assert tp[name].shape == tuple(jp[name].shape)
         np.testing.assert_array_equal(tp[name].q.numpy(), np.asarray(jp[name].q))
         np.testing.assert_array_equal(tp[name].scales.numpy(), np.asarray(jp[name].scales))
     assert tp["rope_cos"].dtype == torch.float32
@@ -58,6 +61,28 @@ def test_rejects_non_int8_quantized_leaf():
                    "group_size": 4, "bits": 8, "il": 0}}
     with pytest.raises(TypeError, match="int8"):
         params_from_numpy(torch_cfg(tiny_config()), tree, "cpu")
+
+
+@pytest.mark.parametrize("leaf,match", [
+    # int4 K = 2 * 12 rows is not a multiple of the 2 * 8 packing block
+    ({"q": np.zeros((12, 4), np.int8), "scales": np.ones((3, 4), np.float32),
+      "group_size": 8, "bits": 4, "il": 0}, "multiple of 16"),
+    ({"q": np.zeros((16, 4), np.int8), "scales": np.ones((2, 4), np.float32),
+      "group_size": 8, "bits": 4, "il": 0}, "scales"),
+    ({"q": np.zeros((16, 4), np.int8), "scales": np.ones((2, 4), np.float32),
+      "group_size": 8, "bits": 2, "il": 0}, "bits"),
+])
+def test_rejects_malformed_quantized_leaf(leaf, match):
+    with pytest.raises(ValueError, match=match):
+        params_from_numpy(torch_cfg(tiny_config()), {"wo": leaf}, "cpu")
+
+
+def test_rejects_w13_tile_not_dividing_hidden():
+    jcfg = tiny_config()  # hidden 176
+    leaf = {"q": np.zeros((32, 352), np.int8), "scales": np.ones((4, 352), np.float32),
+            "group_size": 16, "bits": 4, "il": 128}
+    with pytest.raises(ValueError, match="hidden_dim"):
+        params_from_numpy(torch_cfg(jcfg), {"w13": leaf}, "cpu")
 
 
 @pytest.mark.parametrize("shared", [True, False])

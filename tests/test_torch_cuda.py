@@ -1,6 +1,7 @@
 """Card-only tests: each hand-written kernel against its plain PyTorch version
-on the GPU at small and ragged shapes (plus a 4096 x 4096 weight), and a
-tiny int8 model's logits through the kernels against the plain path.
+on the GPU at small and ragged shapes (plus 7B-sized weights), int8 and
+packed int4, and tiny int8 / int4 models' logits through the kernels
+against the plain path.
 Marked `cuda`; skipped (with the reason) where torch sees no GPU. On the
 card (whose Python has no JAX, which tests/conftest.py imports):
 
@@ -31,11 +32,12 @@ def _close(got, want, dtype):
         assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
-def _qt(dev, L, k, n, gs, seed):
-    from rama_tpu_torch.ops.quant import quantize_int8
+def _qt(dev, L, k, n, gs, seed, bits=8):
+    from rama_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
     g = torch.Generator().manual_seed(seed)
-    return quantize_int8(torch.randn(L, k, n, generator=g) * 0.05, gs).to(dev)
+    quant = quantize_int8 if bits == 8 else quantize_int4
+    return quant(torch.randn(L, k, n, generator=g) * 0.05, gs).to(dev)
 
 
 @pytest.mark.parametrize("m", [1, 3, 8, 33, 128])
@@ -46,9 +48,51 @@ def test_quant_matmul(dev, m, dtype, k, n, gs):
 
     w = _qt(dev, 2, k, n, gs, seed=k + n)
     x = torch.randn(m, k, device=dev).to(dtype)
-    before = qm.launches
+    before = qm.launches[8]
     _close(qm.quant_matmul(x, w, 1), qm.quant_matmul_plain(x, w, 1), dtype)
-    assert qm.launches == before + 1
+    assert qm.launches[8] == before + 1
+
+
+def _close_k(got, want, dtype):
+    """fp32 over K up to 11008: sums in another order drift by ~sqrt(K) ulps
+    of the outputs (measured 1.1e-4 at outputs of ~20), so fp32 is held to
+    atol 1e-5 of max |ref|; bf16 as _close."""
+    if dtype == torch.float32:
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    else:
+        _close(got, want, dtype)
+
+
+# int4 group sizes after pick_int4_group_size: 16 (K 256), 2 (K 288, N not a
+# multiple of 16), 1 (K 176), 64 (K 4096) and 16 (7B w2, K 11008)
+@pytest.mark.parametrize("m", [1, 3, 8, 33, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n,gs", [(256, 384, 64), (288, 1000, 16), (176, 200, 8),
+                                    (4096, 4096, 64), (11008, 4096, 64)])
+def test_quant_matmul_int4(dev, m, dtype, k, n, gs):
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    w = _qt(dev, 2, k, n, gs, seed=k + n, bits=4)
+    x = torch.randn(m, k, device=dev).to(dtype)
+    before = qm.launches[4]
+    for layer in (0, 1):
+        _close_k(qm.quant_matmul(x, w, layer), qm.quant_matmul_plain(x, w, layer), dtype)
+    w2d = type(w)(q=w.q[1].contiguous(), scales=w.scales[1].contiguous(),
+                  group_size=w.group_size, bits=4)
+    _close_k(qm.quant_matmul(x, w2d), qm.quant_matmul_plain(x, w2d), dtype)
+    assert qm.launches[4] == before + 3
+
+
+def test_quant_matmul_int4_rejects_split_packing_block(dev):
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    w = QuantizedTensor(q=torch.zeros(24, 64, dtype=torch.int8, device=dev),
+                        scales=torch.ones(3, 64, device=dev), group_size=16, bits=4)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qm.quant_matmul(torch.randn(1, 48, device=dev), w)
 
 
 @pytest.mark.parametrize("m", [1, 8])
@@ -62,6 +106,28 @@ def test_ffn(dev, m, il):
     w2 = _qt(dev, 2, 256, 192, 64, seed=2)
     x = torch.randn(m, 256, device=dev, dtype=torch.bfloat16)
     _close(ffn.ffn(x, w13, w2, 1), ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("il", [0, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ffn_int4(dev, m, il, dtype):
+    """w13 gs 16 (K 256), w2 gs 16 (H 256); the tiny shapes (K 64, H 176:
+    w13 gs 4, w2 gs 1) with the plain layout."""
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    for k, h, n in ((256, 256, 192), (64, 176, 64)):
+        if h % 128 and il:
+            continue
+        w13 = _qt(dev, 2, k, 2 * h, 64, seed=3, bits=4)
+        w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=w13.group_size,
+                              bits=4, il=il)
+        w2 = _qt(dev, 2, h, n, 64, seed=4, bits=4)
+        x = torch.randn(m, k, device=dev).to(dtype)
+        before = ffn.launches[4]
+        _close(ffn.ffn(x, w13, w2, 1), ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+        assert ffn.launches[4] == before + 1
 
 
 @pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 1, 16)])
@@ -97,6 +163,16 @@ def test_tiny_model_logits_kernels_equal_plain(dev):
     """int8 tiny model in fp32 on the card: prefill and decode logits through
     the kernels equal the plain path's (atol 1e-3: fp32 sums in another
     order, through three layers), and the greedy continuations agree."""
+    _check_tiny_model(dev, bits=8)
+
+
+def test_tiny_model_int4_logits_kernels_equal_plain(dev):
+    """The same with int4 layer weights (gs 4 and 1 after the tiny shapes'
+    group size reduction; the classifier stays int8)."""
+    _check_tiny_model(dev, bits=4)
+
+
+def _check_tiny_model(dev, bits):
     import numpy as np
 
     from rama_tpu_torch.config import ModelConfig
@@ -112,8 +188,8 @@ def test_tiny_model_logits_kernels_equal_plain(dev):
         "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
     p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
              final_norm=np.ones(D, np.float32))
-    params = fuse_params(quantize_params(cfg, p, group_size=16, dtype=torch.float32,
-                                         device=dev), cfg)
+    params = fuse_params(quantize_params(cfg, p, bits=bits, group_size=16,
+                                         dtype=torch.float32, device=dev), cfg)
     toks = torch.tensor([[1, 3, 42, 7, 11]], device=dev)
     caches = [KVCache.create(cfg, 1, 24, dtype=torch.float32, device=dev) for _ in range(2)]
     lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)

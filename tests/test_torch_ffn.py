@@ -1,7 +1,7 @@
 """Kernel 2's plain version (rama_tpu_torch.ops.kernels.ffn.ffn_plain) against
 rama_tpu's ffn_fused_layered run in interpret mode, for the il-interleaved
-and the plain [W1 | W3] w13 layouts, built by each package's own
-fuse_params from the same numpy weights.
+and the plain [W1 | W3] w13 layouts, int8 and packed int4 weights, built by
+each package's own fuse_params from the same numpy weights.
 
 Tolerance: the Pallas kernel rounds the hidden activation to bf16
 (ffn.py:170); the plain version keeps it in x's dtype — so fp32 inputs are
@@ -23,26 +23,38 @@ from rama_tpu_torch.ops.kernels.ffn import ffn_plain, split_h13
 
 torch.set_num_threads(1)
 
-# hidden 512 with gs 64: phase-A tile 256, two tiles -> interleaved w13
+# hidden 512 with gs 64: phase-A tile 256, two tiles -> interleaved w13.
+# int4: w13 gs 8 (dim 128), w2 gs 32 (hidden 512), tile 256 as well.
 CFG = JCfg(dim=128, hidden_dim=512, n_layers=2, n_heads=2, n_kv_heads=2,
            vocab_size=64, seq_len=16)
 
 
-@pytest.fixture(scope="module")
-def fused():
+def _fused(bits):
     np_params = random_params(CFG, seed=5, scale=0.1)
-    jp = jl.fuse_params(jl.quantize_params(CFG, np_params, bits=8, group_size=64,
+    jp = jl.fuse_params(jl.quantize_params(CFG, np_params, bits=bits, group_size=64,
                                            dtype=jnp.float32), CFG)
-    tp = tl.fuse_params(tl.quantize_params(torch_cfg(CFG), np_params, bits=8,
+    tp = tl.fuse_params(tl.quantize_params(torch_cfg(CFG), np_params, bits=bits,
                                            group_size=64, dtype=torch.float32,
                                            device="cpu"),
                         torch_cfg(CFG))
     return jp, tp
 
 
-def test_both_packages_interleave_w13_identically(fused):
-    jp, tp = fused
+@pytest.fixture(scope="module")
+def fused():
+    return _fused(8)
+
+
+@pytest.fixture(scope="module")
+def fused4():
+    return _fused(4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_both_packages_interleave_w13_identically(fused, fused4, bits):
+    jp, tp = fused if bits == 8 else fused4
     assert jp["w13"].il == tp["w13"].il == 256
+    assert tp["w13"].bits == tp["w2"].bits == bits
     np.testing.assert_array_equal(tp["w13"].q.numpy(), np.asarray(jp["w13"].q))
     np.testing.assert_array_equal(tp["w13"].scales.numpy(), np.asarray(jp["w13"].scales))
 
@@ -51,7 +63,19 @@ def test_both_packages_interleave_w13_identically(fused):
 @pytest.mark.parametrize("m,dtype", [(1, "float32"), (8, "float32"), (8, "bfloat16")])
 @pytest.mark.parametrize("layer", [0, 1])
 def test_plain_matches_pallas(fused, interleaved, m, dtype, layer):
-    jp, _ = fused
+    _check_plain_matches_pallas(fused[0], interleaved, m, dtype, layer)
+
+
+@pytest.mark.parametrize("interleaved", [True, False])
+@pytest.mark.parametrize("m,dtype", [(1, "float32"), (8, "float32"), (8, "bfloat16")])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_int4_plain_matches_pallas(fused4, interleaved, m, dtype, layer):
+    jp = fused4[0]
+    assert jp["w13"].group_size == 8 and jp["w2"].group_size == 32
+    _check_plain_matches_pallas(jp, interleaved, m, dtype, layer)
+
+
+def _check_plain_matches_pallas(jp, interleaved, m, dtype, layer):
     jw13, jw2 = jp["w13"], jp["w2"]
     if not interleaved:
         # undo the interleave: plain [W1 | W3] columns, il = 0
@@ -61,7 +85,7 @@ def test_plain_matches_pallas(fused, interleaved, m, dtype, layer):
             return jnp.asarray(np.swapaxes(t, -3, -2).reshape(*lead, k, n))
         from rama_tpu.ops.quant import QuantizedTensor
         jw13 = QuantizedTensor(q=plain(jw13.q), scales=plain(jw13.scales),
-                               group_size=jw13.group_size, bits=8, il=0)
+                               group_size=jw13.group_size, bits=jw13.bits, il=0)
     tw = jax_params_to_torch(CFG, {"w13": jw13, "w2": jw2})
     assert tw["w13"].il == (256 if interleaved else 0)
     x = np.random.default_rng(6).standard_normal((m, CFG.dim)).astype(np.float32)
@@ -80,8 +104,13 @@ def test_split_h13_matches_jax(fused):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_cpu_wrapper_dispatches_to_plain(fused):
-    _, tp = fused
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cpu_wrapper_dispatches_to_plain(fused, fused4, bits):
+    from rama_tpu_torch.ops.kernels import ffn as mod
+
+    _, tp = fused if bits == 8 else fused4
     x = torch.randn(2, CFG.dim)
+    before = dict(mod.launches)
     torch.testing.assert_close(t_ffn(x, tp["w13"], tp["w2"], 1),
                                ffn_plain(x, tp["w13"], tp["w2"], 1), rtol=0, atol=0)
+    assert mod.launches == before

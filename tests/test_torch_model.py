@@ -36,15 +36,22 @@ CHAINS = ("fp32/greedy", "fp32/sampled", "int8/greedy", "int8/sampled",
           "int4/greedy", "int4/sampled")
 
 
+def int4_group_size(jcfg) -> int:
+    """The group size the golden int4 chains request (tests/test_goldens.py:56)."""
+    return 8 if jcfg.hidden_dim % 32 else 16
+
+
 def both_params(jcfg, np_params, quant: str, gs: int = 16):
     cfg = torch_cfg(jcfg)
     if quant == "fp32":
         jp = jl.load_params(jcfg, np_params, dtype=jnp.float32)
         tp = tl.load_params(cfg, np_params, dtype=torch.float32, device="cpu")
     else:
-        jp = jl.quantize_params(jcfg, np_params, bits=8, group_size=gs, dtype=jnp.float32)
-        tp = tl.quantize_params(cfg, np_params, bits=8, group_size=gs, dtype=torch.float32,
-                                device="cpu")
+        bits = 4 if quant == "int4" else 8
+        jp = jl.quantize_params(jcfg, np_params, bits=bits, group_size=gs,
+                                dtype=jnp.float32)
+        tp = tl.quantize_params(cfg, np_params, bits=bits, group_size=gs,
+                                dtype=torch.float32, device="cpu")
     return cfg, jl.fuse_params(jp, jcfg), tl.fuse_params(tp, cfg)
 
 
@@ -53,10 +60,11 @@ def close(t, j, atol=1e-4):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("quant", ["fp32", "int8"])
+@pytest.mark.parametrize("quant", ["fp32", "int8", "int4"])
 def test_prefill_then_decode_logits_match(name, quant):
     jcfg = CONFIGS[name].replace(n_layers=2)
-    cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=3), quant)
+    gs = int4_group_size(jcfg) if quant == "int4" else 16
+    cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=3), quant, gs)
     toks = np.array([[1, 5, 9, 3, 7, 2, 8, 4]], np.int32)
     jc = jl.KVCache.create(jcfg, 1, 32, dtype=jnp.float32)
     tc = tl.KVCache.create(cfg, 1, 32, dtype=torch.float32, device="cpu")
@@ -115,14 +123,18 @@ def test_plain_flag_matches_kernel_dispatch_on_cpu():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_params_from_jax_tree_match_own_quantization():
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_params_from_jax_tree_match_own_quantization(quant):
     """Port params converted from the JAX pytree give the port's own
-    quantize+fuse result, bit for bit (int8, il-interleaved w13)."""
+    quantize+fuse result, bit for bit (il-interleaved w13; int4 layer
+    weights with an int8 classifier)."""
     jcfg = CONFIGS["stories15M"].replace(n_layers=1, vocab_size=256)
-    cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=1), "int8")
+    cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=1), quant)
     conv = jax_params_to_torch(jcfg, jp)
     assert conv["w13"].il == tp["w13"].il == 256
+    assert tp["w2"].bits == (4 if quant == "int4" else 8) and tp["wcls"].bits == 8
     for name in ("wqkv", "w13", "wo", "w2", "wcls"):
+        assert conv[name].bits == tp[name].bits and conv[name].group_size == tp[name].group_size
         torch.testing.assert_close(conv[name].q, tp[name].q, rtol=0, atol=0)
         torch.testing.assert_close(conv[name].scales, tp[name].scales, rtol=0, atol=0)
 
@@ -136,11 +148,10 @@ def goldens():
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_golden_chains(goldens, name, chain):
     quant, label = chain.split("/")
-    if quant == "int4":
-        pytest.skip("int4 slice")
     jcfg = CONFIGS[name]
     case = goldens["cases"][name]
-    cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=case["seed"]), quant)
+    gs = int4_group_size(jcfg) if quant == "int4" else 16
+    cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=case["seed"]), quant, gs)
     steps = goldens["steps"]
     temp = 0.0 if label == "greedy" else 0.9
     cache = tl.KVCache.create(cfg, batch=1, max_len=steps, dtype=torch.float32, device="cpu")
@@ -170,18 +181,18 @@ def test_parity_loop_matches_jax_generate(temp):
         assert scan[len(prompt):] == want[len(prompt):]
 
 
-@pytest.mark.parametrize("quant", ["fp32", "int8"])
+@pytest.mark.parametrize("quant", ["fp32", "int8", "int4"])
 def test_unfused_params_give_the_fused_logits(quant):
     """forward takes unfused (wq/wk/wv, w1/w3) params too, as rama_tpu's does;
-    fusing (and the int8 w13 interleave) changes no logit."""
+    fusing (and the quantized w13 interleave) changes no logit."""
     jcfg = CONFIGS["stories15M"].replace(n_layers=2, vocab_size=256)
     cfg = torch_cfg(jcfg)
     np_params = random_params(jcfg, seed=6)
     if quant == "fp32":
         raw = tl.load_params(cfg, np_params, dtype=torch.float32, device="cpu")
     else:
-        raw = tl.quantize_params(cfg, np_params, group_size=16, dtype=torch.float32,
-                                 device="cpu")
+        raw = tl.quantize_params(cfg, np_params, bits=4 if quant == "int4" else 8,
+                                 group_size=16, dtype=torch.float32, device="cpu")
     toks = torch.tensor([[1, 9, 4, 7, 3]])
     outs = []
     for params in (raw, tl.fuse_params(raw, cfg)):
@@ -192,11 +203,12 @@ def test_unfused_params_give_the_fused_logits(quant):
     torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
 
 
-def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch):
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch, quant):
     """Decode batches above the FFN kernel's M limit run the split w13 / w2
     matmuls instead of the fused FFN (the JAX package's shape-based choice)."""
     jcfg = tiny_config(seq_len=16)
-    cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=5), "int8")
+    cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=5), quant)
     calls = []
     monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a: calls.append(a) or tl._ffn.ffn(*a))
     for b in (tl._ffn.FFN_MAX_M, tl._ffn.FFN_MAX_M + 1):
@@ -229,3 +241,30 @@ def test_generate_text_cache_takes_the_params_dtype(monkeypatch, dtype):
         _, ids = tg.generate_text(params, cfg, tok, "ab", steps=6, temperature=0.0,
                                   cache_dtype=cache_dtype)
         assert len(ids) == 6 and made[-1] == want
+
+
+def test_mixed_bits_w13_w2_take_the_split_path(monkeypatch):
+    """w13 and w2 of different bits are neither interleaved nor sent to the
+    fused FFN kernel (rama_tpu: fuse_params and ffn_tileable require equal
+    bits); the split path gives the same logits as the JAX package."""
+    jcfg = CONFIGS["stories15M"].replace(n_layers=1, vocab_size=256)
+    cfg = torch_cfg(jcfg)
+    np_params = random_params(jcfg, seed=9)
+    p8 = tl.quantize_params(cfg, np_params, bits=8, group_size=16, dtype=torch.float32,
+                            device="cpu")
+    p4 = tl.quantize_params(cfg, np_params, bits=4, group_size=16, dtype=torch.float32,
+                            device="cpu")
+    mixed = tl.fuse_params({**p8, "w2": p4["w2"]}, cfg)
+    assert mixed["w13"].il == 0 and mixed["w13"].bits == 8 and mixed["w2"].bits == 4
+    calls = []
+    monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a: calls.append(a) or tl._ffn.ffn(*a))
+    cache = tl.KVCache.create(cfg, 2, 8, torch.float32, "cpu")
+    got, _ = tl.decode_step(mixed, cfg, torch.tensor([3, 4]), torch.tensor([0, 0]), cache)
+    assert not calls
+    jp8 = jl.quantize_params(jcfg, np_params, bits=8, group_size=16, dtype=jnp.float32)
+    jp4 = jl.quantize_params(jcfg, np_params, bits=4, group_size=16, dtype=jnp.float32)
+    jmixed = jl.fuse_params({**jp8, "w2": jp4["w2"]}, jcfg)
+    want, _ = jl.decode_step(jmixed, jcfg, jnp.asarray([3, 4], jnp.int32),
+                             jnp.asarray([0, 0], jnp.int32),
+                             jl.KVCache.create(jcfg, 2, 8, dtype=jnp.float32))
+    close(got, want)

@@ -1,6 +1,7 @@
-"""rama_tpu_torch.ops.quant vs rama_tpu.ops.quant: int8 quantization is
-bit-identical (same fp32 divide, round-half-to-even), dequantization and
-the file-layout / classifier conversions agree exactly."""
+"""rama_tpu_torch.ops.quant vs rama_tpu.ops.quant: int8 and int4
+quantization are bit-identical (same fp32 divide, round-half-to-even, group
+size reduction and nibble packing), dequantization and the file-layout /
+classifier conversions agree exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +79,81 @@ def test_matmul_plain_matches_matmul_xla(dtype):
     want = np.asarray(jq.matmul_xla(jnp.asarray(x, jd), jq.quantize_int8(w, 64),
                                     dtype=jd).astype(jnp.float32))
     got = tq.matmul_plain(torch.from_numpy(x).to(td), tq.quantize_int8(w, 64)).float()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-2,
+                                   atol=2e-2 * np.abs(want).max())
+
+
+# K of the golden configs and 7B: dim 64 / hidden 176 (tiny), dim 288 /
+# hidden 768 (stories15M), 4096 (Llama-2-7B dim); group sizes as requested
+@pytest.mark.parametrize("k", [64, 176, 288, 768, 4096])
+@pytest.mark.parametrize("gs", [8, 16, 64])
+def test_quantize_int4_bit_identical(k, gs):
+    w = (np.random.default_rng(k + gs).standard_normal((2, k, 24)) * 0.05).astype(np.float32)
+    w.reshape(-1)[::37] = 0.0
+    w[0, : 2 * 64, 3] = 0.0  # an all-zero group: the 1e-10 scale floor
+    want = jq.quantize_int4(w, gs)
+    got = tq.quantize_int4(w, gs)
+    assert got.bits == 4 and got.group_size == want.group_size
+    assert got.shape == want.shape and got.k_dim == want.k_dim == k
+    assert got.q.shape == (2, k // 2, 24) and got.q.dtype == torch.int8
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    for jd, td in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        np.testing.assert_array_equal(
+            tq.dequantize(got, td).float().numpy(),
+            np.asarray(jq.dequantize(want, jd).astype(jnp.float32)))
+
+
+def test_pick_int4_group_size_matches():
+    for k in (32, 64, 96, 176, 288, 768, 4096, 11008, 14336):
+        for gs in (1, 8, 16, 32, 64, 128):
+            assert tq.pick_int4_group_size(k, gs) == jq.pick_int4_group_size(k, gs), (k, gs)
+    # the shapes the int4 path meets: tiny, stories15M and Llama-2-7B
+    assert [tq.pick_int4_group_size(k, g) for k, g in
+            ((64, 8), (176, 8), (288, 16), (768, 16), (4096, 64), (11008, 64))] == \
+        [4, 1, 2, 16, 64, 16]
+
+
+@pytest.mark.parametrize("gs", [1, 2, 16])
+def test_unpack_int4_matches(gs):
+    """Every byte value unpacks to the JAX package's sign-extended nibbles,
+    planes placed block-locally."""
+    from rama_tpu.ops.quant import _unpack_int4
+
+    packed = np.arange(-128, 128, dtype=np.int8).reshape(16 * gs, -1)
+    packed = np.ascontiguousarray(np.tile(packed, (1, 2)))
+    got = tq.unpack_int4(torch.from_numpy(packed), gs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_unpack_int4(jnp.asarray(packed), gs)))
+    assert int(got.min()) == -8 and int(got.max()) == 7
+
+
+def test_int4_values_and_packing_layout():
+    """Values lie in [-7, 7] (never -8) and byte row j of block b holds
+    logical rows 2b*gs + j (low nibble) and 2b*gs + gs + j (high)."""
+    w = np.random.default_rng(5).standard_normal((64, 8)).astype(np.float32)
+    qt = tq.quantize_int4(w, 16)
+    full = tq.unpack_int4(qt.q, 16).int()
+    assert int(full.min()) >= -7 and int(full.max()) <= 7
+    p = qt.q.int()
+    lo, hi = ((p & 15) ^ 8) - 8, p >> 4
+    for b in range(2):
+        for j in range(16):
+            assert torch.equal(lo[b * 16 + j], full[2 * b * 16 + j])
+            assert torch.equal(hi[b * 16 + j], full[2 * b * 16 + 16 + j])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_plain_int4_matches_matmul_xla(dtype):
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((2, 256, 96)).astype(np.float32) * 0.05
+    x = rng.standard_normal((5, 256)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jw = jq.quantize_int4(w[1], 64)
+    want = np.asarray(jq.matmul_xla(jnp.asarray(x, jd), jw, dtype=jd).astype(jnp.float32))
+    got = tq.matmul_plain(torch.from_numpy(x).to(td), tq.quantize_int4(w[1], 64)).float()
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     else:

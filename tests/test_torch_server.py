@@ -11,7 +11,7 @@ import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
 
-from _torch_port import torch_cfg
+from _torch_port import torch_cfg, write_tokenizer_bin
 from rama_tpu.testing.ref_model import RefModel, random_params, tiny_config
 from rama_tpu_torch.config import EngineConfig
 from rama_tpu_torch.models.llama import load_params
@@ -220,10 +220,55 @@ def test_home_chat_metrics_healthz(served_engine):
 
 
 @pytest.mark.parametrize("flag", [["--paged"], ["--kv-quant", "int8"], ["--tp", "2"],
-                                  ["--spec-tick", "2"], ["--quant", "int4"]])
+                                  ["--spec-tick", "2"], ["--scale-dtype", "bf16"]])
 def test_main_rejects_unported_flags(flag, capsys):
     assert main(["-m", "x.bin", "-t", "t.bin", *flag]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_load_engine_int4_streams_the_jax_greedy_chain(tmp_path):
+    """`--quant int4`: load_engine quantizes a v0 checkpoint to packed int4
+    at load (the layers; the classifier stays int8) and the engine streams
+    over SSE the greedy chain of the JAX package's int4 model on the same
+    checkpoint."""
+    import jax.numpy as jnp
+
+    from rama_tpu.models import llama as jl
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.server.app import load_engine
+
+    jcfg = tiny_config(seq_len=32)
+    np_params = random_params(jcfg, seed=21)
+    model = tmp_path / "m.bin"
+    save_v0(str(model), torch_cfg(jcfg), np_params)
+    tok_path = write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size)
+    eng = load_engine(str(model), tok_path, quant="int4", dtype="float32", batch=2,
+                      device="cpu")
+    assert eng.params["w2"].bits == 4 and eng.params["wcls"].bits == 8
+
+    jp = jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=4, dtype=jnp.float32), jcfg)
+    cache = jl.KVCache.create(jcfg, 1, jcfg.seq_len, dtype=jnp.float32)
+    ids, nxt = [], BOS_ID
+    for pos in range(10):
+        logits, cache = jl.decode_step(jp, jcfg, jnp.asarray([nxt], jnp.int32),
+                                       jnp.asarray([pos], jnp.int32), cache)
+        nxt = int(np.argmax(np.asarray(logits)[0]))
+        ids.append(nxt)
+        if nxt == 2:
+            break
+    eng.start()
+    try:
+        async def fn(client):
+            resp = await client.get("/gen", params={"prompt": "", "steps": "10",
+                                                    "temperature": "0.0"})
+            assert resp.status == 200
+            return await asyncio.wait_for(resp.text(), timeout=120)
+
+        _, datas, events = parse_sse(run_client(eng, fn))
+    finally:
+        eng.stop()
+    assert not events
+    assert datas == [eng.tokenizer.decode_token(i).replace("\n", "\\n") for i in ids]
 
 
 def test_main_defaults_to_cuda_and_raises_without_gpu(tmp_path):
