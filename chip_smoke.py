@@ -21,14 +21,29 @@ Phases, in order (any failure raises and the script exits non-zero):
            GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
            int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
            stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16
+  kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
+           inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
+           shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
+           tiny / stories15M shapes; the int8 decode attention (rel 0.05
+           per (slot, head)) at S 4096 and at S 1024 with the bf16
+           kernel's positions, with planted edge rows, GQA rep 2 and 4,
+           fp32 and bf16 q; CUDA-event times as for `kernels`
   model    Llama-2-7B int8 params from a seed on the card (untied
            classifier), kernel-path logits against the plain path
   generate generate_text, greedy, a few dozen tokens (non-degenerate)
   serve    the port's server (build_app around an 8-slot Engine, max_len
            1024) on a local port; concurrent /gen requests; TTFT, tok/s,
            /metrics
-  profile  torch.profiler over 8-slot decode steps: host ms/step, device
-           kernel ms/step by kernel, device busy share
+  profile  torch.profiler over 8-slot decode steps: host ms/step (with and
+           without the profiler), device kernel ms/step by kernel, device
+           busy share
+  model_kv8    the int8 params on an int8 KV cache of 4096 rows: kernel-path
+           logits against the plain path after a prefill and decode steps
+           at positions 8, 9, 1500 and 4000 (RoPE tabulated to 4096); the
+           gap to the bf16-cache logits is printed, not gated
+  serve_kv8    the server with an 8-slot int8 KV cache at max_len 4096
+  profile_kv8  the profile of 8-slot decode steps on the int8 cache, at
+           positions 64 and 2048
   model4   Llama-2-7B int4 params (int4 layers, int8 embedding and
            classifier) from a seed on the card, logits against the plain path
   serve4   the server on the int4 model: 8 concurrent /gen requests
@@ -37,10 +52,13 @@ Phases, in order (any failure raises and the script exits non-zero):
            rama_tpu_torch.cli generate --device cuda`, and a v0 one with
            `--quant int4`
 
-Two main paths, each with the launch counters set to 0 just before it and
-read just after: int8 (`generate` + `serve`), where every int8 kernel must
-have launched, and int4 (`serve4`), where every int4 kernel, the int8
-classifier's GEMV and both attention kernels must have. The line before
+Three main paths, each with the launch counters set to 0 just before it
+and read just after: int8 (`generate` + `serve`), where every int8 kernel
+must have launched; int8 KV (`serve_kv8`), where the int8 cache's three
+kernels, the int8 matmul / FFN and the prefill attention must have, and
+the bf16 decode attention must not; int4 (`serve4`), where every int4
+kernel, the int8 classifier's GEMV and both attention kernels must have.
+The int8 KV path reuses the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
 which only a run of every phase prints.
@@ -65,24 +83,37 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
-ALL_PHASES = ("card", "build", "kernels", "kernels4", "model", "generate", "serve",
-              "profile", "model4", "serve4", "profile4", "cli")
+ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "model", "generate",
+              "serve", "profile", "model_kv8", "serve_kv8", "profile_kv8", "model4",
+              "serve4", "profile4", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
+KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 
-# The two main paths: their phases (model check, main path, profile) and
-# the kernels each must launch, with the key of the kernels record that
-# takes each one's count ("launches" on the path of the kernel's own
-# weights; the int4 path also runs the int8 classifier's GEMV and the
-# attention kernels).
-INT8_PATH = dict(phases=("model", "generate", "serve", "profile"),
+# The three main paths: their weight bits, phases (model check, main path,
+# profile), the kernels each must launch, with the key of the kernels
+# record that takes each one's count ("launches" on the path of the
+# kernel's own weights or cache; the int4 path also runs the int8
+# classifier's GEMV and the attention kernels, the int8 KV path the int8
+# matmul / FFN and the prefill attention), and the kernels it must not
+# launch (their count goes to the record too).
+INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "profile"),
                  record={"quant_matmul": "launches", "ffn": "launches",
-                         "decode_attention": "launches", "prefill_attention": "launches"})
-INT4_PATH = dict(phases=("model4", "serve4", "profile4"),
+                         "decode_attention": "launches", "prefill_attention": "launches"},
+                 forbid={})
+KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "profile_kv8"),
+                record={"write_kv_rows_q8": "launches", "decode_attention_q8": "launches",
+                        "write_kv_strips_q8": "launches",
+                        "quant_matmul": "launches_kv8_path", "ffn": "launches_kv8_path",
+                        "prefill_attention": "launches_kv8_path"},
+                forbid={"decode_attention": "launches_kv8_path"})
+INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
                          "quant_matmul": "launches_int4_path",
                          "decode_attention": "launches_int4_path",
-                         "prefill_attention": "launches_int4_path"})
+                         "prefill_attention": "launches_int4_path"},
+                 forbid={})
+PATHS = (INT8_PATH, KV8_PATH, INT4_PATH)
 
 
 def log(msg: str) -> None:
@@ -147,6 +178,18 @@ def plant_decode_edges(q, k_cache, pos, layer: int, rows) -> None:
                 k_cache[layer, b, :, r] = q[b] * 0.5
 
 
+def plant_decode_edges_q8(kvw, q, k8, ks, pos, layer: int, rows) -> None:
+    """plant_decode_edges on an int8 cache: the planted key rows are q * 0.5
+    quantized by kv_quant_rows (the score the same ~ 5.7)."""
+    s = k8.shape[3]
+    q8, sc = kvw.kv_quant_rows(q * 0.5)              # (B, nh, hd), (B, nh)
+    for b, p in enumerate(pos.tolist()):
+        for r in {p, p + 1, *rows}:
+            if 0 <= r < s:
+                k8[layer, b, :, r] = q8[b]
+                ks[layer, b, :, r] = sc[b]
+
+
 def plant_prefill_edges(v_cache, plens, rows) -> None:
     """Scale the value rows at plen - 1, plen (never visible) and at `rows`
     (the kernel's key-tile edges) by 16, so that a kernel dropping or adding
@@ -159,18 +202,40 @@ def plant_prefill_edges(v_cache, plens, rows) -> None:
                 v_cache[b, :, r] *= 16
 
 
-def reset_launches(qm, ffn_mod, da, pa) -> None:
-    for counts in (qm.launches, ffn_mod.launches):
-        for bits in counts:
-            counts[bits] = 0
-    da.launches = pa.launches = 0
+def reset_launches(qm, ffn_mod, da, pa, kvw) -> None:
+    for counts in (qm.launches, ffn_mod.launches, kvw.launches):
+        for key in counts:
+            counts[key] = 0
+    da.launches = da.launches_q8 = pa.launches = 0
 
 
-def read_launches(qm, ffn_mod, da, pa) -> dict:
+def read_launches(qm, ffn_mod, da, pa, kvw) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
-            "decode_attention": da.launches, "prefill_attention": pa.launches}
+            "decode_attention": da.launches, "prefill_attention": pa.launches,
+            "decode_attention_q8": da.launches_q8, **kvw.launches}
+
+
+def check_launches(path: dict, launches: dict) -> None:
+    """Fail a main path on which one of its kernels never launched, or on
+    which a kernel it must not run did."""
+    idle = [k for k in path["record"] if launches[k] == 0]
+    if idle:
+        raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
+                         f"{launches}")
+    stray = [k for k in path["forbid"] if launches[k]]
+    if stray:
+        raise SystemExit(f"FAILED: {stray} launched on the {path['label']} main path "
+                         f"{launches}")
+
+
+def final_line(phases, device: dict) -> tuple[dict, int]:
+    """The last line and exit code: "ok" only for a run of every phase."""
+    skipped = [ph for ph in ALL_PHASES if ph not in phases]
+    if skipped:
+        return {"ok": False, "skipped_phases": skipped, "device": device}, PARTIAL_RC
+    return {"ok": True, "device": device}, 0
 
 
 def matmul_bytes(w, m: int) -> float:
@@ -634,6 +699,195 @@ def phase_kernels_int4(torch, results: dict) -> None:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def phase_kernels_kv8(torch, results: dict) -> None:
+    """The int8 KV cache's kernels vs their plain versions: K6 (row writer)
+    and K8 (strip inserter) exactly, K7 (int8 decode attention) within TOL
+    per (slot, head); at the 7B shapes of an 8-slot 4096-row cache and at
+    the tiny / stories15M shapes."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    L, nh, nkv, hd, B, S = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8,
+                            KV8_MAX_LEN)
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def rcache(l, b, n, s, d):
+        """Random int8 bytes and scales (the writers' checks)."""
+        return [torch.randint(-127, 128, (l, b, n, s, d), dtype=torch.int8, device=dev,
+                              generator=g) for _ in range(2)] + [
+            torch.rand((l, b, n, s), device=dev, generator=g) for _ in range(2)]
+
+    def qcache(l, b, n, s, d):
+        """A cache of N(0, 1) rows quantized by kv_quant_rows, a layer at a
+        time (the attention checks)."""
+        c = [torch.empty((l, b, n, s, d), dtype=torch.int8, device=dev) for _ in range(2)] + [
+            torch.empty((l, b, n, s), device=dev) for _ in range(2)]
+        for i in range(l):
+            c[0][i], c[2][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=f32))
+            c[1][i], c[3][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=f32))
+        return c
+
+    def rows(*shape, dtype=bf):
+        """Rows of mixed magnitude with a zero row and a row of .5 ties."""
+        x = rx(*shape, dtype=f32) * (torch.rand(shape[:-1] + (1,), device=dev, generator=g)
+                                     * 30 + 1e-3)
+        flat = x.view(-1, shape[-1])
+        flat[0] = 0
+        flat[1] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5],
+                               device=dev).repeat(shape[-1] // 8)
+        return x.to(dtype)
+
+    def same(name, got, want) -> float:
+        """Exact: every int8 byte and f32 scale of the cache."""
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+        log(f"[check] {name}: {'exact' if not diff else f'tensors {diff} differ'}")
+        if diff:
+            raise SystemExit(f"FAILED {name}: cache tensors {diff} (k8, v8, ks, vs) differ "
+                             f"from the plain version's")
+        return 0.0
+
+    # -- K6: write_kv_rows_q8 ----------------------------------------------------
+    c1 = rcache(L, B, nkv, S, hd)
+    c2 = [t.clone() for t in c1]
+    pos = torch.tensor([0, 31, 32, S - 1, 1000, 2047, 2048, S + 4], dtype=torch.int32,
+                       device=dev)                      # S + 4: a finished slot's overshoot
+    for dt in (bf, f32):
+        k, v = rows(B, nkv, hd, dtype=dt), rows(B, nkv, hd, dtype=dt)
+        for l in (0, L - 1):
+            kvw.write_kv_rows_q8(*c1, k, v, pos, l)
+            kvw.write_kv_rows_q8_plain(*c2, k, v, pos, l)
+            err = same(f"write_kv_rows_q8 B={B} nkv={nkv} S={S} layer={l} pos={pos.tolist()} {dt}",
+                       c1, c2)
+    for cname, (b_, n_, s_, d_) in {"tiny": (3, 2, 48, 16), "stories15M": (5, 6, 64, 48)}.items():
+        t1 = rcache(3, b_, n_, s_, d_)
+        t2 = [t.clone() for t in t1]
+        pt = torch.tensor([0, 31, s_ - 1, 5, 32][:b_], dtype=torch.int32, device=dev)
+        for dt in (bf, f32):
+            k, v = rows(b_, n_, d_, dtype=dt), rows(b_, n_, d_, dtype=dt)
+            kvw.write_kv_rows_q8(*t1, k, v, pt, 2)
+            kvw.write_kv_rows_q8_plain(*t2, k, v, pt, 2)
+            same(f"write_kv_rows_q8 {cname} hd={d_} {dt}", t1, t2)
+    k, v = rows(B, nkv, hd), rows(B, nkv, hd)
+    lay = Layered(L)
+    t_k = time_ms(torch, lambda: kvw.write_kv_rows_q8(*c1, k, v, pos, lay.next()))
+    t_p = time_ms(torch, lambda: kvw.write_kv_rows_q8_plain(*c2, k, v, pos, lay.next()))
+    n_el = 2 * B * nkv * hd
+    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * nkv * 4 + B * 4, 3 * n_el)
+    results["write_kv_rows_q8"] = dict(
+        name="write_kv_rows_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:49", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"k/v rows (8, 32, 128) bf16 -> cache (32, 8, 32, {S}, 128) int8 + scales, "
+              f"pos {pos.tolist()}")
+
+    # -- K8: write_kv_strips_q8 --------------------------------------------------
+    for a, b in zip(c2, c1):   # the timed launches wrote other layers in each copy
+        a.copy_(b)
+    slots = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], dtype=torch.int32, device=dev)
+    for T, t_ins, n in ((16, 16, 8), (512, 512, 8), (512, 300, 3)):
+        k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
+        kvw.write_kv_strips_q8(*c1, k, v, slots[:n], t_ins)
+        kvw.write_kv_strips_q8_plain(*c2, k, v, slots[:n], t_ins)
+        err = same(f"write_kv_strips_q8 L={L} K={B} T={T} t_ins={t_ins} slots="
+                   f"{slots[:n].tolist()}", c1, c2)
+        del k, v
+    for cname, (l_, n_, s_, d_) in {"tiny": (3, 2, 48, 16), "stories15M": (6, 6, 64, 48)}.items():
+        t1 = rcache(l_, 4, n_, s_, d_)
+        t2 = [t.clone() for t in t1]
+        for dt in (bf, f32):
+            k, v = rows(l_, 3, n_, 16, d_, dtype=dt), rows(l_, 3, n_, 16, d_, dtype=dt)
+            st = torch.tensor([3, 1, 1], dtype=torch.int32, device=dev)
+            v[:, 2], k[:, 2] = v[:, 1], k[:, 1]         # a duplicate slot, identical strips
+            kvw.write_kv_strips_q8(*t1, k, v, st, 16)
+            kvw.write_kv_strips_q8_plain(*t2, k, v, st, 16)
+            same(f"write_kv_strips_q8 {cname} hd={d_} {dt}", t1, t2)
+    del c2
+    T = 16                                              # the serving bucket
+    k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
+    t_k = time_ms(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
+    t_p = time_ms(torch, lambda: kvw.write_kv_strips_q8_plain(*c1, k, v, slots, T), reps=5)
+    n_el = 2 * L * B * nkv * T * hd
+    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * L * B * nkv * T * 4, 3 * n_el)
+    results["write_kv_strips_q8"] = dict(
+        name="write_kv_strips_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:221", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"strips (32, 8, 32, 16, 128) bf16 -> slots {slots.tolist()} of the "
+              f"(32, 8, 32, {S}, 128) int8 cache")
+    del c1, k, v
+    torch.cuda.empty_cache()
+
+    # -- K7: decode_attention_q8 -------------------------------------------------
+    def attn_checks(c, q, pos, layers, label, split_edges):
+        for planted in (False, True):
+            for l in layers:
+                if planted:
+                    plant_decode_edges_q8(kvw, q, c[0], c[2], pos, l, split_edges)
+                compare(torch, f"decode_attention_q8 {label} layer={l} pos={pos.tolist()}"
+                        f"{' planted edges' if planted else ''}",
+                        da.decode_attention_q8(q, *c, pos, l),
+                        da.decode_attention_q8_plain(q, *c, pos, l), per=q.shape[-1])
+
+    def time_attn(c, q, pos, n_layers) -> dict:
+        err = compare(torch, f"decode_attention_q8 timed inputs S={c[0].shape[3]} (layer 0)",
+                      da.decode_attention_q8(q, *c, pos, 0),
+                      da.decode_attention_q8_plain(q, *c, pos, 0), per=q.shape[-1])
+        lay = Layered(n_layers)
+        t_k = time_ms(torch, lambda: da.decode_attention_q8(q, *c, pos, lay.next()))
+        t_p = time_ms(torch, lambda: da.decode_attention_q8_plain(q, *c, pos, lay.next()),
+                      reps=5)
+        s_ = c[0].shape[3]
+        n_rows = int((pos.clamp(0, s_ - 1) + 1).sum())
+        nb = n_rows * nkv * (2 * hd + 2 * 4) + 2 * q.numel() * 2
+        b_ms, b_by = bound_ms(nb, n_rows * nh * hd * 4)
+        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, shape=f"q (8, 32, 128) bf16, int8 cache ({n_layers}, 8, "
+                    f"32, {s_}, 128) + f32 row scales, pos {pos.tolist()}")
+
+    q = rx(B, nh, hd)
+    pos4 = torch.tensor([0, 255, 256, 1023, 63, 64, 511, 700], dtype=torch.int32, device=dev)
+    c = qcache(L, B, nkv, 1024, hd)
+    attn_checks(c, q, pos4, (0, L - 1), "B=8 S=1024", (63, 64, 255, 256, 511, 512, 1023))
+    c = qcache(L, B, nkv, 1024, hd)                     # timed on unplanted rows
+    results["decode_attention_q8"] = dict(
+        name="decode_attention_q8", route="cuda",
+        source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/decode_attention.py:556", **time_attn(c, q, pos4, L))
+    del c
+    torch.cuda.empty_cache()
+    pos_long = torch.tensor([0, 63, 64, 255, 1023, 2047, 4000, 4095], dtype=torch.int32,
+                            device=dev)
+    c = qcache(4, B, nkv, S, hd)
+    attn_checks(c, q, pos_long, (0, 3), f"B=8 S={S}",
+                (63, 64, 1023, 1024, 2047, 2048, 3967, 3968, 4031, 4032, 4095))
+    c = qcache(4, B, nkv, S, hd)
+    results["decode_attention_q8"]["s4096"] = time_attn(c, q, pos_long, 4)
+    del c
+    # GQA rep 2 (tiny), 4 and 1 (stories15M's hd 48), fp32 and bf16 q
+    for nh_s, nkv_s, hd_s in ((4, 2, 16), (8, 2, 16), (6, 6, 48), (8, 2, 128)):
+        for dt in (bf, f32):
+            cs = qcache(2, 3, nkv_s, 80, hd_s)
+            qs = rx(3, nh_s, hd_s, dtype=dt)
+            ps = torch.tensor([0, 64, 79], dtype=torch.int32, device=dev)
+            compare(torch, f"decode_attention_q8 rep={nh_s // nkv_s} hd={hd_s} {dt}",
+                    da.decode_attention_q8(qs, *cs, ps, 1),
+                    da.decode_attention_q8_plain(qs, *cs, ps, 1), per=hd_s)
+    for name in ("write_kv_rows_q8", "write_kv_strips_q8", "decode_attention_q8"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = results["decode_attention_q8"]["s4096"]
+    log(f"[kernel] decode_attention_q8 S={S}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def phase_model(torch, cfg, params, label: str = "int8") -> None:
     """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
@@ -654,6 +908,59 @@ def phase_model(torch, cfg, params, label: str = "int8") -> None:
             tok = torch.argmax(lp, dim=-1)
 
 
+def rel_gap(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def phase_model_kv8(torch, cfg, params) -> None:
+    """Kernel-path logits vs the plain path on an int8 KV cache of 4096 rows
+    (params with RoPE tabulated to 4096): a prompt prefill, decode steps at
+    positions 8 and 9, then, with rows 10 .. 4095 of both caches filled with
+    copies of the plain cache's rows 0-9, at 1500 and 4000 (RoPE past the
+    checkpoint's 1024). The gap to a bf16 cache through the kernels is
+    printed for information."""
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, decode_step, prefill
+
+    dev = torch.device("cuda")
+    S = KV8_MAX_LEN
+    if params["rope_cos"].shape[0] < S:
+        raise SystemExit(f"FAILED model_kv8: RoPE tabulated to {params['rope_cos'].shape[0]}")
+    toks = torch.tensor([[1, 9038, 2501, 263, 931, 29892, 727, 471]], device=dev)
+    caches = [QuantKVCache.create(cfg, 1, S, device=dev) for _ in range(2)]
+    dense = KVCache.create(cfg, 1, S, device=dev)
+    with torch.no_grad():
+        lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)
+        lp, _ = prefill(params, cfg, toks, caches[1], last_only=True, plain=True)
+        ld, _ = prefill(params, cfg, toks, dense, last_only=True)
+        compare(torch, "7B int8 KV logits prefill (kernels vs plain)", lk[:, -1], lp[:, -1])
+        log(f"[model_kv8] prefill logits, int8 vs bf16 cache (kernels): rel "
+            f"{rel_gap(torch, lk[:, -1], ld[:, -1]):.3e} (not gated)")
+        tok = torch.argmax(lp[:, -1], dim=-1)
+        for p in (8, 9, 1500, 4000):
+            if p == 1500:
+                # rows 10 .. S-1 of both caches: copies of the plain cache's
+                # rows 0-9 (the model's own keys and values; random rows
+                # would make each step's softmax a near-argmax over noise,
+                # which turns the kernels' bf16 rounding into whole-token
+                # jumps)
+                tile = torch.arange(S - 10, device=dev) % 10
+                for name in ("k", "v", "ks", "vs"):
+                    rows = getattr(caches[1], name).index_select(3, tile)
+                    for c in caches:
+                        getattr(c, name)[:, :, :, 10:] = rows
+            pos = torch.tensor([p], device=dev)
+            lk, _ = decode_step(params, cfg, tok, pos, caches[0])
+            lp, _ = decode_step(params, cfg, tok, pos, caches[1], plain=True)
+            compare(torch, f"7B int8 KV logits decode at pos {p} (kernels vs plain)", lk, lp)
+            if p < 10:
+                ld, _ = decode_step(params, cfg, tok, pos, dense)
+                log(f"[model_kv8] decode at pos {p}, int8 vs bf16 cache (kernels): rel "
+                    f"{rel_gap(torch, lk, ld):.3e} (not gated)")
+            tok = torch.argmax(lp, dim=-1)
+    del caches, dense
+    torch.cuda.empty_cache()
+
+
 def phase_generate(torch, cfg, params, tokenizer) -> None:
     from rama_tpu_torch.runtime.generate import generate_text
 
@@ -668,16 +975,21 @@ def phase_generate(torch, cfg, params, tokenizer) -> None:
         raise SystemExit(f"FAILED generate: degenerate trajectory {gen}")
 
 
-def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") -> None:
+def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
+                max_seq_len: int = 1024, kv_quant: str | None = None) -> None:
     import aiohttp
     from aiohttp import web
 
     from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.models.llama import QuantKVCache
     from rama_tpu_torch.runtime.engine import Engine
     from rama_tpu_torch.server.app import build_app
 
     engine = Engine(cfg, params, tokenizer,
-                    EngineConfig(max_batch_size=8, max_seq_len=1024, decode_tick=8))
+                    EngineConfig(max_batch_size=8, max_seq_len=max_seq_len, decode_tick=8,
+                                 kv_quant=kv_quant))
+    if isinstance(engine.cache, QuantKVCache) != (kv_quant == "int8"):
+        raise SystemExit(f"FAILED {tag}: kv_quant={kv_quant} built {type(engine.cache)}")
     engine.start()
     prompts = ["Once upon a time", "The little dog", "In a far away land",
                "She opened the door", "Tom and Lily", "The sun was", "A big red ball",
@@ -690,7 +1002,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") ->
         async with session.get(url, params={"prompt": prompt, "steps": str(steps),
                                             "temperature": str(temp)}) as resp:
             if resp.status != 200:
-                raise SystemExit(f"FAILED serve: /gen status {resp.status}")
+                raise SystemExit(f"FAILED {tag}: /gen status {resp.status}")
             async for raw in resp.content:
                 line = raw.decode().rstrip("\n")
                 if line.startswith("data: "):
@@ -698,7 +1010,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") ->
                     if ttft is None:
                         ttft = time.perf_counter() - t0
                 elif line.startswith("event: error"):
-                    raise SystemExit(f"FAILED serve: error event for {prompt!r}")
+                    raise SystemExit(f"FAILED {tag}: error event for {prompt!r}")
             ended = True
         return ttft, n, ended
 
@@ -729,9 +1041,9 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") ->
         engine.stop()
     total = sum(n for _, n, _ in outs)
     if not all(ended and n > 0 for _, n, ended in outs):
-        raise SystemExit(f"FAILED serve: a stream did not finish {outs}")
+        raise SystemExit(f"FAILED {tag}: a stream did not finish {outs}")
     if stats["tokens_generated"] < total or stats["engine_errors"]:
-        raise SystemExit(f"FAILED serve: /metrics {stats} vs {total} streamed")
+        raise SystemExit(f"FAILED {tag}: /metrics {stats} vs {total} streamed")
     ttfts = sorted(t for t, _, _ in outs)
     log(f"[{tag}] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
         f"{total / wall:.2f} tok/s aggregate; TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} "
@@ -740,25 +1052,34 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve") ->
     log(f"[{tag}] metrics phases {json.dumps(stats['phases'])}")
 
 
-def phase_profile(torch, cfg, params, tag: str = "profile") -> None:
-    """torch.profiler over 8 decode steps at 8 slots (positions 64..71): host
-    wall per step, device kernel time per step by kernel, device busy share."""
+def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
+                  start: int = 64) -> None:
+    """torch.profiler over 8 decode steps at 8 slots (positions start ..
+    start+7; by default on a 128-row bf16 cache): host wall per step with
+    and without the profiler, device kernel time per step by kernel, device
+    busy share (against the profiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step
 
     dev = torch.device("cuda")
-    cache = KVCache.create(cfg, 8, 128, device=dev)
+    if cache is None:
+        cache = KVCache.create(cfg, 8, 128, device=dev)
     tok = torch.arange(8, device=dev) + 100
     with torch.no_grad():
         for i in range(2):  # warm
-            decode_step(params, cfg, tok, torch.full((8,), 60 + i, device=dev), cache)
+            decode_step(params, cfg, tok, torch.full((8,), start - 4 + i, device=dev), cache)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):  # the same steps without the profiler's overhead
+            decode_step(params, cfg, tok, torch.full((8,), start + i, device=dev), cache)
+        torch.cuda.synchronize()
+        wall_off = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(8):
-                logits, _ = decode_step(params, cfg, tok, torch.full((8,), 64 + i, device=dev),
-                                        cache)
+                logits, _ = decode_step(params, cfg, tok,
+                                        torch.full((8,), start + i, device=dev), cache)
                 tok = torch.argmax(logits, dim=-1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -768,10 +1089,12 @@ def phase_profile(torch, cfg, params, tag: str = "profile") -> None:
         if dt and ev.device_type.name == "CUDA":
             rows.append((dt, ev.key, ev.count))
     busy_us = sum(r[0] for r in rows)
-    log(f"[{tag}] 8 slots x 8 decode steps: host wall {wall / 8 * 1e3:.3f} ms/step "
-        f"(profiler on); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
+    log(f"[{tag}] 8 slots x 8 decode steps at pos {start}..{start + 7}: host wall "
+        f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
+        f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}")
-    for dt, key, count in sorted(rows, reverse=True)[:12]:
+    ranked = sorted(rows, reverse=True)
+    for dt, key, count in ranked[:12] + [r for r in ranked[12:] if "rama::" in r[1]]:
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
         log(f"[{tag}] the profiler recorded no device time")
@@ -826,8 +1149,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import QuantKVCache, _rope_tables
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
     from rama_tpu_torch.tokenizer import Tokenizer
@@ -842,62 +1167,77 @@ def main() -> int:
     if "build" in phases:
         phase_build()
     results: dict = {}
-    if "kernels" in phases:
-        phase_kernels(torch, results)
-        torch.cuda.empty_cache()
-    if "kernels4" in phases:
-        phase_kernels_int4(torch, results)
-        torch.cuda.empty_cache()
-    modules = (qm, ffn_mod, da, pa)
+    for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
+                        ("kernels_kv8", phase_kernels_kv8)):
+        if name in phases:
+            phase(torch, results)
+            torch.cuda.empty_cache()
+    modules = (qm, ffn_mod, da, pa, kvw)
     tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
-    for bits, path in ((8, INT8_PATH), (4, INT4_PATH)):
+    cfg = seven_b_config(ModelConfig)
+    dev = torch.device("cuda")
+    params, params_bits = None, None
+    for path in PATHS:
         if not set(path["phases"]) & set(phases):
             continue
-        cfg = seven_b_config(ModelConfig)
-        t0 = time.time()
-        params = random_params(torch, cfg, torch.device("cuda"), bits=bits)
-        torch.cuda.synchronize()
-        log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} s, "
-            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        bits, label = path["bits"], path["label"]
+        if params_bits != bits:   # the int8 KV path reuses the int8 params
+            params = None
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            params, params_bits = random_params(torch, cfg, dev, bits=bits), bits
+            torch.cuda.synchronize()
+            log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} "
+                f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         model, *main_path, profile = path["phases"]
-        if model in phases:
+        if model == "model_kv8" and model in phases:
+            # RoPE to the 4096-row cache, as the engine retabulates it
+            long = dict(params)
+            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+            phase_model_kv8(torch, cfg, long)
+        elif model in phases:
             phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
         if "generate" in main_path and "generate" in phases:
             phase_generate(torch, cfg, params, tokenizer)
         if main_path[-1] in phases:
-            phase_serve(torch, cfg, params, tokenizer, card, tag=main_path[-1])
+            kv8 = path is KV8_PATH
+            phase_serve(torch, cfg, params, tokenizer, card, tag=main_path[-1],
+                        max_seq_len=KV8_MAX_LEN if kv8 else 1024,
+                        kv_quant="int8" if kv8 else None)
         launches = read_launches(*modules)
-        log(f"[launches] int{bits} main path ({' + '.join(main_path)}): {launches}")
+        log(f"[launches] {label} main path ({' + '.join(main_path)}): {launches}")
         if set(main_path) <= set(phases):
-            idle = [k for k in path["record"] if launches[k] == 0]
-            if idle:
-                raise SystemExit(f"FAILED: {idle} never launched on the int{bits} main path "
-                                 f"{launches}")
-        for name, key in path["record"].items():
+            check_launches(path, launches)
+        for name, key in {**path["record"], **path["forbid"]}.items():
             if name in results:
                 results[name][key] = launches[name]
-        if profile in phases:
+        if profile == "profile_kv8" and profile in phases:
+            long = dict(params)
+            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+            cache = QuantKVCache.create(cfg, 8, KV8_MAX_LEN, device=dev)
+            for start in (64, 2048):
+                phase_profile(torch, cfg, long, tag=profile, cache=cache, start=start)
+            del cache, long
+        elif profile in phases:
             phase_profile(torch, cfg, params, tag=profile)
-        del params
         torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
     if "cli" in phases:
         phase_cli(torch)
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "long_prompt",
-            "launches_int4_path")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "long_prompt", "s4096",
+            "launches_int4_path", "launches_kv8_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    skipped = [ph for ph in ALL_PHASES if ph not in phases]
-    if skipped:
-        # not every kernel was checked and launched: no "ok" for a subset
-        print(json.dumps({"ok": False, "skipped_phases": skipped, "device": device}))
-        return PARTIAL_RC
-    print(json.dumps({"ok": True, "device": device}))
-    return 0
+    # not every kernel was checked and launched: no "ok" for a subset
+    line, rc = final_line(phases, device)
+    print(json.dumps(line))
+    return rc
 
 
 if __name__ == "__main__":

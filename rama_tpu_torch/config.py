@@ -86,6 +86,10 @@ class EngineConfig:
     dtype: str = "bfloat16"
     quant: str | None = None  # None | "int8" (weight-only group quant)
     quant_group_size: int = 64
+    # KV-cache quantization: None | "int8" (per-token-per-head absmax; halves
+    # the cache's bytes and doubles the slots a card holds). Dense slots
+    # only here: the paged pool and tensor parallelism are not ported.
+    kv_quant: str | None = None
 
     # Fields of features not ported yet (ROADMAP.md); setting any of them
     # makes the Engine raise NotImplementedError.
@@ -95,7 +99,6 @@ class EngineConfig:
     prefill_chunk: int = 0
     prefill_chunk_min: int | None = None
     scale_dtype: str | None = None
-    kv_quant: str | None = None
     spec_tick: int = 0
     spec_rounds: int = 4
     spec_mode: str = "ngram"

@@ -1,29 +1,38 @@
-// Kernel 3: T=1 decode attention against layer l of the stacked KV cache,
-// flash-decoding style.
+// Kernels 4 and 7: T=1 decode attention against layer l of the stacked KV
+// cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
+// cache with one f32 scale per (token, kv head) row (K7).
 //
 // Replaces rama_tpu/ops/pallas/decode_attention.py:
 // decode_attention_layer (_kernel_layered, whole S stripe per program) and
 // decode_attention_layer_tiled (_kernel_tiled, online softmax over S-tiles,
-// tiles past pos skipped). Both compute softmax(q k^T / sqrt(hd)) v for the
-// GQA group of each kv head, over cache rows s <= pos[b].
+// tiles past pos skipped) for K4; decode_attention_layer_q8 and
+// decode_attention_layer_tiled_q8 (_kernel_q8, _kernel_tiled_q8) for K7.
+// All compute softmax(q k^T / sqrt(hd)) v for the GQA group of each kv
+// head, over cache rows s <= pos[b]; the int8 forms apply the row scales
+// after the products: score = (q . k8[s]) * ks[s] / sqrt(hd), and the V
+// side sums (p[s] * vs[s]) * v8[s].
 //
 // Bound on the H100: bytes. Each (slot, kv head) reads (pos+1) rows of K and
-// of V, hd * 2 bytes each for a bf16 cache; compute is ~2 flops per byte.
-// At 7B (32 kv heads, hd 128) a slot at pos 1023 reads 16.8 MB per layer:
-// 5 us at 3.35 TB/s.
+// of V, hd * 2 bytes each for a bf16 cache (hd bytes + a 4-byte scale for
+// int8); compute is ~2 flops per byte (~4 for int8).
+// At 7B (32 kv heads, hd 128) a slot at pos 1023 reads 16.8 MB per layer
+// from a bf16 cache, 8.7 MB from an int8 one: 5 us / 2.6 us at 3.35 TB/s.
 //
 // Design: the TPU grid walks S-tiles in order inside one program per
 // (slot, head group) — at batch 1 that is only 32 programs, too few for 132
 // SMs. Here the grid is (S-split, kv head, slot): each CTA scores its
-// chunk of rows (16-byte loads of K, RG lanes per row), takes the chunk's
-// max and sum in fp32, rounds the probabilities to the cache dtype before
-// P.V (as decode_attention.py:75,100 do), and writes a partial (m, l,
-// o); CTAs whose chunk starts past pos exit before reading anything. A
-// second small kernel combines the splits. All rep query heads of a kv
-// head share one read of the K/V rows.
+// chunk of rows (16-byte loads of K: 8 bf16 or 16 int8 lanes, RG lanes per
+// row), takes the chunk's max and sum in fp32, rounds the probabilities
+// (times the V row scale, for int8) to q's dtype before P.V (as
+// decode_attention.py:75,100 and the q8 kernels' bf16 casts do), and writes
+// a partial (m, l, o); CTAs whose chunk starts past pos exit before
+// reading anything. A second small kernel combines the splits. All rep
+// query heads of a kv head share one read of the K/V rows.
 #include "common.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace rama {
 
@@ -40,14 +49,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (nsplit, nkv, B), block 128. RG = lanes per cache row (each lane 8
-// elements of hd, RG = next power of two >= hd/8); REP >= rep = nh/nkv.
-template <typename T, int RG, int REP>
+// 16 consecutive int8 cache elements (one 16-byte load) as f32; p must be
+// 16-byte aligned.
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  const char4* c = reinterpret_cast<const char4*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[4 * i] = c[i].x;
+    out[4 * i + 1] = c[i].y;
+    out[4 * i + 2] = c[i].z;
+    out[4 * i + 3] = c[i].w;
+  }
+}
+
+// EPL cache elements of one lane: 8 of a bf16 / f32 cache, 16 of int8.
+template <typename C> struct Lane { static constexpr int EPL = 8; };
+template <> struct Lane<int8_t> { static constexpr int EPL = 16; };
+
+template <int EPL, typename C>
+__device__ __forceinline__ void load_lane(const C* p, float* out) {
+  if constexpr (EPL == 16) load16(p, out);
+  else load8(p, out);
+}
+
+// grid (nsplit, nkv, B), block 128. T: q's dtype; C: the cache's (T, or
+// int8_t with row scales ksc / vsc, which are null otherwise). RG = lanes
+// per cache row (each lane EPL elements of hd, RG = next power of two >=
+// hd/EPL); REP >= rep = nh/nkv.
+template <typename T, typename C, int RG, int REP>
 __global__ void __launch_bounds__(kDaThreads)
-dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restrict__ vc,
+            const float* __restrict__ ksc, const float* __restrict__ vsc,
             const int* __restrict__ pos, float* __restrict__ part_o,
             float* __restrict__ part_ml, int nh, int nkv, int S, int hd, int chunk,
             float scale) {
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
+  constexpr int EPL = Lane<C>::EPL;
   extern __shared__ float sm[];
   const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
   const int tid = threadIdx.x;
@@ -67,20 +105,21 @@ dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restri
   __syncthreads();
 
   const int lane_g = tid % RG, grp = tid / RG;
-  const int d0 = lane_g * 8;
+  const int d0 = lane_g * EPL;
   const bool active = d0 < hd;
-  const size_t stripe = ((size_t)b * nkv + j) * (size_t)S * hd;
+  const size_t srow = ((size_t)b * nkv + j) * (size_t)S;  // row scales of the stripe
+  const size_t stripe = srow * hd;
 
   // scores: every lane runs the same trip count (shuffles need the full warp)
   for (int base = s0; base < s1; base += ngrp) {
     const int s = base + grp;
     const bool ok = s < s1;
-    float kv[8];
+    float kv[EPL];
     if (ok && active) {
-      load8(kc + stripe + (size_t)s * hd + d0, kv);
+      load_lane<EPL>(kc + stripe + (size_t)s * hd + d0, kv);
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) kv[i] = 0.f;
+      for (int i = 0; i < EPL; ++i) kv[i] = 0.f;
     }
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
@@ -88,16 +127,21 @@ dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restri
       float d = 0.f;
       if (active) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) d = fmaf(qs[r * hd + d0 + i], kv[i], d);
+        for (int i = 0; i < EPL; ++i) d = fmaf(qs[r * hd + d0 + i], kv[i], d);
       }
 #pragma unroll
       for (int o = RG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (lane_g == 0 && ok) sc[r * chunk + (s - s0)] = d * scale;
+      if constexpr (kQ8) {
+        if (lane_g == 0 && ok) sc[r * chunk + (s - s0)] = d * ksc[srow + s] * scale;
+      } else {
+        if (lane_g == 0 && ok) sc[r * chunk + (s - s0)] = d * scale;
+      }
     }
   }
   __syncthreads();
 
-  // chunk max / sum per query row; probabilities rounded to T for P.V
+  // chunk max / sum per query row; probabilities (times the V row scale,
+  // for int8) rounded to T for P.V
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < rep; r += kDaThreads / 32) {
     float m = -INFINITY;
@@ -107,7 +151,8 @@ dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restri
     for (int i = lane; i < n; i += 32) {
       const float e = expf(sc[r * chunk + i] - m);
       l += e;
-      sc[r * chunk + i] = round_to<T>(e);
+      if constexpr (kQ8) sc[r * chunk + i] = round_to<T>(e * vsc[srow + s0 + i]);
+      else sc[r * chunk + i] = round_to<T>(e);
     }
     l = warp_sum(l);
     if (lane == 0) {
@@ -117,28 +162,28 @@ dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restri
   }
   __syncthreads();
 
-  float acc[REP][8];
+  float acc[REP][EPL];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < EPL; ++i) acc[r][i] = 0.f;
   if (active) {
     for (int s = s0 + grp; s < s1; s += ngrp) {
-      float v[8];
-      load8(vc + stripe + (size_t)s * hd + d0, v);
+      float v[EPL];
+      load_lane<EPL>(vc + stripe + (size_t)s * hd + d0, v);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         if (r >= rep) break;
         const float pr = sc[r * chunk + (s - s0)];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(pr, v[i], acc[r][i]);
+        for (int i = 0; i < EPL; ++i) acc[r][i] = fmaf(pr, v[i], acc[r][i]);
       }
     }
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       if (r >= rep) break;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) red[((size_t)grp * rep + r) * hd + d0 + i] = acc[r][i];
+      for (int i = 0; i < EPL; ++i) red[((size_t)grp * rep + r) * hd + d0 + i] = acc[r][i];
     }
   }
   __syncthreads();
@@ -146,7 +191,7 @@ dattn_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restri
     const int r = i / hd, d = i - r * hd;
     float v = 0.f;
     for (int g = 0; g < ngrp; ++g) {
-      // groups whose lanes cover no dims (RG * 8 > hd) wrote nothing there;
+      // groups whose lanes cover no dims (RG * EPL > hd) wrote nothing there;
       // every group covers the same dims, so all ngrp rows are written
       v += red[(size_t)g * rep * hd + i];
     }
@@ -177,75 +222,99 @@ dattn_combine(const float* __restrict__ part_o, const float* __restrict__ part_m
   }
 }
 
-template <typename T, int RG, int REP>
-cudaError_t launch_split(const void* q, const void* k, const void* v, const int* pos,
-                         float* part_o, float* part_ml, int B, int nh, int nkv, int S,
-                         int hd, int chunk, int nsplit, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) *
-      ((size_t)REP * hd + (size_t)REP * chunk + (size_t)(kDaThreads / RG) * REP * hd);
-  auto kern = dattn_split<T, RG, REP>;
+// One launch's operands (ks / vs null for a bf16 / f32 cache).
+struct DaArgs {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int* pos;
+  void* out;
+  float *part_o, *part_ml;
+  int B, nh, nkv, S, hd, chunk, nsplit;
+  float scale;
+  cudaStream_t st;
+};
+
+template <typename T, typename C, int RG, int REP>
+cudaError_t launch_split(const DaArgs& a) {
+  const size_t smem = sizeof(float) * ((size_t)REP * a.hd + (size_t)REP * a.chunk +
+                                       (size_t)(kDaThreads / RG) * REP * a.hd);
+  auto kern = dattn_split<T, C, RG, REP>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(nsplit, nkv, B), kDaThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      part_o, part_ml, nh, nkv, S, hd, chunk, scale);
+  kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
+      a.ks, a.vs, a.pos, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int RG>
-cudaError_t launch_rep(int rep, const void* q, const void* k, const void* v, const int* pos,
-                       float* po, float* pml, int B, int nh, int nkv, int S, int hd,
-                       int chunk, int nsplit, float scale, cudaStream_t st) {
-  if (rep <= 1) return launch_split<T, RG, 1>(q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  if (rep <= 2) return launch_split<T, RG, 2>(q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  if (rep <= 4) return launch_split<T, RG, 4>(q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  if (rep <= 8) return launch_split<T, RG, 8>(q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
+template <typename T, typename C, int RG>
+cudaError_t launch_rep(const DaArgs& a) {
+  const int rep = a.nh / a.nkv;
+  if (rep <= 1) return launch_split<T, C, RG, 1>(a);
+  if (rep <= 2) return launch_split<T, C, RG, 2>(a);
+  if (rep <= 4) return launch_split<T, C, RG, 4>(a);
+  if (rep <= 8) return launch_split<T, C, RG, 8>(a);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t launch_all(const void* q, const void* k, const void* v, const int* pos,
-                       void* out, float* po, float* pml, int B, int nh, int nkv, int S,
-                       int hd, int chunk, cudaStream_t st) {
-  const int nsplit = (S + chunk - 1) / chunk;
-  const int rep = nh / nkv;
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const int lanes = hd / 8;
+template <typename T, typename C>
+cudaError_t launch_all(DaArgs a) {
+  a.nsplit = (a.S + a.chunk - 1) / a.chunk;
+  a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
+  const int lanes = a.hd / Lane<C>::EPL;
   cudaError_t e;
-  if (lanes <= 1) e = launch_rep<T, 1>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else if (lanes <= 2) e = launch_rep<T, 2>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else if (lanes <= 4) e = launch_rep<T, 4>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else if (lanes <= 8) e = launch_rep<T, 8>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else if (lanes <= 16) e = launch_rep<T, 16>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else if (lanes <= 32) e = launch_rep<T, 32>(rep, q, k, v, pos, po, pml, B, nh, nkv, S, hd, chunk, nsplit, scale, st);
-  else return cudaErrorInvalidValue;
+  if (lanes <= 1) e = launch_rep<T, C, 1>(a);
+  else if (lanes <= 2) e = launch_rep<T, C, 2>(a);
+  else if (lanes <= 4) e = launch_rep<T, C, 4>(a);
+  else if (lanes <= 8) e = launch_rep<T, C, 8>(a);
+  else if (lanes <= 16) e = launch_rep<T, C, 16>(a);
+  else if (lanes <= 32) {
+    if constexpr (Lane<C>::EPL == 8) e = launch_rep<T, C, 32>(a);
+    else return cudaErrorInvalidValue;
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
-  dattn_combine<T><<<dim3(nh, B), kDaThreads, 0, st>>>(po, pml, pos, static_cast<T*>(out),
-                                                        nh, S, hd, chunk, nsplit);
+  dattn_combine<T><<<dim3(a.nh, a.B), kDaThreads, 0, a.st>>>(
+      a.part_o, a.part_ml, a.pos, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk, a.nsplit);
   return cudaGetLastError();
 }
 
 }  // namespace rama
 
-// q (B, nh, hd); k/v point at layer l of the (L, B, nkv, S, hd) cache;
-// pos (B,) int32; out (B, nh * hd); part_o (B, nh, nsplit, hd) and part_ml
-// (B, nh, nsplit, 2) fp32 scratch with nsplit = ceil(S / chunk).
+// K4. q (B, nh, hd); k/v point at layer l of the (L, B, nkv, S, hd) cache
+// of q's dtype; pos (B,) int32; out (B, nh * hd); part_o (B, nh, nsplit,
+// hd) and part_ml (B, nh, nsplit, 2) fp32 scratch with nsplit =
+// ceil(S / chunk).
 extern "C" int rama_decode_attention(const void* q, const void* k, const void* v,
                                      const void* pos, void* out, void* part_o,
                                      void* part_ml, int B, int nh, int nkv, int S, int hd,
                                      int chunk, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  float* po = static_cast<float*>(part_o);
-  float* pml = static_cast<float*>(part_ml);
+  const rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos), out,
+                       static_cast<float*>(part_o), static_cast<float*>(part_ml),
+                       B, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream)};
   if (dtype == rama::kBF16)
-    return static_cast<int>(rama::launch_all<__nv_bfloat16>(q, k, v, p, out, po, pml, B, nh,
-                                                            nkv, S, hd, chunk, st));
-  if (dtype == rama::kF32)
-    return static_cast<int>(rama::launch_all<float>(q, k, v, p, out, po, pml, B, nh, nkv, S,
-                                                    hd, chunk, st));
+    return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
+  if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7. As K4 over an int8 cache: k8/v8 point at layer l of (L, B, nkv, S,
+// hd) int8, ks/vs at layer l of its (L, B, nkv, S) f32 row scales; hd a
+// multiple of 16.
+extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const void* v8,
+                                        const void* ks, const void* vs, const void* pos,
+                                        void* out, void* part_o, void* part_ml, int B, int nh,
+                                        int nkv, int S, int hd, int chunk, int dtype,
+                                        void* stream) {
+  const rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                       static_cast<const int*>(pos), out, static_cast<float*>(part_o),
+                       static_cast<float*>(part_ml), B, nh, nkv, S, hd, chunk, 0, 0.f,
+                       static_cast<cudaStream_t>(stream)};
+  if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
+  if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,164 @@
+// Kernels 6 and 8: quantize K/V rows to int8 with one f32 absmax scale per
+// (token, kv head) row and write them into the int8 KV cache in place.
+//
+// Replaces rama_tpu/ops/pallas/kv_write.py:
+//   write_kv_rows_q8   (K6) — the decode step's rows, [layer, b, :, pos[b]];
+//   write_kv_strips_q8 (K8) — an admission's prefilled strips,
+//                             [:, slots[j], :, 0:T], every layer at once.
+// The Pallas kernels take rows already quantized by kv_quant_rows
+// (rama_tpu/models/llama.py:178) and DMA a tile-rounded window around
+// them; here the quantization is fused into the write, so the row is read
+// once in the activation dtype and written once as int8 + its scale.
+//
+// Row quantization (bit for bit kv_quant_rows): x in f32,
+// scale = max(max|x| / 127, 1e-10), q = round-half-even(x / scale). The
+// division is a true IEEE division (no reciprocal, no fast math), and rintf
+// rounds half to even as jnp.round does.
+//
+// Bound on the H100: bytes, and far below a launch. K6 at 7B (8 slots, 32
+// kv heads, hd 128, bf16) reads 131 KB and writes 67 KB per layer; K8 for
+// an admission of 8 prompts of 16 tokens reads 67 MB of strips and writes
+// 34 MB. Design: one warp per (row, k or v); each lane keeps up to 8
+// elements in registers, the absmax is a warp shuffle reduction, the
+// stores are coalesced. No shared memory, no block-wide sync.
+#include "common.cuh"
+
+#include <math.h>
+
+namespace rama {
+
+constexpr int kKvThreads = 256;       // 8 warps per CTA
+constexpr int kKvMaxPerLane = 8;      // hd <= 256
+
+// Quantize one row of hd elements (warp-wide) into dst / *dst_scale.
+template <typename T>
+__device__ __forceinline__ void quant_row(const T* __restrict__ src, int8_t* __restrict__ dst,
+                                          float* __restrict__ dst_scale, int hd, int lane) {
+  float x[kKvMaxPerLane];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKvMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    x[i] = d < hd ? to_f(src[d]) : 0.f;
+    amax = fmaxf(amax, fabsf(x[i]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = fmaxf(amax / 127.0f, 1e-10f);
+#pragma unroll
+  for (int i = 0; i < kKvMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) dst[d] = static_cast<int8_t>(rintf(x[i] / scale));
+  }
+  if (lane == 0) *dst_scale = scale;
+}
+
+// K6. Warp w of the grid: w = (b * nkv + h) * 2 + kv. rows (B, nkv, hd);
+// k8/v8 point at layer l of (L, B, nkv, S, hd), ks/vs at layer l of
+// (L, B, nkv, S).
+template <typename T>
+__global__ void __launch_bounds__(kKvThreads)
+kv_write_rows(const T* __restrict__ k, const T* __restrict__ v, const int* __restrict__ pos,
+              int8_t* __restrict__ k8, int8_t* __restrict__ v8, float* __restrict__ ks,
+              float* __restrict__ vs, int B, int nkv, int S, int hd) {
+  const int w = blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= B * nkv * 2) return;
+  const int kv = w % 2, bh = w / 2, b = bh / nkv;
+  // a finished slot's overshoot past the cache end writes the last row, as
+  // the dense cache's _write_kv clamps
+  const int p = max(0, min(pos[b], S - 1));
+  const size_t row = (size_t)bh * S + p;
+  quant_row(kv ? v + (size_t)bh * hd : k + (size_t)bh * hd, (kv ? v8 : k8) + row * hd,
+            (kv ? vs : ks) + row, hd, lane);
+}
+
+// K8. Warp w of the grid walks (l, j, h, t, kv) with t < t_ins and
+// j < n (slots): strips (L, K, nkv, T, hd) of A, K >= n; row t of strip j lands
+// at [l, slots[j], h, t] of (L, B, nkv, S, hd).
+template <typename A>
+__global__ void __launch_bounds__(kKvThreads)
+kv_write_strips(const A* __restrict__ k, const A* __restrict__ v, const int* __restrict__ slots,
+                int8_t* __restrict__ k8, int8_t* __restrict__ v8, float* __restrict__ ks,
+                float* __restrict__ vs, int L, int K, int n, int B, int nkv, int T, int S,
+                int t_ins, int hd) {
+  const size_t w = (size_t)blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (size_t)L * n * nkv * t_ins * 2) return;
+  const int kv = w % 2;
+  size_t r = w / 2;
+  const int t = r % t_ins;
+  r /= t_ins;
+  const int h = r % nkv;
+  r /= nkv;
+  const int j = r % n;
+  const int l = static_cast<int>(r / n);
+  const int slot = slots[j];
+  if (slot < 0 || slot >= B) return;  // never written out of the cache
+  const size_t src = (((size_t)l * K + j) * nkv + h) * T + t;
+  const size_t dst = (((size_t)l * B + slot) * nkv + h) * S + t;
+  quant_row((kv ? v : k) + src * hd, (kv ? v8 : k8) + dst * hd, (kv ? vs : ks) + dst, hd,
+            lane);
+}
+
+constexpr int kKvWarps = kKvThreads / 32;
+
+}  // namespace rama
+
+// K6: k/v (B, nkv, hd) rows; k8/v8/ks/vs point at layer l of the cache.
+extern "C" int rama_kv_write_rows(const void* k, const void* v, const void* pos, void* k8,
+                                  void* v8, void* ks, void* vs, int B, int nkv, int S, int hd,
+                                  int dtype, void* stream) {
+  using namespace rama;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (B * nkv * 2 + kKvWarps - 1) / kKvWarps;
+  const int* p = static_cast<const int*>(pos);
+  int8_t* k8p = static_cast<int8_t*>(k8);
+  int8_t* v8p = static_cast<int8_t*>(v8);
+  float* ksp = static_cast<float*>(ks);
+  float* vsp = static_cast<float*>(vs);
+  if (hd > 32 * kKvMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBF16)
+    kv_write_rows<__nv_bfloat16><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), p, k8p,
+        v8p, ksp, vsp, B, nkv, S, hd);
+  else if (dtype == kF32)
+    kv_write_rows<float><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), p, k8p, v8p, ksp, vsp, B,
+        nkv, S, hd);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: k/v (L, K, nkv, T, hd) strips, slots (n,) int32 with n <= K; rows
+// 0 .. t_ins-1 of strip j go to slot slots[j] of the whole (L, B, nkv, S,
+// hd) cache.
+extern "C" int rama_kv_write_strips(const void* k, const void* v, const void* slots, void* k8,
+                                    void* v8, void* ks, void* vs, int L, int K, int n, int B,
+                                    int nkv, int T, int S, int t_ins, int hd, int dtype,
+                                    void* stream) {
+  using namespace rama;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t warps = (size_t)L * n * nkv * t_ins * 2;
+  if (warps == 0) return 0;
+  const size_t blocks = (warps + kKvWarps - 1) / kKvWarps;
+  if (hd > 32 * kKvMaxPerLane || blocks > 0x7fffffffu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* sl = static_cast<const int*>(slots);
+  int8_t* k8p = static_cast<int8_t*>(k8);
+  int8_t* v8p = static_cast<int8_t*>(v8);
+  float* ksp = static_cast<float*>(ks);
+  float* vsp = static_cast<float*>(vs);
+  if (dtype == kBF16)
+    kv_write_strips<__nv_bfloat16><<<(unsigned)blocks, kKvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), sl, k8p,
+        v8p, ksp, vsp, L, K, n, B, nkv, T, S, t_ins, hd);
+  else if (dtype == kF32)
+    kv_write_strips<float><<<(unsigned)blocks, kKvThreads, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), sl, k8p, v8p, ksp, vsp, L,
+        K, n, B, nkv, T, S, t_ins, hd);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -15,8 +15,11 @@ kernels, on CPU tensors they run each kernel's plain PyTorch version.
 `plain=True` runs those plain versions on any device — the reference the
 kernels are held against on the card (chip_smoke.py).
 
-The KV cache is updated IN PLACE (`index_put_` on the stacked cache),
-where the JAX package donates the cache buffer and returns a new one.
+The KV cache is updated IN PLACE (`index_put_` on the stacked cache, or
+the int8 cache's row writer), where the JAX package donates the cache
+buffer and returns a new one. Two caches: `KVCache` (dense, in the
+activation dtype) and `QuantKVCache` (int8 rows with one f32 absmax scale
+per (token, kv head) row).
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ from rama_tpu_torch.checkpoint import QuantParams, compute_freqs
 from rama_tpu_torch.config import ModelConfig
 from rama_tpu_torch.ops.kernels import decode_attention as _da
 from rama_tpu_torch.ops.kernels import ffn as _ffn
+from rama_tpu_torch.ops.kernels import kv_write as _kvw
 from rama_tpu_torch.ops.kernels import prefill_attention as _pa
 from rama_tpu_torch.ops.kernels import quant_matmul as _qm
 from rama_tpu_torch.ops.kernels.ffn import split_h13
+from rama_tpu_torch.ops.kernels.kv_write import kv_quant_rows
 from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                       from_q80_file_layout, quantize_embedding,
                                       quantize_int4, quantize_int8)
@@ -43,14 +48,15 @@ from rama_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
 
-__all__ = ["KVCache", "load_params", "load_params_quantized", "quantize_params",
-           "fuse_params", "rmsnorm", "apply_rope", "forward", "prefill",
-           "decode_step", "split_h13"]
+__all__ = ["KVCache", "QuantKVCache", "kv_quant_rows", "load_params",
+           "load_params_quantized", "quantize_params", "fuse_params", "rmsnorm",
+           "apply_rope", "forward", "prefill", "decode_step", "split_h13"]
 
 
 class _Ops:
-    """The four kernel entry points the forward calls: the device-dispatching
-    wrappers, or (plain=True) their plain PyTorch versions."""
+    """The kernel entry points the forward and the engine call: the
+    device-dispatching wrappers, or (plain=True) their plain PyTorch
+    versions."""
 
     def __init__(self, plain: bool):
         self.quant_matmul = _qm.quant_matmul_plain if plain else _qm.quant_matmul
@@ -59,6 +65,12 @@ class _Ops:
                                  else _da.decode_attention)
         self.prefill_attention = (_pa.prefill_attention_plain if plain
                                   else _pa.prefill_attention)
+        self.write_kv_rows_q8 = (_kvw.write_kv_rows_q8_plain if plain
+                                 else _kvw.write_kv_rows_q8)
+        self.decode_attention_q8 = (_da.decode_attention_q8_plain if plain
+                                    else _da.decode_attention_q8)
+        self.write_kv_strips_q8 = (_kvw.write_kv_strips_q8_plain if plain
+                                   else _kvw.write_kv_strips_q8)
 
 
 _KERNELS, _PLAIN = _Ops(False), _Ops(True)
@@ -85,6 +97,42 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+
+@dataclass
+class QuantKVCache:
+    """INT8 KV cache (rama_tpu's QuantKVCache): k/v int8 (L, B, nkv, S, hd)
+    and ks/vs f32 per-row scales (L, B, nkv, S), one absmax scale per
+    (token, kv head) row (`kv_quant_rows`). Half the bytes of a bf16 cache;
+    attention applies the scales after its products."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+    @staticmethod
+    def create(cfg: ModelConfig, batch: int, max_len: int | None = None,
+               device="cuda") -> "QuantKVCache":
+        s = max_len or cfg.seq_len
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+        device = resolve_device(device)
+        return QuantKVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                            v=torch.zeros(shape, dtype=torch.int8, device=device),
+                            ks=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                            vs=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def _dequant_kv(k8, v8, ks, vs, dtype: torch.dtype):
+    """Dense dequantization of int8 cache rows to `dtype` (the plain-PyTorch
+    chunk path; rama_tpu's _dequant_kv)."""
+    k = (k8.float() * ks[..., None]).to(dtype)
+    v = (v8.float() * vs[..., None]).to(dtype)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -280,18 +328,23 @@ def _qkv(xb: torch.Tensor, params: Params, cfg: ModelConfig, l: int, ops: _Ops):
     return q, k, v
 
 
-def _write_kv(cache: KVCache, l: int, k: torch.Tensor, v: torch.Tensor,
+def _write_kv(cache: KVCache | QuantKVCache, l: int, k: torch.Tensor, v: torch.Tensor,
               pos_index: torch.Tensor) -> None:
     """cache[l, b, :, pos_index[b, t]] = k[b, t] (in place; the JAX package's
-    .at[].set with a donated buffer). Duplicate positions (padded prefill
-    rows) write rows that are never attended. Positions past the cache end
-    (a finished slot's overshoot inside a decode tick) write the last row,
-    where JAX drops the write; that slot's output is discarded either way."""
+    .at[].set with a donated buffer), quantized row by row for an int8
+    cache. Duplicate positions (padded prefill rows) write rows that are
+    never attended. Positions past the cache end (a finished slot's
+    overshoot inside a decode tick) write the last row, where JAX drops the
+    write; that slot's output is discarded either way."""
     b, t, nkv, _ = k.shape
     dev = k.device
     bi = torch.arange(b, device=dev)[:, None, None]
     hi = torch.arange(nkv, device=dev)[None, None, :]
     pi = pos_index.long().clamp(0, cache.max_len - 1)[:, :, None]
+    if isinstance(cache, QuantKVCache):
+        (k, ksc), (v, vsc) = kv_quant_rows(k), kv_quant_rows(v)
+        cache.ks[l].index_put_((bi, hi, pi), ksc)
+        cache.vs[l].index_put_((bi, hi, pi), vsc)
     cache.k[l].index_put_((bi, hi, pi), k.to(cache.k.dtype))
     cache.v[l].index_put_((bi, hi, pi), v.to(cache.v.dtype))
 
@@ -326,7 +379,7 @@ def _ffn_block(xb: torch.Tensor, params: Params, l: int, ops: _Ops,
     return _linear(F.silu(h1) * h3, params["w2"], ops, l)
 
 
-def _layer(x, params, cache: KVCache, l: int, cos, sin, pos_index, pos_mask,
+def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index, pos_mask,
            cfg: ModelConfig, plen, ops: _Ops):
     """One transformer block over a (B, T) chunk (rama_tpu's `_layer`)."""
     b, t, _ = x.shape
@@ -335,7 +388,12 @@ def _layer(x, params, cache: KVCache, l: int, cos, sin, pos_index, pos_mask,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     _write_kv(cache, l, k, v, pos_index)
-    if t > 1 and plen is not None:
+    if isinstance(cache, QuantKVCache):
+        # int8 cache: dequantized attention in plain PyTorch, ahead of the
+        # prefill kernel, as rama_tpu's kv_quant branch comes first
+        kd, vd = _dequant_kv(cache.k[l], cache.v[l], cache.ks[l], cache.vs[l], q.dtype)
+        att = _attention(q, kd, vd, pos_mask)
+    elif t > 1 and plen is not None:
         # flash-style prefill: tiles above the causal diagonal and past the
         # prompt are never read (JAX: prefill_attention on the TPU)
         att = ops.prefill_attention(q.contiguous(), cache.k[l], cache.v[l],
@@ -348,10 +406,12 @@ def _layer(x, params, cache: KVCache, l: int, cos, sin, pos_index, pos_mask,
 
 
 def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
-                          cache: KVCache, ops: _Ops):
+                          cache: KVCache | QuantKVCache, ops: _Ops):
     """T=1 decode step (rama_tpu's `_forward_decode_fused` without
     attn_block): layer-indexed quant_matmul for wqkv/wo, the cache row write
-    in place, layer-indexed decode attention, the fused quantized FFN."""
+    in place, layer-indexed decode attention, the fused quantized FFN. An
+    int8 cache takes the fused quantize-and-write row kernel and the int8
+    decode attention."""
     b = tokens.shape[0]
     dtype = params["final_norm"].dtype
     x = _embed(params["tok_embedding"], tokens, dtype)            # (B, 1, D)
@@ -369,8 +429,14 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
         q, k, v = _qkv(xb, params, cfg, l, ops)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        _write_kv(cache, l, k, v, pos_index)
-        att = ops.decode_attention(q[:, 0].contiguous(), cache.k, cache.v, pos, l)
+        if isinstance(cache, QuantKVCache):
+            ops.write_kv_rows_q8(cache.k, cache.v, cache.ks, cache.vs, k[:, 0].contiguous(),
+                                 v[:, 0].contiguous(), pos, l)
+            att = ops.decode_attention_q8(q[:, 0].contiguous(), cache.k, cache.v, cache.ks,
+                                          cache.vs, pos, l)
+        else:
+            _write_kv(cache, l, k, v, pos_index)
+            att = ops.decode_attention(q[:, 0].contiguous(), cache.k, cache.v, pos, l)
         x = x + _linear(att, params["wo"], ops, l)[:, None]
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
         x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
@@ -379,8 +445,9 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            pos_index: torch.Tensor, cache: KVCache, plen: torch.Tensor | None = None,
-            logit_rows: torch.Tensor | None = None, plain: bool = False):
+            pos_index: torch.Tensor, cache: KVCache | QuantKVCache,
+            plen: torch.Tensor | None = None, logit_rows: torch.Tensor | None = None,
+            plain: bool = False):
     """Forward a (B, T) token chunk at per-slot positions pos_index (B, T).
 
     Causal over the cache: position s of slot b is visible to query t iff
@@ -416,8 +483,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _linear(x, params["wcls"], ops).float(), cache
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
-            last_only: bool = False, plain: bool = False):
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: KVCache | QuantKVCache, last_only: bool = False, plain: bool = False):
     """Process a whole (B, T) prompt in one batched pass from position 0.
     last_only=True returns (B, 1, V) logits for the final position only."""
     b, t = tokens.shape
@@ -430,7 +497,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCac
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                pos: torch.Tensor, cache: KVCache, plain: bool = False):
+                pos: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False):
     """One decode step for a batch of slots at ragged positions.
     token: (B,) int; pos: (B,) int. Returns (logits (B, V) fp32, cache)."""
     logits, cache = forward(params, cfg, token[:, None], pos[:, None], cache,

@@ -15,10 +15,15 @@ What it keeps from the JAX engine:
   sampling (`sampler.uniform_from_key(slot_key, pos)`) so a slot's stream
   does not depend on tick size;
 - EOS / length / cancel / max_len handling, error recovery that fails the
-  in-flight requests and rebuilds the cache, `stats()` and PhaseTimer.
+  in-flight requests and rebuilds the cache, `stats()` and PhaseTimer;
+- the **int8 KV cache** (`kv_quant="int8"`): a `QuantKVCache` of int8 rows
+  with per-row f32 scales; admission quantizes the dense prefill scratch
+  into the slots with the strip writer (one launch per admission group),
+  decode quantizes and writes each step's rows and attends over the int8
+  cache (models/llama.py).
 
 Not ported yet (ROADMAP.md): pipelined/chained ticks, async-firsts
-admission, chunked prefill, speculation, the paged and int8 caches,
+admission, chunked prefill, speculation, the paged cache,
 tensor/data/sequence parallelism, multi-host. Their EngineConfig fields
 raise NotImplementedError when set.
 
@@ -39,8 +44,9 @@ import numpy as np
 import torch
 
 from rama_tpu_torch.config import EngineConfig, ModelConfig
-from rama_tpu_torch.models.llama import (KVCache, _rope_tables, decode_step,
-                                         forward, fuse_params)
+from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables,
+                                         decode_step, forward, fuse_params)
+from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
 from rama_tpu_torch.runtime.sampler import sample_batched_keyed, sample_greedy
 from rama_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
 from rama_tpu_torch.utils.profiling import PhaseTimer
@@ -108,7 +114,6 @@ def _prefill_k_cap(t_pad: int, dp: int = 1) -> int:
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
     ("paged_kv", False, "paged KV cache"),
-    ("kv_quant", None, "int8 KV cache"),
     ("spec_tick", 0, "speculative serving"),
     ("prefill_chunk", 0, "chunked prefill"),
     ("scale_dtype", None, "bf16-stored weight scales"),
@@ -137,6 +142,9 @@ class Engine:
         self.tokenizer = tokenizer
         self.ecfg = engine_config or EngineConfig()
         check_ported(self.ecfg)
+        self.kv_quant = self.ecfg.kv_quant
+        if self.kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant {self.kv_quant!r}")
         b = self.ecfg.max_batch_size
         self.max_len = self.ecfg.max_seq_len or cfg.seq_len
         self.device = params["final_norm"].device
@@ -171,7 +179,10 @@ class Engine:
             "decode_s": 0.0,
         }
 
-    def _create_cache(self, batch: int) -> KVCache:
+    def _create_cache(self, batch: int) -> KVCache | QuantKVCache:
+        if self.kv_quant == "int8":
+            return QuantKVCache.create(self.cfg, batch=batch, max_len=self.max_len,
+                                       device=self.device)
         return KVCache.create(self.cfg, batch=batch, max_len=self.max_len,
                               dtype=self.dtype, device=self.device)
 
@@ -284,7 +295,10 @@ class Engine:
                             slots: list[int]) -> np.ndarray:
         """Batched (k, T) prefill into a scratch cache, first-token sampling
         at each row's last real query (position true_lens-1, keyed like the
-        decode ticks), then the scratch rows copied into the slots."""
+        decode ticks), then the scratch rows copied into the slots — for an
+        int8 cache quantized and inserted by the strip writer, every slot
+        and layer in one launch. The scratch is in the activation dtype
+        (the JAX engine's is bf16 whatever the params)."""
         dev = self.device
         k, t_pad = tokens.shape
         tok = torch.from_numpy(tokens).to(dev)
@@ -303,9 +317,14 @@ class Engine:
         else:
             firsts = sample_greedy(last[:, 0])
         t_ins = min(t_pad, self.max_len)
-        for j, slot_idx in enumerate(slots):
-            self.cache.k[:, slot_idx, :, :t_ins].copy_(scratch.k[:, j, :, :t_ins])
-            self.cache.v[:, slot_idx, :, :t_ins].copy_(scratch.v[:, j, :, :t_ins])
+        if isinstance(self.cache, QuantKVCache):
+            c = self.cache
+            write_kv_strips_q8(c.k, c.v, c.ks, c.vs, scratch.k, scratch.v,
+                               torch.tensor(slots, dtype=torch.int32, device=dev), t_ins)
+        else:
+            for j, slot_idx in enumerate(slots):
+                self.cache.k[:, slot_idx, :, :t_ins].copy_(scratch.k[:, j, :, :t_ins])
+                self.cache.v[:, slot_idx, :, :t_ins].copy_(scratch.v[:, j, :, :t_ins])
         return firsts.cpu().numpy()
 
     # -- decode -----------------------------------------------------------------

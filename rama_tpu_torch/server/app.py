@@ -12,7 +12,8 @@ package's app:
 - GET /metrics -> engine stats JSON;  GET /healthz
 
 Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
-          [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda]
+          [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda] \
+          [--kv-quant int8]
 """
 
 from __future__ import annotations
@@ -144,14 +145,15 @@ def build_app(engine: Engine, default_steps: int = 255) -> web.Application:
 
 def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 dtype: str = "bfloat16", batch: int = 8,
-                max_seq_len: int | None = None, device: str = "cuda") -> Engine:
+                max_seq_len: int | None = None, device: str = "cuda",
+                kv_quant: str | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
     cfg, params, _ = load_model(model_path, quant, dtype, device)
     tokenizer = Tokenizer.from_file(tokenizer_path, cfg.vocab_size)
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
-                        max_batch_size=batch, max_seq_len=max_seq_len)
+                        max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant)
     return Engine(cfg, params, tokenizer, ecfg)
 
 
@@ -159,7 +161,6 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
 # (flag, attribute, value when unset, ROADMAP item)
 _UNPORTED_FLAGS = (
     ("--paged", "paged", False, "paged KV cache"),
-    ("--kv-quant", "kv_quant", None, "int8 KV cache"),
     ("--scale-dtype", "scale_dtype", None, "bf16-stored weight scales"),
     ("--spec-tick", "spec_tick", 0, "speculative serving"),
     ("--spec-draft-model", "spec_draft_model", None, "speculative serving"),
@@ -208,7 +209,8 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
     engine = load_engine(args.model, args.tokenizer, args.quant, args.dtype,
-                         args.batch, max_seq_len=args.max_seq_len, device=args.device)
+                         args.batch, max_seq_len=args.max_seq_len, device=args.device,
+                         kv_quant=args.kv_quant)
     engine.start()
     try:
         host, _, port = args.address.rpartition(":")

@@ -54,6 +54,15 @@ def jax_params_to_torch(jcfg, params: dict, dtype=torch.float32) -> dict:
                              dtype=dtype)
 
 
+def jax_quant_cache_to_torch(jcache):
+    """rama_tpu QuantKVCache -> rama_tpu_torch QuantKVCache (CPU tensors,
+    the same int8 bytes and f32 scales)."""
+    from rama_tpu_torch.models.llama import QuantKVCache
+
+    return QuantKVCache(*(torch.from_numpy(_np(a)) for a in
+                          (jcache.k, jcache.v, jcache.ks, jcache.vs)))
+
+
 def jax_uniform_stream(key_seed: int):
     """The uniforms rama_tpu's generate loops draw: key, sub = split(key)
     once per sampled position, u = uniform(sub, (1,)). Returns a callable

@@ -1,7 +1,9 @@
 """chip_smoke.py's checks, on the CPU: the per-group comparison fails a
-kernel that drops one edge row of one slot, the planted edges make such a
-drop large, a subset of phases never reads as a full run, and the int4
-params it makes on the card have quantize_int4's layout."""
+kernel that drops one edge row of one slot (bf16 and int8 caches), the
+planted edges make such a drop large, a subset of phases never reads as a
+full run, the launch record fails a main path that skipped one of its
+kernels or ran one it must not, and the int4 params it makes on the card
+have quantize_int4's layout."""
 
 import importlib.util
 import pathlib
@@ -10,7 +12,9 @@ import sys
 import pytest
 import torch
 
-from rama_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+from rama_tpu_torch.ops.kernels import kv_write as kvw
+from rama_tpu_torch.ops.kernels.decode_attention import (decode_attention_plain,
+                                                         decode_attention_q8_plain)
 from rama_tpu_torch.ops.kernels.prefill_attention import prefill_attention_plain
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -99,24 +103,96 @@ def test_random_int4_params_have_quantize_int4_layout(smoke):
     assert float(step.std()) > 0.1  # weights of ~N(0, 1/K) keep activations alive
 
 
-def test_launch_counters_read_and_reset(smoke):
-    """The counts the main paths are judged by: one per wrapper and weight
-    bits, set to 0 before each path."""
+def _modules():
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
 
-    mods = (qm, ffn, da, pa)
-    saved = (dict(qm.launches), dict(ffn.launches), da.launches, pa.launches)
-    try:
-        qm.launches[4], ffn.launches[8], da.launches = 3, 2, 1
-        got = smoke.read_launches(*mods)
-        assert got["quant_matmul_int4"] == 3 and got["ffn"] == 2 and got["decode_attention"] == 1
-        assert set(got) >= set(smoke.INT8_PATH["record"]) | set(smoke.INT4_PATH["record"])
-        smoke.reset_launches(*mods)
-        assert not any(smoke.read_launches(*mods).values())
-    finally:
-        qm.launches.update(saved[0])
-        ffn.launches.update(saved[1])
-        da.launches, pa.launches = saved[2], saved[3]
+    return qm, ffn, da, pa, kvw
+
+
+@pytest.fixture
+def counters():
+    """The launch counters of every wrapper, restored after the test."""
+    qm, ffn, da, pa, kw = mods = _modules()
+    saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), da.launches,
+             da.launches_q8, pa.launches)
+    yield mods
+    qm.launches.update(saved[0])
+    ffn.launches.update(saved[1])
+    kw.launches.update(saved[2])
+    da.launches, da.launches_q8, pa.launches = saved[3:]
+
+
+def test_launch_counters_read_and_reset(smoke, counters):
+    """The counts the main paths are judged by: one per wrapper and weight
+    bits or cache, set to 0 before each path."""
+    qm, ffn, da, pa, kw = counters
+    qm.launches[4], ffn.launches[8], da.launches = 3, 2, 1
+    da.launches_q8, kw.launches["write_kv_strips_q8"] = 5, 7
+    got = smoke.read_launches(*counters)
+    assert got["quant_matmul_int4"] == 3 and got["ffn"] == 2 and got["decode_attention"] == 1
+    assert got["decode_attention_q8"] == 5 and got["write_kv_strips_q8"] == 7
+    for path in smoke.PATHS:
+        assert set(got) >= set(path["record"]) | set(path["forbid"])
+    smoke.reset_launches(*counters)
+    assert not any(smoke.read_launches(*counters).values())
+
+
+def _kv8_launches(smoke, **over):
+    got = {k: 4 for k in smoke.KV8_PATH["record"]}
+    got["decode_attention"] = 0
+    return {**got, **over}
+
+
+def test_kv8_path_passes_with_its_kernels_and_no_bf16_attention(smoke):
+    smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke))
+    assert smoke.KV8_PATH["forbid"] == {"decode_attention": "launches_kv8_path"}
+
+
+@pytest.mark.parametrize("name", ["write_kv_rows_q8", "decode_attention_q8",
+                                  "write_kv_strips_q8", "quant_matmul", "ffn",
+                                  "prefill_attention"])
+def test_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name):
+    with pytest.raises(SystemExit, match="never launched on the int8 KV main path"):
+        smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke, **{name: 0}))
+
+
+def test_kv8_path_fails_when_the_bf16_decode_attention_launched(smoke):
+    with pytest.raises(SystemExit, match=r"\['decode_attention'\] launched on the int8 KV"):
+        smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke, decode_attention=1))
+    # the int8 path needs that kernel: there it is a record, not a stray
+    smoke.check_launches(smoke.INT8_PATH, {k: 1 for k in smoke.INT8_PATH["record"]})
+
+
+def test_kv8_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in ("kernels_kv8", "model_kv8", "serve_kv8", "profile_kv8"):
+        assert ph in smoke.ALL_PHASES
+    assert smoke.KV8_PATH["phases"] == ("model_kv8", "serve_kv8", "profile_kv8")
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "serve_kv8"), dev)
+    assert line == {"ok": False, "skipped_phases": ["serve_kv8"], "device": dev}
+    assert rc == smoke.PARTIAL_RC != 0
+    assert smoke.final_line(smoke.ALL_PHASES, dev) == ({"ok": True, "device": dev}, 0)
+
+
+def test_compare_fails_a_dropped_edge_row_of_an_int8_cache(smoke):
+    """The int8 cache's planted key rows (q * 0.5, quantized) make a kernel
+    that drops one visible edge row of one slot fail the per-head check.
+    Tolerance: chip_smoke.TOL (rel 0.05)."""
+    g = torch.Generator().manual_seed(4)
+    b, nh, s, hd = 3, 4, 320, 128
+    q = torch.randn(b, nh, hd, generator=g)
+    k8, ks = kvw.kv_quant_rows(torch.randn(1, b, nh, s, hd, generator=g))
+    v8, vs = kvw.kv_quant_rows(torch.randn(1, b, nh, s, hd, generator=g))
+    pos = torch.tensor([0, 63, 256], dtype=torch.int32)
+    smoke.plant_decode_edges_q8(kvw, q, k8, ks, pos, 0, (63, 64, 255, 256))
+    assert torch.equal(k8[0, 2, :, 256], kvw.kv_quant_rows(q[2] * 0.5)[0])
+    want = decode_attention_q8_plain(q, k8, v8, ks, vs, pos, 0)
+    smoke.compare(torch, "same function", want.clone(), want, per=hd)
+    ks_drop = ks.clone()
+    ks_drop[0, 2, :, 256] = -1e4                  # row 256 of slot 2 gets weight 0
+    got = decode_attention_q8_plain(q, k8, v8, ks_drop, vs, pos, 0)
+    with pytest.raises(SystemExit, match="rel err"):
+        smoke.compare(torch, "dropped row", got, want, per=hd)

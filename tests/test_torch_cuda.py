@@ -209,6 +209,16 @@ def test_engine_on_card_matches_cpu_engine(dev):
     """The slim engine on the card (every kernel, decode ticks of 4, a prompt
     truncated to fill the cache, a stream that runs to max_len, a sampled
     stream) emits the same streams as the engine on the CPU."""
+    _check_engine_on_card(dev, kv_quant=None)
+
+
+def test_engine_int8_cache_on_card_matches_cpu_engine(dev):
+    """The same on an int8 KV cache: admission through K8, decode through
+    K6 + K7 on the card, their plain versions on the CPU."""
+    _check_engine_on_card(dev, kv_quant="int8")
+
+
+def _check_engine_on_card(dev, kv_quant):
     import numpy as np
 
     from rama_tpu_torch.config import EngineConfig, ModelConfig
@@ -232,7 +242,7 @@ def test_engine_on_card_matches_cpu_engine(dev):
     for device in ("cpu", dev):
         eng = Engine(cfg, quantize_params(cfg, p, group_size=16, dtype=torch.float32,
                                           device=device),
-                     tok, EngineConfig(max_batch_size=4, decode_tick=4))
+                     tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant))
         reqs = [Request(prompt="ab" * 40, steps=8, temperature=0.0),
                 Request(prompt="abc", steps=100, temperature=0.0, stop_at_eos=False),
                 Request(prompt="zq", steps=20, temperature=0.9)]
@@ -252,3 +262,118 @@ def test_engine_on_card_matches_cpu_engine(dev):
         assert len(got[1]) == 64 - 4   # ran to the end of the cache
         outs.append(got)
     assert outs[0] == outs[1]
+
+
+def _kv_rows(dev, shape, dtype, seed):
+    """Rows of mixed magnitude with a zero row and a row of .5 ties."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * (torch.rand(shape[:-1] + (1,), generator=g) * 30
+                                           + 1e-3)
+    flat = x.view(-1, shape[-1])
+    flat[0] = 0
+    flat[1] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5]).repeat(
+        shape[-1] // 8)
+    return x.to(dev).to(dtype)
+
+
+def _q8_cache(dev, L, B, nkv, S, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(-127, 128, (L, B, nkv, S, hd), dtype=torch.int8, generator=g).to(dev)
+            for _ in range(2)] + [torch.rand((L, B, nkv, S), generator=g).to(dev)
+                                  for _ in range(2)]
+
+
+@pytest.mark.parametrize("nkv,S,hd", [(2, 48, 16), (6, 64, 48), (4, 256, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_write_kv_rows_q8(dev, nkv, S, hd, dtype):
+    """K6 equals its plain version exactly: int8 bytes and f32 scales, with
+    a zero row, .5 ties and a finished slot's overshoot past the cache end."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    got = _q8_cache(dev, 3, 5, nkv, S, hd, seed=S)
+    want = [t.clone() for t in got]
+    pos = torch.tensor([0, 31, 32, S - 1, S + 3], dtype=torch.int32, device=dev)
+    before = kw.launches["write_kv_rows_q8"]
+    for layer in (0, 2):
+        k, v = (_kv_rows(dev, (5, nkv, hd), dtype, seed=layer + i) for i in (0, 7))
+        kw.write_kv_rows_q8(*got, k, v, pos, layer)
+        kw.write_kv_rows_q8_plain(*want, k, v, pos, layer)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kw.launches["write_kv_rows_q8"] == before + 2
+
+
+@pytest.mark.parametrize("L,nkv,T,t_ins,hd", [(2, 2, 16, 16, 16), (3, 6, 40, 33, 48),
+                                              (2, 4, 64, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_write_kv_strips_q8(dev, L, nkv, T, t_ins, hd, dtype):
+    """K8 equals its plain version exactly, slots out of order and a
+    duplicate slot carrying an identical strip."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    got = _q8_cache(dev, L, 6, nkv, 64, hd, seed=T)
+    want = [t.clone() for t in got]
+    k, v = (_kv_rows(dev, (L, 4, nkv, T, hd), dtype, seed=i) for i in (1, 2))
+    k[:, 3], v[:, 3] = k[:, 2], v[:, 2]
+    slots = torch.tensor([4, 0, 2, 2], dtype=torch.int32, device=dev)
+    before = kw.launches["write_kv_strips_q8"]
+    kw.write_kv_strips_q8(*got, k, v, slots, t_ins)
+    kw.write_kv_strips_q8_plain(*want, k, v, slots, t_ins)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kw.launches["write_kv_strips_q8"] == before + 1
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 2, 16), (8, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_q8(dev, nh, nkv, hd, dtype):
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    S = 256
+    k8, ks = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
+    v8, vs = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
+    q = torch.randn(4, nh, hd, device=dev).to(dtype)
+    pos = torch.tensor([0, 63, 64, S - 1], dtype=torch.int32, device=dev)
+    before = da.launches_q8
+    for layer in (0, 1):
+        _close(da.decode_attention_q8(q, k8, v8, ks, vs, pos, layer),
+               da.decode_attention_q8_plain(q, k8, v8, ks, vs, pos, layer), dtype)
+    assert da.launches_q8 == before + 2
+
+
+def test_tiny_model_int8_cache_logits_kernels_equal_plain(dev):
+    """The tiny int8 model on a QuantKVCache, fp32 on the card: prefill
+    (dequantized attention) and decode (K6 + K7) logits through the kernels
+    against the plain path (atol 1e-3, as the dense cache's test), greedy
+    chains equal."""
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import (QuantKVCache, decode_step, fuse_params, prefill,
+                                             quantize_params)
+
+    cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=3, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=48)
+    rng = np.random.default_rng(8)
+    L, D, H, V = 3, 64, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, 32), "wv": (L, D, 32),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    params = fuse_params(quantize_params(cfg, p, bits=8, group_size=16,
+                                         dtype=torch.float32, device=dev), cfg)
+    toks = torch.tensor([[1, 3, 42, 7, 11]], device=dev)
+    caches = [QuantKVCache.create(cfg, 1, 24, device=dev) for _ in range(2)]
+    lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)
+    lp, _ = prefill(params, cfg, toks, caches[1], last_only=True, plain=True)
+    torch.testing.assert_close(lk, lp, atol=1e-3, rtol=0)
+    tok_k = tok_p = torch.argmax(lp[:, -1], dim=-1)
+    for pos in range(5, 16):
+        p_t = torch.tensor([pos], device=dev)
+        lk, _ = decode_step(params, cfg, tok_k, p_t, caches[0])
+        lp, _ = decode_step(params, cfg, tok_p, p_t, caches[1], plain=True)
+        torch.testing.assert_close(lk, lp, atol=1e-3, rtol=0)
+        tok_k, tok_p = torch.argmax(lk, dim=-1), torch.argmax(lp, dim=-1)
+        assert tok_k.item() == tok_p.item()

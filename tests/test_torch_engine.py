@@ -274,12 +274,18 @@ def test_long_context_beyond_checkpoint_seq_len():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("paged_kv", True), ("kv_quant", "int8"), ("spec_tick", 3),
+    ("paged_kv", True), ("kv_quant", "int4"), ("spec_tick", 3),
     ("prefill_chunk", 16), ("scale_dtype", "bf16"), ("tp_size", 2),
     ("dp_size", 2), ("seq_par", True), ("compile_cache", "/tmp/x"),
 ])
 def test_unported_engine_config_raises(engine_setup, field, value):
+    """Unported features raise NotImplementedError; kv_quant is ported for
+    "int8" and refuses any other value with ValueError, as in rama_tpu."""
     _, cfg, _, params, tok = engine_setup
+    if field == "kv_quant":
+        with pytest.raises(ValueError, match="unsupported kv_quant 'int4'"):
+            Engine(cfg, params, tok, EngineConfig(**{field: value}))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, params, tok, EngineConfig(**{field: value}))
 

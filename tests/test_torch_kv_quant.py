@@ -1,0 +1,360 @@
+"""The int8 KV cache of rama_tpu_torch against rama_tpu on the CPU: the row
+quantization, the plain versions of kernels 6 (decode row writer), 7 (int8
+decode attention) and 8 (admission strip writer) against the JAX functions
+(Pallas in interpret mode), a tiny model on a QuantKVCache, and the engine
+and server with kv_quant="int8".
+
+Tolerances: the row quantization and both writers exact (int8 bytes and f32
+scales, atol 0); K7 with bf16 q within JAX's own (atol 0.03, rtol 0.05,
+tests/test_kv_quant.py); K7 with fp32 q against JAX's dequantize-then-attend
+path atol 1e-5 (fp32, scales applied at another point); tiny-model logits
+atol 1e-4 with greedy chains equal and cache bytes within 1 (fp32 sums in
+another order can move a row's value across a rounding edge); engine and
+server streams exact."""
+
+import asyncio
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import jax_quant_cache_to_torch, torch_cfg, write_tokenizer_bin
+from rama_tpu.models import llama as jl
+from rama_tpu.ops.pallas import decode_attention as jda
+from rama_tpu.ops.pallas import kv_write as jkw
+from rama_tpu.testing.ref_model import random_params, tiny_config
+from rama_tpu_torch.config import EngineConfig
+from rama_tpu_torch.models import llama as tl
+from rama_tpu_torch.ops.kernels import decode_attention as da
+from rama_tpu_torch.ops.kernels import kv_write as kw
+from rama_tpu_torch.runtime import engine as eng_mod
+from rama_tpu_torch.runtime.engine import Engine, Request
+
+torch.set_num_threads(1)
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def exact(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    assert got.dtype == {np.dtype(np.int8): torch.int8,
+                         np.dtype(np.float32): torch.float32}[want.dtype]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def rows_with_edges(rng, shape) -> np.ndarray:
+    """Random rows of mixed magnitude, plus a zero row (scale floor 1e-10)
+    and a row whose scale is exactly 1 with .5 ties (round half to even)."""
+    x = (rng.standard_normal(shape) * rng.uniform(1e-3, 30, shape[:-1] + (1,))).astype(
+        np.float32)
+    flat = x.reshape(-1, shape[-1])
+    flat[0] = 0.0
+    ties = np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5], np.float32)
+    flat[1] = np.resize(ties, shape[-1])
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quant_rows_exact(dtype):
+    x = rows_with_edges(np.random.default_rng(0), (3, 5, 4, 128))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    jq, js = jl.kv_quant_rows(jx)
+    tq, ts = tl.kv_quant_rows(tx)
+    exact(tq, jq)
+    exact(ts, js)
+    row = tq.reshape(-1, 128)
+    assert not row[0].any() and float(ts.reshape(-1)[0]) == np.float32(1e-10)
+    assert row[1, :8].tolist() == [127, 2, -4, 0, 0, 2, -126, 4]
+
+
+def _cache(rng, L, B, nkv, s, hd):
+    return (t(rng.integers(-127, 128, (L, B, nkv, s, hd)).astype(np.int8)),
+            t(rng.integers(-127, 128, (L, B, nkv, s, hd)).astype(np.int8)),
+            t(rng.standard_normal((L, B, nkv, s)).astype(np.float32)),
+            t(rng.standard_normal((L, B, nkv, s)).astype(np.float32)))
+
+
+# pos on the Pallas writer's 32-row and 128-column window edges
+@pytest.mark.parametrize("s,pos", [(24, [0, 11, 12, 23]), (64, [0, 31, 32, 63]),
+                                   (256, [31, 32, 127, 128, 255])])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_write_kv_rows_q8_plain_equals_jax(s, pos, dtype):
+    rng = np.random.default_rng(s)
+    L, nkv, hd, B = 3, 2, 128, len(pos)
+    cache = _cache(rng, L, B, nkv, s, hd)
+    k = rows_with_edges(rng, (B, nkv, hd))
+    v = rows_with_edges(rng, (B, nkv, hd))
+    jk, jv = jnp.asarray(k, getattr(jnp, dtype)), jnp.asarray(v, getattr(jnp, dtype))
+    want = [jnp.asarray(a.numpy()) for a in cache]
+    got = [a.clone() for a in cache]
+    p = np.asarray(pos, np.int32)
+    for layer in (0, L - 1):
+        kq, ksc = jl.kv_quant_rows(jk)
+        vq, vsc = jl.kv_quant_rows(jv)
+        want = jkw.write_kv_rows_q8(*want, kq, vq, ksc, vsc, jnp.asarray(p),
+                                    jnp.int32(layer), interpret=True)
+        tk = t(np.asarray(jk.astype(jnp.float32))).to(getattr(torch, dtype))
+        tv = t(np.asarray(jv.astype(jnp.float32))).to(getattr(torch, dtype))
+        kw.write_kv_rows_q8_plain(*got, tk, tv, t(p), layer)
+    for g, w in zip(got, want):
+        exact(g, w)
+
+
+def test_write_kv_rows_q8_clamps_overshoot_to_the_last_row():
+    """A finished slot's row past the cache end lands on the last row, as
+    the dense cache's row write clamps it."""
+    rng = np.random.default_rng(1)
+    cache = [a.zero_() for a in _cache(rng, 1, 2, 2, 16, 16)]
+    k = t(rows_with_edges(rng, (2, 2, 16)))
+    kw.write_kv_rows_q8(*cache, k, k, torch.tensor([3, 40], dtype=torch.int32), 0)
+    q, s = tl.kv_quant_rows(k)
+    exact(cache[0][0, 1, :, 15], q[1].numpy())
+    exact(cache[2][0, 0, :, 3], s[0].numpy())
+    assert int(cache[0][0, 1, :, :15].abs().sum()) == 0
+
+
+# the (s, t, k) cases of tests/test_kv_quant.py, duplicate padded slots included
+@pytest.mark.parametrize("s,tt,k", [(64, 16, 3), (256, 40, 4), (48, 48, 2)])
+def test_write_kv_strips_q8_plain_equals_jax(s, tt, k):
+    rng = np.random.default_rng(17)
+    L, B, nkv, hd = 3, 6, 2, 128
+    cache = _cache(rng, L, B, nkv, s, hd)
+    strips = [rows_with_edges(rng, (L, k, nkv, tt, hd)) for _ in range(2)]
+    slots = np.arange(k, dtype=np.int32)[::-1].copy()     # out of order
+    if k > 1:
+        slots[-1] = slots[-2]
+        for x in strips:
+            x[:, -1] = x[:, -2]
+    (kq, ksc), (vq, vsc) = (jl.kv_quant_rows(jnp.asarray(x)) for x in strips)
+    want = jkw.write_kv_strips_q8(*(jnp.asarray(a.numpy()) for a in cache), kq, vq, ksc, vsc,
+                                  jnp.asarray(slots), interpret=True)
+    got = [a.clone() for a in cache]
+    kw.write_kv_strips_q8_plain(*got, t(strips[0]), t(strips[1]), t(slots), tt)
+    for g, w in zip(got, want):
+        exact(g, w)
+
+
+def test_write_kv_strips_q8_takes_a_prefix_of_rows_and_strips():
+    """The engine's use: rows 0:t_ins of the first len(slots) strips of a
+    padded scratch batch; nothing else of the cache moves."""
+    rng = np.random.default_rng(5)
+    cache = _cache(rng, 2, 4, 2, 32, 16)
+    before = [a.clone() for a in cache]
+    k, v = (t(rows_with_edges(rng, (2, 3, 2, 16, 16))) for _ in range(2))
+    kw.write_kv_strips_q8(*cache, k, v, torch.tensor([2, 0], dtype=torch.int32), 9)
+    for strip, q8, sc in ((k, cache[0], cache[2]), (v, cache[1], cache[3])):
+        q, s = tl.kv_quant_rows(strip[:, :2, :, :9])
+        exact(q8[:, [2, 0], :, :9], q.numpy())
+        exact(sc[:, [2, 0], :, :9], s.numpy())
+    for now, was in zip(cache, before):
+        now[:, [2, 0], :, :9] = was[:, [2, 0], :, :9]
+        assert torch.equal(now, was)
+
+
+def _q8_inputs(rng, L, B, nkv, s, hd, rep):
+    k = rng.standard_normal((L, B, nkv, s, hd)).astype(np.float32)
+    v = rng.standard_normal((L, B, nkv, s, hd)).astype(np.float32)
+    (k8, ks), (v8, vs) = jl.kv_quant_rows(jnp.asarray(k)), jl.kv_quant_rows(jnp.asarray(v))
+    q = rng.standard_normal((B, nkv * rep, hd)).astype(np.float32)
+    return q, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("s", [64, 1024])
+@pytest.mark.parametrize("rep", [1, 2])
+def test_decode_attention_q8_plain_matches_pallas(s, rep):
+    rng = np.random.default_rng(s + rep)
+    L, B, nkv, hd = 2, 2, 2, 128
+    q, k8, v8, ks, vs = _q8_inputs(rng, L, B, nkv, s, hd, rep)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    tq = t(np.asarray(jq.astype(jnp.float32))).to(torch.bfloat16)
+    pos = np.array([s - 1, s // 3], np.int32)
+    for layer in range(L):
+        got = da.decode_attention_q8_plain(tq, t(k8), t(v8), t(ks), t(vs), t(pos),
+                                           layer).float().numpy()
+        for fn in (jda.decode_attention_layer_q8, jda.decode_attention_layer_tiled_q8):
+            want = fn(jq, k8, v8, ks, vs, jnp.asarray(pos), jnp.int32(layer), interpret=True)
+            np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=0.03,
+                                       rtol=0.05)
+
+
+@pytest.mark.parametrize("rep", [1, 2])
+def test_decode_attention_q8_plain_fp32_follows_the_dequant_path(rep):
+    """fp32 q: the JAX package's CPU path (_dequant_kv + _attention)."""
+    rng = np.random.default_rng(9)
+    L, B, nkv, s, hd = 2, 3, 2, 48, 16
+    q, k8, v8, ks, vs = _q8_inputs(rng, L, B, nkv, s, hd, rep)
+    pos = np.array([0, 17, 47], np.int32)
+    mask = jnp.arange(s)[None, None, :] <= jnp.asarray(pos)[:, None, None]
+    for layer in range(L):
+        kd, vd = jl._dequant_kv(k8[layer], v8[layer], ks[layer], vs[layer], jnp.float32)
+        want = jl._attention(jnp.asarray(q)[:, None], kd, vd, mask)[:, 0]
+        got = da.decode_attention_q8(t(q), t(k8), t(v8), t(ks), t(vs), t(pos), layer)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def _tiny(seq_len=48, seed=11):
+    jcfg = tiny_config(seq_len=seq_len)
+    np_params = random_params(jcfg, seed=seed)
+    cfg = torch_cfg(jcfg)
+    jp = jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=8, group_size=16,
+                                           dtype=jnp.float32), jcfg)
+    tp = tl.fuse_params(tl.quantize_params(cfg, np_params, bits=8, group_size=16,
+                                           dtype=torch.float32, device="cpu"), cfg)
+    return jcfg, cfg, np_params, jp, tp
+
+
+def test_tiny_model_on_int8_cache_matches_jax():
+    """Prefill and 8 decode steps on a QuantKVCache: the port's decode runs
+    K6 + K7 (plain here), the JAX package's CPU path quantize + scatter +
+    dequantize + attend."""
+    jcfg, cfg, _, jp, tp = _tiny()
+    prompt = np.array([[1, 7, 3, 9, 2, 4, 8, 5]], np.int32)
+    jc = jl.QuantKVCache.create(jcfg, batch=1, max_len=32)
+    tc = tl.QuantKVCache.create(cfg, 1, 32, device="cpu")
+    lj, jc = jl.prefill(jp, jcfg, jnp.asarray(prompt), jc)
+    lt, tc = tl.prefill(tp, cfg, torch.from_numpy(prompt).long(), tc)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, rtol=0)
+    tok_j = tok_t = int(np.argmax(np.asarray(lj)[0, -1]))
+    chain_j, chain_t = [tok_j], [tok_t]
+    for pos in range(8, 16):
+        lj, jc = jl.decode_step(jp, jcfg, jnp.asarray([tok_j], jnp.int32),
+                                jnp.asarray([pos], jnp.int32), jc)
+        lt, tc = tl.decode_step(tp, cfg, torch.tensor([tok_t]), torch.tensor([pos]), tc)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, rtol=0)
+        tok_j, tok_t = int(np.argmax(np.asarray(lj))), int(torch.argmax(lt))
+        chain_j.append(tok_j)
+        chain_t.append(tok_t)
+    assert chain_t == chain_j
+    conv = jax_quant_cache_to_torch(jc)
+    for a, b in ((tc.k, conv.k), (tc.v, conv.v)):
+        assert int((a.int() - b.int()).abs().max()) <= 1
+    torch.testing.assert_close(tc.ks, conv.ks, rtol=1e-5, atol=0)
+
+
+def _tokenizers(vocab_size):
+    from rama_tpu.tokenizer import Tokenizer as JTok
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(ord("a") + i % 26) + ("" if i < 26 else str(i // 26))
+                                        for i in range(vocab_size - 3)]
+    return (JTok(vocab, [0.0] * vocab_size, max_token_length=4),
+            Tokenizer(vocab, [0.0] * vocab_size, max_token_length=4))
+
+
+def _serve(engine, reqs):
+    engine.start()
+    try:
+        for r in reqs:
+            engine.submit(r)
+        out = []
+        for r in reqs:
+            toks = []
+            while (tok := r.queue.get(timeout=120)) is not None:
+                toks.append(tok)
+            out.append(toks)
+        return out
+    finally:
+        engine.stop()
+
+
+def test_engine_int8_cache_streams_match_jax_and_dense(monkeypatch):
+    """Greedy streams of the port's engine on an int8 cache equal the JAX
+    engine's on its int8 cache and the port's dense engine's; admission
+    inserts through the strip writer, once per admission group."""
+    from rama_tpu.config import EngineConfig as JEcfg
+    from rama_tpu.runtime.engine import Engine as JEngine
+    from rama_tpu.runtime.engine import Request as JRequest
+
+    jcfg, cfg, _, jp, tp = _tiny(seq_len=64, seed=21)
+    jtok, ttok = _tokenizers(cfg.vocab_size)
+    specs = (("ab", 12), ("ba", 6), ("hello", 9))
+    want = _serve(JEngine(jcfg, jp, jtok, JEcfg(max_batch_size=4, kv_quant="int8")),
+                  [JRequest(prompt=p, steps=n, temperature=0.0) for p, n in specs])
+    inserts = []
+    orig = eng_mod.write_kv_strips_q8
+    monkeypatch.setattr(eng_mod, "write_kv_strips_q8",
+                        lambda *a: inserts.append(a[-1]) or orig(*a))
+    outs = {}
+    for kvq in ("int8", None):
+        eng = Engine(cfg, tp, ttok, EngineConfig(max_batch_size=4, decode_tick=4,
+                                                 kv_quant=kvq))
+        assert isinstance(eng.cache, tl.QuantKVCache if kvq else tl.KVCache)
+        outs[kvq] = _serve(eng, [Request(prompt=p, steps=n, temperature=0.0)
+                                 for p, n in specs])
+        assert eng.stats()["engine_errors"] == 0
+    assert outs["int8"] == want
+    assert outs[None] == want
+    assert inserts and all(n == 16 for n in inserts)   # t_ins: the 16-row bucket
+
+
+def test_engine_int8_cache_recovers_with_an_int8_cache():
+    _, cfg, _, _, tp = _tiny(seq_len=32)
+    eng = Engine(cfg, tp, _tokenizers(cfg.vocab_size)[1],
+                 EngineConfig(max_batch_size=2, kv_quant="int8"))
+    eng.cache.k.fill_(5)
+    eng.cache = eng._create_cache(2)
+    assert isinstance(eng.cache, tl.QuantKVCache) and not eng.cache.k.any()
+    assert eng.cache.k.shape == (cfg.n_layers, 2, cfg.n_kv_heads, 32, cfg.head_dim)
+
+
+def test_load_engine_int8_cache_streams_over_sse(tmp_path):
+    """`--kv-quant int8`: load_engine builds the int8-cache engine, which
+    streams over SSE the JAX package's greedy chain on a QuantKVCache."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.server.app import build_app, load_engine
+
+    jcfg = tiny_config(seq_len=32)
+    np_params = random_params(jcfg, seed=23)
+    model = tmp_path / "m.bin"
+    save_v0(str(model), torch_cfg(jcfg), np_params)
+    tok_path = write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size)
+    eng = load_engine(str(model), tok_path, quant="int8", dtype="float32", batch=2,
+                      device="cpu", kv_quant="int8")
+    assert isinstance(eng.cache, tl.QuantKVCache)
+    jp = jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=8, dtype=jnp.float32), jcfg)
+    cache = jl.QuantKVCache.create(jcfg, 1, jcfg.seq_len)
+    ids, nxt = [], 1
+    for pos in range(10):
+        logits, cache = jl.decode_step(jp, jcfg, jnp.asarray([nxt], jnp.int32),
+                                       jnp.asarray([pos], jnp.int32), cache)
+        nxt = int(np.argmax(np.asarray(logits)[0]))
+        ids.append(nxt)
+        if nxt == 2:
+            break
+
+    async def run():
+        client = TestClient(TestServer(build_app(eng)))
+        await client.start_server()
+        try:
+            resp = await client.get("/gen", params={"prompt": "", "steps": "10",
+                                                    "temperature": "0.0"})
+            assert resp.status == 200
+            return await asyncio.wait_for(resp.text(), timeout=120)
+        finally:
+            await client.close()
+
+    eng.start()
+    try:
+        body = asyncio.run(run())
+    finally:
+        eng.stop()
+    datas = [ln[len("data: "):] for ln in body.split("\n") if ln.startswith("data: ")]
+    assert "event: error" not in body
+    assert datas == [eng.tokenizer.decode_token(i).replace("\n", "\\n") for i in ids]
+
+
+def test_cpu_wrappers_dispatch_to_plain():
+    rng = np.random.default_rng(3)
+    q, k8, v8, ks, vs = _q8_inputs(rng, 2, 2, 2, 32, 16, 2)
+    args = (t(q), t(k8), t(v8), t(ks), t(vs), torch.tensor([3, 31], dtype=torch.int32), 1)
+    torch.testing.assert_close(da.decode_attention_q8(*args),
+                               da.decode_attention_q8_plain(*args), rtol=0, atol=0)
+    assert tl._KERNELS.write_kv_rows_q8 is kw.write_kv_rows_q8
+    assert tl._PLAIN.decode_attention_q8 is da.decode_attention_q8_plain
+    assert tl._PLAIN.write_kv_strips_q8 is kw.write_kv_strips_q8_plain
