@@ -48,17 +48,41 @@ Phases, in order (any failure raises and the script exits non-zero):
            classifier) from a seed on the card, logits against the plain path
   serve4   the server on the int4 model: 8 concurrent /gen requests
   profile4 the profile of 8-slot int4 decode steps
+  kernels_spec the speculation slice's kernels: the chunk attention (K10)
+           on a bf16 and an int8 cache (rel 0.05 per (slot, query, head))
+           at the 7B shapes, T 2 / 4 / 8, ragged chunk starts straddling
+           the 64-row splits and reaching S, with planted edge rows at
+           pos0 + t and pos0 + t + 1; the chunk writer (K11) exact, with
+           chunks straddling a 32-row window and reaching S; K4 at the
+           stories15M draft's head_dim 48; CUDA-event times beside K4 / K6
+           on the same rows
+  model_spec   7B int8 forward_chunk (T 4) through the kernels against the
+           plain path on a bf16 and an int8 cache of 4096 rows, chunk
+           starts 8, 61, 1500, 1021 and 4092
+  serve_spec   the server on 8 slots with spec_tick 3 (n-gram drafts,
+           always speculating): 8 concurrent /gen, tok/s, TTFT, accept rate
+  spec_draft   the engine in draft mode with the target as its own draft
+           (accept rate >= 0.9), then with a synthetic stories15M-shaped
+           draft checkpoint (accept ~0: dormancy and draft-cache resync)
+  profile_spec the profile of an 8-slot verify round (T 4) against an
+           8-slot plain decode step, bf16 and int8 caches
+  serve_spec_kv8   serve_spec on the int8 KV cache at max_len 4096
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, and a v0 one with
            `--quant int4`
 
-Three main paths, each with the launch counters set to 0 just before it
+Five main paths, each with the launch counters set to 0 just before it
 and read just after: int8 (`generate` + `serve`), where every int8 kernel
 must have launched; int8 KV (`serve_kv8`), where the int8 cache's three
 kernels, the int8 matmul / FFN and the prefill attention must have, and
-the bf16 decode attention must not; int4 (`serve4`), where every int4
-kernel, the int8 classifier's GEMV and both attention kernels must have.
-The int8 KV path reuses the int8 path's params. The line before
+the bf16 decode attention must not; speculation (`serve_spec` +
+`spec_draft`), where K10 on the bf16 cache must have, with the matmul,
+FFN, prefill and (the draft's) decode attention; speculation on the int8
+KV cache (`serve_spec_kv8`), where K10 on the int8 cache, K11, the strip
+writer, matmul, FFN and prefill must have, and the bf16 decode attention
+must not; int4 (`serve4`), where every int4 kernel, the int8 classifier's
+GEMV and both attention kernels must have. The int8 KV and speculation
+paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
 which only a run of every phase prints.
@@ -83,37 +107,57 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
-ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "model", "generate",
-              "serve", "profile", "model_kv8", "serve_kv8", "profile_kv8", "model4",
-              "serve4", "profile4", "cli")
+ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec", "model",
+              "generate", "serve", "profile", "model_kv8", "serve_kv8", "profile_kv8",
+              "model_spec", "serve_spec", "spec_draft", "profile_spec", "serve_spec_kv8",
+              "model4", "serve4", "profile4", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
+SPEC_TICK = 3                 # drafts per verification round: chunks of 4
 
-# The three main paths: their weight bits, phases (model check, main path,
-# profile), the kernels each must launch, with the key of the kernels
-# record that takes each one's count ("launches" on the path of the
-# kernel's own weights or cache; the int4 path also runs the int8
-# classifier's GEMV and the attention kernels, the int8 KV path the int8
-# matmul / FFN and the prefill attention), and the kernels it must not
-# launch (their count goes to the record too).
+# The five main paths: their weight bits, phases (model check or None, main
+# path, profile or None), the server's engine settings, the kernels each
+# must launch, with the key of the kernels record that takes each one's
+# count ("launches" on the path of the kernel's own weights or cache; the
+# int4 path also runs the int8 classifier's GEMV and the attention kernels,
+# the other paths the int8 matmul / FFN and the prefill attention), and the
+# kernels it must not launch (their count goes to the record too).
 INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "profile"),
+                 serve={},
                  record={"quant_matmul": "launches", "ffn": "launches",
                          "decode_attention": "launches", "prefill_attention": "launches"},
                  forbid={})
 KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "profile_kv8"),
+                serve=dict(max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
                 record={"write_kv_rows_q8": "launches", "decode_attention_q8": "launches",
                         "write_kv_strips_q8": "launches",
                         "quant_matmul": "launches_kv8_path", "ffn": "launches_kv8_path",
                         "prefill_attention": "launches_kv8_path"},
                 forbid={"decode_attention": "launches_kv8_path"})
+SPEC_PATH = dict(label="speculation", bits=8,
+                 phases=("model_spec", "serve_spec", "spec_draft", "profile_spec"),
+                 serve=dict(spec_tick=SPEC_TICK),
+                 record={"chunk_attention": "launches", "quant_matmul": "launches_spec_path",
+                         "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path",
+                         "decode_attention": "launches_spec_path"},
+                 forbid={})
+SPEC_KV8_PATH = dict(label="speculation int8 KV", bits=8, phases=(None, "serve_spec_kv8", None),
+                     serve=dict(spec_tick=SPEC_TICK, max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
+                     record={"chunk_attention_q8": "launches", "write_kv_chunk_q8": "launches",
+                             "write_kv_strips_q8": "launches_spec_kv8_path",
+                             "quant_matmul": "launches_spec_kv8_path",
+                             "ffn": "launches_spec_kv8_path",
+                             "prefill_attention": "launches_spec_kv8_path"},
+                     forbid={"decode_attention": "launches_spec_kv8_path"})
 INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
+                 serve={},
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
                          "quant_matmul": "launches_int4_path",
                          "decode_attention": "launches_int4_path",
                          "prefill_attention": "launches_int4_path"},
                  forbid={})
-PATHS = (INT8_PATH, KV8_PATH, INT4_PATH)
+PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_KV8_PATH, INT4_PATH)
 
 
 def log(msg: str) -> None:
@@ -202,11 +246,40 @@ def plant_prefill_edges(v_cache, plens, rows) -> None:
                 v_cache[b, :, r] *= 16
 
 
+def chunk_edge_keys(q, pos0, s: int, rows) -> dict:
+    """Planted keys for a chunk q (B, T, nh, hd) at chunk starts pos0, as
+    {(slot, cache row): key (nh, hd)}: row pos0 + j (j = 0 .. T) gets
+    0.5 (q[b, j-1] + q[b, j]) (terms outside the chunk dropped), so query t
+    scores ~5.7 (rep 1) both on its last visible row pos0 + t and on the
+    first row it must not see, pos0 + t + 1; the split edges `rows` get
+    0.5 q[b, 0] unless the chunk's rows take them."""
+    t = q.shape[1]
+    keys = {}
+    for b, p in enumerate(pos0.tolist()):
+        for r in rows:
+            if 0 <= r < s:
+                keys[(b, r)] = q[b, 0] * 0.5
+        for j in range(t + 1):
+            if 0 <= p + j < s:
+                keys[(b, p + j)] = sum(q[b, c] for c in (j - 1, j) if 0 <= c < t) * 0.5
+    return keys
+
+
+def plant_chunk_edges(q, cache, pos0, layer: int, rows, kvw=None) -> None:
+    """chunk_edge_keys into k of a (k, v) cache, or of an int8 (k8, v8, ks,
+    vs) cache, quantized by kvw.kv_quant_rows."""
+    for (b, r), key in chunk_edge_keys(q, pos0, cache[0].shape[3], rows).items():
+        if kvw is None:
+            cache[0][layer, b, :, r] = key.to(cache[0].dtype)
+        else:
+            cache[0][layer, b, :, r], cache[2][layer, b, :, r] = kvw.kv_quant_rows(key.float())
+
+
 def reset_launches(qm, ffn_mod, da, pa, kvw) -> None:
     for counts in (qm.launches, ffn_mod.launches, kvw.launches):
         for key in counts:
             counts[key] = 0
-    da.launches = da.launches_q8 = pa.launches = 0
+    da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
 
 
 def read_launches(qm, ffn_mod, da, pa, kvw) -> dict:
@@ -214,7 +287,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw) -> dict:
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
             "decode_attention": da.launches, "prefill_attention": pa.launches,
-            "decode_attention_q8": da.launches_q8, **kvw.launches}
+            "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
+            "chunk_attention_q8": da.launches_chunk_q8, **kvw.launches}
 
 
 def check_launches(path: dict, launches: dict) -> None:
@@ -888,6 +962,245 @@ def phase_kernels_kv8(torch, results: dict) -> None:
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def attention_bytes_ops(pos0, t: int, s: int, nkv: int, nh: int, hd: int, row_bytes: float,
+                        q_bytes: float) -> tuple[float, float]:
+    """Bytes and flops of T-query chunk attention for this run's positions:
+    each slot reads its K and V rows 0 .. min(pos0 + T - 1, S - 1) once
+    (row_bytes a row and kv head, K and V together), q in and out once;
+    query t does 4 flops per visible row and head dim."""
+    p = pos0.long().cpu()
+    rows = (p + t - 1).clamp(0, s - 1) + 1
+    seen = sum(int(((p + i).clamp(0, s - 1) + 1).sum()) for i in range(t))
+    return float(rows.sum()) * nkv * row_bytes + 2 * q_bytes, seen * nh * hd * 4.0
+
+
+def phase_kernels_spec(torch, results: dict) -> None:
+    """The speculation slice's kernels vs their plain versions: K10 on a
+    bf16 and an int8 cache within TOL per (slot, query, head), with planted
+    edges; K11 exactly; K4 at the stories15M draft's head_dim 48. Times by
+    CUDA events, with K4 and K6 on the same rows beside them."""
+    import torch.nn.functional as F
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+    L, nh, nkv, hd, B = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+    T = SPEC_TICK + 1
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def qcache(l, s):
+        c = [torch.empty((l, B, nkv, s, hd), dtype=torch.int8, device=dev) for _ in range(2)] + [
+            torch.empty((l, B, nkv, s), device=dev) for _ in range(2)]
+        for i in range(l):
+            c[0][i], c[2][i] = kvw.kv_quant_rows(rx(B, nkv, s, hd, dtype=f32))
+            c[1][i], c[3][i] = kvw.kv_quant_rows(rx(B, nkv, s, hd, dtype=f32))
+        return c
+
+    def starts(s, t):
+        """Ragged chunk starts: 0, a chunk straddling the 64-row split (61),
+        one ending on it, 128, 700, one running past S, the last that fits."""
+        return torch.tensor([0, 61, 65 - t, 128, 512 - t, 700, s - 2, s - t], dtype=torch.int32,
+                            device=dev)
+
+    def check(label, cache, s, layers, q8):
+        split_edges = [e for c in range(64, s, 64) for e in (c - 1, c)] + [s - 1]
+        kernel = da.chunk_attention_q8 if q8 else da.chunk_attention
+        plain = da.chunk_attention_q8_plain if q8 else da.chunk_attention_plain
+        for t in (2, 4, 8):
+            q = rx(B, t, nh, hd)
+            pos0 = starts(s, t)
+            for planted in (False, True):
+                for l in layers:
+                    if planted:
+                        plant_chunk_edges(q, cache, pos0, l, split_edges, kvw if q8 else None)
+                    compare(torch, f"{kernel.__name__} {label} T={t} layer={l} "
+                            f"pos0={pos0.tolist()}{' planted edges' if planted else ''}",
+                            kernel(q, *cache, pos0, l), plain(q, *cache, pos0, l), per=hd)
+
+    def time_chunk(q8, cache, s, n_layers, t, pos0) -> dict:
+        kernel = da.chunk_attention_q8 if q8 else da.chunk_attention
+        plain = da.chunk_attention_q8_plain if q8 else da.chunk_attention_plain
+        q = rx(B, t, nh, hd)
+        err = compare(torch, f"{kernel.__name__} timed inputs S={s} T={t} (layer 0)",
+                      kernel(q, *cache, pos0, 0), plain(q, *cache, pos0, 0), per=hd)
+        lay = Layered(n_layers)
+        t_k = time_ms(torch, lambda: kernel(q, *cache, pos0, lay.next()))
+        t_p = time_ms(torch, lambda: plain(q, *cache, pos0, lay.next()), reps=5)
+        # K4 / K7 over the same rows: one query a slot at the chunk's last position
+        q1, last = rx(B, nh, hd), (pos0 + t - 1).clamp(max=s - 1)
+        one = da.decode_attention_q8 if q8 else da.decode_attention
+        t_one = time_ms(torch, lambda: one(q1, *cache, last, lay.next()))
+        nb, ops = attention_bytes_ops(pos0, t, s, nkv, nh, hd,
+                                      2 * hd + 8 if q8 else 2 * hd * 2, q.numel() * 2)
+        b_ms, b_by = bound_ms(nb, ops)
+        t_lib, note = None, ("no single PyTorch call attends over an int8 cache with row "
+                             "scales (dequantize + SDPA is two)" if q8 else None)
+        if not q8:
+            vis = da._visible(pos0, t, s)[:, None]                   # (B, 1, T, S)
+
+            def sdpa():
+                l = lay.next()
+                return F.scaled_dot_product_attention(q.transpose(1, 2), cache[0][l],
+                                                      cache[1][l], attn_mask=vis)
+
+            t_lib = time_ms(torch, sdpa)
+        log(f"[time] {kernel.__name__} S={s} T={t}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), library {t_lib}; {one.__name__} on the same rows "
+            f"{t_one:.4f} ms")
+        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=t_lib, library_note=note, same_rows_one_query_ms=t_one,
+                    shape=f"q ({B}, {t}, {nh}, {hd}) bf16, {'int8 + f32 row scales' if q8 else 'bf16'}"
+                          f" cache ({n_layers}, {B}, {nkv}, {s}, {hd}), pos0 {pos0.tolist()}")
+
+    # -- K10 on a bf16 cache -------------------------------------------------------
+    S = 1024
+    kc, vc = rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)
+    check(f"B={B} S={S}", (kc, vc), S, (0, L - 1), q8=False)
+    kc, vc = rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)      # timed on unplanted rows
+    timed = torch.tensor([0, 61, 128, 255, 511, 700, 900, S - T], dtype=torch.int32, device=dev)
+    results["chunk_attention"] = dict(
+        name="chunk_attention", route="cuda", source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/decode_attention.py:640",
+        **time_chunk(False, (kc, vc), S, L, T, timed))
+    results["chunk_attention"]["t8"] = time_chunk(False, (kc, vc), S, L, 8,
+                                                  (timed - 4).clamp(min=0))
+    del kc, vc
+    torch.cuda.empty_cache()
+
+    # -- K10 on an int8 cache ------------------------------------------------------
+    c = qcache(L, S)
+    check(f"B={B} S={S}", c, S, (0, L - 1), q8=True)
+    c = qcache(L, S)
+    results["chunk_attention_q8"] = dict(
+        name="chunk_attention_q8", route="cuda", source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/decode_attention.py:730",
+        **time_chunk(True, c, S, L, T, timed))
+    del c
+    torch.cuda.empty_cache()
+    c = qcache(4, KV8_MAX_LEN)
+    check(f"B={B} S={KV8_MAX_LEN}", c, KV8_MAX_LEN, (0, 3), q8=True)
+    long_starts = torch.tensor([0, 63, 1021, 2047, 3000, 4000, 4090, KV8_MAX_LEN - T],
+                               dtype=torch.int32, device=dev)
+    results["chunk_attention_q8"]["s4096"] = time_chunk(True, c, KV8_MAX_LEN, 4, T, long_starts)
+    del c
+    torch.cuda.empty_cache()
+    # GQA rep 2 and 4 (rows T * rep up to the kernel's 8), stories15M's hd 48,
+    # fp32 and bf16 q, both caches
+    for nh_s, nkv_s, hd_s, t in ((4, 2, 16, 4), (8, 2, 16, 2), (6, 6, 48, 8), (8, 1, 128, 1)):
+        for dt in (bf, f32):
+            ps = torch.tensor([0, 61, 77], dtype=torch.int32, device=dev)
+            qs = rx(3, t, nh_s, hd_s, dtype=dt)
+            kd, vd = rx(2, 3, nkv_s, 80, hd_s, dtype=dt), rx(2, 3, nkv_s, 80, hd_s, dtype=dt)
+            compare(torch, f"chunk_attention rep={nh_s // nkv_s} hd={hd_s} T={t} {dt}",
+                    da.chunk_attention(qs, kd, vd, ps, 1),
+                    da.chunk_attention_plain(qs, kd, vd, ps, 1), per=hd_s)
+            k8s, kss = kvw.kv_quant_rows(kd.float())
+            v8s, vss = kvw.kv_quant_rows(vd.float())
+            compare(torch, f"chunk_attention_q8 rep={nh_s // nkv_s} hd={hd_s} T={t} {dt}",
+                    da.chunk_attention_q8(qs, k8s, v8s, kss, vss, ps, 1),
+                    da.chunk_attention_q8_plain(qs, k8s, v8s, kss, vss, ps, 1), per=hd_s)
+    try:
+        da.check_rows(3, 8, 2)
+    except ValueError as e:
+        log(f"[check] chunk_attention T=3 x GQA 8/2 refused: {e}")
+    else:
+        raise SystemExit("FAILED chunk_attention: 12 query rows a kv head were not refused")
+
+    # -- K11: write_kv_chunk_q8 ----------------------------------------------------
+    def rows(*shape, dtype=bf):
+        """Rows of mixed magnitude with a zero row and a row of .5 ties."""
+        x = rx(*shape, dtype=f32) * (torch.rand(shape[:-1] + (1,), device=dev, generator=g)
+                                     * 30 + 1e-3)
+        flat = x.view(-1, shape[-1])
+        flat[0] = 0
+        flat[1] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5],
+                               device=dev).repeat(shape[-1] // 8)
+        return x.to(dtype)
+
+    def rcache(l, b, n, s, d):
+        return [torch.randint(-127, 128, (l, b, n, s, d), dtype=torch.int8, device=dev,
+                              generator=g) for _ in range(2)] + [
+            torch.rand((l, b, n, s), device=dev, generator=g) for _ in range(2)]
+
+    def same(name, got, want) -> float:
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+        log(f"[check] {name}: {'exact' if not diff else f'tensors {diff} differ'}")
+        if diff:
+            raise SystemExit(f"FAILED {name}: cache tensors {diff} (k8, v8, ks, vs) differ "
+                             f"from the plain version's")
+        return 0.0
+
+    S = KV8_MAX_LEN
+    c1 = rcache(4, B, nkv, S, hd)
+    c2 = [x.clone() for x in c1]
+    for t in (2, 4, 8):
+        # a 32-row window straddle (30), a 128-column scale tile straddle
+        # (126), a chunk reaching S (S - 2) and one wholly past it
+        pos0 = torch.tensor([0, 30, 61, 126, 1000, S - t, S - 2, S + 3], dtype=torch.int32,
+                            device=dev)
+        for dt in (bf, f32):
+            k, v = rows(B, t, nkv, hd, dtype=dt), rows(B, t, nkv, hd, dtype=dt)
+            for l in (0, 3):
+                kvw.write_kv_chunk_q8(*c1, k, v, pos0, l)
+                kvw.write_kv_chunk_q8_plain(*c2, k, v, pos0, l)
+                err = same(f"write_kv_chunk_q8 T={t} layer={l} pos0={pos0.tolist()} {dt}", c1, c2)
+    for cname, (b_, n_, s_, d_) in {"tiny": (3, 2, 48, 16), "stories15M": (5, 6, 64, 48)}.items():
+        t1 = rcache(3, b_, n_, s_, d_)
+        t2 = [x.clone() for x in t1]
+        pt = torch.tensor([0, 30, s_ - 2, 5, 61][:b_], dtype=torch.int32, device=dev)
+        for dt in (bf, f32):
+            k, v = rows(b_, 3, n_, d_, dtype=dt), rows(b_, 3, n_, d_, dtype=dt)
+            kvw.write_kv_chunk_q8(*t1, k, v, pt, 2)
+            kvw.write_kv_chunk_q8_plain(*t2, k, v, pt, 2)
+            same(f"write_kv_chunk_q8 {cname} hd={d_} {dt}", t1, t2)
+    pos0 = torch.tensor([0, 30, 61, 126, 1000, 2000, 3000, S - T], dtype=torch.int32,
+                        device=dev)
+    k, v = rows(B, T, nkv, hd), rows(B, T, nkv, hd)
+    lay = Layered(4)
+    t_k = time_ms(torch, lambda: kvw.write_kv_chunk_q8(*c1, k, v, pos0, lay.next()))
+    t_p = time_ms(torch, lambda: kvw.write_kv_chunk_q8_plain(*c2, k, v, pos0, lay.next()))
+    k1, v1 = k[:, -1].contiguous(), v[:, -1].contiguous()
+    t_k6 = time_ms(torch, lambda: kvw.write_kv_rows_q8(*c1, k1, v1, pos0, lay.next()))
+    n_el = 2 * B * T * nkv * hd
+    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * T * nkv * 4 + B * 4, 3 * n_el)
+    log(f"[time] write_kv_chunk_q8 T={T}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}); write_kv_rows_q8 (one row a slot) {t_k6:.4f} ms")
+    results["write_kv_chunk_q8"] = dict(
+        name="write_kv_chunk_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:136", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="no single PyTorch call quantizes rows and scatters them",
+        k6_same_run_ms=t_k6,
+        shape=f"k/v rows ({B}, {T}, {nkv}, {hd}) bf16 -> cache (4, {B}, {nkv}, {S}, {hd}) int8 "
+              f"+ scales, pos0 {pos0.tolist()}")
+    del c1, c2
+    torch.cuda.empty_cache()
+
+    # -- K4 at the draft's head_dim 48 (stories15M: 6 heads, rep 1) ---------------
+    qd = rx(B, 6, 48)
+    kd, vd = rx(2, B, 6, 1024, 48), rx(2, B, 6, 1024, 48)
+    pd = torch.tensor([0, 63, 64, 255, 700, 1000, 1022, 1023], dtype=torch.int32, device=dev)
+    for planted in (False, True):
+        if planted:
+            plant_decode_edges(qd, kd, pd, 1, (63, 64, 511, 512, 1023))
+        for dt in (bf, f32):
+            compare(torch, f"decode_attention stories15M hd=48 {dt}"
+                    f"{' planted edges' if planted else ''}",
+                    da.decode_attention(qd.to(dt), kd.to(dt), vd.to(dt), pd, 1),
+                    da.decode_attention_plain(qd.to(dt), kd.to(dt), vd.to(dt), pd, 1), per=48)
+    for name in ("chunk_attention", "chunk_attention_q8", "write_kv_chunk_q8"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
 def phase_model(torch, cfg, params, label: str = "int8") -> None:
     """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
@@ -961,6 +1274,122 @@ def phase_model_kv8(torch, cfg, params) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_model_spec(torch, cfg, params) -> None:
+    """7B int8 forward_chunk (T = SPEC_TICK + 1) through the kernels against
+    the plain path, logits within TOL per row, on a bf16 and an int8 cache
+    of 4096 rows (params with RoPE tabulated to 4096): 2 slots prefilled
+    with a prompt, a chunk at position 8, then, with rows 12 .. 4095 of both
+    caches filled with copies of the plain cache's rows 0-11 (as
+    model_kv8), chunks starting at 61 and 1500, and at 1021 and 4092."""
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, forward_chunk, prefill
+
+    dev = torch.device("cuda")
+    S, T = KV8_MAX_LEN, SPEC_TICK + 1
+    toks = torch.tensor([[1, 9038, 2501, 263, 931, 29892, 727, 471]] * 2, device=dev)
+    chunk = torch.tensor([[29871, 1576, 338, 263], [450, 4123, 471, 727]], device=dev)[:, :T]
+    for cls in (KVCache, QuantKVCache):
+        caches = [cls.create(cfg, 2, S, device=dev) for _ in range(2)]
+        names = ("k", "v", "ks", "vs") if cls is QuantKVCache else ("k", "v")
+        with torch.no_grad():
+            prefill(params, cfg, toks, caches[0], last_only=True)
+            prefill(params, cfg, toks, caches[1], last_only=True, plain=True)
+            for starts in ([8, 8], [61, 1500], [1021, 4092]):
+                if starts[0] == 61:
+                    tile = torch.arange(S - 12, device=dev) % 12
+                    for name in names:
+                        rows = getattr(caches[1], name).index_select(3, tile)
+                        for c in caches:
+                            getattr(c, name)[:, :, :, 12:] = rows
+                pos0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+                lk, _ = forward_chunk(params, cfg, chunk, pos0, caches[0])
+                lp, _ = forward_chunk(params, cfg, chunk, pos0, caches[1], plain=True)
+                compare(torch, f"7B int8 forward_chunk T={T} on {cls.__name__} pos0={starts} "
+                        f"(kernels vs plain)", lk, lp)
+        del caches
+        torch.cuda.empty_cache()
+
+
+def phase_spec_draft(torch, cfg, params, tokenizer) -> None:
+    """Draft-mode speculation in the engine. (1) The target as its own draft
+    (a separate draft cache), greedy, 2 slots x 16 tokens, never dormant:
+    the accept rate must be >= 0.9 — K10's verification agrees with the
+    T = 1 decode path — and the streams are compared with spec off. (2) A
+    synthetic stories15M-shaped draft checkpoint loaded as the server's
+    --spec-draft-model is: random weights accept ~0, so with 2 dormant
+    ticks the run goes dormant, resyncs the draft cache and probes again;
+    every stream must end, and dormancy and a resync must have happened."""
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.config import EngineConfig, ModelConfig
+    from rama_tpu_torch.runtime import engine as eng_mod
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.cli import load_model
+
+    def serve(ecfg, prompts, steps, draft=None):
+        eng = Engine(cfg, params, tokenizer, ecfg, draft=draft)
+        eng.start()
+        try:
+            reqs = [Request(prompt=p, steps=steps, temperature=0.0) for p in prompts]
+            for r in reqs:
+                eng.submit(r)
+            outs = []
+            for r in reqs:
+                toks = []
+                while (t := r.queue.get(timeout=600)) is not None:
+                    toks.append(t)
+                outs.append(toks)
+        finally:
+            eng.stop()
+        if any(r.error for r in reqs) or eng.stats()["engine_errors"]:
+            raise SystemExit(f"FAILED spec_draft: {[r.error for r in reqs]} {eng.stats()}")
+        return outs, eng.stats()
+
+    prompts = ["Once upon a time", "The little dog"]
+    base = dict(max_batch_size=2, max_seq_len=1024, decode_tick=8)
+    t0 = time.time()
+    off, _ = serve(EngineConfig(**base), prompts, 16)
+    on, stats = serve(EngineConfig(**base, spec_tick=SPEC_TICK, spec_mode="draft",
+                                   spec_min_accept=0.0), prompts, 16, draft=(cfg, params))
+    firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+              for x, y in zip(on, off)]
+    log(f"[spec_draft] target as its own draft: accept rate {stats['spec_accept_rate']}, "
+        f"first position differing from spec off per stream {firsts} (None: equal), "
+        f"{time.time() - t0:.1f} s")
+    if not (stats["spec_accept_rate"] or 0) >= 0.9:
+        raise SystemExit(f"FAILED spec_draft: accept rate {stats['spec_accept_rate']} < 0.9")
+
+    dcfg = ModelConfig(dim=288, hidden_dim=768, n_layers=6, n_heads=6, n_kv_heads=6,
+                       vocab_size=32000, seq_len=256)
+    rng = np.random.default_rng(6)
+    L, D, H, V = dcfg.n_layers, dcfg.dim, dcfg.hidden_dim, dcfg.vocab_size
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    p = {"tok_embedding": w(V, D), "attn_norm": np.ones((L, D), np.float32),
+         "wq": w(L, D, D), "wk": w(L, D, D), "wv": w(L, D, D), "wo": w(L, D, D),
+         "ffn_norm": np.ones((L, D), np.float32), "w1": w(L, D, H), "w2": w(L, H, D),
+         "w3": w(L, D, H), "final_norm": np.ones(D, np.float32)}
+    saved = eng_mod._SPEC_DORMANT_TICKS
+    eng_mod._SPEC_DORMANT_TICKS = 2
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "draft_stories15M.bin")
+            save_v0(path, dcfg, p)
+            # dense bf16, as the server's load_engine loads --spec-draft-model
+            draft = load_model(path, "none", "bfloat16", params["final_norm"].device)[:2]
+        t0 = time.time()
+        outs, stats = serve(EngineConfig(**{**base, "max_batch_size": 4}, spec_tick=SPEC_TICK,
+                                         spec_mode="draft"),
+                            prompts + ["In a far away land", "Tom and Lily"], 48, draft=draft)
+    finally:
+        eng_mod._SPEC_DORMANT_TICKS = saved
+    log(f"[spec_draft] stories15M-shaped random draft: {[len(o) for o in outs]} tokens, "
+        f"accept rate {stats['spec_accept_rate']}, dormancies {stats['spec_dormancies']}, "
+        f"draft resyncs {stats['draft_resyncs']}, {time.time() - t0:.1f} s")
+    if not all(outs) or stats["spec_dormancies"] < 1 or stats["draft_resyncs"] < 1:
+        raise SystemExit(f"FAILED spec_draft: streams {[len(o) for o in outs]}, {stats}")
+
+
 def phase_generate(torch, cfg, params, tokenizer) -> None:
     from rama_tpu_torch.runtime.generate import generate_text
 
@@ -976,7 +1405,13 @@ def phase_generate(torch, cfg, params, tokenizer) -> None:
 
 
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
-                max_seq_len: int = 1024, kv_quant: str | None = None) -> None:
+                max_seq_len: int = 1024, kv_quant: str | None = None,
+                spec_tick: int = 0) -> dict:
+    """The server around an 8-slot engine: 8 concurrent /gen of 32 tokens
+    (greedy and sampled), every stream must end and /metrics count every
+    token. With spec_tick, n-gram speculation that never goes dormant
+    (spec_min_accept 0), so every tick is a spec tick, and the accept rate
+    must be a number. Returns tok/s, TTFT p50 / max and the accept rate."""
     import aiohttp
     from aiohttp import web
 
@@ -987,7 +1422,8 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
 
     engine = Engine(cfg, params, tokenizer,
                     EngineConfig(max_batch_size=8, max_seq_len=max_seq_len, decode_tick=8,
-                                 kv_quant=kv_quant))
+                                 kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
+                                 spec_min_accept=0.0))
     if isinstance(engine.cache, QuantKVCache) != (kv_quant == "int8"):
         raise SystemExit(f"FAILED {tag}: kv_quant={kv_quant} built {type(engine.cache)}")
     engine.start()
@@ -1044,43 +1480,59 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         raise SystemExit(f"FAILED {tag}: a stream did not finish {outs}")
     if stats["tokens_generated"] < total or stats["engine_errors"]:
         raise SystemExit(f"FAILED {tag}: /metrics {stats} vs {total} streamed")
+    rate = stats["spec_accept_rate"]
+    if spec_tick and not isinstance(rate, float):
+        raise SystemExit(f"FAILED {tag}: spec_accept_rate {rate!r} is not a number")
     ttfts = sorted(t for t, _, _ in outs)
+    summary = dict(tok_s=total / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                   ttft_max_ms=ttfts[-1] * 1e3, decode_tok_per_s=stats["decode_tok_per_s"],
+                   spec_accept_rate=rate, decode_ticks=stats["decode_ticks"])
     log(f"[{tag}] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
-        f"{total / wall:.2f} tok/s aggregate; TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} "
-        f"ms max {ttfts[-1] * 1e3:.1f} ms; decode_tok_per_s "
-        f"{stats['decode_tok_per_s']:.2f} ({card})")
+        f"{summary['tok_s']:.2f} tok/s aggregate; TTFT p50 {summary['ttft_p50_ms']:.1f} "
+        f"ms max {summary['ttft_max_ms']:.1f} ms; decode_tok_per_s "
+        f"{stats['decode_tok_per_s']:.2f}; spec_accept_rate {rate} ({card})")
     log(f"[{tag}] metrics phases {json.dumps(stats['phases'])}")
+    return summary
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64) -> None:
+                  start: int = 64, chunk: int = 1) -> None:
     """torch.profiler over 8 decode steps at 8 slots (positions start ..
-    start+7; by default on a 128-row bf16 cache): host wall per step with
-    and without the profiler, device kernel time per step by kernel, device
-    busy share (against the profiled wall)."""
+    start+7; by default on a 128-row bf16 cache) — or, with chunk > 1, 8
+    verify rounds of `chunk` consecutive tokens a slot through
+    forward_chunk (positions start .. start + 8 chunk - 1): host wall per
+    step with and without the profiler, device kernel time per step by
+    kernel, device busy share (against the profiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rama_tpu_torch.models.llama import KVCache, decode_step
+    from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
 
     dev = torch.device("cuda")
     if cache is None:
         cache = KVCache.create(cfg, 8, 128, device=dev)
-    tok = torch.arange(8, device=dev) + 100
+    tok = (torch.arange(8 * chunk, device=dev) + 100).view(8, chunk)
+
+    def step(tok, p):
+        pos = torch.full((8,), p, device=dev)
+        if chunk == 1:
+            logits, _ = decode_step(params, cfg, tok[:, 0], pos, cache)
+        else:
+            logits, _ = forward_chunk(params, cfg, tok, pos, cache)
+        return torch.argmax(logits, dim=-1).view(8, chunk)
+
     with torch.no_grad():
         for i in range(2):  # warm
-            decode_step(params, cfg, tok, torch.full((8,), start - 4 + i, device=dev), cache)
+            step(tok, start - 2 * chunk + i * chunk)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(8):  # the same steps without the profiler's overhead
-            decode_step(params, cfg, tok, torch.full((8,), start + i, device=dev), cache)
+            step(tok, start + i * chunk)
         torch.cuda.synchronize()
         wall_off = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(8):
-                logits, _ = decode_step(params, cfg, tok,
-                                        torch.full((8,), start + i, device=dev), cache)
-                tok = torch.argmax(logits, dim=-1)
+                tok = step(tok, start + i * chunk)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     rows = []
@@ -1089,7 +1541,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         if dt and ev.device_type.name == "CUDA":
             rows.append((dt, ev.key, ev.count))
     busy_us = sum(r[0] for r in rows)
-    log(f"[{tag}] 8 slots x 8 decode steps at pos {start}..{start + 7}: host wall "
+    what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
+    log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
+        f"{start + 8 * chunk - 1}: host wall "
         f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}")
@@ -1168,7 +1622,7 @@ def main() -> int:
         phase_build()
     results: dict = {}
     for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
-                        ("kernels_kv8", phase_kernels_kv8)):
+                        ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec)):
         if name in phases:
             phase(torch, results)
             torch.cuda.empty_cache()
@@ -1177,11 +1631,12 @@ def main() -> int:
     cfg = seven_b_config(ModelConfig)
     dev = torch.device("cuda")
     params, params_bits = None, None
+    serving: dict = {}
     for path in PATHS:
         if not set(path["phases"]) & set(phases):
             continue
         bits, label = path["bits"], path["label"]
-        if params_bits != bits:   # the int8 KV path reuses the int8 params
+        if params_bits != bits:   # the int8 KV and speculation paths reuse the int8 params
             params = None
             torch.cuda.empty_cache()
             t0 = time.time()
@@ -1190,21 +1645,27 @@ def main() -> int:
             log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} "
                 f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         model, *main_path, profile = path["phases"]
-        if model == "model_kv8" and model in phases:
+        if model in ("model_kv8", "model_spec") and model in phases:
             # RoPE to the 4096-row cache, as the engine retabulates it
             long = dict(params)
             long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
-            phase_model_kv8(torch, cfg, long)
+            (phase_model_kv8 if model == "model_kv8" else phase_model_spec)(torch, cfg, long)
+            del long
         elif model in phases:
             phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
-        if "generate" in main_path and "generate" in phases:
-            phase_generate(torch, cfg, params, tokenizer)
-        if main_path[-1] in phases:
-            kv8 = path is KV8_PATH
-            phase_serve(torch, cfg, params, tokenizer, card, tag=main_path[-1],
-                        max_seq_len=KV8_MAX_LEN if kv8 else 1024,
-                        kv_quant="int8" if kv8 else None)
+        for ph in (p for p in main_path if p in phases):
+            if ph == "generate":
+                phase_generate(torch, cfg, params, tokenizer)
+            elif ph == "spec_draft":
+                phase_spec_draft(torch, cfg, params, tokenizer)
+            else:
+                serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
+                                          **path["serve"])
+        for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8")):
+            if spec_tag in main_path and spec_tag in serving:
+                log(f"[{spec_tag}] against {plain_tag} in this run: "
+                    f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
         launches = read_launches(*modules)
         log(f"[launches] {label} main path ({' + '.join(main_path)}): {launches}")
         if set(main_path) <= set(phases):
@@ -1219,6 +1680,13 @@ def main() -> int:
             for start in (64, 2048):
                 phase_profile(torch, cfg, long, tag=profile, cache=cache, start=start)
             del cache, long
+        elif profile == "profile_spec" and profile in phases:
+            # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
+            for cache_cls in (None, QuantKVCache):
+                for chunk in (1, SPEC_TICK + 1):
+                    cache = cache_cls and cache_cls.create(cfg, 8, 128, device=dev)
+                    phase_profile(torch, cfg, params, tag=profile, cache=cache, chunk=chunk)
+                    del cache
         elif profile in phases:
             phase_profile(torch, cfg, params, tag=profile)
         torch.cuda.empty_cache()
@@ -1228,8 +1696,10 @@ def main() -> int:
         phase_cli(torch)
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "long_prompt", "s4096",
-            "launches_int4_path", "launches_kv8_path")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_note", "shape",
+            "long_prompt", "s4096", "t8", "same_rows_one_query_ms", "k6_same_run_ms",
+            "launches_int4_path", "launches_kv8_path",
+            "launches_spec_path", "launches_spec_kv8_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@
 Loads a v0/v1/v2 .bin checkpoint, runs generation on `--device` (cuda by
 default; it raises without a GPU unless `--device cpu` is given), prints
 the text and a tok/s line computed the reference way: (steps - 1) / elapsed
-(engine/src/main.rs:100-103). Flags of features not ported yet exit with
-status 2 and name the ROADMAP item.
+(engine/src/main.rs:100-103). `--spec ngram|draft` (with `--spec-k` and
+`--draft-model`) generates speculatively and prints a `[spec]` line of
+rounds and accepted drafts first. Flags of features not ported yet exit
+with status 2 and name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--warmup", action="store_true",
                    help="run the generation once untimed first (kernel builds "
                         "and first launches stay outside the timer)")
-    g.add_argument("--spec", default="off", choices=["off", "ngram", "draft"])
-    g.add_argument("--spec-k", type=int, default=8)
-    g.add_argument("--draft-model", default=None)
+    g.add_argument("--spec", default="off", choices=["off", "ngram", "draft"],
+                   help="speculative decoding: n-gram prompt lookup or a draft model")
+    g.add_argument("--spec-k", type=int, default=8,
+                   help="chunk verified per round: the current token and k - 1 drafts")
+    g.add_argument("--draft-model", default=None, help="draft .bin for --spec draft")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -58,8 +62,6 @@ def unported(args) -> str | None:
     """The ROADMAP item a flag asks for that this port does not have yet."""
     if args.scale_dtype:
         return "--scale-dtype: bf16-stored weight scales"
-    if args.spec != "off" or args.draft_model:
-        return "--spec: speculative decoding (speculative.py)"
     if args.mode == "chat":
         return "-o chat: the chat loop (chat.py)"
     return None
@@ -94,6 +96,7 @@ def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
 
 def cmd_generate(args) -> int:
     from rama_tpu_torch.runtime.generate import generate_text
+    from rama_tpu_torch.runtime.speculative import generate_text_speculative
     from rama_tpu_torch.tokenizer import Tokenizer
 
     missing = unported(args)
@@ -101,10 +104,22 @@ def cmd_generate(args) -> int:
         print(f"{missing} is not ported to rama_tpu_torch yet (ROADMAP.md)",
               file=sys.stderr)
         return 2
+    if args.spec == "draft" and not args.draft_model:
+        print("--spec draft requires --draft-model", file=sys.stderr)
+        return 2
     cfg, params, dtype = load_model(args.model, args.quant, args.dtype, args.device)
     tokenizer = Tokenizer.from_file(args.tokenizer, cfg.vocab_size)
+    draft = None
+    if args.spec == "draft":
+        dcfg, dparams, _ = load_model(args.draft_model, "none", args.dtype, args.device)
+        draft = (dparams, dcfg)
 
     def run():
+        if args.spec != "off":
+            return generate_text_speculative(
+                params, cfg, tokenizer, args.prompt, steps=args.step,
+                temperature=args.temperature, top_p=args.topp, seed=args.seed,
+                cache_dtype=dtype, k=args.spec_k, draft=draft)
         return generate_text(params, cfg, tokenizer, args.prompt, steps=args.step,
                              temperature=args.temperature, top_p=args.topp,
                              seed=args.seed, cache_dtype=dtype, fast=not args.parity)
@@ -112,8 +127,12 @@ def cmd_generate(args) -> int:
     if args.warmup:
         run()
     t0 = time.time()
-    text, ids = run()
+    text, ids, *stats = run()
     elapsed = time.time() - t0
+    if stats:
+        st = stats[0]
+        print(f"[spec] rounds={st['rounds']} accepted={st['accepted_drafts']} "
+              f"tokens/round={st['tokens_per_round']:.2f}", file=sys.stderr)
     print(text)
     steps = len(ids)
     print(f"\n{steps} tokens in {elapsed:.2f}s: {(steps - 1) / elapsed:.2f} tok/s "

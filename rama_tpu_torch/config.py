@@ -91,6 +91,17 @@ class EngineConfig:
     # only here: the paged pool and tensor parallelism are not ported.
     kv_quant: str | None = None
 
+    # Speculative serving (defaults of rama_tpu/config.py:129-160): drafts a
+    # round (0 = off), rounds a spec tick (clamped to a power of two), the
+    # proposer ("ngram" prompt lookup or a resident "draft" model passed to
+    # the Engine), and the rolling accept fraction below which spec sleeps
+    # through plain ticks (0 = always speculate). The stream is the plain
+    # ticks' stream either way.
+    spec_tick: int = 0
+    spec_rounds: int = 4
+    spec_mode: str = "ngram"
+    spec_min_accept: float = 0.1
+
     # Fields of features not ported yet (ROADMAP.md); setting any of them
     # makes the Engine raise NotImplementedError.
     paged_kv: bool = False
@@ -99,10 +110,6 @@ class EngineConfig:
     prefill_chunk: int = 0
     prefill_chunk_min: int | None = None
     scale_dtype: str | None = None
-    spec_tick: int = 0
-    spec_rounds: int = 4
-    spec_mode: str = "ngram"
-    spec_min_accept: float = 0.1
     tp_size: int = 1
     dp_size: int = 1
     seq_par: bool = False

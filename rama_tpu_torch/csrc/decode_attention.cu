@@ -1,33 +1,45 @@
-// Kernels 4 and 7: T=1 decode attention against layer l of the stacked KV
+// Kernels 4, 7 and 10: decode attention against layer l of the stacked KV
 // cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
-// cache with one f32 scale per (token, kv head) row (K7).
+// cache with one f32 scale per (token, kv head) row (K7), for one query per
+// slot (T = 1) or a chunk of T <= 8 consecutive queries per slot (K10, the
+// speculative-verification chunk, on either cache).
 //
 // Replaces rama_tpu/ops/pallas/decode_attention.py:
 // decode_attention_layer (_kernel_layered, whole S stripe per program) and
 // decode_attention_layer_tiled (_kernel_tiled, online softmax over S-tiles,
 // tiles past pos skipped) for K4; decode_attention_layer_q8 and
-// decode_attention_layer_tiled_q8 (_kernel_q8, _kernel_tiled_q8) for K7.
+// decode_attention_layer_tiled_q8 (_kernel_q8, _kernel_tiled_q8) for K7;
+// chunk_attention_layer, _tiled, _q8 and _tiled_q8 (the same bodies with
+// t > 1 and _row_mask) for K10.
 // All compute softmax(q k^T / sqrt(hd)) v for the GQA group of each kv
-// head, over cache rows s <= pos[b]; the int8 forms apply the row scales
-// after the products: score = (q . k8[s]) * ks[s] / sqrt(hd), and the V
-// side sums (p[s] * vs[s]) * v8[s].
+// head; query t of slot b sits at position pos0[b] + t and sees cache rows
+// s <= pos0[b] + t. The int8 forms apply the row scales after the
+// products: score = (q . k8[s]) * ks[s] / sqrt(hd), and the V side sums
+// (p[s] * vs[s]) * v8[s].
 //
-// Bound on the H100: bytes. Each (slot, kv head) reads (pos+1) rows of K and
-// of V, hd * 2 bytes each for a bf16 cache (hd bytes + a 4-byte scale for
-// int8); compute is ~2 flops per byte (~4 for int8).
+// Bound on the H100: bytes. Each (slot, kv head) reads its visible rows of
+// K and of V once for all T queries, hd * 2 bytes each for a bf16 cache
+// (hd bytes + a 4-byte scale for int8); compute is ~2 T flops per byte.
 // At 7B (32 kv heads, hd 128) a slot at pos 1023 reads 16.8 MB per layer
 // from a bf16 cache, 8.7 MB from an int8 one: 5 us / 2.6 us at 3.35 TB/s.
 //
 // Design: the TPU grid walks S-tiles in order inside one program per
 // (slot, head group) — at batch 1 that is only 32 programs, too few for 132
-// SMs. Here the grid is (S-split, kv head, slot): each CTA scores its
-// chunk of rows (16-byte loads of K: 8 bf16 or 16 int8 lanes, RG lanes per
-// row), takes the chunk's max and sum in fp32, rounds the probabilities
-// (times the V row scale, for int8) to q's dtype before P.V (as
-// decode_attention.py:75,100 and the q8 kernels' bf16 casts do), and writes
-// a partial (m, l, o); CTAs whose chunk starts past pos exit before
-// reading anything. A second small kernel combines the splits. All rep
-// query heads of a kv head share one read of the K/V rows.
+// SMs. Here the grid is (S-split, kv head, slot): each CTA holds the
+// rows = T * rep query rows of its kv head, t-major as the Pallas
+// _chunk_rows lays them out (row r = t * rep + g is query head
+// j * rep + g at position pos0 + r / rep), and reads each K/V row of its
+// chunk of the cache once for all of them (16-byte loads: 8 bf16 or 16 int8
+// lanes, RG lanes per cache row). Each row scores only cache rows up to its
+// own limit, clamped to S - 1 row by row. The CTA takes each row's chunk
+// max and sum in fp32, rounds its probabilities (times the V row scale,
+// for int8) to q's dtype before P.V (as decode_attention.py:75,100 and the
+// q8 kernels' bf16 casts do), and writes a partial (m, l, o) per row; a CTA
+// whose chunk starts past the last row's limit exits before reading
+// anything. A second small kernel combines, per query row, exactly the
+// splits that row saw. The rows of a CTA live in registers during P.V
+// (acc[ROWS][EPL]), so T * rep <= kMaxRows = 8: every Llama-2 shape at
+// T <= 8 (rep 1); a wider GQA group takes a shorter chunk.
 #include "common.cuh"
 
 #include <math.h>
@@ -37,6 +49,7 @@
 namespace rama {
 
 constexpr int kDaThreads = 128;
+constexpr int kMaxRows = 8;  // T * rep query rows per CTA
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -47,6 +60,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The last cache row query t of a slot at pos0 sees, clamped to [0, S-1].
+__device__ __forceinline__ int row_limit(int pos0, int t, int S) {
+  return max(0, min(pos0 + t, S - 1));
 }
 
 // 16 consecutive int8 cache elements (one 16-byte load) as f32; p must be
@@ -74,15 +92,16 @@ __device__ __forceinline__ void load_lane(const C* p, float* out) {
 }
 
 // grid (nsplit, nkv, B), block 128. T: q's dtype; C: the cache's (T, or
-// int8_t with row scales ksc / vsc, which are null otherwise). RG = lanes
-// per cache row (each lane EPL elements of hd, RG = next power of two >=
-// hd/EPL); REP >= rep = nh/nkv.
-template <typename T, typename C, int RG, int REP>
+// int8_t with row scales ksc / vsc, which are null otherwise). q is
+// (B, nq, nh, hd); partials are indexed by query row (b * nq + t) * nh + h.
+// RG = lanes per cache row (each lane EPL elements of hd, RG = next power
+// of two >= hd/EPL); ROWS >= nq * rep.
+template <typename T, typename C, int RG, int ROWS>
 __global__ void __launch_bounds__(kDaThreads)
 dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restrict__ vc,
             const float* __restrict__ ksc, const float* __restrict__ vsc,
-            const int* __restrict__ pos, float* __restrict__ part_o,
-            float* __restrict__ part_ml, int nh, int nkv, int S, int hd, int chunk,
+            const int* __restrict__ pos0, float* __restrict__ part_o,
+            float* __restrict__ part_ml, int nh, int nkv, int S, int hd, int chunk, int nq,
             float scale) {
   constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   constexpr int EPL = Lane<C>::EPL;
@@ -90,18 +109,23 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
   const int tid = threadIdx.x;
   const int rep = nh / nkv;
-  const int p = max(0, min(pos[b], S - 1));
+  const int rows = nq * rep;
+  const int p0 = pos0[b];
+  const int last = row_limit(p0, nq - 1, S);  // the largest limit of the CTA's rows
   const int s0 = split * chunk;
-  if (s0 > p) return;  // the combine pass reads splits 0 .. p / chunk only
-  const int s1 = min(s0 + chunk, p + 1);
+  if (s0 > last) return;  // no row's combine reads this split
+  const int s1 = min(s0 + chunk, last + 1);
   const int n = s1 - s0;
-  const size_t head0 = (size_t)b * nh + (size_t)j * rep;
   const int ngrp = kDaThreads / RG;
 
-  float* qs = sm;                   // [REP][hd]
-  float* sc = qs + REP * hd;        // [REP][chunk]
-  float* red = sc + REP * chunk;    // [ngrp][REP][hd]
-  for (int i = tid; i < rep * hd; i += kDaThreads) qs[i] = to_f(q[head0 * hd + i]);
+  float* qs = sm;                   // [ROWS][hd]
+  float* sc = qs + ROWS * hd;       // [ROWS][chunk]
+  float* red = sc + ROWS * chunk;   // [ngrp][ROWS][hd]
+  for (int i = tid; i < rows * hd; i += kDaThreads) {
+    const int r = i / hd, d = i - r * hd;
+    const int t = r / rep, g = r - t * rep;
+    qs[i] = to_f(q[(((size_t)b * nq + t) * nh + (size_t)j * rep + g) * hd + d]);
+  }
   __syncthreads();
 
   const int lane_g = tid % RG, grp = tid / RG;
@@ -110,7 +134,8 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   const size_t srow = ((size_t)b * nkv + j) * (size_t)S;  // row scales of the stripe
   const size_t stripe = srow * hd;
 
-  // scores: every lane runs the same trip count (shuffles need the full warp)
+  // scores: every lane runs the same trip count (shuffles need the full
+  // warp); a cache row past a query row's limit scores -inf for that row
   for (int base = s0; base < s1; base += ngrp) {
     const int s = base + grp;
     const bool ok = s < s1;
@@ -122,8 +147,8 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
       for (int i = 0; i < EPL; ++i) kv[i] = 0.f;
     }
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      if (r >= rep) break;
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= rows) break;
       float d = 0.f;
       if (active) {
 #pragma unroll
@@ -131,19 +156,26 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
       }
 #pragma unroll
       for (int o = RG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if constexpr (kQ8) {
-        if (lane_g == 0 && ok) sc[r * chunk + (s - s0)] = d * ksc[srow + s] * scale;
-      } else {
-        if (lane_g == 0 && ok) sc[r * chunk + (s - s0)] = d * scale;
+      if (lane_g == 0 && ok) {
+        float v;
+        if constexpr (kQ8) v = d * ksc[srow + s] * scale;
+        else v = d * scale;
+        sc[r * chunk + (s - s0)] = s <= row_limit(p0, r / rep, S) ? v : -INFINITY;
       }
     }
   }
   __syncthreads();
 
   // chunk max / sum per query row; probabilities (times the V row scale,
-  // for int8) rounded to T for P.V
+  // for int8) rounded to T for P.V. A row that sees no row of this chunk
+  // gets zero probabilities and no (m, l): its combine never reads here.
   const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < rep; r += kDaThreads / 32) {
+  for (int r = warp; r < rows; r += kDaThreads / 32) {
+    const int t = r / rep;
+    if (s0 > row_limit(p0, t, S)) {
+      for (int i = lane; i < n; i += 32) sc[r * chunk + i] = 0.f;
+      continue;
+    }
     float m = -INFINITY;
     for (int i = lane; i < n; i += 32) m = fmaxf(m, sc[r * chunk + i]);
     m = warp_max(m);
@@ -156,15 +188,16 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
     }
     l = warp_sum(l);
     if (lane == 0) {
-      part_ml[((head0 + r) * nsplit + split) * 2] = m;
-      part_ml[((head0 + r) * nsplit + split) * 2 + 1] = l;
+      const size_t hr = ((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep);
+      part_ml[(hr * nsplit + split) * 2] = m;
+      part_ml[(hr * nsplit + split) * 2 + 1] = l;
     }
   }
   __syncthreads();
 
-  float acc[REP][EPL];
+  float acc[ROWS][EPL];
 #pragma unroll
-  for (int r = 0; r < REP; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
     for (int i = 0; i < EPL; ++i) acc[r][i] = 0.f;
   if (active) {
@@ -172,53 +205,55 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
       float v[EPL];
       load_lane<EPL>(vc + stripe + (size_t)s * hd + d0, v);
 #pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        if (r >= rep) break;
+      for (int r = 0; r < ROWS; ++r) {
+        if (r >= rows) break;
         const float pr = sc[r * chunk + (s - s0)];
 #pragma unroll
         for (int i = 0; i < EPL; ++i) acc[r][i] = fmaf(pr, v[i], acc[r][i]);
       }
     }
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      if (r >= rep) break;
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= rows) break;
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) red[((size_t)grp * rep + r) * hd + d0 + i] = acc[r][i];
+      for (int i = 0; i < EPL; ++i) red[((size_t)grp * rows + r) * hd + d0 + i] = acc[r][i];
     }
   }
   __syncthreads();
-  for (int i = tid; i < rep * hd; i += kDaThreads) {
+  for (int i = tid; i < rows * hd; i += kDaThreads) {
     const int r = i / hd, d = i - r * hd;
+    const int t = r / rep;
     float v = 0.f;
     for (int g = 0; g < ngrp; ++g) {
       // groups whose lanes cover no dims (RG * EPL > hd) wrote nothing there;
       // every group covers the same dims, so all ngrp rows are written
-      v += red[(size_t)g * rep * hd + i];
+      v += red[(size_t)g * rows * hd + i];
     }
-    part_o[((head0 + r) * nsplit + split) * hd + d] = v;
+    const size_t hr = ((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep);
+    part_o[(hr * nsplit + split) * hd + d] = v;
   }
 }
 
-// grid (nh, B), block 128: out[b, h] = sum_i e^(m_i - M) o_i / sum_i e^(m_i - M) l_i
+// grid (nh, nq, B), block 128: out[b, t, h] = sum_i e^(m_i - M) o_i /
+// sum_i e^(m_i - M) l_i over the splits i <= limit / chunk of query t
 template <typename T>
 __global__ void __launch_bounds__(kDaThreads)
 dattn_combine(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-              const int* __restrict__ pos, T* __restrict__ out, int nh, int S, int hd,
-              int chunk, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t hb = (size_t)b * nh + h;
-  const int p = max(0, min(pos[b], S - 1));
-  const int nv = p / chunk + 1;
+              const int* __restrict__ pos0, T* __restrict__ out, int nh, int S, int hd,
+              int chunk, int nsplit, int nq) {
+  const int h = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
+  const size_t hr = ((size_t)b * nq + t) * nh + h;
+  const int nv = row_limit(pos0[b], t, S) / chunk + 1;
   float mx = -INFINITY;
-  for (int i = 0; i < nv; ++i) mx = fmaxf(mx, part_ml[(hb * nsplit + i) * 2]);
+  for (int i = 0; i < nv; ++i) mx = fmaxf(mx, part_ml[(hr * nsplit + i) * 2]);
   float L = 0.f;
   for (int i = 0; i < nv; ++i)
-    L += expf(part_ml[(hb * nsplit + i) * 2] - mx) * part_ml[(hb * nsplit + i) * 2 + 1];
+    L += expf(part_ml[(hr * nsplit + i) * 2] - mx) * part_ml[(hr * nsplit + i) * 2 + 1];
   for (int d = threadIdx.x; d < hd; d += kDaThreads) {
     float o = 0.f;
     for (int i = 0; i < nv; ++i)
-      o += expf(part_ml[(hb * nsplit + i) * 2] - mx) * part_o[(hb * nsplit + i) * hd + d];
-    out[hb * hd + d] = from_f<T>(o / L);
+      o += expf(part_ml[(hr * nsplit + i) * 2] - mx) * part_o[(hr * nsplit + i) * hd + d];
+    out[hr * hd + d] = from_f<T>(o / L);
   }
 }
 
@@ -226,19 +261,19 @@ dattn_combine(const float* __restrict__ part_o, const float* __restrict__ part_m
 struct DaArgs {
   const void *q, *k, *v;
   const float *ks, *vs;
-  const int* pos;
+  const int* pos0;
   void* out;
   float *part_o, *part_ml;
-  int B, nh, nkv, S, hd, chunk, nsplit;
+  int B, nq, nh, nkv, S, hd, chunk, nsplit;
   float scale;
   cudaStream_t st;
 };
 
-template <typename T, typename C, int RG, int REP>
+template <typename T, typename C, int RG, int ROWS>
 cudaError_t launch_split(const DaArgs& a) {
-  const size_t smem = sizeof(float) * ((size_t)REP * a.hd + (size_t)REP * a.chunk +
-                                       (size_t)(kDaThreads / RG) * REP * a.hd);
-  auto kern = dattn_split<T, C, RG, REP>;
+  const size_t smem = sizeof(float) * ((size_t)ROWS * a.hd + (size_t)ROWS * a.chunk +
+                                       (size_t)(kDaThreads / RG) * ROWS * a.hd);
+  auto kern = dattn_split<T, C, RG, ROWS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -246,17 +281,18 @@ cudaError_t launch_split(const DaArgs& a) {
   }
   kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
-      a.ks, a.vs, a.pos, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.scale);
+      a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.nq,
+      a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, typename C, int RG>
-cudaError_t launch_rep(const DaArgs& a) {
-  const int rep = a.nh / a.nkv;
-  if (rep <= 1) return launch_split<T, C, RG, 1>(a);
-  if (rep <= 2) return launch_split<T, C, RG, 2>(a);
-  if (rep <= 4) return launch_split<T, C, RG, 4>(a);
-  if (rep <= 8) return launch_split<T, C, RG, 8>(a);
+cudaError_t launch_rows(const DaArgs& a) {
+  const int rows = a.nq * (a.nh / a.nkv);
+  if (rows <= 1) return launch_split<T, C, RG, 1>(a);
+  if (rows <= 2) return launch_split<T, C, RG, 2>(a);
+  if (rows <= 4) return launch_split<T, C, RG, 4>(a);
+  if (rows <= kMaxRows) return launch_split<T, C, RG, kMaxRows>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -266,53 +302,54 @@ cudaError_t launch_all(DaArgs a) {
   a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
   const int lanes = a.hd / Lane<C>::EPL;
   cudaError_t e;
-  if (lanes <= 1) e = launch_rep<T, C, 1>(a);
-  else if (lanes <= 2) e = launch_rep<T, C, 2>(a);
-  else if (lanes <= 4) e = launch_rep<T, C, 4>(a);
-  else if (lanes <= 8) e = launch_rep<T, C, 8>(a);
-  else if (lanes <= 16) e = launch_rep<T, C, 16>(a);
+  if (lanes <= 1) e = launch_rows<T, C, 1>(a);
+  else if (lanes <= 2) e = launch_rows<T, C, 2>(a);
+  else if (lanes <= 4) e = launch_rows<T, C, 4>(a);
+  else if (lanes <= 8) e = launch_rows<T, C, 8>(a);
+  else if (lanes <= 16) e = launch_rows<T, C, 16>(a);
   else if (lanes <= 32) {
-    if constexpr (Lane<C>::EPL == 8) e = launch_rep<T, C, 32>(a);
+    if constexpr (Lane<C>::EPL == 8) e = launch_rows<T, C, 32>(a);
     else return cudaErrorInvalidValue;
   } else {
     return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
-  dattn_combine<T><<<dim3(a.nh, a.B), kDaThreads, 0, a.st>>>(
-      a.part_o, a.part_ml, a.pos, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk, a.nsplit);
+  dattn_combine<T><<<dim3(a.nh, a.nq, a.B), kDaThreads, 0, a.st>>>(
+      a.part_o, a.part_ml, a.pos0, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk,
+      a.nsplit, a.nq);
   return cudaGetLastError();
 }
 
 }  // namespace rama
 
-// K4. q (B, nh, hd); k/v point at layer l of the (L, B, nkv, S, hd) cache
-// of q's dtype; pos (B,) int32; out (B, nh * hd); part_o (B, nh, nsplit,
-// hd) and part_ml (B, nh, nsplit, 2) fp32 scratch with nsplit =
-// ceil(S / chunk).
+// K4 (nq = 1) and K10. q (B, nq, nh, hd); k/v point at layer l of the
+// (L, B, nkv, S, hd) cache of q's dtype; pos0 (B,) int32, query t at
+// pos0[b] + t; out (B, nq, nh * hd); part_o (B, nq, nh, nsplit, hd) and
+// part_ml (B, nq, nh, nsplit, 2) fp32 scratch with nsplit = ceil(S / chunk).
 extern "C" int rama_decode_attention(const void* q, const void* k, const void* v,
-                                     const void* pos, void* out, void* part_o,
-                                     void* part_ml, int B, int nh, int nkv, int S, int hd,
-                                     int chunk, int dtype, void* stream) {
-  const rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos), out,
+                                     const void* pos0, void* out, void* part_o,
+                                     void* part_ml, int B, int nq, int nh, int nkv, int S,
+                                     int hd, int chunk, int dtype, void* stream) {
+  const rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
                        static_cast<float*>(part_o), static_cast<float*>(part_ml),
-                       B, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream)};
+                       B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream)};
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K7. As K4 over an int8 cache: k8/v8 point at layer l of (L, B, nkv, S,
-// hd) int8, ks/vs at layer l of its (L, B, nkv, S) f32 row scales; hd a
-// multiple of 16.
+// K7 (nq = 1) and K10 over an int8 cache: k8/v8 point at layer l of
+// (L, B, nkv, S, hd) int8, ks/vs at layer l of its (L, B, nkv, S) f32 row
+// scales; hd a multiple of 16.
 extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const void* v8,
-                                        const void* ks, const void* vs, const void* pos,
-                                        void* out, void* part_o, void* part_ml, int B, int nh,
-                                        int nkv, int S, int hd, int chunk, int dtype,
+                                        const void* ks, const void* vs, const void* pos0,
+                                        void* out, void* part_o, void* part_ml, int B, int nq,
+                                        int nh, int nkv, int S, int hd, int chunk, int dtype,
                                         void* stream) {
   const rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
-                       static_cast<const int*>(pos), out, static_cast<float*>(part_o),
-                       static_cast<float*>(part_ml), B, nh, nkv, S, hd, chunk, 0, 0.f,
+                       static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
+                       static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
                        static_cast<cudaStream_t>(stream)};
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));

@@ -1,10 +1,14 @@
-// Kernels 6 and 8: quantize K/V rows to int8 with one f32 absmax scale per
-// (token, kv head) row and write them into the int8 KV cache in place.
+// Kernels 6, 8 and 11: quantize K/V rows to int8 with one f32 absmax scale
+// per (token, kv head) row and write them into the int8 KV cache in place.
 //
 // Replaces rama_tpu/ops/pallas/kv_write.py:
-//   write_kv_rows_q8   (K6) — the decode step's rows, [layer, b, :, pos[b]];
-//   write_kv_strips_q8 (K8) — an admission's prefilled strips,
-//                             [:, slots[j], :, 0:T], every layer at once.
+//   write_kv_rows_q8   (K6)  — the decode step's rows, [layer, b, :, pos[b]];
+//   write_kv_chunk_q8  (K11) — a verification chunk's T <= 8 rows per slot,
+//                              [layer, b, :, pos0[b] + t] (the Pallas kernel
+//                              rewrites the one or two 32-row windows they
+//                              fall in; here each row is written alone);
+//   write_kv_strips_q8 (K8)  — an admission's prefilled strips,
+//                              [:, slots[j], :, 0:T], every layer at once.
 // The Pallas kernels take rows already quantized by kv_quant_rows
 // (rama_tpu/models/llama.py:178) and DMA a tile-rounded window around
 // them; here the quantization is fused into the write, so the row is read
@@ -16,7 +20,8 @@
 // rounds half to even as jnp.round does.
 //
 // Bound on the H100: bytes, and far below a launch. K6 at 7B (8 slots, 32
-// kv heads, hd 128, bf16) reads 131 KB and writes 67 KB per layer; K8 for
+// kv heads, hd 128, bf16) reads 131 KB and writes 67 KB per layer (K11 at
+// T = 4 four times that); K8 for
 // an admission of 8 prompts of 16 tokens reads 67 MB of strips and writes
 // 34 MB. Design: one warp per (row, k or v); each lane keeps up to 8
 // elements in registers, the absmax is a warp shuffle reduction, the
@@ -101,6 +106,28 @@ kv_write_strips(const A* __restrict__ k, const A* __restrict__ v, const int* __r
             lane);
 }
 
+// K11. Warp w of the grid: w = ((b * T + t) * nkv + h) * 2 + kv. rows
+// (B, T, nkv, hd); row t of slot b lands at [layer, b, h, pos0[b] + t] of
+// k8/v8 (pointing at layer l); a row at or past S (or before 0) is dropped,
+// as JAX's scatter drops it.
+template <typename A>
+__global__ void __launch_bounds__(kKvThreads)
+kv_write_chunk(const A* __restrict__ k, const A* __restrict__ v, const int* __restrict__ pos0,
+               int8_t* __restrict__ k8, int8_t* __restrict__ v8, float* __restrict__ ks,
+               float* __restrict__ vs, int B, int T, int nkv, int S, int hd) {
+  const int w = blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= B * T * nkv * 2) return;
+  const int kv = w % 2, r = w / 2;           // r = (b * T + t) * nkv + h
+  const int h = r % nkv, bt = r / nkv;
+  const int t = bt % T, b = bt / T;
+  const int p = pos0[b] + t;
+  if (p < 0 || p >= S) return;               // the whole warp leaves together
+  const size_t row = ((size_t)b * nkv + h) * S + p;
+  quant_row((kv ? v : k) + (size_t)r * hd, (kv ? v8 : k8) + row * hd, (kv ? vs : ks) + row,
+            hd, lane);
+}
+
 constexpr int kKvWarps = kKvThreads / 32;
 
 }  // namespace rama
@@ -126,6 +153,33 @@ extern "C" int rama_kv_write_rows(const void* k, const void* v, const void* pos,
     kv_write_rows<float><<<blocks, kKvThreads, 0, st>>>(
         static_cast<const float*>(k), static_cast<const float*>(v), p, k8p, v8p, ksp, vsp, B,
         nkv, S, hd);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11: k/v (B, T, nkv, hd) rows, pos0 (B,) int32; k8/v8/ks/vs point at
+// layer l of the cache.
+extern "C" int rama_kv_write_chunk(const void* k, const void* v, const void* pos0, void* k8,
+                                   void* v8, void* ks, void* vs, int B, int T, int nkv, int S,
+                                   int hd, int dtype, void* stream) {
+  using namespace rama;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (B * T * nkv * 2 + kKvWarps - 1) / kKvWarps;
+  const int* p = static_cast<const int*>(pos0);
+  int8_t* k8p = static_cast<int8_t*>(k8);
+  int8_t* v8p = static_cast<int8_t*>(v8);
+  float* ksp = static_cast<float*>(ks);
+  float* vsp = static_cast<float*>(vs);
+  if (hd > 32 * kKvMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBF16)
+    kv_write_chunk<__nv_bfloat16><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), p, k8p,
+        v8p, ksp, vsp, B, T, nkv, S, hd);
+  else if (dtype == kF32)
+    kv_write_chunk<float><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), p, k8p, v8p, ksp, vsp, B,
+        T, nkv, S, hd);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -40,7 +40,8 @@ from rama_tpu_torch.ops.kernels import kv_write as _kvw
 from rama_tpu_torch.ops.kernels import prefill_attention as _pa
 from rama_tpu_torch.ops.kernels import quant_matmul as _qm
 from rama_tpu_torch.ops.kernels.ffn import split_h13
-from rama_tpu_torch.ops.kernels.kv_write import kv_quant_rows
+from rama_tpu_torch.ops.kernels.kv_write import (chunk_positions, kv_quant_rows,
+                                                  scatter_rows_)
 from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                       from_q80_file_layout, quantize_embedding,
                                       quantize_int4, quantize_int8)
@@ -50,7 +51,7 @@ Params = dict[str, Any]
 
 __all__ = ["KVCache", "QuantKVCache", "kv_quant_rows", "load_params",
            "load_params_quantized", "quantize_params", "fuse_params", "rmsnorm",
-           "apply_rope", "forward", "prefill", "decode_step", "split_h13"]
+           "apply_rope", "forward", "forward_chunk", "prefill", "decode_step", "split_h13"]
 
 
 class _Ops:
@@ -71,6 +72,12 @@ class _Ops:
                                     else _da.decode_attention_q8)
         self.write_kv_strips_q8 = (_kvw.write_kv_strips_q8_plain if plain
                                    else _kvw.write_kv_strips_q8)
+        self.chunk_attention = (_da.chunk_attention_plain if plain
+                                else _da.chunk_attention)
+        self.chunk_attention_q8 = (_da.chunk_attention_q8_plain if plain
+                                   else _da.chunk_attention_q8)
+        self.write_kv_chunk_q8 = (_kvw.write_kv_chunk_q8_plain if plain
+                                  else _kvw.write_kv_chunk_q8)
 
 
 _KERNELS, _PLAIN = _Ops(False), _Ops(True)
@@ -333,20 +340,25 @@ def _write_kv(cache: KVCache | QuantKVCache, l: int, k: torch.Tensor, v: torch.T
     """cache[l, b, :, pos_index[b, t]] = k[b, t] (in place; the JAX package's
     .at[].set with a donated buffer), quantized row by row for an int8
     cache. Duplicate positions (padded prefill rows) write rows that are
-    never attended. Positions past the cache end (a finished slot's
-    overshoot inside a decode tick) write the last row, where JAX drops the
-    write; that slot's output is discarded either way."""
-    b, t, nkv, _ = k.shape
-    dev = k.device
-    bi = torch.arange(b, device=dev)[:, None, None]
-    hi = torch.arange(nkv, device=dev)[None, None, :]
-    pi = pos_index.long().clamp(0, cache.max_len - 1)[:, :, None]
+    never attended. Rows of a multi-row write past the cache end are
+    dropped, as JAX's scatter drops them; a decode step's position past the
+    end (a finished slot's overshoot inside a tick) writes the last row
+    instead — a single cheap index write on the decode path — where JAX
+    drops it; that slot's output is discarded either way."""
+    if k.shape[1] == 1:
+        pos_index = pos_index.clamp(0, cache.max_len - 1)
+    arrays = [(cache.k[l], k), (cache.v[l], v)]
     if isinstance(cache, QuantKVCache):
         (k, ksc), (v, vsc) = kv_quant_rows(k), kv_quant_rows(v)
-        cache.ks[l].index_put_((bi, hi, pi), ksc)
-        cache.vs[l].index_put_((bi, hi, pi), vsc)
-    cache.k[l].index_put_((bi, hi, pi), k.to(cache.k.dtype))
-    cache.v[l].index_put_((bi, hi, pi), v.to(cache.v.dtype))
+        arrays = [(cache.k[l], k), (cache.v[l], v), (cache.ks[l], ksc), (cache.vs[l], vsc)]
+    for dst, rows in arrays:
+        if k.shape[1] == 1:
+            b, _, nkv = rows.shape[:3]
+            bi = torch.arange(b, device=rows.device)[:, None, None]
+            hi = torch.arange(nkv, device=rows.device)[None, None, :]
+            dst.index_put_((bi, hi, pos_index.long()[:, :, None]), rows.to(dst.dtype))
+        else:
+            scatter_rows_(dst, rows, pos_index)
 
 
 def _attention(q, k_cache, v_cache, pos_mask):
@@ -405,6 +417,15 @@ def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index
     return x + _ffn_block(xb, params, l, ops, fused_kernel=False)
 
 
+def _ffn_fusable(params: Params, m: int) -> bool:
+    """The fused FFN kernel serves m <= FFN_MAX_M rows of w13 / w2 with the
+    same bits; others take the split w13 / w2 matmuls (rama_tpu's
+    ffn_tileable choice, by shape and bits)."""
+    w13, w2 = params.get("w13"), params.get("w2")
+    return (isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor)
+            and w13.bits == w2.bits and m <= _ffn.FFN_MAX_M)
+
+
 def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                           cache: KVCache | QuantKVCache, ops: _Ops):
     """T=1 decode step (rama_tpu's `_forward_decode_fused` without
@@ -418,12 +439,7 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
     idx = pos_index.long().clamp(0, params["rope_cos"].shape[0] - 1)
     cos, sin = params["rope_cos"][idx], params["rope_sin"][idx]
     pos = pos_index[:, 0].to(torch.int32).contiguous()
-    # the fused FFN kernel serves decode-sized batches of w13 / w2 with the
-    # same bits; others take the split w13 / w2 matmuls (rama_tpu's
-    # ffn_tileable choice, by shape and bits)
-    w13, w2 = params.get("w13"), params.get("w2")
-    fused_ffn = (isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor)
-                 and w13.bits == w2.bits and b <= _ffn.FFN_MAX_M)
+    fused_ffn = _ffn_fusable(params, b)
     for l in range(cfg.n_layers):
         xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
         q, k, v = _qkv(xb, params, cfg, l, ops)
@@ -481,6 +497,61 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = torch.gather(x, 1, rows)                                 # (B, 1, D)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _linear(x, params["wcls"], ops).float(), cache
+
+
+def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
+                         cache: KVCache | QuantKVCache, ops: _Ops):
+    """Chunk forward of T consecutive tokens per slot at pos0[b] + t — the
+    speculative-verification path (rama_tpu's `_forward_chunk_fused`).
+
+    The decode step's structure with T queries a slot: per layer rmsnorm,
+    wqkv, RoPE at pos0 + t, the chunk's rows written into the cache in
+    place (rows at or past the cache end dropped, as JAX's scatter drops
+    them; the quantize-and-write chunk kernel on an int8 cache), the chunk
+    attention kernel over the stacked cache, wo, then the FFN — fused for
+    B * T <= FFN_MAX_M rows, split w13 / w2 beyond."""
+    b, t = tokens.shape
+    dtype = params["final_norm"].dtype
+    x = _embed(params["tok_embedding"], tokens, dtype)            # (B, T, D)
+    p0 = pos0.to(torch.int32).contiguous()
+    pos_index = chunk_positions(p0, t)
+    idx = pos_index.clamp(0, params["rope_cos"].shape[0] - 1)
+    cos, sin = params["rope_cos"][idx], params["rope_sin"][idx]   # (B, T, hd/2)
+    fused_ffn = _ffn_fusable(params, b * t)
+    for l in range(cfg.n_layers):
+        xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
+        q, k, v = _qkv(xb, params, cfg, l, ops)
+        q = apply_rope(q, cos, sin).contiguous()
+        k = apply_rope(k, cos, sin)
+        if isinstance(cache, QuantKVCache):
+            ops.write_kv_chunk_q8(cache.k, cache.v, cache.ks, cache.vs, k.contiguous(),
+                                  v.contiguous(), p0, l)
+            att = ops.chunk_attention_q8(q, cache.k, cache.v, cache.ks, cache.vs, p0, l)
+        else:
+            scatter_rows_(cache.k[l], k, pos_index)
+            scatter_rows_(cache.v[l], v, pos_index)
+            att = ops.chunk_attention(q, cache.k, cache.v, p0, l)
+        x = x + _linear(att, params["wo"], ops, l)
+        xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
+        x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _linear(x, params["wcls"], ops).float(), cache
+
+
+def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  pos0: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False):
+    """Forward a (B, T) chunk of CONSECUTIVE tokens per slot: column t of
+    slot b sits at position pos0[b] + t (pos0 (B,), within the cache). The
+    speculative-verification entry point (runtime.engine spec ticks,
+    runtime.speculative): 2 <= T <= 8 takes the fused chunk path (the
+    chunk attention kernel raises on the card for a chunk and GQA group it
+    does not serve), any other T the generic `forward`, as rama_tpu's
+    forward_chunk does. Returns (logits (B, T, V) fp32, cache)."""
+    t = tokens.shape[1]
+    if 2 <= t <= 8:
+        return _forward_chunk_fused(params, cfg, tokens, pos0, cache,
+                                    _PLAIN if plain else _KERNELS)
+    return forward(params, cfg, tokens, chunk_positions(pos0, t), cache, plain=plain)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

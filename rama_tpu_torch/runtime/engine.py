@@ -20,12 +20,22 @@ What it keeps from the JAX engine:
   with per-row f32 scales; admission quantizes the dense prefill scratch
   into the slots with the strip writer (one launch per admission group),
   decode quantizes and writes each step's rows and attends over the int8
-  cache (models/llama.py).
+  cache (models/llama.py);
+- **speculative serving** (`spec_tick` = k > 0): a spec tick runs m rounds
+  (`spec_rounds`, shrunk near token budgets and the cache end) on the
+  device with no host sync inside — each drafts k tokens per slot (n-gram
+  lookup over the per-slot history, or k greedy steps of a resident draft
+  model), verifies the (B, k+1) chunk in one `forward_chunk`, and accepts
+  by sample-then-compare keyed by (slot key, position), so the stream is
+  the plain ticks' stream — then fetches samples and accepts once. Adaptive
+  dormancy (`spec_min_accept`) serves plain ticks while drafts do not land;
+  draft mode replays the dormant gap through the draft model before the
+  next probe.
 
-Not ported yet (ROADMAP.md): pipelined/chained ticks, async-firsts
-admission, chunked prefill, speculation, the paged cache,
-tensor/data/sequence parallelism, multi-host. Their EngineConfig fields
-raise NotImplementedError when set.
+Not ported yet (ROADMAP.md): pipelined/chained ticks (and chained spec
+ticks), async-firsts admission, chunked prefill, the paged cache (and
+paged speculation), tensor/data/sequence parallelism, multi-host. Their
+EngineConfig fields raise NotImplementedError when set.
 
 Threading: one engine thread owns the device loop; request queues bridge to
 the async server. Tokens stream per request through `Request.queue`.
@@ -37,6 +47,7 @@ import queue
 import threading
 import time
 import traceback
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -45,9 +56,11 @@ import torch
 
 from rama_tpu_torch.config import EngineConfig, ModelConfig
 from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables,
-                                         decode_step, forward, fuse_params)
+                                         decode_step, forward, forward_chunk, fuse_params)
+from rama_tpu_torch.ops.kernels import decode_attention as _da
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
 from rama_tpu_torch.runtime.sampler import sample_batched_keyed, sample_greedy
+from rama_tpu_torch.runtime.speculative import ngram_propose
 from rama_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
 from rama_tpu_torch.utils.profiling import PhaseTimer
 
@@ -71,13 +84,20 @@ class Request:
 
 
 class _Slot:
-    __slots__ = ("request", "pos", "generated", "last_token")
+    __slots__ = ("request", "pos", "generated", "last_token", "hist", "draft_pos")
 
     def __init__(self):
         self.request: Request | None = None
         self.pos = 0
         self.generated = 0
         self.last_token = 0
+        # token history (prompt + emitted; index p = input token at position
+        # p, written up to pos), the n-gram drafter's source and the
+        # draft-cache resync's
+        self.hist: np.ndarray | None = None
+        # draft mode: positions < draft_pos have their rows in the draft
+        # model's cache; dormant plain ticks advance pos without it
+        self.draft_pos = 0
 
     @property
     def free(self) -> bool:
@@ -111,10 +131,15 @@ def _prefill_k_cap(t_pad: int, dp: int = 1) -> int:
     return dp * (1 << (per_replica.bit_length() - 1))
 
 
+# adaptive speculation (EngineConfig.spec_min_accept): plain ticks served
+# while spec is dormant, and the minimum rolling-window size before a
+# dormancy decision (rama_tpu/runtime/engine.py:143-147)
+_SPEC_DORMANT_TICKS = 64
+_SPEC_PROBE_ROUNDS = 8
+
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
     ("paged_kv", False, "paged KV cache"),
-    ("spec_tick", 0, "speculative serving"),
     ("prefill_chunk", 0, "chunked prefill"),
     ("scale_dtype", None, "bf16-stored weight scales"),
     ("tp_size", 1, "tensor/data/sequence parallelism"),
@@ -122,6 +147,13 @@ _UNPORTED = (
     ("seq_par", False, "tensor/data/sequence parallelism"),
     ("compile_cache", None, "compile cache (no counterpart yet)"),
 )
+
+
+def _copy_strips(cache: KVCache, scratch: KVCache, slots: list[int], t_ins: int) -> None:
+    """Rows 0:t_ins of scratch strip j -> slot slots[j] of a dense cache."""
+    for j, slot_idx in enumerate(slots):
+        cache.k[:, slot_idx, :, :t_ins].copy_(scratch.k[:, j, :, :t_ins])
+        cache.v[:, slot_idx, :, :t_ins].copy_(scratch.v[:, j, :, :t_ins])
 
 
 def check_ported(ecfg: EngineConfig) -> None:
@@ -137,7 +169,10 @@ class Engine:
     device the params live on."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: Tokenizer,
-                 engine_config: EngineConfig | None = None):
+                 engine_config: EngineConfig | None = None, draft=None):
+        """draft: (draft_cfg, draft_params) for spec_mode "draft" — a small
+        resident model that proposes the spec tick's tokens instead of the
+        n-gram lookup."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.ecfg = engine_config or EngineConfig()
@@ -152,32 +187,70 @@ class Engine:
         # engine keeps a bf16 cache under fp32 params; the kernels here
         # take one dtype per call)
         self.dtype = params["final_norm"].dtype
-        params = dict(params)
-        if params["rope_cos"].shape[0] < self.max_len:
-            # long-context serving: retabulate RoPE out to the cache length
-            params["rope_cos"], params["rope_sin"] = _rope_tables(
-                cfg, self.device, seq_len=self.max_len)
-        self.params = fuse_params(params, cfg)
+        self.spec = self.ecfg.spec_tick
+        # rounds per spec tick, clamped down to a power of two
+        r = max(1, self.ecfg.spec_rounds)
+        self.spec_rounds = 1 << (r.bit_length() - 1)
+        self.spec_mode = self.ecfg.spec_mode
+        if self.spec_mode not in ("ngram", "draft"):
+            raise ValueError(f"unknown spec_mode {self.spec_mode!r}")
+        self.draft_mode = bool(self.spec) and self.spec_mode == "draft"
+        if self.draft_mode and draft is None:
+            raise ValueError("spec_mode='draft' requires draft=(draft_cfg, draft_params)")
+        if self.device.type == "cuda" and 1 <= self.spec <= 7:
+            # the verification chunk goes through the chunk attention kernel
+            _da.check_rows(self.spec + 1, cfg.n_heads, cfg.n_kv_heads)
+        self.params = self._serving_params(cfg, params)
         self.cache = self._create_cache(b)
+        self.dcfg = self.dparams = self.dcache = None
+        if self.draft_mode:
+            self.dcfg = draft[0]
+            self.dparams = self._serving_params(self.dcfg, draft[1])
+            self.dcache = self._create_draft_cache(b)
         self.slots = [_Slot() for _ in range(b)]
+        # per-slot history capacity: sized so spec-round writes (<= max_len)
+        # always fit
+        self._hist_cap = self.max_len + max(self.spec, 1) + 1
         # bounded admission queue — reference uses bounded(30), main.rs:68
         self.admission: "queue.Queue[Request]" = queue.Queue(maxsize=30)
         # per-slot stream keys (two uint32 from (seed, request counter))
         self.slot_keys = np.zeros((b, 2), np.int64)
         self.req_counter = 0
+        # adaptive speculation: rolling per-round accept fractions; below
+        # spec_min_accept, spec goes dormant for _SPEC_DORMANT_TICKS plain
+        # ticks, then probes again
+        self._spec_window: "deque[float]" = deque(maxlen=64)
+        self._spec_dormant = 0
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
         self.phases = PhaseTimer()
         self.metrics = {
             "tokens_generated": 0,
-            "tick_tokens": 0,       # emitted by decode ticks only
+            "tick_tokens": 0,       # emitted by decode / spec ticks only
             "requests_completed": 0,
             "engine_errors": 0,
             "ttft_ms": [],          # recent TTFTs
             "decode_ticks": 0,
             "decode_s": 0.0,
+            "spec_drafted": 0,
+            "spec_accepted": 0,
+            "spec_dormancies": 0,   # times spec went dormant
+            "draft_resyncs": 0,     # draft-cache gap replays
         }
+
+    def _serving_params(self, cfg: ModelConfig, params):
+        """Fused params with RoPE tabulated out to the cache length
+        (long-context serving)."""
+        params = dict(params)
+        if params["rope_cos"].shape[0] < self.max_len:
+            params["rope_cos"], params["rope_sin"] = _rope_tables(
+                cfg, self.device, seq_len=self.max_len)
+        return fuse_params(params, cfg)
+
+    def _create_draft_cache(self, batch: int) -> KVCache:
+        return KVCache.create(self.dcfg, batch=batch, max_len=self.max_len,
+                              dtype=self.dparams["final_norm"].dtype, device=self.device)
 
     def _create_cache(self, batch: int) -> KVCache | QuantKVCache:
         if self.kv_quant == "int8":
@@ -274,15 +347,21 @@ class Engine:
 
     def _prefill_group(self, entries):
         tokens, true_lens, temps, top_ps, keys = self._pad_entries(entries)
+        slots = [e[0] for e in entries]
         with self.phases.phase("prefill"):
-            firsts = self._dev_prefill_insert(tokens, true_lens, temps, top_ps, keys,
-                                              [e[0] for e in entries])
+            firsts = self._dev_prefill_insert(tokens, true_lens, temps, top_ps, keys, slots)
+            if self.draft_mode:
+                self._dev_draft_prefill(tokens, true_lens, slots)
         for j, (slot_idx, slot, req, ids, key) in enumerate(entries):
             self.slot_keys[slot_idx] = key
             slot.request = req
             slot.pos = len(ids)            # next decode position
+            slot.draft_pos = len(ids)      # draft cache rows 0..len-1 written
             slot.generated = 0
             slot.last_token = int(firsts[j])
+            # _emit writes every emitted token at its position, `first` included
+            slot.hist = np.zeros(self._hist_cap, np.int64)
+            slot.hist[: len(ids)] = ids
             if req.echo_prompt:
                 # the reference stream re-emits prompt tokens while forcing
                 # them (mod.rs:227-241)
@@ -300,16 +379,9 @@ class Engine:
         and layer in one launch. The scratch is in the activation dtype
         (the JAX engine's is bf16 whatever the params)."""
         dev = self.device
-        k, t_pad = tokens.shape
-        tok = torch.from_numpy(tokens).to(dev)
+        t_pad = tokens.shape[1]
         lens = torch.from_numpy(true_lens).to(dev)
-        scratch = KVCache.create(self.cfg, batch=k, max_len=t_pad, dtype=self.dtype,
-                                 device=dev)
-        idx = torch.arange(t_pad, device=dev)[None, :]
-        # padded positions write the last scratch row; no real query sees it
-        pos_index = torch.where(idx < lens[:, None], idx, t_pad - 1)
-        last, scratch = forward(self.params, self.cfg, tok, pos_index, scratch,
-                                plen=lens, logit_rows=lens.long() - 1)
+        last, scratch = self._prefill_scratch(self.params, self.cfg, tokens, lens)
         if (temps > 0).any():
             firsts = sample_batched_keyed(
                 last[:, 0], torch.from_numpy(keys).to(dev), lens.long() - 1,
@@ -322,10 +394,34 @@ class Engine:
             write_kv_strips_q8(c.k, c.v, c.ks, c.vs, scratch.k, scratch.v,
                                torch.tensor(slots, dtype=torch.int32, device=dev), t_ins)
         else:
-            for j, slot_idx in enumerate(slots):
-                self.cache.k[:, slot_idx, :, :t_ins].copy_(scratch.k[:, j, :, :t_ins])
-                self.cache.v[:, slot_idx, :, :t_ins].copy_(scratch.v[:, j, :, :t_ins])
+            _copy_strips(self.cache, scratch, slots, t_ins)
         return firsts.cpu().numpy()
+
+    def _prefill_scratch(self, params, cfg: ModelConfig, tokens: np.ndarray,
+                         lens: torch.Tensor):
+        """Prefill the padded (k, T) prompts into a scratch cache of the
+        params' dtype. Returns (logits at each row's last real query
+        (k, 1, V), scratch)."""
+        dev = self.device
+        k, t_pad = tokens.shape
+        scratch = KVCache.create(cfg, batch=k, max_len=t_pad,
+                                 dtype=params["final_norm"].dtype, device=dev)
+        idx = torch.arange(t_pad, device=dev)[None, :]
+        # padded positions write the last scratch row; no real query sees it
+        pos_index = torch.where(idx < lens[:, None], idx, t_pad - 1)
+        return forward(params, cfg, torch.from_numpy(tokens).to(dev), pos_index, scratch,
+                       plen=lens, logit_rows=lens.long() - 1)
+
+    @torch.no_grad()
+    def _dev_draft_prefill(self, tokens, true_lens, slots: list[int]) -> None:
+        """Draft mode: prefill the DRAFT model over the same padded prompts
+        and copy its rows into the slots of the draft cache (the draft must
+        see the prompt before it can propose; rama_tpu's
+        _draft_prefill_insert)."""
+        t_ins = min(tokens.shape[1], self.max_len)
+        _, scratch = self._prefill_scratch(self.dparams, self.dcfg, tokens,
+                                           torch.from_numpy(true_lens).to(self.device))
+        _copy_strips(self.dcache, scratch, slots, t_ins)
 
     # -- decode -----------------------------------------------------------------
 
@@ -359,6 +455,8 @@ class Engine:
             del self.metrics["ttft_ms"][:-256]
         slot.generated += 1
         req.tokens_out += 1
+        if slot.pos < len(slot.hist):
+            slot.hist[slot.pos] = token
         self.metrics["tokens_generated"] += 1
         req.queue.put(self.tokenizer.decode_token(token))
         if (req.cancelled
@@ -386,6 +484,8 @@ class Engine:
                         s.request.error = "engine error during decode"
                         self._finish(s)
                 self.cache = self._create_cache(len(self.slots))
+                if self.draft_mode:
+                    self.dcache = self._create_draft_cache(len(self.slots))
 
     def _loop_once(self):
         with self.phases.phase("admit"):
@@ -407,6 +507,10 @@ class Engine:
             pos[i] = s.pos
             temps[i] = s.request.temperature
             tps[i] = s.request.top_p
+        if self._spec_tick(active, tokens, pos, temps, tps):
+            return
+        if self._spec_dormant > 0:
+            self._spec_dormant -= 1  # count down to the next spec probe
         # shrink the tick so no slot overshoots its remaining budget by much
         n = self.ecfg.decode_tick
         remaining = min(s.request.steps - s.generated for s in active)
@@ -429,6 +533,177 @@ class Engine:
                     if s.free:  # finished mid-tick; drop the overshoot
                         break
 
+    # -- speculation --------------------------------------------------------
+
+    def _spec_tick(self, active, tokens, pos, temps, tps) -> bool:
+        """Serve one spec tick of m rounds if speculation is on and awake;
+        False leaves the tick to plain decode (m = 0: dormant, or no room
+        before the cache end). The host rules of rama_tpu's engine
+        (:1815-1828): every chunk position stays < max_len (pos + m(k+1) <=
+        max_len), and m halves while half of it still covers the tightest
+        remaining budget (each round emits at least one token)."""
+        k = self.spec
+        m = self.spec_rounds if (k and not self._spec_dormant) else 0
+        if m:
+            worst = max(s.pos for s in active)
+            while m and worst + m * (k + 1) > self.max_len:
+                m //= 2
+            remaining = min(s.request.steps - s.generated for s in active)
+            while m > 1 and m // 2 >= remaining:
+                m //= 2
+        if not m:
+            return False
+        if self.draft_mode:
+            with self.phases.phase("draft_resync"):
+                self._maybe_draft_resync()
+        t0 = time.time()
+        with self.phases.phase("decode"):
+            out = self._dev_spec_tick(tokens, pos, temps, tps, self._hist_matrix(), k, m)
+        self.metrics["decode_ticks"] += 1
+        self.metrics["decode_s"] += time.time() - t0
+        with self.phases.phase("emit"):
+            self._emit_spec(out[..., :k + 1], out[..., k + 1], k)
+        return True
+
+    def _hist_matrix(self) -> np.ndarray:
+        """(B, cap + 1) token histories by position (zeros for free slots);
+        the last column takes the round's writes past a history's end."""
+        h = np.zeros((len(self.slots), self._hist_cap + 1), np.int64)
+        for i, s in enumerate(self.slots):
+            if not s.free:
+                h[i, : self._hist_cap] = s.hist
+        return h
+
+    @torch.no_grad()
+    def _dev_spec_tick(self, tokens, pos, temps, tps, hist, k: int, m: int) -> np.ndarray:
+        """m speculative rounds for all slots on the device; tokens, positions
+        and histories stay tensors between rounds, and the samples and
+        accepts are fetched once, as (m, B, k + 2): columns 0..k the
+        round's samples, column k + 1 its accept count."""
+        dev = self.device
+        tok = torch.from_numpy(tokens).to(dev)
+        p = torch.from_numpy(pos).to(dev)
+        h = torch.from_numpy(hist).to(dev)
+        keys = t = tp = None
+        if (temps > 0).any():
+            keys = torch.from_numpy(self.slot_keys).to(dev)
+            t = torch.from_numpy(temps).to(dev)
+            tp = torch.from_numpy(tps).to(dev)
+        outs = []
+        for _ in range(m):
+            tok, p, samples, accept = self._spec_round(tok, p, h, keys, t, tp, k)
+            outs.append(torch.cat([samples, accept[:, None]], dim=1))
+        return torch.stack(outs).cpu().numpy()
+
+    def _spec_round(self, tok, pos, hist, keys, temps, tps, k: int):
+        """One round (rama_tpu's _spec_round): draft k tokens per slot,
+        verify the (B, k+1) chunk in one forward_chunk, sample every chunk
+        position in one batched keyed call (rows repeated per slot, each
+        position its own key), accept the drafts that equal the samples.
+        The samples are written into the histories optimistically: rows
+        past the accepted prefix lie above the proposer's window and are
+        rewritten by the next round. Returns (next tokens, next positions,
+        samples (B, k+1), accepts (B,))."""
+        b = tok.shape[0]
+        dev = tok.device
+        drafts = (self._draft_propose(tok, pos, k) if self.draft_mode
+                  else ngram_propose(hist, pos + 1, k))
+        chunk = torch.cat([tok[:, None], drafts], dim=1)                # (B, k+1)
+        logits, self.cache = forward_chunk(self.params, self.cfg, chunk, pos, self.cache)
+        flat = logits.reshape(b * (k + 1), -1)
+        cols = pos[:, None] + torch.arange(k + 1, device=dev)[None, :]  # chunk positions
+        if keys is None:
+            samples = sample_greedy(flat)
+        else:
+            samples = sample_batched_keyed(
+                flat, keys.repeat_interleave(k + 1, dim=0), cols.reshape(-1),
+                temps.repeat_interleave(k + 1), tps.repeat_interleave(k + 1))
+        samples = samples.reshape(b, k + 1)
+        accept = (chunk[:, 1:] == samples[:, :k]).long().cumprod(dim=1).sum(dim=1)
+        hist.scatter_(1, (cols + 1).clamp(max=hist.shape[1] - 1), samples)
+        nxt = samples.gather(1, accept[:, None])[:, 0]
+        return nxt, pos + accept + 1, samples, accept
+
+    def _draft_propose(self, tok, pos, k: int) -> torch.Tensor:
+        """k greedy proposals per slot from the draft model over its own
+        cache, starting by re-processing the current token at its position.
+        One step more than the proposals writes the last proposal's row, so
+        after a full accept the draft cache has no hole at pos + k (the
+        reference scans k steps and leaves one; the stream is the same
+        either way, as the target verifies every draft)."""
+        outs = []
+        for i in range(k + 1):
+            logits, self.dcache = decode_step(self.dparams, self.dcfg, tok, pos + i,
+                                              self.dcache)
+            tok = sample_greedy(logits)
+            outs.append(tok)
+        return torch.stack(outs[:k], dim=1)
+
+    def _emit_spec(self, samples: np.ndarray, accepts: np.ndarray, k: int) -> None:
+        """Emit each round's accepted drafts plus the token after them, round
+        by round; a slot that finishes drops the rest. Then the accept-rate
+        bookkeeping and adaptive dormancy (rama_tpu's
+        _process_spec_inflight): below spec_min_accept over the last rounds,
+        plain ticks serve faster, so spec sleeps for _SPEC_DORMANT_TICKS."""
+        for r in range(samples.shape[0]):
+            drafted = accepted = 0
+            for i, s in enumerate(self.slots):
+                if s.free:
+                    continue
+                a = int(accepts[r, i])
+                drafted += k
+                accepted += a
+                for j in range(a + 1):
+                    s.pos += 1
+                    s.last_token = int(samples[r, i, j])
+                    self.metrics["tick_tokens"] += 1
+                    self._emit(s, s.last_token)
+                    if s.free:
+                        break
+            self.metrics["spec_drafted"] += drafted
+            self.metrics["spec_accepted"] += accepted
+            if drafted:
+                self._spec_window.append(accepted / drafted)
+        if self.draft_mode:
+            # the rounds' draft steps wrote rows through each slot's position
+            for s in self.slots:
+                if not s.free:
+                    s.draft_pos = s.pos
+        thr = self.ecfg.spec_min_accept
+        if (thr > 0 and len(self._spec_window) >= _SPEC_PROBE_ROUNDS
+                and sum(self._spec_window) / len(self._spec_window) < thr):
+            self._spec_dormant = _SPEC_DORMANT_TICKS
+            self._spec_window.clear()
+            self.metrics["spec_dormancies"] += 1
+
+    @torch.no_grad()
+    def _maybe_draft_resync(self) -> None:
+        """Replay every stale slot's emitted gap (positions draft_pos ..
+        pos-1, left by dormant plain ticks) through the draft model in one
+        padded (B, T) forward over its cache (rama_tpu's
+        _maybe_draft_resync / _draft_resync). Padding repeats each slot's
+        last position: identical rows, a harmless duplicate write."""
+        stale = [s for s in self.slots if not s.free and s.draft_pos < s.pos]
+        if not stale:
+            return
+        b = len(self.slots)
+        span = max(s.pos - s.draft_pos for s in stale)
+        t_pad = min(_bucket(span), self.max_len)
+        tokens = np.zeros((b, t_pad), np.int64)
+        pos_index = np.zeros((b, t_pad), np.int64)
+        for i, s in enumerate(self.slots):
+            if s.free:
+                continue
+            idx = np.minimum(s.draft_pos + np.arange(t_pad), s.pos - 1)
+            tokens[i] = s.hist[idx]
+            pos_index[i] = idx
+            s.draft_pos = s.pos
+        dev = self.device
+        _, self.dcache = forward(self.dparams, self.dcfg, torch.from_numpy(tokens).to(dev),
+                                 torch.from_numpy(pos_index).to(dev), self.dcache,
+                                 logit_rows=torch.zeros(b, dtype=torch.int64, device=dev))
+        self.metrics["draft_resyncs"] += 1
+
     # -- observability ------------------------------------------------------
 
     def stats(self) -> dict:
@@ -446,8 +721,11 @@ class Engine:
             # that ends in a device sync); prefill-sampled firsts excluded
             "decode_tok_per_s": (m["tick_tokens"] / m["decode_s"]
                                  if m["decode_s"] else 0.0),
-            "spec_accept_rate": None,
-            "spec_dormant_ticks": None,
+            "spec_accept_rate": (m["spec_accepted"] / m["spec_drafted"]
+                                 if m["spec_drafted"] else None),
+            "spec_dormant_ticks": self._spec_dormant if self.spec else None,
+            "spec_dormancies": m["spec_dormancies"],
+            "draft_resyncs": m["draft_resyncs"],
             "ttft_p50_ms": ttfts[len(ttfts) // 2] if ttfts else None,
             "ttft_p95_ms": ttfts[int(len(ttfts) * 0.95)] if ttfts else None,
             "phases": self.phases.stats(),

@@ -13,7 +13,8 @@ package's app:
 
 Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
           [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda] \
-          [--kv-quant int8]
+          [--kv-quant int8] [--spec-tick 3 [--spec-mode draft \
+          --spec-draft-model draft.bin]]
 """
 
 from __future__ import annotations
@@ -146,15 +147,22 @@ def build_app(engine: Engine, default_steps: int = 255) -> web.Application:
 def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 dtype: str = "bfloat16", batch: int = 8,
                 max_seq_len: int | None = None, device: str = "cuda",
-                kv_quant: str | None = None) -> Engine:
+                kv_quant: str | None = None, spec_tick: int = 0,
+                spec_mode: str = "ngram", spec_draft_model: str | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
     cfg, params, _ = load_model(model_path, quant, dtype, device)
     tokenizer = Tokenizer.from_file(tokenizer_path, cfg.vocab_size)
+    draft = None
+    if spec_draft_model:
+        # dense in the server's dtype: a draft model is small enough that
+        # quantizing it buys nothing (rama_tpu's load_engine)
+        draft = load_model(spec_draft_model, "none", dtype, device)[:2]
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
-                        max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant)
-    return Engine(cfg, params, tokenizer, ecfg)
+                        max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
+                        spec_tick=spec_tick, spec_mode=spec_mode)
+    return Engine(cfg, params, tokenizer, ecfg, draft=draft)
 
 
 # server flags of the JAX package whose features are not ported yet:
@@ -162,8 +170,6 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
 _UNPORTED_FLAGS = (
     ("--paged", "paged", False, "paged KV cache"),
     ("--scale-dtype", "scale_dtype", None, "bf16-stored weight scales"),
-    ("--spec-tick", "spec_tick", 0, "speculative serving"),
-    ("--spec-draft-model", "spec_draft_model", None, "speculative serving"),
     ("--prefill-chunk", "prefill_chunk", 0, "chunked prefill"),
     ("--tp", "tp", 1, "tensor/data/sequence parallelism"),
     ("--dp", "dp", 1, "tensor/data/sequence parallelism"),
@@ -189,8 +195,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--kv-quant", default=None, choices=["int8"])
     ap.add_argument("--scale-dtype", default=None, choices=["bf16"])
-    ap.add_argument("--spec-tick", type=int, default=0)
-    ap.add_argument("--spec-draft-model", default=None)
+    ap.add_argument("--spec-tick", type=int, default=0,
+                    help="speculative serving: drafts per round, verified in one "
+                         "chunk forward (0 = off)")
+    ap.add_argument("--spec-mode", default="ngram", choices=["ngram", "draft"],
+                    help="speculative proposer: n-gram prompt lookup or a resident "
+                         "draft model (--spec-draft-model)")
+    ap.add_argument("--spec-draft-model", default=None, metavar="BIN",
+                    help=".bin checkpoint for --spec-mode draft (same vocab)")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
@@ -210,7 +222,8 @@ def main(argv=None) -> int:
             return 2
     engine = load_engine(args.model, args.tokenizer, args.quant, args.dtype,
                          args.batch, max_seq_len=args.max_seq_len, device=args.device,
-                         kv_quant=args.kv_quant)
+                         kv_quant=args.kv_quant, spec_tick=args.spec_tick,
+                         spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model)
     engine.start()
     try:
         host, _, port = args.address.rpartition(":")

@@ -196,3 +196,99 @@ def test_compare_fails_a_dropped_edge_row_of_an_int8_cache(smoke):
     got = decode_attention_q8_plain(q, k8, v8, ks_drop, vs, pos, 0)
     with pytest.raises(SystemExit, match="rel err"):
         smoke.compare(torch, "dropped row", got, want, per=hd)
+
+
+SPEC_KERNELS = ("chunk_attention", "chunk_attention_q8", "write_kv_chunk_q8")
+
+
+def test_every_kernel_has_a_main_path_that_records_its_launches(smoke, counters):
+    """The kernels record takes each kernel's launches from a main path:
+    the speculation slice's three kernels from the two spec paths."""
+    recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
+                if key == "launches"}
+    assert set(SPEC_KERNELS) <= recorded
+    assert smoke.SPEC_PATH["record"]["chunk_attention"] == "launches"
+    assert smoke.SPEC_KV8_PATH["record"]["chunk_attention_q8"] == "launches"
+    assert smoke.SPEC_KV8_PATH["record"]["write_kv_chunk_q8"] == "launches"
+    got = smoke.read_launches(*counters)
+    assert set(got) >= recorded | set(SPEC_KERNELS)
+
+
+def _spec_kv8_launches(smoke, **over):
+    got = {k: 4 for k in smoke.SPEC_KV8_PATH["record"]}
+    got["decode_attention"] = 0
+    return {**got, **over}
+
+
+@pytest.mark.parametrize("name", ["chunk_attention_q8", "write_kv_chunk_q8",
+                                  "write_kv_strips_q8", "quant_matmul", "ffn",
+                                  "prefill_attention"])
+def test_spec_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name):
+    smoke.check_launches(smoke.SPEC_KV8_PATH, _spec_kv8_launches(smoke))
+    with pytest.raises(SystemExit, match="never launched on the speculation int8 KV"):
+        smoke.check_launches(smoke.SPEC_KV8_PATH, _spec_kv8_launches(smoke, **{name: 0}))
+
+
+def test_spec_kv8_path_fails_when_the_bf16_decode_attention_launched(smoke):
+    with pytest.raises(SystemExit, match=r"\['decode_attention'\] launched on the speculation"):
+        smoke.check_launches(smoke.SPEC_KV8_PATH, _spec_kv8_launches(smoke, decode_attention=2))
+
+
+def test_spec_path_needs_the_bf16_chunk_attention(smoke):
+    ok = {k: 1 for k in smoke.SPEC_PATH["record"]}
+    smoke.check_launches(smoke.SPEC_PATH, ok)
+    with pytest.raises(SystemExit, match=r"\['chunk_attention'\] never launched"):
+        smoke.check_launches(smoke.SPEC_PATH, {**ok, "chunk_attention": 0})
+
+
+def test_spec_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in ("kernels_spec", "model_spec", "serve_spec", "spec_draft", "profile_spec",
+               "serve_spec_kv8"):
+        assert ph in smoke.ALL_PHASES
+    assert smoke.SPEC_PATH["phases"] == ("model_spec", "serve_spec", "spec_draft",
+                                         "profile_spec")
+    assert smoke.SPEC_KV8_PATH["serve"]["kv_quant"] == "int8"
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "spec_draft"), dev)
+    assert line["ok"] is False and line["skipped_phases"] == ["spec_draft"] and rc != 0
+
+
+def test_chunk_edge_keys_plant_both_sides_of_each_limit(smoke):
+    """Row pos0 + j holds 0.5 (q[j-1] + q[j]): query t scores high on its
+    last visible row and on the first row past its limit."""
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 3, 4, 16, generator=g)
+    keys = smoke.chunk_edge_keys(q, torch.tensor([5, 62]), 64, (31, 32))
+    torch.testing.assert_close(keys[(0, 5)], q[0, 0] * 0.5)
+    torch.testing.assert_close(keys[(0, 7)], (q[0, 1] + q[0, 2]) * 0.5)
+    torch.testing.assert_close(keys[(0, 8)], q[0, 2] * 0.5)
+    torch.testing.assert_close(keys[(1, 31)], q[1, 0] * 0.5)
+    assert (1, 64) not in keys and (1, 63) in keys     # rows past S are not planted
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_compare_fails_a_chunk_query_that_reads_one_row_past_its_limit(smoke, q8):
+    """With the chunk's edges planted, a kernel letting query t of one slot
+    see row pos0 + t + 1 fails the per-(slot, query, head) check, on a bf16
+    and an int8 cache. Tolerance: chip_smoke.TOL (rel 0.05)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    g = torch.Generator().manual_seed(5)
+    b, t, nh, s, hd = 3, 4, 4, 192, 128
+    q = torch.randn(b, t, nh, hd, generator=g)
+    k, v = torch.randn(1, b, nh, s, hd, generator=g), torch.randn(1, b, nh, s, hd, generator=g)
+    cache = [*kvw.kv_quant_rows(k), *kvw.kv_quant_rows(v)] if q8 else [k, v]
+    if q8:
+        cache = [cache[0], cache[2], cache[1], cache[3]]          # k8, v8, ks, vs
+    pos0 = torch.tensor([0, 61, 126], dtype=torch.int32)
+    smoke.plant_chunk_edges(q, cache, pos0, 0, (63, 64, 127, 128), kvw if q8 else None)
+    fn = da.chunk_attention_q8_plain if q8 else da.chunk_attention_plain
+    want = fn(q, *cache, pos0, 0)
+    smoke.compare(torch, "same function", want.clone(), want, per=hd)
+    # query 1 of slot 1 sees one row more: its own output, from a chunk
+    # started one row later
+    late = fn(q, *cache, pos0 + 1, 0)
+    got = want.clone()
+    got[1, 1] = late[1, 1]
+    with pytest.raises(SystemExit, match="rel err"):
+        smoke.compare(torch, "one row past", got, want, per=hd)

@@ -1,6 +1,6 @@
 """rama_tpu_torch.cli `generate` end to end on tiny checkpoints on the CPU:
 flags parse, v0 and v2 checkpoints load (dense, or quantized to int8 or
-int4 at load), streams equal rama_tpu's CLI greedy output, unported flags exit with the ROADMAP item, and the default
+int4 at load), streams equal rama_tpu's CLI greedy output, --spec runs, unported flags exit with the ROADMAP item, and the default
 device is cuda (raising without a GPU)."""
 
 import pytest
@@ -66,9 +66,18 @@ def test_parity_loop_flag(artifacts, capsys):
     (["--spec", "ngram"], "speculative"), (["-o", "chat"], "chat"),
 ])
 def test_unported_flags_exit_with_roadmap_item(artifacts, capsys, flags, item):
+    """Unported flags exit 2 naming the ROADMAP item; --spec is ported: it
+    runs speculative generation, prints its [spec] line and the greedy text
+    of --spec off."""
     model, _, tok = artifacts
-    rc, _, err = run(["generate", "-m", model, "-t", tok, "--device", "cpu", *flags],
-                     capsys)
+    argv = ["generate", "-m", model, "-t", tok, "--device", "cpu", *flags]
+    if flags[0] == "--spec":
+        greedy = ["-p", "abc", "-s", "12", "-r", "0", "--dtype", "float32"]
+        rc, out, err = run(argv + greedy, capsys)
+        assert rc == 0 and "[spec] rounds=" in err
+        assert out == run(argv[:-2] + greedy, capsys)[1]
+        return
+    rc, _, err = run(argv, capsys)
     assert rc == 2 and "ROADMAP" in err and item in err
 
 

@@ -218,7 +218,7 @@ def test_engine_int8_cache_on_card_matches_cpu_engine(dev):
     _check_engine_on_card(dev, kv_quant="int8")
 
 
-def _check_engine_on_card(dev, kv_quant):
+def _check_engine_on_card(dev, kv_quant, spec_tick=0):
     import numpy as np
 
     from rama_tpu_torch.config import EngineConfig, ModelConfig
@@ -239,10 +239,11 @@ def _check_engine_on_card(dev, kv_quant):
                                         for i in range(V - 3)]
     tok = Tokenizer(vocab, [0.0] * V)
     outs = []
-    for device in ("cpu", dev):
+    for device, spec in (("cpu", 0), (dev, spec_tick), ("cpu", spec_tick)):
         eng = Engine(cfg, quantize_params(cfg, p, group_size=16, dtype=torch.float32,
                                           device=device),
-                     tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant))
+                     tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant,
+                                       spec_tick=spec, spec_rounds=2))
         reqs = [Request(prompt="ab" * 40, steps=8, temperature=0.0),
                 Request(prompt="abc", steps=100, temperature=0.0, stop_at_eos=False),
                 Request(prompt="zq", steps=20, temperature=0.9)]
@@ -261,7 +262,7 @@ def _check_engine_on_card(dev, kv_quant):
         assert all(r.error is None for r in reqs)
         assert len(got[1]) == 64 - 4   # ran to the end of the cache
         outs.append(got)
-    assert outs[0] == outs[1]
+    assert outs[0] == outs[1] == outs[2]
 
 
 def _kv_rows(dev, shape, dtype, seed):
@@ -377,3 +378,87 @@ def test_tiny_model_int8_cache_logits_kernels_equal_plain(dev):
         torch.testing.assert_close(lk, lp, atol=1e-3, rtol=0)
         tok_k, tok_p = torch.argmax(lk, dim=-1), torch.argmax(lp, dim=-1)
         assert tok_k.item() == tok_p.item()
+
+
+def _chunk_starts(S, t, dev):
+    """Ragged chunk starts: 0, straddling the 64-row split, one running past
+    S, the last chunk that fits."""
+    return torch.tensor([0, 61, S - 2, S - t], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("nh,nkv,hd,t", [(4, 4, 128, 4), (4, 2, 48, 4), (8, 2, 16, 2),
+                                         (4, 4, 128, 8), (8, 1, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunk_attention(dev, nh, nkv, hd, t, dtype):
+    """K10 on a bf16 / f32 cache against its plain version."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    S = 256
+    k = torch.randn(2, 4, nkv, S, hd, device=dev).to(dtype)
+    v = torch.randn(2, 4, nkv, S, hd, device=dev).to(dtype)
+    q = torch.randn(4, t, nh, hd, device=dev).to(dtype)
+    pos0 = _chunk_starts(S, t, dev)
+    before = da.launches_chunk
+    for layer in (0, 1):
+        _close(da.chunk_attention(q, k, v, pos0, layer),
+               da.chunk_attention_plain(q, k, v, pos0, layer), dtype)
+    assert da.launches_chunk == before + 2
+
+
+@pytest.mark.parametrize("nh,nkv,hd,t", [(4, 4, 128, 4), (4, 2, 48, 4), (8, 2, 16, 2),
+                                         (4, 4, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunk_attention_q8(dev, nh, nkv, hd, t, dtype):
+    """K10 on an int8 cache against its plain version."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    S = 256
+    k8, ks = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
+    v8, vs = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
+    q = torch.randn(4, t, nh, hd, device=dev).to(dtype)
+    pos0 = _chunk_starts(S, t, dev)
+    before = da.launches_chunk_q8
+    for layer in (0, 1):
+        _close(da.chunk_attention_q8(q, k8, v8, ks, vs, pos0, layer),
+               da.chunk_attention_q8_plain(q, k8, v8, ks, vs, pos0, layer), dtype)
+    assert da.launches_chunk_q8 == before + 2
+
+
+def test_chunk_attention_refuses_too_many_rows(dev):
+    """T * GQA group > 8 query rows a kv head: the wrapper raises, naming
+    the limit, and never runs the plain version."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    k = torch.zeros(1, 1, 2, 16, 16, device=dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        da.chunk_attention(torch.zeros(1, 3, 8, 16, device=dev), k, k,
+                           torch.zeros(1, dtype=torch.int32, device=dev), 0)
+
+
+@pytest.mark.parametrize("nkv,S,hd,t", [(2, 48, 16, 3), (6, 64, 48, 4), (4, 256, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_write_kv_chunk_q8(dev, nkv, S, hd, t, dtype):
+    """K11 equals its plain version exactly: a 32-row window straddle, a
+    chunk reaching S and one wholly past it (rows dropped)."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    got = _q8_cache(dev, 3, 5, nkv, S, hd, seed=S + t)
+    want = [x.clone() for x in got]
+    pos0 = torch.tensor([0, 30, S - t, S - 2, S + 1], dtype=torch.int32, device=dev)
+    before = kw.launches["write_kv_chunk_q8"]
+    for layer in (0, 2):
+        k, v = (_kv_rows(dev, (5, t, nkv, hd), dtype, seed=layer + i) for i in (0, 7))
+        kw.write_kv_chunk_q8(*got, k, v, pos0, layer)
+        kw.write_kv_chunk_q8_plain(*want, k, v, pos0, layer)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kw.launches["write_kv_chunk_q8"] == before + 2
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_spec_engine_on_card_matches_cpu_engine(dev, kv_quant):
+    """Speculative serving (spec_tick 3, n-gram; chunks through K10, and
+    K11 on the int8 cache) emits on the card the streams the CPU engine
+    emits, and the spec-off streams."""
+    _check_engine_on_card(dev, kv_quant=kv_quant, spec_tick=3)

@@ -280,8 +280,14 @@ def test_long_context_beyond_checkpoint_seq_len():
 ])
 def test_unported_engine_config_raises(engine_setup, field, value):
     """Unported features raise NotImplementedError; kv_quant is ported for
-    "int8" and refuses any other value with ValueError, as in rama_tpu."""
+    "int8" and refuses any other value with ValueError, as in rama_tpu;
+    spec_tick is ported and refuses draft mode without a draft model."""
     _, cfg, _, params, tok = engine_setup
+    if field == "spec_tick":
+        assert Engine(cfg, params, tok, EngineConfig(spec_tick=value)).spec == value
+        with pytest.raises(ValueError, match="requires draft"):
+            Engine(cfg, params, tok, EngineConfig(spec_tick=value, spec_mode="draft"))
+        return
     if field == "kv_quant":
         with pytest.raises(ValueError, match="unsupported kv_quant 'int4'"):
             Engine(cfg, params, tok, EngineConfig(**{field: value}))

@@ -219,11 +219,33 @@ def test_home_chat_metrics_healthz(served_engine):
     run_client(eng, fn)
 
 
+class _Idle:
+    """An engine stand-in for main(): starts and stops."""
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+
 @pytest.mark.parametrize("flag", [["--paged"], ["--kv-quant", "int4"], ["--tp", "2"],
                                   ["--spec-tick", "2"], ["--scale-dtype", "bf16"]])
-def test_main_rejects_unported_flags(flag, capsys):
+def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
     """Unported flags exit 2 naming ROADMAP.md; --kv-quant takes int8 only,
-    so argparse refuses int4 (exit 2)."""
+    so argparse refuses int4 (exit 2); --spec-tick is ported: main hands it
+    to load_engine and serves."""
+    if flag[0] == "--spec-tick":
+        from rama_tpu_torch.server import app
+
+        seen = {}
+        monkeypatch.setattr(app, "load_engine", lambda *a, **kw: seen.update(kw) or _Idle())
+        monkeypatch.setattr(app.web, "run_app", lambda *a, **kw: None)
+        assert main(["-m", "x.bin", "-t", "t.bin", *flag, "--spec-mode", "draft",
+                     "--spec-draft-model", "d.bin"]) == 0
+        assert (seen["spec_tick"], seen["spec_mode"], seen["spec_draft_model"]) == \
+            (2, "draft", "d.bin")
+        return
     if flag[0] == "--kv-quant":
         with pytest.raises(SystemExit) as exc:
             main(["-m", "x.bin", "-t", "t.bin", *flag])
