@@ -61,23 +61,29 @@ Phases, in order (any failure raises and the script exits non-zero):
            starts 8, 61, 1500, 1021 and 4092
   serve_spec   the server on 8 slots with spec_tick 3 (n-gram drafts,
            always speculating): 8 concurrent /gen, tok/s, TTFT, accept rate
-  spec_draft   the engine in draft mode with the target as its own draft
-           (accept rate >= 0.9), then with a synthetic stories15M-shaped
-           draft checkpoint (accept ~0: dormancy and draft-cache resync)
   profile_spec the profile of an 8-slot verify round (T 4) against an
            8-slot plain decode step, bf16 and int8 caches
+  spec_draft   the engine in draft mode with the target as its own draft
+           (accept rate >= 0.9; a spec-off run of the same requests,
+           outside the launch count, for the first differing position),
+           then with a synthetic stories15M-shaped draft checkpoint (accept
+           ~0: dormancy with plain ticks, and draft-cache resync)
   serve_spec_kv8   serve_spec on the int8 KV cache at max_len 4096
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, and a v0 one with
            `--quant int4`
 
-Five main paths, each with the launch counters set to 0 just before it
+Six main paths, each with the launch counters set to 0 just before it
 and read just after: int8 (`generate` + `serve`), where every int8 kernel
 must have launched; int8 KV (`serve_kv8`), where the int8 cache's three
 kernels, the int8 matmul / FFN and the prefill attention must have, and
-the bf16 decode attention must not; speculation (`serve_spec` +
-`spec_draft`), where K10 on the bf16 cache must have, with the matmul,
-FFN, prefill and (the draft's) decode attention; speculation on the int8
+the bf16 decode attention must not; n-gram speculation (`serve_spec`),
+where K10 on the bf16 cache, the matmul, FFN and prefill must have, and
+the T = 1 decode attention must not (every tick verifies a chunk);
+draft-model speculation (`spec_draft`, its spec-off baseline run before
+the counters are set to 0), where K10, the matmul, FFN, prefill and the
+T = 1 decode attention (the draft's decode, and the dormant plain ticks)
+must have; speculation on the int8
 KV cache (`serve_spec_kv8`), where K10 on the int8 cache, K11, the strip
 writer, matmul, FFN and prefill must have, and the bf16 decode attention
 must not; int4 (`serve4`), where every int4 kernel, the int8 classifier's
@@ -109,14 +115,14 @@ BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
 ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec", "model",
               "generate", "serve", "profile", "model_kv8", "serve_kv8", "profile_kv8",
-              "model_spec", "serve_spec", "spec_draft", "profile_spec", "serve_spec_kv8",
+              "model_spec", "serve_spec", "profile_spec", "spec_draft", "serve_spec_kv8",
               "model4", "serve4", "profile4", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
 
-# The five main paths: their weight bits, phases (model check or None, main
+# The six main paths: their weight bits, phases (model check or None, main
 # path, profile or None), the server's engine settings, the kernels each
 # must launch, with the key of the kernels record that takes each one's
 # count ("launches" on the path of the kernel's own weights or cache; the
@@ -136,12 +142,19 @@ KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "prof
                         "prefill_attention": "launches_kv8_path"},
                 forbid={"decode_attention": "launches_kv8_path"})
 SPEC_PATH = dict(label="speculation", bits=8,
-                 phases=("model_spec", "serve_spec", "spec_draft", "profile_spec"),
+                 phases=("model_spec", "serve_spec", "profile_spec"),
                  serve=dict(spec_tick=SPEC_TICK),
                  record={"chunk_attention": "launches", "quant_matmul": "launches_spec_path",
-                         "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path",
-                         "decode_attention": "launches_spec_path"},
-                 forbid={})
+                         "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path"},
+                 forbid={"decode_attention": "launches_spec_path"})
+SPEC_DRAFT_PATH = dict(label="draft speculation", bits=8, phases=(None, "spec_draft", None),
+                       serve={},
+                       record={"chunk_attention": "launches_spec_draft_path",
+                               "decode_attention": "launches_spec_draft_path",
+                               "quant_matmul": "launches_spec_draft_path",
+                               "ffn": "launches_spec_draft_path",
+                               "prefill_attention": "launches_spec_draft_path"},
+                       forbid={})
 SPEC_KV8_PATH = dict(label="speculation int8 KV", bits=8, phases=(None, "serve_spec_kv8", None),
                      serve=dict(spec_tick=SPEC_TICK, max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
                      record={"chunk_attention_q8": "launches", "write_kv_chunk_q8": "launches",
@@ -157,7 +170,7 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                          "decode_attention": "launches_int4_path",
                          "prefill_attention": "launches_int4_path"},
                  forbid={})
-PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_KV8_PATH, INT4_PATH)
+PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, INT4_PATH)
 
 
 def log(msg: str) -> None:
@@ -974,6 +987,27 @@ def attention_bytes_ops(pos0, t: int, s: int, nkv: int, nh: int, hd: int, row_by
     return float(rows.sum()) * nkv * row_bytes + 2 * q_bytes, seen * nh * hd * 4.0
 
 
+def attention_split_combine(torch, fn, reps: int = 10) -> dict:
+    """Device ms per launch of the decode / chunk attention's two kernels,
+    the split kernel and the combine pass, by torch.profiler over `reps`
+    calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"split_ms": 0.0, "combine_ms": 0.0}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in ("split", "combine"):
+            if f"dattn_{name}" in ev.key:
+                out[f"{name}_ms"] += dt / 1e3 / reps
+    return out
+
+
 def phase_kernels_spec(torch, results: dict) -> None:
     """The speculation slice's kernels vs their plain versions: K10 on a
     bf16 and an int8 cache within TOL per (slot, query, head), with planted
@@ -1040,6 +1074,23 @@ def phase_kernels_spec(torch, results: dict) -> None:
         nb, ops = attention_bytes_ops(pos0, t, s, nkv, nh, hd,
                                       2 * hd + 8 if q8 else 2 * hd * 2, q.numel() * 2)
         b_ms, b_by = bound_ms(nb, ops)
+        # where the time goes: split kernel against combine pass, and the
+        # split kernel's residency, for the chunk and for one query a slot
+        parts = dict(
+            chunk=attention_split_combine(torch, lambda: kernel(q, *cache, pos0, lay.next())),
+            one_query=attention_split_combine(torch, lambda: one(q1, *cache, last, lay.next())),
+            chunk_occupancy=da.occupancy(t, nh, nkv, hd, q8),
+            one_query_occupancy=da.occupancy(1, nh, nkv, hd, q8))
+        if s == KV8_MAX_LEN:   # rows a CTA: the split count against each CTA's work
+            saved = da.CHUNK
+            try:
+                for rows_a_cta in (128, 256):
+                    da.CHUNK = rows_a_cta
+                    parts[f"chunk_{rows_a_cta}_rows_a_cta_ms"] = time_ms(
+                        torch, lambda: kernel(q, *cache, pos0, lay.next()))
+            finally:
+                da.CHUNK = saved
+        log(f"[time] {kernel.__name__} S={s} T={t} breakdown {json.dumps(parts)}")
         t_lib, note = None, ("no single PyTorch call attends over an int8 cache with row "
                              "scales (dequantize + SDPA is two)" if q8 else None)
         if not q8:
@@ -1056,6 +1107,7 @@ def phase_kernels_spec(torch, results: dict) -> None:
             f"{t_one:.4f} ms")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                     library_ms=t_lib, library_note=note, same_rows_one_query_ms=t_one,
+                    breakdown=parts,
                     shape=f"q ({B}, {t}, {nh}, {hd}) bf16, {'int8 + f32 row scales' if q8 else 'bf16'}"
                           f" cache ({n_layers}, {B}, {nkv}, {s}, {hd}), pos0 {pos0.tolist()}")
 
@@ -1309,15 +1361,18 @@ def phase_model_spec(torch, cfg, params) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_spec_draft(torch, cfg, params, tokenizer) -> None:
+def phase_spec_draft(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
     """Draft-mode speculation in the engine. (1) The target as its own draft
     (a separate draft cache), greedy, 2 slots x 16 tokens, never dormant:
     the accept rate must be >= 0.9 — K10's verification agrees with the
-    T = 1 decode path — and the streams are compared with spec off. (2) A
+    T = 1 decode path — and the streams are compared with a spec-off run of
+    the same requests, made first and followed by `start_count()`, so
+    that the path's launch count holds only draft-mode runs. (2) A
     synthetic stories15M-shaped draft checkpoint loaded as the server's
     --spec-draft-model is: random weights accept ~0, so with 2 dormant
-    ticks the run goes dormant, resyncs the draft cache and probes again;
-    every stream must end, and dormancy and a resync must have happened."""
+    ticks the run goes dormant (plain ticks through K4), resyncs the draft
+    cache and probes again; every stream must end, and dormancy and a
+    resync must have happened."""
     from rama_tpu_torch.checkpoint import save_v0
     from rama_tpu_torch.config import EngineConfig, ModelConfig
     from rama_tpu_torch.runtime import engine as eng_mod
@@ -1347,6 +1402,7 @@ def phase_spec_draft(torch, cfg, params, tokenizer) -> None:
     base = dict(max_batch_size=2, max_seq_len=1024, decode_tick=8)
     t0 = time.time()
     off, _ = serve(EngineConfig(**base), prompts, 16)
+    start_count()
     on, stats = serve(EngineConfig(**base, spec_tick=SPEC_TICK, spec_mode="draft",
                                    spec_min_accept=0.0), prompts, 16, draft=(cfg, params))
     firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
@@ -1658,7 +1714,8 @@ def main() -> int:
             if ph == "generate":
                 phase_generate(torch, cfg, params, tokenizer)
             elif ph == "spec_draft":
-                phase_spec_draft(torch, cfg, params, tokenizer)
+                phase_spec_draft(torch, cfg, params, tokenizer,
+                                 start_count=lambda: reset_launches(*modules))
             else:
                 serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
                                           **path["serve"])
@@ -1697,9 +1754,9 @@ def main() -> int:
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_note", "shape",
-            "long_prompt", "s4096", "t8", "same_rows_one_query_ms", "k6_same_run_ms",
+            "long_prompt", "s4096", "t8", "same_rows_one_query_ms", "breakdown", "k6_same_run_ms",
             "launches_int4_path", "launches_kv8_path",
-            "launches_spec_path", "launches_spec_kv8_path")
+            "launches_spec_path", "launches_spec_draft_path", "launches_spec_kv8_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,17 +29,22 @@
 // rows = T * rep query rows of its kv head, t-major as the Pallas
 // _chunk_rows lays them out (row r = t * rep + g is query head
 // j * rep + g at position pos0 + r / rep), and reads each K/V row of its
-// chunk of the cache once for all of them (16-byte loads: 8 bf16 or 16 int8
-// lanes, RG lanes per cache row). Each row scores only cache rows up to its
-// own limit, clamped to S - 1 row by row. The CTA takes each row's chunk
-// max and sum in fp32, rounds its probabilities (times the V row scale,
-// for int8) to q's dtype before P.V (as decode_attention.py:75,100 and the
-// q8 kernels' bf16 casts do), and writes a partial (m, l, o) per row; a CTA
+// chunk of the cache once for all of them: it first copies the chunk's K
+// and V rows (and row scales) into shared memory with cp.async, every copy
+// in flight at once — a CTA that loaded row group by row group waited on
+// memory about ten times in a row — then works from there (16-byte reads:
+// 8 bf16 or 16 int8 lanes, RG lanes per cache row). Each row scores only
+// cache rows up to its own limit, clamped to S - 1 row by row. The CTA
+// takes each row's chunk max and sum in fp32, rounds its probabilities
+// (times the V row scale, for int8) to q's dtype before P.V (as
+// decode_attention.py:75,100 and the q8 kernels' bf16 casts do), and
+// writes a partial (m, l, o) per row; a CTA
 // whose chunk starts past the last row's limit exits before reading
 // anything. A second small kernel combines, per query row, exactly the
 // splits that row saw. The rows of a CTA live in registers during P.V
-// (acc[ROWS][EPL]), so T * rep <= kMaxRows = 8: every Llama-2 shape at
-// T <= 8 (rep 1); a wider GQA group takes a shorter chunk.
+// (acc[ROWS][EPL]; the row groups of a warp summed by shuffles, the four
+// warps through shared memory), so T * rep <= kMaxRows = 8: every Llama-2
+// shape at T <= 8 (rep 1); a wider GQA group takes a shorter chunk.
 #include "common.cuh"
 
 #include <math.h>
@@ -67,10 +72,13 @@ __device__ __forceinline__ int row_limit(int pos0, int t, int S) {
   return max(0, min(pos0 + t, S - 1));
 }
 
-// 16 consecutive int8 cache elements (one 16-byte load) as f32; p must be
-// 16-byte aligned.
-__device__ __forceinline__ void load16(const int8_t* p, float* out) {
-  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+// One lane's EPL cache elements, read from the shared-memory tile as f32:
+// 8 of a bf16 / f32 cache, 16 of int8 (one 16-byte load; 32 bytes for f32).
+template <typename C> struct Lane { static constexpr int EPL = 8; };
+template <> struct Lane<int8_t> { static constexpr int EPL = 16; };
+
+__device__ __forceinline__ void tile_lane(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
   const char4* c = reinterpret_cast<const char4*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -80,22 +88,50 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
     out[4 * i + 3] = c[i].w;
   }
 }
+__device__ __forceinline__ void tile_lane(const __nv_bfloat16* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void tile_lane(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
 
-// EPL cache elements of one lane: 8 of a bf16 / f32 cache, 16 of int8.
-template <typename C> struct Lane { static constexpr int EPL = 8; };
-template <> struct Lane<int8_t> { static constexpr int EPL = 16; };
+// 16 bytes global -> shared without a register round trip (sm_80+); both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
 
-template <int EPL, typename C>
-__device__ __forceinline__ void load_lane(const C* p, float* out) {
-  if constexpr (EPL == 16) load16(p, out);
-  else load8(p, out);
+// Dynamic shared memory of one split CTA, in bytes: the K and V tiles
+// (chunk rows of hd C) and their row scales, then f32 qs [ROWS][hd],
+// sc [ROWS][chunk] and red [warps][ROWS][hd].
+template <typename C, int ROWS>
+__host__ __device__ __forceinline__ size_t split_smem(int chunk, int hd) {
+  return 2 * (size_t)chunk * hd * sizeof(C) + 2 * (size_t)chunk * sizeof(float) +
+         sizeof(float) * ((size_t)ROWS * hd + (size_t)ROWS * chunk +
+                          (size_t)(kDaThreads / 32) * ROWS * hd);
 }
 
 // grid (nsplit, nkv, B), block 128. T: q's dtype; C: the cache's (T, or
 // int8_t with row scales ksc / vsc, which are null otherwise). q is
 // (B, nq, nh, hd); partials are indexed by query row (b * nq + t) * nh + h.
 // RG = lanes per cache row (each lane EPL elements of hd, RG = next power
-// of two >= hd/EPL); ROWS >= nq * rep.
+// of two >= hd/EPL); ROWS >= nq * rep. The CTA first copies its chunk of K
+// and V (and their scales) into shared memory with every copy in flight at
+// once, so that it waits on the memory once, not once a row group.
 template <typename T, typename C, int RG, int ROWS>
 __global__ void __launch_bounds__(kDaThreads)
 dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restrict__ vc,
@@ -105,7 +141,8 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
             float scale) {
   constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   constexpr int EPL = Lane<C>::EPL;
-  extern __shared__ float sm[];
+  constexpr int ngrp = kDaThreads / RG;
+  extern __shared__ __align__(16) unsigned char smraw[];
   const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
   const int tid = threadIdx.x;
   const int rep = nh / nkv;
@@ -116,35 +153,54 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   if (s0 > last) return;  // no row's combine reads this split
   const int s1 = min(s0 + chunk, last + 1);
   const int n = s1 - s0;
-  const int ngrp = kDaThreads / RG;
 
-  float* qs = sm;                   // [ROWS][hd]
-  float* sc = qs + ROWS * hd;       // [ROWS][chunk]
-  float* red = sc + ROWS * chunk;   // [ngrp][ROWS][hd]
+  C* kt = reinterpret_cast<C*>(smraw);             // [chunk][hd]
+  C* vt = kt + (size_t)chunk * hd;                 // [chunk][hd]
+  float* kst = reinterpret_cast<float*>(vt + (size_t)chunk * hd);  // [chunk]
+  float* vst = kst + chunk;                        // [chunk]
+  float* qs = vst + chunk;                         // [ROWS][hd]
+  float* sc = qs + ROWS * hd;                      // [ROWS][chunk]
+  float* red = sc + ROWS * chunk;                  // [warps][ROWS][hd]
+  const size_t srow = ((size_t)b * nkv + j) * (size_t)S + s0;  // the chunk's first row
+  {
+    const int vrow = hd * (int)sizeof(C) / 16;     // 16-byte pieces a row
+    const C* kg = kc + srow * hd;
+    const C* vg = vc + srow * hd;
+    constexpr int kPer = 16 / (int)sizeof(C);
+    for (int i = tid; i < n * vrow; i += kDaThreads) {
+      cp_async16(kt + (size_t)i * kPer, kg + (size_t)i * kPer);
+      cp_async16(vt + (size_t)i * kPer, vg + (size_t)i * kPer);
+    }
+  }
+  if constexpr (kQ8) {
+    for (int i = tid; i < n; i += kDaThreads) {
+      kst[i] = ksc[srow + i];
+      vst[i] = vsc[srow + i];
+    }
+  }
   for (int i = tid; i < rows * hd; i += kDaThreads) {
     const int r = i / hd, d = i - r * hd;
     const int t = r / rep, g = r - t * rep;
     qs[i] = to_f(q[(((size_t)b * nq + t) * nh + (size_t)j * rep + g) * hd + d]);
   }
+  cp_async_wait_all();
   __syncthreads();
 
   const int lane_g = tid % RG, grp = tid / RG;
   const int d0 = lane_g * EPL;
   const bool active = d0 < hd;
-  const size_t srow = ((size_t)b * nkv + j) * (size_t)S;  // row scales of the stripe
-  const size_t stripe = srow * hd;
 
   // scores: every lane runs the same trip count (shuffles need the full
   // warp); a cache row past a query row's limit scores -inf for that row
-  for (int base = s0; base < s1; base += ngrp) {
-    const int s = base + grp;
-    const bool ok = s < s1;
+  for (int base = 0; base < n; base += ngrp) {
+    const int i = base + grp;  // row of the tile
+    const bool ok = i < n;
     float kv[EPL];
     if (ok && active) {
-      load_lane<EPL>(kc + stripe + (size_t)s * hd + d0, kv);
+      tile_lane(kt + (size_t)i * hd + d0, kv);
     } else {
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) kv[i] = 0.f;
+      for (int e = 0; e < EPL; ++e) kv[e] = 0.f;
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -152,15 +208,15 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
       float d = 0.f;
       if (active) {
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) d = fmaf(qs[r * hd + d0 + i], kv[i], d);
+        for (int e = 0; e < EPL; ++e) d = fmaf(qs[r * hd + d0 + e], kv[e], d);
       }
 #pragma unroll
       for (int o = RG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
       if (lane_g == 0 && ok) {
         float v;
-        if constexpr (kQ8) v = d * ksc[srow + s] * scale;
+        if constexpr (kQ8) v = d * kst[i] * scale;
         else v = d * scale;
-        sc[r * chunk + (s - s0)] = s <= row_limit(p0, r / rep, S) ? v : -INFINITY;
+        sc[r * chunk + i] = s0 + i <= row_limit(p0, r / rep, S) ? v : -INFINITY;
       }
     }
   }
@@ -183,7 +239,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
     for (int i = lane; i < n; i += 32) {
       const float e = expf(sc[r * chunk + i] - m);
       l += e;
-      if constexpr (kQ8) sc[r * chunk + i] = round_to<T>(e * vsc[srow + s0 + i]);
+      if constexpr (kQ8) sc[r * chunk + i] = round_to<T>(e * vst[i]);
       else sc[r * chunk + i] = round_to<T>(e);
     }
     l = warp_sum(l);
@@ -199,24 +255,37 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[r][i] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   if (active) {
-    for (int s = s0 + grp; s < s1; s += ngrp) {
+    for (int i = grp; i < n; i += ngrp) {
       float v[EPL];
-      load_lane<EPL>(vc + stripe + (size_t)s * hd + d0, v);
+      tile_lane(vt + (size_t)i * hd + d0, v);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         if (r >= rows) break;
-        const float pr = sc[r * chunk + (s - s0)];
+        const float pr = sc[r * chunk + i];
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) acc[r][i] = fmaf(pr, v[i], acc[r][i]);
+        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pr, v[e], acc[r][e]);
       }
     }
+  }
+  // sum the row groups of each warp with shuffles (lanes lane_g, lane_g +
+  // RG, ... hold the same dims), then the warps through shared memory
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r >= rows) break;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+#pragma unroll
+      for (int o = RG; o < 32; o <<= 1) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+    }
+  }
+  if (active && lane < RG) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (r >= rows) break;
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) red[((size_t)grp * rows + r) * hd + d0 + i] = acc[r][i];
+      for (int e = 0; e < EPL; ++e) red[((size_t)warp * rows + r) * hd + d0 + e] = acc[r][e];
     }
   }
   __syncthreads();
@@ -224,11 +293,8 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
     const int r = i / hd, d = i - r * hd;
     const int t = r / rep;
     float v = 0.f;
-    for (int g = 0; g < ngrp; ++g) {
-      // groups whose lanes cover no dims (RG * EPL > hd) wrote nothing there;
-      // every group covers the same dims, so all ngrp rows are written
-      v += red[(size_t)g * rows * hd + i];
-    }
+#pragma unroll
+    for (int w = 0; w < kDaThreads / 32; ++w) v += red[(size_t)w * rows * hd + i];
     const size_t hr = ((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep);
     part_o[(hr * nsplit + split) * hd + d] = v;
   }
@@ -267,17 +333,26 @@ struct DaArgs {
   int B, nq, nh, nkv, S, hd, chunk, nsplit;
   float scale;
   cudaStream_t st;
+  int* occ;  // non-null: launch nothing, report the split kernel's occupancy
 };
 
 template <typename T, typename C, int RG, int ROWS>
 cudaError_t launch_split(const DaArgs& a) {
-  const size_t smem = sizeof(float) * ((size_t)ROWS * a.hd + (size_t)ROWS * a.chunk +
-                                       (size_t)(kDaThreads / RG) * ROWS * a.hd);
+  const size_t smem = split_smem<C, ROWS>(a.chunk, a.hd);
   auto kern = dattn_split<T, C, RG, ROWS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+  }
+  if (a.occ) {  // resident CTAs per SM, registers per thread, shared bytes per CTA
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.occ[0], kern, kDaThreads, smem);
+    a.occ[1] = fa.numRegs;
+    a.occ[2] = (int)smem;
+    return e;
   }
   kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
@@ -313,7 +388,7 @@ cudaError_t launch_all(DaArgs a) {
   } else {
     return cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || a.occ) return e;
   dattn_combine<T><<<dim3(a.nh, a.nq, a.B), kDaThreads, 0, a.st>>>(
       a.part_o, a.part_ml, a.pos0, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk,
       a.nsplit, a.nq);
@@ -332,7 +407,8 @@ extern "C" int rama_decode_attention(const void* q, const void* k, const void* v
                                      int hd, int chunk, int dtype, void* stream) {
   const rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
                        static_cast<float*>(part_o), static_cast<float*>(part_ml),
-                       B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream)};
+                       B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
+                       nullptr};
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
@@ -350,8 +426,32 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
   const rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                        static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                        static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
-                       static_cast<cudaStream_t>(stream)};
+                       static_cast<cudaStream_t>(stream), nullptr};
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split kernel that a launch of nq queries of nh heads over nkv kv heads
+// of head_dim hd, `chunk` cache rows a CTA, would run (int8 cache if q8):
+// out[0] its resident CTAs per SM, out[1] registers per thread, out[2] its
+// dynamic shared memory in bytes. Launches nothing.
+extern "C" int rama_decode_attention_occupancy(int nq, int nh, int nkv, int hd, int chunk,
+                                               int q8, int dtype, int* out) {
+  rama::DaArgs a{};
+  a.B = 1;
+  a.nq = nq;
+  a.nh = nh;
+  a.nkv = nkv;
+  a.S = chunk;
+  a.hd = hd;
+  a.chunk = chunk;
+  a.occ = out;
+  if (dtype != rama::kBF16 && dtype != rama::kF32) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf = dtype == rama::kBF16;
+  if (q8)
+    return static_cast<int>(bf ? rama::launch_all<__nv_bfloat16, int8_t>(a)
+                               : rama::launch_all<float, int8_t>(a));
+  return static_cast<int>(bf ? rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a)
+                             : rama::launch_all<float, float>(a));
 }

@@ -538,14 +538,23 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
     return _linear(x, params["wcls"], ops).float(), cache
 
 
+def check_chunk(cfg: ModelConfig, t: int, device: torch.device) -> None:
+    """Raise (naming the limit) unless forward_chunk serves chunks of T
+    tokens a slot on `device`: on the card its fused path (2 <= T <= 8)
+    runs the chunk attention kernel, which takes T * n_heads / n_kv_heads
+    query rows per kv head up to its register limit."""
+    if torch.device(device).type == "cuda" and 2 <= t <= 8:
+        _da.check_rows(t, cfg.n_heads, cfg.n_kv_heads)
+
+
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   pos0: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False):
     """Forward a (B, T) chunk of CONSECUTIVE tokens per slot: column t of
     slot b sits at position pos0[b] + t (pos0 (B,), within the cache). The
     speculative-verification entry point (runtime.engine spec ticks,
-    runtime.speculative): 2 <= T <= 8 takes the fused chunk path (the
-    chunk attention kernel raises on the card for a chunk and GQA group it
-    does not serve), any other T the generic `forward`, as rama_tpu's
+    runtime.speculative): 2 <= T <= 8 takes the fused chunk path (on the
+    card it raises for a chunk and GQA group its attention kernel does not
+    serve: `check_chunk`), any other T the generic `forward`, as rama_tpu's
     forward_chunk does. Returns (logits (B, T, V) fp32, cache)."""
     t = tokens.shape[1]
     if 2 <= t <= 8:

@@ -19,6 +19,7 @@ the plain version (`*_plain`).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -37,6 +38,7 @@ MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kM
 _SIGNATURES = {
     "rama_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "rama_decode_attention_q8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "rama_decode_attention_occupancy": [I, I, I, I, I, I, I, P],
 }
 
 
@@ -137,6 +139,8 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
                 f"q {q.dtype} and cache {k.dtype} dtypes differ")
     require(all(x.is_contiguous() and x.device == q.device for x in (q, *caches)),
             "q and caches must be contiguous, on one device")
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+            "k/v caches must start 16-byte aligned (the kernel copies 16-byte pieces)")
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
@@ -214,3 +218,16 @@ def chunk_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     out = _launch(q, (k8, v8, ks, vs), pos0, layer, "chunk_attention_q8")
     launches_chunk_q8 += 1
     return out
+
+
+def occupancy(t: int, nh: int, nkv: int, hd: int, q8: bool,
+              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The split kernel a launch of T queries would run (int8 cache if q8):
+    its resident CTAs per SM, registers per thread and shared bytes per CTA,
+    as the CUDA occupancy API reports them on the current card."""
+    check_rows(t, nh, nkv)
+    out = (ctypes.c_int * 3)()
+    lib = build.library("decode_attention", _SIGNATURES)
+    build.check(lib, lib.rama_decode_attention_occupancy(
+        t, nh, nkv, hd, CHUNK, int(q8), build.DTYPE_CODES[dtype], out), "occupancy")
+    return {"ctas_per_sm": out[0], "registers": out[1], "smem_bytes": out[2]}

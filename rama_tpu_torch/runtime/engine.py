@@ -55,9 +55,8 @@ import numpy as np
 import torch
 
 from rama_tpu_torch.config import EngineConfig, ModelConfig
-from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables,
+from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables, check_chunk,
                                          decode_step, forward, forward_chunk, fuse_params)
-from rama_tpu_torch.ops.kernels import decode_attention as _da
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
 from rama_tpu_torch.runtime.sampler import sample_batched_keyed, sample_greedy
 from rama_tpu_torch.runtime.speculative import ngram_propose
@@ -197,9 +196,8 @@ class Engine:
         self.draft_mode = bool(self.spec) and self.spec_mode == "draft"
         if self.draft_mode and draft is None:
             raise ValueError("spec_mode='draft' requires draft=(draft_cfg, draft_params)")
-        if self.device.type == "cuda" and 1 <= self.spec <= 7:
-            # the verification chunk goes through the chunk attention kernel
-            _da.check_rows(self.spec + 1, cfg.n_heads, cfg.n_kv_heads)
+        if self.spec:
+            check_chunk(cfg, self.spec + 1, self.device)   # the verification chunk
         self.params = self._serving_params(cfg, params)
         self.cache = self._create_cache(b)
         self.dcfg = self.dparams = self.dcache = None

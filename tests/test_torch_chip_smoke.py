@@ -203,7 +203,7 @@ SPEC_KERNELS = ("chunk_attention", "chunk_attention_q8", "write_kv_chunk_q8")
 
 def test_every_kernel_has_a_main_path_that_records_its_launches(smoke, counters):
     """The kernels record takes each kernel's launches from a main path:
-    the speculation slice's three kernels from the two spec paths."""
+    the speculation slice's three kernels from the n-gram spec paths."""
     recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
                 if key == "launches"}
     assert set(SPEC_KERNELS) <= recorded
@@ -235,18 +235,68 @@ def test_spec_kv8_path_fails_when_the_bf16_decode_attention_launched(smoke):
 
 
 def test_spec_path_needs_the_bf16_chunk_attention(smoke):
-    ok = {k: 1 for k in smoke.SPEC_PATH["record"]}
+    """n-gram serving verifies a chunk every tick: K10 must launch there,
+    and the T = 1 decode attention must not."""
+    ok = {**{k: 1 for k in smoke.SPEC_PATH["record"]}, "decode_attention": 0}
     smoke.check_launches(smoke.SPEC_PATH, ok)
     with pytest.raises(SystemExit, match=r"\['chunk_attention'\] never launched"):
         smoke.check_launches(smoke.SPEC_PATH, {**ok, "chunk_attention": 0})
+    with pytest.raises(SystemExit, match=r"\['decode_attention'\] launched on the speculation"):
+        smoke.check_launches(smoke.SPEC_PATH, {**ok, "decode_attention": 1})
+
+
+@pytest.mark.parametrize("name", ["chunk_attention", "decode_attention", "quant_matmul",
+                                  "ffn", "prefill_attention"])
+def test_draft_spec_path_fails_when_one_of_its_kernels_never_launched(smoke, name):
+    """Draft-model speculation runs K10 to verify and the T = 1 decode
+    attention for the draft's steps and the dormant plain ticks."""
+    ok = {k: 1 for k in smoke.SPEC_DRAFT_PATH["record"]}
+    smoke.check_launches(smoke.SPEC_DRAFT_PATH, ok)
+    with pytest.raises(SystemExit, match="never launched on the draft speculation main path"):
+        smoke.check_launches(smoke.SPEC_DRAFT_PATH, {**ok, name: 0})
+
+
+def test_spec_draft_counts_only_its_draft_mode_runs(smoke, monkeypatch):
+    """spec_draft's spec-off baseline runs before the launch counters are
+    set to 0: the path's count holds the two draft-mode runs only."""
+    from rama_tpu_torch import checkpoint, cli
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.runtime import engine as eng_mod
+
+    events = []
+
+    class FakeEngine:
+        def __init__(self, cfg, params, tokenizer, ecfg, draft=None):
+            events.append("draft" if ecfg.spec_tick else "off")
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def submit(self, req):
+            for tok in ("a", "b", None):
+                req.queue.put(tok)
+
+        def stats(self):
+            return {"spec_accept_rate": 1.0, "spec_dormancies": 1, "draft_resyncs": 1,
+                    "engine_errors": 0}
+
+    monkeypatch.setattr(eng_mod, "Engine", FakeEngine)
+    monkeypatch.setattr(checkpoint, "save_v0", lambda *a, **k: None)
+    monkeypatch.setattr(cli, "load_model", lambda *a, **k: (None, None, None))
+    smoke.phase_spec_draft(torch, smoke.seven_b_config(ModelConfig), {"final_norm": torch.zeros(1)}, None,
+                           start_count=lambda: events.append("count from 0"))
+    assert events == ["off", "count from 0", "draft", "draft"]
 
 
 def test_spec_phases_are_known_and_a_subset_is_not_ok(smoke):
     for ph in ("kernels_spec", "model_spec", "serve_spec", "spec_draft", "profile_spec",
                "serve_spec_kv8"):
         assert ph in smoke.ALL_PHASES
-    assert smoke.SPEC_PATH["phases"] == ("model_spec", "serve_spec", "spec_draft",
-                                         "profile_spec")
+    assert smoke.SPEC_PATH["phases"] == ("model_spec", "serve_spec", "profile_spec")
+    assert smoke.SPEC_DRAFT_PATH["phases"] == (None, "spec_draft", None)
     assert smoke.SPEC_KV8_PATH["serve"]["kv_quant"] == "int8"
     dev = {"platform": "gpu", "kind": "x", "count": 1}
     line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "spec_draft"), dev)

@@ -300,3 +300,19 @@ def test_forward_chunk_routes_by_chunk_length():
         outs[tq], _ = tl.forward_chunk(tp, cfg, toks[:, :tq], pos0, cache)
     np.testing.assert_allclose(outs[8].numpy(), outs[10][:, :8].numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(outs[1].numpy(), outs[10][:, :1].numpy(), atol=1e-5, rtol=0)
+
+
+def test_check_chunk_names_the_chunk_kernel_limit():
+    """forward_chunk's support check, which the engine calls for its
+    verification chunk: on the card T * n_heads / n_kv_heads query rows per
+    kv head must fit the chunk attention kernel (8); the CPU's plain path
+    and T outside 2..8 (the generic forward) take any shape."""
+    from rama_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(dim=64, hidden_dim=128, n_layers=1, n_heads=8, n_kv_heads=2,
+                      vocab_size=32, seq_len=16)
+    tl.check_chunk(cfg, 2, torch.device("cuda"))            # 2 x rep 4 = 8 rows
+    with pytest.raises(ValueError, match="at most 8"):
+        tl.check_chunk(cfg, 3, torch.device("cuda"))
+    tl.check_chunk(cfg, 3, torch.device("cpu"))
+    tl.check_chunk(cfg, 9, torch.device("cuda"))
