@@ -69,12 +69,32 @@ Phases, in order (any failure raises and the script exits non-zero):
            then with a synthetic stories15M-shaped draft checkpoint (accept
            ~0: dormancy with plain ticks, and draft-cache resync)
   serve_spec_kv8   serve_spec on the int8 KV cache at max_len 4096
+  kernels_paged the paged slice's kernels on 7B shapes (pages of 128 rows,
+           mp 32: max_len 4096, 8 slots, a shuffled pool): the paged
+           attention (K12: decode and chunk forms, bf16 and int8 pools; rel
+           TOL per (slot, query, head), the 1e-2 bar logged) at positions on
+           page edges, T 1 / 4 / 8, planted edges, and against K4 / K7 / K10
+           over the gathered dense view (bit for bit where the 64-row splits
+           coincide); a 16-row-page case; the paged writers (K13) exact, rows
+           past a table clipped into its last page; CUDA-event times beside
+           the dense kernels on the same rows
+  model_paged  7B int8 decode steps and chunks (T 4) through the paged
+           kernels against the plain path on a dense cache of the same rows,
+           bf16 and int8 pools, positions up to 4092
+  serve_paged, serve_paged_kv8, serve_spec_paged, serve_spec_paged_kv8
+           the server on 8 slots at max_len 4096 over a pool of 64 pages of
+           128 rows (a quarter of the dense worst case): bf16 / int8 pool,
+           plain or spec_tick 3; every page free again after each run
+  profile_paged  device ms per 8-slot decode step on a bf16 and an int8
+           pool at positions 64 and 2048, beside the dense cache's
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, and a v0 one with
            `--quant int4`
 
-Six main paths, each with the launch counters set to 0 just before it
-and read just after: int8 (`generate` + `serve`), where every int8 kernel
+Ten main paths, each with the launch counters set to 0 just before it
+and read just after (`PATHS`; the four paged ones: K12 decode and K13
+on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
+K11): int8 (`generate` + `serve`), where every int8 kernel
 must have launched; int8 KV (`serve_kv8`), where the int8 cache's three
 kernels, the int8 matmul / FFN and the prefill attention must have, and
 the bf16 decode attention must not; n-gram speculation (`serve_spec`),
@@ -113,14 +133,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
-ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec", "model",
-              "generate", "serve", "profile", "model_kv8", "serve_kv8", "profile_kv8",
-              "model_spec", "serve_spec", "profile_spec", "spec_draft", "serve_spec_kv8",
-              "model4", "serve4", "profile4", "cli")
+ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec",
+              "kernels_paged", "model", "generate", "serve", "profile", "model_kv8", "serve_kv8",
+              "profile_kv8", "model_spec", "serve_spec", "profile_spec", "spec_draft",
+              "serve_spec_kv8", "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
+              "serve_spec_paged", "serve_spec_paged_kv8", "model4", "serve4", "profile4", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
+PAGE_SIZE = 128               # the paged serving paths' page rows (the server's default)
+PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the dense worst case
 
 # The six main paths: their weight bits, phases (model check or None, main
 # path, profile or None), the server's engine settings, the kernels each
@@ -163,6 +186,47 @@ SPEC_KV8_PATH = dict(label="speculation int8 KV", bits=8, phases=(None, "serve_s
                              "ffn": "launches_spec_kv8_path",
                              "prefill_attention": "launches_spec_kv8_path"},
                      forbid={"decode_attention": "launches_spec_kv8_path"})
+# the paged paths: 8 slots at max_len 4096 on a pool of PAGED_NUM_PAGES
+# pages of PAGE_SIZE rows (K12 / K13 where the dense paths run K4, K7,
+# K10, K6, K8, K11; write_kv_paged_q8 is one kernel and one count for the
+# decode rows and the verification chunks)
+PAGED_SERVE = dict(max_seq_len=KV8_MAX_LEN, paged=True)
+PAGED_PATH = dict(label="paged", bits=8, phases=("model_paged", "serve_paged", "profile_paged"),
+                  serve=PAGED_SERVE,
+                  record={"paged_decode_attention": "launches",
+                          "quant_matmul": "launches_paged_path", "ffn": "launches_paged_path",
+                          "prefill_attention": "launches_paged_path"},
+                  forbid={"decode_attention": "launches_paged_path",
+                          "chunk_attention": "launches_paged_path"})
+PAGED_KV8_PATH = dict(label="paged int8 KV", bits=8, phases=(None, "serve_paged_kv8", None),
+                      serve=dict(PAGED_SERVE, kv_quant="int8"),
+                      record={"paged_decode_attention_q8": "launches",
+                              "write_kv_paged_q8": "launches",
+                              "write_kv_prefill_paged_q8": "launches",
+                              "quant_matmul": "launches_paged_kv8_path",
+                              "ffn": "launches_paged_kv8_path",
+                              "prefill_attention": "launches_paged_kv8_path"},
+                      forbid={name: "launches_paged_kv8_path" for name in (
+                          "write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8",
+                          "decode_attention")})
+SPEC_PAGED_PATH = dict(label="paged speculation", bits=8, phases=(None, "serve_spec_paged", None),
+                       serve=dict(PAGED_SERVE, spec_tick=SPEC_TICK),
+                       record={"paged_chunk_attention": "launches",
+                               "quant_matmul": "launches_spec_paged_path",
+                               "ffn": "launches_spec_paged_path",
+                               "prefill_attention": "launches_spec_paged_path"},
+                       forbid={name: "launches_spec_paged_path" for name in (
+                           "decode_attention", "chunk_attention", "paged_decode_attention")})
+SPEC_PAGED_KV8_PATH = dict(
+    label="paged speculation int8 KV", bits=8, phases=(None, "serve_spec_paged_kv8", None),
+    serve=dict(PAGED_SERVE, spec_tick=SPEC_TICK, kv_quant="int8"),
+    record={"paged_chunk_attention_q8": "launches",
+            **{name: "launches_spec_paged_kv8_path" for name in (
+                "write_kv_paged_q8", "write_kv_prefill_paged_q8", "quant_matmul", "ffn",
+                "prefill_attention")}},
+    forbid={name: "launches_spec_paged_kv8_path" for name in (
+        "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
+        "decode_attention", "chunk_attention", "paged_decode_attention_q8")})
 INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                  serve={},
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
@@ -170,7 +234,8 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                          "decode_attention": "launches_int4_path",
                          "prefill_attention": "launches_int4_path"},
                  forbid={})
-PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, INT4_PATH)
+PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
+         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, INT4_PATH)
 
 
 def log(msg: str) -> None:
@@ -203,10 +268,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, name: str, got, want, per: int | None = None) -> float:
+def compare(torch, name: str, got, want, per: int | None = None, bar: float | None = None) -> float:
     """Fail unless every group of `per` consecutive outputs (default: one
     output row) is within TOL of its own max |ref|: a slot, head or row with
-    large outputs sets no limit for another. Returns the max |err|."""
+    large outputs sets no limit for another. `bar`, a tighter target, is
+    logged as met or not and gates nothing. Returns the max |err|."""
     per = per or want.shape[-1]
     got, want = got.float().reshape(-1, per), want.float().reshape(-1, per)
     if not bool(torch.isfinite(got).all()):
@@ -214,8 +280,10 @@ def compare(torch, name: str, got, want, per: int | None = None) -> float:
     err = (got - want).abs().amax(dim=1)
     rel = err / (want.abs().amax(dim=1) + 1e-6)
     worst = int(rel.argmax())
+    met = "" if bar is None else f" ({'within' if float(rel[worst]) <= bar else 'OUTSIDE'} "\
+                                   f"the {bar:g} bar)"
     log(f"[check] {name}: max_abs_err {float(err.max()):.3e} worst rel "
-        f"{float(rel[worst]):.3e} (group {worst} of {rel.numel()} x {per})")
+        f"{float(rel[worst]):.3e} (group {worst} of {rel.numel()} x {per}){met}")
     if float(rel[worst]) > TOL:
         raise SystemExit(f"FAILED {name}: rel err {float(rel[worst]):.4f} > {TOL} "
                          f"in group {worst} of {per} outputs")
@@ -288,20 +356,20 @@ def plant_chunk_edges(q, cache, pos0, layer: int, rows, kvw=None) -> None:
             cache[0][layer, b, :, r], cache[2][layer, b, :, r] = kvw.kv_quant_rows(key.float())
 
 
-def reset_launches(qm, ffn_mod, da, pa, kvw) -> None:
-    for counts in (qm.launches, ffn_mod.launches, kvw.launches):
+def reset_launches(qm, ffn_mod, da, pa, kvw, pga) -> None:
+    for counts in (qm.launches, ffn_mod.launches, kvw.launches, pga.launches):
         for key in counts:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
 
 
-def read_launches(qm, ffn_mod, da, pa, kvw) -> dict:
+def read_launches(qm, ffn_mod, da, pa, kvw, pga) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
-            "chunk_attention_q8": da.launches_chunk_q8, **kvw.launches}
+            "chunk_attention_q8": da.launches_chunk_q8, **kvw.launches, **pga.launches}
 
 
 def check_launches(path: dict, launches: dict) -> None:
@@ -1253,6 +1321,314 @@ def phase_kernels_spec(torch, results: dict) -> None:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']}")
 
 
+def paged_tables(torch, ends, ps: int, mp: int, spare: int, g):
+    """Page tables (B, mp) int32 over a pool of sum(ceil(ends / ps)) + spare
+    pages: slot b owns ceil(ends[b] / ps) pages in shuffled order; its
+    entries past them are -1, or, every other slot, a page of the pool's
+    spare ones (stale). Returns (tables on the CPU, pool pages)."""
+    used = [min(-(-e // ps), mp) for e in ends]
+    npages = sum(used) + spare
+    perm = torch.randperm(npages, generator=g).tolist()
+    tables = torch.full((len(ends), mp), -1, dtype=torch.int32)
+    for b, u in enumerate(used):
+        tables[b, :u] = torch.tensor(perm[:u], dtype=torch.int32)
+        perm = perm[u:]
+        if u < mp and b % 2:
+            tables[b, u:] = perm[-1]
+    return tables, npages
+
+
+def plant_paged_edges(q, pools, tables, pos0, layer: int, rows, kvw=None) -> None:
+    """chunk_edge_keys (q (B, T, nh, hd)) planted into layer `layer` of a
+    pool (k, v) or int8 pool (k8, v8, ks, vs) through the page tables, on
+    the rows of each slot's own pages only."""
+    ps, mp = pools[0].shape[3], tables.shape[1]
+    owned = [int((tables[b] >= 0).sum()) * ps for b in range(tables.shape[0])]
+    for (b, r), key in chunk_edge_keys(q, pos0, mp * ps, rows).items():
+        if r >= owned[b]:
+            continue
+        page, off = int(tables[b, r // ps]), r % ps
+        if kvw is None:
+            pools[0][layer, page, :, off] = key.to(pools[0].dtype)
+        else:
+            pools[0][layer, page, :, off], pools[2][layer, page, :, off] = kvw.kv_quant_rows(
+                key.float())
+
+
+def phase_kernels_paged(torch, results: dict) -> None:
+    """The paged slice's kernels vs their plain versions, on 7B shapes (32
+    heads, head_dim 128, 8 slots, pages of 128 rows, mp 32: max_len 4096)
+    over a shuffled pool: K12's four forms (rel TOL per (slot, query, head),
+    the 1e-2 bar logged) at positions on page edges, T 1 and 4 (8 on the
+    bf16 pool), with planted edges, and against the dense K4 / K7 / K10 over
+    the gathered view of the same rows (bit for bit where the 64-row splits
+    coincide); one 16-row-page case (16-row splits); K13's two writers
+    exact, rows past a slot's table clipped into its last page. CUDA-event
+    times, the layer cycling, beside the dense kernels on the same rows."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(9)
+    gc = torch.Generator().manual_seed(9)
+    bf, f32 = torch.bfloat16, torch.float32
+    nh, nkv, hd, B, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8, 4
+    S = KV8_MAX_LEN
+    positions = [0, 127, 128, 255, 1000, 2047, 3000, 4092]
+    note = "no single PyTorch call attends through a page table"
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def pools_for(t, ps):
+        """bf16 and int8 pools of L layers for chunks of t at `positions`
+        (each slot's pages cover its rows through pos0 + t - 1)."""
+        mp = S // ps
+        p0 = torch.tensor([min(p, S - 1) for p in positions], dtype=torch.int32)
+        tables, npages = paged_tables(torch, [min(int(p) + t, S) for p in p0], ps, mp, 8, gc)
+        kv = [rx(L, npages, nkv, ps, hd) for _ in range(2)]
+        q8 = [None] * 4
+        q8[0], q8[2] = kvw.kv_quant_rows(kv[0].float())
+        q8[1], q8[3] = kvw.kv_quant_rows(kv[1].float())
+        return p0.to(dev), tables.to(dev), kv, q8
+
+    def dense_of(pools, tables):
+        return [torch.stack([pga.gather_pages(x[l], tables) for l in range(L)]).contiguous()
+                for x in pools]
+
+    forms = {  # name: (paged kernel, plain, dense kernel, int8, decode)
+        "paged_decode_attention": (pga.paged_decode_attention, pga.paged_decode_attention_plain,
+                                   da.decode_attention, False, True),
+        "paged_decode_attention_q8": (pga.paged_decode_attention_q8,
+                                      pga.paged_decode_attention_q8_plain,
+                                      da.decode_attention_q8, True, True),
+        "paged_chunk_attention": (pga.paged_chunk_attention, pga.paged_chunk_attention_plain,
+                                  da.chunk_attention, False, False),
+        "paged_chunk_attention_q8": (pga.paged_chunk_attention_q8,
+                                     pga.paged_chunk_attention_q8_plain,
+                                     da.chunk_attention_q8, True, False),
+    }
+    replaces = {"paged_decode_attention": 105, "paged_decode_attention_q8": 133,
+                "paged_chunk_attention": 156, "paged_chunk_attention_q8": 179}
+
+    def check_and_time(name, t, ps, timed: bool) -> dict | None:
+        kernel, plain, dense_k, q8, decode = forms[name]
+        p0, tables, kv, q8p = pools_for(t, ps)
+        pools = q8p if q8 else kv
+        dense = dense_of(pools, tables)
+        split = pga.split_rows(ps)
+        edges = sorted({e for c in range(split, S, split) for e in (c - 1, c)} | {S - 1})
+        q = rx(B, t, nh, hd)
+        qq = q[:, 0].contiguous() if decode else q
+        label = f"{name} ps={ps} T={t} pos0={p0.tolist()}"
+        gap, same = 0.0, True
+        for planted in (False, True):
+            for l in (0, L - 1):
+                if planted:
+                    plant_paged_edges(q, pools, tables, p0, l, edges, kvw if q8 else None)
+                    dense = dense_of(pools, tables)
+                got = kernel(qq, *pools, p0, tables, l)
+                compare(torch, f"{label} layer={l}{' planted edges' if planted else ''}",
+                        got, plain(qq, *pools, p0, tables, l), per=hd, bar=1e-2)
+                ref = dense_k(qq, *dense, p0, l)
+                compare(torch, f"{label} layer={l} against the dense kernel over the same rows",
+                        got, ref, per=hd)
+                same = same and torch.equal(got, ref)
+                gap = max(gap, float((got.float() - ref.float()).abs().max()))
+        log(f"[check] {label}: against the dense kernel over the same rows "
+            f"{'bit for bit' if same else f'max |gap| {gap:.3e}'} (64-row splits "
+            f"{'coincide' if split == da.CHUNK else f'against {split}-row splits'})")
+        if not timed:
+            return None
+        # timed on unplanted pools, the layer cycling
+        p0, tables, kv, q8p = pools_for(t, ps)
+        pools = q8p if q8 else kv
+        dense = dense_of(pools, tables)
+        err = compare(torch, f"{label} timed inputs (layer 0)", kernel(qq, *pools, p0, tables, 0),
+                      plain(qq, *pools, p0, tables, 0), per=hd)
+        lay = Layered(L)
+        t_k = time_ms(torch, lambda: kernel(qq, *pools, p0, tables, lay.next()))
+        t_p = time_ms(torch, lambda: plain(qq, *pools, p0, tables, lay.next()), reps=5)
+        t_d = time_ms(torch, lambda: dense_k(qq, *dense, p0, lay.next()))
+        nb, ops = attention_bytes_ops(p0, t, S, nkv, nh, hd, 2 * hd + 8 if q8 else 2 * hd * 2,
+                                      q.numel() * 2)
+        b_ms, b_by = bound_ms(nb + tables.numel() * 4, ops)
+        parts = dict(paged=attention_split_combine(
+                         torch, lambda: kernel(qq, *pools, p0, tables, lay.next())),
+                     dense_same_rows=attention_split_combine(
+                         torch, lambda: dense_k(qq, *dense, p0, lay.next())),
+                     occupancy=da.occupancy(t, nh, nkv, hd, q8, chunk=split))
+        log(f"[time] {label}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"dense kernel over the same rows {t_d:.4f} ms; breakdown {json.dumps(parts)}")
+        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, library_note=note, dense_same_rows_ms=t_d,
+                    dense_gap=0.0 if same else gap, breakdown=parts,
+                    shape=f"q ({B}, {t}, {nh}, {hd}) bf16, {'int8 + f32 row scales' if q8 else 'bf16'}"
+                          f" pool ({L}, {kv[0].shape[1]}, {nkv}, {ps}, {hd}), page tables "
+                          f"({B}, {S // ps}), pos0 {p0.tolist()}")
+
+    for name in forms:
+        decode = forms[name][4]
+        ts = (1,) if decode else ((4, 8) if not forms[name][3] else (4,))
+        for t in ts:
+            r = check_and_time(name, t, PAGE_SIZE, timed=True)
+            if name not in results:
+                results[name] = dict(name=name, route="cuda",
+                                     source="rama_tpu_torch/csrc/decode_attention.cu",
+                                     replaces=f"rama_tpu/ops/pallas/paged_attention.py:"
+                                              f"{replaces[name]}", **r)
+            else:
+                results[name][f"t{t}"] = r
+        torch.cuda.empty_cache()
+    # 16-row pages: 16-row splits (and 4x the partials)
+    results["paged_decode_attention"]["ps16"] = check_and_time("paged_decode_attention", 1, 16,
+                                                               timed=True)
+    check_and_time("paged_chunk_attention_q8", 4, 16, timed=False)
+    torch.cuda.empty_cache()
+
+    # -- K13 (a): write_kv_paged_q8 -------------------------------------------------
+    def rows(*shape, dtype=bf):
+        """Rows of mixed magnitude with a zero row and a row of .5 ties."""
+        x = rx(*shape, dtype=f32) * (torch.rand(shape[:-1] + (1,), device=dev, generator=g)
+                                     * 30 + 1e-3)
+        flat = x.view(-1, shape[-1])
+        flat[0] = 0
+        flat[1] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5],
+                               device=dev).repeat(shape[-1] // 8)
+        return x.to(dtype)
+
+    def same(name, got, want) -> float:
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+        log(f"[check] {name}: {'exact' if not diff else f'tensors {diff} differ'}")
+        if diff:
+            raise SystemExit(f"FAILED {name}: pool tensors {diff} (k8, v8, ks, vs) differ "
+                             f"from the plain version's")
+        return 0.0
+
+    def rpool(l, npages, ps, n=nkv, d=hd):
+        """Random int8 bytes and scales (the writers' checks)."""
+        return [torch.randint(-127, 128, (l, npages, n, ps, d), dtype=torch.int8, device=dev,
+                              generator=g) for _ in range(2)] + [
+            torch.rand((l, npages, n, ps), device=dev, generator=g) for _ in range(2)]
+
+    mp = S // PAGE_SIZE
+    for t in (1, 4, 8):
+        # 4092 + t - 1 runs past the slot's 32 pages for t > 4: rows clip into page 31
+        p0 = torch.tensor(positions, dtype=torch.int32)
+        tables, npages = paged_tables(torch, [min(int(p) + t, S) for p in p0], PAGE_SIZE, mp,
+                                      4, gc)
+        c1 = rpool(L, npages, PAGE_SIZE)
+        c2 = [x.clone() for x in c1]
+        for dt in (bf, f32):
+            k, v = rows(B, t, nkv, hd, dtype=dt), rows(B, t, nkv, hd, dtype=dt)
+            for l in (0, L - 1):
+                kvw.write_kv_paged_q8(*c1, k, v, p0.to(dev), tables.to(dev), l)
+                kvw.write_kv_paged_q8_plain(*c2, k, v, p0.to(dev), tables.to(dev), l)
+                err = same(f"write_kv_paged_q8 T={t} layer={l} pos0={p0.tolist()} {dt}", c1, c2)
+    for cname, (n_, d_, ps_) in {"tiny": (2, 16, 16), "stories15M": (6, 48, 32)}.items():
+        tb, npg = paged_tables(torch, [3, 40, 17], ps_, 4, 2, gc)
+        t1 = rpool(2, npg, ps_, n_, d_)
+        t2 = [x.clone() for x in t1]
+        for dt in (bf, f32):
+            k, v = rows(3, 3, n_, d_, dtype=dt), rows(3, 3, n_, d_, dtype=dt)
+            pt = torch.tensor([0, 37, 14], dtype=torch.int32, device=dev)
+            kvw.write_kv_paged_q8(*t1, k, v, pt, tb.to(dev), 1)
+            kvw.write_kv_paged_q8_plain(*t2, k, v, pt, tb.to(dev), 1)
+            same(f"write_kv_paged_q8 {cname} hd={d_} ps={ps_} {dt}", t1, t2)
+    timed = {}
+    dense8 = [torch.zeros((L, B, nkv, S, hd), dtype=torch.int8, device=dev) for _ in range(2)] + [
+        torch.zeros((L, B, nkv, S), device=dev) for _ in range(2)]
+    for t in (1, 4):
+        p0 = torch.tensor(positions[:-1] + [S - t], dtype=torch.int32)
+        tables, npages = paged_tables(torch, [int(p) + t for p in p0], PAGE_SIZE, mp, 4, gc)
+        c1 = rpool(L, npages, PAGE_SIZE)
+        k, v = rows(B, t, nkv, hd), rows(B, t, nkv, hd)
+        p0, tables = p0.to(dev), tables.to(dev)
+        lay = Layered(L)
+        t_k = time_ms(torch, lambda: kvw.write_kv_paged_q8(*c1, k, v, p0, tables, lay.next()))
+        t_p = time_ms(torch, lambda: kvw.write_kv_paged_q8_plain(*c1, k, v, p0, tables,
+                                                                 lay.next()))
+        if t == 1:
+            k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
+            t_d = time_ms(torch, lambda: kvw.write_kv_rows_q8(*dense8, k1, v1, p0, lay.next()))
+        else:
+            t_d = time_ms(torch, lambda: kvw.write_kv_chunk_q8(*dense8, k, v, p0, lay.next()))
+        n_el = 2 * B * t * nkv * hd
+        b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * t * nkv * 4 + B * 4 + tables.numel() * 4,
+                              3 * n_el)
+        log(f"[time] write_kv_paged_q8 T={t}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); {'K6' if t == 1 else 'K11'} on a dense cache, same rows "
+            f"{t_d:.4f} ms")
+        timed[t] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None, dense_same_rows_ms=t_d,
+                        library_note="no single PyTorch call quantizes rows and scatters them "
+                                     "through a page table",
+                        shape=f"k/v rows ({B}, {t}, {nkv}, {hd}) bf16 -> pool ({L}, {npages}, "
+                              f"{nkv}, {PAGE_SIZE}, {hd}) int8 + scales, pos0 {p0.tolist()}")
+    results["write_kv_paged_q8"] = dict(
+        name="write_kv_paged_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:395", **timed[1], t4=timed[4])
+    del c1, c2, dense8
+    torch.cuda.empty_cache()
+
+    # -- K13 (b): write_kv_prefill_paged_q8 ------------------------------------------
+    Lm = cfg.n_layers
+    for T, t_ins, n in ((16, 16, 8), (512, 512, 8), (512, 300, 3)):
+        tables, npages = paged_tables(torch, [t_ins] * n, PAGE_SIZE, mp, 4, gc)
+        c1 = rpool(Lm, npages, PAGE_SIZE)
+        c2 = [x.clone() for x in c1]
+        k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
+        kvw.write_kv_prefill_paged_q8(*c1, k, v, tables.to(dev), t_ins)
+        kvw.write_kv_prefill_paged_q8_plain(*c2, k, v, tables.to(dev), t_ins)
+        same(f"write_kv_prefill_paged_q8 L={Lm} K={B} T={T} t_ins={t_ins} n={n}", c1, c2)
+        del c1, c2, k, v
+    for cname, (n_, d_, ps_) in {"tiny": (2, 16, 16), "stories15M": (6, 48, 32)}.items():
+        tb, npg = paged_tables(torch, [40, 40], ps_, 4, 2, gc)
+        t1 = rpool(3, npg, ps_, n_, d_)
+        t2 = [x.clone() for x in t1]
+        for dt in (bf, f32):
+            k, v = rows(3, 3, n_, 64, d_, dtype=dt), rows(3, 3, n_, 64, d_, dtype=dt)
+            kvw.write_kv_prefill_paged_q8(*t1, k, v, tb.to(dev), 40)
+            kvw.write_kv_prefill_paged_q8_plain(*t2, k, v, tb.to(dev), 40)
+            same(f"write_kv_prefill_paged_q8 {cname} hd={d_} ps={ps_} {dt}", t1, t2)
+    T = 16                                              # the serving bucket
+    tables, npages = paged_tables(torch, [T] * B, PAGE_SIZE, mp, 4, gc)
+    tables = tables.to(dev)
+    c1 = rpool(Lm, npages, PAGE_SIZE)
+    k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
+    t_k = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8(*c1, k, v, tables, T))
+    t_p = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8_plain(*c1, k, v, tables, T),
+                  reps=5)
+    del c1
+    dense8 = [torch.zeros((Lm, B, nkv, 64, hd), dtype=torch.int8, device=dev)
+              for _ in range(2)] + [torch.zeros((Lm, B, nkv, 64), device=dev) for _ in range(2)]
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    t_d = time_ms(torch, lambda: kvw.write_kv_strips_q8(*dense8, k, v, slots, T))
+    n_el = 2 * Lm * B * nkv * T * hd
+    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * Lm * B * nkv * T * 4 + tables.numel() * 4,
+                          3 * n_el)
+    log(f"[time] write_kv_prefill_paged_q8 T={T}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); K8 on a dense cache, same rows {t_d:.4f} ms")
+    results["write_kv_prefill_paged_q8"] = dict(
+        name="write_kv_prefill_paged_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:303", max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, dense_same_rows_ms=t_d,
+        library_note="no single PyTorch call quantizes strips and scatters them through page "
+                     "tables",
+        shape=f"strips ({Lm}, {B}, {nkv}, {T}, {hd}) bf16 -> {B} slots' pages of a ({Lm}, "
+              f"{npages}, {nkv}, {PAGE_SIZE}, {hd}) int8 pool")
+    del dense8, k, v
+    torch.cuda.empty_cache()
+    for name in (*forms, "write_kv_paged_q8", "write_kv_prefill_paged_q8"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), dense kernel on the same rows "
+            f"{r['dense_same_rows_ms']:.4f} ms, library n/a")
+
+
 def phase_model(torch, cfg, params, label: str = "int8") -> None:
     """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
@@ -1361,6 +1737,65 @@ def phase_model_spec(torch, cfg, params) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_model_paged(torch, cfg, params) -> None:
+    """7B int8 logits through the paged fused paths (K12 / K13, kernels)
+    against the plain path on a dense cache holding the same rows, on a
+    bf16 and an int8 pool of pages of PAGE_SIZE rows under shuffled tables
+    (params with RoPE tabulated to 4096): 2 slots prefilled with a prompt
+    (dense, plain) and copied into the pool, a decode step (T = 1) at 8 and
+    a chunk (T = 4) at 9; then, with rows 13 .. 4095 of the dense cache
+    filled with copies of its rows 0-12 and every row copied into the pool
+    again, decode steps at 1500 / 4000 and chunks at 61 / 1500 and 1021 /
+    4092. Gate rel TOL per row; the 3.5e-2 bar of T = 4 logged."""
+    from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, decode_step, forward_chunk,
+                                             prefill)
+    from rama_tpu_torch.ops.kernels.kv_write import put_strips_
+    from rama_tpu_torch.runtime.paged import (PagedKVCache, QuantPagedKVCache,
+                                              decode_step_paged, forward_paged)
+
+    dev = torch.device("cuda")
+    S, T, mp = KV8_MAX_LEN, SPEC_TICK + 1, KV8_MAX_LEN // PAGE_SIZE
+    toks = torch.tensor([[1, 9038, 2501, 263, 931, 29892, 727, 471]] * 2, device=dev)
+    chunk = torch.tensor([[29871, 1576, 338, 263], [450, 4123, 471, 727]], device=dev)[:, :T]
+    tables = torch.randperm(2 * mp + 1, generator=torch.Generator().manual_seed(3))
+    tables = tables[:2 * mp].view(2, mp).to(torch.int32).to(dev)
+    names = {KVCache: ("k", "v"), QuantKVCache: ("k", "v", "ks", "vs")}
+    for dense_cls, pool_cls in ((KVCache, PagedKVCache), (QuantKVCache, QuantPagedKVCache)):
+        dense = dense_cls.create(cfg, 2, S, device=dev)
+        pool = pool_cls.create(cfg, 2 * mp + 1, PAGE_SIZE, device=dev)
+
+        def to_pool():
+            for name in names[dense_cls]:
+                put_strips_(getattr(pool, name), getattr(dense, name), tables, S)
+
+        with torch.no_grad():
+            lp, _ = prefill(params, cfg, toks, dense, last_only=True, plain=True)
+            to_pool()
+            tok = torch.argmax(lp[:, -1], dim=-1)
+            for step in ([8, 8], [9, 9], [1500, 4000], [61, 1500], [1021, 4092]):
+                if step[0] == 1500:
+                    tile = torch.arange(S - 13, device=dev) % 13
+                    for name in names[dense_cls]:
+                        rows = getattr(dense, name).index_select(3, tile)
+                        getattr(dense, name)[:, :, :, 13:] = rows
+                    to_pool()
+                pos = torch.tensor(step, dtype=torch.int32, device=dev)
+                if step[0] in (8, 1500):
+                    lk, _ = decode_step_paged(params, cfg, tok, pos, pool, tables)
+                    lp, _ = decode_step(params, cfg, tok, pos, dense, plain=True)
+                    what, bar = "decode step (T = 1)", None
+                else:
+                    cols = pos[:, None] + torch.arange(T, device=dev)[None, :]
+                    lk, _ = forward_paged(params, cfg, chunk, cols, pool, tables)
+                    lp, _ = forward_chunk(params, cfg, chunk, pos, dense, plain=True)
+                    what, bar = f"chunk (T = {T})", 3.5e-2
+                compare(torch, f"7B int8 paged {what} on {pool_cls.__name__} at {step} "
+                        f"(kernels vs plain on a dense cache)", lk, lp, bar=bar)
+                tok = torch.argmax(lp.reshape(2, -1, lp.shape[-1])[:, -1], dim=-1)
+        del dense, pool
+        torch.cuda.empty_cache()
+
+
 def phase_spec_draft(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
     """Draft-mode speculation in the engine. (1) The target as its own draft
     (a separate draft cache), greedy, 2 slots x 16 tokens, never dormant:
@@ -1460,28 +1895,47 @@ def phase_generate(torch, cfg, params, tokenizer) -> None:
         raise SystemExit(f"FAILED generate: degenerate trajectory {gen}")
 
 
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in vars(cache).values())
+
+
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
-                spec_tick: int = 0) -> dict:
+                spec_tick: int = 0, paged: bool = False) -> dict:
     """The server around an 8-slot engine: 8 concurrent /gen of 32 tokens
     (greedy and sampled), every stream must end and /metrics count every
     token. With spec_tick, n-gram speculation that never goes dormant
     (spec_min_accept 0), so every tick is a spec tick, and the accept rate
-    must be a number. Returns tok/s, TTFT p50 / max and the accept rate."""
+    must be a number. Paged: a pool of PAGED_NUM_PAGES pages of PAGE_SIZE
+    rows, every page free again after the run. Returns tok/s, TTFT p50 /
+    max and the accept rate."""
     import aiohttp
     from aiohttp import web
 
     from rama_tpu_torch.config import EngineConfig
-    from rama_tpu_torch.models.llama import QuantKVCache
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache
     from rama_tpu_torch.runtime.engine import Engine
+    from rama_tpu_torch.runtime.paged import PagedKVCache, QuantPagedKVCache
     from rama_tpu_torch.server.app import build_app
 
     engine = Engine(cfg, params, tokenizer,
                     EngineConfig(max_batch_size=8, max_seq_len=max_seq_len, decode_tick=8,
                                  kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
-                                 spec_min_accept=0.0))
-    if isinstance(engine.cache, QuantKVCache) != (kv_quant == "int8"):
-        raise SystemExit(f"FAILED {tag}: kv_quant={kv_quant} built {type(engine.cache)}")
+                                 spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
+                                 kv_num_pages=PAGED_NUM_PAGES if paged else None))
+    want = ((QuantPagedKVCache if kv_quant == "int8" else PagedKVCache) if paged
+            else (QuantKVCache if kv_quant == "int8" else KVCache))
+    if type(engine.cache) is not want:
+        raise SystemExit(f"FAILED {tag}: kv_quant={kv_quant} paged={paged} built "
+                         f"{type(engine.cache)}")
+    if paged:
+        # a dense cache of the same slots and rows: K and V rows, int8 plus
+        # a 4-byte scale or bf16
+        row = cfg.n_kv_heads * (cfg.head_dim + 4 if kv_quant == "int8" else 2 * cfg.head_dim)
+        dense = 2 * cfg.n_layers * 8 * max_seq_len * row
+        log(f"[{tag}] pool of {engine.cache.num_pages} pages x {PAGE_SIZE} rows: "
+            f"{cache_bytes(engine.cache) / 1e9:.3f} GB; a dense cache of 8 slots x "
+            f"{max_seq_len} rows: {dense / 1e9:.3f} GB")
     engine.start()
     prompts = ["Once upon a time", "The little dog", "In a far away land",
                "She opened the door", "Tom and Lily", "The sun was", "A big red ball",
@@ -1531,6 +1985,9 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         outs, wall, stats = asyncio.run(run())
     finally:
         engine.stop()
+    if paged and engine.allocator.available() != PAGED_NUM_PAGES:
+        raise SystemExit(f"FAILED {tag}: {engine.allocator.available()} of {PAGED_NUM_PAGES} "
+                         f"pages free after the run")
     total = sum(n for _, n, _ in outs)
     if not all(ended and n > 0 for _, n, ended in outs):
         raise SystemExit(f"FAILED {tag}: a stream did not finish {outs}")
@@ -1552,16 +2009,18 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64, chunk: int = 1) -> None:
+                  start: int = 64, chunk: int = 1, tables=None) -> float:
     """torch.profiler over 8 decode steps at 8 slots (positions start ..
-    start+7; by default on a 128-row bf16 cache) — or, with chunk > 1, 8
-    verify rounds of `chunk` consecutive tokens a slot through
-    forward_chunk (positions start .. start + 8 chunk - 1): host wall per
-    step with and without the profiler, device kernel time per step by
-    kernel, device busy share (against the profiled wall)."""
+    start+7; by default on a 128-row bf16 cache; a page pool through
+    `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
+    tokens a slot through forward_chunk (positions start .. start + 8 chunk
+    - 1): host wall per step with and without the profiler, device kernel
+    time per step by kernel, device busy share (against the profiled
+    wall). Returns the device ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
+    from rama_tpu_torch.runtime.paged import decode_step_paged
 
     dev = torch.device("cuda")
     if cache is None:
@@ -1570,7 +2029,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
 
     def step(tok, p):
         pos = torch.full((8,), p, device=dev)
-        if chunk == 1:
+        if tables is not None:
+            logits, _ = decode_step_paged(params, cfg, tok[:, 0], pos, cache, tables)
+        elif chunk == 1:
             logits, _ = decode_step(params, cfg, tok[:, 0], pos, cache)
         else:
             logits, _ = forward_chunk(params, cfg, tok, pos, cache)
@@ -1608,6 +2069,36 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
         log(f"[{tag}] the profiler recorded no device time")
+    return busy_us / 8 / 1e3
+
+
+def profile_paged(torch, cfg, params) -> None:
+    """Device ms per 8-slot decode step on a bf16 and an int8 page pool
+    (8 x 32 pages of PAGE_SIZE rows under shuffled tables: the rows of an
+    8-slot dense cache at max_len 4096) at positions 64 and 2048, beside
+    the dense cache's step in the same run (RoPE tabulated to 4096)."""
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, _rope_tables
+    from rama_tpu_torch.runtime.paged import PagedKVCache, QuantPagedKVCache
+
+    dev = torch.device("cuda")
+    long = dict(params)
+    long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+    mp = KV8_MAX_LEN // PAGE_SIZE
+    tables = torch.randperm(8 * mp, generator=torch.Generator().manual_seed(4))
+    tables = tables.view(8, mp).to(torch.int32).to(dev)
+    table = {}
+    for dense_cls, pool_cls in ((KVCache, PagedKVCache), (QuantKVCache, QuantPagedKVCache)):
+        for label, make, tb in (
+                ("dense", lambda: dense_cls.create(cfg, 8, KV8_MAX_LEN, device=dev), None),
+                ("paged", lambda: pool_cls.create(cfg, 8 * mp + 1, PAGE_SIZE, device=dev),
+                 tables)):
+            cache = make()
+            for start in (64, 2048):
+                table[f"{pool_cls.__name__} {label} pos {start}"] = phase_profile(
+                    torch, cfg, long, tag="profile_paged", cache=cache, start=start, tables=tb)
+            del cache
+            torch.cuda.empty_cache()
+    log(f"[profile_paged] device ms per 8-slot decode step: {json.dumps(table)}")
 
 
 def phase_cli(torch) -> None:
@@ -1663,6 +2154,7 @@ def main() -> int:
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod
     from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
     from rama_tpu_torch.tokenizer import Tokenizer
@@ -1678,11 +2170,12 @@ def main() -> int:
         phase_build()
     results: dict = {}
     for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
-                        ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec)):
+                        ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec),
+                        ("kernels_paged", phase_kernels_paged)):
         if name in phases:
             phase(torch, results)
             torch.cuda.empty_cache()
-    modules = (qm, ffn_mod, da, pa, kvw)
+    modules = (qm, ffn_mod, da, pa, kvw, pga)
     tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
     cfg = seven_b_config(ModelConfig)
     dev = torch.device("cuda")
@@ -1701,11 +2194,13 @@ def main() -> int:
             log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} "
                 f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         model, *main_path, profile = path["phases"]
-        if model in ("model_kv8", "model_spec") and model in phases:
+        long_models = {"model_kv8": phase_model_kv8, "model_spec": phase_model_spec,
+                       "model_paged": phase_model_paged}
+        if model in long_models and model in phases:
             # RoPE to the 4096-row cache, as the engine retabulates it
             long = dict(params)
             long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
-            (phase_model_kv8 if model == "model_kv8" else phase_model_spec)(torch, cfg, long)
+            long_models[model](torch, cfg, long)
             del long
         elif model in phases:
             phase_model(torch, cfg, params, f"int{bits}")
@@ -1719,7 +2214,10 @@ def main() -> int:
             else:
                 serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
                                           **path["serve"])
-        for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8")):
+        for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8"),
+                                    ("serve_paged", "serve"), ("serve_paged_kv8", "serve_kv8"),
+                                    ("serve_spec_paged", "serve_spec"),
+                                    ("serve_spec_paged_kv8", "serve_spec_kv8")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -1737,6 +2235,8 @@ def main() -> int:
             for start in (64, 2048):
                 phase_profile(torch, cfg, long, tag=profile, cache=cache, start=start)
             del cache, long
+        elif profile == "profile_paged" and profile in phases:
+            profile_paged(torch, cfg, params)
         elif profile == "profile_spec" and profile in phases:
             # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
             for cache_cls in (None, QuantKVCache):
@@ -1754,9 +2254,12 @@ def main() -> int:
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_note", "shape",
-            "long_prompt", "s4096", "t8", "same_rows_one_query_ms", "breakdown", "k6_same_run_ms",
-            "launches_int4_path", "launches_kv8_path",
-            "launches_spec_path", "launches_spec_draft_path", "launches_spec_kv8_path")
+            "long_prompt", "s4096", "t4", "t8", "ps16", "same_rows_one_query_ms",
+            "dense_same_rows_ms", "dense_gap", "breakdown", "k6_same_run_ms",
+            "launches_int4_path", "launches_kv8_path", "launches_spec_path",
+            "launches_spec_draft_path", "launches_spec_kv8_path", "launches_paged_path",
+            "launches_paged_kv8_path", "launches_spec_paged_path",
+            "launches_spec_paged_kv8_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

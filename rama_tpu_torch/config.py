@@ -87,8 +87,8 @@ class EngineConfig:
     quant: str | None = None  # None | "int8" (weight-only group quant)
     quant_group_size: int = 64
     # KV-cache quantization: None | "int8" (per-token-per-head absmax; halves
-    # the cache's bytes and doubles the slots a card holds). Dense slots
-    # only here: the paged pool and tensor parallelism are not ported.
+    # the cache's bytes and doubles the slots a card holds), on the dense
+    # slots or the paged pool; tensor parallelism is not ported.
     kv_quant: str | None = None
 
     # Speculative serving (defaults of rama_tpu/config.py:129-160): drafts a
@@ -102,11 +102,16 @@ class EngineConfig:
     spec_mode: str = "ngram"
     spec_min_accept: float = 0.1
 
-    # Fields of features not ported yet (ROADMAP.md); setting any of them
-    # makes the Engine raise NotImplementedError.
+    # Paged KV cache (runtime/paged.py): one shared pool of kv_num_pages
+    # pages of kv_page_size rows (None: the dense worst case, batch x
+    # ceil(max_len / page size)) plus a trash page; composes with kv_quant
+    # and speculation.
     paged_kv: bool = False
     kv_page_size: int = 128
     kv_num_pages: int | None = None
+
+    # Fields of features not ported yet (ROADMAP.md); setting any of them
+    # makes the Engine raise NotImplementedError.
     prefill_chunk: int = 0
     prefill_chunk_min: int | None = None
     scale_dtype: str | None = None

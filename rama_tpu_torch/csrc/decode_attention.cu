@@ -1,8 +1,9 @@
-// Kernels 4, 7 and 10: decode attention against layer l of the stacked KV
-// cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
+// Kernels 4, 7, 10 and 12: decode attention against layer l of the stacked
+// KV cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
 // cache with one f32 scale per (token, kv head) row (K7), for one query per
 // slot (T = 1) or a chunk of T <= 8 consecutive queries per slot (K10, the
-// speculative-verification chunk, on either cache).
+// speculative-verification chunk, on either cache); K12 runs all of these
+// over a shared page pool through per-slot page tables (below).
 //
 // Replaces rama_tpu/ops/pallas/decode_attention.py:
 // decode_attention_layer (_kernel_layered, whole S stripe per program) and
@@ -45,6 +46,18 @@
 // (acc[ROWS][EPL]; the row groups of a warp summed by shuffles, the four
 // warps through shared memory), so T * rep <= kMaxRows = 8: every Llama-2
 // shape at T <= 8 (rep 1); a wider GQA group takes a shorter chunk.
+//
+// Kernel 12, the paged forms (rama_tpu/ops/pallas/paged_attention.py:
+// _paged_call via paged_decode_attention_layer, _q8, paged_chunk_
+// attention_layer and _q8): the same kernels over a shared page pool
+// (L, P, nkv, ps, hd) and per-slot page tables (B, mp). The TPU kernel
+// walks a slot's pages in order and repeats the last used page so its DMA
+// is elided; here a split of `chunk` rows, chunk dividing ps, lies inside
+// one page, so only the address of its rows changes: split s0 of slot b
+// reads page clamp(table[b, min(s0 / ps, mp - 1)], 0, P - 1) at in-page
+// row s0 % ps, with S = mp * ps for the row limits. Splits past the last
+// row's limit exit as in the dense cache, so a slot pays for the pages it
+// uses whatever mp is (ragged).
 #include "common.cuh"
 
 #include <math.h>
@@ -132,13 +145,16 @@ __host__ __device__ __forceinline__ size_t split_smem(int chunk, int hd) {
 // of two >= hd/EPL); ROWS >= nq * rep. The CTA first copies its chunk of K
 // and V (and their scales) into shared memory with every copy in flight at
 // once, so that it waits on the memory once, not once a row group.
+// tables: null for the dense cache (L, B, nkv, S, hd); else the (B, mp)
+// page tables of a pool (L, npages, nkv, ps, hd) with S = mp * ps and
+// chunk dividing ps.
 template <typename T, typename C, int RG, int ROWS>
 __global__ void __launch_bounds__(kDaThreads)
 dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restrict__ vc,
             const float* __restrict__ ksc, const float* __restrict__ vsc,
             const int* __restrict__ pos0, float* __restrict__ part_o,
             float* __restrict__ part_ml, int nh, int nkv, int S, int hd, int chunk, int nq,
-            float scale) {
+            float scale, const int* __restrict__ tables, int mp, int ps, int npages) {
   constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   constexpr int EPL = Lane<C>::EPL;
   constexpr int ngrp = kDaThreads / RG;
@@ -161,7 +177,13 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   float* qs = vst + chunk;                         // [ROWS][hd]
   float* sc = qs + ROWS * hd;                      // [ROWS][chunk]
   float* red = sc + ROWS * chunk;                  // [warps][ROWS][hd]
-  const size_t srow = ((size_t)b * nkv + j) * (size_t)S + s0;  // the chunk's first row
+  size_t srow;                                     // the chunk's first row
+  if (tables) {
+    const int page = min(max(tables[(size_t)b * mp + min(s0 / ps, mp - 1)], 0), npages - 1);
+    srow = ((size_t)page * nkv + j) * (size_t)ps + s0 % ps;
+  } else {
+    srow = ((size_t)b * nkv + j) * (size_t)S + s0;
+  }
   {
     const int vrow = hd * (int)sizeof(C) / 16;     // 16-byte pieces a row
     const C* kg = kc + srow * hd;
@@ -334,6 +356,8 @@ struct DaArgs {
   float scale;
   cudaStream_t st;
   int* occ;  // non-null: launch nothing, report the split kernel's occupancy
+  const int* tables;  // page tables (B, mp) of a pool of npages pages of ps rows; null: dense
+  int mp, ps, npages;
 };
 
 template <typename T, typename C, int RG, int ROWS>
@@ -357,7 +381,7 @@ cudaError_t launch_split(const DaArgs& a) {
   kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
       a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.nq,
-      a.scale);
+      a.scale, a.tables, a.mp, a.ps, a.npages);
   return cudaGetLastError();
 }
 
@@ -427,6 +451,53 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
                        static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                        static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
                        static_cast<cudaStream_t>(stream), nullptr};
+  if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
+  if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K12 (nq = 1: the paged decode step; nq <= 8: the paged verification
+// chunk) over a page pool of q's dtype: k/v point at layer l of the
+// (L, npages, nkv, ps, hd) pool, tables (B, mp) int32 page ids (entries
+// clamped to [0, npages - 1]); chunk divides ps; the scratch as above with
+// nsplit = ceil(mp * ps / chunk).
+extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
+                                    const void* pos0, const void* tables, void* out,
+                                    void* part_o, void* part_ml, int B, int nq, int nh, int nkv,
+                                    int mp, int ps, int npages, int hd, int chunk, int dtype,
+                                    void* stream) {
+  rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
+                 static_cast<float*>(part_o), static_cast<float*>(part_ml),
+                 B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
+                 nullptr};
+  if (chunk <= 0 || ps % chunk) return static_cast<int>(cudaErrorInvalidValue);
+  a.tables = static_cast<const int*>(tables);
+  a.mp = mp;
+  a.ps = ps;
+  a.npages = npages;
+  if (dtype == rama::kBF16)
+    return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
+  if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K12 over an int8 pool: k8/v8 point at layer l of (L, npages, nkv, ps, hd)
+// int8, ks/vs at layer l of its (L, npages, nkv, ps) f32 row scales.
+extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void* v8,
+                                       const void* ks, const void* vs, const void* pos0,
+                                       const void* tables, void* out, void* part_o,
+                                       void* part_ml, int B, int nq, int nh, int nkv, int mp,
+                                       int ps, int npages, int hd, int chunk, int dtype,
+                                       void* stream) {
+  rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
+                 static_cast<float*>(part_ml), B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f,
+                 static_cast<cudaStream_t>(stream), nullptr};
+  if (chunk <= 0 || ps % chunk) return static_cast<int>(cudaErrorInvalidValue);
+  a.tables = static_cast<const int*>(tables);
+  a.mp = mp;
+  a.ps = ps;
+  a.npages = npages;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);

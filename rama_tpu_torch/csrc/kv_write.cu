@@ -1,5 +1,6 @@
-// Kernels 6, 8 and 11: quantize K/V rows to int8 with one f32 absmax scale
-// per (token, kv head) row and write them into the int8 KV cache in place.
+// Kernels 6, 8, 11 and 13: quantize K/V rows to int8 with one f32 absmax
+// scale per (token, kv head) row and write them into the int8 KV cache, or
+// into the int8 page pool, in place.
 //
 // Replaces rama_tpu/ops/pallas/kv_write.py:
 //   write_kv_rows_q8   (K6)  — the decode step's rows, [layer, b, :, pos[b]];
@@ -8,7 +9,14 @@
 //                              rewrites the one or two 32-row windows they
 //                              fall in; here each row is written alone);
 //   write_kv_strips_q8 (K8)  — an admission's prefilled strips,
-//                              [:, slots[j], :, 0:T], every layer at once.
+//                              [:, slots[j], :, 0:T], every layer at once;
+//   write_kv_paged_q8 and write_kv_prefill_paged_q8 (K13) — the same rows
+//                              and strips into pages of the pool through the
+//                              page tables (the Pallas kernels DMA the one or
+//                              two stripes, or the ceil(T / ps) pages, around
+//                              them, one slot a call for the strips; here
+//                              each row is written alone, and one launch
+//                              writes an admission group's strips).
 // The Pallas kernels take rows already quantized by kv_quant_rows
 // (rama_tpu/models/llama.py:178) and DMA a tile-rounded window around
 // them; here the quantization is fused into the write, so the row is read
@@ -128,6 +136,61 @@ kv_write_chunk(const A* __restrict__ k, const A* __restrict__ v, const int* __re
             hd, lane);
 }
 
+// K13 (a), the paged row / chunk writer. Warp w of the grid: w = ((b * T +
+// t) * nkv + h) * 2 + kv. rows (B, T, nkv, hd); row t of slot b, position
+// p = pos0[b] + t, lands in page clamp(tables[b, min(p / ps, mp - 1)], 0,
+// npages - 1) at in-page row p % ps of k8/v8 (pointing at layer l of the
+// (L, npages, nkv, ps, hd) pool). Rows past the slot's table clip into
+// page mp - 1, as JAX's fused paged paths do; none is dropped.
+template <typename A>
+__global__ void __launch_bounds__(kKvThreads)
+kv_write_paged(const A* __restrict__ k, const A* __restrict__ v, const int* __restrict__ pos0,
+               const int* __restrict__ tables, int8_t* __restrict__ k8, int8_t* __restrict__ v8,
+               float* __restrict__ ks, float* __restrict__ vs, int B, int T, int nkv, int mp,
+               int ps, int npages, int hd) {
+  const int w = blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= B * T * nkv * 2) return;
+  const int kv = w % 2, r = w / 2;           // r = (b * T + t) * nkv + h
+  const int h = r % nkv, bt = r / nkv;
+  const int t = bt % T, b = bt / T;
+  const int p = max(pos0[b] + t, 0);
+  const int page = min(max(tables[(size_t)b * mp + min(p / ps, mp - 1)], 0), npages - 1);
+  const size_t row = ((size_t)page * nkv + h) * ps + p % ps;
+  quant_row((kv ? v : k) + (size_t)r * hd, (kv ? v8 : k8) + row * hd, (kv ? vs : ks) + row,
+            hd, lane);
+}
+
+// K13 (b), the paged admission writer. Warp w of the grid walks (l, j, h,
+// t, kv) with t < t_ins and j < n: strips (L, K, nkv, T, hd) of A, K >= n;
+// row t of strip j lands in page clamp(tables[j, t / ps], 0, npages - 1) at
+// in-page row t % ps of the whole (L, npages, nkv, ps, hd) pool
+// (t_ins <= mp * ps).
+template <typename A>
+__global__ void __launch_bounds__(kKvThreads)
+kv_write_prefill_paged(const A* __restrict__ k, const A* __restrict__ v,
+                       const int* __restrict__ tables, int8_t* __restrict__ k8,
+                       int8_t* __restrict__ v8, float* __restrict__ ks, float* __restrict__ vs,
+                       int L, int K, int n, int nkv, int T, int t_ins, int mp, int ps,
+                       int npages, int hd) {
+  const size_t w = (size_t)blockIdx.x * (kKvThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (size_t)L * n * nkv * t_ins * 2) return;
+  const int kv = w % 2;
+  size_t r = w / 2;
+  const int t = r % t_ins;
+  r /= t_ins;
+  const int h = r % nkv;
+  r /= nkv;
+  const int j = r % n;
+  const int l = static_cast<int>(r / n);
+  const int page = min(max(tables[(size_t)j * mp + t / ps], 0), npages - 1);
+  const size_t src = (((size_t)l * K + j) * nkv + h) * T + t;
+  const size_t dst = (((size_t)l * npages + page) * nkv + h) * ps + t % ps;
+  quant_row((kv ? v : k) + src * hd, (kv ? v8 : k8) + dst * hd, (kv ? vs : ks) + dst, hd,
+            lane);
+}
+
 constexpr int kKvWarps = kKvThreads / 32;
 
 }  // namespace rama
@@ -212,6 +275,69 @@ extern "C" int rama_kv_write_strips(const void* k, const void* v, const void* sl
     kv_write_strips<float><<<(unsigned)blocks, kKvThreads, 0, st>>>(
         static_cast<const float*>(k), static_cast<const float*>(v), sl, k8p, v8p, ksp, vsp, L,
         K, n, B, nkv, T, S, t_ins, hd);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13 (a): k/v (B, T, nkv, hd) rows, pos0 (B,) int32, tables (B, mp) int32;
+// k8/v8/ks/vs point at layer l of the (L, npages, nkv, ps, hd) pool.
+extern "C" int rama_kv_write_paged(const void* k, const void* v, const void* pos0,
+                                   const void* tables, void* k8, void* v8, void* ks, void* vs,
+                                   int B, int T, int nkv, int mp, int ps, int npages, int hd,
+                                   int dtype, void* stream) {
+  using namespace rama;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (B * T * nkv * 2 + kKvWarps - 1) / kKvWarps;
+  const int* p = static_cast<const int*>(pos0);
+  const int* tb = static_cast<const int*>(tables);
+  int8_t* k8p = static_cast<int8_t*>(k8);
+  int8_t* v8p = static_cast<int8_t*>(v8);
+  float* ksp = static_cast<float*>(ks);
+  float* vsp = static_cast<float*>(vs);
+  if (hd > 32 * kKvMaxPerLane || ps <= 0 || mp <= 0 || npages <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBF16)
+    kv_write_paged<__nv_bfloat16><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), p, tb, k8p,
+        v8p, ksp, vsp, B, T, nkv, mp, ps, npages, hd);
+  else if (dtype == kF32)
+    kv_write_paged<float><<<blocks, kKvThreads, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), p, tb, k8p, v8p, ksp, vsp,
+        B, T, nkv, mp, ps, npages, hd);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13 (b): k/v (L, K, nkv, T, hd) strips, tables (n, mp) int32 with n <= K;
+// rows 0 .. t_ins-1 of strip j go through table row j into the whole
+// (L, npages, nkv, ps, hd) pool.
+extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const void* tables,
+                                           void* k8, void* v8, void* ks, void* vs, int L, int K,
+                                           int n, int nkv, int T, int t_ins, int mp, int ps,
+                                           int npages, int hd, int dtype, void* stream) {
+  using namespace rama;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t warps = (size_t)L * n * nkv * t_ins * 2;
+  if (warps == 0) return 0;
+  const size_t blocks = (warps + kKvWarps - 1) / kKvWarps;
+  if (hd > 32 * kKvMaxPerLane || blocks > 0x7fffffffu || ps <= 0 || npages <= 0 ||
+      t_ins > mp * ps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* tb = static_cast<const int*>(tables);
+  int8_t* k8p = static_cast<int8_t*>(k8);
+  int8_t* v8p = static_cast<int8_t*>(v8);
+  float* ksp = static_cast<float*>(ks);
+  float* vsp = static_cast<float*>(vs);
+  if (dtype == kBF16)
+    kv_write_prefill_paged<__nv_bfloat16><<<(unsigned)blocks, kKvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), tb, k8p,
+        v8p, ksp, vsp, L, K, n, nkv, T, t_ins, mp, ps, npages, hd);
+  else if (dtype == kF32)
+    kv_write_prefill_paged<float><<<(unsigned)blocks, kKvThreads, 0, st>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), tb, k8p, v8p, ksp, vsp, L,
+        K, n, nkv, T, t_ins, mp, ps, npages, hd);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -37,6 +37,7 @@ from rama_tpu_torch.config import ModelConfig
 from rama_tpu_torch.ops.kernels import decode_attention as _da
 from rama_tpu_torch.ops.kernels import ffn as _ffn
 from rama_tpu_torch.ops.kernels import kv_write as _kvw
+from rama_tpu_torch.ops.kernels import paged_attention as _pga
 from rama_tpu_torch.ops.kernels import prefill_attention as _pa
 from rama_tpu_torch.ops.kernels import quant_matmul as _qm
 from rama_tpu_torch.ops.kernels.ffn import split_h13
@@ -78,6 +79,12 @@ class _Ops:
                                    else _da.chunk_attention_q8)
         self.write_kv_chunk_q8 = (_kvw.write_kv_chunk_q8_plain if plain
                                   else _kvw.write_kv_chunk_q8)
+        # the paged cache (runtime/paged.py): K12 and K13
+        for name in ("paged_decode_attention", "paged_decode_attention_q8",
+                     "paged_chunk_attention", "paged_chunk_attention_q8"):
+            setattr(self, name, getattr(_pga, name + "_plain" if plain else name))
+        for name in ("write_kv_paged_q8", "write_kv_prefill_paged_q8"):
+            setattr(self, name, getattr(_kvw, name + "_plain" if plain else name))
 
 
 _KERNELS, _PLAIN = _Ops(False), _Ops(True)

@@ -13,6 +13,9 @@ at position pos0[b] + t sees rows s <= pos0[b] + t). On the card, one
 flash-decoding kernel split over S plus a combine pass, instantiated for
 both caches (`csrc/decode_attention.cu`); T = 1 is the decode step.
 
+The same kernels read the paged cache's pool through page tables: kernel
+12, whose wrappers are in ops/kernels/paged_attention.py.
+
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`).
 """
@@ -35,10 +38,14 @@ launches_chunk_q8 = 0  # K10 launches on an int8 cache
 CHUNK = 64     # cache rows per CTA (csrc/decode_attention.cu)
 MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kMaxRows)
 
+# every C entry of csrc/decode_attention.cu, the paged forms (K12, called by
+# ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
     "rama_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "rama_decode_attention_q8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "rama_decode_attention_occupancy": [I, I, I, I, I, I, I, P],
+    "rama_paged_attention": [P] * 8 + [I] * 10 + [P],
+    "rama_paged_attention_q8": [P] * 10 + [I] * 10 + [P],
 }
 
 
@@ -49,6 +56,13 @@ def check_rows(t: int, nh: int, nkv: int) -> None:
             f"{t} queries x GQA group {nh}/{nkv} is {t * (nh // max(nkv, 1))} query "
             f"rows per kv head; the decode-attention kernel takes at most {MAX_ROWS} "
             f"(csrc/decode_attention.cu kMaxRows)")
+
+
+def check_head_dim(hd: int, q8: bool) -> None:
+    """Raise unless the kernel's lanes cover head_dim hd: 16-byte reads of
+    8 bf16 / f32 or 16 int8 elements, at most 256."""
+    m = 16 if q8 else 8
+    require(hd % m == 0 and hd <= 256, f"head_dim {hd} must be a multiple of {m}, <= 256")
 
 
 def _visible(pos0: torch.Tensor, t: int, s: int) -> torch.Tensor:
@@ -112,6 +126,27 @@ def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tenso
     return chunk_attention_q8_plain(q[:, None], k8, v8, ks, vs, pos, layer)[:, 0]
 
 
+def check_caches(q: torch.Tensor, caches: tuple) -> None:
+    """The operand checks shared by the dense and paged launches: head_dim,
+    dtypes, (k, v) or (k8, v8, ks, vs) with scales of k's leading four
+    dims, contiguity, one device, 16-byte aligned k / v."""
+    k, v = caches[0], caches[1]
+    q8 = len(caches) == 4
+    check_head_dim(q.shape[-1], q8)
+    if q8:
+        ks, vs = caches[2], caches[3]
+        require(k.dtype == v.dtype == torch.int8, "k8/v8 must be int8")
+        require(ks.shape == vs.shape == k.shape[:4] and ks.dtype == vs.dtype == torch.float32,
+                "ks/vs must be float32 of k8's shape without head_dim")
+    else:
+        require(q.dtype == k.dtype == v.dtype,
+                f"q {q.dtype} and cache {k.dtype} dtypes differ")
+    require(all(x.is_contiguous() and x.device == q.device for x in (q, *caches)),
+            "q and caches must be contiguous, on one device")
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+            "k/v caches must start 16-byte aligned (the kernel copies 16-byte pieces)")
+
+
 def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
             what: str) -> torch.Tensor:
     """Check and launch the kernel for q (B, T, nh, hd) against layer
@@ -127,20 +162,7 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     require(bc == b and hdc == hd, f"q {tuple(q.shape)} does not fit cache {tuple(k.shape)}")
     check_rows(t, nh, nkv)
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
-    if q8:
-        ks, vs = caches[2], caches[3]
-        require(hd % 16 == 0 and hd <= 256, f"head_dim {hd} must be a multiple of 16, <= 256")
-        require(k.dtype == v.dtype == torch.int8, "k8/v8 must be int8")
-        require(ks.shape == vs.shape == k.shape[:4] and ks.dtype == vs.dtype == torch.float32,
-                "ks/vs must be (L, B, nkv, S) float32")
-    else:
-        require(hd % 8 == 0 and hd <= 256, f"head_dim {hd} must be a multiple of 8, <= 256")
-        require(q.dtype == k.dtype == v.dtype,
-                f"q {q.dtype} and cache {k.dtype} dtypes differ")
-    require(all(x.is_contiguous() and x.device == q.device for x in (q, *caches)),
-            "q and caches must be contiguous, on one device")
-    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
-            "k/v caches must start 16-byte aligned (the kernel copies 16-byte pieces)")
+    check_caches(q, caches)
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
@@ -149,18 +171,20 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     out = torch.empty((b, t, nh * hd), dtype=q.dtype, device=q.device)
     part_o = torch.empty((b, t, nh, nsplit, hd), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, t, nh, nsplit, 2), dtype=torch.float32, device=q.device)
-    rows = layer * b * nkv * s
-    ptrs = [k.data_ptr() + rows * hd * k.element_size(),
-            v.data_ptr() + rows * hd * v.element_size()]
-    if q8:
-        ptrs += [ks.data_ptr() + rows * 4, vs.data_ptr() + rows * 4]
-        fn = lib.rama_decode_attention_q8
-    else:
-        fn = lib.rama_decode_attention
-    err = fn(q.data_ptr(), *ptrs, pos0.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-             part_ml.data_ptr(), b, t, nh, nkv, s, hd, CHUNK, dtype, build.stream_ptr(q))
+    fn = lib.rama_decode_attention_q8 if q8 else lib.rama_decode_attention
+    err = fn(q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
+             out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd, CHUNK,
+             dtype, build.stream_ptr(q))
     build.check(lib, err, what)
     return out
+
+
+def layer_ptrs(caches: tuple, rows: int) -> list[int]:
+    """Addresses of the first of `rows` (S or page) rows into each of k, v
+    (and ks, vs): the layer offset of a stacked cache or pool."""
+    hd = caches[0].shape[-1]
+    return [c.data_ptr() + rows * (hd if c.dim() == 5 else 1) * c.element_size()
+            for c in caches]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -221,13 +245,14 @@ def chunk_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 
 def occupancy(t: int, nh: int, nkv: int, hd: int, q8: bool,
-              dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The split kernel a launch of T queries would run (int8 cache if q8):
-    its resident CTAs per SM, registers per thread and shared bytes per CTA,
-    as the CUDA occupancy API reports them on the current card."""
+              dtype: torch.dtype = torch.bfloat16, chunk: int | None = None) -> dict:
+    """The split kernel a launch of T queries would run (int8 cache if q8,
+    `chunk` cache rows a CTA, CHUNK by default): its resident CTAs per SM,
+    registers per thread and shared bytes per CTA, as the CUDA occupancy
+    API reports them on the current card."""
     check_rows(t, nh, nkv)
     out = (ctypes.c_int * 3)()
     lib = build.library("decode_attention", _SIGNATURES)
     build.check(lib, lib.rama_decode_attention_occupancy(
-        t, nh, nkv, hd, CHUNK, int(q8), build.DTYPE_CODES[dtype], out), "occupancy")
+        t, nh, nkv, hd, chunk or CHUNK, int(q8), build.DTYPE_CODES[dtype], out), "occupancy")
     return {"ctas_per_sm": out[0], "registers": out[1], "smem_bytes": out[2]}

@@ -1,17 +1,21 @@
-"""Kernels 6, 8 and 11: quantize K/V rows to int8 and write them into the
-int8 KV cache in place.
+"""Kernels 6, 8, 11 and 13: quantize K/V rows to int8 and write them into
+the int8 KV cache, or into the int8 page pool, in place.
 
 The counterparts of `rama_tpu/ops/pallas/kv_write.py`'s `write_kv_rows_q8`
 (the decode step's rows of one layer), `write_kv_chunk_q8` (a speculative
 verification chunk's T consecutive rows per slot, one layer) and
 `write_kv_strips_q8` (an admission's prefilled strips into their slots,
-every layer). The Pallas
+every layer), and of the paged `write_kv_paged_q8` (1 .. 8 consecutive
+rows a slot into pages of the pool, through the page tables) and
+`write_kv_prefill_paged_q8` (an admission group's strips into their
+slots' pages; the Pallas kernel writes one slot a call). The Pallas
 kernels take rows that `kv_quant_rows` already quantized; here the row
-quantization is fused into the write (`csrc/kv_write.cu`), so both entry
-points take the rows in the activation dtype.
+quantization is fused into the write (`csrc/kv_write.cu`), so every entry
+point takes the rows in the activation dtype.
 
 The cache is `QuantKVCache`'s four tensors: k8/v8 (L, B, nkv, S, hd) int8
-and ks/vs (L, B, nkv, S) f32, updated in place (the JAX package donates
+and ks/vs (L, B, nkv, S) f32, or `QuantPagedKVCache`'s pools (L, P, nkv,
+ps, hd) and (L, P, nkv, ps), updated in place (the JAX package donates
 them and returns new arrays).
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
@@ -27,12 +31,15 @@ from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
 
 # kernel launches since the last reset, by entry (chip_smoke reads them)
-launches = {"write_kv_rows_q8": 0, "write_kv_strips_q8": 0, "write_kv_chunk_q8": 0}
+launches = {"write_kv_rows_q8": 0, "write_kv_strips_q8": 0, "write_kv_chunk_q8": 0,
+            "write_kv_paged_q8": 0, "write_kv_prefill_paged_q8": 0}
 
 _SIGNATURES = {
     "rama_kv_write_rows": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "rama_kv_write_strips": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "rama_kv_write_chunk": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "rama_kv_write_paged": [P] * 8 + [I] * 8 + [P],
+    "rama_kv_write_prefill_paged": [P] * 7 + [I] * 11 + [P],
 }
 
 
@@ -118,10 +125,10 @@ def write_kv_strips_q8_plain(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
 
 def _check_cache(k8, v8, ks, vs) -> None:
     require(k8.dim() == 5 and k8.shape == v8.shape and k8.dtype == v8.dtype == torch.int8,
-            "k8/v8 must be (L, B, nkv, S, hd) int8")
+            "k8/v8 must be (L, B, nkv, S, hd) (or pools (L, P, nkv, ps, hd)) int8")
     require(ks.shape == vs.shape == k8.shape[:4]
             and ks.dtype == vs.dtype == torch.float32,
-            "ks/vs must be (L, B, nkv, S) float32")
+            "ks/vs must be float32 of k8's shape without head_dim")
     require(all(t.is_contiguous() and t.device == k8.device for t in (k8, v8, ks, vs)),
             "the cache tensors must be contiguous and on one device")
     hd = k8.shape[4]
@@ -214,3 +221,138 @@ def write_kv_strips_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
         build.dtype_code(k), build.stream_ptr(k))
     build.check(lib, err, "write_kv_strips_q8")
     launches["write_kv_strips_q8"] += 1
+
+
+# -- K13: the paged pool ------------------------------------------------------
+
+
+def paged_rows(tables: torch.Tensor, pos: torch.Tensor,
+               pool: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page, in-page row) of each position pos (B, T) >= 0 through page
+    tables (B, mp) into a pool (L, P, nkv, ps, ...): page tables[b, min(p //
+    ps, mp - 1)] (clamped to [0, P - 1]) at row p % ps. Rows past the
+    slot's table clip into its page mp - 1, as rama_tpu's fused paged paths
+    do; none is dropped."""
+    num_pages, ps = pool.shape[1], pool.shape[3]
+    mp = tables.shape[1]
+    pos = pos.long().clamp(min=0)
+    pages = tables.long().clamp(0, num_pages - 1).gather(1, (pos // ps).clamp(max=mp - 1))
+    return pages, pos % ps
+
+
+def put_rows_(pages_l: torch.Tensor, rows: torch.Tensor, pages: torch.Tensor,
+              offs: torch.Tensor) -> None:
+    """pages_l[pages[b, t], h, offs[b, t]] = rows[b, t, h] in place, for one
+    layer of a pool (P, nkv, ps, ...) and rows (B, T, nkv, ...)."""
+    hi = torch.arange(rows.shape[2], device=rows.device)[None, None, :]
+    pages_l.index_put_((pages[:, :, None], hi, offs[:, :, None]), rows.to(pages_l.dtype))
+
+
+def put_strips_(pool: torch.Tensor, strips: torch.Tensor, tables: torch.Tensor,
+                t_ins: int) -> None:
+    """Rows 0:t_ins of strips j < len(tables) of (L, K, nkv, T, ...) into a
+    pool (L, P, nkv, ps, ...) in place: row i of strip j at page tables[j,
+    i // ps] (clamped to [0, P - 1]), in-page row i % ps."""
+    n, ps = tables.shape[0], pool.shape[3]
+    i = torch.arange(t_ins, device=strips.device)
+    pages = tables.long().clamp(0, pool.shape[1] - 1)[:, i // ps]           # (n, t_ins)
+    hi = torch.arange(strips.shape[2], device=strips.device)[None, :, None]
+    pool[:, pages[:, None, :], hi, (i % ps)[None, None, :]] = (
+        strips[:, :n, :, :t_ins].to(pool.dtype))
+
+
+def write_kv_paged_q8_plain(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
+                            pos0: torch.Tensor, tables: torch.Tensor, layer: int) -> None:
+    """Plain PyTorch version: quantize the (B, T, nkv, hd) rows and write
+    them, through the page tables (B, mp), at the pages and in-page rows of
+    positions pos0[b] + t of layer `layer` of the int8 pool (paged_rows)."""
+    pages, offs = paged_rows(tables, chunk_positions(pos0, k.shape[1]), k8)
+    for rows, q8, sc in ((k, k8, ks), (v, v8, vs)):
+        q, s = kv_quant_rows(rows)
+        put_rows_(q8[layer], q, pages, offs)
+        put_rows_(sc[layer], s, pages, offs)
+
+
+def write_kv_prefill_paged_q8_plain(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
+                                    tables: torch.Tensor, t_ins: int) -> None:
+    """Plain PyTorch version: quantize rows 0:t_ins of strips j < len(tables)
+    of the (L, K, nkv, T, hd) scratch and write them through table row j
+    into the int8 pool, every layer (put_strips_)."""
+    n = tables.shape[0]
+    for strips, q8, sc in ((k, k8, ks), (v, v8, vs)):
+        q, s = kv_quant_rows(strips[:, :n, :, :t_ins])
+        put_strips_(q8, q, tables, t_ins)
+        put_strips_(sc, s, tables, t_ins)
+
+
+def _check_tables(tables: torch.Tensor, rows: int, device) -> None:
+    require(tables.dtype == torch.int32 and tables.dim() == 2 and tables.shape[0] == rows
+            and tables.device == device and tables.is_contiguous(),
+            f"page tables must be a contiguous ({rows}, mp) int32 CUDA tensor")
+
+
+def write_kv_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor, pos0: torch.Tensor,
+                      tables: torch.Tensor, layer: int) -> None:
+    """K13 (a): quantize T = 1 .. 8 consecutive post-RoPE rows a slot, k/v
+    (B, T, nkv, hd) at positions pos0[b] + t (pos0 (B,) int32), and write
+    them with their scales into layer `layer` of the int8 pool k8/v8
+    (L, P, nkv, ps, hd), ks/vs (L, P, nkv, ps), in place, through the page
+    tables (B, mp) int32; rows past a slot's table clip into its page
+    mp - 1 (paged_rows)."""
+    if k.device.type == "cpu":
+        return write_kv_paged_q8_plain(k8, v8, ks, vs, k, v, pos0, tables, layer)
+    require(k.device.type == "cuda", f"unsupported device {k.device}")
+    _check_cache(k8, v8, ks, vs)
+    L, num_pages, nkv, ps, hd = k8.shape
+    require(k.dim() == 4 and k.shape == v.shape and k.shape[2:] == (nkv, hd),
+            f"rows {tuple(k.shape)} / {tuple(v.shape)} do not fit pool {tuple(k8.shape)}")
+    B, T = k.shape[:2]
+    require(k.dtype == v.dtype and k.is_contiguous() and v.is_contiguous()
+            and k.device == v.device == k8.device, "k/v rows must be contiguous, of one "
+            "dtype, on the pool's device")
+    require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
+    require(pos0.dtype == torch.int32 and pos0.shape == (B,) and pos0.device == k.device
+            and pos0.is_contiguous(), "pos0 must be a contiguous (B,) int32 CUDA tensor")
+    _check_tables(tables, B, k.device)
+    lib = build.library("kv_write", _SIGNATURES)
+    off8, offs = layer * num_pages * nkv * ps * hd, layer * num_pages * nkv * ps * 4
+    err = lib.rama_kv_write_paged(
+        k.data_ptr(), v.data_ptr(), pos0.data_ptr(), tables.data_ptr(), k8.data_ptr() + off8,
+        v8.data_ptr() + off8, ks.data_ptr() + offs, vs.data_ptr() + offs, B, T, nkv,
+        tables.shape[1], ps, num_pages, hd, build.dtype_code(k), build.stream_ptr(k))
+    build.check(lib, err, "write_kv_paged_q8")
+    launches["write_kv_paged_q8"] += 1
+
+
+def write_kv_prefill_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
+                              tables: torch.Tensor, t_ins: int) -> None:
+    """K13 (b): quantize rows 0:t_ins of the prefilled strips j < len(tables)
+    of k/v (L, K, nkv, T, hd) and write them through table row j (tables
+    (n, mp) int32, n <= K, t_ins <= mp * ps) into the int8 pool, every
+    layer and slot of the admission group in one launch, in place. Pass
+    only the group's real entries: pad rows would rewrite a real slot's
+    pages with the same rows."""
+    if k.device.type == "cpu":
+        return write_kv_prefill_paged_q8_plain(k8, v8, ks, vs, k, v, tables, t_ins)
+    require(k.device.type == "cuda", f"unsupported device {k.device}")
+    _check_cache(k8, v8, ks, vs)
+    L, num_pages, nkv, ps, hd = k8.shape
+    require(k.dim() == 5 and k.shape == v.shape and k.shape[0] == L and k.shape[2] == nkv
+            and k.shape[4] == hd, f"strips {tuple(k.shape)} do not fit pool {tuple(k8.shape)}")
+    K, T = k.shape[1], k.shape[3]
+    require(k.dtype == v.dtype and k.is_contiguous() and v.is_contiguous()
+            and k.device == v.device == k8.device, "strips must be contiguous, of one "
+            "dtype, on the pool's device")
+    n = tables.shape[0] if tables.dim() == 2 else -1
+    require(0 < n <= K, f"{n} table rows for {K} strips")
+    _check_tables(tables, n, k.device)
+    mp = tables.shape[1]
+    require(0 < t_ins <= min(T, mp * ps), f"t_ins {t_ins} must be in [1, min(T={T}, "
+            f"mp * ps={mp * ps})]")
+    lib = build.library("kv_write", _SIGNATURES)
+    err = lib.rama_kv_write_prefill_paged(
+        k.data_ptr(), v.data_ptr(), tables.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+        ks.data_ptr(), vs.data_ptr(), L, K, n, nkv, T, t_ins, mp, ps, num_pages, hd,
+        build.dtype_code(k), build.stream_ptr(k))
+    build.check(lib, err, "write_kv_prefill_paged_q8")
+    launches["write_kv_prefill_paged_q8"] += 1

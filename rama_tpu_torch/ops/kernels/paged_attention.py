@@ -1,0 +1,177 @@
+"""Kernel 12: decode and chunk attention over the shared page pool of the
+paged KV cache, bf16 / f32 or int8 with row scales.
+
+The counterparts of `rama_tpu/ops/pallas/paged_attention.py`'s
+`paged_decode_attention_layer`, `paged_decode_attention_layer_q8`,
+`paged_chunk_attention_layer` and `paged_chunk_attention_layer_q8` (all
+four through one shared `pallas_call`, `_paged_call`): q (B, T, nh, hd)
+against layer `layer` of the pools (L, P, nkv, ps, hd), reached through
+per-slot page tables (B, mp) int32 whose entries past a slot's last used
+page may hold any id (clamped to [0, P - 1]); query t of slot b at
+position pos0[b] + t sees the slot's rows s <= pos0[b] + t of its mp * ps.
+
+On the card these are the paged forms of the decode-attention kernel
+(`csrc/decode_attention.cu`, K4 / K7 / K10): a split of `split_rows(ps)`
+rows lies inside one page, so only the address of its rows goes through
+the table. The plain versions gather each slot's pages into the dense
+(B, nkv, mp * ps, hd) view, as `rama_tpu/runtime/paged.py`'s gather path
+does, and run the dense kernels' plain versions over it.
+
+Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+the plain version (`*_plain`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rama_tpu_torch.ops.kernels import build
+from rama_tpu_torch.ops.kernels import decode_attention as da
+from rama_tpu_torch.ops.kernels.build import require
+
+# kernel launches since the last reset, by entry (chip_smoke reads them)
+launches = {"paged_decode_attention": 0, "paged_decode_attention_q8": 0,
+            "paged_chunk_attention": 0, "paged_chunk_attention_q8": 0}
+
+
+def split_rows(ps: int) -> int:
+    """Cache rows a CTA of the paged kernel reads: the largest multiple of 8
+    that is <= da.CHUNK and divides the page size (64 for 128, 16 for 16,
+    48 for 96), so that no split straddles two pages."""
+    require(ps > 0 and ps % 8 == 0, f"page size {ps} must be a positive multiple of 8 "
+            f"(the paged kernel's splits are whole multiples of 8 rows of one page)")
+    return next(c for c in range(min(da.CHUNK, ps) // 8 * 8, 0, -8) if ps % c == 0)
+
+
+def check(t: int, nh: int, nkv: int, hd: int, ps: int, q8: bool) -> None:
+    """Raise (naming the limit) unless the kernel serves T queries a slot of
+    a GQA group nh / nkv with head_dim hd over pages of ps rows."""
+    da.check_rows(t, nh, nkv)
+    da.check_head_dim(hd, q8)
+    split_rows(ps)
+
+
+def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """One layer of a pool, (P, nkv, ps, ...), through page tables (B, mp)
+    -> the dense (B, nkv, mp * ps, ...) view (table entries clamped to
+    [0, P - 1])."""
+    b, mp = tables.shape
+    g = pages[tables.long().clamp(0, pages.shape[0] - 1)]    # (B, mp, nkv, ps, ...)
+    g = g.transpose(1, 2)
+    return g.reshape(b, g.shape[1], mp * g.shape[3], *g.shape[4:])
+
+
+def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                pos0: torch.Tensor, tables: torch.Tensor,
+                                layer: int) -> torch.Tensor:
+    """Plain PyTorch version: the gathered view through chunk_attention_plain.
+    q (B, T, nh, hd) -> (B, T, nh * hd)."""
+    views = [gather_pages(p[layer], tables)[None] for p in (k_pool, v_pool)]
+    return da.chunk_attention_plain(q, *views, pos0, 0)
+
+
+def paged_chunk_attention_q8_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                   ks_pool: torch.Tensor, vs_pool: torch.Tensor,
+                                   pos0: torch.Tensor, tables: torch.Tensor,
+                                   layer: int) -> torch.Tensor:
+    """Plain PyTorch version over the int8 pool: the gathered int8 rows and
+    scales through chunk_attention_q8_plain."""
+    views = [gather_pages(p[layer], tables)[None] for p in (k_pool, v_pool, ks_pool, vs_pool)]
+    return da.chunk_attention_q8_plain(q, *views, pos0, 0)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                 pos: torch.Tensor, tables: torch.Tensor,
+                                 layer: int) -> torch.Tensor:
+    """paged_chunk_attention_plain of one query per slot: q (B, nh, hd) ->
+    (B, nh * hd)."""
+    return paged_chunk_attention_plain(q[:, None], k_pool, v_pool, pos, tables, layer)[:, 0]
+
+
+def paged_decode_attention_q8_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor, ks_pool: torch.Tensor,
+                                    vs_pool: torch.Tensor, pos: torch.Tensor,
+                                    tables: torch.Tensor, layer: int) -> torch.Tensor:
+    """paged_chunk_attention_q8_plain of one query per slot."""
+    return paged_chunk_attention_q8_plain(q[:, None], k_pool, v_pool, ks_pool, vs_pool, pos,
+                                          tables, layer)[:, 0]
+
+
+def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Tensor,
+            layer: int, what: str) -> torch.Tensor:
+    """Check and launch the paged kernel for q (B, T, nh, hd) against layer
+    `layer` of pools (k, v) or (k8, v8, ks, vs). Returns (B, T, nh * hd)."""
+    require(q.device.type == "cuda", f"unsupported device {q.device}")
+    k, v = pools[0], pools[1]
+    q8 = len(pools) == 4
+    require(q.dim() == 4 and k.dim() == 5 and k.shape == v.shape,
+            "q (B, T, nh, hd) and pools (L, P, nkv, ps, hd) expected")
+    b, t, nh, hd = q.shape
+    L, npages, nkv, ps, hdc = k.shape
+    require(hdc == hd, f"q {tuple(q.shape)} does not fit pool {tuple(k.shape)}")
+    check(t, nh, nkv, hd, ps, q8)
+    require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
+    da.check_caches(q, pools)
+    require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
+            and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
+    require(tables.dtype == torch.int32 and tables.dim() == 2 and tables.shape[0] == b
+            and tables.device == q.device and tables.is_contiguous(),
+            "page tables must be a contiguous (B, mp) int32 CUDA tensor")
+    mp = tables.shape[1]
+    chunk = split_rows(ps)
+    nsplit = -(-(mp * ps) // chunk)
+    lib = build.library("decode_attention", da._SIGNATURES)
+    out = torch.empty((b, t, nh * hd), dtype=q.dtype, device=q.device)
+    part_o = torch.empty((b, t, nh, nsplit, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, t, nh, nsplit, 2), dtype=torch.float32, device=q.device)
+    fn = lib.rama_paged_attention_q8 if q8 else lib.rama_paged_attention
+    err = fn(q.data_ptr(), *da.layer_ptrs(pools, layer * npages * nkv * ps), pos0.data_ptr(),
+             tables.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
+             nkv, mp, ps, npages, hd, chunk, build.dtype_code(q), build.stream_ptr(q))
+    build.check(lib, err, what)
+    launches[what] += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           pos: torch.Tensor, tables: torch.Tensor, layer: int) -> torch.Tensor:
+    """K12, decode: q (B, nh, hd) against layer `layer` of the pools
+    (L, P, nkv, ps, hd) through page tables (B, mp) int32, visible rows
+    s <= pos[b] (pos (B,) int32). Returns (B, nh * hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, pos, tables, layer)
+    return _launch(q[:, None], (k_pool, v_pool), pos, tables, layer,
+                   "paged_decode_attention")[:, 0]
+
+
+def paged_decode_attention_q8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              ks_pool: torch.Tensor, vs_pool: torch.Tensor, pos: torch.Tensor,
+                              tables: torch.Tensor, layer: int) -> torch.Tensor:
+    """K12, decode over an int8 pool: k/v (L, P, nkv, ps, hd) int8 with f32
+    row scales ks/vs (L, P, nkv, ps); otherwise as paged_decode_attention."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_q8_plain(q, k_pool, v_pool, ks_pool, vs_pool, pos,
+                                               tables, layer)
+    return _launch(q[:, None], (k_pool, v_pool, ks_pool, vs_pool), pos, tables, layer,
+                   "paged_decode_attention_q8")[:, 0]
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          pos0: torch.Tensor, tables: torch.Tensor, layer: int) -> torch.Tensor:
+    """K12, chunk: q (B, T, nh, hd), T consecutive queries a slot from
+    pos0[b], against layer `layer` of the pools through page tables (B, mp);
+    the chunk's own rows written first. Returns (B, T, nh * hd)."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(q, k_pool, v_pool, pos0, tables, layer)
+    return _launch(q, (k_pool, v_pool), pos0, tables, layer, "paged_chunk_attention")
+
+
+def paged_chunk_attention_q8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                             ks_pool: torch.Tensor, vs_pool: torch.Tensor, pos0: torch.Tensor,
+                             tables: torch.Tensor, layer: int) -> torch.Tensor:
+    """K12, chunk over an int8 pool."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_q8_plain(q, k_pool, v_pool, ks_pool, vs_pool, pos0,
+                                              tables, layer)
+    return _launch(q, (k_pool, v_pool, ks_pool, vs_pool), pos0, tables, layer,
+                   "paged_chunk_attention_q8")

@@ -30,11 +30,23 @@ What it keeps from the JAX engine:
   the plain ticks' stream — then fetches samples and accepts once. Adaptive
   dormancy (`spec_min_accept`) serves plain ticks while drafts do not land;
   draft mode replays the dormant gap through the draft model before the
-  next probe.
+  next probe;
+- the **paged KV cache** (`paged_kv`, runtime/paged.py): one shared page
+  pool (bf16 / f32, or int8 with `kv_quant="int8"`) of `kv_num_pages`
+  pages of `kv_page_size` rows (default: the dense worst case) plus one
+  trash page that free slots' table rows point at, so their unconditional
+  writes never touch a live page; pages are reserved at admission
+  (min(bucket(len), max_len) rows; "out of KV cache pages" ends a request
+  that does not fit) and before every plain tick (n rows a slot) and spec
+  tick (m (k + 1) rows), and released when a request ends. Admission
+  prefills into the dense scratch as before and inserts the strips through
+  the tables (K13's strip writer for the int8 pool); decode ticks and spec
+  rounds (n-gram or draft; the draft model keeps its dense cache) run the
+  fused paged forward.
 
 Not ported yet (ROADMAP.md): pipelined/chained ticks (and chained spec
-ticks), async-firsts admission, chunked prefill, the paged cache (and
-paged speculation), tensor/data/sequence parallelism, multi-host. Their
+ticks), async-firsts admission, chunked prefill, tensor/data/sequence
+parallelism (the paged pool's dp sharding with it), multi-host. Their
 EngineConfig fields raise NotImplementedError when set.
 
 Threading: one engine thread owns the device loop; request queues bridge to
@@ -57,7 +69,11 @@ import torch
 from rama_tpu_torch.config import EngineConfig, ModelConfig
 from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables, check_chunk,
                                          decode_step, forward, forward_chunk, fuse_params)
+from rama_tpu_torch.ops.kernels import paged_attention
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
+from rama_tpu_torch.runtime.paged import (PageAllocator, PagedKVCache, QuantPagedKVCache,
+                                          decode_step_paged, forward_paged,
+                                          insert_prefill_paged)
 from rama_tpu_torch.runtime.sampler import sample_batched_keyed, sample_greedy
 from rama_tpu_torch.runtime.speculative import ngram_propose
 from rama_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer
@@ -138,7 +154,6 @@ _SPEC_PROBE_ROUNDS = 8
 
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
-    ("paged_kv", False, "paged KV cache"),
     ("prefill_chunk", 0, "chunked prefill"),
     ("scale_dtype", None, "bf16-stored weight scales"),
     ("tp_size", 1, "tensor/data/sequence parallelism"),
@@ -198,6 +213,14 @@ class Engine:
             raise ValueError("spec_mode='draft' requires draft=(draft_cfg, draft_params)")
         if self.spec:
             check_chunk(cfg, self.spec + 1, self.device)   # the verification chunk
+        self.paged = self.ecfg.paged_kv
+        if self.paged:
+            ps = self.ecfg.kv_page_size
+            self.pages_per_slot = -(-self.max_len // ps)
+            # one extra "trash" page absorbs the unconditional KV writes of
+            # free slots, so stale table rows never touch a live page
+            self.trash_page = self.ecfg.kv_num_pages or b * self.pages_per_slot
+            self._check_paged(cfg, ps)
         self.params = self._serving_params(cfg, params)
         self.cache = self._create_cache(b)
         self.dcfg = self.dparams = self.dcache = None
@@ -250,7 +273,28 @@ class Engine:
         return KVCache.create(self.dcfg, batch=batch, max_len=self.max_len,
                               dtype=self.dparams["final_norm"].dtype, device=self.device)
 
-    def _create_cache(self, batch: int) -> KVCache | QuantKVCache:
+    def _check_paged(self, cfg: ModelConfig, ps: int) -> None:
+        """On the card every paged tick runs the fused path through K12 /
+        K13: raise here, naming the limit, for a page size, head_dim, GQA
+        group or verification chunk the kernels do not take."""
+        if self.device.type == "cpu":
+            return
+        for t in (1, self.spec + 1) if self.spec else (1,):
+            paged_attention.check(t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ps,
+                                  self.kv_quant == "int8")
+
+    def _create_cache(self, batch: int):
+        """The slot cache, or the page pool (and a fresh allocator and
+        all-trash page tables) in paged mode."""
+        if self.paged:
+            ps = self.ecfg.kv_page_size
+            self.allocator = PageAllocator(self.trash_page, ps, batch)
+            self.page_tables = np.full((batch, self.pages_per_slot), self.trash_page, np.int32)
+            if self.kv_quant == "int8":
+                return QuantPagedKVCache.create(self.cfg, self.trash_page + 1, ps,
+                                                device=self.device)
+            return PagedKVCache.create(self.cfg, self.trash_page + 1, ps, dtype=self.dtype,
+                                       device=self.device)
         if self.kv_quant == "int8":
             return QuantKVCache.create(self.cfg, batch=batch, max_len=self.max_len,
                                        device=self.device)
@@ -304,7 +348,8 @@ class Engine:
         except Exception:  # noqa: BLE001 — a failed admit must not lose the client
             traceback.print_exc()
             self.metrics["engine_errors"] += 1
-            for _, slot, req in batch:
+            for i, slot, req in batch:
+                self._release_pages(i)
                 slot.request = None
                 if req.error is None:
                     req.error = "engine error during prefill"
@@ -317,7 +362,16 @@ class Engine:
             key = np.random.default_rng((self.ecfg.seed, self.req_counter)).integers(
                 0, 1 << 32, size=2, dtype=np.uint32)
             self.req_counter += 1
+            if self.paged and not self._reserve(slot_idx, min(_bucket(len(ids)),
+                                                              self.max_len)):
+                # out of pages: an error event for this request alone, not
+                # a silent empty stream
+                req.error = "out of KV cache pages"
+                req.queue.put(None)
+                continue
             entries.append((slot_idx, slot, req, ids, key))
+        if not entries:
+            return
         t_all = min(_bucket(max(len(e[3]) for e in entries)), self.max_len)
         c = _prefill_k_cap(t_all)
         for i in range(0, len(entries), c):
@@ -386,6 +440,12 @@ class Engine:
                 torch.from_numpy(temps).to(dev), torch.from_numpy(top_ps).to(dev))
         else:
             firsts = sample_greedy(last[:, 0])
+        if self.paged:
+            # the group's real entries only: pad rows duplicate the last one
+            tables = torch.from_numpy(self.page_tables[slots]).to(dev)
+            insert_prefill_paged(self.cache, scratch.k, scratch.v, tables,
+                                 min(t_pad, self.pages_per_slot * self.cache.page_size))
+            return firsts.cpu().numpy()
         t_ins = min(t_pad, self.max_len)
         if isinstance(self.cache, QuantKVCache):
             c = self.cache
@@ -435,9 +495,14 @@ class Engine:
             keys = torch.from_numpy(self.slot_keys).to(dev)
             t = torch.from_numpy(temps).to(dev)
             tp = torch.from_numpy(tps).to(dev)
+        tables = self._device_tables()
         outs = []
         for _ in range(n):
-            logits, self.cache = decode_step(self.params, self.cfg, tok, p, self.cache)
+            if self.paged:
+                logits, self.cache = decode_step_paged(self.params, self.cfg, tok, p, self.cache,
+                                                       tables)
+            else:
+                logits, self.cache = decode_step(self.params, self.cfg, tok, p, self.cache)
             tok = (sample_batched_keyed(logits, keys, p, t, tp) if sampled
                    else sample_greedy(logits))
             outs.append(tok)
@@ -466,7 +531,40 @@ class Engine:
     def _finish(self, slot: _Slot):
         slot.request.queue.put(None)  # end-of-stream sentinel
         slot.request = None
+        self._release_pages(self.slots.index(slot))
         self.metrics["requests_completed"] += 1
+
+    # -- the page pool ------------------------------------------------------------
+
+    def _reserve(self, i: int, rows: int) -> bool:
+        """Grow slot i's pages to cover `rows` positions and copy its table
+        into the page tables; False (nothing reserved) if the pool is out of
+        pages."""
+        if self.allocator.reserve(i, rows) < 0:
+            return False
+        table = self.allocator.table(i)
+        self.page_tables[i, : len(table)] = table
+        return True
+
+    def _release_pages(self, i: int) -> None:
+        """Slot i's pages back to the pool, its table row onto the trash page."""
+        if self.paged:
+            self.allocator.release(i)
+            self.page_tables[i, :] = self.trash_page
+
+    def _reserve_tick_pages(self, pos: np.ndarray, n: int) -> None:
+        """Grow every active slot's table to cover the n positions a tick
+        writes (rama_tpu's _reserve_tick_pages); a slot the pool cannot
+        grow ends with "out of KV cache pages"."""
+        if not self.paged:
+            return
+        for i, s in enumerate(self.slots):
+            if not s.free and not self._reserve(i, min(int(pos[i]) + n, self.max_len)):
+                s.request.error = "out of KV cache pages"
+                self._finish(s)
+
+    def _device_tables(self) -> torch.Tensor | None:
+        return torch.from_numpy(self.page_tables).to(self.device) if self.paged else None
 
     def _loop(self):
         # a device-loop error fails the in-flight requests, rebuilds the
@@ -514,6 +612,7 @@ class Engine:
         remaining = min(s.request.steps - s.generated for s in active)
         while n > 1 and n // 2 >= remaining:
             n //= 2
+        self._reserve_tick_pages(pos, n)
         t0 = time.time()
         with self.phases.phase("decode"):
             out = self._dev_tick(tokens, pos, temps, tps, n)
@@ -551,6 +650,7 @@ class Engine:
                 m //= 2
         if not m:
             return False
+        self._reserve_tick_pages(pos, m * (k + 1))
         if self.draft_mode:
             with self.phases.phase("draft_resync"):
                 self._maybe_draft_resync()
@@ -587,29 +687,35 @@ class Engine:
             keys = torch.from_numpy(self.slot_keys).to(dev)
             t = torch.from_numpy(temps).to(dev)
             tp = torch.from_numpy(tps).to(dev)
+        tables = self._device_tables()
         outs = []
         for _ in range(m):
-            tok, p, samples, accept = self._spec_round(tok, p, h, keys, t, tp, k)
+            tok, p, samples, accept = self._spec_round(tok, p, h, keys, t, tp, k, tables)
             outs.append(torch.cat([samples, accept[:, None]], dim=1))
         return torch.stack(outs).cpu().numpy()
 
-    def _spec_round(self, tok, pos, hist, keys, temps, tps, k: int):
+    def _spec_round(self, tok, pos, hist, keys, temps, tps, k: int, tables=None):
         """One round (rama_tpu's _spec_round): draft k tokens per slot,
         verify the (B, k+1) chunk in one forward_chunk, sample every chunk
         position in one batched keyed call (rows repeated per slot, each
         position its own key), accept the drafts that equal the samples.
-        The samples are written into the histories optimistically: rows
-        past the accepted prefix lie above the proposer's window and are
-        rewritten by the next round. Returns (next tokens, next positions,
-        samples (B, k+1), accepts (B,))."""
+        Over the page pool (`tables`, paged mode) the chunk goes through
+        forward_paged's fused path. The samples are written into the
+        histories optimistically: rows past the accepted prefix lie above
+        the proposer's window and are rewritten by the next round. Returns
+        (next tokens, next positions, samples (B, k+1), accepts (B,))."""
         b = tok.shape[0]
         dev = tok.device
         drafts = (self._draft_propose(tok, pos, k) if self.draft_mode
                   else ngram_propose(hist, pos + 1, k))
         chunk = torch.cat([tok[:, None], drafts], dim=1)                # (B, k+1)
-        logits, self.cache = forward_chunk(self.params, self.cfg, chunk, pos, self.cache)
-        flat = logits.reshape(b * (k + 1), -1)
         cols = pos[:, None] + torch.arange(k + 1, device=dev)[None, :]  # chunk positions
+        if tables is None:
+            logits, self.cache = forward_chunk(self.params, self.cfg, chunk, pos, self.cache)
+        else:
+            logits, self.cache = forward_paged(self.params, self.cfg, chunk, cols, self.cache,
+                                               tables)
+        flat = logits.reshape(b * (k + 1), -1)
         if keys is None:
             samples = sample_greedy(flat)
         else:

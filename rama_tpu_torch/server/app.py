@@ -13,8 +13,8 @@ package's app:
 
 Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
           [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda] \
-          [--kv-quant int8] [--spec-tick 3 [--spec-mode draft \
-          --spec-draft-model draft.bin]]
+          [--kv-quant int8] [--paged [--page-size 128]] [--spec-tick 3 \
+          [--spec-mode draft --spec-draft-model draft.bin]]
 """
 
 from __future__ import annotations
@@ -148,7 +148,8 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 dtype: str = "bfloat16", batch: int = 8,
                 max_seq_len: int | None = None, device: str = "cuda",
                 kv_quant: str | None = None, spec_tick: int = 0,
-                spec_mode: str = "ngram", spec_draft_model: str | None = None) -> Engine:
+                spec_mode: str = "ngram", spec_draft_model: str | None = None,
+                paged: bool = False, page_size: int = 128) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
@@ -161,14 +162,14 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
         draft = load_model(spec_draft_model, "none", dtype, device)[:2]
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
                         max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
-                        spec_tick=spec_tick, spec_mode=spec_mode)
+                        spec_tick=spec_tick, spec_mode=spec_mode, paged_kv=paged,
+                        kv_page_size=page_size)
     return Engine(cfg, params, tokenizer, ecfg, draft=draft)
 
 
 # server flags of the JAX package whose features are not ported yet:
 # (flag, attribute, value when unset, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("--paged", "paged", False, "paged KV cache"),
     ("--scale-dtype", "scale_dtype", None, "bf16-stored weight scales"),
     ("--prefill-chunk", "prefill_chunk", 0, "chunked prefill"),
     ("--tp", "tp", 1, "tensor/data/sequence parallelism"),
@@ -192,7 +193,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-seq-len", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")
-    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: one shared page pool (composes with --kv-quant "
+                         "and --spec-tick)")
+    ap.add_argument("--page-size", type=int, default=128)
     ap.add_argument("--kv-quant", default=None, choices=["int8"])
     ap.add_argument("--scale-dtype", default=None, choices=["bf16"])
     ap.add_argument("--spec-tick", type=int, default=0,
@@ -223,7 +227,8 @@ def main(argv=None) -> int:
     engine = load_engine(args.model, args.tokenizer, args.quant, args.dtype,
                          args.batch, max_seq_len=args.max_seq_len, device=args.device,
                          kv_quant=args.kv_quant, spec_tick=args.spec_tick,
-                         spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model)
+                         spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
+                         paged=args.paged, page_size=args.page_size)
     engine.start()
     try:
         host, _, port = args.address.rpartition(":")

@@ -106,34 +106,38 @@ def test_random_int4_params_have_quantize_int4_layout(smoke):
 def _modules():
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
 
-    return qm, ffn, da, pa, kvw
+    return qm, ffn, da, pa, kvw, pga
 
 
 @pytest.fixture
 def counters():
     """The launch counters of every wrapper, restored after the test."""
-    qm, ffn, da, pa, kw = mods = _modules()
-    saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), da.launches,
-             da.launches_q8, pa.launches)
+    qm, ffn, da, pa, kw, pga = mods = _modules()
+    saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
+             da.launches, da.launches_q8, pa.launches)
     yield mods
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
-    da.launches, da.launches_q8, pa.launches = saved[3:]
+    pga.launches.update(saved[3])
+    da.launches, da.launches_q8, pa.launches = saved[4:]
 
 
 def test_launch_counters_read_and_reset(smoke, counters):
     """The counts the main paths are judged by: one per wrapper and weight
     bits or cache, set to 0 before each path."""
-    qm, ffn, da, pa, kw = counters
+    qm, ffn, da, pa, kw, pga = counters
     qm.launches[4], ffn.launches[8], da.launches = 3, 2, 1
+    pga.launches["paged_chunk_attention_q8"] = 9
     da.launches_q8, kw.launches["write_kv_strips_q8"] = 5, 7
     got = smoke.read_launches(*counters)
     assert got["quant_matmul_int4"] == 3 and got["ffn"] == 2 and got["decode_attention"] == 1
     assert got["decode_attention_q8"] == 5 and got["write_kv_strips_q8"] == 7
+    assert got["paged_chunk_attention_q8"] == 9
     for path in smoke.PATHS:
         assert set(got) >= set(path["record"]) | set(path["forbid"])
     smoke.reset_launches(*counters)
@@ -342,3 +346,102 @@ def test_compare_fails_a_chunk_query_that_reads_one_row_past_its_limit(smoke, q8
     got[1, 1] = late[1, 1]
     with pytest.raises(SystemExit, match="rel err"):
         smoke.compare(torch, "one row past", got, want, per=hd)
+
+
+PAGED_KERNELS = ("paged_decode_attention", "paged_decode_attention_q8", "paged_chunk_attention",
+                 "paged_chunk_attention_q8", "write_kv_paged_q8", "write_kv_prefill_paged_q8")
+
+
+def test_paged_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in ("kernels_paged", "model_paged", "serve_paged", "profile_paged",
+               "serve_paged_kv8", "serve_spec_paged", "serve_spec_paged_kv8"):
+        assert ph in smoke.ALL_PHASES
+    assert smoke.PAGED_PATH["phases"] == ("model_paged", "serve_paged", "profile_paged")
+    for path in (smoke.PAGED_PATH, smoke.PAGED_KV8_PATH, smoke.SPEC_PAGED_PATH,
+                 smoke.SPEC_PAGED_KV8_PATH):
+        assert path["serve"]["paged"] and path["serve"]["max_seq_len"] == 4096
+        assert path in smoke.PATHS
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "serve_paged_kv8"),
+                                dev)
+    assert line["ok"] is False and line["skipped_phases"] == ["serve_paged_kv8"] and rc != 0
+
+
+def test_every_paged_kernel_records_its_launches_on_a_paged_path(smoke, counters):
+    """Each of K12's four forms and K13's two writers takes its "launches"
+    from a paged serving path, and the counters read them."""
+    recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
+                if key == "launches"}
+    assert set(PAGED_KERNELS) <= recorded
+    assert set(smoke.read_launches(*counters)) >= set(PAGED_KERNELS)
+    smoke.reset_launches(*counters)
+    assert not any(smoke.read_launches(*counters).values())
+
+
+@pytest.mark.parametrize("path_name,must,must_not", [
+    ("PAGED_PATH", "paged_decode_attention", ["decode_attention", "chunk_attention"]),
+    ("PAGED_KV8_PATH", "write_kv_prefill_paged_q8",
+     ["write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8", "decode_attention"]),
+    ("SPEC_PAGED_PATH", "paged_chunk_attention",
+     ["decode_attention", "chunk_attention", "paged_decode_attention"]),
+    ("SPEC_PAGED_KV8_PATH", "paged_chunk_attention_q8",
+     ["decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8"]),
+])
+def test_paged_paths_fail_on_a_missing_or_a_forbidden_kernel(smoke, path_name, must, must_not):
+    """The paged paths launch K12 / K13 where the dense paths launch K4,
+    K7, K10, K6, K8 and K11, and fail if one of theirs never launched or a
+    dense kernel did."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 3 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match=f"never launched on the {path['label']} main"):
+        smoke.check_launches(path, {**ok, must: 0})
+    for name in must_not:
+        assert name in path["forbid"]
+        with pytest.raises(SystemExit, match=rf"\['{name}'\] launched on the {path['label']}"):
+            smoke.check_launches(path, {**ok, name: 1})
+
+
+@pytest.mark.parametrize("free", [64, 63])
+def test_paged_serve_fails_unless_every_page_is_free_again(smoke, monkeypatch, free):
+    """phase_serve on a paged engine holds the allocator to all
+    PAGED_NUM_PAGES pages free after the run (an engine stand-in that
+    streams two tokens a request)."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.runtime import engine as eng_mod
+    from rama_tpu_torch.runtime.paged import PagedKVCache
+
+    cfg = ModelConfig(dim=64, hidden_dim=96, n_layers=1, n_heads=4, n_kv_heads=4,
+                      vocab_size=8, seq_len=32)
+
+    class FakeAllocator:
+        def available(self):
+            return free
+
+    class FakeEngine:
+        def __init__(self, cfg, params, tokenizer, ecfg, draft=None):
+            assert ecfg.paged_kv and ecfg.kv_num_pages == smoke.PAGED_NUM_PAGES
+            self.cache = PagedKVCache.create(cfg, 2, 8, device="cpu")
+            self.allocator, self.n = FakeAllocator(), 0
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def submit(self, req, timeout=None):
+            for tok in ("a", "b", None):
+                req.queue.put(tok)
+            self.n += 2
+
+        def stats(self):
+            return {"tokens_generated": self.n, "engine_errors": 0, "decode_tok_per_s": 1.0,
+                    "spec_accept_rate": None, "decode_ticks": 1, "phases": {}}
+
+    monkeypatch.setattr(eng_mod, "Engine", FakeEngine)
+    if free == smoke.PAGED_NUM_PAGES:
+        smoke.phase_serve(torch, cfg, None, None, "card", tag="serve_paged", paged=True)
+    else:
+        with pytest.raises(SystemExit, match="63 of 64 pages free"):
+            smoke.phase_serve(torch, cfg, None, None, "card", tag="serve_paged", paged=True)

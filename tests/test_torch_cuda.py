@@ -218,7 +218,7 @@ def test_engine_int8_cache_on_card_matches_cpu_engine(dev):
     _check_engine_on_card(dev, kv_quant="int8")
 
 
-def _check_engine_on_card(dev, kv_quant, spec_tick=0):
+def _check_engine_on_card(dev, kv_quant, spec_tick=0, paged=False):
     import numpy as np
 
     from rama_tpu_torch.config import EngineConfig, ModelConfig
@@ -239,11 +239,12 @@ def _check_engine_on_card(dev, kv_quant, spec_tick=0):
                                         for i in range(V - 3)]
     tok = Tokenizer(vocab, [0.0] * V)
     outs = []
-    for device, spec in (("cpu", 0), (dev, spec_tick), ("cpu", spec_tick)):
+    for device, spec, pg in (("cpu", 0, False), (dev, spec_tick, paged), ("cpu", spec_tick, False)):
         eng = Engine(cfg, quantize_params(cfg, p, group_size=16, dtype=torch.float32,
                                           device=device),
                      tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant,
-                                       spec_tick=spec, spec_rounds=2))
+                                       spec_tick=spec, spec_rounds=2, paged_kv=pg,
+                                       kv_page_size=16))
         reqs = [Request(prompt="ab" * 40, steps=8, temperature=0.0),
                 Request(prompt="abc", steps=100, temperature=0.0, stop_at_eos=False),
                 Request(prompt="zq", steps=20, temperature=0.9)]
@@ -462,3 +463,196 @@ def test_spec_engine_on_card_matches_cpu_engine(dev, kv_quant):
     K11 on the int8 cache) emits on the card the streams the CPU engine
     emits, and the spec-off streams."""
     _check_engine_on_card(dev, kv_quant=kv_quant, spec_tick=3)
+
+
+# -- the paged cache: K12, K13 ---------------------------------------------------
+
+
+def _paged_setup(dev, L, B, nkv, hd, ps, mp, pos, t, seed, spare=3):
+    """A pool whose slots own disjoint pages in shuffled order for the rows
+    up to pos + t - 1, table entries past them -1 or a random page, and the
+    dense (L, B, nkv, mp * ps, hd) view of the same rows."""
+    g = torch.Generator().manual_seed(seed)
+    used = [-(-(p + t) // ps) for p in pos]
+    npages = sum(used) + spare
+    perm = torch.randperm(npages, generator=g)
+    tables = torch.full((B, mp), -1, dtype=torch.int32)
+    start = 0
+    for b, u in enumerate(used):
+        tables[b, :u] = perm[start:start + u]
+        start += u
+        if u < mp:
+            tables[b, mp - 1] = int(perm[-1])            # a stale entry past the used pages
+    return tables.to(dev), npages
+
+
+def _paged_view(pool, tables):
+    from rama_tpu_torch.ops.kernels.paged_attention import gather_pages
+
+    return torch.stack([gather_pages(pool[l], tables) for l in range(pool.shape[0])])
+
+
+@pytest.mark.parametrize("nh,nkv,hd,ps", [(4, 4, 128, 16), (4, 2, 48, 24), (8, 2, 16, 128),
+                                          (4, 4, 64, 96)])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention(dev, nh, nkv, hd, ps, t, dtype):
+    """K12's decode (T = 1) and chunk forms against their plain versions on
+    both pools: shuffled disjoint pages, -1 and stale table entries, ragged
+    positions on and across page edges."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    if t * nh // nkv > 8:
+        t = 8 // (nh // nkv)
+    mp = 5
+    pos = [0, ps - 1, ps, 3 * ps + 5, mp * ps - t]
+    tables, npages = _paged_setup(dev, 2, 5, nkv, hd, ps, mp, pos, t, seed=ps + t)
+    k = torch.randn(2, npages, nkv, ps, hd, device=dev).to(dtype)
+    v = torch.randn(2, npages, nkv, ps, hd, device=dev).to(dtype)
+    (k8, ks), (v8, vs) = kw.kv_quant_rows(k.float()), kw.kv_quant_rows(v.float())
+    q = torch.randn(5, t, nh, hd, device=dev).to(dtype)
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = dict(pa.launches)
+    for layer in (0, 1):
+        if t == 1:
+            _close(pa.paged_decode_attention(q[:, 0], k, v, p0, tables, layer),
+                   pa.paged_decode_attention_plain(q[:, 0], k, v, p0, tables, layer), dtype)
+            _close(pa.paged_decode_attention_q8(q[:, 0], k8, v8, ks, vs, p0, tables, layer),
+                   pa.paged_decode_attention_q8_plain(q[:, 0], k8, v8, ks, vs, p0, tables,
+                                                      layer), dtype)
+        else:
+            _close(pa.paged_chunk_attention(q, k, v, p0, tables, layer),
+                   pa.paged_chunk_attention_plain(q, k, v, p0, tables, layer), dtype)
+            _close(pa.paged_chunk_attention_q8(q, k8, v8, ks, vs, p0, tables, layer),
+                   pa.paged_chunk_attention_q8_plain(q, k8, v8, ks, vs, p0, tables, layer),
+                   dtype)
+    form = "decode" if t == 1 else "chunk"
+    assert pa.launches[f"paged_{form}_attention"] == before[f"paged_{form}_attention"] + 2
+    assert pa.launches[f"paged_{form}_attention_q8"] == before[f"paged_{form}_attention_q8"] + 2
+
+
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("t", [1, 4])
+def test_paged_attention_equals_the_dense_kernel(dev, ps, t):
+    """Where the 64-row splits coincide (ps % 64 == 0), K12 over the pool
+    equals K4 / K10 (and K7 / K10 int8) over the gathered dense view bit
+    for bit."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    mp, nkv, hd = 4, 4, 128
+    pos = [0, 63, 64, ps - 1, mp * ps - t]
+    tables, npages = _paged_setup(dev, 2, 5, nkv, hd, ps, mp, pos, t, seed=7)
+    k = torch.randn(2, npages, nkv, ps, hd, device=dev).to(torch.bfloat16)
+    v = torch.randn(2, npages, nkv, ps, hd, device=dev).to(torch.bfloat16)
+    (k8, ks), (v8, vs) = kw.kv_quant_rows(k.float()), kw.kv_quant_rows(v.float())
+    q = torch.randn(5, t, nkv, hd, device=dev).to(torch.bfloat16)
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    dense = [_paged_view(x, tables).contiguous() for x in (k, v, k8, v8, ks, vs)]
+    got = pa.paged_chunk_attention(q, k, v, p0, tables, 1)
+    want = da.chunk_attention(q, dense[0], dense[1], p0, 1)
+    assert torch.equal(got, want)
+    got = pa.paged_chunk_attention_q8(q, k8, v8, ks, vs, p0, tables, 1)
+    want = da.chunk_attention_q8(q, *dense[2:], p0, 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ps,t", [(16, 1), (16, 8), (32, 3), (128, 4), (24, 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_write_kv_paged_q8(dev, ps, t, dtype):
+    """K13 (a) equals its plain version exactly: chunks at a page start,
+    straddling a page edge, ending a page, and running past the slot's
+    table (clipped into its last page)."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    mp, nkv, hd = 3, 2, 128
+    pos = [0, ps - t + 1 if t > 1 else ps - 1, 2 * ps - t, mp * ps - 1]
+    g = torch.Generator().manual_seed(ps * t)
+    npages = 4 * mp + 1
+    tables = torch.randperm(npages - 1, generator=g)[:4 * mp].view(4, mp).to(torch.int32)
+    got = _q8_cache(dev, 3, npages, nkv, ps, hd, seed=ps + t)
+    want = [x.clone() for x in got]
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = kw.launches["write_kv_paged_q8"]
+    for layer in (0, 2):
+        k, v = (_kv_rows(dev, (4, t, nkv, hd), dtype, seed=layer + i) for i in (0, 7))
+        kw.write_kv_paged_q8(*got, k, v, p0, tables.to(dev), layer)
+        kw.write_kv_paged_q8_plain(*want, k, v, p0, tables.to(dev), layer)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kw.launches["write_kv_paged_q8"] == before + 2
+
+
+@pytest.mark.parametrize("ps,t_ins,n", [(16, 40, 3), (128, 130, 2), (32, 32, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_write_kv_prefill_paged_q8(dev, ps, t_ins, n, dtype):
+    """K13 (b) equals its plain version exactly: an admission group's
+    strips into shuffled pages, partial last pages, strips of the bucket
+    longer than t_ins and pad strips past the group's tables."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    mp = -(-t_ins // ps) + 1
+    npages = n * mp + 2
+    g = torch.Generator().manual_seed(ps + n)
+    tables = torch.randperm(npages, generator=g)[:n * mp].view(n, mp).to(torch.int32)
+    got = _q8_cache(dev, 2, npages, 2, ps, 128, seed=t_ins)
+    want = [x.clone() for x in got]
+    k, v = (_kv_rows(dev, (2, n + 1, 2, t_ins + 3, 128), dtype, seed=i) for i in (1, 2))
+    before = kw.launches["write_kv_prefill_paged_q8"]
+    kw.write_kv_prefill_paged_q8(*got, k, v, tables.to(dev), t_ins)
+    kw.write_kv_prefill_paged_q8_plain(*want, k, v, tables.to(dev), t_ins)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kw.launches["write_kv_prefill_paged_q8"] == before + 1
+
+
+@pytest.mark.parametrize("kv_quant,spec_tick", [(None, 0), ("int8", 0), (None, 3),
+                                                ("int8", 3)])
+def test_paged_engine_on_card_matches_cpu_engine(dev, kv_quant, spec_tick, monkeypatch):
+    """The engine on a page pool (page size 16) serves on the card the
+    streams the dense CPU engine serves, with K12 / K13's plain versions and
+    the gather path made to raise: the card never falls back to them."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+    from rama_tpu_torch.runtime import paged
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain or gather path")
+
+    for mod, names in ((pa, ("paged_decode_attention_plain", "paged_decode_attention_q8_plain",
+                             "paged_chunk_attention_plain", "paged_chunk_attention_q8_plain")),
+                       (kw, ("write_kv_paged_q8_plain", "write_kv_prefill_paged_q8_plain")),
+                       (paged, ("_forward_gather_paged",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, boom)
+    before = dict(pa.launches)
+    _check_engine_on_card(dev, kv_quant=kv_quant, spec_tick=spec_tick, paged=True)
+    form = "chunk" if spec_tick else "decode"
+    key = f"paged_{form}_attention" + ("_q8" if kv_quant else "")
+    assert pa.launches[key] > before[key]
+
+
+def test_paged_engine_refuses_a_page_size_the_kernel_does_not_take(dev):
+    from rama_tpu_torch.config import EngineConfig, ModelConfig
+    from rama_tpu_torch.models.llama import load_params
+    from rama_tpu_torch.runtime.engine import Engine
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=64, hidden_dim=96, n_layers=1, n_heads=4, n_kv_heads=2,
+                      vocab_size=8, seq_len=32)
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    p = {"tok_embedding": rng.standard_normal((8, 64)), "wq": rng.standard_normal((1, 64, 64)),
+         "wk": rng.standard_normal((1, 64, 32)), "wv": rng.standard_normal((1, 64, 32)),
+         "wo": rng.standard_normal((1, 64, 64)), "w1": rng.standard_normal((1, 64, 96)),
+         "w2": rng.standard_normal((1, 96, 64)), "w3": rng.standard_normal((1, 64, 96)),
+         "attn_norm": np.ones((1, 64)), "ffn_norm": np.ones((1, 64)), "final_norm": np.ones(64)}
+    params = load_params(cfg, p, dtype=torch.float32, device=dev)
+    tok = Tokenizer(["<unk>", "<s>", "</s>"] + list("abcde"), [0.0] * 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=12))
+    with pytest.raises(ValueError, match="at most 8"):
+        Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=16, spec_tick=4))

@@ -281,8 +281,19 @@ def test_long_context_beyond_checkpoint_seq_len():
 def test_unported_engine_config_raises(engine_setup, field, value):
     """Unported features raise NotImplementedError; kv_quant is ported for
     "int8" and refuses any other value with ValueError, as in rama_tpu;
-    spec_tick is ported and refuses draft mode without a draft model."""
+    spec_tick is ported and refuses draft mode without a draft model;
+    paged_kv is ported: a page pool of pages_per_slot pages a slot plus
+    one trash page."""
     _, cfg, _, params, tok = engine_setup
+    if field == "paged_kv":
+        from rama_tpu_torch.runtime.paged import PagedKVCache
+
+        eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=4, kv_page_size=16,
+                                                    **{field: value}))
+        assert isinstance(eng.cache, PagedKVCache) and eng.pages_per_slot == 64 // 16
+        assert eng.cache.num_pages == eng.trash_page + 1 == 4 * 4 + 1
+        assert (eng.page_tables == eng.trash_page).all()
+        return
     if field == "spec_tick":
         assert Engine(cfg, params, tok, EngineConfig(spec_tick=value)).spec == value
         with pytest.raises(ValueError, match="requires draft"):

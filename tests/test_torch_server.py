@@ -233,8 +233,20 @@ class _Idle:
                                   ["--spec-tick", "2"], ["--scale-dtype", "bf16"]])
 def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
     """Unported flags exit 2 naming ROADMAP.md; --kv-quant takes int8 only,
-    so argparse refuses int4 (exit 2); --spec-tick is ported: main hands it
-    to load_engine and serves."""
+    so argparse refuses int4 (exit 2); --spec-tick and --paged are ported:
+    main hands them to load_engine (with --spec-mode / --spec-draft-model,
+    and --page-size) and serves."""
+    if flag[0] == "--paged":
+        from rama_tpu_torch.server import app
+
+        seen = {}
+        monkeypatch.setattr(app, "load_engine", lambda *a, **kw: seen.update(kw) or _Idle())
+        monkeypatch.setattr(app.web, "run_app", lambda *a, **kw: None)
+        assert main(["-m", "x.bin", "-t", "t.bin", *flag, "--page-size", "16"]) == 0
+        assert (seen["paged"], seen["page_size"]) == (True, 16)
+        assert main(["-m", "x.bin", "-t", "t.bin"]) == 0
+        assert (seen["paged"], seen["page_size"]) == (False, 128)
+        return
     if flag[0] == "--spec-tick":
         from rama_tpu_torch.server import app
 
