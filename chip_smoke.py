@@ -87,11 +87,34 @@ Phases, in order (any failure raises and the script exits non-zero):
            plain or spec_tick 3; every page free again after each run
   profile_paged  device ms per 8-slot decode step on a bf16 and an int8
            pool at positions 64 and 2048, beside the dense cache's
+  kernels_attn the last slice's kernels: K9 (T = 1 attention over one
+           layer's cache, bf16 and int8, rel TOL per (slot, head)) at K4 / K7's
+           shapes and positions with planted edges, int8 also at S 4096,
+           timed beside K4 / K7 over the same rows; K14 (the fused attention
+           block: light, and full with int8 and int4 wo) against its plain
+           version with planted edges and the new row's key aligned with q,
+           positions 0, tile edges, S - 1 and S + 3 (clamped): the written v
+           row bit for bit, the roped k row within one ulp, every other cache
+           row unchanged; timed beside the unfused composition of the same
+           step (apply_rope x 2, the row write, K4, and K1's wo)
+  model_attn   7B decode-step logits under RAMA_ATTN_BLOCK 1 and 2 (int8,
+           and int4 with the int4 params) against the plain path under the
+           same mode and the unfused plain path; with the int8 params a
+           one-token prefill and forward(logit_rows) at T = 1 on a bf16 and
+           an int8 cache (K9), kernels against plain
+  serve_ab1, serve_ab2, serve4_ab2  the server under RAMA_ATTN_BLOCK 1, 2
+           (int8) and 2 (int4): K14 once a layer of every decode step, K4
+           never
+  profile_ab   device ms, host ms and busy share per 8-slot decode step under
+           modes 0, 1 and 2 at positions 64 and 2048 of a 4096-row cache
+  prefill_t1   the T = 1 generic layer through prefill / forward on bf16 and
+           int8 caches with the plain T = 1 attention made to raise: K9 once
+           a layer of every call
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, and a v0 one with
            `--quant int4`
 
-Ten main paths, each with the launch counters set to 0 just before it
+Fourteen main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -107,8 +130,12 @@ must have; speculation on the int8
 KV cache (`serve_spec_kv8`), where K10 on the int8 cache, K11, the strip
 writer, matmul, FFN and prefill must have, and the bf16 decode attention
 must not; int4 (`serve4`), where every int4 kernel, the int8 classifier's
-GEMV and both attention kernels must have. The int8 KV and speculation
-paths reuse the int8 path's params. The line before
+GEMV and both attention kernels must have; the fused attention block
+under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
+int4), where K14 launches as often as the fused FFN (once a layer of each
+decode step) and K4 never; and `prefill_t1`, where K9 launches on both
+caches and no decode, chunk or prefill attention does. The int8 KV,
+speculation, attention-block and T = 1 paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
 which only a run of every phase prints.
@@ -134,10 +161,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
 ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec",
-              "kernels_paged", "model", "generate", "serve", "profile", "model_kv8", "serve_kv8",
-              "profile_kv8", "model_spec", "serve_spec", "profile_spec", "spec_draft",
-              "serve_spec_kv8", "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
-              "serve_spec_paged", "serve_spec_paged_kv8", "model4", "serve4", "profile4", "cli")
+              "kernels_paged", "kernels_attn", "model", "generate", "serve", "profile",
+              "model_kv8", "serve_kv8", "profile_kv8", "model_spec", "serve_spec", "profile_spec",
+              "spec_draft", "serve_spec_kv8", "model_paged", "serve_paged", "profile_paged",
+              "serve_paged_kv8", "serve_spec_paged", "serve_spec_paged_kv8", "model_attn",
+              "serve_ab1", "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
+              "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
@@ -227,6 +256,46 @@ SPEC_PAGED_KV8_PATH = dict(
     forbid={name: "launches_spec_paged_kv8_path" for name in (
         "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
         "decode_attention", "chunk_attention", "paged_decode_attention_q8")})
+# the fused attention block (kernel 14) under RAMA_ATTN_BLOCK 1 / 2 on the
+# int8 params, and 2 on the int4 ones (`attn_block`: the mode the path runs
+# under): K14 where the default path runs the RoPE, the row write and K4, 32
+# launches a decode step as the fused FFN has (`equal`), and K4 never
+AB1_PATH = dict(label="attention block 1", bits=8, phases=("model_attn", "serve_ab1", None),
+                serve={}, attn_block=1,
+                record={"attn_rope_write_layered": "launches",
+                        **{name: "launches_ab1_path" for name in (
+                            "quant_matmul", "ffn", "prefill_attention")}},
+                forbid={name: "launches_ab1_path" for name in (
+                    "decode_attention", "attn_block_layered")},
+                equal={"attn_rope_write_layered": "ffn"})
+AB2_PATH = dict(label="attention block 2", bits=8, phases=(None, "serve_ab2", "profile_ab"),
+                serve={}, attn_block=2,
+                record={"attn_block_layered": "launches",
+                        **{name: "launches_ab2_path" for name in (
+                            "quant_matmul", "ffn", "prefill_attention")}},
+                forbid={name: "launches_ab2_path" for name in (
+                    "decode_attention", "attn_rope_write_layered")},
+                equal={"attn_block_layered": "ffn"})
+# kernel 9: the generic layer at T = 1 (prefill of a one-token prompt,
+# forward with logit_rows) through the library entry points, the plain
+# T = 1 attention made to raise
+PREFILL_T1_PATH = dict(label="T = 1 prefill", bits=8, phases=(None, "prefill_t1", None),
+                       serve={},
+                       record={"decode_attention_flat": "launches",
+                               "decode_attention_flat_q8": "launches",
+                               "quant_matmul": "launches_prefill_t1_path"},
+                       forbid={name: "launches_prefill_t1_path" for name in (
+                           "decode_attention", "decode_attention_q8", "prefill_attention",
+                           "chunk_attention")})
+AB2_INT4_PATH = dict(label="attention block 2 int4", bits=4,
+                     phases=("model_attn", "serve4_ab2", None), serve={}, attn_block=2,
+                     record={"attn_block_layered_int4": "launches",
+                             **{name: "launches_ab2_int4_path" for name in (
+                                 "quant_matmul_int4", "ffn_int4", "quant_matmul",
+                                 "prefill_attention")}},
+                     forbid={name: "launches_ab2_int4_path" for name in (
+                         "decode_attention", "attn_rope_write_layered", "attn_block_layered")},
+                     equal={"attn_block_layered_int4": "ffn_int4"})
 INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                  serve={},
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
@@ -235,7 +304,8 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                          "prefill_attention": "launches_int4_path"},
                  forbid={})
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
-         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, INT4_PATH)
+         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
+         PREFILL_T1_PATH, INT4_PATH, AB2_INT4_PATH)
 
 
 def log(msg: str) -> None:
@@ -288,6 +358,18 @@ def compare(torch, name: str, got, want, per: int | None = None, bar: float | No
         raise SystemExit(f"FAILED {name}: rel err {float(rel[worst]):.4f} > {TOL} "
                          f"in group {worst} of {per} outputs")
     return float(err.max())
+
+
+def quantized_cache(torch, kvw, rx, l: int, b: int, n: int, s: int, d: int) -> list:
+    """(k8, v8, ks, vs) of an int8 cache (l, b, n, s, d) of N(0, 1) rows
+    (rx draws them) quantized by kv_quant_rows, a layer at a time."""
+    dev = torch.device("cuda")
+    c = [torch.empty((l, b, n, s, d), dtype=torch.int8, device=dev) for _ in range(2)] + [
+        torch.empty((l, b, n, s), device=dev) for _ in range(2)]
+    for i in range(l):
+        c[0][i], c[2][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=torch.float32))
+        c[1][i], c[3][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=torch.float32))
+    return c
 
 
 def plant_decode_edges(q, k_cache, pos, layer: int, rows) -> None:
@@ -356,25 +438,31 @@ def plant_chunk_edges(q, cache, pos0, layer: int, rows, kvw=None) -> None:
             cache[0][layer, b, :, r], cache[2][layer, b, :, r] = kvw.kv_quant_rows(key.float())
 
 
-def reset_launches(qm, ffn_mod, da, pa, kvw, pga) -> None:
-    for counts in (qm.launches, ffn_mod.launches, kvw.launches, pga.launches):
+def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
+    for counts in (qm.launches, ffn_mod.launches, kvw.launches, pga.launches, ab.launches):
         for key in counts:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
+    da.launches_flat = da.launches_flat_q8 = 0
 
 
-def read_launches(qm, ffn_mod, da, pa, kvw, pga) -> dict:
+def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
-            "chunk_attention_q8": da.launches_chunk_q8, **kvw.launches, **pga.launches}
+            "chunk_attention_q8": da.launches_chunk_q8,
+            "decode_attention_flat": da.launches_flat,
+            "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
+            **ab.launches}
 
 
 def check_launches(path: dict, launches: dict) -> None:
-    """Fail a main path on which one of its kernels never launched, or on
-    which a kernel it must not run did."""
+    """Fail a main path on which one of its kernels never launched, on
+    which a kernel it must not run did, or on which a kernel launched
+    another number of times than the kernel `equal` pairs it with (one
+    launch a layer of each decode step, as the fused FFN)."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -383,6 +471,11 @@ def check_launches(path: dict, launches: dict) -> None:
     if stray:
         raise SystemExit(f"FAILED: {stray} launched on the {path['label']} main path "
                          f"{launches}")
+    uneven = {k: (launches[k], launches[ref]) for k, ref in path.get("equal", {}).items()
+              if launches[k] != launches[ref]}
+    if uneven:
+        raise SystemExit(f"FAILED: on the {path['label']} main path {uneven} (launches of "
+                         f"the kernel, of the kernel launched once a layer of a decode step)")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -880,14 +973,7 @@ def phase_kernels_kv8(torch, results: dict) -> None:
             torch.rand((l, b, n, s), device=dev, generator=g) for _ in range(2)]
 
     def qcache(l, b, n, s, d):
-        """A cache of N(0, 1) rows quantized by kv_quant_rows, a layer at a
-        time (the attention checks)."""
-        c = [torch.empty((l, b, n, s, d), dtype=torch.int8, device=dev) for _ in range(2)] + [
-            torch.empty((l, b, n, s), device=dev) for _ in range(2)]
-        for i in range(l):
-            c[0][i], c[2][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=f32))
-            c[1][i], c[3][i] = kvw.kv_quant_rows(rx(b, n, s, d, dtype=f32))
-        return c
+        return quantized_cache(torch, kvw, rx, l, b, n, s, d)
 
     def rows(*shape, dtype=bf):
         """Rows of mixed magnitude with a zero row and a row of .5 ties."""
@@ -1076,6 +1162,24 @@ def attention_split_combine(torch, fn, reps: int = 10) -> dict:
     return out
 
 
+def device_ms_per_call(torch, fn, reps: int = 10) -> float:
+    """Device ms per call of fn: the time of every kernel it launched, by
+    torch.profiler over `reps` calls (the host's enqueue time excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA":
+            total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+    return total / 1e3 / reps
+
+
 def phase_kernels_spec(torch, results: dict) -> None:
     """The speculation slice's kernels vs their plain versions: K10 on a
     bf16 and an int8 cache within TOL per (slot, query, head), with planted
@@ -1098,12 +1202,7 @@ def phase_kernels_spec(torch, results: dict) -> None:
         return torch.randn(shape, device=dev, generator=g).to(dtype)
 
     def qcache(l, s):
-        c = [torch.empty((l, B, nkv, s, hd), dtype=torch.int8, device=dev) for _ in range(2)] + [
-            torch.empty((l, B, nkv, s), device=dev) for _ in range(2)]
-        for i in range(l):
-            c[0][i], c[2][i] = kvw.kv_quant_rows(rx(B, nkv, s, hd, dtype=f32))
-            c[1][i], c[3][i] = kvw.kv_quant_rows(rx(B, nkv, s, hd, dtype=f32))
-        return c
+        return quantized_cache(torch, kvw, rx, l, B, nkv, s, hd)
 
     def starts(s, t):
         """Ragged chunk starts: 0, a chunk straddling the 64-row split (61),
@@ -1629,6 +1728,288 @@ def phase_kernels_paged(torch, results: dict) -> None:
             f"{r['dense_same_rows_ms']:.4f} ms, library n/a")
 
 
+def cache_ulp(torch, x):
+    """The spacing of numbers of x's dtype at each |x|, bfloat16: 2^(e - 8)
+    for |x| in [2^(e-1), 2^e) (float32: 2^(e - 24))."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - (8 if x.dtype == torch.bfloat16 else 24))
+
+
+def check_written_rows(torch, label: str, got, want, before, pos, layer: int) -> None:
+    """Kernel 14's cache writes against its plain version's: row pos
+    (clamped to S - 1) of every (slot, kv head) of `layer` — the v row bit
+    for bit, the roped k row within one ulp of the cache dtype (fp32 RoPE
+    rounds the same; the bar allows a contracted FMA) — and every other row
+    of both caches unchanged. got / want / before are (k, v) caches."""
+    s = before[0].shape[3]
+    b = torch.arange(pos.shape[0], device=pos.device)
+    p = pos.long().clamp(0, s - 1)
+    gk, wk = got[0][layer, b, :, p].float(), want[0][layer, b, :, p]
+    if not torch.equal(got[1][layer, b, :, p], want[1][layer, b, :, p]):
+        raise SystemExit(f"FAILED {label}: the written v row differs from the plain version's")
+    gap = (gk - wk.float()).abs()
+    if bool((gap > cache_ulp(torch, wk)).any()):
+        raise SystemExit(f"FAILED {label}: the written k row is more than one ulp from the "
+                         f"plain version's (max |gap| {float(gap.max()):.3e})")
+    for g, w0 in zip(got, before):
+        rest = g.clone()
+        rest[layer, b, :, p] = w0[layer, b, :, p]
+        if not torch.equal(rest, w0):
+            raise SystemExit(f"FAILED {label}: a cache row other than pos changed")
+    log(f"[check] {label}: written rows v exact, k max |gap| {float(gap.max()):.3e} "
+        f"(<= 1 ulp), other rows unchanged")
+
+
+def phase_kernels_attn(torch, results: dict) -> None:
+    """Kernel 9 (T = 1 attention over one layer's cache, bf16 and int8) and
+    kernel 14 (the fused attention block: light, and full with int8 and
+    int4 wo) against their plain versions at the 7B decode shapes, with
+    planted edge rows and positions 0, S - 1 and S + 3 (clamped); K14's
+    cache writes against the plain version's (check_written_rows). CUDA-event
+    times: K9 beside K4 / K7 over the same rows, K14 beside the unfused
+    composition of the same step (apply_rope x 2, the row write, K4, and
+    for the full form K1's wo), A B B A in one call."""
+    import torch.nn.functional as F
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import KVCache, _rope_tables, _write_kv, apply_rope
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    L, nh, nkv, hd, B, S, D = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8,
+                               cfg.seq_len, cfg.dim)
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def abba(fa, fb) -> tuple[float, float]:
+        """CUDA-event ms of fa and fb, timed a, b, b, a."""
+        a1, b1, b2, a2 = time_ms(torch, fa), time_ms(torch, fb), time_ms(torch, fb), \
+            time_ms(torch, fa)
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
+    pos4 = torch.tensor([0, 255, 256, 1023, 63, 64, 511, 700], dtype=torch.int32, device=dev)
+    q = rx(B, nh, hd)
+    vis = (torch.arange(S, device=dev)[None, :] <= pos4[:, None].long())[:, None, None, :]
+    rows4 = int((pos4.clamp(0, S - 1) + 1).sum())
+
+    # -- K9: decode_attention_flat, bf16 -------------------------------------
+    kc, vc = rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)
+    splits = (63, 64, 255, 256, 511, 512, 767, 768, 1023)
+    for planted in (False, True):
+        for l in (0, L - 1):
+            if planted:
+                plant_decode_edges(q, kc, pos4, l, splits)
+            compare(torch, f"decode_attention_flat B=8 S=1024 layer={l} pos={pos4.tolist()}"
+                    f"{' planted edges' if planted else ''}",
+                    da.decode_attention_flat(q, kc[l], vc[l], pos4),
+                    da.decode_attention_flat_plain(q, kc[l], vc[l], pos4), per=hd)
+    err = compare(torch, "decode_attention_flat timed inputs (layer 0)",
+                  da.decode_attention_flat(q, kc[0], vc[0], pos4),
+                  da.decode_attention_flat_plain(q, kc[0], vc[0], pos4), per=hd)
+    lay = Layered(L)
+
+    def k9():
+        l = lay.next()
+        return da.decode_attention_flat(q, kc[l], vc[l], pos4)
+
+    def k4():
+        return da.decode_attention(q, kc, vc, pos4, lay.next())
+
+    t4, t_k = abba(k4, k9)
+    dev_ms = {"k9_device_ms": device_ms_per_call(torch, k9),
+              "k4_device_ms": device_ms_per_call(torch, k4)}
+
+    def k9_plain():
+        l = lay.next()
+        return da.decode_attention_flat_plain(q, kc[l], vc[l], pos4)
+
+    def sdpa():
+        l = lay.next()
+        return F.scaled_dot_product_attention(q[:, :, None, :], kc[l], vc[l], attn_mask=vis)
+
+    t_p, t_lib = time_ms(torch, k9_plain, reps=5), time_ms(torch, sdpa)
+    b_ms, b_by = bound_ms(rows4 * nkv * hd * 2 * 2 + 2 * q.numel() * 2, rows4 * nh * hd * 4)
+    results["decode_attention_flat"] = dict(
+        name="decode_attention_flat", route="cuda",
+        source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/decode_attention.py:830", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib, k4_same_run_ms=t4,
+        breakdown=dev_ms,
+        shape=f"q (8, 32, 128) bf16, one layer (8, 32, 1024, 128) of a 32-layer cache, "
+              f"pos {pos4.tolist()}")
+
+    # -- K9: decode_attention_flat_q8 ----------------------------------------
+    pos_long = torch.tensor([0, 63, 64, 255, 1023, 2047, 4000, 4095], dtype=torch.int32,
+                            device=dev)
+    del kc, vc
+    torch.cuda.empty_cache()
+    for s_, n_l, pos, edges in ((S, 8, pos4, (63, 64, 255, 256, 511, 512, 1023)),
+                                (KV8_MAX_LEN, 4, pos_long,
+                                 (63, 64, 1023, 1024, 2047, 2048, 3967, 3968, 4095))):
+        c = quantized_cache(torch, kvw, rx, n_l, B, nkv, s_, hd)
+        for planted in (False, True):
+            for l in (0, n_l - 1):
+                if planted:
+                    plant_decode_edges_q8(kvw, q, c[0], c[2], pos, l, edges)
+                lc = [t[l] for t in c]
+                compare(torch, f"decode_attention_flat_q8 S={s_} layer={l} pos={pos.tolist()}"
+                        f"{' planted edges' if planted else ''}",
+                        da.decode_attention_flat_q8(q, *lc, pos),
+                        da.decode_attention_flat_q8_plain(q, *lc, pos), per=hd)
+        err = compare(torch, f"decode_attention_flat_q8 timed inputs S={s_} (layer 0)",
+                      da.decode_attention_flat_q8(q, *[t[0] for t in c], pos),
+                      da.decode_attention_flat_q8_plain(q, *[t[0] for t in c], pos), per=hd)
+        lay = Layered(n_l)
+
+        def k9q(fn=da.decode_attention_flat_q8):
+            l = lay.next()
+            return fn(q, *[t[l] for t in c], pos)
+
+        def k7():
+            return da.decode_attention_q8(q, *c, pos, lay.next())
+
+        t7, t_k = abba(k7, k9q)
+        dev_ms = {"k9_device_ms": device_ms_per_call(torch, k9q),
+                  "k7_device_ms": device_ms_per_call(torch, k7)}
+        t_p = time_ms(torch, lambda: k9q(da.decode_attention_flat_q8_plain), reps=5)
+        n_rows = int((pos.clamp(0, s_ - 1) + 1).sum())
+        b_ms, b_by = bound_ms(n_rows * nkv * (2 * hd + 2 * 4) + 2 * q.numel() * 2,
+                              n_rows * nh * hd * 4)
+        rec = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, k7_same_run_ms=t7, breakdown=dev_ms,
+                   shape=f"q (8, 32, 128) bf16, one layer (8, 32, {s_}, 128) int8 + f32 row "
+                         f"scales of a {n_l}-layer cache, pos {pos.tolist()}")
+        if s_ == S:
+            results["decode_attention_flat_q8"] = dict(
+                name="decode_attention_flat_q8", route="cuda",
+                source="rama_tpu_torch/csrc/decode_attention.cu",
+                replaces="rama_tpu/ops/pallas/decode_attention.py:398", **rec)
+        else:
+            results["decode_attention_flat_q8"]["s4096"] = rec
+        del c
+        torch.cuda.empty_cache()
+
+    # -- K14: attn_rope_write_layered / attn_block_layered --------------------
+    cos_t, sin_t = _rope_tables(cfg, dev)
+    pos_edge = torch.tensor([S + 3, 1, 64, 65, 127, 128, 1022, S - 1], dtype=torch.int32,
+                            device=dev)
+    tiles = (63, 64, 127, 128, 511, 512, 1021, 1022)      # the kernel's 64-row tile edges
+    wo8 = QuantizedTensor(
+        q=torch.randint(-127, 128, (L, D, D), dtype=torch.int8, device=dev, generator=g),
+        scales=(torch.rand((L, D // 64, D), device=dev, generator=g) + 0.5)
+        / (73 * math.sqrt(D)), group_size=64, bits=8)
+    wo4 = random_int4_qt(torch, L, D, D, 64, dev, g)
+    forms = (("attn_rope_write_layered", None), ("attn_block_layered", wo8),
+             ("attn_block_layered_int4", wo4))
+
+    def call(name, fn_plain, wo, args, pos, l):
+        fn = getattr(ab, name.replace("_int4", "") + ("_plain" if fn_plain else ""))
+        return fn(*args, pos, l) if wo is None else fn(*args, wo, pos, l)
+
+    for pos in (pos4, pos_edge):
+        p = pos.long().clamp(0, S - 1)
+        cos, sin = cos_t[p], sin_t[p]
+        c2, s2s = (t[:, None] for t in ab.rope_lane_tables(cos, sin))
+        qr = ab._rope_lanes(q.float(), c2, s2s)             # what the block scores with
+        kn, vn = rx(B, nkv, hd), rx(B, nkv, hd)
+        kn[::2] = q[::2] * 0.5          # half the slots: the new row scores ~5.7 too
+        base = [rx(2, B, nkv, S, hd), rx(2, B, nkv, S, hd)]
+        for planted in (False, True):
+            if planted:
+                for bi, pp in enumerate(p.tolist()):
+                    for r in {pp - 1, pp, pp + 1, *tiles}:
+                        if 0 <= r < S:
+                            base[0][1, bi, :, r] = (qr[bi] * 0.5).to(bf)
+            for name, wo in forms:
+                got_c = [t.clone() for t in base]
+                want_c = [t.clone() for t in base]
+                args = (q, kn, vn, cos, sin)
+                label = (f"{name} B=8 S=1024 layer=1 pos={pos.tolist()}"
+                         f"{' planted edges' if planted else ''}")
+                got = call(name, False, wo, (*args, *got_c), pos, 1)
+                want = call(name, True, wo, (*args, *want_c), pos, 1)
+                compare(torch, label, got, want, per=hd if wo is None else None)
+                check_written_rows(torch, label, got_c, want_c, base, pos, 1)
+        del base, got_c, want_c
+    torch.cuda.empty_cache()
+
+    # timed at 32 layers on K4's positions, the layer cycling, beside the
+    # unfused composition of the same step
+    p = pos4.long()
+    cos, sin = cos_t[p], sin_t[p]
+    kn, vn = rx(B, nkv, hd), rx(B, nkv, hd)
+    kc, vc = rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)
+    cache = KVCache(k=kc, v=vc)
+    args = (q, kn, vn, cos, sin, kc, vc)
+    info = ab.occupancy(B, nh, nkv, D, D, 64, 8)
+    info4 = ab.occupancy(B, nh, nkv, D, D, 64, 4)
+    for name, wo in forms:
+        err = compare(torch, f"{name} timed inputs (layer 0)",
+                      call(name, False, wo, args, pos4, 0),
+                      call(name, True, wo, (q, kn, vn, cos, sin, kc.clone(), vc.clone()), pos4,
+                           0), per=hd if wo is None else None)
+        lay = Layered(L)
+
+        def fused(name=name, wo=wo):
+            return call(name, False, wo, args, pos4, lay.next())
+
+        def unfused(wo=wo):
+            l = lay.next()
+            qr = apply_rope(q[:, None], cos[:, None], sin[:, None])
+            kr = apply_rope(kn[:, None], cos[:, None], sin[:, None])
+            _write_kv(cache, l, kr, vn[:, None], pos4[:, None])
+            att = da.decode_attention(qr[:, 0].contiguous(), kc, vc, pos4, l)
+            return att if wo is None else qm.quant_matmul(att, wo, l)
+
+        t_u, t_k = abba(unfused, fused)
+        dev_ms = {"device_ms": device_ms_per_call(torch, fused),
+                  "unfused_device_ms": device_ms_per_call(torch, unfused)}
+        t_p = time_ms(torch, lambda name=name, wo=wo: call(
+            name, True, wo, args, pos4, lay.next()), reps=3)
+        # rows < pos of K and V read once, q / k / v / cos / sin in, the row
+        # written, att out (or wo[l] in and out)
+        nb = (int(p.sum()) * nkv * hd * 2 * 2 + (nh + 2 * nkv) * B * hd * 2 + 2 * B * hd * 4
+              + B * nkv * hd * 2 * 2 + B * nh * hd * 2)
+        flops = int((p + 1).sum()) * nh * hd * 4
+        if wo is not None:
+            nb += matmul_bytes(wo, B) - B * (D + D) * 2
+            flops += 2 * B * D * D
+        b_ms, b_by = bound_ms(nb, flops)
+        if wo is not None:
+            dev_ms.update(info if wo.bits == 8 else info4)
+        results[name] = dict(
+            name=name, route="cuda", source="rama_tpu_torch/csrc/attn_block.cu",
+            replaces="rama_tpu/ops/pallas/attn_block.py:" + ("360" if wo is None else "452"),
+            max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, unfused_ms=t_u, breakdown=dev_ms,
+            library_note="n/a: no single PyTorch call ropes, writes a cache row and attends",
+            shape=f"q (8, 32, 128) bf16, cache (32, 8, 32, 1024, 128), pos {pos4.tolist()}"
+                  + ("" if wo is None else f", wo[l] (4096, 4096) int{wo.bits} gs 64"))
+    del kc, vc, cache
+    torch.cuda.empty_cache()
+    for name in ("decode_attention_flat", "decode_attention_flat_q8",
+                 "attn_rope_write_layered", "attn_block_layered", "attn_block_layered_int4"):
+        r = results[name]
+        extra = {k: round(r[k], 4) for k in ("k4_same_run_ms", "k7_same_run_ms", "unfused_ms")
+                 if k in r}
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) {json.dumps(extra)} "
+            f"{json.dumps(r['breakdown'])}")
+    r = results["decode_attention_flat_q8"]["s4096"]
+    log(f"[kernel] decode_attention_flat_q8 S=4096: {r['ms']:.4f} ms (K7 {r['k7_same_run_ms']:.4f}"
+        f"), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+        f"{json.dumps(r['breakdown'])}")
+
+
 def phase_model(torch, cfg, params, label: str = "int8") -> None:
     """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
@@ -2009,14 +2390,15 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64, chunk: int = 1, tables=None) -> float:
+                  start: int = 64, chunk: int = 1, tables=None) -> dict:
     """torch.profiler over 8 decode steps at 8 slots (positions start ..
     start+7; by default on a 128-row bf16 cache; a page pool through
     `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
-    wall). Returns the device ms per step."""
+    wall). Returns device_ms, host_ms (profiler off), host_ms_profiled and
+    busy (the device busy share) per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -2069,7 +2451,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
         log(f"[{tag}] the profiler recorded no device time")
-    return busy_us / 8 / 1e3
+    return dict(device_ms=busy_us / 8 / 1e3, host_ms=wall_off / 8 * 1e3,
+                host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall)
 
 
 def profile_paged(torch, cfg, params) -> None:
@@ -2095,10 +2478,152 @@ def profile_paged(torch, cfg, params) -> None:
             cache = make()
             for start in (64, 2048):
                 table[f"{pool_cls.__name__} {label} pos {start}"] = phase_profile(
-                    torch, cfg, long, tag="profile_paged", cache=cache, start=start, tables=tb)
+                    torch, cfg, long, tag="profile_paged", cache=cache, start=start,
+                    tables=tb)["device_ms"]
             del cache
             torch.cuda.empty_cache()
     log(f"[profile_paged] device ms per 8-slot decode step: {json.dumps(table)}")
+
+
+def phase_model_attn(torch, cfg, params, bits: int, dev=None) -> None:
+    """7B decode-step logits through the fused attention block (kernel 14,
+    modes 1 and 2) against the plain path under the same mode and against
+    the plain unfused path (mode 0), at 8 slots on a 1024-row bf16 cache
+    filled past the prompt with copies of its rows, positions up to S - 1
+    and one past the cache (clamped); with the int8 params also the generic
+    layer at T = 1 (kernel 9): a one-token prefill a slot and forward with
+    logit_rows, kernels against plain, on a bf16 and an int8 cache."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, decode_step, forward,
+                                             prefill)
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    dev = dev or torch.device("cuda")
+    b, s = 8, cfg.seq_len
+    toks = (torch.arange(b * 8, device=dev).view(b, 8) * 389 + 11) % cfg.vocab_size
+    base = KVCache.create(cfg, b, s, device=dev)
+    saved = llama.ATTN_BLOCK
+    with torch.no_grad():
+        llama.ATTN_BLOCK = 0
+        prefill(params, cfg, toks, base, plain=True)
+        for t in (base.k, base.v):            # rows 8 .. S-1: copies of rows 0 .. 7
+            t[:, :, :, 8:] = t[:, :, :, :8].repeat(1, 1, 1, (s - 8) // 8, 1)
+        tok = toks[:, 0]
+        pos = torch.tensor([8, 9, 63, 64, 500, 1000, s - 1, s + 3], device=dev)
+
+        def run(mode, plain):
+            llama.ATTN_BLOCK = mode
+            cache = KVCache(k=base.k.clone(), v=base.v.clone())
+            logits, _ = decode_step(params, cfg, tok, pos, cache, plain=plain)
+            del cache
+            return logits
+
+        try:
+            ref = run(0, True)
+            for mode in (1, 2):
+                name = "attn_block_layered" if mode == 2 else "attn_rope_write_layered"
+                name += "_int4" if mode == 2 and bits == 4 else ""
+                before = ab.launches[name]
+                got = run(mode, False)
+                if ab.launches[name] - before != cfg.n_layers:
+                    raise SystemExit(f"FAILED model_attn: {name} launched "
+                                     f"{ab.launches[name] - before} times in a decode step")
+                compare(torch, f"7B int{bits} logits decode step, attention block {mode} "
+                        f"pos={pos.tolist()} (kernels vs plain)", got, run(mode, True))
+                compare(torch, f"7B int{bits} logits decode step, attention block {mode} "
+                        f"(kernels vs the unfused plain path)", got, ref)
+        finally:
+            llama.ATTN_BLOCK = saved
+        del base
+        torch.cuda.empty_cache()
+        if bits != 8:
+            return
+        for cache_cls in (KVCache, QuantKVCache):
+            caches = [cache_cls.create(cfg, b, s, device=dev) for _ in range(2)]
+            label = f"7B int8 {cache_cls.__name__}"
+            outs = [prefill(params, cfg, toks[:, :1], c, last_only=True, plain=plain)[0]
+                    for c, plain in zip(caches, (False, True))]
+            compare(torch, f"{label} logits one-token prefill (kernels vs plain)", *outs)
+            rows = torch.zeros(b, dtype=torch.long, device=dev)
+            p1 = torch.ones((b, 1), dtype=torch.long, device=dev)
+            outs = [forward(params, cfg, toks[:, 1:2], p1, c, logit_rows=rows, plain=plain)[0]
+                    for c, plain in zip(caches, (False, True))]
+            compare(torch, f"{label} logits forward(logit_rows) T=1 at pos 1 (kernels vs "
+                    f"plain)", *outs)
+            del caches
+            torch.cuda.empty_cache()
+
+
+def phase_prefill_t1(torch, cfg, params, dev=None) -> None:
+    """The generic layer at T = 1 through the library entry points: prefill
+    of a one-token prompt a slot and forward with logit_rows at T = 1, at 8
+    slots on a bf16 and an int8 cache of 1024 rows, with the plain T = 1
+    attention (the masked einsum, the whole-layer dequantization) made to
+    raise: kernel 9 must launch once a layer of every call."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, forward, prefill
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    dev = dev or torch.device("cuda")
+    b = 8
+    toks = (torch.arange(b * 2, device=dev).view(b, 2) * 577 + 3) % cfg.vocab_size
+
+    def boom(*a, **k):
+        raise SystemExit("FAILED prefill_t1: a T = 1 call reached the plain attention path")
+
+    saved = llama._attention, llama._dequant_kv
+    llama._attention = llama._dequant_kv = boom
+    try:
+        with torch.no_grad():
+            for cache_cls, counter in ((KVCache, "launches_flat"),
+                                       (QuantKVCache, "launches_flat_q8")):
+                cache = cache_cls.create(cfg, b, cfg.seq_len, device=dev)
+                calls = (
+                    lambda: prefill(params, cfg, toks[:, :1], cache, last_only=True)[0],
+                    lambda: forward(params, cfg, toks[:, 1:], torch.ones((b, 1), device=dev),
+                                    cache, logit_rows=torch.zeros(b, device=dev))[0])
+                for what, fn in zip(("one-token prefill", "forward(logit_rows) T=1"), calls):
+                    before = getattr(da, counter)
+                    logits = fn()
+                    n = getattr(da, counter) - before
+                    if n != cfg.n_layers or logits.shape != (b, 1, cfg.vocab_size) or not bool(
+                            torch.isfinite(logits).all()):
+                        raise SystemExit(f"FAILED prefill_t1 {cache_cls.__name__} {what}: "
+                                         f"{n} launches of kernel 9, logits "
+                                         f"{tuple(logits.shape)}")
+                    log(f"[prefill_t1] {cache_cls.__name__} {what}: kernel 9 launched {n} "
+                        f"times, logits finite {tuple(logits.shape)}")
+                del cache
+    finally:
+        llama._attention, llama._dequant_kv = saved
+    torch.cuda.empty_cache()
+
+
+def profile_ab(torch, cfg, params) -> dict:
+    """Device ms, host ms and the device busy share per 8-slot decode step
+    under RAMA_ATTN_BLOCK 0, 1 and 2, at positions 64 and 2048 of a
+    4096-row bf16 cache (RoPE tabulated to 4096), in one run."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import KVCache, _rope_tables
+
+    dev = torch.device("cuda")
+    long = dict(params)
+    long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+    cache = KVCache.create(cfg, 8, KV8_MAX_LEN, device=dev)
+    table = {}
+    saved = llama.ATTN_BLOCK
+    try:
+        for mode in (0, 1, 2):
+            llama.ATTN_BLOCK = mode
+            for start in (64, 2048):
+                table[f"mode {mode} pos {start}"] = phase_profile(
+                    torch, cfg, long, tag=f"profile_ab mode {mode}", cache=cache, start=start)
+    finally:
+        llama.ATTN_BLOCK = saved
+    del cache
+    torch.cuda.empty_cache()
+    log(f"[profile_ab] per 8-slot decode step: {json.dumps(table)}")
+    return table
 
 
 def phase_cli(torch) -> None:
@@ -2150,7 +2675,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models import llama
     from rama_tpu_torch.models.llama import QuantKVCache, _rope_tables
+    from rama_tpu_torch.ops.kernels import attn_block as ab
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod
     from rama_tpu_torch.ops.kernels import kv_write as kvw
@@ -2171,11 +2698,12 @@ def main() -> int:
     results: dict = {}
     for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
                         ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec),
-                        ("kernels_paged", phase_kernels_paged)):
+                        ("kernels_paged", phase_kernels_paged),
+                        ("kernels_attn", phase_kernels_attn)):
         if name in phases:
             phase(torch, results)
             torch.cuda.empty_cache()
-    modules = (qm, ffn_mod, da, pa, kvw, pga)
+    modules = (qm, ffn_mod, da, pa, kvw, pga, ab)
     tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
     cfg = seven_b_config(ModelConfig)
     dev = torch.device("cuda")
@@ -2185,6 +2713,7 @@ def main() -> int:
         if not set(path["phases"]) & set(phases):
             continue
         bits, label = path["bits"], path["label"]
+        llama.ATTN_BLOCK = path.get("attn_block", 0)   # as RAMA_ATTN_BLOCK sets it at import
         if params_bits != bits:   # the int8 KV and speculation paths reuse the int8 params
             params = None
             torch.cuda.empty_cache()
@@ -2202,12 +2731,16 @@ def main() -> int:
             long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
             long_models[model](torch, cfg, long)
             del long
+        elif model == "model_attn" and model in phases:
+            phase_model_attn(torch, cfg, params, bits)
         elif model in phases:
             phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
         for ph in (p for p in main_path if p in phases):
             if ph == "generate":
                 phase_generate(torch, cfg, params, tokenizer)
+            elif ph == "prefill_t1":
+                phase_prefill_t1(torch, cfg, params)
             elif ph == "spec_draft":
                 phase_spec_draft(torch, cfg, params, tokenizer,
                                  start_count=lambda: reset_launches(*modules))
@@ -2217,7 +2750,9 @@ def main() -> int:
         for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8"),
                                     ("serve_paged", "serve"), ("serve_paged_kv8", "serve_kv8"),
                                     ("serve_spec_paged", "serve_spec"),
-                                    ("serve_spec_paged_kv8", "serve_spec_kv8")):
+                                    ("serve_spec_paged_kv8", "serve_spec_kv8"),
+                                    ("serve_ab1", "serve"), ("serve_ab2", "serve"),
+                                    ("serve4_ab2", "serve4")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -2237,6 +2772,8 @@ def main() -> int:
             del cache, long
         elif profile == "profile_paged" and profile in phases:
             profile_paged(torch, cfg, params)
+        elif profile == "profile_ab" and profile in phases:
+            profile_ab(torch, cfg, params)
         elif profile == "profile_spec" and profile in phases:
             # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
             for cache_cls in (None, QuantKVCache):
@@ -2247,6 +2784,7 @@ def main() -> int:
         elif profile in phases:
             phase_profile(torch, cfg, params, tag=profile)
         torch.cuda.empty_cache()
+    llama.ATTN_BLOCK = 0
     del params
     torch.cuda.empty_cache()
     if "cli" in phases:
@@ -2259,7 +2797,9 @@ def main() -> int:
             "launches_int4_path", "launches_kv8_path", "launches_spec_path",
             "launches_spec_draft_path", "launches_spec_kv8_path", "launches_paged_path",
             "launches_paged_kv8_path", "launches_spec_paged_path",
-            "launches_spec_paged_kv8_path")
+            "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
+            "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
+            "launches_ab2_int4_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

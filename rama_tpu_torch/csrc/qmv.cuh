@@ -123,22 +123,44 @@ __host__ __device__ __forceinline__ int qmv_block_rows(int gs) {
   return BITS == 4 ? 2 * gs : gs;
 }
 
-// grid (ceil(N/512), ks, ceil(M/MT)), block (32, 8), dynamic shared memory
-// max(MT * blocks_per_split * block_rows, 8 * 512) floats.
-template <typename T, int MT, int BITS>
-__global__ void __launch_bounds__(kQmvLanes * kQmvWarps)
-qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ s, T* __restrict__ y,
-           float* __restrict__ part, unsigned* __restrict__ tickets,
-           int M, int K, int N, int gs, int blocks_per_split) {
-  extern __shared__ float smem[];
+// An activation read through L2 only (ld.global.cg): in the fused attention
+// block (attn_block.cu) x is written earlier in the same launch by other
+// CTAs, which the non-coherent read-only path need not see.
+__device__ __forceinline__ float ld_act(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_act(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Dynamic shared memory of one GEMV tile, in floats: the x slab or the
+// cross-warp sum, whichever is larger.
+template <int BITS>
+__host__ __device__ __forceinline__ size_t qmv_smem_floats(int mt, int bps, int gs) {
+  const size_t xs = (size_t)mt * bps * qmv_block_rows<BITS>(gs);
+  const size_t red = (size_t)kQmvWarps * kQmvCols;
+  return xs > red ? xs : red;
+}
+
+// One CTA's work item of the GEMV: column tile tile_n (of ntiles_n), K split
+// `split` (of ks), rows tile_m * MT ..; 256 threads (tid = threadIdx.y * 32 +
+// threadIdx.x, or threadIdx.x of a 1-D block), dynamic shared memory `smem`
+// of qmv_smem_floats<BITS>(MT, blocks_per_split, gs) floats. x is TX, y TY.
+// A CTA may run several items in a row (the fused attention block's
+// persistent phase C): the ticket of the last split of a column tile
+// decides who adds the partials, whichever CTA ran the others.
+template <typename TX, typename TY, int MT, int BITS>
+__device__ __forceinline__ void qmv_tile(const TX* x, const int8_t* __restrict__ q,
+                                         const float* __restrict__ s, TY* __restrict__ y,
+                                         float* __restrict__ part, unsigned* __restrict__ tickets,
+                                         int M, int K, int N, int gs, int blocks_per_split,
+                                         int tile_n, int split, int tile_m, int ks, int ntiles_n,
+                                         float* smem) {
   __shared__ bool is_last;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kQmvLanes + tx;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int tx = tid % kQmvLanes, ty = tid / kQmvLanes;
   const int nthreads = kQmvLanes * kQmvWarps;
-  const int ks = gridDim.y, split = blockIdx.y;
-  const int col0 = (blockIdx.x * kQmvLanes + tx) * 16;
-  const int m0 = blockIdx.z * MT;
+  const int col0 = (tile_n * kQmvLanes + tx) * 16;
+  const int m0 = tile_m * MT;
   const bool vec = (N % 16) == 0;
   const int brows = qmv_block_rows<BITS>(gs);
   const int nblocks = K / brows;
@@ -147,10 +169,11 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   const int k_begin = b_begin * brows;
   const int nk = max(b_end - b_begin, 0) * brows;
 
+  __syncthreads();  // the previous item of this CTA is done with smem
   float* xs = smem;  // [MT][nk]
   for (int i = tid; i < MT * nk; i += nthreads) {
     const int m = i / nk, kk = i - m * nk;
-    xs[i] = (m0 + m < M) ? to_f(x[(size_t)(m0 + m) * K + k_begin + kk]) : 0.f;
+    xs[i] = (m0 + m < M) ? ld_act(x + (size_t)(m0 + m) * K + k_begin + kk) : 0.f;
   }
   __syncthreads();
 
@@ -214,7 +237,7 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   __syncthreads();  // xs is reused for the cross-warp sum below
 
   float* red = smem;  // [8][512]
-  const int n_tile0 = blockIdx.x * kQmvCols;
+  const int n_tile0 = tile_n * kQmvCols;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -226,7 +249,7 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
       for (int t = 0; t < kQmvWarps; ++t) v += red[t * kQmvCols + col];
       const int n = n_tile0 + col, mm = m0 + m;
       if (n < N && mm < M) {
-        if (ks == 1) y[(size_t)mm * N + n] = from_f<T>(v);
+        if (ks == 1) y[(size_t)mm * N + n] = from_f<TY>(v);
         else part[((size_t)split * M + mm) * N + n] = v;
       }
     }
@@ -237,7 +260,7 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   // last CTA of this (column tile, row chunk) sums the ks partials in order
   __threadfence();
   __syncthreads();
-  unsigned* ticket = tickets + blockIdx.z * gridDim.x + blockIdx.x;
+  unsigned* ticket = tickets + tile_m * ntiles_n + tile_n;
   if (tid == 0) is_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(ks - 1);
   __syncthreads();
   if (!is_last) return;
@@ -248,9 +271,22 @@ qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     if (n >= N || mm >= M) continue;
     float v = 0.f;
     for (int sp = 0; sp < ks; ++sp) v += __ldcg(part + ((size_t)sp * M + mm) * N + n);
-    y[(size_t)mm * N + n] = from_f<T>(v);
+    y[(size_t)mm * N + n] = from_f<TY>(v);
   }
   if (tid == 0) *ticket = 0u;  // ready for the next launch
+}
+
+// grid (ceil(N/512), ks, ceil(M/MT)), block (32, 8), dynamic shared memory
+// qmv_smem_floats<BITS>(MT, blocks_per_split, gs) floats.
+template <typename T, int MT, int BITS>
+__global__ void __launch_bounds__(kQmvLanes * kQmvWarps)
+qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+           const float* __restrict__ s, T* __restrict__ y,
+           float* __restrict__ part, unsigned* __restrict__ tickets,
+           int M, int K, int N, int gs, int blocks_per_split) {
+  extern __shared__ float smem[];
+  qmv_tile<T, T, MT, BITS>(x, q, s, y, part, tickets, M, K, N, gs, blocks_per_split,
+                           blockIdx.x, blockIdx.y, blockIdx.z, gridDim.y, gridDim.x, smem);
 }
 
 template <typename T, int MT, int BITS>
@@ -259,9 +295,7 @@ cudaError_t launch_qmv_mt(const void* x, const void* q, const void* s, void* y,
                           int ks, int bps, cudaStream_t stream) {
   const dim3 grid((N + kQmvCols - 1) / kQmvCols, ks, (M + MT - 1) / MT);
   const dim3 block(kQmvLanes, kQmvWarps);
-  const size_t xs_floats = (size_t)MT * bps * qmv_block_rows<BITS>(gs);
-  const size_t red_floats = (size_t)kQmvWarps * kQmvCols;
-  const size_t smem = sizeof(float) * (xs_floats > red_floats ? xs_floats : red_floats);
+  const size_t smem = sizeof(float) * qmv_smem_floats<BITS>(MT, bps, gs);
   auto kern = qmv_kernel<T, MT, BITS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -15,6 +15,12 @@ kernels, on CPU tensors they run each kernel's plain PyTorch version.
 `plain=True` runs those plain versions on any device — the reference the
 kernels are held against on the card (chip_smoke.py).
 
+RAMA_ATTN_BLOCK (read at import into `ATTN_BLOCK`, as rama_tpu reads its
+`_ATTN_BLOCK`) selects the decode step's attention block on a dense cache:
+0 (the default) the unfused RoPE, row write and decode-attention kernel, 1
+the fused RoPE + row write + attention kernel with wo separate, 2 the fused
+kernel with wo too (kernel 14, ops/kernels/attn_block.py).
+
 The KV cache is updated IN PLACE (`index_put_` on the stacked cache, or
 the int8 cache's row writer), where the JAX package donates the cache
 buffer and returns a new one. Two caches: `KVCache` (dense, in the
@@ -25,6 +31,7 @@ per (token, kv head) row).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 
 from rama_tpu_torch.checkpoint import QuantParams, compute_freqs
 from rama_tpu_torch.config import ModelConfig
+from rama_tpu_torch.ops.kernels import attn_block as _ab
 from rama_tpu_torch.ops.kernels import decode_attention as _da
 from rama_tpu_torch.ops.kernels import ffn as _ffn
 from rama_tpu_torch.ops.kernels import kv_write as _kvw
@@ -71,6 +79,12 @@ class _Ops:
                                  else _kvw.write_kv_rows_q8)
         self.decode_attention_q8 = (_da.decode_attention_q8_plain if plain
                                     else _da.decode_attention_q8)
+        # kernel 9: T = 1 attention over one layer's cache (the generic _layer)
+        for name in ("decode_attention_flat", "decode_attention_flat_q8"):
+            setattr(self, name, getattr(_da, name + "_plain" if plain else name))
+        # kernel 14: the fused attention block (ATTN_BLOCK 1 / 2)
+        for name in ("attn_rope_write_layered", "attn_block_layered"):
+            setattr(self, name, getattr(_ab, name + "_plain" if plain else name))
         self.write_kv_strips_q8 = (_kvw.write_kv_strips_q8_plain if plain
                                    else _kvw.write_kv_strips_q8)
         self.chunk_attention = (_da.chunk_attention_plain if plain
@@ -407,12 +421,25 @@ def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     _write_kv(cache, l, k, v, pos_index)
-    if isinstance(cache, QuantKVCache):
-        # int8 cache: dequantized attention in plain PyTorch, ahead of the
-        # prefill kernel, as rama_tpu's kv_quant branch comes first
+    quant = isinstance(cache, QuantKVCache)
+    # rama_tpu's branch order: T = 1 on an int8 cache, the int8 cache, T = 1,
+    # a prefill chunk, then the masked einsum
+    if t == 1:
+        # one query a slot (forward with logit_rows, a one-token prefill):
+        # kernel 9 over layer l's cache, visible rows s <= pos
+        pos = pos_index[:, 0].to(torch.int32).contiguous()
+        q1 = q[:, 0].contiguous()
+        if quant:
+            att = ops.decode_attention_flat_q8(q1, cache.k[l], cache.v[l], cache.ks[l],
+                                               cache.vs[l], pos)[:, None]
+        else:
+            att = ops.decode_attention_flat(q1, cache.k[l], cache.v[l], pos)[:, None]
+    elif quant:
+        # int8 cache, T > 1: dequantized attention in plain PyTorch, ahead of
+        # the prefill kernel, as rama_tpu's kv_quant branch comes first
         kd, vd = _dequant_kv(cache.k[l], cache.v[l], cache.ks[l], cache.vs[l], q.dtype)
         att = _attention(q, kd, vd, pos_mask)
-    elif t > 1 and plen is not None:
+    elif plen is not None:
         # flash-style prefill: tiles above the causal diagonal and past the
         # prompt are never read (JAX: prefill_attention on the TPU)
         att = ops.prefill_attention(q.contiguous(), cache.k[l], cache.v[l],
@@ -433,13 +460,29 @@ def _ffn_fusable(params: Params, m: int) -> bool:
             and w13.bits == w2.bits and m <= _ffn.FFN_MAX_M)
 
 
+ATTN_BLOCK = int(os.environ.get("RAMA_ATTN_BLOCK", "0"))
+
+
+def attn_block_mode(params: Params, cfg: ModelConfig, cache, b: int) -> int:
+    """The decode step's attention block (rama_tpu's conditions,
+    models/llama.py:588-599): ATTN_BLOCK (2 the full fused block, any other
+    non-zero value the light one) on a dense KVCache with head_dim 128, a
+    quantized wo and `attn_block_supported`; 0 (unfused) otherwise."""
+    if (not ATTN_BLOCK or type(cache) is not KVCache or cfg.head_dim != _ab.HEAD_DIM
+            or not _ab.attn_block_supported(params.get("wo"), cache.max_len, b)):
+        return 0
+    return ATTN_BLOCK
+
+
 def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                           cache: KVCache | QuantKVCache, ops: _Ops):
-    """T=1 decode step (rama_tpu's `_forward_decode_fused` without
-    attn_block): layer-indexed quant_matmul for wqkv/wo, the cache row write
-    in place, layer-indexed decode attention, the fused quantized FFN. An
-    int8 cache takes the fused quantize-and-write row kernel and the int8
-    decode attention."""
+    """T=1 decode step (rama_tpu's `_forward_decode_fused`): layer-indexed
+    quant_matmul for wqkv/wo, the cache row write in place, layer-indexed
+    decode attention, the fused quantized FFN. An int8 cache takes the
+    fused quantize-and-write row kernel and the int8 decode attention.
+    Under `attn_block_mode` 1 / 2 the un-roped q / k / v go to kernel 14,
+    which ropes, writes the row and attends in one launch (and applies wo
+    in mode 2)."""
     b = tokens.shape[0]
     dtype = params["final_norm"].dtype
     x = _embed(params["tok_embedding"], tokens, dtype)            # (B, 1, D)
@@ -447,20 +490,29 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
     cos, sin = params["rope_cos"][idx], params["rope_sin"][idx]
     pos = pos_index[:, 0].to(torch.int32).contiguous()
     fused_ffn = _ffn_fusable(params, b)
+    mode = attn_block_mode(params, cfg, cache, b)
     for l in range(cfg.n_layers):
         xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
         q, k, v = _qkv(xb, params, cfg, l, ops)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if isinstance(cache, QuantKVCache):
-            ops.write_kv_rows_q8(cache.k, cache.v, cache.ks, cache.vs, k[:, 0].contiguous(),
-                                 v[:, 0].contiguous(), pos, l)
-            att = ops.decode_attention_q8(q[:, 0].contiguous(), cache.k, cache.v, cache.ks,
-                                          cache.vs, pos, l)
+        if mode == 2:
+            attn_out = ops.attn_block_layered(q[:, 0], k[:, 0], v[:, 0], cos[:, 0], sin[:, 0],
+                                              cache.k, cache.v, params["wo"], pos, l)
         else:
-            _write_kv(cache, l, k, v, pos_index)
-            att = ops.decode_attention(q[:, 0].contiguous(), cache.k, cache.v, pos, l)
-        x = x + _linear(att, params["wo"], ops, l)[:, None]
+            if mode:
+                att = ops.attn_rope_write_layered(q[:, 0], k[:, 0], v[:, 0], cos[:, 0],
+                                                  sin[:, 0], cache.k, cache.v, pos, l)
+            elif isinstance(cache, QuantKVCache):
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+                ops.write_kv_rows_q8(cache.k, cache.v, cache.ks, cache.vs,
+                                     k[:, 0].contiguous(), v[:, 0].contiguous(), pos, l)
+                att = ops.decode_attention_q8(q[:, 0].contiguous(), cache.k, cache.v,
+                                              cache.ks, cache.vs, pos, l)
+            else:
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+                _write_kv(cache, l, k, v, pos_index)
+                att = ops.decode_attention(q[:, 0].contiguous(), cache.k, cache.v, pos, l)
+            attn_out = _linear(att, params["wo"], ops, l)
+        x = x + attn_out[:, None]
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
         x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

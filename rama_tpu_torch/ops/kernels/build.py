@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rama_tpu_torch"
-SOURCES = ("quant_matmul", "ffn", "decode_attention", "prefill_attention", "kv_write")
+SOURCES = ("quant_matmul", "ffn", "decode_attention", "prefill_attention", "kv_write",
+           "attn_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,8 @@
-"""Kernels 4, 7 and 10: decode attention against layer l of the stacked KV
-cache, for one query per slot — bf16 / f32 cache (K4) or int8 with row
-scales (K7) — or for a chunk of T <= 8 consecutive queries per slot on
-either cache (K10, speculative verification).
+"""Kernels 4, 7, 9 and 10: decode attention against layer l of the stacked
+KV cache, for one query per slot — bf16 / f32 cache (K4) or int8 with row
+scales (K7) — or against one layer's cache (K9, both caches), or for a
+chunk of T <= 8 consecutive queries per slot on either cache (K10,
+speculative verification).
 
 The counterparts of `rama_tpu/ops/pallas/decode_attention.py`'s
 `decode_attention_layer` and `decode_attention_layer_tiled` (one function:
@@ -12,6 +13,14 @@ over an int8 cache, scales applied after the products), and of
 at position pos0[b] + t sees rows s <= pos0[b] + t). On the card, one
 flash-decoding kernel split over S plus a combine pass, instantiated for
 both caches (`csrc/decode_attention.cu`); T = 1 is the decode step.
+
+Kernel 9 is `decode_attention` and `decode_attention_q8` of the same Pallas
+file: the same function as K4 / K7 over ONE layer's cache (B, nkv, S, hd)
+instead of layer l of the stacked one — the generic `_layer`'s T = 1 path
+(`prefill` of a one-token prompt, `forward(..., logit_rows=...)` at T = 1).
+Its wrappers (`decode_attention_flat`, `_flat_q8`) launch the same
+hand-written kernel on the one-layer view as a stack of one layer, layer 0:
+the cache bytes each (slot, head) reads, and so the bound, are K4's / K7's.
 
 The same kernels read the paged cache's pool through page tables: kernel
 12, whose wrappers are in ops/kernels/paged_attention.py.
@@ -34,6 +43,8 @@ launches = 0           # K4 launches since the last reset (chip_smoke reads them
 launches_q8 = 0        # K7 launches since the last reset
 launches_chunk = 0     # K10 launches on a bf16 / f32 cache
 launches_chunk_q8 = 0  # K10 launches on an int8 cache
+launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
+launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
 
 CHUNK = 64     # cache rows per CTA (csrc/decode_attention.cu)
 MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kMaxRows)
@@ -214,6 +225,50 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     require(q.dim() == 3, "q (B, nh, hd) expected")
     out = _launch(q[:, None], (k8, v8, ks, vs), pos, layer, "decode_attention_q8")
     launches_q8 += 1
+    return out[:, 0]
+
+
+def decode_attention_flat_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                pos: torch.Tensor) -> torch.Tensor:
+    """decode_attention_plain over one layer's cache: k/v (B, nkv, S, hd)."""
+    return decode_attention_plain(q, k[None], v[None], pos, 0)
+
+
+def decode_attention_flat_q8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                                   ks: torch.Tensor, vs: torch.Tensor,
+                                   pos: torch.Tensor) -> torch.Tensor:
+    """decode_attention_q8_plain over one layer's int8 cache: k8/v8 (B, nkv,
+    S, hd), ks/vs (B, nkv, S)."""
+    return decode_attention_q8_plain(q, k8[None], v8[None], ks[None], vs[None], pos, 0)
+
+
+def decode_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """K9: q (B, nh, hd) against one layer's k/v caches (B, nkv, S, hd),
+    visible rows s <= pos[b] (pos (B,) int32, clamped to [0, S-1] on the
+    card). Returns (B, nh * hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_flat_plain(q, k, v, pos)
+    global launches_flat
+    require(q.dim() == 3 and k.dim() == 4, "q (B, nh, hd) and caches (B, nkv, S, hd) expected")
+    out = _launch(q[:, None], (k[None], v[None]), pos, 0, "decode_attention_flat")
+    launches_flat += 1
+    return out[:, 0]
+
+
+def decode_attention_flat_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                             ks: torch.Tensor, vs: torch.Tensor,
+                             pos: torch.Tensor) -> torch.Tensor:
+    """K9 over an int8 cache: k8/v8 (B, nkv, S, hd) int8 with f32 row scales
+    ks/vs (B, nkv, S); otherwise as decode_attention_flat."""
+    if q.device.type == "cpu":
+        return decode_attention_flat_q8_plain(q, k8, v8, ks, vs, pos)
+    global launches_flat_q8
+    require(q.dim() == 3 and k8.dim() == 4,
+            "q (B, nh, hd) and caches (B, nkv, S, hd) expected")
+    out = _launch(q[:, None], (k8[None], v8[None], ks[None], vs[None]), pos, 0,
+                  "decode_attention_flat_q8")
+    launches_flat_q8 += 1
     return out[:, 0]
 
 

@@ -58,13 +58,14 @@ def rows_per_cta(m: int) -> int:
     return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
 
 
-def split_k(nblocks: int, col_tiles: int, block_rows: int, mt: int) -> tuple[int, int]:
+def split_k(nblocks: int, col_tiles: int, block_rows: int, mt: int,
+            target: int = _TARGET_CTAS) -> tuple[int, int]:
     """(ks, K blocks per split) for the split-K GEMV: enough splits that the
-    grid covers ~2 CTAs per SM, whole K blocks per split (QuantizedTensor.
-    k_block: scale groups for int8, packing blocks for int4), and the
-    split's x slab (mt x bps*block_rows fp32) within the shared-memory
-    budget."""
-    ks = max(1, min(nblocks, -(-_TARGET_CTAS // col_tiles)))
+    grid covers ~`target` CTAs (two per SM by default), whole K blocks per
+    split (QuantizedTensor.k_block: scale groups for int8, packing blocks
+    for int4), and the split's x slab (mt x bps*block_rows fp32) within the
+    shared-memory budget."""
+    ks = max(1, min(nblocks, -(-target // col_tiles)))
     bps = -(-nblocks // ks)
     bps = max(1, min(bps, _SMEM_X_BYTES // (4 * mt * block_rows)))
     return -(-nblocks // bps), bps

@@ -2,8 +2,11 @@
 kernel that drops one edge row of one slot (bf16 and int8 caches), the
 planted edges make such a drop large, a subset of phases never reads as a
 full run, the launch record fails a main path that skipped one of its
-kernels or ran one it must not, and the int4 params it makes on the card
-have quantize_int4's layout."""
+kernels, ran one it must not, or ran the fused attention block another
+number of times than the fused FFN, the written-row check of kernel 14
+fails a changed row, the int4 params it makes on the card have
+quantize_int4's layout, and the model_attn / prefill_t1 phases run on a
+tiny head_dim-128 model (the kernels' plain versions, counted)."""
 
 import importlib.util
 import pathlib
@@ -108,29 +111,33 @@ def _modules():
     from rama_tpu_torch.ops.kernels import ffn
     from rama_tpu_torch.ops.kernels import paged_attention as pga
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.ops.kernels import attn_block as ab
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
 
-    return qm, ffn, da, pa, kvw, pga
+    return qm, ffn, da, pa, kvw, pga, ab
 
 
 @pytest.fixture
 def counters():
     """The launch counters of every wrapper, restored after the test."""
-    qm, ffn, da, pa, kw, pga = mods = _modules()
+    qm, ffn, da, pa, kw, pga, ab = mods = _modules()
     saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
-             da.launches, da.launches_q8, pa.launches)
+             dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
+             da.launches_flat_q8)
     yield mods
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
     pga.launches.update(saved[3])
-    da.launches, da.launches_q8, pa.launches = saved[4:]
+    ab.launches.update(saved[4])
+    (da.launches, da.launches_q8, pa.launches, da.launches_flat,
+     da.launches_flat_q8) = saved[5:]
 
 
 def test_launch_counters_read_and_reset(smoke, counters):
     """The counts the main paths are judged by: one per wrapper and weight
     bits or cache, set to 0 before each path."""
-    qm, ffn, da, pa, kw, pga = counters
+    qm, ffn, da, pa, kw, pga, ab = counters
     qm.launches[4], ffn.launches[8], da.launches = 3, 2, 1
     pga.launches["paged_chunk_attention_q8"] = 9
     da.launches_q8, kw.launches["write_kv_strips_q8"] = 5, 7
@@ -445,3 +452,183 @@ def test_paged_serve_fails_unless_every_page_is_free_again(smoke, monkeypatch, f
     else:
         with pytest.raises(SystemExit, match="63 of 64 pages free"):
             smoke.phase_serve(torch, cfg, None, None, "card", tag="serve_paged", paged=True)
+
+
+ATTN_KERNELS = ("decode_attention_flat", "decode_attention_flat_q8", "attn_rope_write_layered",
+                "attn_block_layered", "attn_block_layered_int4")
+
+
+def test_attention_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in ("kernels_attn", "model_attn", "serve_ab1", "serve_ab2", "profile_ab",
+               "prefill_t1", "serve4_ab2"):
+        assert ph in smoke.ALL_PHASES
+    assert smoke.AB1_PATH["attn_block"] == 1 and smoke.AB2_PATH["attn_block"] == 2
+    assert smoke.AB2_INT4_PATH["bits"] == 4 and smoke.AB2_INT4_PATH["attn_block"] == 2
+    assert "attn_block" not in smoke.INT8_PATH        # the default paths run mode 0
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "serve4_ab2"), dev)
+    assert line["ok"] is False and line["skipped_phases"] == ["serve4_ab2"] and rc != 0
+
+
+def test_every_attention_kernel_records_its_launches_on_a_main_path(smoke, counters):
+    recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
+                if key == "launches"}
+    assert set(ATTN_KERNELS) <= recorded
+    got = smoke.read_launches(*counters)
+    assert set(got) >= set(ATTN_KERNELS)
+    qm, ffn, da, pa, kw, pga, ab = counters
+    da.launches_flat, ab.launches["attn_block_layered_int4"] = 4, 6
+    got = smoke.read_launches(*counters)
+    assert got["decode_attention_flat"] == 4 and got["attn_block_layered_int4"] == 6
+    smoke.reset_launches(*counters)
+    assert not any(smoke.read_launches(*counters).values())
+
+
+@pytest.mark.parametrize("path_name,fused,ffn", [("AB1_PATH", "attn_rope_write_layered", "ffn"),
+                                                 ("AB2_PATH", "attn_block_layered", "ffn"),
+                                                 ("AB2_INT4_PATH", "attn_block_layered_int4",
+                                                  "ffn_int4")])
+def test_attention_block_paths_fail_without_k14_with_k4_or_uneven(smoke, path_name, fused, ffn):
+    """Under RAMA_ATTN_BLOCK 1 / 2 the decode step launches K14 once a layer
+    (as often as the fused FFN) and K4 never."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match=f"never launched on the {path['label']} main"):
+        smoke.check_launches(path, {**ok, fused: 0})
+    with pytest.raises(SystemExit, match=r"\['decode_attention'\] launched"):
+        smoke.check_launches(path, {**ok, "decode_attention": 32})
+    with pytest.raises(SystemExit, match="launches of the kernel"):
+        smoke.check_launches(path, {**ok, fused: 32, ffn: 64})
+
+
+def test_prefill_t1_path_needs_both_k9_forms_and_no_other_attention(smoke):
+    path = smoke.PREFILL_T1_PATH
+    ok = {**{k: 32 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
+    smoke.check_launches(path, ok)
+    for name in ("decode_attention_flat", "decode_attention_flat_q8"):
+        with pytest.raises(SystemExit, match="never launched on the T = 1 prefill"):
+            smoke.check_launches(path, {**ok, name: 0})
+    for name in ("decode_attention", "decode_attention_q8", "prefill_attention"):
+        with pytest.raises(SystemExit, match=rf"\['{name}'\] launched"):
+            smoke.check_launches(path, {**ok, name: 1})
+
+
+def _written(seed=0, dtype=torch.bfloat16):
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    g = torch.Generator().manual_seed(seed)
+    b, nkv, s, hd = 3, 2, 16, 128
+    q, kn, vn = (torch.randn(b, n, hd, generator=g).to(dtype) for n in (nkv, nkv, nkv))
+    before = [torch.randn(2, b, nkv, s, hd, generator=g).to(dtype) for _ in range(2)]
+    pos = torch.tensor([0, 7, s + 3], dtype=torch.int32)
+    cos, sin = torch.rand(b, hd // 2, generator=g), torch.rand(b, hd // 2, generator=g)
+    want = [t.clone() for t in before]
+    ab.attn_rope_write_layered_plain(q, kn, vn, cos, sin, *want, pos, 1)
+    return want, before, pos
+
+
+def test_check_written_rows_passes_the_plain_writes(smoke):
+    want, before, pos = _written()
+    smoke.check_written_rows(torch, "same writes", [t.clone() for t in want], want, before,
+                             pos, 1)
+    got = [t.clone() for t in want]                   # one ulp on a k element: still fine
+    x = got[0][1, 1, 0, 7, 5]
+    got[0][1, 1, 0, 7, 5] = x + smoke.cache_ulp(torch, x.view(1))[0].to(x.dtype) * (
+        1 if x >= 0 else -1)
+    smoke.check_written_rows(torch, "one ulp", got, want, before, pos, 1)
+
+
+@pytest.mark.parametrize("fault", ["v row", "k row", "other row", "other layer"])
+def test_check_written_rows_fails_a_changed_row(smoke, fault):
+    want, before, pos = _written(seed=3)
+    got = [t.clone() for t in want]
+    if fault == "v row":        # the last row: pos s + 3 clamps to s - 1
+        got[1][1, 2, 1, 15, 0] += 0.0625
+    elif fault == "k row":
+        got[0][1, 0, 1, 0, 9] *= 1.5
+    elif fault == "other row":
+        got[0][1, 1, 0, 8, 0] += 1
+    else:
+        got[1][0, 1, 0, 7, 0] += 1
+    with pytest.raises(SystemExit, match="FAILED"):
+        smoke.check_written_rows(torch, fault, got, want, before, pos, 1)
+
+
+def _tiny_hd128(bits=8):
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import fuse_params, quantize_params
+
+    cfg = ModelConfig(dim=256, hidden_dim=176, n_layers=2, n_heads=2, n_kv_heads=2,
+                      vocab_size=128, seq_len=32)
+    rng = np.random.default_rng(2)
+    L, D, H, V = 2, 256, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, D), "wv": (L, D, D),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    return cfg, fuse_params(quantize_params(cfg, p, bits=bits, group_size=16,
+                                            dtype=torch.float32, device="cpu"), cfg)
+
+
+def _count_plain(monkeypatch, mod, name, counter):
+    """Make the CPU dispatch of a kernel wrapper count like its launches."""
+    real = getattr(mod, name + "_plain")
+
+    def counted(*a, **k):
+        setattr(mod, counter, getattr(mod, counter) + 1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(mod, name + "_plain", counted)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_model_attn_phase_on_a_tiny_model(smoke, monkeypatch, counters, bits):
+    """phase_model_attn's checks on the CPU (plain against plain, the fused
+    block's one call a layer counted through its plain version)."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    calls = {"n": 0}
+
+    def count(name):
+        real = getattr(ab, name + "_plain")
+
+        def counted(*a, **k):
+            wo_bits = a[7].bits if name == "attn_block_layered" else 8
+            ab.launches[name + ("_int4" if wo_bits == 4 else "")] += 1
+            calls["n"] += 1
+            return real(*a, **k)
+
+        return counted
+
+    for name in ("attn_rope_write_layered", "attn_block_layered"):
+        monkeypatch.setattr(ab, name + "_plain", count(name))
+    monkeypatch.setattr(llama, "ATTN_BLOCK", 0)
+    cfg, params = _tiny_hd128(bits)
+    smoke.phase_model_attn(torch, cfg, params, bits, dev=torch.device("cpu"))
+    assert calls["n"] == 2 * cfg.n_layers    # modes 1 and 2 on the kernel path (the wrappers)
+    assert llama.ATTN_BLOCK == 0
+
+
+def test_prefill_t1_phase_counts_k9_and_never_reaches_plain_attention(smoke, monkeypatch,
+                                                                     counters):
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    _count_plain(monkeypatch, da, "decode_attention_flat", "launches_flat")
+    _count_plain(monkeypatch, da, "decode_attention_flat_q8", "launches_flat_q8")
+    cfg, params = _tiny_hd128()
+    before = da.launches_flat, da.launches_flat_q8
+    smoke.phase_prefill_t1(torch, cfg, params, dev=torch.device("cpu"))
+    assert (da.launches_flat - before[0], da.launches_flat_q8 - before[1]) == (4, 4)
+    assert llama._attention.__name__ == "_attention"   # restored
+    # a T = 1 call that reached the plain attention fails the phase
+    monkeypatch.setattr(llama, "_KERNELS", llama._PLAIN)
+    monkeypatch.setattr(llama._PLAIN, "decode_attention_flat",
+                        lambda q, k, v, pos: llama._attention(q[:, None], k, v, None)[:, 0])
+    with pytest.raises(SystemExit, match="plain attention path"):
+        smoke.phase_prefill_t1(torch, cfg, params, dev=torch.device("cpu"))

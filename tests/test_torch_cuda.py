@@ -656,3 +656,214 @@ def test_paged_engine_refuses_a_page_size_the_kernel_does_not_take(dev):
         Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=12))
     with pytest.raises(ValueError, match="at most 8"):
         Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=16, spec_tick=4))
+
+
+# -- kernel 9: T = 1 attention over one layer's cache --------------------------
+
+@pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 1, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_flat(dev, nh, nkv, hd, dtype):
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    g = torch.Generator().manual_seed(nh + hd)
+    k, v = (torch.randn(3, nkv, 200, hd, generator=g).to(dev, dtype) for _ in range(2))
+    q = torch.randn(3, nh, hd, generator=g).to(dev, dtype)
+    pos = torch.tensor([0, 64, 230], dtype=torch.int32, device=dev)   # 230: clamped
+    before = da.launches_flat
+    _close(da.decode_attention_flat(q, k, v, pos), da.decode_attention_flat_plain(q, k, v, pos),
+           dtype)
+    assert da.launches_flat == before + 1
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 2, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_flat_q8(dev, nh, nkv, hd, dtype):
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels.kv_write import kv_quant_rows
+
+    g = torch.Generator().manual_seed(nh * hd)
+    (k8, ks), (v8, vs) = (kv_quant_rows(torch.randn(3, nkv, 150, hd, generator=g).to(dev))
+                          for _ in range(2))
+    q = torch.randn(3, nh, hd, generator=g).to(dev, dtype)
+    pos = torch.tensor([149, 0, 77], dtype=torch.int32, device=dev)
+    before = da.launches_flat_q8
+    _close(da.decode_attention_flat_q8(q, k8, v8, ks, vs, pos),
+           da.decode_attention_flat_q8_plain(q, k8, v8, ks, vs, pos), dtype)
+    assert da.launches_flat_q8 == before + 1
+
+
+# -- kernel 14: the fused attention block --------------------------------------
+
+def _ab_case(dev, b, nkv, rep, s, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    nh, hd = nkv * rep, 128
+    q = torch.randn(b, nh, hd, generator=g).to(dev, dtype)
+    qkv = torch.randn(b, 2 * nkv * hd, generator=g).to(dev, dtype)   # strided k / v rows
+    kn, vn = qkv[:, :nkv * hd].view(b, nkv, hd), qkv[:, nkv * hd:].view(b, nkv, hd)
+    cache = [torch.randn(2, b, nkv, s, hd, generator=g).to(dev, dtype) for _ in range(2)]
+    ang = torch.rand(b, hd // 2, generator=g) * 6
+    return q, kn, vn, ang.cos().to(dev), ang.sin().to(dev), cache
+
+
+def _check_rows(got, want, before, pos, layer):
+    """v row exact, roped k row within one ulp, other rows unchanged."""
+    s = before[0].shape[3]
+    b = torch.arange(pos.shape[0], device=pos.device)
+    p = pos.long().clamp(0, s - 1)
+    assert torch.equal(got[1][layer, b, :, p], want[1][layer, b, :, p])
+    wk = want[0][layer, b, :, p].float()
+    _, e = torch.frexp(wk)
+    ulp = torch.ldexp(torch.ones_like(wk), e - (8 if want[0].dtype == torch.bfloat16 else 24))
+    assert bool(((got[0][layer, b, :, p].float() - wk).abs() <= ulp).all())
+    for g_, b0 in zip(got, before):
+        rest = g_.clone()
+        rest[layer, b, :, p] = b0[layer, b, :, p]
+        assert torch.equal(rest, b0)
+
+
+@pytest.mark.parametrize("b,nkv,rep,s", [(3, 2, 1, 72), (2, 4, 2, 200), (9, 2, 4, 64),
+                                         (1, 3, 1, 136)])
+@pytest.mark.parametrize("form", ["light", 8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attn_block(dev, b, nkv, rep, s, form, dtype):
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=b * s + rep)
+    pos = torch.tensor([0, s - 1, s + 3, 63, 64, 65, 1, 128, 17][:b], dtype=torch.int32,
+                       device=dev)
+    got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
+    if form == "light":
+        name = "attn_rope_write_layered"
+        n0 = ab.launches[name]
+        got = ab.attn_rope_write_layered(q, kn, vn, cos, sin, *got_c, pos, 1)
+        want = ab.attn_rope_write_layered_plain(q, kn, vn, cos, sin, *want_c, pos, 1)
+    else:
+        name = "attn_block_layered" + ("_int4" if form == 4 else "")
+        wo = _qt(dev, 2, nkv * rep * 128, 256, 64, seed=s, bits=form)
+        n0 = ab.launches[name]
+        got = ab.attn_block_layered(q, kn, vn, cos, sin, *got_c, wo, pos, 1)
+        want = ab.attn_block_layered_plain(q, kn, vn, cos, sin, *want_c, wo, pos, 1)
+    torch.cuda.synchronize()
+    _close_k(got, want, dtype)
+    _check_rows(got_c, want_c, before, pos, 1)
+    assert ab.launches[name] == n0 + 1
+
+
+def test_attn_block_refuses_operands_it_does_not_take(dev):
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    q, kn, vn, cos, sin, cache = _ab_case(dev, 2, 2, 1, 64, torch.bfloat16, seed=1)
+    pos = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ab.attn_rope_write_layered(q[..., :64], kn[..., :64], vn[..., :64], cos[:, :32],
+                                   sin[:, :32], *(c[..., :64].contiguous() for c in cache),
+                                   pos, 0)
+    with pytest.raises(ValueError, match="int32"):
+        ab.attn_rope_write_layered(q, kn, vn, cos, sin, *cache, pos.long(), 0)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        ab.attn_rope_write_layered(q.float(), kn, vn, cos, sin, *cache, pos, 0)
+
+
+def _hd128_params(dev, seed=3):
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+
+    cfg = ModelConfig(dim=256, hidden_dim=176, n_layers=2, n_heads=2, n_kv_heads=2,
+                      vocab_size=128, seq_len=64)
+    rng = np.random.default_rng(seed)
+    L, D, H, V = 2, 256, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.1).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, D), "wv": (L, D, D),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    return cfg, lambda device: quantize_params(cfg, p, group_size=16, dtype=torch.float32,
+                                               device=device)
+
+
+def test_t1_prefill_on_card_never_reaches_plain_attention(dev, monkeypatch):
+    """prefill of a one-token prompt and forward(logit_rows) at T = 1 on the
+    card run kernel 9 on a dense and an int8 cache, with the masked einsum
+    and the layer dequantization made to raise; logits equal the CPU's
+    (fp32, atol 1e-3)."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg, make = _hd128_params(dev)
+    cpu_p, gpu_p = llama.fuse_params(make("cpu"), cfg), llama.fuse_params(make(dev), cfg)
+    toks = torch.tensor([[1], [7], [3]])
+    outs = {}
+    for device, params in (("cpu", cpu_p), (dev, gpu_p)):
+        for cls in (llama.KVCache, llama.QuantKVCache):
+            kw = {"dtype": torch.float32} if cls is llama.KVCache else {}
+            cache = cls.create(cfg, 3, 32, device=device, **kw)
+            if device != "cpu":
+                def boom(*a, **k):
+                    raise AssertionError("a T = 1 call on the card reached plain attention")
+
+                monkeypatch.setattr(llama, "_attention", boom)
+                monkeypatch.setattr(llama, "_dequant_kv", boom)
+            before = (da.launches_flat, da.launches_flat_q8)
+            a, _ = llama.prefill(params, cfg, toks.to(device), cache, last_only=True)
+            b, _ = llama.forward(params, cfg, toks.to(device) + 4,
+                                 torch.ones((3, 1), dtype=torch.long, device=device), cache,
+                                 logit_rows=torch.zeros(3, dtype=torch.long, device=device))
+            if device != "cpu":
+                q8 = cls is llama.QuantKVCache
+                assert (da.launches_flat_q8 if q8 else da.launches_flat) - before[q8] == \
+                    2 * cfg.n_layers
+            outs.setdefault(cls.__name__, []).append((a.cpu(), b.cpu()))
+            monkeypatch.undo()
+    for pair in outs.values():
+        for x, y in zip(*pair):
+            torch.testing.assert_close(y, x, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_engine_under_attn_block_on_card_never_runs_k4(dev, monkeypatch, mode):
+    """A serve-style engine run on the card under RAMA_ATTN_BLOCK 1 / 2
+    (K14 in every decode step, K4's wrapper made to raise) emits the CPU
+    engine's greedy streams in mode 0 (fp32)."""
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg, make = _hd128_params(dev, seed=5)
+    v = cfg.vocab_size
+    tok = Tokenizer(["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                                for i in range(v - 3)], [0.0] * v)
+    streams = []
+    for device, m in (("cpu", 0), (dev, mode)):
+        monkeypatch.setattr(llama, "ATTN_BLOCK", m)
+        if device != "cpu":
+            def boom(*a, **k):
+                raise AssertionError("K4 launched under the fused attention block")
+
+            monkeypatch.setattr(llama._KERNELS, "decode_attention", boom)
+        name = "attn_block_layered" if mode == 2 else "attn_rope_write_layered"
+        before = ab.launches[name]
+        eng = Engine(cfg, make(device), tok, EngineConfig(max_batch_size=4, decode_tick=4))
+        reqs = [Request(prompt="ab" * 20, steps=10, temperature=0.0, stop_at_eos=False),
+                Request(prompt="abc", steps=100, temperature=0.0, stop_at_eos=False),
+                Request(prompt="zq", steps=20, temperature=0.0, stop_at_eos=False)]
+        eng.start()
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = []
+            for r in reqs:
+                out = []
+                while (t := r.queue.get(timeout=120)) is not None:
+                    out.append(t)
+                got.append(out)
+        finally:
+            eng.stop()
+        assert all(r.error is None for r in reqs)
+        streams.append(got)
+        if device != "cpu":
+            assert ab.launches[name] > before
+    assert streams[0] == streams[1]

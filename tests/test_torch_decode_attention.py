@@ -65,3 +65,70 @@ def test_cpu_wrapper_dispatches_to_plain():
             torch.tensor([3, 15], dtype=torch.int32), 1)
     torch.testing.assert_close(decode_attention(*args), decode_attention_plain(*args),
                                rtol=0, atol=0)
+
+
+# Kernel 9: the same function over ONE layer's cache (B, nkv, S, hd), against
+# rama_tpu's decode_attention / decode_attention_q8 in interpret mode.
+# Tolerance: fp32 atol 1e-4; bf16 rel 2e-2 of max |ref| (as above); the int8
+# cache with bf16 q within the bar of the K7 test (atol 0.03, rtol 0.05: the
+# Pallas kernel rounds probs * vs to bf16 after a normalized softmax).
+
+@pytest.mark.parametrize("nh,nkv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_plain_matches_pallas(nh, nkv, dtype):
+    from rama_tpu.ops.pallas.decode_attention import decode_attention as j_flat
+    from rama_tpu_torch.ops.kernels.decode_attention import decode_attention_flat_plain
+
+    b, s, hd = 4, 64, 128
+    q, k, v = make(1, b, nh, nkv, s, hd, seed=10 + nh)
+    pos = np.array([0, 31, 32, 63], np.int32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(j_flat(jnp.asarray(q, jd), jnp.asarray(k[0], jd), jnp.asarray(v[0], jd),
+                             jnp.asarray(pos), interpret=True).astype(jnp.float32))
+    got = decode_attention_flat_plain(torch.from_numpy(q).to(td), torch.from_numpy(k[0]).to(td),
+                                      torch.from_numpy(v[0]).to(td),
+                                      torch.from_numpy(pos)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("rep", [1, 2])
+def test_flat_q8_plain_matches_pallas(rep):
+    from rama_tpu.models.llama import kv_quant_rows
+    from rama_tpu.ops.pallas.decode_attention import decode_attention_q8 as j_flat_q8
+    from rama_tpu_torch.ops.kernels.decode_attention import decode_attention_flat_q8_plain
+
+    rng = np.random.default_rng(20 + rep)
+    b, nkv, s, hd = 3, 2, 64, 128
+    k = rng.standard_normal((b, nkv, s, hd)).astype(np.float32)
+    v = rng.standard_normal((b, nkv, s, hd)).astype(np.float32)
+    (k8, ks), (v8, vs) = kv_quant_rows(jnp.asarray(k)), kv_quant_rows(jnp.asarray(v))
+    jq = jnp.asarray(rng.standard_normal((b, nkv * rep, hd)), jnp.bfloat16)
+    pos = np.array([0, 40, s - 1], np.int32)
+    want = np.asarray(j_flat_q8(jq, k8, v8, ks, vs, jnp.asarray(pos), interpret=True),
+                      np.float32)
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = decode_attention_flat_q8_plain(t(jq.astype(jnp.float32)).to(torch.bfloat16), t(k8),
+                                         t(v8), t(ks), t(vs), t(pos)).float().numpy()
+    np.testing.assert_allclose(got, want, atol=0.03, rtol=0.05)
+
+
+def test_flat_cpu_wrappers_dispatch_to_plain_and_equal_the_layered_kernel():
+    """On the CPU the K9 wrappers run their plain versions, which are K4's /
+    K7's over the stacked view of one layer (bit for bit)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels.kv_write import kv_quant_rows
+
+    q, k, v = make(2, 3, 4, 2, 48, 16, seed=4)
+    q, k, v = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    pos = torch.tensor([0, 47, 60], dtype=torch.int32)     # 60: past the cache, clamped
+    got = da.decode_attention_flat(q, k[1], v[1], pos)
+    torch.testing.assert_close(got, da.decode_attention_flat_plain(q, k[1], v[1], pos),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, da.decode_attention(q, k, v, pos, 1), rtol=0, atol=0)
+    (k8, ks), (v8, vs) = kv_quant_rows(k), kv_quant_rows(v)
+    got = da.decode_attention_flat_q8(q, k8[1], v8[1], ks[1], vs[1], pos)
+    torch.testing.assert_close(got, da.decode_attention_q8(q, k8, v8, ks, vs, pos, 1),
+                               rtol=0, atol=0)

@@ -268,3 +268,49 @@ def test_mixed_bits_w13_w2_take_the_split_path(monkeypatch):
                              jnp.asarray([0, 0], jnp.int32),
                              jl.KVCache.create(jcfg, 2, 8, dtype=jnp.float32))
     close(got, want)
+
+
+@pytest.mark.parametrize("cache_kind", ["dense", "int8"])
+def test_one_token_prefill_and_logit_rows_at_t1_match_jax(monkeypatch, cache_kind):
+    """The generic layer at T = 1 — prefill of a one-token prompt a slot and
+    forward(logit_rows) at ragged positions — takes kernel 9 (its plain
+    version here) on a dense and an int8 cache, never the masked einsum or
+    the whole-layer dequantization, and matches the JAX package's CPU path
+    (atol 1e-4, fp32)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    jcfg = tiny_config(seq_len=32)
+    cfg, jp, tp = both_params(jcfg, random_params(jcfg, seed=12), "int8")
+    b = 3
+    if cache_kind == "dense":
+        jc = jl.KVCache.create(jcfg, b, 32, dtype=jnp.float32)
+        tc = tl.KVCache.create(cfg, b, 32, dtype=torch.float32, device="cpu")
+    else:
+        jc = jl.QuantKVCache.create(jcfg, batch=b, max_len=32)
+        tc = tl.QuantKVCache.create(cfg, b, 32, device="cpu")
+    calls = []
+    name = "decode_attention_flat" + ("_q8" if cache_kind == "int8" else "")
+    real = getattr(da, name + "_plain")
+    monkeypatch.setattr(da, name + "_plain", lambda *a: calls.append(1) or real(*a))
+
+    def boom(*a, **k):
+        raise AssertionError("T = 1 reached the masked einsum or the layer dequantization")
+
+    monkeypatch.setattr(tl, "_attention", boom)
+    monkeypatch.setattr(tl, "_dequant_kv", boom)
+    toks = np.array([[1], [7], [3]], np.int32)
+    lj, jc = jl.prefill(jp, jcfg, jnp.asarray(toks), jc, last_only=True)
+    lt, tc = tl.prefill(tp, cfg, torch.from_numpy(toks).long(), tc, last_only=True)
+    assert lt.shape == (b, 1, cfg.vocab_size)
+    close(lt, lj)
+    assert len(calls) == cfg.n_layers
+    for step, pos in enumerate(([1, 1, 1], [2, 5, 31], [3, 6, 40])):   # 40: past the cache
+        tok = np.array([[4 + step], [9], [2 + step]], np.int32)
+        pos = np.array(pos, np.int32)[:, None]
+        rows = np.zeros(b, np.int32)
+        lj, jc = jl.forward(jp, jcfg, jnp.asarray(tok), jnp.asarray(np.minimum(pos, 31)), jc,
+                            logit_rows=jnp.asarray(rows))
+        lt, tc = tl.forward(tp, cfg, torch.from_numpy(tok).long(), torch.from_numpy(pos).long(),
+                            tc, logit_rows=torch.from_numpy(rows))
+        close(lt, lj)
+    assert len(calls) == 4 * cfg.n_layers
