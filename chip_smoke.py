@@ -16,7 +16,11 @@ Phases, in order (any failure raises and the script exits non-zero):
            attention checks again with planted edge rows); CUDA-event
            times of kernel, plain version and, where one PyTorch call
            computes the same function, that call (library_ms, a yardstick
-           the port never calls)
+           the port never calls); K5 (prefill attention) also at GQA rep 2
+           and 4, the stories drafts' hd 48 and 64, fp32 hd 48 (the SIMT
+           body), with planted 32- and 64-key tile edges, each call on the
+           body `body_for` picks, and timed at (8, 16), (8, 512) and one
+           4096-token prompt
   kernels4 the same for the int4 instantiations of quant_matmul (decode
            GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
            int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
@@ -37,6 +41,9 @@ Phases, in order (any failure raises and the script exits non-zero):
   profile  torch.profiler over 8-slot decode steps: host ms/step (with and
            without the profiler), device kernel ms/step by kernel, device
            busy share
+  profile_prefill  one 7B int8 admission of 8 x 512 tokens through
+           llama.prefill on a bf16 cache of 1024 rows: device ms (CUDA
+           events), torch.profiler's device ms by kernel and K5's share
   model_kv8    the int8 params on an int8 KV cache of 4096 rows: kernel-path
            logits against the plain path after a prefill and decode steps
            at positions 8, 9, 1500 and 4000 (RoPE tabulated to 4096); the
@@ -134,7 +141,8 @@ GEMV and both attention kernels must have; the fused attention block
 under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step) and K4 never; and `prefill_t1`, where K9 launches on both
-caches and no decode, chunk or prefill attention does. The int8 KV,
+caches and no decode, chunk or prefill attention does. Every K5 launch
+of a path that records K5 must be on its tensor-core body. The int8 KV,
 speculation, attention-block and T = 1 paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
@@ -162,11 +170,11 @@ BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
 ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec",
               "kernels_paged", "kernels_attn", "model", "generate", "serve", "profile",
-              "model_kv8", "serve_kv8", "profile_kv8", "model_spec", "serve_spec", "profile_spec",
-              "spec_draft", "serve_spec_kv8", "model_paged", "serve_paged", "profile_paged",
-              "serve_paged_kv8", "serve_spec_paged", "serve_spec_paged_kv8", "model_attn",
-              "serve_ab1", "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
-              "serve4_ab2", "cli")
+              "profile_prefill", "model_kv8", "serve_kv8", "profile_kv8", "model_spec",
+              "serve_spec", "profile_spec", "spec_draft", "serve_spec_kv8", "model_paged",
+              "serve_paged", "profile_paged", "serve_paged_kv8", "serve_spec_paged",
+              "serve_spec_paged_kv8", "model_attn", "serve_ab1", "serve_ab2", "profile_ab",
+              "prefill_t1", "model4", "serve4", "profile4", "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
@@ -181,8 +189,9 @@ PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the
 # int4 path also runs the int8 classifier's GEMV and the attention kernels,
 # the other paths the int8 matmul / FFN and the prefill attention), and the
 # kernels it must not launch (their count goes to the record too).
+# `after`: phases run on the path's params once its launches are read
 INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "profile"),
-                 serve={},
+                 serve={}, after=("profile_prefill",),
                  record={"quant_matmul": "launches", "ffn": "launches",
                          "decode_attention": "launches", "prefill_attention": "launches"},
                  forbid={})
@@ -444,6 +453,8 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
+    for body in pa.launches_by_body:
+        pa.launches_by_body[body] = 0
 
 
 def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
@@ -451,6 +462,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
             "decode_attention": da.launches, "prefill_attention": pa.launches,
+            "prefill_attention_mma": pa.launches_by_body["mma"],
+            "prefill_attention_simt": pa.launches_by_body["simt"],
             "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
             "chunk_attention_q8": da.launches_chunk_q8,
             "decode_attention_flat": da.launches_flat,
@@ -460,9 +473,11 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
 
 def check_launches(path: dict, launches: dict) -> None:
     """Fail a main path on which one of its kernels never launched, on
-    which a kernel it must not run did, or on which a kernel launched
+    which a kernel it must not run did, on which a kernel launched
     another number of times than the kernel `equal` pairs it with (one
-    launch a layer of each decode step, as the fused FFN)."""
+    launch a layer of each decode step, as the fused FFN), or on which K5
+    ran its SIMT body (every K5 launch of a 7B path, bf16 at hd 128, and of
+    the stories draft, bf16 at hd 48, takes the tensor-core body)."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -476,6 +491,10 @@ def check_launches(path: dict, launches: dict) -> None:
     if uneven:
         raise SystemExit(f"FAILED: on the {path['label']} main path {uneven} (launches of "
                          f"the kernel, of the kernel launched once a layer of a decode step)")
+    if "prefill_attention" in path["record"] and launches.get("prefill_attention_simt", 0):
+        raise SystemExit(f"FAILED: {launches['prefill_attention_simt']} of "
+                         f"{launches['prefill_attention']} prefill_attention launches on the "
+                         f"{path['label']} main path took the SIMT body, not the tensor-core one")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -773,9 +792,25 @@ def phase_kernels(torch, results: dict) -> None:
         shape=f"q (8, 32, 128) bf16, cache (32, 8, 32, 1024, 128), pos {pos.tolist()}")
     del kc, vc
 
-    # -- kernel 4: prefill attention ---------------------------------------------
-    tiles = (31, 32, 63, 64, 127, 128, 255, 256, 287, 288, 511)   # key-tile edges
+    # -- kernel 5: prefill attention ---------------------------------------------
+    # key-tile edges of both bodies (32-key SIMT tiles, 64-key tensor-core tiles)
+    tiles = (31, 32, 63, 64, 127, 128, 191, 192, 255, 256, 287, 288, 319, 320, 383, 384,
+             447, 448, 511)
     long_prompt = (8, 512, 512, [512, 300, 450, 129, 256, 511, 77, 384])
+
+    def check_k5(label, qp, kp, vp, pl) -> float:
+        """K5 against its plain version per (slot, row, head), on the body
+        body_for picks (one launch on it, none on the other)."""
+        body = pa.body_for(qp.dtype, qp.shape[-1])
+        before = dict(pa.launches_by_body)
+        got = pa.prefill_attention(qp, kp, vp, pl)
+        ran = {k: pa.launches_by_body[k] - before[k] for k in before}
+        if ran != {k: int(k == body) for k in before}:
+            raise SystemExit(f"FAILED prefill_attention {label}: launches by body {ran}, "
+                             f"expected one on {body}")
+        return compare(torch, f"prefill_attention {label} [{body}]", got,
+                       pa.prefill_attention_plain(qp, kp, vp, pl), per=qp.shape[-1])
+
     cases = ((8, 16, 16, [16, 5, 1, 9, 16, 2, 3, 12]),    # serving bucket, plen < T
              (2, 128, 128, [128, 77]),
              (1, 512, 1024, [300]),
@@ -787,39 +822,58 @@ def phase_kernels(torch, results: dict) -> None:
         for planted in (False, True):
             if planted:
                 plant_prefill_edges(vp, plens, tiles)
-            compare(torch, f"prefill_attention B={b} T={t} S={s} plen={plens}"
-                    f"{' planted edges' if planted else ''}",
-                    pa.prefill_attention(qp, kp, vp, pl),
-                    pa.prefill_attention_plain(qp, kp, vp, pl), per=hd)
+            check_k5(f"B={b} T={t} S={s} plen={plens}{' planted edges' if planted else ''}",
+                     qp, kp, vp, pl)
+    # GQA rep 2 and 4 at hd 128; the stories drafts' hd 48 (stories15M) and 64
+    # (stories42M / 110M), T not a multiple of 16, plen inside a tile; and the
+    # hd 48 fp32 GQA case of the SIMT body
     f32 = torch.float32
-    qg, kg, vg = rx(2, 24, 4, 48, dtype=f32), rx(2, 2, 32, 48, dtype=f32), rx(2, 2, 32, 48, dtype=f32)
-    plg = torch.tensor([24, 7], dtype=torch.int32, device=dev)
-    compare(torch, "prefill_attention GQA rep=2 hd=48 f32",
-            pa.prefill_attention(qg, kg, vg, plg),
-            pa.prefill_attention_plain(qg, kg, vg, plg), per=48)
+    for b, t, s, nh_, nkv_, hd_, plens, dt in (
+            (2, 200, 256, 32, 16, 128, [200, 131], bf),
+            (2, 200, 256, 32, 8, 128, [191, 65], bf),
+            (3, 77, 80, 6, 6, 48, [77, 37, 1], bf),
+            (3, 45, 48, 8, 8, 64, [45, 29, 17], bf),
+            (2, 24, 32, 4, 2, 48, [24, 7], f32)):
+        qp = rx(b, t, nh_, hd_, dtype=dt)
+        kp, vp = rx(b, nkv_, s, hd_, dtype=dt), rx(b, nkv_, s, hd_, dtype=dt)
+        pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+        for planted in (False, True):
+            if planted:
+                plant_prefill_edges(vp, plens, tiles)
+            check_k5(f"B={b} T={t} S={s} nh={nh_} nkv={nkv_} hd={hd_} {dt} plen={plens}"
+                     f"{' planted edges' if planted else ''}", qp, kp, vp, pl)
 
     def time_prefill(b, t, plens) -> dict:
         """Check, then time kernel, plain version and SDPA at one shape."""
         qp = rx(b, t, cfg.n_heads, hd)
         kp, vp = rx(b, nkv, t, hd), rx(b, nkv, t, hd)
         pl = torch.tensor(plens, dtype=torch.int32, device=dev)
-        err = compare(torch, f"prefill_attention timed inputs B={b} T={t}",
-                      pa.prefill_attention(qp, kp, vp, pl),
-                      pa.prefill_attention_plain(qp, kp, vp, pl), per=hd)
+        err = check_k5(f"timed inputs B={b} T={t}", qp, kp, vp, pl)
         t_k = time_ms(torch, lambda: pa.prefill_attention(qp, kp, vp, pl))
         t_p = time_ms(torch, lambda: pa.prefill_attention_plain(qp, kp, vp, pl))
         tpos = torch.arange(t, device=dev)
         mask = ((tpos[None, None, :] <= tpos[None, :, None])
                 & (tpos[None, None, :] < pl[:, None, None].long()))[:, None]
-        t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qp.transpose(1, 2), kp, vp, attn_mask=mask))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qp.transpose(1, 2), kp, vp, attn_mask=mask)
+
+        t_lib = time_ms(torch, sdpa)
+        # device time alone: a small call's wall time is the host's
+        dev_ms = {"device_ms": device_ms_per_call(
+                      torch, lambda: pa.prefill_attention(qp, kp, vp, pl)),
+                  "library_device_ms": device_ms_per_call(torch, sdpa)}
         # a query row >= plen attends to all plen keys, as in the Pallas kernel
         pairs = sum(sum(min(i + 1, p) for i in range(t)) for p in plens)
+        flops = pairs * cfg.n_heads * hd * 4
         nb = 2 * qp.numel() * 2 + sum(plens) * nkv * hd * 2 * 2
-        b_ms, b_by = bound_ms(nb, pairs * cfg.n_heads * hd * 4)
+        b_ms, b_by = bound_ms(nb, flops)
+        log(f"[time] prefill_attention B={b} T={t}: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
+            f"TFLOP/s), SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device "
+            f"{dev_ms['device_ms']:.4f} ms, SDPA device {dev_ms['library_device_ms']:.4f} ms")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=t_lib, shape=f"q ({b}, {t}, 32, 128) bf16, k/v ({b}, 32, "
-                    f"{t}, 128), plen {plens}")
+                    library_ms=t_lib, breakdown=dev_ms, shape=f"q ({b}, {t}, 32, 128) bf16, "
+                    f"k/v ({b}, 32, {t}, 128), plen {plens}")
 
     results["prefill_attention"] = dict(
         name="prefill_attention", route="cuda",
@@ -828,8 +882,11 @@ def phase_kernels(torch, results: dict) -> None:
         **time_prefill(*cases[0][:2], cases[0][3]))
     b, t, _, plens = long_prompt
     results["prefill_attention"]["long_prompt"] = time_prefill(b, t, plens)
-    for r in [*results.values(), results["prefill_attention"]["long_prompt"]]:
-        log(f"[kernel] {r.get('name', 'prefill_attention long prompt')}: {r['ms']:.4f} "
+    # one 4096-token prompt: the engine's bucket at max_len 4096
+    results["prefill_attention"]["t4096"] = time_prefill(1, 4096, [4096])
+    k5 = results["prefill_attention"]
+    for r in [*results.values(), k5["long_prompt"], k5["t4096"]]:
+        log(f"[kernel] {r.get('name', 'prefill_attention ' + r['shape'])}: {r['ms']:.4f} "
             f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
 
@@ -2455,6 +2512,51 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
                 host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall)
 
 
+def profile_prefill(torch, cfg, params) -> dict:
+    """One 7B admission of 8 prompts of 512 tokens through llama.prefill on a
+    bf16 cache of 1024 rows: torch.profiler's device ms by kernel over one
+    admission, with K5's share, then the device ms of a second one (CUDA
+    events). Returns device_ms, profiled_device_ms, k5_ms and k5_share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rama_tpu_torch.models.llama import KVCache, prefill
+
+    dev = torch.device("cuda")
+    cache = KVCache.create(cfg, 8, 1024, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(3, cfg.vocab_size, (8, 512), device=dev, generator=g)
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(params, cfg, tokens, cache, last_only=True)
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, _ = prefill(params, cfg, tokens, cache, last_only=True)
+        end.record()
+        end.synchronize()
+    if logits.shape != (8, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"FAILED profile_prefill: logits {tuple(logits.shape)}, finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if dt and ev.device_type.name == "CUDA":
+            rows.append((dt, ev.key, ev.count))
+    if not rows:
+        raise SystemExit("FAILED profile_prefill: the profiler recorded no device time")
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    k5_ms = sum(dt for dt, key, _ in rows if "pattn" in key) / 1e3
+    ms = start.elapsed_time(end)
+    log(f"[profile_prefill] 7B int8 admission of 8 x 512 tokens (bf16 cache of 1024 rows): "
+        f"{ms:.3f} ms (CUDA events); profiled admission {busy_ms:.3f} ms of device kernel "
+        f"time, K5 {k5_ms:.3f} ms = {k5_ms / busy_ms:.4f} of it")
+    for dt, key, count in sorted(rows, reverse=True)[:12]:
+        log(f"[profile_prefill]   {dt / 1e3:.4f} ms  x{count:<5d} {key[:90]}")
+    return dict(device_ms=ms, profiled_device_ms=busy_ms, k5_ms=k5_ms,
+                k5_share=k5_ms / busy_ms)
+
+
 def profile_paged(torch, cfg, params) -> None:
     """Device ms per 8-slot decode step on a bf16 and an int8 page pool
     (8 x 32 pages of PAGE_SIZE rows under shuffled tables: the rows of an
@@ -2710,7 +2812,7 @@ def main() -> int:
     params, params_bits = None, None
     serving: dict = {}
     for path in PATHS:
-        if not set(path["phases"]) & set(phases):
+        if not (set(path["phases"]) | set(path.get("after", ()))) & set(phases):
             continue
         bits, label = path["bits"], path["label"]
         llama.ATTN_BLOCK = path.get("attn_block", 0)   # as RAMA_ATTN_BLOCK sets it at import
@@ -2783,6 +2885,11 @@ def main() -> int:
                     del cache
         elif profile in phases:
             phase_profile(torch, cfg, params, tag=profile)
+        if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
+            torch.cuda.empty_cache()
+            admission = profile_prefill(torch, cfg, params)
+            if "prefill_attention" in results:
+                results["prefill_attention"]["admission"] = admission
         torch.cuda.empty_cache()
     llama.ATTN_BLOCK = 0
     del params
@@ -2792,8 +2899,9 @@ def main() -> int:
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_note", "shape",
-            "long_prompt", "s4096", "t4", "t8", "ps16", "same_rows_one_query_ms",
-            "dense_same_rows_ms", "dense_gap", "breakdown", "k6_same_run_ms",
+            "long_prompt", "t4096", "admission", "s4096", "t4", "t8", "ps16",
+            "same_rows_one_query_ms", "dense_same_rows_ms", "dense_gap", "breakdown",
+            "k6_same_run_ms",
             "launches_int4_path", "launches_kv8_path", "launches_spec_path",
             "launches_spec_draft_path", "launches_spec_kv8_path", "launches_paged_path",
             "launches_paged_kv8_path", "launches_spec_paged_path",

@@ -1,25 +1,57 @@
-// Kernel 4: causal flash attention for prefill over freshly written cache
+// Kernel 5: causal flash attention for prefill over freshly written cache
 // rows, masked per slot by the prompt length.
 //
 // Replaces rama_tpu/ops/pallas/prefill_attention.py: prefill_attention
 // (_kernel). Query t of slot b (at position t) sees key s iff s <= t and
-// s < plen[b]; scores in fp32, online softmax over key tiles, the
+// s < plen[b]; query rows t >= plen still attend to all plen keys. Scores
+// in fp32 times 1/sqrt(hd), online softmax over key tiles, the
 // unnormalized probabilities rounded to the cache dtype before P.V (as the
-// Pallas kernel's e.astype(v.dtype)), the normalizer from the unrounded
-// values. A row with no visible key (plen == 0) outputs zeros, never NaN.
+// Pallas kernel's e.astype(v.dtype)), the normalizer summed from the
+// unrounded fp32 values. A row with no visible key (plen == 0) outputs
+// zeros, never NaN. Key tiles above a q tile's diagonal, or wholly at or
+// past plen, are never read.
 //
-// Bound on the H100: operations for long prompts (4 * hd flops per visible
-// (query, key) pair, about T^2/2 pairs per head), bytes for short ones (q,
-// k, v and out once each).
+// Bound on the H100: 4 * hd flops per visible (query, key) pair (about
+// T^2 / 2 pairs a head) against q, k, v and out moved once each. Below
+// about 295 flop/B (short prompts: the serving buckets of 16 rows) the
+// bytes bound it, above (512-row and longer prompts) the bf16 tensor-core
+// operations.
 //
-// Design: one CTA per (q-tile, kv head, slot); the rep query heads of the
-// kv head are stacked as tile rows (64 rows = rep x 64/rep positions), so
-// each K/V tile is read once for the whole GQA group. The CTA walks key
-// tiles of 32 rows up to the causal diagonal and up to plen; tiles above
-// either are never read. Two threads share a query row (each scores 16 of
-// the tile's keys and owns half of the output dims); q, the K/V tiles, the
-// probabilities and the fp32 output accumulator live in shared memory.
-// fp32 FMA on the CUDA cores; tensor cores (mma/wgmma) are later work.
+// Both bodies take one CTA per (q tile, kv head, slot); the rep query
+// heads of the kv head are stacked as the tile's 64 rows (row r is head
+// j * rep + r / bq at position t0 + r % bq, bq = 64 / rep), so each K/V
+// tile is read once for the whole GQA group.
+//
+// bf16 at hd 48, 64, 128 (pattn_mma_kernel), FlashAttention-2's layout on
+// the tensor cores (mma.sync.m16n8k16 bf16 -> fp32):
+//  - 4 warps, each owning 16 query rows; q tiles are issued longest
+//    (highest positions, most key tiles) first. The Q tile is copied to
+//    shared memory with cp.async and held in registers as A fragments
+//    (ldmatrix.x4; hd / 16 k-steps).
+//  - K and V tiles of 64 keys x hd, double-buffered with cp.async (the
+//    next tile's copy overlaps this tile's math); rows padded by 8 bf16 so
+//    ldmatrix's eight 16-byte row reads fall in distinct banks. Key rows
+//    at or past the CTA's last visible key are zero-filled, never read.
+//    At hd 128: 87,040 B of shared memory and about 210 registers a
+//    thread, two CTAs an SM.
+//  - A warp skips the math of a key tile that no stored row of it can see
+//    (every key past its last position or plen; every row of it past T).
+//  - S = Q K^T: K is the column-major B operand (ldmatrix, no transpose);
+//    a warp's S tile is 16 x 64 fp32 in registers. The causal / plen mask
+//    is applied only on tiles that straddle the warp's first position or
+//    plen (a warp-uniform test).
+//  - Softmax in registers: row max and sum across the four lanes of a row
+//    (shfl_xor 1, 2); a row with nothing visible yet keeps m = -inf and
+//    adds zeros. Two adjacent n8 accumulator tiles of e, rounded to bf16,
+//    are the A fragment of P.V with no trip through shared memory.
+//  - O += P V: V is the row-major B operand (ldmatrix.trans); O is 16 x hd
+//    fp32 a warp in registers (hd / 2 a thread).
+//  - Epilogue: O / l (l == 0 -> zeros), rounded to bf16, staged through
+//    the Q tile's shared memory for 16-byte coalesced stores.
+//
+// fp32, and bf16 at any other hd, take the SIMT body (pattn_kernel): key
+// tiles of 32 rows, two threads a query row, q, K, V, P and the output
+// accumulator in fp32 shared memory, fp32 FMA on the CUDA cores.
 #include "common.cuh"
 
 #include <math.h>
@@ -152,6 +184,271 @@ cudaError_t launch_pattn(const void* q, const void* k, const void* v, const int*
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+
+constexpr int kFaRows = 64;      // query rows per CTA: 4 warps x 16
+constexpr int kFaKeys = 64;      // keys per K/V tile
+constexpr int kFaThreads = 128;
+constexpr int kFaPad = 8;        // bf16 per shared row: conflict-free ldmatrix
+
+// 16 bytes global -> shared; zeros (and no read of src) when !ok.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane i gives the row address of matrix i / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Fragment coordinates (m16n8k16): lane = 4 g + c; an accumulator holds
+// rows g and g + 8 at columns 2c, 2c + 1 of its n8 tile.
+template <int HD>
+__global__ void __launch_bounds__(kFaThreads, 2)
+pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+                 const __nv_bfloat16* __restrict__ vc, const int* __restrict__ plen_arr,
+                 __nv_bfloat16* __restrict__ out, int T_, int nh, int nkv, int S,
+                 float scale_log2) {
+  constexpr int LD = HD + kFaPad;   // shared row stride (elements)
+  constexpr int KS = HD / 16;       // k-steps of Q K^T
+  constexpr int NT = HD / 8;        // n8 tiles of O
+  constexpr int CH = HD / 8;        // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);   // [64][LD]
+  __nv_bfloat16* Ks = Qs + kFaRows * LD;                            // [2][64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kFaKeys * LD;                        // [2][64][LD]
+
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;   // longest rows first
+  const int rep = nh / nkv;
+  const int bq = kFaRows / rep;                  // positions per tile
+  const int t0 = tile * bq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int plen = plen_arr[b];
+  // keys [0, kv_lim) may be visible to some row of this tile
+  const int kv_lim = min(min(t0 + bq, T_), plen);
+  const int n_kt = (kv_lim + kFaKeys - 1) / kFaKeys;
+  const size_t stripe = ((size_t)b * nkv + j) * (size_t)S * HD;
+  const __nv_bfloat16* kg = kc + stripe;
+  const __nv_bfloat16* vg = vc + stripe;
+
+  for (int i = tid; i < kFaRows * CH; i += kFaThreads) {   // rows past T zero
+    const int r = i / CH, ch = i % CH;
+    const int t = t0 + r % bq, h = j * rep + r / bq;
+    const bool ok = t < T_;
+    cp_async16_zfill(Qs + r * LD + ch * 8,
+                     ok ? q + (((size_t)b * T_ + t) * nh + h) * HD + ch * 8 : q, ok);
+  }
+  auto load_kv = [&](int kt, int buf) {
+    __nv_bfloat16* kd = Ks + buf * kFaKeys * LD;
+    __nv_bfloat16* vd = Vs + buf * kFaKeys * LD;
+    for (int i = tid; i < kFaKeys * CH; i += kFaThreads) {
+      const int r = i / CH, ch = i % CH;
+      const int s = kt * kFaKeys + r;
+      const bool ok = s < kv_lim;
+      const size_t off = ok ? (size_t)s * HD + ch * 8 : 0;
+      cp_async16_zfill(kd + r * LD + ch * 8, kg + off, ok);
+      cp_async16_zfill(vd + r * LD + ch * 8, vg + off, ok);
+    }
+  };
+  if (n_kt > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two rows: tile rows r0 = 16 warp + g and r0 + 8
+  const int r0 = warp * 16 + g;
+  const int tq0 = t0 + r0 % bq, tq1 = t0 + (r0 + 8) % bq;
+  // the warp's rows hold positions w0 .. w0 + 15 (all bq of them if bq < 16);
+  // it needs the key tiles up to its last stored position and plen - 1
+  const int w0 = t0 + (bq >= 16 ? (warp * 16) % bq : 0);
+  const int w_last = w0 >= T_ ? -1 : min(min(w0 + min(bq, 16) - 1, T_ - 1), plen - 1);
+  uint32_t qf[KS][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max (raw scores)
+  float l0 = 0.f, l1 = 0.f;               // this lane's part of the row sums
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's K / V (and, at kt 0, Q) have landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], Qs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+    }
+    const int k0 = kt * kFaKeys;
+    if (k0 <= w_last) {   // some key of the tile is visible to a stored row of the warp
+      const __nv_bfloat16* kb = Ks + buf * kFaKeys * LD;
+      const __nv_bfloat16* vb = Vs + buf * kFaKeys * LD;
+
+      float sc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {   // keys 16 np .. 16 np + 15
+          uint32_t kf[4];
+          ldsm_x4(kf, kb + (np * 16 + (lane / 16) * 8 + lane % 8) * LD + ks * 16 +
+                          ((lane / 8) % 2) * 8);
+          mma_bf16(sc[2 * np], qf[ks], kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qf[ks], kf[2], kf[3]);
+        }
+      }
+
+      if (k0 + kFaKeys - 1 > w0 || k0 + kFaKeys > plen) {   // the tile straddles a limit
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = k0 + n * 8 + 2 * c + (e & 1);
+            const int tq = e < 2 ? tq0 : tq1;
+            if (s > tq || s >= plen) sc[n][e] = -INFINITY;
+          }
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      // a row with nothing visible yet: exponent base 0, every e and alpha 0
+      const float mu0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+      const float mu1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+      const float a0 = exp2f(m0 * scale_log2 - mu0), a1 = exp2f(m1 * scale_log2 - mu1);
+      m0 = mx0;
+      m1 = mx1;
+
+      uint32_t pf[4][4];   // P as A fragments of the four 16-key k-steps
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float e0 = exp2f(fmaf(sc[n][0], scale_log2, -mu0));
+        const float e1 = exp2f(fmaf(sc[n][1], scale_log2, -mu0));
+        const float e2 = exp2f(fmaf(sc[n][2], scale_log2, -mu1));
+        const float e3 = exp2f(fmaf(sc[n][3], scale_log2, -mu1));
+        s0 += e0 + e1;
+        s1 += e2 + e3;
+        pf[n / 2][(n % 2) * 2] = pack_bf16(e0, e1);
+        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(e2, e3);
+      }
+      l0 = a0 * l0 + s0;
+      l1 = a1 * l1 + s1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < NT / 2; ++dp) {   // output dims 16 dp .. 16 dp + 15
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, vb + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                                (lane / 16) * 8);
+          mma_bf16(o[2 * dp], pf[kk], vf[0], vf[1]);
+          mma_bf16(o[2 * dp + 1], pf[kk], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();   // (plen == 0: the Q copy) before Qs is reused
+  __syncthreads();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = l0 > 0.f ? 1.f / l0 : 0.f, i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  __nv_bfloat16* os = Qs + warp * 16 * LD;   // this warp's 16 rows
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + n * 8 + 2 * c) =
+        __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
+    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + n * 8 + 2 * c) =
+        __floats2bfloat162_rn(o[n][2] * i1, o[n][3] * i1);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int rl = i / CH, ch = i % CH;
+    const int r = warp * 16 + rl;
+    const int t = t0 + r % bq, h = j * rep + r / bq;
+    if (t < T_)
+      *reinterpret_cast<int4*>(out + (((size_t)b * T_ + t) * nh + h) * HD + ch * 8) =
+          *reinterpret_cast<const int4*>(os + rl * LD + ch * 8);
+  }
+}
+
+template <int HD>
+cudaError_t launch_pattn_mma(const void* q, const void* k, const void* v, const int* plen,
+                             void* out, int B, int T_, int nh, int nkv, int S,
+                             cudaStream_t st) {
+  const int rep = nh / nkv;
+  if (rep < 1 || kFaRows % rep != 0) return cudaErrorInvalidValue;
+  const int bq = kFaRows / rep;
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (kFaRows + 4 * kFaKeys) * (HD + kFaPad);
+  auto kern = pattn_mma_kernel<HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  kern<<<dim3(nkv, B, (T_ + bq - 1) / bq), kFaThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), plen, static_cast<__nv_bfloat16*>(out), T_, nh,
+      nkv, S, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace rama
 
 // q (B, T, nh, hd); k/v (B, nkv, S, hd) with rows 0..T-1 written; plen (B,)
@@ -167,4 +464,26 @@ extern "C" int rama_prefill_attention(const void* q, const void* k, const void* 
   if (dtype == rama::kF32)
     return static_cast<int>(rama::launch_pattn<float>(q, k, v, pl, out, B, T, nh, nkv, S, hd, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core body: the same arguments, hd 48, 64 or 128, every
+// pointer 16-byte aligned.
+extern "C" int rama_prefill_attention_mma(const void* q, const void* k, const void* v,
+                                          const void* plen, void* out, int B, int T, int nh,
+                                          int nkv, int S, int hd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pl = static_cast<const int*>(plen);
+  switch (hd) {
+    case 48:
+      return static_cast<int>(
+          rama::launch_pattn_mma<48>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+    case 64:
+      return static_cast<int>(
+          rama::launch_pattn_mma<64>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+    case 128:
+      return static_cast<int>(
+          rama::launch_pattn_mma<128>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,4 +1,4 @@
-"""Kernel 4: causal flash attention for prefill, masked by prompt length.
+"""Kernel 5: causal flash attention for prefill, masked by prompt length.
 
 The counterpart of `rama_tpu/ops/pallas/prefill_attention.py`'s
 `prefill_attention`: query t of slot b (position t) sees cache row s iff
@@ -11,8 +11,12 @@ zeros here. The Pallas kernel's -1e30 fill makes such a row the mean of
 the first S-tile's values instead; the engine never prefills plen == 0
 (every prompt starts with BOS), so no caller sees either value.
 
-Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-`prefill_attention_plain`.
+Dispatch: a CUDA tensor launches a kernel body (or raises), a CPU tensor
+runs `prefill_attention_plain`. The body is fixed by dtype and head dim
+before the launch (`body_for`): bf16 at the head dims of MMA_HEAD_DIMS
+takes the tensor-core body ("mma"), fp32 and any other head dim the SIMT
+body ("simt"). A refused launch raises; it never gives way to the other
+body.
 """
 
 from __future__ import annotations
@@ -25,10 +29,20 @@ from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches_by_body = {"mma": 0, "simt": 0}   # the same launches by kernel body
+
+MMA_HEAD_DIMS = (48, 64, 128)   # the tensor-core body's instantiations
 
 _SIGNATURES = {
     "rama_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "rama_prefill_attention_mma": [P, P, P, P, P, I, I, I, I, I, I, P],
 }
+
+
+def body_for(dtype: torch.dtype, hd: int) -> str:
+    """The kernel body a CUDA call launches: "mma" (tensor cores) for bf16
+    at a head dim of MMA_HEAD_DIMS, "simt" (fp32 on the CUDA cores) else."""
+    return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "simt"
 
 
 def prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -82,11 +96,18 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     require(plen.dtype == torch.int32 and plen.shape == (b,) and plen.device == q.device
             and plen.is_contiguous(), "plen must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
+    body = body_for(q.dtype, hd)
     lib = build.library("prefill_attention", _SIGNATURES)
     out = torch.empty_like(q)
-    err = lib.rama_prefill_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), plen.data_ptr(),
-        out.data_ptr(), b, t, nh, nkv, s, hd, dtype, build.stream_ptr(q))
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), plen.data_ptr(),
+            out.data_ptr(), b, t, nh, nkv, s, hd)
+    if body == "mma":
+        require(all(x.data_ptr() % 16 == 0 for x in (q, k_cache, v_cache)),
+                "q and caches must be 16-byte aligned")
+        err = lib.rama_prefill_attention_mma(*args, build.stream_ptr(q))
+    else:
+        err = lib.rama_prefill_attention(*args, dtype, build.stream_ptr(q))
     build.check(lib, err, "prefill_attention")
     launches += 1
+    launches_by_body[body] += 1
     return out

@@ -124,7 +124,9 @@ def counters():
     saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
              dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
              da.launches_flat_q8)
+    bodies = dict(pa.launches_by_body)
     yield mods
+    pa.launches_by_body.update(bodies)
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
@@ -632,3 +634,45 @@ def test_prefill_t1_phase_counts_k9_and_never_reaches_plain_attention(smoke, mon
                         lambda q, k, v, pos: llama._attention(q[:, None], k, v, None)[:, 0])
     with pytest.raises(SystemExit, match="plain attention path"):
         smoke.phase_prefill_t1(torch, cfg, params, dev=torch.device("cpu"))
+
+
+def test_k5_launch_counts_by_body_are_read_and_reset(smoke, counters):
+    pa = counters[3]
+    pa.launches, pa.launches_by_body["mma"], pa.launches_by_body["simt"] = 5, 3, 2
+    got = smoke.read_launches(*counters)
+    assert (got["prefill_attention"], got["prefill_attention_mma"],
+            got["prefill_attention_simt"]) == (5, 3, 2)
+    smoke.reset_launches(*counters)
+    assert pa.launches_by_body == {"mma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
+                                       "PAGED_PATH", "AB2_PATH", "INT4_PATH"])
+def test_a_7b_path_fails_when_k5_took_the_simt_body(smoke, path_name):
+    """Every K5 launch of a 7B main path (bf16, hd 128) is on the tensor-core
+    body: one launch on the SIMT body fails the path."""
+    path = getattr(smoke, path_name)
+    assert "prefill_attention" in path["record"]
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0}
+    smoke.check_launches(path, ok)
+    bad = {**ok, "prefill_attention_mma": 63, "prefill_attention_simt": 1}
+    with pytest.raises(SystemExit, match="took the SIMT body"):
+        smoke.check_launches(path, bad)
+
+
+def test_a_path_without_k5_ignores_the_body_counts(smoke):
+    path = smoke.PREFILL_T1_PATH
+    ok = {**{k: 32 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 0, "prefill_attention_simt": 0}
+    smoke.check_launches(path, ok)
+
+
+def test_profile_prefill_is_a_known_phase_and_a_subset_is_not_ok(smoke):
+    assert "profile_prefill" in smoke.ALL_PHASES
+    assert "profile_prefill" in smoke.INT8_PATH["after"]
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "profile_prefill"),
+                                dev)
+    assert line == {"ok": False, "skipped_phases": ["profile_prefill"], "device": dev}
+    assert rc == smoke.PARTIAL_RC != 0

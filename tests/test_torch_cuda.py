@@ -156,7 +156,35 @@ def test_prefill_attention(dev, nh, nkv, t, plen, dtype):
     k = torch.randn(2, nkv, t + 8, hd, device=dev).to(dtype)
     v = torch.randn(2, nkv, t + 8, hd, device=dev).to(dtype)
     pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    body = "mma" if dtype == torch.bfloat16 else "simt"
+    before = dict(pa.launches_by_body)
     _close(pa.prefill_attention(q, k, v, pl), pa.prefill_attention_plain(q, k, v, pl), dtype)
+    assert {b: pa.launches_by_body[b] - before[b] for b in before} == {
+        b: int(b == body) for b in before}
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("t", [1, 17, 64, 65, 200])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_prefill_attention_tensor_core_body(dev, hd, t, rep):
+    """The bf16 tensor-core body at its head dims: T of one row, ragged and
+    on 64-row tile edges; plen 1, on a 64-key tile edge (64), mid-tile, T;
+    GQA rep 1, 2, 4. Each call launches the mma body once."""
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    nkv = 2
+    nh = nkv * rep
+    g = torch.Generator().manual_seed(hd * 1000 + t * 10 + rep)
+    q = torch.randn(4, t, nh, hd, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(4, nkv, t + 3, hd, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(4, nkv, t + 3, hd, generator=g).to(dev, torch.bfloat16)
+    plen = [1, min(64, t), max(1, (t * 2) // 3), t]
+    pl = torch.tensor(plen, dtype=torch.int32, device=dev)
+    before = dict(pa.launches_by_body)
+    got = pa.prefill_attention(q, k, v, pl)
+    assert pa.launches_by_body["mma"] == before["mma"] + 1
+    assert pa.launches_by_body["simt"] == before["simt"]
+    _close(got, pa.prefill_attention_plain(q, k, v, pl), torch.bfloat16)
 
 
 def test_tiny_model_logits_kernels_equal_plain(dev):

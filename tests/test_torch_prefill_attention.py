@@ -1,6 +1,7 @@
-"""Kernel 4's plain version (prefill_attention_plain) against rama_tpu's
+"""Kernel 5's plain version (prefill_attention_plain) against rama_tpu's
 prefill_attention in interpret mode: every query row, plen < T, plen == T,
-GQA, a cache longer than the prompt.
+GQA, a cache longer than the prompt; and which kernel body a CUDA call
+would launch.
 
 Tolerance: fp32 atol 1e-4; bf16 compared in fp32 with rel 2e-2 of max |ref|.
 plen == 0 is not compared: the Pallas kernel's -1e30 fill turns a row with
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from rama_tpu.ops.pallas.prefill_attention import prefill_attention
+from rama_tpu_torch.ops.kernels import prefill_attention as pa_mod
 from rama_tpu_torch.ops.kernels.prefill_attention import (prefill_attention as t_pa,
                                                           prefill_attention_plain)
 
@@ -62,3 +64,25 @@ def test_cpu_wrapper_dispatches_to_plain():
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
             torch.tensor([6], dtype=torch.int32))
     torch.testing.assert_close(t_pa(*args), prefill_attention_plain(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+def test_bf16_at_an_instantiated_head_dim_takes_the_tensor_core_body(hd):
+    assert hd in pa_mod.MMA_HEAD_DIMS
+    assert pa_mod.body_for(torch.bfloat16, hd) == "mma"
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 48), (torch.float32, 64),
+                                      (torch.float32, 128), (torch.bfloat16, 16),
+                                      (torch.bfloat16, 32), (torch.bfloat16, 96),
+                                      (torch.bfloat16, 256)])
+def test_fp32_and_other_head_dims_take_the_simt_body(dtype, hd):
+    assert pa_mod.body_for(dtype, hd) == "simt"
+
+
+def test_cpu_wrapper_counts_no_launch_on_either_body():
+    q, k, v = make(1, 8, 2, 2, 8, 64, seed=3)
+    before = (pa_mod.launches, dict(pa_mod.launches_by_body))
+    t_pa(torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
+         torch.from_numpy(v).bfloat16(), torch.tensor([5], dtype=torch.int32))
+    assert (pa_mod.launches, pa_mod.launches_by_body) == before
