@@ -20,11 +20,18 @@ Phases, in order (any failure raises and the script exits non-zero):
            and 4, the stories drafts' hd 48 and 64, fp32 hd 48 (the SIMT
            body), with planted 32- and 64-key tile edges, each call on the
            body `body_for` picks, and timed at (8, 16), (8, 512) and one
-           4096-token prompt
+           4096-token prompt; quant_matmul's tensor-core GEMM (bf16, M > 8,
+           the `quant_matmul_mma` record) checked and timed at int8 wqkv
+           M = 32 / 256 / 4096 and wo / w13 / w2 M = 4096 (CUDA-event and
+           device ms, TFLOP/s, bound, plain version, and a dense yardstick:
+           torch.matmul by the layer dequantized to bf16 beforehand); K4's
+           device time beside SDPA's
   kernels4 the same for the int4 instantiations of quant_matmul (decode
            GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
            int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
-           stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16
+           stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16; the
+           tensor-core GEMM timed at int4 wqkv M = 32 / 256 / 4096 and w2
+           gs 16 M = 256
   kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
            inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
            shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
@@ -43,7 +50,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            busy share
   profile_prefill  one 7B int8 admission of 8 x 512 tokens through
            llama.prefill on a bf16 cache of 1024 rows: device ms (CUDA
-           events), torch.profiler's device ms by kernel and K5's share
+           events), torch.profiler's device ms by kernel, K5's share and
+           the tensor-core GEMM's (with its TFLOP/s)
   model_kv8    the int8 params on an int8 KV cache of 4096 rows: kernel-path
            logits against the plain path after a prefill and decode steps
            at positions 8, 9, 1500 and 4000 (RoPE tabulated to 4096); the
@@ -193,7 +201,8 @@ PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the
 INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "profile"),
                  serve={}, after=("profile_prefill",),
                  record={"quant_matmul": "launches", "ffn": "launches",
-                         "decode_attention": "launches", "prefill_attention": "launches"},
+                         "decode_attention": "launches", "prefill_attention": "launches",
+                         "quant_matmul_mma": "launches"},
                  forbid={})
 KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "profile_kv8"),
                 serve=dict(max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
@@ -206,7 +215,8 @@ SPEC_PATH = dict(label="speculation", bits=8,
                  phases=("model_spec", "serve_spec", "profile_spec"),
                  serve=dict(spec_tick=SPEC_TICK),
                  record={"chunk_attention": "launches", "quant_matmul": "launches_spec_path",
-                         "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path"},
+                         "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path",
+                         "quant_matmul_mma": "launches_spec_path"},
                  forbid={"decode_attention": "launches_spec_path"})
 SPEC_DRAFT_PATH = dict(label="draft speculation", bits=8, phases=(None, "spec_draft", None),
                        serve={},
@@ -310,7 +320,8 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
                          "quant_matmul": "launches_int4_path",
                          "decode_attention": "launches_int4_path",
-                         "prefill_attention": "launches_int4_path"},
+                         "prefill_attention": "launches_int4_path",
+                         "quant_matmul_mma": "launches_int4_path"},
                  forbid={})
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
@@ -453,8 +464,9 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
-    for body in pa.launches_by_body:
-        pa.launches_by_body[body] = 0
+    for bodies in (pa.launches_by_body, qm.launches_by_body):
+        for body in bodies:
+            bodies[body] = 0
 
 
 def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
@@ -464,6 +476,7 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "prefill_attention_mma": pa.launches_by_body["mma"],
             "prefill_attention_simt": pa.launches_by_body["simt"],
+            **{f"quant_matmul_{body}": n for body, n in qm.launches_by_body.items()},
             "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
             "chunk_attention_q8": da.launches_chunk_q8,
             "decode_attention_flat": da.launches_flat,
@@ -495,6 +508,10 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['prefill_attention_simt']} of "
                          f"{launches['prefill_attention']} prefill_attention launches on the "
                          f"{path['label']} main path took the SIMT body, not the tensor-core one")
+    if launches.get("quant_matmul_simt", 0):
+        raise SystemExit(f"FAILED: {launches['quant_matmul_simt']} quant_matmul launches on the "
+                         f"{path['label']} main path took the SIMT body, not the tensor-core "
+                         f"GEMM ({launches['quant_matmul_mma']} did)")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -528,6 +545,67 @@ def time_quant_matmul(torch, qm, label: str, x, w, layer, n_layers: int) -> None
     b, by = bound_ms(matmul_bytes(w, m), 2 * m * k * n)
     log(f"[time] quant_matmul {label}: {t:.4f} ms, plain {t_p:.4f} ms (bound {b:.4f} ms, "
         f"{by})")
+
+
+def gemm_record(w, m: int, ms: float, device_ms: float, plain_ms: float, dense_ms: float,
+                dense_device_ms: float, err: float) -> dict:
+    """One timed shape of the tensor-core GEMM: CUDA-event and device ms,
+    TFLOP/s on the device time, the bound (one layer's weight bytes and x /
+    y once, or 2 M K N bf16 operations), the plain version's ms, and the
+    dense yardstick: torch.matmul of x by the layer's weight dequantized to
+    bf16 beforehand (2 bytes a weight, no dequantization: a ceiling for the
+    math, not the same function, never called by the port)."""
+    k, n = w.shape[-2:]
+    flops = 2.0 * m * k * n
+    b_ms, b_by = bound_ms(matmul_bytes(w, m), flops)
+    return dict(m=m, ms=ms, device_ms=device_ms, tflops=flops / device_ms / 1e9,
+                bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, dense_ms=dense_ms,
+                dense_device_ms=dense_device_ms, max_abs_err=err)
+
+
+def time_gemm(torch, qm, label: str, x, w, n_layers: int) -> dict:
+    """Check the tensor-core GEMM against its plain version on layer 1 (one
+    launch, on the mma body), then time it with the layer cycling, beside
+    the plain version and the dense yardstick (gemm_record)."""
+    from rama_tpu_torch.ops.kernels.quant_matmul import layer_of
+    from rama_tpu_torch.ops.quant import dequantize
+
+    m = x.shape[0]
+    before = dict(qm.launches_by_body)
+    got = qm.quant_matmul(x, w, 1)
+    ran = {b: qm.launches_by_body[b] - before[b] for b in before}
+    if ran != {b: int(b == "mma") for b in before}:
+        raise SystemExit(f"FAILED quant_matmul {label}: launches by body {ran}, expected one "
+                         f"on mma")
+    err = compare(torch, f"quant_matmul {label} [mma]", got, qm.quant_matmul_plain(x, w, 1))
+    del got
+    lay = Layered(n_layers)
+
+    def kernel():
+        return qm.quant_matmul(x, w, lay.next())
+
+    wd = dequantize(layer_of(w, 1), dtype=torch.bfloat16)
+
+    def dense():
+        return torch.matmul(x, wd)
+
+    rec = gemm_record(w, m, time_ms(torch, kernel), device_ms_per_call(torch, kernel),
+                      time_ms(torch, lambda: qm.quant_matmul_plain(x, w, lay.next()), reps=3,
+                              warmup=1),
+                      time_ms(torch, dense), device_ms_per_call(torch, dense), err)
+    log(f"[time] quant_matmul {label} [mma]: {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+        f"ms ({rec['tflops']:.1f} TFLOP/s), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"plain {rec['plain_ms']:.4f} ms; dense bf16 yardstick {rec['dense_ms']:.4f} ms, device "
+        f"{rec['dense_device_ms']:.4f} ms")
+    return rec
+
+
+def mma_record(results: dict) -> dict:
+    """The kernels record of the tensor-core GEMM (its timed shapes under
+    "gemm"), made by whichever of the kernels / kernels4 phases runs first."""
+    return results.setdefault("quant_matmul_mma", dict(
+        name="quant_matmul_mma", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
+        replaces="rama_tpu/ops/pallas/quant_matmul.py:265", library_ms=None, gemm={}))
 
 
 class Layered:
@@ -627,14 +705,17 @@ def phase_build() -> None:
     log(f"[build] {len(build.SOURCES)} kernels built with nvcc "
         f"{' '.join(build.NVCC_FLAGS)} in {time.time() - t0:.1f} s")
     for name in build.SOURCES:
-        # ptxas -v: one 'Compiling entry function' line and one 'Used N
-        # registers' line per instantiated kernel
-        lines = [ln.strip() for ln in logs.get(name, "").splitlines()
-                 if "Used" in ln or "spill" in ln]
+        # ptxas -v: a 'Compiling entry function' line, then the entry's
+        # spill line and its 'Used N registers' line, per instantiated kernel
+        entry, lines = "?", []
+        for ln in (ln.strip() for ln in logs.get(name, "").splitlines()):
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1][:60]
+            elif "Used" in ln or ("spill" in ln and not ln.startswith("0 bytes")):
+                lines.append(f"{entry}: {ln.removeprefix('ptxas info    : ')}")
         log(f"[ptxas] {name}.cu: {len(lines)} lines")
         for ln in lines:
-            if "Used" in ln or ("spill" in ln and not ln.startswith("0 bytes")):
-                log(f"[ptxas]   {ln}")
+            log(f"[ptxas]   {ln}")
 
 
 def phase_kernels(torch, results: dict) -> None:
@@ -680,7 +761,7 @@ def phase_kernels(torch, results: dict) -> None:
     # ragged: N not a multiple of 16, K of 9 groups of 32, odd M, fp32
     small = quantize_int8(torch.randn(2, 288, 1000, generator=torch.Generator().manual_seed(2)), 32)
     small = QuantizedTensor(q=small.q.to(dev), scales=small.scales.to(dev), group_size=32)
-    for m, dt in ((3, bf), (40, bf), (5, torch.float32)):
+    for m, dt in ((3, bf), (40, bf), (5, torch.float32), (33, torch.float32)):
         xs = rx(m, 288, dtype=dt)
         compare(torch, f"quant_matmul ragged K=288 N=1000 M={m} {dt}",
                 qm.quant_matmul(xs, small, 1),
@@ -696,13 +777,24 @@ def phase_kernels(torch, results: dict) -> None:
         replaces="rama_tpu/ops/pallas/quant_matmul.py:265", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int8 gs 64")
+    wo = rq(L, D, D)
     for label, (xx, w, l) in {
-        "wo M=8": (x8, rq(L, D, D), 0),
+        "wo M=8": (x8, wo, 0),
         "lm_head M=8": (x8, wcls2, None),
         "wqkv M=1": (rx(1, D), wqkv, 0),
-        "wqkv M=256 (prefill, tiled)": (rx(256, D), wqkv, 0),
     }.items():
         time_quant_matmul(torch, qm, label, xx, w, l, L)
+    # the tensor-core GEMM (M > 8, bf16) at a verify round's M, a prefill
+    # chunk's and an 8 x 512 admission's
+    mma = mma_record(results)
+    for label, (m, w) in {"wqkv M=32": (32, wqkv), "wqkv M=256": (256, wqkv),
+                          "wqkv M=4096": (4096, wqkv), "wo M=4096": (4096, wo)}.items():
+        mma["gemm"][f"int8 {label}"] = time_gemm(torch, qm, f"int8 {label}", rx(m, D), w, L)
+    head = mma["gemm"]["int8 wqkv M=256"]
+    mma.update(max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+               shape="x (256, 4096) bf16 @ wqkv[l] (4096, 12288) int8 gs 64")
+    del wo
 
     # -- kernel 2: ffn ---------------------------------------------------------
     il = phase_a_tile(H, 8, gs) or 0
@@ -740,6 +832,9 @@ def phase_kernels(torch, results: dict) -> None:
     x1 = rx(1, D)
     t1 = time_ms(torch, lambda: ffn_mod.ffn(x1, w13, w2, lay.next()))
     log(f"[time] ffn M=1: {t1:.4f} ms")
+    # the prefill FFN's split w13 / w2 products through the tensor-core GEMM
+    for label, (k, w) in {"w13 M=4096": (D, w13), "w2 M=4096": (H, w2)}.items():
+        mma["gemm"][f"int8 {label}"] = time_gemm(torch, qm, f"int8 {label}", rx(4096, k), w, L)
     del w13, w2, w13p, w2p
 
     # -- kernel 3: decode attention --------------------------------------------
@@ -781,6 +876,12 @@ def phase_kernels(torch, results: dict) -> None:
                                               attn_mask=vis)
 
     t_lib = time_ms(torch, sdpa_decode)
+    # device time alone, kernel and SDPA: a small call's wall time is the host's
+    k4_dev = {"device_ms": device_ms_per_call(
+                  torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next())),
+              "library_device_ms": device_ms_per_call(torch, sdpa_decode)}
+    log(f"[time] decode_attention device {k4_dev['device_ms']:.4f} ms, SDPA device "
+        f"{k4_dev['library_device_ms']:.4f} ms")
     rows = int((pos.clamp(0, S - 1) + 1).sum())
     nb = rows * nkv * hd * 2 * 2 + 2 * q.numel() * 2
     b_ms, b_by = bound_ms(nb, rows * cfg.n_heads * hd * 4)
@@ -789,6 +890,7 @@ def phase_kernels(torch, results: dict) -> None:
         source="rama_tpu_torch/csrc/decode_attention.cu",
         replaces="rama_tpu/ops/pallas/decode_attention.py:262", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+        breakdown=k4_dev,
         shape=f"q (8, 32, 128) bf16, cache (32, 8, 32, 1024, 128), pos {pos.tolist()}")
     del kc, vc
 
@@ -920,9 +1022,9 @@ def phase_kernels_int4(torch, results: dict) -> None:
             for l in (0, L - 1):
                 compare(torch, f"quant_matmul int4 {label} M={m} layer={l}",
                         qm.quant_matmul(x, w, l), qm.quant_matmul_plain(x, w, l))
-        for m in (128, 256):  # prefill rows: the tiled GEMM
+        for m in (128, 256):  # prefill rows: the tensor-core GEMM
             x = rx(m, w.k_dim)
-            compare(torch, f"quant_matmul int4 {label} M={m} (tiled) layer={L - 1}",
+            compare(torch, f"quant_matmul int4 {label} M={m} (mma) layer={L - 1}",
                     qm.quant_matmul(x, w, L - 1), qm.quant_matmul_plain(x, w, L - 1))
     w2d = QuantizedTensor(q=wqkv.q[1].contiguous(), scales=wqkv.scales[1].contiguous(),
                           group_size=64, bits=4)
@@ -956,10 +1058,13 @@ def phase_kernels_int4(torch, results: dict) -> None:
         "w2 gs 16 M=8": (rx(8, H), w2, 0),
         "wqkv M=1": (rx(1, D), wqkv, 0),
         "2-D (4096, 12288) M=8": (x8, w2d, None),
-        "wqkv M=256 (prefill, tiled)": (rx(256, D), wqkv, 0),
-        "w2 gs 16 M=256 (prefill, tiled)": (rx(256, H), w2, 0),
     }.items():
         time_quant_matmul(torch, qm, f"int4 {label}", xx, w, l, L)
+    mma = mma_record(results)
+    for label, (m, w) in {"wqkv M=32": (32, wqkv), "wqkv M=256": (256, wqkv),
+                          "wqkv M=4096": (4096, wqkv), "w2 gs 16 M=256": (256, w2)}.items():
+        mma["gemm"][f"int4 {label}"] = time_gemm(torch, qm, f"int4 {label}", rx(m, w.k_dim),
+                                                 w, L)
     del wqkv, wo
 
     # -- K3': ffn, int4 --------------------------------------------------------
@@ -2515,8 +2620,11 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
 def profile_prefill(torch, cfg, params) -> dict:
     """One 7B admission of 8 prompts of 512 tokens through llama.prefill on a
     bf16 cache of 1024 rows: torch.profiler's device ms by kernel over one
-    admission, with K5's share, then the device ms of a second one (CUDA
-    events). Returns device_ms, profiled_device_ms, k5_ms and k5_share."""
+    admission, with K5's share and the tensor-core GEMM's (its weight
+    products at M = 4096: wqkv, wo, w13, w2 of every layer) and TFLOP/s,
+    then the device ms of a second one (CUDA events). Returns device_ms,
+    profiled_device_ms, k5_ms, k5_share, gemm_ms, gemm_share and
+    gemm_tflops."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, prefill
@@ -2547,14 +2655,29 @@ def profile_prefill(torch, cfg, params) -> dict:
         raise SystemExit("FAILED profile_prefill: the profiler recorded no device time")
     busy_ms = sum(r[0] for r in rows) / 1e3
     k5_ms = sum(dt for dt, key, _ in rows if "pattn" in key) / 1e3
+    gemm_ms = sum(dt for dt, key, _ in rows if "qmm_mma" in key) / 1e3
+    gemm_flops = prefill_gemm_flops(cfg, tokens.numel())
     ms = start.elapsed_time(end)
     log(f"[profile_prefill] 7B int8 admission of 8 x 512 tokens (bf16 cache of 1024 rows): "
         f"{ms:.3f} ms (CUDA events); profiled admission {busy_ms:.3f} ms of device kernel "
-        f"time, K5 {k5_ms:.3f} ms = {k5_ms / busy_ms:.4f} of it")
+        f"time, K5 {k5_ms:.3f} ms = {k5_ms / busy_ms:.4f} of it, the tensor-core GEMM "
+        f"{gemm_ms:.3f} ms = {gemm_ms / busy_ms:.4f} of it "
+        f"({gemm_flops / 1e12:.2f} TFLOP at {gemm_flops / max(gemm_ms, 1e-9) / 1e9:.1f} TFLOP/s)")
     for dt, key, count in sorted(rows, reverse=True)[:12]:
         log(f"[profile_prefill]   {dt / 1e3:.4f} ms  x{count:<5d} {key[:90]}")
+    if gemm_ms == 0:
+        raise SystemExit("FAILED profile_prefill: no qmm_mma kernel in the admission's trace")
     return dict(device_ms=ms, profiled_device_ms=busy_ms, k5_ms=k5_ms,
-                k5_share=k5_ms / busy_ms)
+                k5_share=k5_ms / busy_ms, gemm_ms=gemm_ms, gemm_share=gemm_ms / busy_ms,
+                gemm_tflops=gemm_flops / gemm_ms / 1e9)
+
+
+def prefill_gemm_flops(cfg, rows: int) -> float:
+    """Operations of a prefill's layer weight products over `rows` tokens:
+    2 x rows x (wqkv + wo + w13 + w2 weights) per layer."""
+    per_layer = cfg.dim * ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.dim
+                           + 3 * cfg.hidden_dim)
+    return 2.0 * rows * per_layer * cfg.n_layers
 
 
 def profile_paged(torch, cfg, params) -> None:
@@ -2888,8 +3011,9 @@ def main() -> int:
         if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
             torch.cuda.empty_cache()
             admission = profile_prefill(torch, cfg, params)
-            if "prefill_attention" in results:
-                results["prefill_attention"]["admission"] = admission
+            for name in ("prefill_attention", "quant_matmul_mma"):
+                if name in results:
+                    results[name]["admission"] = admission
         torch.cuda.empty_cache()
     llama.ATTN_BLOCK = 0
     del params
@@ -2907,7 +3031,7 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path")
+            "launches_ab2_int4_path", "gemm")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,27 +8,59 @@
 // prefill M, and the int4 bodies _kernel_int4_acc(_layered) at decode M and
 // _kernel_int4(_layered) at prefill M.
 //
-// Bound on the H100: at decode M (<= 32 rows) the work is ~2*M flops per
+// Bound on the H100: at decode M (up to a verify round's 32 rows) the work is ~2*M flops per
 // weight (half a byte for int4), far below the card's ~295 flop/byte
 // balance point, so the kernel is bound by streaming the weight bytes plus
 // K*N/gs*4 scale bytes from HBM at 3.35 TB/s (Llama-2-7B wqkv: 50.3 MB +
 // 3.1 MB = 16 us for int8; 25.2 MB + 3.1 MB = 8.5 us for int4 gs 64). At
 // prefill M (k*T rows, hundreds to thousands) it is bound by 2*M*K*N flops.
 //
-// Design: decode M takes qmv.cuh -- 16-byte weight loads along N
+// Design: M <= 8 (the decode step) takes qmv.cuh -- 16-byte weight loads along N
 // (contiguous in the (K, N) layout), the K range split across CTAs in whole
 // scale groups (int8) or packing blocks (int4) so that N = 4096 still puts
 // ~2 CTAs on each of the 132 SMs, a deterministic second-pass reduce of the
 // split partials by the last CTA of each column tile. The dequantized
 // weight is w = q * s in fp32 (the Pallas accscale kernels scale each
 // group's partial sum instead: the same function, rounded differently).
-// Prefill M takes qmm_tiled below: 64x64 output tiles, a 32-deep K slab of
-// x and of the dequantized weight staged in shared memory, fp32 FMA on the
-// CUDA cores (tensor cores are later work). For int4 the slab is 16 packed
-// byte rows unpacked into 32 logical rows -- each byte row's low and high
-// nibble rows side by side, with the matching x columns gathered beside
-// them -- so every weight byte is read once; the sum over K does not care
-// in which order the rows come.
+// M > 8 in bf16 takes qmm_mma below, the tensor-core body (the Pallas
+// kernels' own choice at prefill M: dequantize a block to f32, round it to
+// bf16, dot with fp32 accumulation, quant_matmul.py:31-35). fp32
+// activations at M > 8 keep qmm_tiled: 64x64 output tiles, a 32-deep K slab
+// of x and of the dequantized weight staged in shared memory, fp32 FMA on
+// the CUDA cores; for int4 the slab is 16 packed byte rows unpacked into 32
+// logical rows -- each byte row's low and high nibble rows side by side,
+// with the matching x columns gathered beside them -- so every weight byte
+// is read once; the sum over K does not care in which order the rows come.
+//
+// qmm_mma<BM, BITS, VEC> (BM = 32, 64 or 128 output rows, 128 columns a
+// CTA; 8 warps as 2 x 4, each owning (BM / 2) x 32 of the tile as m16n8
+// fragments):
+//  - K walks in slabs of 64 logical rows (int8: 64 byte rows; int4: 32
+//    packed byte rows, whose low nibbles are the slab's rows 0..31 and high
+//    nibbles rows 32..63, with x's matching columns gathered in the same
+//    order -- two runs of whole 8-column chunks when gs is a multiple of 8).
+//  - x tiles (bf16) in a ring of 3 stages, each slab's raw weight bytes and
+//    fp32 scale rows (at most 4) in a ring of 2, copied with cp.async 16
+//    bytes at a time, zero-filled past M, K and N.
+//  - Dequantization: each thread turns 8 weight bytes (int4: 8 bytes, 16
+//    nibbles) into bf16(float(q) * s) -- exactly dequantize()'s rounding --
+//    in one of two bf16 [64][128] tiles, from which ldmatrix.trans reads the
+//    B fragments; x's A fragments come by ldmatrix. Rows padded by 8 bf16
+//    keep both free of bank conflicts. Bytes become floats by a PRMT into
+//    the mantissa of 2^23 and one FADD, not the quarter-rate I2F.
+//  - One barrier a slab: in step t a warp dequantizes slab t + 1 and
+//    multiplies slab t, while the copies of slab t + 2 are in flight.
+//  - Small M (verify rounds: M = 32) gives few output tiles, so K is split
+//    across CTAs (gridDim.z) in whole slabs and whole K blocks, about two
+//    CTAs an SM; partial sums go to an fp32 workspace and the last CTA of a
+//    tile (an integer ticket) adds them in split order: deterministic.
+//  - VEC false (N or gs not a multiple of 16, or a pointer not
+//    16-byte aligned: the tiny and stories shapes) takes the same tiles with
+//    plain masked loads in place of cp.async, BM 64.
+//
+// Bound: at M = 32 the weight bytes (wqkv int8: 53.7 MB, 16 us); from a few
+// hundred rows the bf16 tensor-core operations (2 M K N at 989 TFLOP/s).
+#include "mma.cuh"
 #include "qmv.cuh"
 
 namespace rama {
@@ -43,10 +75,10 @@ __device__ __forceinline__ int int4_slab_row(int k0, int kk, int gs) {
   return 2 * b * gs + j + (kk & 1) * gs;
 }
 
-template <typename T, int BITS>
+template <int BITS>
 __global__ void __launch_bounds__(256)
-qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q,
-          const float* __restrict__ s, T* __restrict__ y, int M, int K, int N, int gs) {
+qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
+          const float* __restrict__ s, float* __restrict__ y, int M, int K, int N, int gs) {
   __shared__ float xs[kBK][kBM + 4];  // x tile, transposed: xs[k][m]
   __shared__ float ws[kBK][kBN + 4];  // dequantized weight tile
   const int tid = threadIdx.x;
@@ -65,10 +97,10 @@ qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q,
       const int gm = m_base + m;
       if constexpr (BITS == 8) {
         const int gk = k0 + kk;
-        xs[kk][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.f;
+        xs[kk][m] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
       } else {
         const bool ok = gm < M && k0 + kk < K;
-        xs[kk][m] = ok ? to_f(x[(size_t)gm * K + int4_slab_row(k0, kk, gs)]) : 0.f;
+        xs[kk][m] = ok ? x[(size_t)gm * K + int4_slab_row(k0, kk, gs)] : 0.f;
       }
     }
     if constexpr (BITS == 4) {
@@ -148,27 +180,417 @@ qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n_base + tx * 4 + j;
-      if (gn < N) y[(size_t)gm * N + gn] = from_f<T>(acc[i][j]);
+      if (gn < N) y[(size_t)gm * N + gn] = acc[i][j];
     }
   }
 }
 
-template <typename T, int BITS>
+template <int BITS>
 cudaError_t launch_qmm(const void* x, const void* q, const void* s, void* y, int M,
                        int K, int N, int gs, cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  qmm_tiled<T, BITS><<<grid, 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<T*>(y), M, K, N, gs);
+  qmm_tiled<BITS><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<float*>(y), M, K, N, gs);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_qmm_bits(int bits, const void* x, const void* q, const void* s, void* y,
-                            int M, int K, int N, int gs, cudaStream_t stream) {
-  if (bits == 8) return launch_qmm<T, 8>(x, q, s, y, M, K, N, gs, stream);
-  if (bits == 4) return launch_qmm<T, 4>(x, q, s, y, M, K, N, gs, stream);
-  return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+
+constexpr int kMmaBN = 128;          // output columns a CTA
+constexpr int kMmaBK = 64;           // logical K rows a slab
+constexpr int kMmaLdx = kMmaBK + 8;  // x tile row stride (bf16)
+constexpr int kMmaLdw = kMmaBN + 8;  // dequantized tile row stride (bf16)
+constexpr int kMmaScaleRows = 4;     // scale rows a slab touches at most (cp.async path)
+
+// Per tile height: warp rows (4 warp columns of 32 output columns each;
+// kWarpRows * 128 threads), kAhead, the slabs whose copies are in flight
+// while a warp dequantizes slab t + 1 and multiplies slab t, and the CTAs
+// an SM holds (registers capped to fit). Shared memory holds kAhead + 2 x
+// tiles, kAhead + 1 raw slabs and two bf16 weight tiles: 68 KB at BM 32
+// (three CTAs an SM), 102 KB at 64 and 111 KB at 128 (two), 213 KB at 256
+// (one CTA of 16 warps). Picked among 1-3 slabs ahead, 1-3 CTAs an SM and
+// 8 or 16 warps by device time at the 7B shapes on the H100.
+template <int BM> struct MmaCfg;
+template <> struct MmaCfg<32> { static constexpr int kWarpRows = 2, kAhead = 1, kCtas = 3; };
+template <> struct MmaCfg<64> { static constexpr int kWarpRows = 2, kAhead = 2, kCtas = 2; };
+template <> struct MmaCfg<128> { static constexpr int kWarpRows = 2, kAhead = 1, kCtas = 2; };
+template <> struct MmaCfg<256> { static constexpr int kWarpRows = 4, kAhead = 2, kCtas = 1; };
+
+// Raw weight bytes of one slab: 64 int8 rows or 32 packed int4 byte rows.
+template <int BITS> __host__ __device__ constexpr int mma_q_rows() {
+  return BITS == 8 ? kMmaBK : kMmaBK / 2;
+}
+
+template <int BM, int BITS> constexpr size_t mma_smem_bytes() {
+  constexpr int P = MmaCfg<BM>::kAhead;
+  return (size_t)(P + 2) * BM * kMmaLdx * 2 +
+         (size_t)(P + 1) * (mma_q_rows<BITS>() * kMmaBN + kMmaScaleRows * kMmaBN * 4) +
+         (size_t)2 * kMmaBK * kMmaLdw * 2;
+}
+
+// Integer bytes to exact floats without the quarter-rate I2F: a biased
+// byte u = b + 128 spliced under the exponent of 2^23 by one PRMT is the
+// float 2^23 + u; one FADD takes the bias away.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388736.f;
+}
+// The same for the 4 low and 4 high nibbles of a word (byte c: lo[c] in
+// bits 8c..8c+3, hi[c] in 8c+4..8c+7), biased by 8.
+__device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* lo, float* hi) {
+  const uint32_t ul = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t uh = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = __uint_as_float(__byte_perm(ul, 0x4B000000u, 0x7650 + j)) - 8388616.f;
+    hi[j] = __uint_as_float(__byte_perm(uh, 0x4B000000u, 0x7650 + j)) - 8388616.f;
+  }
+}
+
+// 8 dequantized weights as 8 bf16 (16 bytes) at dst.
+__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* dst, const float* w) {
+  uint4 v;
+  v.x = pack_bf16(w[0], w[1]);
+  v.y = pack_bf16(w[2], w[3]);
+  v.z = pack_bf16(w[4], w[5]);
+  v.w = pack_bf16(w[6], w[7]);
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+// grid (ceil(M / BM), ceil(N / 128), ks), MmaCfg<BM>::kWarpRows * 128
+// threads, mma_smem_bytes<BM, BITS>() of dynamic shared memory. Split z
+// covers slabs [z sps, (z + 1) sps) of the ceil(K / 64). VEC needs gs a
+// multiple of 16 that divides, or is a multiple of, the slab's 64 rows
+// (int4: 32 byte rows), so a thread's scale row within a slab is the same
+// in every slab.
+template <int BM, int BITS, bool VEC>
+__global__ void __launch_bounds__(MmaCfg<BM>::kWarpRows * 128, MmaCfg<BM>::kCtas)
+qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+        const float* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+        unsigned* __restrict__ tickets, int M, int K, int N, int gs, int slabs_per_split) {
+  constexpr int WM = MmaCfg<BM>::kWarpRows, P = MmaCfg<BM>::kAhead;
+  constexpr int T = WM * 128;                // threads
+  constexpr int MT = BM / (16 * WM);         // m16 tiles a warp
+  constexpr int XS = P + 2, RS = P + 1;      // x stages, raw stages
+  constexpr int QR = mma_q_rows<BITS>();     // weight rows (bytes) a slab
+  constexpr int QB = QR * kMmaBN;
+  constexpr int SB = kMmaScaleRows * kMmaBN;
+  constexpr int DQ = (QR * kMmaBN / 8 + T - 1) / T;   // 8-byte chunks a thread dequantizes
+  extern __shared__ __align__(16) unsigned char qmm_smem[];
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(qmm_smem);   // [XS][BM][LDX]
+  __nv_bfloat16* Ws = Xs + XS * BM * kMmaLdx;                         // [2][BK][LDW]
+  float* Ss = reinterpret_cast<float*>(Ws + 2 * kMmaBK * kMmaLdw);     // [RS][4][BN]
+  int8_t* Qs = reinterpret_cast<int8_t*>(Ss + RS * SB);                // [RS][QR][BN]
+  __shared__ bool is_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m_base = blockIdx.x * BM, n_base = blockIdx.y * kMmaBN;
+  const int split = blockIdx.z, ks = gridDim.z;
+  const int nslabs = (K + kMmaBK - 1) / kMmaBK;
+  const int s_begin = split * slabs_per_split;
+  const int nt = min(nslabs, s_begin + slabs_per_split) - s_begin;
+  const int qrows = BITS == 8 ? K : K / 2;   // weight rows (int4: byte rows)
+  // scale rows a slab spans (the cp.async path), and each dequant chunk's
+  // scale row within them: fixed, as gs divides 64 (32) or 64 (32) divides gs
+  const int span = BITS == 8 ? kMmaBK : kMmaBK / 2;
+  const int srows = gs < span ? span / gs : 1;
+  int sloc[DQ];
+#pragma unroll
+  for (int i = 0; i < DQ; ++i) {
+    const int row = (tid + i * T) / (kMmaBN / 8);
+    sloc[i] = gs < span ? row / gs : 0;
+    if constexpr (BITS == 4) sloc[i] *= 2;
+  }
+
+  // slab t of the split: its x tile into x stage t % XS, its raw weight
+  // bytes and scale rows into raw stage t % RS (the masked path reads the
+  // weight in dequant)
+  auto load = [&](int t) {
+    const int sl = s_begin + t;
+    __nv_bfloat16* xd = Xs + (t % XS) * BM * kMmaLdx;
+    if constexpr (VEC) {
+      const int r0 = sl * QR;   // int4: first byte row
+      // x column of slab column kk: int8 k0 + kk; int4 base + off(kk)
+      int base = sl * kMmaBK;
+      if constexpr (BITS == 4) base = gs <= 32 ? 2 * r0 : r0 + (r0 / gs) * gs;
+#pragma unroll
+      for (int c = tid; c < BM * (kMmaBK / 8); c += T) {
+        const int row = c / (kMmaBK / 8), kk = (c % (kMmaBK / 8)) * 8;
+        const int m = m_base + row;
+        int col;
+        bool ok;
+        if constexpr (BITS == 8) {
+          col = base + kk;
+          ok = m < M && col < K;
+        } else {
+          const int i = kk & 31, half = kk >> 5;
+          col = base + i + (gs <= 32 ? (i / gs + half) * gs : half * gs);
+          ok = m < M && r0 + i < qrows;
+        }
+        cp_async16_zfill(xd + row * kMmaLdx + kk, ok ? x + (size_t)m * K + col : x, ok);
+      }
+      int8_t* qd = Qs + (t % RS) * QB;
+#pragma unroll
+      for (int c = tid; c < QR * (kMmaBN / 16); c += T) {
+        const int row = c / (kMmaBN / 16), col = (c % (kMmaBN / 16)) * 16;
+        const int gr = r0 + row, n = n_base + col;
+        const bool ok = gr < qrows && n < N;
+        cp_async16_zfill(qd + row * kMmaBN + col, ok ? q + (size_t)gr * N + n : q, ok);
+      }
+      // scale rows sg0 .. sg0 + nr - 1 (int4: the two rows of each block)
+      const int b0 = (BITS == 8 ? sl * kMmaBK : r0) / gs;
+      const int sg0 = BITS == 8 ? b0 : 2 * b0;
+      const int nr = (BITS == 8 ? 1 : 2) * min(srows, qrows / gs - b0);
+      float* sd = Ss + (t % RS) * SB;
+      for (int c = tid; c < nr * (kMmaBN / 4); c += T) {
+        const int row = c / (kMmaBN / 4), col = (c % (kMmaBN / 4)) * 4;
+        const int n = n_base + col;
+        const bool ok = n < N;
+        cp_async16_zfill(sd + row * kMmaBN + col, ok ? s + (size_t)(sg0 + row) * N + n : s, ok);
+      }
+    } else {
+      for (int i = tid; i < BM * kMmaBK; i += T) {
+        const int row = i / kMmaBK, kk = i % kMmaBK;
+        const int m = m_base + row;
+        int col;
+        bool ok;
+        if constexpr (BITS == 8) {
+          col = sl * kMmaBK + kk;
+          ok = m < M && col < K;
+        } else {
+          const int r = sl * QR + (kk & 31);   // byte row; block r / gs
+          col = r + (r / gs + (kk >> 5)) * gs;
+          ok = m < M && r < qrows;
+        }
+        xd[row * kMmaLdx + kk] = ok ? x[(size_t)m * K + col] : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  // slab t (raw stage t % RS, or global memory on the masked path) ->
+  // Ws[t % 2] as bf16(float(q) * s); zeros past K and N. A thread keeps
+  // one 8-column group for all its chunks, so where one scale row serves
+  // the whole slab (gs >= span) it reads the scales once.
+  const bool one_srow = gs >= span;
+  auto dequant = [&](int t) {
+    const int sl = s_begin + t;
+    const int8_t* qs = Qs + (t % RS) * QB;
+    const float* ss = Ss + (t % RS) * SB;
+    __nv_bfloat16* wd = Ws + (t % 2) * kMmaBK * kMmaLdw;
+    float sc[BITS == 8 ? 8 : 16];   // int4: the low nibbles' scales, then the high
+#pragma unroll
+    for (int i = 0; i < DQ; ++i) {
+      const int c = tid + i * T;
+      if (DQ * T > QR * (kMmaBN / 8) && c >= QR * (kMmaBN / 8)) break;
+      const int row = c / (kMmaBN / 8), col = (c % (kMmaBN / 8)) * 8;
+      const int gr = sl * QR + row;   // weight row (int4: byte row)
+      if constexpr (VEC) {
+        if (i == 0 || !one_srow) {
+          const float4* sr = reinterpret_cast<const float4*>(ss + sloc[i] * kMmaBN + col);
+#pragma unroll
+          for (int h = 0; h < (BITS == 8 ? 1 : 2); ++h) {
+            const float4 s0 = sr[h * kMmaBN / 4], s1 = sr[h * kMmaBN / 4 + 1];
+            sc[8 * h + 0] = s0.x; sc[8 * h + 1] = s0.y; sc[8 * h + 2] = s0.z;
+            sc[8 * h + 3] = s0.w; sc[8 * h + 4] = s1.x; sc[8 * h + 5] = s1.y;
+            sc[8 * h + 6] = s1.z; sc[8 * h + 7] = s1.w;
+          }
+        }
+      }
+      if constexpr (BITS == 8) {
+        float w[8];
+        if (gr >= qrows) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) w[j] = 0.f;
+        } else if constexpr (VEC) {
+          const uint2 v = *reinterpret_cast<const uint2*>(qs + row * kMmaBN + col);
+          i8x4_to_f32(v.x, w);
+          i8x4_to_f32(v.y, w + 4);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) w[j] *= sc[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = n_base + col + j;
+            w[j] = n < N ? static_cast<float>(q[(size_t)gr * N + n]) * s[(size_t)(gr / gs) * N + n]
+                         : 0.f;
+          }
+        }
+        store_bf16x8(wd + row * kMmaLdw + col, w);
+      } else {
+        float lo[8], hi[8];
+        if (gr >= qrows) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
+        } else if constexpr (VEC) {
+          const uint2 v = *reinterpret_cast<const uint2*>(qs + row * kMmaBN + col);
+          i4x8_to_f32(v.x, lo, hi);
+          i4x8_to_f32(v.y, lo + 4, hi + 4);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            lo[j] *= sc[j];
+            hi[j] *= sc[8 + j];
+          }
+        } else {
+          const int g = 2 * (gr / gs);   // scale row of the low nibble
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = n_base + col + j;
+            lo[j] = hi[j] = 0.f;
+            if (n < N) {
+              unpack_int4x1(q[(size_t)gr * N + n], lo[j], hi[j]);
+              lo[j] *= s[(size_t)g * N + n];
+              hi[j] *= s[(size_t)(g + 1) * N + n];
+            }
+          }
+        }
+        store_bf16x8(wd + row * kMmaLdw + col, lo);
+        store_bf16x8(wd + (row + QR) * kMmaLdw + col, hi);
+      }
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  const int row_w = (warp / 4) * (BM / WM), col_w = (warp % 4) * 32;
+
+  // Software pipeline, one barrier a slab: in step t a warp dequantizes
+  // slab t + 1 into one Ws buffer and multiplies slab t from the other,
+  // while the copies of slabs t + 2 .. t + 1 + P are in flight; warps drift
+  // apart between barriers, so the ALU work of some overlaps the MMAs of
+  // others.
+#pragma unroll
+  for (int i = 0; i <= P; ++i) {
+    if (i < nt) load(i);
+    cp_async_commit();
+  }
+  cp_async_wait<P>();   // slab 0
+  __syncthreads();
+  dequant(0);
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<P - 1>();   // slab t + 1 (this thread's copies) has landed
+    __syncthreads();          // everyone's; Ws[t % 2] is written, step t - 1's reads are done
+    if (t + 1 + P < nt) load(t + 1 + P);
+    cp_async_commit();
+    if (t + 1 < nt) dequant(t + 1);
+    const __nv_bfloat16* xs = Xs + (t % XS) * BM * kMmaLdx;
+    const __nv_bfloat16* ws = Ws + (t % 2) * kMmaBK * kMmaLdw;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t bf[2][4];
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp)
+        ldsm_x4_trans(bf[dp], ws + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kMmaLdw +
+                                  col_w + dp * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t af[4];
+        ldsm_x4(af, xs + (row_w + mt * 16 + lane % 16) * kMmaLdx + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int dp = 0; dp < 2; ++dp) {
+          mma_bf16(acc[mt][2 * dp], af, bf[dp][0], bf[dp][1]);
+          mma_bf16(acc[mt][2 * dp + 1], af, bf[dp][2], bf[dp][3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: y (ks == 1) or this split's fp32 partial
+  const int g = lane / 4, c = lane % 4;
+  const bool pair = (N % 2) == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m_base + row_w + mt * 16 + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n_base + col_w + j * 8 + 2 * c;
+        const float v0 = acc[mt][j][2 * h], v1 = acc[mt][j][2 * h + 1];
+        if (ks == 1) {
+          __nv_bfloat16* dst = y + (size_t)m * N + n;
+          if (pair && n + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (n < N) dst[0] = __float2bfloat16_rn(v0);
+            if (n + 1 < N) dst[1] = __float2bfloat16_rn(v1);
+          }
+        } else {
+          float* dst = part + ((size_t)split * M + m) * N + n;
+          if (pair && n + 1 < N) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (n < N) dst[0] = v0;
+            if (n + 1 < N) dst[1] = v1;
+          }
+        }
+      }
+    }
+  }
+  if (ks == 1) return;
+
+  // the last CTA of this output tile adds the ks partials in split order
+  __threadfence();
+  __syncthreads();
+  unsigned* ticket = tickets + blockIdx.x * gridDim.y + blockIdx.y;
+  if (tid == 0) is_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(ks - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = tid; i < BM * kMmaBN; i += T) {
+    const int m = m_base + i / kMmaBN, n = n_base + i % kMmaBN;
+    if (m >= M || n >= N) continue;
+    float v = 0.f;
+    for (int sp = 0; sp < ks; ++sp) v += __ldcg(part + ((size_t)sp * M + m) * N + n);
+    y[(size_t)m * N + n] = __float2bfloat16_rn(v);
+  }
+  if (tid == 0) *ticket = 0u;   // ready for the next launch
+}
+
+template <int BM, int BITS, bool VEC>
+cudaError_t launch_qmm_mma(const void* x, const void* q, const void* s, void* y, void* part,
+                           void* tickets, int M, int K, int N, int gs, int ks, int sps,
+                           cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<BM, BITS>();
+  auto kern = qmm_mma<BM, BITS, VEC>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + BM - 1) / BM, (N + kMmaBN - 1) / kMmaBN, ks);
+  kern<<<grid, MmaCfg<BM>::kWarpRows * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<unsigned*>(tickets), M, K, N, gs, sps);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_qmm_mma_bm(int bm, bool vec, const void* x, const void* q, const void* s,
+                              void* y, void* part, void* tickets, int M, int K, int N, int gs,
+                              int ks, int sps, cudaStream_t st) {
+  if (!vec)
+    return bm == 64 ? launch_qmm_mma<64, BITS, false>(x, q, s, y, part, tickets, M, K, N, gs,
+                                                      ks, sps, st)
+                    : cudaErrorInvalidValue;
+  switch (bm) {
+    case 32:
+      return launch_qmm_mma<32, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    case 64:
+      return launch_qmm_mma<64, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    case 128:
+      return launch_qmm_mma<128, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    case 256:
+      return launch_qmm_mma<256, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rama
@@ -183,13 +605,30 @@ extern "C" int rama_qmv(const void* x, const void* q, const void* s, void* y, vo
                                                  static_cast<cudaStream_t>(stream)));
 }
 
+// The fp32 CUDA-core body (M > 8): x (M, K) and y (M, N) float32.
 extern "C" int rama_qmm(const void* x, const void* q, const void* s, void* y, int M,
-                        int K, int N, int gs, int bits, int dtype, void* stream) {
+                        int K, int N, int gs, int bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rama::kBF16)
-    return static_cast<int>(
-        rama::launch_qmm_bits<__nv_bfloat16>(bits, x, q, s, y, M, K, N, gs, st));
-  if (dtype == rama::kF32)
-    return static_cast<int>(rama::launch_qmm_bits<float>(bits, x, q, s, y, M, K, N, gs, st));
+  if (bits == 8) return static_cast<int>(rama::launch_qmm<8>(x, q, s, y, M, K, N, gs, st));
+  if (bits == 4) return static_cast<int>(rama::launch_qmm<4>(x, q, s, y, M, K, N, gs, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core body (M > 8): x (M, K) bf16, y (M, N) bf16; `bm` 32,
+// 64, 128 or 256 rows a CTA (64 when !vec); `ks` K splits of `sps` 64-row
+// slabs each, `part` an fp32 (ks, M, N) workspace when ks > 1; `tickets`
+// one zeroed counter per output tile. `vec` (the cp.async path): N and gs
+// multiples of 16, gs a divisor or a multiple of a slab's 64 weight rows
+// (int4: 32 byte rows), every pointer 16-byte aligned.
+extern "C" int rama_qmm_mma(const void* x, const void* q, const void* s, void* y, void* part,
+                            void* tickets, int M, int K, int N, int gs, int bits, int bm,
+                            int ks, int sps, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return static_cast<int>(rama::launch_qmm_mma_bm<8>(bm, vec != 0, x, q, s, y, part, tickets,
+                                                       M, K, N, gs, ks, sps, st));
+  if (bits == 4)
+    return static_cast<int>(rama::launch_qmm_mma_bm<4>(bm, vec != 0, x, q, s, y, part, tickets,
+                                                       M, K, N, gs, ks, sps, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -64,9 +64,15 @@ def _lib_path(name: str) -> Path:
 
 def build_all() -> dict[str, str]:
     """Compile every source whose library is missing, one nvcc each, all
-    in parallel. Returns {name: nvcc output}; raises if any build fails."""
+    in parallel. Returns {name: nvcc output} (kept beside each library, so
+    a library built by an earlier process still has its report); raises if
+    any build fails."""
     with _lock:
         todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
+        for name in SOURCES:
+            log = _lib_path(name).with_suffix(".log")
+            if name not in todo and name not in build_logs and log.exists():
+                build_logs[name] = log.read_text()
         if not todo:
             return dict(build_logs)
         nvcc = nvcc_path()
@@ -86,6 +92,7 @@ def build_all() -> dict[str, str]:
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

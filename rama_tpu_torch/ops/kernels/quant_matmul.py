@@ -9,13 +9,20 @@ the layer is a pointer offset computed here from a Python int
 take sibling instantiations of the same kernels (a `bits` argument), and
 each has its own launch count.
 
-Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-`quant_matmul_plain`. Any K that is a multiple of the group size (of two
-group sizes, a packing block, for int4) and any N are taken; the ragged
-edges are masked in the kernel.
+Dispatch: a CUDA tensor launches a kernel body (or raises), a CPU tensor
+runs `quant_matmul_plain`. The body is fixed by dtype and M before the
+launch (`body_for`): M <= GEMV_MAX_M the split-K GEMV ("gemv"), larger M
+in bf16 the tensor-core GEMM ("mma"), larger M in fp32 the CUDA-core tiled
+GEMM ("simt"). A refused launch raises; it never gives way to another
+body. Any K that is a multiple of the group size (of two group sizes, a
+packing block, for int4) and any N are taken; the ragged edges are masked
+in the kernel.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -25,19 +32,36 @@ from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 
 # kernel launches since the last reset, by weight bits (chip_smoke reads them)
 launches = {8: 0, 4: 0}
+launches_by_body = {"gemv": 0, "mma": 0, "simt": 0}   # the same launches by body
 
-# M <= 8 takes the weight-streaming GEMV (one CTA serves all rows); larger M
-# the tiled kernel, which reads W once per 64 rows — so W streams once for
-# any M <= 64, and the 8-slot decode step takes the GEMV.
+# M <= 8 takes the weight-streaming GEMV (one CTA serves all rows: the
+# 8-slot decode step); larger M a GEMM that reads W once per 32-128 rows
+# (verify rounds of 8 slots x 4 tokens, prefill chunks).
 GEMV_MAX_M = 8
 _TARGET_CTAS = 264    # two CTAs per SM on the H100's 132
 _QMV_COLS = 512       # output columns per GEMV CTA (csrc/qmv.cuh)
 _SMEM_X_BYTES = 48 * 1024
+MMA_BK = 64           # logical K rows per slab of the tensor-core GEMM
+MMA_BN = 128          # output columns per CTA of it (csrc/quant_matmul.cu)
+_MMA_MIN_SLABS = 4    # K slabs a split runs at least (the cp.async ring fills)
+_MMA_CTAS_PER_SM = {32: 3, 64: 2, 128: 2, 256: 1}   # MmaCfg::kCtas
+_SMS = 132            # the H100's SMs
+_MMA_MAX_SPLITS = 8
 
 _SIGNATURES = {
     "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "rama_qmm": [P, P, P, P, I, I, I, I, I, I, P],
+    "rama_qmm": [P, P, P, P, I, I, I, I, I, P],
+    "rama_qmm_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
 }
+
+
+def body_for(dtype: torch.dtype, m: int) -> str:
+    """The kernel body a CUDA call of M rows launches: "gemv" for M <=
+    GEMV_MAX_M, "mma" (tensor cores) for bf16 above it, "simt" (fp32 on the
+    CUDA cores) for fp32 above it."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def layer_of(qt: QuantizedTensor, layer: int | None) -> QuantizedTensor:
@@ -69,6 +93,45 @@ def split_k(nblocks: int, col_tiles: int, block_rows: int, mt: int,
     bps = -(-nblocks // ks)
     bps = max(1, min(bps, _SMEM_X_BYTES // (4 * mt * block_rows)))
     return -(-nblocks // bps), bps
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(m: int, n: int, k: int, k_block: int, vec: bool = True,
+             sms: int = _SMS) -> tuple[int, int, int]:
+    """(bm, ks, slabs per split) of the tensor-core GEMM: bm rows a CTA (32
+    up to M = 32, 64 up to 64, 128 up to 128, else 256; 64 on the masked
+    path, vec False), and K split across ks CTAs in whole MMA_BK-row slabs
+    and whole K blocks (QuantizedTensor.k_block), each split running at
+    least _MMA_MIN_SLABS slabs where K has them. At bm 32 (a verify round:
+    the weight bytes set the pace) the splits fill the CTA slots (`sms` x
+    _MMA_CTAS_PER_SM[bm]) up to _MMA_MAX_SPLITS; at larger bm (the tensor
+    cores set the pace) K is split only when the output tiles fill less
+    than a third of the slots, as the extra partial sums cost more than a
+    tail wave saves."""
+    bm = 64 if not vec else 32 if m <= 32 else 64 if m <= 64 else 128 if m <= 128 else 256
+    nslabs = -(-k // MMA_BK)
+    unit = math.lcm(MMA_BK, k_block) // MMA_BK     # slabs a split unit
+    nunits = -(-nslabs // unit)
+    tiles = -(-m // bm) * -(-n // MMA_BN)
+    slots = sms * _MMA_CTAS_PER_SM[bm]
+    if bm == 32:
+        want = min(slots // tiles, _MMA_MAX_SPLITS)
+    else:
+        want = -(-slots // tiles) if 3 * tiles < slots else 1
+    ks = max(1, min(want, nslabs // _MMA_MIN_SLABS, nunits))
+    sps = -(-nunits // ks) * unit
+    return bm, -(-nslabs // sps), sps
+
+
+def mma_vec(x: torch.Tensor, qt: QuantizedTensor, qp: int, sp: int) -> bool:
+    """Whether the tensor-core GEMM takes its cp.async path: 16-byte copies
+    of x, weight and scale rows (N and the group size multiples of 16,
+    every pointer 16-byte aligned), and a group size that divides, or is a
+    multiple of, a slab's weight rows (64, or 32 packed int4 byte rows);
+    the masked path otherwise."""
+    gs, span = qt.group_size, MMA_BK if qt.bits == 8 else MMA_BK // 2
+    return (qt.q.shape[-1] % 16 == 0 and gs % 16 == 0 and (span % gs == 0 or gs % span == 0)
+            and all(p % 16 == 0 for p in (x.data_ptr(), qp, sp)))
 
 
 def weight_ptrs(qt: QuantizedTensor, layer: int | None) -> tuple[int, int]:
@@ -121,7 +184,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
         return y
     lib = build.library("quant_matmul", _SIGNATURES)
     stream = build.stream_ptr(x)
-    if m <= GEMV_MAX_M:
+    body = body_for(x.dtype, m)
+    if body == "gemv":
         mt = rows_per_cta(m)
         col_tiles = -(-n // _QMV_COLS)
         ks, bps = split_k(k // qt.k_block, col_tiles, qt.k_block, mt)
@@ -130,9 +194,18 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
         tk = build.tickets(x.device, col_tiles * -(-m // mt))
         err = lib.rama_qmv(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
                            tk.data_ptr(), m, k, n, gs, ks, bps, qt.bits, dtype, stream)
+    elif body == "mma":
+        vec = mma_vec(x, qt, qp, sp)
+        bm, ks, sps = mma_plan(m, n, k, qt.k_block, vec)
+        part = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
+                if ks > 1 else y)
+        tk = build.tickets(x.device, -(-m // bm) * -(-n // MMA_BN))
+        err = lib.rama_qmm_mma(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
+                               tk.data_ptr(), m, k, n, gs, qt.bits, bm, ks, sps, int(vec),
+                               stream)
     else:
-        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, qt.bits,
-                           dtype, stream)
-    build.check(lib, err, f"quant_matmul (int{qt.bits})")
+        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, qt.bits, stream)
+    build.check(lib, err, f"quant_matmul (int{qt.bits}, {body})")
     launches[qt.bits] += 1
+    launches_by_body[body] += 1
     return y

@@ -124,9 +124,10 @@ def counters():
     saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
              dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
              da.launches_flat_q8)
-    bodies = dict(pa.launches_by_body)
+    bodies = dict(pa.launches_by_body), dict(qm.launches_by_body)
     yield mods
-    pa.launches_by_body.update(bodies)
+    pa.launches_by_body.update(bodies[0])
+    qm.launches_by_body.update(bodies[1])
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
@@ -676,3 +677,91 @@ def test_profile_prefill_is_a_known_phase_and_a_subset_is_not_ok(smoke):
                                 dev)
     assert line == {"ok": False, "skipped_phases": ["profile_prefill"], "device": dev}
     assert rc == smoke.PARTIAL_RC != 0
+
+
+def test_quant_matmul_launch_counts_by_body_are_read_and_reset(smoke, counters):
+    qm = counters[0]
+    qm.launches[8], qm.launches[4] = 7, 2
+    qm.launches_by_body.update(gemv=4, mma=3, simt=2)
+    got = smoke.read_launches(*counters)
+    assert (got["quant_matmul"], got["quant_matmul_int4"], got["quant_matmul_gemv"],
+            got["quant_matmul_mma"], got["quant_matmul_simt"]) == (7, 2, 4, 3, 2)
+    smoke.reset_launches(*counters)
+    assert qm.launches_by_body == {"gemv": 0, "mma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
+                                       "SPEC_KV8_PATH", "PAGED_PATH", "PAGED_KV8_PATH",
+                                       "SPEC_PAGED_PATH", "SPEC_PAGED_KV8_PATH", "AB1_PATH",
+                                       "AB2_PATH", "PREFILL_T1_PATH", "INT4_PATH",
+                                       "AB2_INT4_PATH"])
+def test_a_path_fails_when_quant_matmul_took_the_simt_body(smoke, path_name):
+    """Every path runs bf16 activations: a quant_matmul launch at M > 8 on
+    the SIMT body (the fp32 tiled GEMM) fails the path."""
+    path = getattr(smoke, path_name)
+    assert path in smoke.PATHS
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0,
+          "quant_matmul_gemv": 64, "quant_matmul_mma": 64, "quant_matmul_simt": 0}
+    for k, ref in path.get("equal", {}).items():
+        ok[k] = ok[ref]
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="quant_matmul launches .* took the SIMT body"):
+        smoke.check_launches(path, {**ok, "quant_matmul_mma": 63, "quant_matmul_simt": 1})
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "SPEC_PATH", "INT4_PATH"])
+def test_paths_that_prefill_or_verify_need_the_tensor_core_gemm(smoke, path_name):
+    """The int8, int4 and speculation paths record the GEMM's launches
+    (prefill chunks, verify rounds of 8 x 4 rows) and fail without any."""
+    path = getattr(smoke, path_name)
+    assert "quant_matmul_mma" in path["record"]
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0, "quant_matmul_simt": 0}
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="never launched"):
+        smoke.check_launches(path, {**ok, "quant_matmul_mma": 0})
+
+
+def test_gemm_record_rate_bound_and_yardstick(smoke):
+    """A timed GEMM shape: TFLOP/s on the device time, the bound of the
+    larger of bytes (int8 weight + f32 scales + bf16 x, y) and operations,
+    the dense yardstick kept beside it."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    def w(k, n, gs, bits):
+        rows = k // 2 if bits == 4 else k
+        return QuantizedTensor(q=torch.zeros(2, rows, n, dtype=torch.int8),
+                               scales=torch.ones(2, k // gs, n), group_size=gs, bits=bits)
+
+    wqkv = w(4096, 12288, 64, 8)
+    big = smoke.gemm_record(wqkv, 4096, ms=2.0, device_ms=1.8, plain_ms=30.0, dense_ms=0.6,
+                            dense_device_ms=0.5, err=1e-3)
+    flops = 2.0 * 4096 * 4096 * 12288
+    assert big["bound_by"] == "operations"
+    assert big["bound_ms"] == pytest.approx(flops / smoke.BF16_FLOPS * 1e3)
+    assert big["tflops"] == pytest.approx(flops / 1.8e-3 / 1e12)
+    assert (big["dense_ms"], big["dense_device_ms"], big["plain_ms"], big["m"]) == (
+        0.6, 0.5, 30.0, 4096)
+    small = smoke.gemm_record(wqkv, 32, 0.1, 0.08, 1.0, 0.04, 0.035, 1e-3)
+    nbytes = 4096 * 12288 + 64 * 12288 * 4 + 32 * (4096 + 12288) * 2
+    assert small["bound_by"] == "bytes"
+    assert small["bound_ms"] == pytest.approx(nbytes / smoke.HBM_BYTES_PER_S * 1e3)
+    w2 = smoke.gemm_record(w(11008, 4096, 16, 4), 256, 0.3, 0.25, 2.0, 0.05, 0.045, 1e-3)
+    assert w2["bound_ms"] == pytest.approx(max(
+        (11008 * 4096 / 2 + 688 * 4096 * 4 + 256 * (11008 + 4096) * 2) / smoke.HBM_BYTES_PER_S,
+        2.0 * 256 * 11008 * 4096 / smoke.BF16_FLOPS) * 1e3)
+
+
+def test_prefill_gemm_flops_of_a_7b_admission(smoke):
+    """The weight products of an 8 x 512 admission of Llama-2-7B: 53.05
+    TFLOP (wqkv, wo, w13, w2 of 32 layers at M = 4096)."""
+    from rama_tpu_torch.config import ModelConfig
+
+    cfg = smoke.seven_b_config(ModelConfig)
+    d, h = 4096, 11008
+    assert smoke.prefill_gemm_flops(cfg, 4096) == 2.0 * 4096 * 32 * (
+        d * 3 * d + d * d + d * 2 * h + h * d)
+    assert smoke.mma_record({})["gemm"] == {}
+    assert "gemm" in smoke.mma_record({"quant_matmul_mma": {"gemm": {"a": 1}}}) and \
+        smoke.mma_record({"quant_matmul_mma": {"gemm": {"a": 1}}})["gemm"] == {"a": 1}

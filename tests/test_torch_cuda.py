@@ -85,6 +85,73 @@ def test_quant_matmul_int4(dev, m, dtype, k, n, gs):
     assert qm.launches[4] == before + 3
 
 
+def _int4_qt(dev, L, k, n, gs, seed):
+    """A stacked int4 weight at group size gs as given (quantize_int4 would
+    reduce it for K 288): random nibbles in [-7, 7], scales ~ 1 / (7 sqrt(K))."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = ((torch.randint(0, 15, (L, k // 2, n), dtype=torch.uint8, generator=g) + 9) % 16
+              for _ in range(2))
+    s = (torch.rand(L, k // gs, n, generator=g) + 0.5) / (7 * k ** 0.5)
+    return QuantizedTensor(q=(lo | (hi << 4)).view(torch.int8), scales=s, group_size=gs,
+                           bits=4).to(dev)
+
+
+@pytest.mark.parametrize("m", [9, 17, 33, 100])
+@pytest.mark.parametrize("bits,gs", [(8, 32), (8, 16), (8, 8), (4, 16), (4, 48), (4, 32)])
+@pytest.mark.parametrize("n", [1000, 384])
+def test_quant_matmul_tensor_core_body(dev, m, bits, gs, n):
+    """The bf16 tensor-core GEMM at ragged M (not a multiple of 16), K 288
+    (4.5 slabs of 64: the K tail), N 1000 (the masked path: weight rows
+    not 16-byte aligned) and 384 (the cp.async path), int8 gs 32 / 16 (and
+    8: the masked path) and int4 gs 16 / 48 (several packing blocks a slab,
+    or one straddling two; int4 gs 32 is not a divisor of K 288 / 2, so
+    quantize_int4 picks gs 2, the masked path): each call one launch on the
+    mma body."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    if bits == 4 and gs != 32:
+        w = _int4_qt(dev, 2, 288, n, gs, seed=m * 7 + gs + n)
+    else:
+        w = _qt(dev, 2, 288, n, gs, seed=m * 7 + bits + n, bits=bits)
+    x = torch.randn(m, 288, device=dev).to(torch.bfloat16)
+    before = dict(qm.launches_by_body)
+    got = qm.quant_matmul(x, w, 1)
+    assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
+        "gemv": 0, "mma": 1, "simt": 0}
+    _close(got, qm.quant_matmul_plain(x, w, 1), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [16, 32, 100, 256])
+@pytest.mark.parametrize("bits,k,n", [(8, 4096, 4096), (4, 4096, 4096), (4, 11008, 512),
+                                      (8, 11008, 512)])
+def test_quant_matmul_tensor_core_splits(dev, m, bits, k, n):
+    """7B-deep K through the split-K plan (several splits at small M, one
+    at M 256 for N 512) and the last-CTA reduce: against the plain version,
+    twice bit for bit (the split order is fixed)."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    w = _qt(dev, 1, k, n, 64, seed=m + k + bits, bits=bits)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    got = qm.quant_matmul(x, w, 0)
+    assert torch.equal(got, qm.quant_matmul(x, w, 0))
+    _close(got, qm.quant_matmul_plain(x, w, 0), torch.bfloat16)
+
+
+def test_quant_matmul_counts_each_body(dev):
+    """bf16 at M > 8 counts on mma, fp32 on simt, M <= 8 on gemv."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    w = _qt(dev, 1, 256, 384, 64, seed=11)
+    before = dict(qm.launches_by_body)
+    for m, dtype in ((8, torch.bfloat16), (9, torch.bfloat16), (9, torch.float32),
+                     (64, torch.float32), (64, torch.bfloat16)):
+        qm.quant_matmul(torch.randn(m, 256, device=dev).to(dtype), w, 0)
+    assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
+        "gemv": 1, "mma": 2, "simt": 2}
+
+
 def test_quant_matmul_int4_rejects_split_packing_block(dev):
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
     from rama_tpu_torch.ops.quant import QuantizedTensor

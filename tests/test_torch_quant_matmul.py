@@ -17,7 +17,9 @@ import torch
 from rama_tpu.ops import quant as jq
 from rama_tpu.ops.pallas.quant_matmul import quant_matmul, quant_matmul_layered
 from rama_tpu_torch.ops import quant as tq
-from rama_tpu_torch.ops.kernels.quant_matmul import (quant_matmul as t_quant_matmul,
+from rama_tpu_torch.ops.kernels import quant_matmul as qm
+from rama_tpu_torch.ops.kernels.quant_matmul import (MMA_BK, MMA_BN, body_for, mma_plan,
+                                                     mma_vec, quant_matmul as t_quant_matmul,
                                                      quant_matmul_plain, split_k)
 
 torch.set_num_threads(1)
@@ -40,7 +42,8 @@ def _weights(shape, gs, seed=0, bits=8):
 
 
 @pytest.mark.parametrize("m,dtype", [(1, "float32"), (8, "float32"), (8, "bfloat16"),
-                                     (64, "float32")])
+                                     (64, "float32"), (16, "bfloat16"), (32, "bfloat16"),
+                                     (64, "bfloat16")])
 def test_plain_matches_pallas_2d(m, dtype):
     jw, tw = _weights((256, 384), 64)
     x = np.random.default_rng(1).standard_normal((m, 256)).astype(np.float32)
@@ -52,7 +55,8 @@ def test_plain_matches_pallas_2d(m, dtype):
 
 
 @pytest.mark.parametrize("layer", [0, 2])
-@pytest.mark.parametrize("m,dtype", [(8, "float32"), (8, "bfloat16"), (3, "float32")])
+@pytest.mark.parametrize("m,dtype", [(8, "float32"), (8, "bfloat16"), (3, "float32"),
+                                     (16, "bfloat16"), (32, "bfloat16"), (64, "bfloat16")])
 def test_plain_matches_pallas_layered(layer, m, dtype):
     jw, tw = _weights((3, 256, 256), 64, seed=2)
     x = np.random.default_rng(3).standard_normal((m, 256)).astype(np.float32)
@@ -129,3 +133,74 @@ def test_k_block_is_the_packing_block_for_int4():
     _, w4 = _weights((2, 256, 64), 16, seed=9, bits=4)
     assert (w8.k_block, w8.k_dim) == (16, 256)
     assert (w4.k_block, w4.k_dim, w4.q.shape[-2]) == (32, 256, 128)
+
+
+@pytest.mark.parametrize("m,dtype,body", [
+    (1, torch.bfloat16, "gemv"), (8, torch.bfloat16, "gemv"), (8, torch.float32, "gemv"),
+    (9, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"), (4096, torch.bfloat16, "mma"),
+    (9, torch.float32, "simt"), (4096, torch.float32, "simt"),
+])
+def test_body_for_picks_gemv_then_mma_for_bf16_and_simt_for_fp32(m, dtype, body):
+    """The body a CUDA call launches: the GEMV up to GEMV_MAX_M rows, then
+    the tensor-core GEMM for bf16 and the CUDA-core tiled GEMM for fp32."""
+    assert body_for(dtype, m) == body
+
+
+@pytest.mark.parametrize("m,n,k,k_block", [
+    (32, 12288, 4096, 64),     # 7B wqkv in a verify round (int8 gs 64)
+    (32, 4096, 4096, 128),     # wo, int4 gs 64 (packing blocks of 128 rows)
+    (32, 4096, 11008, 32),     # w2, int4 gs 16
+    (32, 32000, 4096, 64),     # lm_head: enough tiles, no split
+    (256, 4096, 11008, 64),    # w2 at M = 256
+    (4096, 22016, 4096, 64),   # w13 of an 8 x 512 admission
+    (40, 1000, 288, 32),       # the ragged stories shape: 4.5 slabs
+    (17, 384, 288, 96),        # a K block of 1.5 slabs
+    (100, 200, 176, 2),        # tiny int4 (gs 1)
+])
+@pytest.mark.parametrize("vec", [True, False])
+def test_mma_plan_covers_every_slab_once_in_whole_k_blocks(m, n, k, k_block, vec):
+    """The tensor-core GEMM's plan: a tile height the kernel has, every
+    64-row K slab in exactly one split, no split empty, every split
+    boundary on a K block boundary (a scale group, or an int4 packing
+    block), and splits only where the output tiles fill at most half of
+    the CTA slots."""
+    bm, ks, sps = mma_plan(m, n, k, k_block, vec)
+    assert bm in ((32, 64, 128, 256) if vec else (64,))
+    nslabs = -(-k // MMA_BK)
+    bounds = [min(i * sps, nslabs) for i in range(ks + 1)]
+    assert bounds[0] == 0 and bounds[-1] == nslabs
+    assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))   # none empty
+    assert all(b * MMA_BK % k_block == 0 for b in bounds[1:-1])  # whole K blocks
+    assert ks >= 1
+    if ks > 1:
+        slots = 132 * qm._MMA_CTAS_PER_SM[bm]
+        assert 2 * -(-m // bm) * -(-n // MMA_BN) <= slots
+
+
+def test_mma_plan_tile_heights_follow_m():
+    assert [mma_plan(m, 4096, 4096, 64)[0] for m in (9, 32, 33, 64, 65, 128, 129, 4096)] == [
+        32, 32, 64, 64, 128, 128, 256, 256]
+
+
+def test_mma_vec_takes_the_copy_path_only_where_16_byte_copies_fit():
+    """cp.async path: N and gs multiples of 16, gs dividing (or a multiple
+    of) the slab's weight rows, every pointer 16-byte aligned."""
+    x = torch.zeros(64, 256)
+
+    def qt(n, gs, bits=8):
+        k = 256
+        rows = k // 2 if bits == 4 else k
+        return tq.QuantizedTensor(q=torch.zeros(rows, n, dtype=torch.int8),
+                                  scales=torch.ones(k // gs, n), group_size=gs, bits=bits)
+
+    for w, want in ((qt(384, 64), True), (qt(384, 16), True), (qt(384, 128), True),
+                    (qt(1000, 32), False), (qt(384, 8), False), (qt(384, 32, 4), True),
+                    (qt(384, 64, 4), True), (qt(384, 16, 4), True)):
+        assert mma_vec(x, w, w.q.data_ptr(), w.scales.data_ptr()) is want
+    w = qt(384, 64)
+    assert not mma_vec(x, w, w.q.data_ptr() + 8, w.scales.data_ptr())
+    assert not mma_vec(x[:, 1:], w, w.q.data_ptr(), w.scales.data_ptr())
+    # gs 48: a 64-row slab straddles groups differently slab to slab
+    w48 = tq.QuantizedTensor(q=torch.zeros(192, 384, dtype=torch.int8),
+                             scales=torch.ones(4, 384), group_size=48, bits=8)
+    assert not mma_vec(x, w48, w48.q.data_ptr(), w48.scales.data_ptr())
