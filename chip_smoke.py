@@ -24,14 +24,20 @@ Phases, in order (any failure raises and the script exits non-zero):
            the `quant_matmul_mma` record) checked and timed at int8 wqkv
            M = 32 / 256 / 4096 and wo / w13 / w2 M = 4096 (CUDA-event and
            device ms, TFLOP/s, bound, plain version, and a dense yardstick:
-           torch.matmul by the layer dequantized to bf16 beforehand); K4's
-           device time beside SDPA's
+           torch.matmul by the layer dequantized to bf16 beforehand); K3
+           (ffn) at M = 1 / 8 / 32 on the body body_for picks (bf16: the
+           tensor-core body), timed at M = 1 / 8 / 32 (CUDA-event and
+           device ms, bound) beside, at M = 32, the split route through
+           the tensor-core GEMM (w13 product, silu * c, w2 product) and a
+           dense bf16 yardstick (torch.matmul by w13 / w2 dequantized
+           beforehand, not the same function); K4's device time beside
+           SDPA's
   kernels4 the same for the int4 instantiations of quant_matmul (decode
            GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
            int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
            stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16; the
            tensor-core GEMM timed at int4 wqkv M = 32 / 256 / 4096 and w2
-           gs 16 M = 256
+           gs 16 M = 256; K3' timed as K3
   kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
            inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
            shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
@@ -47,7 +53,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            /metrics
   profile  torch.profiler over 8-slot decode steps: host ms/step (with and
            without the profiler), device kernel ms/step by kernel, device
-           busy share
+           busy share, K3's device ms and share of a step (also in
+           profile_spec's verify rounds and profile4)
   profile_prefill  one 7B int8 admission of 8 x 512 tokens through
            llama.prefill on a bf16 cache of 1024 rows: device ms (CUDA
            events), torch.profiler's device ms by kernel, K5's share and
@@ -150,7 +157,9 @@ under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step) and K4 never; and `prefill_t1`, where K9 launches on both
 caches and no decode, chunk or prefill attention does. Every K5 launch
-of a path that records K5 must be on its tensor-core body. The int8 KV,
+of a path that records K5 must be on its tensor-core body, and every
+quant_matmul and ffn launch of every path on a tensor-core body or the
+GEMV (`[launches]`: `ffn_mma` / `ffn_simt`). The int8 KV,
 speculation, attention-block and T = 1 paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
@@ -464,7 +473,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
-    for bodies in (pa.launches_by_body, qm.launches_by_body):
+    for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body):
         for body in bodies:
             bodies[body] = 0
 
@@ -473,6 +482,7 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
+            **{f"ffn_{body}": n for body, n in ffn_mod.launches_by_body.items()},
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "prefill_attention_mma": pa.launches_by_body["mma"],
             "prefill_attention_simt": pa.launches_by_body["simt"],
@@ -490,7 +500,9 @@ def check_launches(path: dict, launches: dict) -> None:
     another number of times than the kernel `equal` pairs it with (one
     launch a layer of each decode step, as the fused FFN), or on which K5
     ran its SIMT body (every K5 launch of a 7B path, bf16 at hd 128, and of
-    the stories draft, bf16 at hd 48, takes the tensor-core body)."""
+    the stories draft, bf16 at hd 48, takes the tensor-core body), or on
+    which a quant_matmul or ffn launch took the SIMT body (every path runs
+    bf16 activations: the tensor-core bodies serve them)."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -512,6 +524,10 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['quant_matmul_simt']} quant_matmul launches on the "
                          f"{path['label']} main path took the SIMT body, not the tensor-core "
                          f"GEMM ({launches['quant_matmul_mma']} did)")
+    if launches.get("ffn_simt", 0):
+        raise SystemExit(f"FAILED: {launches['ffn_simt']} ffn launches on the {path['label']} "
+                         f"main path took the SIMT body, not the tensor-core one "
+                         f"({launches['ffn_mma']} did)")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -606,6 +622,84 @@ def mma_record(results: dict) -> dict:
     return results.setdefault("quant_matmul_mma", dict(
         name="quant_matmul_mma", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
         replaces="rama_tpu/ops/pallas/quant_matmul.py:265", library_ms=None, gemm={}))
+
+
+def ffn_bytes(w13, w2, m: int) -> float:
+    """Bytes one ffn call must move: w13 and w2 of one layer with their
+    scales, x (m, K) in and y (m, N) out in bf16 (h stays on the chip in
+    the Pallas kernel, so its round trip is not counted)."""
+    h = w2.k_dim
+    return matmul_bytes(w13, m) + matmul_bytes(w2, m) - m * 2 * h * 2 - m * h * 2
+
+
+def check_ffn(torch, ffn_mod, label: str, x, w13, w2, layer: int) -> float:
+    """K3 against its plain version, one launch on the body body_for picks
+    (none on the other). Returns the max |err|."""
+    body = ffn_mod.body_for(x.dtype, x.shape[0])
+    before = dict(ffn_mod.launches_by_body)
+    got = ffn_mod.ffn(x, w13, w2, layer)
+    ran = {b: ffn_mod.launches_by_body[b] - before[b] for b in before}
+    if ran != {b: int(b == body) for b in before}:
+        raise SystemExit(f"FAILED ffn {label}: launches by body {ran}, expected one on {body}")
+    return compare(torch, f"ffn {label} [{body}]", got, ffn_mod.ffn_plain(x, w13, w2, layer))
+
+
+def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx) -> dict:
+    """K3 at M = 1, 8 and 32 with the layer cycling as in a decode step:
+    CUDA-event and device ms beside the bound (ffn_bytes, or 2 M (K 2H + H
+    N) bf16 operations); at M = 32 also the split route through the
+    tensor-core GEMM (quant_matmul of w13, then split_h13, silu * c, bf16,
+    quant_matmul of w2: the same function in four or more launches) and,
+    at each M, a dense bf16 yardstick (torch.matmul by the layer's w13 and
+    w2 dequantized to bf16 beforehand, the same silu * c between: 2 bytes
+    a weight, no dequantization, not the same function, never called by
+    the port). Returns {M: record}."""
+    import torch.nn.functional as F
+
+    from rama_tpu_torch.ops.kernels.ffn import split_h13
+    from rama_tpu_torch.ops.kernels.quant_matmul import layer_of
+    from rama_tpu_torch.ops.quant import dequantize
+
+    lay = Layered(n_layers)
+    wd13 = dequantize(layer_of(w13, 1), dtype=torch.bfloat16)
+    wd2 = dequantize(layer_of(w2, 1), dtype=torch.bfloat16)
+    k, h = w13.k_dim, w2.k_dim
+    n = w2.q.shape[-1]
+    out = {}
+    for m in (1, 8, ffn_mod.FFN_MAX_M):
+        x = rx(m, k)
+
+        def kernel():
+            return ffn_mod.ffn(x, w13, w2, lay.next())
+
+        def dense():
+            a, c = split_h13(torch.matmul(x, wd13), w13)
+            return torch.matmul(F.silu(a) * c, wd2)
+
+        def split():
+            l = lay.next()
+            a, c = split_h13(qm.quant_matmul(x, w13, l), w13)
+            return qm.quant_matmul((F.silu(a.float()) * c.float()).to(x.dtype), w2, l)
+
+        b_ms, b_by = bound_ms(ffn_bytes(w13, w2, m), 2 * m * (k * 2 * h + h * n))
+        rec = dict(m=m, ms=time_ms(torch, kernel), device_ms=device_ms_per_call(torch, kernel),
+                   bound_ms=b_ms, bound_by=b_by, dense_ms=time_ms(torch, dense),
+                   dense_device_ms=device_ms_per_call(torch, dense))
+        if m == ffn_mod.FFN_MAX_M:
+            compare(torch, f"ffn {label} split route M={m}", split(),
+                    ffn_mod.ffn_plain(x, w13, w2, lay.i))
+            rec.update(split_ms=time_ms(torch, split),
+                       split_device_ms=device_ms_per_call(torch, split))
+        log(f"[time] ffn {label} M={m} [{ffn_mod.body_for(x.dtype, m)}]: {rec['ms']:.4f} ms, "
+            f"device {rec['device_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{rec['device_ms'] / b_ms:.2f}x)"
+            + (f"; split route (quant_matmul w13, silu * c, quant_matmul w2) "
+               f"{rec['split_ms']:.4f} ms, device {rec['split_device_ms']:.4f} ms"
+               if "split_ms" in rec else "")
+            + f"; dense bf16 yardstick (not the same function) {rec['dense_ms']:.4f} ms, "
+              f"device {rec['dense_device_ms']:.4f} ms")
+        out[str(m)] = rec
+    return out
 
 
 class Layered:
@@ -799,24 +893,20 @@ def phase_kernels(torch, results: dict) -> None:
     # -- kernel 2: ffn ---------------------------------------------------------
     il = phase_a_tile(H, 8, gs) or 0
     w13, w2 = rq(L, D, 2 * H, il=il), rq(L, H, D)
-    for m in (1, 8):
+    for m in (1, 8, ffn_mod.FFN_MAX_M):
         x = rx(m, D)
         for l in (0, L - 1):
-            compare(torch, f"ffn il={il} M={m} layer={l}",
-                    ffn_mod.ffn(x, w13, w2, l),
-                    ffn_mod.ffn_plain(x, w13, w2, l))
+            check_ffn(torch, ffn_mod, f"il={il} M={m} layer={l}", x, w13, w2, l)
     # plain [W1 | W3] layout and a ragged hidden dim (tiny's 176)
     w13p = QuantizedTensor(q=w13.q[:2], scales=w13.scales[:2], group_size=gs, il=0)
     w2p = QuantizedTensor(q=w2.q[:2], scales=w2.scales[:2], group_size=gs)
-    compare(torch, "ffn plain layout M=8", ffn_mod.ffn(x8, w13p, w2p, 1),
-            ffn_mod.ffn_plain(x8, w13p, w2p, 1))
+    check_ffn(torch, ffn_mod, "plain layout M=8", x8, w13p, w2p, 1)
     tg = torch.Generator().manual_seed(3)
     t13 = quantize_int8(torch.randn(1, 64, 352, generator=tg), 16)
     t2 = quantize_int8(torch.randn(1, 176, 64, generator=tg), 16)
     t13, t2 = t13.to(dev), t2.to(dev)
     xt = rx(3, 64)
-    compare(torch, "ffn tiny H=176 M=3", ffn_mod.ffn(xt, t13, t2, 0),
-            ffn_mod.ffn_plain(xt, t13, t2, 0))
+    check_ffn(torch, ffn_mod, "tiny H=176 M=3", xt, t13, t2, 0)
     err = compare(torch, "ffn timed inputs (x8, layer 0)", ffn_mod.ffn(x8, w13, w2, 0),
                   ffn_mod.ffn_plain(x8, w13, w2, 0))
     lay = Layered(L)
@@ -828,10 +918,8 @@ def phase_kernels(torch, results: dict) -> None:
         name="ffn", route="cuda", source="rama_tpu_torch/csrc/ffn.cu",
         replaces="rama_tpu/ops/pallas/ffn.py:252", max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) il={il}, w2[l] (11008, 4096)")
-    x1 = rx(1, D)
-    t1 = time_ms(torch, lambda: ffn_mod.ffn(x1, w13, w2, lay.next()))
-    log(f"[time] ffn M=1: {t1:.4f} ms")
+        shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) il={il}, w2[l] (11008, 4096)",
+        by_m=time_ffn(torch, ffn_mod, qm, "int8", w13, w2, L, rx))
     # the prefill FFN's split w13 / w2 products through the tensor-core GEMM
     for label, (k, w) in {"w13 M=4096": (D, w13), "w2 M=4096": (H, w2)}.items():
         mma["gemm"][f"int8 {label}"] = time_gemm(torch, qm, f"int8 {label}", rx(4096, k), w, L)
@@ -1074,8 +1162,7 @@ def phase_kernels_int4(torch, results: dict) -> None:
     for m in (1, 8, ffn_mod.FFN_MAX_M):
         x = rx(m, D)
         for l in (0, L - 1):
-            compare(torch, f"ffn int4 il={il} M={m} layer={l}",
-                    ffn_mod.ffn(x, w13, w2, l), ffn_mod.ffn_plain(x, w13, w2, l))
+            check_ffn(torch, ffn_mod, f"int4 il={il} M={m} layer={l}", x, w13, w2, l)
     for cfg_name, (d, h, req) in {"tiny": (64, 176, 8), "stories15M": (288, 768, 16)}.items():
         t13 = quantize_int4(torch.randn(1, d, 2 * h, generator=tg), req).to(dev)
         t2 = quantize_int4(torch.randn(1, h, d, generator=tg), req).to(dev)
@@ -1084,8 +1171,8 @@ def phase_kernels_int4(torch, results: dict) -> None:
                               il=til)  # a column relabel: the same random function
         for m, dt in ((3, bf), (8, f32)):
             x = rx(m, d, dtype=dt)
-            compare(torch, f"ffn int4 {cfg_name} gs {t13.group_size}/{t2.group_size} il={til} "
-                    f"M={m} {dt}", ffn_mod.ffn(x, t13, t2, 0), ffn_mod.ffn_plain(x, t13, t2, 0))
+            check_ffn(torch, ffn_mod, f"int4 {cfg_name} gs {t13.group_size}/{t2.group_size} "
+                      f"il={til} M={m} {dt}", x, t13, t2, 0)
     err = compare(torch, "ffn int4 timed inputs (x8, layer 0)", ffn_mod.ffn(x8, w13, w2, 0),
                   ffn_mod.ffn_plain(x8, w13, w2, 0))
     lay = Layered(L)
@@ -1098,11 +1185,8 @@ def phase_kernels_int4(torch, results: dict) -> None:
         replaces="rama_tpu/ops/pallas/ffn.py:252", max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) int4 gs 64 il={il}, "
-              f"w2[l] (11008, 4096) int4 gs 16")
-    for m in (1, ffn_mod.FFN_MAX_M):
-        xm = rx(m, D)
-        t = time_ms(torch, lambda: ffn_mod.ffn(xm, w13, w2, lay.next()))
-        log(f"[time] ffn int4 M={m}: {t:.4f} ms")
+              f"w2[l] (11008, 4096) int4 gs 16",
+        by_m=time_ffn(torch, ffn_mod, qm, "int4", w13, w2, L, rx))
     for name in ("quant_matmul_int4", "ffn_int4"):
         r = results[name]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -1324,22 +1408,31 @@ def attention_split_combine(torch, fn, reps: int = 10) -> dict:
     return out
 
 
-def device_ms_per_call(torch, fn, reps: int = 10) -> float:
+def device_ms_per_call(torch, fn, reps: int = 10, tries: int = 3) -> float:
     """Device ms per call of fn: the time of every kernel it launched, by
-    torch.profiler over `reps` calls (the host's enqueue time excluded)."""
+    torch.profiler over `reps` calls (the host's enqueue time excluded).
+    A session that records no device event at all (seen once in a long
+    run) is repeated; after `tries` such sessions the CUDA-event time of
+    the calls is returned instead, and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type.name == "CUDA":
-            total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-    return total / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type.name == "CUDA":
+                total += (getattr(ev, "device_time_total", None)
+                          or getattr(ev, "cuda_time_total", 0))
+        if total > 0:
+            return total / 1e3 / reps
+    log(f"[device] torch.profiler recorded no device time in {tries} sessions: "
+        f"CUDA-event time used in place of device time")
+    return time_ms(torch, fn, reps=reps)
 
 
 def phase_kernels_spec(torch, results: dict) -> None:
@@ -2559,8 +2652,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
-    wall). Returns device_ms, host_ms (profiler off), host_ms_profiled and
-    busy (the device busy share) per step."""
+    wall), K3's device time and share of it. Returns device_ms, host_ms
+    (profiler off), host_ms_profiled, busy (the device busy share), k3_ms
+    per step and k3_share."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -2602,19 +2696,24 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         if dt and ev.device_type.name == "CUDA":
             rows.append((dt, ev.key, ev.count))
     busy_us = sum(r[0] for r in rows)
+    # K3: both phases of the tensor-core body, or the SIMT w13 kernel (whose
+    # w2 GEMV shares qmv_kernel with K1 and is not counted here)
+    k3_us = sum(r[0] for r in rows if "ffn_mma" in r[1] or "ffn_w13" in r[1])
     what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
     log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
         f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
-        f"device busy share {busy_us / 1e6 / wall:.3f}")
+        f"device busy share {busy_us / 1e6 / wall:.3f}; K3 (ffn) {k3_us / 8 / 1e3:.3f} "
+        f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time")
     ranked = sorted(rows, reverse=True)
     for dt, key, count in ranked[:12] + [r for r in ranked[12:] if "rama::" in r[1]]:
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
         log(f"[{tag}] the profiler recorded no device time")
     return dict(device_ms=busy_us / 8 / 1e3, host_ms=wall_off / 8 * 1e3,
-                host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall)
+                host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall,
+                k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9))
 
 
 def profile_prefill(torch, cfg, params) -> dict:
@@ -3031,7 +3130,7 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path", "gemm")
+            "launches_ab2_int4_path", "gemm", "by_m")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,33 +1,55 @@
-// Kernel 2: the SwiGLU FFN of one layer at decode M, int8 or packed int4
-// weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
+// Kernel 2: the SwiGLU FFN of one layer at decode M (up to a verify round's
+// 32 rows), int8 or packed int4 weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
 //
 // Replaces rama_tpu/ops/pallas/ffn.py: ffn_fused_layered (_kernel, its int8
-// and int4 branches). The Pallas kernel keeps the hidden activation h in VMEM between
-// its two phases inside one call; on the GPU that needs a grid-wide sync,
-// so this first version is two launches: (1) ffn_w13_kernel below, a
-// split-K GEMV over the fused w13 whose last CTA per hidden tile adds the
-// partials and applies silu(a) * c, writing h (M, H) in x's dtype (bf16 on
-// the serving path: 22 KB per token at 7B, rounded where ffn.py:170
-// rounds); (2) the w2 GEMV of qmv.cuh over h.
+// and int4 branches). The Pallas kernel keeps the hidden activation h in
+// VMEM between its two phases inside one call; here the two phases are two
+// launches on one stream, and h (M, H) goes through device memory in x's
+// dtype (bf16 on the serving path: 22 KB a row at 7B, rounded where
+// ffn.py:170 rounds; 0.25 % of the bytes at M = 8).
 //
-// Bound on the H100: bytes. At 7B one call streams w13 (4096 x 22016 int8
-// + f32 scales, 95.6 MB) and w2 (11008 x 4096, 47.9 MB): 143.5 MB, 43 us at
-// 3.35 TB/s; int4 (w13 gs 64, w2 gs 16) streams 45.1 + 5.6 MB of w13 and
-// 22.5 + 11.3 MB of w2, 84.5 MB, 25 us. The h round trip (M x 11008 x 2
-// bytes, twice) adds 0.2 % at M = 8. Design against the bound: 16-byte loads of both halves (8 columns
-// of W1 and the matching 8 of W3 per lane), the K range split over CTAs
-// to fill the 132 SMs, deterministic split reduction, scales applied to
-// each weight before the fp32 FMA. Packed int4 (the block-local split
-// layout of qmv.cuh) is unpacked in registers: one byte row gives a lane
-// the low-nibble weights of one logical row and the high-nibble weights of
-// the row gs further down, each with its own scale row; the K split runs
-// in whole packing blocks.
+// Bound on the H100: bytes, at every M it serves. At 7B one call streams
+// w13 (4096 x 22016 int8 + f32 scales, 95.6 MB) and w2 (11008 x 4096, 47.9
+// MB): 143.5 MB, 43 us at 3.35 TB/s; int4 (w13 gs 64, w2 gs 16) 84.5 MB, 25
+// us. At M = 32 the 8.7 GFLOP take 9 us of the tensor cores' 989 TFLOP/s.
+//
+// Two bodies, fixed by the activation dtype before the launch:
+//
+// ffn_mma (bf16, every M <= 32): the tensor cores, in the swap-AB
+// orientation -- the weight's columns are the 16-row side of mma.sync
+// m16n8k16 and the M <= 32 tokens its n8 side (NT = 1, 2 or 4 n8 tiles), so
+// one CTA holds every row of x and each weight byte is read once a call;
+// the accumulators are 2 x NT x 4 floats a thread. A CTA owns 256 weight
+// columns (8 warps, two m16 tiles each) over a K split, in slabs of 64
+// logical rows that qslab.cuh copies into a cp.async ring (kFfnAhead = 3
+// slabs in flight: x's rows, the raw weight bytes, the scale rows).
+// ldmatrix.trans reads the raw bytes straight into A-fragment order (two
+// weight columns' k pairs a register) and each thread turns them into
+// exact bf16(float(q) * s) in registers -- no dequantized tile goes
+// through shared memory, no second barrier; x's rows are the B fragments.
+// Phase A (w13): the 256 columns are the W1 and W3 columns of the same 128
+// hidden units (ColsW13), so the silu(a) * c epilogue has both in one CTA
+// and each weight row is read in runs of 128 bytes; phase B (w2 over h):
+// 256 consecutive output columns. K is split across CTAs (gridDim.y) in
+// whole slabs and whole K blocks, about one wave of two CTAs an SM; each
+// split's fp32 partial goes to a
+// workspace and the last CTA of a column tile (an integer ticket) adds
+// them in split order, so reruns are bit for bit. The masked path (VEC
+// false: a width or group size off the 16-byte grid) loads with plain
+// masked reads into the same tiles.
+//
+// simt (fp32 activations; no serving path runs them): ffn_w13_kernel
+// below, a split-K GEMV on the CUDA cores whose last CTA per hidden tile
+// applies silu(a) * c, then the w2 GEMV of qmv.cuh over h; M in chunks of
+// up to 8 rows (grid z).
 //
 // w13 column layouts (QuantizedTensor.il): il == 0 is [W1 | W3]; il > 0 is
 // alternating il-wide tiles [W1_0 W3_0 W1_1 W3_1 ...]
 // (rama_tpu/models/llama.py:_interleave_w13). Hidden unit j reads W1 column
-// c1(j) and W3 column c1(j) + (il ? il : H).
-#include "qmv.cuh"
+// w1_col(j) and W3 column w1_col(j) + (il ? il : H).
+#include <type_traits>
+
+#include "qslab.cuh"
 
 namespace rama {
 
@@ -324,10 +346,392 @@ cudaError_t launch_w13_bits(int bits, const void* x, const void* q, const void* 
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+
+constexpr int kFfnMmaThreads = 256;             // 8 warps, two m16 tiles of columns each
+constexpr int kFfnBN = 256;                     // weight columns a CTA
+constexpr int kFfnMmaUnits = kFfnBN / 2;        // hidden units a phase-A CTA
+constexpr int kFfnAhead = 3;                    // slabs in flight while one is multiplied
+constexpr int kFfnCtas = 2;                     // CTAs an SM (registers capped to fit)
+constexpr int kFfnLdq = kFfnBN + 16;            // raw tile row stride (bytes): ldmatrix rows
+                                                // land on distinct banks
+constexpr int kFfnLdc = kFfnBN + 4;             // epilogue tile row stride (floats)
+
+// Phase A's column map: slab column lc is unit u0 + lc % 128's W1 column
+// (lc < 128) or its W3 column. A tile inside one il-wide tile (il a
+// multiple of 128, or il 0) is two runs of 128 adjacent columns.
+struct ColsW13 {
+  int u0, H, il, c1, c3;
+  bool runs;
+  __device__ ColsW13(int u0_, int H_, int il_)
+      : u0(u0_), H(H_), il(il_), c1(w1_col(u0_, H_, il_)), c3(il_ ? il_ : H_),
+        runs(il_ % kFfnMmaUnits == 0) {}
+  __device__ __forceinline__ int operator()(int lc) const {
+    const int u = lc & (kFfnMmaUnits - 1);
+    if (u0 + u >= H) return -1;
+    const int c = runs ? c1 + u : w1_col(u0 + u, H, il);
+    return c + (lc < kFfnMmaUnits ? 0 : c3);
+  }
+};
+
+// Rows of the x tile: NT n8 tiles, read by ldmatrix in pairs.
+template <int NT> __host__ __device__ constexpr int ffn_x_rows() { return NT < 2 ? 16 : NT * 8; }
+
+// One stage of the ring: the slab's x tile, raw weight bytes and scale rows.
+template <int NT, int BITS> __host__ __device__ constexpr int ffn_stage_bytes() {
+  return ffn_x_rows<NT>() * kMmaLdx * 2 + mma_q_rows<BITS>() * kFfnLdq +
+         kMmaScaleRows * kFfnBN * 4;
+}
+
+template <int NT, int BITS> constexpr size_t ffn_mma_smem_bytes() {
+  constexpr size_t ring = (size_t)(kFfnAhead + 1) * ffn_stage_bytes<NT, BITS>();
+  constexpr size_t epi = (size_t)ffn_x_rows<NT>() * kFfnLdc * 4;
+  return ring > epi ? ring : epi;
+}
+
+// Two bf16 of one A fragment register: (k, k + 1) of one weight column.
+__device__ __forceinline__ uint32_t pack_ab(float a, float sa, float b, float sb) {
+  return pack_bf16(a * sa, b * sb);
+}
+
+// grid (tiles, ks), 256 threads, ffn_mma_smem_bytes<NT, BITS>() of dynamic
+// shared memory. x (M, K) bf16, M <= 8 NT; q / s rows of `ncols` columns
+// (phase A: w13, 2H; phase B: w2, N); out (M, nout) bf16 (phase A: h, nout
+// = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1) sps) of
+// the ceil(K / 64); `part` an fp32 (ks, M, tiles * 256) workspace when ks
+// > 1, `tickets` one zeroed counter per column tile.
+//
+// Fragments: warp w owns slab columns 32 w .. 32 w + 31 as two m16 tiles;
+// in tile i (columns 32 w + 16 i ..) MMA row g is column 32 w + 16 i + 2 g
+// and row g + 8 the column after it. ldmatrix.trans of
+// the raw [k][n] bytes (8 rows of 16 bytes a matrix, read as b16) gives
+// lane (g, c) the bytes (k 2c, n 2g), (2c, 2g + 1), (2c + 1, 2g), (2c + 1,
+// 2g + 1) of a matrix in one register: bytes 0 and 2 are row g's k pair,
+// bytes 1 and 3 row g + 8's. They become bf16(float(q) * s) in registers
+// (int4: each byte's low nibble feeds a k16 step of the slab's first half,
+// its high nibble the matching step of the second), with no dequantized
+// tile in shared memory. x's rows are the B fragments (ldmatrix, [m][k]).
+template <int NT, int BITS, bool VEC, bool PHASE_A>
+__global__ void __launch_bounds__(kFfnMmaThreads, kFfnCtas)
+ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+        const float* __restrict__ s, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+        unsigned* __restrict__ tickets, int M, int K, int ncols, int nout, int gs, int il,
+        int slabs_per_split) {
+  constexpr int T = kFfnMmaThreads, P = kFfnAhead, RS = P + 1;
+  constexpr int XR = ffn_x_rows<NT>();
+  constexpr int QR = mma_q_rows<BITS>();
+  constexpr int STAGE = ffn_stage_bytes<NT, BITS>();
+  extern __shared__ __align__(16) unsigned char ffn_smem[];
+  __shared__ bool is_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int tile = blockIdx.x, split = blockIdx.y, ks = gridDim.y;
+  const int nslabs = (K + kMmaBK - 1) / kMmaBK;
+  const int s_begin = split * slabs_per_split;
+  const int nt = min(nslabs, s_begin + slabs_per_split) - s_begin;
+  const int qrows = BITS == 8 ? K : K / 2;
+  using Cols = std::conditional_t<PHASE_A, ColsW13, ColsRange>;
+  const Cols cols = [&] {
+    if constexpr (PHASE_A) return ColsW13(tile * kFfnMmaUnits, nout, il);
+    else return ColsRange{tile * kFfnBN, nout};
+  }();
+  // this thread's weight columns: lc0 + 16 i and the one after it, i = 0, 1
+  const int lc0 = warp * 32 + 2 * g;
+  int nc[2][2];   // their global columns (the masked path's scale reads)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) nc[i][e] = VEC ? 0 : cols(lc0 + 16 * i + e);
+
+  auto x_tile = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(ffn_smem + st * STAGE);
+  };
+  auto q_tile = [&](int st) { return reinterpret_cast<int8_t*>(ffn_smem + st * STAGE) +
+                                     XR * kMmaLdx * 2; };
+  auto s_tile = [&](int st) {
+    return reinterpret_cast<float*>(q_tile(st) + QR * kFfnLdq);
+  };
+  auto load = [&](int t) {
+    const int st = t % RS;
+    slab_load<BITS, VEC, XR, T, kFfnBN, kFfnLdq>(s_begin + t, x, 0, M, K, q, s, ncols, gs,
+                                                 cols, x_tile(st), q_tile(st), s_tile(st),
+                                                 tid);
+    if constexpr (!VEC) slab_raw_masked<BITS, kFfnBN, kFfnLdq, T>(s_begin + t, q, ncols, K,
+                                                                 cols, q_tile(st), tid);
+  };
+
+  // The scales of this thread's two columns of tile i for slab rows kk
+  // (its k pair kk, kk + 1): (s0 at kk, s0 at kk + 1, s1 at kk, s1 at
+  // kk + 1). The cp.async path reads the staged rows (one row serves a
+  // whole k16 step: gs a multiple of 16); the masked path reads s in global
+  // memory, zero past K.
+  const int gshift = gs < QR ? __ffs(gs) - 1 : 31;
+  auto scales = [&](int sl, const float* ss, int i, int kk, float* sc) {
+    const int n0 = nc[i][0], n1 = nc[i][1];
+    if constexpr (VEC) {
+      int row;   // gs is 16 or 32 (a shift) or spans the slab (row 0)
+      if constexpr (BITS == 8) row = kk >> gshift;
+      else row = 2 * ((kk & 31) >> gshift) + (kk >> 5);
+      const float2 v = *reinterpret_cast<const float2*>(ss + row * kFfnBN + lc0 + 16 * i);
+      sc[0] = sc[1] = v.x;
+      sc[2] = sc[3] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        int srow;
+        bool ok;
+        if constexpr (BITS == 8) {
+          const int k = sl * kMmaBK + kk + i;
+          ok = k < K;
+          srow = k / gs;
+        } else {
+          const int r = sl * QR + ((kk + i) & 31);
+          ok = r < qrows;
+          srow = 2 * (r / gs) + (kk >> 5);
+        }
+        sc[i] = ok && n0 >= 0 ? s[(size_t)srow * ncols + n0] : 0.f;
+        sc[2 + i] = ok && n1 >= 0 ? s[(size_t)srow * ncols + n1] : 0.f;
+      }
+    }
+  };
+  // A fragment halves from one ldmatrix register's four weights f (bytes
+  // 0..3 as above) at slab rows kk, kk + 1: row g's pair, row g + 8's pair.
+  auto frag = [&](const float* f, const float* sc, uint32_t& ra, uint32_t& rb) {
+    ra = pack_ab(f[0], sc[0], f[2], sc[1]);
+    rb = pack_ab(f[1], sc[2], f[3], sc[3]);
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  // k16 step j of slab t: A of both m16 tiles from the converted registers,
+  // B from x (each B fragment feeds both tiles)
+  auto mma_step = [&](const __nv_bfloat16* xs, int j, const uint32_t (&af)[2][4]) {
+#pragma unroll
+    for (int p = 0; p < (NT + 1) / 2; ++p) {
+      uint32_t bf[4];
+      ldsm_x4(bf, xs + (p * 16 + lane % 8 + (lane / 16) * 8) * kMmaLdx + j * 16 +
+                      ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
+        if (2 * p + 1 < NT) mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+      }
+    }
+  };
+
+  // The ring: P slabs in flight while slab t is multiplied; one barrier a
+  // slab (it also frees the stage slab t + P overwrites, slab t - 1's).
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nt) load(i);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<P - 1>();   // slab t (this thread's copies) has landed
+    __syncthreads();          // everyone's; every warp is done with slab t - 1
+    if (t + P < nt) load(t + P);
+    cp_async_commit();
+    const int sl = s_begin + t, st = t % RS;
+    const __nv_bfloat16* xs = x_tile(st);
+    const int8_t* qs = q_tile(st);
+    const float* ss = s_tile(st);
+    if constexpr (BITS == 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // slab rows 32 h .. 32 h + 31: k16 steps 2 h, 2 h + 1
+        if (sl * kMmaBK + 32 * h >= K) break;
+        uint32_t r[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldsm_x4_trans(r[i], qs + (32 * h + lane) * kFfnLdq + warp * 32 + 16 * i);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * h + jj;
+          if (sl * kMmaBK + 16 * j >= K) break;
+          uint32_t af[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float f[4], sc[4];
+            scales(sl, ss, i, 16 * j + 2 * c, sc);
+            i8x4_to_f32(r[i][2 * jj], f);
+            frag(f, sc, af[i][0], af[i][1]);
+            if constexpr (!VEC) scales(sl, ss, i, 16 * j + 8 + 2 * c, sc);
+            i8x4_to_f32(r[i][2 * jj + 1], f);
+            frag(f, sc, af[i][2], af[i][3]);
+          }
+          mma_step(xs, j, af);
+        }
+      }
+    } else {
+      // byte rows 0..31: matrices of rows 0-7, 8-15 (k16 step 0 low
+      // nibbles, step 2 high), 16-23, 24-31 (steps 1 and 3)
+      uint32_t r[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_trans(r[i], qs + lane * kFfnLdq + warp * 32 + 16 * i);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        if (sl * QR + 16 * jj >= qrows) break;
+        float lo[2][2][4], hi[2][2][4];   // [tile][matrix half][byte]
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          i4x8_to_f32(r[i][2 * jj], lo[i][0], hi[i][0]);
+          i4x8_to_f32(r[i][2 * jj + 1], lo[i][1], hi[i][1]);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {   // low nibbles: step jj; high: step jj + 2
+          const int j = jj + 2 * half;
+          uint32_t af[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float sc[4];
+            scales(sl, ss, i, 16 * j + 2 * c, sc);
+            frag(half ? hi[i][0] : lo[i][0], sc, af[i][0], af[i][1]);
+            if constexpr (!VEC) scales(sl, ss, i, 16 * j + 8 + 2 * c, sc);
+            frag(half ? hi[i][1] : lo[i][1], sc, af[i][2], af[i][3]);
+          }
+          mma_step(xs, j, af);
+        }
+      }
+    }
+  }
+
+  // The CTA's (M, 256) product, fp32, into shared memory: C[m][lc]. The
+  // accumulator of tile i, n8 tile j holds columns lc0 + 16 i (row g) and
+  // the one after it (row g + 8) at tokens 8 j + 2 c and 8 j + 2 c + 1.
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring
+  float* C = reinterpret_cast<float*>(ffn_smem);   // [XR][kFfnLdc]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int m = 8 * j + 2 * c, lc = lc0 + 16 * i;
+      C[m * kFfnLdc + lc] = acc[i][j][0];
+      C[(m + 1) * kFfnLdc + lc] = acc[i][j][1];
+      C[m * kFfnLdc + lc + 1] = acc[i][j][2];
+      C[(m + 1) * kFfnLdc + lc + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+
+  if (ks > 1) {
+    // this split's partial, then the last CTA of the column tile adds the
+    // ks partials in split order back into C, four columns a thread at a
+    // time with four splits' loads in flight
+    const size_t width = (size_t)gridDim.x * kFfnBN, sstride = (size_t)M * width;
+    float* mine = part + (size_t)tile * kFfnBN;
+    for (int i = 4 * tid; i < M * kFfnBN; i += 4 * T) {
+      const int m = i / kFfnBN, lc = i % kFfnBN;
+      *reinterpret_cast<float4*>(mine + split * sstride + m * width + lc) =
+          *reinterpret_cast<const float4*>(C + m * kFfnLdc + lc);
+    }
+    __threadfence();
+    __syncthreads();
+    unsigned* ticket = tickets + tile;
+    if (tid == 0) is_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(ks - 1);
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    for (int i = 4 * tid; i < M * kFfnBN; i += 4 * T) {
+      const int m = i / kFfnBN, lc = i % kFfnBN;
+      const float* src = mine + m * width + lc;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      int sp = 0;
+      for (; sp + 4 <= ks; sp += 4) {
+        float4 p[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          p[u] = __ldcg(reinterpret_cast<const float4*>(src + (sp + u) * sstride));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v.x += p[u].x; v.y += p[u].y; v.z += p[u].z; v.w += p[u].w;
+        }
+      }
+      for (; sp < ks; ++sp) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(src + sp * sstride));
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      *reinterpret_cast<float4*>(C + m * kFfnLdc + lc) = v;
+    }
+    __syncthreads();
+    if (tid == 0) *ticket = 0u;   // ready for the next launch
+  }
+
+  if constexpr (PHASE_A) {
+    // h = silu(a) * c in fp32, rounded to bf16 (ffn.py:170)
+    for (int i = tid; i < M * kFfnMmaUnits; i += T) {
+      const int m = i / kFfnMmaUnits, u = i % kFfnMmaUnits;
+      const int j = tile * kFfnMmaUnits + u;
+      if (j >= nout) continue;
+      const float a = C[m * kFfnLdc + u], b = C[m * kFfnLdc + kFfnMmaUnits + u];
+      out[(size_t)m * nout + j] = __float2bfloat16_rn(a * (1.f / (1.f + expf(-a))) * b);
+    }
+  } else {
+    for (int i = tid; i < M * kFfnBN; i += T) {
+      const int m = i / kFfnBN, lc = i % kFfnBN;
+      const int n = tile * kFfnBN + lc;
+      if (n < nout) out[(size_t)m * nout + n] = __float2bfloat16_rn(C[m * kFfnLdc + lc]);
+    }
+  }
+}
+
+template <int NT, int BITS, bool VEC, bool PHASE_A>
+cudaError_t launch_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
+                           void* tickets, int M, int K, int ncols, int nout, int gs, int il,
+                           int tiles, int ks, int sps, cudaStream_t stream) {
+  constexpr size_t smem = ffn_mma_smem_bytes<NT, BITS>();
+  auto kern = ffn_mma<NT, BITS, VEC, PHASE_A>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(tiles, ks), kFfnMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<unsigned*>(tickets), M, K, ncols, nout, gs, il, sps);
+  return cudaGetLastError();
+}
+
+template <int BITS, bool VEC, bool PHASE_A>
+cudaError_t launch_ffn_mma_nt(const void* x, const void* q, const void* s, void* out, void* part,
+                              void* tickets, int M, int K, int ncols, int nout, int gs, int il,
+                              int tiles, int ks, int sps, cudaStream_t st) {
+  if (M <= 8)
+    return launch_ffn_mma<1, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
+                                                 gs, il, tiles, ks, sps, st);
+  if (M <= 16)
+    return launch_ffn_mma<2, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
+                                                 gs, il, tiles, ks, sps, st);
+  if (M <= 32)
+    return launch_ffn_mma<4, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
+                                                 gs, il, tiles, ks, sps, st);
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS>
+cudaError_t launch_ffn_mma_bits(bool vec, bool phase_a, const void* x, const void* q,
+                                const void* s, void* out, void* part, void* tickets, int M, int K,
+                                int ncols, int nout, int gs, int il, int tiles, int ks, int sps,
+                                cudaStream_t st) {
+  if (phase_a)
+    return vec ? launch_ffn_mma_nt<BITS, true, true>(x, q, s, out, part, tickets, M, K, ncols,
+                                                     nout, gs, il, tiles, ks, sps, st)
+               : launch_ffn_mma_nt<BITS, false, true>(x, q, s, out, part, tickets, M, K, ncols,
+                                                      nout, gs, il, tiles, ks, sps, st);
+  return vec ? launch_ffn_mma_nt<BITS, true, false>(x, q, s, out, part, tickets, M, K, ncols,
+                                                    nout, gs, il, tiles, ks, sps, st)
+             : launch_ffn_mma_nt<BITS, false, false>(x, q, s, out, part, tickets, M, K, ncols,
+                                                     nout, gs, il, tiles, ks, sps, st);
+}
+
 }  // namespace rama
 
-// Phase 1: h = silu(x @ W1) * (x @ W3). Phase 2 (rama_ffn_w2) is the
-// qmv GEMV over h. The wrapper launches both on one stream. `bits` 8 or 4
+// The simt body. Phase 1: h = silu(x @ W1) * (x @ W3). Phase 2 (rama_ffn_w2)
+// is the qmv GEMV over h. The wrapper launches both on one stream. `bits` 8 or 4
 // per weight; `bps` K blocks per split (scale groups for int8, packing
 // blocks for int4).
 extern "C" int rama_ffn_w13(const void* x, const void* q13, const void* s13, void* h,
@@ -349,4 +753,29 @@ extern "C" int rama_ffn_w2(const void* h, const void* q2, const void* s2, void* 
   return static_cast<int>(rama::launch_qmv_dtype(bits, dtype, h, q2, s2, y, part, tickets, M,
                                                  H, N, gs, ks, bps,
                                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 tensor-core body, one phase a call: phase_a 1 is x (M, K) @ w13
+// (ncols = 2H columns, plain or il-interleaved) -> h (M, nout = H) =
+// silu(a) * c; phase_a 0 is h (M, K = H) @ w2 -> y (M, nout = N). `tiles`
+// column tiles (128 hidden units or 256 output columns), `ks` K splits of
+// `sps` 64-row slabs, `part` an fp32 (ks, M, tiles * 256) workspace when ks
+// > 1, `tickets` one zeroed counter per tile. `vec` (the cp.async path):
+// the weight's rows, x's rows and every pointer 16-byte aligned, the
+// column map whole on 16-column runs, gs a multiple of 16 dividing, or a
+// multiple of, a slab's 64 weight rows (int4: 32 byte rows). M <= 32.
+extern "C" int rama_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
+                            void* tickets, int M, int K, int ncols, int nout, int gs, int il,
+                            int bits, int phase_a, int tiles, int ks, int sps, int vec,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return static_cast<int>(rama::launch_ffn_mma_bits<8>(vec != 0, phase_a != 0, x, q, s, out,
+                                                         part, tickets, M, K, ncols, nout, gs,
+                                                         il, tiles, ks, sps, st));
+  if (bits == 4)
+    return static_cast<int>(rama::launch_ffn_mma_bits<4>(vec != 0, phase_a != 0, x, q, s, out,
+                                                         part, tickets, M, K, ncols, nout, gs,
+                                                         il, tiles, ks, sps, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,7 +34,8 @@
 //
 // qmm_mma<BM, BITS, VEC> (BM = 32, 64 or 128 output rows, 128 columns a
 // CTA; 8 warps as 2 x 4, each owning (BM / 2) x 32 of the tile as m16n8
-// fragments):
+// fragments; the slab copies and the dequantization are qslab.cuh's,
+// shared with the FFN's tensor-core body in ffn.cu):
 //  - K walks in slabs of 64 logical rows (int8: 64 byte rows; int4: 32
 //    packed byte rows, whose low nibbles are the slab's rows 0..31 and high
 //    nibbles rows 32..63, with x's matching columns gathered in the same
@@ -60,8 +61,7 @@
 //
 // Bound: at M = 32 the weight bytes (wqkv int8: 53.7 MB, 16 us); from a few
 // hundred rows the bf16 tensor-core operations (2 M K N at 989 TFLOP/s).
-#include "mma.cuh"
-#include "qmv.cuh"
+#include "qslab.cuh"
 
 namespace rama {
 
@@ -196,13 +196,7 @@ cudaError_t launch_qmm(const void* x, const void* q, const void* s, void* y, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body
-
-constexpr int kMmaBN = 128;          // output columns a CTA
-constexpr int kMmaBK = 64;           // logical K rows a slab
-constexpr int kMmaLdx = kMmaBK + 8;  // x tile row stride (bf16)
-constexpr int kMmaLdw = kMmaBN + 8;  // dequantized tile row stride (bf16)
-constexpr int kMmaScaleRows = 4;     // scale rows a slab touches at most (cp.async path)
+// bf16 tensor-core body (slabs: qslab.cuh)
 
 // Per tile height: warp rows (4 warp columns of 32 output columns each;
 // kWarpRows * 128 threads), kAhead, the slabs whose copies are in flight
@@ -218,47 +212,11 @@ template <> struct MmaCfg<64> { static constexpr int kWarpRows = 2, kAhead = 2, 
 template <> struct MmaCfg<128> { static constexpr int kWarpRows = 2, kAhead = 1, kCtas = 2; };
 template <> struct MmaCfg<256> { static constexpr int kWarpRows = 4, kAhead = 2, kCtas = 1; };
 
-// Raw weight bytes of one slab: 64 int8 rows or 32 packed int4 byte rows.
-template <int BITS> __host__ __device__ constexpr int mma_q_rows() {
-  return BITS == 8 ? kMmaBK : kMmaBK / 2;
-}
-
 template <int BM, int BITS> constexpr size_t mma_smem_bytes() {
   constexpr int P = MmaCfg<BM>::kAhead;
   return (size_t)(P + 2) * BM * kMmaLdx * 2 +
-         (size_t)(P + 1) * (mma_q_rows<BITS>() * kMmaBN + kMmaScaleRows * kMmaBN * 4) +
+         (size_t)(P + 1) * slab_raw_bytes<BITS>() +
          (size_t)2 * kMmaBK * kMmaLdw * 2;
-}
-
-// Integer bytes to exact floats without the quarter-rate I2F: a biased
-// byte u = b + 128 spliced under the exponent of 2^23 by one PRMT is the
-// float 2^23 + u; one FADD takes the bias away.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388736.f;
-}
-// The same for the 4 low and 4 high nibbles of a word (byte c: lo[c] in
-// bits 8c..8c+3, hi[c] in 8c+4..8c+7), biased by 8.
-__device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* lo, float* hi) {
-  const uint32_t ul = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
-  const uint32_t uh = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    lo[j] = __uint_as_float(__byte_perm(ul, 0x4B000000u, 0x7650 + j)) - 8388616.f;
-    hi[j] = __uint_as_float(__byte_perm(uh, 0x4B000000u, 0x7650 + j)) - 8388616.f;
-  }
-}
-
-// 8 dequantized weights as 8 bf16 (16 bytes) at dst.
-__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* dst, const float* w) {
-  uint4 v;
-  v.x = pack_bf16(w[0], w[1]);
-  v.y = pack_bf16(w[2], w[3]);
-  v.z = pack_bf16(w[4], w[5]);
-  v.w = pack_bf16(w[6], w[7]);
-  *reinterpret_cast<uint4*>(dst) = v;
 }
 
 // grid (ceil(M / BM), ceil(N / 128), ks), MmaCfg<BM>::kWarpRows * 128
@@ -279,7 +237,6 @@ qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   constexpr int QR = mma_q_rows<BITS>();     // weight rows (bytes) a slab
   constexpr int QB = QR * kMmaBN;
   constexpr int SB = kMmaScaleRows * kMmaBN;
-  constexpr int DQ = (QR * kMmaBN / 8 + T - 1) / T;   // 8-byte chunks a thread dequantizes
   extern __shared__ __align__(16) unsigned char qmm_smem[];
   __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(qmm_smem);   // [XS][BM][LDX]
   __nv_bfloat16* Ws = Xs + XS * BM * kMmaLdx;                         // [2][BK][LDW]
@@ -293,164 +250,19 @@ qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const int nslabs = (K + kMmaBK - 1) / kMmaBK;
   const int s_begin = split * slabs_per_split;
   const int nt = min(nslabs, s_begin + slabs_per_split) - s_begin;
-  const int qrows = BITS == 8 ? K : K / 2;   // weight rows (int4: byte rows)
-  // scale rows a slab spans (the cp.async path), and each dequant chunk's
-  // scale row within them: fixed, as gs divides 64 (32) or 64 (32) divides gs
-  const int span = BITS == 8 ? kMmaBK : kMmaBK / 2;
-  const int srows = gs < span ? span / gs : 1;
-  int sloc[DQ];
-#pragma unroll
-  for (int i = 0; i < DQ; ++i) {
-    const int row = (tid + i * T) / (kMmaBN / 8);
-    sloc[i] = gs < span ? row / gs : 0;
-    if constexpr (BITS == 4) sloc[i] *= 2;
-  }
+  const ColsRange cols{n_base, N};
 
   // slab t of the split: its x tile into x stage t % XS, its raw weight
   // bytes and scale rows into raw stage t % RS (the masked path reads the
-  // weight in dequant)
+  // weight in dequant); then into Ws[t % 2] as bf16
   auto load = [&](int t) {
-    const int sl = s_begin + t;
-    __nv_bfloat16* xd = Xs + (t % XS) * BM * kMmaLdx;
-    if constexpr (VEC) {
-      const int r0 = sl * QR;   // int4: first byte row
-      // x column of slab column kk: int8 k0 + kk; int4 base + off(kk)
-      int base = sl * kMmaBK;
-      if constexpr (BITS == 4) base = gs <= 32 ? 2 * r0 : r0 + (r0 / gs) * gs;
-#pragma unroll
-      for (int c = tid; c < BM * (kMmaBK / 8); c += T) {
-        const int row = c / (kMmaBK / 8), kk = (c % (kMmaBK / 8)) * 8;
-        const int m = m_base + row;
-        int col;
-        bool ok;
-        if constexpr (BITS == 8) {
-          col = base + kk;
-          ok = m < M && col < K;
-        } else {
-          const int i = kk & 31, half = kk >> 5;
-          col = base + i + (gs <= 32 ? (i / gs + half) * gs : half * gs);
-          ok = m < M && r0 + i < qrows;
-        }
-        cp_async16_zfill(xd + row * kMmaLdx + kk, ok ? x + (size_t)m * K + col : x, ok);
-      }
-      int8_t* qd = Qs + (t % RS) * QB;
-#pragma unroll
-      for (int c = tid; c < QR * (kMmaBN / 16); c += T) {
-        const int row = c / (kMmaBN / 16), col = (c % (kMmaBN / 16)) * 16;
-        const int gr = r0 + row, n = n_base + col;
-        const bool ok = gr < qrows && n < N;
-        cp_async16_zfill(qd + row * kMmaBN + col, ok ? q + (size_t)gr * N + n : q, ok);
-      }
-      // scale rows sg0 .. sg0 + nr - 1 (int4: the two rows of each block)
-      const int b0 = (BITS == 8 ? sl * kMmaBK : r0) / gs;
-      const int sg0 = BITS == 8 ? b0 : 2 * b0;
-      const int nr = (BITS == 8 ? 1 : 2) * min(srows, qrows / gs - b0);
-      float* sd = Ss + (t % RS) * SB;
-      for (int c = tid; c < nr * (kMmaBN / 4); c += T) {
-        const int row = c / (kMmaBN / 4), col = (c % (kMmaBN / 4)) * 4;
-        const int n = n_base + col;
-        const bool ok = n < N;
-        cp_async16_zfill(sd + row * kMmaBN + col, ok ? s + (size_t)(sg0 + row) * N + n : s, ok);
-      }
-    } else {
-      for (int i = tid; i < BM * kMmaBK; i += T) {
-        const int row = i / kMmaBK, kk = i % kMmaBK;
-        const int m = m_base + row;
-        int col;
-        bool ok;
-        if constexpr (BITS == 8) {
-          col = sl * kMmaBK + kk;
-          ok = m < M && col < K;
-        } else {
-          const int r = sl * QR + (kk & 31);   // byte row; block r / gs
-          col = r + (r / gs + (kk >> 5)) * gs;
-          ok = m < M && r < qrows;
-        }
-        xd[row * kMmaLdx + kk] = ok ? x[(size_t)m * K + col] : __float2bfloat16_rn(0.f);
-      }
-    }
+    slab_load<BITS, VEC, BM, T>(s_begin + t, x, m_base, M, K, q, s, N, gs, cols,
+                                Xs + (t % XS) * BM * kMmaLdx, Qs + (t % RS) * QB,
+                                Ss + (t % RS) * SB, tid);
   };
-
-  // slab t (raw stage t % RS, or global memory on the masked path) ->
-  // Ws[t % 2] as bf16(float(q) * s); zeros past K and N. A thread keeps
-  // one 8-column group for all its chunks, so where one scale row serves
-  // the whole slab (gs >= span) it reads the scales once.
-  const bool one_srow = gs >= span;
   auto dequant = [&](int t) {
-    const int sl = s_begin + t;
-    const int8_t* qs = Qs + (t % RS) * QB;
-    const float* ss = Ss + (t % RS) * SB;
-    __nv_bfloat16* wd = Ws + (t % 2) * kMmaBK * kMmaLdw;
-    float sc[BITS == 8 ? 8 : 16];   // int4: the low nibbles' scales, then the high
-#pragma unroll
-    for (int i = 0; i < DQ; ++i) {
-      const int c = tid + i * T;
-      if (DQ * T > QR * (kMmaBN / 8) && c >= QR * (kMmaBN / 8)) break;
-      const int row = c / (kMmaBN / 8), col = (c % (kMmaBN / 8)) * 8;
-      const int gr = sl * QR + row;   // weight row (int4: byte row)
-      if constexpr (VEC) {
-        if (i == 0 || !one_srow) {
-          const float4* sr = reinterpret_cast<const float4*>(ss + sloc[i] * kMmaBN + col);
-#pragma unroll
-          for (int h = 0; h < (BITS == 8 ? 1 : 2); ++h) {
-            const float4 s0 = sr[h * kMmaBN / 4], s1 = sr[h * kMmaBN / 4 + 1];
-            sc[8 * h + 0] = s0.x; sc[8 * h + 1] = s0.y; sc[8 * h + 2] = s0.z;
-            sc[8 * h + 3] = s0.w; sc[8 * h + 4] = s1.x; sc[8 * h + 5] = s1.y;
-            sc[8 * h + 6] = s1.z; sc[8 * h + 7] = s1.w;
-          }
-        }
-      }
-      if constexpr (BITS == 8) {
-        float w[8];
-        if (gr >= qrows) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) w[j] = 0.f;
-        } else if constexpr (VEC) {
-          const uint2 v = *reinterpret_cast<const uint2*>(qs + row * kMmaBN + col);
-          i8x4_to_f32(v.x, w);
-          i8x4_to_f32(v.y, w + 4);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) w[j] *= sc[j];
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = n_base + col + j;
-            w[j] = n < N ? static_cast<float>(q[(size_t)gr * N + n]) * s[(size_t)(gr / gs) * N + n]
-                         : 0.f;
-          }
-        }
-        store_bf16x8(wd + row * kMmaLdw + col, w);
-      } else {
-        float lo[8], hi[8];
-        if (gr >= qrows) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
-        } else if constexpr (VEC) {
-          const uint2 v = *reinterpret_cast<const uint2*>(qs + row * kMmaBN + col);
-          i4x8_to_f32(v.x, lo, hi);
-          i4x8_to_f32(v.y, lo + 4, hi + 4);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            lo[j] *= sc[j];
-            hi[j] *= sc[8 + j];
-          }
-        } else {
-          const int g = 2 * (gr / gs);   // scale row of the low nibble
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = n_base + col + j;
-            lo[j] = hi[j] = 0.f;
-            if (n < N) {
-              unpack_int4x1(q[(size_t)gr * N + n], lo[j], hi[j]);
-              lo[j] *= s[(size_t)g * N + n];
-              hi[j] *= s[(size_t)(g + 1) * N + n];
-            }
-          }
-        }
-        store_bf16x8(wd + row * kMmaLdw + col, lo);
-        store_bf16x8(wd + (row + QR) * kMmaLdw + col, hi);
-      }
-    }
+    slab_dequant<BITS, VEC, T>(s_begin + t, Qs + (t % RS) * QB, Ss + (t % RS) * SB, q, s, N, K,
+                               gs, cols, Ws + (t % 2) * kMmaBK * kMmaLdw, tid);
   };
 
   float acc[MT][4][4];

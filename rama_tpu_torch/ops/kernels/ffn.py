@@ -1,13 +1,19 @@
-"""Kernel 2: the SwiGLU FFN of one layer at decode M, int8 or packed int4
-weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
+"""Kernel 2: the SwiGLU FFN of one layer at decode M (up to a verify round's
+32 rows), int8 or packed int4 weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
 
 The counterpart of `rama_tpu/ops/pallas/ffn.py`'s `ffn_fused_layered`
-(its int8 and int4 branches). Two launches on the card (`csrc/ffn.cu`): a
-w13 GEMV whose last CTA per hidden tile applies silu(a) * c and writes h in
-x's dtype (the Pallas kernel rounds h to bf16 in VMEM, ffn.py:170; on the
-bf16 serving path the rounding is the same), then the w2 GEMV of
-`csrc/qmv.cuh` over h. Each weight's bits choose its kernels'
-instantiation; the int8 and int4 FFNs have their own launch counts.
+(its int8 and int4 branches). Two launches on the card (`csrc/ffn.cu`):
+the w13 product whose epilogue applies silu(a) * c and writes h in x's
+dtype (the Pallas kernel rounds h to bf16 in VMEM, ffn.py:170; on the bf16
+serving path the rounding is the same), then the w2 product over h. The
+body is fixed by the activation dtype before the launch (`body_for`):
+bf16 takes "mma", the tensor-core body whose CTAs hold every row of x, so
+each weight byte is read once a call at any M <= FFN_MAX_M (`mma_plan`:
+column tiles and K splits; `mma_vec`: cp.async or masked loads); fp32
+takes "simt", the CUDA-core GEMVs (8-row chunks of M). A refused launch
+raises; it never gives way to another body. Each weight's bits choose its
+kernels' instantiation; the int8 and int4 FFNs have their own launch
+counts.
 
 Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor runs
 `ffn_plain`.
@@ -15,27 +21,101 @@ Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor runs
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
 from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
-from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, check_weight,
-                                                     layer_of, rows_per_cta,
-                                                     split_k, weight_ptrs)
+from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMS, MMA_BK, check_weight,
+                                                     layer_of, rows_per_cta, split_k,
+                                                     weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 
 # wrapper calls that launched the kernels since the last reset, by the w13
 # weight's bits
 launches = {8: 0, 4: 0}
+launches_by_body = {"mma": 0, "simt": 0}   # the same calls by body
 
-_UNITS = 256      # hidden units per w13 CTA (csrc/ffn.cu)
-FFN_MAX_M = 32    # rows the kernels serve (csrc/ffn.cu: 8-row chunks above 8)
+FFN_MAX_M = 32    # rows the kernels serve (a verify round of 8 slots x 4 tokens)
+_UNITS = 256      # hidden units per simt w13 CTA (csrc/ffn.cu)
+MMA_COLS = 256            # weight columns a tensor-core CTA (csrc/ffn.cu: kFfnBN)
+MMA_UNITS = MMA_COLS // 2  # hidden units a phase-A CTA (their W1 and W3 columns)
+_MMA_CTAS_PER_SM = 2      # ffn_mma's __launch_bounds__ (kFfnCtas)
+_MMA_MIN_SLABS = 4        # K slabs a split runs at least (the cp.async ring fills)
+_MMA_MAX_SPLITS = 16
+_MMA_WAVE_FILL = 0.95     # the share of the last wave's CTA slots a plan fills
 
 _SIGNATURES = {
     "rama_ffn_w13": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "rama_ffn_w2": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P],
 }
+
+
+def body_for(dtype: torch.dtype, m: int) -> str:
+    """The kernel body a CUDA call of m <= FFN_MAX_M rows launches: "mma"
+    (tensor cores) for bf16, "simt" (fp32 on the CUDA cores) for fp32."""
+    require(m <= FFN_MAX_M, f"the FFN kernel serves decode M <= {FFN_MAX_M}, got {m}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(m: int, k: int, nout: int, k_block: int, phase_a: bool,
+             sms: int = _SMS) -> tuple[int, int, int, int]:
+    """(nt, tiles, ks, sps) of one phase of the tensor-core body: nt n8
+    tiles of tokens (1, 2 or 4: every one of the m rows in one CTA, so the
+    weight is read once), `tiles` column tiles (MMA_UNITS hidden units in
+    phase A, MMA_COLS output columns in phase B), and K split across ks CTAs
+    of sps MMA_BK-row slabs each -- whole K blocks (k_block: a scale group,
+    or an int4 packing block), at least _MMA_MIN_SLABS slabs a split where K
+    has them. ks is the smallest count whose grid fills its last wave of
+    CTA slots (sms x _MMA_CTAS_PER_SM) to _MMA_WAVE_FILL, else the best
+    fill up to _MMA_MAX_SPLITS."""
+    require(1 <= m <= FFN_MAX_M, f"the FFN kernel serves 1 <= M <= {FFN_MAX_M}, got {m}")
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+    tiles = -(-nout // (MMA_UNITS if phase_a else MMA_COLS))
+    nslabs = -(-k // MMA_BK)
+    unit = math.lcm(MMA_BK, k_block) // MMA_BK     # slabs a split unit
+    nunits = -(-nslabs // unit)
+    slots = sms * _MMA_CTAS_PER_SM
+    best = None
+    for want in range(1, max(1, min(nunits, nslabs // _MMA_MIN_SLABS, _MMA_MAX_SPLITS)) + 1):
+        sps = -(-nunits // want) * unit
+        ks = -(-nslabs // sps)
+        ctas = tiles * ks
+        fill = ctas / (-(-ctas // slots) * slots)
+        if best is None or fill > best[0]:
+            best = (fill, ks, sps)
+        if fill >= _MMA_WAVE_FILL:
+            break
+    return nt, tiles, best[1], best[2]
+
+
+def mma_vec(qt: QuantizedTensor, ptrs: tuple[int, ...], phase_a: bool) -> bool:
+    """Whether a phase of the tensor-core body takes its cp.async path:
+    16-byte copies of x, weight and scale rows (the weight's width a
+    multiple of 16, and in phase A the hidden width and the interleave tile
+    too, so 16 units' W1 or W3 columns are 16 adjacent ones), a group size
+    that is a multiple of 16 and divides, or is a multiple of, a slab's
+    weight rows (64, or 32 packed int4 byte rows), every pointer 16-byte
+    aligned; the masked path otherwise."""
+    gs, span = qt.group_size, MMA_BK if qt.bits == 8 else MMA_BK // 2
+    n = qt.q.shape[-1]
+    cols_ok = n % 16 == 0 and (not phase_a or ((n // 2) % 16 == 0 and qt.il % 16 == 0))
+    return (cols_ok and gs % 16 == 0 and (span % gs == 0 or gs % span == 0)
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def pair_columns(j: int, hdim: int, il: int) -> tuple[int, int]:
+    """The w13 columns of hidden unit j, (W1, W3): plain halves (j, j + H)
+    or, under il-interleaving, j's column in its W1 tile and the same
+    offset in the W3 tile beside it. The tensor-core body pairs them in
+    one CTA this way (ColsW13, csrc/ffn.cu); split_h13 is its inverse."""
+    c1 = (j // il) * 2 * il + j % il if il else j
+    return c1, c1 + (il or hdim)
 
 
 def split_h13(h13: torch.Tensor, w13) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,7 +153,7 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
     check_weight(w13, x.device)
     check_weight(w2, x.device)
     m, k = x.shape
-    require(m <= FFN_MAX_M, f"the FFN kernel serves decode M <= {FFN_MAX_M}, got {m}")
+    body = body_for(x.dtype, m)
     require(w13.q.dim() == 3 and w2.q.dim() == 3, "stacked (L, K, N) w13 / w2 expected")
     h2 = w13.q.shape[-1]
     hdim, n = w2.k_dim, w2.q.shape[-1]
@@ -85,27 +165,41 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
     q2, s2 = weight_ptrs(w2, layer)
     lib = build.library("ffn", _SIGNATURES)
     stream = build.stream_ptr(x)
-    mt = rows_per_cta(m)
-    mchunks = -(-m // mt)
-
     h = torch.empty((m, hdim), dtype=x.dtype, device=x.device)
-    tiles = -(-hdim // _UNITS)
-    ks, bps = split_k(k // w13.k_block, tiles, w13.k_block, mt)
-    part = (torch.empty((ks, m, h2), dtype=torch.float32, device=x.device)
-            if ks > 1 else h)
-    tk = build.tickets(x.device, max(tiles, -(-n // _QMV_COLS)) * mchunks)
-    err = lib.rama_ffn_w13(x.data_ptr(), q13, s13, h.data_ptr(), part.data_ptr(),
-                           tk.data_ptr(), m, k, hdim, w13.group_size, w13.il, ks, bps,
-                           w13.bits, dtype, stream)
-    build.check(lib, err, f"ffn (w13, int{w13.bits})")
-
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ks2, bps2 = split_k(hdim // w2.k_block, -(-n // _QMV_COLS), w2.k_block, mt)
-    part2 = (torch.empty((ks2, m, n), dtype=torch.float32, device=x.device)
-             if ks2 > 1 else y)
-    err = lib.rama_ffn_w2(h.data_ptr(), q2, s2, y.data_ptr(), part2.data_ptr(),
-                          tk.data_ptr(), m, hdim, n, w2.group_size, ks2, bps2, w2.bits,
-                          dtype, stream)
-    build.check(lib, err, f"ffn (w2, int{w2.bits})")
+    if body == "mma":
+        for phase_a, xin, qt, qp, sp, out in ((True, x, w13, q13, s13, h),
+                                              (False, h, w2, q2, s2, y)):
+            kdim, nout = xin.shape[1], out.shape[1]
+            _, tiles, ks, sps = mma_plan(m, kdim, nout, qt.k_block, phase_a)
+            vec = mma_vec(qt, (xin.data_ptr(), qp, sp), phase_a)
+            part = (torch.empty((ks, m, tiles * MMA_COLS), dtype=torch.float32,
+                                device=x.device) if ks > 1 else out)
+            tk = build.tickets(x.device, tiles)
+            err = lib.rama_ffn_mma(xin.data_ptr(), qp, sp, out.data_ptr(), part.data_ptr(),
+                                   tk.data_ptr(), m, kdim, qt.q.shape[-1], nout,
+                                   qt.group_size, qt.il if phase_a else 0, qt.bits,
+                                   int(phase_a), tiles, ks, sps, int(vec), stream)
+            build.check(lib, err, f"ffn ({'w13' if phase_a else 'w2'}, int{qt.bits}, mma)")
+    else:
+        mt = rows_per_cta(m)
+        mchunks = -(-m // mt)
+        tiles = -(-hdim // _UNITS)
+        ks, bps = split_k(k // w13.k_block, tiles, w13.k_block, mt)
+        part = (torch.empty((ks, m, h2), dtype=torch.float32, device=x.device)
+                if ks > 1 else h)
+        tk = build.tickets(x.device, max(tiles, -(-n // _QMV_COLS)) * mchunks)
+        err = lib.rama_ffn_w13(x.data_ptr(), q13, s13, h.data_ptr(), part.data_ptr(),
+                               tk.data_ptr(), m, k, hdim, w13.group_size, w13.il, ks, bps,
+                               w13.bits, dtype, stream)
+        build.check(lib, err, f"ffn (w13, int{w13.bits}, simt)")
+        ks2, bps2 = split_k(hdim // w2.k_block, -(-n // _QMV_COLS), w2.k_block, mt)
+        part2 = (torch.empty((ks2, m, n), dtype=torch.float32, device=x.device)
+                 if ks2 > 1 else y)
+        err = lib.rama_ffn_w2(h.data_ptr(), q2, s2, y.data_ptr(), part2.data_ptr(),
+                              tk.data_ptr(), m, hdim, n, w2.group_size, ks2, bps2, w2.bits,
+                              dtype, stream)
+        build.check(lib, err, f"ffn (w2, int{w2.bits}, simt)")
     launches[w13.bits] += 1
+    launches_by_body[body] += 1
     return y

@@ -124,10 +124,11 @@ def counters():
     saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
              dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
              da.launches_flat_q8)
-    bodies = dict(pa.launches_by_body), dict(qm.launches_by_body)
+    bodies = dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body)
     yield mods
     pa.launches_by_body.update(bodies[0])
     qm.launches_by_body.update(bodies[1])
+    ffn.launches_by_body.update(bodies[2])
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
@@ -708,6 +709,54 @@ def test_a_path_fails_when_quant_matmul_took_the_simt_body(smoke, path_name):
     smoke.check_launches(path, ok)
     with pytest.raises(SystemExit, match="quant_matmul launches .* took the SIMT body"):
         smoke.check_launches(path, {**ok, "quant_matmul_mma": 63, "quant_matmul_simt": 1})
+
+
+def test_ffn_launch_counts_by_body_are_read_and_reset(smoke, counters):
+    ffn = counters[1]
+    ffn.launches[8], ffn.launches[4] = 5, 3
+    ffn.launches_by_body.update(mma=7, simt=1)
+    got = smoke.read_launches(*counters)
+    assert (got["ffn"], got["ffn_int4"], got["ffn_mma"], got["ffn_simt"]) == (5, 3, 7, 1)
+    smoke.reset_launches(*counters)
+    assert ffn.launches_by_body == {"mma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
+                                       "SPEC_KV8_PATH", "PAGED_PATH", "PAGED_KV8_PATH",
+                                       "SPEC_PAGED_PATH", "SPEC_PAGED_KV8_PATH", "AB1_PATH",
+                                       "AB2_PATH", "PREFILL_T1_PATH", "INT4_PATH",
+                                       "AB2_INT4_PATH"])
+def test_a_path_fails_when_ffn_took_the_simt_body(smoke, path_name):
+    """Every path runs bf16 activations: one ffn launch on the SIMT body
+    (the fp32 GEMVs) fails the path; all on mma pass."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0, "quant_matmul_simt": 0,
+          "quant_matmul_mma": 64, "ffn_mma": 64, "ffn_simt": 0}
+    for k, ref in path.get("equal", {}).items():
+        ok[k] = ok[ref]
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="ffn launches .* took the SIMT body"):
+        smoke.check_launches(path, {**ok, "ffn_mma": 63, "ffn_simt": 1})
+
+
+def test_ffn_bytes_of_7b(smoke):
+    """K3's bytes at 7B: w13 and w2 of one layer with their scales, x in and
+    y out; h (M, H) stays on the chip. int8 gs 64: 143.9 MB at M = 8."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    def w(k, n, gs, bits):
+        rows = k // 2 if bits == 4 else k
+        return QuantizedTensor(q=torch.zeros(1, rows, n, dtype=torch.int8),
+                               scales=torch.ones(1, k // gs, n), group_size=gs, bits=bits)
+
+    got = smoke.ffn_bytes(w(4096, 22016, 64, 8), w(11008, 4096, 64, 8), 8)
+    want = (4096 * 22016 + 64 * 22016 * 4 + 11008 * 4096 + 172 * 4096 * 4
+            + 8 * 4096 * 2 * 2)
+    assert got == want and round(got / 1e6, 1) == 143.9
+    got4 = smoke.ffn_bytes(w(4096, 22016, 64, 4), w(11008, 4096, 16, 4), 32)
+    assert got4 == (4096 * 22016 / 2 + 64 * 22016 * 4 + 11008 * 4096 / 2 + 688 * 4096 * 4
+                    + 32 * 4096 * 2 * 2)
 
 
 @pytest.mark.parametrize("path_name", ["INT8_PATH", "SPEC_PATH", "INT4_PATH"])

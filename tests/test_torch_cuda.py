@@ -162,7 +162,7 @@ def test_quant_matmul_int4_rejects_split_packing_block(dev):
         qm.quant_matmul(torch.randn(1, 48, device=dev), w)
 
 
-@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 32])
 @pytest.mark.parametrize("il", [0, 128])
 def test_ffn(dev, m, il):
     from rama_tpu_torch.ops.kernels import ffn
@@ -173,6 +173,73 @@ def test_ffn(dev, m, il):
     w2 = _qt(dev, 2, 256, 192, 64, seed=2)
     x = torch.randn(m, 256, device=dev, dtype=torch.bfloat16)
     _close(ffn.ffn(x, w13, w2, 1), ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+
+
+# (K, H, N), w13 interleave tile, int8 group sizes (w13, w2; quantize_int8
+# takes them as given), int4 group sizes (w13, w2; exact, _int4_qt)
+_FFN_SHAPES = {"tiny": ((64, 176, 64), 16, (16, 16), (4, 8)),
+               "stories15M": ((288, 768, 288), 256, (32, 64), (48, 16)),
+               "256": ((256, 256, 192), 128, (64, 64), (16, 16))}
+
+
+@pytest.mark.parametrize("m", [1, 9, 32])
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", list(_FFN_SHAPES))
+def test_ffn_tensor_core_body(dev, m, interleaved, bits, shape):
+    """The bf16 tensor-core body at the tiny shapes (H 176: a ragged last
+    tile of units), the stories15M draft's and 256-wide ones, plain and
+    interleaved w13, int8 gs 16 / 32 / 64 and int4 gs 4 / 8 / 16 / 48 (the
+    masked path where the group size is off the 16 grid), M of one, two and
+    four n8 tiles: one launch on mma a call; the same weights with fp32
+    activations one on simt (held to the bf16 bar, as test_ffn_int4: the
+    hidden activation's rounding point differs)."""
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    (k, h, n), tile, gs8, gs4 = _FFN_SHAPES[shape]
+    if bits == 8:
+        w13, w2 = _qt(dev, 2, k, 2 * h, gs8[0], seed=m + k), _qt(dev, 2, h, n, gs8[1], seed=h)
+    else:
+        w13, w2 = (_int4_qt(dev, 2, k, 2 * h, gs4[0], seed=m + k),
+                   _int4_qt(dev, 2, h, n, gs4[1], seed=h))
+    w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=w13.group_size, bits=bits,
+                          il=tile if interleaved else 0)
+    for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        x = torch.randn(m, k, device=dev).to(dtype)
+        before = dict(ffn.launches_by_body)
+        got = ffn.ffn(x, w13, w2, 1)
+        assert {b: ffn.launches_by_body[b] - before[b] for b in before} == {
+            b: int(b == body) for b in before}
+        _close(got, ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ffn_tensor_core_splits(dev, m, bits):
+    """The 7B FFN (K 4096, H 11008, N 4096; int4 w13 gs 64, w2 gs 16, the
+    il 256 layout) through the split-K plan of both phases and their
+    last-CTA reduces: against the plain version, and twice bit for bit
+    (the split order is fixed)."""
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    k, h = 4096, 11008
+    if bits == 8:
+        w13, w2 = _qt(dev, 1, k, 2 * h, 64, seed=m), _qt(dev, 1, h, k, 64, seed=m + 1)
+    else:
+        w13, w2 = (_int4_qt(dev, 1, k, 2 * h, 64, seed=m),
+                   _int4_qt(dev, 1, h, k, 16, seed=m + 1))
+    w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=w13.group_size, bits=bits,
+                          il=256)
+    assert ffn.mma_plan(m, k, h, w13.k_block, True)[2] > 1
+    assert ffn.mma_plan(m, h, k, w2.k_block, False)[2] > 1
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    before = ffn.launches_by_body["mma"]
+    got = ffn.ffn(x, w13, w2, 0)
+    assert torch.equal(got, ffn.ffn(x, w13, w2, 0))
+    assert ffn.launches_by_body["mma"] == before + 2
+    _close(got, ffn.ffn_plain(x, w13, w2, 0), torch.bfloat16)
 
 
 @pytest.mark.parametrize("m", [1, 8, 32])

@@ -114,3 +114,101 @@ def test_cpu_wrapper_dispatches_to_plain(fused, fused4, bits):
     torch.testing.assert_close(t_ffn(x, tp["w13"], tp["w2"], 1),
                                ffn_plain(x, tp["w13"], tp["w2"], 1), rtol=0, atol=0)
     assert mod.launches == before
+
+
+# -- the card body's dispatch and plan (pure Python; the kernels run only on
+# the card, tests/test_torch_cuda.py) --------------------------------------
+
+from rama_tpu_torch.ops.kernels import ffn as ffn_mod  # noqa: E402
+
+# 7B: K 4096, H 11008, N 4096; w13 / w2 K blocks of int8 gs 64 and of int4
+# gs 64 / 16 (packing blocks of 2 gs rows)
+_7B_BLOCKS = {8: (64, 64), 4: (128, 32)}
+
+
+@pytest.mark.parametrize("m", range(1, ffn_mod.FFN_MAX_M + 1))
+def test_body_for_takes_tensor_cores_for_bf16(m):
+    assert ffn_mod.body_for(torch.bfloat16, m) == "mma"
+    assert ffn_mod.body_for(torch.float32, m) == "simt"
+
+
+def test_body_for_refuses_rows_past_the_kernel():
+    with pytest.raises(ValueError, match="M <= 32"):
+        ffn_mod.body_for(torch.bfloat16, ffn_mod.FFN_MAX_M + 1)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("phase_a", [True, False])
+def test_mma_plan_holds_every_row_in_one_tile(bits, phase_a):
+    """Every M <= 32 fits one CTA's n8 tiles: the grid has no row dimension,
+    so the plan (and each weight byte's one read) is the same at any M."""
+    k, nout = (4096, 11008) if phase_a else (11008, 4096)
+    kb = _7B_BLOCKS[bits][0 if phase_a else 1]
+    grid = ffn_mod.mma_plan(1, k, nout, kb, phase_a)[1:]
+    for m in range(1, ffn_mod.FFN_MAX_M + 1):
+        nt, *rest = ffn_mod.mma_plan(m, k, nout, kb, phase_a)
+        assert nt in (1, 2, 4) and m <= 8 * nt < m + 16
+        assert tuple(rest) == grid
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma_plan_fills_the_card_at_7b(m, bits):
+    """Both phases at the 7B shapes give at least one CTA per SM of the
+    H100's 132, and fill their last wave of two-CTA slots to 95 %."""
+    for phase_a, (k, nout) in ((True, (4096, 11008)), (False, (11008, 4096))):
+        _, tiles, ks, _ = ffn_mod.mma_plan(m, k, nout, _7B_BLOCKS[bits][0 if phase_a else 1],
+                                           phase_a)
+        ctas = tiles * ks
+        assert ctas >= 132 and ks > 1
+        assert ctas / (-(-ctas // 264) * 264) >= 0.95
+
+
+@pytest.mark.parametrize("k,k_block", [(4096, 64), (4096, 128), (11008, 64), (11008, 32),
+                                       (64, 16), (64, 8), (176, 16), (288, 96), (288, 32),
+                                       (768, 32), (768, 64), (256, 64), (512, 96)])
+@pytest.mark.parametrize("phase_a", [True, False])
+def test_mma_plan_splits_whole_k_blocks(k, k_block, phase_a):
+    """Splits start on whole slabs and whole K blocks (scale groups, int4
+    packing blocks), cover every slab once, and leave none empty."""
+    nslabs = -(-k // 64)
+    _, _, ks, sps = ffn_mod.mma_plan(8, k, 4096, k_block, phase_a)
+    assert (sps * 64) % k_block == 0 or ks == 1
+    assert (ks - 1) * sps < nslabs <= ks * sps
+    assert ks == 1 or sps >= 4
+
+
+def _qt(k, n, gs, bits, il=0):
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    rows = k if bits == 8 else k // 2
+    return QuantizedTensor(q=torch.zeros(rows, n, dtype=torch.int8),
+                           scales=torch.zeros(k // gs, n), group_size=gs, bits=bits, il=il)
+
+
+@pytest.mark.parametrize("k,h,n,gs13,gs2", [(64, 176, 64, 4, 8), (288, 768, 288, 2, 16),
+                                            (288, 768, 288, 48, 16)])
+def test_tiny_and_stories_int4_take_the_masked_path(k, h, n, gs13, gs2):
+    """int4 at the tiny (gs 4) and stories15M (quantize_int4's gs 2, or 48)
+    shapes: w13's group size is off the 16 grid, so phase A reads with plain
+    masked loads; 7B's group sizes take cp.async, misaligned pointers not."""
+    aligned = (0, 256, 512)
+    assert not ffn_mod.mma_vec(_qt(k, 2 * h, gs13, 4), aligned, True)
+    assert ffn_mod.mma_vec(_qt(h, n, gs2, 4), aligned, False) == (gs2 % 16 == 0)
+    assert ffn_mod.mma_vec(_qt(4096, 22016, 64, 4, il=256), aligned, True)
+    assert ffn_mod.mma_vec(_qt(11008, 4096, 16, 4), aligned, False)
+    assert ffn_mod.mma_vec(_qt(4096, 22016, 64, 8, il=256), aligned, True)
+    assert not ffn_mod.mma_vec(_qt(4096, 22016, 64, 8, il=256), (0, 8, 512), True)
+    # a hidden width off the 16 grid (w13 width 2H a multiple of 16)
+    assert not ffn_mod.mma_vec(_qt(64, 2 * 40, 16, 8), aligned, True)
+
+
+@pytest.mark.parametrize("h,il", [(512, 256), (512, 0), (176, 16), (176, 0), (768, 256)])
+def test_pair_columns_invert_split_h13(h, il):
+    """Hidden unit j's (W1, W3) columns, as the tensor-core body pairs them,
+    are where split_h13 reads unit j's a and c."""
+    w13 = _qt(16, 2 * h, 16, 8, il=il)
+    cols = torch.arange(2 * h, dtype=torch.float32)[None]
+    a, c = split_h13(cols, w13)
+    for j in range(h):
+        assert ffn_mod.pair_columns(j, h, il) == (int(a[0, j]), int(c[0, j]))
