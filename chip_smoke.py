@@ -20,24 +20,31 @@ Phases, in order (any failure raises and the script exits non-zero):
            and 4, the stories drafts' hd 48 and 64, fp32 hd 48 (the SIMT
            body), with planted 32- and 64-key tile edges, each call on the
            body `body_for` picks, and timed at (8, 16), (8, 512) and one
-           4096-token prompt; quant_matmul's tensor-core GEMM (bf16, M > 8,
-           the `quant_matmul_mma` record) checked and timed at int8 wqkv
-           M = 32 / 256 / 4096 and wo / w13 / w2 M = 4096 (CUDA-event and
-           device ms, TFLOP/s, bound, plain version, and a dense yardstick:
-           torch.matmul by the layer dequantized to bf16 beforehand); K3
-           (ffn) at M = 1 / 8 / 32 on the body body_for picks (bf16: the
-           tensor-core body), timed at M = 1 / 8 / 32 (CUDA-event and
-           device ms, bound) beside, at M = 32, the split route through
-           the tensor-core GEMM (w13 product, silu * c, w2 product) and a
-           dense bf16 yardstick (torch.matmul by w13 / w2 dequantized
-           beforehand, not the same function); K4's device time beside
-           SDPA's
-  kernels4 the same for the int4 instantiations of quant_matmul (decode
-           GEMV, prefill GEMM, stacked and 2-D weights) and ffn, at the 7B
-           int4 shapes (wqkv / wo / w13 gs 64, w2 gs 16) and at the tiny and
-           stories15M shapes (gs 1, 2, 4, 16), ragged N, fp32 and bf16; the
-           tensor-core GEMM timed at int4 wqkv M = 32 / 256 / 4096 and w2
-           gs 16 M = 256; K3' timed as K3
+           4096-token prompt; every quant_matmul call checked on the body
+           body_for picks (bf16 up to M = 32: the swap-AB tensor-core
+           body, incl. the masked path at N 1000, gs 48 and K of one
+           block); the swap-AB body (the `quant_matmul_mmv` record) timed
+           at int8 wqkv / wo / lm_head M = 1 / 8 / 16 / 32 (CUDA-event and
+           device ms, bound) beside the tensor-core GEMM's device ms at M
+           = 16 / 32; the GEMM (bf16, M > 32, the `quant_matmul_mma`
+           record) checked and timed at int8 wqkv M = 256 / 4096 and wo /
+           w13 / w2 M = 4096 (CUDA-event and device ms, TFLOP/s, bound,
+           plain version, and a dense yardstick: torch.matmul by the layer
+           dequantized to bf16 beforehand); K3 (ffn) at M = 1 / 8 / 32 on
+           the body body_for picks (bf16: the tensor-core body), timed at M
+           = 1 / 8 / 32 (CUDA-event and device ms, bound) beside, at M =
+           32, the split route through quant_matmul (w13 product, silu *
+           c, w2 product) and a dense bf16 yardstick (torch.matmul by w13
+           / w2 dequantized beforehand, not the same function); K4's
+           device time beside SDPA's
+  kernels4 the same for the int4 instantiations of quant_matmul (the
+           swap-AB body, the fp32 GEMV, the prefill GEMM, stacked and 2-D
+           weights) and ffn, at the 7B int4 shapes (wqkv / wo / w13 gs 64,
+           w2 gs 16) and at the tiny and stories15M shapes (gs 1, 2, 4, 16,
+           and 48), ragged N, fp32 and bf16; the swap-AB body timed at
+           int4 wqkv / wo / w2 gs 16 / a 2-D wqkv M = 1 / 8 / 16 / 32, the
+           GEMM at int4 wqkv M = 256 / 4096 and w2 gs 16 M = 256; K3'
+           timed as K3
   kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
            inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
            shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
@@ -53,8 +60,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            /metrics
   profile  torch.profiler over 8-slot decode steps: host ms/step (with and
            without the profiler), device kernel ms/step by kernel, device
-           busy share, K3's device ms and share of a step (also in
-           profile_spec's verify rounds and profile4)
+           busy share, K3's and K1's device ms and share of a step (also
+           in profile_spec's verify rounds, profile4 and profile_ab)
   profile_prefill  one 7B int8 admission of 8 x 512 tokens through
            llama.prefill on a bf16 cache of 1024 rows: device ms (CUDA
            events), torch.profiler's device ms by kernel, K5's share and
@@ -158,8 +165,10 @@ int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step) and K4 never; and `prefill_t1`, where K9 launches on both
 caches and no decode, chunk or prefill attention does. Every K5 launch
 of a path that records K5 must be on its tensor-core body, and every
-quant_matmul and ffn launch of every path on a tensor-core body or the
-GEMV (`[launches]`: `ffn_mma` / `ffn_simt`). The int8 KV,
+quant_matmul and ffn launch of every path on a tensor-core body: the
+swap-AB body at M <= 32, the GEMM above, never the CUDA-core GEMV or
+tiled GEMM (`[launches]`: `quant_matmul_mmv` / `_gemv` / `_mma` / `_simt`,
+`ffn_mma` / `ffn_simt`). The int8 KV,
 speculation, attention-block and T = 1 paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
@@ -193,6 +202,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve_spec_paged_kv8", "model_attn", "serve_ab1", "serve_ab2", "profile_ab",
               "prefill_t1", "model4", "serve4", "profile4", "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
+K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
@@ -335,6 +345,13 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, INT4_PATH, AB2_INT4_PATH)
+# every path that launches quant_matmul runs its decode-sized products (M
+# <= 32: a step, a verify round, a one-token prefill, the prefill's
+# last-row logits) on the swap-AB body: that count goes to the
+# quant_matmul_mmv record, under the same key
+for _path in PATHS:
+    if "quant_matmul" in _path["record"]:
+        _path["record"]["quant_matmul_mmv"] = _path["record"]["quant_matmul"]
 
 
 def log(msg: str) -> None:
@@ -502,7 +519,8 @@ def check_launches(path: dict, launches: dict) -> None:
     ran its SIMT body (every K5 launch of a 7B path, bf16 at hd 128, and of
     the stories draft, bf16 at hd 48, takes the tensor-core body), or on
     which a quant_matmul or ffn launch took the SIMT body (every path runs
-    bf16 activations: the tensor-core bodies serve them)."""
+    bf16 activations: the tensor-core bodies serve them, the swap-AB one
+    at M <= 32 and the GEMM above)."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -520,6 +538,10 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['prefill_attention_simt']} of "
                          f"{launches['prefill_attention']} prefill_attention launches on the "
                          f"{path['label']} main path took the SIMT body, not the tensor-core one")
+    if launches.get("quant_matmul_gemv", 0):
+        raise SystemExit(f"FAILED: {launches['quant_matmul_gemv']} quant_matmul launches on the "
+                         f"{path['label']} main path took the CUDA-core GEMV, not the swap-AB "
+                         f"tensor-core body ({launches['quant_matmul_mmv']} did)")
     if launches.get("quant_matmul_simt", 0):
         raise SystemExit(f"FAILED: {launches['quant_matmul_simt']} quant_matmul launches on the "
                          f"{path['label']} main path took the SIMT body, not the tensor-core "
@@ -545,22 +567,68 @@ def matmul_bytes(w, m: int) -> float:
     return k * n * w.bits / 8 + (k // w.group_size) * n * 4 + m * (k + n) * 2
 
 
-def time_quant_matmul(torch, qm, label: str, x, w, layer, n_layers: int) -> None:
-    """Kernel and plain times of one quant_matmul shape beside its bound,
-    the layer cycling as in a decode step (layer None: a 2-D weight)."""
-    from functools import partial
+def check_qm(torch, qm, label: str, x, w, layer) -> float:
+    """quant_matmul against its plain version, one launch on the body
+    body_for picks (none on another). Returns the max |err|."""
+    body = qm.body_for(x.dtype, x.shape[0])
+    before = dict(qm.launches_by_body)
+    got = qm.quant_matmul(x, w, layer)
+    ran = {b: qm.launches_by_body[b] - before[b] for b in before}
+    if ran != {b: int(b == body) for b in before}:
+        raise SystemExit(f"FAILED quant_matmul {label}: launches by body {ran}, expected one "
+                         f"on {body}")
+    return compare(torch, f"quant_matmul {label} [{body}]", got,
+                   qm.quant_matmul_plain(x, w, layer))
 
+
+def time_mmv(torch, qm, label: str, w, n_layers: int, rx) -> dict:
+    """K1 / K2 on the swap-AB body at M = 1, 8, 16 and 32 (a decode step of
+    one and of eight slots, verify rounds of 8 x 2 and 8 x 4): each checked
+    on layer 1 (check_qm), then CUDA-event and device ms with the layer
+    cycling as in a decode step (a 2-D weight: one layer), beside the bound;
+    at M = 16 and 32 also the device ms of the tensor-core GEMM (qmm_mma:
+    the same call with MMV_MAX_M lowered to GEMV_MAX_M, the yardstick that
+    sets MMV_MAX_M). Returns {M: record}."""
+    layered = w.q.dim() == 3
     lay = Layered(n_layers)
+    k, n = w.shape[-2:]
+    out = {}
+    for m in (1, 8, 16, qm.MMV_MAX_M):
+        x = rx(m, k)
+        err = check_qm(torch, qm, f"{label} M={m}", x, w, 1 if layered else None)
 
-    def call(f):
-        return partial(f, x, w) if layer is None else lambda: f(x, w, lay.next())
+        def kernel():
+            return qm.quant_matmul(x, w, lay.next() if layered else None)
 
-    t = time_ms(torch, call(qm.quant_matmul))
-    t_p = time_ms(torch, call(qm.quant_matmul_plain), reps=5)
-    m, (k, n) = x.shape[0], w.shape[-2:]
-    b, by = bound_ms(matmul_bytes(w, m), 2 * m * k * n)
-    log(f"[time] quant_matmul {label}: {t:.4f} ms, plain {t_p:.4f} ms (bound {b:.4f} ms, "
-        f"{by})")
+        b_ms, b_by = bound_ms(matmul_bytes(w, m), 2 * m * k * n)
+        rec = dict(m=m, body=qm.body_for(x.dtype, m), max_abs_err=err,
+                   ms=time_ms(torch, kernel), device_ms=device_ms_per_call(torch, kernel),
+                   bound_ms=b_ms, bound_by=b_by)
+        if m > qm.GEMV_MAX_M:
+            saved, qm.MMV_MAX_M = qm.MMV_MAX_M, qm.GEMV_MAX_M
+            try:
+                before = qm.launches_by_body["mma"]
+                rec["mma_device_ms"] = device_ms_per_call(torch, kernel)
+                if qm.launches_by_body["mma"] == before:
+                    raise SystemExit(f"FAILED quant_matmul {label} M={m}: the GEMM never ran")
+            finally:
+                qm.MMV_MAX_M = saved
+        log(f"[time] quant_matmul {label} M={m} [{rec['body']}]: {rec['ms']:.4f} ms, device "
+            f"{rec['device_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{rec['device_ms'] / b_ms:.2f}x)"
+            + (f"; qmm_mma device {rec['mma_device_ms']:.4f} ms" if "mma_device_ms" in rec
+               else ""))
+        out[str(m)] = rec
+    return out
+
+
+def mmv_record(results: dict) -> dict:
+    """The kernels record of the swap-AB decode body (its timed shapes
+    under "mmv"), made by whichever of the kernels / kernels4 phases runs
+    first."""
+    return results.setdefault("quant_matmul_mmv", dict(
+        name="quant_matmul_mmv", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
+        replaces="rama_tpu/ops/pallas/quant_matmul.py:265", library_ms=None, mmv={}))
 
 
 def gemm_record(w, m: int, ms: float, device_ms: float, plain_ms: float, dense_ms: float,
@@ -647,9 +715,9 @@ def check_ffn(torch, ffn_mod, label: str, x, w13, w2, layer: int) -> float:
 def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx) -> dict:
     """K3 at M = 1, 8 and 32 with the layer cycling as in a decode step:
     CUDA-event and device ms beside the bound (ffn_bytes, or 2 M (K 2H + H
-    N) bf16 operations); at M = 32 also the split route through the
-    tensor-core GEMM (quant_matmul of w13, then split_h13, silu * c, bf16,
-    quant_matmul of w2: the same function in four or more launches) and,
+    N) bf16 operations); at M = 32 also the split route through
+    quant_matmul (w13, then split_h13, silu * c, bf16, w2: the same
+    function in four or more launches, on the swap-AB body) and,
     at each M, a dense bf16 yardstick (torch.matmul by the layer's w13 and
     w2 dequantized to bf16 beforehand, the same silu * c between: 2 bytes
     a weight, no dequantization, not the same function, never called by
@@ -843,23 +911,24 @@ def phase_kernels(torch, results: dict) -> None:
     wcls = rq(1, D, cfg.vocab_size)
     wcls2 = QuantizedTensor(q=wcls.q[0].contiguous(), scales=wcls.scales[0].contiguous(),
                        group_size=gs)
-    for m in (1, 8, 128):
+    for m in (1, 8, 32, 128):
         x = rx(m, D)
         for l in (0, L - 1):
-            compare(torch, f"quant_matmul wqkv M={m} layer={l}",
-                    qm.quant_matmul(x, wqkv, l),
-                    qm.quant_matmul_plain(x, wqkv, l))
+            check_qm(torch, qm, f"wqkv M={m} layer={l}", x, wqkv, l)
     x8 = rx(8, D)
-    compare(torch, "quant_matmul lm_head M=8 (2-D)",
-            qm.quant_matmul(x8, wcls2), qm.quant_matmul_plain(x8, wcls2))
-    # ragged: N not a multiple of 16, K of 9 groups of 32, odd M, fp32
-    small = quantize_int8(torch.randn(2, 288, 1000, generator=torch.Generator().manual_seed(2)), 32)
+    check_qm(torch, qm, "lm_head M=8 (2-D)", x8, wcls2, None)
+    # ragged: N not a multiple of 16, K of 9 groups of 32, odd M, fp32; a
+    # group size off the 16 grid (48) and K of one K block (the masked
+    # path of the swap-AB body)
+    tg = torch.Generator().manual_seed(2)
+    small = quantize_int8(torch.randn(2, 288, 1000, generator=tg), 32)
     small = QuantizedTensor(q=small.q.to(dev), scales=small.scales.to(dev), group_size=32)
-    for m, dt in ((3, bf), (40, bf), (5, torch.float32), (33, torch.float32)):
-        xs = rx(m, 288, dtype=dt)
-        compare(torch, f"quant_matmul ragged K=288 N=1000 M={m} {dt}",
-                qm.quant_matmul(xs, small, 1),
-                qm.quant_matmul_plain(xs, small, 1))
+    for m, dt in ((3, bf), (17, bf), (40, bf), (5, torch.float32), (33, torch.float32)):
+        check_qm(torch, qm, f"ragged K=288 N=1000 M={m} {dt}", rx(m, 288, dtype=dt), small, 1)
+    for k, n, gs_r in ((192, 200, 48), (64, 384, 64)):
+        wr = quantize_int8(torch.randn(2, k, n, generator=tg), gs_r).to(dev)
+        for m in (1, 8):
+            check_qm(torch, qm, f"K={k} N={n} gs={gs_r} M={m}", rx(m, k), wr, 1)
     err = compare(torch, "quant_matmul timed inputs (x8, wqkv layer 0)",
                   qm.quant_matmul(x8, wqkv, 0), qm.quant_matmul_plain(x8, wqkv, 0))
     lay = Layered(L)
@@ -872,16 +941,18 @@ def phase_kernels(torch, results: dict) -> None:
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int8 gs 64")
     wo = rq(L, D, D)
-    for label, (xx, w, l) in {
-        "wo M=8": (x8, wo, 0),
-        "lm_head M=8": (x8, wcls2, None),
-        "wqkv M=1": (rx(1, D), wqkv, 0),
-    }.items():
-        time_quant_matmul(torch, qm, label, xx, w, l, L)
-    # the tensor-core GEMM (M > 8, bf16) at a verify round's M, a prefill
-    # chunk's and an 8 x 512 admission's
+    # K1 / K2 on the swap-AB body at decode and verify M, beside qmm_mma
+    mmv = mmv_record(results)
+    for label, w in (("wqkv", wqkv), ("wo", wo), ("lm_head", wcls2)):
+        mmv["mmv"][f"int8 {label}"] = time_mmv(torch, qm, f"int8 {label}", w, L, rx)
+    head = mmv["mmv"]["int8 wqkv"]["8"]
+    mmv.update(max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=t_p,
+               bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+               shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int8 gs 64")
+    # the tensor-core GEMM (M > 32, bf16) at a prefill chunk's M and an 8 x
+    # 512 admission's
     mma = mma_record(results)
-    for label, (m, w) in {"wqkv M=32": (32, wqkv), "wqkv M=256": (256, wqkv),
+    for label, (m, w) in {"wqkv M=256": (256, wqkv),
                           "wqkv M=4096": (4096, wqkv), "wo M=4096": (4096, wo)}.items():
         mma["gemm"][f"int8 {label}"] = time_gemm(torch, qm, f"int8 {label}", rx(m, D), w, L)
     head = mma["gemm"]["int8 wqkv M=256"]
@@ -1105,30 +1176,29 @@ def phase_kernels_int4(torch, results: dict) -> None:
     w2 = random_int4_qt(torch, L, H, D, 64, dev, g)
     assert (wqkv.group_size, wo.group_size, w2.group_size) == (64, 64, 16)
     for label, w in (("wqkv", wqkv), ("wo", wo), ("w2 gs 16", w2)):
-        for m in (1, 8):
+        for m in (1, 8, 32):
             x = rx(m, w.k_dim)
             for l in (0, L - 1):
-                compare(torch, f"quant_matmul int4 {label} M={m} layer={l}",
-                        qm.quant_matmul(x, w, l), qm.quant_matmul_plain(x, w, l))
+                check_qm(torch, qm, f"int4 {label} M={m} layer={l}", x, w, l)
         for m in (128, 256):  # prefill rows: the tensor-core GEMM
-            x = rx(m, w.k_dim)
-            compare(torch, f"quant_matmul int4 {label} M={m} (mma) layer={L - 1}",
-                    qm.quant_matmul(x, w, L - 1), qm.quant_matmul_plain(x, w, L - 1))
+            check_qm(torch, qm, f"int4 {label} M={m} layer={L - 1}", rx(m, w.k_dim), w, L - 1)
     w2d = QuantizedTensor(q=wqkv.q[1].contiguous(), scales=wqkv.scales[1].contiguous(),
                           group_size=64, bits=4)
     for m in (1, 8, 128):
-        x = rx(m, D)
-        compare(torch, f"quant_matmul int4 2-D (4096, 12288) M={m}",
-                qm.quant_matmul(x, w2d), qm.quant_matmul_plain(x, w2d))
+        check_qm(torch, qm, f"int4 2-D (4096, 12288) M={m}", rx(m, D), w2d, None)
     # tiny (K 64 -> gs 4, K 176 -> gs 1) and stories15M (K 288 -> gs 2,
-    # K 768 -> gs 16) shapes, ragged N, fp32 and bf16 activations
+    # K 768 -> gs 16) shapes, ragged N, fp32 and bf16 activations; gs 48
+    # at K 768 (the masked path: a packing block straddles slabs)
     tg = torch.Generator().manual_seed(5)
     for k, n, req in ((64, 200, 8), (176, 64, 8), (288, 1000, 16), (768, 288, 16)):
         w = quantize_int4(torch.randn(2, k, n, generator=tg), req).to(dev)
-        for m, dt in ((1, bf), (5, f32), (8, bf), (40, bf), (33, f32)):
-            x = rx(m, k, dtype=dt)
-            compare(torch, f"quant_matmul int4 K={k} gs={w.group_size} N={n} M={m} {dt}",
-                    qm.quant_matmul(x, w, 1), qm.quant_matmul_plain(x, w, 1))
+        for m, dt in ((1, bf), (5, f32), (8, bf), (17, bf), (40, bf), (33, f32)):
+            check_qm(torch, qm, f"int4 K={k} gs={w.group_size} N={n} M={m} {dt}",
+                     rx(m, k, dtype=dt), w, 1)
+    w48 = random_int4_qt(torch, 2, 768, 384, 48, dev, g)
+    assert w48.group_size == 48
+    for m in (1, 8):
+        check_qm(torch, qm, f"int4 K=768 gs=48 N=384 M={m}", rx(m, 768), w48, 1)
     x8 = rx(8, D)
     err = compare(torch, "quant_matmul int4 timed inputs (x8, wqkv layer 0)",
                   qm.quant_matmul(x8, wqkv, 0), qm.quant_matmul_plain(x8, wqkv, 0))
@@ -1141,15 +1211,12 @@ def phase_kernels_int4(torch, results: dict) -> None:
         replaces="rama_tpu/ops/pallas/quant_matmul.py:152", max_abs_err=err,
         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="x (8, 4096) bf16 @ wqkv[l] (4096, 12288) int4 gs 64")
-    for label, (xx, w, l) in {
-        "wo M=8": (x8, wo, 0),
-        "w2 gs 16 M=8": (rx(8, H), w2, 0),
-        "wqkv M=1": (rx(1, D), wqkv, 0),
-        "2-D (4096, 12288) M=8": (x8, w2d, None),
-    }.items():
-        time_quant_matmul(torch, qm, f"int4 {label}", xx, w, l, L)
+    mmv = mmv_record(results)
+    for label, w in (("wqkv", wqkv), ("wo", wo), ("w2 gs 16", w2),
+                     ("2-D (4096, 12288)", w2d)):
+        mmv["mmv"][f"int4 {label}"] = time_mmv(torch, qm, f"int4 {label}", w, L, rx)
     mma = mma_record(results)
-    for label, (m, w) in {"wqkv M=32": (32, wqkv), "wqkv M=256": (256, wqkv),
+    for label, (m, w) in {"wqkv M=256": (256, wqkv),
                           "wqkv M=4096": (4096, wqkv), "w2 gs 16 M=256": (256, w2)}.items():
         mma["gemm"][f"int4 {label}"] = time_gemm(torch, qm, f"int4 {label}", rx(m, w.k_dim),
                                                  w, L)
@@ -2652,9 +2719,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
-    wall), K3's device time and share of it. Returns device_ms, host_ms
-    (profiler off), host_ms_profiled, busy (the device busy share), k3_ms
-    per step and k3_share."""
+    wall), K3's and K1's device time and share of it. Returns device_ms,
+    host_ms (profiler off), host_ms_profiled, busy (the device busy share),
+    k3_ms and k1_ms per step, k3_share and k1_share."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -2699,13 +2766,17 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     # K3: both phases of the tensor-core body, or the SIMT w13 kernel (whose
     # w2 GEMV shares qmv_kernel with K1 and is not counted here)
     k3_us = sum(r[0] for r in rows if "ffn_mma" in r[1] or "ffn_w13" in r[1])
+    # K1 / K2: every quant_matmul body (the swap-AB body at M <= 32, the
+    # GEMM above, the fp32 bodies; K14 mode 2's fused wo is attn_block's)
+    k1_us = sum(r[0] for r in rows if any(b in r[1] for b in K1_KERNELS))
     what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
     log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
         f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}; K3 (ffn) {k3_us / 8 / 1e3:.3f} "
-        f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time")
+        f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time; K1 (quant_matmul) "
+        f"{k1_us / 8 / 1e3:.3f} ms/step = {k1_us / max(busy_us, 1e-9):.4f}")
     ranked = sorted(rows, reverse=True)
     for dt, key, count in ranked[:12] + [r for r in ranked[12:] if "rama::" in r[1]]:
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
@@ -2713,7 +2784,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         log(f"[{tag}] the profiler recorded no device time")
     return dict(device_ms=busy_us / 8 / 1e3, host_ms=wall_off / 8 * 1e3,
                 host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall,
-                k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9))
+                k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9),
+                k1_ms=k1_us / 8 / 1e3, k1_share=k1_us / max(busy_us, 1e-9))
 
 
 def profile_prefill(torch, cfg, params) -> dict:
@@ -3130,7 +3202,7 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path", "gemm", "by_m")
+            "launches_ab2_int4_path", "gemm", "by_m", "mmv")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,28 +15,17 @@
 //
 // Two bodies, fixed by the activation dtype before the launch:
 //
-// ffn_mma (bf16, every M <= 32): the tensor cores, in the swap-AB
-// orientation -- the weight's columns are the 16-row side of mma.sync
-// m16n8k16 and the M <= 32 tokens its n8 side (NT = 1, 2 or 4 n8 tiles), so
-// one CTA holds every row of x and each weight byte is read once a call;
-// the accumulators are 2 x NT x 4 floats a thread. A CTA owns 256 weight
-// columns (8 warps, two m16 tiles each) over a K split, in slabs of 64
-// logical rows that qslab.cuh copies into a cp.async ring (kFfnAhead = 3
-// slabs in flight: x's rows, the raw weight bytes, the scale rows).
-// ldmatrix.trans reads the raw bytes straight into A-fragment order (two
-// weight columns' k pairs a register) and each thread turns them into
-// exact bf16(float(q) * s) in registers -- no dequantized tile goes
-// through shared memory, no second barrier; x's rows are the B fragments.
-// Phase A (w13): the 256 columns are the W1 and W3 columns of the same 128
-// hidden units (ColsW13), so the silu(a) * c epilogue has both in one CTA
-// and each weight row is read in runs of 128 bytes; phase B (w2 over h):
-// 256 consecutive output columns. K is split across CTAs (gridDim.y) in
-// whole slabs and whole K blocks, about one wave of two CTAs an SM; each
-// split's fp32 partial goes to a
-// workspace and the last CTA of a column tile (an integer ticket) adds
-// them in split order, so reruns are bit for bit. The masked path (VEC
-// false: a width or group size off the 16-byte grid) loads with plain
-// masked reads into the same tiles.
+// ffn_mma (bf16, every M <= 32): the swap-AB tensor-core body of
+// swapab.cuh (the tokens on mma.sync's n8 side, so one CTA holds every row
+// of x and each weight byte is read once a call; the raw bytes become
+// bf16(float(q) * s) in registers after ldmatrix.trans), shared with K1's
+// qmv_mma. A CTA owns 256 weight columns (8 warps) over a K split. Phase A
+// (w13): the 256 columns are the W1 and W3 columns of the same 128 hidden
+// units (ColsW13), so the silu(a) * c epilogue has both in one CTA and each
+// weight row is read in runs of 128 bytes; phase B (w2 over h): 256
+// consecutive output columns. K is split across CTAs in whole slabs and
+// whole K blocks, about one wave of two CTAs an SM; the last CTA of a
+// column tile adds the split partials in split order (bit for bit reruns).
 //
 // simt (fp32 activations; no serving path runs them): ffn_w13_kernel
 // below, a split-K GEMV on the CUDA cores whose last CTA per hidden tile
@@ -49,7 +38,7 @@
 // w1_col(j) and W3 column w1_col(j) + (il ? il : H).
 #include <type_traits>
 
-#include "qslab.cuh"
+#include "swapab.cuh"
 
 namespace rama {
 
@@ -347,16 +336,12 @@ cudaError_t launch_w13_bits(int bits, const void* x, const void* q, const void* 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body
+// bf16 tensor-core body (swapab.cuh)
 
-constexpr int kFfnMmaThreads = 256;             // 8 warps, two m16 tiles of columns each
-constexpr int kFfnBN = 256;                     // weight columns a CTA
-constexpr int kFfnMmaUnits = kFfnBN / 2;        // hidden units a phase-A CTA
-constexpr int kFfnAhead = 3;                    // slabs in flight while one is multiplied
-constexpr int kFfnCtas = 2;                     // CTAs an SM (registers capped to fit)
-constexpr int kFfnLdq = kFfnBN + 16;            // raw tile row stride (bytes): ldmatrix rows
-                                                // land on distinct banks
-constexpr int kFfnLdc = kFfnBN + 4;             // epilogue tile row stride (floats)
+constexpr int kFfnBN = 256;                         // weight columns a CTA
+constexpr int kFfnMmaThreads = Swab<kFfnBN>::kThreads;   // 8 warps, two m16 tiles each
+constexpr int kFfnMmaUnits = kFfnBN / 2;            // hidden units a phase-A CTA
+constexpr int kFfnCtas = 2;                         // CTAs an SM (registers capped to fit)
 
 // Phase A's column map: slab column lc is unit u0 + lc % 128's W1 column
 // (lc < 128) or its W3 column. A tile inside one il-wide tile (il a
@@ -375,292 +360,29 @@ struct ColsW13 {
   }
 };
 
-// Rows of the x tile: NT n8 tiles, read by ldmatrix in pairs.
-template <int NT> __host__ __device__ constexpr int ffn_x_rows() { return NT < 2 ? 16 : NT * 8; }
-
-// One stage of the ring: the slab's x tile, raw weight bytes and scale rows.
-template <int NT, int BITS> __host__ __device__ constexpr int ffn_stage_bytes() {
-  return ffn_x_rows<NT>() * kMmaLdx * 2 + mma_q_rows<BITS>() * kFfnLdq +
-         kMmaScaleRows * kFfnBN * 4;
-}
-
-template <int NT, int BITS> constexpr size_t ffn_mma_smem_bytes() {
-  constexpr size_t ring = (size_t)(kFfnAhead + 1) * ffn_stage_bytes<NT, BITS>();
-  constexpr size_t epi = (size_t)ffn_x_rows<NT>() * kFfnLdc * 4;
-  return ring > epi ? ring : epi;
-}
-
-// Two bf16 of one A fragment register: (k, k + 1) of one weight column.
-__device__ __forceinline__ uint32_t pack_ab(float a, float sa, float b, float sb) {
-  return pack_bf16(a * sa, b * sb);
-}
-
-// grid (tiles, ks), 256 threads, ffn_mma_smem_bytes<NT, BITS>() of dynamic
-// shared memory. x (M, K) bf16, M <= 8 NT; q / s rows of `ncols` columns
-// (phase A: w13, 2H; phase B: w2, N); out (M, nout) bf16 (phase A: h, nout
-// = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1) sps) of
-// the ceil(K / 64); `part` an fp32 (ks, M, tiles * 256) workspace when ks
-// > 1, `tickets` one zeroed counter per column tile.
-//
-// Fragments: warp w owns slab columns 32 w .. 32 w + 31 as two m16 tiles;
-// in tile i (columns 32 w + 16 i ..) MMA row g is column 32 w + 16 i + 2 g
-// and row g + 8 the column after it. ldmatrix.trans of
-// the raw [k][n] bytes (8 rows of 16 bytes a matrix, read as b16) gives
-// lane (g, c) the bytes (k 2c, n 2g), (2c, 2g + 1), (2c + 1, 2g), (2c + 1,
-// 2g + 1) of a matrix in one register: bytes 0 and 2 are row g's k pair,
-// bytes 1 and 3 row g + 8's. They become bf16(float(q) * s) in registers
-// (int4: each byte's low nibble feeds a k16 step of the slab's first half,
-// its high nibble the matching step of the second), with no dequantized
-// tile in shared memory. x's rows are the B fragments (ldmatrix, [m][k]).
+// grid (tiles, ks), 256 threads, swab_smem_bytes<NT, BITS, 256>() of
+// dynamic shared memory. x (M, K) bf16, M <= 8 NT; q / s rows of `ncols`
+// columns (phase A: w13, 2H; phase B: w2, N); out (M, nout) bf16 (phase A:
+// h, nout = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1)
+// sps) of the ceil(K / 64); `part` an fp32 (ks, M, tiles * 256) workspace
+// when ks > 1, `tickets` one zeroed counter per column tile.
 template <int NT, int BITS, bool VEC, bool PHASE_A>
 __global__ void __launch_bounds__(kFfnMmaThreads, kFfnCtas)
 ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         const float* __restrict__ s, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
         unsigned* __restrict__ tickets, int M, int K, int ncols, int nout, int gs, int il,
         int slabs_per_split) {
-  constexpr int T = kFfnMmaThreads, P = kFfnAhead, RS = P + 1;
-  constexpr int XR = ffn_x_rows<NT>();
-  constexpr int QR = mma_q_rows<BITS>();
-  constexpr int STAGE = ffn_stage_bytes<NT, BITS>();
+  constexpr int T = kFfnMmaThreads, LDC = Swab<kFfnBN>::kLdc;
   extern __shared__ __align__(16) unsigned char ffn_smem[];
-  __shared__ bool is_last;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int tile = blockIdx.x, split = blockIdx.y, ks = gridDim.y;
-  const int nslabs = (K + kMmaBK - 1) / kMmaBK;
-  const int s_begin = split * slabs_per_split;
-  const int nt = min(nslabs, s_begin + slabs_per_split) - s_begin;
-  const int qrows = BITS == 8 ? K : K / 2;
+  const int tid = threadIdx.x, tile = blockIdx.x;
   using Cols = std::conditional_t<PHASE_A, ColsW13, ColsRange>;
   const Cols cols = [&] {
     if constexpr (PHASE_A) return ColsW13(tile * kFfnMmaUnits, nout, il);
     else return ColsRange{tile * kFfnBN, nout};
   }();
-  // this thread's weight columns: lc0 + 16 i and the one after it, i = 0, 1
-  const int lc0 = warp * 32 + 2 * g;
-  int nc[2][2];   // their global columns (the masked path's scale reads)
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) nc[i][e] = VEC ? 0 : cols(lc0 + 16 * i + e);
-
-  auto x_tile = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(ffn_smem + st * STAGE);
-  };
-  auto q_tile = [&](int st) { return reinterpret_cast<int8_t*>(ffn_smem + st * STAGE) +
-                                     XR * kMmaLdx * 2; };
-  auto s_tile = [&](int st) {
-    return reinterpret_cast<float*>(q_tile(st) + QR * kFfnLdq);
-  };
-  auto load = [&](int t) {
-    const int st = t % RS;
-    slab_load<BITS, VEC, XR, T, kFfnBN, kFfnLdq>(s_begin + t, x, 0, M, K, q, s, ncols, gs,
-                                                 cols, x_tile(st), q_tile(st), s_tile(st),
-                                                 tid);
-    if constexpr (!VEC) slab_raw_masked<BITS, kFfnBN, kFfnLdq, T>(s_begin + t, q, ncols, K,
-                                                                 cols, q_tile(st), tid);
-  };
-
-  // The scales of this thread's two columns of tile i for slab rows kk
-  // (its k pair kk, kk + 1): (s0 at kk, s0 at kk + 1, s1 at kk, s1 at
-  // kk + 1). The cp.async path reads the staged rows (one row serves a
-  // whole k16 step: gs a multiple of 16); the masked path reads s in global
-  // memory, zero past K.
-  const int gshift = gs < QR ? __ffs(gs) - 1 : 31;
-  auto scales = [&](int sl, const float* ss, int i, int kk, float* sc) {
-    const int n0 = nc[i][0], n1 = nc[i][1];
-    if constexpr (VEC) {
-      int row;   // gs is 16 or 32 (a shift) or spans the slab (row 0)
-      if constexpr (BITS == 8) row = kk >> gshift;
-      else row = 2 * ((kk & 31) >> gshift) + (kk >> 5);
-      const float2 v = *reinterpret_cast<const float2*>(ss + row * kFfnBN + lc0 + 16 * i);
-      sc[0] = sc[1] = v.x;
-      sc[2] = sc[3] = v.y;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        int srow;
-        bool ok;
-        if constexpr (BITS == 8) {
-          const int k = sl * kMmaBK + kk + i;
-          ok = k < K;
-          srow = k / gs;
-        } else {
-          const int r = sl * QR + ((kk + i) & 31);
-          ok = r < qrows;
-          srow = 2 * (r / gs) + (kk >> 5);
-        }
-        sc[i] = ok && n0 >= 0 ? s[(size_t)srow * ncols + n0] : 0.f;
-        sc[2 + i] = ok && n1 >= 0 ? s[(size_t)srow * ncols + n1] : 0.f;
-      }
-    }
-  };
-  // A fragment halves from one ldmatrix register's four weights f (bytes
-  // 0..3 as above) at slab rows kk, kk + 1: row g's pair, row g + 8's pair.
-  auto frag = [&](const float* f, const float* sc, uint32_t& ra, uint32_t& rb) {
-    ra = pack_ab(f[0], sc[0], f[2], sc[1]);
-    rb = pack_ab(f[1], sc[2], f[3], sc[3]);
-  };
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  // k16 step j of slab t: A of both m16 tiles from the converted registers,
-  // B from x (each B fragment feeds both tiles)
-  auto mma_step = [&](const __nv_bfloat16* xs, int j, const uint32_t (&af)[2][4]) {
-#pragma unroll
-    for (int p = 0; p < (NT + 1) / 2; ++p) {
-      uint32_t bf[4];
-      ldsm_x4(bf, xs + (p * 16 + lane % 8 + (lane / 16) * 8) * kMmaLdx + j * 16 +
-                      ((lane / 8) % 2) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
-        if (2 * p + 1 < NT) mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  };
-
-  // The ring: P slabs in flight while slab t is multiplied; one barrier a
-  // slab (it also frees the stage slab t + P overwrites, slab t - 1's).
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    if (i < nt) load(i);
-    cp_async_commit();
-  }
-  for (int t = 0; t < nt; ++t) {
-    cp_async_wait<P - 1>();   // slab t (this thread's copies) has landed
-    __syncthreads();          // everyone's; every warp is done with slab t - 1
-    if (t + P < nt) load(t + P);
-    cp_async_commit();
-    const int sl = s_begin + t, st = t % RS;
-    const __nv_bfloat16* xs = x_tile(st);
-    const int8_t* qs = q_tile(st);
-    const float* ss = s_tile(st);
-    if constexpr (BITS == 8) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {   // slab rows 32 h .. 32 h + 31: k16 steps 2 h, 2 h + 1
-        if (sl * kMmaBK + 32 * h >= K) break;
-        uint32_t r[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldsm_x4_trans(r[i], qs + (32 * h + lane) * kFfnLdq + warp * 32 + 16 * i);
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * h + jj;
-          if (sl * kMmaBK + 16 * j >= K) break;
-          uint32_t af[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float f[4], sc[4];
-            scales(sl, ss, i, 16 * j + 2 * c, sc);
-            i8x4_to_f32(r[i][2 * jj], f);
-            frag(f, sc, af[i][0], af[i][1]);
-            if constexpr (!VEC) scales(sl, ss, i, 16 * j + 8 + 2 * c, sc);
-            i8x4_to_f32(r[i][2 * jj + 1], f);
-            frag(f, sc, af[i][2], af[i][3]);
-          }
-          mma_step(xs, j, af);
-        }
-      }
-    } else {
-      // byte rows 0..31: matrices of rows 0-7, 8-15 (k16 step 0 low
-      // nibbles, step 2 high), 16-23, 24-31 (steps 1 and 3)
-      uint32_t r[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4_trans(r[i], qs + lane * kFfnLdq + warp * 32 + 16 * i);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        if (sl * QR + 16 * jj >= qrows) break;
-        float lo[2][2][4], hi[2][2][4];   // [tile][matrix half][byte]
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          i4x8_to_f32(r[i][2 * jj], lo[i][0], hi[i][0]);
-          i4x8_to_f32(r[i][2 * jj + 1], lo[i][1], hi[i][1]);
-        }
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {   // low nibbles: step jj; high: step jj + 2
-          const int j = jj + 2 * half;
-          uint32_t af[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float sc[4];
-            scales(sl, ss, i, 16 * j + 2 * c, sc);
-            frag(half ? hi[i][0] : lo[i][0], sc, af[i][0], af[i][1]);
-            if constexpr (!VEC) scales(sl, ss, i, 16 * j + 8 + 2 * c, sc);
-            frag(half ? hi[i][1] : lo[i][1], sc, af[i][2], af[i][3]);
-          }
-          mma_step(xs, j, af);
-        }
-      }
-    }
-  }
-
-  // The CTA's (M, 256) product, fp32, into shared memory: C[m][lc]. The
-  // accumulator of tile i, n8 tile j holds columns lc0 + 16 i (row g) and
-  // the one after it (row g + 8) at tokens 8 j + 2 c and 8 j + 2 c + 1.
-  cp_async_wait<0>();
-  __syncthreads();   // every warp is done with the ring
-  float* C = reinterpret_cast<float*>(ffn_smem);   // [XR][kFfnLdc]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int m = 8 * j + 2 * c, lc = lc0 + 16 * i;
-      C[m * kFfnLdc + lc] = acc[i][j][0];
-      C[(m + 1) * kFfnLdc + lc] = acc[i][j][1];
-      C[m * kFfnLdc + lc + 1] = acc[i][j][2];
-      C[(m + 1) * kFfnLdc + lc + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-
-  if (ks > 1) {
-    // this split's partial, then the last CTA of the column tile adds the
-    // ks partials in split order back into C, four columns a thread at a
-    // time with four splits' loads in flight
-    const size_t width = (size_t)gridDim.x * kFfnBN, sstride = (size_t)M * width;
-    float* mine = part + (size_t)tile * kFfnBN;
-    for (int i = 4 * tid; i < M * kFfnBN; i += 4 * T) {
-      const int m = i / kFfnBN, lc = i % kFfnBN;
-      *reinterpret_cast<float4*>(mine + split * sstride + m * width + lc) =
-          *reinterpret_cast<const float4*>(C + m * kFfnLdc + lc);
-    }
-    __threadfence();
-    __syncthreads();
-    unsigned* ticket = tickets + tile;
-    if (tid == 0) is_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(ks - 1);
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    for (int i = 4 * tid; i < M * kFfnBN; i += 4 * T) {
-      const int m = i / kFfnBN, lc = i % kFfnBN;
-      const float* src = mine + m * width + lc;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      int sp = 0;
-      for (; sp + 4 <= ks; sp += 4) {
-        float4 p[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          p[u] = __ldcg(reinterpret_cast<const float4*>(src + (sp + u) * sstride));
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          v.x += p[u].x; v.y += p[u].y; v.z += p[u].z; v.w += p[u].w;
-        }
-      }
-      for (; sp < ks; ++sp) {
-        const float4 p = __ldcg(reinterpret_cast<const float4*>(src + sp * sstride));
-        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
-      }
-      *reinterpret_cast<float4*>(C + m * kFfnLdc + lc) = v;
-    }
-    __syncthreads();
-    if (tid == 0) *ticket = 0u;   // ready for the next launch
-  }
+  const float* C = swab_tile<NT, BITS, VEC, kFfnBN>(x, q, s, part, tickets, M, K, ncols, gs,
+                                                    slabs_per_split, cols, ffn_smem);
+  if (C == nullptr) return;   // another split of this tile adds the partials
 
   if constexpr (PHASE_A) {
     // h = silu(a) * c in fp32, rounded to bf16 (ffn.py:170)
@@ -668,14 +390,14 @@ ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
       const int m = i / kFfnMmaUnits, u = i % kFfnMmaUnits;
       const int j = tile * kFfnMmaUnits + u;
       if (j >= nout) continue;
-      const float a = C[m * kFfnLdc + u], b = C[m * kFfnLdc + kFfnMmaUnits + u];
+      const float a = C[m * LDC + u], b = C[m * LDC + kFfnMmaUnits + u];
       out[(size_t)m * nout + j] = __float2bfloat16_rn(a * (1.f / (1.f + expf(-a))) * b);
     }
   } else {
     for (int i = tid; i < M * kFfnBN; i += T) {
       const int m = i / kFfnBN, lc = i % kFfnBN;
       const int n = tile * kFfnBN + lc;
-      if (n < nout) out[(size_t)m * nout + n] = __float2bfloat16_rn(C[m * kFfnLdc + lc]);
+      if (n < nout) out[(size_t)m * nout + n] = __float2bfloat16_rn(C[m * LDC + lc]);
     }
   }
 }
@@ -684,10 +406,10 @@ template <int NT, int BITS, bool VEC, bool PHASE_A>
 cudaError_t launch_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
                            void* tickets, int M, int K, int ncols, int nout, int gs, int il,
                            int tiles, int ks, int sps, cudaStream_t stream) {
-  constexpr size_t smem = ffn_mma_smem_bytes<NT, BITS>();
+  constexpr size_t smem = swab_smem_bytes<NT, BITS, kFfnBN>();
   auto kern = ffn_mma<NT, BITS, VEC, PHASE_A>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemOptIn opt_in;   // one attribute call an instantiation and device
+  const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3(tiles, ks), kFfnMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),

@@ -4,6 +4,8 @@
 // loads and mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
 #pragma once
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace rama {
@@ -48,6 +50,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+
+// The dynamic shared-memory opt-in (cudaFuncSetAttribute) of one kernel,
+// made once a device: a launcher keeps one static SmemOptIn an
+// instantiation, so later launches make no driver call besides the launch
+// itself (one fewer a call, and none that a stream capture must see).
+struct SmemOptIn {
+  std::atomic<unsigned long long> done{0};   // a bit a device id below 64
+  template <class F> cudaError_t set(F kern, size_t bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return e;
+  }
+};
 
 // Fragment coordinates of m16n8k16: lane = 4 g + c; an accumulator holds
 // rows g and g + 8 at columns 2c, 2c + 1 of its n8 tile. A fragments of a

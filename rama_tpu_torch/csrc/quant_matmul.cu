@@ -15,14 +15,30 @@
 // 3.1 MB = 16 us for int8; 25.2 MB + 3.1 MB = 8.5 us for int4 gs 64). At
 // prefill M (k*T rows, hundreds to thousands) it is bound by 2*M*K*N flops.
 //
-// Design: M <= 8 (the decode step) takes qmv.cuh -- 16-byte weight loads along N
-// (contiguous in the (K, N) layout), the K range split across CTAs in whole
-// scale groups (int8) or packing blocks (int4) so that N = 4096 still puts
-// ~2 CTAs on each of the 132 SMs, a deterministic second-pass reduce of the
-// split partials by the last CTA of each column tile. The dequantized
-// weight is w = q * s in fp32 (the Pallas accscale kernels scale each
-// group's partial sum instead: the same function, rounded differently).
-// M > 8 in bf16 takes qmm_mma below, the tensor-core body (the Pallas
+// Design: bf16 at M <= 32 (a decode step, a verify round of 8 slots x 4
+// tokens) takes qmv_mma below, the swap-AB tensor-core body of swapab.cuh
+// that K3's ffn_mma runs too: the weight's columns on mma.sync's 16-row
+// side and the tokens on its n8 side (NT = 1, 2 or 4 n8 tiles), so one CTA
+// holds every row of x and each weight byte is read once; the raw bytes go
+// through a cp.async ring and ldmatrix.trans and become bf16(float(q) * s)
+// -- exactly dequantize()'s rounding -- in registers. A CTA owns 128 or 256
+// consecutive columns (4 or 8 warps) over a split of K in whole 64-row
+// slabs and K blocks; the wrapper (quant_matmul.mmv_plan) picks the grid
+// that fills the most of one wave of CTA slots, since with every CTA
+// resident a call lasts about as long as its longest split (7B at M <= 8:
+// wqkv 96 x 5, wo 32 x 16, lm_head 250 x 2 CTAs of 128 columns, four an
+// SM). The last CTA of a column tile adds the split partials in split
+// order (deterministic).
+// fp32 activations at M <= 8 keep qmv.cuh's split-K GEMV on the CUDA cores
+// -- 16-byte weight loads along N, the K range split across CTAs in whole
+// scale groups (int8) or packing blocks (int4), a deterministic second-pass
+// reduce of the split partials by the last CTA of each column tile; its
+// dequantized weight is w = q * s in fp32 (the Pallas accscale kernels
+// scale each group's partial sum instead: the same function, rounded
+// differently); K14's fused wo (attn_block.cu) and the FFN's fp32 w2 share
+// that body.
+//
+// M > 32 in bf16 takes qmm_mma below, the tensor-core body (the Pallas
 // kernels' own choice at prefill M: dequantize a block to f32, round it to
 // bf16, dot with fp32 accumulation, quant_matmul.py:31-35). fp32
 // activations at M > 8 keep qmm_tiled: 64x64 output tiles, a 32-deep K slab
@@ -51,7 +67,9 @@
 //    the mantissa of 2^23 and one FADD, not the quarter-rate I2F.
 //  - One barrier a slab: in step t a warp dequantizes slab t + 1 and
 //    multiplies slab t, while the copies of slab t + 2 are in flight.
-//  - Small M (verify rounds: M = 32) gives few output tiles, so K is split
+//  - Small M (BM 64 up to M = 64; BM 32, which M <= 32 reaches only when
+//    MMV_MAX_M is lowered, as chip_smoke.py does to time the GEMM beside
+//    qmv_mma) gives few output tiles, so K is split
 //    across CTAs (gridDim.z) in whole slabs and whole K blocks, about two
 //    CTAs an SM; partial sums go to an fp32 workspace and the last CTA of a
 //    tile (an integer ticket) adds them in split order: deterministic.
@@ -61,7 +79,7 @@
 //
 // Bound: at M = 32 the weight bytes (wqkv int8: 53.7 MB, 16 us); from a few
 // hundred rows the bf16 tensor-core operations (2 M K N at 989 TFLOP/s).
-#include "qslab.cuh"
+#include "swapab.cuh"
 
 namespace rama {
 
@@ -372,8 +390,8 @@ cudaError_t launch_qmm_mma(const void* x, const void* q, const void* s, void* y,
                            cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<BM, BITS>();
   auto kern = qmm_mma<BM, BITS, VEC>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemOptIn opt_in;   // one attribute call an instantiation and device
+  const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + BM - 1) / BM, (N + kMmaBN - 1) / kMmaBN, ks);
   kern<<<grid, MmaCfg<BM>::kWarpRows * 128, smem, stream>>>(
@@ -403,6 +421,84 @@ cudaError_t launch_qmm_mma_bm(int bm, bool vec, const void* x, const void* q, co
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode body (M <= 32; swapab.cuh)
+
+// The CTAs an SM of a BN-column CTA (BN threads): either width caps
+// registers at 128 a thread.
+template <int BN> struct MmvCfg;
+template <> struct MmvCfg<128> { static constexpr int kCtas = 4; };
+template <> struct MmvCfg<256> { static constexpr int kCtas = 2; };
+
+// grid (ceil(N / BN), ks), BN threads, swab_smem_bytes<NT, BITS, BN>() of
+// dynamic shared memory. x (M, K) bf16 with M <= 8 NT, y (M, N) bf16. Split
+// y covers slabs [y sps, (y + 1) sps) of the ceil(K / 64); `part` an fp32
+// (ks, M, gridDim.x * BN) workspace when ks > 1, `tickets` one zeroed
+// counter per column tile.
+template <int NT, int BITS, bool VEC, int BN>
+__global__ void __launch_bounds__(BN, MmvCfg<BN>::kCtas)
+qmv_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+        const float* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+        unsigned* __restrict__ tickets, int M, int K, int N, int gs, int slabs_per_split) {
+  constexpr int LDC = Swab<BN>::kLdc;
+  extern __shared__ __align__(16) unsigned char mmv_smem[];
+  const int n0 = blockIdx.x * BN;
+  const float* C = swab_tile<NT, BITS, VEC, BN>(x, q, s, part, tickets, M, K, N, gs,
+                                                slabs_per_split, ColsRange{n0, N}, mmv_smem);
+  if (C == nullptr) return;   // another split of this tile adds the partials
+  for (int i = threadIdx.x; i < M * BN; i += BN) {
+    const int m = i / BN, lc = i % BN;
+    if (n0 + lc < N) y[(size_t)m * N + n0 + lc] = __float2bfloat16_rn(C[m * LDC + lc]);
+  }
+}
+
+template <int NT, int BITS, bool VEC, int BN>
+cudaError_t launch_qmv_mma(const void* x, const void* q, const void* s, void* y, void* part,
+                           void* tickets, int M, int K, int N, int gs, int ks, int sps,
+                           cudaStream_t stream) {
+  constexpr size_t smem = swab_smem_bytes<NT, BITS, BN>();
+  auto kern = qmv_mma<NT, BITS, VEC, BN>;
+  static SmemOptIn opt_in;   // one attribute call an instantiation and device
+  const cudaError_t e = opt_in.set(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((N + BN - 1) / BN, ks), BN, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<unsigned*>(tickets), M, K, N, gs, sps);
+  return cudaGetLastError();
+}
+
+template <int BITS, bool VEC, int BN>
+cudaError_t launch_qmv_mma_nt(const void* x, const void* q, const void* s, void* y, void* part,
+                              void* tickets, int M, int K, int N, int gs, int ks, int sps,
+                              cudaStream_t st) {
+  if (M <= 8)
+    return launch_qmv_mma<1, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+  if (M <= 16)
+    return launch_qmv_mma<2, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+  if (M <= 32)
+    return launch_qmv_mma<4, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+  return cudaErrorInvalidValue;
+}
+
+// The masked path (vec false: tiny and stories shapes) has the 128-column CTA only.
+template <int BITS>
+cudaError_t launch_qmv_mma_bn(int bn, bool vec, const void* x, const void* q, const void* s,
+                              void* y, void* part, void* tickets, int M, int K, int N, int gs,
+                              int ks, int sps, cudaStream_t st) {
+  if (!vec)
+    return bn == 128 ? launch_qmv_mma_nt<BITS, false, 128>(x, q, s, y, part, tickets, M, K, N,
+                                                           gs, ks, sps, st)
+                     : cudaErrorInvalidValue;
+  if (bn == 128)
+    return launch_qmv_mma_nt<BITS, true, 128>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                              st);
+  if (bn == 256)
+    return launch_qmv_mma_nt<BITS, true, 256>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                              st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace rama
@@ -441,6 +537,26 @@ extern "C" int rama_qmm_mma(const void* x, const void* q, const void* s, void* y
                                                        M, K, N, gs, ks, sps, st));
   if (bits == 4)
     return static_cast<int>(rama::launch_qmm_mma_bm<4>(bm, vec != 0, x, q, s, y, part, tickets,
+                                                       M, K, N, gs, ks, sps, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 decode body (M <= 32: NT 1 / 2 / 4 n8 tiles): x (M, K)
+// bf16, y (M, N) bf16; `bn` 128 or 256 columns a CTA (128 when !vec); `ks`
+// K splits of `sps` 64-row slabs each, `part` an fp32 (ks, M, ceil(N / bn)
+// * bn) workspace when ks > 1; `tickets` one zeroed counter per column
+// tile. `vec` (the cp.async path): N and gs multiples of 16, gs a divisor
+// or a multiple of a slab's 64 weight rows (int4: 32 byte rows), every
+// pointer 16-byte aligned.
+extern "C" int rama_qmv_mma(const void* x, const void* q, const void* s, void* y, void* part,
+                            void* tickets, int M, int K, int N, int gs, int bits, int bn,
+                            int ks, int sps, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return static_cast<int>(rama::launch_qmv_mma_bn<8>(bn, vec != 0, x, q, s, y, part, tickets,
+                                                       M, K, N, gs, ks, sps, st));
+  if (bits == 4)
+    return static_cast<int>(rama::launch_qmv_mma_bn<4>(bn, vec != 0, x, q, s, y, part, tickets,
                                                        M, K, N, gs, ks, sps, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

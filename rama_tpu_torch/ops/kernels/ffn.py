@@ -22,7 +22,6 @@ Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor runs
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +30,7 @@ from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
 from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMS, MMA_BK, check_weight,
                                                      layer_of, rows_per_cta, split_k,
-                                                     weight_ptrs)
+                                                     split_options, weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 
 # wrapper calls that launched the kernels since the last reset, by the w13
@@ -44,8 +43,6 @@ _UNITS = 256      # hidden units per simt w13 CTA (csrc/ffn.cu)
 MMA_COLS = 256            # weight columns a tensor-core CTA (csrc/ffn.cu: kFfnBN)
 MMA_UNITS = MMA_COLS // 2  # hidden units a phase-A CTA (their W1 and W3 columns)
 _MMA_CTAS_PER_SM = 2      # ffn_mma's __launch_bounds__ (kFfnCtas)
-_MMA_MIN_SLABS = 4        # K slabs a split runs at least (the cp.async ring fills)
-_MMA_MAX_SPLITS = 16
 _MMA_WAVE_FILL = 0.95     # the share of the last wave's CTA slots a plan fills
 
 _SIGNATURES = {
@@ -69,22 +66,15 @@ def mma_plan(m: int, k: int, nout: int, k_block: int, phase_a: bool,
     tiles of tokens (1, 2 or 4: every one of the m rows in one CTA, so the
     weight is read once), `tiles` column tiles (MMA_UNITS hidden units in
     phase A, MMA_COLS output columns in phase B), and K split across ks CTAs
-    of sps MMA_BK-row slabs each -- whole K blocks (k_block: a scale group,
-    or an int4 packing block), at least _MMA_MIN_SLABS slabs a split where K
-    has them. ks is the smallest count whose grid fills its last wave of
-    CTA slots (sms x _MMA_CTAS_PER_SM) to _MMA_WAVE_FILL, else the best
-    fill up to _MMA_MAX_SPLITS."""
+    of sps MMA_BK-row slabs each (quant_matmul.split_options: whole K
+    blocks) -- ks the smallest count whose grid fills its last wave of CTA
+    slots (sms x _MMA_CTAS_PER_SM) to _MMA_WAVE_FILL, else the best fill."""
     require(1 <= m <= FFN_MAX_M, f"the FFN kernel serves 1 <= M <= {FFN_MAX_M}, got {m}")
     nt = 1 if m <= 8 else 2 if m <= 16 else 4
     tiles = -(-nout // (MMA_UNITS if phase_a else MMA_COLS))
-    nslabs = -(-k // MMA_BK)
-    unit = math.lcm(MMA_BK, k_block) // MMA_BK     # slabs a split unit
-    nunits = -(-nslabs // unit)
     slots = sms * _MMA_CTAS_PER_SM
     best = None
-    for want in range(1, max(1, min(nunits, nslabs // _MMA_MIN_SLABS, _MMA_MAX_SPLITS)) + 1):
-        sps = -(-nunits // want) * unit
-        ks = -(-nslabs // sps)
+    for ks, sps in split_options(k, k_block):
         ctas = tiles * ks
         fill = ctas / (-(-ctas // slots) * slots)
         if best is None or fill > best[0]:

@@ -5,18 +5,22 @@ The counterpart of `rama_tpu/ops/pallas/quant_matmul.py`'s
 `quant_matmul_layered` (stacked weights, layer chosen by the kernel's
 index maps) and `quant_matmul` (one 2-D weight): one CUDA kernel for both,
 the layer is a pointer offset computed here from a Python int
-(`csrc/quant_matmul.cu`, `csrc/qmv.cuh`). The int8 and the int4 weights
+(`csrc/quant_matmul.cu`, `csrc/swapab.cuh`, `csrc/qmv.cuh`). The int8
+and the int4 weights
 take sibling instantiations of the same kernels (a `bits` argument), and
 each has its own launch count.
 
 Dispatch: a CUDA tensor launches a kernel body (or raises), a CPU tensor
 runs `quant_matmul_plain`. The body is fixed by dtype and M before the
-launch (`body_for`): M <= GEMV_MAX_M the split-K GEMV ("gemv"), larger M
-in bf16 the tensor-core GEMM ("mma"), larger M in fp32 the CUDA-core tiled
-GEMM ("simt"). A refused launch raises; it never gives way to another
-body. Any K that is a multiple of the group size (of two group sizes, a
-packing block, for int4) and any N are taken; the ragged edges are masked
-in the kernel.
+launch (`body_for`): bf16 up to MMV_MAX_M rows takes the swap-AB
+tensor-core body ("mmv": every row of x in one CTA, each weight byte read
+once, the shared body of `csrc/swapab.cuh`; `mmv_plan` picks its CTA width
+and K splits), larger M the tensor-core GEMM ("mma"); fp32 up to
+GEMV_MAX_M rows the split-K GEMV on the CUDA cores ("gemv"), larger M the
+CUDA-core tiled GEMM ("simt"). A refused launch raises; it never gives
+way to another body. Any K that is a multiple of the group size (of two
+group sizes, a packing block, for int4) and any N are taken; the ragged
+edges are masked in the kernel.
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 
 # kernel launches since the last reset, by weight bits (chip_smoke reads them)
 launches = {8: 0, 4: 0}
-launches_by_body = {"gemv": 0, "mma": 0, "simt": 0}   # the same launches by body
+launches_by_body = {"mmv": 0, "gemv": 0, "mma": 0, "simt": 0}   # the same launches by body
 
-# M <= 8 takes the weight-streaming GEMV (one CTA serves all rows: the
-# 8-slot decode step); larger M a GEMM that reads W once per 32-128 rows
-# (verify rounds of 8 slots x 4 tokens, prefill chunks).
-GEMV_MAX_M = 8
+# Small M takes a weight-streaming body whose CTAs serve every row (the
+# 8-slot decode step; in bf16 also a verify round of 8 slots x 4 tokens:
+# the swap-AB body beats the GEMM at M = 16 and 32 on the H100, PERF.md);
+# larger M a GEMM that reads W once per 32-256 rows (prefill chunks).
+GEMV_MAX_M = 8     # fp32: the CUDA-core GEMV
+MMV_MAX_M = 32     # bf16: the swap-AB tensor-core body (its NT = 4 n8 tiles)
 _TARGET_CTAS = 264    # two CTAs per SM on the H100's 132
 _QMV_COLS = 512       # output columns per GEMV CTA (csrc/qmv.cuh)
 _SMEM_X_BYTES = 48 * 1024
@@ -47,21 +53,29 @@ _MMA_MIN_SLABS = 4    # K slabs a split runs at least (the cp.async ring fills)
 _MMA_CTAS_PER_SM = {32: 3, 64: 2, 128: 2, 256: 1}   # MmaCfg::kCtas
 _SMS = 132            # the H100's SMs
 _MMA_MAX_SPLITS = 8
+MMV_WIDTHS = (128, 256)      # columns a CTA of the decode body (csrc/quant_matmul.cu)
+_MMV_CTAS_PER_SM = {128: 4, 256: 2}   # MmvCfg::kCtas (the register cap)
+_SMEM_PER_SM = 233472        # the H100's shared memory an SM (228 KB)
+_SMEM_PER_CTA = 1024         # reserved by the runtime for each resident CTA
+SWAB_MIN_SLABS = 4           # K slabs a split of a swap-AB body runs at least
+SWAB_MAX_SPLITS = 16         # (the cp.async ring fills)
 
 _SIGNATURES = {
     "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "rama_qmm": [P, P, P, P, I, I, I, I, I, P],
     "rama_qmm_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "rama_qmv_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
 }
 
 
 def body_for(dtype: torch.dtype, m: int) -> str:
-    """The kernel body a CUDA call of M rows launches: "gemv" for M <=
-    GEMV_MAX_M, "mma" (tensor cores) for bf16 above it, "simt" (fp32 on the
-    CUDA cores) for fp32 above it."""
-    if m <= GEMV_MAX_M:
-        return "gemv"
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    """The kernel body a CUDA call of M rows launches: for bf16 "mmv" (the
+    swap-AB tensor-core body) up to MMV_MAX_M rows, then "mma" (the
+    tensor-core GEMM); for fp32 "gemv" (the CUDA-core GEMV) up to GEMV_MAX_M
+    rows, then "simt" (the CUDA-core tiled GEMM)."""
+    if dtype == torch.bfloat16:
+        return "mmv" if m <= MMV_MAX_M else "mma"
+    return "gemv" if m <= GEMV_MAX_M else "simt"
 
 
 def layer_of(qt: QuantizedTensor, layer: int | None) -> QuantizedTensor:
@@ -121,6 +135,64 @@ def mma_plan(m: int, n: int, k: int, k_block: int, vec: bool = True,
     ks = max(1, min(want, nslabs // _MMA_MIN_SLABS, nunits))
     sps = -(-nunits // ks) * unit
     return bm, -(-nslabs // sps), sps
+
+
+def mmv_ctas_per_sm(bn: int, nt: int, bits: int) -> int:
+    """CTAs of the decode body an SM holds: MmvCfg's register cap, or fewer
+    where its shared memory (swab_smem_bytes, csrc/swapab.cuh: a ring of 4
+    stages of x rows, raw weight bytes and scale rows) does not fit."""
+    xrows = 16 if nt < 2 else 8 * nt
+    qrows = MMA_BK if bits == 8 else MMA_BK // 2
+    stage = xrows * (MMA_BK + 8) * 2 + qrows * (bn + 16) + 4 * bn * 4
+    smem = max(4 * stage, xrows * (bn + 4) * 4)
+    return min(_MMV_CTAS_PER_SM[bn], _SMEM_PER_SM // (smem + _SMEM_PER_CTA))
+
+
+def split_options(k: int, k_block: int):
+    """Each way a swap-AB body (K1's qmv_mma, K3's ffn_mma) may split K
+    across CTAs: whole MMA_BK-row slabs and whole K blocks (k_block: a
+    scale group, or an int4 packing block), at least SWAB_MIN_SLABS slabs
+    a split where K has them, up to SWAB_MAX_SPLITS splits. Yields (ks,
+    sps): ks splits of sps slabs (the last may hold fewer), by rising ks."""
+    nslabs = -(-k // MMA_BK)
+    unit = math.lcm(MMA_BK, k_block) // MMA_BK     # slabs a split unit
+    nunits = -(-nslabs // unit)
+    seen = set()
+    for want in range(1, max(1, min(nunits, nslabs // SWAB_MIN_SLABS, SWAB_MAX_SPLITS)) + 1):
+        sps = -(-nunits // want) * unit
+        ks = -(-nslabs // sps)
+        if ks not in seen:
+            seen.add(ks)
+            yield ks, sps
+
+
+@functools.lru_cache(maxsize=None)
+def mmv_plan(m: int, n: int, k: int, k_block: int, bits: int, vec: bool = True,
+             sms: int = _SMS) -> tuple[int, int, int, int]:
+    """(bn, tiles, ks, sps) of the decode body: bn columns a CTA (one of
+    MMV_WIDTHS), `tiles` column tiles, and K in ks splits of sps slabs
+    (split_options). The grid that fills the most of one wave of CTA slots
+    (mmv_ctas_per_sm) without starting a second, the narrower width on a
+    tie: once every CTA is resident, a call takes about as long as its
+    longest split's stream, so the most CTAs that run at once win, and a
+    second, partial wave costs a whole split (a sweep over both widths and
+    1-32 splits at 7B's wqkv, wo and lm_head, int8 and int4, M = 1 / 8 / 16
+    / 32, on the H100). Where no split of either width fits one wave, 256
+    columns and one split. The masked path (vec False) has 128-column CTAs
+    only."""
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+    best = None
+    for bn in MMV_WIDTHS if vec else (128,):
+        tiles = -(-n // bn)
+        slots = sms * mmv_ctas_per_sm(bn, nt, bits)
+        for ks, sps in split_options(k, k_block):
+            fill = tiles * ks / slots
+            if fill <= 1 and (best is None or fill > best[0]):
+                best = (fill, bn, tiles, ks, sps)
+    if best is None:
+        bn = 256 if vec else 128
+        return bn, -(-n // bn), 1, -(-k // MMA_BK)
+    return best[1:]
 
 
 def mma_vec(x: torch.Tensor, qt: QuantizedTensor, qp: int, sp: int) -> bool:
@@ -185,7 +257,16 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
     lib = build.library("quant_matmul", _SIGNATURES)
     stream = build.stream_ptr(x)
     body = body_for(x.dtype, m)
-    if body == "gemv":
+    if body == "mmv":
+        vec = mma_vec(x, qt, qp, sp)
+        bn, tiles, ks, sps = mmv_plan(m, n, k, qt.k_block, qt.bits, vec)
+        part = (torch.empty((ks, m, tiles * bn), dtype=torch.float32, device=x.device)
+                if ks > 1 else y)
+        tk = build.tickets(x.device, tiles)
+        err = lib.rama_qmv_mma(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
+                               tk.data_ptr(), m, k, n, gs, qt.bits, bn, ks, sps, int(vec),
+                               stream)
+    elif body == "gemv":
         mt = rows_per_cta(m)
         col_tiles = -(-n // _QMV_COLS)
         ks, bps = split_k(k // qt.k_block, col_tiles, qt.k_block, mt)

@@ -683,12 +683,13 @@ def test_profile_prefill_is_a_known_phase_and_a_subset_is_not_ok(smoke):
 def test_quant_matmul_launch_counts_by_body_are_read_and_reset(smoke, counters):
     qm = counters[0]
     qm.launches[8], qm.launches[4] = 7, 2
-    qm.launches_by_body.update(gemv=4, mma=3, simt=2)
+    qm.launches_by_body.update(mmv=5, gemv=4, mma=3, simt=2)
     got = smoke.read_launches(*counters)
-    assert (got["quant_matmul"], got["quant_matmul_int4"], got["quant_matmul_gemv"],
-            got["quant_matmul_mma"], got["quant_matmul_simt"]) == (7, 2, 4, 3, 2)
+    assert (got["quant_matmul"], got["quant_matmul_int4"], got["quant_matmul_mmv"],
+            got["quant_matmul_gemv"], got["quant_matmul_mma"],
+            got["quant_matmul_simt"]) == (7, 2, 5, 4, 3, 2)
     smoke.reset_launches(*counters)
-    assert qm.launches_by_body == {"gemv": 0, "mma": 0, "simt": 0}
+    assert qm.launches_by_body == {"mmv": 0, "gemv": 0, "mma": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
@@ -701,14 +702,41 @@ def test_a_path_fails_when_quant_matmul_took_the_simt_body(smoke, path_name):
     the SIMT body (the fp32 tiled GEMM) fails the path."""
     path = getattr(smoke, path_name)
     assert path in smoke.PATHS
-    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
-          "prefill_attention_mma": 64, "prefill_attention_simt": 0,
-          "quant_matmul_gemv": 64, "quant_matmul_mma": 64, "quant_matmul_simt": 0}
-    for k, ref in path.get("equal", {}).items():
-        ok[k] = ok[ref]
+    ok = _quant_matmul_ok(path)
     smoke.check_launches(path, ok)
     with pytest.raises(SystemExit, match="quant_matmul launches .* took the SIMT body"):
         smoke.check_launches(path, {**ok, "quant_matmul_mma": 63, "quant_matmul_simt": 1})
+
+
+def _quant_matmul_ok(path) -> dict:
+    """Launch counts that pass `path`: every kernel it records launched 64
+    times, quant_matmul on the swap-AB body at M <= 8 and the GEMM above."""
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0,
+          "quant_matmul_mmv": 64, "quant_matmul_gemv": 0, "quant_matmul_mma": 64,
+          "quant_matmul_simt": 0}
+    for k, ref in path.get("equal", {}).items():
+        ok[k] = ok[ref]
+    return ok
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
+                                       "SPEC_KV8_PATH", "PAGED_PATH", "PAGED_KV8_PATH",
+                                       "SPEC_PAGED_PATH", "SPEC_PAGED_KV8_PATH", "AB1_PATH",
+                                       "AB2_PATH", "PREFILL_T1_PATH", "INT4_PATH",
+                                       "AB2_INT4_PATH"])
+def test_a_path_fails_when_quant_matmul_took_the_gemv(smoke, path_name):
+    """Every path runs bf16 activations: one quant_matmul launch on the
+    CUDA-core GEMV (the fp32 body at M <= 8) fails the path, and every path
+    records the swap-AB body's count beside quant_matmul's."""
+    path = getattr(smoke, path_name)
+    assert path["record"]["quant_matmul_mmv"] == path["record"]["quant_matmul"]
+    ok = _quant_matmul_ok(path)
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="quant_matmul launches .* took the CUDA-core GEMV"):
+        smoke.check_launches(path, {**ok, "quant_matmul_mmv": 63, "quant_matmul_gemv": 1})
+    with pytest.raises(SystemExit, match="never launched"):
+        smoke.check_launches(path, {**ok, "quant_matmul_mmv": 0})
 
 
 def test_ffn_launch_counts_by_body_are_read_and_reset(smoke, counters):

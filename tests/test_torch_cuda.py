@@ -98,11 +98,11 @@ def _int4_qt(dev, L, k, n, gs, seed):
                            bits=4).to(dev)
 
 
-@pytest.mark.parametrize("m", [9, 17, 33, 100])
+@pytest.mark.parametrize("m", [33, 47, 100, 129])
 @pytest.mark.parametrize("bits,gs", [(8, 32), (8, 16), (8, 8), (4, 16), (4, 48), (4, 32)])
 @pytest.mark.parametrize("n", [1000, 384])
 def test_quant_matmul_tensor_core_body(dev, m, bits, gs, n):
-    """The bf16 tensor-core GEMM at ragged M (not a multiple of 16), K 288
+    """The bf16 tensor-core GEMM at ragged M above MMV_MAX_M (not a multiple of 16), K 288
     (4.5 slabs of 64: the K tail), N 1000 (the masked path: weight rows
     not 16-byte aligned) and 384 (the cp.async path), int8 gs 32 / 16 (and
     8: the masked path) and int4 gs 16 / 48 (several packing blocks a slab,
@@ -119,17 +119,71 @@ def test_quant_matmul_tensor_core_body(dev, m, bits, gs, n):
     before = dict(qm.launches_by_body)
     got = qm.quant_matmul(x, w, 1)
     assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
-        "gemv": 0, "mma": 1, "simt": 0}
+        "mmv": 0, "gemv": 0, "mma": 1, "simt": 0}
     _close(got, qm.quant_matmul_plain(x, w, 1), torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [16, 32, 100, 256])
+# (bits, gs, K, N) of the swap-AB body: int8 gs 64 / 32 on the cp.async path
+# at N 384 (not a multiple of 256); N 1000 (off the 16 grid: the masked path);
+# int8 gs 48 (masked); K of one K block (int8 gs 64 at K 64, int4 gs 16 at K
+# 32, N 272); int4 gs 16 (7B w2's group size, cp.async), gs 2 and 48 (masked)
+_MMV_CASES = [(8, 64, 256, 384), (8, 32, 288, 1000), (8, 48, 192, 200), (8, 64, 64, 384),
+              (4, 16, 256, 384), (4, 2, 288, 1000), (4, 48, 768, 384), (4, 16, 32, 272)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 17, 32])
+@pytest.mark.parametrize("case", _MMV_CASES)
+def test_quant_matmul_swap_ab_body(dev, m, case):
+    """The bf16 swap-AB body at decode M (one n8 tile up to 8 rows, two or
+    four for a verify round's 17 / 32), layer 0 and the last layer of a
+    stacked weight and a 2-D one: one launch on mmv a call, within the bf16
+    bar of the plain version, and a rerun bit for bit."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    bits, gs, k, n = case
+    seed = m * 13 + gs + k + n
+    w = _int4_qt(dev, 3, k, n, gs, seed) if bits == 4 else _qt(dev, 3, k, n, gs, seed)
+    assert w.group_size == gs
+    w2d = type(w)(q=w.q[2].contiguous(), scales=w.scales[2].contiguous(), group_size=gs,
+                  bits=bits)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    for weight, layer in ((w, 0), (w, 2), (w2d, None)):
+        before = dict(qm.launches_by_body)
+        got = qm.quant_matmul(x, weight, layer)
+        assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
+            "mmv": 1, "gemv": 0, "mma": 0, "simt": 0}
+        assert torch.equal(got, qm.quant_matmul(x, weight, layer))
+        _close(got, qm.quant_matmul_plain(x, weight, layer), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("bits,k,n", [(8, 4096, 12288), (8, 4096, 4096), (4, 4096, 4096),
+                                      (4, 11008, 4096), (8, 4096, 32000)])
+def test_quant_matmul_swap_ab_splits(dev, m, bits, k, n):
+    """7B wqkv, wo, int4 wo and w2 (gs 16) and lm_head through the swap-AB
+    body's split-K plan (several splits but lm_head's two) and its last-CTA
+    reduce: against the plain version, and twice bit for bit."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    gs = 16 if k == 11008 else 64
+    w = (_int4_qt(dev, 1, k, n, gs, seed=m + k) if bits == 4
+         else _qt(dev, 1, k, n, gs, seed=m + k + n))
+    assert qm.mmv_plan(m, n, k, w.k_block, bits)[2] > 1
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    before = qm.launches_by_body["mmv"]
+    got = qm.quant_matmul(x, w, 0)
+    assert torch.equal(got, qm.quant_matmul(x, w, 0))
+    assert qm.launches_by_body["mmv"] == before + 2
+    _close(got, qm.quant_matmul_plain(x, w, 0), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [33, 48, 100, 256])
 @pytest.mark.parametrize("bits,k,n", [(8, 4096, 4096), (4, 4096, 4096), (4, 11008, 512),
                                       (8, 11008, 512)])
 def test_quant_matmul_tensor_core_splits(dev, m, bits, k, n):
-    """7B-deep K through the split-K plan (several splits at small M, one
-    at M 256 for N 512) and the last-CTA reduce: against the plain version,
-    twice bit for bit (the split order is fixed)."""
+    """7B-deep K through the GEMM's split-K plan (several splits at M above
+    MMV_MAX_M, one at M 256 for N 512) and the last-CTA reduce: against the
+    plain version, twice bit for bit (the split order is fixed)."""
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
 
     w = _qt(dev, 1, k, n, 64, seed=m + k + bits, bits=bits)
@@ -140,16 +194,18 @@ def test_quant_matmul_tensor_core_splits(dev, m, bits, k, n):
 
 
 def test_quant_matmul_counts_each_body(dev):
-    """bf16 at M > 8 counts on mma, fp32 on simt, M <= 8 on gemv."""
+    """bf16 counts on mmv up to M = 32 and on mma above; fp32 on gemv up to
+    M = 8 and on simt above."""
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
 
     w = _qt(dev, 1, 256, 384, 64, seed=11)
     before = dict(qm.launches_by_body)
-    for m, dtype in ((8, torch.bfloat16), (9, torch.bfloat16), (9, torch.float32),
-                     (64, torch.float32), (64, torch.bfloat16)):
+    for m, dtype in ((8, torch.bfloat16), (9, torch.bfloat16), (32, torch.bfloat16),
+                     (8, torch.float32), (9, torch.float32), (64, torch.float32),
+                     (64, torch.bfloat16)):
         qm.quant_matmul(torch.randn(m, 256, device=dev).to(dtype), w, 0)
     assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
-        "gemv": 1, "mma": 2, "simt": 2}
+        "mmv": 3, "gemv": 1, "mma": 1, "simt": 2}
 
 
 def test_quant_matmul_int4_rejects_split_packing_block(dev):

@@ -18,8 +18,9 @@ from rama_tpu.ops import quant as jq
 from rama_tpu.ops.pallas.quant_matmul import quant_matmul, quant_matmul_layered
 from rama_tpu_torch.ops import quant as tq
 from rama_tpu_torch.ops.kernels import quant_matmul as qm
-from rama_tpu_torch.ops.kernels.quant_matmul import (MMA_BK, MMA_BN, body_for, mma_plan,
-                                                     mma_vec, quant_matmul as t_quant_matmul,
+from rama_tpu_torch.ops.kernels.quant_matmul import (MMA_BK, MMA_BN, MMV_WIDTHS, body_for,
+                                                     mma_plan, mma_vec, mmv_plan,
+                                                     quant_matmul as t_quant_matmul,
                                                      quant_matmul_plain, split_k)
 
 torch.set_num_threads(1)
@@ -136,14 +137,76 @@ def test_k_block_is_the_packing_block_for_int4():
 
 
 @pytest.mark.parametrize("m,dtype,body", [
-    (1, torch.bfloat16, "gemv"), (8, torch.bfloat16, "gemv"), (8, torch.float32, "gemv"),
-    (9, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"), (4096, torch.bfloat16, "mma"),
+    (1, torch.bfloat16, "mmv"), (8, torch.bfloat16, "mmv"), (8, torch.float32, "gemv"),
+    (1, torch.float32, "gemv"), (9, torch.bfloat16, "mmv"), (32, torch.bfloat16, "mmv"),
+    (33, torch.bfloat16, "mma"), (4096, torch.bfloat16, "mma"),
     (9, torch.float32, "simt"), (4096, torch.float32, "simt"),
 ])
 def test_body_for_picks_gemv_then_mma_for_bf16_and_simt_for_fp32(m, dtype, body):
-    """The body a CUDA call launches: the GEMV up to GEMV_MAX_M rows, then
-    the tensor-core GEMM for bf16 and the CUDA-core tiled GEMM for fp32."""
+    """The body a CUDA call launches: for bf16 the swap-AB tensor-core body
+    up to MMV_MAX_M rows (a decode step, a verify round of 8 x 4), then the
+    tensor-core GEMM; for fp32 the CUDA-core GEMV up to GEMV_MAX_M rows,
+    then the CUDA-core tiled GEMM."""
+    assert (qm.MMV_MAX_M, qm.GEMV_MAX_M) == (32, 8)
     assert body_for(dtype, m) == body
+
+
+# (n, k, k_block, bits): 7B wqkv, wo, lm_head int8 gs 64; int4 gs 64
+# (packing blocks of 128 rows); int4 w2 gs 16; ragged stories / tiny shapes
+_MMV_SHAPES = [(12288, 4096, 64, 8), (4096, 4096, 64, 8), (32000, 4096, 64, 8),
+               (12288, 4096, 128, 4), (4096, 4096, 128, 4), (4096, 11008, 32, 4),
+               (1000, 288, 32, 8), (384, 288, 96, 8), (200, 176, 2, 4), (64, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("n,k,k_block,bits", _MMV_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("vec", [True, False])
+def test_mmv_plan_covers_every_slab_once_in_whole_k_blocks(n, k, k_block, bits, m, vec):
+    """The decode body's plan: a CTA width the kernel has (128 only on the
+    masked path), column tiles covering N, every 64-row K slab in exactly
+    one split, no split empty, every split boundary on a K block boundary
+    (a scale group, or an int4 packing block)."""
+    bn, tiles, ks, sps = mmv_plan(m, n, k, k_block, bits, vec)
+    assert bn in (MMV_WIDTHS if vec else (128,))
+    assert tiles == -(-n // bn)
+    nslabs = -(-k // MMA_BK)
+    bounds = [min(i * sps, nslabs) for i in range(ks + 1)]
+    assert bounds[0] == 0 and bounds[-1] == nslabs
+    assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))   # none empty
+    assert all(b * MMA_BK % k_block == 0 for b in bounds[1:-1])  # whole K blocks
+    assert ks == 1 or sps >= 4                                  # the ring fills
+
+
+@pytest.mark.parametrize("n,k,k_block,bits", _MMV_SHAPES[:6])
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+def test_mmv_plan_fills_one_wave_at_the_7b_shapes(n, k, k_block, bits, m):
+    """At the 7B shapes the grid fits one wave of CTA slots (132 SMs x the
+    CTAs an SM holds at that width, n8 tile count and weight type) and
+    fills at least 90 % of it."""
+    bn, tiles, ks, sps = mmv_plan(m, n, k, k_block, bits)
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+    slots = 132 * qm.mmv_ctas_per_sm(bn, nt, bits)
+    assert 0.9 * slots <= tiles * ks <= slots
+
+
+def test_mmv_plan_is_the_swept_one_at_the_7b_shapes():
+    """The plans that the H100 sweep found fastest (PERF.md §6): 128
+    columns and five splits for wqkv, sixteen for wo, two for lm_head at
+    decode M; at M = 32 (three 128-column CTAs an SM for int8) four splits
+    for wqkv and 256 columns for wo and lm_head."""
+    assert [mmv_plan(8, n, k, kb, b)[::3] for n, k, kb, b in _MMV_SHAPES[:5]] == [
+        (128, 13), (128, 4), (128, 32), (128, 14), (128, 4)]
+    assert [mmv_plan(8, n, k, kb, b)[2] for n, k, kb, b in _MMV_SHAPES[:5]] == [5, 16, 2, 5, 16]
+    assert [mmv_plan(32, n, k, kb, 8)[:3] for n, k, kb, _ in _MMV_SHAPES[:3]] == [
+        (128, 96, 4), (256, 16, 16), (256, 125, 2)]
+
+
+def test_mmv_ctas_per_sm_follow_registers_and_shared_memory():
+    """Four 128-column CTAs an SM (the register cap) but three at NT = 4
+    int8 (63.5 KB of shared memory each); two 256-column CTAs."""
+    assert [qm.mmv_ctas_per_sm(128, nt, 8) for nt in (1, 2, 4)] == [4, 4, 3]
+    assert [qm.mmv_ctas_per_sm(128, nt, 4) for nt in (1, 2, 4)] == [4, 4, 4]
+    assert [qm.mmv_ctas_per_sm(256, nt, b) for nt in (1, 4) for b in (8, 4)] == [2, 2, 2, 2]
 
 
 @pytest.mark.parametrize("m,n,k,k_block", [
