@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time the verify-round attention of a checkout of the port on one card,
+so that two trees can be compared back to back, in turns.
+
+    python3 chip_ab.py --root DIR --tag NAME    # the port under DIR/rama_tpu_torch
+
+Prints one JSON line per measure (`{"tag": ..., "measure": ..., ...}`), all
+on the Llama-2-7B shapes that chip_smoke.py uses (32 heads = 32 kv heads,
+head_dim 128, 8 slots, random data from a seed):
+
+  - the chunk attention (K10) on a bf16 cache, S 1024, T 4 and 8; on an
+    int8 cache, S 1024 and 4096, T 4; the paged chunk (K12) on bf16 and
+    int8 pools of 128-row pages, T 4: the split kernel's and the combine's
+    device ms (torch.profiler), CUDA-event ms a call, and the T = 1 kernel
+    (K4 / K7 / K12 decode) over the same rows beside it;
+    scaled_dot_product_attention's CUDA-event and device ms at T 4 / 8;
+  - 8-slot 7B int8 verify rounds of 4 and plain decode steps at pos 64 (a
+    128-row bf16 cache) and at pos 2048 (4096-row bf16 and int8 caches):
+    device ms a round or step, and the attention's part of it.
+
+It uses only entry points that every slice of the port since the paged
+cache has, and chip_smoke.py's helpers from its own directory, so it can
+time an older checkout: unpack it (git archive) under a git-ignored
+directory and pass it as --root. Compare two trees only on the same
+card, back to back, in turns (parent, change, change, parent). Needs a
+CUDA card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE), help="checkout whose rama_tpu_torch is timed")
+    ap.add_argument("--tag", default="tree")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    # chip_smoke.py's helpers from this directory, whatever --root holds
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch.nn.functional as F
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, _rope_tables
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+
+    assert Path(da.__file__).resolve().is_relative_to(Path(args.root).resolve()), da.__file__
+    dev = torch.device("cuda")
+    cfg = cs.seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(12)
+    gc = torch.Generator().manual_seed(12)
+    bf = torch.bfloat16
+    nh, nkv, hd, B = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+
+    def emit(measure: str, **kw) -> None:
+        print(json.dumps({"tag": args.tag, "measure": measure, **kw}), flush=True)
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def attention(measure, fn, one, lib=None) -> None:
+        """fn / one: a call on a layer (the chunk, the T = 1 kernel on the
+        same rows); lib: the SDPA call, or None."""
+        lay = cs.Layered(4)
+        rec = dict(ms=cs.time_ms(torch, lambda: fn(lay.next())),
+                   chunk=cs.attention_split_combine(torch, lambda: fn(lay.next())),
+                   one_query=cs.attention_split_combine(torch, lambda: one(lay.next())))
+        one_ms = rec["one_query"]["split_ms"]
+        rec["split_over_one_query"] = rec["chunk"]["split_ms"] / one_ms if one_ms else None
+        if lib is not None:
+            rec["library_ms"] = cs.time_ms(torch, lambda: lib(lay.next()))
+            rec["library_device_ms"] = cs.device_ms_per_call(torch, lambda: lib(lay.next()))
+        emit(measure, **rec)
+
+    # -- K10, bf16 cache, S 1024 ------------------------------------------------------
+    S = 1024
+    k, v = rx(4, B, nkv, S, hd), rx(4, B, nkv, S, hd)
+    for t in (4, 8):
+        pos0 = torch.tensor([0, 61, 128, 255, 511, 700, 900, S - 4], dtype=torch.int32,
+                            device=dev)
+        pos0 = (pos0 - (t - 4)).clamp(min=0)
+        q, q1 = rx(B, t, nh, hd), rx(B, nh, hd)
+        last = (pos0 + t - 1).clamp(max=S - 1)
+        vis = da._visible(pos0, t, S)[:, None]
+        attention(f"chunk_attention S={S} T={t}",
+                  lambda l: da.chunk_attention(q, k, v, pos0, l),
+                  lambda l: da.decode_attention(q1, k, v, last, l),
+                  lambda l: F.scaled_dot_product_attention(q.transpose(1, 2), k[l], v[l],
+                                                           attn_mask=vis))
+    del k, v
+
+    # -- K10, int8 cache, S 1024 and 4096 ------------------------------------------------
+    for S, pos in ((1024, [0, 61, 128, 255, 511, 700, 900, 1020]),
+                   (4096, [0, 63, 1021, 2047, 3000, 4000, 4090, 4092])):
+        c = cs.quantized_cache(torch, kvw, rx, 4, B, nkv, S, hd)
+        pos0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q, q1 = rx(B, 4, nh, hd), rx(B, nh, hd)
+        last = (pos0 + 3).clamp(max=S - 1)
+        attention(f"chunk_attention_q8 S={S} T=4",
+                  lambda l: da.chunk_attention_q8(q, *c, pos0, l),
+                  lambda l: da.decode_attention_q8(q1, *c, last, l))
+        del c
+        torch.cuda.empty_cache()
+
+    # -- K12 chunk, 128-row pages, mp 32 ---------------------------------------------------
+    S, ps = 4096, 128
+    p0 = torch.tensor([0, 127, 128, 255, 1000, 2047, 3000, 4092], dtype=torch.int32)
+    tables, npages = cs.paged_tables(torch, [min(int(p) + 4, S) for p in p0], ps, S // ps, 8, gc)
+    tables, p0 = tables.to(dev), p0.to(dev)
+    kv = [rx(4, npages, nkv, ps, hd) for _ in range(2)]
+    q8p = [None] * 4
+    q8p[0], q8p[2] = kvw.kv_quant_rows(kv[0].float())
+    q8p[1], q8p[3] = kvw.kv_quant_rows(kv[1].float())
+    q, q1 = rx(B, 4, nh, hd), rx(B, nh, hd)
+    last = (p0 + 3).clamp(max=S - 1)
+    attention("paged_chunk_attention ps=128 T=4",
+              lambda l: pga.paged_chunk_attention(q, *kv, p0, tables, l),
+              lambda l: pga.paged_decode_attention(q1, *kv, last, tables, l))
+    attention("paged_chunk_attention_q8 ps=128 T=4",
+              lambda l: pga.paged_chunk_attention_q8(q, *q8p, p0, tables, l),
+              lambda l: pga.paged_decode_attention_q8(q1, *q8p, last, tables, l))
+    del kv, q8p
+    torch.cuda.empty_cache()
+
+    # -- 7B int8 verify rounds and decode steps ------------------------------------------
+    params = cs.random_params(torch, cfg, dev, bits=8)
+    for chunk in (1, cs.SPEC_TICK + 1):
+        r = cs.phase_profile(torch, cfg, params, tag=f"ab {args.tag}", chunk=chunk)
+        emit(f"profile pos 64 bf16 chunk {chunk}", **r)
+    long = dict(params)
+    long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=cs.KV8_MAX_LEN)
+    for name, cls in (("bf16", KVCache), ("int8", QuantKVCache)):
+        cache = cls.create(cfg, 8, cs.KV8_MAX_LEN, device=dev)
+        for chunk in (1, cs.SPEC_TICK + 1):
+            r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache,
+                                 start=2048, chunk=chunk)
+            emit(f"profile pos 2048 {name} chunk {chunk}", **r)
+        del cache
+        torch.cuda.empty_cache()
+    emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -81,17 +81,24 @@ Phases, in order (any failure raises and the script exits non-zero):
            on a bf16 and an int8 cache (rel 0.05 per (slot, query, head))
            at the 7B shapes, T 2 / 4 / 8, ragged chunk starts straddling
            the 64-row splits and reaching S, with planted edge rows at
-           pos0 + t and pos0 + t + 1; the chunk writer (K11) exact, with
-           chunks straddling a 32-row window and reaching S; K4 at the
-           stories15M draft's head_dim 48; CUDA-event times beside K4 / K6
-           on the same rows
+           pos0 + t and pos0 + t + 1, every launch on the tensor-core body
+           (by the launch counts by body); GQA rep 2 / 4, hd 16 / 48 / 64 /
+           128, bf16 (hd 48 / 64 / 128 on the tensor-core body) and fp32
+           (the SIMT body); the chunk writer (K11) exact, with chunks straddling a
+           32-row window and reaching S; K4 at the stories15M draft's
+           head_dim 48; CUDA-event times beside K4 / K6 on the same rows;
+           device ms of the split kernel and the combine beside the T = 1
+           split on the same rows (the profiled split kernel must be
+           dattn_mma for both), and SDPA's CUDA-event and device ms
   model_spec   7B int8 forward_chunk (T 4) through the kernels against the
            plain path on a bf16 and an int8 cache of 4096 rows, chunk
            starts 8, 61, 1500, 1021 and 4092
   serve_spec   the server on 8 slots with spec_tick 3 (n-gram drafts,
            always speculating): 8 concurrent /gen, tok/s, TTFT, accept rate
   profile_spec the profile of an 8-slot verify round (T 4) against an
-           8-slot plain decode step, bf16 and int8 caches
+           8-slot plain decode step, bf16 and int8 caches, at pos 64 of a
+           128-row cache and at pos 2048 of a 4096-row one (the attention's
+           device ms a round or step beside the total)
   spec_draft   the engine in draft mode with the target as its own draft
            (accept rate >= 0.9; a spec-off run of the same requests,
            outside the launch count, for the first differing position),
@@ -104,9 +111,12 @@ Phases, in order (any failure raises and the script exits non-zero):
            TOL per (slot, query, head), the 1e-2 bar logged) at positions on
            page edges, T 1 / 4 / 8, planted edges, and against K4 / K7 / K10
            over the gathered dense view (bit for bit where the 64-row splits
-           coincide); a 16-row-page case; the paged writers (K13) exact, rows
-           past a table clipped into its last page; CUDA-event times beside
-           the dense kernels on the same rows
+           coincide); a 16-row-page case; hd 64 / 48 at GQA rep 2 / 1 over
+           32- / 24-row pages; every launch on the tensor-core body in
+           bf16, the SIMT body in fp32 (by the counts by body and the
+           profiled split kernel); the paged writers (K13) exact, rows past
+           a table clipped into its last page; CUDA-event times beside the
+           dense kernels on the same rows
   model_paged  7B int8 decode steps and chunks (T 4) through the paged
            kernels against the plain path on a dense cache of the same rows,
            bf16 and int8 pools, positions up to 4092
@@ -168,7 +178,11 @@ of a path that records K5 must be on its tensor-core body, and every
 quant_matmul and ffn launch of every path on a tensor-core body: the
 swap-AB body at M <= 32, the GEMM above, never the CUDA-core GEMV or
 tiled GEMM (`[launches]`: `quant_matmul_mmv` / `_gemv` / `_mma` / `_simt`,
-`ffn_mma` / `ffn_simt`). The int8 KV,
+`ffn_mma` / `ffn_simt`), and every decode-attention launch (K4, K7, K9,
+K10, and K12 on the pools: decode steps and verification chunks alike) on
+its tensor-core body (`decode_attention_mma` / `_simt`,
+`paged_attention_mma` / `_simt`; the kernels record keeps each path's
+counts by body, `launches_by_body`). The int8 KV,
 speculation, attention-block and T = 1 paths reuse the int8 path's params. The line before
 last holds the card's name and power limit, the line before that the
 {"kernels": [...]} record, and the last line the {"ok": true, ...} result,
@@ -203,6 +217,25 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "prefill_t1", "model4", "serve4", "profile4", "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
+ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma")   # the attention split kernel's bodies
+# the decode-attention kernel's two wrappers, each counting its launches by
+# body: the name of those counts in read_launches -> (the records of its
+# entries, bodies)
+ATTN_FAMILIES = {
+    "decode_attention": (("decode_attention", "decode_attention_q8", "decode_attention_flat",
+                          "decode_attention_flat_q8", "chunk_attention", "chunk_attention_q8"),
+                         ("mma", "simt")),
+    "paged_attention": (("paged_decode_attention", "paged_decode_attention_q8",
+                         "paged_chunk_attention", "paged_chunk_attention_q8"), ("mma", "simt"))}
+# the kernels whose launches are also counted by body: record name ->
+# (prefix of those counts in read_launches, bodies)
+BODY_COUNTS = {
+    **{name: (family, bodies) for family, (names, bodies) in ATTN_FAMILIES.items()
+       for name in names},
+    "prefill_attention": ("prefill_attention", ("mma", "simt")),
+    **{name: ("quant_matmul", ("mmv", "gemv", "mma", "simt"))
+       for name in ("quant_matmul", "quant_matmul_int4")},
+    **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")}}
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
@@ -490,7 +523,8 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
-    for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body):
+    for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body,
+                   da.launches_by_body, pga.launches_by_body):
         for body in bodies:
             bodies[body] = 0
 
@@ -508,6 +542,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "chunk_attention_q8": da.launches_chunk_q8,
             "decode_attention_flat": da.launches_flat,
             "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
+            **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
+            **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
             **ab.launches}
 
 
@@ -520,7 +556,9 @@ def check_launches(path: dict, launches: dict) -> None:
     the stories draft, bf16 at hd 48, takes the tensor-core body), or on
     which a quant_matmul or ffn launch took the SIMT body (every path runs
     bf16 activations: the tensor-core bodies serve them, the swap-AB one
-    at M <= 32 and the GEMM above)."""
+    at M <= 32 and the GEMM above), or on which a decode-attention launch
+    (K4, K7, K9, K10; K12 on the pools: bf16 at hd 128, and the stories
+    draft's 48) took the SIMT body."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -550,6 +588,11 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['ffn_simt']} ffn launches on the {path['label']} "
                          f"main path took the SIMT body, not the tensor-core one "
                          f"({launches['ffn_mma']} did)")
+    for family, (names, _) in ATTN_FAMILIES.items():
+        if set(names) & set(path["record"]) and launches.get(f"{family}_simt", 0):
+            raise SystemExit(f"FAILED: {launches[f'{family}_simt']} {family} launches on the "
+                             f"{path['label']} main path took the SIMT body, not the "
+                             f"tensor-core one ({launches[f'{family}_mma']} did)")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -1454,24 +1497,57 @@ def attention_bytes_ops(pos0, t: int, s: int, nkv: int, nh: int, hd: int, row_by
     return float(rows.sum()) * nkv * row_bytes + 2 * q_bytes, seen * nh * hd * 4.0
 
 
-def attention_split_combine(torch, fn, reps: int = 10) -> dict:
+def attention_split_combine(torch, fn, reps: int = 10, tries: int = 3) -> dict:
     """Device ms per launch of the decode / chunk attention's two kernels,
-    the split kernel and the combine pass, by torch.profiler over `reps`
-    calls of fn."""
+    the split kernel (either body) and the combine pass, by torch.profiler
+    over `reps` calls of fn, with the split kernel's name as the profiler
+    gives it. A session that records no split kernel (the profiler
+    sometimes records no device event) is repeated, up to `tries`; after
+    that the times are 0 and the name list empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {"split_ms": 0.0, "combine_ms": 0.0}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        for name in ("split", "combine"):
-            if f"dattn_{name}" in ev.key:
-                out[f"{name}_ms"] += dt / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {"split_ms": 0.0, "combine_ms": 0.0, "split_kernel": []}
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if any(k in ev.key for k in ATTN_SPLIT_KERNELS):
+                out["split_ms"] += dt / 1e3 / reps
+                out["split_kernel"].append(ev.key.split("(")[0])
+            elif "dattn_combine" in ev.key:
+                out["combine_ms"] += dt / 1e3 / reps
+        if out["split_kernel"]:
+            break
+    return out
+
+
+def check_split_body(label: str, parts: dict, body: str) -> None:
+    """Fail unless every split kernel that attention_split_combine saw is
+    `body`'s: dattn_mma for "mma", dattn_split for "simt". Where the
+    profiler saw none (no device event in any session) a line says so; the
+    launch counts by body still check the body."""
+    want = {"mma": "dattn_mma<", "simt": "dattn_split<"}[body]
+    names = parts["split_kernel"]
+    if not names:
+        log(f"[check] {label}: torch.profiler recorded no split kernel; its body is "
+            f"checked by the launch counts only")
+    elif not all(want in k for k in names):
+        raise SystemExit(f"FAILED {label}: split kernel {names}, not {want}...>")
+
+
+def on_body(counts: dict, body: str, label: str, fn):
+    """Run fn (one kernel launch) and fail unless it launched once, on
+    `body`, by `counts` (a wrapper's launches by body). Returns fn()."""
+    before = dict(counts)
+    out = fn()
+    ran = {b: counts[b] - before[b] for b in counts}
+    if ran != {b: int(b == body) for b in counts}:
+        raise SystemExit(f"FAILED {label}: launches by body {ran}, not one on {body}")
     return out
 
 
@@ -1543,9 +1619,11 @@ def phase_kernels_spec(torch, results: dict) -> None:
                 for l in layers:
                     if planted:
                         plant_chunk_edges(q, cache, pos0, l, split_edges, kvw if q8 else None)
-                    compare(torch, f"{kernel.__name__} {label} T={t} layer={l} "
-                            f"pos0={pos0.tolist()}{' planted edges' if planted else ''}",
-                            kernel(q, *cache, pos0, l), plain(q, *cache, pos0, l), per=hd)
+                    name = (f"{kernel.__name__} {label} T={t} layer={l} pos0={pos0.tolist()}"
+                            f"{' planted edges' if planted else ''}")
+                    got = on_body(da.launches_by_body, "mma", name,
+                                  lambda: kernel(q, *cache, pos0, l))
+                    compare(torch, name, got, plain(q, *cache, pos0, l), per=hd)
 
     def time_chunk(q8, cache, s, n_layers, t, pos0) -> dict:
         kernel = da.chunk_attention_q8 if q8 else da.chunk_attention
@@ -1570,15 +1648,11 @@ def phase_kernels_spec(torch, results: dict) -> None:
             one_query=attention_split_combine(torch, lambda: one(q1, *cache, last, lay.next())),
             chunk_occupancy=da.occupancy(t, nh, nkv, hd, q8),
             one_query_occupancy=da.occupancy(1, nh, nkv, hd, q8))
-        if s == KV8_MAX_LEN:   # rows a CTA: the split count against each CTA's work
-            saved = da.CHUNK
-            try:
-                for rows_a_cta in (128, 256):
-                    da.CHUNK = rows_a_cta
-                    parts[f"chunk_{rows_a_cta}_rows_a_cta_ms"] = time_ms(
-                        torch, lambda: kernel(q, *cache, pos0, lay.next()))
-            finally:
-                da.CHUNK = saved
+        check_split_body(f"{kernel.__name__} S={s} T={t}", parts["chunk"], "mma")
+        check_split_body(f"{one.__name__} S={s}", parts["one_query"], "mma")
+        # the chunk split's device time over the T = 1 split's on the same rows
+        parts["split_over_one_query"] = (parts["chunk"]["split_ms"] / parts["one_query"]["split_ms"]
+                                         if parts["one_query"]["split_ms"] else None)
         log(f"[time] {kernel.__name__} S={s} T={t} breakdown {json.dumps(parts)}")
         t_lib, note = None, ("no single PyTorch call attends over an int8 cache with row "
                              "scales (dequantize + SDPA is two)" if q8 else None)
@@ -1591,8 +1665,10 @@ def phase_kernels_spec(torch, results: dict) -> None:
                                                       cache[1][l], attn_mask=vis)
 
             t_lib = time_ms(torch, sdpa)
+            parts["library_device_ms"] = device_ms_per_call(torch, sdpa)
         log(f"[time] {kernel.__name__} S={s} T={t}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), library {t_lib}; {one.__name__} on the same rows "
+            f"{b_ms:.4f} ms ({b_by}), library {t_lib} (device "
+            f"{parts.get('library_device_ms')}); {one.__name__} on the same rows "
             f"{t_one:.4f} ms")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                     library_ms=t_lib, library_note=note, same_rows_one_query_ms=t_one,
@@ -1633,19 +1709,25 @@ def phase_kernels_spec(torch, results: dict) -> None:
     del c
     torch.cuda.empty_cache()
     # GQA rep 2 and 4 (rows T * rep up to the kernel's 8), stories15M's hd 48,
-    # fp32 and bf16 q, both caches
-    for nh_s, nkv_s, hd_s, t in ((4, 2, 16, 4), (8, 2, 16, 2), (6, 6, 48, 8), (8, 1, 128, 1)):
+    # hd 64, fp32 and bf16 q, both caches; bf16 at hd 48 / 64 / 128 on the
+    # tensor-core body, fp32 and hd 16 on the SIMT body
+    for nh_s, nkv_s, hd_s, t in ((4, 2, 16, 4), (8, 2, 16, 2), (6, 6, 48, 8), (8, 1, 128, 1),
+                                 (8, 4, 64, 4), (4, 1, 64, 2), (4, 4, 64, 2)):
         for dt in (bf, f32):
+            body = "mma" if dt == bf and hd_s != 16 else "simt"
             ps = torch.tensor([0, 61, 77], dtype=torch.int32, device=dev)
             qs = rx(3, t, nh_s, hd_s, dtype=dt)
             kd, vd = rx(2, 3, nkv_s, 80, hd_s, dtype=dt), rx(2, 3, nkv_s, 80, hd_s, dtype=dt)
-            compare(torch, f"chunk_attention rep={nh_s // nkv_s} hd={hd_s} T={t} {dt}",
-                    da.chunk_attention(qs, kd, vd, ps, 1),
+            name = f"chunk_attention rep={nh_s // nkv_s} hd={hd_s} T={t} {dt} [{body}]"
+            compare(torch, name, on_body(da.launches_by_body, body, name,
+                                         lambda: da.chunk_attention(qs, kd, vd, ps, 1)),
                     da.chunk_attention_plain(qs, kd, vd, ps, 1), per=hd_s)
             k8s, kss = kvw.kv_quant_rows(kd.float())
             v8s, vss = kvw.kv_quant_rows(vd.float())
-            compare(torch, f"chunk_attention_q8 rep={nh_s // nkv_s} hd={hd_s} T={t} {dt}",
-                    da.chunk_attention_q8(qs, k8s, v8s, kss, vss, ps, 1),
+            name = f"chunk_attention_q8 rep={nh_s // nkv_s} hd={hd_s} T={t} {dt} [{body}]"
+            compare(torch, name, on_body(da.launches_by_body, body, name,
+                                         lambda: da.chunk_attention_q8(qs, k8s, v8s, kss, vss,
+                                                                       ps, 1)),
                     da.chunk_attention_q8_plain(qs, k8s, v8s, kss, vss, ps, 1), per=hd_s)
     try:
         da.check_rows(3, 8, 2)
@@ -1851,9 +1933,10 @@ def phase_kernels_paged(torch, results: dict) -> None:
                 if planted:
                     plant_paged_edges(q, pools, tables, p0, l, edges, kvw if q8 else None)
                     dense = dense_of(pools, tables)
-                got = kernel(qq, *pools, p0, tables, l)
-                compare(torch, f"{label} layer={l}{' planted edges' if planted else ''}",
-                        got, plain(qq, *pools, p0, tables, l), per=hd, bar=1e-2)
+                name_l = f"{label} layer={l}{' planted edges' if planted else ''}"
+                got = on_body(pga.launches_by_body, "mma", name_l,   # bf16 at hd 128
+                              lambda: kernel(qq, *pools, p0, tables, l))
+                compare(torch, name_l, got, plain(qq, *pools, p0, tables, l), per=hd, bar=1e-2)
                 ref = dense_k(qq, *dense, p0, l)
                 compare(torch, f"{label} layer={l} against the dense kernel over the same rows",
                         got, ref, per=hd)
@@ -1882,6 +1965,8 @@ def phase_kernels_paged(torch, results: dict) -> None:
                      dense_same_rows=attention_split_combine(
                          torch, lambda: dense_k(qq, *dense, p0, lay.next())),
                      occupancy=da.occupancy(t, nh, nkv, hd, q8, chunk=split))
+        for form in ("paged", "dense_same_rows"):
+            check_split_body(f"{label} {form}", parts[form], "mma")
         log(f"[time] {label}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
             f"dense kernel over the same rows {t_d:.4f} ms; breakdown {json.dumps(parts)}")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
@@ -1909,6 +1994,27 @@ def phase_kernels_paged(torch, results: dict) -> None:
                                                                timed=True)
     check_and_time("paged_chunk_attention_q8", 4, 16, timed=False)
     torch.cuda.empty_cache()
+    # hd 64 and 48 at GQA rep 2 / 1 over pages of 32 / 24 rows (splits of 32 /
+    # 24 rows: the latter ends in a half-used 16-row block), both pools, bf16
+    # on the tensor-core body and fp32 on the SIMT body
+    for nh_s, nkv_s, hd_s, t, ps_s in ((8, 4, 64, 4, 32), (6, 6, 48, 8, 24)):
+        pos_s = [0, ps_s - 1, 3 * ps_s + 5, 5 * ps_s - t]
+        tb, npg = paged_tables(torch, [p + t for p in pos_s], ps_s, 5, 3, gc)
+        tb, p0s = tb.to(dev), torch.tensor(pos_s, dtype=torch.int32, device=dev)
+        for dt in (bf, f32):
+            body = "mma" if dt == bf else "simt"
+            kv = [rx(2, npg, nkv_s, ps_s, hd_s, dtype=dt) for _ in range(2)]
+            (k8s, kss), (v8s, vss) = (kvw.kv_quant_rows(x.float()) for x in kv)
+            qs = rx(4, t, nh_s, hd_s, dtype=dt)
+            for fn, plain, pools in ((pga.paged_chunk_attention, pga.paged_chunk_attention_plain,
+                                      kv),
+                                     (pga.paged_chunk_attention_q8,
+                                      pga.paged_chunk_attention_q8_plain, (k8s, v8s, kss, vss))):
+                name = (f"{fn.__name__} rep={nh_s // nkv_s} hd={hd_s} ps={ps_s} T={t} {dt} "
+                        f"[{body}]")
+                compare(torch, name, on_body(pga.launches_by_body, body, name,
+                                             lambda: fn(qs, *pools, p0s, tb, 1)),
+                        plain(qs, *pools, p0s, tb, 1), per=hd_s)
 
     # -- K13 (a): write_kv_paged_q8 -------------------------------------------------
     def rows(*shape, dtype=bf):
@@ -2719,9 +2825,10 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
-    wall), K3's and K1's device time and share of it. Returns device_ms,
-    host_ms (profiler off), host_ms_profiled, busy (the device busy share),
-    k3_ms and k1_ms per step, k3_share and k1_share."""
+    wall), K3's and K1's device time and share of it, the attention's
+    device time (split kernel and combine). Returns device_ms, host_ms
+    (profiler off), host_ms_profiled, busy (the device busy share), k3_ms,
+    k1_ms, attn_ms and attn_split_ms per step, k3_share and k1_share."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -2769,6 +2876,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     # K1 / K2: every quant_matmul body (the swap-AB body at M <= 32, the
     # GEMM above, the fp32 bodies; K14 mode 2's fused wo is attn_block's)
     k1_us = sum(r[0] for r in rows if any(b in r[1] for b in K1_KERNELS))
+    # the decode / chunk attention: its split kernel (either body) and combine
+    attn_us = sum(r[0] for r in rows if "dattn_" in r[1])
+    split_us = sum(r[0] for r in rows if any(k in r[1] for k in ATTN_SPLIT_KERNELS))
     what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
     log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
@@ -2776,7 +2886,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}; K3 (ffn) {k3_us / 8 / 1e3:.3f} "
         f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time; K1 (quant_matmul) "
-        f"{k1_us / 8 / 1e3:.3f} ms/step = {k1_us / max(busy_us, 1e-9):.4f}")
+        f"{k1_us / 8 / 1e3:.3f} ms/step = {k1_us / max(busy_us, 1e-9):.4f}; attention "
+        f"{attn_us / 8 / 1e3:.4f} ms/step (split {split_us / 8 / 1e3:.4f})")
     ranked = sorted(rows, reverse=True)
     for dt, key, count in ranked[:12] + [r for r in ranked[12:] if "rama::" in r[1]]:
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
@@ -2785,7 +2896,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     return dict(device_ms=busy_us / 8 / 1e3, host_ms=wall_off / 8 * 1e3,
                 host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall,
                 k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9),
-                k1_ms=k1_us / 8 / 1e3, k1_share=k1_us / max(busy_us, 1e-9))
+                k1_ms=k1_us / 8 / 1e3, k1_share=k1_us / max(busy_us, 1e-9),
+                attn_ms=attn_us / 8 / 1e3, attn_split_ms=split_us / 8 / 1e3)
 
 
 def profile_prefill(torch, cfg, params) -> dict:
@@ -3072,7 +3184,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from rama_tpu_torch.config import ModelConfig
     from rama_tpu_torch.models import llama
-    from rama_tpu_torch.models.llama import QuantKVCache, _rope_tables
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache, _rope_tables
     from rama_tpu_torch.ops.kernels import attn_block as ab
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod
@@ -3159,6 +3271,10 @@ def main() -> int:
         for name, key in {**path["record"], **path["forbid"]}.items():
             if name in results:
                 results[name][key] = launches[name]
+                if name in BODY_COUNTS:
+                    prefix, bodies = BODY_COUNTS[name]
+                    results[name].setdefault("launches_by_body", {})[key] = {
+                        body: launches[f"{prefix}_{body}"] for body in bodies}
         if profile == "profile_kv8" and profile in phases:
             long = dict(params)
             long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
@@ -3177,6 +3293,17 @@ def main() -> int:
                     cache = cache_cls and cache_cls.create(cfg, 8, 128, device=dev)
                     phase_profile(torch, cfg, params, tag=profile, cache=cache, chunk=chunk)
                     del cache
+            # the same at pos 2048 of a 4096-row cache (RoPE tabulated to 4096)
+            long = dict(params)
+            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+            for cache_cls in (KVCache, QuantKVCache):
+                cache = cache_cls.create(cfg, 8, KV8_MAX_LEN, device=dev)
+                for chunk in (1, SPEC_TICK + 1):
+                    phase_profile(torch, cfg, long, tag=profile, cache=cache, start=2048,
+                                  chunk=chunk)
+                del cache
+                torch.cuda.empty_cache()
+            del long
         elif profile in phases:
             phase_profile(torch, cfg, params, tag=profile)
         if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
@@ -3202,7 +3329,7 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path", "gemm", "by_m", "mmv")
+            "launches_ab2_int4_path", "launches_by_body", "gemm", "by_m", "mmv")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,35 +30,85 @@
 // rows = T * rep query rows of its kv head, t-major as the Pallas
 // _chunk_rows lays them out (row r = t * rep + g is query head
 // j * rep + g at position pos0 + r / rep), and reads each K/V row of its
-// chunk of the cache once for all of them: it first copies the chunk's K
-// and V rows (and row scales) into shared memory with cp.async, every copy
-// in flight at once — a CTA that loaded row group by row group waited on
-// memory about ten times in a row — then works from there (16-byte reads:
-// 8 bf16 or 16 int8 lanes, RG lanes per cache row). Each row scores only
-// cache rows up to its own limit, clamped to S - 1 row by row. The CTA
-// takes each row's chunk max and sum in fp32, rounds its probabilities
-// (times the V row scale, for int8) to q's dtype before P.V (as
-// decode_attention.py:75,100 and the q8 kernels' bf16 casts do), and
-// writes a partial (m, l, o) per row; a CTA
-// whose chunk starts past the last row's limit exits before reading
-// anything. A second small kernel combines, per query row, exactly the
-// splits that row saw. The rows of a CTA live in registers during P.V
-// (acc[ROWS][EPL]; the row groups of a warp summed by shuffles, the four
-// warps through shared memory), so T * rep <= kMaxRows = 8: every Llama-2
-// shape at T <= 8 (rep 1); a wider GQA group takes a shorter chunk.
+// split of the cache (at most kMaxChunk = 64 rows) once for all of them:
+// it first issues every copy of the split's K and V rows (and row scales)
+// at once — a CTA that loaded row group by row group waited on memory
+// about ten times in a row — then works from shared memory. Each row
+// scores only cache rows up to its own limit, clamped to S - 1 row by row.
+// The CTA takes each row's split max and sum in fp32, rounds its
+// probabilities (times the V row scale, for int8) to q's dtype before P.V
+// (as decode_attention.py:75,100 and the q8 kernels' bf16 casts do), and
+// writes a partial (m, l, o) per row; a CTA whose split starts past the
+// last row's limit exits before reading anything. A second small kernel
+// (dattn_combine) combines, per query row, exactly the splits that row
+// saw. T * rep <= kMaxRows = 8: every Llama-2 shape at T <= 8 (rep 1); a
+// wider GQA group takes a shorter chunk. Two bodies compute the split
+// (the wrappers pick one by dtype and head dim, ops/kernels/
+// decode_attention.py body_for):
+//
+//  - dattn_split (the SIMT body): fp32, and head dims other than 48 / 64
+//    / 128. 16-byte lanes (8 bf16 / f32 or 16 int8 elements, RG lanes a
+//    cache row) take fp32 dot products reduced by shuffles; P.V keeps
+//    acc[ROWS][EPL] in registers, the row groups of a warp summed by
+//    shuffles, the four warps through shared memory.
+//  - dattn_mma (the tensor-core body): bf16 q at hd 48 / 64 / 128, on a
+//    bf16 or an int8 cache, dense or paged, for 1..8 query rows — the
+//    decode steps (K4, K7, K9, K12 decode) as the verification chunks
+//    (K10, K12's chunk form). It replaces the SIMT body there because
+//    that body's time grew with the rows (T = 4 / 8 took 2.6 / 5.2x the
+//    T = 1 split over the same rows): ROWS dot products a row group, each
+//    reduced by log2(RG) shuffles, and ROWS x EPL fp32 accumulators (163
+//    registers at ROWS 8). Decode steps take it too: rows are independent
+//    in it and the splits are the same 64 rows, so a verification row
+//    computes bit for bit what the decode step computes at its position,
+//    which greedy speculation relies on (with the chunks alone on it, a
+//    random-weight 7B target as its own draft accepted 0.81 of its drafts
+//    on an H100, not all: a 1-ulp difference flips near-tied logits).
+//    It does both products on mma.sync.m16n8k16 (bf16 in, fp32
+//    accumulate), as K5's pattn_mma_kernel (prefill_attention.cu) does:
+//      * the <= 8 query rows are rows 0..7 of one m16 A tile (rows 8..15
+//        are zero registers, never loaded), read straight from a shared
+//        Q tile; each of the 4 warps owns 16 cache rows of the split (two
+//        n8 tiles of S = Q K^T, K the column-major B operand through
+//        ldmatrix);
+//      * K / V rows land in shared memory by cp.async, every copy in
+//        flight at once, rows padded so that ldmatrix is free of bank
+//        conflicts, rows past the split's last visible one zero-filled
+//        (and masked when scoring); V's copies form a second group that
+//        lands while S is computed;
+//      * int8 rows stay bytes in shared memory and become bf16 in
+//        registers after ldmatrix (exact: |x| <= 127), as K3's ffn_mma
+//        does: ldmatrix hands each lane four consecutive bytes of a K row,
+//        so the k order of Q K^T is permuted alike for Q (a free change of
+//        summation order), and ldmatrix.trans hands it two dims of two V
+//        rows, the even and the odd dims making two n8 tiles of P V;
+//        writing bf16 tiles first instead was 9-16 % slower on the int8
+//        splits of an H100 and took twice the shared memory;
+//      * each score is scaled by 1 / sqrt(hd) (int8: times ks[s] first)
+//        and masked by row_limit as -inf; row max and sum over the split
+//        by quad shuffles, then across the warps through 64 floats of
+//        shared memory; P rounded to bf16 (int8: after the vs[s] scale)
+//        into a shared P tile of 8 x 64;
+//      * O = P V with V the row-major B operand (ldmatrix.trans), the
+//        output's 16-column pairs dealt to the warps, so each partial
+//        row is written once from registers: no cross-warp sum of O.
+//    38.4 KB of shared memory at hd 128 (int8: 22.5 KB). At 128-row pages
+//    the paged forms' 64-row splits are the dense form's, so they equal the
+//    dense kernel bit for bit.
 //
 // Kernel 12, the paged forms (rama_tpu/ops/pallas/paged_attention.py:
 // _paged_call via paged_decode_attention_layer, _q8, paged_chunk_
-// attention_layer and _q8): the same kernels over a shared page pool
-// (L, P, nkv, ps, hd) and per-slot page tables (B, mp). The TPU kernel
-// walks a slot's pages in order and repeats the last used page so its DMA
-// is elided; here a split of `chunk` rows, chunk dividing ps, lies inside
-// one page, so only the address of its rows changes: split s0 of slot b
+// attention_layer (:156) and _q8 (:179)): the same bodies over a shared
+// page pool (L, P, nkv, ps, hd) and per-slot page tables (B, mp). The TPU
+// kernel walks a slot's pages in order and repeats the last used page so
+// its DMA is elided; here a split of `chunk` rows, chunk dividing ps, lies
+// inside one page, so only the address of its rows changes: split s0 of slot b
 // reads page clamp(table[b, min(s0 / ps, mp - 1)], 0, P - 1) at in-page
 // row s0 % ps, with S = mp * ps for the row limits. Splits past the last
 // row's limit exit as in the dense cache, so a slot pays for the pages it
 // uses whatever mp is (ragged).
 #include "attention.cuh"
+#include "mma.cuh"
 
 #include <math.h>
 
@@ -67,11 +117,27 @@
 namespace rama {
 
 constexpr int kDaThreads = 128;
-constexpr int kMaxRows = 8;  // T * rep query rows per CTA
+constexpr int kDaWarps = kDaThreads / 32;
+constexpr int kMaxRows = 8;    // T * rep query rows per CTA
+constexpr int kMaxChunk = 64;  // cache rows per CTA (split), at most
+enum Body : int { kBodySimt = 0, kBodyMma = 1 };  // ops/kernels/decode_attention.py BODIES
 
 // The last cache row query t of a slot at pos0 sees, clamped to [0, S-1].
 __device__ __forceinline__ int row_limit(int pos0, int t, int S) {
   return max(0, min(pos0 + t, S - 1));
+}
+
+// Index of the first cache row of split s0 of (slot b, kv head j): in the
+// dense cache (L, B, nkv, S, hd) at layer 0, or, with page tables (B, mp),
+// in the pool (npages, nkv, ps, hd) at page clamp(table[b, s0 / ps]),
+// in-page row s0 % ps (a split lies inside one page).
+__device__ __forceinline__ size_t first_row(const int* tables, int b, int j, int s0, int S,
+                                            int nkv, int mp, int ps, int npages) {
+  if (tables) {
+    const int page = min(max(tables[(size_t)b * mp + min(s0 / ps, mp - 1)], 0), npages - 1);
+    return ((size_t)page * nkv + j) * (size_t)ps + s0 % ps;
+  }
+  return ((size_t)b * nkv + j) * (size_t)S + s0;
 }
 
 // Dynamic shared memory of one split CTA, in bytes: the K and V tiles
@@ -123,13 +189,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   float* qs = vst + chunk;                         // [ROWS][hd]
   float* sc = qs + ROWS * hd;                      // [ROWS][chunk]
   float* red = sc + ROWS * chunk;                  // [warps][ROWS][hd]
-  size_t srow;                                     // the chunk's first row
-  if (tables) {
-    const int page = min(max(tables[(size_t)b * mp + min(s0 / ps, mp - 1)], 0), npages - 1);
-    srow = ((size_t)page * nkv + j) * (size_t)ps + s0 % ps;
-  } else {
-    srow = ((size_t)b * nkv + j) * (size_t)S + s0;
-  }
+  const size_t srow = first_row(tables, b, j, s0, S, nkv, mp, ps, npages);
   {
     const int vrow = hd * (int)sizeof(C) / 16;     // 16-byte pieces a row
     const C* kg = kc + srow * hd;
@@ -268,6 +328,257 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (dattn_mma): bf16 q, hd 48 / 64 / 128, 2..8 query
+// rows, a bf16 cache (C = bf16) or an int8 one with row scales ksc / vsc.
+// Fragment coordinates: mma.cuh (lane = 4 g + c).
+
+constexpr int kMmaPad = 8;   // bf16 a shared row past hd / past the split: no bank conflicts
+
+// Shared memory of one dattn_mma CTA: K, V tiles of kMaxChunk rows — bf16
+// rows of hd + 8 elements, or int8 rows of RLD bytes (hd + 16 or + 32: an
+// odd number of 16-byte pieces, so ldmatrix's eight rows fall in distinct
+// banks) — Q [kMaxRows][hd + 8] and P [kMaxRows][kMaxChunk + 8] bf16,
+// then f32 row maxima and sums [warps][kMaxRows] and, for int8, the
+// split's row scales.
+template <int HD, bool Q8>
+struct MmaSmem {
+  static constexpr int LD = HD + kMmaPad;          // bf16 K / V / Q row stride (elements)
+  static constexpr int PLD = kMaxChunk + kMmaPad;  // P row stride (bf16)
+  static constexpr int RLD = ((HD + 16) / 16) % 2 ? HD + 16 : HD + 32;   // int8 row (bytes)
+  static constexpr size_t kv = Q8 ? (size_t)kMaxChunk * RLD : (size_t)kMaxChunk * LD * 2;
+  static constexpr size_t bytes =
+      2 * kv + sizeof(__nv_bfloat16) * ((size_t)kMaxRows * LD + (size_t)kMaxRows * PLD) +
+      sizeof(float) * (2 * kDaWarps * kMaxRows + (Q8 ? 2 * kMaxChunk : 0));
+};
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// Bytes lo and hi of w (int8) as a bf16 pair, exactly.
+__device__ __forceinline__ uint32_t bf16x2_of(uint32_t w, int lo, int hi) {
+  return pack_bf16((float)(int8_t)(w >> (8 * lo)), (float)(int8_t)(w >> (8 * hi)));
+}
+
+// grid (nsplit, nkv, B), block 128; the operands and partials as
+// dattn_split's, chunk <= kMaxChunk, q, kc, vc 16-byte aligned.
+template <int HD, bool Q8>
+__global__ void __launch_bounds__(kDaThreads)
+dattn_mma(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
+          const void* __restrict__ vc, const float* __restrict__ ksc,
+          const float* __restrict__ vsc, const int* __restrict__ pos0,
+          float* __restrict__ part_o, float* __restrict__ part_ml, int nh, int nkv, int S,
+          int chunk, int nq, float scale, const int* __restrict__ tables, int mp, int ps,
+          int npages) {
+  using Sm = MmaSmem<HD, Q8>;
+  constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
+  constexpr int KS = HD / 16;                 // k-steps of Q K^T = 16-column pairs of O
+  constexpr int QCH = HD / 8;                 // 16-byte pieces of a bf16 row
+  constexpr int CPR = Q8 ? HD / 16 : QCH;     // 16-byte pieces of a cache row
+  constexpr int PW = (KS + kDaWarps - 1) / kDaWarps;   // column pairs of O a warp
+  extern __shared__ __align__(16) unsigned char smraw[];
+  unsigned char* Kt = smraw;                                       // K tile
+  unsigned char* Vt = Kt + Sm::kv;                                 // V tile
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(Vt + Sm::kv);   // [kMaxRows][LD]
+  __nv_bfloat16* Ps = Qs + kMaxRows * LD;                          // [kMaxRows][PLD]
+  float* red_m = reinterpret_cast<float*>(Ps + kMaxRows * PLD);   // [warps][kMaxRows]
+  float* red_l = red_m + kDaWarps * kMaxRows;                      // [warps][kMaxRows]
+  float* kst = red_l + kDaWarps * kMaxRows;                        // [kMaxChunk] (int8)
+  float* vst = kst + kMaxChunk;                                    // [kMaxChunk] (int8)
+  const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(Kt);   // bf16 cache
+  const __nv_bfloat16* Vs = reinterpret_cast<const __nv_bfloat16*>(Vt);
+
+  const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int rep = nh / nkv;
+  const int rows = nq * rep;
+  const int p0 = pos0[b];
+  const int last = row_limit(p0, nq - 1, S);  // the largest limit of the CTA's rows
+  const int s0 = split * chunk;
+  if (s0 > last) return;  // no row's combine reads this split
+  const int n = min(s0 + chunk, last + 1) - s0;
+  const int kr = (n + 15) & ~15;              // rows the warps read: whole 16-row blocks
+  const size_t srow = first_row(tables, b, j, s0, S, nkv, mp, ps, npages);
+
+  // Q rows 0..rows-1 (row r: head j * rep + r % rep at pos0 + r / rep), the rest zero
+  for (int i = tid; i < kMaxRows * QCH; i += kDaThreads) {
+    const int r = i / QCH, ch = i % QCH, t = r / rep;
+    const bool ok = r < rows;
+    cp_async16_zfill(Qs + r * LD + ch * 8,
+                     ok ? q + (((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep)) * HD +
+                              ch * 8
+                        : q,
+                     ok);
+  }
+  // K then V rows, 16-byte pieces, rows past n zero; V lands while S is computed
+  const size_t row_bytes = (size_t)HD * (Q8 ? 1 : 2);
+  const unsigned char* kg = static_cast<const unsigned char*>(kc) + srow * row_bytes;
+  const unsigned char* vg = static_cast<const unsigned char*>(vc) + srow * row_bytes;
+  const int rstride = Q8 ? RLD : LD * 2;      // bytes a shared row
+  for (int i = tid; i < kr * CPR; i += kDaThreads) {
+    const int r = i / CPR, ch = i % CPR;
+    cp_async16_zfill(Kt + r * rstride + ch * 16, kg + (r < n ? (size_t)i * 16 : 0), r < n);
+  }
+  if constexpr (Q8) {
+    for (int i = tid; i < kr; i += kDaThreads) {
+      kst[i] = i < n ? ksc[srow + i] : 0.f;
+      vst[i] = i < n ? vsc[srow + i] : 0.f;
+    }
+  }
+  cp_async_commit();                          // group: Q and K
+  for (int i = tid; i < kr * CPR; i += kDaThreads) {
+    const int r = i / CPR, ch = i % CPR;
+    cp_async16_zfill(Vt + r * rstride + ch * 16, vg + (r < n ? (size_t)i * 16 : 0), r < n);
+  }
+  cp_async_commit();                          // group: V
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // S = Q K^T over this warp's 16 cache rows kb..kb+15; lane: query row g,
+  // cache rows kb + 8 nt + 2 c + e. Rows past a query row's limit or past
+  // n score -inf. On int8 the bytes become bf16 in registers: ldmatrix
+  // gives lane (g, c) dims 4c..4c+3 of a row's 16-dim step, so the k order
+  // of the product is permuted the same way for Q (dims 4c, 4c+1 in
+  // register 0, 4c+2, 4c+3 in register 2).
+  const int kb = warp * 16;
+  const int t_g = g / rep;
+  const int lim = row_limit(p0, t_g, S);
+  const bool sees = g < rows && s0 <= lim;    // query row g sees a row of this split
+  float sc[2][2];
+  if (kb < kr) {
+    float acc[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (Q8) {
+        const uint2 qv = *reinterpret_cast<const uint2*>(Qs + g * LD + ks * 16 + 4 * c);
+        const uint32_t a[4] = {qv.x, 0u, qv.y, 0u};
+        uint32_t kf[2];
+        ldsm_x2(kf, Kt + (kb + ((lane / 8) % 2) * 8 + lane % 8) * RLD + ks * 16);
+        mma_bf16(acc[0], a, bf16x2_of(kf[0], 0, 1), bf16x2_of(kf[0], 2, 3));
+        mma_bf16(acc[1], a, bf16x2_of(kf[1], 0, 1), bf16x2_of(kf[1], 2, 3));
+      } else {
+        const uint32_t a[4] = {lds32(Qs + g * LD + ks * 16 + 2 * c), 0u,
+                               lds32(Qs + g * LD + ks * 16 + 8 + 2 * c), 0u};
+        uint32_t kf[4];
+        ldsm_x4(kf, Ks + (kb + (lane / 16) * 8 + lane % 8) * LD + ks * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(acc[0], a, kf[0], kf[1]);
+        mma_bf16(acc[1], a, kf[2], kf[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = kb + nt * 8 + 2 * c + e;
+        float v;
+        if constexpr (Q8) v = acc[nt][e] * kst[i] * scale;
+        else v = acc[nt][e] * scale;
+        sc[nt][e] = sees && i < n && s0 + i <= lim ? v : -INFINITY;
+      }
+    }
+  } else {
+    sc[0][0] = sc[0][1] = sc[1][0] = sc[1][1] = -INFINITY;
+  }
+  const float mw = quad_max(fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1])));
+  if (c == 0) red_m[warp * kMaxRows + g] = mw;
+  cp_async_wait<0>();                         // V
+  __syncthreads();
+
+  // the split's max and sum of each query row; probabilities (times the V
+  // row scale, for int8) rounded to bf16 into P. A row that sees no row of
+  // this split gets zero probabilities and no (m, l): its combine never
+  // reads here.
+  float m = red_m[g];
+#pragma unroll
+  for (int w = 1; w < kDaWarps; ++w) m = fmaxf(m, red_m[w * kMaxRows + g]);
+  float l = 0.f;
+  if (kb < kr) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ex = sees ? expf(sc[nt][e] - m) : 0.f;   // -inf scores -> 0
+        l += ex;
+        if constexpr (Q8) p[e] = ex * vst[kb + nt * 8 + 2 * c + e];
+        else p[e] = ex;
+      }
+      *reinterpret_cast<uint32_t*>(Ps + g * PLD + kb + nt * 8 + 2 * c) = pack_bf16(p[0], p[1]);
+    }
+  }
+  l = quad_sum(l);
+  if (c == 0) red_l[warp * kMaxRows + g] = l;
+  __syncthreads();
+  const size_t hr = ((size_t)b * nq + t_g) * nh + (size_t)j * rep + (g - t_g * rep);
+  if (warp == 0 && c == 0 && sees) {
+    float lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDaWarps; ++w) lt += red_l[w * kMaxRows + g];
+    part_ml[(hr * nsplit + split) * 2] = m;
+    part_ml[(hr * nsplit + split) * 2 + 1] = lt;
+  }
+
+  // O = P V: warp w computes output columns 16 (w + 4 u) .. + 15 over the
+  // split's rows, and writes its query rows' partials from registers. On
+  // int8, ldmatrix.trans gives lane (g, c) bytes of dims 2g, 2g + 1 for
+  // rows 2c, 2c + 1: the even and the odd dims are two n8 tiles, so lane
+  // (g, c) ends with dims 4c .. 4c + 3 of its row.
+  float o[PW][2][4] = {};
+  for (int kk = 0; kk < kr / 16; ++kk) {
+    const uint32_t a[4] = {lds32(Ps + g * PLD + kk * 16 + 2 * c), 0u,
+                           lds32(Ps + g * PLD + kk * 16 + 8 + 2 * c), 0u};
+#pragma unroll
+    for (int u = 0; u < PW; ++u) {
+      const int dp = warp + u * kDaWarps;
+      if (dp < KS) {
+        if constexpr (Q8) {
+          uint32_t vf[2];
+          ldsm_x2_trans(vf, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * RLD + dp * 16);
+          mma_bf16(o[u][0], a, bf16x2_of(vf[0], 0, 2), bf16x2_of(vf[1], 0, 2));
+          mma_bf16(o[u][1], a, bf16x2_of(vf[0], 1, 3), bf16x2_of(vf[1], 1, 3));
+        } else {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                                (lane / 16) * 8);
+          mma_bf16(o[u][0], a, vf[0], vf[1]);
+          mma_bf16(o[u][1], a, vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  if (g < rows) {
+    float* dst = part_o + (hr * nsplit + split) * HD;
+#pragma unroll
+    for (int u = 0; u < PW; ++u) {
+      const int dp = warp + u * kDaWarps;
+      if (dp < KS) {
+        if constexpr (Q8) {
+          *reinterpret_cast<float4*>(dst + dp * 16 + 4 * c) =
+              make_float4(o[u][0][0], o[u][1][0], o[u][0][1], o[u][1][1]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(dst + dp * 16 + h * 8 + 2 * c) =
+                make_float2(o[u][h][0], o[u][h][1]);
+        }
+      }
+    }
+  }
+}
+
 // grid (nh, nq, B), block 128: out[b, t, h] = sum_i e^(m_i - M) o_i /
 // sum_i e^(m_i - M) l_i over the splits i <= limit / chunk of query t
 template <typename T>
@@ -304,18 +615,21 @@ struct DaArgs {
   int* occ;  // non-null: launch nothing, report the split kernel's occupancy
   const int* tables;  // page tables (B, mp) of a pool of npages pages of ps rows; null: dense
   int mp, ps, npages;
+  int body;  // kBodySimt or kBodyMma
 };
 
-template <typename T, typename C, int RG, int ROWS>
-cudaError_t launch_split(const DaArgs& a) {
-  const size_t smem = split_smem<C, ROWS>(a.chunk, a.hd);
-  auto kern = dattn_split<T, C, RG, ROWS>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Opt kern into `most` bytes of dynamic shared memory (once an
+// instantiation and device), then launch it with `smem` over the split
+// grid, or, with a.occ, report its resident CTAs per SM, registers per
+// thread and shared bytes per CTA instead.
+template <class K, class... Args>
+cudaError_t launch_or_report(const DaArgs& a, SmemOptIn& opt_in, K kern, size_t most,
+                             size_t smem, Args... args) {
+  if (most > 48 * 1024) {
+    cudaError_t e = opt_in.set(kern, most);
     if (e != cudaSuccess) return e;
   }
-  if (a.occ) {  // resident CTAs per SM, registers per thread, shared bytes per CTA
+  if (a.occ) {
     cudaFuncAttributes fa;
     cudaError_t e = cudaFuncGetAttributes(&fa, kern);
     if (e == cudaSuccess)
@@ -324,11 +638,19 @@ cudaError_t launch_split(const DaArgs& a) {
     a.occ[2] = (int)smem;
     return e;
   }
-  kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(
+  kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename T, typename C, int RG, int ROWS>
+cudaError_t launch_split(const DaArgs& a) {
+  static SmemOptIn opt_in;   // at the most any chunk and hd of this instantiation need
+  return launch_or_report(
+      a, opt_in, dattn_split<T, C, RG, ROWS>,
+      split_smem<C, ROWS>(kMaxChunk, RG * Lane<C>::EPL), split_smem<C, ROWS>(a.chunk, a.hd),
       static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
       a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.nq,
       a.scale, a.tables, a.mp, a.ps, a.npages);
-  return cudaGetLastError();
 }
 
 template <typename T, typename C, int RG>
@@ -342,22 +664,56 @@ cudaError_t launch_rows(const DaArgs& a) {
 }
 
 template <typename T, typename C>
+cudaError_t launch_simt(const DaArgs& a) {
+  const int lanes = a.hd / Lane<C>::EPL;
+  if (lanes <= 1) return launch_rows<T, C, 1>(a);
+  if (lanes <= 2) return launch_rows<T, C, 2>(a);
+  if (lanes <= 4) return launch_rows<T, C, 4>(a);
+  if (lanes <= 8) return launch_rows<T, C, 8>(a);
+  if (lanes <= 16) return launch_rows<T, C, 16>(a);
+  if constexpr (Lane<C>::EPL == 8) {
+    if (lanes <= 32) return launch_rows<T, C, 32>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int HD, bool Q8>
+cudaError_t launch_mma_hd(const DaArgs& a) {
+  static SmemOptIn opt_in;
+  constexpr size_t smem = MmaSmem<HD, Q8>::bytes;
+  return launch_or_report(a, opt_in, dattn_mma<HD, Q8>, smem, smem,
+                          static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, a.ks, a.vs,
+                          a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.chunk, a.nq,
+                          a.scale, a.tables, a.mp, a.ps, a.npages);
+}
+
+// The tensor-core body: bf16 q only, hd 48 / 64 / 128; anything else is
+// refused (never handed to the SIMT body).
+template <typename T, typename C>
+cudaError_t launch_mma(const DaArgs& a) {
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr bool q8 = std::is_same<C, int8_t>::value;
+    if (a.nq * (a.nh / a.nkv) > kMaxRows) return cudaErrorInvalidValue;
+    switch (a.hd) {
+      case 48: return launch_mma_hd<48, q8>(a);
+      case 64: return launch_mma_hd<64, q8>(a);
+      case 128: return launch_mma_hd<128, q8>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <typename T, typename C>
 cudaError_t launch_all(DaArgs a) {
+  if (a.chunk <= 0 || a.chunk > kMaxChunk) return cudaErrorInvalidValue;
   a.nsplit = (a.S + a.chunk - 1) / a.chunk;
   a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
-  const int lanes = a.hd / Lane<C>::EPL;
   cudaError_t e;
-  if (lanes <= 1) e = launch_rows<T, C, 1>(a);
-  else if (lanes <= 2) e = launch_rows<T, C, 2>(a);
-  else if (lanes <= 4) e = launch_rows<T, C, 4>(a);
-  else if (lanes <= 8) e = launch_rows<T, C, 8>(a);
-  else if (lanes <= 16) e = launch_rows<T, C, 16>(a);
-  else if (lanes <= 32) {
-    if constexpr (Lane<C>::EPL == 8) e = launch_rows<T, C, 32>(a);
-    else return cudaErrorInvalidValue;
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  if (a.body == kBodyMma) e = launch_mma<T, C>(a);
+  else if (a.body == kBodySimt) e = launch_simt<T, C>(a);
+  else return cudaErrorInvalidValue;
   if (e != cudaSuccess || a.occ) return e;
   dattn_combine<T><<<dim3(a.nh, a.nq, a.B), kDaThreads, 0, a.st>>>(
       a.part_o, a.part_ml, a.pos0, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk,
@@ -370,15 +726,18 @@ cudaError_t launch_all(DaArgs a) {
 // K4 (nq = 1) and K10. q (B, nq, nh, hd); k/v point at layer l of the
 // (L, B, nkv, S, hd) cache of q's dtype; pos0 (B,) int32, query t at
 // pos0[b] + t; out (B, nq, nh * hd); part_o (B, nq, nh, nsplit, hd) and
-// part_ml (B, nq, nh, nsplit, 2) fp32 scratch with nsplit = ceil(S / chunk).
+// part_ml (B, nq, nh, nsplit, 2) fp32 scratch with nsplit = ceil(S / chunk),
+// chunk <= 64; body: 0 the SIMT body, 1 the tensor-core body (bf16, hd 48 /
+// 64 / 128, q and caches 16-byte aligned).
 extern "C" int rama_decode_attention(const void* q, const void* k, const void* v,
                                      const void* pos0, void* out, void* part_o,
                                      void* part_ml, int B, int nq, int nh, int nkv, int S,
-                                     int hd, int chunk, int dtype, void* stream) {
-  const rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
-                       static_cast<float*>(part_o), static_cast<float*>(part_ml),
-                       B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
-                       nullptr};
+                                     int hd, int chunk, int dtype, int body, void* stream) {
+  rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
+                 static_cast<float*>(part_o), static_cast<float*>(part_ml),
+                 B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
+                 nullptr};
+  a.body = body;
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
@@ -392,11 +751,12 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
                                         const void* ks, const void* vs, const void* pos0,
                                         void* out, void* part_o, void* part_ml, int B, int nq,
                                         int nh, int nkv, int S, int hd, int chunk, int dtype,
-                                        void* stream) {
-  const rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
-                       static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
-                       static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
-                       static_cast<cudaStream_t>(stream), nullptr};
+                                        int body, void* stream) {
+  rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
+                 static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
+                 static_cast<cudaStream_t>(stream), nullptr};
+  a.body = body;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -411,7 +771,7 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
                                     const void* pos0, const void* tables, void* out,
                                     void* part_o, void* part_ml, int B, int nq, int nh, int nkv,
                                     int mp, int ps, int npages, int hd, int chunk, int dtype,
-                                    void* stream) {
+                                    int body, void* stream) {
   rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
                  static_cast<float*>(part_o), static_cast<float*>(part_ml),
                  B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
@@ -421,6 +781,7 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
   a.mp = mp;
   a.ps = ps;
   a.npages = npages;
+  a.body = body;
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
@@ -434,7 +795,7 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
                                        const void* tables, void* out, void* part_o,
                                        void* part_ml, int B, int nq, int nh, int nkv, int mp,
                                        int ps, int npages, int hd, int chunk, int dtype,
-                                       void* stream) {
+                                       int body, void* stream) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                  static_cast<float*>(part_ml), B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f,
@@ -444,17 +805,18 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
   a.mp = mp;
   a.ps = ps;
   a.npages = npages;
+  a.body = body;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The split kernel that a launch of nq queries of nh heads over nkv kv heads
-// of head_dim hd, `chunk` cache rows a CTA, would run (int8 cache if q8):
-// out[0] its resident CTAs per SM, out[1] registers per thread, out[2] its
-// dynamic shared memory in bytes. Launches nothing.
+// of head_dim hd, `chunk` cache rows a CTA, on `body`, would run (int8
+// cache if q8): out[0] its resident CTAs per SM, out[1] registers per
+// thread, out[2] its dynamic shared memory in bytes. Launches nothing.
 extern "C" int rama_decode_attention_occupancy(int nq, int nh, int nkv, int hd, int chunk,
-                                               int q8, int dtype, int* out) {
+                                               int q8, int dtype, int body, int* out) {
   rama::DaArgs a{};
   a.B = 1;
   a.nq = nq;
@@ -464,6 +826,7 @@ extern "C" int rama_decode_attention_occupancy(int nq, int nh, int nkv, int hd, 
   a.hd = hd;
   a.chunk = chunk;
   a.occ = out;
+  a.body = body;
   if (dtype != rama::kBF16 && dtype != rama::kF32) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf = dtype == rama::kBF16;
   if (q8)

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 bodies of the prefill
-// attention (prefill_attention.cu) and the quantized GEMM
-// (quant_matmul.cu): cp.async copies into shared memory, ldmatrix fragment
-// loads and mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+// attention (prefill_attention.cu), the chunk attention
+// (decode_attention.cu) and the quantized GEMM (quant_matmul.cu): cp.async
+// copies into shared memory, ldmatrix fragment loads and mma.sync.m16n8k16
+// (bf16 in, fp32 accumulate).
 #pragma once
 
 #include <atomic>
@@ -43,6 +44,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Max / sum over the four lanes of a quad (lane = 4 g + c: one accumulator
+// row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Two floats rounded to nearest even as one bf16 pair (.x, the low half, = lo).

@@ -192,15 +192,6 @@ constexpr int kFaKeys = 64;      // keys per K/V tile
 constexpr int kFaThreads = 128;
 constexpr int kFaPad = 8;        // bf16 per shared row: conflict-free ldmatrix
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Fragment coordinates: mma.cuh.
 template <int HD>
 __global__ void __launch_bounds__(kFaThreads, 2)

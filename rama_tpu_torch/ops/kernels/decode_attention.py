@@ -12,7 +12,8 @@ over an int8 cache, scales applied after the products), and of
 `chunk_attention_layer`, `_tiled`, `_q8` and `_tiled_q8` (query t of slot b
 at position pos0[b] + t sees rows s <= pos0[b] + t). On the card, one
 flash-decoding kernel split over S plus a combine pass, instantiated for
-both caches (`csrc/decode_attention.cu`); T = 1 is the decode step.
+both caches (`csrc/decode_attention.cu`), with two bodies (below); T = 1
+is the decode step.
 
 Kernel 9 is `decode_attention` and `decode_attention_q8` of the same Pallas
 file: the same function as K4 / K7 over ONE layer's cache (B, nkv, S, hd)
@@ -26,7 +27,14 @@ The same kernels read the paged cache's pool through page tables: kernel
 12, whose wrappers are in ops/kernels/paged_attention.py.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-the plain version (`*_plain`).
+the plain version (`*_plain`). The split kernel's body is fixed by q's
+dtype and head dim before the launch (`body_for`): bf16 at a head dim of
+MMA_HEAD_DIMS takes the tensor-core body ("mma"), on either cache, for one
+query row a kv head (the decode step) as for a verification chunk; fp32
+and any other head dim the SIMT body ("simt"). One body for both is what
+lets greedy speculation accept its own drafts: a verification row then
+computes exactly what the decode step computes at that position. A refused
+launch raises; it never gives way to the other body.
 """
 
 from __future__ import annotations
@@ -45,19 +53,29 @@ launches_chunk = 0     # K10 launches on a bf16 / f32 cache
 launches_chunk_q8 = 0  # K10 launches on an int8 cache
 launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
 launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
+launches_by_body = {"mma": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
 
-CHUNK = 64     # cache rows per CTA (csrc/decode_attention.cu)
+CHUNK = 64     # cache rows per CTA (csrc/decode_attention.cu kMaxChunk, the most it takes)
 MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kMaxRows)
+MMA_HEAD_DIMS = (48, 64, 128)      # the tensor-core body's instantiations
+BODIES = {"simt": 0, "mma": 1}     # body codes of the C entries (csrc rama::Body)
 
 # every C entry of csrc/decode_attention.cu, the paged forms (K12, called by
 # ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
-    "rama_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "rama_decode_attention_q8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "rama_decode_attention_occupancy": [I, I, I, I, I, I, I, P],
-    "rama_paged_attention": [P] * 8 + [I] * 10 + [P],
-    "rama_paged_attention_q8": [P] * 10 + [I] * 10 + [P],
+    "rama_decode_attention": [P] * 7 + [I] * 9 + [P],
+    "rama_decode_attention_q8": [P] * 9 + [I] * 9 + [P],
+    "rama_decode_attention_occupancy": [I] * 8 + [P],
+    "rama_paged_attention": [P] * 8 + [I] * 11 + [P],
+    "rama_paged_attention_q8": [P] * 10 + [I] * 11 + [P],
 }
+
+
+def body_for(dtype: torch.dtype, hd: int) -> str:
+    """The body of the split kernel a CUDA launch runs: "mma" (tensor
+    cores) for bf16 at a head dim of MMA_HEAD_DIMS, "simt" (CUDA cores)
+    else, whatever the number of query rows."""
+    return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "simt"
 
 
 def check_rows(t: int, nh: int, nkv: int) -> None:
@@ -137,10 +155,11 @@ def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tenso
     return chunk_attention_q8_plain(q[:, None], k8, v8, ks, vs, pos, layer)[:, 0]
 
 
-def check_caches(q: torch.Tensor, caches: tuple) -> None:
+def check_caches(q: torch.Tensor, caches: tuple) -> str:
     """The operand checks shared by the dense and paged launches: head_dim,
     dtypes, (k, v) or (k8, v8, ks, vs) with scales of k's leading four
-    dims, contiguity, one device, 16-byte aligned k / v."""
+    dims, contiguity, one device, 16-byte aligned k / v (and q, on the
+    tensor-core body). Returns the body the launch takes (`body_for`)."""
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
     check_head_dim(q.shape[-1], q8)
@@ -156,13 +175,17 @@ def check_caches(q: torch.Tensor, caches: tuple) -> None:
             "q and caches must be contiguous, on one device")
     require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
             "k/v caches must start 16-byte aligned (the kernel copies 16-byte pieces)")
+    body = body_for(q.dtype, q.shape[-1])
+    require(body == "simt" or q.data_ptr() % 16 == 0,
+            "q must start 16-byte aligned (the tensor-core body copies 16-byte pieces)")
+    return body
 
 
 def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
             what: str) -> torch.Tensor:
     """Check and launch the kernel for q (B, T, nh, hd) against layer
-    `layer` of caches (k, v) or, for an int8 cache, (k8, v8, ks, vs).
-    Returns (B, T, nh * hd) in q's dtype."""
+    `layer` of caches (k, v) or, for an int8 cache, (k8, v8, ks, vs), on
+    the body `body_for` picks. Returns (B, T, nh * hd) in q's dtype."""
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
@@ -173,7 +196,7 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     require(bc == b and hdc == hd, f"q {tuple(q.shape)} does not fit cache {tuple(k.shape)}")
     check_rows(t, nh, nkv)
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
-    check_caches(q, caches)
+    body = check_caches(q, caches)
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
@@ -185,8 +208,9 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     fn = lib.rama_decode_attention_q8 if q8 else lib.rama_decode_attention
     err = fn(q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
              out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd, CHUNK,
-             dtype, build.stream_ptr(q))
+             dtype, BODIES[body], build.stream_ptr(q))
     build.check(lib, err, what)
+    launches_by_body[body] += 1
     return out
 
 
@@ -302,12 +326,15 @@ def chunk_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 def occupancy(t: int, nh: int, nkv: int, hd: int, q8: bool,
               dtype: torch.dtype = torch.bfloat16, chunk: int | None = None) -> dict:
     """The split kernel a launch of T queries would run (int8 cache if q8,
-    `chunk` cache rows a CTA, CHUNK by default): its resident CTAs per SM,
-    registers per thread and shared bytes per CTA, as the CUDA occupancy
-    API reports them on the current card."""
+    `chunk` cache rows a CTA, CHUNK by default, on the body `body_for`
+    picks): its body, resident CTAs per SM, registers per thread and shared
+    bytes per CTA, as the CUDA occupancy API reports them on the current
+    card."""
     check_rows(t, nh, nkv)
+    body = body_for(dtype, hd)
     out = (ctypes.c_int * 3)()
     lib = build.library("decode_attention", _SIGNATURES)
     build.check(lib, lib.rama_decode_attention_occupancy(
-        t, nh, nkv, hd, chunk or CHUNK, int(q8), build.DTYPE_CODES[dtype], out), "occupancy")
-    return {"ctas_per_sm": out[0], "registers": out[1], "smem_bytes": out[2]}
+        t, nh, nkv, hd, chunk or CHUNK, int(q8), build.DTYPE_CODES[dtype], BODIES[body], out),
+        "occupancy")
+    return {"body": body, "ctas_per_sm": out[0], "registers": out[1], "smem_bytes": out[2]}

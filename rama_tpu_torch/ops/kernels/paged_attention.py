@@ -13,9 +13,12 @@ position pos0[b] + t sees the slot's rows s <= pos0[b] + t of its mp * ps.
 On the card these are the paged forms of the decode-attention kernel
 (`csrc/decode_attention.cu`, K4 / K7 / K10): a split of `split_rows(ps)`
 rows lies inside one page, so only the address of its rows goes through
-the table. The plain versions gather each slot's pages into the dense
-(B, nkv, mp * ps, hd) view, as `rama_tpu/runtime/paged.py`'s gather path
-does, and run the dense kernels' plain versions over it.
+the table. Each launch takes the body `decode_attention.body_for` picks:
+bf16 at head dim 48 / 64 / 128 the tensor-core body, decode and chunk
+forms alike; fp32 the SIMT body. The plain versions gather each slot's
+pages into the dense (B, nkv, mp * ps, hd) view, as
+`rama_tpu/runtime/paged.py`'s gather path does, and run the dense
+kernels' plain versions over it.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`).
@@ -32,6 +35,7 @@ from rama_tpu_torch.ops.kernels.build import require
 # kernel launches since the last reset, by entry (chip_smoke reads them)
 launches = {"paged_decode_attention": 0, "paged_decode_attention_q8": 0,
             "paged_chunk_attention": 0, "paged_chunk_attention_q8": 0}
+launches_by_body = {"mma": 0, "simt": 0}   # the same launches (all four forms) by body
 
 
 def split_rows(ps: int) -> int:
@@ -111,7 +115,7 @@ def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Ten
     require(hdc == hd, f"q {tuple(q.shape)} does not fit pool {tuple(k.shape)}")
     check(t, nh, nkv, hd, ps, q8)
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
-    da.check_caches(q, pools)
+    body = da.check_caches(q, pools)
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     require(tables.dtype == torch.int32 and tables.dim() == 2 and tables.shape[0] == b
@@ -127,9 +131,11 @@ def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Ten
     fn = lib.rama_paged_attention_q8 if q8 else lib.rama_paged_attention
     err = fn(q.data_ptr(), *da.layer_ptrs(pools, layer * npages * nkv * ps), pos0.data_ptr(),
              tables.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
-             nkv, mp, ps, npages, hd, chunk, build.dtype_code(q), build.stream_ptr(q))
+             nkv, mp, ps, npages, hd, chunk, build.dtype_code(q), da.BODIES[body],
+             build.stream_ptr(q))
     build.check(lib, err, what)
     launches[what] += 1
+    launches_by_body[body] += 1
     return out
 
 

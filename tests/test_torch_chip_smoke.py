@@ -124,11 +124,14 @@ def counters():
     saved = (dict(qm.launches), dict(ffn.launches), dict(kw.launches), dict(pga.launches),
              dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
              da.launches_flat_q8)
-    bodies = dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body)
+    bodies = (dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body),
+              dict(da.launches_by_body), dict(pga.launches_by_body))
     yield mods
     pa.launches_by_body.update(bodies[0])
     qm.launches_by_body.update(bodies[1])
     ffn.launches_by_body.update(bodies[2])
+    da.launches_by_body.update(bodies[3])
+    pga.launches_by_body.update(bodies[4])
     qm.launches.update(saved[0])
     ffn.launches.update(saved[1])
     kw.launches.update(saved[2])
@@ -842,3 +845,94 @@ def test_prefill_gemm_flops_of_a_7b_admission(smoke):
     assert smoke.mma_record({})["gemm"] == {}
     assert "gemm" in smoke.mma_record({"quant_matmul_mma": {"gemm": {"a": 1}}}) and \
         smoke.mma_record({"quant_matmul_mma": {"gemm": {"a": 1}}})["gemm"] == {"a": 1}
+
+
+def test_decode_attention_launch_counts_by_body_are_read_and_reset(smoke, counters):
+    """The decode-attention kernel's launches by body, dense (K4, K7, K9,
+    K10) and paged (K12): read as {decode_attention, paged_attention}_{mma,
+    simt}, set to 0 with the other counters."""
+    da, pga = counters[2], counters[5]
+    da.launches_by_body.update(mma=6, simt=1)
+    pga.launches_by_body.update(mma=4, simt=2)
+    got = smoke.read_launches(*counters)
+    assert (got["decode_attention_mma"], got["decode_attention_simt"],
+            got["paged_attention_mma"], got["paged_attention_simt"]) == (6, 1, 4, 2)
+    smoke.reset_launches(*counters)
+    assert da.launches_by_body == pga.launches_by_body == {"mma": 0, "simt": 0}
+
+
+def _attention_ok(smoke, path) -> dict:
+    """Launch counts that pass `path`, every decode-attention launch on the
+    tensor-core body."""
+    return {**_quant_matmul_ok(path), "ffn_mma": 64, "ffn_simt": 0,
+            **{f"{family}_{body}": 64 if body == "mma" else 0
+               for family in smoke.ATTN_FAMILIES for body in ("mma", "simt")}}
+
+
+@pytest.mark.parametrize("path_name,family", [
+    ("INT8_PATH", "decode_attention"), ("KV8_PATH", "decode_attention"),
+    ("SPEC_PATH", "decode_attention"), ("SPEC_KV8_PATH", "decode_attention"),
+    ("SPEC_DRAFT_PATH", "decode_attention"), ("PREFILL_T1_PATH", "decode_attention"),
+    ("INT4_PATH", "decode_attention"), ("PAGED_PATH", "paged_attention"),
+    ("PAGED_KV8_PATH", "paged_attention"), ("SPEC_PAGED_PATH", "paged_attention"),
+    ("SPEC_PAGED_KV8_PATH", "paged_attention")])
+def test_a_path_fails_when_an_attention_launch_took_the_simt_body(smoke, path_name, family):
+    """Every decode-attention launch of a 7B path (bf16 at hd 128, the
+    stories draft's 48), decode step or verification chunk, is on the
+    tensor-core body: one launch on the SIMT body fails the path."""
+    path = getattr(smoke, path_name)
+    assert set(smoke.ATTN_FAMILIES[family][0]) & set(path["record"])
+    ok = _attention_ok(smoke, path)
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match=f"{family} launches .* took the SIMT body"):
+        smoke.check_launches(path, {**ok, f"{family}_mma": 63, f"{family}_simt": 1})
+
+
+def test_a_path_without_the_attention_kernel_ignores_its_body_counts(smoke):
+    """The attention-block paths run K14, not the decode-attention kernel:
+    its body counts (of another run, say) fail nothing there."""
+    path = smoke.AB2_PATH
+    smoke.check_launches(path, {**_attention_ok(smoke, path), "decode_attention_simt": 3,
+                                "paged_attention_simt": 3})
+
+
+def test_every_record_with_bodies_carries_launches_by_body(smoke):
+    """The kernels line lists launches by body for the decode-attention
+    kernel's entries, as for K5, K1 and K3: each such record names a count
+    prefix and bodies that read_launches reads."""
+    for name in ("decode_attention", "chunk_attention", "chunk_attention_q8",
+                 "decode_attention_flat_q8", "paged_decode_attention", "paged_chunk_attention_q8",
+                 "prefill_attention", "quant_matmul", "ffn"):
+        prefix, bodies = smoke.BODY_COUNTS[name]
+        assert "mma" in bodies and "simt" in bodies
+
+
+def test_on_body_fails_a_launch_on_the_other_body(smoke):
+    counts = {"mma": 0, "simt": 0}
+
+    def launch(body):
+        counts[body] += 1
+        return body
+
+    assert smoke.on_body(counts, "mma", "x", lambda: launch("mma")) == "mma"
+    with pytest.raises(SystemExit, match="not one on mma"):
+        smoke.on_body(counts, "mma", "x", lambda: launch("simt"))
+
+
+@pytest.mark.parametrize("names,body,ok", [
+    (["void rama::dattn_mma<128, false>"], "mma", True),
+    (["void rama::dattn_mma<48, true>", "void rama::dattn_mma<48, false>"], "mma", True),
+    (["void rama::dattn_split<__nv_bfloat16, __nv_bfloat16, 16, 1>"], "mma", False),
+    (["void rama::dattn_split<float, float, 16, 4>"], "simt", True),
+    (["void rama::dattn_mma<128, true>"], "simt", False),
+    ([], "mma", True)])
+def test_check_split_body_reads_the_profiled_kernel_name(smoke, names, body, ok):
+    """The split kernel the profiler saw must be the body's: dattn_mma or
+    dattn_split. (A session with no device event at all, names [], passes
+    with a log line: the launch counts by body check the body there.)"""
+    parts = {"split_kernel": names}
+    if ok:
+        smoke.check_split_body("x", parts, body)
+    else:
+        with pytest.raises(SystemExit, match="split kernel"):
+            smoke.check_split_body("x", parts, body)

@@ -316,3 +316,131 @@ def test_check_chunk_names_the_chunk_kernel_limit():
         tl.check_chunk(cfg, 3, torch.device("cuda"))
     tl.check_chunk(cfg, 3, torch.device("cpu"))
     tl.check_chunk(cfg, 9, torch.device("cuda"))
+
+
+# -- the tensor-core body (csrc/decode_attention.cu dattn_mma) ----------------
+
+
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 48, "mma"), (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.float32, 128, "simt"), (torch.float32, 64, "simt"), (torch.float32, 48, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 96, "simt"), (torch.bfloat16, 256, "simt")])
+def test_body_for_routes_by_dtype_and_head_dim(dtype, hd, body):
+    """bf16 at hd 48 / 64 / 128 takes the tensor-core body, whatever the
+    query rows (a decode step's one or a chunk's T * rep); fp32 and any
+    other head dim the SIMT body."""
+    assert da.body_for(dtype, hd) == body
+    assert da.BODIES[body] in (0, 1)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to nearest even through bfloat16, as fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_mma_body(q, k, v, pos0, layer, ks=None, vs=None, chunk=64, round_p=_bf16):
+    """The tensor-core body's arithmetic, written out: for each (slot, kv
+    head) 64-row splits of the cache rows up to the chunk's last limit;
+    within a split fp32 scores (q . k) * scale (int8: (q . k8) * ks * scale)
+    masked to each query's limit, the split's max and sum of e = exp(s - m),
+    P = round_p(e) (int8: round_p(e * vs)) and fp32 P . V; a query that
+    sees no row of a split contributes nothing; then the combine over the
+    splits each query saw. q (B, T, nh, hd), k/v (L, B, nkv, S, hd) as
+    fp32 values. Returns (B, T, nh * hd) fp32."""
+    b, tq, nh, hd = q.shape
+    nkv, s = k.shape[2], k.shape[3]
+    rep = nh // nkv
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    out = torch.zeros(b, tq, nh, hd)
+    r_t = torch.arange(tq * rep) // rep                     # query of each row (t-major)
+    for bi in range(b):
+        lims = (int(pos0[bi]) + torch.arange(tq)).clamp(0, s - 1)
+        lim_r = lims[r_t]
+        for j in range(nkv):
+            qr = q[bi, :, j * rep:(j + 1) * rep].reshape(tq * rep, hd)
+            parts = []
+            for s0 in range(0, int(lims[-1]) + 1, chunk):
+                n = min(s0 + chunk, int(lims[-1]) + 1) - s0
+                sc = qr @ k[layer, bi, j, s0:s0 + n].T
+                sc = sc * ks[layer, bi, j, s0:s0 + n] * scale if ks is not None else sc * scale
+                sc = torch.where((s0 + torch.arange(n))[None] <= lim_r[:, None], sc,
+                                 torch.tensor(-np.inf))
+                sees = s0 <= lim_r
+                m = sc.amax(1)
+                e = torch.where(sees[:, None], torch.exp(sc - torch.where(sees, m, 0)[:, None]),
+                                torch.tensor(0.0))
+                p = e * vs[layer, bi, j, s0:s0 + n] if vs is not None else e
+                parts.append((m, e.sum(1), round_p(p) @ v[layer, bi, j, s0:s0 + n], sees))
+            for r in range(tq * rep):
+                seen = [(m[r], l[r], o[r]) for m, l, o, sees in parts if sees[r]]
+                big = max(m for m, _, _ in seen)
+                num = sum(torch.exp(m - big) * o for m, _, o in seen)
+                den = sum(torch.exp(m - big) * l for m, l, _ in seen)
+                out[bi, int(r_t[r]), j * rep + r % rep] = num / den
+    return out.reshape(b, tq, nh * hd)
+
+
+# (tq, nh, nkv, s, pos0): a chunk straddling the 64-row split (60 + T 8:
+# queries 0..3 see no row of split 1), one running past S, the last that
+# fits, a ragged last split (S 136, 200)
+MMA_CASES = [(8, 4, 4, 136, [60, 0, 134, 128]), (4, 4, 2, 256, [61, 126, 254, 252]),
+             (2, 8, 2, 200, [63, 0, 199, 150]), (8, 4, 4, 256, [60, 121, 250, 248])]
+
+
+def _sees_nothing_somewhere(tq, pos0, s, chunk=64):
+    """Whether some query of the case sees no row of a split its CTA reads."""
+    return any(p0 + tq - 1 >= (p0 // chunk + 1) * chunk and (p0 // chunk + 1) * chunk < s
+               for p0 in pos0)
+
+
+@pytest.mark.parametrize("tq,nh,nkv,s,pos0", MMA_CASES)
+def test_mma_body_emulation_equals_the_plain_version_in_fp32(tq, nh, nkv, s, pos0):
+    """Without the bf16 rounding of P, the split / combine arithmetic equals
+    the plain version (one softmax over every visible row) in fp32: atol
+    1e-5 (other summation order)."""
+    assert _sees_nothing_somewhere(tq, pos0, s)
+    q, k, v = make(2, 4, tq, nh, nkv, s, 64, seed=tq + s)
+    p0 = torch.tensor(pos0, dtype=torch.int32)
+    for layer in (0, 1):
+        want = da.chunk_attention_plain(t(q), t(k), t(v), p0, layer)
+        got = emulate_mma_body(t(q), t(k), t(v), p0, layer, round_p=lambda x: x)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tq,nh,nkv,s,pos0", MMA_CASES)
+def test_mma_body_emulation_matches_pallas_tiled(tq, nh, nkv, s, pos0):
+    """The body's arithmetic on bf16 values (P rounded to bf16, fp32 sums,
+    64-row splits and the combine) against chunk_attention_layer_tiled in
+    interpret mode on the same bf16 inputs: the bf16 tolerance of this
+    file (atol 0.03 / rtol 0.05: the Pallas kernel rounds its normalized
+    probabilities per 128-row tile, the body its unnormalized ones per
+    split)."""
+    q, k, v = make(2, 4, tq, nh, nkv, s, 64, seed=2 * tq + s)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    fq, fk, fv = (t(np.asarray(a.astype(jnp.float32))) for a in (jq, jk, jv))
+    p0 = np.array(pos0, np.int32)
+    for layer in (0, 1):
+        want = np.asarray(jda.chunk_attention_layer_tiled(
+            jq, jk, jv, jnp.asarray(p0), jnp.int32(layer), chunk=128, interpret=True)
+            .astype(jnp.float32))
+        got = _bf16(emulate_mma_body(fq, fk, fv, torch.from_numpy(p0), layer)).numpy()
+        _close(got, want, fp32=False)
+
+
+@pytest.mark.parametrize("tq,nh,nkv,s,pos0", MMA_CASES)
+def test_mma_body_emulation_q8_matches_pallas_tiled(tq, nh, nkv, s, pos0):
+    """The int8 form: scores (q . k8) * ks * scale, P = bf16(e * vs), fp32
+    P . v8, against chunk_attention_layer_tiled_q8 in interpret mode (bf16
+    q): the bf16 tolerance of this file."""
+    q, k, v = make(2, 4, tq, nh, nkv, s, 64, seed=3 * tq + s)
+    k8, v8, ks, vs = _q8(k, v)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    p0 = np.array(pos0, np.int32)
+    for layer in (0, 1):
+        want = np.asarray(jda.chunk_attention_layer_tiled_q8(
+            jq, k8, v8, ks, vs, jnp.asarray(p0), jnp.int32(layer), chunk=128,
+            interpret=True).astype(jnp.float32))
+        got = _bf16(emulate_mma_body(t(np.asarray(jq.astype(jnp.float32))), t(k8).float(),
+                                     t(v8).float(), torch.from_numpy(p0), layer, ks=t(ks),
+                                     vs=t(vs))).numpy()
+        _close(got, want, fp32=False)

@@ -655,6 +655,128 @@ def test_chunk_attention_refuses_too_many_rows(dev):
                            torch.zeros(1, dtype=torch.int32, device=dev), 0)
 
 
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("t,rep", [(2, 1), (4, 1), (8, 1), (2, 2), (4, 2), (2, 4)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_chunk_attention_tensor_core_body(dev, hd, t, rep, q8):
+    """K10's tensor-core body (bf16, T * rep >= 2 rows) against the plain
+    version on both caches: chunks straddling the 64-row split (60 + T: a
+    query that sees no row of split 1), running past S, the last that fits,
+    a ragged last split (S 200); every launch on `mma`, reruns bit for
+    bit."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    S, nkv = 200, 2
+    k = torch.randn(2, 5, nkv, S, hd, device=dev)
+    v = torch.randn(2, 5, nkv, S, hd, device=dev)
+    caches = ([*kw.kv_quant_rows(k), *kw.kv_quant_rows(v)] if q8 else
+              [k.to(torch.bfloat16), v.to(torch.bfloat16)])
+    if q8:
+        caches = [caches[0], caches[2], caches[1], caches[3]]        # k8, v8, ks, vs
+    kernel = da.chunk_attention_q8 if q8 else da.chunk_attention
+    plain = da.chunk_attention_q8_plain if q8 else da.chunk_attention_plain
+    q = torch.randn(5, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    pos0 = torch.tensor([0, 60, 61, S - 2, S - t], dtype=torch.int32, device=dev)
+    assert da.body_for(q.dtype, hd) == "mma"
+    before = dict(da.launches_by_body)
+    for layer in (0, 1):
+        got = kernel(q, *caches, pos0, layer)
+        _close(got, plain(q, *caches, pos0, layer), torch.bfloat16)
+        assert torch.equal(got, kernel(q, *caches, pos0, layer))
+    assert da.launches_by_body == {"mma": before["mma"] + 4, "simt": before["simt"]}
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("t,rep", [(2, 1), (4, 1), (8, 1), (4, 2), (2, 4)])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_chunk_attention_tensor_core_body(dev, hd, t, rep, ps):
+    """K12's chunk form on the tensor-core body against its plain version on
+    both pools (16-row pages: 16-row splits; 128-row pages: 64-row
+    splits), shuffled pages, -1 and stale table entries, a chunk running
+    past the slot's last page; every launch on `mma`."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    mp, nkv = 4, 2
+    pos = [0, ps - 1, min(60, mp * ps - t), mp * ps - 2, mp * ps - t]
+    tables, npages = _paged_setup(dev, 2, 5, nkv, hd, ps, mp, pos, t, seed=ps + hd + t)
+    k = torch.randn(2, npages, nkv, ps, hd, device=dev)
+    v = torch.randn(2, npages, nkv, ps, hd, device=dev)
+    (k8, ks), (v8, vs) = kw.kv_quant_rows(k), kw.kv_quant_rows(v)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.randn(5, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = dict(pa.launches_by_body)
+    for layer in (0, 1):
+        _close(pa.paged_chunk_attention(q, k, v, p0, tables, layer),
+               pa.paged_chunk_attention_plain(q, k, v, p0, tables, layer), torch.bfloat16)
+        _close(pa.paged_chunk_attention_q8(q, k8, v8, ks, vs, p0, tables, layer),
+               pa.paged_chunk_attention_q8_plain(q, k8, v8, ks, vs, p0, tables, layer),
+               torch.bfloat16)
+    assert pa.launches_by_body == {"mma": before["mma"] + 4, "simt": before["simt"]}
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunk_rows_equal_decode_rows_bit_for_bit(dev, hd, rep, q8, paged):
+    """Each query row of a verification chunk (K10, K12's chunk form)
+    equals, bit for bit, the decode step's attention (K4 / K7, K12 decode)
+    at its position: one body computes both, so greedy speculation with
+    the target as its own draft accepts every draft. Dense (S 200) and
+    paged (128-row pages), bf16 and int8 caches, rows straddling a split
+    and (dense) clamped at S - 1."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    t, nkv = 4, 2
+    pos = [0, 60, 61, 198, 196]
+    if paged:
+        tables, npages = _paged_setup(dev, 2, 5, nkv, hd, 128, 2, pos, t, seed=hd + rep)
+        shape = (2, npages, nkv, 128, hd)
+    else:
+        tables, shape = None, (2, 5, nkv, 200, hd)
+    k, v = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
+    if q8:
+        (k8, ks), (v8, vs) = kw.kv_quant_rows(k), kw.kv_quant_rows(v)
+        caches = (k8, v8, ks, vs)
+    else:
+        caches = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    q = torch.randn(5, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if paged:
+        chunk = (pa.paged_chunk_attention_q8 if q8 else pa.paged_chunk_attention)(
+            q, *caches, p0, tables, 1)
+    else:
+        chunk = (da.chunk_attention_q8 if q8 else da.chunk_attention)(q, *caches, p0, 1)
+    for i in range(t):
+        qi = q[:, i].contiguous()
+        if paged:
+            one = (pa.paged_decode_attention_q8 if q8 else pa.paged_decode_attention)(
+                qi, *caches, p0 + i, tables, 1)
+        else:
+            one = (da.decode_attention_q8 if q8 else da.decode_attention)(qi, *caches, p0 + i, 1)
+        assert torch.equal(chunk[:, i], one), f"query {i}"
+
+
+def test_chunk_attention_fp32_and_hd16_keep_the_simt_body(dev):
+    """fp32 q, and bf16 at a head dim the tensor-core body has no
+    instantiation of, run the SIMT body (by the counts)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    pos0 = torch.tensor([0, 61], dtype=torch.int32, device=dev)
+    for dtype, hd in ((torch.float32, 128), (torch.bfloat16, 16), (torch.float32, 64)):
+        k = torch.randn(1, 2, 2, 96, hd, device=dev).to(dtype)
+        q = torch.randn(2, 4, 2, hd, device=dev).to(dtype)
+        before = dict(da.launches_by_body)
+        _close(da.chunk_attention(q, k, k, pos0, 0), da.chunk_attention_plain(q, k, k, pos0, 0),
+               dtype)
+        assert da.launches_by_body == {"mma": before["mma"], "simt": before["simt"] + 1}
+
+
 @pytest.mark.parametrize("nkv,S,hd,t", [(2, 48, 16, 3), (6, 64, 48, 4), (4, 256, 128, 8)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_write_kv_chunk_q8(dev, nkv, S, hd, t, dtype):
@@ -688,10 +810,11 @@ def test_spec_engine_on_card_matches_cpu_engine(dev, kv_quant):
 
 def _paged_setup(dev, L, B, nkv, hd, ps, mp, pos, t, seed, spare=3):
     """A pool whose slots own disjoint pages in shuffled order for the rows
-    up to pos + t - 1, table entries past them -1 or a random page, and the
-    dense (L, B, nkv, mp * ps, hd) view of the same rows."""
+    up to pos + t - 1 (at most mp pages), table entries past them -1 or a
+    random page, and the dense (L, B, nkv, mp * ps, hd) view of the same
+    rows."""
     g = torch.Generator().manual_seed(seed)
-    used = [-(-(p + t) // ps) for p in pos]
+    used = [min(-(-(p + t) // ps), mp) for p in pos]      # rows past mp * ps: none
     npages = sum(used) + spare
     perm = torch.randperm(npages, generator=g)
     tables = torch.full((B, mp), -1, dtype=torch.int32)

@@ -34,7 +34,8 @@ def test_import_loads_no_jax_and_no_rama_tpu():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                               ROOT / "chip_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_nothing_of_jax_or_rama_tpu(path):
     for node in ast.walk(ast.parse(path.read_text())):
