@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the verify-round attention of a checkout of the port on one card,
-so that two trees can be compared back to back, in turns.
+"""Time the decode attention kernels, the fused attention block and whole
+decode steps of a checkout of the port on one card, so that two trees can
+be compared back to back, in turns.
 
     python3 chip_ab.py --root DIR --tag NAME    # the port under DIR/rama_tpu_torch
 
@@ -14,9 +15,17 @@ head_dim 128, 8 slots, random data from a seed):
     device ms (torch.profiler), CUDA-event ms a call, and the T = 1 kernel
     (K4 / K7 / K12 decode) over the same rows beside it;
     scaled_dot_product_attention's CUDA-event and device ms at T 4 / 8;
+  - the fused attention block (K14) at S 1024 on K4's positions (32
+    layers) and at S 4096 on long positions (4 layers), bf16: the light
+    form and the full form with int8 and int4 wo, each one's device ms
+    and its device ms by kernel, beside K4 over the same rows (its split
+    and combine) and the light form followed by K1's wo (the unfused
+    composition of the full form);
   - 8-slot 7B int8 verify rounds of 4 and plain decode steps at pos 64 (a
     128-row bf16 cache) and at pos 2048 (4096-row bf16 and int8 caches):
-    device ms a round or step, and the attention's part of it.
+    device ms a round or step, and the attention's part of it;
+  - `profile_ab`: 8-slot 7B int8 decode steps under RAMA_ATTN_BLOCK 0, 1
+    and 2 at pos 64 and 2048 of a 4096-row bf16 cache.
 
 It uses only entry points that every slice of the port since the paged
 cache has, and chip_smoke.py's helpers from its own directory, so it can
@@ -138,6 +147,51 @@ def main() -> int:
     del kv, q8p
     torch.cuda.empty_cache()
 
+    # -- K14: the fused attention block, beside K4 on the same rows -----------------------
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    cos_t, sin_t = _rope_tables(cfg, dev, seq_len=cs.KV8_MAX_LEN)
+    D = nh * hd
+    for S, n_l, pos in ((1024, 32, [0, 255, 256, 1023, 63, 64, 511, 700]),
+                        (4096, 4, [0, 63, 1021, 2047, 3000, 4000, 4090, 4092])):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q, kn, vn = rx(B, nh, hd), rx(B, nkv, hd), rx(B, nkv, hd)
+        cos, sin = cos_t[pos.long()], sin_t[pos.long()]
+        kc, vc = rx(n_l, B, nkv, S, hd), rx(n_l, B, nkv, S, hd)
+        wo = {8: QuantizedTensor(
+            q=torch.randint(-127, 128, (n_l, D, D), dtype=torch.int8, device=dev, generator=g),
+            scales=(torch.rand((n_l, D // 64, D), device=dev, generator=g) + 0.5) / (73 * 64),
+            group_size=64, bits=8), 4: cs.random_int4_qt(torch, n_l, D, D, 64, dev, g)}
+        lay = cs.Layered(n_l)
+        block = (q, kn, vn, cos, sin, kc, vc)
+
+        def light():
+            return ab.attn_rope_write_layered(*block, pos, lay.next())
+
+        def timed(fn) -> dict:
+            return dict(device_ms=cs.device_ms_per_call(torch, fn),
+                        by_kernel_ms=cs.device_ms_by_kernel(torch, fn))
+
+        rec = {"k4": dict(device_ms=cs.device_ms_per_call(
+            torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next())),
+            **cs.attention_split_combine(torch, lambda: da.decode_attention(
+                q, kc, vc, pos, lay.next()))), "light": timed(light)}
+        for bits, w in wo.items():
+            rec[f"full int{bits}"] = timed(
+                lambda w=w: ab.attn_block_layered(*block, w, pos, lay.next()))
+
+            def light_k1(w=w):
+                l = lay.next()
+                return qm.quant_matmul(ab.attn_rope_write_layered(*block, pos, l), w, l)
+
+            rec[f"light + K1 wo int{bits}"] = timed(light_k1)
+        rec["light_over_k4"] = rec["light"]["device_ms"] / rec["k4"]["device_ms"]
+        emit(f"attn_block S={S}", **rec)
+        del kc, vc, wo
+        torch.cuda.empty_cache()
+
     # -- 7B int8 verify rounds and decode steps ------------------------------------------
     params = cs.random_params(torch, cfg, dev, bits=8)
     for chunk in (1, cs.SPEC_TICK + 1):
@@ -153,6 +207,9 @@ def main() -> int:
             emit(f"profile pos 2048 {name} chunk {chunk}", **r)
         del cache
         torch.cuda.empty_cache()
+    del long
+    for key, r in cs.profile_ab(torch, cfg, params).items():
+        emit(f"profile_ab {key}", **r)
     emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
     return 0
 

@@ -104,6 +104,9 @@ Phases, in order (any failure raises and the script exits non-zero):
            outside the launch count, for the first differing position),
            then with a synthetic stories15M-shaped draft checkpoint (accept
            ~0: dormancy with plain ticks, and draft-cache resync)
+  spec_draft_ab  spec_draft's self-draft under RAMA_ATTN_BLOCK 1 and 2 (the
+           draft's decode steps on K14, the verification on K10): each
+           accept rate logged, no gate; after the path's count is read
   serve_spec_kv8   serve_spec on the int8 KV cache at max_len 4096
   kernels_paged the paged slice's kernels on 7B shapes (pages of 128 rows,
            mp 32: max_len 4096, 8 slots, a shuffled pool): the paged
@@ -129,13 +132,19 @@ Phases, in order (any failure raises and the script exits non-zero):
   kernels_attn the last slice's kernels: K9 (T = 1 attention over one
            layer's cache, bf16 and int8, rel TOL per (slot, head)) at K4 / K7's
            shapes and positions with planted edges, int8 also at S 4096,
-           timed beside K4 / K7 over the same rows; K14 (the fused attention
-           block: light, and full with int8 and int4 wo) against its plain
-           version with planted edges and the new row's key aligned with q,
-           positions 0, tile edges, S - 1 and S + 3 (clamped): the written v
-           row bit for bit, the roped k row within one ulp, every other cache
-           row unchanged; timed beside the unfused composition of the same
-           step (apply_rope x 2, the row write, K4, and K1's wo)
+           timed beside K4 / K7 over the same rows (SDPA's CUDA-event and
+           device ms beside K9); K14 (the fused attention block: light, and
+           full with int8 and int4 wo) against its plain version with
+           planted edges and the new row's key aligned with q, positions 0,
+           on and around the 64-row split edges, S - 1 and S + 3 (clamped),
+           every bf16 launch on split tensor-core attention (the counts by
+           body): the written v row bit for bit, the roped k row within one
+           ulp, every other cache row unchanged; device ms (and by kernel:
+           split, combine, wo) at S 1024 on K4's positions and at S 4096 on
+           long ones beside K4 over the same rows and K1's wo at M = 8, each
+           kernel's registers, local bytes and CTAs an SM; CUDA-event times
+           beside the unfused composition of the same step (apply_rope x 2,
+           the row write, K4, and K1's wo)
   model_attn   7B decode-step logits under RAMA_ATTN_BLOCK 1 and 2 (int8,
            and int4 with the int4 params) against the plain path under the
            same mode and the unfused plain path; with the int8 params a
@@ -172,7 +181,8 @@ must not; int4 (`serve4`), where every int4 kernel, the int8 classifier's
 GEMV and both attention kernels must have; the fused attention block
 under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
-decode step) and K4 never; and `prefill_t1`, where K9 launches on both
+decode step), every launch on split tensor-core attention (`[launches]`:
+`attn_block_mma` / `_simt`), and K4 never; and `prefill_t1`, where K9 launches on both
 caches and no decode, chunk or prefill attention does. Every K5 launch
 of a path that records K5 must be on its tensor-core body, and every
 quant_matmul and ffn launch of every path on a tensor-core body: the
@@ -211,10 +221,11 @@ TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
 ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec",
               "kernels_paged", "kernels_attn", "model", "generate", "serve", "profile",
               "profile_prefill", "model_kv8", "serve_kv8", "profile_kv8", "model_spec",
-              "serve_spec", "profile_spec", "spec_draft", "serve_spec_kv8", "model_paged",
-              "serve_paged", "profile_paged", "serve_paged_kv8", "serve_spec_paged",
-              "serve_spec_paged_kv8", "model_attn", "serve_ab1", "serve_ab2", "profile_ab",
-              "prefill_t1", "model4", "serve4", "profile4", "serve4_ab2", "cli")
+              "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
+              "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
+              "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
+              "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
+              "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma")   # the attention split kernel's bodies
@@ -227,12 +238,15 @@ ATTN_FAMILIES = {
                          ("mma", "simt")),
     "paged_attention": (("paged_decode_attention", "paged_decode_attention_q8",
                          "paged_chunk_attention", "paged_chunk_attention_q8"), ("mma", "simt"))}
+# kernel 14's forms (the fused attention block), counted by body together
+AB_KERNELS = ("attn_rope_write_layered", "attn_block_layered", "attn_block_layered_int4")
 # the kernels whose launches are also counted by body: record name ->
 # (prefix of those counts in read_launches, bodies)
 BODY_COUNTS = {
     **{name: (family, bodies) for family, (names, bodies) in ATTN_FAMILIES.items()
        for name in names},
     "prefill_attention": ("prefill_attention", ("mma", "simt")),
+    **{name: ("attn_block", ("mma", "simt")) for name in AB_KERNELS},
     **{name: ("quant_matmul", ("mmv", "gemv", "mma", "simt"))
        for name in ("quant_matmul", "quant_matmul_int4")},
     **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")}}
@@ -270,7 +284,8 @@ SPEC_PATH = dict(label="speculation", bits=8,
                          "ffn": "launches_spec_path", "prefill_attention": "launches_spec_path",
                          "quant_matmul_mma": "launches_spec_path"},
                  forbid={"decode_attention": "launches_spec_path"})
-SPEC_DRAFT_PATH = dict(label="draft speculation", bits=8, phases=(None, "spec_draft", None),
+SPEC_DRAFT_PATH = dict(label="draft speculation", bits=8,
+                       phases=(None, "spec_draft", "spec_draft_ab"),
                        serve={},
                        record={"chunk_attention": "launches_spec_draft_path",
                                "decode_attention": "launches_spec_draft_path",
@@ -524,7 +539,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
     for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body,
-                   da.launches_by_body, pga.launches_by_body):
+                   da.launches_by_body, pga.launches_by_body, ab.launches_by_body):
         for body in bodies:
             bodies[body] = 0
 
@@ -544,7 +559,7 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
-            **ab.launches}
+            **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()}}
 
 
 def check_launches(path: dict, launches: dict) -> None:
@@ -558,7 +573,9 @@ def check_launches(path: dict, launches: dict) -> None:
     bf16 activations: the tensor-core bodies serve them, the swap-AB one
     at M <= 32 and the GEMM above), or on which a decode-attention launch
     (K4, K7, K9, K10; K12 on the pools: bf16 at hd 128, and the stories
-    draft's 48) took the SIMT body."""
+    draft's 48) took the SIMT body, or on which a launch of the fused
+    attention block (K14, bf16) took its SIMT body, not split tensor-core
+    attention."""
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -588,6 +605,10 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['ffn_simt']} ffn launches on the {path['label']} "
                          f"main path took the SIMT body, not the tensor-core one "
                          f"({launches['ffn_mma']} did)")
+    if set(AB_KERNELS) & set(path["record"]) and launches.get("attn_block_simt", 0):
+        raise SystemExit(f"FAILED: {launches['attn_block_simt']} attention-block launches on "
+                         f"the {path['label']} main path took the SIMT body, not split "
+                         f"tensor-core attention ({launches['attn_block_mma']} did)")
     for family, (names, _) in ATTN_FAMILIES.items():
         if set(names) & set(path["record"]) and launches.get(f"{family}_simt", 0):
             raise SystemExit(f"FAILED: {launches[f'{family}_simt']} {family} launches on the "
@@ -1409,6 +1430,7 @@ def phase_kernels_kv8(torch, results: dict) -> None:
     T = 16                                              # the serving bucket
     k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
     t_k = time_ms(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
+    k8_dev = device_ms_per_call(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
     t_p = time_ms(torch, lambda: kvw.write_kv_strips_q8_plain(*c1, k, v, slots, T), reps=5)
     n_el = 2 * L * B * nkv * T * hd
     b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * L * B * nkv * T * 4, 3 * n_el)
@@ -1416,6 +1438,7 @@ def phase_kernels_kv8(torch, results: dict) -> None:
         name="write_kv_strips_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
         replaces="rama_tpu/ops/pallas/kv_write.py:221", max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        breakdown={"device_ms": k8_dev},
         shape=f"strips (32, 8, 32, 16, 128) bf16 -> slots {slots.tolist()} of the "
               f"(32, 8, 32, {S}, 128) int8 cache")
     del c1, k, v
@@ -1576,6 +1599,31 @@ def device_ms_per_call(torch, fn, reps: int = 10, tries: int = 3) -> float:
     log(f"[device] torch.profiler recorded no device time in {tries} sessions: "
         f"CUDA-event time used in place of device time")
     return time_ms(torch, fn, reps=reps)
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 10, tries: int = 3) -> dict:
+    """Device ms per call of each kernel fn launches, by the kernel's name
+    as torch.profiler gives it (its template arguments included), over
+    `reps` calls; a session that records no device event is repeated, up
+    to `tries` (then the dict is empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out: dict = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if ev.device_type.name == "CUDA" and dt:
+                key = ev.key.split("(")[0]
+                out[key] = out.get(key, 0.0) + dt / 1e3 / reps
+        if out:
+            break
+    return out
 
 
 def phase_kernels_spec(torch, results: dict) -> None:
@@ -1788,19 +1836,22 @@ def phase_kernels_spec(torch, results: dict) -> None:
     k, v = rows(B, T, nkv, hd), rows(B, T, nkv, hd)
     lay = Layered(4)
     t_k = time_ms(torch, lambda: kvw.write_kv_chunk_q8(*c1, k, v, pos0, lay.next()))
+    k11_dev = device_ms_per_call(torch, lambda: kvw.write_kv_chunk_q8(*c1, k, v, pos0,
+                                                                      lay.next()))
     t_p = time_ms(torch, lambda: kvw.write_kv_chunk_q8_plain(*c2, k, v, pos0, lay.next()))
     k1, v1 = k[:, -1].contiguous(), v[:, -1].contiguous()
     t_k6 = time_ms(torch, lambda: kvw.write_kv_rows_q8(*c1, k1, v1, pos0, lay.next()))
     n_el = 2 * B * T * nkv * hd
     b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * T * nkv * 4 + B * 4, 3 * n_el)
-    log(f"[time] write_kv_chunk_q8 T={T}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} "
-        f"ms ({b_by}); write_kv_rows_q8 (one row a slot) {t_k6:.4f} ms")
+    log(f"[time] write_kv_chunk_q8 T={T}: {t_k:.4f} ms (device {k11_dev:.4f}), plain "
+        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); write_kv_rows_q8 (one row a slot) "
+        f"{t_k6:.4f} ms")
     results["write_kv_chunk_q8"] = dict(
         name="write_kv_chunk_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
         replaces="rama_tpu/ops/pallas/kv_write.py:136", max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="no single PyTorch call quantizes rows and scatters them",
-        k6_same_run_ms=t_k6,
+        k6_same_run_ms=t_k6, breakdown={"device_ms": k11_dev},
         shape=f"k/v rows ({B}, {T}, {nkv}, {hd}) bf16 -> cache (4, {B}, {nkv}, {S}, {hd}) int8 "
               f"+ scales, pos0 {pos0.tolist()}")
     del c1, c2
@@ -2193,11 +2244,13 @@ def phase_kernels_attn(torch, results: dict) -> None:
     """Kernel 9 (T = 1 attention over one layer's cache, bf16 and int8) and
     kernel 14 (the fused attention block: light, and full with int8 and
     int4 wo) against their plain versions at the 7B decode shapes, with
-    planted edge rows and positions 0, S - 1 and S + 3 (clamped); K14's
-    cache writes against the plain version's (check_written_rows). CUDA-event
+    planted edge rows and positions 0, the 64-row split edges, S - 1 and S +
+    3 (clamped), each bf16 K14 launch on its tensor-core body; K14's cache
+    writes against the plain version's (check_written_rows). CUDA-event
     times: K9 beside K4 / K7 over the same rows, K14 beside the unfused
     composition of the same step (apply_rope x 2, the row write, K4, and
-    for the full form K1's wo), A B B A in one call."""
+    for the full form K1's wo), A B B A in one call; device ms: SDPA beside
+    K9, K14 (and by kernel) at S 1024 and 4096 beside K4 on the same rows."""
     import torch.nn.functional as F
 
     from rama_tpu_torch.config import ModelConfig
@@ -2265,6 +2318,7 @@ def phase_kernels_attn(torch, results: dict) -> None:
         return F.scaled_dot_product_attention(q[:, :, None, :], kc[l], vc[l], attn_mask=vis)
 
     t_p, t_lib = time_ms(torch, k9_plain, reps=5), time_ms(torch, sdpa)
+    dev_ms["library_device_ms"] = device_ms_per_call(torch, sdpa)
     b_ms, b_by = bound_ms(rows4 * nkv * hd * 2 * 2 + 2 * q.numel() * 2, rows4 * nh * hd * 4)
     results["decode_attention_flat"] = dict(
         name="decode_attention_flat", route="cuda",
@@ -2327,10 +2381,13 @@ def phase_kernels_attn(torch, results: dict) -> None:
         torch.cuda.empty_cache()
 
     # -- K14: attn_rope_write_layered / attn_block_layered --------------------
-    cos_t, sin_t = _rope_tables(cfg, dev)
+    cos_t, sin_t = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
     pos_edge = torch.tensor([S + 3, 1, 64, 65, 127, 128, 1022, S - 1], dtype=torch.int32,
                             device=dev)
-    tiles = (63, 64, 127, 128, 511, 512, 1021, 1022)      # the kernel's 64-row tile edges
+    # on and around the 64-row split edges, S - 1 and S + 3 (clamped)
+    pos_split = torch.tensor([63, 64, 65, 127, 128, 129, S - 1, S + 3], dtype=torch.int32,
+                             device=dev)
+    tiles = (63, 64, 127, 128, 511, 512, 1021, 1022)      # the kernel's 64-row split edges
     wo8 = QuantizedTensor(
         q=torch.randint(-127, 128, (L, D, D), dtype=torch.int8, device=dev, generator=g),
         scales=(torch.rand((L, D // 64, D), device=dev, generator=g) + 0.5)
@@ -2338,12 +2395,13 @@ def phase_kernels_attn(torch, results: dict) -> None:
     wo4 = random_int4_qt(torch, L, D, D, 64, dev, g)
     forms = (("attn_rope_write_layered", None), ("attn_block_layered", wo8),
              ("attn_block_layered_int4", wo4))
+    body = ab.body_for(bf)
 
     def call(name, fn_plain, wo, args, pos, l):
         fn = getattr(ab, name.replace("_int4", "") + ("_plain" if fn_plain else ""))
         return fn(*args, pos, l) if wo is None else fn(*args, wo, pos, l)
 
-    for pos in (pos4, pos_edge):
+    for pos in (pos4, pos_edge, pos_split):
         p = pos.long().clamp(0, S - 1)
         cos, sin = cos_t[p], sin_t[p]
         c2, s2s = (t[:, None] for t in ab.rope_lane_tables(cos, sin))
@@ -2363,67 +2421,98 @@ def phase_kernels_attn(torch, results: dict) -> None:
                 args = (q, kn, vn, cos, sin)
                 label = (f"{name} B=8 S=1024 layer=1 pos={pos.tolist()}"
                          f"{' planted edges' if planted else ''}")
-                got = call(name, False, wo, (*args, *got_c), pos, 1)
+                got = on_body(ab.launches_by_body, body, label,
+                              lambda: call(name, False, wo, (*args, *got_c), pos, 1))
                 want = call(name, True, wo, (*args, *want_c), pos, 1)
                 compare(torch, label, got, want, per=hd if wo is None else None)
                 check_written_rows(torch, label, got_c, want_c, base, pos, 1)
         del base, got_c, want_c
     torch.cuda.empty_cache()
 
-    # timed at 32 layers on K4's positions, the layer cycling, beside the
-    # unfused composition of the same step
-    p = pos4.long()
-    cos, sin = cos_t[p], sin_t[p]
-    kn, vn = rx(B, nkv, hd), rx(B, nkv, hd)
-    kc, vc = rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)
-    cache = KVCache(k=kc, v=vc)
-    args = (q, kn, vn, cos, sin, kc, vc)
-    info = ab.occupancy(B, nh, nkv, D, D, 64, 8)
-    info4 = ab.occupancy(B, nh, nkv, D, D, 64, 4)
-    for name, wo in forms:
-        err = compare(torch, f"{name} timed inputs (layer 0)",
-                      call(name, False, wo, args, pos4, 0),
-                      call(name, True, wo, (q, kn, vn, cos, sin, kc.clone(), vc.clone()), pos4,
-                           0), per=hd if wo is None else None)
-        lay = Layered(L)
+    # timed on K4's positions at S 1024 (32 layers) and on long positions at
+    # S 4096 (4 layers), the layer cycling, beside K4 over the same rows and
+    # (S 1024) the unfused composition of the same step
+    for s_, n_l, pos in ((S, L, pos4), (KV8_MAX_LEN, 4, torch.tensor(
+            [0, 63, 1021, 2047, 3000, 4000, 4090, 4092], dtype=torch.int32, device=dev))):
+        p = pos.long()
+        cos, sin = cos_t[p], sin_t[p]
+        kn, vn = rx(B, nkv, hd), rx(B, nkv, hd)
+        kc, vc = rx(n_l, B, nkv, s_, hd), rx(n_l, B, nkv, s_, hd)
+        cache = KVCache(k=kc, v=vc)
+        args = (q, kn, vn, cos, sin, kc, vc)
+        lay = Layered(n_l)
 
-        def fused(name=name, wo=wo):
-            return call(name, False, wo, args, pos4, lay.next())
+        def k4():
+            return da.decode_attention(q, kc, vc, pos, lay.next())
 
-        def unfused(wo=wo):
-            l = lay.next()
-            qr = apply_rope(q[:, None], cos[:, None], sin[:, None])
-            kr = apply_rope(kn[:, None], cos[:, None], sin[:, None])
-            _write_kv(cache, l, kr, vn[:, None], pos4[:, None])
-            att = da.decode_attention(qr[:, 0].contiguous(), kc, vc, pos4, l)
-            return att if wo is None else qm.quant_matmul(att, wo, l)
+        k4_parts = attention_split_combine(torch, k4)
+        k4_dev = device_ms_per_call(torch, k4)
+        for name, wo in forms:
+            err = compare(torch, f"{name} timed inputs S={s_} (layer 0)",
+                          call(name, False, wo, args, pos, 0),
+                          call(name, True, wo, (q, kn, vn, cos, sin, kc.clone(), vc.clone()),
+                               pos, 0), per=hd if wo is None else None)
+            wo_l = None if wo is None else QuantizedTensor(
+                q=wo.q[:n_l], scales=wo.scales[:n_l], group_size=wo.group_size, bits=wo.bits)
 
-        t_u, t_k = abba(unfused, fused)
-        dev_ms = {"device_ms": device_ms_per_call(torch, fused),
-                  "unfused_device_ms": device_ms_per_call(torch, unfused)}
-        t_p = time_ms(torch, lambda name=name, wo=wo: call(
-            name, True, wo, args, pos4, lay.next()), reps=3)
-        # rows < pos of K and V read once, q / k / v / cos / sin in, the row
-        # written, att out (or wo[l] in and out)
-        nb = (int(p.sum()) * nkv * hd * 2 * 2 + (nh + 2 * nkv) * B * hd * 2 + 2 * B * hd * 4
-              + B * nkv * hd * 2 * 2 + B * nh * hd * 2)
-        flops = int((p + 1).sum()) * nh * hd * 4
-        if wo is not None:
-            nb += matmul_bytes(wo, B) - B * (D + D) * 2
-            flops += 2 * B * D * D
-        b_ms, b_by = bound_ms(nb, flops)
-        if wo is not None:
-            dev_ms.update(info if wo.bits == 8 else info4)
-        results[name] = dict(
-            name=name, route="cuda", source="rama_tpu_torch/csrc/attn_block.cu",
-            replaces="rama_tpu/ops/pallas/attn_block.py:" + ("360" if wo is None else "452"),
-            max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, unfused_ms=t_u, breakdown=dev_ms,
-            library_note="n/a: no single PyTorch call ropes, writes a cache row and attends",
-            shape=f"q (8, 32, 128) bf16, cache (32, 8, 32, 1024, 128), pos {pos4.tolist()}"
-                  + ("" if wo is None else f", wo[l] (4096, 4096) int{wo.bits} gs 64"))
-    del kc, vc, cache
-    torch.cuda.empty_cache()
+            def fused(name=name, wo=wo_l):
+                return call(name, False, wo, args, pos, lay.next())
+
+            def unfused(wo=wo_l):
+                l = lay.next()
+                qr = apply_rope(q[:, None], cos[:, None], sin[:, None])
+                kr = apply_rope(kn[:, None], cos[:, None], sin[:, None])
+                _write_kv(cache, l, kr, vn[:, None], pos[:, None])
+                att = da.decode_attention(qr[:, 0].contiguous(), kc, vc, pos, l)
+                return att if wo is None else qm.quant_matmul(att, wo, l)
+
+            dev_ms = {"device_ms": device_ms_per_call(torch, fused),
+                      "by_kernel_ms": device_ms_by_kernel(torch, fused),
+                      "k4_device_ms": k4_dev, "k4_split_combine_ms": k4_parts}
+            dev_ms["over_k4"] = dev_ms["device_ms"] / k4_dev
+            if wo is not None:   # the full form's aim: light + K1's wo at M = 8 + 0.010 ms
+                x = rx(B, D)
+                dev_ms["k1_wo_device_ms"] = device_ms_per_call(
+                    torch, lambda wo=wo_l: qm.quant_matmul(x, wo, lay.next()))
+                light = (results[forms[0][0]] if s_ == S else
+                         results[forms[0][0]]["s4096"])["breakdown"]["device_ms"]
+                dev_ms["light_plus_k1_wo_ms"] = light + dev_ms["k1_wo_device_ms"]
+            if s_ == S:
+                t_u, t_k = abba(unfused, fused)
+                dev_ms["unfused_device_ms"] = device_ms_per_call(torch, unfused)
+            else:
+                t_k = time_ms(torch, fused)
+            # rows < pos of K and V read once, q / k / v / cos / sin in, the
+            # row written, att out (or wo[l] in and out)
+            nb = (int(p.clamp(0, s_ - 1).sum()) * nkv * hd * 2 * 2
+                  + (nh + 2 * nkv) * B * hd * 2 + 2 * B * hd * 4 + B * nkv * hd * 2 * 2
+                  + B * nh * hd * 2)
+            flops = int((p.clamp(0, s_ - 1) + 1).sum()) * nh * hd * 4
+            if wo is not None:
+                nb += matmul_bytes(wo, B) - B * (D + D) * 2
+                flops += 2 * B * D * D
+            b_ms, b_by = bound_ms(nb, flops)
+            rec = dict(max_abs_err=err, ms=t_k, bound_ms=b_ms, bound_by=b_by,
+                       breakdown=dev_ms,
+                       shape=f"q (8, 32, 128) bf16, cache ({n_l}, 8, 32, {s_}, 128), pos "
+                             f"{pos.tolist()}" + ("" if wo is None else
+                                                  f", wo[l] (4096, 4096) int{wo.bits} gs 64"))
+            if s_ != S:
+                results[name]["s4096"] = rec
+                continue
+            # bf16: both forms run the light form's split and combine
+            # kernels (the full form then K1's qmv_mma on att)
+            dev_ms["kernels"] = ab.light_occupancy(nh, nkv, S)
+            t_p = time_ms(torch, lambda name=name, wo=wo_l: call(
+                name, True, wo, args, pos, lay.next()), reps=3)
+            results[name] = dict(
+                name=name, route="cuda", source="rama_tpu_torch/csrc/attn_block.cu",
+                replaces="rama_tpu/ops/pallas/attn_block.py:" + ("360" if wo is None else "452"),
+                plain_ms=t_p, library_ms=None, unfused_ms=t_u,
+                library_note="n/a: no single PyTorch call ropes, writes a cache row and attends",
+                **rec)
+        del kc, vc, cache
+        torch.cuda.empty_cache()
     for name in ("decode_attention_flat", "decode_attention_flat_q8",
                  "attn_rope_write_layered", "attn_block_layered", "attn_block_layered_int4"):
         r = results[name]
@@ -2432,6 +2521,10 @@ def phase_kernels_attn(torch, results: dict) -> None:
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) {json.dumps(extra)} "
             f"{json.dumps(r['breakdown'])}")
+    for name in ("attn_rope_write_layered", "attn_block_layered", "attn_block_layered_int4"):
+        r = results[name]["s4096"]
+        log(f"[kernel] {name} S=4096: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) {json.dumps(r['breakdown'])}")
     r = results["decode_attention_flat_q8"]["s4096"]
     log(f"[kernel] decode_attention_flat_q8 S=4096: {r['ms']:.4f} ms (K7 {r['k7_same_run_ms']:.4f}"
         f"), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
@@ -2605,6 +2698,78 @@ def phase_model_paged(torch, cfg, params) -> None:
         torch.cuda.empty_cache()
 
 
+SELF_DRAFT_PROMPTS = ("Once upon a time", "The little dog")
+SELF_DRAFT_ENGINE = dict(max_batch_size=2, max_seq_len=1024, decode_tick=8)
+
+
+def serve_greedy(cfg, params, tokenizer, ecfg, prompts, steps: int, draft=None):
+    """The engine on `prompts`, greedy, `steps` tokens each: (the streams,
+    the engine's stats); fails on a request or engine error."""
+    from rama_tpu_torch.runtime.engine import Engine, Request
+
+    eng = Engine(cfg, params, tokenizer, ecfg, draft=draft)
+    eng.start()
+    try:
+        reqs = [Request(prompt=p, steps=steps, temperature=0.0) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        outs = []
+        for r in reqs:
+            toks = []
+            while (t := r.queue.get(timeout=600)) is not None:
+                toks.append(t)
+            outs.append(toks)
+    finally:
+        eng.stop()
+    if any(r.error for r in reqs) or eng.stats()["engine_errors"]:
+        raise SystemExit(f"FAILED spec_draft: {[r.error for r in reqs]} {eng.stats()}")
+    return outs, eng.stats()
+
+
+def self_draft(cfg, params, tokenizer, start_count=lambda: None):
+    """The target as its own draft (a separate draft cache), greedy, 2
+    slots x 16 tokens, never dormant, after a spec-off run of the same
+    requests (then `start_count()`): (spec-off streams, spec-on streams,
+    the spec-on engine's stats)."""
+    from rama_tpu_torch.config import EngineConfig
+
+    off, _ = serve_greedy(cfg, params, tokenizer, EngineConfig(**SELF_DRAFT_ENGINE),
+                          SELF_DRAFT_PROMPTS, 16)
+    start_count()
+    on, stats = serve_greedy(cfg, params, tokenizer,
+                             EngineConfig(**SELF_DRAFT_ENGINE, spec_tick=SPEC_TICK,
+                                          spec_mode="draft", spec_min_accept=0.0),
+                             SELF_DRAFT_PROMPTS, 16, draft=(cfg, params))
+    return off, on, stats
+
+
+def phase_spec_draft_ab(torch, cfg, params, tokenizer) -> dict:
+    """The self-draft of spec_draft under RAMA_ATTN_BLOCK 1 and 2, once
+    each: the draft's decode steps run kernel 14 (the fused block's
+    numerics: an fp32 new row), the target's verification rounds K10, so a
+    verified row is not the decode step's bit for bit. Logs each mode's
+    accept rate and the first position where the streams leave spec off's
+    under the same mode; no gate. Returns {mode: accept rate}."""
+    from rama_tpu_torch.models import llama
+
+    rates = {}
+    saved = llama.ATTN_BLOCK
+    try:
+        for mode in (1, 2):
+            llama.ATTN_BLOCK = mode
+            t0 = time.time()
+            off, on, stats = self_draft(cfg, params, tokenizer)
+            firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+                      for x, y in zip(on, off)]
+            rates[mode] = stats["spec_accept_rate"]
+            log(f"[spec_draft_ab] RAMA_ATTN_BLOCK={mode}: target as its own draft, accept "
+                f"rate {stats['spec_accept_rate']}, first position differing from spec off "
+                f"per stream {firsts} (None: equal), {time.time() - t0:.1f} s")
+    finally:
+        llama.ATTN_BLOCK = saved
+    return rates
+
+
 def phase_spec_draft(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
     """Draft-mode speculation in the engine. (1) The target as its own draft
     (a separate draft cache), greedy, 2 slots x 16 tokens, never dormant:
@@ -2620,35 +2785,15 @@ def phase_spec_draft(torch, cfg, params, tokenizer, start_count=lambda: None) ->
     from rama_tpu_torch.checkpoint import save_v0
     from rama_tpu_torch.config import EngineConfig, ModelConfig
     from rama_tpu_torch.runtime import engine as eng_mod
-    from rama_tpu_torch.runtime.engine import Engine, Request
     from rama_tpu_torch.cli import load_model
 
     def serve(ecfg, prompts, steps, draft=None):
-        eng = Engine(cfg, params, tokenizer, ecfg, draft=draft)
-        eng.start()
-        try:
-            reqs = [Request(prompt=p, steps=steps, temperature=0.0) for p in prompts]
-            for r in reqs:
-                eng.submit(r)
-            outs = []
-            for r in reqs:
-                toks = []
-                while (t := r.queue.get(timeout=600)) is not None:
-                    toks.append(t)
-                outs.append(toks)
-        finally:
-            eng.stop()
-        if any(r.error for r in reqs) or eng.stats()["engine_errors"]:
-            raise SystemExit(f"FAILED spec_draft: {[r.error for r in reqs]} {eng.stats()}")
-        return outs, eng.stats()
+        return serve_greedy(cfg, params, tokenizer, ecfg, prompts, steps, draft=draft)
 
-    prompts = ["Once upon a time", "The little dog"]
-    base = dict(max_batch_size=2, max_seq_len=1024, decode_tick=8)
+    base = dict(SELF_DRAFT_ENGINE)
+    prompts = list(SELF_DRAFT_PROMPTS)
     t0 = time.time()
-    off, _ = serve(EngineConfig(**base), prompts, 16)
-    start_count()
-    on, stats = serve(EngineConfig(**base, spec_tick=SPEC_TICK, spec_mode="draft",
-                                   spec_min_accept=0.0), prompts, 16, draft=(cfg, params))
+    off, on, stats = self_draft(cfg, params, tokenizer, start_count)
     firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
               for x, y in zip(on, off)]
     log(f"[spec_draft] target as its own draft: accept rate {stats['spec_accept_rate']}, "
@@ -3028,14 +3173,16 @@ def phase_model_attn(torch, cfg, params, bits: int, dev=None) -> None:
 
         try:
             ref = run(0, True)
+            body = ab.body_for(params["attn_norm"].dtype)   # the activations' dtype
             for mode in (1, 2):
                 name = "attn_block_layered" if mode == 2 else "attn_rope_write_layered"
                 name += "_int4" if mode == 2 and bits == 4 else ""
-                before = ab.launches[name]
+                before, on_body_before = ab.launches[name], ab.launches_by_body[body]
                 got = run(mode, False)
-                if ab.launches[name] - before != cfg.n_layers:
-                    raise SystemExit(f"FAILED model_attn: {name} launched "
-                                     f"{ab.launches[name] - before} times in a decode step")
+                n = (ab.launches[name] - before, ab.launches_by_body[body] - on_body_before)
+                if n != (cfg.n_layers, cfg.n_layers):
+                    raise SystemExit(f"FAILED model_attn: {name} launched {n[0]} times in a "
+                                     f"decode step, {n[1]} on the {body} body")
                 compare(torch, f"7B int{bits} logits decode step, attention block {mode} "
                         f"pos={pos.tolist()} (kernels vs plain)", got, run(mode, True))
                 compare(torch, f"7B int{bits} logits decode step, attention block {mode} "
@@ -3284,6 +3431,8 @@ def main() -> int:
             del cache, long
         elif profile == "profile_paged" and profile in phases:
             profile_paged(torch, cfg, params)
+        elif profile == "spec_draft_ab" and profile in phases:
+            phase_spec_draft_ab(torch, cfg, params, tokenizer)
         elif profile == "profile_ab" and profile in phases:
             profile_ab(torch, cfg, params)
         elif profile == "profile_spec" and profile in phases:

@@ -1,26 +1,36 @@
 // Kernel 14: the fused attention block of the T = 1 decode step on a dense
 // cache -- RoPE of q and of the new k row, the in-place write of the k / v
 // row at pos into layer l of the stacked cache, and attention over the
-// cache rows before pos plus the new row (light form, one launch); the full
-// form also multiplies the attention output by the quantized wo[l] in the
-// same launch.
+// cache rows before pos plus the new row (light form); the full form then
+// multiplies the attention output by the quantized wo[l], which the Python
+// wrapper launches as K1 (quant_matmul.cu) on this file's att.
 //
 // Replaces rama_tpu/ops/pallas/attn_block.py: attn_rope_write_layered
 // (_kernel_aw, the light fusion) and attn_block_layered (_kernel, phase B
 // then phase C over wo). For each (slot b, kv head j) with p = pos[b]:
 //   q_r  = rope(q[b, j*rep + r]), k_n = rope(k_new[b, j]) in fp32
 //          (interleaved pairs: out[2i] = x[2i] c_i - x[2i+1] s_i,
-//          out[2i+1] = x[2i+1] c_i + x[2i] s_i);
+//          out[2i+1] = x[2i+1] c_i + x[2i] s_i; each product and the sum
+//          rounded on their own, no FMA contraction);
 //   att  = softmax over {cache rows s < p} + {the new row} of q_r . k / sqrt(hd),
 //          times v: the new row's score and value from registers (k_n in
-//          fp32, not rounded to the cache dtype; v_new as given), the cache
-//          rows in fp32 -- the probabilities are NOT rounded to the cache
-//          dtype before P.V (K4 rounds them; the Pallas kernels here do not);
+//          fp32, not rounded to the cache dtype; v_new as given);
 //   cache[l, b, j, p] = (k_n in the cache dtype, v_new).
-// Light: att in q's dtype. Full: att kept in fp32 in a scratch, then
-// out = att @ dequant(wo[l]) (int8, or int4 in the block-split layout, group
-// scales) in q's dtype. p is clamped to [0, S-1] (the port's rule for a
-// finished slot's T = 1 overshoot); the Pallas kernel is not defined there.
+// Light: att in q's dtype. Full: att held in fp32, then out = att @
+// dequant(wo[l]) (int8, or int4 in the block-split layout, group scales) in
+// q's dtype. p is clamped to [0, S-1] (the port's rule for a finished
+// slot's T = 1 overshoot); the Pallas kernel is not defined there.
+//
+// Rounding. fp32 computes the cache rows' scores and probabilities in fp32
+// (the Pallas kernels' numerics). bf16 runs them on the tensor cores, which
+// take bf16 operands: roped q (fp32) is rounded to bf16 as the A operand
+// of Q K^T and the probabilities as the A operand of P V, as K4 rounds
+// them; the new row's score (fp32 roped q . fp32 k_n), the softmax
+// statistics, the combine and att stay fp32, and the full form rounds att
+// to bf16 once, as the B operand of its wo product (the unfused mode 1 + K1
+// computes the same; K1's swap-AB body rounds the dequantized weights to
+// bf16 too). The plain versions keep fp32 throughout and are the oracle,
+// within the card's tolerances.
 //
 // Bound on the H100: bytes -- each (slot, kv head) reads its p rows of K and
 // V once (7B, bf16, 8 slots at the kernel check's positions: 47.3 MB,
@@ -28,29 +38,45 @@
 //
 // Design. The TPU kernel walks S tiles of one (slot, head group) in grid
 // order with the online softmax in VMEM scratch; phase C follows on the same
-// sequential grid. Here:
-//  * phase B is one CTA (256 threads) per (slot, kv head) -- 256 CTAs at 7B,
-//    B = 8 -- that ropes its rep query rows and the new k row into shared
-//    memory, writes row p of the cache (no other CTA touches that stripe,
-//    and this one reads only rows < p: no race), folds the new row into the
-//    running (m, l, acc) first, as the Pallas kernel does at t == 0, then
-//    walks rows 0 .. p-1 in tiles of `chunk` rows copied into shared memory
-//    with cp.async (one wait a tile), updating (m, l, acc) per tile in fp32.
-//    The rows of the GQA group live in registers during P.V as in
-//    decode_attention.cu (16 lanes of 8 elements a cache row at hd 128).
-//    One CTA walks a whole stripe: at long context that is slower than K4's
-//    64-row splits with a combine (a later PR's work, PERF.md).
-//  * the full form is ONE cooperative launch of a persistent grid (resident
-//    CTAs per SM x SMs): the CTAs take the phase-B items in a grid-stride
-//    loop, park att in fp32 (as the Pallas kernel parks it, attn_block.py
-//    :552), meet at a grid-wide barrier (an atomic counter in the tickets
-//    buffer; co-residency is what the cooperative launch guarantees, and a
-//    launch it refuses returns its error), then take phase C's items --
-//    (column tile, K split) of qmv.cuh's split-K GEMV, the same device code
-//    as kernel 1 -- in a second grid-stride loop. The last CTA out resets
-//    the barrier's counters for the next launch.
+// sequential grid. Here, bf16 at hd 128 (every Llama-2 shape):
+//  * split tensor-core attention: each (slot b, kv head j, 64-row split of
+//    rows [0, p)) is one item on the m16n8k16 body of K4 / K10
+//    (dattn_mma_body, dattn_mma.cuh), 128 threads; the item ropes its rep
+//    query rows in fp32 while its K and V copies are in flight and writes
+//    them to the Q tile in bf16, then writes the split's partial (m, l, o)
+//    per query row to a workspace. The split kernel's grid is (min(nsplit,
+//    kAbSplitCtas), nkv, B): a CTA takes the splits x, x + gridDim.x, ...
+//    below p, so a long cache at a short position launches few CTAs that
+//    have nothing to do (a CTA a split paid ~8 us a layer for them at pos
+//    64 of 4096 rows on an H100). One CTA walking a whole stripe (the
+//    earlier design, kept for fp32 below) serialised every stripe on one SM.
+//  * the combine, a second launch of a CTA per (b, j): folds the splits
+//    together with the new row -- ropes q and k_n again in fp32, scores the
+//    new row, M = max(s_new, m_i), L and att = (e^(s_new - M) v_new + sum
+//    e^(m_i - M) o_i) / L, eight split partials in flight a thread -- and
+//    writes row p of the cache (after every split has read its rows; none
+//    reads row p). A slot at p = 0 has no split and only combines. Folding
+//    the combine into the split kernel (the last split of each (b, j) to
+//    take an integer ticket combines) was slower on an H100: 0.0261 against
+//    0.0241 ms at S 1024 (PERF.md).
+//  * the full form is the light form's two launches, att in bf16, then K1's
+//    swap-AB tensor-core body (qmv_mma, quant_matmul.cu) on att: the same
+//    function as rounding att to bf16 where wo's product loads it. One
+//    cooperative launch of a persistent grid -- the attention items, a
+//    grid-wide barrier, then the wo tiles of the same swap-AB body -- was
+//    slower on an H100 (0.0515 against 0.0400 ms at S 1024, 0.20 against
+//    0.13 at S 4096: the body's 128 registers and ring hold 4 CTAs an SM
+//    to the light kernel's 5, and each CTA ran its ~18 items one after
+//    another), so the wrapper (ops/kernels/attn_block.py) launches these.
+// fp32 (the tests' fp32 models) keeps the SIMT attention: one CTA (256
+// threads) per (slot, kv head) ropes its rep query rows and the new k row
+// into shared memory, writes row p, folds the new row into the running
+// (m, l, acc) first, as the Pallas kernel does at t == 0, then walks rows
+// 0 .. p-1 in tiles of `chunk` rows copied with cp.async, fp32 dot products
+// reduced by shuffles. Its full form is the same composition as bf16's:
+// att in fp32, then K1's fp32 GEMV on att (the wrapper).
 #include "attention.cuh"
-#include "qmv.cuh"
+#include "dattn_mma.cuh"
 
 #include <math.h>
 
@@ -60,6 +86,8 @@ constexpr int kAbThreads = 256;
 constexpr int kAbWarps = kAbThreads / 32;
 constexpr int kAbHeadDim = 128;                 // the only head_dim taken
 constexpr int kAbRG = kAbHeadDim / 8;           // lanes a cache row (8 elements each)
+constexpr int kAbSplitCtas = 16;                // bf16 split CTAs a (slot, kv head), at most
+using AbSmem = MmaSmem<kAbHeadDim, false>;      // the bf16 split body's shared memory
 
 // One launch's operands. q rows of slot b start at q + b * q_stride, the
 // new k / v rows at kn / vn + b * kv_stride (the slices of one wqkv output
@@ -69,15 +97,25 @@ struct AbArgs {
   const float *cosr, *sinr;   // (B, hd / 2) RoPE rows at pos
   void *kc, *vc;
   const int* pos;
-  void* att;                  // light: (B, nh * hd) in q's dtype; full: f32 scratch
-  const int8_t* woq;          // full: wo[l] bytes, (D, N) int8 or (D/2, N) int4
-  const float* wos;           // full: wo[l] scales (D / gs, N)
-  void* out;                  // full: (B, N) in q's dtype
-  float* part;                // full: (ks, B, N) split-K partials (ks > 1)
-  unsigned* tickets;          // full: zeroed counters, column tiles x row chunks + 2
-  int B, nh, nkv, S, hd, chunk, q_stride, kv_stride, N, gs, ks, bps;
+  void* att;                  // (B, nh * hd) in q's dtype
+  float *part_o, *part_ml;    // bf16: the splits' partials (B, nh, nsplit, hd) / (.., 2)
+  int B, nh, nkv, S, hd, chunk, q_stride, kv_stride, nsplit;
   float scale;
 };
+
+__device__ __forceinline__ int ab_pos(const AbArgs& a, int b) {
+  return min(max(a.pos[b], 0), a.S - 1);
+}
+
+// RoPE of one interleaved pair in fp32, each product and the sum rounded
+// on their own (no FMA contraction), as the plain version computes.
+__device__ __forceinline__ float2 rope_pair(float x0, float x1, float c, float s) {
+  return make_float2(__fadd_rn(__fmul_rn(x0, c), __fmul_rn(x1, -s)),
+                     __fadd_rn(__fmul_rn(x1, c), __fmul_rn(x0, s)));
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the SIMT attention (one CTA walks a stripe)
 
 // Dynamic shared memory of phase B, in bytes: the K and V tiles (chunk rows
 // of hd T), then f32 qs [ROWS][hd], kn [hd], vn [hd], sc [ROWS][chunk],
@@ -90,15 +128,13 @@ __host__ __device__ __forceinline__ size_t ab_smem(int chunk, int hd) {
 }
 
 // Phase B for (slot b, kv head j): rope, row write, attention over rows
-// < p and the new row. Writes the rep output rows to att_f (f32) or, if
-// att_f is null, to att_t (T).
+// < p and the new row; writes the rep output rows to att.
 template <typename T, int ROWS>
-__device__ __forceinline__ void ab_attend(const AbArgs& a, int b, int j, float* att_f,
-                                          T* att_t, unsigned char* smraw) {
+__device__ __forceinline__ void ab_attend(const AbArgs& a, int b, int j, unsigned char* smraw) {
   constexpr int EPL = 8, RG = kAbRG, ngrp = kAbThreads / RG;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hd = kAbHeadDim, chunk = a.chunk, rep = a.nh / a.nkv, half = hd / 2;
-  const int p = min(max(a.pos[b], 0), a.S - 1);
+  const int p = ab_pos(a, b);
   T* kt = reinterpret_cast<T*>(smraw);               // [chunk][hd]
   T* vt = kt + (size_t)chunk * hd;                   // [chunk][hd]
   float* qs = reinterpret_cast<float*>(vt + (size_t)chunk * hd);  // [ROWS][hd]
@@ -115,16 +151,13 @@ __device__ __forceinline__ void ab_attend(const AbArgs& a, int b, int j, float* 
   const T* vg = static_cast<const T*>(a.vn) + (size_t)b * a.kv_stride + (size_t)j * hd;
   const float* cr = a.cosr + (size_t)b * half;
   const float* sr = a.sinr + (size_t)b * half;
-  // RoPE in fp32: x * c2 + swap(x) * s2s with each product and the sum
-  // rounded on their own (no FMA contraction), as the plain version computes
   for (int i = tid; i < (rep + 1) * half; i += kAbThreads) {
     const int r = i / half, k = i - r * half;
     const T* src = r < rep ? qg + (size_t)r * hd : kg;
-    const float x0 = to_f(src[2 * k]), x1 = to_f(src[2 * k + 1]);
-    const float c = cr[k], s = sr[k];
+    const float2 o = rope_pair(to_f(src[2 * k]), to_f(src[2 * k + 1]), cr[k], sr[k]);
     float* dst = r < rep ? qs + r * hd : kn;
-    dst[2 * k] = __fadd_rn(__fmul_rn(x0, c), __fmul_rn(x1, -s));
-    dst[2 * k + 1] = __fadd_rn(__fmul_rn(x1, c), __fmul_rn(x0, s));
+    dst[2 * k] = o.x;
+    dst[2 * k + 1] = o.y;
   }
   for (int d = tid; d < hd; d += kAbThreads) vn[d] = to_f(vg[d]);
   __syncthreads();
@@ -263,117 +296,198 @@ __device__ __forceinline__ void ab_attend(const AbArgs& a, int b, int j, float* 
 #pragma unroll
     for (int w = 0; w < kAbWarps; ++w) v += red[(size_t)w * rep * hd + i];
     const size_t oi = (size_t)b * a.nh * hd + (size_t)j * rep * hd + i;
-    const float o = v / lrow[r];
-    if (att_f) att_f[oi] = o;
-    else att_t[oi] = from_f<T>(o);
+    static_cast<T*>(a.att)[oi] = from_f<T>(v / lrow[r]);
   }
-  __syncthreads();  // smem is reused by this CTA's next item
 }
 
 // Light form: grid (nkv, B), one (slot, kv head) a CTA.
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kAbThreads) attn_rope_write_kernel(const AbArgs a) {
   extern __shared__ __align__(16) unsigned char smraw[];
-  ab_attend<T, ROWS>(a, blockIdx.y, blockIdx.x, nullptr, static_cast<T*>(a.att), smraw);
+  ab_attend<T, ROWS>(a, blockIdx.y, blockIdx.x, smraw);
 }
 
-// Grid-wide barrier of a cooperative (co-resident) grid: CTA arrivals
-// counted in *count; thread 0 spins with acquire loads until all arrived.
-__device__ __forceinline__ void grid_barrier(unsigned* count) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
-      if (seen < gridDim.x) __nanosleep(32);
-    } while (seen < gridDim.x);
-    __threadfence();
-  }
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// bf16: split tensor-core attention, then the combine
+
+// Shared floats of the combine before its split weights: roped q
+// [kMaxRows][hd], k_n [hd], and M, L, e^(s_new - M) [kMaxRows].
+constexpr int kAbCombFloats = kMaxRows * kAbHeadDim + kAbHeadDim + 3 * kMaxRows;
+
+// The combine's shared bytes: kAbCombFloats, then the weights e^(m_i - M)
+// [rep][nsplit].
+inline size_t ab_combine_smem(int rep, int nsplit) {
+  return sizeof(float) * ((size_t)kAbCombFloats + (size_t)rep * nsplit);
 }
 
-// Full form: a persistent cooperative grid; phase B items, the barrier,
-// then phase C's GEMV items (qmv_tile, MT rows of att a tile).
-template <typename T, int ROWS, int MT, int BITS>
-__global__ void __launch_bounds__(kAbThreads) attn_block_kernel(const AbArgs a) {
+// The splits of rows [0, p) of a slot at p.
+__device__ __forceinline__ int ab_splits(int p) { return (p + kMaxChunk - 1) / kMaxChunk; }
+
+// Split kernel, grid (min(nsplit, kAbSplitCtas), nkv, B), 128 threads: CTA x
+// of (slot b, kv head j) takes splits x, x + gridDim.x, ... of rows [0, p),
+// each on the tensor-core body, its q rows roped in fp32 and rounded to
+// bf16 into the Q tile while the K / V copies are in flight, the partials
+// written for the combine.
+__global__ void __launch_bounds__(kDaThreads) ab_split_kernel(const AbArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int hd = kAbHeadDim, half = hd / 2;
   extern __shared__ __align__(16) unsigned char smraw[];
-  float* att = static_cast<float*>(a.att);
-  const int items_b = a.B * a.nkv;
-  for (int it = blockIdx.x; it < items_b; it += gridDim.x)
-    ab_attend<T, ROWS>(a, it / a.nkv, it % a.nkv, att, nullptr, smraw);
-
-  const int ntn = (a.N + kQmvCols - 1) / kQmvCols, ntm = (a.B + MT - 1) / MT;
-  unsigned* bar = a.tickets + ntn * ntm;  // [0] arrivals, [1] departures
-  grid_barrier(bar);
-
-  const int D = a.nh * kAbHeadDim;
-  const int items_c = ntn * a.ks * ntm;
-  for (int it = blockIdx.x; it < items_c; it += gridDim.x) {
-    const int tn = it % ntn, rest = it / ntn;
-    qmv_tile<float, T, MT, BITS>(att, a.woq, a.wos, static_cast<T*>(a.out), a.part, a.tickets,
-                                 a.B, D, a.N, a.gs, a.bps, tn, rest % a.ks, rest / a.ks, a.ks,
-                                 ntn, reinterpret_cast<float*>(smraw));
-  }
-  // the last CTA out (all have passed the barrier) resets both counters
-  __syncthreads();
-  if (threadIdx.x == 0 && atomicAdd(bar + 1, 1u) == gridDim.x - 1) {
-    bar[0] = 0u;
-    bar[1] = 0u;
-    __threadfence();
+  const int b = blockIdx.z, j = blockIdx.y, p = ab_pos(a, b), rep = a.nh / a.nkv;
+  const T* qg = static_cast<const T*>(a.q) + (size_t)b * a.q_stride + (size_t)j * rep * hd;
+  const float* cr = a.cosr + (size_t)b * half;
+  const float* sr = a.sinr + (size_t)b * half;
+  auto load_q = [&](T* Qs) {
+    for (int i = threadIdx.x; i < kMaxRows * half; i += kDaThreads) {
+      const int r = i / half, k = i - r * half;
+      float2 o = make_float2(0.f, 0.f);
+      if (r < rep)
+        o = rope_pair(to_f(qg[(size_t)r * hd + 2 * k]), to_f(qg[(size_t)r * hd + 2 * k + 1]),
+                      cr[k], sr[k]);
+      *reinterpret_cast<uint32_t*>(Qs + r * AbSmem::LD + 2 * k) = pack_bf16(o.x, o.y);
+    }
+  };
+  for (int split = blockIdx.x; split < ab_splits(p); split += gridDim.x) {
+    if (split != (int)blockIdx.x) __syncthreads();   // the last split's reads of smem
+    const int s0 = split * kMaxChunk;
+    dattn_mma_body<hd, false, true>(a.kc, a.vc, nullptr, nullptr, a.part_o, a.part_ml, b, j,
+                                    split, a.nsplit, a.nh, a.nkv, 1, s0,
+                                    min(kMaxChunk, p - s0), ((size_t)b * a.nkv + j) * a.S + s0,
+                                    a.scale, load_q, [&](int) { return p - 1; }, smraw);
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Combine kernel, grid (nkv, B), 128 threads, ab_combine_smem bytes: for
+// (slot b, kv head j) over its splits of rows < p and the new row, rope
+// q's rep rows and k_n in fp32, write row p of the stripe (k_n in bf16,
+// v_new as given), score the new row in fp32 (q_r . k_n / sqrt(hd)), then
+// per query row M = max(s_new, m_i), L = e^(s_new - M) + sum e^(m_i - M)
+// l_i and att = (e^(s_new - M) v_new + sum e^(m_i - M) o_i) / L, in split
+// order, one output element a thread, att in bf16.
+__global__ void __launch_bounds__(kDaThreads) ab_combine_kernel(const AbArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int hd = kAbHeadDim, half = hd / 2;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rep = a.nh / a.nkv, p = ab_pos(a, b), ns = a.nsplit, nv = ab_splits(p);
+  float* qf = reinterpret_cast<float*>(smraw);   // [rep][hd]
+  float* kf = qf + kMaxRows * hd;                // [hd]
+  float* mrow = kf + hd;                         // [kMaxRows]
+  float* lrow = mrow + kMaxRows;                 // [kMaxRows]
+  float* wnew = lrow + kMaxRows;                 // [kMaxRows]
+  float* wsp = wnew + kMaxRows;                  // [rep][ns]: e^(m_i - M)
+  const T* qg = static_cast<const T*>(a.q) + (size_t)b * a.q_stride + (size_t)j * rep * hd;
+  const T* kg = static_cast<const T*>(a.kn) + (size_t)b * a.kv_stride + (size_t)j * hd;
+  const T* vg = static_cast<const T*>(a.vn) + (size_t)b * a.kv_stride + (size_t)j * hd;
+  const float* cr = a.cosr + (size_t)b * half;
+  const float* sr = a.sinr + (size_t)b * half;
+  for (int i = tid; i < (rep + 1) * half; i += kDaThreads) {
+    const int r = i / half, k = i - r * half;
+    const T* src = r < rep ? qg + (size_t)r * hd : kg;
+    const float2 o = rope_pair(to_f(src[2 * k]), to_f(src[2 * k + 1]), cr[k], sr[k]);
+    float* dst = r < rep ? qf + r * hd : kf;
+    dst[2 * k] = o.x;
+    dst[2 * k + 1] = o.y;
+  }
+  __syncthreads();
+  const size_t row = (((size_t)b * a.nkv + j) * a.S + p) * hd;
+  T* kc = static_cast<T*>(a.kc);
+  T* vc = static_cast<T*>(a.vc);
+  for (int d = tid; d < hd; d += kDaThreads) {
+    kc[row + d] = from_f<T>(kf[d]);
+    vc[row + d] = vg[d];
+  }
+  const size_t hr0 = (size_t)b * a.nh + (size_t)j * rep;   // the kv head's first query row
+  for (int r = warp; r < rep; r += kDaWarps) {
+    float dsum = 0.f;
+    for (int d = lane; d < hd; d += 32) dsum = fmaf(qf[r * hd + d], kf[d], dsum);
+    const float sn = warp_sum(dsum) * a.scale;
+    const float* ml = a.part_ml + (hr0 + r) * ns * 2;
+    float m = sn;
+    for (int i = lane; i < nv; i += 32) m = fmaxf(m, ml[2 * i]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int i = lane; i < nv; i += 32) {
+      const float w = expf(ml[2 * i] - m);
+      wsp[r * ns + i] = w;
+      l += w * ml[2 * i + 1];
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      const float w = expf(sn - m);
+      mrow[r] = m;
+      lrow[r] = l + w;
+      wnew[r] = w;
+    }
+  }
+  __syncthreads();
+  constexpr int U = 8;   // split partials in flight a thread
+  T* att = static_cast<T*>(a.att);
+  for (int i = tid; i < rep * hd; i += kDaThreads) {
+    const int r = i / hd, d = i - r * hd;
+    const float* po = a.part_o + (hr0 + r) * ns * hd + d;
+    const float* w = wsp + r * ns;
+    float o = 0.f;
+    int s = 0;
+    for (; s + U <= nv; s += U) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = po[(size_t)(s + u) * hd];
+#pragma unroll
+      for (int u = 0; u < U; ++u) o += w[s + u] * v[u];
+    }
+    for (; s < nv; ++s) o += w[s] * po[(size_t)s * hd];
+    o += wnew[r] * to_f(vg[d]);
+    att[hr0 * hd + i] = from_f<T>(o / lrow[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+
+// occ non-null: launch nothing; occ[0] resident CTAs per SM, occ[1]
+// registers per thread, occ[2] dynamic shared bytes, occ[3] local (spill)
+// bytes per thread.
+template <class K>
+cudaError_t kernel_info(K kern, int threads, size_t smem, int* occ) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[0], kern, threads, smem);
+  occ[1] = fa.numRegs;
+  occ[2] = (int)smem;
+  occ[3] = (int)fa.localSizeBytes;
+  return e;
+}
+
+// Launch kern or, with occ, report it (kernel_info).
+template <class K>
+cudaError_t launch_plain(K kern, dim3 grid, int threads, size_t smem, const AbArgs& a,
+                         cudaStream_t st, int* occ) {
+  if (occ) return kernel_info(kern, threads, smem, occ);
+  kern<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T, int ROWS>
 cudaError_t launch_light(const AbArgs& a, cudaStream_t st) {
+  static SmemOptIn opt_in;   // chunk is always kMaxChunk (ab_shape_ok): one size
   const size_t smem = ab_smem<T, ROWS>(a.chunk, kAbHeadDim);
   auto kern = attn_rope_write_kernel<T, ROWS>;
-  cudaError_t e = allow_smem(kern, smem);
+  const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(a.nkv, a.B), kAbThreads, smem, st>>>(a);
-  return cudaGetLastError();
+  return launch_plain(kern, dim3(a.nkv, a.B), kAbThreads, smem, a, st, nullptr);
 }
 
-// occ non-null: launch nothing; occ[0] resident CTAs per SM, occ[1]
-// registers per thread, occ[2] dynamic shared bytes, occ[3] the grid.
-template <typename T, int ROWS, int MT, int BITS>
-cudaError_t launch_full(AbArgs a, cudaStream_t st, int* occ) {
-  const size_t sb = ab_smem<T, ROWS>(a.chunk, kAbHeadDim);
-  const size_t sc = sizeof(float) * qmv_smem_floats<BITS>(MT, a.bps, a.gs);
-  const size_t smem = sb > sc ? sb : sc;
-  auto kern = attn_block_kernel<T, ROWS, MT, BITS>;
-  cudaError_t e = allow_smem(kern, smem);
+// The bf16 light form: the split kernel, then the combine kernel (both
+// under 48 KB of shared memory: ab_shape_ok); occ: launch nothing, report
+// the split kernel in occ[0..3] and the combine kernel in occ[4..7].
+inline cudaError_t launch_light_mma(const AbArgs& a, cudaStream_t st, int* occ) {
+  const dim3 grid(min(a.nsplit, kAbSplitCtas), a.nkv, a.B);
+  const cudaError_t e = launch_plain(ab_split_kernel, grid, kDaThreads, AbSmem::bytes, a, st, occ);
   if (e != cudaSuccess) return e;
-  int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kAbThreads, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const int ntn = (a.N + kQmvCols - 1) / kQmvCols, ntm = (a.B + MT - 1) / MT;
-  const int items = max(a.B * a.nkv, ntn * a.ks * ntm);
-  const int grid = min(per_sm * sms, items);
-  if (occ) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, kern);
-    occ[0] = per_sm;
-    occ[1] = fa.numRegs;
-    occ[2] = (int)smem;
-    occ[3] = grid;
-    return e;
-  }
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kAbThreads), args, smem,
-                                  st);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_plain(ab_combine_kernel, dim3(a.nkv, a.B), kDaThreads,
+                      ab_combine_smem(a.nh / a.nkv, a.nsplit), a, st, occ ? occ + 4 : nullptr);
 }
 
 template <typename T>
@@ -384,26 +498,34 @@ cudaError_t dispatch_light(const AbArgs& a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int ROWS>
-cudaError_t dispatch_full_rows(int bits, const AbArgs& a, cudaStream_t st, int* occ) {
-  if (bits == 8)
-    return a.B <= 1 ? launch_full<T, ROWS, 1, 8>(a, st, occ) : launch_full<T, ROWS, 8, 8>(a, st, occ);
-  if (bits == 4)
-    return a.B <= 1 ? launch_full<T, ROWS, 1, 4>(a, st, occ) : launch_full<T, ROWS, 8, 4>(a, st, occ);
-  return cudaErrorInvalidValue;
+// The bf16 workspace's splits: ceil((S - 1) / 64) cover every row below the
+// last position (at least one).
+inline int ab_nsplit(int S) { return max(1, (S - 1 + kMaxChunk - 1) / kMaxChunk); }
+
+inline bool ab_shape_ok(const AbArgs& a, int dtype) {
+  const bool ok = a.hd == kAbHeadDim && a.nkv > 0 && a.nh % a.nkv == 0 &&
+                  a.nh / a.nkv <= kMaxRows && a.S > 0 && a.chunk == kMaxChunk && a.B > 0;
+  return ok && (dtype != kBF16 || ab_combine_smem(a.nh / a.nkv, ab_nsplit(a.S)) <= 48 * 1024);
 }
 
-template <typename T>
-cudaError_t dispatch_full(int bits, const AbArgs& a, cudaStream_t st, int* occ) {
-  const int rep = a.nh / a.nkv;
-  if (rep == 1) return dispatch_full_rows<T, 1>(bits, a, st, occ);
-  if (rep <= 8) return dispatch_full_rows<T, 8>(bits, a, st, occ);
-  return cudaErrorInvalidValue;
-}
-
-inline bool ab_shape_ok(const AbArgs& a) {
-  return a.hd == kAbHeadDim && a.nkv > 0 && a.nh % a.nkv == 0 && a.S > 0 && a.chunk > 0 &&
-         a.B > 0;
+inline AbArgs ab_args(const void* q, const void* kn, const void* vn, const void* cosr,
+                      const void* sinr, void* kc, void* vc, const void* pos, void* att,
+                      void* part_o, void* part_ml, int B, int nh, int nkv,
+                      int S, int hd, int chunk, int q_stride, int kv_stride) {
+  AbArgs a{};
+  a.q = q; a.kn = kn; a.vn = vn;
+  a.cosr = static_cast<const float*>(cosr);
+  a.sinr = static_cast<const float*>(sinr);
+  a.kc = kc; a.vc = vc;
+  a.pos = static_cast<const int*>(pos);
+  a.att = att;
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.B = B; a.nh = nh; a.nkv = nkv; a.S = S; a.hd = hd; a.chunk = chunk;
+  a.q_stride = q_stride; a.kv_stride = kv_stride;
+  a.nsplit = ab_nsplit(S);
+  a.scale = 1.f / sqrtf(static_cast<float>(hd));
+  return a;
 }
 
 }  // namespace rama
@@ -411,64 +533,31 @@ inline bool ab_shape_ok(const AbArgs& a) {
 // K14, light: q (B, nh, hd) rows at q + b * q_stride, k_new / v_new rows at
 // kn / vn + b * kv_stride (B, nkv, hd), all of q's dtype; cos / sin (B, hd/2)
 // f32; kc / vc layer l of the (L, B, nkv, S, hd) cache of q's dtype (16-byte
-// aligned); pos (B,) int32; att (B, nh * hd) of q's dtype. hd must be 128.
+// aligned); pos (B,) int32; att (B, nh * hd) of q's dtype. hd must be 128,
+// nh / nkv <= 8, chunk 64. bf16: part_o (B, nh, nsplit, hd) and part_ml
+// (B, nh, nsplit, 2) f32 scratch, nsplit = max(1, ceil((S - 1) / 64)),
+// (nh / nkv) * nsplit <= 11112; fp32 ignores them. After a launch *body is
+// the body that ran: 1 split tensor-core attention, 0 the SIMT body. occ
+// non-null (bf16): launch nothing, report the split kernel's {CTAs per SM,
+// registers, shared bytes, local bytes} in occ[0..3] and the combine
+// kernel's in occ[4..7].
 extern "C" int rama_attn_rope_write(const void* q, const void* kn, const void* vn,
                                     const void* cosr, const void* sinr, void* kc, void* vc,
-                                    const void* pos, void* att, int B, int nh, int nkv, int S,
-                                    int hd, int chunk, int q_stride, int kv_stride, int dtype,
-                                    void* stream) {
-  rama::AbArgs a{};
-  a.q = q; a.kn = kn; a.vn = vn;
-  a.cosr = static_cast<const float*>(cosr);
-  a.sinr = static_cast<const float*>(sinr);
-  a.kc = kc; a.vc = vc;
-  a.pos = static_cast<const int*>(pos);
-  a.att = att;
-  a.B = B; a.nh = nh; a.nkv = nkv; a.S = S; a.hd = hd; a.chunk = chunk;
-  a.q_stride = q_stride; a.kv_stride = kv_stride;
-  a.scale = 1.f / sqrtf(static_cast<float>(hd));
-  if (!rama::ab_shape_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+                                    const void* pos, void* att, void* part_o, void* part_ml,
+                                    int B, int nh, int nkv, int S, int hd, int chunk,
+                                    int q_stride, int kv_stride, int dtype, void* stream,
+                                    int* body, int* occ) {
+  const rama::AbArgs a = rama::ab_args(q, kn, vn, cosr, sinr, kc, vc, pos, att, part_o, part_ml,
+                                       B, nh, nkv, S, hd, chunk, q_stride, kv_stride);
+  if (!rama::ab_shape_ok(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rama::kBF16) return static_cast<int>(rama::dispatch_light<__nv_bfloat16>(a, st));
-  if (dtype == rama::kF32) return static_cast<int>(rama::dispatch_light<float>(a, st));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K14, full: the light form's operands with att a (B, nh * hd) f32 scratch,
-// then out (B, N) of q's dtype = att @ dequant(wo[l]): woq / wos point at
-// layer l of the (L, D, N) int8 or (L, D/2, N) packed int4 weight and its
-// (L, D/gs, N) f32 scales, D = nh * hd; `ks` K splits of `bps` K blocks
-// (scale groups for int8, packing blocks for int4) with part (ks, B, N) f32
-// when ks > 1; tickets: zeroed uint32 counters, ceil(N / 512) * ceil(B / MT)
-// + 2 of them (MT = 1 for B = 1, else 8), left zeroed. occ non-null: launch
-// nothing, report {CTAs per SM, registers, shared bytes, grid}.
-extern "C" int rama_attn_block(const void* q, const void* kn, const void* vn, const void* cosr,
-                               const void* sinr, void* kc, void* vc, const void* pos, void* att,
-                               const void* woq, const void* wos, void* out, void* part,
-                               void* tickets, int B, int nh, int nkv, int S, int hd, int chunk,
-                               int q_stride, int kv_stride, int N, int gs, int ks, int bps,
-                               int bits, int dtype, void* stream, int* occ) {
-  rama::AbArgs a{};
-  a.q = q; a.kn = kn; a.vn = vn;
-  a.cosr = static_cast<const float*>(cosr);
-  a.sinr = static_cast<const float*>(sinr);
-  a.kc = kc; a.vc = vc;
-  a.pos = static_cast<const int*>(pos);
-  a.att = att;
-  a.woq = static_cast<const int8_t*>(woq);
-  a.wos = static_cast<const float*>(wos);
-  a.out = out;
-  a.part = static_cast<float*>(part);
-  a.tickets = static_cast<unsigned*>(tickets);
-  a.B = B; a.nh = nh; a.nkv = nkv; a.S = S; a.hd = hd; a.chunk = chunk;
-  a.q_stride = q_stride; a.kv_stride = kv_stride;
-  a.N = N; a.gs = gs; a.ks = ks; a.bps = bps;
-  a.scale = 1.f / sqrtf(static_cast<float>(hd));
-  if (!rama::ab_shape_ok(a) || N <= 0 || gs <= 0 || ks <= 0 || bps <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rama::kBF16)
-    return static_cast<int>(rama::dispatch_full<__nv_bfloat16>(bits, a, st, occ));
-  if (dtype == rama::kF32) return static_cast<int>(rama::dispatch_full<float>(bits, a, st, occ));
+  if (dtype == rama::kBF16) {
+    if (body) *body = 1;
+    return static_cast<int>(rama::launch_light_mma(a, st, occ));
+  }
+  if (dtype == rama::kF32 && !occ) {
+    if (body) *body = 0;
+    return static_cast<int>(rama::dispatch_light<float>(a, st));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,13 +16,19 @@ K4 the probabilities to the cache's). pos is clamped to [0, S-1] for the
 write and the attention (the port's T = 1 overshoot rule; the Pallas kernel
 is not defined past the cache).
 
-On the card one hand-written kernel (`csrc/attn_block.cu`): the light form
-one launch of a CTA per (slot, kv head), the full form ONE cooperative
-launch whose persistent grid runs the same attention items, a grid-wide
-barrier, then K1's split-K GEMV tiles of wo (`csrc/qmv.cuh`). A CUDA tensor
-launches the kernel or raises (a refused cooperative launch included); a
-CPU tensor runs the plain version (`*_plain`). The model takes this path
-under RAMA_ATTN_BLOCK = 1 / 2 (`models/llama.py`).
+On the card one hand-written kernel file (`csrc/attn_block.cu`). bf16
+(`body_for`: "mma") runs split tensor-core attention: a CTA per (slot, kv
+head, 64-row split of the rows before pos) on the decode attention's
+m16n8k16 body (`csrc/dattn_mma.cuh`), q roped in fp32 and rounded to bf16
+as its operand, then a combine launch that folds in the new row's fp32
+score and writes the row. fp32 ("simt") keeps one CTA per (slot, kv head)
+walking its stripe on the CUDA cores. The full form is the light form,
+then K1 (`quant_matmul`) on att: the swap-AB tensor-core body on bf16 att,
+the fp32 GEMV on fp32 att -- so mode 2 launches what mode 1 and its wo
+launch do; one cooperative launch of the same work measured slower on an
+H100. A CUDA tensor launches the kernels or raises; a CPU tensor runs the
+plain version (`*_plain`). The model takes this path under
+RAMA_ATTN_BLOCK = 1 / 2 (`models/llama.py`).
 """
 
 from __future__ import annotations
@@ -38,19 +44,38 @@ from rama_tpu_torch.ops.kernels.build import I, P, require
 from rama_tpu_torch.ops.kernels.decode_attention import layer_ptrs
 from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 
-# launches since the last reset, by form and wo bits (chip_smoke reads them)
+# launches since the last reset, by form and wo bits (chip_smoke reads them),
+# and every one of them by the body the kernel file reports it ran
 launches = {"attn_rope_write_layered": 0, "attn_block_layered": 0,
             "attn_block_layered_int4": 0}
+launches_by_body = {"mma": 0, "simt": 0}
 
-CHUNK = 64        # cache rows a tile (csrc/attn_block.cu)
+CHUNK = 64        # cache rows a split / tile (csrc/attn_block.cu, kMaxChunk)
 HEAD_DIM = 128    # the kernel's head_dim (kAbHeadDim)
-MAX_REP = 8       # GQA group rows a CTA keeps in registers
+MAX_REP = 8       # GQA group rows a CTA holds (kMaxRows)
 MAX_SLOTS = 32    # attn_block_supported's batch limit
+# the bf16 combine's shared floats (kAbCombFloats) beside its split weights,
+# under the 48 KB a launch takes without an opt-in
+_COMBINE_FLOATS = MAX_REP * HEAD_DIM + HEAD_DIM + 3 * MAX_REP
+_COMBINE_SMEM = 48 * 1024
+
+_BODIES = {1: "mma", 0: "simt"}   # the body code the C entry reports it launched
 
 _SIGNATURES = {
-    "rama_attn_rope_write": [P] * 9 + [I] * 9 + [P],
-    "rama_attn_block": [P] * 14 + [I] * 14 + [P, P],
+    "rama_attn_rope_write": [P] * 11 + [I] * 9 + [P, P, P],
 }
+
+
+def body_for(dtype: torch.dtype) -> str:
+    """The attention body a CUDA launch of either form runs: "mma" (split
+    tensor-core attention) for bf16, "simt" (CUDA cores) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def nsplit(s: int) -> int:
+    """64-row splits of the bf16 workspace: every row below the last
+    position of a cache of s rows, at least one."""
+    return max(1, -(-(s - 1) // CHUNK))
 
 
 def attn_block_supported(wo, s: int, b: int) -> bool:
@@ -170,6 +195,33 @@ def _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer
             [b, nh, nkv, s, hd, CHUNK, q.stride(0), k_new.stride(0)])
 
 
+def _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer: int,
+           what: str) -> tuple[torch.Tensor, str]:
+    """Launch the light form's kernels (counted by the caller): att (B, nh *
+    hd) in q's dtype, and the body the kernel file reports it ran."""
+    ptrs, ints = _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
+    b, nh, hd = q.shape
+    nkv, s = k_full.shape[2], k_full.shape[3]
+    att = torch.empty((b, nh * hd), dtype=q.dtype, device=q.device)
+    part_o = part_ml = None
+    if body_for(q.dtype) == "mma":
+        ns = nsplit(s)
+        require(4 * (_COMBINE_FLOATS + nh // nkv * ns) <= _COMBINE_SMEM,
+                f"a cache of {s} rows at GQA group {nh // nkv}: the combine's split weights "
+                f"do not fit its shared memory")
+        # the splits' partial o (B, nh, ns, hd), then their (m, l) (B, nh, ns, 2)
+        scratch = torch.empty(b * nh * ns * (hd + 2), dtype=torch.float32, device=q.device)
+        part_o = scratch.data_ptr()
+        part_ml = part_o + 4 * b * nh * ns * hd
+    ran = ctypes.c_int(-1)
+    lib = build.library("attn_block", _SIGNATURES)
+    err = lib.rama_attn_rope_write(*ptrs, att.data_ptr(), part_o, part_ml, *ints,
+                                   build.dtype_code(q), build.stream_ptr(q),
+                                   ctypes.byref(ran), None)
+    build.check(lib, err, what)
+    return att, _BODIES[ran.value]
+
+
 def attn_rope_write_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos,
                             layer: int) -> torch.Tensor:
     """K14, light: q (B, nh, hd), k_new / v_new (B, nkv, hd) UN-roped (any
@@ -181,49 +233,20 @@ def attn_rope_write_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
         return attn_rope_write_layered_plain(q, k_new, v_new, cos_rows, sin_rows, k_full,
                                              v_full, pos, layer)
     _check(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
-    ptrs, ints = _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
-    att = torch.empty((q.shape[0], q.shape[1] * q.shape[2]), dtype=q.dtype, device=q.device)
-    lib = build.library("attn_block", _SIGNATURES)
-    err = lib.rama_attn_rope_write(*ptrs, att.data_ptr(), *ints, build.dtype_code(q),
-                                   build.stream_ptr(q))
-    build.check(lib, err, "attn_rope_write_layered")
+    att, body = _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer,
+                       "attn_rope_write_layered")
     launches["attn_rope_write_layered"] += 1
+    launches_by_body[body] += 1
     return att
-
-
-_grid_cache: dict[tuple, int] = {}
-
-
-def _plan(q, wo: QuantizedTensor, nkv: int) -> tuple[int, int, int]:
-    """(ks, bps, tickets) of the full form's phase C: the split-K GEMV's K
-    splits aimed at the cooperative grid's size (resident CTAs per SM x SMs,
-    from the occupancy API once per shape), K blocks per split, and the
-    ticket counters the launch needs (column tiles x row chunks + the
-    barrier's two)."""
-    b, nh, hd = q.shape
-    n, k = wo.shape[-1], wo.k_dim
-    key = (q.device, q.dtype, b, nh, nkv, n, k, wo.group_size, wo.bits)
-    if key not in _grid_cache:
-        info = occupancy(b, nh, nkv, n, k, wo.group_size, wo.bits, q.dtype)
-        require(info["ctas_per_sm"] >= 1,
-                f"the fused attention block does not fit on an SM: {info}")
-        _grid_cache[key] = info["ctas_per_sm"] * _sms()
-    mt = 1 if b <= 1 else 8
-    col_tiles = -(-n // _qm._QMV_COLS)
-    ks, bps = _qm.split_k(k // wo.k_block, col_tiles, wo.k_block, mt,
-                          target=_grid_cache[key])
-    return ks, bps, col_tiles * -(-b // mt) + 2
-
-
-def _sms() -> int:
-    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
 
 
 def attn_block_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
                        wo: QuantizedTensor, pos, layer: int) -> torch.Tensor:
     """K14, full: attn_rope_write_layered's operands plus wo, the stacked
     (L, nh * hd, N) int8 or int4 weight; returns att @ dequant(wo[layer])
-    (B, N) in q's dtype, att in fp32 between the two."""
+    (B, N) in q's dtype, att in fp32 between the two (bf16: rounded to bf16
+    as the wo product's operand). The light form's launches, then K1 on
+    att."""
     if q.device.type == "cpu":
         return attn_block_layered_plain(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
                                         wo, pos, layer)
@@ -232,36 +255,23 @@ def attn_block_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
     b, nh, hd = q.shape
     require(wo.k_dim == nh * hd, f"wo K {wo.k_dim} != nh * hd {nh * hd}")
     require(b <= MAX_SLOTS, f"{b} slots: the fused block takes at most {MAX_SLOTS}")
-    ks, bps, nt = _plan(q, wo, k_full.shape[2])
-    n = wo.shape[-1]
-    ptrs, ints = _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
-    att = torch.empty((b, nh * hd), dtype=torch.float32, device=q.device)
-    out = torch.empty((b, n), dtype=q.dtype, device=q.device)
-    part = torch.empty((ks, b, n), dtype=torch.float32, device=q.device) if ks > 1 else out
-    qp, sp = _qm.weight_ptrs(wo, layer)
-    lib = build.library("attn_block", _SIGNATURES)
-    err = lib.rama_attn_block(*ptrs, att.data_ptr(), qp, sp, out.data_ptr(), part.data_ptr(),
-                              build.tickets(q.device, nt).data_ptr(), *ints, n, wo.group_size,
-                              ks, bps, wo.bits, build.dtype_code(q), build.stream_ptr(q), None)
-    build.check(lib, err, f"attn_block_layered (int{wo.bits})")
+    att, body = _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer,
+                       f"attn_block_layered (int{wo.bits})")
+    out = _qm.quant_matmul(att, wo, layer)
     launches["attn_block_layered" if wo.bits == 8 else "attn_block_layered_int4"] += 1
+    launches_by_body[body] += 1
     return out
 
 
-def occupancy(b: int, nh: int, nkv: int, n: int, k: int, gs: int, bits: int,
-              dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The full form's cooperative grid for these shapes on the current
-    card, as the CUDA occupancy API reports it: resident CTAs per SM,
-    registers per thread, dynamic shared bytes per CTA, CTAs of the grid
-    (with the wo GEMV's K split for one CTA per SM; the register count,
-    not the split's few KB of shared memory, sets the residency). Launches
-    nothing."""
-    out = (ctypes.c_int * 4)()
-    k_block = 2 * gs if bits == 4 else gs
-    ks, bps = _qm.split_k(k // k_block, -(-n // _qm._QMV_COLS), k_block, 1 if b <= 1 else 8,
-                          target=_sms())
+def light_occupancy(nh: int, nkv: int, s: int = 1024) -> dict:
+    """The bf16 light form's two kernels on the current card, for a cache of
+    s rows: the split kernel's and the combine kernel's resident CTAs per
+    SM, registers and local (spill) bytes per thread, and dynamic shared
+    bytes. Launches nothing."""
     lib = build.library("attn_block", _SIGNATURES)
-    build.check(lib, lib.rama_attn_block(
-        *[None] * 14, b, nh, nkv, 8, HEAD_DIM, CHUNK, 0, 0, n, gs, ks, bps, bits,
-        build.DTYPE_CODES[dtype], None, out), "attn_block occupancy")
-    return {"ctas_per_sm": out[0], "registers": out[1], "smem_bytes": out[2], "grid": out[3]}
+    out = (ctypes.c_int * 8)()
+    build.check(lib, lib.rama_attn_rope_write(
+        *[None] * 11, 1, nh, nkv, s, HEAD_DIM, CHUNK, 0, 0, build.DTYPE_CODES[torch.bfloat16],
+        None, None, out), "attn_rope_write occupancy")
+    keys = ("ctas_per_sm", "registers", "smem_bytes", "local_bytes")
+    return {"split": dict(zip(keys, out[:4])), "combine": dict(zip(keys, out[4:]))}

@@ -1,7 +1,8 @@
 """Kernel 14's plain versions (attn_rope_write_layered_plain,
 attn_block_layered_plain) against rama_tpu's attn_rope_write_layered /
 attn_block_layered in interpret mode on the same numpy inputs (int8 and
-int4 wo, GQA rep 1 and 2, positions 0, mid-stripe and S-1), the port's
+int4 wo, GQA rep 1 and 2, positions 0, mid-stripe and S-1, and the card
+kernel's 64-row split edges of a 144-row cache), the port's
 clamp of positions >= S, and the model's RAMA_ATTN_BLOCK modes: a tiny
 head_dim-128 model's decode steps under modes 1 and 2 against the JAX
 package's decode_step (unfused on the CPU), and an engine stream under mode
@@ -34,9 +35,9 @@ torch.set_num_threads(1)
 L, HD, S = 2, 128, 64
 
 
-def make_case(b, nkv, rep, bits, pos, seed, gs=16):
+def make_case(b, nkv, rep, bits, pos, seed, gs=16, s=S):
     """numpy inputs of both packages' attention block (rama_tpu's
-    tests/test_attn_block.py make_case, positions given)."""
+    tests/test_attn_block.py make_case, positions given; a cache of s rows)."""
     rng = np.random.default_rng(seed)
     nh = nkv * rep
     d = nh * HD
@@ -44,11 +45,11 @@ def make_case(b, nkv, rep, bits, pos, seed, gs=16):
     case = dict(q=rng.normal(size=(b, nh, HD)).astype(f),
                 kn=rng.normal(size=(b, nkv, HD)).astype(f),
                 vn=rng.normal(size=(b, nkv, HD)).astype(f),
-                k=rng.normal(size=(L, b, nkv, S, HD)).astype(f),
-                v=rng.normal(size=(L, b, nkv, S, HD)).astype(f),
+                k=rng.normal(size=(L, b, nkv, s, HD)).astype(f),
+                v=rng.normal(size=(L, b, nkv, s, HD)).astype(f),
                 pos=np.asarray(pos, np.int32))
     inv = 1.0 / (10000.0 ** (np.arange(HD // 2) * 2.0 / HD))
-    ang = np.minimum(case["pos"], S - 1)[:, None] * inv[None, :]
+    ang = np.minimum(case["pos"], s - 1)[:, None] * inv[None, :]
     case["cos"], case["sin"] = np.cos(ang).astype(f), np.sin(ang).astype(f)
     if bits:
         quant = quantize_int8 if bits == 8 else quantize_int4
@@ -56,8 +57,11 @@ def make_case(b, nkv, rep, bits, pos, seed, gs=16):
     return case
 
 
-# (form, bits, b, nkv, rep, positions): pos 0 and S-1 in every case, at most
-# 8 interpret calls (each a few seconds on the CPU)
+# (form, bits, b, nkv, rep, positions[, cache rows]): pos 0 and S-1 in every
+# case of S rows; the split-edge cases hold positions on and around the card
+# kernel's 64-row split edges (63 / 64 / 65, 127 / 128) and the last row of
+# a 144-row cache; at most 8 interpret calls (each a few seconds on the CPU)
+S_EDGE = 144
 CASES = {
     "light-rep1": ("light", 0, 3, 2, 1, [0, 37, S - 1]),
     "light-rep2": ("light", 0, 3, 2, 2, [S - 1, 0, 16]),
@@ -65,6 +69,8 @@ CASES = {
     "full-int8-rep2-b1": ("full", 8, 1, 2, 2, [S - 1]),
     "full-int4-rep1-b1": ("full", 4, 1, 2, 1, [0]),
     "full-int4-rep2": ("full", 4, 2, 2, 2, [S - 1, 33]),
+    "light-split-edges": ("light", 0, 6, 1, 2, [63, 64, 65, 127, 128, S_EDGE - 1], S_EDGE),
+    "full-int8-split-edges": ("full", 8, 4, 1, 1, [64, 63, 128, 127], S_EDGE),
 }
 
 
@@ -83,8 +89,8 @@ def _t(case):
 def jax_out():
     """rama_tpu's outputs (interpret mode, chunk 16), layer 1, per case."""
     out = {}
-    for name, (form, bits, b, nkv, rep, pos) in CASES.items():
-        c = make_case(b, nkv, rep, bits, pos, seed=len(out) + 3)
+    for name, (form, bits, b, nkv, rep, pos, *s) in CASES.items():
+        c = make_case(b, nkv, rep, bits, pos, seed=len(out) + 3, s=(s or [S])[0])
         args = [jnp.asarray(c[k]) for k in ("q", "kn", "vn", "cos", "sin", "k", "v")]
         if form == "light":
             res = jab.attn_rope_write_layered(*args, jnp.asarray(c["pos"]), jnp.int32(1),

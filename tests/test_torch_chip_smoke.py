@@ -125,8 +125,9 @@ def counters():
              dict(ab.launches), da.launches, da.launches_q8, pa.launches, da.launches_flat,
              da.launches_flat_q8)
     bodies = (dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body),
-              dict(da.launches_by_body), dict(pga.launches_by_body))
+              dict(da.launches_by_body), dict(pga.launches_by_body), dict(ab.launches_by_body))
     yield mods
+    ab.launches_by_body.update(bodies[5])
     pa.launches_by_body.update(bodies[0])
     qm.launches_by_body.update(bodies[1])
     ffn.launches_by_body.update(bodies[2])
@@ -309,12 +310,49 @@ def test_spec_draft_counts_only_its_draft_mode_runs(smoke, monkeypatch):
     assert events == ["off", "count from 0", "draft", "draft"]
 
 
+def test_spec_draft_ab_runs_the_self_draft_under_modes_1_and_2(smoke, monkeypatch):
+    """spec_draft_ab runs spec_draft's self-draft (spec off, then the target
+    as its own draft) under RAMA_ATTN_BLOCK 1 and then 2, gates nothing,
+    returns each mode's accept rate and restores the mode."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.runtime import engine as eng_mod
+
+    events, rates = [], iter([0.5, 0.75])
+
+    class FakeEngine:
+        def __init__(self, cfg, params, tokenizer, ecfg, draft=None):
+            events.append((llama.ATTN_BLOCK, "draft" if ecfg.spec_tick else "off"))
+            self.rate = next(rates) if ecfg.spec_tick else None
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def submit(self, req):
+            for tok in ("a", "b", None):
+                req.queue.put(tok)
+
+        def stats(self):
+            return {"spec_accept_rate": self.rate, "engine_errors": 0}
+
+    monkeypatch.setattr(eng_mod, "Engine", FakeEngine)
+    monkeypatch.setattr(llama, "ATTN_BLOCK", 0)
+    got = smoke.phase_spec_draft_ab(torch, smoke.seven_b_config(ModelConfig), {}, None)
+    assert got == {1: 0.5, 2: 0.75}
+    assert events == [(1, "off"), (1, "draft"), (2, "off"), (2, "draft")]
+    assert llama.ATTN_BLOCK == 0
+
+
 def test_spec_phases_are_known_and_a_subset_is_not_ok(smoke):
-    for ph in ("kernels_spec", "model_spec", "serve_spec", "spec_draft", "profile_spec",
-               "serve_spec_kv8"):
+    for ph in ("kernels_spec", "model_spec", "serve_spec", "spec_draft", "spec_draft_ab",
+               "profile_spec", "serve_spec_kv8"):
         assert ph in smoke.ALL_PHASES
     assert smoke.SPEC_PATH["phases"] == ("model_spec", "serve_spec", "profile_spec")
-    assert smoke.SPEC_DRAFT_PATH["phases"] == (None, "spec_draft", None)
+    # the self-draft under RAMA_ATTN_BLOCK 1 / 2 runs after the path's count is read
+    assert smoke.SPEC_DRAFT_PATH["phases"] == (None, "spec_draft", "spec_draft_ab")
     assert smoke.SPEC_KV8_PATH["serve"]["kv_quant"] == "int8"
     dev = {"platform": "gpu", "kind": "x", "count": 1}
     line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "spec_draft"), dev)
@@ -509,6 +547,34 @@ def test_attention_block_paths_fail_without_k14_with_k4_or_uneven(smoke, path_na
         smoke.check_launches(path, {**ok, fused: 32, ffn: 64})
 
 
+@pytest.mark.parametrize("path_name", ["AB1_PATH", "AB2_PATH", "AB2_INT4_PATH"])
+def test_attention_block_paths_fail_on_the_simt_body(smoke, path_name):
+    """Every bf16 launch of the fused attention block runs split
+    tensor-core attention: one launch counted on its SIMT body fails the
+    path."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "attn_block_mma": 64, "attn_block_simt": 0}
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="took the SIMT body, not split tensor-core"):
+        smoke.check_launches(path, {**ok, "attn_block_mma": 63, "attn_block_simt": 1})
+    # a path without the fused block does not read its counts
+    smoke.check_launches(smoke.PREFILL_T1_PATH, {
+        **{k: 32 for k in smoke.PREFILL_T1_PATH["record"]},
+        **{k: 0 for k in smoke.PREFILL_T1_PATH["forbid"]}, "attn_block_simt": 5})
+
+
+def test_attention_block_launches_are_read_and_reset_by_body(smoke, counters):
+    ab = counters[-1]
+    ab.launches_by_body.update(mma=5, simt=2)
+    got = smoke.read_launches(*counters)
+    assert (got["attn_block_mma"], got["attn_block_simt"]) == (5, 2)
+    for name in smoke.AB_KERNELS:
+        assert smoke.BODY_COUNTS[name] == ("attn_block", ("mma", "simt"))
+    smoke.reset_launches(*counters)
+    assert ab.launches_by_body == {"mma": 0, "simt": 0}
+
+
 def test_prefill_t1_path_needs_both_k9_forms_and_no_other_attention(smoke):
     path = smoke.PREFILL_T1_PATH
     ok = {**{k: 32 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
@@ -607,6 +673,7 @@ def test_model_attn_phase_on_a_tiny_model(smoke, monkeypatch, counters, bits):
         def counted(*a, **k):
             wo_bits = a[7].bits if name == "attn_block_layered" else 8
             ab.launches[name + ("_int4" if wo_bits == 4 else "")] += 1
+            ab.launches_by_body[ab.body_for(a[0].dtype)] += 1
             calls["n"] += 1
             return real(*a, **k)
 

@@ -1062,32 +1062,115 @@ def _check_rows(got, want, before, pos, layer):
         assert torch.equal(rest, b0)
 
 
+def _ab_call(ab, form, wo, args, caches, pos, layer, plain=False):
+    """One K14 call of `form` ("light", or 8 / 4: the full form with that wo)."""
+    if form == "light":
+        fn = ab.attn_rope_write_layered_plain if plain else ab.attn_rope_write_layered
+        return fn(*args, *caches, pos, layer)
+    fn = ab.attn_block_layered_plain if plain else ab.attn_block_layered
+    return fn(*args, *caches, wo, pos, layer)
+
+
+def _ab_name(form):
+    return "attn_rope_write_layered" if form == "light" else \
+        "attn_block_layered" + ("_int4" if form == 4 else "")
+
+
+# B 1 / 8 and 9 (past one n8 tile of the wo body), GQA rep 1 / 2 / 4 / 8;
+# positions 0 (no split: the combine alone), S - 1, S + 3 (clamped) and the
+# 64-row split edges, then a second set with a mid-cache position first
+_AB_POSITIONS = {"edges": lambda s: [0, s - 1, s + 3, 63, 64, 65, 1, 128, 17],
+                 "more": lambda s: [s // 2 + 1, 127, 63, 64, 65, s - 2, 2, 129, 0]}
+
+
 @pytest.mark.parametrize("b,nkv,rep,s", [(3, 2, 1, 72), (2, 4, 2, 200), (9, 2, 4, 64),
-                                         (1, 3, 1, 136)])
+                                         (1, 3, 1, 136), (8, 2, 1, 200), (8, 1, 8, 136),
+                                         (1, 2, 8, 72), (8, 4, 4, 4096), (1, 1, 2, 4096)])
+@pytest.mark.parametrize("positions", ["edges", "more"])
 @pytest.mark.parametrize("form", ["light", 8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attn_block(dev, b, nkv, rep, s, form, dtype):
+def test_attn_block(dev, b, nkv, rep, s, positions, form, dtype):
+    """Each form against its plain version, the attention on the body
+    body_for picks (bf16: split tensor-core attention, fp32: the SIMT body)
+    and wo on K1, the written cache rows by _check_rows."""
     from rama_tpu_torch.ops.kernels import attn_block as ab
 
     q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=b * s + rep)
-    pos = torch.tensor([0, s - 1, s + 3, 63, 64, 65, 1, 128, 17][:b], dtype=torch.int32,
-                       device=dev)
+    pos = torch.tensor(_AB_POSITIONS[positions](s)[:b], dtype=torch.int32, device=dev)
     got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
-    if form == "light":
-        name = "attn_rope_write_layered"
-        n0 = ab.launches[name]
-        got = ab.attn_rope_write_layered(q, kn, vn, cos, sin, *got_c, pos, 1)
-        want = ab.attn_rope_write_layered_plain(q, kn, vn, cos, sin, *want_c, pos, 1)
-    else:
-        name = "attn_block_layered" + ("_int4" if form == 4 else "")
-        wo = _qt(dev, 2, nkv * rep * 128, 256, 64, seed=s, bits=form)
-        n0 = ab.launches[name]
-        got = ab.attn_block_layered(q, kn, vn, cos, sin, *got_c, wo, pos, 1)
-        want = ab.attn_block_layered_plain(q, kn, vn, cos, sin, *want_c, wo, pos, 1)
+    wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 256, 64, seed=s, bits=form)
+    name, body = _ab_name(form), ab.body_for(dtype)
+    n0, nb = ab.launches[name], dict(ab.launches_by_body)
+    got = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), got_c, pos, 1)
+    want = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), want_c, pos, 1, plain=True)
     torch.cuda.synchronize()
     _close_k(got, want, dtype)
     _check_rows(got_c, want_c, before, pos, 1)
     assert ab.launches[name] == n0 + 1
+    assert {k: ab.launches_by_body[k] - nb[k] for k in nb} == {k: int(k == body) for k in nb}
+
+
+@pytest.mark.parametrize("form", ["light", 8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attn_block_back_to_back(dev, form, dtype):
+    """Launches back to back with the layer cycling (0, 1, 0, 1, 1) and the
+    positions moving on, each against the plain version on its own copy of
+    the cache: the split workspaces of one launch carry nothing into the
+    next, and K1's split-K tickets under the full form are left zeroed (the
+    ticket buffer is all zero after)."""
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import build
+
+    b, nkv, rep, s = 8, 2, 2, 200
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=31)
+    wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 384, 64, seed=7, bits=form)
+    got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
+    pos = torch.tensor([0, 63, 64, 65, 127, 128, 150, 199], dtype=torch.int32, device=dev)
+    for i, layer in enumerate((0, 1, 0, 1, 1)):
+        p = (pos + i).clamp(max=s + 3)
+        got = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), got_c, p, layer)
+        want = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), want_c, p, layer, plain=True)
+        torch.cuda.synchronize()
+        _close_k(got, want, dtype)
+        for g_, w_ in zip(got_c, want_c):   # the rows written so far, within one ulp
+            _close_k(g_, w_, dtype)
+    assert int(build.tickets(dev, 1).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("form,dtype", [("light", torch.bfloat16), (8, torch.bfloat16),
+                                        (4, torch.bfloat16), (8, torch.float32)])
+def test_attn_block_replays_in_a_cuda_graph(dev, form, dtype):
+    """Each form captured in a CUDA graph and replayed (twice) equals an
+    eager launch on the same inputs bit for bit, output and written rows:
+    bf16 light (split + combine) and full (those, then K1's qmv_mma), and
+    the fp32 full form (the SIMT kernel, then K1's fp32 GEMV)."""
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    b, nkv, rep, s = 8, 4, 2, 1024
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=17)
+    pos = torch.tensor([0, 63, 64, 65, 500, 1000, 1023, 1027], dtype=torch.int32, device=dev)
+    wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 512, 64, seed=5, bits=form)
+    args = (q, kn, vn, cos, sin)
+    eager_c = [t.clone() for t in before]
+    eager = _ab_call(ab, form, wo, args, eager_c, pos, 1)
+    graph_c = [t.clone() for t in before]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up on the capture stream
+        _ab_call(ab, form, wo, args, [t.clone() for t in before], pos, 1)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    body = ab.body_for(dtype)
+    n0 = ab.launches_by_body[body]
+    with torch.cuda.graph(graph):
+        out = _ab_call(ab, form, wo, args, graph_c, pos, 1)
+    assert ab.launches_by_body[body] == n0 + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        for g_, e_ in zip(graph_c, eager_c):
+            assert torch.equal(g_, e_)
 
 
 def test_attn_block_refuses_operands_it_does_not_take(dev):
@@ -1103,7 +1186,6 @@ def test_attn_block_refuses_operands_it_does_not_take(dev):
         ab.attn_rope_write_layered(q, kn, vn, cos, sin, *cache, pos.long(), 0)
     with pytest.raises(ValueError, match="dtypes differ"):
         ab.attn_rope_write_layered(q.float(), kn, vn, cos, sin, *cache, pos, 0)
-
 
 def _hd128_params(dev, seed=3):
     import numpy as np
