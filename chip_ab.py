@@ -15,6 +15,11 @@ head_dim 128, 8 slots, random data from a seed):
     device ms (torch.profiler), CUDA-event ms a call, and the T = 1 kernel
     (K4 / K7 / K12 decode) over the same rows beside it;
     scaled_dot_product_attention's CUDA-event and device ms at T 4 / 8;
+  - the int8-cache decode step's attention at chip_smoke.py's shapes: K7
+    at S 1024 (K4's positions) and S 4096 (long positions), K9 q8 (one
+    layer's cache) at the same two, K12 decode on the int8 and the bf16
+    pool of 128-row pages (positions on page edges up to 4092): split and
+    combine device ms and CUDA-event ms a call;
   - the fused attention block (K14) at S 1024 on K4's positions (32
     layers) and at S 4096 on long positions (4 layers), bf16: the light
     form and the full form with int8 and int4 wo, each one's device ms
@@ -22,8 +27,10 @@ head_dim 128, 8 slots, random data from a seed):
     and combine) and the light form followed by K1's wo (the unfused
     composition of the full form);
   - 8-slot 7B int8 verify rounds of 4 and plain decode steps at pos 64 (a
-    128-row bf16 cache) and at pos 2048 (4096-row bf16 and int8 caches):
-    device ms a round or step, and the attention's part of it;
+    128-row bf16 cache) and at pos 2048 (4096-row bf16 and int8 caches),
+    and decode steps on an int8 page pool (32 pages of 128 rows a slot) at
+    pos 64 and 2048: device ms a round or step, and the attention's part
+    of it;
   - `profile_ab`: 8-slot 7B int8 decode steps under RAMA_ATTN_BLOCK 0, 1
     and 2 at pos 64 and 2048 of a 4096-row bf16 cache.
 
@@ -147,6 +154,38 @@ def main() -> int:
     del kv, q8p
     torch.cuda.empty_cache()
 
+    # -- the int8-cache decode step's attention: K7, K9 q8, K12 decode ------------------
+    def decode(measure, fn, n_layers) -> None:
+        lay = cs.Layered(n_layers)
+        emit(measure, ms=cs.time_ms(torch, lambda: fn(lay.next())),
+             **cs.attention_split_combine(torch, lambda: fn(lay.next())))
+
+    for S, n_l, pos in ((1024, 32, [0, 255, 256, 1023, 63, 64, 511, 700]),
+                        (4096, 4, [0, 63, 64, 255, 1023, 2047, 4000, 4095])):
+        c = cs.quantized_cache(torch, kvw, rx, n_l, B, nkv, S, hd)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = rx(B, nh, hd)
+        decode(f"decode_attention_q8 S={S}", lambda l: da.decode_attention_q8(q, *c, pos, l), n_l)
+        decode(f"decode_attention_flat_q8 S={S}",
+               lambda l: da.decode_attention_flat_q8(q, *[t[l] for t in c], pos), n_l)
+        del c
+        torch.cuda.empty_cache()
+    S, ps = 4096, 128
+    p0 = torch.tensor([0, 127, 128, 255, 1000, 2047, 3000, 4092], dtype=torch.int32)
+    tables, npages = cs.paged_tables(torch, [min(int(p) + 1, S) for p in p0], ps, S // ps, 8, gc)
+    tables, p0 = tables.to(dev), p0.to(dev)
+    kv = [rx(4, npages, nkv, ps, hd) for _ in range(2)]
+    q8p = [None] * 4
+    q8p[0], q8p[2] = kvw.kv_quant_rows(kv[0].float())
+    q8p[1], q8p[3] = kvw.kv_quant_rows(kv[1].float())
+    q = rx(B, nh, hd)
+    decode("paged_decode_attention_q8 ps=128",
+           lambda l: pga.paged_decode_attention_q8(q, *q8p, p0, tables, l), 4)
+    decode("paged_decode_attention ps=128",
+           lambda l: pga.paged_decode_attention(q, *kv, p0, tables, l), 4)
+    del kv, q8p
+    torch.cuda.empty_cache()
+
     # -- K14: the fused attention block, beside K4 on the same rows -----------------------
     from rama_tpu_torch.ops.kernels import attn_block as ab
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
@@ -207,7 +246,18 @@ def main() -> int:
             emit(f"profile pos 2048 {name} chunk {chunk}", **r)
         del cache
         torch.cuda.empty_cache()
-    del long
+    from rama_tpu_torch.runtime.paged import QuantPagedKVCache
+
+    mp = cs.KV8_MAX_LEN // cs.PAGE_SIZE
+    tables = torch.randperm(8 * mp, generator=torch.Generator().manual_seed(4))
+    tables = tables.view(8, mp).to(torch.int32).to(dev)
+    cache = QuantPagedKVCache.create(cfg, 8 * mp + 1, cs.PAGE_SIZE, device=dev)
+    for start in (64, 2048):
+        r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache, start=start,
+                             tables=tables)
+        emit(f"profile pos {start} int8 pool", **r)
+    del cache, long
+    torch.cuda.empty_cache()
     for key, r in cs.profile_ab(torch, cfg, params).items():
         emit(f"profile_ab {key}", **r)
     emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))

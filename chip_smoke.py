@@ -51,7 +51,13 @@ Phases, in order (any failure raises and the script exits non-zero):
            tiny / stories15M shapes; the int8 decode attention (rel 0.05
            per (slot, head)) at S 4096 and at S 1024 with the bf16
            kernel's positions, with planted edge rows, GQA rep 2 and 4,
-           fp32 and bf16 q; CUDA-event times as for `kernels`
+           fp32 and bf16 q, each launch on the body body_for picks (bf16:
+           the walk body, dattn_walk, by the counts and the profiled
+           kernel name); CUDA-event times as for `kernels`, and its split
+           and combine device ms with the bound's share, the grid (CTAs
+           launched against the splits with work, beside one CTA a 64-row
+           tile), the occupancy, and G (tiles a split) swept over 1 / 2 /
+           4 / 8
   model    Llama-2-7B int8 params from a seed on the card (untied
            classifier), kernel-path logits against the plain path
   generate generate_text, greedy, a few dozen tokens (non-degenerate)
@@ -84,7 +90,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            pos0 + t and pos0 + t + 1, every launch on the tensor-core body
            (by the launch counts by body); GQA rep 2 / 4, hd 16 / 48 / 64 /
            128, bf16 (hd 48 / 64 / 128 on the tensor-core body) and fp32
-           (the SIMT body); the chunk writer (K11) exact, with chunks straddling a
+           (the SIMT body; the int8 cache's chunks on the walk body); the
+           chunk writer (K11) exact, with chunks straddling a
            32-row window and reaching S; K4 at the stories15M draft's
            head_dim 48; CUDA-event times beside K4 / K6 on the same rows;
            device ms of the split kernel and the combine beside the T = 1
@@ -115,9 +122,11 @@ Phases, in order (any failure raises and the script exits non-zero):
            page edges, T 1 / 4 / 8, planted edges, and against K4 / K7 / K10
            over the gathered dense view (bit for bit where the 64-row splits
            coincide); a 16-row-page case; hd 64 / 48 at GQA rep 2 / 1 over
-           32- / 24-row pages; every launch on the tensor-core body in
-           bf16, the SIMT body in fp32 (by the counts by body and the
-           profiled split kernel); the paged writers (K13) exact, rows past
+           32- / 24-row pages; every launch on a tensor-core body in
+           bf16 (the int8 pool's on the walk body), the SIMT body in fp32
+           (by the counts by body and the profiled split kernel), the
+           int8 decode's grid (CTAs launched against the splits with
+           work); the paged writers (K13) exact, rows past
            a table clipped into its last page; CUDA-event times beside the
            dense kernels on the same rows
   model_paged  7B int8 decode steps and chunks (T 4) through the paged
@@ -128,7 +137,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            128 rows (a quarter of the dense worst case): bf16 / int8 pool,
            plain or spec_tick 3; every page free again after each run
   profile_paged  device ms per 8-slot decode step on a bf16 and an int8
-           pool at positions 64 and 2048, beside the dense cache's
+           pool at positions 64 and 2048, beside the dense cache's, each
+           with the attention's device ms
   kernels_attn the last slice's kernels: K9 (T = 1 attention over one
            layer's cache, bf16 and int8, rel TOL per (slot, head)) at K4 / K7's
            shapes and positions with planted edges, int8 also at S 4096,
@@ -228,16 +238,17 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
-ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma")   # the attention split kernel's bodies
+ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
 # the decode-attention kernel's two wrappers, each counting its launches by
 # body: the name of those counts in read_launches -> (the records of its
 # entries, bodies)
 ATTN_FAMILIES = {
     "decode_attention": (("decode_attention", "decode_attention_q8", "decode_attention_flat",
                           "decode_attention_flat_q8", "chunk_attention", "chunk_attention_q8"),
-                         ("mma", "simt")),
+                         ("mma", "walk", "simt")),
     "paged_attention": (("paged_decode_attention", "paged_decode_attention_q8",
-                         "paged_chunk_attention", "paged_chunk_attention_q8"), ("mma", "simt"))}
+                         "paged_chunk_attention", "paged_chunk_attention_q8"),
+                        ("mma", "walk", "simt"))}
 # kernel 14's forms (the fused attention block), counted by body together
 AB_KERNELS = ("attn_rope_write_layered", "attn_block_layered", "attn_block_layered_int4")
 # the kernels whose launches are also counted by body: record name ->
@@ -573,7 +584,9 @@ def check_launches(path: dict, launches: dict) -> None:
     bf16 activations: the tensor-core bodies serve them, the swap-AB one
     at M <= 32 and the GEMM above), or on which a decode-attention launch
     (K4, K7, K9, K10; K12 on the pools: bf16 at hd 128, and the stories
-    draft's 48) took the SIMT body, or on which a launch of the fused
+    draft's 48) took the SIMT body or, over an int8 cache, not the walk
+    body (its walk launches must equal the _q8 launches), or on which a
+    launch of the fused
     attention block (K14, bf16) took its SIMT body, not split tensor-core
     attention."""
     idle = [k for k in path["record"] if launches[k] == 0]
@@ -610,10 +623,17 @@ def check_launches(path: dict, launches: dict) -> None:
                          f"the {path['label']} main path took the SIMT body, not split "
                          f"tensor-core attention ({launches['attn_block_mma']} did)")
     for family, (names, _) in ATTN_FAMILIES.items():
-        if set(names) & set(path["record"]) and launches.get(f"{family}_simt", 0):
+        if not set(names) & set(path["record"]):
+            continue
+        if launches.get(f"{family}_simt", 0):
             raise SystemExit(f"FAILED: {launches[f'{family}_simt']} {family} launches on the "
                              f"{path['label']} main path took the SIMT body, not the "
                              f"tensor-core one ({launches[f'{family}_mma']} did)")
+        q8 = sum(launches.get(n, 0) for n in names if n.endswith("_q8"))
+        if f"{family}_walk" in launches and launches[f"{family}_walk"] != q8:
+            raise SystemExit(f"FAILED: on the {path['label']} main path {q8} {family} launches "
+                             f"over an int8 cache, {launches[f'{family}_walk']} on its walk "
+                             f"body")
 
 
 def final_line(phases, device: dict) -> tuple[dict, int]:
@@ -1450,9 +1470,11 @@ def phase_kernels_kv8(torch, results: dict) -> None:
             for l in layers:
                 if planted:
                     plant_decode_edges_q8(kvw, q, c[0], c[2], pos, l, split_edges)
-                compare(torch, f"decode_attention_q8 {label} layer={l} pos={pos.tolist()}"
-                        f"{' planted edges' if planted else ''}",
-                        da.decode_attention_q8(q, *c, pos, l),
+                name = (f"decode_attention_q8 {label} layer={l} pos={pos.tolist()}"
+                        f"{' planted edges' if planted else ''}")
+                compare(torch, name,
+                        on_body(da.launches_by_body, "walk", name,
+                                lambda: da.decode_attention_q8(q, *c, pos, l)),
                         da.decode_attention_q8_plain(q, *c, pos, l), per=q.shape[-1])
 
     def time_attn(c, q, pos, n_layers) -> dict:
@@ -1467,9 +1489,25 @@ def phase_kernels_kv8(torch, results: dict) -> None:
         n_rows = int((pos.clamp(0, s_ - 1) + 1).sum())
         nb = n_rows * nkv * (2 * hd + 2 * 4) + 2 * q.numel() * 2
         b_ms, b_by = bound_ms(nb, n_rows * nh * hd * 4)
+
+        def k7():
+            return da.decode_attention_q8(q, *c, pos, lay.next())
+
+        # split and combine device ms (the split kernel must be dattn_walk),
+        # the grid, the occupancy, and G swept on the same inputs
+        parts = with_share(attention_split_combine(torch, k7), b_ms)
+        check_split_body(f"decode_attention_q8 S={s_}", parts, "walk")
+        check_walk_grid(da, f"decode_attention_q8 S={s_}", parts, pos, 1, s_, nkv, hd)
+        parts["occupancy"] = da.occupancy(1, nh, nkv, hd, True)
+        # G swept past the plan's (the wrapper's launch with another G)
+        parts["sweep_tiles"] = {g: with_share(attention_split_combine(
+            torch, lambda: da._launch(q[:, None], c, pos, lay.next(), "decode_attention_q8",
+                                      tiles=g)), b_ms) for g in (1, 2, 4, 8)}
+        log(f"[time] decode_attention_q8 S={s_} breakdown {json.dumps(parts)}")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, shape=f"q (8, 32, 128) bf16, int8 cache ({n_layers}, 8, "
-                    f"32, {s_}, 128) + f32 row scales, pos {pos.tolist()}")
+                    library_ms=None, breakdown=parts,
+                    shape=f"q (8, 32, 128) bf16, int8 cache ({n_layers}, 8, 32, {s_}, 128) + "
+                          f"f32 row scales, pos {pos.tolist()}")
 
     q = rx(B, nh, hd)
     pos4 = torch.tensor([0, 255, 256, 1023, 63, 64, 511, 700], dtype=torch.int32, device=dev)
@@ -1496,8 +1534,10 @@ def phase_kernels_kv8(torch, results: dict) -> None:
             cs = qcache(2, 3, nkv_s, 80, hd_s)
             qs = rx(3, nh_s, hd_s, dtype=dt)
             ps = torch.tensor([0, 64, 79], dtype=torch.int32, device=dev)
-            compare(torch, f"decode_attention_q8 rep={nh_s // nkv_s} hd={hd_s} {dt}",
-                    da.decode_attention_q8(qs, *cs, ps, 1),
+            body = da.body_for(dt, hd_s, q8=True)
+            name = f"decode_attention_q8 rep={nh_s // nkv_s} hd={hd_s} {dt} [{body}]"
+            compare(torch, name, on_body(da.launches_by_body, body, name,
+                                         lambda: da.decode_attention_q8(qs, *cs, ps, 1)),
                     da.decode_attention_q8_plain(qs, *cs, ps, 1), per=hd_s)
     for name in ("write_kv_rows_q8", "write_kv_strips_q8", "decode_attention_q8"):
         r = results[name]
@@ -1524,9 +1564,11 @@ def attention_split_combine(torch, fn, reps: int = 10, tries: int = 3) -> dict:
     """Device ms per launch of the decode / chunk attention's two kernels,
     the split kernel (either body) and the combine pass, by torch.profiler
     over `reps` calls of fn, with the split kernel's name as the profiler
-    gives it. A session that records no split kernel (the profiler
-    sometimes records no device event) is repeated, up to `tries`; after
-    that the times are 0 and the name list empty."""
+    gives it, and the grids it was launched with (`split_grid`, read from
+    the session's trace; `split_ctas` their CTAs where every launch had one
+    grid). A session that records no split kernel (the profiler sometimes
+    records no device event) is repeated, up to `tries`; after that the
+    times are 0, the name and grid lists empty and `split_ctas` None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1536,7 +1578,8 @@ def attention_split_combine(torch, fn, reps: int = 10, tries: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out = {"split_ms": 0.0, "combine_ms": 0.0, "split_kernel": []}
+        out = {"split_ms": 0.0, "combine_ms": 0.0, "split_kernel": [], "split_grid": [],
+               "split_ctas": None}
         for ev in prof.key_averages():
             dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
             if any(k in ev.key for k in ATTN_SPLIT_KERNELS):
@@ -1545,22 +1588,82 @@ def attention_split_combine(torch, fn, reps: int = 10, tries: int = 3) -> dict:
             elif "dattn_combine" in ev.key:
                 out["combine_ms"] += dt / 1e3 / reps
         if out["split_kernel"]:
+            with tempfile.TemporaryDirectory() as d:
+                prof.export_chrome_trace(os.path.join(d, "trace.json"))
+                with open(os.path.join(d, "trace.json")) as f:
+                    out["split_grid"] = kernel_grids(json.load(f), ATTN_SPLIT_KERNELS)
+            if len(out["split_grid"]) == 1:
+                out["split_ctas"] = math.prod(out["split_grid"][0])
             break
     return out
 
 
+def kernel_grids(trace: dict, names) -> list:
+    """The distinct launch grids [x, y, z] of the kernels whose name holds
+    one of `names` in a Chrome trace as torch.profiler exports it (a kernel
+    event's args.grid), sorted."""
+    grids = {tuple(ev["args"]["grid"]) for ev in trace.get("traceEvents", [])
+             if ev.get("cat") == "kernel" and any(n in ev.get("name", "") for n in names)
+             and "grid" in ev.get("args", {})}
+    return [list(g) for g in sorted(grids)]
+
+
 def check_split_body(label: str, parts: dict, body: str) -> None:
     """Fail unless every split kernel that attention_split_combine saw is
-    `body`'s: dattn_mma for "mma", dattn_split for "simt". Where the
+    `body`'s: dattn_mma for "mma", dattn_walk for "walk", dattn_split for
+    "simt". Where the
     profiler saw none (no device event in any session) a line says so; the
     launch counts by body still check the body."""
-    want = {"mma": "dattn_mma<", "simt": "dattn_split<"}[body]
+    want = {"mma": "dattn_mma<", "walk": "dattn_walk<", "simt": "dattn_split<"}[body]
     names = parts["split_kernel"]
     if not names:
         log(f"[check] {label}: torch.profiler recorded no split kernel; its body is "
             f"checked by the launch counts only")
     elif not all(want in k for k in names):
         raise SystemExit(f"FAILED {label}: split kernel {names}, not {want}...>")
+
+
+def walk_work(da, pos0, t: int, s: int, nkv: int, ps: int | None = None) -> dict:
+    """Worked out from the positions, not measured: the plan (tile, G,
+    nsplit) of a walk launch of T queries a slot from pos0 over s cache
+    rows (a pool of ps-row pages), its (slot, split, kv head) items that
+    hold a visible row, and the CTAs of a grid of one CTA a tile
+    (ceil(s / tile) x nkv x B), of which those with a visible row."""
+    plan = da.split_plan(s, ps, walk=True)
+    lasts = [max(0, min(p + t - 1, s - 1)) for p in pos0.tolist()]
+    tiles = [last // plan.tile + 1 for last in lasts]
+    return dict(tile=plan.tile, tiles=plan.tiles, nsplit=plan.nsplit,
+                splits_with_work=sum(-(-n // plan.tiles) for n in tiles) * nkv,
+                one_cta_a_tile=-(-s // plan.tile) * nkv * len(lasts),
+                one_cta_a_tile_with_work=sum(tiles) * nkv)
+
+
+def check_walk_grid(da, label: str, parts: dict, pos0, t: int, s: int, nkv: int, hd: int,
+                    ps: int | None = None) -> None:
+    """Fail unless the split grid torch.profiler recorded (parts of
+    attention_split_combine) has the CTAs the wrapper asks for (walk_ctas
+    over one wave, times nkv); log them beside walk_work's computed
+    figures. Where no grid was recorded a line says so."""
+    work = walk_work(da, pos0, t, s, nkv, ps)
+    want = da.walk_ctas(len(pos0), nkv, work["nsplit"], da.walk_wave(0, hd)) * nkv
+    got = parts["split_ctas"]
+    if got is None:
+        log(f"[grid] {label}: torch.profiler recorded no single split grid "
+            f"({parts['split_grid']}); the wrapper asks for {want} CTAs")
+    elif got != want:
+        raise SystemExit(f"FAILED {label}: split grid {parts['split_grid']} launched {got} "
+                         f"CTAs, the wrapper asks for {want}")
+    log(f"[grid] {label}: {'not measured' if got is None else got} CTAs launched (profiled grid {parts['split_grid']}) for "
+        f"{work['splits_with_work']} splits with work (computed from the positions, G "
+        f"{work['tiles']}); one CTA a {work['tile']}-row tile would launch "
+        f"{work['one_cta_a_tile']}, {work['one_cta_a_tile_with_work']} with work (computed)")
+
+
+def with_share(parts: dict, b_ms: float) -> dict:
+    """attention_split_combine's times with the bound's share of split +
+    combine beside them."""
+    total = parts["split_ms"] + parts["combine_ms"]
+    return {**parts, "bound_share": b_ms / total if total else None}
 
 
 def on_body(counts: dict, body: str, label: str, fn):
@@ -1669,7 +1772,7 @@ def phase_kernels_spec(torch, results: dict) -> None:
                         plant_chunk_edges(q, cache, pos0, l, split_edges, kvw if q8 else None)
                     name = (f"{kernel.__name__} {label} T={t} layer={l} pos0={pos0.tolist()}"
                             f"{' planted edges' if planted else ''}")
-                    got = on_body(da.launches_by_body, "mma", name,
+                    got = on_body(da.launches_by_body, "walk" if q8 else "mma", name,
                                   lambda: kernel(q, *cache, pos0, l))
                     compare(torch, name, got, plain(q, *cache, pos0, l), per=hd)
 
@@ -1692,12 +1795,18 @@ def phase_kernels_spec(torch, results: dict) -> None:
         # where the time goes: split kernel against combine pass, and the
         # split kernel's residency, for the chunk and for one query a slot
         parts = dict(
-            chunk=attention_split_combine(torch, lambda: kernel(q, *cache, pos0, lay.next())),
+            chunk=with_share(attention_split_combine(
+                torch, lambda: kernel(q, *cache, pos0, lay.next())), b_ms),
             one_query=attention_split_combine(torch, lambda: one(q1, *cache, last, lay.next())),
             chunk_occupancy=da.occupancy(t, nh, nkv, hd, q8),
             one_query_occupancy=da.occupancy(1, nh, nkv, hd, q8))
-        check_split_body(f"{kernel.__name__} S={s} T={t}", parts["chunk"], "mma")
-        check_split_body(f"{one.__name__} S={s}", parts["one_query"], "mma")
+        body = "walk" if q8 else "mma"
+        check_split_body(f"{kernel.__name__} S={s} T={t}", parts["chunk"], body)
+        check_split_body(f"{one.__name__} S={s}", parts["one_query"], body)
+        if q8:
+            check_walk_grid(da, f"{kernel.__name__} S={s} T={t}", parts["chunk"], pos0, t, s,
+                            nkv, hd)
+            check_walk_grid(da, f"{one.__name__} S={s}", parts["one_query"], last, 1, s, nkv, hd)
         # the chunk split's device time over the T = 1 split's on the same rows
         parts["split_over_one_query"] = (parts["chunk"]["split_ms"] / parts["one_query"]["split_ms"]
                                          if parts["one_query"]["split_ms"] else None)
@@ -1763,6 +1872,7 @@ def phase_kernels_spec(torch, results: dict) -> None:
                                  (8, 4, 64, 4), (4, 1, 64, 2), (4, 4, 64, 2)):
         for dt in (bf, f32):
             body = "mma" if dt == bf and hd_s != 16 else "simt"
+            body8 = da.body_for(dt, hd_s, q8=True)
             ps = torch.tensor([0, 61, 77], dtype=torch.int32, device=dev)
             qs = rx(3, t, nh_s, hd_s, dtype=dt)
             kd, vd = rx(2, 3, nkv_s, 80, hd_s, dtype=dt), rx(2, 3, nkv_s, 80, hd_s, dtype=dt)
@@ -1772,8 +1882,8 @@ def phase_kernels_spec(torch, results: dict) -> None:
                     da.chunk_attention_plain(qs, kd, vd, ps, 1), per=hd_s)
             k8s, kss = kvw.kv_quant_rows(kd.float())
             v8s, vss = kvw.kv_quant_rows(vd.float())
-            name = f"chunk_attention_q8 rep={nh_s // nkv_s} hd={hd_s} T={t} {dt} [{body}]"
-            compare(torch, name, on_body(da.launches_by_body, body, name,
+            name = f"chunk_attention_q8 rep={nh_s // nkv_s} hd={hd_s} T={t} {dt} [{body8}]"
+            compare(torch, name, on_body(da.launches_by_body, body8, name,
                                          lambda: da.chunk_attention_q8(qs, k8s, v8s, kss, vss,
                                                                        ps, 1)),
                     da.chunk_attention_q8_plain(qs, k8s, v8s, kss, vss, ps, 1), per=hd_s)
@@ -1978,6 +2088,7 @@ def phase_kernels_paged(torch, results: dict) -> None:
         q = rx(B, t, nh, hd)
         qq = q[:, 0].contiguous() if decode else q
         label = f"{name} ps={ps} T={t} pos0={p0.tolist()}"
+        body = "walk" if q8 else "mma"
         gap, same = 0.0, True
         for planted in (False, True):
             for l in (0, L - 1):
@@ -1985,7 +2096,7 @@ def phase_kernels_paged(torch, results: dict) -> None:
                     plant_paged_edges(q, pools, tables, p0, l, edges, kvw if q8 else None)
                     dense = dense_of(pools, tables)
                 name_l = f"{label} layer={l}{' planted edges' if planted else ''}"
-                got = on_body(pga.launches_by_body, "mma", name_l,   # bf16 at hd 128
+                got = on_body(pga.launches_by_body, body, name_l,   # bf16 at hd 128
                               lambda: kernel(qq, *pools, p0, tables, l))
                 compare(torch, name_l, got, plain(qq, *pools, p0, tables, l), per=hd, bar=1e-2)
                 ref = dense_k(qq, *dense, p0, l)
@@ -2011,13 +2122,17 @@ def phase_kernels_paged(torch, results: dict) -> None:
         nb, ops = attention_bytes_ops(p0, t, S, nkv, nh, hd, 2 * hd + 8 if q8 else 2 * hd * 2,
                                       q.numel() * 2)
         b_ms, b_by = bound_ms(nb + tables.numel() * 4, ops)
-        parts = dict(paged=attention_split_combine(
-                         torch, lambda: kernel(qq, *pools, p0, tables, lay.next())),
+        parts = dict(paged=with_share(attention_split_combine(
+                         torch, lambda: kernel(qq, *pools, p0, tables, lay.next())), b_ms),
                      dense_same_rows=attention_split_combine(
                          torch, lambda: dense_k(qq, *dense, p0, lay.next())),
                      occupancy=da.occupancy(t, nh, nkv, hd, q8, chunk=split))
         for form in ("paged", "dense_same_rows"):
-            check_split_body(f"{label} {form}", parts[form], "mma")
+            check_split_body(f"{label} {form}", parts[form], body)
+        if q8:
+            check_walk_grid(da, label, parts["paged"], p0, t, S, nkv, hd, ps)
+            check_walk_grid(da, f"{label} dense_same_rows", parts["dense_same_rows"], p0, t,
+                            dense[0].shape[3], nkv, hd)
         log(f"[time] {label}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
             f"dense kernel over the same rows {t_d:.4f} ms; breakdown {json.dumps(parts)}")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
@@ -2053,14 +2168,14 @@ def phase_kernels_paged(torch, results: dict) -> None:
         tb, npg = paged_tables(torch, [p + t for p in pos_s], ps_s, 5, 3, gc)
         tb, p0s = tb.to(dev), torch.tensor(pos_s, dtype=torch.int32, device=dev)
         for dt in (bf, f32):
-            body = "mma" if dt == bf else "simt"
             kv = [rx(2, npg, nkv_s, ps_s, hd_s, dtype=dt) for _ in range(2)]
             (k8s, kss), (v8s, vss) = (kvw.kv_quant_rows(x.float()) for x in kv)
             qs = rx(4, t, nh_s, hd_s, dtype=dt)
-            for fn, plain, pools in ((pga.paged_chunk_attention, pga.paged_chunk_attention_plain,
-                                      kv),
-                                     (pga.paged_chunk_attention_q8,
-                                      pga.paged_chunk_attention_q8_plain, (k8s, v8s, kss, vss))):
+            for fn, plain, pools, body in (
+                    (pga.paged_chunk_attention, pga.paged_chunk_attention_plain, kv,
+                     "mma" if dt == bf else "simt"),
+                    (pga.paged_chunk_attention_q8, pga.paged_chunk_attention_q8_plain,
+                     (k8s, v8s, kss, vss), da.body_for(dt, hd_s, q8=True))):
                 name = (f"{fn.__name__} rep={nh_s // nkv_s} hd={hd_s} ps={ps_s} T={t} {dt} "
                         f"[{body}]")
                 compare(torch, name, on_body(pga.launches_by_body, body, name,
@@ -2343,9 +2458,10 @@ def phase_kernels_attn(torch, results: dict) -> None:
                 if planted:
                     plant_decode_edges_q8(kvw, q, c[0], c[2], pos, l, edges)
                 lc = [t[l] for t in c]
-                compare(torch, f"decode_attention_flat_q8 S={s_} layer={l} pos={pos.tolist()}"
-                        f"{' planted edges' if planted else ''}",
-                        da.decode_attention_flat_q8(q, *lc, pos),
+                name = (f"decode_attention_flat_q8 S={s_} layer={l} pos={pos.tolist()}"
+                        f"{' planted edges' if planted else ''}")
+                compare(torch, name, on_body(da.launches_by_body, "walk", name,
+                                             lambda: da.decode_attention_flat_q8(q, *lc, pos)),
                         da.decode_attention_flat_q8_plain(q, *lc, pos), per=hd)
         err = compare(torch, f"decode_attention_flat_q8 timed inputs S={s_} (layer 0)",
                       da.decode_attention_flat_q8(q, *[t[0] for t in c], pos),
@@ -2366,6 +2482,8 @@ def phase_kernels_attn(torch, results: dict) -> None:
         n_rows = int((pos.clamp(0, s_ - 1) + 1).sum())
         b_ms, b_by = bound_ms(n_rows * nkv * (2 * hd + 2 * 4) + 2 * q.numel() * 2,
                               n_rows * nh * hd * 4)
+        dev_ms["k9_parts"] = with_share(attention_split_combine(torch, k9q), b_ms)
+        check_split_body(f"decode_attention_flat_q8 S={s_}", dev_ms["k9_parts"], "walk")
         rec = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, k7_same_run_ms=t7, breakdown=dev_ms,
                    shape=f"q (8, 32, 128) bf16, one layer (8, 32, {s_}, 128) int8 + f32 row "
@@ -3112,7 +3230,8 @@ def profile_paged(torch, cfg, params) -> None:
     """Device ms per 8-slot decode step on a bf16 and an int8 page pool
     (8 x 32 pages of PAGE_SIZE rows under shuffled tables: the rows of an
     8-slot dense cache at max_len 4096) at positions 64 and 2048, beside
-    the dense cache's step in the same run (RoPE tabulated to 4096)."""
+    the dense cache's step in the same run (RoPE tabulated to 4096), each
+    with the attention's device ms (split kernel and combine) a step."""
     from rama_tpu_torch.models.llama import KVCache, QuantKVCache, _rope_tables
     from rama_tpu_torch.runtime.paged import PagedKVCache, QuantPagedKVCache
 
@@ -3130,12 +3249,14 @@ def profile_paged(torch, cfg, params) -> None:
                  tables)):
             cache = make()
             for start in (64, 2048):
-                table[f"{pool_cls.__name__} {label} pos {start}"] = phase_profile(
-                    torch, cfg, long, tag="profile_paged", cache=cache, start=start,
-                    tables=tb)["device_ms"]
+                r = phase_profile(torch, cfg, long, tag="profile_paged", cache=cache,
+                                  start=start, tables=tb)
+                table[f"{pool_cls.__name__} {label} pos {start}"] = {
+                    k: r[k] for k in ("device_ms", "attn_ms", "attn_split_ms")}
             del cache
             torch.cuda.empty_cache()
-    log(f"[profile_paged] device ms per 8-slot decode step: {json.dumps(table)}")
+    log(f"[profile_paged] device ms per 8-slot decode step (attention; its split kernel): "
+        f"{json.dumps(table)}")
 
 
 def phase_model_attn(torch, cfg, params, bits: int, dev=None) -> None:

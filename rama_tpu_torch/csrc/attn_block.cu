@@ -87,7 +87,7 @@ constexpr int kAbWarps = kAbThreads / 32;
 constexpr int kAbHeadDim = 128;                 // the only head_dim taken
 constexpr int kAbRG = kAbHeadDim / 8;           // lanes a cache row (8 elements each)
 constexpr int kAbSplitCtas = 16;                // bf16 split CTAs a (slot, kv head), at most
-using AbSmem = MmaSmem<kAbHeadDim, false>;      // the bf16 split body's shared memory
+using AbSmem = MmaSmem<kAbHeadDim>;             // the bf16 split body's shared memory
 
 // One launch's operands. q rows of slot b start at q + b * q_stride, the
 // new k / v rows at kn / vn + b * kv_stride (the slices of one wqkv output
@@ -349,10 +349,10 @@ __global__ void __launch_bounds__(kDaThreads) ab_split_kernel(const AbArgs a) {
   for (int split = blockIdx.x; split < ab_splits(p); split += gridDim.x) {
     if (split != (int)blockIdx.x) __syncthreads();   // the last split's reads of smem
     const int s0 = split * kMaxChunk;
-    dattn_mma_body<hd, false, true>(a.kc, a.vc, nullptr, nullptr, a.part_o, a.part_ml, b, j,
-                                    split, a.nsplit, a.nh, a.nkv, 1, s0,
-                                    min(kMaxChunk, p - s0), ((size_t)b * a.nkv + j) * a.S + s0,
-                                    a.scale, load_q, [&](int) { return p - 1; }, smraw);
+    dattn_mma_body<hd, true>(static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
+                             a.part_o, a.part_ml, b, j, split, a.nsplit, a.nh, a.nkv, 1, s0,
+                             min(kMaxChunk, p - s0), ((size_t)b * a.nkv + j) * a.S + s0,
+                             a.scale, load_q, [&](int) { return p - 1; }, smraw);
   }
 }
 

@@ -1,11 +1,12 @@
-// The tensor-core split body of the decode attention, shared by K4 / K7 /
-// K9 / K10 / K12's dattn_mma kernel (decode_attention.cu, where its design
-// is described) and K14's split items (attn_block.cu): one CTA of
-// kDaThreads threads scores up to kMaxRows query rows of one (slot, kv
-// head) against one split of <= kMaxChunk cache rows on mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) and writes each row's partial (m, l, o) for a
-// combine. The caller picks the split and its rows, fills the Q tile
-// (load_q) and says which cache rows each query sees (lim).
+// The tensor-core split body of the decode attention over a bf16 cache,
+// shared by K4 / K9 / K10 / K12's dattn_mma kernel (decode_attention.cu,
+// where its design is described) and K14's split items (attn_block.cu):
+// one CTA of kDaThreads threads scores up to kMaxRows query rows of one
+// (slot, kv head) against one split of <= kMaxChunk cache rows on
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) and writes each row's
+// partial (m, l, o) for a combine. The caller picks the split and its rows,
+// fills the Q tile (load_q) and says which cache rows each query sees
+// (lim). (An int8 cache runs dattn_walk, decode_attention.cu.)
 #pragma once
 
 #include "mma.cuh"
@@ -18,79 +19,53 @@ constexpr int kMaxRows = 8;    // T * rep query rows per CTA
 constexpr int kMaxChunk = 64;  // cache rows per CTA (split), at most
 constexpr int kMmaPad = 8;     // bf16 a shared row past hd / past the split: no bank conflicts
 
-// Shared memory of one dattn_mma CTA: K, V tiles of kMaxChunk rows — bf16
-// rows of hd + 8 elements, or int8 rows of RLD bytes (hd + 16 or + 32: an
-// odd number of 16-byte pieces, so ldmatrix's eight rows fall in distinct
-// banks) — Q [kMaxRows][hd + 8] and P [kMaxRows][kMaxChunk + 8] bf16,
-// then f32 row maxima and sums [warps][kMaxRows] and, for int8, the
-// split's row scales.
-template <int HD, bool Q8>
+// Shared memory of one dattn_mma CTA: K, V tiles of kMaxChunk bf16 rows of
+// hd + 8 elements, Q [kMaxRows][hd + 8] and P [kMaxRows][kMaxChunk + 8]
+// bf16, then f32 row maxima and sums [warps][kMaxRows].
+template <int HD>
 struct MmaSmem {
   static constexpr int LD = HD + kMmaPad;          // bf16 K / V / Q row stride (elements)
   static constexpr int PLD = kMaxChunk + kMmaPad;  // P row stride (bf16)
-  static constexpr int RLD = ((HD + 16) / 16) % 2 ? HD + 16 : HD + 32;   // int8 row (bytes)
-  static constexpr size_t kv = Q8 ? (size_t)kMaxChunk * RLD : (size_t)kMaxChunk * LD * 2;
+  static constexpr size_t kv = (size_t)kMaxChunk * LD * 2;
   static constexpr size_t bytes =
       2 * kv + sizeof(__nv_bfloat16) * ((size_t)kMaxRows * LD + (size_t)kMaxRows * PLD) +
-      sizeof(float) * (2 * kDaWarps * kMaxRows + (Q8 ? 2 * kMaxChunk : 0));
+      sizeof(float) * 2 * kDaWarps * kMaxRows;
 };
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-// Bytes lo and hi of w (int8) as a bf16 pair, exactly.
-__device__ __forceinline__ uint32_t bf16x2_of(uint32_t w, int lo, int hi) {
-  return pack_bf16((float)(int8_t)(w >> (8 * lo)), (float)(int8_t)(w >> (8 * hi)));
-}
-
-// One split of (slot b, kv head j): the n >= 1 cache rows s0 .. s0 + n - 1,
-// which start at row srow of kc / vc (bf16, or int8 bytes with row scales
-// ksc / vsc), for the rows = nq * rep query rows of the kv head (row r:
-// head j * rep + r % rep of query t = r / rep). load_q(Qs) fills rows
-// 0..kMaxRows-1 of the bf16 Q tile (row stride MmaSmem<HD, Q8>::LD; rows
-// past `rows` zero): by cp.async before the cache rows' copies are issued
-// (QLATE false: they land with K), or with plain stores after all of them
-// are in flight (QLATE true). lim(t): the last cache row query t sees.
-// Writes the partial (m, l) of each query row that sees a row of the split
-// to part_ml[(hr * nsplit + split) * 2 ..] and its o to part_o[(hr * nsplit
-// + split) * HD ..], hr = (b * nq + t) * nh + head. smraw: MmaSmem<HD,
-// Q8>::bytes of dynamic shared memory, 16-byte aligned. The CTA's threads
-// all call it; it ends with no barrier (a caller that reuses the shared
-// memory syncs first).
-template <int HD, bool Q8, bool QLATE, class LoadQ, class Lim>
+// One split of (slot b, kv head j): the n >= 1 bf16 cache rows s0 .. s0 +
+// n - 1, which start at row srow of kc / vc, for the rows = nq * rep query
+// rows of the kv head (row r: head j * rep + r % rep of query t = r / rep).
+// load_q(Qs) fills rows 0..kMaxRows-1 of the bf16 Q tile (row stride
+// MmaSmem<HD>::LD; rows past `rows` zero): by cp.async before the cache
+// rows' copies are issued (QLATE false: they land with K), or with plain
+// stores after all of them are in flight (QLATE true). lim(t): the last
+// cache row query t sees. Writes the partial (m, l) of each query row that
+// sees a row of the split to part_ml[(hr * nsplit + split) * 2 ..] and its o
+// to part_o[(hr * nsplit + split) * HD ..], hr = (b * nq + t) * nh + head.
+// smraw: MmaSmem<HD>::bytes of dynamic shared memory, 16-byte aligned. The
+// CTA's threads all call it; it ends with no barrier (a caller that reuses
+// the shared memory syncs first).
+template <int HD, bool QLATE, class LoadQ, class Lim>
 __device__ __forceinline__ void dattn_mma_body(
-    const void* __restrict__ kc, const void* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, float* __restrict__ part_o, float* __restrict__ part_ml,
-    int b, int j, int split, int nsplit, int nh, int nkv, int nq, int s0, int n, size_t srow,
-    float scale, const LoadQ& load_q, const Lim& lim, unsigned char* smraw) {
-  using Sm = MmaSmem<HD, Q8>;
-  constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
+    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int b, int j, int split,
+    int nsplit, int nh, int nkv, int nq, int s0, int n, size_t srow, float scale,
+    const LoadQ& load_q, const Lim& lim, unsigned char* smraw) {
+  using Sm = MmaSmem<HD>;
+  constexpr int LD = Sm::LD, PLD = Sm::PLD;
   constexpr int KS = HD / 16;                 // k-steps of Q K^T = 16-column pairs of O
-  constexpr int CPR = Q8 ? HD / 16 : HD / 8;  // 16-byte pieces of a cache row
+  constexpr int CPR = HD / 8;                 // 16-byte pieces of a cache row
   constexpr int PW = (KS + kDaWarps - 1) / kDaWarps;   // column pairs of O a warp
-  unsigned char* Kt = smraw;                                       // K tile
-  unsigned char* Vt = Kt + Sm::kv;                                 // V tile
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(Vt + Sm::kv);   // [kMaxRows][LD]
-  __nv_bfloat16* Ps = Qs + kMaxRows * LD;                          // [kMaxRows][PLD]
-  float* red_m = reinterpret_cast<float*>(Ps + kMaxRows * PLD);   // [warps][kMaxRows]
-  float* red_l = red_m + kDaWarps * kMaxRows;                      // [warps][kMaxRows]
-  float* kst = red_l + kDaWarps * kMaxRows;                        // [kMaxChunk] (int8)
-  float* vst = kst + kMaxChunk;                                    // [kMaxChunk] (int8)
-  const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(Kt);   // bf16 cache
-  const __nv_bfloat16* Vs = reinterpret_cast<const __nv_bfloat16*>(Vt);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smraw);        // K tile
+  __nv_bfloat16* Vs = Ks + kMaxChunk * LD;                            // V tile
+  __nv_bfloat16* Qs = Vs + kMaxChunk * LD;                            // [kMaxRows][LD]
+  __nv_bfloat16* Ps = Qs + kMaxRows * LD;                             // [kMaxRows][PLD]
+  float* red_m = reinterpret_cast<float*>(Ps + kMaxRows * PLD);      // [warps][kMaxRows]
+  float* red_l = red_m + kDaWarps * kMaxRows;                         // [warps][kMaxRows]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const int rep = nh / nkv;
@@ -99,24 +74,16 @@ __device__ __forceinline__ void dattn_mma_body(
 
   if constexpr (!QLATE) load_q(Qs);
   // K then V rows, 16-byte pieces, rows past n zero; V lands while S is computed
-  const size_t row_bytes = (size_t)HD * (Q8 ? 1 : 2);
-  const unsigned char* kg = static_cast<const unsigned char*>(kc) + srow * row_bytes;
-  const unsigned char* vg = static_cast<const unsigned char*>(vc) + srow * row_bytes;
-  const int rstride = Q8 ? RLD : LD * 2;      // bytes a shared row
+  const __nv_bfloat16* kg = kc + srow * HD;
+  const __nv_bfloat16* vg = vc + srow * HD;
   for (int i = tid; i < kr * CPR; i += kDaThreads) {
     const int r = i / CPR, ch = i % CPR;
-    cp_async16_zfill(Kt + r * rstride + ch * 16, kg + (r < n ? (size_t)i * 16 : 0), r < n);
-  }
-  if constexpr (Q8) {
-    for (int i = tid; i < kr; i += kDaThreads) {
-      kst[i] = i < n ? ksc[srow + i] : 0.f;
-      vst[i] = i < n ? vsc[srow + i] : 0.f;
-    }
+    cp_async16_zfill(Ks + r * LD + ch * 8, kg + (r < n ? (size_t)i * 8 : 0), r < n);
   }
   cp_async_commit();                          // group: Q and K
   for (int i = tid; i < kr * CPR; i += kDaThreads) {
     const int r = i / CPR, ch = i % CPR;
-    cp_async16_zfill(Vt + r * rstride + ch * 16, vg + (r < n ? (size_t)i * 16 : 0), r < n);
+    cp_async16_zfill(Vs + r * LD + ch * 8, vg + (r < n ? (size_t)i * 8 : 0), r < n);
   }
   cp_async_commit();                          // group: V
   if constexpr (QLATE) load_q(Qs);
@@ -125,10 +92,7 @@ __device__ __forceinline__ void dattn_mma_body(
 
   // S = Q K^T over this warp's 16 cache rows kb..kb+15; lane: query row g,
   // cache rows kb + 8 nt + 2 c + e. Rows past a query row's limit or past
-  // n score -inf. On int8 the bytes become bf16 in registers: ldmatrix
-  // gives lane (g, c) dims 4c..4c+3 of a row's 16-dim step, so the k order
-  // of the product is permuted the same way for Q (dims 4c, 4c+1 in
-  // register 0, 4c+2, 4c+3 in register 2).
+  // n score -inf.
   const int kb = warp * 16;
   const int t_g = g / rep;
   const int lim_g = lim(t_g);
@@ -138,31 +102,19 @@ __device__ __forceinline__ void dattn_mma_body(
     float acc[2][4] = {};
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      if constexpr (Q8) {
-        const uint2 qv = *reinterpret_cast<const uint2*>(Qs + g * LD + ks * 16 + 4 * c);
-        const uint32_t a[4] = {qv.x, 0u, qv.y, 0u};
-        uint32_t kf[2];
-        ldsm_x2(kf, Kt + (kb + ((lane / 8) % 2) * 8 + lane % 8) * RLD + ks * 16);
-        mma_bf16(acc[0], a, bf16x2_of(kf[0], 0, 1), bf16x2_of(kf[0], 2, 3));
-        mma_bf16(acc[1], a, bf16x2_of(kf[1], 0, 1), bf16x2_of(kf[1], 2, 3));
-      } else {
-        const uint32_t a[4] = {lds32(Qs + g * LD + ks * 16 + 2 * c), 0u,
-                               lds32(Qs + g * LD + ks * 16 + 8 + 2 * c), 0u};
-        uint32_t kf[4];
-        ldsm_x4(kf, Ks + (kb + (lane / 16) * 8 + lane % 8) * LD + ks * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(acc[0], a, kf[0], kf[1]);
-        mma_bf16(acc[1], a, kf[2], kf[3]);
-      }
+      const uint32_t a[4] = {lds32(Qs + g * LD + ks * 16 + 2 * c), 0u,
+                             lds32(Qs + g * LD + ks * 16 + 8 + 2 * c), 0u};
+      uint32_t kf[4];
+      ldsm_x4(kf, Ks + (kb + (lane / 16) * 8 + lane % 8) * LD + ks * 16 + ((lane / 8) % 2) * 8);
+      mma_bf16(acc[0], a, kf[0], kf[1]);
+      mma_bf16(acc[1], a, kf[2], kf[3]);
     }
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = kb + nt * 8 + 2 * c + e;
-        float v;
-        if constexpr (Q8) v = acc[nt][e] * kst[i] * scale;
-        else v = acc[nt][e] * scale;
-        sc[nt][e] = sees && i < n && s0 + i <= lim_g ? v : -INFINITY;
+        sc[nt][e] = sees && i < n && s0 + i <= lim_g ? acc[nt][e] * scale : -INFINITY;
       }
     }
   } else {
@@ -173,10 +125,9 @@ __device__ __forceinline__ void dattn_mma_body(
   cp_async_wait<0>();                         // V
   __syncthreads();
 
-  // the split's max and sum of each query row; probabilities (times the V
-  // row scale, for int8) rounded to bf16 into P. A row that sees no row of
-  // this split gets zero probabilities and no (m, l): its combine never
-  // reads here.
+  // the split's max and sum of each query row; probabilities rounded to
+  // bf16 into P. A row that sees no row of this split gets zero
+  // probabilities and no (m, l): its combine never reads here.
   float m = red_m[g];
 #pragma unroll
   for (int w = 1; w < kDaWarps; ++w) m = fmaxf(m, red_m[w * kMaxRows + g]);
@@ -187,10 +138,8 @@ __device__ __forceinline__ void dattn_mma_body(
       float p[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float ex = sees ? expf(sc[nt][e] - m) : 0.f;   // -inf scores -> 0
-        l += ex;
-        if constexpr (Q8) p[e] = ex * vst[kb + nt * 8 + 2 * c + e];
-        else p[e] = ex;
+        p[e] = sees ? expf(sc[nt][e] - m) : 0.f;   // -inf scores -> 0
+        l += p[e];
       }
       *reinterpret_cast<uint32_t*>(Ps + g * PLD + kb + nt * 8 + 2 * c) = pack_bf16(p[0], p[1]);
     }
@@ -208,10 +157,7 @@ __device__ __forceinline__ void dattn_mma_body(
   }
 
   // O = P V: warp w computes output columns 16 (w + 4 u) .. + 15 over the
-  // split's rows, and writes its query rows' partials from registers. On
-  // int8, ldmatrix.trans gives lane (g, c) bytes of dims 2g, 2g + 1 for
-  // rows 2c, 2c + 1: the even and the odd dims are two n8 tiles, so lane
-  // (g, c) ends with dims 4c .. 4c + 3 of its row.
+  // split's rows, and writes its query rows' partials from registers.
   float o[PW][2][4] = {};
   for (int kk = 0; kk < kr / 16; ++kk) {
     const uint32_t a[4] = {lds32(Ps + g * PLD + kk * 16 + 2 * c), 0u,
@@ -220,18 +166,11 @@ __device__ __forceinline__ void dattn_mma_body(
     for (int u = 0; u < PW; ++u) {
       const int dp = warp + u * kDaWarps;
       if (dp < KS) {
-        if constexpr (Q8) {
-          uint32_t vf[2];
-          ldsm_x2_trans(vf, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * RLD + dp * 16);
-          mma_bf16(o[u][0], a, bf16x2_of(vf[0], 0, 2), bf16x2_of(vf[1], 0, 2));
-          mma_bf16(o[u][1], a, bf16x2_of(vf[0], 1, 3), bf16x2_of(vf[1], 1, 3));
-        } else {
-          uint32_t vf[4];
-          ldsm_x4_trans(vf, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dp * 16 +
-                                (lane / 16) * 8);
-          mma_bf16(o[u][0], a, vf[0], vf[1]);
-          mma_bf16(o[u][1], a, vf[2], vf[3]);
-        }
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                              (lane / 16) * 8);
+        mma_bf16(o[u][0], a, vf[0], vf[1]);
+        mma_bf16(o[u][1], a, vf[2], vf[3]);
       }
     }
   }
@@ -241,15 +180,10 @@ __device__ __forceinline__ void dattn_mma_body(
     for (int u = 0; u < PW; ++u) {
       const int dp = warp + u * kDaWarps;
       if (dp < KS) {
-        if constexpr (Q8) {
-          *reinterpret_cast<float4*>(dst + dp * 16 + 4 * c) =
-              make_float4(o[u][0][0], o[u][1][0], o[u][0][1], o[u][1][1]);
-        } else {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(dst + dp * 16 + h * 8 + 2 * c) =
-                make_float2(o[u][h][0], o[u][h][1]);
-        }
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(dst + dp * 16 + h * 8 + 2 * c) =
+              make_float2(o[u][h][0], o[u][h][1]);
       }
     }
   }

@@ -1,4 +1,4 @@
-// Kernels 4, 7, 10 and 12: decode attention against layer l of the stacked
+// Kernels 4, 7, 9, 10 and 12: decode attention against layer l of the stacked
 // KV cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
 // cache with one f32 scale per (token, kv head) row (K7), for one query per
 // slot (T = 1) or a chunk of T <= 8 consecutive queries per slot (K10, the
@@ -42,8 +42,8 @@
 // last row's limit exits before reading anything. A second small kernel
 // (dattn_combine) combines, per query row, exactly the splits that row
 // saw. T * rep <= kMaxRows = 8: every Llama-2 shape at T <= 8 (rep 1); a
-// wider GQA group takes a shorter chunk. Two bodies compute the split
-// (the wrappers pick one by dtype and head dim, ops/kernels/
+// wider GQA group takes a shorter chunk. Three bodies compute the splits
+// (the wrappers pick one by dtype, head dim and cache, ops/kernels/
 // decode_attention.py body_for):
 //
 //  - dattn_split (the SIMT body): fp32, and head dims other than 48 / 64
@@ -51,21 +51,21 @@
 //    cache row) take fp32 dot products reduced by shuffles; P.V keeps
 //    acc[ROWS][EPL] in registers, the row groups of a warp summed by
 //    shuffles, the four warps through shared memory.
-//  - dattn_mma (the tensor-core body): bf16 q at hd 48 / 64 / 128, on a
-//    bf16 or an int8 cache, dense or paged, for 1..8 query rows — the
-//    decode steps (K4, K7, K9, K12 decode) as the verification chunks
-//    (K10, K12's chunk form). It replaces the SIMT body there because
-//    that body's time grew with the rows (T = 4 / 8 took 2.6 / 5.2x the
-//    T = 1 split over the same rows): ROWS dot products a row group, each
-//    reduced by log2(RG) shuffles, and ROWS x EPL fp32 accumulators (163
-//    registers at ROWS 8). Decode steps take it too: rows are independent
-//    in it and the splits are the same 64 rows, so a verification row
-//    computes bit for bit what the decode step computes at its position,
-//    which greedy speculation relies on (with the chunks alone on it, a
-//    random-weight 7B target as its own draft accepted 0.81 of its drafts
-//    on an H100, not all: a 1-ulp difference flips near-tied logits).
-//    It does both products on mma.sync.m16n8k16 (bf16 in, fp32
-//    accumulate), as K5's pattn_mma_kernel (prefill_attention.cu) does:
+//  - dattn_mma (the tensor-core body): bf16 q at hd 48 / 64 / 128 on a
+//    bf16 cache, dense or paged, for 1..8 query rows — the decode steps
+//    (K4, K9, K12 decode) as the verification chunks (K10, K12's chunk
+//    form). It replaces the SIMT body there because that body's time grew
+//    with the rows (T = 4 / 8 took 2.6 / 5.2x the T = 1 split over the
+//    same rows): ROWS dot products a row group, each reduced by log2(RG)
+//    shuffles, and ROWS x EPL fp32 accumulators (163 registers at ROWS 8).
+//    Decode steps take it too: rows are independent in it and the splits
+//    are the same 64 rows, so a verification row computes bit for bit what
+//    the decode step computes at its position, which greedy speculation
+//    relies on (with the chunks alone on it, a random-weight 7B target as
+//    its own draft accepted 0.81 of its drafts on an H100, not all: a 1-ulp
+//    difference flips near-tied logits). It does both products on
+//    mma.sync.m16n8k16 (bf16 in, fp32 accumulate), as K5's pattn_mma_kernel
+//    (prefill_attention.cu) does:
 //      * the <= 8 query rows are rows 0..7 of one m16 A tile (rows 8..15
 //        are zero registers, never loaded), read straight from a shared
 //        Q tile; each of the 4 warps owns 16 cache rows of the split (two
@@ -76,37 +76,81 @@
 //        conflicts, rows past the split's last visible one zero-filled
 //        (and masked when scoring); V's copies form a second group that
 //        lands while S is computed;
-//      * int8 rows stay bytes in shared memory and become bf16 in
-//        registers after ldmatrix (exact: |x| <= 127), as K3's ffn_mma
-//        does: ldmatrix hands each lane four consecutive bytes of a K row,
-//        so the k order of Q K^T is permuted alike for Q (a free change of
-//        summation order), and ldmatrix.trans hands it two dims of two V
-//        rows, the even and the odd dims making two n8 tiles of P V;
-//        writing bf16 tiles first instead was 9-16 % slower on the int8
-//        splits of an H100 and took twice the shared memory;
-//      * each score is scaled by 1 / sqrt(hd) (int8: times ks[s] first)
-//        and masked by row_limit as -inf; row max and sum over the split
-//        by quad shuffles, then across the warps through 64 floats of
-//        shared memory; P rounded to bf16 (int8: after the vs[s] scale)
-//        into a shared P tile of 8 x 64;
+//      * each score is scaled by 1 / sqrt(hd) and masked by row_limit as
+//        -inf; row max and sum over the split by quad shuffles, then
+//        across the warps through 64 floats of shared memory; P rounded
+//        to bf16 into a shared P tile of 8 x 64;
 //      * O = P V with V the row-major B operand (ldmatrix.trans), the
 //        output's 16-column pairs dealt to the warps, so each partial
 //        row is written once from registers: no cross-warp sum of O.
-//    38.4 KB of shared memory at hd 128 (int8: 22.5 KB). At 128-row pages
-//    the paged forms' 64-row splits are the dense form's, so they equal the
-//    dense kernel bit for bit.
+//    38.4 KB of shared memory at hd 128. At 128-row pages the paged forms'
+//    64-row splits are the dense form's, so they equal the dense kernel
+//    bit for bit.
+//  - dattn_walk (the int8 walk body, a CTA walking tiles): bf16 q at hd
+//    48 / 64 / 128 on an int8 cache, dense or paged, 1..8 query rows (K7,
+//    K9 / K10 / K12 over int8). An int8 split of 64 rows carries half a bf16 split's bytes for
+//    the same fixed cost (the Q tile, three barriers, the cross-warp max
+//    and sum, a 512-byte partial a query row), and a grid of one CTA a
+//    64-row split launched, at short positions of a long cache, mostly
+//    CTAs that only exit (67 % of 16,384 in chip_smoke's K12 check). So:
+//      * a split is G consecutive tiles of `tile` rows (64; a pool's
+//        split_rows below 64-row pages), tiles at multiples of `tile`,
+//        G a function of the cache's rows alone (ops/kernels/
+//        decode_attention.py split_plan): never of the positions or of
+//        T, so a chunk row and the decode row at its position, and a pool
+//        and the dense cache of its rows (64- and 128-row pages), walk
+//        the same tiles and splits;
+//      * one CTA walks a split's tiles with an online softmax, as the
+//        Pallas _kernel_tiled_q8 walks its S-tiles: each query row keeps
+//        its running max and sum in fp32 and its o in the mma accumulators,
+//        rescaled by e^(m_run - m_new) at each tile; P is rounded to bf16
+//        (after the vs[s] scale) against the running max. A tile wholly
+//        past a row's limit leaves its (m, l, o) as they were bit for bit
+//        (the factor exactly 1, P exactly 0);
+//      * a tile's copies are cp.async groups: K with the row scales (4-byte
+//        cp.async, one a thread; not plain loads between the copies) and,
+//        at a split's start, the Q rows, then V, which lands while S is
+//        scored. One stage, settled on an H100: a ring of
+//        two stages (the next tile in flight while this one is scored, 43.6
+//        KB and 94-123 registers at hd 128) held 2-5 CTAs an SM and was
+//        slower than one stage (22.6 KB) capped at 80 registers for six
+//        CTAs an SM, whose other CTAs hide a tile's latency; cp.async and
+//        not TMA, as a tile's rows past the slot's last visible one must
+//        read as zeros, which cp.async's zero-fill gives per 16-byte piece;
+//      * the grid is (ctas, nkv): the CTAs of a kv head walk the list of
+//        its (slot, split) items that hold a visible row, slot-major,
+//        item x, x + ctas, ..., so no CTA is launched for a split past a
+//        slot's position; ctas = min(B * nsplit, one wave of the card / nkv)
+//        (decode_attention.py walk_ctas);
+//      * int8 rows stay bytes in shared memory and become bf16 in registers
+//        after ldmatrix (exact: |x| <= 127) by byte permutes and an fp32
+//        add, no conversion instruction (int8x4_f32: I2F / F2F issue at a
+//        fraction of the ALU rate and a tile converts 2 x 64 x hd bytes,
+//        which took longer than the tile's bytes at S 1024 on an H100):
+//        ldmatrix hands each lane four consecutive bytes of a K row, so the
+//        k order of Q K^T is permuted alike for Q (a free change of
+//        summation order), and ldmatrix.trans hands it two dims of two V
+//        rows, the even and the odd dims making two n8 tiles of P V; writing bf16
+//        tiles first instead was 9-16 % slower on the int8 splits of an
+//        H100 (on dattn_mma's body) and took twice the shared memory;
+//      * a second small kernel (dattn_combine_rows) combines each query
+//        row's <= ceil(S / (tile G)) partials: a warp a row, lane i's split
+//        weight e^(m_i - M) broadcast by shuffles, eight partials in
+//        flight a lane.
 //
 // Kernel 12, the paged forms (rama_tpu/ops/pallas/paged_attention.py:
 // _paged_call via paged_decode_attention_layer, _q8, paged_chunk_
 // attention_layer (:156) and _q8 (:179)): the same bodies over a shared
 // page pool (L, P, nkv, ps, hd) and per-slot page tables (B, mp). The TPU
 // kernel walks a slot's pages in order and repeats the last used page so
-// its DMA is elided; here a split of `chunk` rows, chunk dividing ps, lies
-// inside one page, so only the address of its rows changes: split s0 of slot b
-// reads page clamp(table[b, min(s0 / ps, mp - 1)], 0, P - 1) at in-page
-// row s0 % ps, with S = mp * ps for the row limits. Splits past the last
-// row's limit exit as in the dense cache, so a slot pays for the pages it
-// uses whatever mp is (ragged).
+// its DMA is elided; here a split of `chunk` rows (a tile of the walk
+// body), chunk dividing ps, lies inside one page, so only the address of
+// its rows changes: the rows from s0 of slot b are those of page
+// clamp(table[b, min(s0 / ps, mp - 1)], 0, P - 1) from in-page row s0 %
+// ps, with S = mp * ps for the row limits (a walk split of G tiles may
+// span pages: each tile finds its own). Splits past the last row's limit
+// exit (or, on the walk body, are never walked) as in the dense cache, so
+// a slot pays for the pages it uses whatever mp is (ragged).
 #include "attention.cuh"
 #include "dattn_mma.cuh"
 
@@ -116,7 +160,7 @@
 
 namespace rama {
 
-enum Body : int { kBodySimt = 0, kBodyMma = 1 };  // ops/kernels/decode_attention.py BODIES
+enum Body : int { kBodySimt = 0, kBodyMma = 1, kBodyWalk = 2 };  // decode_attention.py BODIES
 
 // The last cache row query t of a slot at pos0 sees, clamped to [0, S-1].
 __device__ __forceinline__ int row_limit(int pos0, int t, int S) {
@@ -325,22 +369,20 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body (dattn_mma): bf16 q, hd 48 / 64 / 128, 2..8 query
-// rows, a bf16 cache (C = bf16) or an int8 one with row scales ksc / vsc;
-// the body itself is dattn_mma_body (dattn_mma.cuh, shared with K14).
-// Fragment coordinates: mma.cuh (lane = 4 g + c).
+// The tensor-core body (dattn_mma): bf16 q, hd 48 / 64 / 128, 1..8 query
+// rows, a bf16 cache; the body itself is dattn_mma_body (dattn_mma.cuh,
+// shared with K14). Fragment coordinates: mma.cuh (lane = 4 g + c).
 
 // grid (nsplit, nkv, B), block 128; the operands and partials as
 // dattn_split's, chunk <= kMaxChunk, q, kc, vc 16-byte aligned.
-template <int HD, bool Q8>
+template <int HD>
 __global__ void __launch_bounds__(kDaThreads)
-dattn_mma(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
-          const void* __restrict__ vc, const float* __restrict__ ksc,
-          const float* __restrict__ vsc, const int* __restrict__ pos0,
+dattn_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+          const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos0,
           float* __restrict__ part_o, float* __restrict__ part_ml, int nh, int nkv, int S,
           int chunk, int nq, float scale, const int* __restrict__ tables, int mp, int ps,
           int npages) {
-  constexpr int LD = MmaSmem<HD, Q8>::LD;
+  constexpr int LD = MmaSmem<HD>::LD;
   constexpr int QCH = HD / 8;                 // 16-byte pieces of a bf16 row
   extern __shared__ __align__(16) unsigned char smraw[];
   const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
@@ -364,9 +406,395 @@ dattn_mma(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
                        ok);
     }
   };
-  dattn_mma_body<HD, Q8, false>(kc, vc, ksc, vsc, part_o, part_ml, b, j, split, gridDim.x, nh,
-                                nkv, nq, s0, n, srow, scale, load_q,
-                                [&](int t) { return row_limit(p0, t, S); }, smraw);
+  dattn_mma_body<HD, false>(kc, vc, part_o, part_ml, b, j, split, gridDim.x, nh, nkv, nq, s0, n,
+                            srow, scale, load_q, [&](int t) { return row_limit(p0, t, S); },
+                            smraw);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 walk body (dattn_walk): bf16 q, hd 48 / 64 / 128, 1..8 query
+// rows, an int8 cache with f32 row scales, dense or paged (design above).
+
+// Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// The four int8 bytes of w as exact fp32 values with no conversion
+// instruction (I2F and F2F issue at a fraction of the ALU rate, and a tile
+// converts 2 x 64 x hd bytes): byte i, offset by 128, becomes the low byte
+// of 2^23's mantissa, then 2^23 + 128 is subtracted.
+__device__ __forceinline__ void int8x4_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+}
+
+// Two such values (|x| <= 128: their low 16 bits are zero) as a bf16 pair,
+// exactly: their high halves (.x, the low half, = lo).
+__device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// 4 bytes (one row scale) global -> shared; zeros (and no read of src) when !ok.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+constexpr int kWalkCtasPerSm = 6;   // registers capped for six CTAs an SM (80 at hd 128)
+
+// Shared memory of one dattn_walk CTA: the K and V tiles of kMaxChunk int8
+// rows of RLD bytes (hd + 16 or + 32: an odd number of 16-byte pieces, so
+// ldmatrix's eight rows fall in distinct banks) and their f32 row scales
+// ks, vs [kMaxChunk]; a bf16 Q tile [kMaxRows][hd + 8], P [kMaxRows]
+// [kMaxChunk + 8] bf16, f32 row maxima and sums [warps][kMaxRows], and
+// the walk's table of 2 B + 1 ints (walk_smem: 22,596 bytes at hd 128
+// and 8 slots).
+template <int HD>
+struct WalkSmem {
+  static constexpr int LD = HD + kMmaPad;          // bf16 Q row stride (elements)
+  static constexpr int PLD = kMaxChunk + kMmaPad;  // bf16 P row stride (elements)
+  static constexpr int RLD = ((HD + 16) / 16) % 2 ? HD + 16 : HD + 32;   // int8 row (bytes)
+  static constexpr size_t kv = (size_t)kMaxChunk * RLD;
+  static constexpr size_t fixed = 2 * kv + 2 * sizeof(float) * kMaxChunk +
+                                  sizeof(__nv_bfloat16) * kMaxRows * (LD + PLD) +
+                                  sizeof(float) * 2 * kDaWarps * kMaxRows;
+};
+template <int HD>
+inline size_t walk_smem(int B) { return WalkSmem<HD>::fixed + sizeof(int) * (2 * (size_t)B + 1); }
+static_assert(kDaThreads == 2 * kMaxChunk, "one thread copies each row scale of a tile");
+
+// Where a dattn_walk CTA is in its walk: item `item` of its kv head's
+// (slot, split) list -- slot-major, each slot's splits that hold a row one
+// of its queries sees -- and tile t of the item's tiles [split * G, t1).
+// first[b] (the slot's first item) and ntile[b] (its tiles with a visible
+// row) are the CTA's shared table.
+struct Walk {
+  int item, b, split, t, t1;
+};
+
+// Move w to the slot that holds w.item (items only grow, so from slot w.b
+// on) and to its split's first tile; w.b == B once the list is done.
+__device__ __forceinline__ void walk_seek(Walk& w, const int* first, const int* ntile,
+                                          int B, int G) {
+  while (w.b < B && w.item >= first[w.b + 1]) ++w.b;
+  if (w.b < B) {
+    w.split = w.item - first[w.b];
+    w.t = w.split * G;
+    w.t1 = min(w.t + G, ntile[w.b]);
+  }
+}
+
+// grid (ctas, nkv), block 128: CTA x of kv head j walks items x, x + ctas,
+// ... of its list, tile by tile, with an online softmax over the tiles of
+// each split, and writes each split's partial (m, l, o) per query row that
+// sees it. A tile's copies are two cp.async groups, K with the row scales
+// (and, at a split's start, the Q rows), then V, which lands while S is
+// scored. Operands and partials as dattn_split's; nsplit
+// = ceil(ceil(S / tile) / G); tile <= kMaxChunk (dividing ps for a pool).
+template <int HD>
+__global__ void __launch_bounds__(kDaThreads, kWalkCtasPerSm)
+dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
+           const int8_t* __restrict__ vc, const float* __restrict__ ksc,
+           const float* __restrict__ vsc, const int* __restrict__ pos0,
+           float* __restrict__ part_o, float* __restrict__ part_ml, int B, int nh, int nkv,
+           int S, int tile, int G, int nsplit, int nq, float scale,
+           const int* __restrict__ tables, int mp, int ps, int npages) {
+  using Sm = WalkSmem<HD>;
+  constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
+  constexpr int KS = HD / 16;                 // k-steps of Q K^T = 16-byte pieces of a row
+  constexpr int QCH = HD / 8;                 // 16-byte pieces of a bf16 Q row
+  constexpr int PW = (KS + kDaWarps - 1) / kDaWarps;   // column pairs of O a warp
+  extern __shared__ __align__(16) unsigned char smraw[];
+  unsigned char* Kt = smraw;                                       // [kMaxChunk][RLD]
+  unsigned char* Vt = Kt + Sm::kv;                                 // [kMaxChunk][RLD]
+  float* kst = reinterpret_cast<float*>(Vt + Sm::kv);              // [kMaxChunk] ks, then vs
+  const float* vst = kst + kMaxChunk;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(kst + 2 * kMaxChunk);   // [kMaxRows][LD]
+  __nv_bfloat16* Ps = Qs + kMaxRows * LD;                          // [kMaxRows][PLD]
+  float* red_m = reinterpret_cast<float*>(Ps + kMaxRows * PLD);   // [warps][kMaxRows]
+  float* red_l = red_m + kDaWarps * kMaxRows;                      // [warps][kMaxRows]
+  int* first = reinterpret_cast<int*>(red_l + kDaWarps * kMaxRows);   // [B + 1]
+  int* ntile = first + B + 1;                                         // [B]
+
+  const int j = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const int rep = nh / nkv;
+  const int rows = nq * rep;
+  const int t_g = g / rep;
+  const int kb = warp * 16;                   // this warp's 16 rows of a tile
+  const int tpp = tables ? ps / tile : 1;     // tiles a page
+
+  // the walk's table: slot b's tiles with a visible row and first item
+  for (int b = tid; b < B; b += kDaThreads) {
+    ntile[b] = row_limit(pos0[b], nq - 1, S) / tile + 1;
+    first[b + 1] = (ntile[b] + G - 1) / G;    // its splits, summed below
+  }
+  __syncthreads();
+  if (tid == 0) {
+    first[0] = 0;
+    for (int b = 0; b < B; ++b) first[b + 1] += first[b];
+  }
+  __syncthreads();
+
+  // this thread's Q piece (tid < kMaxRows * QCH): row rq of the kv head's rows
+  const int rq = tid / QCH, tq = rq / rep;
+  const size_t qoff = rq < rows ? ((size_t)tq * nh + (size_t)j * rep + (rq - tq * rep)) * HD +
+                                      (tid % QCH) * 8
+                                : 0;
+
+  // the copies of walk position w's tile (rows past the slot's last visible
+  // row zero): K, both row scales (P needs vs before V) and (a split's first
+  // tile) Q as one group, then V, which the caller commits
+  auto load = [&](const Walk& w, int n) {
+    const int s0 = w.t * tile;
+    size_t srow;                              // the tile's first row in the cache / pool
+    if (tables) {
+      const int pg = w.t / tpp;
+      const int page = min(max(tables[(size_t)w.b * mp + min(pg, mp - 1)], 0), npages - 1);
+      srow = ((size_t)page * nkv + j) * ps + (w.t - pg * tpp) * tile;
+    } else {
+      srow = ((size_t)w.b * nkv + j) * S + s0;
+    }
+    const int8_t* kg = kc + srow * HD;
+    const int8_t* vg = vc + srow * HD;
+    const int r = tid % kMaxChunk;            // the row of this thread's scale
+#pragma unroll
+    for (int i = tid; i < kMaxChunk * KS; i += kDaThreads)
+      cp_async16_zfill(Kt + (i / KS) * RLD + (i % KS) * 16, kg + (i / KS < n ? i * 16 : 0),
+                       i / KS < n);
+    cp_async4_zfill(kst + tid, (tid < kMaxChunk ? ksc : vsc) + srow + (r < n ? r : 0), r < n);
+    if (w.t == w.split * G && tid < kMaxRows * QCH)   // a split's first tile: the slot's Q
+      cp_async16_zfill(Qs + rq * LD + (tid % QCH) * 8, q + (size_t)w.b * nq * nh * HD + qoff,
+                       rq < rows);
+    cp_async_commit();
+#pragma unroll
+    for (int i = tid; i < kMaxChunk * KS; i += kDaThreads)
+      cp_async16_zfill(Vt + (i / KS) * RLD + (i % KS) * 16, vg + (i / KS < n ? i * 16 : 0),
+                       i / KS < n);
+  };
+
+  Walk cur{(int)blockIdx.x, 0, 0, 0, 0};
+  walk_seek(cur, first, ntile, B, G);
+
+  // each lane's query row g: its limit in this split, and the running max,
+  // sum and o of the online softmax
+  int lim_g = 0;
+  bool sees = false;
+  float m_run = -INFINITY, l_run = 0.f;
+  float o[PW][2][4] = {};
+  while (cur.b < B) {
+    const int s0 = cur.t * tile;
+    const int n = min(tile, row_limit(pos0[cur.b], nq - 1, S) + 1 - s0);
+    const int kr = (n + 15) & ~15;
+    load(cur, n);
+    cp_async_commit();
+    cp_async_wait<1>();                       // this tile's K (and Q) copies
+    __syncthreads();                          // ... everyone's
+    if (cur.t == cur.split * G) {             // a split starts
+      lim_g = row_limit(pos0[cur.b], t_g, S);
+      sees = g < rows && s0 <= lim_g;         // query row g sees a row of this split
+    }
+
+    // S = Q K^T over this warp's 16 rows of the tile, the int8 bytes turned
+    // into bf16 in registers after ldmatrix (dims 4c..4c+3 of a row's
+    // 16-dim step: the k order of the product permuted alike for Q); rows
+    // past a query row's limit or past the tile's n score -inf
+    float sc[2][2];
+    if (kb < kr) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint2 qv = *reinterpret_cast<const uint2*>(Qs + g * LD + ks * 16 + 4 * c);
+        const uint32_t a[4] = {qv.x, 0u, qv.y, 0u};
+        uint32_t kf[2];
+        float f0[4], f1[4];
+        ldsm_x2(kf, Kt + (kb + ((lane / 8) % 2) * 8 + lane % 8) * RLD + ks * 16);
+        int8x4_f32(kf[0], f0);
+        int8x4_f32(kf[1], f1);
+        mma_bf16(acc[0], a, bf16x2_hi(f0[0], f0[1]), bf16x2_hi(f0[2], f0[3]));
+        mma_bf16(acc[1], a, bf16x2_hi(f1[0], f1[1]), bf16x2_hi(f1[2], f1[3]));
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = kb + nt * 8 + 2 * c + e;
+          sc[nt][e] = sees && i < n && s0 + i <= lim_g ? acc[nt][e] * kst[i] * scale
+                                                        : -INFINITY;
+        }
+      }
+    } else {
+      sc[0][0] = sc[0][1] = sc[1][0] = sc[1][1] = -INFINITY;
+    }
+    const float mw = quad_max(fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1])));
+    if (c == 0) red_m[warp * kMaxRows + g] = mw;
+    __syncthreads();
+
+    // the running max m_new; probabilities against it (times the V row
+    // scale) rounded to bf16 into P; o and l rescaled by e^(m_run - m_new).
+    // A tile wholly past the row's limit leaves (m, l, o) as they were, bit
+    // for bit: m_new = m_run, the factor exactly 1, P exactly 0.
+    float m_new = m_run;
+#pragma unroll
+    for (int w = 0; w < kDaWarps; ++w) m_new = fmaxf(m_new, red_m[w * kMaxRows + g]);
+    const float mref = m_new == -INFINITY ? 0.f : m_new;   // a row that has seen nothing
+    const float alpha = m_new == m_run ? 1.f : expf(m_run - mref);
+    float l = 0.f;
+    if (kb < kr) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = expf(sc[nt][e] - mref);   // -inf scores -> 0
+          l += ex;
+          p[e] = ex * vst[kb + nt * 8 + 2 * c + e];
+        }
+        *reinterpret_cast<uint32_t*>(Ps + g * PLD + kb + nt * 8 + 2 * c) =
+            pack_bf16(p[0], p[1]);
+      }
+    }
+    l = quad_sum(l);
+    if (c == 0) red_l[warp * kMaxRows + g] = l;
+    cp_async_wait<0>();                       // V
+    __syncthreads();
+    float lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDaWarps; ++w) lt += red_l[w * kMaxRows + g];
+    l_run = l_run * alpha + lt;
+    m_run = m_new;
+
+    // O = O * alpha + P V: warp w owns output columns 16 (w + 4 u) .. + 15;
+    // ldmatrix.trans gives lane (g, c) bytes of dims 2g, 2g + 1 for rows 2c,
+    // 2c + 1, so the even and the odd dims are two n8 tiles and lane (g, c)
+    // ends with dims 4c .. 4c + 3 of its row
+#pragma unroll
+    for (int u = 0; u < PW; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[u][h][e] *= alpha;
+    for (int kk = 0; kk < kr / 16; ++kk) {
+      const uint32_t a[4] = {lds32(Ps + g * PLD + kk * 16 + 2 * c), 0u,
+                             lds32(Ps + g * PLD + kk * 16 + 8 + 2 * c), 0u};
+#pragma unroll
+      for (int u = 0; u < PW; ++u) {
+        const int dp = warp + u * kDaWarps;
+        if (dp < KS) {
+          uint32_t vf[2];
+          float f0[4], f1[4];
+          ldsm_x2_trans(vf, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * RLD + dp * 16);
+          int8x4_f32(vf[0], f0);
+          int8x4_f32(vf[1], f1);
+          mma_bf16(o[u][0], a, bf16x2_hi(f0[0], f0[2]), bf16x2_hi(f1[0], f1[2]));
+          mma_bf16(o[u][1], a, bf16x2_hi(f0[1], f0[3]), bf16x2_hi(f1[1], f1[3]));
+        }
+      }
+    }
+
+    if (cur.t + 1 == cur.t1) {                // the split's last tile: its partials
+      if (sees) {
+        const size_t hr = ((size_t)cur.b * nq + t_g) * nh + (size_t)j * rep + (g - t_g * rep);
+        const size_t at = hr * nsplit + cur.split;
+        if (warp == 0 && c == 0) {
+          part_ml[at * 2] = m_run;
+          part_ml[at * 2 + 1] = l_run;
+        }
+#pragma unroll
+        for (int u = 0; u < PW; ++u) {
+          const int dp = warp + u * kDaWarps;
+          if (dp < KS)
+            *reinterpret_cast<float4*>(part_o + at * HD + dp * 16 + 4 * c) =
+                make_float4(o[u][0][0], o[u][1][0], o[u][0][1], o[u][1][1]);
+        }
+      }
+      m_run = -INFINITY;
+      l_run = 0.f;
+#pragma unroll
+      for (int u = 0; u < PW; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[u][h][e] = 0.f;
+    }
+    if (++cur.t == cur.t1) {
+      cur.item += gridDim.x;
+      walk_seek(cur, first, ntile, B, G);
+    }
+    __syncthreads();                          // every read of the tiles and of P done
+  }
+}
+
+// grid (ceil(B * nq * nh / kDaWarps)), block 128: warp w of CTA x combines
+// query row hr = x * kDaWarps + w ((b * nq + t) * nh + h) over the splits i
+// <= limit / split_len it saw: out = sum_i e^(m_i - M) o_i / sum_i e^(m_i -
+// M) l_i, lane i's split weight broadcast by shuffles, lane d holding dims
+// 4d .. 4d + 3, eight partials in flight a lane.
+template <typename T>
+__global__ void __launch_bounds__(kDaThreads)
+dattn_combine_rows(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                   const int* __restrict__ pos0, T* __restrict__ out, int nrows, int nh, int S,
+                   int hd, int split_len, int nsplit, int nq) {
+  constexpr int U = 8;
+  const int lane = threadIdx.x % 32;
+  const int hr = blockIdx.x * kDaWarps + threadIdx.x / 32;
+  if (hr >= nrows) return;                    // the whole warp
+  const int b = hr / (nq * nh), t = (hr / nh) % nq;
+  const int nv = row_limit(pos0[b], t, S) / split_len + 1;
+  const float* ml = part_ml + (size_t)hr * nsplit * 2;
+  float mx = -INFINITY;
+  for (int i = lane; i < nv; i += 32) mx = fmaxf(mx, ml[2 * i]);
+  mx = warp_max(mx);
+  const bool act = 4 * lane < hd;
+  const float* po = part_o + (size_t)hr * nsplit * hd + (act ? 4 * lane : 0);
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  float L = 0.f;
+  for (int base = 0; base < nv; base += 32) {
+    float w = 0.f;
+    if (base + lane < nv) {
+      const float2 e = *reinterpret_cast<const float2*>(ml + 2 * (base + lane));
+      w = expf(e.x - mx);
+      L += w * e.y;
+    }
+    const int cnt = min(32, nv - base);
+    for (int s = 0; s < cnt; s += U) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u] = act && s + u < cnt
+                   ? *reinterpret_cast<const float4*>(po + (size_t)(base + s + u) * hd)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float ws = __shfl_sync(0xffffffffu, w, (s + u) & 31);
+        if (s + u < cnt) {
+          o.x += ws * v[u].x;
+          o.y += ws * v[u].y;
+          o.z += ws * v[u].z;
+          o.w += ws * v[u].w;
+        }
+      }
+    }
+  }
+  L = warp_sum(L);
+  if (act) {
+    T* dst = out + (size_t)hr * hd + 4 * lane;
+    dst[0] = from_f<T>(o.x / L);
+    dst[1] = from_f<T>(o.y / L);
+    dst[2] = from_f<T>(o.z / L);
+    dst[3] = from_f<T>(o.w / L);
+  }
 }
 
 // grid (nh, nq, B), block 128: out[b, t, h] = sum_i e^(m_i - M) o_i /
@@ -405,13 +833,27 @@ struct DaArgs {
   int* occ;  // non-null: launch nothing, report the split kernel's occupancy
   const int* tables;  // page tables (B, mp) of a pool of npages pages of ps rows; null: dense
   int mp, ps, npages;
-  int body;  // kBodySimt or kBodyMma
+  int body;  // kBodySimt, kBodyMma or kBodyWalk
+  int tiles = 1;  // G: tiles of `chunk` rows a split (1 but on the walk body)
+  int ctas = 0;   // the walk body's CTAs a kv head
 };
+
+// Report kern's resident CTAs per SM, registers per thread and shared
+// bytes per CTA (at `smem`) in a.occ.
+template <class K>
+cudaError_t report(const DaArgs& a, K kern, size_t smem) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.occ[0], kern, kDaThreads, smem);
+  a.occ[1] = fa.numRegs;
+  a.occ[2] = (int)smem;
+  return e;
+}
 
 // Opt kern into `most` bytes of dynamic shared memory (once an
 // instantiation and device), then launch it with `smem` over the split
-// grid, or, with a.occ, report its resident CTAs per SM, registers per
-// thread and shared bytes per CTA instead.
+// grid, or, with a.occ, report it instead.
 template <class K, class... Args>
 cudaError_t launch_or_report(const DaArgs& a, SmemOptIn& opt_in, K kern, size_t most,
                              size_t smem, Args... args) {
@@ -419,15 +861,7 @@ cudaError_t launch_or_report(const DaArgs& a, SmemOptIn& opt_in, K kern, size_t 
     cudaError_t e = opt_in.set(kern, most);
     if (e != cudaSuccess) return e;
   }
-  if (a.occ) {
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.occ[0], kern, kDaThreads, smem);
-    a.occ[1] = fa.numRegs;
-    a.occ[2] = (int)smem;
-    return e;
-  }
+  if (a.occ) return report(a, kern, smem);
   kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(args...);
   return cudaGetLastError();
 }
@@ -467,29 +901,53 @@ cudaError_t launch_simt(const DaArgs& a) {
   return cudaErrorInvalidValue;
 }
 
-template <int HD, bool Q8>
+template <int HD>
 cudaError_t launch_mma_hd(const DaArgs& a) {
   static SmemOptIn opt_in;
-  constexpr size_t smem = MmaSmem<HD, Q8>::bytes;
-  return launch_or_report(a, opt_in, dattn_mma<HD, Q8>, smem, smem,
-                          static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, a.ks, a.vs,
-                          a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.chunk, a.nq,
-                          a.scale, a.tables, a.mp, a.ps, a.npages);
+  constexpr size_t smem = MmaSmem<HD>::bytes;
+  return launch_or_report(a, opt_in, dattn_mma<HD>, smem, smem,
+                          static_cast<const __nv_bfloat16*>(a.q),
+                          static_cast<const __nv_bfloat16*>(a.k),
+                          static_cast<const __nv_bfloat16*>(a.v), a.pos0, a.part_o, a.part_ml,
+                          a.nh, a.nkv, a.S, a.chunk, a.nq, a.scale, a.tables, a.mp, a.ps,
+                          a.npages);
 }
 
-// The tensor-core body: bf16 q only, hd 48 / 64 / 128; anything else is
-// refused (never handed to the SIMT body).
+// The walk body, then its combine (or, with a.occ, the walk kernel's report).
+template <int HD>
+cudaError_t launch_walk_hd(const DaArgs& a) {
+  const size_t smem = walk_smem<HD>(a.B);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;   // past 3,327 slots at hd 128
+  if (a.occ) return report(a, dattn_walk<HD>, smem);
+  if (a.ctas < 1) return cudaErrorInvalidValue;
+  dattn_walk<HD><<<dim3(a.ctas, a.nkv), kDaThreads, smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.k),
+      static_cast<const int8_t*>(a.v), a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.B, a.nh,
+      a.nkv, a.S, a.chunk, a.tiles, a.nsplit, a.nq, a.scale, a.tables, a.mp, a.ps, a.npages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int nrows = a.B * a.nq * a.nh;
+  dattn_combine_rows<__nv_bfloat16><<<(nrows + kDaWarps - 1) / kDaWarps, kDaThreads, 0, a.st>>>(
+      a.part_o, a.part_ml, a.pos0, static_cast<__nv_bfloat16*>(a.out), nrows, a.nh, a.S, a.hd,
+      a.chunk * a.tiles, a.nsplit, a.nq);
+  return cudaGetLastError();
+}
+
+// The tensor-core bodies: bf16 q only, hd 48 / 64 / 128, dattn_mma over a
+// bf16 cache and dattn_walk over an int8 one; anything else is refused
+// (never handed to the SIMT body).
 template <typename T, typename C>
 cudaError_t launch_mma(const DaArgs& a) {
+  constexpr bool q8 = std::is_same<C, int8_t>::value;
   if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
     return cudaErrorInvalidValue;
   } else {
-    constexpr bool q8 = std::is_same<C, int8_t>::value;
-    if (a.nq * (a.nh / a.nkv) > kMaxRows) return cudaErrorInvalidValue;
+    if (a.nq * (a.nh / a.nkv) > kMaxRows || (a.body == kBodyWalk) != q8)
+      return cudaErrorInvalidValue;
     switch (a.hd) {
-      case 48: return launch_mma_hd<48, q8>(a);
-      case 64: return launch_mma_hd<64, q8>(a);
-      case 128: return launch_mma_hd<128, q8>(a);
+      case 48: return q8 ? launch_walk_hd<48>(a) : launch_mma_hd<48>(a);
+      case 64: return q8 ? launch_walk_hd<64>(a) : launch_mma_hd<64>(a);
+      case 128: return q8 ? launch_walk_hd<128>(a) : launch_mma_hd<128>(a);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -497,14 +955,15 @@ cudaError_t launch_mma(const DaArgs& a) {
 
 template <typename T, typename C>
 cudaError_t launch_all(DaArgs a) {
-  if (a.chunk <= 0 || a.chunk > kMaxChunk) return cudaErrorInvalidValue;
-  a.nsplit = (a.S + a.chunk - 1) / a.chunk;
+  if (a.chunk <= 0 || a.chunk > kMaxChunk || a.tiles < 1) return cudaErrorInvalidValue;
+  if (a.body != kBodyWalk && a.tiles != 1) return cudaErrorInvalidValue;
+  a.nsplit = ((a.S + a.chunk - 1) / a.chunk + a.tiles - 1) / a.tiles;
   a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
   cudaError_t e;
-  if (a.body == kBodyMma) e = launch_mma<T, C>(a);
+  if (a.body == kBodyMma || a.body == kBodyWalk) e = launch_mma<T, C>(a);
   else if (a.body == kBodySimt) e = launch_simt<T, C>(a);
   else return cudaErrorInvalidValue;
-  if (e != cudaSuccess || a.occ) return e;
+  if (e != cudaSuccess || a.occ || a.body == kBodyWalk) return e;   // the walk combines itself
   dattn_combine<T><<<dim3(a.nh, a.nq, a.B), kDaThreads, 0, a.st>>>(
       a.part_o, a.part_ml, a.pos0, static_cast<T*>(a.out), a.nh, a.S, a.hd, a.chunk,
       a.nsplit, a.nq);
@@ -536,17 +995,21 @@ extern "C" int rama_decode_attention(const void* q, const void* k, const void* v
 
 // K7 (nq = 1) and K10 over an int8 cache: k8/v8 point at layer l of
 // (L, B, nkv, S, hd) int8, ks/vs at layer l of its (L, B, nkv, S) f32 row
-// scales; hd a multiple of 16.
+// scales; hd a multiple of 16. On the walk body (2) a split is `tiles`
+// tiles of `chunk` rows, walked by `ctas` CTAs a kv head, and the scratch
+// has nsplit = ceil(ceil(S / chunk) / tiles); the SIMT body takes tiles 1.
 extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const void* v8,
                                         const void* ks, const void* vs, const void* pos0,
                                         void* out, void* part_o, void* part_ml, int B, int nq,
-                                        int nh, int nkv, int S, int hd, int chunk, int dtype,
-                                        int body, void* stream) {
+                                        int nh, int nkv, int S, int hd, int chunk, int tiles,
+                                        int ctas, int dtype, int body, void* stream) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                  static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
                  static_cast<cudaStream_t>(stream), nullptr};
   a.body = body;
+  a.tiles = tiles;
+  a.ctas = ctas;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -579,13 +1042,14 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
 }
 
 // K12 over an int8 pool: k8/v8 point at layer l of (L, npages, nkv, ps, hd)
-// int8, ks/vs at layer l of its (L, npages, nkv, ps) f32 row scales.
+// int8, ks/vs at layer l of its (L, npages, nkv, ps) f32 row scales; tiles
+// and ctas as rama_decode_attention_q8's, with S = mp * ps.
 extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void* v8,
                                        const void* ks, const void* vs, const void* pos0,
                                        const void* tables, void* out, void* part_o,
                                        void* part_ml, int B, int nq, int nh, int nkv, int mp,
-                                       int ps, int npages, int hd, int chunk, int dtype,
-                                       int body, void* stream) {
+                                       int ps, int npages, int hd, int chunk, int tiles,
+                                       int ctas, int dtype, int body, void* stream) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                  static_cast<float*>(part_ml), B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f,
@@ -596,6 +1060,8 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
   a.ps = ps;
   a.npages = npages;
   a.body = body;
+  a.tiles = tiles;
+  a.ctas = ctas;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -28,19 +28,27 @@ The same kernels read the paged cache's pool through page tables: kernel
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`). The split kernel's body is fixed by q's
-dtype and head dim before the launch (`body_for`): bf16 at a head dim of
-MMA_HEAD_DIMS takes the tensor-core body ("mma"), on either cache, for one
-query row a kv head (the decode step) as for a verification chunk; fp32
-and any other head dim the SIMT body ("simt"). One body for both is what
-lets greedy speculation accept its own drafts: a verification row then
-computes exactly what the decode step computes at that position. A refused
-launch raises; it never gives way to the other body.
+dtype, the head dim and the cache before the launch (`body_for`): bf16 at
+a head dim of MMA_HEAD_DIMS takes a tensor-core body, "mma" over a bf16
+cache and "walk" over an int8 one, for one query row a kv head (the
+decode step) as for a verification chunk; fp32 and any other head dim
+the SIMT body ("simt"). One body for both is what lets greedy
+speculation accept its own drafts: a verification row then computes
+exactly what the decode step computes at that position. A refused launch
+raises; it never gives way to another body.
+
+The splits each launch's partials are sized for come from `split_plan`:
+one tile of CHUNK rows (a pool: `split_rows` of its page) a split, but on
+the walk body, where a split is G tiles, G a function of the cache's rows
+alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -53,29 +61,97 @@ launches_chunk = 0     # K10 launches on a bf16 / f32 cache
 launches_chunk_q8 = 0  # K10 launches on an int8 cache
 launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
 launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
-launches_by_body = {"mma": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
+launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
 
-CHUNK = 64     # cache rows per CTA (csrc/decode_attention.cu kMaxChunk, the most it takes)
+CHUNK = 64     # cache rows per tile (csrc/decode_attention.cu kMaxChunk, the most it takes)
 MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kMaxRows)
-MMA_HEAD_DIMS = (48, 64, 128)      # the tensor-core body's instantiations
-BODIES = {"simt": 0, "mma": 1}     # body codes of the C entries (csrc rama::Body)
+MMA_HEAD_DIMS = (48, 64, 128)      # the tensor-core bodies' instantiations
+BODIES = {"simt": 0, "mma": 1, "walk": 2}   # body codes of the C entries (csrc rama::Body)
 
 # every C entry of csrc/decode_attention.cu, the paged forms (K12, called by
 # ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
     "rama_decode_attention": [P] * 7 + [I] * 9 + [P],
-    "rama_decode_attention_q8": [P] * 9 + [I] * 9 + [P],
+    "rama_decode_attention_q8": [P] * 9 + [I] * 11 + [P],
     "rama_decode_attention_occupancy": [I] * 8 + [P],
     "rama_paged_attention": [P] * 8 + [I] * 11 + [P],
-    "rama_paged_attention_q8": [P] * 10 + [I] * 11 + [P],
+    "rama_paged_attention_q8": [P] * 10 + [I] * 13 + [P],
 }
 
 
-def body_for(dtype: torch.dtype, hd: int) -> str:
-    """The body of the split kernel a CUDA launch runs: "mma" (tensor
-    cores) for bf16 at a head dim of MMA_HEAD_DIMS, "simt" (CUDA cores)
-    else, whatever the number of query rows."""
-    return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "simt"
+def body_for(dtype: torch.dtype, hd: int, q8: bool = False) -> str:
+    """The body of the split kernel a CUDA launch runs: bf16 at a head dim
+    of MMA_HEAD_DIMS on the tensor cores, "walk" over an int8 cache (q8)
+    and "mma" over a bf16 one; "simt" (CUDA cores) else, whatever the
+    number of query rows."""
+    if dtype != torch.bfloat16 or hd not in MMA_HEAD_DIMS:
+        return "simt"
+    return "walk" if q8 else "mma"
+
+
+def split_rows(ps: int) -> int:
+    """Cache rows of a tile over pages of ps rows: the largest multiple of 8
+    that is <= CHUNK and divides the page size (64 for 128, 16 for 16, 48
+    for 96), so that no tile straddles two pages."""
+    require(ps > 0 and ps % 8 == 0, f"page size {ps} must be a positive multiple of 8 "
+            f"(the paged kernel's splits are whole multiples of 8 rows of one page)")
+    return next(c for c in range(min(CHUNK, ps) // 8 * 8, 0, -8) if ps % c == 0)
+
+
+def walk_tiles(ntiles: int) -> int:
+    """G, the tiles of a walk split, for a cache of `ntiles` tiles."""
+    return max(1, min(4, ntiles // 16))
+
+
+class SplitPlan(NamedTuple):
+    tile: int     # cache rows a tile, at multiples of which tiles start
+    tiles: int    # G: consecutive tiles a split
+    nsplit: int   # splits of the cache: ceil(ceil(S / tile) / G)
+
+
+def split_plan(s: int, ps: int | None = None, walk: bool = False,
+               tiles: int | None = None) -> SplitPlan:
+    """The splits of a cache of s rows (a pool's mp * ps, pages of ps rows;
+    dense when ps is None) on the walk body (walk) or another: tiles of
+    CHUNK rows (`split_rows(ps)` for a pool), one a split but G =
+    `walk_tiles` on the walk body (`tiles` when given: a sweep or a test
+    of another G; no wrapper passes it). A function of the cache alone,
+    never of the positions or of the queries a slot, so every form that
+    reads one cache walks the same splits."""
+    tile = CHUNK if ps is None else split_rows(ps)
+    ntiles = -(-s // tile)
+    g = (tiles or walk_tiles(ntiles)) if walk else 1
+    return SplitPlan(tile, g, -(-ntiles // g))
+
+
+def scratch(q: torch.Tensor, plan: SplitPlan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A launch's output and partials for q (B, T, nh, hd) over `plan`'s
+    splits: out (B, T, nh * hd) in q's dtype, part_o (B, T, nh, nsplit, hd)
+    and part_ml (B, T, nh, nsplit, 2) fp32 (each query row's (m, l, o) of
+    every split it sees)."""
+    b, t, nh, hd = q.shape
+    out = torch.empty((b, t, nh * hd), dtype=q.dtype, device=q.device)
+    part_o = torch.empty((b, t, nh, plan.nsplit, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, t, nh, plan.nsplit, 2), dtype=torch.float32, device=q.device)
+    return out, part_o, part_ml
+
+
+def walk_ctas(b: int, nkv: int, nsplit: int, wave: int) -> int:
+    """CTAs a kv head of a walk launch: as many as one wave of the card
+    (`wave` resident CTAs) holds for each kv head, never more than the b *
+    nsplit (slot, split) items there can be. They walk the items that hold
+    a visible row (csrc dattn_walk), so the grid has no CTA past a slot's
+    position."""
+    return max(1, min(b * nsplit, wave // nkv))
+
+
+@functools.lru_cache(maxsize=None)
+def walk_wave(device_index: int, hd: int) -> int:
+    """Resident dattn_walk CTAs on the whole card at head dim hd: SMs times
+    CTAs an SM (occupancy API)."""
+    with torch.cuda.device(device_index):
+        per_sm = occupancy(1, 1, 1, hd, q8=True)["ctas_per_sm"]
+        return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
 
 
 def check_rows(t: int, nh: int, nkv: int) -> None:
@@ -159,7 +235,7 @@ def check_caches(q: torch.Tensor, caches: tuple) -> str:
     """The operand checks shared by the dense and paged launches: head_dim,
     dtypes, (k, v) or (k8, v8, ks, vs) with scales of k's leading four
     dims, contiguity, one device, 16-byte aligned k / v (and q, on the
-    tensor-core body). Returns the body the launch takes (`body_for`)."""
+    tensor-core bodies). Returns the body the launch takes (`body_for`)."""
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
     check_head_dim(q.shape[-1], q8)
@@ -175,17 +251,18 @@ def check_caches(q: torch.Tensor, caches: tuple) -> str:
             "q and caches must be contiguous, on one device")
     require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
             "k/v caches must start 16-byte aligned (the kernel copies 16-byte pieces)")
-    body = body_for(q.dtype, q.shape[-1])
+    body = body_for(q.dtype, q.shape[-1], q8)
     require(body == "simt" or q.data_ptr() % 16 == 0,
             "q must start 16-byte aligned (the tensor-core body copies 16-byte pieces)")
     return body
 
 
 def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
-            what: str) -> torch.Tensor:
+            what: str, tiles: int | None = None) -> torch.Tensor:
     """Check and launch the kernel for q (B, T, nh, hd) against layer
     `layer` of caches (k, v) or, for an int8 cache, (k8, v8, ks, vs), on
-    the body `body_for` picks. Returns (B, T, nh * hd) in q's dtype."""
+    the body `body_for` picks, over `split_plan`'s splits (G `tiles` on
+    the walk body when given). Returns (B, T, nh * hd) in q's dtype."""
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
@@ -201,14 +278,18 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
     lib = build.library("decode_attention", _SIGNATURES)
-    nsplit = -(-s // CHUNK)
-    out = torch.empty((b, t, nh * hd), dtype=q.dtype, device=q.device)
-    part_o = torch.empty((b, t, nh, nsplit, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, t, nh, nsplit, 2), dtype=torch.float32, device=q.device)
-    fn = lib.rama_decode_attention_q8 if q8 else lib.rama_decode_attention
-    err = fn(q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
-             out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd, CHUNK,
-             dtype, BODIES[body], build.stream_ptr(q))
+    plan = split_plan(s, walk=body == "walk", tiles=tiles)
+    out, part_o, part_ml = scratch(q, plan)
+    head = (q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
+            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd)
+    if q8:
+        ctas = (walk_ctas(b, nkv, plan.nsplit, walk_wave(q.device.index, hd))
+                if body == "walk" else 0)
+        err = lib.rama_decode_attention_q8(*head, plan.tile, plan.tiles, ctas, dtype,
+                                           BODIES[body], build.stream_ptr(q))
+    else:
+        err = lib.rama_decode_attention(*head, plan.tile, dtype, BODIES[body],
+                                        build.stream_ptr(q))
     build.check(lib, err, what)
     launches_by_body[body] += 1
     return out
@@ -326,12 +407,12 @@ def chunk_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 def occupancy(t: int, nh: int, nkv: int, hd: int, q8: bool,
               dtype: torch.dtype = torch.bfloat16, chunk: int | None = None) -> dict:
     """The split kernel a launch of T queries would run (int8 cache if q8,
-    `chunk` cache rows a CTA, CHUNK by default, on the body `body_for`
+    tiles of `chunk` cache rows, CHUNK by default, on the body `body_for`
     picks): its body, resident CTAs per SM, registers per thread and shared
     bytes per CTA, as the CUDA occupancy API reports them on the current
     card."""
     check_rows(t, nh, nkv)
-    body = body_for(dtype, hd)
+    body = body_for(dtype, hd, q8)
     out = (ctypes.c_int * 3)()
     lib = build.library("decode_attention", _SIGNATURES)
     build.check(lib, lib.rama_decode_attention_occupancy(

@@ -11,14 +11,16 @@ page may hold any id (clamped to [0, P - 1]); query t of slot b at
 position pos0[b] + t sees the slot's rows s <= pos0[b] + t of its mp * ps.
 
 On the card these are the paged forms of the decode-attention kernel
-(`csrc/decode_attention.cu`, K4 / K7 / K10): a split of `split_rows(ps)`
+(`csrc/decode_attention.cu`, K4 / K7 / K10): a tile of `split_rows(ps)`
 rows lies inside one page, so only the address of its rows goes through
-the table. Each launch takes the body `decode_attention.body_for` picks:
-bf16 at head dim 48 / 64 / 128 the tensor-core body, decode and chunk
-forms alike; fp32 the SIMT body. The plain versions gather each slot's
-pages into the dense (B, nkv, mp * ps, hd) view, as
-`rama_tpu/runtime/paged.py`'s gather path does, and run the dense
-kernels' plain versions over it.
+the table, and the splits are `decode_attention.split_plan`'s for mp * ps
+rows (at 64- and 128-row pages the dense cache's). Each launch takes the
+body `decode_attention.body_for` picks: bf16 at head dim 48 / 64 / 128 a
+tensor-core body (the int8 pool's walk body, whose splits of G tiles
+find each tile's page), decode and chunk forms alike; fp32 the SIMT
+body. The plain versions gather each slot's pages into the dense (B,
+nkv, mp * ps, hd) view, as `rama_tpu/runtime/paged.py`'s gather path
+does, and run the dense kernels' plain versions over it.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`).
@@ -35,16 +37,10 @@ from rama_tpu_torch.ops.kernels.build import require
 # kernel launches since the last reset, by entry (chip_smoke reads them)
 launches = {"paged_decode_attention": 0, "paged_decode_attention_q8": 0,
             "paged_chunk_attention": 0, "paged_chunk_attention_q8": 0}
-launches_by_body = {"mma": 0, "simt": 0}   # the same launches (all four forms) by body
+launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # the same launches (all four forms) by body
 
 
-def split_rows(ps: int) -> int:
-    """Cache rows a CTA of the paged kernel reads: the largest multiple of 8
-    that is <= da.CHUNK and divides the page size (64 for 128, 16 for 16,
-    48 for 96), so that no split straddles two pages."""
-    require(ps > 0 and ps % 8 == 0, f"page size {ps} must be a positive multiple of 8 "
-            f"(the paged kernel's splits are whole multiples of 8 rows of one page)")
-    return next(c for c in range(min(da.CHUNK, ps) // 8 * 8, 0, -8) if ps % c == 0)
+split_rows = da.split_rows   # cache rows a tile of the paged kernel reads: within one page
 
 
 def check(t: int, nh: int, nkv: int, hd: int, ps: int, q8: bool) -> None:
@@ -102,9 +98,11 @@ def paged_decode_attention_q8_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Tensor,
-            layer: int, what: str) -> torch.Tensor:
+            layer: int, what: str, tiles: int | None = None) -> torch.Tensor:
     """Check and launch the paged kernel for q (B, T, nh, hd) against layer
-    `layer` of pools (k, v) or (k8, v8, ks, vs). Returns (B, T, nh * hd)."""
+    `layer` of pools (k, v) or (k8, v8, ks, vs), over `da.split_plan`'s
+    splits (G `tiles` on the walk body when given). Returns (B, T, nh *
+    hd)."""
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     k, v = pools[0], pools[1]
     q8 = len(pools) == 4
@@ -122,17 +120,20 @@ def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Ten
             and tables.device == q.device and tables.is_contiguous(),
             "page tables must be a contiguous (B, mp) int32 CUDA tensor")
     mp = tables.shape[1]
-    chunk = split_rows(ps)
-    nsplit = -(-(mp * ps) // chunk)
+    plan = da.split_plan(mp * ps, ps, walk=body == "walk", tiles=tiles)
     lib = build.library("decode_attention", da._SIGNATURES)
-    out = torch.empty((b, t, nh * hd), dtype=q.dtype, device=q.device)
-    part_o = torch.empty((b, t, nh, nsplit, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, t, nh, nsplit, 2), dtype=torch.float32, device=q.device)
-    fn = lib.rama_paged_attention_q8 if q8 else lib.rama_paged_attention
-    err = fn(q.data_ptr(), *da.layer_ptrs(pools, layer * npages * nkv * ps), pos0.data_ptr(),
-             tables.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
-             nkv, mp, ps, npages, hd, chunk, build.dtype_code(q), da.BODIES[body],
-             build.stream_ptr(q))
+    out, part_o, part_ml = da.scratch(q, plan)
+    head = (q.data_ptr(), *da.layer_ptrs(pools, layer * npages * nkv * ps), pos0.data_ptr(),
+            tables.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
+            nkv, mp, ps, npages, hd, plan.tile)
+    if q8:
+        ctas = (da.walk_ctas(b, nkv, plan.nsplit, da.walk_wave(q.device.index, hd))
+                if body == "walk" else 0)
+        err = lib.rama_paged_attention_q8(*head, plan.tiles, ctas, build.dtype_code(q),
+                                          da.BODIES[body], build.stream_ptr(q))
+    else:
+        err = lib.rama_paged_attention(*head, build.dtype_code(q), da.BODIES[body],
+                                       build.stream_ptr(q))
     build.check(lib, err, what)
     launches[what] += 1
     launches_by_body[body] += 1

@@ -917,23 +917,26 @@ def test_prefill_gemm_flops_of_a_7b_admission(smoke):
 def test_decode_attention_launch_counts_by_body_are_read_and_reset(smoke, counters):
     """The decode-attention kernel's launches by body, dense (K4, K7, K9,
     K10) and paged (K12): read as {decode_attention, paged_attention}_{mma,
-    simt}, set to 0 with the other counters."""
+    walk, simt}, set to 0 with the other counters."""
     da, pga = counters[2], counters[5]
-    da.launches_by_body.update(mma=6, simt=1)
-    pga.launches_by_body.update(mma=4, simt=2)
+    da.launches_by_body.update(mma=6, walk=3, simt=1)
+    pga.launches_by_body.update(mma=4, walk=5, simt=2)
     got = smoke.read_launches(*counters)
-    assert (got["decode_attention_mma"], got["decode_attention_simt"],
-            got["paged_attention_mma"], got["paged_attention_simt"]) == (6, 1, 4, 2)
+    assert (got["decode_attention_mma"], got["decode_attention_walk"],
+            got["decode_attention_simt"], got["paged_attention_mma"],
+            got["paged_attention_walk"], got["paged_attention_simt"]) == (6, 3, 1, 4, 5, 2)
     smoke.reset_launches(*counters)
-    assert da.launches_by_body == pga.launches_by_body == {"mma": 0, "simt": 0}
+    assert da.launches_by_body == pga.launches_by_body == {"mma": 0, "walk": 0, "simt": 0}
 
 
 def _attention_ok(smoke, path) -> dict:
-    """Launch counts that pass `path`, every decode-attention launch on the
-    tensor-core body."""
-    return {**_quant_matmul_ok(path), "ffn_mma": 64, "ffn_simt": 0,
-            **{f"{family}_{body}": 64 if body == "mma" else 0
-               for family in smoke.ATTN_FAMILIES for body in ("mma", "simt")}}
+    """Launch counts that pass `path`, every decode-attention launch on a
+    tensor-core body: over an int8 cache (the _q8 entries) the walk body."""
+    ok = {**_quant_matmul_ok(path), "ffn_mma": 64, "ffn_simt": 0}
+    for family, (names, _) in smoke.ATTN_FAMILIES.items():
+        q8 = sum(ok.get(n, 0) for n in names if n.endswith("_q8"))
+        ok.update({f"{family}_mma": 64, f"{family}_walk": q8, f"{family}_simt": 0})
+    return ok
 
 
 @pytest.mark.parametrize("path_name,family", [
@@ -953,6 +956,72 @@ def test_a_path_fails_when_an_attention_launch_took_the_simt_body(smoke, path_na
     smoke.check_launches(path, ok)
     with pytest.raises(SystemExit, match=f"{family} launches .* took the SIMT body"):
         smoke.check_launches(path, {**ok, f"{family}_mma": 63, f"{family}_simt": 1})
+
+
+@pytest.mark.parametrize("path_name,family", [
+    ("KV8_PATH", "decode_attention"), ("SPEC_KV8_PATH", "decode_attention"),
+    ("PREFILL_T1_PATH", "decode_attention"), ("PAGED_KV8_PATH", "paged_attention"),
+    ("SPEC_PAGED_KV8_PATH", "paged_attention")])
+def test_an_int8_path_fails_when_an_int8_attention_launch_missed_the_walk_body(
+        smoke, path_name, family):
+    """On a path over an int8 cache every _q8 launch of the decode-attention
+    kernel (K7, K9, K10, K12) runs the walk body: its walk launches must
+    equal the _q8 launches, one fewer fails the path."""
+    path = getattr(smoke, path_name)
+    ok = _attention_ok(smoke, path)
+    assert ok[f"{family}_walk"] > 0
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match=f"{family} launches over an int8 cache"):
+        smoke.check_launches(path, {**ok, f"{family}_walk": ok[f"{family}_walk"] - 1,
+                                    f"{family}_mma": ok[f"{family}_mma"] + 1})
+
+
+def test_walk_grid_counts_ctas_against_splits_with_work(smoke, monkeypatch):
+    """The grid check of a walk launch (chip_smoke's K12 _q8 check: 8 slots,
+    4096 rows of 128-row pages, 32 kv heads): the profiled grid passes when
+    it has the wrapper's CTAs (one wave over the kv heads, here 660
+    resident CTAs: 20 a kv head) and fails otherwise; beside it, computed,
+    the splits that hold a visible row and one CTA a 64-row tile (16,384,
+    of which 5,408 have a row)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    monkeypatch.setattr(da, "walk_wave", lambda index, hd: 660)
+    pos = torch.tensor([0, 127, 128, 255, 1000, 2047, 3000, 4092], dtype=torch.int32)
+    assert smoke.walk_work(da, pos, 1, 4096, 32, 128) == dict(
+        tile=64, tiles=4, nsplit=16, splits_with_work=(1 + 1 + 1 + 1 + 4 + 8 + 12 + 16) * 32,
+        one_cta_a_tile=16384, one_cta_a_tile_with_work=169 * 32)
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    smoke.check_walk_grid(da, "k12", {"split_grid": [[20, 32, 1]], "split_ctas": 640}, pos, 1,
+                          4096, 32, 128, 128)
+    assert "640 CTAs launched" in lines[-1] and "1408 splits with work (computed" in lines[-1]
+    smoke.check_walk_grid(da, "k12", {"split_grid": [], "split_ctas": None}, pos, 1, 4096, 32,
+                          128, 128)
+    assert "recorded no single split grid" in lines[-2]
+    with pytest.raises(SystemExit, match="launched 16384 CTAs, the wrapper asks for 640"):
+        smoke.check_walk_grid(da, "k12", {"split_grid": [[16, 32, 8]], "split_ctas": 16384},
+                              pos, 1, 4096, 32, 128, 128)
+    assert smoke.with_share({"split_ms": 0.03, "combine_ms": 0.01}, 0.02)["bound_share"] == \
+        pytest.approx(0.5)
+
+
+def test_kernel_grids_reads_the_launched_grids_of_a_trace(smoke):
+    """kernel_grids takes the distinct args.grid of the kernel events whose
+    name holds a split kernel's, as torch.profiler's Chrome trace gives
+    them; other kernels, CPU events and events without a grid are left
+    out."""
+    ev = lambda name, grid, cat="kernel": {"cat": cat, "name": name,  # noqa: E731
+                                          "args": {"grid": grid} if grid else {}}
+    trace = {"traceEvents": [
+        ev("void dattn_walk<128>(bf16 const*)", [20, 32, 1]),
+        ev("void dattn_walk<128>(bf16 const*)", [20, 32, 1]),
+        ev("void dattn_mma<128, false>(bf16 const*)", [16, 32, 8]),
+        ev("void dattn_combine_rows<bf16>(float*)", [64, 1, 1]),
+        ev("dattn_walk", [3, 3, 3], cat="cpu_op"),
+        ev("void dattn_split<float, float, 1, 1>()", None),
+    ]}
+    assert smoke.kernel_grids(trace, smoke.ATTN_SPLIT_KERNELS) == [[16, 32, 8], [20, 32, 1]]
+    assert smoke.kernel_grids({}, smoke.ATTN_SPLIT_KERNELS) == []
 
 
 def test_a_path_without_the_attention_kernel_ignores_its_body_counts(smoke):
@@ -992,10 +1061,13 @@ def test_on_body_fails_a_launch_on_the_other_body(smoke):
     (["void rama::dattn_split<__nv_bfloat16, __nv_bfloat16, 16, 1>"], "mma", False),
     (["void rama::dattn_split<float, float, 16, 4>"], "simt", True),
     (["void rama::dattn_mma<128, true>"], "simt", False),
+    (["void rama::dattn_walk<128>"], "walk", True),
+    (["void rama::dattn_mma<128>"], "walk", False),
+    (["void rama::dattn_walk<64>"], "mma", False),
     ([], "mma", True)])
 def test_check_split_body_reads_the_profiled_kernel_name(smoke, names, body, ok):
-    """The split kernel the profiler saw must be the body's: dattn_mma or
-    dattn_split. (A session with no device event at all, names [], passes
+    """The split kernel the profiler saw must be the body's: dattn_mma,
+    dattn_walk or dattn_split. (A session with no device event at all, names [], passes
     with a log line: the launch counts by body check the body there.)"""
     parts = {"split_kernel": names}
     if ok:

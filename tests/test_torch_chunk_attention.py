@@ -333,6 +333,17 @@ def test_body_for_routes_by_dtype_and_head_dim(dtype, hd, body):
     assert da.BODIES[body] in (0, 1)
 
 
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 48, "walk"), (torch.bfloat16, 64, "walk"), (torch.bfloat16, 128, "walk"),
+    (torch.float32, 128, "simt"), (torch.bfloat16, 16, "simt"), (torch.bfloat16, 256, "simt")])
+def test_body_for_takes_the_walk_body_over_an_int8_cache(dtype, hd, body):
+    """Over an int8 cache bf16 at hd 48 / 64 / 128 takes the walk body
+    (csrc dattn_walk, C body code 2) for decode steps and chunks alike;
+    fp32 and other head dims the SIMT body, as over a bf16 cache."""
+    assert da.body_for(dtype, hd, q8=True) == body
+    assert da.BODIES["walk"] == 2
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to nearest even through bfloat16, as fp32."""
     return x.to(torch.bfloat16).float()
@@ -443,4 +454,98 @@ def test_mma_body_emulation_q8_matches_pallas_tiled(tq, nh, nkv, s, pos0):
         got = _bf16(emulate_mma_body(t(np.asarray(jq.astype(jnp.float32))), t(k8).float(),
                                      t(v8).float(), torch.from_numpy(p0), layer, ks=t(ks),
                                      vs=t(vs))).numpy()
+        _close(got, want, fp32=False)
+
+
+# -- the int8 walk body (csrc/decode_attention.cu dattn_walk) ------------------
+
+
+def emulate_walk_body(q, k8, v8, ks, vs, pos0, layer, tiles, tile=64, round_p=_bf16):
+    """The walk body's arithmetic, written out, one query row at a time: the
+    cache's splits of `tiles` tiles of `tile` rows (split_plan); for each
+    (slot, kv head) the splits up to the chunk's last limit, of which a
+    query row takes those that start at or below its own limit; within a
+    split, tile by tile, fp32 scores (q . k8) * ks * scale masked to the
+    row's limit, the running max m_new = max(m_run, the tile's max), alpha
+    = e^(m_run - m_new) (exactly 1 where m_new == m_run), e = exp(s -
+    m_new), l = l alpha + sum e, o = o alpha + round_p(e * vs) . v8; then
+    the combine over the splits the row saw. q (B, T, nh, hd) fp32 values,
+    k8 / v8 (L, B, nkv, S, hd) as fp32, ks / vs (L, B, nkv, S). Returns (B,
+    T, nh * hd) fp32."""
+    b, tq, nh, hd = q.shape
+    nkv, s = k8.shape[2], k8.shape[3]
+    rep = nh // nkv
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    inf = torch.tensor(-np.inf)
+    out = torch.zeros(b, tq, nh, hd)
+    for bi in range(b):
+        last = max(0, min(int(pos0[bi]) + tq - 1, s - 1))
+        for h in range(nh):
+            j = h // rep
+            for ti in range(tq):
+                lim = max(0, min(int(pos0[bi]) + ti, s - 1))
+                parts = []
+                for s0 in range(0, lim + 1, tile * tiles):
+                    m, l, o = inf, torch.tensor(0.0), torch.zeros(hd)
+                    for t0 in range(s0, min(s0 + tile * tiles, last + 1), tile):
+                        rows = slice(t0, min(t0 + tile, last + 1))
+                        sc = (k8[layer, bi, j, rows] * q[bi, ti, h]).sum(-1)
+                        sc = sc * ks[layer, bi, j, rows] * scale
+                        sc = torch.where(torch.arange(t0, rows.stop) <= lim, sc, inf)
+                        m_new = torch.maximum(m, sc.max())
+                        mref = m_new if torch.isfinite(m_new) else torch.tensor(0.0)
+                        alpha = torch.tensor(1.0) if m_new == m else torch.exp(m - mref)
+                        e = torch.exp(sc - mref)
+                        l = l * alpha + e.sum()
+                        o = o * alpha + round_p(e * vs[layer, bi, j, rows]) @ v8[layer, bi, j, rows]
+                        m = m_new
+                    parts.append((m, l, o))
+                big = max(m for m, _, _ in parts)
+                num = sum(torch.exp(m - big) * o for m, _, o in parts)
+                den = sum(torch.exp(m - big) * l for m, l, _ in parts)
+                out[bi, ti, h] = num / den
+    return out.reshape(b, tq, nh * hd)
+
+
+# (tq, nh, nkv, s, pos0, tiles): chunks straddling a tile (60 + T) and a split
+# of G tiles (189 + T at G 3, 253 + T at G 2 / 4), a row that sees no tile of
+# the chunk's last split, one running past S, a ragged last tile and split
+WALK_CASES = [(8, 4, 4, 200, [60, 0, 198, 128], 2), (4, 4, 2, 448, [189, 61, 446, 383], 3),
+              (2, 8, 2, 520, [253, 0, 519, 255], 4), (1, 4, 4, 300, [0, 63, 64, 299], 2),
+              (4, 4, 4, 256, [60, 121, 250, 252], 1)]
+
+
+@pytest.mark.parametrize("tq,nh,nkv,s,pos0,tiles", WALK_CASES)
+def test_walk_body_emulation_equals_the_plain_version_in_fp32(tq, nh, nkv, s, pos0, tiles):
+    """Without the bf16 rounding of P, the walk's online softmax over the
+    tiles of each split, then the combine, equals the plain version (one
+    softmax over every visible row) on fp32 q: atol 1e-5 (other summation
+    order)."""
+    q, k, v = make(2, len(pos0), tq, nh, nkv, s, 32, seed=tq + s + tiles)
+    k8, v8, ks, vs = (t(a) for a in _q8(k, v))
+    p0 = torch.tensor(pos0, dtype=torch.int32)
+    for layer in (0, 1):
+        want = da.chunk_attention_q8_plain(t(q), k8, v8, ks, vs, p0, layer)
+        got = emulate_walk_body(t(q), k8.float(), v8.float(), ks, vs, p0, layer, tiles,
+                                round_p=lambda x: x)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tq,nh,nkv,s,pos0,tiles", WALK_CASES)
+def test_walk_body_emulation_q8_matches_pallas_tiled(tq, nh, nkv, s, pos0, tiles):
+    """The walk's arithmetic on bf16 q (P = bf16(e * vs) against the running
+    max, fp32 sums, splits of G tiles, the combine) against
+    chunk_attention_layer_tiled_q8 in interpret mode on the same int8
+    cache: the bf16 tolerance of this file."""
+    q, k, v = make(2, len(pos0), tq, nh, nkv, s, 32, seed=5 * tq + s + tiles)
+    k8, v8, ks, vs = _q8(k, v)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    p0 = np.array(pos0, np.int32)
+    for layer in (0, 1):
+        want = np.asarray(jda.chunk_attention_layer_tiled_q8(
+            jq, k8, v8, ks, vs, jnp.asarray(p0), jnp.int32(layer), chunk=128,
+            interpret=True).astype(jnp.float32))
+        got = _bf16(emulate_walk_body(t(np.asarray(jq.astype(jnp.float32))), t(k8).float(),
+                                      t(v8).float(), t(ks), t(vs), torch.from_numpy(p0), layer,
+                                      tiles)).numpy()
         _close(got, want, fp32=False)

@@ -544,22 +544,63 @@ def test_write_kv_strips_q8(dev, L, nkv, T, t_ins, hd, dtype):
     assert kw.launches["write_kv_strips_q8"] == before + 1
 
 
+# (S, G forced on the walk body or None for split_plan's): one tile a split at
+# S 256, several at S 1024 and 4096, and a G that leaves a ragged last split
+WALK_CASES = [(256, None), (1024, None), (1024, 2), (4096, None), (4096, 3)]
+
+
+def _q8_forms(tiles):
+    """The int8 forms (decode, chunk, paged decode, paged chunk) as their
+    wrappers launch them (tiles None), or the same launches over splits of
+    `tiles` tiles: G forced through the private launch, as chip_smoke's
+    sweep forces it (no wrapper takes G, and a forced launch bumps no dense
+    wrapper's count)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    if tiles is None:
+        return (da.decode_attention_q8, da.chunk_attention_q8, pa.paged_decode_attention_q8,
+                pa.paged_chunk_attention_q8)
+
+    def decode(q, *caches_pos_layer):
+        *c, pos, layer = caches_pos_layer
+        return da._launch(q[:, None], tuple(c), pos, layer, "decode_attention_q8", tiles)[:, 0]
+
+    def chunk(q, *caches_pos_layer):
+        *c, pos0, layer = caches_pos_layer
+        return da._launch(q, tuple(c), pos0, layer, "chunk_attention_q8", tiles)
+
+    def paged_decode(q, *pools_pos_tables_layer):
+        *c, pos, tables, layer = pools_pos_tables_layer
+        return pa._launch(q[:, None], tuple(c), pos, tables, layer, "paged_decode_attention_q8",
+                          tiles)[:, 0]
+
+    def paged_chunk(q, *pools_pos_tables_layer):
+        *c, pos0, tables, layer = pools_pos_tables_layer
+        return pa._launch(q, tuple(c), pos0, tables, layer, "paged_chunk_attention_q8", tiles)
+
+    return decode, chunk, paged_decode, paged_chunk
+
+
 @pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 2, 16), (8, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_attention_q8(dev, nh, nkv, hd, dtype):
+@pytest.mark.parametrize("S,tiles", WALK_CASES)
+def test_decode_attention_q8(dev, nh, nkv, hd, dtype, S, tiles):
+    """K7 against its plain version: positions on tile edges and S - 1,
+    splits of one tile and of several (bf16 at hd 48 / 128: the walk body)."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kw
 
-    S = 256
-    k8, ks = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
-    v8, vs = kw.kv_quant_rows(torch.randn(2, 4, nkv, S, hd, device=dev))
-    q = torch.randn(4, nh, hd, device=dev).to(dtype)
-    pos = torch.tensor([0, 63, 64, S - 1], dtype=torch.int32, device=dev)
+    decode = _q8_forms(tiles)[0]
+    k8, ks = kw.kv_quant_rows(torch.randn(2, 5, nkv, S, hd, device=dev))
+    v8, vs = kw.kv_quant_rows(torch.randn(2, 5, nkv, S, hd, device=dev))
+    q = torch.randn(5, nh, hd, device=dev).to(dtype)
+    pos = torch.tensor([0, 63, 64, S // 2 + 1, S - 1], dtype=torch.int32, device=dev)
     before = da.launches_q8
     for layer in (0, 1):
-        _close(da.decode_attention_q8(q, k8, v8, ks, vs, pos, layer),
+        _close(decode(q, k8, v8, ks, vs, pos, layer),
                da.decode_attention_q8_plain(q, k8, v8, ks, vs, pos, layer), dtype)
-    assert da.launches_q8 == before + 2
+    assert da.launches_q8 == before + 2 * (tiles is None)
 
 
 def test_tiny_model_int8_cache_logits_kernels_equal_plain(dev):
@@ -659,11 +700,11 @@ def test_chunk_attention_refuses_too_many_rows(dev):
 @pytest.mark.parametrize("t,rep", [(2, 1), (4, 1), (8, 1), (2, 2), (4, 2), (2, 4)])
 @pytest.mark.parametrize("q8", [False, True])
 def test_chunk_attention_tensor_core_body(dev, hd, t, rep, q8):
-    """K10's tensor-core body (bf16, T * rep >= 2 rows) against the plain
-    version on both caches: chunks straddling the 64-row split (60 + T: a
-    query that sees no row of split 1), running past S, the last that fits,
-    a ragged last split (S 200); every launch on `mma`, reruns bit for
-    bit."""
+    """K10's tensor-core bodies (bf16, T * rep >= 2 rows; the walk body on
+    the int8 cache) against the plain version on both caches: chunks
+    straddling the 64-row split (60 + T: a query that sees no row of split
+    1), running past S, the last that fits, a ragged last split (S 200);
+    every launch on its body, reruns bit for bit."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kw
 
@@ -678,13 +719,14 @@ def test_chunk_attention_tensor_core_body(dev, hd, t, rep, q8):
     plain = da.chunk_attention_q8_plain if q8 else da.chunk_attention_plain
     q = torch.randn(5, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
     pos0 = torch.tensor([0, 60, 61, S - 2, S - t], dtype=torch.int32, device=dev)
-    assert da.body_for(q.dtype, hd) == "mma"
+    body = "walk" if q8 else "mma"
+    assert da.body_for(q.dtype, hd, q8) == body
     before = dict(da.launches_by_body)
     for layer in (0, 1):
         got = kernel(q, *caches, pos0, layer)
         _close(got, plain(q, *caches, pos0, layer), torch.bfloat16)
         assert torch.equal(got, kernel(q, *caches, pos0, layer))
-    assert da.launches_by_body == {"mma": before["mma"] + 4, "simt": before["simt"]}
+    assert da.launches_by_body == {**before, body: before[body] + 4}
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])
@@ -694,7 +736,8 @@ def test_paged_chunk_attention_tensor_core_body(dev, hd, t, rep, ps):
     """K12's chunk form on the tensor-core body against its plain version on
     both pools (16-row pages: 16-row splits; 128-row pages: 64-row
     splits), shuffled pages, -1 and stale table entries, a chunk running
-    past the slot's last page; every launch on `mma`."""
+    past the slot's last page; every launch on a tensor-core body (`mma`,
+    the int8 pool's `walk`)."""
     from rama_tpu_torch.ops.kernels import kv_write as kw
     from rama_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -714,51 +757,58 @@ def test_paged_chunk_attention_tensor_core_body(dev, hd, t, rep, ps):
         _close(pa.paged_chunk_attention_q8(q, k8, v8, ks, vs, p0, tables, layer),
                pa.paged_chunk_attention_q8_plain(q, k8, v8, ks, vs, p0, tables, layer),
                torch.bfloat16)
-    assert pa.launches_by_body == {"mma": before["mma"] + 4, "simt": before["simt"]}
+    assert pa.launches_by_body == {"mma": before["mma"] + 2, "walk": before["walk"] + 2,
+                                   "simt": before["simt"]}
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])
 @pytest.mark.parametrize("rep", [1, 2])
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("paged", [False, True])
-def test_chunk_rows_equal_decode_rows_bit_for_bit(dev, hd, rep, q8, paged):
+@pytest.mark.parametrize("S,tiles", [(200, None), (1024, None), (1024, 3), (4096, None),
+                                     (4096, 3)])
+def test_chunk_rows_equal_decode_rows_bit_for_bit(dev, hd, rep, q8, paged, S, tiles):
     """Each query row of a verification chunk (K10, K12's chunk form)
     equals, bit for bit, the decode step's attention (K4 / K7, K12 decode)
-    at its position: one body computes both, so greedy speculation with
-    the target as its own draft accepts every draft. Dense (S 200) and
-    paged (128-row pages), bf16 and int8 caches, rows straddling a split
+    at its position: one body computes both, over the same splits, so
+    greedy speculation with the target as its own draft accepts every
+    draft. Dense (S rows) and paged (128-row pages), bf16 and int8 caches,
+    rows straddling a tile and a split of G tiles (the int8 walk body's
+    splits of several tiles at S 1024 / 4096, G forced to 3 or the plan's)
     and (dense) clamped at S - 1."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kw
     from rama_tpu_torch.ops.kernels import paged_attention as pa
 
+    decode_q8, chunk_q8, paged_decode_q8, paged_chunk_q8 = _q8_forms(tiles)
     t, nkv = 4, 2
-    pos = [0, 60, 61, 198, 196]
+    pos = [0, 60, 61, 198, 196] if S == 200 else [0, 61, 189, 253, S // 2 - 2, S - 2, S - 4]
+    b = len(pos)
     if paged:
-        tables, npages = _paged_setup(dev, 2, 5, nkv, hd, 128, 2, pos, t, seed=hd + rep)
+        tables, npages = _paged_setup(dev, 2, b, nkv, hd, 128, -(-S // 128), pos, t,
+                                      seed=hd + rep)
         shape = (2, npages, nkv, 128, hd)
     else:
-        tables, shape = None, (2, 5, nkv, 200, hd)
+        tables, shape = None, (2, b, nkv, S, hd)
     k, v = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
     if q8:
         (k8, ks), (v8, vs) = kw.kv_quant_rows(k), kw.kv_quant_rows(v)
         caches = (k8, v8, ks, vs)
     else:
         caches = (k.to(torch.bfloat16), v.to(torch.bfloat16))
-    q = torch.randn(5, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    q = torch.randn(b, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
     p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
     if paged:
-        chunk = (pa.paged_chunk_attention_q8 if q8 else pa.paged_chunk_attention)(
-            q, *caches, p0, tables, 1)
+        chunk = (paged_chunk_q8 if q8 else pa.paged_chunk_attention)(q, *caches, p0, tables, 1)
     else:
-        chunk = (da.chunk_attention_q8 if q8 else da.chunk_attention)(q, *caches, p0, 1)
+        chunk = (chunk_q8 if q8 else da.chunk_attention)(q, *caches, p0, 1)
     for i in range(t):
         qi = q[:, i].contiguous()
         if paged:
-            one = (pa.paged_decode_attention_q8 if q8 else pa.paged_decode_attention)(
+            one = (paged_decode_q8 if q8 else pa.paged_decode_attention)(
                 qi, *caches, p0 + i, tables, 1)
         else:
-            one = (da.decode_attention_q8 if q8 else da.decode_attention)(qi, *caches, p0 + i, 1)
+            one = (decode_q8 if q8 else da.decode_attention)(qi, *caches, p0 + i, 1)
         assert torch.equal(chunk[:, i], one), f"query {i}"
 
 
@@ -774,7 +824,7 @@ def test_chunk_attention_fp32_and_hd16_keep_the_simt_body(dev):
         before = dict(da.launches_by_body)
         _close(da.chunk_attention(q, k, k, pos0, 0), da.chunk_attention_plain(q, k, k, pos0, 0),
                dtype)
-        assert da.launches_by_body == {"mma": before["mma"], "simt": before["simt"] + 1}
+        assert da.launches_by_body == {**before, "simt": before["simt"] + 1}
 
 
 @pytest.mark.parametrize("nkv,S,hd,t", [(2, 48, 16, 3), (6, 64, 48, 4), (4, 256, 128, 8)])
@@ -875,29 +925,36 @@ def test_paged_attention(dev, nh, nkv, hd, ps, t, dtype):
 
 @pytest.mark.parametrize("ps", [64, 128])
 @pytest.mark.parametrize("t", [1, 4])
-def test_paged_attention_equals_the_dense_kernel(dev, ps, t):
-    """Where the 64-row splits coincide (ps % 64 == 0), K12 over the pool
+@pytest.mark.parametrize("rows,tiles", [(256, None), (512, None), (4096, None), (4096, 3)])
+def test_paged_attention_equals_the_dense_kernel(dev, ps, t, rows, tiles):
+    """Where the 64-row tiles coincide (ps % 64 == 0), K12 over the pool
     equals K4 / K10 (and K7 / K10 int8) over the gathered dense view bit
-    for bit."""
+    for bit: pools of mp * ps = 256, 512 and 4096 rows, the int8 walk
+    body's splits of one tile or several (the plan's G, or 3), a split
+    spanning pages."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kw
     from rama_tpu_torch.ops.kernels import paged_attention as pa
 
-    mp, nkv, hd = 4, 4, 128
-    pos = [0, 63, 64, ps - 1, mp * ps - t]
-    tables, npages = _paged_setup(dev, 2, 5, nkv, hd, ps, mp, pos, t, seed=7)
+    decode_q8, chunk_q8, paged_decode_q8, paged_chunk_q8 = _q8_forms(tiles)
+    mp, nkv, hd = rows // ps, 4, 128
+    pos = [0, 63, 64, ps - 1, 250, rows // 2 + 5, rows - t]
+    tables, npages = _paged_setup(dev, 2, len(pos), nkv, hd, ps, mp, pos, t, seed=7)
     k = torch.randn(2, npages, nkv, ps, hd, device=dev).to(torch.bfloat16)
     v = torch.randn(2, npages, nkv, ps, hd, device=dev).to(torch.bfloat16)
     (k8, ks), (v8, vs) = kw.kv_quant_rows(k.float()), kw.kv_quant_rows(v.float())
-    q = torch.randn(5, t, nkv, hd, device=dev).to(torch.bfloat16)
+    q = torch.randn(len(pos), t, nkv, hd, device=dev).to(torch.bfloat16)
     p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
     dense = [_paged_view(x, tables).contiguous() for x in (k, v, k8, v8, ks, vs)]
     got = pa.paged_chunk_attention(q, k, v, p0, tables, 1)
     want = da.chunk_attention(q, dense[0], dense[1], p0, 1)
     assert torch.equal(got, want)
-    got = pa.paged_chunk_attention_q8(q, k8, v8, ks, vs, p0, tables, 1)
-    want = da.chunk_attention_q8(q, *dense[2:], p0, 1)
+    got = paged_chunk_q8(q, k8, v8, ks, vs, p0, tables, 1)
+    want = chunk_q8(q, *dense[2:], p0, 1)
     assert torch.equal(got, want)
+    if t == 1:
+        got = paged_decode_q8(q[:, 0].contiguous(), k8, v8, ks, vs, p0, tables, 1)
+        assert torch.equal(got, decode_q8(q[:, 0].contiguous(), *dense[2:], p0, 1))
 
 
 @pytest.mark.parametrize("ps,t", [(16, 1), (16, 8), (32, 3), (128, 4), (24, 5)])
@@ -1171,6 +1228,51 @@ def test_attn_block_replays_in_a_cuda_graph(dev, form, dtype):
         assert torch.equal(out, eager)
         for g_, e_ in zip(graph_c, eager_c):
             assert torch.equal(g_, e_)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_decode_attention_replays_in_a_cuda_graph(dev, paged):
+    """K7 (dense) and K12 _q8 (paged, 128-row pages) on the walk body,
+    captured in a CUDA graph after a warm-up launch (which reads the
+    card's occupancy for the grid) and replayed twice, equal an eager
+    launch on the same inputs bit for bit; S 4096, so a split holds
+    several tiles."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    S, nkv, hd = 4096, 4, 128
+    pos = [0, 63, 64, 1000, 2047, 3001, 4095, 4100]
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if paged:
+        tables, npages = _paged_setup(dev, 2, 8, nkv, hd, 128, S // 128, pos, 1, seed=23)
+        shape = (2, npages, nkv, 128, hd)
+    else:
+        shape = (2, 8, nkv, S, hd)
+    (k8, ks), (v8, vs) = (kw.kv_quant_rows(torch.randn(shape, device=dev)) for _ in range(2))
+    q = torch.randn(8, 2 * nkv, hd, device=dev).to(torch.bfloat16)
+
+    def call():
+        if paged:
+            return pa.paged_decode_attention_q8(q, k8, v8, ks, vs, p0, tables, 1)
+        return da.decode_attention_q8(q, k8, v8, ks, vs, p0, 1)
+
+    eager = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up on the capture stream
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    counts = pa.launches_by_body if paged else da.launches_by_body
+    n0 = counts["walk"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    assert counts["walk"] == n0 + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def test_attn_block_refuses_operands_it_does_not_take(dev):

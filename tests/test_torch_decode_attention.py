@@ -5,7 +5,8 @@ ragged positions (0, tile boundaries, S-1), layers 0 and L-1, MHA and GQA.
 Tolerance: fp32 caches atol 1e-4; bf16 caches (probabilities rounded to
 bf16 before P.V at different points: normalized in the whole-S kernel,
 unnormalized per tile in the tiled one) compared in fp32 with rel 2e-2 of
-max |ref|."""
+max |ref|. The card kernel's split plan (which cache rows each split
+covers) is pinned at the end of the file."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 
 from rama_tpu.ops.pallas.decode_attention import (decode_attention_layer,
                                                   decode_attention_layer_tiled)
+from rama_tpu_torch.ops.kernels import decode_attention as da
 from rama_tpu_torch.ops.kernels.decode_attention import (decode_attention,
                                                          decode_attention_plain)
 
@@ -132,3 +134,82 @@ def test_flat_cpu_wrappers_dispatch_to_plain_and_equal_the_layered_kernel():
     got = da.decode_attention_flat_q8(q, k8[1], v8[1], ks[1], vs[1], pos)
     torch.testing.assert_close(got, da.decode_attention_q8(q, k8, v8, ks, vs, pos, 1),
                                rtol=0, atol=0)
+
+
+# The split plan of the card's kernel (split_plan): the cache rows each split
+# of a launch covers, tile by tile. It is a function of the cache alone (its
+# rows, a pool's page size, the body), never of the positions or of the
+# queries a slot: so a verification row and the decode row at its position
+# walk the same splits, bit for bit on the card.
+
+def _plan_rows(plan, s):
+    """The cache rows of each split of `plan` over s rows, tile by tile."""
+    ntiles = -(-s // plan.tile)
+    return [[list(range(t * plan.tile, min((t + 1) * plan.tile, s)))
+             for t in range(k * plan.tiles, min((k + 1) * plan.tiles, ntiles))]
+            for k in range(plan.nsplit)]
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1024, 1100, 2048, 4096, 32768])
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("tiles", [None, 3])
+def test_split_plan_tiles_cover_every_cache_row_once(s, walk, tiles):
+    """The tiles of the plan's splits cover rows 0..S-1 exactly once, in
+    order, each starting at a multiple of 64, no split empty; a split is one
+    tile but on the walk body (int8 cache), where it is G (`tiles` when
+    given); nsplit is the kernel's ceil(ceil(S / 64) / G)."""
+    plan = da.split_plan(s, walk=walk, tiles=tiles)
+    splits = _plan_rows(plan, s)
+    assert [r for split in splits for tile in split for r in tile] == list(range(s))
+    assert all(tile[0] % 64 == 0 for split in splits for tile in split)
+    assert all(splits)
+    assert plan.tile == da.CHUNK == 64
+    assert plan.tiles == ((tiles or da.walk_tiles(-(-s // 64))) if walk else 1)
+    assert plan.nsplit == -(-(-(-s // 64)) // plan.tiles)
+
+
+def test_split_plan_depends_on_the_cache_alone():
+    """split_plan takes the cache's rows, a pool's page size, the body and
+    an explicit G, nothing of a launch's positions or queries; no public
+    wrapper, dense or paged, passes G, so every launch over one cache gets
+    walk_tiles' G; G grows with the rows (never down), at least 1."""
+    import inspect
+
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    assert list(inspect.signature(da.split_plan).parameters) == ["s", "ps", "walk", "tiles"]
+    for fn in (da.decode_attention_q8, da.decode_attention_flat_q8, da.chunk_attention_q8,
+               pa.paged_decode_attention_q8, pa.paged_chunk_attention_q8):
+        assert "tiles" not in inspect.signature(fn).parameters
+    gs = [da.split_plan(s, walk=True).tiles for s in range(64, 65 * 1024, 64)]
+    assert gs[0] == 1 and all(a <= b for a, b in zip(gs, gs[1:]))
+    assert da.split_plan(4096, walk=True) == da.split_plan(4096, walk=True)
+
+
+@pytest.mark.parametrize("s,ps", [(200, None), (1024, None), (4096, None), (512, 64),
+                                  (4096, 128), (256, 16), (240, 24), (96, 32)])
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("tiles", [None, 3])
+def test_scratch_holds_every_split_a_query_row_sees(s, ps, walk, tiles):
+    """`scratch` (the output and partials both wrappers allocate, dense and
+    paged) holds one partial a (slot, query, head) for each split of the
+    plan; the split of every row limit 0..S-1 is among them, the last one
+    included."""
+    plan = da.split_plan(s, ps, walk, tiles)
+    q = torch.zeros(2, 3, 4, 16, dtype=torch.bfloat16)
+    out, part_o, part_ml = da.scratch(q, plan)
+    assert (out.shape, out.dtype) == ((2, 3, 64), torch.bfloat16)
+    assert part_o.shape == (2, 3, 4, plan.nsplit, 16) and part_o.dtype == torch.float32
+    assert part_ml.shape == (2, 3, 4, plan.nsplit, 2) and part_ml.dtype == torch.float32
+    assert max(lim // (plan.tile * plan.tiles) for lim in range(s)) == plan.nsplit - 1
+
+
+def test_walk_ctas_fill_one_wave_and_never_exceed_the_items():
+    """The walk body's CTAs a kv head: one wave of the card (resident CTAs)
+    over the kv heads, rounded down (no second wave), at most B * nsplit
+    (slot, split) items, at least 1."""
+    assert da.walk_ctas(8, 32, 16, 660) == 20
+    assert da.walk_ctas(8, 32, 2, 660) == 16
+    assert da.walk_ctas(1, 32, 1, 660) == 1
+    assert da.walk_ctas(8, 4, 64, 660) == 165
+    assert da.walk_ctas(3, 64, 0, 660) == 1

@@ -489,3 +489,36 @@ def test_gather_path_runs_only_on_the_cpu(model):
         paged._forward_gather_paged(tp, cfg, torch.zeros(1, 9, dtype=torch.long, device="meta"),
                                     torch.zeros(1, 9, dtype=torch.long, device="meta"), pool,
                                     torch.zeros(1, 2, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("mp", [1, 3, 8, 32, 64])
+@pytest.mark.parametrize("walk", [False, True])
+def test_split_plan_of_a_pool_equals_the_dense_plan(ps, mp, walk):
+    """At 64- and 128-row pages a pool of mp pages walks the dense plan of
+    mp * ps rows (64-row tiles, the same G and splits): the paged kernel
+    then equals the dense one over the gathered rows bit for bit."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    assert da.split_plan(mp * ps, ps, walk) == da.split_plan(mp * ps, walk=walk)
+    assert da.split_plan(mp * ps, ps, walk).tile == 64
+
+
+@pytest.mark.parametrize("ps", [8, 16, 24, 48, 96])
+@pytest.mark.parametrize("mp", [1, 5, 256])
+@pytest.mark.parametrize("walk", [False, True])
+def test_split_plan_of_small_pages_keeps_tiles_inside_a_page(ps, mp, walk):
+    """Below 64-row pages a tile is split_rows(ps) rows (inside one page);
+    a walk split of G tiles may span pages, and every row of the pool is in
+    exactly one tile."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    s = mp * ps
+    plan = da.split_plan(s, ps, walk)
+    assert plan.tile == pa.split_rows(ps) and ps % plan.tile == 0
+    ntiles = s // plan.tile
+    assert plan.nsplit == -(-ntiles // plan.tiles)
+    assert walk or plan.tiles == 1
+    tiles = [t for k in range(plan.nsplit)
+             for t in range(k * plan.tiles, min((k + 1) * plan.tiles, ntiles))]
+    assert tiles == list(range(ntiles))
