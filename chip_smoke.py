@@ -168,11 +168,25 @@ Phases, in order (any failure raises and the script exits non-zero):
   prefill_t1   the T = 1 generic layer through prefill / forward on bf16 and
            int8 caches with the plain T = 1 attention made to raise: K9 once
            a layer of every call
+  kernels_s16  the bf16-stored-scale forms (cast_scales) of K1 / K2 and
+           K3 on every body that reads a weight scale (the swap-AB body,
+           the GEMM, the fp32 GEMV and tiled GEMM, the FFN's tensor-core
+           body and fp32 GEMVs; K14's full form on a bf16-scale wo) at the
+           7B shapes, int8 and int4, layers 0, 1 and 31: each within TOL
+           of its plain version on the same scales and equal bit for bit
+           to the same body fed scales.float(); device ms in turns (f32,
+           bf16, bf16, f32) beside the f32-scale form on the same weight
+           bytes, bytes and bound with 2-byte scales
+  model_s16    7B int8 logits with bf16-stored scales, kernels against the
+           plain path on the same scales (after the int8 path)
+  model4_s16, serve4_s16, profile4_s16  the same for the int4 params, the
+           int4 server with EngineConfig(scale_dtype="bf16"), and its
+           decode-step profile beside profile4's in the same call
   cli      a small synthetic v2 checkpoint through `python -m
-           rama_tpu_torch.cli generate --device cuda`, and a v0 one with
-           `--quant int4`
+           rama_tpu_torch.cli generate --device cuda`, a v0 one with
+           `--quant int4`, and the v2 one again with `--scale-dtype bf16`
 
-Fourteen main paths, each with the launch counters set to 0 just before it
+Fifteen main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -188,7 +202,9 @@ must have; speculation on the int8
 KV cache (`serve_spec_kv8`), where K10 on the int8 cache, K11, the strip
 writer, matmul, FFN and prefill must have, and the bf16 decode attention
 must not; int4 (`serve4`), where every int4 kernel, the int8 classifier's
-GEMV and both attention kernels must have; the fused attention block
+GEMV and both attention kernels must have; int4 with bf16-stored scales
+(`serve4_s16`), where the same must have and every K1 / K2 / K3 launch
+must read bf16 scales (every other path's, f32 ones); the fused attention block
 under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step), every launch on split tensor-core attention (`[launches]`:
@@ -235,6 +251,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
               "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
               "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
+              "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
               "serve4_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
@@ -276,7 +293,7 @@ PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the
 # kernels it must not launch (their count goes to the record too).
 # `after`: phases run on the path's params once its launches are read
 INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "profile"),
-                 serve={}, after=("profile_prefill",),
+                 serve={}, after=("profile_prefill", "model_s16"),
                  record={"quant_matmul": "launches", "ffn": "launches",
                          "decode_attention": "launches", "prefill_attention": "launches",
                          "quant_matmul_mma": "launches"},
@@ -401,9 +418,22 @@ INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                          "prefill_attention": "launches_int4_path",
                          "quant_matmul_mma": "launches_int4_path"},
                  forbid={})
+# the int4 server with bf16-stored weight scales (EngineConfig.scale_dtype):
+# every K1 / K2 / K3 launch of the path must read bf16 scales (`scales`),
+# and every launch of the other paths f32 ones (check_launches)
+INT4_S16_PATH = dict(label="int4 bf16 scales", bits=4, scales="bf16",
+                     phases=("model4_s16", "serve4_s16", "profile4_s16"),
+                     serve=dict(scale_dtype="bf16"),
+                     record={"quant_matmul_scale_bf16": "launches",
+                             "ffn_scale_bf16": "launches",
+                             **{name: "launches_s16_path" for name in (
+                                 "quant_matmul_int4", "ffn_int4", "quant_matmul",
+                                 "decode_attention", "prefill_attention",
+                                 "quant_matmul_mma")}},
+                     forbid={})
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
-         PREFILL_T1_PATH, INT4_PATH, AB2_INT4_PATH)
+         PREFILL_T1_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH)
 # every path that launches quant_matmul runs its decode-sized products (M
 # <= 32: a step, a verify round, a one-token prefill, the prefill's
 # last-row logits) on the swap-AB body: that count goes to the
@@ -550,7 +580,8 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
     for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body,
-                   da.launches_by_body, pga.launches_by_body, ab.launches_by_body):
+                   da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
+                   qm.launches_by_scale, ffn_mod.launches_by_scale):
         for body in bodies:
             bodies[body] = 0
 
@@ -559,6 +590,9 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
+            # by the weight scales' stored dtype; the bf16-scale forms' records
+            **{f"quant_matmul_scale_{s}": n for s, n in qm.launches_by_scale.items()},
+            **{f"ffn_scale_{s}": n for s, n in ffn_mod.launches_by_scale.items()},
             **{f"ffn_{body}": n for body, n in ffn_mod.launches_by_body.items()},
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "prefill_attention_mma": pa.launches_by_body["mma"],
@@ -586,9 +620,18 @@ def check_launches(path: dict, launches: dict) -> None:
     (K4, K7, K9, K10; K12 on the pools: bf16 at hd 128, and the stories
     draft's 48) took the SIMT body or, over an int8 cache, not the walk
     body (its walk launches must equal the _q8 launches), or on which a
-    launch of the fused
-    attention block (K14, bf16) took its SIMT body, not split tensor-core
-    attention."""
+    launch of the fused attention block (K14, bf16) took its SIMT body, not
+    split tensor-core attention, or on which a quant_matmul or ffn launch
+    read weight scales of another stored dtype than the path's (`scales`:
+    bf16 on the bf16-scale path, f32 on every other)."""
+    want = path.get("scales", "f32")
+    other = "bf16" if want == "f32" else "f32"
+    mixed = {k: launches[f"{k}_scale_{other}"] for k in ("quant_matmul", "ffn")
+             if launches.get(f"{k}_scale_{other}", 0)}
+    if mixed:
+        raise SystemExit(f"FAILED: on the {path['label']} main path {mixed} launches read "
+                         f"{other} weight scales; every K1 / K2 / K3 launch of it must read "
+                         f"{want} ones")
     idle = [k for k in path["record"] if launches[k] == 0]
     if idle:
         raise SystemExit(f"FAILED: {idle} never launched on the {path['label']} main path "
@@ -646,9 +689,11 @@ def final_line(phases, device: dict) -> tuple[dict, int]:
 
 def matmul_bytes(w, m: int) -> float:
     """Bytes one quant_matmul call must move: one layer's weight (1 byte a
-    value for int8, half for int4) and f32 scales, bf16 x (m, K) and y (m, N)."""
+    value for int8, half for int4) and scales (4 bytes each stored in f32,
+    2 in bf16), bf16 x (m, K) and y (m, N)."""
     k, n = w.shape[-2:]
-    return k * n * w.bits / 8 + (k // w.group_size) * n * 4 + m * (k + n) * 2
+    return (k * n * w.bits / 8 + (k // w.group_size) * n * w.scales.element_size()
+            + m * (k + n) * 2)
 
 
 def check_qm(torch, qm, label: str, x, w, layer) -> float:
@@ -1341,6 +1386,269 @@ def phase_kernels_int4(torch, results: dict) -> None:
     for name in ("quant_matmul_int4", "ffn_int4"):
         r = results[name]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def s16_pair(torch, w):
+    """(w with bf16-stored scales by cast_scales, the same weight bytes with
+    those scales as f32): bf16 -> f32 is exact, so a body must give both
+    the same bits."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor, cast_scales
+
+    wb = cast_scales({"w": w}, torch.bfloat16)["w"]
+    return wb, QuantizedTensor(q=wb.q, scales=wb.scales.float(), group_size=wb.group_size,
+                               bits=wb.bits, il=wb.il)
+
+
+def check_s16(torch, label: str, call, plain, bodies: dict, body: str, scales: dict) -> float:
+    """One bf16-scale launch (call("bf16")) on `body` (its count in
+    `bodies`, none on another) counted as a bf16-scale launch (`scales`),
+    (a) within TOL of the plain version on the same bf16 scales per output
+    row, (b) bit for bit the same body fed scales.float() (call("f32")).
+    Returns the max |err|."""
+    before, sb = dict(bodies), dict(scales)
+    got = call("bf16")
+    ran = {b: bodies[b] - before[b] for b in before}
+    if ran != {b: int(b == body) for b in before}:
+        raise SystemExit(f"FAILED {label} bf16 scales: launches by body {ran}, expected one "
+                         f"on {body}")
+    if {s: scales[s] - sb[s] for s in sb} != {"f32": 0, "bf16": 1}:
+        raise SystemExit(f"FAILED {label}: not counted as one bf16-scale launch "
+                         f"{ {s: scales[s] - sb[s] for s in sb} }")
+    err = compare(torch, f"{label} bf16 scales [{body}]", got, plain())
+    same = call("f32")
+    if not torch.equal(got, same):
+        diff = float((got.float() - same.float()).abs().max())
+        raise SystemExit(f"FAILED {label}: the bf16-scale launch differs from the same body "
+                         f"on scales.float() (max |diff| {diff:.3e}); it must equal it bit "
+                         f"for bit")
+    log(f"[check] {label}: bf16-scale launch equals the f32-scale launch bit for bit")
+    return err
+
+
+def s16_turns(torch, fb, ff) -> dict:
+    """Device ms a call of the bf16-scale form (fb) and of the f32-scale form
+    on the same weight bytes (ff), in turns f32, bf16, bf16, f32."""
+    f1, b1, b2, f2 = (device_ms_per_call(torch, fn) for fn in (ff, fb, fb, ff))
+    return dict(device_ms=(b1 + b2) / 2, f32_device_ms=(f1 + f2) / 2,
+                turns_ms=[f1, b1, b2, f2])
+
+
+def phase_kernels_s16(torch, results: dict) -> None:
+    """The bf16-stored-scale forms (cast_scales) of K1 / K2 and K3, every
+    body that reads a weight scale, at the 7B shapes, int8 and int4: each
+    check one launch on the body body_for picks, within TOL of the plain
+    version on the same bf16 scales per output row, and bit for bit the
+    same body fed scales.float() (check_s16). Timed (device ms in turns
+    beside the f32-scale form on the same weight bytes, bytes and bound
+    with 2-byte scales): the swap-AB body at M = 1 / 8 / 16 / 32 on int8
+    wqkv / wo / lm_head and int4 wqkv / wo / w2 gs 16; the GEMM at M = 256
+    / 4096 on wqkv and at 256 on the int4 w2; the FFN's tensor-core body at
+    M = 1 / 8 / 32. Correctness only: the fp32 GEMV and tiled GEMM, the
+    fp32 FFN GEMVs, and K14's full form on a bf16-scale wo (K1's launch)."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import _rope_tables, phase_a_tile
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    dev = torch.device("cuda")
+    cfg = seven_b_config(ModelConfig)
+    g = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    L, D, H, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def rq8(l, k, n, il=0):
+        q = torch.randint(-127, 128, (l, k, n), dtype=torch.int8, device=dev, generator=g)
+        s = (torch.rand((l, k // 64, n), device=dev, generator=g) + 0.5) / (73 * math.sqrt(k))
+        return QuantizedTensor(q=q, scales=s, group_size=64, bits=8, il=il)
+
+    qrec = results.setdefault("quant_matmul_scale_bf16", dict(
+        name="quant_matmul_scale_bf16", route="cuda", source="rama_tpu_torch/csrc/quant_matmul.cu",
+        replaces="rama_tpu/ops/pallas/quant_matmul.py:265", library_ms=None, s16={}))
+    frec = results.setdefault("ffn_scale_bf16", dict(
+        name="ffn_scale_bf16", route="cuda", source="rama_tpu_torch/csrc/ffn.cu",
+        replaces="rama_tpu/ops/pallas/ffn.py:252", library_ms=None, s16={}))
+
+    def qm_check(label, x, wb, wf, layer, body=None):
+        body = body or qm.body_for(x.dtype, x.shape[0])
+        return check_s16(torch, f"quant_matmul {label}",
+                         lambda s: qm.quant_matmul(x, wb if s == "bf16" else wf, layer),
+                         lambda: qm.quant_matmul_plain(x, wb, layer), qm.launches_by_body,
+                         body, qm.launches_by_scale)
+
+    def qm_time(label, x, wb, wf, layered) -> dict:
+        """Check on layer 1 (or the 2-D weight), then time in turns with the
+        layer cycling (a 2-D weight: one layer)."""
+        m, (k, n) = x.shape[0], wb.shape[-2:]
+        err = qm_check(f"{label} M={m}", x, wb, wf, 1 if layered else None)
+        lay = Layered(L)
+
+        def run(w):
+            return lambda: qm.quant_matmul(x, w, lay.next() if layered else None)
+
+        nb = matmul_bytes(wb, m)
+        b_ms, b_by = bound_ms(nb, 2 * m * k * n)
+        rec = dict(m=m, body=qm.body_for(x.dtype, m), max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by, **s16_turns(torch, run(wb), run(wf)))
+        if m == 8:
+            rec["plain_ms"] = time_ms(torch, lambda: qm.quant_matmul_plain(
+                x, wb, lay.next() if layered else None), reps=3, warmup=1)
+        log(f"[time] quant_matmul {label} M={m} [{rec['body']}] bf16 scales: device "
+            f"{rec['device_ms']:.4f} ms against {rec['f32_device_ms']:.4f} with f32 scales "
+            f"(turns {', '.join(f'{t:.4f}' for t in rec['turns_ms'])}); "
+            f"{nb / 1e6:.1f} MB ({matmul_bytes(wf, m) / 1e6:.1f} with f32 scales), bound "
+            f"{b_ms:.4f} ms ({b_by}, {rec['device_ms'] / b_ms:.2f}x)")
+        return rec
+
+    def qm_headline(w, label):
+        """The record's headline numbers at M = 8 (x (8, K), layer 1)."""
+        wb, _ = w
+        x8 = rx(8, wb.k_dim)
+        lay = Layered(L)
+        ms = time_ms(torch, lambda: qm.quant_matmul(x8, wb, lay.next()))
+        head = qrec["s16"][label]["8"]
+        qrec.update(max_abs_err=head["max_abs_err"], ms=ms, plain_ms=head["plain_ms"],
+                    bound_ms=head["bound_ms"], bound_by=head["bound_by"], device_ms=head[
+                        "device_ms"], f32_device_ms=head["f32_device_ms"],
+                    shape=f"x (8, 4096) bf16 @ {label}[l], bf16 scales")
+
+    # -- K1 / K2 int8: swap-AB body, GEMM, fp32 bodies ------------------------
+    for label, w, layered in (("int8 wqkv", rq8(L, D, 3 * D), True),
+                              ("int8 wo", rq8(L, D, D), True),
+                              ("int8 lm_head", rq8(1, D, V), False)):
+        wb, wf = s16_pair(torch, w)
+        if not layered:
+            wb, wf = (QuantizedTensor(q=t.q[0].contiguous(), scales=t.scales[0].contiguous(),
+                                      group_size=64) for t in (wb, wf))
+        qrec["s16"][label] = {str(m): qm_time(label, rx(m, D), wb, wf, layered)
+                              for m in (1, 8, 16, 32)}
+        if label == "int8 wqkv":
+            for m in (256, 4096):
+                qrec["s16"][f"{label} M={m}"] = qm_time(label, rx(m, D), wb, wf, True)
+            for m, body in ((1, "gemv"), (8, "gemv"), (9, "simt"), (64, "simt")):
+                qm_check(f"{label} M={m} fp32", rx(m, D, dtype=f32), wb, wf, L - 1, body)
+            for m in (1, 32, 256):
+                qm_check(f"{label} M={m} layer 0", rx(m, D), wb, wf, 0)
+        del w, wb, wf
+    torch.cuda.empty_cache()
+
+    # -- K1' / K2' int4 -------------------------------------------------------
+    w4 = {"int4 wqkv": random_int4_qt(torch, L, D, 3 * D, 64, dev, g),
+          "int4 wo": random_int4_qt(torch, L, D, D, 64, dev, g),
+          "int4 w2 gs 16": random_int4_qt(torch, L, H, D, 64, dev, g)}
+    pairs4 = {}
+    for label, w in w4.items():
+        wb, wf = pairs4[label] = s16_pair(torch, w)
+        k = wb.k_dim
+        qrec["s16"][label] = {str(m): qm_time(label, rx(m, k), wb, wf, True)
+                              for m in (1, 8, 16, 32)}
+        if label != "int4 wo":
+            for m in ((256, 4096) if label == "int4 wqkv" else (256,)):
+                qrec["s16"][f"{label} M={m}"] = qm_time(label, rx(m, k), wb, wf, True)
+            for m, body in ((8, "gemv"), (64, "simt")):
+                qm_check(f"{label} M={m} fp32", rx(m, k, dtype=f32), wb, wf, L - 1, body)
+    qm_headline(pairs4["int4 wqkv"], "int4 wqkv")
+    wo4b, wo4f = pairs4["int4 wo"]
+    del w4, pairs4
+    torch.cuda.empty_cache()
+
+    # -- K14 full form on a bf16-scale wo (K1's launch on att) ------------------
+    wo8b, wo8f = s16_pair(torch, rq8(2, D, D))
+    B, nkv, hd, S = 8, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
+    pos = torch.tensor([0, 63, 64, 65, 511, 1000, S - 1, S + 3], dtype=torch.int32, device=dev)
+    cos_t, sin_t = _rope_tables(cfg, dev)
+    cos, sin = cos_t[pos.long().clamp(0, S - 1)], sin_t[pos.long().clamp(0, S - 1)]
+    q, kn, vn = rx(B, cfg.n_heads, hd), rx(B, nkv, hd), rx(B, nkv, hd)
+    base = [rx(2, B, nkv, S, hd), rx(2, B, nkv, S, hd)]
+    for wo_b, wo_f, bits in ((wo8b, wo8f, 8),
+                             (QuantizedTensor(q=wo4b.q[:2], scales=wo4b.scales[:2],
+                                              group_size=64, bits=4),
+                              QuantizedTensor(q=wo4f.q[:2], scales=wo4f.scales[:2],
+                                              group_size=64, bits=4), 4)):
+        def full(s, plain=False, wo_b=wo_b, wo_f=wo_f):
+            fn = ab.attn_block_layered_plain if plain else ab.attn_block_layered
+            c = [t.clone() for t in base]
+            return fn(q, kn, vn, cos, sin, *c, wo_b if s == "bf16" else wo_f, pos, 1)
+
+        check_s16(torch, f"attn_block_layered int{bits} wo B=8 S=1024 pos={pos.tolist()}",
+                  full, lambda: full("bf16", plain=True), qm.launches_by_body, "mmv",
+                  qm.launches_by_scale)
+    del base, wo8b, wo8f, wo4b, wo4f
+    torch.cuda.empty_cache()
+
+    # -- K3 / K3': the tensor-core body (timed) and the fp32 GEMVs ---------------
+    for bits in (8, 4):
+        gs2 = 64 if bits == 8 else 16
+        il = phase_a_tile(H, bits, gs2) or 0
+        if bits == 8:
+            w13, w2 = rq8(L, D, 2 * H, il=il), rq8(L, H, D)
+        else:
+            w13 = random_int4_qt(torch, L, D, 2 * H, 64, dev, g, il=il)
+            w2 = random_int4_qt(torch, L, H, D, 64, dev, g)
+        (b13, f13), (b2, f2) = s16_pair(torch, w13), s16_pair(torch, w2)
+        del w13, w2
+        by_m = {}
+        for m in (1, 8, ffn_mod.FFN_MAX_M):
+            x = rx(m, D)
+            err = check_s16(torch, f"ffn int{bits} M={m} layer=1",
+                            lambda s: ffn_mod.ffn(x, *((b13, b2) if s == "bf16" else
+                                                       (f13, f2)), 1),
+                            lambda: ffn_mod.ffn_plain(x, b13, b2, 1), ffn_mod.launches_by_body,
+                            "mma", ffn_mod.launches_by_scale)
+            lay = Layered(L)
+
+            def run(w13_, w2_):
+                return lambda: ffn_mod.ffn(x, w13_, w2_, lay.next())
+
+            nb = ffn_bytes(b13, b2, m)
+            b_ms, b_by = bound_ms(nb, 2 * m * (D * 2 * H + H * D))
+            rec = dict(m=m, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                       **s16_turns(torch, run(b13, b2), run(f13, f2)))
+            if m == 8:
+                rec["plain_ms"] = time_ms(torch, lambda: ffn_mod.ffn_plain(x, b13, b2,
+                                                                           lay.next()),
+                                          reps=3, warmup=1)
+            log(f"[time] ffn int{bits} M={m} [mma] bf16 scales: device {rec['device_ms']:.4f} "
+                f"ms against {rec['f32_device_ms']:.4f} with f32 scales (turns "
+                f"{', '.join(f'{t:.4f}' for t in rec['turns_ms'])}); {nb / 1e6:.1f} MB "
+                f"({ffn_bytes(f13, f2, m) / 1e6:.1f} with f32 scales), bound "
+                f"{b_ms:.4f} ms ({b_by}, {rec['device_ms'] / b_ms:.2f}x)")
+            by_m[str(m)] = rec
+        frec["s16"][f"int{bits}"] = by_m
+        for m in (1, 8):
+            x = rx(m, D, dtype=f32)
+            check_s16(torch, f"ffn int{bits} M={m} fp32 layer={L - 1}",
+                      lambda s: ffn_mod.ffn(x, *((b13, b2) if s == "bf16" else (f13, f2)),
+                                            L - 1),
+                      lambda: ffn_mod.ffn_plain(x, b13, b2, L - 1), ffn_mod.launches_by_body,
+                      "simt", ffn_mod.launches_by_scale)
+        x0 = rx(8, D)
+        check_s16(torch, f"ffn int{bits} M=8 layer=0",
+                  lambda s: ffn_mod.ffn(x0, *((b13, b2) if s == "bf16" else (f13, f2)), 0),
+                  lambda: ffn_mod.ffn_plain(x0, b13, b2, 0), ffn_mod.launches_by_body, "mma",
+                  ffn_mod.launches_by_scale)
+        if bits == 4:
+            x8 = rx(8, D)
+            lay = Layered(L)
+            head = by_m["8"]
+            frec.update(max_abs_err=head["max_abs_err"],
+                        ms=time_ms(torch, lambda: ffn_mod.ffn(x8, b13, b2, lay.next())),
+                        plain_ms=head["plain_ms"],
+                        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                        device_ms=head["device_ms"], f32_device_ms=head["f32_device_ms"],
+                        shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) int4 gs 64 il={il}, "
+                              f"w2[l] (11008, 4096) int4 gs 16, bf16 scales")
+        del b13, f13, b2, f2
+        torch.cuda.empty_cache()
+    for name in ("quant_matmul_scale_bf16", "ffn_scale_bf16"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f} against "
+            f"{r['f32_device_ms']:.4f} with f32 scales), plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
@@ -2649,11 +2957,12 @@ def phase_kernels_attn(torch, results: dict) -> None:
         f"{json.dumps(r['breakdown'])}")
 
 
-def phase_model(torch, cfg, params, label: str = "int8") -> None:
-    """Kernel-path logits vs the plain path on a prompt prefill + 2 steps."""
+def phase_model(torch, cfg, params, label: str = "int8", dev=None) -> None:
+    """Kernel-path logits vs the plain path on a prompt prefill + 2 steps
+    (on `dev`, the card unless a test passes the CPU)."""
     from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
 
-    dev = torch.device("cuda")
+    dev = dev or torch.device("cuda")
     toks = torch.tensor([[1, 9038, 2501, 263, 931, 29892, 727, 471]], device=dev)
     caches = [KVCache.create(cfg, 1, 64, device=dev) for _ in range(2)]
     with torch.no_grad():
@@ -2973,14 +3282,16 @@ def cache_bytes(cache) -> int:
 
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
-                spec_tick: int = 0, paged: bool = False) -> dict:
+                spec_tick: int = 0, paged: bool = False,
+                scale_dtype: str | None = None) -> dict:
     """The server around an 8-slot engine: 8 concurrent /gen of 32 tokens
     (greedy and sampled), every stream must end and /metrics count every
     token. With spec_tick, n-gram speculation that never goes dormant
     (spec_min_accept 0), so every tick is a spec tick, and the accept rate
     must be a number. Paged: a pool of PAGED_NUM_PAGES pages of PAGE_SIZE
-    rows, every page free again after the run. Returns tok/s, TTFT p50 /
-    max and the accept rate."""
+    rows, every page free again after the run. scale_dtype "bf16": the
+    engine stores every quantized leaf's scales in bf16 (checked). Returns
+    tok/s, TTFT p50 / max and the accept rate."""
     import aiohttp
     from aiohttp import web
 
@@ -2994,7 +3305,13 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                     EngineConfig(max_batch_size=8, max_seq_len=max_seq_len, decode_tick=8,
                                  kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
                                  spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
-                                 kv_num_pages=PAGED_NUM_PAGES if paged else None))
+                                 kv_num_pages=PAGED_NUM_PAGES if paged else None,
+                                 scale_dtype=scale_dtype))
+    stored = {getattr(p, "scales", None) is not None and p.scales.dtype
+              for p in engine.params.values()} - {False}
+    if stored != {torch.bfloat16 if scale_dtype == "bf16" else torch.float32}:
+        raise SystemExit(f"FAILED {tag}: scale_dtype={scale_dtype} serves weight scales "
+                         f"stored as {stored}")
     want = ((QuantPagedKVCache if kv_quant == "int8" else PagedKVCache) if paged
             else (QuantKVCache if kv_quant == "int8" else KVCache))
     if type(engine.cache) is not want:
@@ -3080,6 +3397,16 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     return summary
 
 
+def step_weight_bytes(params) -> float:
+    """Bytes of weights and scales one decode step streams: every layer of
+    the quantized matrices and the classifier, each value and scale read
+    once (4 bytes a scale stored in f32, 2 in bf16); the embedding, one row
+    a token, is left out."""
+    return sum(p.q.numel() * p.q.element_size() + p.scales.numel() * p.scales.element_size()
+               for name, p in params.items()
+               if name != "tok_embedding" and hasattr(p, "scales"))
+
+
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
                   start: int = 64, chunk: int = 1, tables=None) -> dict:
     """torch.profiler over 8 decode steps at 8 slots (positions start ..
@@ -3089,9 +3416,11 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
     wall), K3's and K1's device time and share of it, the attention's
-    device time (split kernel and combine). Returns device_ms, host_ms
-    (profiler off), host_ms_profiled, busy (the device busy share), k3_ms,
-    k1_ms, attn_ms and attn_split_ms per step, k3_share and k1_share."""
+    device time (split kernel and combine), and the step's weight and
+    scale bytes with their byte bound (step_weight_bytes). Returns
+    device_ms, host_ms (profiler off), host_ms_profiled, busy (the device
+    busy share), k3_ms, k1_ms, attn_ms and attn_split_ms per step, k3_share,
+    k1_share and weight_gb."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -3143,6 +3472,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     attn_us = sum(r[0] for r in rows if "dattn_" in r[1])
     split_us = sum(r[0] for r in rows if any(k in r[1] for k in ATTN_SPLIT_KERNELS))
     what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
+    wbytes = step_weight_bytes(params)
+    log(f"[{tag}] weights and scales a step {wbytes / 1e9:.3f} GB: byte bound "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
         f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
@@ -3160,7 +3492,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
                 host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall,
                 k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9),
                 k1_ms=k1_us / 8 / 1e3, k1_share=k1_us / max(busy_us, 1e-9),
-                attn_ms=attn_us / 8 / 1e3, attn_split_ms=split_us / 8 / 1e3)
+                attn_ms=attn_us / 8 / 1e3, attn_split_ms=split_us / 8 / 1e3,
+                weight_gb=wbytes / 1e9)
 
 
 def profile_prefill(torch, cfg, params) -> dict:
@@ -3404,7 +3737,8 @@ def profile_ab(torch, cfg, params) -> dict:
 
 def phase_cli(torch) -> None:
     """The CLI on a synthetic stories15M-shaped checkpoint: a v2 file (int8
-    as stored) and a v0 file quantized to int4 at load."""
+    as stored), a v0 file quantized to int4 at load, and the v2 file with
+    its scales stored in bf16 (--scale-dtype bf16)."""
     from rama_tpu_torch.checkpoint import save_v0, save_v2
     from rama_tpu_torch.config import ModelConfig
 
@@ -3424,16 +3758,16 @@ def phase_cli(torch) -> None:
         v2, v0 = os.path.join(d, "synthetic_v2.bin"), os.path.join(d, "synthetic_v0.bin")
         save_v2(v2, cfg, p, group_size=64)
         save_v0(v0, cfg, p)
-        for path, quant in ((v2, "auto"), (v0, "int4")):
+        for path, flags in ((v2, ["--quant", "auto"]), (v0, ["--quant", "int4"]),
+                            (v2, ["--quant", "auto", "--scale-dtype", "bf16"])):
             cmd = [sys.executable, "-m", "rama_tpu_torch.cli", "generate", "-m", path,
                    "-t", str(ROOT / "tests" / "fixtures" / "tokenizer.bin"), "-p",
-                   "Once upon a time", "-s", "32", "-r", "0", "--quant", quant,
-                   "--device", "cuda"]
+                   "Once upon a time", "-s", "32", "-r", "0", *flags, "--device", "cuda"]
             out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
-            log(f"[cli] --quant {quant} rc {out.returncode}; stderr tail: "
+            log(f"[cli] {' '.join(flags)} rc {out.returncode}; stderr tail: "
                 f"{out.stderr.strip()[-300:]}")
             if out.returncode != 0:
-                raise SystemExit(f"FAILED cli --quant {quant}: {out.stderr[-2000:]}")
+                raise SystemExit(f"FAILED cli {' '.join(flags)}: {out.stderr[-2000:]}")
 
 
 def main() -> int:
@@ -3460,6 +3794,7 @@ def main() -> int:
     from rama_tpu_torch.ops.kernels import paged_attention as pga
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
     from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import cast_scales
     from rama_tpu_torch.tokenizer import Tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3475,7 +3810,7 @@ def main() -> int:
     for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
                         ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec),
                         ("kernels_paged", phase_kernels_paged),
-                        ("kernels_attn", phase_kernels_attn)):
+                        ("kernels_attn", phase_kernels_attn), ("kernels_s16", phase_kernels_s16)):
         if name in phases:
             phase(torch, results)
             torch.cuda.empty_cache()
@@ -3485,6 +3820,7 @@ def main() -> int:
     dev = torch.device("cuda")
     params, params_bits = None, None
     serving: dict = {}
+    profiles: dict = {}
     for path in PATHS:
         if not (set(path["phases"]) | set(path.get("after", ()))) & set(phases):
             continue
@@ -3509,6 +3845,8 @@ def main() -> int:
             del long
         elif model == "model_attn" and model in phases:
             phase_model_attn(torch, cfg, params, bits)
+        elif model == "model4_s16" and model in phases:
+            phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
         elif model in phases:
             phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
@@ -3528,7 +3866,7 @@ def main() -> int:
                                     ("serve_spec_paged", "serve_spec"),
                                     ("serve_spec_paged_kv8", "serve_spec_kv8"),
                                     ("serve_ab1", "serve"), ("serve_ab2", "serve"),
-                                    ("serve4_ab2", "serve4")):
+                                    ("serve4_s16", "serve4"), ("serve4_ab2", "serve4")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -3574,8 +3912,14 @@ def main() -> int:
                 del cache
                 torch.cuda.empty_cache()
             del long
+        elif profile == "profile4_s16" and profile in phases:
+            profiles[profile] = phase_profile(torch, cfg, cast_scales(params), tag=profile)
+            log(f"[{profile}] against profile4 in this run: "
+                f"{json.dumps({k: profiles.get(k) for k in ('profile4_s16', 'profile4')})}")
         elif profile in phases:
-            phase_profile(torch, cfg, params, tag=profile)
+            profiles[profile] = phase_profile(torch, cfg, params, tag=profile)
+        if "model_s16" in path.get("after", ()) and "model_s16" in phases:
+            phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
         if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
             torch.cuda.empty_cache()
             admission = profile_prefill(torch, cfg, params)
@@ -3599,7 +3943,8 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path", "launches_by_body", "gemm", "by_m", "mmv")
+            "launches_ab2_int4_path", "launches_s16_path", "launches_by_body", "gemm", "by_m",
+            "mmv", "device_ms", "f32_device_ms", "s16")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

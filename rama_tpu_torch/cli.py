@@ -9,8 +9,10 @@ default; it raises without a GPU unless `--device cpu` is given), prints
 the text and a tok/s line computed the reference way: (steps - 1) / elapsed
 (engine/src/main.rs:100-103). `--spec ngram|draft` (with `--spec-k` and
 `--draft-model`) generates speculatively and prints a `[spec]` line of
-rounds and accepted drafts first. Flags of features not ported yet exit
-with status 2 and name the ROADMAP item.
+rounds and accepted drafts first. `--scale-dtype bf16` stores the
+quantized weights' scales in bf16 after fusing (`cast_scales`), as
+rama_tpu/cli.py:124 does. Flags of features not ported yet exit with
+status 2 and name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weight-only quantization: 'auto' keeps v2 files "
                         "quantized and loads v0/v1 dense; int8 / int4 quantize "
                         "any input at load")
-    g.add_argument("--scale-dtype", default=None, choices=["bf16"])
+    g.add_argument("--scale-dtype", default=None, choices=["bf16"],
+                   help="store weight-quant scales in bf16 (fewer weight bytes a "
+                        "step for <=2^-9 scale rounding)")
     g.add_argument("--parity", action="store_true",
                    help="token-at-a-time loop (reference semantics) instead of "
                         "the prefill+decode fast path")
@@ -60,8 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """The ROADMAP item a flag asks for that this port does not have yet."""
-    if args.scale_dtype:
-        return "--scale-dtype: bf16-stored weight scales"
     if args.mode == "chat":
         return "-o chat: the chat loop (chat.py)"
     return None
@@ -95,6 +97,7 @@ def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
 
 
 def cmd_generate(args) -> int:
+    from rama_tpu_torch.ops.quant import cast_scales
     from rama_tpu_torch.runtime.generate import generate_text
     from rama_tpu_torch.runtime.speculative import generate_text_speculative
     from rama_tpu_torch.tokenizer import Tokenizer
@@ -108,6 +111,8 @@ def cmd_generate(args) -> int:
         print("--spec draft requires --draft-model", file=sys.stderr)
         return 2
     cfg, params, dtype = load_model(args.model, args.quant, args.dtype, args.device)
+    if args.scale_dtype:
+        params = cast_scales(params, torch.bfloat16)
     tokenizer = Tokenizer.from_file(args.tokenizer, cfg.vocab_size)
     draft = None
     if args.spec == "draft":

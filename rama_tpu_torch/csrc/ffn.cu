@@ -2,16 +2,21 @@
 // 32 rows), int8 or packed int4 weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
 //
 // Replaces rama_tpu/ops/pallas/ffn.py: ffn_fused_layered (_kernel, its int8
-// and int4 branches). The Pallas kernel keeps the hidden activation h in
-// VMEM between its two phases inside one call; here the two phases are two
-// launches on one stream, and h (M, H) goes through device memory in x's
-// dtype (bf16 on the serving path: 22 KB a row at 7B, rounded where
-// ffn.py:170 rounds; 0.25 % of the bytes at M = 8).
+// and int4 branches), with f32 or bf16-stored scales (the Pallas kernel
+// upcasts them in VMEM, ffn.py:89, :108): every body is instantiated for
+// both scale types S, reads a scale as f32, and plans its splits from the
+// shapes alone, so a bf16-scale launch equals the same body fed
+// scales.float() bit for bit. The Pallas kernel keeps the hidden
+// activation h in VMEM between its two phases inside one call; here the
+// two phases are two launches on one stream, and h (M, H) goes through
+// device memory in x's dtype (bf16 on the serving path: 22 KB a row at 7B,
+// rounded where ffn.py:170 rounds; 0.25 % of the bytes at M = 8).
 //
 // Bound on the H100: bytes, at every M it serves. At 7B one call streams
 // w13 (4096 x 22016 int8 + f32 scales, 95.6 MB) and w2 (11008 x 4096, 47.9
 // MB): 143.5 MB, 43 us at 3.35 TB/s; int4 (w13 gs 64, w2 gs 16) 84.5 MB, 25
-// us. At M = 32 the 8.7 GFLOP take 9 us of the tensor cores' 989 TFLOP/s.
+// us (bf16 scales: 139.3 MB, 42 us; int4 76.0 MB, 23 us). At M = 32 the
+// 8.7 GFLOP take 9 us of the tensor cores' 989 TFLOP/s.
 //
 // Two bodies, fixed by the activation dtype before the launch:
 //
@@ -62,16 +67,14 @@ __device__ __forceinline__ void load8_i8(const int8_t* __restrict__ p, bool vec,
   }
 }
 
-__device__ __forceinline__ void load8_f32(const float* __restrict__ p, bool vec, int valid,
-                                          float* w) {
+// 8 scales (f32 or bf16) at p as f32 (zeros past valid).
+template <typename S>
+__device__ __forceinline__ void load8_s(const S* __restrict__ p, bool vec, int valid, float* w) {
   if (vec && valid == 8) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    load8(p, w);
   } else {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) w[c] = c < valid ? p[c] : 0.f;
+    for (int c = 0; c < 8; ++c) w[c] = c < valid ? to_f(p[c]) : 0.f;
   }
 }
 
@@ -93,10 +96,10 @@ __device__ __forceinline__ void load8_i4(const int8_t* __restrict__ p, bool vec,
 
 // grid (ceil(H/256), ks, ceil(M/MT)), block (32, 8). Lane tx of the CTA
 // owns hidden units j0 .. j0+7 with j0 = (blockIdx.x * 32 + tx) * 8.
-template <typename T, int MT, int BITS>
+template <typename T, int MT, int BITS, typename S>
 __global__ void __launch_bounds__(kFfnLanes * kFfnWarps)
 ffn_w13_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-               const float* __restrict__ s, T* __restrict__ h,
+               const S* __restrict__ s, T* __restrict__ h,
                float* __restrict__ part, unsigned* __restrict__ tickets,
                int M, int K, int H, int gs, int il, int blocks_per_split) {
   extern __shared__ float smem[];
@@ -136,16 +139,16 @@ ffn_w13_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   // W1 / W3 scales of scale row g at this lane's 8 units
   auto load_scales = [&](int g, float* s1, float* s3) {
     if (valid > 0 && vec) {
-      load8_f32(s + (size_t)g * N + c1, true, valid, s1);
-      load8_f32(s + (size_t)g * N + c3, true, valid, s3);
+      load8_s(s + (size_t)g * N + c1, true, valid, s1);
+      load8_s(s + (size_t)g * N + c3, true, valid, s3);
     } else {
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const bool ok = u < valid;
         const int cc1 = ok ? w1_col(j0 + u, H, il) : 0;
         const int cc3 = cc1 + (il ? il : H);
-        s1[u] = ok ? s[(size_t)g * N + cc1] : 0.f;
-        s3[u] = ok ? s[(size_t)g * N + cc3] : 0.f;
+        s1[u] = ok ? to_f(s[(size_t)g * N + cc1]) : 0.f;
+        s3[u] = ok ? to_f(s[(size_t)g * N + cc3]) : 0.f;
       }
     }
   };
@@ -292,7 +295,7 @@ ffn_w13_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   if (tid == 0) *ticket = 0u;
 }
 
-template <typename T, int MT, int BITS>
+template <typename T, int MT, int BITS, typename S>
 cudaError_t launch_w13_mt(const void* x, const void* q, const void* s, void* h, void* part,
                           void* tickets, int M, int K, int H, int gs, int il, int ks,
                           int bps, cudaStream_t stream) {
@@ -301,7 +304,7 @@ cudaError_t launch_w13_mt(const void* x, const void* q, const void* s, void* h, 
   const size_t xs_floats = (size_t)MT * bps * qmv_block_rows<BITS>(gs);
   const size_t red_floats = (size_t)kFfnWarps * 2 * kFfnUnits;
   const size_t smem = sizeof(float) * (xs_floats > red_floats ? xs_floats : red_floats);
-  auto kern = ffn_w13_kernel<T, MT, BITS>;
+  auto kern = ffn_w13_kernel<T, MT, BITS, S>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -309,30 +312,33 @@ cudaError_t launch_w13_mt(const void* x, const void* q, const void* s, void* h, 
   }
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<T*>(h), static_cast<float*>(part),
+      static_cast<const S*>(s), static_cast<T*>(h), static_cast<float*>(part),
       static_cast<unsigned*>(tickets), M, K, H, gs, il, bps);
   return cudaGetLastError();
 }
 
-template <typename T, int BITS>
+template <typename T, int BITS, typename S>
 cudaError_t launch_w13(const void* x, const void* q, const void* s, void* h, void* part,
                        void* tickets, int M, int K, int H, int gs, int il, int ks, int bps,
                        cudaStream_t stream) {
-  if (M <= 1) return launch_w13_mt<T, 1, BITS>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
-  if (M <= 2) return launch_w13_mt<T, 2, BITS>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
-  if (M <= 4) return launch_w13_mt<T, 4, BITS>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
-  return launch_w13_mt<T, 8, BITS>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+  if (M <= 1) return launch_w13_mt<T, 1, BITS, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+  if (M <= 2) return launch_w13_mt<T, 2, BITS, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+  if (M <= 4) return launch_w13_mt<T, 4, BITS, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+  return launch_w13_mt<T, 8, BITS, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
 }
 
 template <typename T>
-cudaError_t launch_w13_bits(int bits, const void* x, const void* q, const void* s, void* h,
-                            void* part, void* tickets, int M, int K, int H, int gs, int il,
-                            int ks, int bps, cudaStream_t stream) {
-  if (bits == 8)
-    return launch_w13<T, 8>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
-  if (bits == 4)
-    return launch_w13<T, 4>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_w13_bits(int bits, int sdt, const void* x, const void* q, const void* s,
+                            void* h, void* part, void* tickets, int M, int K, int H, int gs,
+                            int il, int ks, int bps, cudaStream_t stream) {
+  return with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8)
+      return launch_w13<T, 8, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+    if (bits == 4)
+      return launch_w13<T, 4, S>(x, q, s, h, part, tickets, M, K, H, gs, il, ks, bps, stream);
+    return cudaErrorInvalidValue;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -366,10 +372,10 @@ struct ColsW13 {
 // h, nout = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1)
 // sps) of the ceil(K / 64); `part` an fp32 (ks, M, tiles * 256) workspace
 // when ks > 1, `tickets` one zeroed counter per column tile.
-template <int NT, int BITS, bool VEC, bool PHASE_A>
+template <int NT, int BITS, bool VEC, bool PHASE_A, typename S>
 __global__ void __launch_bounds__(kFfnMmaThreads, kFfnCtas)
 ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-        const float* __restrict__ s, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+        const S* __restrict__ s, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
         unsigned* __restrict__ tickets, int M, int K, int ncols, int nout, int gs, int il,
         int slabs_per_split) {
   constexpr int T = kFfnMmaThreads, LDC = Swab<kFfnBN>::kLdc;
@@ -402,78 +408,81 @@ ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <int NT, int BITS, bool VEC, bool PHASE_A>
+template <int NT, int BITS, bool VEC, bool PHASE_A, typename S>
 cudaError_t launch_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
                            void* tickets, int M, int K, int ncols, int nout, int gs, int il,
                            int tiles, int ks, int sps, cudaStream_t stream) {
   constexpr size_t smem = swab_smem_bytes<NT, BITS, kFfnBN>();
-  auto kern = ffn_mma<NT, BITS, VEC, PHASE_A>;
+  auto kern = ffn_mma<NT, BITS, VEC, PHASE_A, S>;
   static SmemOptIn opt_in;   // one attribute call an instantiation and device
   const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3(tiles, ks), kFfnMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<const S*>(s), static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
       static_cast<unsigned*>(tickets), M, K, ncols, nout, gs, il, sps);
   return cudaGetLastError();
 }
 
-template <int BITS, bool VEC, bool PHASE_A>
+template <int BITS, bool VEC, bool PHASE_A, typename S>
 cudaError_t launch_ffn_mma_nt(const void* x, const void* q, const void* s, void* out, void* part,
                               void* tickets, int M, int K, int ncols, int nout, int gs, int il,
                               int tiles, int ks, int sps, cudaStream_t st) {
   if (M <= 8)
-    return launch_ffn_mma<1, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
-                                                 gs, il, tiles, ks, sps, st);
+    return launch_ffn_mma<1, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                    nout, gs, il, tiles, ks, sps, st);
   if (M <= 16)
-    return launch_ffn_mma<2, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
-                                                 gs, il, tiles, ks, sps, st);
+    return launch_ffn_mma<2, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                    nout, gs, il, tiles, ks, sps, st);
   if (M <= 32)
-    return launch_ffn_mma<4, BITS, VEC, PHASE_A>(x, q, s, out, part, tickets, M, K, ncols, nout,
-                                                 gs, il, tiles, ks, sps, st);
+    return launch_ffn_mma<4, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                    nout, gs, il, tiles, ks, sps, st);
   return cudaErrorInvalidValue;
 }
 
-template <int BITS>
+template <int BITS, typename S>
 cudaError_t launch_ffn_mma_bits(bool vec, bool phase_a, const void* x, const void* q,
                                 const void* s, void* out, void* part, void* tickets, int M, int K,
                                 int ncols, int nout, int gs, int il, int tiles, int ks, int sps,
                                 cudaStream_t st) {
   if (phase_a)
-    return vec ? launch_ffn_mma_nt<BITS, true, true>(x, q, s, out, part, tickets, M, K, ncols,
-                                                     nout, gs, il, tiles, ks, sps, st)
-               : launch_ffn_mma_nt<BITS, false, true>(x, q, s, out, part, tickets, M, K, ncols,
-                                                      nout, gs, il, tiles, ks, sps, st);
-  return vec ? launch_ffn_mma_nt<BITS, true, false>(x, q, s, out, part, tickets, M, K, ncols,
-                                                    nout, gs, il, tiles, ks, sps, st)
-             : launch_ffn_mma_nt<BITS, false, false>(x, q, s, out, part, tickets, M, K, ncols,
-                                                     nout, gs, il, tiles, ks, sps, st);
+    return vec ? launch_ffn_mma_nt<BITS, true, true, S>(x, q, s, out, part, tickets, M, K,
+                                                        ncols, nout, gs, il, tiles, ks, sps, st)
+               : launch_ffn_mma_nt<BITS, false, true, S>(x, q, s, out, part, tickets, M, K,
+                                                         ncols, nout, gs, il, tiles, ks, sps, st);
+  return vec ? launch_ffn_mma_nt<BITS, true, false, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                       nout, gs, il, tiles, ks, sps, st)
+             : launch_ffn_mma_nt<BITS, false, false, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                        nout, gs, il, tiles, ks, sps, st);
 }
 
 }  // namespace rama
 
+// Every entry takes the scales' dtype `sdt` (a DType code: f32 or bf16;
+// common.cuh) beside the activations'.
 // The simt body. Phase 1: h = silu(x @ W1) * (x @ W3). Phase 2 (rama_ffn_w2)
 // is the qmv GEMV over h. The wrapper launches both on one stream. `bits` 8 or 4
 // per weight; `bps` K blocks per split (scale groups for int8, packing
 // blocks for int4).
 extern "C" int rama_ffn_w13(const void* x, const void* q13, const void* s13, void* h,
                             void* part, void* tickets, int M, int K, int H, int gs,
-                            int il, int ks, int bps, int bits, int dtype, void* stream) {
+                            int il, int ks, int bps, int bits, int dtype, int sdt,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_w13_bits<__nv_bfloat16>(
-        bits, x, q13, s13, h, part, tickets, M, K, H, gs, il, ks, bps, st));
+        bits, sdt, x, q13, s13, h, part, tickets, M, K, H, gs, il, ks, bps, st));
   if (dtype == rama::kF32)
     return static_cast<int>(rama::launch_w13_bits<float>(
-        bits, x, q13, s13, h, part, tickets, M, K, H, gs, il, ks, bps, st));
+        bits, sdt, x, q13, s13, h, part, tickets, M, K, H, gs, il, ks, bps, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int rama_ffn_w2(const void* h, const void* q2, const void* s2, void* y,
                            void* part, void* tickets, int M, int H, int N, int gs, int ks,
-                           int bps, int bits, int dtype, void* stream) {
-  return static_cast<int>(rama::launch_qmv_dtype(bits, dtype, h, q2, s2, y, part, tickets, M,
-                                                 H, N, gs, ks, bps,
+                           int bps, int bits, int dtype, int sdt, void* stream) {
+  return static_cast<int>(rama::launch_qmv_dtype(bits, dtype, sdt, h, q2, s2, y, part, tickets,
+                                                 M, H, N, gs, ks, bps,
                                                  static_cast<cudaStream_t>(stream)));
 }
 
@@ -488,16 +497,17 @@ extern "C" int rama_ffn_w2(const void* h, const void* q2, const void* s2, void* 
 // multiple of, a slab's 64 weight rows (int4: 32 byte rows). M <= 32.
 extern "C" int rama_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
                             void* tickets, int M, int K, int ncols, int nout, int gs, int il,
-                            int bits, int phase_a, int tiles, int ks, int sps, int vec,
+                            int bits, int phase_a, int tiles, int ks, int sps, int vec, int sdt,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    return static_cast<int>(rama::launch_ffn_mma_bits<8>(vec != 0, phase_a != 0, x, q, s, out,
-                                                         part, tickets, M, K, ncols, nout, gs,
-                                                         il, tiles, ks, sps, st));
-  if (bits == 4)
-    return static_cast<int>(rama::launch_ffn_mma_bits<4>(vec != 0, phase_a != 0, x, q, s, out,
-                                                         part, tickets, M, K, ncols, nout, gs,
-                                                         il, tiles, ks, sps, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8)
+      return rama::launch_ffn_mma_bits<8, S>(vec != 0, phase_a != 0, x, q, s, out, part, tickets,
+                                             M, K, ncols, nout, gs, il, tiles, ks, sps, st);
+    if (bits == 4)
+      return rama::launch_ffn_mma_bits<4, S>(vec != 0, phase_a != 0, x, q, s, out, part, tickets,
+                                             M, K, ncols, nout, gs, il, tiles, ks, sps, st);
+    return cudaErrorInvalidValue;
+  }));
 }

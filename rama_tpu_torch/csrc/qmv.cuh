@@ -2,8 +2,8 @@
 // shared by quant_matmul.cu (wqkv, wo, lm_head) and ffn.cu (the w2 half of
 // the FFN).
 //
-// y (M, N) = x (M, K) @ dequant(q, s (K/gs, N) f32), fp32 accumulation,
-// output in x's dtype T. q is (K, N) int8 for BITS 8, or (K/2, N) packed
+// y (M, N) = x (M, K) @ dequant(q, s (K/gs, N) f32 or bf16: S), fp32
+// accumulation, output in x's dtype T. q is (K, N) int8 for BITS 8, or (K/2, N) packed
 // int4 for BITS 4 in the JAX package's block-local split layout: byte row
 // j of packing block b (2*gs logical rows) holds logical row 2b*gs + j in
 // its low nibble (scale row 2b) and 2b*gs + gs + j in its high nibble
@@ -50,15 +50,15 @@ __device__ __forceinline__ void qmv_load_w(const int8_t* __restrict__ row, int c
   }
 }
 
-__device__ __forceinline__ void qmv_load_s(const float* __restrict__ srow, int col0,
+// 16 consecutive scales of a scale row (S: float or bf16) at column col0
+// as f32 (zeros past N).
+template <typename S>
+__device__ __forceinline__ void qmv_load_s(const S* __restrict__ srow, int col0,
                                            int N, bool vec, float* sc) {
   if (vec) {
     if (col0 < N) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(srow + col0) + i);
-        sc[4 * i] = v.x; sc[4 * i + 1] = v.y; sc[4 * i + 2] = v.z; sc[4 * i + 3] = v.w;
-      }
+      load8(srow + col0, sc);
+      load8(srow + col0 + 8, sc + 8);
     } else {
 #pragma unroll
       for (int c = 0; c < 16; ++c) sc[c] = 0.f;
@@ -67,7 +67,7 @@ __device__ __forceinline__ void qmv_load_s(const float* __restrict__ srow, int c
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
       const int n = col0 + c;
-      sc[c] = n < N ? srow[n] : 0.f;
+      sc[c] = n < N ? to_f(srow[n]) : 0.f;
     }
   }
 }
@@ -144,13 +144,14 @@ __host__ __device__ __forceinline__ size_t qmv_smem_floats(int mt, int bps, int 
 // One CTA's work item of the GEMV: column tile tile_n (of ntiles_n), K split
 // `split` (of ks), rows tile_m * MT ..; 256 threads (tid = threadIdx.y * 32 +
 // threadIdx.x, or threadIdx.x of a 1-D block), dynamic shared memory `smem`
-// of qmv_smem_floats<BITS>(MT, blocks_per_split, gs) floats. x is TX, y TY.
+// of qmv_smem_floats<BITS>(MT, blocks_per_split, gs) floats. x is TX, y TY,
+// the scales S.
 // A CTA may run several items in a row (the fused attention block's
 // persistent phase C): the ticket of the last split of a column tile
 // decides who adds the partials, whichever CTA ran the others.
-template <typename TX, typename TY, int MT, int BITS>
+template <typename TX, typename TY, int MT, int BITS, typename S>
 __device__ __forceinline__ void qmv_tile(const TX* x, const int8_t* __restrict__ q,
-                                         const float* __restrict__ s, TY* __restrict__ y,
+                                         const S* __restrict__ s, TY* __restrict__ y,
                                          float* __restrict__ part, unsigned* __restrict__ tickets,
                                          int M, int K, int N, int gs, int blocks_per_split,
                                          int tile_n, int split, int tile_m, int ks, int ntiles_n,
@@ -278,25 +279,25 @@ __device__ __forceinline__ void qmv_tile(const TX* x, const int8_t* __restrict__
 
 // grid (ceil(N/512), ks, ceil(M/MT)), block (32, 8), dynamic shared memory
 // qmv_smem_floats<BITS>(MT, blocks_per_split, gs) floats.
-template <typename T, int MT, int BITS>
+template <typename T, int MT, int BITS, typename S>
 __global__ void __launch_bounds__(kQmvLanes * kQmvWarps)
 qmv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ s, T* __restrict__ y,
+           const S* __restrict__ s, T* __restrict__ y,
            float* __restrict__ part, unsigned* __restrict__ tickets,
            int M, int K, int N, int gs, int blocks_per_split) {
   extern __shared__ float smem[];
-  qmv_tile<T, T, MT, BITS>(x, q, s, y, part, tickets, M, K, N, gs, blocks_per_split,
+  qmv_tile<T, T, MT, BITS, S>(x, q, s, y, part, tickets, M, K, N, gs, blocks_per_split,
                            blockIdx.x, blockIdx.y, blockIdx.z, gridDim.y, gridDim.x, smem);
 }
 
-template <typename T, int MT, int BITS>
+template <typename T, int MT, int BITS, typename S>
 cudaError_t launch_qmv_mt(const void* x, const void* q, const void* s, void* y,
                           void* part, void* tickets, int M, int K, int N, int gs,
                           int ks, int bps, cudaStream_t stream) {
   const dim3 grid((N + kQmvCols - 1) / kQmvCols, ks, (M + MT - 1) / MT);
   const dim3 block(kQmvLanes, kQmvWarps);
   const size_t smem = sizeof(float) * qmv_smem_floats<BITS>(MT, bps, gs);
-  auto kern = qmv_kernel<T, MT, BITS>;
+  auto kern = qmv_kernel<T, MT, BITS, S>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -304,45 +305,49 @@ cudaError_t launch_qmv_mt(const void* x, const void* q, const void* s, void* y,
   }
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<T*>(y),
+      static_cast<const S*>(s), static_cast<T*>(y),
       static_cast<float*>(part), static_cast<unsigned*>(tickets), M, K, N, gs, bps);
   return cudaGetLastError();
 }
 
 // MT (rows of x per CTA) follows M: 1, 2, 4 or 8 (larger M runs in
 // 8-row chunks, each re-reading the weights).
-template <typename T, int BITS>
+template <typename T, int BITS, typename S>
 cudaError_t launch_qmv(const void* x, const void* q, const void* s, void* y,
                        void* part, void* tickets, int M, int K, int N, int gs,
                        int ks, int bps, cudaStream_t stream) {
-  if (M <= 1) return launch_qmv_mt<T, 1, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
-  if (M <= 2) return launch_qmv_mt<T, 2, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
-  if (M <= 4) return launch_qmv_mt<T, 4, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
-  return launch_qmv_mt<T, 8, BITS>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (M <= 1) return launch_qmv_mt<T, 1, BITS, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (M <= 2) return launch_qmv_mt<T, 2, BITS, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  if (M <= 4) return launch_qmv_mt<T, 4, BITS, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+  return launch_qmv_mt<T, 8, BITS, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
 }
 
-// The C entries' dispatch: `bits` 8 or 4, `dtype` a DType code; `bps` is
-// K blocks per split (scale groups for int8, packing blocks for int4).
+// The C entries' dispatch: `bits` 8 or 4, `dtype` (x and y) and `sdt` (the
+// scales) DType codes; `bps` is K blocks per split (scale groups for int8,
+// packing blocks for int4).
 template <typename T>
-cudaError_t launch_qmv_bits(int bits, const void* x, const void* q, const void* s, void* y,
-                            void* part, void* tickets, int M, int K, int N, int gs,
+cudaError_t launch_qmv_bits(int bits, int sdt, const void* x, const void* q, const void* s,
+                            void* y, void* part, void* tickets, int M, int K, int N, int gs,
                             int ks, int bps, cudaStream_t stream) {
-  if (bits == 8)
-    return launch_qmv<T, 8>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
-  if (bits == 4)
-    return launch_qmv<T, 4>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
-  return cudaErrorInvalidValue;
+  return with_scale_type(sdt, [&](auto st) {
+    using S = typename decltype(st)::type;
+    if (bits == 8)
+      return launch_qmv<T, 8, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+    if (bits == 4)
+      return launch_qmv<T, 4, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, bps, stream);
+    return cudaErrorInvalidValue;
+  });
 }
 
-inline cudaError_t launch_qmv_dtype(int bits, int dtype, const void* x, const void* q,
-                                    const void* s, void* y, void* part, void* tickets,
-                                    int M, int K, int N, int gs, int ks, int bps,
+inline cudaError_t launch_qmv_dtype(int bits, int dtype, int sdt, const void* x,
+                                    const void* q, const void* s, void* y, void* part,
+                                    void* tickets, int M, int K, int N, int gs, int ks, int bps,
                                     cudaStream_t stream) {
   if (dtype == kBF16)
-    return launch_qmv_bits<__nv_bfloat16>(bits, x, q, s, y, part, tickets, M, K, N, gs, ks,
-                                          bps, stream);
+    return launch_qmv_bits<__nv_bfloat16>(bits, sdt, x, q, s, y, part, tickets, M, K, N, gs,
+                                          ks, bps, stream);
   if (dtype == kF32)
-    return launch_qmv_bits<float>(bits, x, q, s, y, part, tickets, M, K, N, gs, ks, bps,
+    return launch_qmv_bits<float>(bits, sdt, x, q, s, y, part, tickets, M, K, N, gs, ks, bps,
                                   stream);
   return cudaErrorInvalidValue;
 }

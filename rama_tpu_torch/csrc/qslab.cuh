@@ -13,10 +13,16 @@
 //
 //  - slab_load: x's columns of the slab (R rows of x, bf16) into an x tile,
 //    and on the cp.async path (VEC) the slab's raw weight bytes and its
-//    fp32 scale rows (at most 4) into shared memory, 16 bytes a copy,
-//    zero-filled past M, K and the map's edge. The masked path (VEC false)
-//    loads the x tile with plain loads and leaves the weight to dequant
-//    (or to slab_raw_masked, for a body that converts bytes in registers).
+//    scale rows (at most 4) into shared memory, 16 bytes a copy, zero-filled
+//    past M, K and the map's edge. Scale rows are staged as stored (S: 4
+//    f32 or 8 bf16 a copy) and turned into f32 where a body reads them
+//    (lds_scale2 / load8<false>, common.cuh). A stage keeps room for f32
+//    rows, 4 x 128 x 4 = 2,048 bytes (4,096 at 256 columns), whichever S:
+//    bf16 rows fill half of it, so shared memory, occupancy and every
+//    split plan are the same for both scale types. The masked path (VEC
+//    false) loads the x tile with plain loads and leaves the weight to
+//    dequant (or to slab_raw_masked, for a body that converts bytes in
+//    registers).
 //  - slab_dequant: the slab as bf16(float(q) * s) -- exactly dequantize()'s
 //    rounding -- in a bf16 [64][128 + 8] tile, the layout ldmatrix(.trans)
 //    reads without bank conflicts.
@@ -44,7 +50,8 @@ template <int BITS> __host__ __device__ constexpr int mma_q_rows() {
   return BITS == 8 ? kMmaBK : kMmaBK / 2;
 }
 
-// Shared bytes of one raw stage: the slab's weight bytes and scale rows.
+// Shared bytes of one raw stage: the slab's weight bytes and scale rows
+// (room for f32 rows, whichever the scale type).
 template <int BITS> constexpr size_t slab_raw_bytes() {
   return (size_t)mma_q_rows<BITS>() * kMmaBN + (size_t)kMmaScaleRows * kMmaBN * 4;
 }
@@ -105,16 +112,17 @@ template <int BITS> __device__ __forceinline__ bool slab_row_ok(int sl, int kk, 
 
 // Slab sl: rows m0 .. m0 + R - 1 of x (M, K) into the x tile xd [R][kMmaLdx];
 // on the cp.async path its raw bytes of q (rows of N bytes) into qd
-// [QR][QLD] and its scale rows of s (rows of N floats) into sd [4][BN].
+// [QR][QLD] and its scale rows of s (rows of N scales S) into sd [4][BN].
 // T threads, this one tid.
 // BN: the slab's weight columns (128, or 256 for a wider tile); QLD: the
-// raw tile's row stride in bytes (the scale rows' stride is BN floats).
-template <int BITS, bool VEC, int R, int T, int BN = kMmaBN, int QLD = BN, class Cols>
+// raw tile's row stride in bytes (the scale rows' stride is BN scales).
+template <int BITS, bool VEC, int R, int T, int BN = kMmaBN, int QLD = BN, class Cols,
+          typename S>
 __device__ __forceinline__ void slab_load(int sl, const __nv_bfloat16* __restrict__ x, int m0,
                                           int M, int K, const int8_t* __restrict__ q,
-                                          const float* __restrict__ s, int N, int gs,
+                                          const S* __restrict__ s, int N, int gs,
                                           const Cols& cols, __nv_bfloat16* xd, int8_t* qd,
-                                          float* sd, int tid) {
+                                          S* sd, int tid) {
   constexpr int QR = mma_q_rows<BITS>();
   if constexpr (VEC) {
 #pragma unroll
@@ -133,14 +141,16 @@ __device__ __forceinline__ void slab_load(int sl, const __nv_bfloat16* __restric
       const bool ok = gr < qrows && n >= 0;
       cp_async16_zfill(qd + row * QLD + lc, ok ? q + (size_t)gr * N + n : q, ok);
     }
-    // scale rows sg0 .. sg0 + nr - 1 (int4: the two rows of each block)
+    // scale rows sg0 .. sg0 + nr - 1 (int4: the two rows of each block),
+    // SC scales a copy
+    constexpr int SC = 16 / sizeof(S);
     const int span = QR;
     const int srows = gs < span ? span / gs : 1;
     const int b0 = sl * QR / gs;
     const int sg0 = BITS == 8 ? b0 : 2 * b0;
     const int nr = (BITS == 8 ? 1 : 2) * min(srows, qrows / gs - b0);
-    for (int c = tid; c < nr * (BN / 4); c += T) {
-      const int row = c / (BN / 4), lc = (c % (BN / 4)) * 4;
+    for (int c = tid; c < nr * (BN / SC); c += T) {
+      const int row = c / (BN / SC), lc = (c % (BN / SC)) * SC;
       const int n = cols(lc);
       const bool ok = n >= 0;
       cp_async16_zfill(sd + row * BN + lc, ok ? s + (size_t)(sg0 + row) * N + n : s, ok);
@@ -175,10 +185,10 @@ __device__ __forceinline__ void slab_raw_masked(int sl, const int8_t* __restrict
 // path q and s in global memory. A thread keeps one 8-column group for
 // all its chunks (T a multiple of 16), so where one scale row serves the
 // whole slab (gs >= its weight rows) it reads the scales once.
-template <int BITS, bool VEC, int T, class Cols>
-__device__ __forceinline__ void slab_dequant(int sl, const int8_t* qs, const float* ss,
+template <int BITS, bool VEC, int T, class Cols, typename S>
+__device__ __forceinline__ void slab_dequant(int sl, const int8_t* qs, const S* ss,
                                              const int8_t* __restrict__ q,
-                                             const float* __restrict__ s, int N, int K, int gs,
+                                             const S* __restrict__ s, int N, int K, int gs,
                                              const Cols& cols, __nv_bfloat16* wd, int tid) {
   constexpr int QR = mma_q_rows<BITS>();
   constexpr int DQ = (QR * kMmaBN / 8 + T - 1) / T;   // 8-byte chunks a thread dequantizes
@@ -195,14 +205,9 @@ __device__ __forceinline__ void slab_dequant(int sl, const int8_t* qs, const flo
     if constexpr (VEC) {
       if (i == 0 || !one_srow) {
         const int srow = (gs < QR ? row / gs : 0) * (BITS == 8 ? 1 : 2);
-        const float4* sr = reinterpret_cast<const float4*>(ss + srow * kMmaBN + col);
 #pragma unroll
-        for (int h = 0; h < (BITS == 8 ? 1 : 2); ++h) {
-          const float4 s0 = sr[h * kMmaBN / 4], s1 = sr[h * kMmaBN / 4 + 1];
-          sc[8 * h + 0] = s0.x; sc[8 * h + 1] = s0.y; sc[8 * h + 2] = s0.z;
-          sc[8 * h + 3] = s0.w; sc[8 * h + 4] = s1.x; sc[8 * h + 5] = s1.y;
-          sc[8 * h + 6] = s1.z; sc[8 * h + 7] = s1.w;
-        }
+        for (int h = 0; h < (BITS == 8 ? 1 : 2); ++h)
+          load8<false>(ss + (srow + h) * kMmaBN + col, sc + 8 * h);
       }
     }
     if constexpr (BITS == 8) {
@@ -220,7 +225,8 @@ __device__ __forceinline__ void slab_dequant(int sl, const int8_t* qs, const flo
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int n = cols(col + j);
-          w[j] = n >= 0 ? static_cast<float>(q[(size_t)gr * N + n]) * s[(size_t)(gr / gs) * N + n]
+          w[j] = n >= 0 ? static_cast<float>(q[(size_t)gr * N + n]) *
+                              to_f(s[(size_t)(gr / gs) * N + n])
                         : 0.f;
         }
       }
@@ -247,8 +253,8 @@ __device__ __forceinline__ void slab_dequant(int sl, const int8_t* qs, const flo
           lo[j] = hi[j] = 0.f;
           if (n >= 0) {
             unpack_int4x1(q[(size_t)gr * N + n], lo[j], hi[j]);
-            lo[j] *= s[(size_t)g * N + n];
-            hi[j] *= s[(size_t)(g + 1) * N + n];
+            lo[j] *= to_f(s[(size_t)g * N + n]);
+            hi[j] *= to_f(s[(size_t)(g + 1) * N + n]);
           }
         }
       }

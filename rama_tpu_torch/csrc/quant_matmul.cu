@@ -6,13 +6,19 @@
 // wrapper) and quant_matmul (one 2-D weight) -- the int8 bodies
 // _kernel_int8_acc(_layered) at decode M and _kernel_int8(_layered) at
 // prefill M, and the int4 bodies _kernel_int4_acc(_layered) at decode M and
-// _kernel_int4(_layered) at prefill M.
+// _kernel_int4(_layered) at prefill M. Each takes f32 or bf16-stored
+// scales (cast_scales; the Pallas kernels upcast them in VMEM,
+// quant_matmul.py:50, :75, :136, :164, :192, :214): every body here is
+// instantiated for both scale types S, and turns a scale into f32 where it
+// reads it, with the split plan a function of the shapes alone -- so a
+// bf16-scale launch equals the same body fed scales.float() bit for bit.
 //
 // Bound on the H100: at decode M (up to a verify round's 32 rows) the work is ~2*M flops per
 // weight (half a byte for int4), far below the card's ~295 flop/byte
 // balance point, so the kernel is bound by streaming the weight bytes plus
-// K*N/gs*4 scale bytes from HBM at 3.35 TB/s (Llama-2-7B wqkv: 50.3 MB +
-// 3.1 MB = 16 us for int8; 25.2 MB + 3.1 MB = 8.5 us for int4 gs 64). At
+// K*N/gs*4 scale bytes (f32; *2 for bf16-stored scales) from HBM at 3.35
+// TB/s (Llama-2-7B wqkv: 50.3 MB + 3.1 MB = 16 us for int8; 25.2 MB + 3.1
+// MB = 8.5 us for int4 gs 64; with bf16 scales 1.6 MB of scales). At
 // prefill M (k*T rows, hundreds to thousands) it is bound by 2*M*K*N flops.
 //
 // Design: bf16 at M <= 32 (a decode step, a verify round of 8 slots x 4
@@ -57,8 +63,8 @@
 //    nibbles rows 32..63, with x's matching columns gathered in the same
 //    order -- two runs of whole 8-column chunks when gs is a multiple of 8).
 //  - x tiles (bf16) in a ring of 3 stages, each slab's raw weight bytes and
-//    fp32 scale rows (at most 4) in a ring of 2, copied with cp.async 16
-//    bytes at a time, zero-filled past M, K and N.
+//    scale rows (at most 4, f32 or bf16 as stored) in a ring of 2, copied
+//    with cp.async 16 bytes at a time, zero-filled past M, K and N.
 //  - Dequantization: each thread turns 8 weight bytes (int4: 8 bytes, 16
 //    nibbles) into bf16(float(q) * s) -- exactly dequantize()'s rounding --
 //    in one of two bf16 [64][128] tiles, from which ldmatrix.trans reads the
@@ -93,10 +99,10 @@ __device__ __forceinline__ int int4_slab_row(int k0, int kk, int gs) {
   return 2 * b * gs + j + (kk & 1) * gs;
 }
 
-template <int BITS>
+template <int BITS, typename S>
 __global__ void __launch_bounds__(256)
 qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
-          const float* __restrict__ s, float* __restrict__ y, int M, int K, int N, int gs) {
+          const S* __restrict__ s, float* __restrict__ y, int M, int K, int N, int gs) {
   __shared__ float xs[kBK][kBM + 4];  // x tile, transposed: xs[k][m]
   __shared__ float ws[kBK][kBN + 4];  // dequantized weight tile
   const int tid = threadIdx.x;
@@ -133,8 +139,8 @@ qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
         unpack_int4x4(v, lo, hi);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          lo[c] *= __ldg(s + (size_t)glo * N + gn + c);
-          hi[c] *= __ldg(s + (size_t)(glo + 1) * N + gn + c);
+          lo[c] *= to_f(__ldg(s + (size_t)glo * N + gn + c));
+          hi[c] *= to_f(__ldg(s + (size_t)(glo + 1) * N + gn + c));
         }
       } else {
 #pragma unroll
@@ -143,8 +149,8 @@ qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
           lo[c] = hi[c] = 0.f;
           if (2 * r < K && n < N) {
             unpack_int4x1(q[(size_t)r * N + n], lo[c], hi[c]);
-            lo[c] *= s[(size_t)glo * N + n];
-            hi[c] *= s[(size_t)(glo + 1) * N + n];
+            lo[c] *= to_f(s[(size_t)glo * N + n]);
+            hi[c] *= to_f(s[(size_t)(glo + 1) * N + n]);
           }
         }
       }
@@ -161,15 +167,16 @@ qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
       if (gk < K && vec && gn + 8 <= N) {
         const int2 v = __ldg(reinterpret_cast<const int2*>(q + (size_t)gk * N + gn));
         const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-        const float* srow = s + (size_t)(gk / gs) * N + gn;
+        const S* srow = s + (size_t)(gk / gs) * N + gn;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) w[c] = static_cast<float>(b[c]) * __ldg(srow + c);
+        for (int c = 0; c < 8; ++c) w[c] = static_cast<float>(b[c]) * to_f(__ldg(srow + c));
       } else {
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const int n = gn + c;
           w[c] = (gk < K && n < N)
-                     ? static_cast<float>(q[(size_t)gk * N + n]) * s[(size_t)(gk / gs) * N + n]
+                     ? static_cast<float>(q[(size_t)gk * N + n]) *
+                           to_f(s[(size_t)(gk / gs) * N + n])
                      : 0.f;
         }
       }
@@ -203,13 +210,13 @@ qmm_tiled(const float* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <int BITS>
+template <int BITS, typename S>
 cudaError_t launch_qmm(const void* x, const void* q, const void* s, void* y, int M,
                        int K, int N, int gs, cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  qmm_tiled<BITS><<<grid, 256, 0, stream>>>(
+  qmm_tiled<BITS, S><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<float*>(y), M, K, N, gs);
+      static_cast<const S*>(s), static_cast<float*>(y), M, K, N, gs);
   return cudaGetLastError();
 }
 
@@ -243,10 +250,10 @@ template <int BM, int BITS> constexpr size_t mma_smem_bytes() {
 // multiple of 16 that divides, or is a multiple of, the slab's 64 rows
 // (int4: 32 byte rows), so a thread's scale row within a slab is the same
 // in every slab.
-template <int BM, int BITS, bool VEC>
+template <int BM, int BITS, bool VEC, typename S>
 __global__ void __launch_bounds__(MmaCfg<BM>::kWarpRows * 128, MmaCfg<BM>::kCtas)
 qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-        const float* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+        const S* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
         unsigned* __restrict__ tickets, int M, int K, int N, int gs, int slabs_per_split) {
   constexpr int WM = MmaCfg<BM>::kWarpRows, P = MmaCfg<BM>::kAhead;
   constexpr int T = WM * 128;                // threads
@@ -254,11 +261,11 @@ qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   constexpr int XS = P + 2, RS = P + 1;      // x stages, raw stages
   constexpr int QR = mma_q_rows<BITS>();     // weight rows (bytes) a slab
   constexpr int QB = QR * kMmaBN;
-  constexpr int SB = kMmaScaleRows * kMmaBN;
+  constexpr int SB = kMmaScaleRows * kMmaBN * 4 / sizeof(S);   // a stage's f32-sized room
   extern __shared__ __align__(16) unsigned char qmm_smem[];
   __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(qmm_smem);   // [XS][BM][LDX]
   __nv_bfloat16* Ws = Xs + XS * BM * kMmaLdx;                         // [2][BK][LDW]
-  float* Ss = reinterpret_cast<float*>(Ws + 2 * kMmaBK * kMmaLdw);     // [RS][4][BN]
+  S* Ss = reinterpret_cast<S*>(Ws + 2 * kMmaBK * kMmaLdw);             // [RS][4][BN] (+ room)
   int8_t* Qs = reinterpret_cast<int8_t*>(Ss + RS * SB);                // [RS][QR][BN]
   __shared__ bool is_last;
 
@@ -384,40 +391,44 @@ qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   if (tid == 0) *ticket = 0u;   // ready for the next launch
 }
 
-template <int BM, int BITS, bool VEC>
+template <int BM, int BITS, bool VEC, typename S>
 cudaError_t launch_qmm_mma(const void* x, const void* q, const void* s, void* y, void* part,
                            void* tickets, int M, int K, int N, int gs, int ks, int sps,
                            cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<BM, BITS>();
-  auto kern = qmm_mma<BM, BITS, VEC>;
+  auto kern = qmm_mma<BM, BITS, VEC, S>;
   static SmemOptIn opt_in;   // one attribute call an instantiation and device
   const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + BM - 1) / BM, (N + kMmaBN - 1) / kMmaBN, ks);
   kern<<<grid, MmaCfg<BM>::kWarpRows * 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<const S*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
       static_cast<unsigned*>(tickets), M, K, N, gs, sps);
   return cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, typename S>
 cudaError_t launch_qmm_mma_bm(int bm, bool vec, const void* x, const void* q, const void* s,
                               void* y, void* part, void* tickets, int M, int K, int N, int gs,
                               int ks, int sps, cudaStream_t st) {
   if (!vec)
-    return bm == 64 ? launch_qmm_mma<64, BITS, false>(x, q, s, y, part, tickets, M, K, N, gs,
-                                                      ks, sps, st)
+    return bm == 64 ? launch_qmm_mma<64, BITS, false, S>(x, q, s, y, part, tickets, M, K, N,
+                                                         gs, ks, sps, st)
                     : cudaErrorInvalidValue;
   switch (bm) {
     case 32:
-      return launch_qmm_mma<32, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+      return launch_qmm_mma<32, BITS, true, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                               st);
     case 64:
-      return launch_qmm_mma<64, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+      return launch_qmm_mma<64, BITS, true, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                               st);
     case 128:
-      return launch_qmm_mma<128, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+      return launch_qmm_mma<128, BITS, true, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                                st);
     case 256:
-      return launch_qmm_mma<256, BITS, true>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+      return launch_qmm_mma<256, BITS, true, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                                st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -437,10 +448,10 @@ template <> struct MmvCfg<256> { static constexpr int kCtas = 2; };
 // y covers slabs [y sps, (y + 1) sps) of the ceil(K / 64); `part` an fp32
 // (ks, M, gridDim.x * BN) workspace when ks > 1, `tickets` one zeroed
 // counter per column tile.
-template <int NT, int BITS, bool VEC, int BN>
+template <int NT, int BITS, bool VEC, int BN, typename S>
 __global__ void __launch_bounds__(BN, MmvCfg<BN>::kCtas)
 qmv_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-        const float* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+        const S* __restrict__ s, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
         unsigned* __restrict__ tickets, int M, int K, int N, int gs, int slabs_per_split) {
   constexpr int LDC = Swab<BN>::kLdc;
   extern __shared__ __align__(16) unsigned char mmv_smem[];
@@ -454,72 +465,80 @@ qmv_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <int NT, int BITS, bool VEC, int BN>
+template <int NT, int BITS, bool VEC, int BN, typename S>
 cudaError_t launch_qmv_mma(const void* x, const void* q, const void* s, void* y, void* part,
                            void* tickets, int M, int K, int N, int gs, int ks, int sps,
                            cudaStream_t stream) {
   constexpr size_t smem = swab_smem_bytes<NT, BITS, BN>();
-  auto kern = qmv_mma<NT, BITS, VEC, BN>;
+  auto kern = qmv_mma<NT, BITS, VEC, BN, S>;
   static SmemOptIn opt_in;   // one attribute call an instantiation and device
   const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3((N + BN - 1) / BN, ks), BN, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<const S*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
       static_cast<unsigned*>(tickets), M, K, N, gs, sps);
   return cudaGetLastError();
 }
 
-template <int BITS, bool VEC, int BN>
+template <int BITS, bool VEC, int BN, typename S>
 cudaError_t launch_qmv_mma_nt(const void* x, const void* q, const void* s, void* y, void* part,
                               void* tickets, int M, int K, int N, int gs, int ks, int sps,
                               cudaStream_t st) {
   if (M <= 8)
-    return launch_qmv_mma<1, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    return launch_qmv_mma<1, BITS, VEC, BN, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                               st);
   if (M <= 16)
-    return launch_qmv_mma<2, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    return launch_qmv_mma<2, BITS, VEC, BN, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                               st);
   if (M <= 32)
-    return launch_qmv_mma<4, BITS, VEC, BN>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps, st);
+    return launch_qmv_mma<4, BITS, VEC, BN, S>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
+                                               st);
   return cudaErrorInvalidValue;
 }
 
 // The masked path (vec false: tiny and stories shapes) has the 128-column CTA only.
-template <int BITS>
+template <int BITS, typename S>
 cudaError_t launch_qmv_mma_bn(int bn, bool vec, const void* x, const void* q, const void* s,
                               void* y, void* part, void* tickets, int M, int K, int N, int gs,
                               int ks, int sps, cudaStream_t st) {
   if (!vec)
-    return bn == 128 ? launch_qmv_mma_nt<BITS, false, 128>(x, q, s, y, part, tickets, M, K, N,
-                                                           gs, ks, sps, st)
+    return bn == 128 ? launch_qmv_mma_nt<BITS, false, 128, S>(x, q, s, y, part, tickets, M, K,
+                                                              N, gs, ks, sps, st)
                      : cudaErrorInvalidValue;
   if (bn == 128)
-    return launch_qmv_mma_nt<BITS, true, 128>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
-                                              st);
+    return launch_qmv_mma_nt<BITS, true, 128, S>(x, q, s, y, part, tickets, M, K, N, gs, ks,
+                                                 sps, st);
   if (bn == 256)
-    return launch_qmv_mma_nt<BITS, true, 256>(x, q, s, y, part, tickets, M, K, N, gs, ks, sps,
-                                              st);
+    return launch_qmv_mma_nt<BITS, true, 256, S>(x, q, s, y, part, tickets, M, K, N, gs, ks,
+                                                 sps, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace rama
 
+// Every entry takes the scales' dtype `sdt` (a DType code: f32 or bf16;
+// common.cuh) beside the activations'.
 // `bits` 8: q (K, N) int8; 4: q (K/2, N) packed int4 (K a multiple of 2*gs).
 // `bps`: K blocks per split, scale groups for int8 and packing blocks for int4.
 extern "C" int rama_qmv(const void* x, const void* q, const void* s, void* y, void* part,
                         void* tickets, int M, int K, int N, int gs, int ks, int bps,
-                        int bits, int dtype, void* stream) {
-  return static_cast<int>(rama::launch_qmv_dtype(bits, dtype, x, q, s, y, part, tickets, M,
-                                                 K, N, gs, ks, bps,
+                        int bits, int dtype, int sdt, void* stream) {
+  return static_cast<int>(rama::launch_qmv_dtype(bits, dtype, sdt, x, q, s, y, part, tickets,
+                                                 M, K, N, gs, ks, bps,
                                                  static_cast<cudaStream_t>(stream)));
 }
 
 // The fp32 CUDA-core body (M > 8): x (M, K) and y (M, N) float32.
 extern "C" int rama_qmm(const void* x, const void* q, const void* s, void* y, int M,
-                        int K, int N, int gs, int bits, void* stream) {
+                        int K, int N, int gs, int bits, int sdt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 8) return static_cast<int>(rama::launch_qmm<8>(x, q, s, y, M, K, N, gs, st));
-  if (bits == 4) return static_cast<int>(rama::launch_qmm<4>(x, q, s, y, M, K, N, gs, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8) return rama::launch_qmm<8, S>(x, q, s, y, M, K, N, gs, st);
+    if (bits == 4) return rama::launch_qmm<4, S>(x, q, s, y, M, K, N, gs, st);
+    return cudaErrorInvalidValue;
+  }));
 }
 
 // The bf16 tensor-core body (M > 8): x (M, K) bf16, y (M, N) bf16; `bm` 32,
@@ -530,15 +549,18 @@ extern "C" int rama_qmm(const void* x, const void* q, const void* s, void* y, in
 // (int4: 32 byte rows), every pointer 16-byte aligned.
 extern "C" int rama_qmm_mma(const void* x, const void* q, const void* s, void* y, void* part,
                             void* tickets, int M, int K, int N, int gs, int bits, int bm,
-                            int ks, int sps, int vec, void* stream) {
+                            int ks, int sps, int vec, int sdt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    return static_cast<int>(rama::launch_qmm_mma_bm<8>(bm, vec != 0, x, q, s, y, part, tickets,
-                                                       M, K, N, gs, ks, sps, st));
-  if (bits == 4)
-    return static_cast<int>(rama::launch_qmm_mma_bm<4>(bm, vec != 0, x, q, s, y, part, tickets,
-                                                       M, K, N, gs, ks, sps, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8)
+      return rama::launch_qmm_mma_bm<8, S>(bm, vec != 0, x, q, s, y, part, tickets, M, K, N, gs,
+                                           ks, sps, st);
+    if (bits == 4)
+      return rama::launch_qmm_mma_bm<4, S>(bm, vec != 0, x, q, s, y, part, tickets, M, K, N, gs,
+                                           ks, sps, st);
+    return cudaErrorInvalidValue;
+  }));
 }
 
 // The bf16 decode body (M <= 32: NT 1 / 2 / 4 n8 tiles): x (M, K)
@@ -550,13 +572,16 @@ extern "C" int rama_qmm_mma(const void* x, const void* q, const void* s, void* y
 // pointer 16-byte aligned.
 extern "C" int rama_qmv_mma(const void* x, const void* q, const void* s, void* y, void* part,
                             void* tickets, int M, int K, int N, int gs, int bits, int bn,
-                            int ks, int sps, int vec, void* stream) {
+                            int ks, int sps, int vec, int sdt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    return static_cast<int>(rama::launch_qmv_mma_bn<8>(bn, vec != 0, x, q, s, y, part, tickets,
-                                                       M, K, N, gs, ks, sps, st));
-  if (bits == 4)
-    return static_cast<int>(rama::launch_qmv_mma_bn<4>(bn, vec != 0, x, q, s, y, part, tickets,
-                                                       M, K, N, gs, ks, sps, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8)
+      return rama::launch_qmv_mma_bn<8, S>(bn, vec != 0, x, q, s, y, part, tickets, M, K, N, gs,
+                                           ks, sps, st);
+    if (bits == 4)
+      return rama::launch_qmv_mma_bn<4, S>(bn, vec != 0, x, q, s, y, part, tickets, M, K, N, gs,
+                                           ks, sps, st);
+    return cudaErrorInvalidValue;
+  }));
 }

@@ -10,7 +10,8 @@
 // columns as two m16 tiles (BN threads a CTA); its accumulators are 2 x NT
 // x 4 floats a thread. K walks in slabs of 64 logical rows that qslab.cuh
 // copies into a cp.async ring (kSwabAhead = 3 slabs in flight: x's rows,
-// the raw weight bytes, the scale rows). ldmatrix.trans reads the raw bytes
+// the raw weight bytes, the scale rows as stored: f32 or bf16, S).
+// ldmatrix.trans reads the raw bytes
 // straight into A-fragment order (two weight columns' k pairs a register)
 // and each thread turns them into exact bf16(float(q) * s) in registers --
 // no dequantized tile goes through shared memory, no second barrier; x's
@@ -49,7 +50,8 @@ template <int BN> struct Swab {
 // Rows of the x tile: NT n8 tiles, read by ldmatrix in pairs.
 template <int NT> __host__ __device__ constexpr int swab_x_rows() { return NT < 2 ? 16 : NT * 8; }
 
-// One stage of the ring: the slab's x tile, raw weight bytes and scale rows.
+// One stage of the ring: the slab's x tile, raw weight bytes and scale rows
+// (room for f32 rows whichever the scale type: qslab.cuh).
 template <int NT, int BITS, int BN> __host__ __device__ constexpr int swab_stage_bytes() {
   return swab_x_rows<NT>() * kMmaLdx * 2 + mma_q_rows<BITS>() * Swab<BN>::kLdq +
          kMmaScaleRows * BN * 4;
@@ -68,16 +70,16 @@ __device__ __forceinline__ uint32_t pack_ab(float a, float sa, float b, float sb
 
 // The CTA's (M, BN) product over split blockIdx.y of K, column tile
 // blockIdx.x: slabs [y sps, (y + 1) sps) of the ceil(K / 64). x (M, K)
-// bf16, M <= 8 NT; q / s rows of `ncols` columns; `part` an fp32 (ks, M,
-// gridDim.x * BN) workspace when ks = gridDim.y > 1, `tickets` one zeroed
-// counter per column tile; smem swab_smem_bytes<NT, BITS, BN>() of dynamic
-// shared memory. Returns the full fp32 sums C[m][lc] (row stride
+// bf16, M <= 8 NT; q / s rows of `ncols` columns (s f32 or bf16: S);
+// `part` an fp32 (ks, M, gridDim.x * BN) workspace when ks = gridDim.y >
+// 1, `tickets` one zeroed counter per column tile; smem swab_smem_bytes<NT,
+// BITS, BN>() of dynamic shared memory. Returns the full fp32 sums C[m][lc] (row stride
 // Swab<BN>::kLdc, in smem) to the CTA that holds them -- the only split,
 // or the last of the column tile to finish -- and nullptr to the others.
-template <int NT, int BITS, bool VEC, int BN, class Cols>
+template <int NT, int BITS, bool VEC, int BN, class Cols, typename S>
 __device__ __forceinline__ const float* swab_tile(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ s, float* __restrict__ part, unsigned* __restrict__ tickets,
+    const S* __restrict__ s, float* __restrict__ part, unsigned* __restrict__ tickets,
     int M, int K, int ncols, int gs, int slabs_per_split, const Cols& cols,
     unsigned char* smem) {
   constexpr int T = Swab<BN>::kThreads, P = kSwabAhead, RS = P + 1;
@@ -108,7 +110,7 @@ __device__ __forceinline__ const float* swab_tile(
   auto q_tile = [&](int st) { return reinterpret_cast<int8_t*>(smem + st * STAGE) +
                                      XR * kMmaLdx * 2; };
   auto s_tile = [&](int st) {
-    return reinterpret_cast<float*>(q_tile(st) + QR * LDQ);
+    return reinterpret_cast<S*>(q_tile(st) + QR * LDQ);
   };
   auto load = [&](int t) {
     const int st = t % RS;
@@ -120,17 +122,17 @@ __device__ __forceinline__ const float* swab_tile(
 
   // The scales of this thread's two columns of tile i for slab rows kk
   // (its k pair kk, kk + 1): (s0 at kk, s0 at kk + 1, s1 at kk, s1 at
-  // kk + 1). The cp.async path reads the staged rows (one row serves a
-  // whole k16 step: gs a multiple of 16); the masked path reads s in global
-  // memory, zero past K.
+  // kk + 1), in f32. The cp.async path reads the staged rows (one row
+  // serves a whole k16 step: gs a multiple of 16); the masked path reads s
+  // in global memory, zero past K.
   const int gshift = gs < QR ? __ffs(gs) - 1 : 31;
-  auto scales = [&](int sl, const float* ss, int i, int kk, float* sc) {
+  auto scales = [&](int sl, const S* ss, int i, int kk, float* sc) {
     const int n0 = nc[i][0], n1 = nc[i][1];
     if constexpr (VEC) {
       int row;   // gs is 16 or 32 (a shift) or spans the slab (row 0)
       if constexpr (BITS == 8) row = kk >> gshift;
       else row = 2 * ((kk & 31) >> gshift) + (kk >> 5);
-      const float2 v = *reinterpret_cast<const float2*>(ss + row * BN + lc0 + 16 * i);
+      const float2 v = lds_scale2(ss + row * BN + lc0 + 16 * i);
       sc[0] = sc[1] = v.x;
       sc[2] = sc[3] = v.y;
     } else {
@@ -147,8 +149,8 @@ __device__ __forceinline__ const float* swab_tile(
           ok = r < qrows;
           srow = 2 * (r / gs) + (kk >> 5);
         }
-        sc[i] = ok && n0 >= 0 ? s[(size_t)srow * ncols + n0] : 0.f;
-        sc[2 + i] = ok && n1 >= 0 ? s[(size_t)srow * ncols + n1] : 0.f;
+        sc[i] = ok && n0 >= 0 ? to_f(s[(size_t)srow * ncols + n0]) : 0.f;
+        sc[2 + i] = ok && n1 >= 0 ? to_f(s[(size_t)srow * ncols + n1]) : 0.f;
       }
     }
   };
@@ -196,7 +198,7 @@ __device__ __forceinline__ const float* swab_tile(
     const int sl = s_begin + t, st = t % RS;
     const __nv_bfloat16* xs = x_tile(st);
     const int8_t* qs = q_tile(st);
-    const float* ss = s_tile(st);
+    const S* ss = s_tile(st);
     if constexpr (BITS == 8) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {   // slab rows 32 h .. 32 h + 31: k16 steps 2 h, 2 h + 1

@@ -4,14 +4,18 @@ Every `csrc/*.cu` is compiled on first use by its own `nvcc` process — all
 of them started together — into a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/rama_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -split-compile=4
+         -o build/rama_tpu_torch/<name>-<hash>.so
 
 (route (b) of building a hand-written kernel: no PyTorch headers, seconds
-per file). The libraries land in `build/rama_tpu_torch/` under the checkout
-(listed in .gitignore), named by a hash of the sources and flags, so an
-edited kernel is rebuilt and an unchanged one is reused. They are loaded
-with ctypes; pointers and the stream pass as `c_void_p`, every C entry
-returns `cudaGetLastError()` and `check` raises on a non-zero code.
+per file; `-split-compile=4` runs a file's optimisation passes on up to
+four threads, which about halves the build of `ffn.cu` and
+`quant_matmul.cu`, the files that instantiate every body for both weight
+scale types). The libraries land in `build/rama_tpu_torch/` under the
+checkout (listed in .gitignore), named by a hash of the sources and flags,
+so an edited kernel is rebuilt and an unchanged one is reused. They are
+loaded with ctypes; pointers and the stream pass as `c_void_p`, every C
+entry returns `cudaGetLastError()` and `check` raises on a non-zero code.
 
 There is no fallback: a missing `nvcc` or a failed build raises.
 """
@@ -33,9 +37,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rama_tpu_torch"
 SOURCES = ("quant_matmul", "ffn", "decode_attention", "prefill_attention", "kv_write",
            "attn_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=4")
 
-# activation dtype codes of csrc/common.cuh (rama::DType)
+# dtype codes of csrc/common.cuh (rama::DType): activations and caches, and
+# the quantized weights' stored scales
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
@@ -146,7 +151,7 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16 activations, not {t.dtype}")
+        raise TypeError(f"kernels take float32 or bfloat16 tensors, not {t.dtype}")
     return DTYPE_CODES[t.dtype]
 
 

@@ -13,7 +13,10 @@ column tiles and K splits; `mma_vec`: cp.async or masked loads); fp32
 takes "simt", the CUDA-core GEMVs (8-row chunks of M). A refused launch
 raises; it never gives way to another body. Each weight's bits choose its
 kernels' instantiation; the int8 and int4 FFNs have their own launch
-counts.
+counts. Each weight's stored scale dtype (f32, or bf16 after
+`cast_scales`) chooses its scale type (a scale-type code;
+`launches_by_scale` counts the calls by w13's): a bf16-scale call equals
+the same bodies fed `scales.float()` bit for bit.
 
 Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor runs
 `ffn_plain`.
@@ -28,15 +31,16 @@ import torch.nn.functional as F
 
 from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
-from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMS, MMA_BK, check_weight,
-                                                     layer_of, rows_per_cta, split_k,
-                                                     split_options, weight_ptrs)
+from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMS, MMA_BK, SCALE_NAMES,
+                                                     check_weight, layer_of, rows_per_cta,
+                                                     split_k, split_options, weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 
 # wrapper calls that launched the kernels since the last reset, by the w13
 # weight's bits
 launches = {8: 0, 4: 0}
 launches_by_body = {"mma": 0, "simt": 0}   # the same calls by body
+launches_by_scale = {"f32": 0, "bf16": 0}   # ... and by w13's stored scale dtype
 
 FFN_MAX_M = 32    # rows the kernels serve (a verify round of 8 slots x 4 tokens)
 _UNITS = 256      # hidden units per simt w13 CTA (csrc/ffn.cu)
@@ -46,9 +50,9 @@ _MMA_CTAS_PER_SM = 2      # ffn_mma's __launch_bounds__ (kFfnCtas)
 _MMA_WAVE_FILL = 0.95     # the share of the last wave's CTA slots a plan fills
 
 _SIGNATURES = {
-    "rama_ffn_w13": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    "rama_ffn_w2": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "rama_ffn_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_w13": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_w2": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P],
 }
 
 
@@ -169,7 +173,8 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
             err = lib.rama_ffn_mma(xin.data_ptr(), qp, sp, out.data_ptr(), part.data_ptr(),
                                    tk.data_ptr(), m, kdim, qt.q.shape[-1], nout,
                                    qt.group_size, qt.il if phase_a else 0, qt.bits,
-                                   int(phase_a), tiles, ks, sps, int(vec), stream)
+                                   int(phase_a), tiles, ks, sps, int(vec),
+                                   build.dtype_code(qt.scales), stream)
             build.check(lib, err, f"ffn ({'w13' if phase_a else 'w2'}, int{qt.bits}, mma)")
     else:
         mt = rows_per_cta(m)
@@ -181,15 +186,16 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
         tk = build.tickets(x.device, max(tiles, -(-n // _QMV_COLS)) * mchunks)
         err = lib.rama_ffn_w13(x.data_ptr(), q13, s13, h.data_ptr(), part.data_ptr(),
                                tk.data_ptr(), m, k, hdim, w13.group_size, w13.il, ks, bps,
-                               w13.bits, dtype, stream)
+                               w13.bits, dtype, build.dtype_code(w13.scales), stream)
         build.check(lib, err, f"ffn (w13, int{w13.bits}, simt)")
         ks2, bps2 = split_k(hdim // w2.k_block, -(-n // _QMV_COLS), w2.k_block, mt)
         part2 = (torch.empty((ks2, m, n), dtype=torch.float32, device=x.device)
                  if ks2 > 1 else y)
         err = lib.rama_ffn_w2(h.data_ptr(), q2, s2, y.data_ptr(), part2.data_ptr(),
                               tk.data_ptr(), m, hdim, n, w2.group_size, ks2, bps2, w2.bits,
-                              dtype, stream)
+                              dtype, build.dtype_code(w2.scales), stream)
         build.check(lib, err, f"ffn (w2, int{w2.bits}, simt)")
     launches[w13.bits] += 1
     launches_by_body[body] += 1
+    launches_by_scale[SCALE_NAMES[w13.scales.dtype]] += 1
     return y

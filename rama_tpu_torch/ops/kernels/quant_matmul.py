@@ -6,9 +6,13 @@ The counterpart of `rama_tpu/ops/pallas/quant_matmul.py`'s
 index maps) and `quant_matmul` (one 2-D weight): one CUDA kernel for both,
 the layer is a pointer offset computed here from a Python int
 (`csrc/quant_matmul.cu`, `csrc/swapab.cuh`, `csrc/qmv.cuh`). The int8
-and the int4 weights
-take sibling instantiations of the same kernels (a `bits` argument), and
-each has its own launch count.
+and the int4 weights take sibling instantiations of the same kernels (a
+`bits` argument), and each has its own launch count. So do f32 and
+bf16-stored scales (`cast_scales`; a scale-type code, counted in
+`launches_by_scale`): every body reads bf16 scales as they are and turns
+each into f32 where it reads it, with the same plan as for f32 scales, so
+a bf16-scale launch equals the same body fed `scales.float()` bit for bit.
+A bf16 scale is never upcast into a temporary f32 copy here.
 
 Dispatch: a CUDA tensor launches a kernel body (or raises), a CPU tensor
 runs `quant_matmul_plain`. The body is fixed by dtype and M before the
@@ -37,6 +41,10 @@ from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 # kernel launches since the last reset, by weight bits (chip_smoke reads them)
 launches = {8: 0, 4: 0}
 launches_by_body = {"mmv": 0, "gemv": 0, "mma": 0, "simt": 0}   # the same launches by body
+launches_by_scale = {"f32": 0, "bf16": 0}   # ... and by the weight scales' stored dtype
+# the weight-scale dtypes the kernels read (passed as build.dtype_code), by
+# their launches_by_scale key
+SCALE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # Small M takes a weight-streaming body whose CTAs serve every row (the
 # 8-slot decode step; in bf16 also a verify round of 8 slots x 4 tokens:
@@ -61,10 +69,10 @@ SWAB_MIN_SLABS = 4           # K slabs a split of a swap-AB body runs at least
 SWAB_MAX_SPLITS = 16         # (the cp.async ring fills)
 
 _SIGNATURES = {
-    "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "rama_qmm": [P, P, P, P, I, I, I, I, I, P],
-    "rama_qmm_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    "rama_qmv_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "rama_qmv": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "rama_qmm": [P, P, P, P, I, I, I, I, I, I, P],
+    "rama_qmm_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_qmv_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
 }
 
 
@@ -140,7 +148,9 @@ def mma_plan(m: int, n: int, k: int, k_block: int, vec: bool = True,
 def mmv_ctas_per_sm(bn: int, nt: int, bits: int) -> int:
     """CTAs of the decode body an SM holds: MmvCfg's register cap, or fewer
     where its shared memory (swab_smem_bytes, csrc/swapab.cuh: a ring of 4
-    stages of x rows, raw weight bytes and scale rows) does not fit."""
+    stages of x rows, raw weight bytes and scale rows) does not fit. A
+    stage keeps room for 4 f32 scale rows whichever the scales' dtype, so
+    the plan does not depend on it."""
     xrows = 16 if nt < 2 else 8 * nt
     qrows = MMA_BK if bits == 8 else MMA_BK // 2
     stage = xrows * (MMA_BK + 8) * 2 + qrows * (bn + 16) + 4 * bn * 4
@@ -197,8 +207,9 @@ def mmv_plan(m: int, n: int, k: int, k_block: int, bits: int, vec: bool = True,
 
 def mma_vec(x: torch.Tensor, qt: QuantizedTensor, qp: int, sp: int) -> bool:
     """Whether the tensor-core GEMM takes its cp.async path: 16-byte copies
-    of x, weight and scale rows (N and the group size multiples of 16,
-    every pointer 16-byte aligned), and a group size that divides, or is a
+    of x, weight and scale rows (N and the group size multiples of 16, so
+    f32 and bf16 scale rows alike start on 16 bytes; every pointer 16-byte
+    aligned), and a group size that divides, or is a
     multiple of, a slab's weight rows (64, or 32 packed int4 byte rows);
     the masked path otherwise."""
     gs, span = qt.group_size, MMA_BK if qt.bits == 8 else MMA_BK // 2
@@ -208,7 +219,7 @@ def mma_vec(x: torch.Tensor, qt: QuantizedTensor, qp: int, sp: int) -> bool:
 
 def weight_ptrs(qt: QuantizedTensor, layer: int | None) -> tuple[int, int]:
     """Device addresses of W[layer]'s values (int8 or packed int4 bytes) and
-    fp32 scales."""
+    scales (f32 or bf16: the offset is in the scales' own element size)."""
     if layer is None:
         require(qt.q.dim() == 2, f"2-D weight expected, got {tuple(qt.q.shape)}")
         return qt.q.data_ptr(), qt.scales.data_ptr()
@@ -216,13 +227,14 @@ def weight_ptrs(qt: QuantizedTensor, layer: int | None) -> tuple[int, int]:
     L = qt.q.shape[0]
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
     return (qt.q.data_ptr() + layer * qt.q.stride(0),
-            qt.scales.data_ptr() + layer * qt.scales.stride(0) * 4)
+            qt.scales.data_ptr() + layer * qt.scales.stride(0) * qt.scales.element_size())
 
 
 def check_weight(qt: QuantizedTensor, device: torch.device) -> None:
     require(qt.bits in (8, 4), f"int8 or int4 weights expected, got bits={qt.bits}")
-    require(qt.q.dtype == torch.int8 and qt.scales.dtype == torch.float32,
-            f"int8 q / float32 scales expected, got {qt.q.dtype} / {qt.scales.dtype}")
+    require(qt.q.dtype == torch.int8 and qt.scales.dtype in SCALE_NAMES,
+            f"int8 q / float32 or bfloat16 scales expected, got {qt.q.dtype} / "
+            f"{qt.scales.dtype}")
     require(qt.q.device == device and qt.scales.device == device,
             "weight and activation on different devices")
     require(qt.q.is_contiguous() and qt.scales.is_contiguous(),
@@ -248,7 +260,7 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
     m, k = x.shape
     n = qt.q.shape[-1]
     require(k == qt.k_dim, f"K mismatch: x {k} vs weight {qt.k_dim}")
-    dtype = build.dtype_code(x)
+    dtype, sdt = build.dtype_code(x), build.dtype_code(qt.scales)
     qp, sp = weight_ptrs(qt, layer)
     gs = qt.group_size
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -265,7 +277,7 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
         tk = build.tickets(x.device, tiles)
         err = lib.rama_qmv_mma(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
                                tk.data_ptr(), m, k, n, gs, qt.bits, bn, ks, sps, int(vec),
-                               stream)
+                               sdt, stream)
     elif body == "gemv":
         mt = rows_per_cta(m)
         col_tiles = -(-n // _QMV_COLS)
@@ -274,7 +286,7 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
                 if ks > 1 else y)
         tk = build.tickets(x.device, col_tiles * -(-m // mt))
         err = lib.rama_qmv(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
-                           tk.data_ptr(), m, k, n, gs, ks, bps, qt.bits, dtype, stream)
+                           tk.data_ptr(), m, k, n, gs, ks, bps, qt.bits, dtype, sdt, stream)
     elif body == "mma":
         vec = mma_vec(x, qt, qp, sp)
         bm, ks, sps = mma_plan(m, n, k, qt.k_block, vec)
@@ -283,10 +295,12 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
         tk = build.tickets(x.device, -(-m // bm) * -(-n // MMA_BN))
         err = lib.rama_qmm_mma(x.data_ptr(), qp, sp, y.data_ptr(), part.data_ptr(),
                                tk.data_ptr(), m, k, n, gs, qt.bits, bm, ks, sps, int(vec),
-                               stream)
+                               sdt, stream)
     else:
-        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, qt.bits, stream)
+        err = lib.rama_qmm(x.data_ptr(), qp, sp, y.data_ptr(), m, k, n, gs, qt.bits, sdt,
+                           stream)
     build.check(lib, err, f"quant_matmul (int{qt.bits}, {body})")
     launches[qt.bits] += 1
     launches_by_body[body] += 1
+    launches_by_scale[SCALE_NAMES[qt.scales.dtype]] += 1
     return y

@@ -6,7 +6,9 @@ scales, group_size contiguous input-dim elements per scale.
 
 Layout contract (kernel-facing), as in the JAX package:
     q:      int8, (.., K, N) for int8, (.., K//2, N) for int4
-    scales: fp32, (.., K//gs, N)    — one scale per (input-group, column)
+    scales: fp32 or bf16, (.., K//gs, N) — one scale per (input-group, column);
+            bf16 only after `cast_scales`, and every consumer (the plain
+            paths here, the kernels) upcasts them to fp32 before use
 INT4 packs two nibbles per byte in a *block-local split* layout: within each
 block of 2*gs consecutive K rows, byte row j (j < gs) holds logical row
 block_start + j in the low nibble and block_start + gs + j in the high
@@ -39,7 +41,7 @@ class QuantizedTensor:
     contiguous: the CUDA kernels assume row-major (.., K, N)."""
 
     q: torch.Tensor        # int8; (.., K, N) for int8, (.., K//2, N) for int4
-    scales: torch.Tensor   # fp32 (.., K//gs, N)
+    scales: torch.Tensor   # fp32 or bf16 (cast_scales) (.., K//gs, N)
     group_size: int
     bits: int = 8
     il: int = 0
@@ -68,7 +70,8 @@ class QuantizedTensor:
 @dataclass
 class QuantizedEmbedding:
     """Embedding table quantized per-row along the feature dim: q (V, D)
-    int8, scales (V, D//gs) fp32 — the v2 file's tok_embedding layout."""
+    int8, scales (V, D//gs) fp32 — the v2 file's tok_embedding layout — or
+    bf16 after cast_scales."""
 
     q: torch.Tensor
     scales: torch.Tensor
@@ -81,7 +84,7 @@ class QuantizedEmbedding:
 
     def lookup(self, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         rows = self.q[ids].float()                       # (.., D)
-        s = self.scales[ids]                             # (.., D//gs)
+        s = self.scales[ids].float()                     # (.., D//gs)
         *lead, d = rows.shape
         gs = self.group_size
         out = rows.reshape(*lead, d // gs, gs) * s[..., None]
@@ -188,6 +191,25 @@ def from_q80_file_layout(q_file: np.ndarray, s_file: np.ndarray,
     s = torch.from_numpy(np.ascontiguousarray(np.swapaxes(s_file, -1, -2),
                                               dtype=np.float32))
     return QuantizedTensor(q=q, scales=s, group_size=group_size, bits=8)
+
+
+def cast_scales(params: dict, dtype=torch.bfloat16) -> dict:
+    """Cast every quantized leaf's STORED scales to `dtype` (usually bf16),
+    as `rama_tpu/ops/quant.py:164 cast_scales` does: fewer weight bytes a
+    step for a <= 2^-9 relative rounding of each scale; every path upcasts
+    the scales to fp32 before use. Returns a new params dict; leaves that
+    are not quantized pass through unchanged."""
+
+    def one(p):
+        if isinstance(p, QuantizedTensor):
+            return QuantizedTensor(q=p.q, scales=p.scales.to(dtype).contiguous(),
+                                   group_size=p.group_size, bits=p.bits, il=p.il)
+        if isinstance(p, QuantizedEmbedding):
+            return QuantizedEmbedding(q=p.q, scales=p.scales.to(dtype).contiguous(),
+                                      group_size=p.group_size)
+        return p
+
+    return {k: one(v) for k, v in params.items()}
 
 
 def matmul_plain(x: torch.Tensor, qt: QuantizedTensor, dtype=None) -> torch.Tensor:

@@ -42,7 +42,11 @@ What it keeps from the JAX engine:
   prefills into the dense scratch as before and inserts the strips through
   the tables (K13's strip writer for the int8 pool); decode ticks and spec
   rounds (n-gram or draft; the draft model keeps its dense cache) run the
-  fused paged forward.
+  fused paged forward;
+- **bf16-stored weight scales** (`scale_dtype="bf16"`): the target's
+  params are fused, then `cast_scales` stores every quantized leaf's scales
+  in bf16 (the draft's stay as loaded, as in the JAX engine); the kernels
+  read them as they are.
 
 Not ported yet (ROADMAP.md): pipelined/chained ticks (and chained spec
 ticks), async-firsts admission, chunked prefill, tensor/data/sequence
@@ -71,6 +75,7 @@ from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables, ch
                                          decode_step, forward, forward_chunk, fuse_params)
 from rama_tpu_torch.ops.kernels import paged_attention
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
+from rama_tpu_torch.ops.quant import cast_scales
 from rama_tpu_torch.runtime.paged import (PageAllocator, PagedKVCache, QuantPagedKVCache,
                                           decode_step_paged, forward_paged,
                                           insert_prefill_paged)
@@ -155,7 +160,6 @@ _SPEC_PROBE_ROUNDS = 8
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
     ("prefill_chunk", 0, "chunked prefill"),
-    ("scale_dtype", None, "bf16-stored weight scales"),
     ("tp_size", 1, "tensor/data/sequence parallelism"),
     ("dp_size", 1, "tensor/data/sequence parallelism"),
     ("seq_par", False, "tensor/data/sequence parallelism"),
@@ -221,7 +225,9 @@ class Engine:
             # free slots, so stale table rows never touch a live page
             self.trash_page = self.ecfg.kv_num_pages or b * self.pages_per_slot
             self._check_paged(cfg, ps)
-        self.params = self._serving_params(cfg, params)
+        # the target's stored weight scales in scale_dtype; the draft's stay
+        # as loaded, as in the JAX engine (engine.py:693-699)
+        self.params = self._serving_params(cfg, params, self.ecfg.scale_dtype)
         self.cache = self._create_cache(b)
         self.dcfg = self.dparams = self.dcache = None
         if self.draft_mode:
@@ -260,14 +266,21 @@ class Engine:
             "draft_resyncs": 0,     # draft-cache gap replays
         }
 
-    def _serving_params(self, cfg: ModelConfig, params):
+    def _serving_params(self, cfg: ModelConfig, params, scale_dtype: str | None = None):
         """Fused params with RoPE tabulated out to the cache length
-        (long-context serving)."""
+        (long-context serving), and with scale_dtype "bf16" every quantized
+        leaf's scales stored in bf16 (cast after fusing, as
+        rama_tpu/runtime/engine.py:693-699 does)."""
         params = dict(params)
         if params["rope_cos"].shape[0] < self.max_len:
             params["rope_cos"], params["rope_sin"] = _rope_tables(
                 cfg, self.device, seq_len=self.max_len)
-        return fuse_params(params, cfg)
+        params = fuse_params(params, cfg)
+        if scale_dtype:
+            if scale_dtype != "bf16":
+                raise ValueError(f"unsupported scale_dtype {scale_dtype!r}")
+            params = cast_scales(params, torch.bfloat16)
+        return params
 
     def _create_draft_cache(self, batch: int) -> KVCache:
         return KVCache.create(self.dcfg, batch=batch, max_len=self.max_len,

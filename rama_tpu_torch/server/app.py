@@ -149,7 +149,8 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 max_seq_len: int | None = None, device: str = "cuda",
                 kv_quant: str | None = None, spec_tick: int = 0,
                 spec_mode: str = "ngram", spec_draft_model: str | None = None,
-                paged: bool = False, page_size: int = 128) -> Engine:
+                paged: bool = False, page_size: int = 128,
+                scale_dtype: str | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
@@ -163,14 +164,13 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
                         max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
                         spec_tick=spec_tick, spec_mode=spec_mode, paged_kv=paged,
-                        kv_page_size=page_size)
+                        kv_page_size=page_size, scale_dtype=scale_dtype)
     return Engine(cfg, params, tokenizer, ecfg, draft=draft)
 
 
 # server flags of the JAX package whose features are not ported yet:
 # (flag, attribute, value when unset, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("--scale-dtype", "scale_dtype", None, "bf16-stored weight scales"),
     ("--prefill-chunk", "prefill_chunk", 0, "chunked prefill"),
     ("--tp", "tp", 1, "tensor/data/sequence parallelism"),
     ("--dp", "dp", 1, "tensor/data/sequence parallelism"),
@@ -198,7 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "and --spec-tick)")
     ap.add_argument("--page-size", type=int, default=128)
     ap.add_argument("--kv-quant", default=None, choices=["int8"])
-    ap.add_argument("--scale-dtype", default=None, choices=["bf16"])
+    ap.add_argument("--scale-dtype", default=None, choices=["bf16"],
+                    help="store weight-quant scales in bf16 (fewer weight bytes a "
+                         "step for <=2^-9 scale rounding)")
     ap.add_argument("--spec-tick", type=int, default=0,
                     help="speculative serving: drafts per round, verified in one "
                          "chunk forward (0 = off)")
@@ -228,7 +230,8 @@ def main(argv=None) -> int:
                          args.batch, max_seq_len=args.max_seq_len, device=args.device,
                          kv_quant=args.kv_quant, spec_tick=args.spec_tick,
                          spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
-                         paged=args.paged, page_size=args.page_size)
+                         paged=args.paged, page_size=args.page_size,
+                         scale_dtype=args.scale_dtype)
     engine.start()
     try:
         host, _, port = args.address.rpartition(":")

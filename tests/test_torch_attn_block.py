@@ -122,6 +122,33 @@ def test_plain_matches_pallas(jax_out, name):
     np.testing.assert_array_equal(t["v"].numpy()[rows], c["vn"].reshape(-1, HD))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_full_form_with_bf16_scale_wo_matches_pallas(bits):
+    """The full form with a bf16-scale wo (cast_scales; on the card K1
+    applies it, no launch of its own): the plain version against rama_tpu's
+    attn_block_layered in interpret mode on the same bf16 scales, int8 and
+    int4, layer 1; the wrapper on CPU tensors is the plain version."""
+    from rama_tpu.ops.quant import cast_scales as j_cast
+    from rama_tpu_torch.ops.quant import cast_scales as t_cast
+
+    c = make_case(2, 2, 2, bits, [0, S - 1], seed=31)
+    jwo = j_cast({"wo": c["wo"]}, jnp.bfloat16)["wo"]
+    two = t_cast({"wo": _torch_wo(c["wo"])}, torch.bfloat16)["wo"]
+    assert two.scales.dtype == torch.bfloat16
+    np.testing.assert_array_equal(two.scales.view(torch.int16).numpy(),
+                                  np.asarray(jwo.scales).view(np.int16))
+    args = [jnp.asarray(c[k]) for k in ("q", "kn", "vn", "cos", "sin", "k", "v")]
+    want = np.asarray(jab.attn_block_layered(*args, jwo, jnp.asarray(c["pos"]), jnp.int32(1),
+                                             chunk=16, interpret=True)[0])
+    outs = []
+    for fn in (ab.attn_block_layered_plain, ab.attn_block_layered):
+        t = _t(c)
+        outs.append(fn(t["q"], t["kn"], t["vn"], t["cos"], t["sin"], t["k"], t["v"], two,
+                       t["pos"], 1))
+    np.testing.assert_allclose(outs[0].numpy(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("form", ["light", "full"])
 def test_positions_past_the_cache_clamp_to_the_last_row(form):
     """The port's overshoot rule: pos >= S writes and attends as pos S-1

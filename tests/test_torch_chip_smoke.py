@@ -454,6 +454,13 @@ def test_paged_paths_fail_on_a_missing_or_a_forbidden_kernel(smoke, path_name, m
             smoke.check_launches(path, {**ok, name: 1})
 
 
+def _quantized_leaf(sdtype):
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    return QuantizedTensor(q=torch.zeros(1, 64, 8, dtype=torch.int8),
+                           scales=torch.ones(1, 1, 8, dtype=sdtype), group_size=64)
+
+
 @pytest.mark.parametrize("free", [64, 63])
 def test_paged_serve_fails_unless_every_page_is_free_again(smoke, monkeypatch, free):
     """phase_serve on a paged engine holds the allocator to all
@@ -475,6 +482,7 @@ def test_paged_serve_fails_unless_every_page_is_free_again(smoke, monkeypatch, f
             assert ecfg.paged_kv and ecfg.kv_num_pages == smoke.PAGED_NUM_PAGES
             self.cache = PagedKVCache.create(cfg, 2, 8, device="cpu")
             self.allocator, self.n = FakeAllocator(), 0
+            self.params = {"wqkv": _quantized_leaf(torch.float32)}
 
         def start(self):
             pass
@@ -1075,3 +1083,240 @@ def test_check_split_body_reads_the_profiled_kernel_name(smoke, names, body, ok)
     else:
         with pytest.raises(SystemExit, match="split kernel"):
             smoke.check_split_body("x", parts, body)
+
+
+# -- bf16-stored weight scales ---------------------------------------------------
+
+S16_PHASES = ("kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16")
+
+
+def test_s16_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in S16_PHASES:
+        assert ph in smoke.ALL_PHASES
+    assert smoke.INT4_S16_PATH in smoke.PATHS
+    assert smoke.INT4_S16_PATH["phases"] == ("model4_s16", "serve4_s16", "profile4_s16")
+    assert smoke.INT4_S16_PATH["serve"] == {"scale_dtype": "bf16"}
+    assert "model_s16" in smoke.INT8_PATH["after"]
+    # the bf16-scale path follows the f32 int4 one, on the same params
+    assert smoke.PATHS.index(smoke.INT4_S16_PATH) == smoke.PATHS.index(smoke.INT4_PATH) + 1
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    for ph in S16_PHASES:
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != ph), dev)
+        assert line == {"ok": False, "skipped_phases": [ph], "device": dev}
+        assert rc == smoke.PARTIAL_RC != 0
+
+
+def test_scale_counts_are_read_and_reset(smoke, counters):
+    qm, ffn = counters[0], counters[1]
+    saved = dict(qm.launches_by_scale), dict(ffn.launches_by_scale)
+    try:
+        qm.launches_by_scale.update(f32=3, bf16=5)
+        ffn.launches_by_scale.update(f32=2, bf16=7)
+        got = smoke.read_launches(*counters)
+        assert (got["quant_matmul_scale_f32"], got["quant_matmul_scale_bf16"],
+                got["ffn_scale_f32"], got["ffn_scale_bf16"]) == (3, 5, 2, 7)
+        smoke.reset_launches(*counters)
+        assert qm.launches_by_scale == ffn.launches_by_scale == {"f32": 0, "bf16": 0}
+    finally:
+        qm.launches_by_scale.update(saved[0])
+        ffn.launches_by_scale.update(saved[1])
+
+
+def _s16_ok(path, bf16: bool) -> dict:
+    """Launch counts that pass `path`: every kernel it records 64 times,
+    each K1 / K2 / K3 launch on a tensor-core body and reading the path's
+    scale dtype."""
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0,
+          "quant_matmul_mmv": 64, "quant_matmul_gemv": 0, "quant_matmul_mma": 64,
+          "quant_matmul_simt": 0, "ffn_mma": 64, "ffn_simt": 0,
+          "quant_matmul_scale_f32": 0 if bf16 else 128, "quant_matmul_scale_bf16":
+          128 if bf16 else 0, "ffn_scale_f32": 0 if bf16 else 64,
+          "ffn_scale_bf16": 64 if bf16 else 0}
+    for k, ref in path.get("equal", {}).items():
+        ok[k] = ok[ref]
+    return ok
+
+
+def test_s16_path_needs_every_matmul_and_ffn_launch_on_bf16_scales(smoke):
+    """On the bf16-scale path one K1 / K2 or K3 launch that read f32 scales
+    fails the path, and so does a path without a bf16-scale launch of
+    either; the records take the bf16-scale counts as their launches."""
+    path = smoke.INT4_S16_PATH
+    assert path["scales"] == "bf16"
+    assert path["record"]["quant_matmul_scale_bf16"] == "launches"
+    assert path["record"]["ffn_scale_bf16"] == "launches"
+    ok = _s16_ok(path, bf16=True)
+    smoke.check_launches(path, ok)
+    for name in ("quant_matmul", "ffn"):
+        with pytest.raises(SystemExit, match="read f32 weight scales"):
+            smoke.check_launches(path, {**ok, f"{name}_scale_f32": 1})
+    with pytest.raises(SystemExit, match="never launched"):
+        smoke.check_launches(path, {**ok, "ffn_scale_bf16": 0})
+
+
+@pytest.mark.parametrize("path_name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "SPEC_DRAFT_PATH",
+                                       "SPEC_KV8_PATH", "PAGED_PATH", "PAGED_KV8_PATH",
+                                       "SPEC_PAGED_PATH", "SPEC_PAGED_KV8_PATH", "AB1_PATH",
+                                       "AB2_PATH", "PREFILL_T1_PATH", "INT4_PATH",
+                                       "AB2_INT4_PATH"])
+def test_f32_scale_paths_fail_on_a_bf16_scale_launch(smoke, path_name):
+    path = getattr(smoke, path_name)
+    assert path.get("scales", "f32") == "f32"
+    ok = _s16_ok(path, bf16=False)
+    smoke.check_launches(path, ok)
+    for name in ("quant_matmul", "ffn"):
+        with pytest.raises(SystemExit, match="read bf16 weight scales"):
+            smoke.check_launches(path, {**ok, f"{name}_scale_bf16": 1})
+
+
+def test_bytes_count_two_byte_scales(smoke):
+    """Bytes and bounds of the bf16-scale forms: the same weights with
+    2-byte scales (7B int4 wqkv 28.6 -> 27.0 MB at M = 8; K3' int4 84.7 ->
+    76.2 MB and K3 int8 143.9 -> 139.6 MB at M = 8)."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor, cast_scales
+
+    def w(k, n, gs, bits, sdtype):
+        rows = k // 2 if bits == 4 else k
+        return QuantizedTensor(q=torch.zeros(1, rows, n, dtype=torch.int8),
+                               scales=torch.ones(1, k // gs, n, dtype=sdtype), group_size=gs,
+                               bits=bits)
+
+    for sdtype, want in ((torch.float32, 28.6), (torch.bfloat16, 27.0)):
+        assert round(smoke.matmul_bytes(w(4096, 12288, 64, 4, sdtype), 8) / 1e6, 1) == want
+    got = [round(smoke.ffn_bytes(w(4096, 22016, 64, bits, sd), w(11008, 4096, gs2, bits, sd),
+                                 m) / 1e6, 1)
+           for bits, gs2, m in ((4, 16, 8), (8, 64, 8))
+           for sd in (torch.float32, torch.bfloat16)]
+    assert got == [84.7, 76.2, 143.9, 139.6]
+    wb = cast_scales({"w": w(4096, 4096, 64, 8, torch.float32)}, torch.bfloat16)["w"]
+    assert smoke.matmul_bytes(wb, 1) == 4096 * 4096 + 64 * 4096 * 2 + 1 * 8192 * 2
+
+
+@pytest.mark.parametrize("fault", [None, "not bit for bit", "f32 launch", "other body"])
+def test_check_s16_needs_a_bf16_launch_equal_to_the_f32_one(smoke, fault):
+    """check_s16 passes one bf16-scale launch on the expected body that
+    equals the same body on scales.float() bit for bit; it fails a launch
+    that differs by one ulp, one counted as an f32-scale launch, and one on
+    another body."""
+    bodies, scales = {"mma": 0, "simt": 0}, {"f32": 0, "bf16": 0}
+    want = torch.randn(4, 16, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
+
+    def call(s):
+        bodies["simt" if fault == "other body" else "mma"] += 1
+        scales["f32" if (s == "f32" or fault == "f32 launch") else "bf16"] += 1
+        if s == "bf16" and fault == "not bit for bit":
+            return want + want.abs() * 2 ** -7
+        return want.clone()
+
+    if fault is None:
+        smoke.check_s16(torch, "fake", call, lambda: want.float(), bodies, "mma", scales)
+        return
+    with pytest.raises(SystemExit, match="bit for bit|bf16-scale launch|launches by body"):
+        smoke.check_s16(torch, "fake", call, lambda: want.float(), bodies, "mma", scales)
+
+
+@pytest.mark.parametrize("sdtype", [torch.bfloat16, torch.float32])
+def test_s16_serve_checks_the_engine_serves_bf16_scales(smoke, monkeypatch, sdtype):
+    """phase_serve hands scale_dtype to the engine and fails unless the
+    engine's quantized params hold scales of that dtype (an engine stand-in
+    that streams two tokens a request)."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import KVCache
+    from rama_tpu_torch.runtime import engine as eng_mod
+
+    cfg = ModelConfig(dim=64, hidden_dim=96, n_layers=1, n_heads=4, n_kv_heads=4,
+                      vocab_size=8, seq_len=32)
+    seen = {}
+
+    class FakeEngine:
+        def __init__(self, cfg, params, tokenizer, ecfg, draft=None):
+            seen["scale_dtype"] = ecfg.scale_dtype
+            self.cache = KVCache.create(cfg, 2, 8, device="cpu")
+            self.params = {"wqkv": _quantized_leaf(sdtype), "norm": torch.ones(4)}
+            self.n = 0
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def submit(self, req, timeout=None):
+            for tok in ("a", "b", None):
+                req.queue.put(tok)
+            self.n += 2
+
+        def stats(self):
+            return {"tokens_generated": self.n, "engine_errors": 0, "decode_tok_per_s": 1.0,
+                    "spec_accept_rate": None, "decode_ticks": 1, "phases": {}}
+
+    monkeypatch.setattr(eng_mod, "Engine", FakeEngine)
+    if sdtype == torch.bfloat16:
+        smoke.phase_serve(torch, cfg, None, None, "card", tag="serve4_s16",
+                          **smoke.INT4_S16_PATH["serve"])
+        assert seen["scale_dtype"] == "bf16"
+    else:
+        with pytest.raises(SystemExit, match="serves weight scales stored as"):
+            smoke.phase_serve(torch, cfg, None, None, "card", tag="serve4_s16",
+                              **smoke.INT4_S16_PATH["serve"])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_model_s16_phase_on_a_tiny_model(smoke, bits):
+    """phase_model on a tiny model with bf16-stored scales (cast_scales, as
+    model_s16 / model4_s16 run it) on the CPU: the kernel path (the plain
+    versions here) against the plain path."""
+    from rama_tpu_torch.ops.quant import cast_scales
+
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import fuse_params, quantize_params
+
+    # the phase's prompt holds Llama token ids: a 32000-token vocabulary
+    cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=1, n_heads=4, n_kv_heads=2,
+                      vocab_size=32000, seq_len=64)
+    rng = np.random.default_rng(4)
+    D, H, V = 64, 176, 32000
+    p = {n: (rng.standard_normal(sh) * 0.05).astype(np.float32) for n, sh in {
+        "tok_embedding": (V, D), "wq": (1, D, D), "wk": (1, D, 32), "wv": (1, D, 32),
+        "wo": (1, D, D), "w1": (1, D, H), "w2": (1, H, D), "w3": (1, D, H)}.items()}
+    p.update(attn_norm=np.ones((1, D), np.float32), ffn_norm=np.ones((1, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    params = cast_scales(fuse_params(quantize_params(cfg, p, bits=bits, group_size=16,
+                                                     dtype=torch.float32, device="cpu"), cfg))
+    assert params["w2"].scales.dtype == params["wcls"].scales.dtype == torch.bfloat16
+    smoke.phase_model(torch, cfg, params, f"tiny int{bits} bf16-scale", dev=torch.device("cpu"))
+
+
+def test_step_weight_bytes_of_7b_with_f32_and_bf16_scales(smoke):
+    """A 7B decode step streams 4.053 GB of int4 weights and f32 scales
+    (int8 7.020 GB); with bf16 scales 3.711 GB (int8 6.814 GB): the layer
+    matrices and the int8 classifier, the embedding left out. Meta tensors:
+    shapes only."""
+    from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
+
+    D, H, V, L = 4096, 11008, 32000, 32
+
+    def qt(k, n, gs, bits, sdtype, lead=(L,)):
+        rows = k // 2 if bits == 4 else k
+        return QuantizedTensor(q=torch.empty(*lead, rows, n, dtype=torch.int8, device="meta"),
+                               scales=torch.empty(*lead, k // gs, n, dtype=sdtype,
+                                                  device="meta"), group_size=gs, bits=bits)
+
+    got = {}
+    for bits, gs2 in ((4, 16), (8, 64)):
+        for sdtype in (torch.float32, torch.bfloat16):
+            params = {"wqkv": qt(D, 3 * D, 64, bits, sdtype), "wo": qt(D, D, 64, bits, sdtype),
+                      "w13": qt(D, 2 * H, 64, bits, sdtype), "w2": qt(H, D, gs2, bits, sdtype),
+                      "wcls": qt(D, V, 64, 8, sdtype, lead=()),
+                      "tok_embedding": QuantizedEmbedding(
+                          q=torch.empty(V, D, dtype=torch.int8, device="meta"),
+                          scales=torch.empty(V, D // 64, dtype=sdtype, device="meta"),
+                          group_size=64),
+                      "final_norm": torch.empty(D, device="meta")}
+            got[bits, sdtype] = round(smoke.step_weight_bytes(params) / 1e9, 3)
+    assert got == {(4, torch.float32): 4.053, (4, torch.bfloat16): 3.711,
+                   (8, torch.float32): 7.020, (8, torch.bfloat16): 6.814}
+

@@ -1,7 +1,8 @@
 """rama_tpu_torch.cli `generate` end to end on tiny checkpoints on the CPU:
 flags parse, v0 and v2 checkpoints load (dense, or quantized to int8 or
-int4 at load), streams equal rama_tpu's CLI greedy output, --spec runs, unported flags exit with the ROADMAP item, and the default
-device is cuda (raising without a GPU)."""
+int4 at load), streams equal rama_tpu's CLI greedy output, --spec and
+--scale-dtype bf16 run, unported flags exit with the ROADMAP item, and the
+default device is cuda (raising without a GPU)."""
 
 import pytest
 import torch
@@ -68,9 +69,25 @@ def test_parity_loop_flag(artifacts, capsys):
 def test_unported_flags_exit_with_roadmap_item(artifacts, capsys, flags, item):
     """Unported flags exit 2 naming the ROADMAP item; --spec is ported: it
     runs speculative generation, prints its [spec] line and the greedy text
-    of --spec off."""
+    of --spec off; --scale-dtype is ported: bf16 scales on the v2 file's
+    int8 weights (and on int4 at load) give rama_tpu's CLI's greedy text
+    under the same flag, and any other value is refused by argparse in
+    both (exit 2)."""
     model, _, tok = artifacts
     argv = ["generate", "-m", model, "-t", tok, "--device", "cpu", *flags]
+    if flags[0] == "--scale-dtype":
+        for path, quant in ((artifacts[1], "auto"), (artifacts[0], "int4")):
+            common = ["generate", "-m", path, "-t", tok, "-p", "abc", "-s", "12", "-r", "0",
+                      "--dtype", "float32", "--quant", quant, *flags]
+            rc, out, err = run(common + ["--device", "cpu"], capsys)
+            assert rc == 0 and "tok/s" in err
+            rc_j, out_j, _ = run(common + ["--platform", "cpu"], capsys, fn=j_main)
+            assert rc_j == 0 and out == out_j
+        for fn in (main, j_main):
+            with pytest.raises(SystemExit) as exc:
+                fn(["generate", "-m", model, "-t", tok, "--scale-dtype", "fp16"])
+            assert exc.value.code == 2
+        return
     if flags[0] == "--spec":
         greedy = ["-p", "abc", "-s", "12", "-r", "0", "--dtype", "float32"]
         rc, out, err = run(argv + greedy, capsys)

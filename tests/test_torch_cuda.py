@@ -320,6 +320,150 @@ def test_ffn_int4(dev, m, il, dtype):
         assert ffn.launches[4] == before + 1
 
 
+# -- bf16-stored weight scales (cast_scales) ---------------------------------
+
+
+def _as_bf16_scales(w):
+    """(w with bf16-stored scales, the same weight with those scales as f32:
+    bf16 -> f32 is exact, so a body must give both the same bits)."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor, cast_scales
+
+    wb = cast_scales({"w": w}, torch.bfloat16)["w"]
+    wf = QuantizedTensor(q=wb.q, scales=wb.scales.float(), group_size=wb.group_size,
+                         bits=wb.bits, il=wb.il)
+    return wb, wf
+
+
+# (bits, gs, K, N): the cp.async path (int8 gs 64, int4 gs 16 at N 384), the
+# masked path (int8 gs 32 at N 1000, int4 gs 2 at K 288 / N 1000), int4 gs 48
+# (a packing block straddling slabs), and 7B-deep K through the split plans
+# (int8 wo gs 64, int4 w2 gs 16)
+_S16_CASES = [(8, 64, 256, 384), (8, 32, 288, 1000), (4, 16, 256, 384), (4, 2, 288, 1000),
+              (4, 48, 768, 384), (8, 64, 4096, 4096), (4, 16, 11008, 512)]
+# (M, activation dtype) of each quant_matmul body: the swap-AB body (bf16 M
+# <= 32), the GEMM (bf16 M > 32), the fp32 GEMV (M <= 8), the fp32 tiled GEMM
+_S16_BODIES = {"mmv": ((1, torch.bfloat16), (8, torch.bfloat16), (17, torch.bfloat16),
+                       (32, torch.bfloat16)),
+               "mma": ((33, torch.bfloat16), (256, torch.bfloat16)),
+               "gemv": ((1, torch.float32), (8, torch.float32)),
+               "simt": ((9, torch.float32), (64, torch.float32))}
+
+
+@pytest.mark.parametrize("body", list(_S16_BODIES))
+@pytest.mark.parametrize("case", _S16_CASES)
+def test_quant_matmul_bf16_scales_equal_f32_scales_bit_for_bit(dev, body, case):
+    """Every quant_matmul body with bf16-stored scales: one launch on the
+    body body_for picks, counted as a bf16-scale launch, equal bit for bit
+    to the same body fed scales.float() (the plan depends on the shapes
+    alone), within the bar of the plain version, at layer 0 and layer 2 of
+    a stacked weight (whose bf16 scales start 2 * stride(0) * 2 bytes in),
+    and at layer 2 equal to the 2-D slice of that layer: a stacked
+    weight's launch reads its own layer's scales."""
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    bits, gs, k, n = case
+    seed = k + n + gs + bits
+    w = _int4_qt(dev, 3, k, n, gs, seed) if bits == 4 else _qt(dev, 3, k, n, gs, seed)
+    assert w.group_size == gs
+    wb, wf = _as_bf16_scales(w)
+    w2d = QuantizedTensor(q=wb.q[2].contiguous(), scales=wb.scales[2].contiguous(),
+                          group_size=gs, bits=bits)
+    for m, dtype in _S16_BODIES[body]:
+        x = torch.randn(m, k, device=dev).to(dtype)
+        for layer in (0, 2):
+            before, scales = dict(qm.launches_by_body), dict(qm.launches_by_scale)
+            got = qm.quant_matmul(x, wb, layer)
+            assert {b: qm.launches_by_body[b] - before[b] for b in before} == {
+                b: int(b == body) for b in before}
+            assert {s: qm.launches_by_scale[s] - scales[s] for s in scales} == {
+                "f32": 0, "bf16": 1}
+            assert torch.equal(got, qm.quant_matmul(x, wf, layer))
+            _close_k(got, qm.quant_matmul_plain(x, wb, layer), dtype)
+        assert torch.equal(got, qm.quant_matmul(x, w2d))
+
+
+@pytest.mark.parametrize("m", [1, 9, 32])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", list(_FFN_SHAPES) + ["7B"])
+def test_ffn_bf16_scales_equal_f32_scales_bit_for_bit(dev, m, bits, shape):
+    """K3 / K3' with bf16-stored scales on both bodies (bf16: the
+    tensor-core body, both phases; fp32: the CUDA-core GEMVs, at the small
+    shapes), the tiny (masked), stories15M and 256-wide shapes and the 7B
+    one (the split plans; il 256): bit for bit the same bodies fed
+    scales.float(), at layer 0 and layer 1, within the bar of the plain
+    version, counted as bf16-scale calls."""
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    if shape == "7B":
+        (k, h, n), tile, gs8, gs4 = (4096, 11008, 4096), 256, (64, 64), (64, 16)
+    else:
+        (k, h, n), tile, gs8, gs4 = _FFN_SHAPES[shape]
+    if bits == 8:
+        w13, w2 = _qt(dev, 2, k, 2 * h, gs8[0], seed=m + k), _qt(dev, 2, h, n, gs8[1], seed=h)
+    else:
+        w13, w2 = (_int4_qt(dev, 2, k, 2 * h, gs4[0], seed=m + k),
+                   _int4_qt(dev, 2, h, n, gs4[1], seed=h))
+    w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=w13.group_size, bits=bits,
+                          il=tile)
+    (b13, f13), (b2, f2) = _as_bf16_scales(w13), _as_bf16_scales(w2)
+    assert b13.il == tile
+    dtypes = (torch.bfloat16,) if shape == "7B" else (torch.bfloat16, torch.float32)
+    for dtype in dtypes:
+        x = torch.randn(m, k, device=dev).to(dtype)
+        for layer in (0, 1):
+            scales = dict(ffn.launches_by_scale)
+            got = ffn.ffn(x, b13, b2, layer)
+            assert {s: ffn.launches_by_scale[s] - scales[s] for s in scales} == {
+                "f32": 0, "bf16": 1}
+            assert torch.equal(got, ffn.ffn(x, f13, f2, layer))
+            _close(got, ffn.ffn_plain(x, b13, b2, layer), torch.bfloat16)
+
+
+def test_wrappers_refuse_fp16_scales(dev):
+    """K1 / K2 and K3 take f32 or bf16 scales and raise on any other scale
+    dtype; they never upcast the scales into a temporary copy."""
+    from rama_tpu_torch.ops.kernels import ffn
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import cast_scales
+
+    w = cast_scales({"w": _qt(dev, 2, 256, 384, 64, seed=3)}, torch.float16)["w"]
+    for m, dtype in ((1, torch.bfloat16), (64, torch.bfloat16), (1, torch.float32)):
+        with pytest.raises(ValueError, match="float32 or bfloat16 scales"):
+            qm.quant_matmul(torch.randn(m, 256, device=dev).to(dtype), w, 0)
+    w13 = cast_scales({"w": _qt(dev, 2, 256, 512, 64, seed=1)}, torch.float16)["w"]
+    w2 = _qt(dev, 2, 256, 192, 64, seed=2)
+    with pytest.raises(ValueError, match="float32 or bfloat16 scales"):
+        ffn.ffn(torch.randn(8, 256, device=dev).to(torch.bfloat16), w13, w2, 1)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attn_block_full_form_with_bf16_scale_wo(dev, bits, dtype):
+    """K14's full form with a bf16-scale wo (K1 applies it): bit for bit the
+    same form with wo's scales as f32, within the bar of its plain version."""
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    b, nkv, rep, s = 8, 2, 2, 200
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=41)
+    wb, wf = _as_bf16_scales(_qt(dev, 2, nkv * rep * 128, 384, 64, seed=9, bits=bits))
+    pos = torch.tensor([0, 63, 64, 65, 127, 128, 150, 199], dtype=torch.int32, device=dev)
+    outs = []
+    for wo, plain in ((wb, False), (wf, False), (wb, True)):
+        caches = [t.clone() for t in before]
+        outs.append(_ab_call(ab, bits, wo, (q, kn, vn, cos, sin), caches, pos, 1, plain=plain))
+    assert torch.equal(outs[0], outs[1])
+    _close_k(outs[0], outs[2], dtype)
+
+
+def test_tiny_model_bf16_scale_logits_kernels_equal_plain(dev):
+    """The tiny int4 model with bf16-stored scales (cast_scales after
+    fusing) in fp32: kernel-path logits equal the plain path's (atol 1e-3),
+    greedy continuations agree."""
+    _check_tiny_model(dev, bits=4, scale_dtype=torch.bfloat16)
+
+
 @pytest.mark.parametrize("nh,nkv,hd", [(4, 4, 128), (4, 2, 48), (8, 1, 16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention(dev, nh, nkv, hd, dtype):
@@ -390,7 +534,7 @@ def test_tiny_model_int4_logits_kernels_equal_plain(dev):
     _check_tiny_model(dev, bits=4)
 
 
-def _check_tiny_model(dev, bits):
+def _check_tiny_model(dev, bits, scale_dtype=None):
     import numpy as np
 
     from rama_tpu_torch.config import ModelConfig
@@ -408,6 +552,11 @@ def _check_tiny_model(dev, bits):
              final_norm=np.ones(D, np.float32))
     params = fuse_params(quantize_params(cfg, p, bits=bits, group_size=16,
                                          dtype=torch.float32, device=dev), cfg)
+    if scale_dtype is not None:
+        from rama_tpu_torch.ops.quant import cast_scales
+
+        params = cast_scales(params, scale_dtype)
+        assert params["w2"].scales.dtype == params["wcls"].scales.dtype == scale_dtype
     toks = torch.tensor([[1, 3, 42, 7, 11]], device=dev)
     caches = [KVCache.create(cfg, 1, 24, dtype=torch.float32, device=dev) for _ in range(2)]
     lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)

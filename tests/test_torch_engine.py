@@ -283,8 +283,24 @@ def test_unported_engine_config_raises(engine_setup, field, value):
     "int8" and refuses any other value with ValueError, as in rama_tpu;
     spec_tick is ported and refuses draft mode without a draft model;
     paged_kv is ported: a page pool of pages_per_slot pages a slot plus
-    one trash page."""
-    _, cfg, _, params, tok = engine_setup
+    one trash page; scale_dtype is ported for "bf16" (every quantized
+    leaf's scales stored in bf16) and refuses any other value with
+    rama_tpu's ValueError."""
+    _, cfg, np_params, params, tok = engine_setup
+    if field == "scale_dtype":
+        from rama_tpu_torch.models.llama import quantize_params
+        from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
+
+        qp = quantize_params(cfg, np_params, bits=8, group_size=16, dtype=torch.float32,
+                             device="cpu")
+        eng = Engine(cfg, qp, tok, EngineConfig(max_batch_size=2, **{field: value}))
+        quant = [p for p in eng.params.values()
+                 if isinstance(p, (QuantizedTensor, QuantizedEmbedding))]
+        assert len(quant) == 6 and all(p.scales.dtype == torch.bfloat16 for p in quant)
+        assert qp["wq"].scales.dtype == torch.float32   # the caller's params unchanged
+        with pytest.raises(ValueError, match="unsupported scale_dtype 'fp16'"):
+            Engine(cfg, qp, tok, EngineConfig(**{field: "fp16"}))
+        return
     if field == "paged_kv":
         from rama_tpu_torch.runtime.paged import PagedKVCache
 
@@ -317,3 +333,61 @@ def test_bucket_k_matches_jax(args):
                                       (2048, 3), (16, 1)])
 def test_prefill_k_cap_matches_jax(t_pad, dp):
     assert eng_mod._prefill_k_cap(t_pad, dp) == j_engine._prefill_k_cap(t_pad, dp)
+
+
+def _jax_tokenizer(vocab_size: int):
+    from rama_tpu.tokenizer import Tokenizer as JTok
+
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(ord("a") + i % 26) + ("" if i < 26 else str(i // 26))
+                                        for i in range(vocab_size - 3)]
+    return JTok(vocab, [0.0] * vocab_size, max_token_length=4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_bf16_scale_engine_streams_match_jax(engine_setup, bits):
+    """Greedy streams of a scale_dtype="bf16" engine equal the JAX engine's
+    with the same setting, on the same int8 / int4 weights; the port's
+    params hold bf16 scales, fused then cast as the JAX engine does."""
+    import jax.numpy as jnp
+
+    from rama_tpu.config import EngineConfig as JEcfg
+    from rama_tpu.models import llama as jl
+    from rama_tpu.runtime.engine import Engine as JEngine
+    from rama_tpu.runtime.engine import Request as JRequest
+    from rama_tpu_torch.models.llama import quantize_params
+
+    jcfg, cfg, np_params, _, tok = engine_setup
+    jp = jl.quantize_params(jcfg, np_params, bits=bits, group_size=16, dtype=jnp.float32)
+    tp = quantize_params(cfg, np_params, bits=bits, group_size=16, dtype=torch.float32,
+                         device="cpu")
+    specs = (("abc", 10), ("zq", 6), ("hello", 8))
+    jeng = JEngine(jcfg, jp, _jax_tokenizer(cfg.vocab_size),
+                   JEcfg(max_batch_size=4, scale_dtype="bf16"))
+    jeng.start()
+    try:
+        jreqs = [JRequest(prompt=p, steps=n, temperature=0.0) for p, n in specs]
+        for r in jreqs:
+            jeng.submit(r)
+        want = [collect(r) for r in jreqs]
+    finally:
+        jeng.stop()
+    eng, got = serve(cfg, tp, tok, EngineConfig(max_batch_size=4, scale_dtype="bf16"),
+                     [Request(prompt=p, steps=n, temperature=0.0) for p, n in specs])
+    assert eng.params["wqkv"].scales.dtype == eng.params["w13"].scales.dtype == torch.bfloat16
+    assert eng.params["w13"].bits == bits and eng.stats()["engine_errors"] == 0
+    assert got == want
+
+
+def test_bf16_scale_engine_leaves_the_draft_scales_as_loaded(engine_setup):
+    """scale_dtype casts the target's scales only; a quantized draft keeps
+    its f32 scales, as the JAX engine leaves its draft's."""
+    from rama_tpu_torch.models.llama import quantize_params
+
+    _, cfg, np_params, _, tok = engine_setup
+    qp = quantize_params(cfg, np_params, bits=8, group_size=16, dtype=torch.float32,
+                         device="cpu")
+    eng = Engine(cfg, qp, tok, EngineConfig(max_batch_size=2, scale_dtype="bf16",
+                                            spec_tick=2, spec_mode="draft"),
+                 draft=(cfg, qp))
+    assert eng.params["wqkv"].scales.dtype == torch.bfloat16
+    assert eng.dparams["wqkv"].scales.dtype == eng.dparams["wo"].scales.dtype == torch.float32

@@ -96,6 +96,33 @@ def _check_plain_matches_pallas(jp, interleaved, m, dtype, layer):
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,dtype", [(1, "float32"), (8, "float32"), (32, "float32"),
+                                     (8, "bfloat16")])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_bf16_scales_plain_matches_pallas(fused, fused4, bits, m, dtype, layer):
+    """K3 / K3' with bf16-stored scales: the plain version on the port's
+    cast_scales params against ffn_fused_layered in interpret mode on
+    rama_tpu's cast_scales params (the same bf16 scales, bit for bit),
+    int8 and int4, layer 0 and layer 1 (whose scales a wrong element-size
+    offset would miss); the tolerance of the f32-scale test above."""
+    from rama_tpu.ops import quant as jq
+    from rama_tpu_torch.ops import quant as tq
+
+    jp, tp = fused if bits == 8 else fused4
+    jp, tp = jq.cast_scales(jp, jnp.bfloat16), tq.cast_scales(tp, torch.bfloat16)
+    for name in ("w13", "w2"):
+        assert tp[name].scales.dtype == torch.bfloat16 and tp[name].il == jp[name].il
+        np.testing.assert_array_equal(tp[name].scales.view(torch.int16).numpy(),
+                                      np.asarray(jp[name].scales).view(np.int16))
+    x = np.random.default_rng(7).standard_normal((m, CFG.dim)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(ffn_fused_layered(jnp.asarray(x, jd), jp["w13"], jp["w2"],
+                                        jnp.int32(layer), interpret=True).astype(jnp.float32))
+    got = ffn_plain(torch.from_numpy(x).to(td), tp["w13"], tp["w2"], layer).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
 def test_split_h13_matches_jax(fused):
     jp, tp = fused
     h = np.arange(3 * 1024, dtype=np.float32).reshape(3, 1024)
@@ -106,14 +133,18 @@ def test_split_h13_matches_jax(fused):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cpu_wrapper_dispatches_to_plain(fused, fused4, bits):
+    from rama_tpu_torch.ops import quant as tq
     from rama_tpu_torch.ops.kernels import ffn as mod
 
     _, tp = fused if bits == 8 else fused4
     x = torch.randn(2, CFG.dim)
-    before = dict(mod.launches)
+    before = dict(mod.launches), dict(mod.launches_by_scale)
     torch.testing.assert_close(t_ffn(x, tp["w13"], tp["w2"], 1),
                                ffn_plain(x, tp["w13"], tp["w2"], 1), rtol=0, atol=0)
-    assert mod.launches == before
+    tb = tq.cast_scales(tp, torch.bfloat16)
+    torch.testing.assert_close(t_ffn(x, tb["w13"], tb["w2"], 1),
+                               ffn_plain(x, tb["w13"], tb["w2"], 1), rtol=0, atol=0)
+    assert (mod.launches, mod.launches_by_scale) == before
 
 
 # -- the card body's dispatch and plan (pure Python; the kernels run only on

@@ -159,3 +159,73 @@ def test_matmul_plain_int4_matches_matmul_xla(dtype):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-2,
                                    atol=2e-2 * np.abs(want).max())
+
+
+def _bf16_bits(a) -> np.ndarray:
+    """The 16-bit patterns of a bf16 array (JAX's ml_dtypes or a torch tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
+
+
+def _leaves(seed=7):
+    """int8, int4 and embedding leaves of both packages from one numpy seed,
+    plus a dense leaf that cast_scales must pass through."""
+    rng = np.random.default_rng(seed)
+    w8 = (rng.standard_normal((2, 128, 96)) * 0.05).astype(np.float32)
+    w4 = (rng.standard_normal((2, 256, 64)) * 0.05).astype(np.float32)
+    emb = rng.standard_normal((50, 64)).astype(np.float32)
+    norm = rng.standard_normal(64).astype(np.float32)
+    jp = {"wqkv": jq.quantize_int8(w8, 32), "w2": jq.quantize_int4(w4, 16),
+          "tok_embedding": jq.quantize_embedding(emb, 16), "final_norm": jnp.asarray(norm)}
+    tp = {"wqkv": tq.quantize_int8(w8, 32), "w2": tq.quantize_int4(w4, 16),
+          "tok_embedding": tq.quantize_embedding(emb, 16),
+          "final_norm": torch.from_numpy(norm)}
+    return jp, tp
+
+
+def test_cast_scales_bit_identical():
+    """The port's cast_scales equals rama_tpu's on every quantized leaf --
+    dtype bf16 and the same 16 bits for every scale -- keeps q, group size,
+    bits and il, and passes other leaves through unchanged."""
+    jp, tp = _leaves()
+    want, got = jq.cast_scales(jp, jnp.bfloat16), tq.cast_scales(tp, torch.bfloat16)
+    assert set(got) == set(want)
+    for name in ("wqkv", "w2", "tok_embedding"):
+        assert got[name].scales.dtype == torch.bfloat16, name
+        assert np.asarray(want[name].scales).dtype == jnp.bfloat16, name
+        assert got[name].scales.is_contiguous()
+        np.testing.assert_array_equal(_bf16_bits(got[name].scales),
+                                      _bf16_bits(want[name].scales))
+        assert got[name].q is tp[name].q and got[name].group_size == tp[name].group_size
+    assert (got["wqkv"].bits, got["w2"].bits) == (8, 4)
+    assert got["final_norm"] is tp["final_norm"]
+    # the input dict is not changed
+    assert tp["wqkv"].scales.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_scale_plain_paths_upcast_like_jax(dtype):
+    """With bf16-stored scales, dequantize, the embedding lookup and
+    matmul_plain upcast the scales to fp32 before use, as rama_tpu does:
+    equal to JAX's on cast_scales params (int8 and int4 weights)."""
+    jp, tp = _leaves(8)
+    jp, tp = jq.cast_scales(jp, jnp.bfloat16), tq.cast_scales(tp, torch.bfloat16)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    for name in ("wqkv", "w2"):
+        want = np.asarray(jq.dequantize(jp[name], jd).astype(jnp.float32))
+        np.testing.assert_array_equal(tq.dequantize(tp[name], td).float().numpy(), want)
+        # layer 1 of the stacked weight as a 2-D one
+        j1 = jq.QuantizedTensor(q=jp[name].q[1], scales=jp[name].scales[1],
+                                group_size=jp[name].group_size, bits=jp[name].bits)
+        t1 = tq.QuantizedTensor(q=tp[name].q[1], scales=tp[name].scales[1],
+                                group_size=tp[name].group_size, bits=tp[name].bits)
+        x = np.random.default_rng(9).standard_normal((3, t1.k_dim)).astype(np.float32)
+        want = np.asarray(jq.matmul_xla(jnp.asarray(x, jd), j1, dtype=jd).astype(jnp.float32))
+        got = tq.matmul_plain(torch.from_numpy(x).to(td), t1).float().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 if dtype == "float32"
+                                   else 2e-2 * np.abs(want).max())
+    ids = np.array([[0, 5, 49], [3, 3, 1]])
+    np.testing.assert_array_equal(
+        tp["tok_embedding"].lookup(torch.from_numpy(ids), td).float().numpy(),
+        np.asarray(jp["tok_embedding"].lookup(jnp.asarray(ids), jd).astype(jnp.float32)))

@@ -17,6 +17,7 @@ import torch
 from rama_tpu.ops import quant as jq
 from rama_tpu.ops.pallas.quant_matmul import quant_matmul, quant_matmul_layered
 from rama_tpu_torch.ops import quant as tq
+from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels import quant_matmul as qm
 from rama_tpu_torch.ops.kernels.quant_matmul import (MMA_BK, MMA_BN, MMV_WIDTHS, body_for,
                                                      mma_plan, mma_vec, mmv_plan,
@@ -267,3 +268,90 @@ def test_mma_vec_takes_the_copy_path_only_where_16_byte_copies_fit():
     w48 = tq.QuantizedTensor(q=torch.zeros(192, 384, dtype=torch.int8),
                              scales=torch.ones(4, 384), group_size=48, bits=8)
     assert not mma_vec(x, w48, w48.q.data_ptr(), w48.scales.data_ptr())
+
+
+# -- bf16-stored weight scales (cast_scales) -----------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("layer", [None, 0, 2])
+@pytest.mark.parametrize("m,dtype", [(1, "float32"), (8, "float32"), (32, "float32"),
+                                     (8, "bfloat16"), (32, "bfloat16")])
+def test_bf16_scales_plain_matches_pallas(bits, layer, m, dtype):
+    """K1 / K2 with bf16-stored scales: the plain version on the port's
+    cast_scales params against quant_matmul (2-D) / quant_matmul_layered
+    (layer 0, and layer 2, where a scale offset in the wrong element size
+    would land) in interpret mode on rama_tpu's cast_scales params, int8
+    and int4. Both upcast the same bf16 scales to fp32, so the tolerances
+    are the f32-scale ones above: fp32 atol 1e-4, bf16 rel 2e-2."""
+    shape = (256, 384) if layer is None else (3, 256, 256)
+    jw, tw = _weights(shape, 16 if bits == 4 else 64, seed=11, bits=bits)
+    jw = jq.cast_scales({"w": jw}, jnp.bfloat16)["w"]
+    tw = tq.cast_scales({"w": tw}, torch.bfloat16)["w"]
+    assert tw.scales.dtype == torch.bfloat16 and tw.bits == bits
+    x = np.random.default_rng(12).standard_normal((m, 256)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    if layer is None:
+        want = quant_matmul(jnp.asarray(x, jd), jw, interpret=True)
+    else:
+        want = quant_matmul_layered(jnp.asarray(x, jd), jw, jnp.int32(layer), interpret=True)
+    got = quant_matmul_plain(torch.from_numpy(x).to(td), tw, layer)
+    assert got.dtype == td
+    _close(got, want, exact=(dtype == "float32"))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+def test_weight_ptrs_offset_a_layer_in_the_scales_element_size(bits, sdtype):
+    """Layer l's scales start l * stride(0) elements of the scales' own
+    size in: with bf16 scales an f32-sized offset would land on layer 2l."""
+    _, tw = _weights((4, 256, 64), 32, seed=13, bits=bits)
+    tw = tq.cast_scales({"w": tw}, sdtype)["w"]
+    for layer in range(4):
+        qp, sp = qm.weight_ptrs(tw, layer)
+        assert qp == tw.q[layer].data_ptr()
+        assert sp == tw.scales[layer].data_ptr()
+    assert qm.weight_ptrs(tq.QuantizedTensor(q=tw.q[3], scales=tw.scales[3],
+                                             group_size=32, bits=bits), None)[1] == \
+        tw.scales[3].data_ptr()
+
+
+def test_check_weight_takes_f32_or_bf16_scales_only():
+    """The wrappers take f32 and bf16 scales (a scale-type code each) and
+    refuse any other scale dtype."""
+    _, tw = _weights((2, 128, 64), 32, seed=14)
+    cpu = torch.device("cpu")
+    for sdtype, code, name in ((torch.float32, 0, "f32"), (torch.bfloat16, 1, "bf16")):
+        w = tq.cast_scales({"w": tw}, sdtype)["w"]
+        qm.check_weight(w, cpu)
+        assert build.dtype_code(w.scales) == code and qm.SCALE_NAMES[sdtype] == name
+    with pytest.raises(ValueError, match="float32 or bfloat16 scales"):
+        qm.check_weight(tq.cast_scales({"w": tw}, torch.float16)["w"], cpu)
+
+
+def test_cpu_wrapper_with_bf16_scales_dispatches_to_plain():
+    """A CPU tensor with bf16-stored scales takes the plain version too: no
+    launch counted, by bits or by scale dtype."""
+    x = torch.randn(4, 128)
+    before = (dict(qm.launches), dict(qm.launches_by_scale))
+    for bits in (8, 4):
+        _, tw = _weights((2, 128, 64), 32, seed=15, bits=bits)
+        tw = tq.cast_scales({"w": tw}, torch.bfloat16)["w"]
+        torch.testing.assert_close(t_quant_matmul(x, tw, 1), quant_matmul_plain(x, tw, 1),
+                                   rtol=0, atol=0)
+    assert (qm.launches, qm.launches_by_scale) == before
+
+
+@pytest.mark.parametrize("n,k,k_block,bits", _MMV_SHAPES[:6])
+def test_mma_vec_is_the_same_for_bf16_scales(n, k, k_block, bits):
+    """bf16 scale rows take the cp.async path wherever f32 ones do (N a
+    multiple of 16: every row starts on 16 bytes), so the plan, which
+    depends on vec, does not change with the scales' dtype."""
+    gs = k_block // 2 if bits == 4 else k_block
+    rows = k // 2 if bits == 4 else k
+    x = torch.zeros(8, k)
+    w = tq.QuantizedTensor(q=torch.zeros(rows, n, dtype=torch.int8),
+                           scales=torch.ones(k // gs, n), group_size=gs, bits=bits)
+    wb = tq.cast_scales({"w": w}, torch.bfloat16)["w"]
+    assert mma_vec(x, w, w.q.data_ptr(), w.scales.data_ptr()) == \
+        mma_vec(x, wb, wb.q.data_ptr(), wb.scales.data_ptr()) is True

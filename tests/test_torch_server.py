@@ -233,9 +233,25 @@ class _Idle:
                                   ["--spec-tick", "2"], ["--scale-dtype", "bf16"]])
 def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
     """Unported flags exit 2 naming ROADMAP.md; --kv-quant takes int8 only,
-    so argparse refuses int4 (exit 2); --spec-tick and --paged are ported:
-    main hands them to load_engine (with --spec-mode / --spec-draft-model,
-    and --page-size) and serves."""
+    so argparse refuses int4 (exit 2); --spec-tick, --paged and
+    --scale-dtype are ported: main hands them to load_engine (with
+    --spec-mode / --spec-draft-model, and --page-size) and serves;
+    --scale-dtype takes bf16 only, so argparse refuses fp16 (exit 2)."""
+    if flag[0] == "--scale-dtype":
+        from rama_tpu_torch.server import app
+
+        seen = {}
+        monkeypatch.setattr(app, "load_engine", lambda *a, **kw: seen.update(kw) or _Idle())
+        monkeypatch.setattr(app.web, "run_app", lambda *a, **kw: None)
+        assert main(["-m", "x.bin", "-t", "t.bin", *flag]) == 0
+        assert seen["scale_dtype"] == "bf16"
+        assert main(["-m", "x.bin", "-t", "t.bin"]) == 0
+        assert seen["scale_dtype"] is None
+        with pytest.raises(SystemExit) as exc:
+            main(["-m", "x.bin", "-t", "t.bin", "--scale-dtype", "fp16"])
+        assert exc.value.code == 2
+        assert "invalid choice: 'fp16'" in capsys.readouterr().err
+        return
     if flag[0] == "--paged":
         from rama_tpu_torch.server import app
 
@@ -289,6 +305,55 @@ def test_load_engine_int4_streams_the_jax_greedy_chain(tmp_path):
     assert eng.params["w2"].bits == 4 and eng.params["wcls"].bits == 8
 
     jp = jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=4, dtype=jnp.float32), jcfg)
+    cache = jl.KVCache.create(jcfg, 1, jcfg.seq_len, dtype=jnp.float32)
+    ids, nxt = [], BOS_ID
+    for pos in range(10):
+        logits, cache = jl.decode_step(jp, jcfg, jnp.asarray([nxt], jnp.int32),
+                                       jnp.asarray([pos], jnp.int32), cache)
+        nxt = int(np.argmax(np.asarray(logits)[0]))
+        ids.append(nxt)
+        if nxt == 2:
+            break
+    eng.start()
+    try:
+        async def fn(client):
+            resp = await client.get("/gen", params={"prompt": "", "steps": "10",
+                                                    "temperature": "0.0"})
+            assert resp.status == 200
+            return await asyncio.wait_for(resp.text(), timeout=120)
+
+        _, datas, events = parse_sse(run_client(eng, fn))
+    finally:
+        eng.stop()
+    assert not events
+    assert datas == [eng.tokenizer.decode_token(i).replace("\n", "\\n") for i in ids]
+
+
+def test_load_engine_bf16_scales_stream_the_jax_greedy_chain(tmp_path):
+    """`--quant int4 --scale-dtype bf16`: load_engine builds an engine whose
+    quantized params hold bf16 scales, and it streams over SSE the greedy
+    chain of the JAX package's int4 model after cast_scales."""
+    import jax.numpy as jnp
+
+    from rama_tpu.models import llama as jl
+    from rama_tpu.ops.quant import cast_scales
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.server.app import load_engine
+
+    jcfg = tiny_config(seq_len=32)
+    np_params = random_params(jcfg, seed=22)
+    model = tmp_path / "m.bin"
+    save_v0(str(model), torch_cfg(jcfg), np_params)
+    tok_path = write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size)
+    eng = load_engine(str(model), tok_path, quant="int4", dtype="float32", batch=2,
+                      device="cpu", scale_dtype="bf16")
+    assert eng.params["w2"].bits == 4
+    assert all(eng.params[n].scales.dtype == torch.bfloat16
+               for n in ("wqkv", "wo", "w13", "w2", "wcls", "tok_embedding"))
+
+    jp = cast_scales(jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=4,
+                                                       dtype=jnp.float32), jcfg),
+                     jnp.bfloat16)
     cache = jl.KVCache.create(jcfg, 1, jcfg.seq_len, dtype=jnp.float32)
     ids, nxt = [], BOS_ID
     for pos in range(10):
