@@ -182,11 +182,38 @@ Phases, in order (any failure raises and the script exits non-zero):
   model4_s16, serve4_s16, profile4_s16  the same for the int4 params, the
            int4 server with EngineConfig(scale_dtype="bf16"), and its
            decode-step profile beside profile4's in the same call
+  kernels_gqa  the decode / chunk attention at GQA groups past the 8-row
+           form (K4, K7, K9, K10; K12 decode and chunk, bf16 and int8
+           pools): rep 8 x T 1 / 2 / 4 / 8, rep 3 x T 3, rep 16 x T 1 / 8
+           (8-128 query rows a kv head) at hd 64 and 128 against the plain
+           versions with planted edges, each launch on its body and row
+           form (the counts by body and by the form the C entry reports it
+           launched), chunk rows equal to the
+           decode rows bit for bit at rep 3 / 8 / 16, each form's shared
+           bytes (occupancy API) against form_smem, the SIMT body's row
+           groups (fp32); K10 and K12's chunk form timed at TinyLlama's
+           shape (8 slots, 4 kv heads, hd 64, S 2048) at T 4 and 8 (and K10
+           on the bf16 cache at T 2, the 16-row form): CUDA-event and
+           device ms (the profiled split kernel's form), plain ms, bound,
+           SDPA over the repeated kv heads (bf16 dense), each beside the
+           same of the T = 1 launch (K4 / K7 / K12 decode) on the same rows
+  model_gqa    TinyLlama-1.1B int8 (random weights from a seed at its
+           published width and depth) logits through the kernels against
+           the plain path: a decode step and forward_chunk at T 4 and 8, on
+           a bf16 and an int8 cache of 2048 rows
+  serve_gqa, serve_gqa_spec, serve_gqa_spec_kv8, serve_gqa_spec_paged_kv8
+           the server on TinyLlama: plain decoding; n-gram speculation at
+           spec_tick 7 (64 query rows a kv head) on the bf16 cache, 3 (32
+           rows) on the int8 cache, 7 on an int8 pool of 128-row pages
+  profile_gqa_spec  a TinyLlama verify round of 8 against a plain step at
+           pos 64 and 1024
+  spec_gqa_self  TinyLlama as its own draft at spec_tick 7: accept >= 0.9
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, a v0 one with
-           `--quant int4`, and the v2 one again with `--scale-dtype bf16`
+           `--quant int4`, the v2 one again with `--scale-dtype bf16`, and a
+           TinyLlama-width 2-layer v2 file with `--spec ngram` (T 8)
 
-Fifteen main paths, each with the launch counters set to 0 just before it
+Twenty main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -208,8 +235,15 @@ must read bf16 scales (every other path's, f32 ones); the fused attention block
 under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step), every launch on split tensor-core attention (`[launches]`:
-`attn_block_mma` / `_simt`), and K4 never; and `prefill_t1`, where K9 launches on both
-caches and no decode, chunk or prefill attention does. Every K5 launch
+`attn_block_mma` / `_simt`), and K4 never; `prefill_t1`, where K9 launches on both
+caches and no decode, chunk or prefill attention does; and the five
+TinyLlama paths (`serve_gqa`, the three `serve_gqa_spec*`, `spec_gqa_self`),
+where every verification chunk must run a row form of more than 8 rows
+(the `*_gqa` records: launches in such a form on the mma body, bf16 cache,
+or the walk body, int8 cache, as the C entry reports the form it launched;
+`[launches]` `decode_attention_mma_rows*` / `_walk_rows*`,
+`paged_attention_*_rows*`), while every Llama-2-7B path's
+decode-attention launch must run the 8-row form. Every K5 launch
 of a path that records K5 must be on its tensor-core body, and every
 quant_matmul and ffn launch of every path on a tensor-core body: the
 swap-AB body at M <= 32, the GEMM above, never the CUDA-core GEMV or
@@ -229,6 +263,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -252,7 +287,9 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
               "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
-              "serve4_ab2", "cli")
+              "serve4_ab2", "kernels_gqa", "model_gqa", "serve_gqa", "serve_gqa_spec",
+              "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
+              "spec_gqa_self", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
@@ -277,12 +314,24 @@ BODY_COUNTS = {
     **{name: ("attn_block", ("mma", "simt")) for name in AB_KERNELS},
     **{name: ("quant_matmul", ("mmv", "gemv", "mma", "simt"))
        for name in ("quant_matmul", "quant_matmul_int4")},
-    **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")}}
+    **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")},
+    **{name: ("decode_attention", ("mma", "walk", "simt"))
+       for name in ("chunk_attention_gqa", "chunk_attention_q8_gqa")},
+    "paged_chunk_attention_q8_gqa": ("paged_attention", ("mma", "walk", "simt"))}
+# the decode-attention records whose launches are also counted by body and
+# row form (the tensor-core bodies' 8 / 16 / 32 / 64-row forms, as the C
+# entry reports them): record name -> prefix
+FORM_COUNTS = {name: prefix for name, (prefix, _) in BODY_COUNTS.items()
+               if prefix in ("decode_attention", "paged_attention")}
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
 PAGE_SIZE = 128               # the paged serving paths' page rows (the server's default)
 PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the dense worst case
+GQA_SPEC_TICK = 7             # TinyLlama's verify rounds of T 8: 64 query rows a kv head (group 8)
+# (rep, T) of kernels_gqa: 8 / 16 / 32 / 64 query rows a kv head, 9 (a
+# partial m16 block), 16 (a decode step) and 128 (two row groups of 64)
+GQA_FORMS = ((8, 1), (8, 2), (8, 4), (8, 8), (3, 3), (16, 1), (16, 8))
 
 # The six main paths: their weight bits, phases (model check or None, main
 # path, profile or None), the server's engine settings, the kernels each
@@ -431,9 +480,65 @@ INT4_S16_PATH = dict(label="int4 bf16 scales", bits=4, scales="bf16",
                                  "decode_attention", "prefill_attention",
                                  "quant_matmul_mma")}},
                      forbid={})
+# TinyLlama-1.1B (`model`: its params, GQA group 8, head_dim 64) at its
+# full width: plain decoding; n-gram speculation at spec_tick 7 (verify
+# rounds of T 8: 64 query rows a kv head, M = 64 rows of the weight
+# products: the GEMM, and the FFN's two-K1 route, no K3) on the bf16 cache,
+# at spec_tick 3 (32 rows, M = 32: K3) on the int8 cache and at 7 on an int8
+# page pool; the target as its own draft at 7. `equal`: every chunk launch
+# of the path ran a form of more than 8 rows (the `*_gqa` records count
+# those by form)
+GQA_SERVE = dict(max_seq_len=2048)
+GQA_PATH = dict(label="TinyLlama int8", model="tinyllama", bits=8,
+                phases=("model_gqa", "serve_gqa", None), serve=GQA_SERVE,
+                record={name: "launches_gqa_path" for name in (
+                    "decode_attention", "quant_matmul", "ffn", "prefill_attention",
+                    "quant_matmul_mma")},
+                forbid={"chunk_attention": "launches_gqa_path"})
+GQA_SPEC_PATH = dict(label="TinyLlama speculation T 8", model="tinyllama", bits=8,
+                     phases=(None, "serve_gqa_spec", "profile_gqa_spec"),
+                     serve=dict(GQA_SERVE, spec_tick=GQA_SPEC_TICK),
+                     record={"chunk_attention_gqa": "launches",
+                             **{name: "launches_gqa_spec_path" for name in (
+                                 "chunk_attention", "quant_matmul", "prefill_attention",
+                                 "quant_matmul_mma")}},
+                     forbid={name: "launches_gqa_spec_path" for name in (
+                         "decode_attention", "chunk_attention_q8")},
+                     equal={"chunk_attention_gqa": "chunk_attention"})
+GQA_SPEC_KV8_PATH = dict(label="TinyLlama speculation T 4 int8 KV", model="tinyllama", bits=8,
+                         phases=(None, "serve_gqa_spec_kv8", None),
+                         serve=dict(GQA_SERVE, spec_tick=SPEC_TICK, kv_quant="int8"),
+                         record={"chunk_attention_q8_gqa": "launches",
+                                 **{name: "launches_gqa_spec_kv8_path" for name in (
+                                     "chunk_attention_q8", "write_kv_chunk_q8",
+                                     "write_kv_strips_q8", "quant_matmul", "ffn",
+                                     "prefill_attention")}},
+                         forbid={name: "launches_gqa_spec_kv8_path" for name in (
+                             "decode_attention", "decode_attention_q8", "chunk_attention")},
+                         equal={"chunk_attention_q8_gqa": "chunk_attention_q8"})
+GQA_SPEC_PAGED_KV8_PATH = dict(
+    label="TinyLlama paged speculation T 8 int8 KV", model="tinyllama", bits=8,
+    phases=(None, "serve_gqa_spec_paged_kv8", None),
+    serve=dict(GQA_SERVE, paged=True, spec_tick=GQA_SPEC_TICK, kv_quant="int8"),
+    record={"paged_chunk_attention_q8_gqa": "launches",
+            **{name: "launches_gqa_spec_paged_kv8_path" for name in (
+                "paged_chunk_attention_q8", "write_kv_paged_q8", "write_kv_prefill_paged_q8",
+                "quant_matmul", "prefill_attention", "quant_matmul_mma")}},
+    forbid={name: "launches_gqa_spec_paged_kv8_path" for name in (
+        "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
+        "paged_decode_attention_q8")},
+    equal={"paged_chunk_attention_q8_gqa": "paged_chunk_attention_q8"})
+GQA_SELF_PATH = dict(label="TinyLlama as its own draft", model="tinyllama", bits=8,
+                     phases=(None, "spec_gqa_self", None), serve={},
+                     record={name: "launches_gqa_self_path" for name in (
+                         "chunk_attention_gqa", "chunk_attention", "decode_attention",
+                         "quant_matmul", "ffn", "prefill_attention")},
+                     forbid={},
+                     equal={"chunk_attention_gqa": "chunk_attention"})
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
-         PREFILL_T1_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH)
+         PREFILL_T1_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH, GQA_PATH, GQA_SPEC_PATH,
+         GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH)
 # every path that launches quant_matmul runs its decode-sized products (M
 # <= 32: a step, a verify round, a one-token prefill, the prefill's
 # last-row logits) on the swap-AB body: that count goes to the
@@ -445,6 +550,19 @@ for _path in PATHS:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_S: dict = {}   # wall seconds of each phase this run, in order
+
+
+@contextlib.contextmanager
+def clock(name: str):
+    """Log the wall seconds of the phase (or set-up step) `name` run inside,
+    and keep them in PHASE_S for the `[phases]` line."""
+    t0 = time.time()
+    yield
+    PHASE_S[name] = round(PHASE_S.get(name, 0.0) + time.time() - t0, 1)
+    log(f"[phase] {name} {time.time() - t0:.1f} s")
 
 
 def nvidia_smi_line() -> str:
@@ -563,10 +681,19 @@ def chunk_edge_keys(q, pos0, s: int, rows) -> dict:
     return keys
 
 
+def group_key(key, nkv: int):
+    """A planted key (nh, hd) of chunk_edge_keys as the key rows of nkv kv
+    heads: the key of each GQA group's first query head (rep 1: the key)."""
+    return key if key.shape[0] == nkv else key.view(nkv, -1, key.shape[-1])[:, 0]
+
+
 def plant_chunk_edges(q, cache, pos0, layer: int, rows, kvw=None) -> None:
     """chunk_edge_keys into k of a (k, v) cache, or of an int8 (k8, v8, ks,
-    vs) cache, quantized by kvw.kv_quant_rows."""
+    vs) cache, quantized by kvw.kv_quant_rows (group_key: under GQA the
+    planted rows score high for each group's first head)."""
+    nkv = cache[0].shape[2]
     for (b, r), key in chunk_edge_keys(q, pos0, cache[0].shape[3], rows).items():
+        key = group_key(key, nkv)
         if kvw is None:
             cache[0][layer, b, :, r] = key.to(cache[0].dtype)
         else:
@@ -581,13 +708,17 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
     da.launches_flat = da.launches_flat_q8 = 0
     for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
-                   qm.launches_by_scale, ffn_mod.launches_by_scale):
+                   qm.launches_by_scale, ffn_mod.launches_by_scale,
+                   *da.launches_by_form.values(), *pga.launches_by_form.values()):
         for body in bodies:
             bodies[body] = 0
 
 
 def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
     """Each kernel's launch count by the name of its kernels record."""
+    def wide(by_form: dict, body: str) -> int:
+        return sum(n for f, n in by_form[body].items() if f > 8)
+
     return {"quant_matmul": qm.launches[8], "quant_matmul_int4": qm.launches[4],
             "ffn": ffn_mod.launches[8], "ffn_int4": ffn_mod.launches[4],
             # by the weight scales' stored dtype; the bf16-scale forms' records
@@ -604,14 +735,26 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
-            **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()}}
+            **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()},
+            # by body and the row form the C entry reports it launched; the `*_gqa`
+            # records: a wrapper family's launches in a form of more than 8 rows on
+            # the bf16 cache's body (mma) or the int8 cache's (walk)
+            **{f"{prefix}_{body}_rows{f}": n
+               for prefix, mod in (("decode_attention", da), ("paged_attention", pga))
+               for body, forms in mod.launches_by_form.items() for f, n in forms.items()},
+            "chunk_attention_gqa": wide(da.launches_by_form, "mma"),
+            "chunk_attention_q8_gqa": wide(da.launches_by_form, "walk"),
+            "paged_chunk_attention_q8_gqa": wide(pga.launches_by_form, "walk")}
 
 
 def check_launches(path: dict, launches: dict) -> None:
     """Fail a main path on which one of its kernels never launched, on
     which a kernel it must not run did, on which a kernel launched
     another number of times than the kernel `equal` pairs it with (one
-    launch a layer of each decode step, as the fused FFN), or on which K5
+    launch a layer of each decode step, as the fused FFN; or, for a `*_gqa`
+    record, every launch of its chunk wrapper in a row form of more than 8
+    rows), or on which a Llama-2-7B path's decode-attention launch ran
+    another row form than the 8-row one, or on which K5
     ran its SIMT body (every K5 launch of a 7B path, bf16 at hd 128, and of
     the stories draft, bf16 at hd 48, takes the tensor-core body), or on
     which a quant_matmul or ffn launch took the SIMT body (every path runs
@@ -644,7 +787,9 @@ def check_launches(path: dict, launches: dict) -> None:
               if launches[k] != launches[ref]}
     if uneven:
         raise SystemExit(f"FAILED: on the {path['label']} main path {uneven} (launches of "
-                         f"the kernel, of the kernel launched once a layer of a decode step)")
+                         f"the kernel, of the kernel it must launch as often as: the fused "
+                         f"FFN, once a layer of a decode step; or the chunk wrapper whose "
+                         f"every launch must run a row form of more than 8 rows)")
     if "prefill_attention" in path["record"] and launches.get("prefill_attention_simt", 0):
         raise SystemExit(f"FAILED: {launches['prefill_attention_simt']} of "
                          f"{launches['prefill_attention']} prefill_attention launches on the "
@@ -665,6 +810,13 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: {launches['attn_block_simt']} attention-block launches on "
                          f"the {path['label']} main path took the SIMT body, not split "
                          f"tensor-core attention ({launches['attn_block_mma']} did)")
+    wide = {k: n for k, n in launches.items()
+            if k.startswith(("decode_attention_", "paged_attention_")) and "_rows" in k
+            and not k.endswith("_rows8") and n}
+    if path.get("model", "7b") == "7b" and wide:
+        raise SystemExit(f"FAILED: on the {path['label']} main path {wide} decode-attention "
+                         f"launches ran a row form of more than 8 rows; every Llama-2-7B "
+                         f"launch (rep 1, T <= 8) runs the 8-row form")
     for family, (names, _) in ATTN_FAMILIES.items():
         if not set(names) & set(path["record"]):
             continue
@@ -920,6 +1072,14 @@ def seven_b_config(ModelConfig):
                        shared_classifier=False)
 
 
+def tinyllama_config(ModelConfig, n_layers: int = 22):
+    """TinyLlama-1.1B at its published shape (HF TinyLlama/TinyLlama-1.1B-
+    Chat-v1.0, config.json): GQA group 8 (32 heads over 4 kv heads), head_dim
+    64; n_layers cuts the depth (the cli phase's 2-layer file)."""
+    return ModelConfig(dim=2048, hidden_dim=5632, n_layers=n_layers, n_heads=32, n_kv_heads=4,
+                       vocab_size=32000, seq_len=2048, shared_classifier=False)
+
+
 def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
     """A stacked (l, k, n) int4 weight made on the card: the group size
     quantize_int4 picks for this K, packed bytes whose two nibbles are drawn
@@ -937,9 +1097,10 @@ def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
 
 
 def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64):
-    """Llama-2-7B int8 or int4 params from a seed, generated on the card
-    (quantizing 6.7 B fp32 weights on the host would take 27 GB and
-    minutes), in the fused layout (wqkv, il-interleaved w13), with an UNTIED
+    """Llama-2-7B (or another cfg: TinyLlama-1.1B) int8 or int4 params from
+    a seed, generated on the card (quantizing 6.7 B fp32 weights on the
+    host would take 27 GB and minutes), in the fused layout (wqkv,
+    il-interleaved w13), with an UNTIED
     classifier (a tied one gives logits a self-match term that locks greedy
     decode onto one token). int4 layer weights take quantize_int4's group
     sizes (64 for K = 4096, 16 for w2's K = 11008); the embedding and the
@@ -1652,6 +1813,360 @@ def phase_kernels_s16(torch, results: dict) -> None:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# GQA speculation: the decode / chunk attention for any T x GQA group, and
+# TinyLlama-1.1B (group 8) served end to end
+
+
+def check_split_form(label: str, parts: dict, hd: int, form: int) -> None:
+    """Fail unless every split kernel that attention_split_combine saw is
+    the `form`-row form at head dim hd (its template arguments in the
+    profiler's name, <hd, form>); where the profiler saw none a line says
+    so (the launch counts by form still check it)."""
+    want = f"<{hd}, {form}>"
+    names = parts["split_kernel"]
+    if not names:
+        log(f"[check] {label}: torch.profiler recorded no split kernel; its form is checked "
+            f"by the launch counts by form only")
+    elif not all(want in k for k in names):
+        raise SystemExit(f"FAILED {label}: split kernel {names}, not the {form}-row form {want}")
+
+
+def on_form(counts: dict, forms: dict, body: str, form: int, label: str, fn):
+    """on_body, and fail unless the launch also ran the `form`-row form of
+    that body, by `forms` (a wrapper's launches by body and the row form the
+    C entry reports it launched). Returns fn()."""
+    before = {(b, f): n for b, by in forms.items() for f, n in by.items()}
+    out = on_body(counts, body, label, fn)
+    ran = {k: forms[k[0]][k[1]] - n for k, n in before.items()}
+    if ran != {k: int(k == (body, form)) for k in before}:
+        raise SystemExit(f"FAILED {label}: launches by (body, row form) {ran}, not one in "
+                         f"the {body} body's {form}-row form")
+    return out
+
+
+def phase_kernels_gqa(torch, results: dict) -> None:
+    """The decode / chunk attention at GQA groups past the 8-row form (K4,
+    K7, K9, K10 on bf16 / int8 caches; K12's decode and chunk forms on bf16
+    / int8 pools of 128-row pages): rep 8 x T 1 / 2 / 4 / 8 (8-64 query rows
+    a kv head), rep 3 x T 3 (9, a partial m16 block) and rep 16 x T 1 / 8
+    (16 and 128: two row groups), hd 64 and 128, against the plain versions
+    (rel TOL per (slot, query, head)) with planted edge rows, each launch on
+    the body and row form the counts say it ran; chunk rows against the
+    decode rows at their positions, bit for bit, at rep 3 / 8 / 16 on all
+    four caches; the shared bytes the occupancy API reports for each form
+    against form_smem. Then, at TinyLlama's shape (8 slots, 4 kv heads,
+    hd 64, S 2048, the layer cycling over 8), K10 and K12's chunk form on
+    both caches at T 4 and 8 (32 and 64 rows; K10 on the bf16 cache at T 2
+    too, the 16-row form): CUDA-event and device ms (split + combine, the
+    profiled split kernel's form), plain ms, bound, and SDPA with a boolean
+    mask over the repeated kv heads (bf16 dense); the same for the T = 1
+    launch (K4 / K7 / K12 decode, the 8-row form) over the same rows."""
+    import torch.nn.functional as F
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    gc = torch.Generator().manual_seed(16)
+    bf = torch.bfloat16
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def q8_of(k, v):
+        (k8, ks), (v8, vs) = kvw.kv_quant_rows(k.float()), kvw.kv_quant_rows(v.float())
+        return k8, v8, ks, vs
+
+    # kind: (dense or paged, int8, decode wrapper, its plain, chunk wrapper, its plain)
+    kinds = {
+        "dense bf16": (False, False, da.decode_attention, da.decode_attention_plain,
+                       da.chunk_attention, da.chunk_attention_plain),
+        "dense int8": (False, True, da.decode_attention_q8, da.decode_attention_q8_plain,
+                       da.chunk_attention_q8, da.chunk_attention_q8_plain),
+        "paged bf16": (True, False, pga.paged_decode_attention,
+                       pga.paged_decode_attention_plain, pga.paged_chunk_attention,
+                       pga.paged_chunk_attention_plain),
+        "paged int8": (True, True, pga.paged_decode_attention_q8,
+                       pga.paged_decode_attention_q8_plain, pga.paged_chunk_attention_q8,
+                       pga.paged_chunk_attention_q8_plain)}
+
+    # -- every form against its plain version, and chunk rows against decode rows
+    B, nkv, S, ps, mp = 8, 2, 300, 128, 3
+    for hd in (64, 128):
+        for rep, t in GQA_FORMS:
+            nh, (form, groups) = nkv * rep, da.row_form(t, rep)
+            p0 = torch.tensor([0, 61, max(0, 65 - t), 127, 128, 200, S - 2, S - t],
+                              dtype=torch.int32, device=dev)
+            tables, npages = paged_tables(torch, [int(p) + t for p in p0], ps, mp, 4, gc)
+            tables = tables.to(dev)
+            dense = [rx(2, B, nkv, S, hd), rx(2, B, nkv, S, hd)]
+            pool = [rx(2, npages, nkv, ps, hd), rx(2, npages, nkv, ps, hd)]
+            caches = {"dense bf16": dense, "dense int8": q8_of(*dense), "paged bf16": pool,
+                      "paged int8": q8_of(*pool)}
+            q = rx(B, t, nh, hd)
+            for kind, (paged, q8, dec, dec_plain, chk, chk_plain) in kinds.items():
+                c = caches[kind]
+                extra = (tables,) if paged else ()
+                counts = (pga if paged else da).launches_by_body
+                forms = (pga if paged else da).launches_by_form
+                body = "walk" if q8 else "mma"
+                if t == 1:
+                    fn, plain, qq = dec, dec_plain, q[:, 0].contiguous()
+                else:
+                    fn, plain, qq = chk, chk_plain, q
+                split = pga.split_rows(ps) if paged else da.CHUNK
+                lim = mp * ps if paged else S
+                edges = sorted({e for c0 in range(split, lim, split) for e in (c0 - 1, c0)})
+                for planted in (False, True):
+                    if planted and paged:
+                        plant_paged_edges(q, c, tables, p0, 1, edges, kvw if q8 else None)
+                    elif planted:
+                        plant_chunk_edges(q, c, p0, 1, edges, kvw if q8 else None)
+                    label = (f"{fn.__name__} {kind} rep={rep} T={t} hd={hd} ({t * rep} rows: "
+                             f"{form}-row form x {groups}){' planted edges' if planted else ''}")
+                    got = on_form(counts, forms, body, form, label,
+                                  lambda: fn(qq, *c, p0, *extra, 1))
+                    compare(torch, label, got, plain(qq, *c, p0, *extra, 1), per=hd)
+                if t > 1 and rep in (3, 8, 16):
+                    chunk = fn(q, *c, p0, *extra, 1)
+                    for i in range(t):
+                        one = dec(q[:, i].contiguous(), *c, p0 + i, *extra, 1)
+                        if not torch.equal(chunk[:, i], one):
+                            raise SystemExit(f"FAILED {kind} rep={rep} T={t} hd={hd}: chunk "
+                                             f"query {i} is not the decode row bit for bit")
+                    log(f"[check] {chk.__name__} {kind} rep={rep} T={t} hd={hd}: every chunk "
+                        f"row equals the decode row at its position, bit for bit")
+                if t == 1 and not paged:   # K9: the same launch over one layer's cache
+                    flat = da.decode_attention_flat_q8 if q8 else da.decode_attention_flat
+                    one = [x[1] for x in c]
+                    label = f"{flat.__name__} rep={rep} hd={hd} ({rep} rows: {form}-row form)"
+                    got = on_form(da.launches_by_body, da.launches_by_form, body, form, label,
+                                  lambda: flat(qq, *one, p0))
+                    compare(torch, label, got, dec_plain(qq, *c, p0, 1), per=hd)
+                smem = da.occupancy(t, nh, nkv, hd, q8)["smem_bytes"]
+                if smem != da.form_smem(body, form, hd):
+                    raise SystemExit(f"FAILED {kind} rep={rep} T={t} hd={hd}: the occupancy "
+                                     f"API reports {smem} shared bytes, the {form}-row form "
+                                     f"asks for {da.form_smem(body, form, hd)}")
+            del dense, pool, caches
+    # the SIMT body's row groups of 8 (fp32): rep 8 x T 3 = 24 rows
+    f32 = torch.float32
+    qf, pf = rx(3, 3, 16, 64, dtype=f32), torch.tensor([0, 61, 93], dtype=torch.int32, device=dev)
+    kf, vf = rx(2, 3, 2, 96, 64, dtype=f32), rx(2, 3, 2, 96, 64, dtype=f32)
+    name = "chunk_attention fp32 rep=8 T=3 hd=64 (24 rows: SIMT row groups of 8)"
+    compare(torch, name, on_body(da.launches_by_body, "simt", name,
+                                 lambda: da.chunk_attention(qf, kf, vf, pf, 1)),
+            da.chunk_attention_plain(qf, kf, vf, pf, 1), per=64)
+    for hd in (48, 64, 128):
+        for body, q8 in (("mma", False), ("walk", True)):
+            occ = {f: da.occupancy(f, 1, 1, hd, q8) for f in da.FORMS}
+            log(f"[occupancy] {body} hd={hd}: " + "; ".join(
+                f"{f} rows {o['ctas_per_sm']} CTAs an SM, {o['registers']} registers, "
+                f"{o['smem_bytes']} B" for f, o in occ.items()))
+    torch.cuda.empty_cache()
+
+    # -- timed at TinyLlama's shape -------------------------------------------------
+    cfg = tinyllama_config(ModelConfig)
+    nh, nkv, hd, L, S, B = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8, cfg.seq_len, 8
+    rep = nh // nkv
+    ps, mp = 128, cfg.seq_len // 128
+    starts = [0, 61, 128, 255, 511, 1000, 1500, S - 8]
+    tables, npages = paged_tables(torch, [min(p + 8, S) for p in starts], ps, mp, 4, gc)
+    tables = tables.to(dev)
+    dense = [rx(L, B, nkv, S, hd), rx(L, B, nkv, S, hd)]
+    pool = [rx(L, npages, nkv, ps, hd), rx(L, npages, nkv, ps, hd)]
+    caches = {"dense bf16": dense, "dense int8": q8_of(*dense), "paged bf16": pool,
+              "paged int8": q8_of(*pool)}
+    # SDPA's operands: the bf16 cache with each kv head repeated over its group
+    rep_kv = [x.repeat_interleave(rep, dim=2) for x in dense]
+
+    def sdpa_ms(q, p0, t: int, lay) -> tuple[float, float]:
+        """CUDA-event and device ms of one SDPA call with a boolean mask over
+        the repeated kv heads: the library time of K10 / K4 on the bf16
+        cache, q (B, T, nh, hd)."""
+        vis = da._visible(p0, t, S)[:, None]                     # (B, 1, T, S)
+
+        def sdpa():
+            l = lay.next()
+            return F.scaled_dot_product_attention(q.transpose(1, 2), rep_kv[0][l],
+                                                  rep_kv[1][l], attn_mask=vis)
+
+        return time_ms(torch, sdpa), device_ms_per_call(torch, sdpa)
+
+    def time_form(kind: str, t: int) -> dict:
+        paged, q8, dec, dec_plain, chk, chk_plain = kinds[kind]
+        c = caches[kind]
+        extra = (tables,) if paged else ()
+        form, groups = da.row_form(t, rep)
+        p0 = torch.tensor([min(p, S - t) for p in starts], dtype=torch.int32, device=dev)
+        q = rx(B, t, nh, hd)
+        label = f"{chk.__name__} TinyLlama {kind} T={t} ({t * rep} rows)"
+        err = compare(torch, f"{label} timed inputs (layer 0)", chk(q, *c, p0, *extra, 0),
+                      chk_plain(q, *c, p0, *extra, 0), per=hd)
+        lay = Layered(L)
+        t_k = time_ms(torch, lambda: chk(q, *c, p0, *extra, lay.next()))
+        t_p = time_ms(torch, lambda: chk_plain(q, *c, p0, *extra, lay.next()), reps=5)
+        row_bytes = 2 * hd + 8 if q8 else 2 * hd * 2
+        nb, ops = attention_bytes_ops(p0, t, S, nkv, nh, hd, row_bytes, q.numel() * 2)
+        b_ms, b_by = bound_ms(nb + (tables.numel() * 4 if paged else 0), ops)
+        # the decode step (K4 / K7 / K12 decode: the 8-row form) over the same
+        # rows: the last query's, with its plain version, bound and SDPA
+        q1, last = rx(B, nh, hd), (p0 + t - 1).clamp(max=S - 1)
+        t_one = time_ms(torch, lambda: dec(q1, *c, last, *extra, lay.next()))
+        nb1, ops1 = attention_bytes_ops(last, 1, S, nkv, nh, hd, row_bytes, q1.numel() * 2)
+        one = dict(ms=t_one, plain_ms=time_ms(torch, lambda: dec_plain(q1, *c, last, *extra,
+                                                                       lay.next()), reps=5))
+        one["bound_ms"], one["bound_by"] = bound_ms(nb1 + (tables.numel() * 4 if paged else 0),
+                                                    ops1)
+        one["library_ms"] = one["library_device_ms"] = None
+        if not (paged or q8):
+            one["library_ms"], one["library_device_ms"] = sdpa_ms(q1[:, None], last, 1, lay)
+        parts = dict(
+            chunk=with_share(attention_split_combine(
+                torch, lambda: chk(q, *c, p0, *extra, lay.next())), b_ms),
+            one_query=attention_split_combine(torch, lambda: dec(q1, *c, last, *extra,
+                                                                 lay.next())),
+            chunk_occupancy=da.occupancy(t, nh, nkv, hd, q8),
+            one_query_occupancy=da.occupancy(1, nh, nkv, hd, q8))
+        body = "walk" if q8 else "mma"
+        check_split_body(label, parts["chunk"], body)
+        check_split_form(label, parts["chunk"], hd, form)
+        check_split_form(f"{dec.__name__} TinyLlama {kind}", parts["one_query"], hd, 8)
+        if q8:
+            check_walk_grid(da, label, parts["chunk"], p0, t, mp * ps if paged else S, nkv, hd,
+                            ps if paged else None, rep=rep)
+        parts["split_over_one_query"] = (parts["chunk"]["split_ms"] / parts["one_query"]["split_ms"]
+                                         if parts["one_query"]["split_ms"] else None)
+        t_lib, note = None, ("no single PyTorch call attends through a page table" if paged
+                             else "no single PyTorch call attends over an int8 cache with row "
+                                  "scales (dequantize + SDPA is two)" if q8 else None)
+        if not (paged or q8):
+            t_lib, parts["library_device_ms"] = sdpa_ms(q, p0, t, lay)
+        log(f"[time] {label}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{nb / 1e6:.1f} MB), library {t_lib} (device {parts.get('library_device_ms')}); "
+            f"{dec.__name__} on the same rows {json.dumps(one)} (bound from {nb1 / 1e6:.1f} "
+            f"MB); breakdown {json.dumps(parts)}")
+        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=t_lib, library_note=note, one_query=one, breakdown=parts,
+                    shape=f"q ({B}, {t}, {nh}, {hd}) bf16 ({t * rep} rows a kv head: the "
+                          f"{form}-row form), {kind} cache ({L}, "
+                          f"{f'{npages}, {nkv}, {ps}' if paged else f'{B}, {nkv}, {S}'}, {hd})"
+                          f", pos0 {p0.tolist()}")
+
+    for name, kind, line in (("chunk_attention_gqa", "dense bf16", "decode_attention.py:640"),
+                             ("chunk_attention_q8_gqa", "dense int8", "decode_attention.py:730"),
+                             ("paged_chunk_attention_q8_gqa", "paged int8",
+                              "paged_attention.py:179")):
+        results[name] = dict(name=name, route="cuda",
+                             source="rama_tpu_torch/csrc/decode_attention.cu",
+                             replaces=f"rama_tpu/ops/pallas/{line}", **time_form(kind, 8),
+                             t4=time_form(kind, 4))
+    # the 16-row form (rep 8 x T 2: spec_tick 1; or a group of 2 at T 8), on
+    # no TinyLlama path: timed once, on the bf16 cache
+    results["chunk_attention_gqa"]["t2"] = time_form("dense bf16", 2)
+    # K12's chunk form on a bf16 pool (no GQA serving path runs it): timed
+    # beside K10's record
+    results["chunk_attention_gqa"]["paged"] = dict(
+        replaces="rama_tpu/ops/pallas/paged_attention.py:156", t8=time_form("paged bf16", 8),
+        t4=time_form("paged bf16", 4))
+    del dense, pool, caches, rep_kv
+    torch.cuda.empty_cache()
+    for name in ("chunk_attention_gqa", "chunk_attention_q8_gqa", "paged_chunk_attention_q8_gqa"):
+        r = results[name]
+        log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
+def phase_model_gqa(torch, cfg, params) -> None:
+    """TinyLlama-1.1B int8 logits through the kernels against the plain
+    path, rel TOL per row, on a bf16 and an int8 cache of seq_len rows: 2
+    slots prefilled with a prompt, a decode step at 8, forward_chunk at T
+    4 (32 query rows a kv head) from 9 and T 8 (64) from 13; then, with
+    rows 21 .. S - 1 of both caches filled with copies of the plain
+    cache's rows 0-20 (as model_kv8), chunks of 8 from 1000 and 2040."""
+    from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, decode_step, forward_chunk,
+                                             prefill)
+
+    dev = torch.device("cuda")
+    S = cfg.seq_len
+    toks = torch.tensor([[1, 9038, 2501, 263, 931, 29892, 727, 471]] * 2, device=dev)
+    words = torch.tensor([[29871, 1576, 338, 263, 450, 4123, 471, 727],
+                          [450, 4123, 471, 727, 29871, 1576, 338, 263]], device=dev)
+    for cls in (KVCache, QuantKVCache):
+        caches = [cls.create(cfg, 2, S, device=dev) for _ in range(2)]
+        names = ("k", "v", "ks", "vs") if cls is QuantKVCache else ("k", "v")
+        with torch.no_grad():
+            lk, _ = prefill(params, cfg, toks, caches[0], last_only=True)
+            lp, _ = prefill(params, cfg, toks, caches[1], last_only=True, plain=True)
+            compare(torch, f"TinyLlama int8 logits prefill on {cls.__name__} (kernels vs plain)",
+                    lk[:, -1], lp[:, -1])
+            tok = torch.argmax(lp[:, -1], dim=-1)
+            pos = torch.full((2,), 8, device=dev)
+            lk, _ = decode_step(params, cfg, tok, pos, caches[0])
+            lp, _ = decode_step(params, cfg, tok, pos, caches[1], plain=True)
+            compare(torch, f"TinyLlama int8 logits decode step at 8 on {cls.__name__} "
+                    f"(kernels vs plain)", lk, lp)
+            for t, starts in ((4, [9, 9]), (8, [13, 13]), (8, [1000, S - 8])):
+                if starts[0] == 1000:
+                    tile = torch.arange(S - 21, device=dev) % 21
+                    for name in names:
+                        rows = getattr(caches[1], name).index_select(3, tile)
+                        for c in caches:
+                            getattr(c, name)[:, :, :, 21:] = rows
+                pos0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+                lk, _ = forward_chunk(params, cfg, words[:, :t], pos0, caches[0])
+                lp, _ = forward_chunk(params, cfg, words[:, :t], pos0, caches[1], plain=True)
+                compare(torch, f"TinyLlama int8 forward_chunk T={t} ({t * cfg.n_rep} rows a kv "
+                        f"head) on {cls.__name__} pos0={starts} (kernels vs plain)", lk, lp)
+        del caches
+        torch.cuda.empty_cache()
+
+
+def phase_spec_gqa_self(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
+    """TinyLlama as its own draft at spec_tick GQA_SPEC_TICK (verify rounds
+    of T 8: 64 query rows a kv head against the draft's 8-row decode
+    steps), greedy, 2 slots x 16 tokens: the accept rate must be >= 0.9
+    (PERF.md §2's gate), after a spec-off run of the same requests."""
+    t0 = time.time()
+    off, on, stats = self_draft(cfg, params, tokenizer, start_count, spec_tick=GQA_SPEC_TICK)
+    firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+              for x, y in zip(on, off)]
+    log(f"[spec_gqa_self] TinyLlama as its own draft at T {GQA_SPEC_TICK + 1}: accept rate "
+        f"{stats['spec_accept_rate']}, first position differing from spec off per stream "
+        f"{firsts} (None: equal), {time.time() - t0:.1f} s")
+    if not (stats["spec_accept_rate"] or 0) >= 0.9:
+        raise SystemExit(f"FAILED spec_gqa_self: accept rate {stats['spec_accept_rate']} < 0.9")
+
+
+def profile_gqa_spec(torch, cfg, params) -> dict:
+    """TinyLlama: a verify round of T 8 (64 query rows a kv head) against a
+    plain decode step, 8 slots on a bf16 cache of seq_len rows, at pos 64
+    and pos 1024 (phase_profile, the device's events alone). Returns {"pos": {"step": ..., "round":
+    ...}}."""
+    from rama_tpu_torch.models.llama import KVCache
+
+    cache = KVCache.create(cfg, 8, cfg.seq_len, device=torch.device("cuda"))
+    out = {}
+    for start in (64, 1024):
+        out[str(start)] = {what: phase_profile(torch, cfg, params, tag="profile_gqa_spec",
+                                               cache=cache, start=start, chunk=chunk,
+                                               host_ops=False)
+                           for what, chunk in (("step", 1), ("round", GQA_SPEC_TICK + 1))}
+        step, rnd = out[str(start)]["step"], out[str(start)]["round"]
+        log(f"[profile_gqa_spec] pos {start}: a verify round of {GQA_SPEC_TICK + 1} "
+            f"{rnd['device_ms']:.3f} device ms (attention {rnd['attn_ms']:.4f}) against a "
+            f"plain step {step['device_ms']:.3f} (attention {step['attn_ms']:.4f}): "
+            f"{rnd['device_ms'] / max(step['device_ms'], 1e-9):.3f}x")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def phase_kernels_kv8(torch, results: dict) -> None:
     """The int8 KV cache's kernels vs their plain versions: K6 (row writer)
     and K8 (strip inserter) exactly, K7 (int8 decode attention) within TOL
@@ -1947,13 +2462,16 @@ def walk_work(da, pos0, t: int, s: int, nkv: int, ps: int | None = None) -> dict
 
 
 def check_walk_grid(da, label: str, parts: dict, pos0, t: int, s: int, nkv: int, hd: int,
-                    ps: int | None = None) -> None:
+                    ps: int | None = None, rep: int = 1) -> None:
     """Fail unless the split grid torch.profiler recorded (parts of
     attention_split_combine) has the CTAs the wrapper asks for (walk_ctas
-    over one wave, times nkv); log them beside walk_work's computed
-    figures. Where no grid was recorded a line says so."""
+    over one wave of the launched form, times nkv * row groups); log them
+    beside walk_work's computed figures. Where no grid was recorded a line
+    says so."""
     work = walk_work(da, pos0, t, s, nkv, ps)
-    want = da.walk_ctas(len(pos0), nkv, work["nsplit"], da.walk_wave(0, hd)) * nkv
+    form, groups = da.row_form(t, rep)
+    want = da.walk_ctas(len(pos0), nkv * groups, work["nsplit"],
+                        da.walk_wave(0, hd, form)) * nkv * groups
     got = parts["split_ctas"]
     if got is None:
         log(f"[grid] {label}: torch.profiler recorded no single split grid "
@@ -2195,12 +2713,13 @@ def phase_kernels_spec(torch, results: dict) -> None:
                                          lambda: da.chunk_attention_q8(qs, k8s, v8s, kss, vss,
                                                                        ps, 1)),
                     da.chunk_attention_q8_plain(qs, k8s, v8s, kss, vss, ps, 1), per=hd_s)
-    try:
-        da.check_rows(3, 8, 2)
-    except ValueError as e:
-        log(f"[check] chunk_attention T=3 x GQA 8/2 refused: {e}")
-    else:
-        raise SystemExit("FAILED chunk_attention: 12 query rows a kv head were not refused")
+    # T 3 x GQA 8/2: 12 query rows a kv head, the 16-row form
+    qs, ps = rx(3, 3, 8, hd), torch.tensor([0, 61, 77], dtype=torch.int32, device=dev)
+    kd, vd = rx(2, 3, 2, 80, hd), rx(2, 3, 2, 80, hd)
+    name = "chunk_attention T=3 x GQA 8/2 (12 rows: the 16-row form)"
+    compare(torch, name, on_form(da.launches_by_body, da.launches_by_form, "mma", 16, name,
+                                 lambda: da.chunk_attention(qs, kd, vd, ps, 1)),
+            da.chunk_attention_plain(qs, kd, vd, ps, 1), per=hd)
 
     # -- K11: write_kv_chunk_q8 ----------------------------------------------------
     def rows(*shape, dtype=bf):
@@ -2319,6 +2838,7 @@ def plant_paged_edges(q, pools, tables, pos0, layer: int, rows, kvw=None) -> Non
     for (b, r), key in chunk_edge_keys(q, pos0, mp * ps, rows).items():
         if r >= owned[b]:
             continue
+        key = group_key(key, pools[0].shape[2])
         page, off = int(tables[b, r // ps]), r % ps
         if kvw is None:
             pools[0][layer, page, :, off] = key.to(pools[0].dtype)
@@ -3153,18 +3673,18 @@ def serve_greedy(cfg, params, tokenizer, ecfg, prompts, steps: int, draft=None):
     return outs, eng.stats()
 
 
-def self_draft(cfg, params, tokenizer, start_count=lambda: None):
+def self_draft(cfg, params, tokenizer, start_count=lambda: None, spec_tick: int = SPEC_TICK):
     """The target as its own draft (a separate draft cache), greedy, 2
-    slots x 16 tokens, never dormant, after a spec-off run of the same
-    requests (then `start_count()`): (spec-off streams, spec-on streams,
-    the spec-on engine's stats)."""
+    slots x 16 tokens, never dormant, spec_tick drafts a round, after a
+    spec-off run of the same requests (then `start_count()`): (spec-off
+    streams, spec-on streams, the spec-on engine's stats)."""
     from rama_tpu_torch.config import EngineConfig
 
     off, _ = serve_greedy(cfg, params, tokenizer, EngineConfig(**SELF_DRAFT_ENGINE),
                           SELF_DRAFT_PROMPTS, 16)
     start_count()
     on, stats = serve_greedy(cfg, params, tokenizer,
-                             EngineConfig(**SELF_DRAFT_ENGINE, spec_tick=SPEC_TICK,
+                             EngineConfig(**SELF_DRAFT_ENGINE, spec_tick=spec_tick,
                                           spec_mode="draft", spec_min_accept=0.0),
                              SELF_DRAFT_PROMPTS, 16, draft=(cfg, params))
     return off, on, stats
@@ -3408,7 +3928,7 @@ def step_weight_bytes(params) -> float:
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64, chunk: int = 1, tables=None) -> dict:
+                  start: int = 64, chunk: int = 1, tables=None, host_ops: bool = True) -> dict:
     """torch.profiler over 8 decode steps at 8 slots (positions start ..
     start+7; by default on a 128-row bf16 cache; a page pool through
     `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
@@ -3420,7 +3940,9 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     scale bytes with their byte bound (step_weight_bytes). Returns
     device_ms, host_ms (profiler off), host_ms_profiled, busy (the device
     busy share), k3_ms, k1_ms, attn_ms and attn_split_ms per step, k3_share,
-    k1_share and weight_gb."""
+    k1_share and weight_gb. host_ops=False records the device's events
+    alone (no host operators: a shorter session, a smaller profiler
+    overhead in the profiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -3450,7 +3972,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
             step(tok, start + i * chunk)
         torch.cuda.synchronize()
         wall_off = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CPU] if host_ops else []
+        with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(8):
                 tok = step(tok, start + i * chunk)
@@ -3477,7 +4000,8 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
         f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
-        f"{wall / 8 * 1e3:.3f} ms/step (profiler on), {wall_off / 8 * 1e3:.3f} ms/step "
+        f"{wall / 8 * 1e3:.3f} ms/step (profiler on{'' if host_ops else ', device events only'}), "
+        f"{wall_off / 8 * 1e3:.3f} ms/step "
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
         f"device busy share {busy_us / 1e6 / wall:.3f}; K3 (ffn) {k3_us / 8 / 1e3:.3f} "
         f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time; K1 (quant_matmul) "
@@ -3738,7 +4262,10 @@ def profile_ab(torch, cfg, params) -> dict:
 def phase_cli(torch) -> None:
     """The CLI on a synthetic stories15M-shaped checkpoint: a v2 file (int8
     as stored), a v0 file quantized to int4 at load, and the v2 file with
-    its scales stored in bf16 (--scale-dtype bf16)."""
+    its scales stored in bf16 (--scale-dtype bf16); then a v2 file of
+    TinyLlama-1.1B's width cut to 2 layers (tied classifier: a 22-layer v0
+    file would be 4.4 GB of fp32) through `generate --spec ngram` at the
+    CLI's default --spec-k 8 (64 query rows a kv head)."""
     from rama_tpu_torch.checkpoint import save_v0, save_v2
     from rama_tpu_torch.config import ModelConfig
 
@@ -3768,6 +4295,32 @@ def phase_cli(torch) -> None:
                 f"{out.stderr.strip()[-300:]}")
             if out.returncode != 0:
                 raise SystemExit(f"FAILED cli {' '.join(flags)}: {out.stderr[-2000:]}")
+
+    tcfg = tinyllama_config(ModelConfig, n_layers=2).replace(shared_classifier=True)
+    L, D, H, KV = tcfg.n_layers, tcfg.dim, tcfg.hidden_dim, tcfg.kv_dim
+
+    def wt(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    p = {"tok_embedding": wt(tcfg.vocab_size, D), "attn_norm": np.ones((L, D), np.float32),
+         "wq": wt(L, D, D), "wk": wt(L, D, KV), "wv": wt(L, D, KV), "wo": wt(L, D, D),
+         "ffn_norm": np.ones((L, D), np.float32), "w1": wt(L, D, H), "w2": wt(L, H, D),
+         "w3": wt(L, D, H), "final_norm": np.ones(D, np.float32)}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tinyllama_width_2_layers_v2.bin")
+        t0 = time.time()
+        save_v2(path, tcfg, p, group_size=64)
+        del p
+        cmd = [sys.executable, "-m", "rama_tpu_torch.cli", "generate", "-m", path,
+               "-t", str(ROOT / "tests" / "fixtures" / "tokenizer.bin"), "-p",
+               "Once upon a time", "-s", "32", "-r", "0", "--quant", "auto", "--spec", "ngram",
+               "--device", "cuda"]
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
+        log(f"[cli] TinyLlama width, 2 layers, --spec ngram (file written in "
+            f"{time.time() - t0:.1f} s with the run) rc {out.returncode}; stderr tail: "
+            f"{out.stderr.strip()[-300:]}")
+        if out.returncode != 0 or "[spec] rounds=" not in out.stderr:
+            raise SystemExit(f"FAILED cli TinyLlama --spec ngram: {out.stderr[-2000:]}")
 
 
 def main() -> int:
@@ -3805,68 +4358,84 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     if "build" in phases:
-        phase_build()
+        with clock("build"):
+            phase_build()
     results: dict = {}
     for name, phase in (("kernels", phase_kernels), ("kernels4", phase_kernels_int4),
                         ("kernels_kv8", phase_kernels_kv8), ("kernels_spec", phase_kernels_spec),
                         ("kernels_paged", phase_kernels_paged),
-                        ("kernels_attn", phase_kernels_attn), ("kernels_s16", phase_kernels_s16)):
+                        ("kernels_attn", phase_kernels_attn), ("kernels_s16", phase_kernels_s16),
+                        ("kernels_gqa", phase_kernels_gqa)):
         if name in phases:
-            phase(torch, results)
+            with clock(name):
+                phase(torch, results)
             torch.cuda.empty_cache()
     modules = (qm, ffn_mod, da, pa, kvw, pga, ab)
     tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
-    cfg = seven_b_config(ModelConfig)
+    models = {"7b": ("Llama-2-7B", seven_b_config(ModelConfig)),
+              "tinyllama": ("TinyLlama-1.1B", tinyllama_config(ModelConfig))}
     dev = torch.device("cuda")
-    params, params_bits = None, None
+    params, params_key = None, None
     serving: dict = {}
     profiles: dict = {}
     for path in PATHS:
         if not (set(path["phases"]) | set(path.get("after", ()))) & set(phases):
             continue
         bits, label = path["bits"], path["label"]
+        model_name, cfg = models[path.get("model", "7b")]
         llama.ATTN_BLOCK = path.get("attn_block", 0)   # as RAMA_ATTN_BLOCK sets it at import
-        if params_bits != bits:   # the int8 KV and speculation paths reuse the int8 params
+        if params_key != (model_name, bits):   # the int8 KV and spec paths reuse the int8 params
             params = None
             torch.cuda.empty_cache()
             t0 = time.time()
-            params, params_bits = random_params(torch, cfg, dev, bits=bits), bits
-            torch.cuda.synchronize()
-            log(f"[model] Llama-2-7B int{bits} params on the card in {time.time() - t0:.1f} "
+            with clock(f"params {model_name} int{bits}"):
+                params, params_key = random_params(torch, cfg, dev, bits=bits), (model_name, bits)
+                torch.cuda.synchronize()
+            log(f"[model] {model_name} int{bits} params on the card in {time.time() - t0:.1f} "
                 f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         model, *main_path, profile = path["phases"]
         long_models = {"model_kv8": phase_model_kv8, "model_spec": phase_model_spec,
                        "model_paged": phase_model_paged}
-        if model in long_models and model in phases:
-            # RoPE to the 4096-row cache, as the engine retabulates it
-            long = dict(params)
-            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
-            long_models[model](torch, cfg, long)
-            del long
-        elif model == "model_attn" and model in phases:
-            phase_model_attn(torch, cfg, params, bits)
-        elif model == "model4_s16" and model in phases:
-            phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
-        elif model in phases:
-            phase_model(torch, cfg, params, f"int{bits}")
+        with clock(model if model in phases else f"{label}: no model check"):
+            if model in long_models and model in phases:
+                # RoPE to the 4096-row cache, as the engine retabulates it
+                long = dict(params)
+                long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+                long_models[model](torch, cfg, long)
+                del long
+            elif model == "model_attn" and model in phases:
+                phase_model_attn(torch, cfg, params, bits)
+            elif model == "model_gqa" and model in phases:
+                phase_model_gqa(torch, cfg, params)
+            elif model == "model4_s16" and model in phases:
+                phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
+            elif model in phases:
+                phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
         for ph in (p for p in main_path if p in phases):
-            if ph == "generate":
-                phase_generate(torch, cfg, params, tokenizer)
-            elif ph == "prefill_t1":
-                phase_prefill_t1(torch, cfg, params)
-            elif ph == "spec_draft":
-                phase_spec_draft(torch, cfg, params, tokenizer,
-                                 start_count=lambda: reset_launches(*modules))
-            else:
-                serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
-                                          **path["serve"])
+            with clock(ph):
+                if ph == "generate":
+                    phase_generate(torch, cfg, params, tokenizer)
+                elif ph == "prefill_t1":
+                    phase_prefill_t1(torch, cfg, params)
+                elif ph == "spec_draft":
+                    phase_spec_draft(torch, cfg, params, tokenizer,
+                                     start_count=lambda: reset_launches(*modules))
+                elif ph == "spec_gqa_self":
+                    phase_spec_gqa_self(torch, cfg, params, tokenizer,
+                                        start_count=lambda: reset_launches(*modules))
+                else:
+                    serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
+                                              **path["serve"])
         for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8"),
                                     ("serve_paged", "serve"), ("serve_paged_kv8", "serve_kv8"),
                                     ("serve_spec_paged", "serve_spec"),
                                     ("serve_spec_paged_kv8", "serve_spec_kv8"),
                                     ("serve_ab1", "serve"), ("serve_ab2", "serve"),
-                                    ("serve4_s16", "serve4"), ("serve4_ab2", "serve4")):
+                                    ("serve4_s16", "serve4"), ("serve4_ab2", "serve4"),
+                                    ("serve_gqa_spec", "serve_gqa"),
+                                    ("serve_gqa_spec_kv8", "serve_gqa"),
+                                    ("serve_gqa_spec_paged_kv8", "serve_gqa")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -3881,57 +4450,66 @@ def main() -> int:
                     prefix, bodies = BODY_COUNTS[name]
                     results[name].setdefault("launches_by_body", {})[key] = {
                         body: launches[f"{prefix}_{body}"] for body in bodies}
-        if profile == "profile_kv8" and profile in phases:
-            long = dict(params)
-            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
-            cache = QuantKVCache.create(cfg, 8, KV8_MAX_LEN, device=dev)
-            for start in (64, 2048):
-                phase_profile(torch, cfg, long, tag=profile, cache=cache, start=start)
-            del cache, long
-        elif profile == "profile_paged" and profile in phases:
-            profile_paged(torch, cfg, params)
-        elif profile == "spec_draft_ab" and profile in phases:
-            phase_spec_draft_ab(torch, cfg, params, tokenizer)
-        elif profile == "profile_ab" and profile in phases:
-            profile_ab(torch, cfg, params)
-        elif profile == "profile_spec" and profile in phases:
-            # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
-            for cache_cls in (None, QuantKVCache):
-                for chunk in (1, SPEC_TICK + 1):
-                    cache = cache_cls and cache_cls.create(cfg, 8, 128, device=dev)
-                    phase_profile(torch, cfg, params, tag=profile, cache=cache, chunk=chunk)
+                if name in FORM_COUNTS:
+                    results[name].setdefault("launches_by_form", {})[key] = {
+                        body: {f: launches[f"{FORM_COUNTS[name]}_{body}_rows{f}"]
+                               for f in da.FORMS} for body in da.launches_by_form}
+        with clock(profile if profile in phases else f"{label}: after the main path"):
+            if profile == "profile_kv8" and profile in phases:
+                long = dict(params)
+                long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+                cache = QuantKVCache.create(cfg, 8, KV8_MAX_LEN, device=dev)
+                for start in (64, 2048):
+                    phase_profile(torch, cfg, long, tag=profile, cache=cache, start=start)
+                del cache, long
+            elif profile == "profile_paged" and profile in phases:
+                profile_paged(torch, cfg, params)
+            elif profile == "spec_draft_ab" and profile in phases:
+                phase_spec_draft_ab(torch, cfg, params, tokenizer)
+            elif profile == "profile_ab" and profile in phases:
+                profile_ab(torch, cfg, params)
+            elif profile == "profile_gqa_spec" and profile in phases:
+                profiles[profile] = profile_gqa_spec(torch, cfg, params)
+            elif profile == "profile_spec" and profile in phases:
+                # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
+                for cache_cls in (None, QuantKVCache):
+                    for chunk in (1, SPEC_TICK + 1):
+                        cache = cache_cls and cache_cls.create(cfg, 8, 128, device=dev)
+                        phase_profile(torch, cfg, params, tag=profile, cache=cache, chunk=chunk)
+                        del cache
+                # the same at pos 2048 of a 4096-row cache (RoPE tabulated to 4096)
+                long = dict(params)
+                long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
+                for cache_cls in (KVCache, QuantKVCache):
+                    cache = cache_cls.create(cfg, 8, KV8_MAX_LEN, device=dev)
+                    for chunk in (1, SPEC_TICK + 1):
+                        phase_profile(torch, cfg, long, tag=profile, cache=cache, start=2048,
+                                      chunk=chunk)
                     del cache
-            # the same at pos 2048 of a 4096-row cache (RoPE tabulated to 4096)
-            long = dict(params)
-            long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=KV8_MAX_LEN)
-            for cache_cls in (KVCache, QuantKVCache):
-                cache = cache_cls.create(cfg, 8, KV8_MAX_LEN, device=dev)
-                for chunk in (1, SPEC_TICK + 1):
-                    phase_profile(torch, cfg, long, tag=profile, cache=cache, start=2048,
-                                  chunk=chunk)
-                del cache
+                    torch.cuda.empty_cache()
+                del long
+            elif profile == "profile4_s16" and profile in phases:
+                profiles[profile] = phase_profile(torch, cfg, cast_scales(params), tag=profile)
+                log(f"[{profile}] against profile4 in this run: "
+                    f"{json.dumps({k: profiles.get(k) for k in ('profile4_s16', 'profile4')})}")
+            elif profile in phases:
+                profiles[profile] = phase_profile(torch, cfg, params, tag=profile)
+            if "model_s16" in path.get("after", ()) and "model_s16" in phases:
+                phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
+            if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
                 torch.cuda.empty_cache()
-            del long
-        elif profile == "profile4_s16" and profile in phases:
-            profiles[profile] = phase_profile(torch, cfg, cast_scales(params), tag=profile)
-            log(f"[{profile}] against profile4 in this run: "
-                f"{json.dumps({k: profiles.get(k) for k in ('profile4_s16', 'profile4')})}")
-        elif profile in phases:
-            profiles[profile] = phase_profile(torch, cfg, params, tag=profile)
-        if "model_s16" in path.get("after", ()) and "model_s16" in phases:
-            phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
-        if "profile_prefill" in path.get("after", ()) and "profile_prefill" in phases:
-            torch.cuda.empty_cache()
-            admission = profile_prefill(torch, cfg, params)
-            for name in ("prefill_attention", "quant_matmul_mma"):
-                if name in results:
-                    results[name]["admission"] = admission
+                admission = profile_prefill(torch, cfg, params)
+                for name in ("prefill_attention", "quant_matmul_mma"):
+                    if name in results:
+                        results[name]["admission"] = admission
         torch.cuda.empty_cache()
     llama.ATTN_BLOCK = 0
     del params
     torch.cuda.empty_cache()
     if "cli" in phases:
-        phase_cli(torch)
+        with clock("cli"):
+            phase_cli(torch)
+    log(f"[phases] wall seconds {json.dumps(PHASE_S)}")
     log(f"[done] {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_note", "shape",
@@ -3943,8 +4521,11 @@ def main() -> int:
             "launches_paged_kv8_path", "launches_spec_paged_path",
             "launches_spec_paged_kv8_path", "k4_same_run_ms", "k7_same_run_ms", "unfused_ms",
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
-            "launches_ab2_int4_path", "launches_s16_path", "launches_by_body", "gemm", "by_m",
-            "mmv", "device_ms", "f32_device_ms", "s16")
+            "launches_ab2_int4_path", "launches_s16_path", "launches_gqa_path",
+            "launches_gqa_spec_path", "launches_gqa_spec_kv8_path",
+            "launches_gqa_spec_paged_kv8_path", "launches_gqa_self_path", "launches_by_body",
+            "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
+            "t2", "one_query", "paged")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

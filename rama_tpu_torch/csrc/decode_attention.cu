@@ -1,9 +1,10 @@
 // Kernels 4, 7, 9, 10 and 12: decode attention against layer l of the stacked
 // KV cache, flash-decoding style, over a bf16 / f32 cache (K4) or an int8
 // cache with one f32 scale per (token, kv head) row (K7), for one query per
-// slot (T = 1) or a chunk of T <= 8 consecutive queries per slot (K10, the
-// speculative-verification chunk, on either cache); K12 runs all of these
-// over a shared page pool through per-slot page tables (below).
+// slot (T = 1) or a chunk of T consecutive queries per slot (K10, the
+// speculative-verification chunk, on either cache), at any GQA group; K12
+// runs all of these over a shared page pool through per-slot page tables
+// (below).
 //
 // Replaces rama_tpu/ops/pallas/decode_attention.py:
 // decode_attention_layer (_kernel_layered, whole S stripe per program) and
@@ -41,10 +42,12 @@
 // writes a partial (m, l, o) per row; a CTA whose split starts past the
 // last row's limit exits before reading anything. A second small kernel
 // (dattn_combine) combines, per query row, exactly the splits that row
-// saw. T * rep <= kMaxRows = 8: every Llama-2 shape at T <= 8 (rep 1); a
-// wider GQA group takes a shorter chunk. Three bodies compute the splits
-// (the wrappers pick one by dtype, head dim and cache, ops/kernels/
-// decode_attention.py body_for):
+// saw. Any T * rep rows: the tensor-core bodies hold 8, 16, 32 or 64 rows
+// a CTA (the form, dattn_mma.cuh form_rows; more than 64 run as row groups
+// of 64 on grid dimension y, nkv * groups), the SIMT body groups of 8; the
+// splits stay a function of the cache's rows alone, never of the rows.
+// Three bodies compute the splits (the wrappers pick one by dtype, head dim
+// and cache, ops/kernels/decode_attention.py body_for):
 //
 //  - dattn_split (the SIMT body): fp32, and head dims other than 48 / 64
 //    / 128. 16-byte lanes (8 bf16 / f32 or 16 int8 elements, RG lanes a
@@ -52,9 +55,9 @@
 //    acc[ROWS][EPL] in registers, the row groups of a warp summed by
 //    shuffles, the four warps through shared memory.
 //  - dattn_mma (the tensor-core body): bf16 q at hd 48 / 64 / 128 on a
-//    bf16 cache, dense or paged, for 1..8 query rows — the decode steps
-//    (K4, K9, K12 decode) as the verification chunks (K10, K12's chunk
-//    form). It replaces the SIMT body there because that body's time grew
+//    bf16 cache, dense or paged, for any number of query rows — the decode
+//    steps (K4, K9, K12 decode) as the verification chunks (K10, K12's
+//    chunk form). It replaces the SIMT body there because that body's time grew
 //    with the rows (T = 4 / 8 took 2.6 / 5.2x the T = 1 split over the
 //    same rows): ROWS dot products a row group, each reduced by log2(RG)
 //    shuffles, and ROWS x EPL fp32 accumulators (163 registers at ROWS 8).
@@ -66,10 +69,17 @@
 //    difference flips near-tied logits). It does both products on
 //    mma.sync.m16n8k16 (bf16 in, fp32 accumulate), as K5's pattn_mma_kernel
 //    (prefill_attention.cu) does:
-//      * the <= 8 query rows are rows 0..7 of one m16 A tile (rows 8..15
-//        are zero registers, never loaded), read straight from a shared
-//        Q tile; each of the 4 warps owns 16 cache rows of the split (two
-//        n8 tiles of S = Q K^T, K the column-major B operand through
+//      * in the 8-row form (up to 8 query rows: every Llama-2 shape at T
+//        <= 8, and the decode step of a GQA group <= 8) the rows are rows
+//        0..7 of one m16 A tile (rows 8..15 are zero registers, never
+//        loaded), read straight from a shared Q tile; the 16 / 32 /
+//        64-row forms (a GQA group's verification chunk: TinyLlama's group
+//        8 at T 8 is 64 rows) fill 1 / 2 / 4 whole m16 tiles, and the CTA
+//        loads its split's K and V once for all its row blocks, as the
+//        Pallas kernel's (1, hb, tr, hd) block holds a head group's rows,
+//        then loops over the blocks in each product with the same K / V
+//        fragment; each of the 4 warps owns 16 cache rows of the split
+//        (two n8 tiles of S = Q K^T, K the column-major B operand through
 //        ldmatrix);
 //      * K / V rows land in shared memory by cp.async, every copy in
 //        flight at once, rows padded so that ldmatrix is free of bank
@@ -83,12 +93,15 @@
 //      * O = P V with V the row-major B operand (ldmatrix.trans), the
 //        output's 16-column pairs dealt to the warps, so each partial
 //        row is written once from registers: no cross-warp sum of O.
-//    38.4 KB of shared memory at hd 128. At 128-row pages the paged forms'
-//    64-row splits are the dense form's, so they equal the dense kernel
-//    bit for bit.
+//    38.4 KB of shared memory at hd 128 (63.5 KB at 64 rows: opted in above
+//    48 KB once an instantiation and device). At 128-row pages the paged
+//    forms' 64-row splits are the dense form's, so they equal the dense
+//    kernel bit for bit.
 //  - dattn_walk (the int8 walk body, a CTA walking tiles): bf16 q at hd
-//    48 / 64 / 128 on an int8 cache, dense or paged, 1..8 query rows (K7,
-//    K9 / K10 / K12 over int8). An int8 split of 64 rows carries half a bf16 split's bytes for
+//    48 / 64 / 128 on an int8 cache, dense or paged, in the same row forms
+//    and groups as dattn_mma (K7, K9 / K10 / K12 over int8); each form has
+//    its own register cap (walk_ctas_per_sm) and the wrapper sizes the
+//    grid from that form's residency. An int8 split of 64 rows carries half a bf16 split's bytes for
 //    the same fixed cost (the Q tile, three barriers, the cross-warp max
 //    and sum, a 512-byte partial a query row), and a grid of one CTA a
 //    64-row split launched, at short positions of a long cache, mostly
@@ -117,11 +130,12 @@
 //        CTAs an SM, whose other CTAs hide a tile's latency; cp.async and
 //        not TMA, as a tile's rows past the slot's last visible one must
 //        read as zeros, which cp.async's zero-fill gives per 16-byte piece;
-//      * the grid is (ctas, nkv): the CTAs of a kv head walk the list of
-//        its (slot, split) items that hold a visible row, slot-major,
-//        item x, x + ctas, ..., so no CTA is launched for a split past a
-//        slot's position; ctas = min(B * nsplit, one wave of the card / nkv)
-//        (decode_attention.py walk_ctas);
+//      * the grid is (ctas, nkv * groups): the CTAs of a (kv head, row
+//        group) walk the list of its (slot, split) items that hold a
+//        visible row, slot-major, item x, x + ctas, ..., so no CTA is
+//        launched for a split past a slot's position; ctas = min(B *
+//        nsplit, one wave of the launched form / (nkv * groups))
+//        (decode_attention.py walk_ctas, walk_wave);
 //      * int8 rows stay bytes in shared memory and become bf16 in registers
 //        after ldmatrix (exact: |x| <= 127) by byte permutes and an fp32
 //        add, no conversion instruction (int8x4_f32: I2F / F2F issue at a
@@ -190,13 +204,15 @@ __host__ __device__ __forceinline__ size_t split_smem(int chunk, int hd) {
                           (size_t)(kDaThreads / 32) * ROWS * hd);
 }
 
-// grid (nsplit, nkv, B), block 128. T: q's dtype; C: the cache's (T, or
-// int8_t with row scales ksc / vsc, which are null otherwise). q is
+// grid (nsplit, nkv * groups, B), block 128. T: q's dtype; C: the cache's
+// (T, or int8_t with row scales ksc / vsc, which are null otherwise). q is
 // (B, nq, nh, hd); partials are indexed by query row (b * nq + t) * nh + h.
 // RG = lanes per cache row (each lane EPL elements of hd, RG = next power
-// of two >= hd/EPL); ROWS >= nq * rep. The CTA first copies its chunk of K
-// and V (and their scales) into shared memory with every copy in flight at
-// once, so that it waits on the memory once, not once a row group.
+// of two >= hd/EPL); a CTA holds ROWS of the kv head's nq * rep query rows,
+// from row r0 = (blockIdx.y / nkv) * ROWS: more than kMaxRows run as
+// groups of 8, each group re-reading its split. The CTA first copies its
+// chunk of K and V (and their scales) into shared memory with every copy in
+// flight at once, so that it waits on the memory once, not once a row group.
 // tables: null for the dense cache (L, B, nkv, S, hd); else the (B, mp)
 // page tables of a pool (L, npages, nkv, ps, hd) with S = mp * ps and
 // chunk dividing ps.
@@ -211,12 +227,15 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   constexpr int EPL = Lane<C>::EPL;
   constexpr int ngrp = kDaThreads / RG;
   extern __shared__ __align__(16) unsigned char smraw[];
-  const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z, nsplit = gridDim.x;
-  const int tid = threadIdx.x;
+  constexpr bool kGroups = ROWS == kMaxRows;   // row groups: only in the 8-row form
+  const int split = blockIdx.x, j = kGroups ? blockIdx.y % nkv : blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x, tid = threadIdx.x;
   const int rep = nh / nkv;
-  const int rows = nq * rep;
+  const int r0 = kGroups ? blockIdx.y / nkv * ROWS : 0;   // the CTA's first query row
+  const int rows = kGroups ? min(nq * rep - r0, ROWS) : nq * rep;
   const int p0 = pos0[b];
-  const int last = row_limit(p0, nq - 1, S);  // the largest limit of the CTA's rows
+  // the largest limit of the CTA's rows
+  const int last = row_limit(p0, kGroups ? (r0 + rows - 1) / rep : nq - 1, S);
   const int s0 = split * chunk;
   if (s0 > last) return;  // no row's combine reads this split
   const int s1 = min(s0 + chunk, last + 1);
@@ -247,7 +266,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
     }
   }
   for (int i = tid; i < rows * hd; i += kDaThreads) {
-    const int r = i / hd, d = i - r * hd;
+    const int ri = i / hd, d = i - ri * hd, r = r0 + ri;
     const int t = r / rep, g = r - t * rep;
     qs[i] = to_f(q[(((size_t)b * nq + t) * nh + (size_t)j * rep + g) * hd + d]);
   }
@@ -284,7 +303,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
         float v;
         if constexpr (kQ8) v = d * kst[i] * scale;
         else v = d * scale;
-        sc[r * chunk + i] = s0 + i <= row_limit(p0, r / rep, S) ? v : -INFINITY;
+        sc[r * chunk + i] = s0 + i <= row_limit(p0, (r0 + r) / rep, S) ? v : -INFINITY;
       }
     }
   }
@@ -295,7 +314,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   // gets zero probabilities and no (m, l): its combine never reads here.
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < rows; r += kDaThreads / 32) {
-    const int t = r / rep;
+    const int t = (r0 + r) / rep;
     if (s0 > row_limit(p0, t, S)) {
       for (int i = lane; i < n; i += 32) sc[r * chunk + i] = 0.f;
       continue;
@@ -312,7 +331,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
     }
     l = warp_sum(l);
     if (lane == 0) {
-      const size_t hr = ((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep);
+      const size_t hr = ((size_t)b * nq + t) * nh + (size_t)j * rep + (r0 + r - t * rep);
       part_ml[(hr * nsplit + split) * 2] = m;
       part_ml[(hr * nsplit + split) * 2 + 1] = l;
     }
@@ -358,7 +377,7 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
   }
   __syncthreads();
   for (int i = tid; i < rows * hd; i += kDaThreads) {
-    const int r = i / hd, d = i - r * hd;
+    const int ri = i / hd, d = i - ri * hd, r = r0 + ri;
     const int t = r / rep;
     float v = 0.f;
 #pragma unroll
@@ -369,51 +388,58 @@ dattn_split(const T* __restrict__ q, const C* __restrict__ kc, const C* __restri
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body (dattn_mma): bf16 q, hd 48 / 64 / 128, 1..8 query
-// rows, a bf16 cache; the body itself is dattn_mma_body (dattn_mma.cuh,
+// The tensor-core body (dattn_mma): bf16 q, hd 48 / 64 / 128, a bf16 cache,
+// in the ROWS-row forms; the body itself is dattn_mma_body (dattn_mma.cuh,
 // shared with K14). Fragment coordinates: mma.cuh (lane = 4 g + c).
 
-// grid (nsplit, nkv, B), block 128; the operands and partials as
-// dattn_split's, chunk <= kMaxChunk, q, kc, vc 16-byte aligned.
-template <int HD>
+// grid (nsplit, nkv * groups, B), block 128; the operands and partials as
+// dattn_split's, chunk <= kMaxChunk, q, kc, vc 16-byte aligned. A CTA holds
+// ROWS of the kv head's nq * rep query rows from r0 = (blockIdx.y / nkv) *
+// ROWS (groups > 1 only in the 64-row form).
+template <int HD, int ROWS>
 __global__ void __launch_bounds__(kDaThreads)
 dattn_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
           const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos0,
           float* __restrict__ part_o, float* __restrict__ part_ml, int nh, int nkv, int S,
           int chunk, int nq, float scale, const int* __restrict__ tables, int mp, int ps,
           int npages) {
-  constexpr int LD = MmaSmem<HD>::LD;
+  constexpr int LD = MmaSmem<HD, ROWS>::LD;
   constexpr int QCH = HD / 8;                 // 16-byte pieces of a bf16 row
   extern __shared__ __align__(16) unsigned char smraw[];
-  const int split = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  constexpr bool kGroups = ROWS == kGroupRows;   // row groups: only in the 64-row form
+  const int split = blockIdx.x, j = kGroups ? blockIdx.y % nkv : blockIdx.y, b = blockIdx.z;
   const int rep = nh / nkv;
-  const int rows = nq * rep;
+  const int r0 = kGroups ? blockIdx.y / nkv * ROWS : 0;   // the CTA's first query row
+  const int rows = kGroups ? min(nq * rep - r0, ROWS) : nq * rep;
   const int p0 = pos0[b];
-  const int last = row_limit(p0, nq - 1, S);  // the largest limit of the CTA's rows
+  // the largest limit of the CTA's rows
+  const int last = row_limit(p0, kGroups ? (r0 + rows - 1) / rep : nq - 1, S);
   const int s0 = split * chunk;
   if (s0 > last) return;  // no row's combine reads this split
   const int n = min(s0 + chunk, last + 1) - s0;
   const size_t srow = first_row(tables, b, j, s0, S, nkv, mp, ps, npages);
-  // Q rows 0..rows-1 (row r: head j * rep + r % rep at pos0 + r / rep), the rest zero
+  // Q rows 0..rows-1 (row r: head j * rep + (r0 + r) % rep at pos0 + (r0 +
+  // r) / rep), the rest zero
   auto load_q = [&](__nv_bfloat16* Qs) {
-    for (int i = threadIdx.x; i < kMaxRows * QCH; i += kDaThreads) {
-      const int r = i / QCH, ch = i % QCH, t = r / rep;
+    for (int i = threadIdx.x; i < ROWS * QCH; i += kDaThreads) {
+      const int r = i / QCH, ch = i % QCH, t = (r0 + r) / rep;
       const bool ok = r < rows;
       cp_async16_zfill(Qs + r * LD + ch * 8,
-                       ok ? q + (((size_t)b * nq + t) * nh + (size_t)j * rep + (r - t * rep)) *
-                                    HD + ch * 8
+                       ok ? q + (((size_t)b * nq + t) * nh + (size_t)j * rep +
+                                 (r0 + r - t * rep)) * HD + ch * 8
                           : q,
                        ok);
     }
   };
-  dattn_mma_body<HD, false>(kc, vc, part_o, part_ml, b, j, split, gridDim.x, nh, nkv, nq, s0, n,
-                            srow, scale, load_q, [&](int t) { return row_limit(p0, t, S); },
-                            smraw);
+  dattn_mma_body<HD, false, ROWS>(kc, vc, part_o, part_ml, b, j, split, gridDim.x, nh, nkv, nq,
+                                  s0, n, srow, scale, load_q,
+                                  [&](int t) { return row_limit(p0, t, S); }, smraw, r0);
 }
 
 // ---------------------------------------------------------------------------
-// The int8 walk body (dattn_walk): bf16 q, hd 48 / 64 / 128, 1..8 query
-// rows, an int8 cache with f32 row scales, dense or paged (design above).
+// The int8 walk body (dattn_walk): bf16 q, hd 48 / 64 / 128, the row
+// forms of dattn_mma, an int8 cache with f32 row scales, dense or paged
+// (design above).
 
 // Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
@@ -451,27 +477,36 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool
                "r"(ok ? 4 : 0));
 }
 
-constexpr int kWalkCtasPerSm = 6;   // registers capped for six CTAs an SM (80 at hd 128)
+// The walk's resident CTAs an SM, by form, which caps its registers
+// (__launch_bounds__): six for the 8-row form (80 registers at hd 128); the
+// row-block forms keep two or four rows' online-softmax state and o a lane
+// and block, so fewer (102 / 168 / 255 registers at 16 / 32 / 64 rows).
+template <int ROWS>
+constexpr int walk_ctas_per_sm() {
+  return ROWS == kMaxRows ? 6 : ROWS == 16 ? 5 : ROWS == 32 ? 3 : 2;
+}
 
-// Shared memory of one dattn_walk CTA: the K and V tiles of kMaxChunk int8
-// rows of RLD bytes (hd + 16 or + 32: an odd number of 16-byte pieces, so
-// ldmatrix's eight rows fall in distinct banks) and their f32 row scales
-// ks, vs [kMaxChunk]; a bf16 Q tile [kMaxRows][hd + 8], P [kMaxRows]
-// [kMaxChunk + 8] bf16, f32 row maxima and sums [warps][kMaxRows], and
-// the walk's table of 2 B + 1 ints (walk_smem: 22,596 bytes at hd 128
-// and 8 slots).
-template <int HD>
+// Shared memory of one dattn_walk CTA of the ROWS-row form: the K and V
+// tiles of kMaxChunk int8 rows of RLD bytes (hd + 16 or + 32: an odd number
+// of 16-byte pieces, so ldmatrix's eight rows fall in distinct banks) and
+// their f32 row scales ks, vs [kMaxChunk]; a bf16 Q tile [ROWS][hd + 8], P
+// [ROWS][kMaxChunk + 8] bf16, f32 row maxima and sums [warps][ROWS], and
+// the walk's table of 2 B + 1 ints (walk_smem: 22,596 bytes at hd 128, 8
+// rows and 8 slots; 47,684 at 64 rows, above 48 KB past 191 slots).
+template <int HD, int ROWS = kMaxRows>
 struct WalkSmem {
   static constexpr int LD = HD + kMmaPad;          // bf16 Q row stride (elements)
   static constexpr int PLD = kMaxChunk + kMmaPad;  // bf16 P row stride (elements)
   static constexpr int RLD = ((HD + 16) / 16) % 2 ? HD + 16 : HD + 32;   // int8 row (bytes)
   static constexpr size_t kv = (size_t)kMaxChunk * RLD;
   static constexpr size_t fixed = 2 * kv + 2 * sizeof(float) * kMaxChunk +
-                                  sizeof(__nv_bfloat16) * kMaxRows * (LD + PLD) +
-                                  sizeof(float) * 2 * kDaWarps * kMaxRows;
+                                  sizeof(__nv_bfloat16) * ROWS * (LD + PLD) +
+                                  sizeof(float) * 2 * kDaWarps * ROWS;
 };
-template <int HD>
-inline size_t walk_smem(int B) { return WalkSmem<HD>::fixed + sizeof(int) * (2 * (size_t)B + 1); }
+template <int HD, int ROWS>
+inline size_t walk_smem(int B) {
+  return WalkSmem<HD, ROWS>::fixed + sizeof(int) * (2 * (size_t)B + 1);
+}
 static_assert(kDaThreads == 2 * kMaxChunk, "one thread copies each row scale of a tile");
 
 // Where a dattn_walk CTA is in its walk: item `item` of its kv head's
@@ -495,49 +530,57 @@ __device__ __forceinline__ void walk_seek(Walk& w, const int* first, const int* 
   }
 }
 
-// grid (ctas, nkv), block 128: CTA x of kv head j walks items x, x + ctas,
-// ... of its list, tile by tile, with an online softmax over the tiles of
-// each split, and writes each split's partial (m, l, o) per query row that
-// sees it. A tile's copies are two cp.async groups, K with the row scales
-// (and, at a split's start, the Q rows), then V, which lands while S is
-// scored. Operands and partials as dattn_split's; nsplit
-// = ceil(ceil(S / tile) / G); tile <= kMaxChunk (dividing ps for a pool).
-template <int HD>
-__global__ void __launch_bounds__(kDaThreads, kWalkCtasPerSm)
+// grid (ctas, nkv * groups), block 128: CTA x of (kv head j, row group)
+// walks items x, x + ctas, ... of its list, tile by tile, with an online
+// softmax over the tiles of each split, and writes each split's partial
+// (m, l, o) per query row that sees it. A CTA holds ROWS of the kv head's
+// nq * rep query rows, from r0 = (blockIdx.y / nkv) * ROWS (groups > 1
+// only in the 64-row form); in the row-block forms each K / V fragment is
+// turned into bf16 once for all the row blocks. A tile's copies are two
+// cp.async groups, K with the row scales (and, at a split's start, the Q
+// rows), then V, which lands while S is scored. Operands and partials as
+// dattn_split's; nsplit = ceil(ceil(S / tile) / G); tile <= kMaxChunk
+// (dividing ps for a pool).
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(kDaThreads, walk_ctas_per_sm<ROWS>())
 dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
            const int8_t* __restrict__ vc, const float* __restrict__ ksc,
            const float* __restrict__ vsc, const int* __restrict__ pos0,
            float* __restrict__ part_o, float* __restrict__ part_ml, int B, int nh, int nkv,
            int S, int tile, int G, int nsplit, int nq, float scale,
            const int* __restrict__ tables, int mp, int ps, int npages) {
-  using Sm = WalkSmem<HD>;
+  using Sm = WalkSmem<HD, ROWS>;
   constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
+  constexpr int NB = RowForm<ROWS>::NB, NH = RowForm<ROWS>::NH;
   constexpr int KS = HD / 16;                 // k-steps of Q K^T = 16-byte pieces of a row
   constexpr int QCH = HD / 8;                 // 16-byte pieces of a bf16 Q row
   constexpr int PW = (KS + kDaWarps - 1) / kDaWarps;   // column pairs of O a warp
+  constexpr bool QONE = ROWS * QCH <= kDaThreads;      // one Q piece a thread at most
   extern __shared__ __align__(16) unsigned char smraw[];
   unsigned char* Kt = smraw;                                       // [kMaxChunk][RLD]
   unsigned char* Vt = Kt + Sm::kv;                                 // [kMaxChunk][RLD]
   float* kst = reinterpret_cast<float*>(Vt + Sm::kv);              // [kMaxChunk] ks, then vs
   const float* vst = kst + kMaxChunk;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(kst + 2 * kMaxChunk);   // [kMaxRows][LD]
-  __nv_bfloat16* Ps = Qs + kMaxRows * LD;                          // [kMaxRows][PLD]
-  float* red_m = reinterpret_cast<float*>(Ps + kMaxRows * PLD);   // [warps][kMaxRows]
-  float* red_l = red_m + kDaWarps * kMaxRows;                      // [warps][kMaxRows]
-  int* first = reinterpret_cast<int*>(red_l + kDaWarps * kMaxRows);   // [B + 1]
-  int* ntile = first + B + 1;                                         // [B]
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(kst + 2 * kMaxChunk);   // [ROWS][LD]
+  __nv_bfloat16* Ps = Qs + ROWS * LD;                              // [ROWS][PLD]
+  float* red_m = reinterpret_cast<float*>(Ps + ROWS * PLD);       // [warps][ROWS]
+  float* red_l = red_m + kDaWarps * ROWS;                          // [warps][ROWS]
+  int* first = reinterpret_cast<int*>(red_l + kDaWarps * ROWS);   // [B + 1]
+  int* ntile = first + B + 1;                                      // [B]
 
-  const int j = blockIdx.y;
+  constexpr bool kGroups = ROWS == kGroupRows;   // row groups: only in the 64-row form
+  const int j = kGroups ? blockIdx.y % nkv : blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const int rep = nh / nkv;
-  const int rows = nq * rep;
-  const int t_g = g / rep;
+  const int r0 = kGroups ? blockIdx.y / nkv * ROWS : 0;   // the CTA's first query row
+  const int rows = kGroups ? min(nq * rep - r0, ROWS) : nq * rep;
+  const int tlast = kGroups ? (r0 + rows - 1) / rep : nq - 1;   // the query of its last row
   const int kb = warp * 16;                   // this warp's 16 rows of a tile
   const int tpp = tables ? ps / tile : 1;     // tiles a page
 
   // the walk's table: slot b's tiles with a visible row and first item
   for (int b = tid; b < B; b += kDaThreads) {
-    ntile[b] = row_limit(pos0[b], nq - 1, S) / tile + 1;
+    ntile[b] = row_limit(pos0[b], tlast, S) / tile + 1;
     first[b + 1] = (ntile[b] + G - 1) / G;    // its splits, summed below
   }
   __syncthreads();
@@ -547,10 +590,11 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // this thread's Q piece (tid < kMaxRows * QCH): row rq of the kv head's rows
-  const int rq = tid / QCH, tq = rq / rep;
-  const size_t qoff = rq < rows ? ((size_t)tq * nh + (size_t)j * rep + (rq - tq * rep)) * HD +
-                                      (tid % QCH) * 8
+  // this thread's Q piece where one is enough (tid < ROWS * QCH): row rq of
+  // the CTA's rows
+  const int rq = tid / QCH, tq = (r0 + rq) / rep;
+  const size_t qoff = rq < rows ? ((size_t)tq * nh + (size_t)j * rep + (r0 + rq - tq * rep)) *
+                                      HD + (tid % QCH) * 8
                                 : 0;
 
   // the copies of walk position w's tile (rows past the slot's last visible
@@ -574,9 +618,23 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
       cp_async16_zfill(Kt + (i / KS) * RLD + (i % KS) * 16, kg + (i / KS < n ? i * 16 : 0),
                        i / KS < n);
     cp_async4_zfill(kst + tid, (tid < kMaxChunk ? ksc : vsc) + srow + (r < n ? r : 0), r < n);
-    if (w.t == w.split * G && tid < kMaxRows * QCH)   // a split's first tile: the slot's Q
-      cp_async16_zfill(Qs + rq * LD + (tid % QCH) * 8, q + (size_t)w.b * nq * nh * HD + qoff,
-                       rq < rows);
+    if (w.t == w.split * G) {                 // a split's first tile: the slot's Q
+      const __nv_bfloat16* qb = q + (size_t)w.b * nq * nh * HD;
+      if constexpr (QONE) {
+        if (tid < ROWS * QCH)
+          cp_async16_zfill(Qs + rq * LD + (tid % QCH) * 8, qb + qoff, rq < rows);
+      } else {
+        for (int i = tid; i < ROWS * QCH; i += kDaThreads) {
+          const int ri = i / QCH, ti = (r0 + ri) / rep;
+          const bool ok = ri < rows;
+          cp_async16_zfill(Qs + ri * LD + (i % QCH) * 8,
+                           qb + (ok ? ((size_t)ti * nh + (size_t)j * rep + (r0 + ri - ti * rep)) *
+                                              HD + (i % QCH) * 8
+                                    : 0),
+                           ok);
+        }
+      }
+    }
     cp_async_commit();
 #pragma unroll
     for (int i = tid; i < kMaxChunk * KS; i += kDaThreads)
@@ -587,107 +645,169 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
   Walk cur{(int)blockIdx.x, 0, 0, 0, 0};
   walk_seek(cur, first, ntile, B, G);
 
-  // each lane's query row g: its limit in this split, and the running max,
-  // sum and o of the online softmax
-  int lim_g = 0;
-  bool sees = false;
-  float m_run = -INFINITY, l_run = 0.f;
-  float o[PW][2][4] = {};
+  // each lane's query rows 16 rb + 8 h + g: their query, the limit in this
+  // split, and the running max, sum and o of the online softmax
+  int t_r[NB][NH], lim_r[NB][NH] = {};
+  bool sees[NB][NH] = {};
+  float m_run[NB][NH], l_run[NB][NH];
+  float o[NB][PW][2][4] = {};
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      t_r[rb][h] = (r0 + rb * 16 + h * 8 + g) / rep;
+      m_run[rb][h] = -INFINITY;
+      l_run[rb][h] = 0.f;
+    }
   while (cur.b < B) {
     const int s0 = cur.t * tile;
-    const int n = min(tile, row_limit(pos0[cur.b], nq - 1, S) + 1 - s0);
+    const int n = min(tile, row_limit(pos0[cur.b], tlast, S) + 1 - s0);
     const int kr = (n + 15) & ~15;
     load(cur, n);
     cp_async_commit();
     cp_async_wait<1>();                       // this tile's K (and Q) copies
     __syncthreads();                          // ... everyone's
     if (cur.t == cur.split * G) {             // a split starts
-      lim_g = row_limit(pos0[cur.b], t_g, S);
-      sees = g < rows && s0 <= lim_g;         // query row g sees a row of this split
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const int r = rb * 16 + h * 8 + g;
+          lim_r[rb][h] = row_limit(pos0[cur.b], t_r[rb][h], S);
+          sees[rb][h] = r < rows && s0 <= lim_r[rb][h];   // row r sees a row of this split
+        }
     }
 
     // S = Q K^T over this warp's 16 rows of the tile, the int8 bytes turned
     // into bf16 in registers after ldmatrix (dims 4c..4c+3 of a row's
-    // 16-dim step: the k order of the product permuted alike for Q); rows
-    // past a query row's limit or past the tile's n score -inf
-    float sc[2][2];
+    // 16-dim step: the k order of the product permuted alike for Q), once
+    // for every row block; rows past a query row's limit or past the
+    // tile's n score -inf
+    float sc[NB][2][2 * NH];                  // [block][n8 tile][2 h + e]
     if (kb < kr) {
-      float acc[2][4] = {};
+      float acc[NB][2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const uint2 qv = *reinterpret_cast<const uint2*>(Qs + g * LD + ks * 16 + 4 * c);
-        const uint32_t a[4] = {qv.x, 0u, qv.y, 0u};
         uint32_t kf[2];
         float f0[4], f1[4];
         ldsm_x2(kf, Kt + (kb + ((lane / 8) % 2) * 8 + lane % 8) * RLD + ks * 16);
         int8x4_f32(kf[0], f0);
         int8x4_f32(kf[1], f1);
-        mma_bf16(acc[0], a, bf16x2_hi(f0[0], f0[1]), bf16x2_hi(f0[2], f0[3]));
-        mma_bf16(acc[1], a, bf16x2_hi(f1[0], f1[1]), bf16x2_hi(f1[2], f1[3]));
-      }
+        const uint32_t b00 = bf16x2_hi(f0[0], f0[1]), b01 = bf16x2_hi(f0[2], f0[3]);
+        const uint32_t b10 = bf16x2_hi(f1[0], f1[1]), b11 = bf16x2_hi(f1[2], f1[3]);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = kb + nt * 8 + 2 * c + e;
-          sc[nt][e] = sees && i < n && s0 + i <= lim_g ? acc[nt][e] * kst[i] * scale
-                                                        : -INFINITY;
+        for (int rb = 0; rb < NB; ++rb) {
+          const __nv_bfloat16* qp = Qs + (rb * 16 + g) * LD + ks * 16 + 4 * c;
+          const uint2 q0 = *reinterpret_cast<const uint2*>(qp);
+          uint2 q1 = make_uint2(0u, 0u);
+          if constexpr (NH > 1) q1 = *reinterpret_cast<const uint2*>(qp + 8 * LD);
+          const uint32_t a[4] = {q0.x, q1.x, q0.y, q1.y};
+          mma_bf16(acc[rb][0], a, b00, b01);
+          mma_bf16(acc[rb][1], a, b10, b11);
         }
       }
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = kb + nt * 8 + 2 * c + e;
+              sc[rb][nt][2 * h + e] = sees[rb][h] && i < n && s0 + i <= lim_r[rb][h]
+                                          ? acc[rb][nt][2 * h + e] * kst[i] * scale
+                                          : -INFINITY;
+            }
     } else {
-      sc[0][0] = sc[0][1] = sc[1][0] = sc[1][1] = -INFINITY;
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2 * NH; ++e) sc[rb][nt][e] = -INFINITY;
     }
-    const float mw = quad_max(fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1])));
-    if (c == 0) red_m[warp * kMaxRows + g] = mw;
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float mw = quad_max(fmaxf(fmaxf(sc[rb][0][2 * h], sc[rb][0][2 * h + 1]),
+                                        fmaxf(sc[rb][1][2 * h], sc[rb][1][2 * h + 1])));
+        if (c == 0) red_m[warp * ROWS + rb * 16 + h * 8 + g] = mw;
+      }
     __syncthreads();
 
     // the running max m_new; probabilities against it (times the V row
     // scale) rounded to bf16 into P; o and l rescaled by e^(m_run - m_new).
     // A tile wholly past the row's limit leaves (m, l, o) as they were, bit
     // for bit: m_new = m_run, the factor exactly 1, P exactly 0.
-    float m_new = m_run;
+    float alpha[NB][NH], mref[NB][NH], l[NB][NH];
 #pragma unroll
-    for (int w = 0; w < kDaWarps; ++w) m_new = fmaxf(m_new, red_m[w * kMaxRows + g]);
-    const float mref = m_new == -INFINITY ? 0.f : m_new;   // a row that has seen nothing
-    const float alpha = m_new == m_run ? 1.f : expf(m_run - mref);
-    float l = 0.f;
+    for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int r = rb * 16 + h * 8 + g;
+        float m_new = m_run[rb][h];
+#pragma unroll
+        for (int w = 0; w < kDaWarps; ++w) m_new = fmaxf(m_new, red_m[w * ROWS + r]);
+        mref[rb][h] = m_new == -INFINITY ? 0.f : m_new;   // a row that has seen nothing
+        alpha[rb][h] = m_new == m_run[rb][h] ? 1.f : expf(m_run[rb][h] - mref[rb][h]);
+        m_run[rb][h] = m_new;
+        l[rb][h] = 0.f;
+      }
     if (kb < kr) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        float p[2];
+      for (int rb = 0; rb < NB; ++rb)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float ex = expf(sc[nt][e] - mref);   // -inf scores -> 0
-          l += ex;
-          p[e] = ex * vst[kb + nt * 8 + 2 * c + e];
-        }
-        *reinterpret_cast<uint32_t*>(Ps + g * PLD + kb + nt * 8 + 2 * c) =
-            pack_bf16(p[0], p[1]);
-      }
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < NH; ++h) {
+            float p[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = expf(sc[rb][nt][2 * h + e] - mref[rb][h]);   // -inf -> 0
+              l[rb][h] += ex;
+              p[e] = ex * vst[kb + nt * 8 + 2 * c + e];
+            }
+            *reinterpret_cast<uint32_t*>(Ps + (rb * 16 + h * 8 + g) * PLD + kb + nt * 8 +
+                                         2 * c) = pack_bf16(p[0], p[1]);
+          }
     }
-    l = quad_sum(l);
-    if (c == 0) red_l[warp * kMaxRows + g] = l;
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float ls = quad_sum(l[rb][h]);
+        if (c == 0) red_l[warp * ROWS + rb * 16 + h * 8 + g] = ls;
+      }
     cp_async_wait<0>();                       // V
     __syncthreads();
-    float lt = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDaWarps; ++w) lt += red_l[w * kMaxRows + g];
-    l_run = l_run * alpha + lt;
-    m_run = m_new;
+    for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        float lt = 0.f;
+#pragma unroll
+        for (int w = 0; w < kDaWarps; ++w) lt += red_l[w * ROWS + rb * 16 + h * 8 + g];
+        l_run[rb][h] = l_run[rb][h] * alpha[rb][h] + lt;
+      }
 
     // O = O * alpha + P V: warp w owns output columns 16 (w + 4 u) .. + 15;
     // ldmatrix.trans gives lane (g, c) bytes of dims 2g, 2g + 1 for rows 2c,
     // 2c + 1, so the even and the odd dims are two n8 tiles and lane (g, c)
-    // ends with dims 4c .. 4c + 3 of its row
+    // ends with dims 4c .. 4c + 3 of its rows
 #pragma unroll
-    for (int u = 0; u < PW; ++u)
+    for (int rb = 0; rb < NB; ++rb)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int u = 0; u < PW; ++u)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[u][h][e] *= alpha;
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[rb][u][nt][e] *= alpha[rb][NH > 1 ? e / 2 : 0];
     for (int kk = 0; kk < kr / 16; ++kk) {
-      const uint32_t a[4] = {lds32(Ps + g * PLD + kk * 16 + 2 * c), 0u,
-                             lds32(Ps + g * PLD + kk * 16 + 8 + 2 * c), 0u};
+      uint32_t a[NB][4];
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb) a_frag<NH>(a[rb], Ps, PLD, rb, g, c, kk * 16);
 #pragma unroll
       for (int u = 0; u < PW; ++u) {
         const int dp = warp + u * kDaWarps;
@@ -697,36 +817,50 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
           ldsm_x2_trans(vf, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * RLD + dp * 16);
           int8x4_f32(vf[0], f0);
           int8x4_f32(vf[1], f1);
-          mma_bf16(o[u][0], a, bf16x2_hi(f0[0], f0[2]), bf16x2_hi(f1[0], f1[2]));
-          mma_bf16(o[u][1], a, bf16x2_hi(f0[1], f0[3]), bf16x2_hi(f1[1], f1[3]));
+          const uint32_t be0 = bf16x2_hi(f0[0], f0[2]), be1 = bf16x2_hi(f1[0], f1[2]);
+          const uint32_t bo0 = bf16x2_hi(f0[1], f0[3]), bo1 = bf16x2_hi(f1[1], f1[3]);
+#pragma unroll
+          for (int rb = 0; rb < NB; ++rb) {
+            mma_bf16(o[rb][u][0], a[rb], be0, be1);
+            mma_bf16(o[rb][u][1], a[rb], bo0, bo1);
+          }
         }
       }
     }
 
     if (cur.t + 1 == cur.t1) {                // the split's last tile: its partials
-      if (sees) {
-        const size_t hr = ((size_t)cur.b * nq + t_g) * nh + (size_t)j * rep + (g - t_g * rep);
-        const size_t at = hr * nsplit + cur.split;
-        if (warp == 0 && c == 0) {
-          part_ml[at * 2] = m_run;
-          part_ml[at * 2 + 1] = l_run;
+#pragma unroll
+      for (int rb = 0; rb < NB; ++rb)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          if (sees[rb][h]) {
+            const int r = r0 + rb * 16 + h * 8 + g, t = t_r[rb][h];
+            const size_t hr = ((size_t)cur.b * nq + t) * nh + (size_t)j * rep + (r - t * rep);
+            const size_t at = hr * nsplit + cur.split;
+            if (warp == 0 && c == 0) {
+              part_ml[at * 2] = m_run[rb][h];
+              part_ml[at * 2 + 1] = l_run[rb][h];
+            }
+#pragma unroll
+            for (int u = 0; u < PW; ++u) {
+              const int dp = warp + u * kDaWarps;
+              if (dp < KS)
+                *reinterpret_cast<float4*>(part_o + at * HD + dp * 16 + 4 * c) =
+                    make_float4(o[rb][u][0][2 * h], o[rb][u][1][2 * h], o[rb][u][0][2 * h + 1],
+                                o[rb][u][1][2 * h + 1]);
+            }
+          }
+          m_run[rb][h] = -INFINITY;
+          l_run[rb][h] = 0.f;
         }
 #pragma unroll
-        for (int u = 0; u < PW; ++u) {
-          const int dp = warp + u * kDaWarps;
-          if (dp < KS)
-            *reinterpret_cast<float4*>(part_o + at * HD + dp * 16 + 4 * c) =
-                make_float4(o[u][0][0], o[u][1][0], o[u][0][1], o[u][1][1]);
-        }
-      }
-      m_run = -INFINITY;
-      l_run = 0.f;
+      for (int rb = 0; rb < NB; ++rb)
 #pragma unroll
-      for (int u = 0; u < PW; ++u)
+        for (int u = 0; u < PW; ++u)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[u][h][e] = 0.f;
+            for (int e = 0; e < 4; ++e) o[rb][u][nt][e] = 0.f;
     }
     if (++cur.t == cur.t1) {
       cur.item += gridDim.x;
@@ -835,7 +969,9 @@ struct DaArgs {
   int mp, ps, npages;
   int body;  // kBodySimt, kBodyMma or kBodyWalk
   int tiles = 1;  // G: tiles of `chunk` rows a split (1 but on the walk body)
-  int ctas = 0;   // the walk body's CTAs a kv head
+  int ctas = 0;   // the walk body's CTAs a (kv head, row group)
+  int groups = 1;  // row groups a kv head: grid dimension y is nkv * groups
+  int* ran = nullptr;  // non-null: set to the query rows a CTA of the launched form
 };
 
 // Report kern's resident CTAs per SM, registers per thread and shared
@@ -853,38 +989,43 @@ cudaError_t report(const DaArgs& a, K kern, size_t smem) {
 
 // Opt kern into `most` bytes of dynamic shared memory (once an
 // instantiation and device), then launch it with `smem` over the split
-// grid, or, with a.occ, report it instead.
+// grid and note its form (`rows` query rows a CTA) in a.ran, or, with
+// a.occ, report it instead.
 template <class K, class... Args>
-cudaError_t launch_or_report(const DaArgs& a, SmemOptIn& opt_in, K kern, size_t most,
-                             size_t smem, Args... args) {
+cudaError_t launch_or_report(const DaArgs& a, int rows, SmemOptIn& opt_in, K kern,
+                             size_t most, size_t smem, Args... args) {
   if (most > 48 * 1024) {
     cudaError_t e = opt_in.set(kern, most);
     if (e != cudaSuccess) return e;
   }
   if (a.occ) return report(a, kern, smem);
-  kern<<<dim3(a.nsplit, a.nkv, a.B), kDaThreads, smem, a.st>>>(args...);
-  return cudaGetLastError();
+  kern<<<dim3(a.nsplit, a.nkv * a.groups, a.B), kDaThreads, smem, a.st>>>(args...);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && a.ran) *a.ran = rows;
+  return e;
 }
 
 template <typename T, typename C, int RG, int ROWS>
 cudaError_t launch_split(const DaArgs& a) {
   static SmemOptIn opt_in;   // at the most any chunk and hd of this instantiation need
   return launch_or_report(
-      a, opt_in, dattn_split<T, C, RG, ROWS>,
+      a, ROWS, opt_in, dattn_split<T, C, RG, ROWS>,
       split_smem<C, ROWS>(kMaxChunk, RG * Lane<C>::EPL), split_smem<C, ROWS>(a.chunk, a.hd),
       static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
       a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.nh, a.nkv, a.S, a.hd, a.chunk, a.nq,
       a.scale, a.tables, a.mp, a.ps, a.npages);
 }
 
+// The SIMT body takes up to kMaxRows query rows a CTA; more run as groups
+// of kMaxRows.
 template <typename T, typename C, int RG>
-cudaError_t launch_rows(const DaArgs& a) {
+cudaError_t launch_rows(DaArgs a) {
   const int rows = a.nq * (a.nh / a.nkv);
   if (rows <= 1) return launch_split<T, C, RG, 1>(a);
   if (rows <= 2) return launch_split<T, C, RG, 2>(a);
   if (rows <= 4) return launch_split<T, C, RG, 4>(a);
-  if (rows <= kMaxRows) return launch_split<T, C, RG, kMaxRows>(a);
-  return cudaErrorInvalidValue;
+  a.groups = (rows + kMaxRows - 1) / kMaxRows;
+  return launch_split<T, C, RG, kMaxRows>(a);
 }
 
 template <typename T, typename C>
@@ -901,11 +1042,11 @@ cudaError_t launch_simt(const DaArgs& a) {
   return cudaErrorInvalidValue;
 }
 
-template <int HD>
+template <int HD, int ROWS>
 cudaError_t launch_mma_hd(const DaArgs& a) {
   static SmemOptIn opt_in;
-  constexpr size_t smem = MmaSmem<HD>::bytes;
-  return launch_or_report(a, opt_in, dattn_mma<HD>, smem, smem,
+  constexpr size_t smem = MmaSmem<HD, ROWS>::bytes;
+  return launch_or_report(a, ROWS, opt_in, dattn_mma<HD, ROWS>, smem, smem,
                           static_cast<const __nv_bfloat16*>(a.q),
                           static_cast<const __nv_bfloat16*>(a.k),
                           static_cast<const __nv_bfloat16*>(a.v), a.pos0, a.part_o, a.part_ml,
@@ -913,14 +1054,21 @@ cudaError_t launch_mma_hd(const DaArgs& a) {
                           a.npages);
 }
 
-// The walk body, then its combine (or, with a.occ, the walk kernel's report).
-template <int HD>
+// The walk body, then its combine (or, with a.occ, the walk kernel's
+// report). Its shared memory grows with B (the walk's table): above 48 KB
+// (past 3,327 slots at hd 128 in the 8-row form, 191 in the 64-row one) it
+// is opted into the card's most, once an instantiation and device.
+template <int HD, int ROWS>
 cudaError_t launch_walk_hd(const DaArgs& a) {
-  const size_t smem = walk_smem<HD>(a.B);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;   // past 3,327 slots at hd 128
-  if (a.occ) return report(a, dattn_walk<HD>, smem);
+  static SmemOptIn opt_in;
+  const size_t smem = walk_smem<HD, ROWS>(a.B);
+  if (smem > 48 * 1024) {
+    cudaError_t e = opt_in.set(dattn_walk<HD, ROWS>, 0);
+    if (e != cudaSuccess) return e;
+  }
+  if (a.occ) return report(a, dattn_walk<HD, ROWS>, smem);
   if (a.ctas < 1) return cudaErrorInvalidValue;
-  dattn_walk<HD><<<dim3(a.ctas, a.nkv), kDaThreads, smem, a.st>>>(
+  dattn_walk<HD, ROWS><<<dim3(a.ctas, a.nkv * a.groups), kDaThreads, smem, a.st>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.k),
       static_cast<const int8_t*>(a.v), a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.B, a.nh,
       a.nkv, a.S, a.chunk, a.tiles, a.nsplit, a.nq, a.scale, a.tables, a.mp, a.ps, a.npages);
@@ -930,24 +1078,40 @@ cudaError_t launch_walk_hd(const DaArgs& a) {
   dattn_combine_rows<__nv_bfloat16><<<(nrows + kDaWarps - 1) / kDaWarps, kDaThreads, 0, a.st>>>(
       a.part_o, a.part_ml, a.pos0, static_cast<__nv_bfloat16*>(a.out), nrows, a.nh, a.S, a.hd,
       a.chunk * a.tiles, a.nsplit, a.nq);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess && a.ran) *a.ran = ROWS;
+  return e;
+}
+
+// One tensor-core body at head dim HD in the form (form_rows) of the
+// launch's query rows a kv head, in row groups of 64 past 64 rows.
+template <int HD, bool Q8>
+cudaError_t launch_form(DaArgs a) {
+  const int rows = a.nq * (a.nh / a.nkv);
+  const int form = form_rows(rows);
+  a.groups = (rows + form - 1) / form;
+  switch (form) {
+    case kMaxRows: return Q8 ? launch_walk_hd<HD, kMaxRows>(a) : launch_mma_hd<HD, kMaxRows>(a);
+    case 16: return Q8 ? launch_walk_hd<HD, 16>(a) : launch_mma_hd<HD, 16>(a);
+    case 32: return Q8 ? launch_walk_hd<HD, 32>(a) : launch_mma_hd<HD, 32>(a);
+    default: return Q8 ? launch_walk_hd<HD, kGroupRows>(a) : launch_mma_hd<HD, kGroupRows>(a);
+  }
 }
 
 // The tensor-core bodies: bf16 q only, hd 48 / 64 / 128, dattn_mma over a
-// bf16 cache and dattn_walk over an int8 one; anything else is refused
-// (never handed to the SIMT body).
+// bf16 cache and dattn_walk over an int8 one, any number of query rows;
+// anything else is refused (never handed to the SIMT body).
 template <typename T, typename C>
 cudaError_t launch_mma(const DaArgs& a) {
   constexpr bool q8 = std::is_same<C, int8_t>::value;
   if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
     return cudaErrorInvalidValue;
   } else {
-    if (a.nq * (a.nh / a.nkv) > kMaxRows || (a.body == kBodyWalk) != q8)
-      return cudaErrorInvalidValue;
+    if ((a.body == kBodyWalk) != q8) return cudaErrorInvalidValue;
     switch (a.hd) {
-      case 48: return q8 ? launch_walk_hd<48>(a) : launch_mma_hd<48>(a);
-      case 64: return q8 ? launch_walk_hd<64>(a) : launch_mma_hd<64>(a);
-      case 128: return q8 ? launch_walk_hd<128>(a) : launch_mma_hd<128>(a);
+      case 48: return launch_form<48, q8>(a);
+      case 64: return launch_form<64, q8>(a);
+      case 128: return launch_form<128, q8>(a);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -977,16 +1141,20 @@ cudaError_t launch_all(DaArgs a) {
 // pos0[b] + t; out (B, nq, nh * hd); part_o (B, nq, nh, nsplit, hd) and
 // part_ml (B, nq, nh, nsplit, 2) fp32 scratch with nsplit = ceil(S / chunk),
 // chunk <= 64; body: 0 the SIMT body, 1 the tensor-core body (bf16, hd 48 /
-// 64 / 128, q and caches 16-byte aligned).
+// 64 / 128, q and caches 16-byte aligned). Every launch entry sets *form
+// to the query rows a CTA of the form it launched (a tensor-core body's 8 /
+// 16 / 32 / 64, the SIMT body's 1 / 2 / 4 / 8).
 extern "C" int rama_decode_attention(const void* q, const void* k, const void* v,
                                      const void* pos0, void* out, void* part_o,
                                      void* part_ml, int B, int nq, int nh, int nkv, int S,
-                                     int hd, int chunk, int dtype, int body, void* stream) {
+                                     int hd, int chunk, int dtype, int body, void* stream,
+                                     int* form) {
   rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
                  static_cast<float*>(part_o), static_cast<float*>(part_ml),
                  B, nq, nh, nkv, S, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
                  nullptr};
   a.body = body;
+  a.ran = form;
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
@@ -1002,12 +1170,14 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
                                         const void* ks, const void* vs, const void* pos0,
                                         void* out, void* part_o, void* part_ml, int B, int nq,
                                         int nh, int nkv, int S, int hd, int chunk, int tiles,
-                                        int ctas, int dtype, int body, void* stream) {
+                                        int ctas, int dtype, int body, void* stream,
+                                        int* form) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                  static_cast<float*>(part_ml), B, nq, nh, nkv, S, hd, chunk, 0, 0.f,
                  static_cast<cudaStream_t>(stream), nullptr};
   a.body = body;
+  a.ran = form;
   a.tiles = tiles;
   a.ctas = ctas;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
@@ -1015,7 +1185,7 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K12 (nq = 1: the paged decode step; nq <= 8: the paged verification
+// K12 (nq = 1: the paged decode step; nq > 1: the paged verification
 // chunk) over a page pool of q's dtype: k/v point at layer l of the
 // (L, npages, nkv, ps, hd) pool, tables (B, mp) int32 page ids (entries
 // clamped to [0, npages - 1]); chunk divides ps; the scratch as above with
@@ -1024,7 +1194,7 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
                                     const void* pos0, const void* tables, void* out,
                                     void* part_o, void* part_ml, int B, int nq, int nh, int nkv,
                                     int mp, int ps, int npages, int hd, int chunk, int dtype,
-                                    int body, void* stream) {
+                                    int body, void* stream, int* form) {
   rama::DaArgs a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos0), out,
                  static_cast<float*>(part_o), static_cast<float*>(part_ml),
                  B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f, static_cast<cudaStream_t>(stream),
@@ -1035,6 +1205,7 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
   a.ps = ps;
   a.npages = npages;
   a.body = body;
+  a.ran = form;
   if (dtype == rama::kBF16)
     return static_cast<int>(rama::launch_all<__nv_bfloat16, __nv_bfloat16>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, float>(a));
@@ -1049,7 +1220,8 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
                                        const void* tables, void* out, void* part_o,
                                        void* part_ml, int B, int nq, int nh, int nkv, int mp,
                                        int ps, int npages, int hd, int chunk, int tiles,
-                                       int ctas, int dtype, int body, void* stream) {
+                                       int ctas, int dtype, int body, void* stream,
+                                       int* form) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
                  static_cast<float*>(part_ml), B, nq, nh, nkv, mp * ps, hd, chunk, 0, 0.f,
@@ -1060,6 +1232,7 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
   a.ps = ps;
   a.npages = npages;
   a.body = body;
+  a.ran = form;
   a.tiles = tiles;
   a.ctas = ctas;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));

@@ -69,13 +69,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // itself (one fewer a call, and none that a stream capture must see).
 struct SmemOptIn {
   std::atomic<unsigned long long> done{0};   // a bit a device id below 64
+  // bytes 0: the most a block of the card may opt into (for a launcher
+  // whose bytes vary from call to call)
   template <class F> cudaError_t set(F kern, size_t bytes) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
     if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    int most = (int)bytes;
+    if (!bytes) e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
     return e;
   }

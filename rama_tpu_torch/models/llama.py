@@ -600,10 +600,10 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
 def check_chunk(cfg: ModelConfig, t: int, device: torch.device) -> None:
     """Raise (naming the limit) unless forward_chunk serves chunks of T
     tokens a slot on `device`: on the card its fused path (2 <= T <= 8)
-    runs the chunk attention kernel, which takes T * n_heads / n_kv_heads
-    query rows per kv head up to its register limit."""
+    runs the chunk attention kernel, which takes any T * n_heads /
+    n_kv_heads query rows a kv head of whole GQA groups."""
     if torch.device(device).type == "cuda" and 2 <= t <= 8:
-        _da.check_rows(t, cfg.n_heads, cfg.n_kv_heads)
+        _da.check_group(cfg.n_heads, cfg.n_kv_heads)
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -611,9 +611,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Forward a (B, T) chunk of CONSECUTIVE tokens per slot: column t of
     slot b sits at position pos0[b] + t (pos0 (B,), within the cache). The
     speculative-verification entry point (runtime.engine spec ticks,
-    runtime.speculative): 2 <= T <= 8 takes the fused chunk path (on the
-    card it raises for a chunk and GQA group its attention kernel does not
-    serve: `check_chunk`), any other T the generic `forward`, as rama_tpu's
+    runtime.speculative): 2 <= T <= 8 takes the fused chunk path (any GQA
+    group: `check_chunk`), any other T the generic `forward`, as rama_tpu's
     forward_chunk does. Returns (logits (B, T, V) fp32, cache)."""
     t = tokens.shape[1]
     if 2 <= t <= 8:

@@ -1,8 +1,8 @@
 """Kernels 4, 7, 9 and 10: decode attention against layer l of the stacked
 KV cache, for one query per slot — bf16 / f32 cache (K4) or int8 with row
 scales (K7) — or against one layer's cache (K9, both caches), or for a
-chunk of T <= 8 consecutive queries per slot on either cache (K10,
-speculative verification).
+chunk of T consecutive queries per slot on either cache (K10, speculative
+verification), at any GQA group.
 
 The counterparts of `rama_tpu/ops/pallas/decode_attention.py`'s
 `decode_attention_layer` and `decode_attention_layer_tiled` (one function:
@@ -41,6 +41,13 @@ The splits each launch's partials are sized for come from `split_plan`:
 one tile of CHUNK rows (a pool: `split_rows` of its page) a split, but on
 the walk body, where a split is G tiles, G a function of the cache's rows
 alone.
+
+The T * nh / nkv query rows of a kv head run in one of four forms of the
+tensor-core bodies (`row_form`): 8 rows (every Llama-2 shape at T <= 8,
+and a decode step of a GQA group <= 8), or 16, 32 or 64 rows of whole m16
+tiles, past 64 rows in row groups of 64 on a grid dimension; the SIMT
+body takes groups of 8. A query row computes the same bits in every form,
+so a verified row equals the decode step's whatever the group.
 """
 
 from __future__ import annotations
@@ -62,20 +69,23 @@ launches_chunk_q8 = 0  # K10 launches on an int8 cache
 launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
 launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
 launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
-
 CHUNK = 64     # cache rows per tile (csrc/decode_attention.cu kMaxChunk, the most it takes)
-MAX_ROWS = 8   # query rows per CTA, T * (nh / nkv) (csrc/decode_attention.cu kMaxRows)
+FORMS = (8, 16, 32, 64)   # query rows a CTA of the tensor-core bodies (csrc dattn_mma.cuh)
+# the tensor-core bodies' launches by the row form the C entry reports it ran
+launches_by_form = {body: dict.fromkeys(FORMS, 0) for body in ("mma", "walk")}
+
 MMA_HEAD_DIMS = (48, 64, 128)      # the tensor-core bodies' instantiations
+DA_THREADS = 128   # threads a split CTA (csrc kDaThreads)
 BODIES = {"simt": 0, "mma": 1, "walk": 2}   # body codes of the C entries (csrc rama::Body)
 
 # every C entry of csrc/decode_attention.cu, the paged forms (K12, called by
 # ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
-    "rama_decode_attention": [P] * 7 + [I] * 9 + [P],
-    "rama_decode_attention_q8": [P] * 9 + [I] * 11 + [P],
+    "rama_decode_attention": [P] * 7 + [I] * 9 + [P, P],
+    "rama_decode_attention_q8": [P] * 9 + [I] * 11 + [P, P],
     "rama_decode_attention_occupancy": [I] * 8 + [P],
-    "rama_paged_attention": [P] * 8 + [I] * 11 + [P],
-    "rama_paged_attention_q8": [P] * 10 + [I] * 13 + [P],
+    "rama_paged_attention": [P] * 8 + [I] * 11 + [P, P],
+    "rama_paged_attention_q8": [P] * 10 + [I] * 13 + [P, P],
 }
 
 
@@ -136,31 +146,57 @@ def scratch(q: torch.Tensor, plan: SplitPlan) -> tuple[torch.Tensor, torch.Tenso
     return out, part_o, part_ml
 
 
+def row_form(t: int, rep: int) -> tuple[int, int]:
+    """(rows, groups): the form of the tensor-core bodies a launch of T
+    queries over a GQA group rep runs — the fewest of FORMS rows that hold
+    its T * rep query rows a kv head — and its row groups a kv head (more
+    than 64 rows run as groups of 64). csrc dattn_mma.cuh form_rows."""
+    rows = t * rep
+    form = next((f for f in FORMS if rows <= f), FORMS[-1])
+    return form, -(-rows // form)
+
+
+def form_smem(body: str, form: int, hd: int, b: int = 1) -> int:
+    """Dynamic shared memory one split CTA of a tensor-core body asks for,
+    in bytes: "mma" (csrc MmaSmem: K, V tiles of CHUNK bf16 rows of hd + 8,
+    Q and P tiles of `form` rows, row maxima and sums) or "walk" (csrc
+    WalkSmem + walk_smem: int8 K, V tiles of CHUNK rows of hd + 16 or + 32
+    bytes, their f32 row scales, Q, P, maxima and sums, and the walk's
+    table of 2 b + 1 ints for b slots)."""
+    warps = DA_THREADS // 32
+    ld, pld = hd + 8, CHUNK + 8
+    rows = 2 * form * (ld + pld) + 4 * 2 * warps * form
+    if body == "mma":
+        return 2 * CHUNK * ld * 2 + rows
+    rld = hd + 16 if ((hd + 16) // 16) % 2 else hd + 32
+    return 2 * CHUNK * rld + 2 * 4 * CHUNK + rows + 4 * (2 * b + 1)
+
+
 def walk_ctas(b: int, nkv: int, nsplit: int, wave: int) -> int:
-    """CTAs a kv head of a walk launch: as many as one wave of the card
-    (`wave` resident CTAs) holds for each kv head, never more than the b *
-    nsplit (slot, split) items there can be. They walk the items that hold
-    a visible row (csrc dattn_walk), so the grid has no CTA past a slot's
+    """CTAs a (kv head, row group) of a walk launch: as many as one wave of
+    the card (`wave` resident CTAs of the launched form) holds for each of
+    the `nkv` (kv head, row group) pairs, never more than the b * nsplit
+    (slot, split) items there can be. They walk the items that hold a
+    visible row (csrc dattn_walk), so the grid has no CTA past a slot's
     position."""
     return max(1, min(b * nsplit, wave // nkv))
 
 
 @functools.lru_cache(maxsize=None)
-def walk_wave(device_index: int, hd: int) -> int:
-    """Resident dattn_walk CTAs on the whole card at head dim hd: SMs times
-    CTAs an SM (occupancy API)."""
+def walk_wave(device_index: int, hd: int, form: int = FORMS[0]) -> int:
+    """Resident dattn_walk CTAs of the `form`-row form on the whole card at
+    head dim hd: SMs times CTAs an SM (occupancy API; each form has its own
+    register cap and shared memory)."""
     with torch.cuda.device(device_index):
-        per_sm = occupancy(1, 1, 1, hd, q8=True)["ctas_per_sm"]
+        per_sm = occupancy(form, 1, 1, hd, q8=True)["ctas_per_sm"]
         return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
 
 
-def check_rows(t: int, nh: int, nkv: int) -> None:
-    """Raise unless the kernel serves T queries of a GQA group nh / nkv:
-    each CTA keeps T * nh / nkv query rows in registers, at most MAX_ROWS."""
-    require(nh % nkv == 0 and t * (nh // nkv) <= MAX_ROWS,
-            f"{t} queries x GQA group {nh}/{nkv} is {t * (nh // max(nkv, 1))} query "
-            f"rows per kv head; the decode-attention kernel takes at most {MAX_ROWS} "
-            f"(csrc/decode_attention.cu kMaxRows)")
+def check_group(nh: int, nkv: int) -> None:
+    """Raise unless nh query heads share nkv kv heads in whole GQA groups
+    (any T * nh / nkv query rows a kv head run: `row_form`)."""
+    require(nkv > 0 and nh % nkv == 0,
+            f"GQA group {nh}/{nkv}: {nh} query heads do not divide into {nkv} kv heads")
 
 
 def check_head_dim(hd: int, q8: bool) -> None:
@@ -271,7 +307,7 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     b, t, nh, hd = q.shape
     L, bc, nkv, s, hdc = k.shape
     require(bc == b and hdc == hd, f"q {tuple(q.shape)} does not fit cache {tuple(k.shape)}")
-    check_rows(t, nh, nkv)
+    check_group(nh, nkv)
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
     body = check_caches(q, caches)
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
@@ -282,17 +318,38 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     out, part_o, part_ml = scratch(q, plan)
     head = (q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
             out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd)
+    ran = ctypes.c_int(0)
     if q8:
-        ctas = (walk_ctas(b, nkv, plan.nsplit, walk_wave(q.device.index, hd))
-                if body == "walk" else 0)
+        ctas = walk_launch_ctas(q.device.index, b, t, nh, nkv, hd, plan) if body == "walk" else 0
         err = lib.rama_decode_attention_q8(*head, plan.tile, plan.tiles, ctas, dtype,
-                                           BODIES[body], build.stream_ptr(q))
+                                           BODIES[body], build.stream_ptr(q), ctypes.byref(ran))
     else:
         err = lib.rama_decode_attention(*head, plan.tile, dtype, BODIES[body],
-                                        build.stream_ptr(q))
+                                        build.stream_ptr(q), ctypes.byref(ran))
     build.check(lib, err, what)
-    launches_by_body[body] += 1
+    count_launch(launches_by_body, launches_by_form, body, ran.value, t, nh // nkv)
     return out
+
+
+def count_launch(by_body: dict, by_form: dict, body: str, ran: int, t: int, rep: int) -> None:
+    """Count one launch by body and, on a tensor-core body, by the row form
+    `ran` that the C entry reports it launched. Raise if that is not the
+    form `row_form` sized the launch for (the walk's wave, `walk_ctas`)."""
+    by_body[body] += 1
+    if body != "simt":
+        require(ran == row_form(t, rep)[0],
+                f"the {body} body launched its {ran}-row form for T {t} x GQA group {rep}, "
+                f"not the {row_form(t, rep)[0]}-row form the launch was sized for")
+        by_form[body][ran] += 1
+
+
+def walk_launch_ctas(device_index: int, b: int, t: int, nh: int, nkv: int, hd: int,
+                     plan: SplitPlan) -> int:
+    """The walk body's CTAs a (kv head, row group) for a launch of T
+    queries: one wave of the form it runs (`row_form`), shared by its
+    nkv * groups (kv head, row group) pairs."""
+    form, groups = row_form(t, nh // nkv)
+    return walk_ctas(b, nkv * groups, plan.nsplit, walk_wave(device_index, hd, form))
 
 
 def layer_ptrs(caches: tuple, rows: int) -> list[int]:
@@ -408,10 +465,10 @@ def occupancy(t: int, nh: int, nkv: int, hd: int, q8: bool,
               dtype: torch.dtype = torch.bfloat16, chunk: int | None = None) -> dict:
     """The split kernel a launch of T queries would run (int8 cache if q8,
     tiles of `chunk` cache rows, CHUNK by default, on the body `body_for`
-    picks): its body, resident CTAs per SM, registers per thread and shared
-    bytes per CTA, as the CUDA occupancy API reports them on the current
-    card."""
-    check_rows(t, nh, nkv)
+    picks, in the form `row_form` picks): its body, resident CTAs per SM,
+    registers per thread and shared bytes per CTA (the walk's at one slot),
+    as the CUDA occupancy API reports them on the current card."""
+    check_group(nh, nkv)
     body = body_for(dtype, hd, q8)
     out = (ctypes.c_int * 3)()
     lib = build.library("decode_attention", _SIGNATURES)

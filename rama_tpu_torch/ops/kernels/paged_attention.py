@@ -28,6 +28,8 @@ the plain version (`*_plain`).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from rama_tpu_torch.ops.kernels import build
@@ -38,15 +40,18 @@ from rama_tpu_torch.ops.kernels.build import require
 launches = {"paged_decode_attention": 0, "paged_decode_attention_q8": 0,
             "paged_chunk_attention": 0, "paged_chunk_attention_q8": 0}
 launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # the same launches (all four forms) by body
+# ... on a tensor-core body, by the row form the C entry reports it ran
+launches_by_form = {body: dict.fromkeys(da.FORMS, 0) for body in ("mma", "walk")}
 
 
 split_rows = da.split_rows   # cache rows a tile of the paged kernel reads: within one page
 
 
-def check(t: int, nh: int, nkv: int, hd: int, ps: int, q8: bool) -> None:
-    """Raise (naming the limit) unless the kernel serves T queries a slot of
-    a GQA group nh / nkv with head_dim hd over pages of ps rows."""
-    da.check_rows(t, nh, nkv)
+def check(nh: int, nkv: int, hd: int, ps: int, q8: bool) -> None:
+    """Raise (naming the limit) unless the kernel serves a GQA group nh /
+    nkv with head_dim hd over pages of ps rows (any T queries a slot: any
+    T * nh / nkv query rows a kv head, `da.row_form`)."""
+    da.check_group(nh, nkv)
     da.check_head_dim(hd, q8)
     split_rows(ps)
 
@@ -111,7 +116,7 @@ def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Ten
     b, t, nh, hd = q.shape
     L, npages, nkv, ps, hdc = k.shape
     require(hdc == hd, f"q {tuple(q.shape)} does not fit pool {tuple(k.shape)}")
-    check(t, nh, nkv, hd, ps, q8)
+    check(nh, nkv, hd, ps, q8)
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
     body = da.check_caches(q, pools)
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
@@ -126,17 +131,19 @@ def _launch(q: torch.Tensor, pools: tuple, pos0: torch.Tensor, tables: torch.Ten
     head = (q.data_ptr(), *da.layer_ptrs(pools, layer * npages * nkv * ps), pos0.data_ptr(),
             tables.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
             nkv, mp, ps, npages, hd, plan.tile)
+    ran = ctypes.c_int(0)
     if q8:
-        ctas = (da.walk_ctas(b, nkv, plan.nsplit, da.walk_wave(q.device.index, hd))
+        ctas = (da.walk_launch_ctas(q.device.index, b, t, nh, nkv, hd, plan)
                 if body == "walk" else 0)
         err = lib.rama_paged_attention_q8(*head, plan.tiles, ctas, build.dtype_code(q),
-                                          da.BODIES[body], build.stream_ptr(q))
+                                          da.BODIES[body], build.stream_ptr(q),
+                                          ctypes.byref(ran))
     else:
         err = lib.rama_paged_attention(*head, build.dtype_code(q), da.BODIES[body],
-                                       build.stream_ptr(q))
+                                       build.stream_ptr(q), ctypes.byref(ran))
     build.check(lib, err, what)
     launches[what] += 1
-    launches_by_body[body] += 1
+    da.count_launch(launches_by_body, launches_by_form, body, ran.value, t, nh // nkv)
     return out
 
 

@@ -288,13 +288,12 @@ class Engine:
 
     def _check_paged(self, cfg: ModelConfig, ps: int) -> None:
         """On the card every paged tick runs the fused path through K12 /
-        K13: raise here, naming the limit, for a page size, head_dim, GQA
-        group or verification chunk the kernels do not take."""
+        K13: raise here, naming the limit, for a page size, head_dim or GQA
+        group the kernels do not take (they take any verification chunk)."""
         if self.device.type == "cpu":
             return
-        for t in (1, self.spec + 1) if self.spec else (1,):
-            paged_attention.check(t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ps,
-                                  self.kv_quant == "int8")
+        paged_attention.check(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ps,
+                              self.kv_quant == "int8")
 
     def _create_cache(self, batch: int):
         """The slot cache, or the page pool (and a fresh allocator and

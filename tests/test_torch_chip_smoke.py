@@ -993,7 +993,7 @@ def test_walk_grid_counts_ctas_against_splits_with_work(smoke, monkeypatch):
     of which 5,408 have a row)."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
 
-    monkeypatch.setattr(da, "walk_wave", lambda index, hd: 660)
+    monkeypatch.setattr(da, "walk_wave", lambda index, hd, form=8: 660)
     pos = torch.tensor([0, 127, 128, 255, 1000, 2047, 3000, 4092], dtype=torch.int32)
     assert smoke.walk_work(da, pos, 1, 4096, 32, 128) == dict(
         tile=64, tiles=4, nsplit=16, splits_with_work=(1 + 1 + 1 + 1 + 4 + 8 + 12 + 16) * 32,
@@ -1320,3 +1320,153 @@ def test_step_weight_bytes_of_7b_with_f32_and_bf16_scales(smoke):
     assert got == {(4, torch.float32): 4.053, (4, torch.bfloat16): 3.711,
                    (8, torch.float32): 7.020, (8, torch.bfloat16): 6.814}
 
+
+
+# -- GQA speculation: row forms, TinyLlama -----------------------------------------
+
+GQA_PHASES = ("kernels_gqa", "model_gqa", "serve_gqa", "serve_gqa_spec", "profile_gqa_spec",
+              "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8", "spec_gqa_self")
+GQA_PATHS = ("GQA_PATH", "GQA_SPEC_PATH", "GQA_SPEC_KV8_PATH", "GQA_SPEC_PAGED_KV8_PATH",
+             "GQA_SELF_PATH")
+
+
+def test_gqa_phases_are_known_and_a_subset_is_not_ok(smoke):
+    for ph in GQA_PHASES:
+        assert ph in smoke.ALL_PHASES
+    assert smoke.ALL_PHASES[-1] == "cli"
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    for ph in GQA_PHASES:
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != ph), dev)
+        assert line == {"ok": False, "skipped_phases": [ph], "device": dev}
+        assert rc == smoke.PARTIAL_RC != 0
+
+
+def test_tinyllama_is_the_published_shape(smoke):
+    """TinyLlama-1.1B-Chat-v1.0's config.json: GQA group 8, head_dim 64;
+    its verify rounds at spec_tick 7 are 64 query rows a kv head."""
+    from rama_tpu_torch.config import ModelConfig
+
+    cfg = smoke.tinyllama_config(ModelConfig)
+    assert (cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.vocab_size, cfg.seq_len, cfg.shared_classifier) == (
+        2048, 5632, 22, 32, 4, 32000, 2048, False)
+    assert cfg.n_rep == 8 and cfg.head_dim == 64
+    assert (smoke.GQA_SPEC_TICK + 1) * cfg.n_rep == 64
+    assert smoke.tinyllama_config(ModelConfig, n_layers=2).n_layers == 2
+    for name in GQA_PATHS:
+        path = getattr(smoke, name)
+        assert path in smoke.PATHS and path["model"] == "tinyllama"
+
+
+def _gqa_launches(smoke, path, **over):
+    return {**{k: 4 for k in path["record"]}, **{k: 0 for k in path["forbid"]}, **over}
+
+
+@pytest.mark.parametrize("name", ["GQA_SPEC_PATH", "GQA_SPEC_KV8_PATH",
+                                  "GQA_SPEC_PAGED_KV8_PATH", "GQA_SELF_PATH"])
+def test_gqa_spec_paths_need_every_chunk_launch_in_a_wide_form(smoke, name):
+    """A GQA verify round runs its chunk attention in a form of more than 8
+    rows (the `*_gqa` record's count by body and form): the path passes when every
+    launch of the chunk wrapper did, and fails when one ran the 8-row form
+    or when the wrapper never launched."""
+    path = getattr(smoke, name)
+    (gqa, wrapper), = path["equal"].items()
+    smoke.check_launches(path, _gqa_launches(smoke, path))
+    with pytest.raises(SystemExit, match="as often as"):
+        smoke.check_launches(path, _gqa_launches(smoke, path, **{gqa: 3}))
+    with pytest.raises(SystemExit, match="never launched"):
+        smoke.check_launches(path, _gqa_launches(smoke, path, **{gqa: 0, wrapper: 0}))
+
+
+@pytest.mark.parametrize("name", ["INT8_PATH", "SPEC_PATH", "SPEC_PAGED_KV8_PATH"])
+def test_a_7b_path_fails_on_a_decode_attention_launch_in_a_wide_form(smoke, name):
+    """Every Llama-2-7B launch (rep 1, T <= 8) keeps the 8-row form: a
+    count in another form fails the path; a GQA path may run them."""
+    path = getattr(smoke, name)
+    ok = {k: 4 for k in path["record"]} | {k: 0 for k in path["forbid"]}
+    ok |= {"decode_attention_mma_rows8": 4, "decode_attention_walk_rows8": 4,
+           "paged_attention_walk_rows8": 4}
+    smoke.check_launches(path, ok)
+    for wide in ("decode_attention_mma_rows16", "decode_attention_walk_rows32",
+                 "paged_attention_walk_rows64"):
+        with pytest.raises(SystemExit, match="8-row form"):
+            smoke.check_launches(path, {**ok, wide: 1})
+    gqa = smoke.GQA_SPEC_PATH
+    smoke.check_launches(gqa, {**_gqa_launches(smoke, gqa), "decode_attention_mma_rows64": 4})
+
+
+def test_launches_by_form_are_read_and_reset(smoke, counters):
+    """The `*_gqa` records are separate counts: the dense wrappers' wide
+    launches on the mma body (bf16 cache) and on the walk body (int8), and
+    the paged wrappers' on the walk body."""
+    _, _, da, _, _, pga, _ = counters
+    da.launches_by_form["mma"].update({8: 1, 16: 2, 32: 3, 64: 4})
+    da.launches_by_form["walk"].update({8: 7, 16: 0, 32: 5, 64: 0})
+    pga.launches_by_form["mma"].update({8: 0, 16: 0, 32: 0, 64: 3})
+    pga.launches_by_form["walk"].update({8: 5, 16: 0, 32: 0, 64: 6})
+    got = smoke.read_launches(*counters)
+    assert got["decode_attention_mma_rows16"] == 2 and got["paged_attention_walk_rows64"] == 6
+    assert got["decode_attention_walk_rows8"] == 7
+    assert got["chunk_attention_gqa"] == 9 and got["chunk_attention_q8_gqa"] == 5
+    assert got["paged_chunk_attention_q8_gqa"] == 6
+    smoke.reset_launches(*counters)
+    for mod in (da, pga):
+        assert not any(n for forms in mod.launches_by_form.values() for n in forms.values())
+    for name in ("chunk_attention_gqa", "paged_chunk_attention_q8_gqa", "decode_attention"):
+        assert name in smoke.FORM_COUNTS
+
+
+def test_on_form_fails_a_launch_in_another_form(smoke):
+    counts = {"mma": 0, "walk": 0, "simt": 0}
+    forms = {"mma": {8: 0, 64: 0}, "walk": {8: 0, 64: 0}}
+
+    def launch(form, body="mma"):
+        counts["mma"] += 1
+        forms[body][form] += 1
+        return form
+
+    assert smoke.on_form(counts, forms, "mma", 64, "x", lambda: launch(64)) == 64
+    with pytest.raises(SystemExit, match="not one in the mma body's 64-row form"):
+        smoke.on_form(counts, forms, "mma", 64, "x", lambda: launch(8))
+    with pytest.raises(SystemExit, match="not one in the mma body's 64-row form"):
+        smoke.on_form(counts, forms, "mma", 64, "x", lambda: launch(64, "walk"))
+
+
+@pytest.mark.parametrize("names,ok", [
+    (["void rama::dattn_mma<64, 64>"], True), (["void rama::dattn_walk<64, 64>"], True),
+    (["void rama::dattn_mma<64, 8>"], False), (["void rama::dattn_mma<128, 64>"], False),
+    ([], True)])
+def test_check_split_form_reads_the_template_arguments(smoke, names, ok):
+    parts = {"split_kernel": names}
+    if ok:
+        smoke.check_split_form("x", parts, 64, 64)
+    else:
+        with pytest.raises(SystemExit, match="64-row form"):
+            smoke.check_split_form("x", parts, 64, 64)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_planted_gqa_edges_score_for_each_groups_first_head(smoke, q8):
+    """plant_chunk_edges under GQA (8 heads over 2 kv heads) plants each
+    group's first head's key: a kernel that reads one row past a query's
+    limit moves that head's output by tens of percent (the plain version
+    with the limit shifted by one fails compare), as at rep 1."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    g = torch.Generator().manual_seed(3)
+    b, t, nh, nkv, s, hd = 2, 4, 8, 2, 96, 64
+    q = torch.randn(b, t, nh, hd, generator=g)
+    k, v = torch.randn(1, b, nkv, s, hd, generator=g), torch.randn(1, b, nkv, s, hd, generator=g)
+    pos0 = torch.tensor([10, 60], dtype=torch.int32)
+    key = smoke.group_key(q[0, 0], nkv)
+    assert torch.equal(key, q[0, 0, ::4]) and smoke.group_key(q[0, 0, :2], 2) is not None
+    if q8:
+        (k8, ks), (v8, vs) = kvw.kv_quant_rows(k), kvw.kv_quant_rows(v)
+        cache, plain = [k8, v8, ks, vs], da.chunk_attention_q8_plain
+    else:
+        cache, plain = [k, v], da.chunk_attention_plain
+    smoke.plant_chunk_edges(q, cache, pos0, 0, [63, 64], kvw if q8 else None)
+    want = plain(q, *cache, pos0, 0)
+    smoke.compare(torch, "same", plain(q, *cache, pos0, 0), want, per=hd)
+    with pytest.raises(SystemExit, match="rel err"):
+        smoke.compare(torch, "one row past", plain(q, *cache, pos0 + 1, 0), want, per=hd)

@@ -109,6 +109,40 @@ def test_chunk_attention_q8_plain_matches_pallas(tq, nh, nkv, s, dtype, tiled):
         _close(got, want, fp32=False)
 
 
+# (tq, nh, nkv): GQA groups past the card's 8-row form: rep 8 x T 8 (64
+# query rows a kv head), rep 3 x T 3 (9), rep 16 x T 1 (16)
+GQA_CASES = [(8, 8, 1), (3, 6, 2), (1, 16, 1)]
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("tq,nh,nkv", GQA_CASES)
+def test_gqa_chunk_plain_matches_pallas(tq, nh, nkv, q8):
+    """K10's plain versions at the GQA groups the card runs in its 16 / 32
+    / 64-row forms and row groups, against chunk_attention_layer / _q8 in
+    interpret mode on bf16 q (hd 16, S 128, chunks straddling a 64-row
+    split and the last that fits): the bf16 tolerance of this file (atol
+    0.03, rtol 0.05)."""
+    L, b, s, hd = 2, 4, 128, 16
+    q, k, v = make(L, b, tq, nh, nkv, s, hd, seed=tq * nh + nkv)
+    pos0 = positions(s, tq)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    tq_ = t(np.asarray(jq.astype(jnp.float32))).bfloat16()
+    for layer in (0, L - 1):
+        if q8:
+            k8, v8, ks, vs = _q8(k, v)
+            want = jda.chunk_attention_layer_q8(jq, k8, v8, ks, vs, jnp.asarray(pos0),
+                                                jnp.int32(layer), interpret=True)
+            got = da.chunk_attention_q8_plain(tq_, t(k8), t(v8), t(ks), t(vs), t(pos0), layer)
+        else:
+            jk, jv = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+            want = jda.chunk_attention_layer(jq, jk, jv, jnp.asarray(pos0), jnp.int32(layer),
+                                             interpret=True)
+            got = da.chunk_attention_plain(tq_, t(np.asarray(jk.astype(jnp.float32))).bfloat16(),
+                                           t(np.asarray(jv.astype(jnp.float32))).bfloat16(),
+                                           t(pos0), layer)
+        _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), fp32=False)
+
+
 @pytest.mark.parametrize("nh,nkv", [(4, 4), (4, 2)])
 def test_chunk_attention_q8_plain_fp32_follows_the_dequant_path(nh, nkv):
     """fp32 q: the JAX package's CPU path (_dequant_kv + _attention) at
@@ -304,18 +338,26 @@ def test_forward_chunk_routes_by_chunk_length():
 
 def test_check_chunk_names_the_chunk_kernel_limit():
     """forward_chunk's support check, which the engine calls for its
-    verification chunk: on the card T * n_heads / n_kv_heads query rows per
-    kv head must fit the chunk attention kernel (8); the CPU's plain path
-    and T outside 2..8 (the generic forward) take any shape."""
+    verification chunk: on the card the chunk attention kernel takes any
+    T * n_heads / n_kv_heads query rows a kv head (12, 64 and 128 rows:
+    the 16-row form, the 64-row form, two row groups of 64), so only a
+    GQA group that does not divide the heads is refused, by name; the
+    CPU's plain path and T outside 2..8 (the generic forward) take any
+    shape."""
+    from types import SimpleNamespace
+
     from rama_tpu_torch.config import ModelConfig
 
-    cfg = ModelConfig(dim=64, hidden_dim=128, n_layers=1, n_heads=8, n_kv_heads=2,
-                      vocab_size=32, seq_len=16)
-    tl.check_chunk(cfg, 2, torch.device("cuda"))            # 2 x rep 4 = 8 rows
-    with pytest.raises(ValueError, match="at most 8"):
-        tl.check_chunk(cfg, 3, torch.device("cuda"))
-    tl.check_chunk(cfg, 3, torch.device("cpu"))
-    tl.check_chunk(cfg, 9, torch.device("cuda"))
+    for nh, nkv, tq, rows in ((8, 2, 3, 12), (32, 4, 8, 64), (16, 1, 8, 128)):
+        cfg = ModelConfig(dim=16 * nh, hidden_dim=128, n_layers=1, n_heads=nh,
+                          n_kv_heads=nkv, vocab_size=32, seq_len=16)
+        tl.check_chunk(cfg, tq, torch.device("cuda"))
+        assert tq * cfg.n_rep == rows
+    odd = SimpleNamespace(n_heads=6, n_kv_heads=4)
+    with pytest.raises(ValueError, match="GQA group 6/4"):
+        tl.check_chunk(odd, 3, torch.device("cuda"))
+    tl.check_chunk(odd, 3, torch.device("cpu"))
+    tl.check_chunk(odd, 9, torch.device("cuda"))
 
 
 # -- the tensor-core body (csrc/decode_attention.cu dattn_mma) ----------------

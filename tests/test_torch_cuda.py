@@ -835,14 +835,122 @@ def test_chunk_attention_q8(dev, nh, nkv, hd, t, dtype):
 
 
 def test_chunk_attention_refuses_too_many_rows(dev):
-    """T * GQA group > 8 query rows a kv head: the wrapper raises, naming
-    the limit, and never runs the plain version."""
+    """No T * GQA group is too many query rows a kv head any more: 3 x rep
+    4 = 12 rows (past the 8 a CTA of the SIMT body holds, so two row
+    groups) are served and match the plain version; what the wrapper still
+    refuses, naming it, is a group that does not divide the heads."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
 
-    k = torch.zeros(1, 1, 2, 16, 16, device=dev)
-    with pytest.raises(ValueError, match="at most 8"):
-        da.chunk_attention(torch.zeros(1, 3, 8, 16, device=dev), k, k,
-                           torch.zeros(1, dtype=torch.int32, device=dev), 0)
+    k = torch.randn(1, 1, 2, 16, 16, device=dev)
+    v = torch.randn(1, 1, 2, 16, 16, device=dev)
+    q = torch.randn(1, 3, 8, 16, device=dev)
+    pos0 = torch.tensor([5], dtype=torch.int32, device=dev)
+    _close(da.chunk_attention(q, k, v, pos0, 0), da.chunk_attention_plain(q, k, v, pos0, 0),
+           torch.float32)
+    with pytest.raises(ValueError, match="GQA group 6/4"):
+        da.chunk_attention(torch.zeros(1, 3, 6, 16, device=dev), torch.zeros(1, 1, 4, 16, 16,
+                           device=dev), torch.zeros(1, 1, 4, 16, 16, device=dev), pos0, 0)
+
+
+# (T, rep): the row forms of the tensor-core bodies: 8 (rep 8 x T 1), 16
+# (x 2), 32 (x 4), 64 (x 8) rows; rep 3 x T 3 = 9 rows, a partial m16
+# block; rep 16 x T 1 / 8 = 16 / 128 rows (two row groups of 64); rep 12 x
+# T 4 = 48 rows (the 64-row form, part empty); rep 1 x T 8 the 8-row form
+GQA_FORMS = [(1, 8), (2, 8), (4, 8), (8, 8), (3, 3), (1, 16), (8, 16), (4, 12), (8, 1)]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t,rep", GQA_FORMS)
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_gqa_row_forms_match_plain(dev, hd, t, rep, q8, paged):
+    """Each row form of the tensor-core bodies (bf16; the walk body over
+    int8) against the plain version, dense (S 200) and paged (128-row
+    pages, shuffled, a stale entry): starts straddling a 64-row split,
+    reaching and (dense) running past S; every launch on its body and in
+    the form `row_form` names (as the C entry reports it), a rerun bit for
+    bit, and the occupancy API's shared bytes those of that form."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    nkv, S = 2, 200
+    pos = [0, 60, 61, S - 2, S - t]
+    if paged:
+        tables, npages = _paged_setup(dev, 2, len(pos), nkv, hd, 128, 2, pos, t, seed=t + rep)
+        shape = (2, npages, nkv, 128, hd)
+    else:
+        shape = (2, len(pos), nkv, S, hd)
+    k, v = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
+    if q8:
+        (k8, ks), (v8, vs) = kw.kv_quant_rows(k), kw.kv_quant_rows(v)
+        caches = (k8, v8, ks, vs)
+    else:
+        caches = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    q = torch.randn(len(pos), t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    p0 = torch.tensor(pos, dtype=torch.int32, device=dev)
+    sfx = "_q8" if q8 else ""
+    if paged:
+        kernel = getattr(pa, f"paged_chunk_attention{sfx}")
+        plain = getattr(pa, f"paged_chunk_attention{sfx}_plain")
+        args, counts, forms = (p0, tables), pa.launches_by_body, pa.launches_by_form
+    else:
+        kernel = getattr(da, f"chunk_attention{sfx}")
+        plain = getattr(da, f"chunk_attention{sfx}_plain")
+        args, counts, forms = (p0,), da.launches_by_body, da.launches_by_form
+    body = "walk" if q8 else "mma"
+    form, _ = da.row_form(t, rep)
+    before, before_form = dict(counts), dict(forms[body])
+    for layer in (0, 1):
+        got = kernel(q, *caches, *args, layer)
+        _close(got, plain(q, *caches, *args, layer), torch.bfloat16)
+        assert torch.equal(got, kernel(q, *caches, *args, layer))
+    assert counts == {**before, body: before[body] + 4}
+    assert forms[body] == {**before_form, form: before_form[form] + 4}
+    assert da.occupancy(t, nkv * rep, nkv, hd, q8)["smem_bytes"] == da.form_smem(body, form, hd)
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("q8", [False, True])
+def test_rep1_chunks_keep_the_8_row_form(dev, hd, q8):
+    """A rep-1 launch at T <= 8 (every Llama-2 shape) runs the 8-row form:
+    the C entry reports it launched that form, dense and paged, and the
+    occupancy API reports the 8-row form's shared bytes (38,400 at hd 128
+    on the bf16 cache) and its residency, whatever T."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    body = "walk" if q8 else "mma"
+    one = da.occupancy(1, 32, 32, hd, q8)
+    assert one["smem_bytes"] == da.form_smem(body, 8, hd)
+    nkv, S, ps = 4, 256, 128
+    k, v = torch.randn(2, 3, nkv, S, hd, device=dev), torch.randn(2, 3, nkv, S, hd, device=dev)
+    if q8:
+        (k8, ks), (v8, vs) = kw.kv_quant_rows(k), kw.kv_quant_rows(v)
+        caches = (k8, v8, ks, vs)
+    else:
+        caches = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    # the same rows as a pool of 2 pages a slot, slot b's page j at b * 2 + j
+    pool = tuple(c.unflatten(3, (2, ps)).transpose(2, 3).reshape(2, 6, nkv, ps, *c.shape[4:])
+                 for c in caches)
+    tables = torch.arange(6, dtype=torch.int32, device=dev).reshape(3, 2)
+    p0 = torch.tensor([0, 100, S - 9], dtype=torch.int32, device=dev)
+    for t in (1, 2, 4, 8):
+        assert da.row_form(t, 1) == (8, 1)
+        assert da.occupancy(t, 32, 32, hd, q8) == one
+        q = torch.randn(3, t, nkv, hd, device=dev).to(torch.bfloat16)
+        for mod, fn, extra, cs in (
+                (da, da.chunk_attention_q8 if q8 else da.chunk_attention, (), caches),
+                (pa, pa.paged_chunk_attention_q8 if q8 else pa.paged_chunk_attention,
+                 (tables,), pool)):
+            before = {b: dict(f) for b, f in mod.launches_by_form.items()}
+            fn(q, *cs, p0, *extra, 1)
+            ran = {(b, f): n - before[b][f] for b, forms in mod.launches_by_form.items()
+                   for f, n in forms.items()}
+            assert ran == {key: int(key == (body, 8)) for key in ran}
+    if hd == 128 and not q8:
+        assert one["smem_bytes"] == 38400
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])
@@ -911,7 +1019,7 @@ def test_paged_chunk_attention_tensor_core_body(dev, hd, t, rep, ps):
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])
-@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("rep", [1, 2, 3, 8, 16])
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("S,tiles", [(200, None), (1024, None), (1024, 3), (4096, None),
@@ -924,13 +1032,16 @@ def test_chunk_rows_equal_decode_rows_bit_for_bit(dev, hd, rep, q8, paged, S, ti
     draft. Dense (S rows) and paged (128-row pages), bf16 and int8 caches,
     rows straddling a tile and a split of G tiles (the int8 walk body's
     splits of several tiles at S 1024 / 4096, G forced to 3 or the plan's)
-    and (dense) clamped at S - 1."""
+    and (dense) clamped at S - 1; every row form: rep 1 / 2 x T 4 (8 rows),
+    rep 3 x T 3 (9 rows against decode steps of 3), rep 8 x T 8 (64 rows
+    against 8) and rep 16 x T 8 (two row groups of 64 against decode steps
+    of 16)."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kw
     from rama_tpu_torch.ops.kernels import paged_attention as pa
 
     decode_q8, chunk_q8, paged_decode_q8, paged_chunk_q8 = _q8_forms(tiles)
-    t, nkv = 4, 2
+    t, nkv = {3: 3, 8: 8, 16: 8}.get(rep, 4), 2
     pos = [0, 60, 61, 198, 196] if S == 200 else [0, 61, 189, 253, S // 2 - 2, S - 2, S - 4]
     b = len(pos)
     if paged:
@@ -1043,8 +1154,6 @@ def test_paged_attention(dev, nh, nkv, hd, ps, t, dtype):
     from rama_tpu_torch.ops.kernels import kv_write as kw
     from rama_tpu_torch.ops.kernels import paged_attention as pa
 
-    if t * nh // nkv > 8:
-        t = 8 // (nh // nkv)
     mp = 5
     pos = [0, ps - 1, ps, 3 * ps + 5, mp * ps - t]
     tables, npages = _paged_setup(dev, 2, 5, nkv, hd, ps, mp, pos, t, seed=ps + t)
@@ -1201,8 +1310,9 @@ def test_paged_engine_refuses_a_page_size_the_kernel_does_not_take(dev):
     tok = Tokenizer(["<unk>", "<s>", "</s>"] + list("abcde"), [0.0] * 8)
     with pytest.raises(ValueError, match="multiple of 8"):
         Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=12))
-    with pytest.raises(ValueError, match="at most 8"):
-        Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=16, spec_tick=4))
+    # a verification chunk of 5 x GQA group 2 = 10 query rows a kv head is
+    # no longer refused: the paged kernel runs it in its 16-row form
+    Engine(cfg, params, tok, EngineConfig(paged_kv=True, kv_page_size=16, spec_tick=4))
 
 
 # -- kernel 9: T = 1 attention over one layer's cache --------------------------

@@ -53,6 +53,43 @@ def test_plain_matches_pallas(tiled, nh, nkv, dtype):
             np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("nh,nkv", [(8, 1), (6, 2), (16, 1)])
+def test_gqa_decode_plain_matches_pallas(nh, nkv, q8):
+    """K4 / K7's plain versions at GQA groups 8, 3 and 16 (a decode step of
+    16 query rows a kv head is the card's 16-row form) against
+    decode_attention_layer / _q8 in interpret mode on bf16 q (hd 64, S
+    128, positions 0, a 64-row split edge, S - 1): rel 2e-2 of max |ref|
+    for the bf16 cache, as above; the int8 cache atol 0.03 / rtol 0.05, as
+    K9's q8 test."""
+    from rama_tpu.models.llama import kv_quant_rows
+    from rama_tpu.ops.pallas.decode_attention import decode_attention_layer_q8
+
+    L, b, s, hd = 2, 4, 128, 64
+    q, k, v = make(L, b, nh, nkv, s, hd, seed=nh + nkv)
+    pos = np.array([0, 63, 64, s - 1], np.int32)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    t = lambda a: torch.from_numpy(np.array(a))
+    tq = t(jq.astype(jnp.float32)).bfloat16()
+    for layer in (0, L - 1):
+        if q8:
+            (k8, ks), (v8, vs) = kv_quant_rows(jnp.asarray(k)), kv_quant_rows(jnp.asarray(v))
+            want = decode_attention_layer_q8(jq, k8, v8, ks, vs, jnp.asarray(pos),
+                                             jnp.int32(layer), interpret=True)
+            got = da.decode_attention_q8_plain(tq, t(k8), t(v8), t(ks), t(vs), t(pos), layer)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                       atol=0.03, rtol=0.05)
+        else:
+            jk, jv = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+            want = np.asarray(decode_attention_layer(jq, jk, jv, jnp.asarray(pos),
+                                                     jnp.int32(layer), interpret=True)
+                              .astype(jnp.float32))
+            got = decode_attention_plain(tq, t(jk.astype(jnp.float32)).bfloat16(),
+                                         t(jv.astype(jnp.float32)).bfloat16(), t(pos),
+                                         layer).float().numpy()
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
 def test_pos_zero_returns_first_value_row():
     q, k, v = make(1, 2, 4, 2, 16, 8, seed=9)
     out = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
@@ -202,6 +239,58 @@ def test_scratch_holds_every_split_a_query_row_sees(s, ps, walk, tiles):
     assert part_o.shape == (2, 3, 4, plan.nsplit, 16) and part_o.dtype == torch.float32
     assert part_ml.shape == (2, 3, 4, plan.nsplit, 2) and part_ml.dtype == torch.float32
     assert max(lim // (plan.tile * plan.tiles) for lim in range(s)) == plan.nsplit - 1
+
+
+@pytest.mark.parametrize("t,rep,form", [
+    (1, 1, (8, 1)), (8, 1, (8, 1)), (1, 8, (8, 1)), (2, 4, (8, 1)), (3, 3, (16, 1)),
+    (2, 8, (16, 1)), (1, 16, (16, 1)), (4, 8, (32, 1)), (5, 5, (32, 1)), (8, 8, (64, 1)),
+    (4, 12, (64, 1)), (5, 16, (64, 2)), (8, 16, (64, 2)), (3, 50, (64, 3))])
+def test_row_form_takes_the_fewest_rows_then_groups_of_64(t, rep, form):
+    """The form of the tensor-core bodies a launch of T queries over a GQA
+    group rep runs: the fewest of 8, 16, 32, 64 rows that hold T * rep,
+    past 64 rows groups of 64 (csrc dattn_mma.cuh form_rows). Every
+    Llama-2 shape at T <= 8 (rep 1) keeps the 8-row form."""
+    assert da.row_form(t, rep) == form
+
+
+@pytest.mark.parametrize("hd,mma,walk", [
+    (48, {8: 16640, 16: 18944, 32: 23552, 64: 32768}, {8: 13068, 64: 29196}),
+    (64, {8: 20992, 16: 23552, 32: 28672, 64: 38912}, {8: 13324, 64: 31244}),
+    (128, {8: 38400, 16: 41984, 32: 49152, 64: 63488}, {8: 22540, 64: 47628})])
+def test_form_smem_of_each_form(hd, mma, walk):
+    """Shared bytes a split CTA of each form asks for (csrc MmaSmem,
+    WalkSmem + walk_smem at one slot): the 8-row forms' are the ones the
+    bodies always had (38,400 and 22,540 at hd 128); at hd 128 the mma body's 64-row
+    form needs the opt-in above 48 KB (its 32-row form is 48 KB, 49,152
+    bytes, exactly), and the walk's 64-row form stays under it up to 191
+    slots (its table grows 8 bytes a slot)."""
+    for form, n in mma.items():
+        assert da.form_smem("mma", form, hd) == n
+    for form, n in walk.items():
+        assert da.form_smem("walk", form, hd) == n
+    assert da.form_smem("walk", 8, 128, b=8) == 22596
+    assert da.form_smem("walk", 64, 128, b=191) <= 48 * 1024 < da.form_smem("walk", 64, 128,
+                                                                              b=192)
+
+
+@pytest.mark.parametrize("body,ran,t,rep", [
+    ("mma", 8, 8, 1), ("walk", 8, 1, 8), ("mma", 64, 8, 8), ("walk", 32, 4, 8),
+    ("mma", 64, 8, 16), ("walk", 16, 3, 3)])
+def test_count_launch_counts_the_form_the_kernel_reports(body, ran, t, rep):
+    """A tensor-core launch is counted by its body and by the row form the C
+    entry reports it launched; a form other than the one `row_form` sized
+    the launch for raises; a SIMT launch is counted by body only."""
+    by_body = dict.fromkeys(da.BODIES, 0)
+    by_form = {b: dict.fromkeys(da.FORMS, 0) for b in ("mma", "walk")}
+    da.count_launch(by_body, by_form, body, ran, t, rep)
+    assert by_body == {**dict.fromkeys(da.BODIES, 0), body: 1}
+    assert [(b, f) for b, forms in by_form.items() for f, n in forms.items() if n] == [
+        (body, ran)]
+    wrong = next(f for f in da.FORMS if f != ran)
+    with pytest.raises(ValueError, match=f"launched its {wrong}-row form"):
+        da.count_launch(by_body, by_form, body, wrong, t, rep)
+    da.count_launch(by_body, by_form, "simt", 8, t, rep)
+    assert by_body["simt"] == 1 and sum(by_form[body].values()) == 1
 
 
 def test_walk_ctas_fill_one_wave_and_never_exceed_the_items():

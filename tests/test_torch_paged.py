@@ -167,6 +167,42 @@ def test_paged_attention_q8_plain_matches_pallas(ps, tq):
         np.testing.assert_allclose(fp32.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("tq,nh,nkv", [(8, 8, 1), (3, 6, 2), (1, 16, 1)])
+def test_gqa_paged_chunk_plain_matches_pallas(tq, nh, nkv, q8):
+    """K12's chunk (T 8, 3) and decode (T 1) plain versions at GQA groups 8,
+    3 and 16 (64, 9 and 16 query rows a kv head: the card's 64- and
+    16-row forms) against the Pallas functions in interpret mode on bf16
+    q, hd 64 over 16-row pages (S = 48): 1e-2, as the tests above."""
+    rng = np.random.default_rng(nh + tq)
+    L, P, ps, hd = 2, 9, 16, 64
+    k, v = _pools(rng, L, P, nkv, ps, hd)
+    q = rng.standard_normal((3, tq, nh, hd)).astype(np.float32)
+    pos, tables = _pos(ps, tq), jnp.asarray(TABLES)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    tq_ = t(np.asarray(jq.astype(jnp.float32))).bfloat16()
+    if q8:
+        (k8, ks), (v8, vs) = (jl.kv_quant_rows(jnp.asarray(a)) for a in (k, v))
+        jpools, pools = (k8, v8, ks, vs), [t(a) for a in (k8, v8, ks, vs)]
+    else:
+        jpools = tuple(jnp.asarray(a, jnp.bfloat16) for a in (k, v))
+        pools = [t(np.asarray(a.astype(jnp.float32))).bfloat16() for a in jpools]
+    sfx = "_q8" if q8 else ""
+    for layer in range(L):
+        if tq == 1:
+            want = getattr(jpa, f"paged_decode_attention_layer{sfx}")(
+                jq[:, 0], *jpools, jnp.asarray(pos), tables, jnp.int32(layer), interpret=True)
+            got = getattr(pa, f"paged_decode_attention{sfx}_plain")(
+                tq_[:, 0], *pools, t(pos), t(TABLES), layer)
+        else:
+            want = getattr(jpa, f"paged_chunk_attention_layer{sfx}")(
+                jq, *jpools, jnp.asarray(pos), tables, jnp.int32(layer), interpret=True)
+            got = getattr(pa, f"paged_chunk_attention{sfx}_plain")(
+                tq_, *pools, t(pos), t(TABLES), layer)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   atol=1e-2, rtol=1e-2)
+
+
 def test_paged_attention_equals_dense_over_the_gathered_view():
     """The plain paged forms are the dense forms over the view, and the
     table's entries past a slot's pages change nothing."""
@@ -188,10 +224,11 @@ def test_split_rows_divide_the_page():
         [8, 16, 24, 48, 48, 64, 64, 40]
     with pytest.raises(ValueError, match="multiple of 8"):
         pa.split_rows(12)
-    with pytest.raises(ValueError, match="at most 8"):
-        pa.check(3, 8, 2, 128, 16, False)
+    pa.check(8, 2, 128, 16, False)               # any T x group 4: T 3 is 12 rows a kv head
+    with pytest.raises(ValueError, match="GQA group 6/4"):
+        pa.check(6, 4, 128, 16, False)
     with pytest.raises(ValueError, match="multiple of 16"):
-        pa.check(1, 4, 4, 40, 16, True)
+        pa.check(4, 4, 40, 16, True)
 
 
 # -- K13 --------------------------------------------------------------------------

@@ -6,7 +6,9 @@ temperature 0.9 are identical with speculation on and off; a draft model
 equal to the target accepts every draft; forced dormancy (and, in draft
 mode, the resync of the draft cache) leaves the streams unchanged; the
 draft cache has no hole after a full accept (the reference's has); and the
-server's load_engine wires the spec flags. Streams are compared exactly."""
+server's load_engine wires the spec flags; a model of GQA group 8 speculates
+at spec_tick 7 and 3 on dense, int8 and paged caches with the JAX engine's
+greedy streams. Streams are compared exactly."""
 
 import time
 
@@ -92,6 +94,40 @@ def test_ngram_greedy_equals_jax_engine_and_spec_off(setup, kv_quant):
     stats = eng.stats()
     assert isinstance(stats["spec_accept_rate"], float)
     assert stats["spec_dormant_ticks"] is not None and eng.metrics["spec_drafted"] > 0
+
+
+@pytest.fixture(scope="module")
+def gqa8():
+    """A tiny model of GQA group 8 (8 query heads over 1 kv head, as
+    TinyLlama-1.1B's 32 over 4): a verify round of T 8 is 64 query rows a
+    kv head, of T 4 32 rows; the card runs them in the 64- and 32-row
+    forms of the chunk attention."""
+    jcfg = tiny_config(dim=128, n_heads=8, n_kv_heads=1, seq_len=64)
+    np_params = random_params(jcfg, seed=41)
+    cfg = torch_cfg(jcfg)
+    params = tl.load_params(cfg, np_params, dtype=torch.float32, device="cpu")
+    tok = Tokenizer(_vocab(cfg.vocab_size), [0.0] * cfg.vocab_size, max_token_length=4)
+    return jcfg, np_params, cfg, params, None, tok
+
+
+@pytest.mark.parametrize("spec_tick", [7, 3])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "paged"])
+def test_gqa8_greedy_equals_jax_engine_and_spec_off(gqa8, spec_tick, cache):
+    """Group 8 at spec_tick 7 (T 8) and 3 (T 4) on a dense, an int8 and a
+    paged (16-row pages) cache: the greedy streams equal the JAX engine's
+    speculative streams and the port's spec-off streams ("bf16": the
+    params' dtype, fp32 here, as every stream test of this file)."""
+    jcfg, np_params, *_ = gqa8
+    extra = {"int8": dict(kv_quant="int8"), "paged": dict(paged_kv=True, kv_page_size=16)}.get(
+        cache, {})
+    jeng = JEngine(jcfg, jl.load_params(jcfg, np_params, dtype=jnp.float32),
+                   JTok(_vocab(jcfg.vocab_size), [0.0] * jcfg.vocab_size, max_token_length=4),
+                   JEcfg(max_batch_size=4, spec_tick=spec_tick, **extra))
+    want = serve(jeng, PROMPTS, cls=JRequest)
+    off, _ = run(gqa8, EngineConfig(max_batch_size=4, **extra))
+    on, eng = run(gqa8, EngineConfig(max_batch_size=4, spec_tick=spec_tick, **extra))
+    assert on == want == off
+    assert eng.metrics["spec_drafted"] > 0
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
