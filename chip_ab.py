@@ -7,8 +7,16 @@ be compared back to back, in turns.
 
 Prints one JSON line per measure (`{"tag": ..., "measure": ..., ...}`), all
 on the Llama-2-7B shapes that chip_smoke.py uses (32 heads = 32 kv heads,
-head_dim 128, 8 slots, random data from a seed):
+head_dim 128, 8 slots, random data from a seed) unless a measure names
+another model:
 
+  - the prefill attention (K5): device ms (torch.profiler) and CUDA-event
+    ms a call at chip_smoke.py's 7B shapes (8 x 512 with its ragged plen,
+    one 4096-token prompt), at TinyLlama-1.1B's group 8 (32 heads over 4,
+    head_dim 64, 8 x 512) and, where the tree takes any whole GQA group,
+    at Yi-34B's group 7 (56 heads over 8, 8 x 512); the fp32 SIMT body
+    at the 7B 8 x 512 shape, at group 8 (64 heads over 8) and group 7 of
+    the same rows; `--k5-only` stops after these;
   - the chunk attention (K10) on a bf16 cache, S 1024, T 4 and 8; on an
     int8 cache, S 1024 and 4096, T 4; the paged chunk (K12) on bf16 and
     int8 pools of 128-row pages, T 4: the split kernel's and the combine's
@@ -57,6 +65,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="checkout whose rama_tpu_torch is timed")
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--k5-only", action="store_true", help="time the prefill attention only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
     import torch
@@ -103,6 +112,33 @@ def main() -> int:
             rec["library_ms"] = cs.time_ms(torch, lambda: lib(lay.next()))
             rec["library_device_ms"] = cs.device_ms_per_call(torch, lambda: lib(lay.next()))
         emit(measure, **rec)
+
+    # -- K5: prefill attention ------------------------------------------------------
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    ragged = [512, 300, 450, 129, 256, 511, 77, 384]
+    f32 = torch.float32
+    for measure, (b, t, nh_, nkv_, hd_, plens, dt) in {
+            "7B B=8 T=512": (8, 512, 32, 32, 128, ragged, bf),
+            "7B B=1 T=4096": (1, 4096, 32, 32, 128, [4096], bf),
+            "TinyLlama B=8 T=512 group 8": (8, 512, 32, 4, 64, ragged, bf),
+            "Yi-34B B=8 T=512 group 7": (8, 512, 56, 8, 128, ragged, bf),
+            # the fp32 SIMT body (no served path runs it)
+            "7B B=8 T=512 fp32": (8, 512, 32, 32, 128, ragged, f32),
+            "B=8 T=512 group 8 fp32": (8, 512, 64, 8, 128, ragged, f32),
+            "Yi-34B B=8 T=512 group 7 fp32": (8, 512, 56, 8, 128, ragged, f32)}.items():
+        if 64 % (nh_ // nkv_) and not hasattr(pa, "form_for"):
+            continue   # a tree whose K5 takes only groups that divide 64
+        q, k, v = (rx(*shape, dtype=dt) for shape in ((b, t, nh_, hd_), (b, nkv_, t, hd_),
+                                                       (b, nkv_, t, hd_)))
+        pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+        emit(f"prefill_attention {measure}",
+             device_ms=cs.device_ms_per_call(torch, lambda: pa.prefill_attention(q, k, v, pl)),
+             ms=cs.time_ms(torch, lambda: pa.prefill_attention(q, k, v, pl)))
+        del q, k, v
+    if args.k5_only:
+        emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+        return 0
 
     # -- K10, bf16 cache, S 1024 ------------------------------------------------------
     S = 1024

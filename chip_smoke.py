@@ -196,7 +196,15 @@ Phases, in order (any failure raises and the script exits non-zero):
            on the bf16 cache at T 2, the 16-row form): CUDA-event and
            device ms (the profiled split kernel's form), plain ms, bound,
            SDPA over the repeated kv heads (bf16 dense), each beside the
-           same of the T = 1 launch (K4 / K7 / K12 decode) on the same rows
+           same of the T = 1 launch (K4 / K7 / K12 decode) on the same rows;
+           K5 at GQA groups that do not divide 64 (its "gqa" form: rep 3 /
+           5 / 6 / 7 / 9 / 12 / 65, hd 64 and 128, bf16 and fp32, T 1 / 9 /
+           63 / 64 / 65 / 512, plen on the position tiles' edges, planted
+           value edges) against its plain version, each launch on its body
+           and form; every group 1 .. 65 once at a small shape; and K5 timed
+           at Yi-34B's 8 x 512 admission (group 7) beside the "div64" form
+           (group 8) on the same kv rows, with SDPA over the repeated kv
+           heads (the `prefill_attention_gqa` record)
   model_gqa    TinyLlama-1.1B int8 (random weights from a seed at its
            published width and depth) logits through the kernels against
            the plain path: a decode step and forward_chunk at T 4 and 8, on
@@ -208,12 +216,26 @@ Phases, in order (any failure raises and the script exits non-zero):
   profile_gqa_spec  a TinyLlama verify round of 8 against a plain step at
            pos 64 and 1024
   spec_gqa_self  TinyLlama as its own draft at spec_tick 7: accept >= 0.9
+  model_yi     Yi-34B int8 (random weights from a seed at its published
+           width: GQA group 7, 56 heads over 8 kv heads, head_dim 128)
+           logits through the kernels against the plain path: a padded
+           prefill of 8 prompts (plen on the "gqa" form's 9-position tile
+           edges), a decode step and forward_chunk at T 4 on a bf16 cache
+  serve_yi, serve_yi_kv8, serve_yi_spec, serve_yi_ab2  the server on
+           Yi-34B (8 slots, max_len 2048, a 64000-piece tokenizer file made
+           from the fixture's pieces): plain decoding on a bf16 cache; on an
+           int8 cache (admission through K5 on the scratch, then K8);
+           n-gram speculation at spec_tick 3 (28 query rows a kv head: the
+           32-row chunk form, K3 at M = 32); RAMA_ATTN_BLOCK 2 (K14 at rep 7)
+  profile_prefill_yi  one Yi-34B admission of 8 x 512 tokens (K5's device
+           ms and share, the GEMM's), an 8-slot decode step and a verify
+           round of 4 at pos 64 (device ms by kernel)
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, a v0 one with
            `--quant int4`, the v2 one again with `--scale-dtype bf16`, and a
            TinyLlama-width 2-layer v2 file with `--spec ngram` (T 8)
 
-Twenty main paths, each with the launch counters set to 0 just before it
+Twenty-four main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -243,7 +265,11 @@ where every verification chunk must run a row form of more than 8 rows
 or the walk body, int8 cache, as the C entry reports the form it launched;
 `[launches]` `decode_attention_mma_rows*` / `_walk_rows*`,
 `paged_attention_*_rows*`), while every Llama-2-7B path's
-decode-attention launch must run the 8-row form. Every K5 launch
+decode-attention launch must run the 8-row form; and the four Yi-34B paths
+(`serve_yi`, `serve_yi_kv8`, `serve_yi_spec`, `serve_yi_ab2`), where every
+K5 launch must run its "gqa" form (`prefill_attention_gqa` equal to
+`prefill_attention`), which no launch of a path without that pair may
+(every Llama-2-7B and TinyLlama path). Every K5 launch
 of a path that records K5 must be on its tensor-core body, and every
 quant_matmul and ffn launch of every path on a tensor-core body: the
 swap-AB body at M <= 32, the GEMM above, never the CUDA-core GEMV or
@@ -289,7 +315,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
               "serve4_ab2", "kernels_gqa", "model_gqa", "serve_gqa", "serve_gqa_spec",
               "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
-              "spec_gqa_self", "cli")
+              "spec_gqa_self", "model_yi", "serve_yi", "profile_prefill_yi", "serve_yi_kv8",
+              "serve_yi_spec", "serve_yi_ab2", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
@@ -310,7 +337,8 @@ AB_KERNELS = ("attn_rope_write_layered", "attn_block_layered", "attn_block_layer
 BODY_COUNTS = {
     **{name: (family, bodies) for family, (names, bodies) in ATTN_FAMILIES.items()
        for name in names},
-    "prefill_attention": ("prefill_attention", ("mma", "simt")),
+    **{name: ("prefill_attention", ("mma", "simt"))
+       for name in ("prefill_attention", "prefill_attention_gqa")},
     **{name: ("attn_block", ("mma", "simt")) for name in AB_KERNELS},
     **{name: ("quant_matmul", ("mmv", "gemv", "mma", "simt"))
        for name in ("quant_matmul", "quant_matmul_int4")},
@@ -535,10 +563,51 @@ GQA_SELF_PATH = dict(label="TinyLlama as its own draft", model="tinyllama", bits
                          "quant_matmul", "ffn", "prefill_attention")},
                      forbid={},
                      equal={"chunk_attention_gqa": "chunk_attention"})
+# Yi-34B (`model`: its params, GQA group 7, head_dim 128) at its full
+# width: plain decoding on a bf16 cache, an int8 cache, n-gram speculation
+# at spec_tick 3 (28 query rows a kv head: the 32-row chunk form) and the
+# fused attention block in mode 2 (K14 at rep 7). `equal`: every K5 launch
+# of the path ran its "gqa" form (no 7B or TinyLlama K5 launch may)
+YI_SERVE = dict(max_seq_len=2048)
+YI_K5 = ("prefill_attention_gqa", "prefill_attention")
+YI_PATH = dict(label="Yi-34B int8", model="yi", bits=8,
+               phases=("model_yi", "serve_yi", "profile_prefill_yi"), serve=YI_SERVE,
+               record={"prefill_attention_gqa": "launches",
+                       **{name: "launches_yi_path" for name in (
+                           "prefill_attention", "decode_attention", "quant_matmul", "ffn",
+                           "quant_matmul_mma")}},
+               forbid={"chunk_attention": "launches_yi_path"},
+               equal=dict([YI_K5]))
+YI_KV8_PATH = dict(label="Yi-34B int8 KV", model="yi", bits=8,
+                   phases=(None, "serve_yi_kv8", None),
+                   serve=dict(YI_SERVE, kv_quant="int8"),
+                   record={name: "launches_yi_kv8_path" for name in (
+                       "prefill_attention_gqa", "prefill_attention", "write_kv_rows_q8",
+                       "decode_attention_q8", "write_kv_strips_q8", "quant_matmul", "ffn")},
+                   forbid={"decode_attention": "launches_yi_kv8_path"},
+                   equal=dict([YI_K5]))
+YI_SPEC_PATH = dict(label="Yi-34B speculation T 4", model="yi", bits=8,
+                    phases=(None, "serve_yi_spec", None),
+                    serve=dict(YI_SERVE, spec_tick=SPEC_TICK),
+                    record={name: "launches_yi_spec_path" for name in (
+                        "prefill_attention_gqa", "prefill_attention", "chunk_attention_gqa",
+                        "chunk_attention", "quant_matmul", "ffn")},
+                    forbid={name: "launches_yi_spec_path" for name in (
+                        "decode_attention", "chunk_attention_q8")},
+                    equal=dict([YI_K5, ("chunk_attention_gqa", "chunk_attention")]))
+YI_AB2_PATH = dict(label="Yi-34B attention block 2", model="yi", bits=8,
+                   phases=(None, "serve_yi_ab2", None), serve=YI_SERVE, attn_block=2,
+                   record={name: "launches_yi_ab2_path" for name in (
+                       "prefill_attention_gqa", "prefill_attention", "attn_block_layered",
+                       "quant_matmul", "ffn")},
+                   forbid={name: "launches_yi_ab2_path" for name in (
+                       "decode_attention", "attn_rope_write_layered")},
+                   equal=dict([YI_K5, ("attn_block_layered", "ffn")]))
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH, GQA_PATH, GQA_SPEC_PATH,
-         GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH)
+         GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
+         YI_SPEC_PATH, YI_AB2_PATH)
 # every path that launches quant_matmul runs its decode-sized products (M
 # <= 32: a step, a verify round, a one-token prefill, the prefill's
 # last-row logits) on the swap-AB body: that count goes to the
@@ -706,7 +775,8 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
-    for bodies in (pa.launches_by_body, qm.launches_by_body, ffn_mod.launches_by_body,
+    for bodies in (pa.launches_by_body, pa.launches_by_form, qm.launches_by_body,
+                   ffn_mod.launches_by_body,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
                    qm.launches_by_scale, ffn_mod.launches_by_scale,
                    *da.launches_by_form.values(), *pga.launches_by_form.values()):
@@ -728,6 +798,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "prefill_attention_mma": pa.launches_by_body["mma"],
             "prefill_attention_simt": pa.launches_by_body["simt"],
+            # K5 launches in the form for a GQA group that does not divide 64
+            "prefill_attention_gqa": pa.launches_by_form["gqa"],
             **{f"quant_matmul_{body}": n for body, n in qm.launches_by_body.items()},
             "decode_attention_q8": da.launches_q8, "chunk_attention": da.launches_chunk,
             "chunk_attention_q8": da.launches_chunk_q8,
@@ -754,7 +826,10 @@ def check_launches(path: dict, launches: dict) -> None:
     launch a layer of each decode step, as the fused FFN; or, for a `*_gqa`
     record, every launch of its chunk wrapper in a row form of more than 8
     rows), or on which a Llama-2-7B path's decode-attention launch ran
-    another row form than the 8-row one, or on which K5
+    another row form than the 8-row one, or on which a K5 launch ran the
+    form for a group that does not divide 64 though `equal` does not pair
+    prefill_attention_gqa with prefill_attention (a path that pairs them
+    must run every K5 launch in that form), or on which K5
     ran its SIMT body (every K5 launch of a 7B path, bf16 at hd 128, and of
     the stories draft, bf16 at hd 48, takes the tensor-core body), or on
     which a quant_matmul or ffn launch took the SIMT body (every path runs
@@ -789,7 +864,15 @@ def check_launches(path: dict, launches: dict) -> None:
         raise SystemExit(f"FAILED: on the {path['label']} main path {uneven} (launches of "
                          f"the kernel, of the kernel it must launch as often as: the fused "
                          f"FFN, once a layer of a decode step; or the chunk wrapper whose "
-                         f"every launch must run a row form of more than 8 rows)")
+                         f"every launch must run a row form of more than 8 rows; or K5, every "
+                         f"launch of a Yi-34B path in its gqa form)")
+    if "prefill_attention_gqa" not in path.get("equal", {}) and launches.get(
+            "prefill_attention_gqa", 0):
+        raise SystemExit(f"FAILED: on the {path['label']} main path "
+                         f"{launches['prefill_attention_gqa']} prefill_attention launches ran "
+                         f"the form for a GQA group that does not divide 64; only a path "
+                         f"whose `equal` pairs prefill_attention_gqa with prefill_attention "
+                         f"may run it")
     if "prefill_attention" in path["record"] and launches.get("prefill_attention_simt", 0):
         raise SystemExit(f"FAILED: {launches['prefill_attention_simt']} of "
                          f"{launches['prefill_attention']} prefill_attention launches on the "
@@ -1080,6 +1163,35 @@ def tinyllama_config(ModelConfig, n_layers: int = 22):
                        vocab_size=32000, seq_len=2048, shared_classifier=False)
 
 
+def yi34b_config(ModelConfig, n_layers: int = 60):
+    """Yi-34B at its published shape (HF 01-ai/Yi-34B, config.json:
+    LlamaForCausalLM, hidden_size 7168, intermediate_size 20480, 60 layers,
+    56 attention heads over 8 kv heads: GQA group 7, head_dim 128; vocab
+    64000, max_position_embeddings 4096, rope_theta 5e6, rms_norm_eps 1e-5,
+    untied embeddings); n_layers cuts the depth."""
+    return ModelConfig(dim=7168, hidden_dim=20480, n_layers=n_layers, n_heads=56,
+                       n_kv_heads=8, vocab_size=64000, seq_len=4096, shared_classifier=False,
+                       rope_theta=5e6)
+
+
+def write_wide_tokenizer(src: Path, dst: Path, vocab_size: int, base: int = 32000) -> Path:
+    """A llama2.c tokenizer file of vocab_size pieces for a model whose
+    vocabulary is wider than the fixture's: the fixture's `base` pieces as
+    they are, then made-up pieces "<extra_i>" whose score (-1e30, below the
+    encoder's -1e10 floor) keeps them out of every merge. Prompts encode as
+    with the fixture, and every id decodes. Returns dst."""
+    import struct
+
+    data = src.read_bytes()
+    off = 4
+    for _ in range(base):
+        off += 8 + struct.unpack_from("<i", data, off + 4)[0]
+    extra = b"".join(struct.pack("<fi", -1e30, len(p)) + p for p in (
+        f"<extra_{i}>".encode() for i in range(vocab_size - base)))
+    dst.write_bytes(data[:off] + extra)
+    return dst
+
+
 def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
     """A stacked (l, k, n) int4 weight made on the card: the group size
     quantize_int4 picks for this K, packed bytes whose two nibbles are drawn
@@ -1349,19 +1461,6 @@ def phase_kernels(torch, results: dict) -> None:
              447, 448, 511)
     long_prompt = (8, 512, 512, [512, 300, 450, 129, 256, 511, 77, 384])
 
-    def check_k5(label, qp, kp, vp, pl) -> float:
-        """K5 against its plain version per (slot, row, head), on the body
-        body_for picks (one launch on it, none on the other)."""
-        body = pa.body_for(qp.dtype, qp.shape[-1])
-        before = dict(pa.launches_by_body)
-        got = pa.prefill_attention(qp, kp, vp, pl)
-        ran = {k: pa.launches_by_body[k] - before[k] for k in before}
-        if ran != {k: int(k == body) for k in before}:
-            raise SystemExit(f"FAILED prefill_attention {label}: launches by body {ran}, "
-                             f"expected one on {body}")
-        return compare(torch, f"prefill_attention {label} [{body}]", got,
-                       pa.prefill_attention_plain(qp, kp, vp, pl), per=qp.shape[-1])
-
     cases = ((8, 16, 16, [16, 5, 1, 9, 16, 2, 3, 12]),    # serving bucket, plen < T
              (2, 128, 128, [128, 77]),
              (1, 512, 1024, [300]),
@@ -1373,8 +1472,8 @@ def phase_kernels(torch, results: dict) -> None:
         for planted in (False, True):
             if planted:
                 plant_prefill_edges(vp, plens, tiles)
-            check_k5(f"B={b} T={t} S={s} plen={plens}{' planted edges' if planted else ''}",
-                     qp, kp, vp, pl)
+            k5_check(torch, pa, f"B={b} T={t} S={s} plen={plens}"
+                     f"{' planted edges' if planted else ''}", qp, kp, vp, pl)
     # GQA rep 2 and 4 at hd 128; the stories drafts' hd 48 (stories15M) and 64
     # (stories42M / 110M), T not a multiple of 16, plen inside a tile; and the
     # hd 48 fp32 GQA case of the SIMT body
@@ -1391,40 +1490,15 @@ def phase_kernels(torch, results: dict) -> None:
         for planted in (False, True):
             if planted:
                 plant_prefill_edges(vp, plens, tiles)
-            check_k5(f"B={b} T={t} S={s} nh={nh_} nkv={nkv_} hd={hd_} {dt} plen={plens}"
-                     f"{' planted edges' if planted else ''}", qp, kp, vp, pl)
+            k5_check(torch, pa, f"B={b} T={t} S={s} nh={nh_} nkv={nkv_} hd={hd_} {dt} "
+                     f"plen={plens}{' planted edges' if planted else ''}", qp, kp, vp, pl)
 
     def time_prefill(b, t, plens) -> dict:
         """Check, then time kernel, plain version and SDPA at one shape."""
         qp = rx(b, t, cfg.n_heads, hd)
         kp, vp = rx(b, nkv, t, hd), rx(b, nkv, t, hd)
         pl = torch.tensor(plens, dtype=torch.int32, device=dev)
-        err = check_k5(f"timed inputs B={b} T={t}", qp, kp, vp, pl)
-        t_k = time_ms(torch, lambda: pa.prefill_attention(qp, kp, vp, pl))
-        t_p = time_ms(torch, lambda: pa.prefill_attention_plain(qp, kp, vp, pl))
-        tpos = torch.arange(t, device=dev)
-        mask = ((tpos[None, None, :] <= tpos[None, :, None])
-                & (tpos[None, None, :] < pl[:, None, None].long()))[:, None]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qp.transpose(1, 2), kp, vp, attn_mask=mask)
-
-        t_lib = time_ms(torch, sdpa)
-        # device time alone: a small call's wall time is the host's
-        dev_ms = {"device_ms": device_ms_per_call(
-                      torch, lambda: pa.prefill_attention(qp, kp, vp, pl)),
-                  "library_device_ms": device_ms_per_call(torch, sdpa)}
-        # a query row >= plen attends to all plen keys, as in the Pallas kernel
-        pairs = sum(sum(min(i + 1, p) for i in range(t)) for p in plens)
-        flops = pairs * cfg.n_heads * hd * 4
-        nb = 2 * qp.numel() * 2 + sum(plens) * nkv * hd * 2 * 2
-        b_ms, b_by = bound_ms(nb, flops)
-        log(f"[time] prefill_attention B={b} T={t}: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
-            f"TFLOP/s), SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device "
-            f"{dev_ms['device_ms']:.4f} ms, SDPA device {dev_ms['library_device_ms']:.4f} ms")
-        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=t_lib, breakdown=dev_ms, shape=f"q ({b}, {t}, 32, 128) bf16, "
-                    f"k/v ({b}, 32, {t}, 128), plen {plens}")
+        return k5_time(torch, pa, f"B={b} T={t}", qp, kp, vp, pl)
 
     results["prefill_attention"] = dict(
         name="prefill_attention", route="cuda",
@@ -1440,6 +1514,63 @@ def phase_kernels(torch, results: dict) -> None:
         log(f"[kernel] {r.get('name', 'prefill_attention ' + r['shape'])}: {r['ms']:.4f} "
             f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
+
+
+def k5_check(torch, pa, label: str, qp, kp, vp, pl) -> float:
+    """K5 against its plain version per (slot, row, head), on the body
+    body_for picks and in the form form_for picks (one launch on each, none
+    on another). Returns the max |err|."""
+    body, form = pa.body_for(qp.dtype, qp.shape[-1]), pa.form_for(qp.shape[2], kp.shape[1])
+    before, forms = dict(pa.launches_by_body), dict(pa.launches_by_form)
+    got = pa.prefill_attention(qp, kp, vp, pl)
+    ran = {k: pa.launches_by_body[k] - before[k] for k in before}
+    ran_form = {k: pa.launches_by_form[k] - forms[k] for k in forms}
+    if (ran != {k: int(k == body) for k in before}
+            or ran_form != {k: int(k == form) for k in forms}):
+        raise SystemExit(f"FAILED prefill_attention {label}: launches by body {ran}, by form "
+                         f"{ran_form}, expected one on {body} in the {form} form")
+    return compare(torch, f"prefill_attention {label} [{body}, {form}]", got,
+                   pa.prefill_attention_plain(qp, kp, vp, pl), per=qp.shape[-1])
+
+
+def k5_time(torch, pa, label: str, qp, kp, vp, pl) -> dict:
+    """Check (k5_check), then time K5, its plain version and SDPA (a boolean
+    mask; over the kv heads repeated to the query heads under GQA) at one
+    shape: CUDA-event ms, device ms, the bound from this run's plen."""
+    import torch.nn.functional as F
+
+    b, t, nh, hd = qp.shape
+    nkv = kp.shape[1]
+    plens = pl.tolist()
+    err = k5_check(torch, pa, f"timed inputs {label}", qp, kp, vp, pl)
+    t_k = time_ms(torch, lambda: pa.prefill_attention(qp, kp, vp, pl))
+    t_p = time_ms(torch, lambda: pa.prefill_attention_plain(qp, kp, vp, pl))
+    tpos = torch.arange(t, device=qp.device)
+    mask = ((tpos[None, None, :] <= tpos[None, :, None])
+            & (tpos[None, None, :] < pl[:, None, None].long()))[:, None]
+    kr, vr = ((kp, vp) if nh == nkv
+              else (x.repeat_interleave(nh // nkv, dim=1) for x in (kp, vp)))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qp.transpose(1, 2), kr, vr, attn_mask=mask)
+
+    t_lib = time_ms(torch, sdpa)
+    # device time alone: a small call's wall time is the host's
+    dev_ms = {"device_ms": device_ms_per_call(
+                  torch, lambda: pa.prefill_attention(qp, kp, vp, pl)),
+              "library_device_ms": device_ms_per_call(torch, sdpa)}
+    # a query row >= plen attends to all plen keys, as in the Pallas kernel
+    pairs = sum(sum(min(i + 1, p) for i in range(t)) for p in plens)
+    flops = pairs * nh * hd * 4
+    nb = 2 * qp.numel() * qp.element_size() + sum(plens) * nkv * hd * 2 * kp.element_size()
+    b_ms, b_by = bound_ms(nb, flops)
+    log(f"[time] prefill_attention {label}: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
+        f"TFLOP/s), SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP); device {dev_ms['device_ms']:.4f} ms, SDPA device "
+        f"{dev_ms['library_device_ms']:.4f} ms")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_lib, breakdown=dev_ms, shape=f"q ({b}, {t}, {nh}, {hd}) bf16, "
+                f"k/v ({b}, {nkv}, {t}, {hd}), plen {plens}")
 
 
 def phase_kernels_int4(torch, results: dict) -> None:
@@ -2075,10 +2206,72 @@ def phase_kernels_gqa(torch, results: dict) -> None:
         t4=time_form("paged bf16", 4))
     del dense, pool, caches, rep_kv
     torch.cuda.empty_cache()
-    for name in ("chunk_attention_gqa", "chunk_attention_q8_gqa", "paged_chunk_attention_q8_gqa"):
+    kernels_k5_gqa(torch, results)
+    for name in ("chunk_attention_gqa", "chunk_attention_q8_gqa", "paged_chunk_attention_q8_gqa",
+                 "prefill_attention_gqa"):
         r = results[name]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
+def k5_plens(t: int, bq: int) -> list:
+    """Five slots' prompt lengths for K5 at T t over q tiles of bq
+    positions: T, the first tile edge bq and bq +- 1, and the last whole
+    tile's edge, each clipped to 1 .. T."""
+    return [min(max(p, 1), t) for p in (t, bq, bq + 1, bq - 1, (t // bq) * bq)]
+
+
+def kernels_k5_gqa(torch, results: dict) -> None:
+    """K5 at GQA groups that do not divide 64 (the "gqa" form): rep 3 / 5 /
+    6 / 7 / 9 / 12 over 2 kv heads and 65 over 1 (two head slices), hd 64
+    and 128, bf16 (the tensor-core body) and fp32 (SIMT), T 1 / 9 / 63 / 64
+    / 65 / 512, plen on the q tiles' position edges (k5_plens), value rows
+    planted on those edges and the 64-key tile edges; every group 1 .. 65
+    once (bf16, hd 64, T 17); then Yi-34B's 8 x 512 admission shape (56
+    heads over 8 kv heads) timed beside the "div64" form of the same kv
+    rows and positions (64 heads over 8: group 8): the
+    `prefill_attention_gqa` record."""
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rx(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    errs = []
+    for rep in (3, 5, 6, 7, 9, 12, 65):
+        nkv = 1 if rep > 64 else 2
+        bq = pa.tile_rows(rep)[2]
+        for hd in (64, 128):
+            for dt in (torch.bfloat16, torch.float32):
+                for t in (1, 9, 63, 64, 65, 512):
+                    plens = k5_plens(t, bq)
+                    qp = rx(len(plens), t, nkv * rep, hd, dtype=dt)
+                    kp, vp = (rx(len(plens), nkv, t + 3, hd, dtype=dt) for _ in range(2))
+                    edges = {e for m in range(bq, t + 1, bq) for e in (m - 1, m)} | {
+                        e for m in range(64, t + 1, 64) for e in (m - 1, m)}
+                    plant_prefill_edges(vp, plens, edges)
+                    pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+                    errs.append(k5_check(torch, pa, f"rep={rep} nkv={nkv} hd={hd} {dt} T={t} "
+                                         f"plen={plens} planted edges", qp, kp, vp, pl))
+    for rep in range(1, 66):   # every group the wrapper takes, 1 .. 65
+        qp, kp, vp = rx(2, 17, 2 * rep, 64), rx(2, 2, 20, 64), rx(2, 2, 20, 64)
+        pl = torch.tensor([17, 9], dtype=torch.int32, device=dev)
+        errs.append(k5_check(torch, pa, f"rep={rep} T=17", qp, kp, vp, pl))
+    # Yi-34B's admission: 8 prompts of 512 rows, plen as the 7B record's
+    plens = [512, 300, 450, 129, 256, 511, 77, 384]
+    pl = torch.tensor(plens, dtype=torch.int32, device=dev)
+    kp, vp = rx(8, 8, 512, 128), rx(8, 8, 512, 128)
+    yi = k5_time(torch, pa, "Yi-34B B=8 T=512 group 7", rx(8, 512, 56, 128), kp, vp, pl)
+    rep8 = k5_time(torch, pa, "B=8 T=512 group 8 (div64 form)", rx(8, 512, 64, 128), kp, vp, pl)
+    results["prefill_attention_gqa"] = dict(
+        name="prefill_attention_gqa", route="cuda",
+        source="rama_tpu_torch/csrc/prefill_attention.cu",
+        replaces="rama_tpu/ops/pallas/prefill_attention.py:107",
+        **{**yi, "max_abs_err": max(errs + [yi["max_abs_err"]])}, rep8=rep8)
+    del kp, vp
+    torch.cuda.empty_cache()
 
 
 def phase_model_gqa(torch, cfg, params) -> None:
@@ -2124,6 +2317,60 @@ def phase_model_gqa(torch, cfg, params) -> None:
                         f"head) on {cls.__name__} pos0={starts} (kernels vs plain)", lk, lp)
         del caches
         torch.cuda.empty_cache()
+
+
+def phase_model_yi(torch, cfg, params, dev=None) -> None:
+    """Yi-34B int8 logits through the kernels against the plain path, rel
+    TOL per row, on a bf16 cache of 64 rows: a padded prefill of 8 prompts
+    of up to 40 tokens (plen 40, and 9, 10, 17, 18, 27, 28, 36: the "gqa"
+    form's q tiles of 9 positions, each edge and one past; the engine's
+    admission, rows past plen writing the last row), the logits at each
+    prompt's last row; then a decode step at each slot's plen and
+    forward_chunk at T 4 (28 query rows a kv head: the 32-row chunk form)
+    after it. On `dev`, the card unless a test passes the CPU."""
+    from rama_tpu_torch.models.llama import KVCache, decode_step, forward, forward_chunk
+
+    dev = dev or torch.device("cuda")
+    lens = torch.tensor([40, 9, 10, 17, 18, 27, 28, 36], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(34)
+    toks = torch.randint(3, cfg.vocab_size, (8, 40), device=dev, generator=g)
+    idx = torch.arange(40, device=dev)[None, :]
+    pos_index = torch.where(idx < lens[:, None], idx, 39)
+    caches = [KVCache.create(cfg, 8, 64, device=dev) for _ in range(2)]
+    with torch.no_grad():
+        lk, lp = (forward(params, cfg, toks, pos_index, c, plen=lens,
+                          logit_rows=lens.long() - 1, plain=plain)[0]
+                  for c, plain in zip(caches, (False, True)))
+        compare(torch, f"Yi-34B int8 logits of a padded prefill of 8 prompts, plen "
+                f"{lens.tolist()} (kernels vs plain)", lk[:, 0], lp[:, 0])
+        tok = torch.argmax(lp[:, 0], dim=-1)
+        lk, lp = (decode_step(params, cfg, tok, lens.long(), c, plain=plain)[0]
+                  for c, plain in zip(caches, (False, True)))
+        compare(torch, "Yi-34B int8 logits decode step at plen (kernels vs plain)", lk, lp)
+        words = torch.randint(3, cfg.vocab_size, (8, 4), device=dev, generator=g)
+        lk, lp = (forward_chunk(params, cfg, words, lens + 1, c, plain=plain)[0]
+                  for c, plain in zip(caches, (False, True)))
+        compare(torch, f"Yi-34B int8 forward_chunk T=4 ({4 * cfg.n_rep} rows a kv head) from "
+                f"plen + 1 (kernels vs plain)", lk, lp)
+    del caches
+    torch.cuda.empty_cache()
+
+
+def profile_yi(torch, cfg, params) -> dict:
+    """Yi-34B: one 8 x 512 admission (profile_prefill: K5's and the
+    GEMM's device ms and share), then an 8-slot decode step and a verify
+    round of 4 (28 query rows a kv head) at pos 64 of a 128-row bf16 cache
+    (phase_profile, the device's events alone). Returns {"admission",
+    "step", "round"}."""
+    out = {"admission": profile_prefill(torch, cfg, params, label="Yi-34B int8")}
+    for what, chunk in (("step", 1), ("round", SPEC_TICK + 1)):
+        out[what] = phase_profile(torch, cfg, params, tag="profile_prefill_yi", chunk=chunk,
+                                  host_ops=False)
+    log(f"[profile_prefill_yi] a verify round of {SPEC_TICK + 1} "
+        f"{out['round']['device_ms']:.3f} device ms against a plain step "
+        f"{out['step']['device_ms']:.3f}: "
+        f"{out['round']['device_ms'] / max(out['step']['device_ms'], 1e-9):.3f}x")
+    return out
 
 
 def phase_spec_gqa_self(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
@@ -4020,10 +4267,11 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
                 weight_gb=wbytes / 1e9)
 
 
-def profile_prefill(torch, cfg, params) -> dict:
-    """One 7B admission of 8 prompts of 512 tokens through llama.prefill on a
-    bf16 cache of 1024 rows: torch.profiler's device ms by kernel over one
-    admission, with K5's share and the tensor-core GEMM's (its weight
+def profile_prefill(torch, cfg, params, label: str = "7B int8") -> dict:
+    """One admission of 8 prompts of 512 tokens through llama.prefill on a
+    bf16 cache of 1024 rows (the `label` model's, 7B by default):
+    torch.profiler's device ms by kernel over one admission, with K5's
+    share and the tensor-core GEMM's (its weight
     products at M = 4096: wqkv, wo, w13, w2 of every layer) and TFLOP/s,
     then the device ms of a second one (CUDA events). Returns device_ms,
     profiled_device_ms, k5_ms, k5_share, gemm_ms, gemm_share and
@@ -4061,7 +4309,7 @@ def profile_prefill(torch, cfg, params) -> dict:
     gemm_ms = sum(dt for dt, key, _ in rows if "qmm_mma" in key) / 1e3
     gemm_flops = prefill_gemm_flops(cfg, tokens.numel())
     ms = start.elapsed_time(end)
-    log(f"[profile_prefill] 7B int8 admission of 8 x 512 tokens (bf16 cache of 1024 rows): "
+    log(f"[profile_prefill] {label} admission of 8 x 512 tokens (bf16 cache of 1024 rows): "
         f"{ms:.3f} ms (CUDA events); profiled admission {busy_ms:.3f} ms of device kernel "
         f"time, K5 {k5_ms:.3f} ms = {k5_ms / busy_ms:.4f} of it, the tensor-core GEMM "
         f"{gemm_ms:.3f} ms = {gemm_ms / busy_ms:.4f} of it "
@@ -4371,9 +4619,15 @@ def main() -> int:
                 phase(torch, results)
             torch.cuda.empty_cache()
     modules = (qm, ffn_mod, da, pa, kvw, pga, ab)
-    tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    fixture = ROOT / "tests" / "fixtures" / "tokenizer.bin"
+    tokenizer = Tokenizer.from_file(fixture, 32000)
     models = {"7b": ("Llama-2-7B", seven_b_config(ModelConfig)),
-              "tinyllama": ("TinyLlama-1.1B", tinyllama_config(ModelConfig))}
+              "tinyllama": ("TinyLlama-1.1B", tinyllama_config(ModelConfig)),
+              "yi": ("Yi-34B", yi34b_config(ModelConfig))}
+    # Yi-34B's 64000 ids: the fixture's pieces and made-up ones past them
+    tmp = tempfile.TemporaryDirectory()
+    tokenizers = {"yi": Tokenizer.from_file(write_wide_tokenizer(
+        fixture, Path(tmp.name) / "tokenizer64000.bin", 64000), 64000)}
     dev = torch.device("cuda")
     params, params_key = None, None
     serving: dict = {}
@@ -4383,6 +4637,7 @@ def main() -> int:
             continue
         bits, label = path["bits"], path["label"]
         model_name, cfg = models[path.get("model", "7b")]
+        path_tokenizer = tokenizers.get(path.get("model"), tokenizer)
         llama.ATTN_BLOCK = path.get("attn_block", 0)   # as RAMA_ATTN_BLOCK sets it at import
         if params_key != (model_name, bits):   # the int8 KV and spec paths reuse the int8 params
             params = None
@@ -4407,6 +4662,8 @@ def main() -> int:
                 phase_model_attn(torch, cfg, params, bits)
             elif model == "model_gqa" and model in phases:
                 phase_model_gqa(torch, cfg, params)
+            elif model == "model_yi" and model in phases:
+                phase_model_yi(torch, cfg, params)
             elif model == "model4_s16" and model in phases:
                 phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
             elif model in phases:
@@ -4425,7 +4682,7 @@ def main() -> int:
                     phase_spec_gqa_self(torch, cfg, params, tokenizer,
                                         start_count=lambda: reset_launches(*modules))
                 else:
-                    serving[ph] = phase_serve(torch, cfg, params, tokenizer, card, tag=ph,
+                    serving[ph] = phase_serve(torch, cfg, params, path_tokenizer, card, tag=ph,
                                               **path["serve"])
         for spec_tag, plain_tag in (("serve_spec", "serve"), ("serve_spec_kv8", "serve_kv8"),
                                     ("serve_paged", "serve"), ("serve_paged_kv8", "serve_kv8"),
@@ -4435,7 +4692,9 @@ def main() -> int:
                                     ("serve4_s16", "serve4"), ("serve4_ab2", "serve4"),
                                     ("serve_gqa_spec", "serve_gqa"),
                                     ("serve_gqa_spec_kv8", "serve_gqa"),
-                                    ("serve_gqa_spec_paged_kv8", "serve_gqa")):
+                                    ("serve_gqa_spec_paged_kv8", "serve_gqa"),
+                                    ("serve_yi_kv8", "serve_yi"), ("serve_yi_spec", "serve_yi"),
+                                    ("serve_yi_ab2", "serve_yi")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -4470,6 +4729,11 @@ def main() -> int:
                 profile_ab(torch, cfg, params)
             elif profile == "profile_gqa_spec" and profile in phases:
                 profiles[profile] = profile_gqa_spec(torch, cfg, params)
+            elif profile == "profile_prefill_yi" and profile in phases:
+                profiles[profile] = profile_yi(torch, cfg, params)
+                if "prefill_attention_gqa" in results:
+                    results["prefill_attention_gqa"]["admission"] = \
+                        profiles[profile]["admission"]
             elif profile == "profile_spec" and profile in phases:
                 # a verify round (T = SPEC_TICK + 1) against a plain step, both caches
                 for cache_cls in (None, QuantKVCache):
@@ -4505,6 +4769,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     llama.ATTN_BLOCK = 0
     del params
+    tmp.cleanup()
     torch.cuda.empty_cache()
     if "cli" in phases:
         with clock("cli"):
@@ -4523,7 +4788,9 @@ def main() -> int:
             "launches_ab1_path", "launches_ab2_path", "launches_prefill_t1_path",
             "launches_ab2_int4_path", "launches_s16_path", "launches_gqa_path",
             "launches_gqa_spec_path", "launches_gqa_spec_kv8_path",
-            "launches_gqa_spec_paged_kv8_path", "launches_gqa_self_path", "launches_by_body",
+            "launches_gqa_spec_paged_kv8_path", "launches_gqa_self_path", "launches_yi_path",
+            "launches_yi_kv8_path", "launches_yi_spec_path", "launches_yi_ab2_path", "rep8",
+            "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
             "t2", "one_query", "paged")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))

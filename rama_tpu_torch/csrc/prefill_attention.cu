@@ -22,6 +22,16 @@
 // j * rep + r / bq at position t0 + r % bq, bq = 64 / rep), so each K/V
 // tile is read once for the whole GQA group.
 //
+// Any whole GQA group (pa_rows): a CTA holds hc = min(rep, 64) heads of the
+// group and bq = 64 / hc positions of each (rounded down), so 64 - hc * bq
+// rows of the tile are idle: their queries are zeros, their scores finite,
+// their outputs never stored. Above 64 the group is cut into ns = ceil(rep /
+// 64) slices of up to 64 heads, the grid's kv-head axis over (kv head,
+// slice). Both bodies keep the group-divides-64 case (every Llama-2 /
+// TinyLlama shape) as its own compile-time form (GQA false), the code they
+// had before any group was taken (pattn_form 0: the group divides 64, 1:
+// any other group).
+//
 // bf16 at hd 48, 64, 128 (pattn_mma_kernel), FlashAttention-2's layout on
 // the tensor cores (mma.sync.m16n8k16 bf16 -> fp32):
 //  - 4 warps, each owning 16 query rows; q tiles are issued longest
@@ -62,21 +72,45 @@ constexpr int kPaRows = 64;     // query rows per CTA (rep x positions)
 constexpr int kPaKeys = 32;     // keys per tile
 constexpr int kPaThreads = 128; // two threads per row
 
-template <typename T>
+// The rows of a CTA of `rows` (64) for a GQA group of rep: hc heads of the
+// group (a slice of it above `rows`), ns slices, bq positions of each head.
+struct PaRows {
+  int hc, ns, bq;
+};
+__host__ __device__ inline PaRows pa_rows(int rep, int rows) {
+  const int hc = rep < rows ? rep : rows;
+  return {hc, (rep + hc - 1) / hc, rows / hc};
+}
+
+// The form a launch of nh heads over nkv runs: 0 where the GQA group
+// divides 64, 1 for any other whole group; -1 for no whole group.
+inline int pattn_form(int nh, int nkv) {
+  if (nkv < 1 || nh < nkv || nh % nkv) return -1;
+  return kPaRows % (nh / nkv) ? 1 : 0;
+}
+
+// GQA false: the group divides 64 (every row live, one slice); true: any
+// whole group (pa_rows; idle rows past `live`, blockIdx.y over (kv head,
+// slice)).
+template <typename T, bool GQA>
 __global__ void __launch_bounds__(kPaThreads)
 pattn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
              const int* __restrict__ plen_arr, T* __restrict__ out, int T_, int nh, int nkv,
              int S, int hd, float scale) {
   extern __shared__ float sm[];
   const int rep = nh / nkv;
-  const int bq = kPaRows / rep;  // positions per tile
-  const int tile = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const PaRows g = pa_rows(rep, kPaRows);
+  const int bq = GQA ? g.bq : kPaRows / rep;   // positions per tile
+  const int ns = GQA ? g.ns : 1;
+  const int tile = blockIdx.x, b = blockIdx.z;
+  const int j = GQA ? blockIdx.y / ns : blockIdx.y;   // kv head; blockIdx.y % ns: its slice
+  const int h0 = j * rep + (GQA ? (blockIdx.y - j * ns) * g.hc : 0);   // the CTA's first head
+  const int live = GQA ? min(g.hc, j * rep + rep - h0) * bq : kPaRows;   // rows past it idle
   const int t0 = tile * bq;
   const int tid = threadIdx.x;
   const int row = tid / 2, half = tid % 2;
-  const int rr = row / bq;             // query head within the group
   const int t = t0 + row % bq;         // query position
-  const int h = j * rep + rr;
+  const int h = h0 + row / bq;         // query head
   const int plen = plen_arr[b];
   const int ld = hd + 1;               // padded row stride (bank conflicts)
 
@@ -88,8 +122,9 @@ pattn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restr
 
   for (int i = tid; i < kPaRows * hd; i += kPaThreads) {
     const int r = i / hd, d = i - r * hd;
-    const int tq = t0 + r % bq, hq = j * rep + r / bq;
-    Qs[r * ld + d] = tq < T_ ? to_f(q[(((size_t)b * T_ + tq) * nh + hq) * hd + d]) : 0.f;
+    const int tq = t0 + r % bq, hq = h0 + r / bq;
+    Qs[r * ld + d] = tq < T_ && (!GQA || r < live)
+                         ? to_f(q[(((size_t)b * T_ + tq) * nh + hq) * hd + d]) : 0.f;
     Os[r * ld + d] = 0.f;
   }
 
@@ -154,7 +189,7 @@ pattn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restr
     }
   }
   __syncthreads();
-  if (t < T_) {
+  if (t < T_ && (!GQA || row < live)) {
     const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
     T* orow = out + (((size_t)b * T_ + t) * nh + h) * hd;
     for (int d = dbeg; d < dend; ++d) orow[d] = from_f<T>(Os[row * ld + d] * inv);
@@ -163,22 +198,22 @@ pattn_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restr
 
 template <typename T>
 cudaError_t launch_pattn(const void* q, const void* k, const void* v, const int* plen,
-                         void* out, int B, int T_, int nh, int nkv, int S, int hd,
+                         void* out, int B, int T_, int nh, int nkv, int S, int hd, int form,
                          cudaStream_t st) {
-  const int rep = nh / nkv;
-  if (rep < 1 || kPaRows % rep != 0) return cudaErrorInvalidValue;
-  const int bq = kPaRows / rep;
+  const PaRows g = pa_rows(nh / nkv, kPaRows);
+  if ((long long)nkv * g.ns > 65535 || B > 65535) return cudaErrorInvalidValue;
+  const int bq = g.bq;
   const int ld = hd + 1;
   const size_t smem = sizeof(float) *
       ((size_t)2 * kPaRows * ld + (size_t)2 * kPaKeys * ld + (size_t)kPaRows * 33);
-  auto kern = pattn_kernel<T>;
+  auto kern = form ? pattn_kernel<T, true> : pattn_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  kern<<<dim3((T_ + bq - 1) / bq, nkv, B), kPaThreads, smem, st>>>(
+  kern<<<dim3((T_ + bq - 1) / bq, nkv * g.ns, B), kPaThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), plen,
       static_cast<T*>(out), T_, nh, nkv, S, hd, scale);
   return cudaGetLastError();
@@ -192,8 +227,10 @@ constexpr int kFaKeys = 64;      // keys per K/V tile
 constexpr int kFaThreads = 128;
 constexpr int kFaPad = 8;        // bf16 per shared row: conflict-free ldmatrix
 
-// Fragment coordinates: mma.cuh.
-template <int HD>
+// Fragment coordinates: mma.cuh. GQA false: the group divides 64 (every
+// row live, one slice); true: any whole group (pa_rows; idle rows past
+// `live`, blockIdx.x over (kv head, slice)).
+template <int HD, bool GQA>
 __global__ void __launch_bounds__(kFaThreads, 2)
 pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                  const __nv_bfloat16* __restrict__ vc, const int* __restrict__ plen_arr,
@@ -208,10 +245,15 @@ pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __nv_bfloat16* Ks = Qs + kFaRows * LD;                            // [2][64][LD]
   __nv_bfloat16* Vs = Ks + 2 * kFaKeys * LD;                        // [2][64][LD]
 
-  const int j = blockIdx.x, b = blockIdx.y;
+  const int b = blockIdx.y;
   const int tile = gridDim.z - 1 - blockIdx.z;   // longest rows first
   const int rep = nh / nkv;
-  const int bq = kFaRows / rep;                  // positions per tile
+  const PaRows pr = pa_rows(rep, kFaRows);
+  const int ns = GQA ? pr.ns : 1;
+  const int j = GQA ? blockIdx.x / ns : blockIdx.x;
+  const int h0 = j * rep + (GQA ? (blockIdx.x - j * ns) * pr.hc : 0);   // the CTA's first head
+  const int bq = GQA ? pr.bq : kFaRows / rep;    // positions per tile
+  const int live = GQA ? min(pr.hc, j * rep + rep - h0) * bq : kFaRows;   // rows past it idle
   const int t0 = tile * bq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
@@ -223,10 +265,10 @@ pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* kg = kc + stripe;
   const __nv_bfloat16* vg = vc + stripe;
 
-  for (int i = tid; i < kFaRows * CH; i += kFaThreads) {   // rows past T zero
+  for (int i = tid; i < kFaRows * CH; i += kFaThreads) {   // rows past T, idle rows zero
     const int r = i / CH, ch = i % CH;
-    const int t = t0 + r % bq, h = j * rep + r / bq;
-    const bool ok = t < T_;
+    const int t = t0 + r % bq, h = h0 + r / bq;
+    const bool ok = t < T_ && (!GQA || r < live);
     cp_async16_zfill(Qs + r * LD + ch * 8,
                      ok ? q + (((size_t)b * T_ + t) * nh + h) * HD + ch * 8 : q, ok);
   }
@@ -250,8 +292,18 @@ pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int tq0 = t0 + r0 % bq, tq1 = t0 + (r0 + 8) % bq;
   // the warp's rows hold positions w0 .. w0 + 15 (all bq of them if bq < 16);
   // it needs the key tiles up to its last stored position and plen - 1
-  const int w0 = t0 + (bq >= 16 ? (warp * 16) % bq : 0);
-  const int w_last = w0 >= T_ ? -1 : min(min(w0 + min(bq, 16) - 1, T_ - 1), plen - 1);
+  int w0, w_last;
+  if (GQA) {
+    // live rows ra .. rb: one head's positions ra % bq .. rb % bq, or, where
+    // they reach into the next head, every position 0 .. bq - 1
+    const int ra = warp * 16, rb = min(ra + 15, live - 1);
+    const bool wraps = ra <= rb && ra / bq != rb / bq;
+    w0 = ra > rb ? T_ : t0 + (wraps ? 0 : ra % bq);
+    w_last = w0 >= T_ ? -1 : min(min(t0 + (wraps ? bq - 1 : rb % bq), T_ - 1), plen - 1);
+  } else {
+    w0 = t0 + (bq >= 16 ? (warp * 16) % bq : 0);
+    w_last = w0 >= T_ ? -1 : min(min(w0 + min(bq, 16) - 1, T_ - 1), plen - 1);
+  }
   uint32_t qf[KS][4];
   float o[NT][4];
 #pragma unroll
@@ -370,33 +422,42 @@ pattn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int i = lane; i < 16 * CH; i += 32) {
     const int rl = i / CH, ch = i % CH;
     const int r = warp * 16 + rl;
-    const int t = t0 + r % bq, h = j * rep + r / bq;
-    if (t < T_)
+    const int t = t0 + r % bq, h = h0 + r / bq;
+    if (t < T_ && (!GQA || r < live))
       *reinterpret_cast<int4*>(out + (((size_t)b * T_ + t) * nh + h) * HD + ch * 8) =
           *reinterpret_cast<const int4*>(os + rl * LD + ch * 8);
   }
 }
 
-template <int HD>
+template <int HD, bool GQA>
 cudaError_t launch_pattn_mma(const void* q, const void* k, const void* v, const int* plen,
                              void* out, int B, int T_, int nh, int nkv, int S,
                              cudaStream_t st) {
-  const int rep = nh / nkv;
-  if (rep < 1 || kFaRows % rep != 0) return cudaErrorInvalidValue;
-  const int bq = kFaRows / rep;
+  const PaRows g = pa_rows(nh / nkv, kFaRows);
+  const int tiles = (T_ + g.bq - 1) / g.bq;
+  if ((long long)nkv * g.ns > 2147483647LL || B > 65535 || tiles > 65535)
+    return cudaErrorInvalidValue;
   constexpr size_t smem = sizeof(__nv_bfloat16) * (kFaRows + 4 * kFaKeys) * (HD + kFaPad);
-  auto kern = pattn_mma_kernel<HD>;
+  auto kern = pattn_mma_kernel<HD, GQA>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  kern<<<dim3(nkv, B, (T_ + bq - 1) / bq), kFaThreads, smem, st>>>(
+  kern<<<dim3(nkv * g.ns, B, tiles), kFaThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), plen, static_cast<__nv_bfloat16*>(out), T_, nh,
       nkv, S, scale_log2);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_pattn_mma_form(const void* q, const void* k, const void* v, const int* plen,
+                                  void* out, int B, int T_, int nh, int nkv, int S, int form,
+                                  cudaStream_t st) {
+  return form ? launch_pattn_mma<HD, true>(q, k, v, plen, out, B, T_, nh, nkv, S, st)
+              : launch_pattn_mma<HD, false>(q, k, v, plen, out, B, T_, nh, nkv, S, st);
 }
 
 }  // namespace rama
@@ -408,11 +469,14 @@ extern "C" int rama_prefill_attention(const void* q, const void* k, const void* 
                                       int nkv, int S, int hd, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pl = static_cast<const int*>(plen);
+  const int f = rama::pattn_form(nh, nkv);
+  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == rama::kBF16)
     return static_cast<int>(
-        rama::launch_pattn<__nv_bfloat16>(q, k, v, pl, out, B, T, nh, nkv, S, hd, st));
+        rama::launch_pattn<__nv_bfloat16>(q, k, v, pl, out, B, T, nh, nkv, S, hd, f, st));
   if (dtype == rama::kF32)
-    return static_cast<int>(rama::launch_pattn<float>(q, k, v, pl, out, B, T, nh, nkv, S, hd, st));
+    return static_cast<int>(
+        rama::launch_pattn<float>(q, k, v, pl, out, B, T, nh, nkv, S, hd, f, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -423,16 +487,18 @@ extern "C" int rama_prefill_attention_mma(const void* q, const void* k, const vo
                                           int nkv, int S, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pl = static_cast<const int*>(plen);
+  const int f = rama::pattn_form(nh, nkv);
+  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 48:
       return static_cast<int>(
-          rama::launch_pattn_mma<48>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+          rama::launch_pattn_mma_form<48>(q, k, v, pl, out, B, T, nh, nkv, S, f, st));
     case 64:
       return static_cast<int>(
-          rama::launch_pattn_mma<64>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+          rama::launch_pattn_mma_form<64>(q, k, v, pl, out, B, T, nh, nkv, S, f, st));
     case 128:
       return static_cast<int>(
-          rama::launch_pattn_mma<128>(q, k, v, pl, out, B, T, nh, nkv, S, st));
+          rama::launch_pattn_mma_form<128>(q, k, v, pl, out, B, T, nh, nkv, S, f, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

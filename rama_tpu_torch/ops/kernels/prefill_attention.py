@@ -17,6 +17,13 @@ before the launch (`body_for`): bf16 at the head dims of MMA_HEAD_DIMS
 takes the tensor-core body ("mma"), fp32 and any other head dim the SIMT
 body ("simt"). A refused launch raises; it never gives way to the other
 body.
+
+Any whole GQA group: a CTA holds 64 query rows, `tile_rows` of the group's
+heads and positions (the C entry's `pa_rows`). Where the group divides 64
+(every Llama-2 and TinyLlama shape) they are all live and either body
+runs its "div64" form; any other group runs the "gqa" form, whose
+rows past hc * bq are idle (groups above 64 in slices of 64 heads).
+`launches_by_form` counts the launches by that form (`form_for`).
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ from rama_tpu_torch.ops.kernels.build import I, P, require
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launches_by_body = {"mma": 0, "simt": 0}   # the same launches by kernel body
+FORMS = ("div64", "gqa")   # both bodies' forms 0 / 1 (csrc pattn_form)
+launches_by_form = dict.fromkeys(FORMS, 0)   # the same launches by the form run
 
 MMA_HEAD_DIMS = (48, 64, 128)   # the tensor-core body's instantiations
+ROWS = 64                       # query rows a CTA (csrc kPaRows, kFaRows)
 
 _SIGNATURES = {
     "rama_prefill_attention": [P, P, P, P, P, I, I, I, I, I, I, I, P],
@@ -43,6 +53,22 @@ def body_for(dtype: torch.dtype, hd: int) -> str:
     """The kernel body a CUDA call launches: "mma" (tensor cores) for bf16
     at a head dim of MMA_HEAD_DIMS, "simt" (fp32 on the CUDA cores) else."""
     return "mma" if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS else "simt"
+
+
+def form_for(nh: int, nkv: int) -> str:
+    """The form a launch of nh query heads over nkv kv heads runs: "div64"
+    where the GQA group divides 64, "gqa" for any other whole group."""
+    return FORMS[ROWS % (nh // nkv) != 0]
+
+
+def tile_rows(rep: int) -> tuple[int, int, int]:
+    """(hc, ns, bq) of a CTA for a GQA group of rep (csrc `pa_rows`): hc
+    heads of the group (a slice of it above ROWS), ns slices, bq positions
+    of each head; rows hc * bq .. ROWS - 1 of a CTA are idle, and so are
+    those past the group's last head in its last slice. Row r is head
+    (slice * hc + r // bq) of the group at position t0 + r % bq."""
+    hc = min(rep, ROWS)
+    return hc, -(-rep // hc), ROWS // hc
 
 
 def prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -86,8 +112,7 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     bc, nkv, s, hdc = k_cache.shape
     require(bc == b and hdc == hd and s >= t, f"q {tuple(q.shape)} does not fit "
             f"cache {tuple(k_cache.shape)}")
-    require(nh % nkv == 0 and 64 % (nh // nkv) == 0,
-            f"GQA group nh/nkv={nh}/{nkv} must divide 64")
+    require(nkv >= 1 and nh % nkv == 0, f"nh/nkv={nh}/{nkv} is not a whole GQA group")
     require(hd % 2 == 0 and hd <= 256, f"head_dim {hd} must be even and <= 256")
     require(q.dtype == k_cache.dtype == v_cache.dtype,
             f"q {q.dtype} and cache {k_cache.dtype} dtypes differ")
@@ -110,4 +135,5 @@ def prefill_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     build.check(lib, err, "prefill_attention")
     launches += 1
     launches_by_body[body] += 1
+    launches_by_form[form_for(nh, nkv)] += 1
     return out

@@ -126,7 +126,9 @@ def counters():
              da.launches_flat_q8)
     bodies = (dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body),
               dict(da.launches_by_body), dict(pga.launches_by_body), dict(ab.launches_by_body))
+    k5_forms = dict(pa.launches_by_form)
     yield mods
+    pa.launches_by_form.update(k5_forms)
     ab.launches_by_body.update(bodies[5])
     pa.launches_by_body.update(bodies[0])
     qm.launches_by_body.update(bodies[1])
@@ -1470,3 +1472,138 @@ def test_planted_gqa_edges_score_for_each_groups_first_head(smoke, q8):
     smoke.compare(torch, "same", plain(q, *cache, pos0, 0), want, per=hd)
     with pytest.raises(SystemExit, match="rel err"):
         smoke.compare(torch, "one row past", plain(q, *cache, pos0 + 1, 0), want, per=hd)
+
+
+# -- Yi-34B: kernel 5 at GQA group 7 ------------------------------------------------
+
+YI_PHASES = ("model_yi", "serve_yi", "profile_prefill_yi", "serve_yi_kv8", "serve_yi_spec",
+             "serve_yi_ab2")
+YI_PATHS = ("YI_PATH", "YI_KV8_PATH", "YI_SPEC_PATH", "YI_AB2_PATH")
+
+
+def test_yi_phases_are_known_and_a_subset_is_not_ok(smoke):
+    assert smoke.ALL_PHASES[-1] == "cli"
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    for ph in YI_PHASES:
+        assert ph in smoke.ALL_PHASES
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != ph), dev)
+        assert line == {"ok": False, "skipped_phases": [ph], "device": dev}
+        assert rc == smoke.PARTIAL_RC != 0
+    assert {ph for name in YI_PATHS for ph in getattr(smoke, name)["phases"]} - {None} == set(
+        YI_PHASES)
+
+
+def test_yi34b_is_the_published_shape(smoke):
+    """Yi-34B's config.json (HF 01-ai/Yi-34B): GQA group 7 (56 heads over 8),
+    head_dim 128, vocab 64000, rope_theta 5e6, untied; its verify rounds at
+    spec_tick 3 are 28 query rows a kv head (the 32-row chunk form)."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    cfg = smoke.yi34b_config(ModelConfig)
+    assert (cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.vocab_size, cfg.seq_len, cfg.shared_classifier, cfg.rope_theta,
+            cfg.norm_eps) == (7168, 20480, 60, 56, 8, 64000, 4096, False, 5e6, 1e-5)
+    assert cfg.n_rep == 7 and cfg.head_dim == 128
+    assert da.row_form(smoke.SPEC_TICK + 1, cfg.n_rep) == (32, 1)
+    assert smoke.yi34b_config(ModelConfig, n_layers=2).n_layers == 2
+    for name in YI_PATHS:
+        path = getattr(smoke, name)
+        assert path in smoke.PATHS and path["model"] == "yi"
+        assert path["equal"]["prefill_attention_gqa"] == "prefill_attention"
+
+
+def _yi_launches(path, **over):
+    return {**{k: 4 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+            "prefill_attention_mma": 4, "prefill_attention_simt": 0, **over}
+
+
+@pytest.mark.parametrize("name", YI_PATHS)
+def test_yi_paths_need_every_k5_launch_on_mma_in_the_gqa_form(smoke, name):
+    """A Yi-34B path passes when every K5 launch ran the tensor-core body in
+    its gqa form, and fails when one ran the div64 form (fewer gqa launches
+    than K5 launches), the SIMT body, or when K5 never launched."""
+    path = getattr(smoke, name)
+    smoke.check_launches(path, _yi_launches(path))
+    with pytest.raises(SystemExit, match="as often as"):
+        smoke.check_launches(path, _yi_launches(path, prefill_attention_gqa=3))
+    with pytest.raises(SystemExit, match="took the SIMT body"):
+        smoke.check_launches(path, _yi_launches(path, prefill_attention_mma=3,
+                                                prefill_attention_simt=1))
+    with pytest.raises(SystemExit, match="never launched"):
+        smoke.check_launches(path, _yi_launches(path, prefill_attention_gqa=0,
+                                                prefill_attention=0))
+
+
+@pytest.mark.parametrize("name", ["INT8_PATH", "KV8_PATH", "SPEC_PATH", "AB2_PATH", "GQA_PATH",
+                                  "GQA_SPEC_KV8_PATH"])
+def test_7b_and_tinyllama_paths_fail_on_a_k5_launch_in_the_gqa_form(smoke, name):
+    """Llama-2-7B (group 1) and TinyLlama (group 8) run K5's div64 form: a
+    gqa-form launch on their paths is a fault."""
+    path = getattr(smoke, name)
+    ok = _yi_launches(path, prefill_attention_gqa=0)
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="does not divide 64"):
+        smoke.check_launches(path, {**ok, "prefill_attention_gqa": 1})
+
+
+def test_k5_launch_counts_by_form_are_read_and_reset(smoke, counters):
+    pa = counters[3]
+    pa.launches, pa.launches_by_form["div64"], pa.launches_by_form["gqa"] = 9, 4, 5
+    assert smoke.read_launches(*counters)["prefill_attention_gqa"] == 5
+    smoke.reset_launches(*counters)
+    assert pa.launches_by_form == {"div64": 0, "gqa": 0}
+    assert smoke.BODY_COUNTS["prefill_attention_gqa"][0] == "prefill_attention"
+
+
+def test_wide_tokenizer_keeps_the_fixture_and_decodes_every_id(smoke, tmp_path):
+    """Yi-34B's 64000-piece tokenizer file: the fixture's 32000 pieces and
+    scores, then pieces that no merge takes; the serving prompts tokenize
+    as with the fixture, and every id decodes."""
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    src = ROOT / "tests" / "fixtures" / "tokenizer.bin"
+    base = Tokenizer.from_file(src, 32000)
+    wide = Tokenizer.from_file(smoke.write_wide_tokenizer(src, tmp_path / "t.bin", 64000), 64000)
+    assert wide.vocab[:32000] == base.vocab and wide.scores[:32000] == base.scores
+    assert len(set(wide.vocab[32000:])) == 32000 and not set(wide.vocab[32000:]) & set(base.vocab)
+    for prompt in ("Once upon a time", "The little dog", "In a far away land",
+                   "She opened the door", "Tom and Lily", "The sun was", "A big red ball",
+                   "One day", "<extra_5> and <extra_31999>"):
+        assert wide.encode(prompt, strict=False) == base.encode(prompt, strict=False)
+    assert all(isinstance(wide.decode_token(i), str) for i in range(64000))
+    assert wide.decode_token(63999) == "<extra_31999>"
+
+
+@pytest.mark.parametrize("t,bq", [(1, 9), (9, 9), (65, 9), (512, 21), (63, 1), (64, 5)])
+def test_k5_plens_sit_on_the_q_tiles_edges(smoke, t, bq):
+    plens = smoke.k5_plens(t, bq)
+    assert all(1 <= p <= t for p in plens) and plens[0] == t
+    assert min(bq, t) in plens and min(bq + 1, t) in plens and (t // bq) * bq in plens + [0]
+
+
+def test_model_yi_phase_on_a_tiny_group7_model(smoke, monkeypatch, counters):
+    """phase_model_yi's checks on the CPU on a group-7 model (7 heads over 1
+    kv head, head_dim 64, 2 layers; plain against plain): its padded
+    prefill reaches K5 once a layer."""
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import fuse_params, quantize_params
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    cfg = ModelConfig(dim=448, hidden_dim=176, n_layers=2, n_heads=7, n_kv_heads=1,
+                      vocab_size=128, seq_len=64)
+    rng = np.random.default_rng(5)
+    L, D, H, V = 2, 448, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, 64), "wv": (L, D, 64),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    params = fuse_params(quantize_params(cfg, p, bits=8, group_size=16, dtype=torch.float32,
+                                         device="cpu"), cfg)
+    _count_plain(monkeypatch, pa, "prefill_attention", "launches")
+    before = pa.launches
+    smoke.phase_model_yi(torch, cfg, params, dev=torch.device("cpu"))
+    assert pa.launches - before == cfg.n_layers    # the kernel path's prefill, once a layer

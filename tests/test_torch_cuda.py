@@ -480,7 +480,13 @@ def test_decode_attention(dev, nh, nkv, hd, dtype):
 
 
 @pytest.mark.parametrize("nh,nkv,t,plen", [(4, 4, 16, [16, 3]), (4, 2, 40, [40, 17]),
-                                           (32, 32, 64, [64, 1])])
+                                           (32, 32, 64, [64, 1]),
+                                           # groups 3 / 5 / 6 / 7 / 9 / 12 / 65 ("gqa"
+                                           # form), plen on position-tile edges
+                                           (6, 2, 40, [40, 21]), (10, 2, 33, [33, 12]),
+                                           (12, 2, 20, [20, 10]), (14, 2, 64, [64, 9]),
+                                           (9, 1, 17, [17, 7]), (24, 2, 30, [30, 5]),
+                                           (65, 1, 9, [9, 1])])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_attention(dev, nh, nkv, t, plen, dtype):
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
@@ -491,19 +497,25 @@ def test_prefill_attention(dev, nh, nkv, t, plen, dtype):
     v = torch.randn(2, nkv, t + 8, hd, device=dev).to(dtype)
     pl = torch.tensor(plen, dtype=torch.int32, device=dev)
     body = "mma" if dtype == torch.bfloat16 else "simt"
-    before = dict(pa.launches_by_body)
+    form = "div64" if 64 % (nh // nkv) == 0 else "gqa"
+    before, forms = dict(pa.launches_by_body), dict(pa.launches_by_form)
     _close(pa.prefill_attention(q, k, v, pl), pa.prefill_attention_plain(q, k, v, pl), dtype)
     assert {b: pa.launches_by_body[b] - before[b] for b in before} == {
         b: int(b == body) for b in before}
+    assert {f: pa.launches_by_form[f] - forms[f] for f in forms} == {
+        f: int(f == form) for f in forms}
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])
 @pytest.mark.parametrize("t", [1, 17, 64, 65, 200])
-@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("rep", [1, 2, 4, 3, 5, 6, 7, 9, 12, 33, 63, 65])
 def test_prefill_attention_tensor_core_body(dev, hd, t, rep):
     """The bf16 tensor-core body at its head dims: T of one row, ragged and
     on 64-row tile edges; plen 1, on a 64-key tile edge (64), mid-tile, T;
-    GQA rep 1, 2, 4. Each call launches the mma body once."""
+    GQA rep 1, 2, 4 (the "div64" form) and 3, 5, 6, 7, 9, 12, 33, 63, 65
+    (the "gqa" form: idle rows, a partial m16 tile, a warp's 16 rows over
+    16 heads at one position each at rep 33 / 63, rep 65 in two head
+    slices). Each call launches the mma body once, in its form."""
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
 
     nkv = 2
@@ -514,10 +526,13 @@ def test_prefill_attention_tensor_core_body(dev, hd, t, rep):
     v = torch.randn(4, nkv, t + 3, hd, generator=g).to(dev, torch.bfloat16)
     plen = [1, min(64, t), max(1, (t * 2) // 3), t]
     pl = torch.tensor(plen, dtype=torch.int32, device=dev)
-    before = dict(pa.launches_by_body)
+    form = "div64" if 64 % rep == 0 else "gqa"
+    before, forms = dict(pa.launches_by_body), dict(pa.launches_by_form)
     got = pa.prefill_attention(q, k, v, pl)
     assert pa.launches_by_body["mma"] == before["mma"] + 1
     assert pa.launches_by_body["simt"] == before["simt"]
+    assert {f: pa.launches_by_form[f] - forms[f] for f in forms} == {
+        f: int(f == form) for f in forms}
     _close(got, pa.prefill_attention_plain(q, k, v, pl), torch.bfloat16)
 
 
@@ -1392,7 +1407,7 @@ def _ab_name(form):
         "attn_block_layered" + ("_int4" if form == 4 else "")
 
 
-# B 1 / 8 and 9 (past one n8 tile of the wo body), GQA rep 1 / 2 / 4 / 8;
+# B 1 / 8 and 9 (past one n8 tile of the wo body), GQA rep 1 / 2 / 4 / 8 / 7;
 # positions 0 (no split: the combine alone), S - 1, S + 3 (clamped) and the
 # 64-row split edges, then a second set with a mid-cache position first
 _AB_POSITIONS = {"edges": lambda s: [0, s - 1, s + 3, 63, 64, 65, 1, 128, 17],
@@ -1401,14 +1416,16 @@ _AB_POSITIONS = {"edges": lambda s: [0, s - 1, s + 3, 63, 64, 65, 1, 128, 17],
 
 @pytest.mark.parametrize("b,nkv,rep,s", [(3, 2, 1, 72), (2, 4, 2, 200), (9, 2, 4, 64),
                                          (1, 3, 1, 136), (8, 2, 1, 200), (8, 1, 8, 136),
-                                         (1, 2, 8, 72), (8, 4, 4, 4096), (1, 1, 2, 4096)])
+                                         (1, 2, 8, 72), (8, 4, 4, 4096), (1, 1, 2, 4096),
+                                         (8, 8, 7, 200), (1, 2, 7, 4096)])
 @pytest.mark.parametrize("positions", ["edges", "more"])
 @pytest.mark.parametrize("form", ["light", 8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attn_block(dev, b, nkv, rep, s, positions, form, dtype):
     """Each form against its plain version, the attention on the body
     body_for picks (bf16: split tensor-core attention, fp32: the SIMT body)
-    and wo on K1, the written cache rows by _check_rows."""
+    and wo on K1, the written cache rows by _check_rows; GQA rep 1 / 2 / 4 /
+    8 and 7 (Yi-34B's group over its 8 kv heads: 7 live rows of 8)."""
     from rama_tpu_torch.ops.kernels import attn_block as ab
 
     q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=b * s + rep)
