@@ -40,7 +40,11 @@ another model:
     pos 64 and 2048: device ms a round or step, and the attention's part
     of it;
   - `profile_ab`: 8-slot 7B int8 decode steps under RAMA_ATTN_BLOCK 0, 1
-    and 2 at pos 64 and 2048 of a 4096-row bf16 cache.
+    and 2 at pos 64 and 2048 of a 4096-row bf16 cache;
+  - the fused FFN (K3 / K3'): device ms (torch.profiler) and CUDA-event ms
+    a call at the 7B shapes (int8 gs 64; int4 w13 gs 64, w2 gs 16; il 256;
+    8 layers cycled), M = 1 / 8 / 32, and, where the tree takes any M, 64 /
+    128 / 256, with the bound beside; `--ffn-only` runs only these.
 
 It uses only entry points that every slice of the port since the paged
 cache has, and chip_smoke.py's helpers from its own directory, so it can
@@ -66,6 +70,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE), help="checkout whose rama_tpu_torch is timed")
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--k5-only", action="store_true", help="time the prefill attention only")
+    ap.add_argument("--ffn-only", action="store_true", help="time the fused FFN (K3) only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
     import torch
@@ -112,6 +117,44 @@ def main() -> int:
             rec["library_ms"] = cs.time_ms(torch, lambda: lib(lay.next()))
             rec["library_device_ms"] = cs.device_ms_per_call(torch, lambda: lib(lay.next()))
         emit(measure, **rec)
+
+    # -- K3: the fused FFN ------------------------------------------------------------
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    def time_k3() -> None:
+        """K3 int8 and int4 at the 7B FFN, 8 layers cycled (1.1 / 0.68 GB:
+        past the L2), M = 1 / 8 / 32 on every tree and 64 / 128 / 256 on a
+        tree whose K3 takes any M (form_for)."""
+        D, H, L = cfg.dim, cfg.hidden_dim, 8
+        for bits in (8, 4):
+            if bits == 8:
+                w13, w2 = (QuantizedTensor(
+                    q=torch.randint(-127, 128, (L, k, n), dtype=torch.int8, device=dev,
+                                    generator=g),
+                    scales=(torch.rand((L, k // 64, n), device=dev, generator=g) + 0.5)
+                    / (73 * k ** 0.5), group_size=64, bits=8, il=il)
+                    for k, n, il in ((D, 2 * H, 256), (H, D, 0)))
+            else:
+                w13 = cs.random_int4_qt(torch, L, D, 2 * H, 64, dev, g, il=256)
+                w2 = cs.random_int4_qt(torch, L, H, D, 64, dev, g)
+            lay = cs.Layered(L)
+            for m in (1, 8, 32) + ((64, 128, 256) if hasattr(ffn_mod, "form_for") else ()):
+                x = rx(m, D)
+                b_ms, b_by = cs.bound_ms(cs.ffn_bytes(w13, w2, m),
+                                         2 * m * (D * 2 * H + H * D))
+                emit(f"ffn int{bits} M={m}",
+                     device_ms=cs.device_ms_per_call(
+                         torch, lambda: ffn_mod.ffn(x, w13, w2, lay.next())),
+                     ms=cs.time_ms(torch, lambda: ffn_mod.ffn(x, w13, w2, lay.next())),
+                     bound_ms=b_ms, bound_by=b_by)
+            del w13, w2
+            torch.cuda.empty_cache()
+
+    if args.ffn_only:
+        time_k3()
+        emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+        return 0
 
     # -- K5: prefill attention ------------------------------------------------------
     from rama_tpu_torch.ops.kernels import prefill_attention as pa
@@ -296,6 +339,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for key, r in cs.profile_ab(torch, cfg, params).items():
         emit(f"profile_ab {key}", **r)
+    del params
+    torch.cuda.empty_cache()
+    time_k3()
     emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
     return 0
 

@@ -31,12 +31,17 @@ Phases, in order (any failure raises and the script exits non-zero):
            w13 / w2 M = 4096 (CUDA-event and device ms, TFLOP/s, bound,
            plain version, and a dense yardstick: torch.matmul by the layer
            dequantized to bf16 beforehand); K3 (ffn) at M = 1 / 8 / 32 on
-           the body body_for picks (bf16: the tensor-core body), timed at M
-           = 1 / 8 / 32 (CUDA-event and device ms, bound) beside, at M =
-           32, the split route through quant_matmul (w13 product, silu *
-           c, w2 product) and a dense bf16 yardstick (torch.matmul by w13
-           / w2 dequantized beforehand, not the same function); K4's
-           device time beside SDPA's
+           the body body_for picks (bf16: the tensor-core body) and at M =
+           33 / 40 / 64 / 65 / 100 / 128 / 256 / 474 / 512 on both bodies
+           (bf16 in the form form_for picks: "one" up to 64 rows, "rows"
+           of 64-row blocks above, by the launch counts; every bf16 row bit
+           for bit the same as in 32-row calls), timed at M = 1 / 8 / 32 /
+           64 / 128 / 256 (CUDA-event and device ms, bound) beside, at M >=
+           32, the split route through quant_matmul (w13 product, silu * c,
+           w2 product) and a dense bf16 yardstick (torch.matmul by w13 / w2
+           dequantized beforehand, not the same function), and at
+           TinyLlama-1.1B's FFN at M = 64 / 512 (the `tinyllama` key);
+           K4's device time beside SDPA's
   kernels4 the same for the int4 instantiations of quant_matmul (the
            swap-AB body, the fp32 GEMV, the prefill GEMM, stacked and 2-D
            weights) and ffn, at the 7B int4 shapes (wqkv / wo / w13 gs 64,
@@ -44,7 +49,7 @@ Phases, in order (any failure raises and the script exits non-zero):
            and 48), ragged N, fp32 and bf16; the swap-AB body timed at
            int4 wqkv / wo / w2 gs 16 / a 2-D wqkv M = 1 / 8 / 16 / 32, the
            GEMM at int4 wqkv M = 256 / 4096 and w2 gs 16 M = 256; K3'
-           timed as K3
+           checked at every M and timed as K3
   kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
            inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
            shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
@@ -168,6 +173,16 @@ Phases, in order (any failure raises and the script exits non-zero):
   prefill_t1   the T = 1 generic layer through prefill / forward on bf16 and
            int8 caches with the plain T = 1 attention made to raise: K9 once
            a layer of every call
+  model_b64    7B int8 logits at 64 slots, kernels against the plain path: a
+           prefill of 64 prompts, a decode step (K3 at M = 64, "one" form)
+           and forward_chunk T 4 (M = 256, "rows" form)
+  serve_b64, serve_b64_spec  the server on 64 slots at max_len 512 (a
+           17.2 GB bf16 cache), 64 concurrent /gen of 32 tokens: plain
+           decoding (every step K3 at M = 64, "one" form), n-gram
+           speculation at spec_tick 3 (every verify round K3 at M = 256,
+           "rows" form); each K3 launch once a layer of a step or round
+  profile_b64  64-slot decode steps and verify rounds of 4 at pos 64:
+           device ms, K3's and K1's ms and share
   kernels_s16  the bf16-stored-scale forms (cast_scales) of K1 / K2 and
            K3 on every body that reads a weight scale (the swap-AB body,
            the GEMM, the fp32 GEMV and tiled GEMM, the FFN's tensor-core
@@ -176,7 +191,9 @@ Phases, in order (any failure raises and the script exits non-zero):
            of its plain version on the same scales and equal bit for bit
            to the same body fed scales.float(); device ms in turns (f32,
            bf16, bf16, f32) beside the f32-scale form on the same weight
-           bytes, bytes and bound with 2-byte scales
+           bytes, bytes and bound with 2-byte scales; K3 / K3' at K3's M
+           past 32 as well (both bodies, rows bit for bit as in 32-row
+           calls and as with the same scales in f32)
   model_s16    7B int8 logits with bf16-stored scales, kernels against the
            plain path on the same scales (after the int8 path)
   model4_s16, serve4_s16, profile4_s16  the same for the int4 params, the
@@ -213,8 +230,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            the server on TinyLlama: plain decoding; n-gram speculation at
            spec_tick 7 (64 query rows a kv head) on the bf16 cache, 3 (32
            rows) on the int8 cache, 7 on an int8 pool of 128-row pages
-  profile_gqa_spec  a TinyLlama verify round of 8 against a plain step at
-           pos 64 and 1024
+  profile_gqa_spec  a TinyLlama verify round of 8 (K3 at M = 64) against a
+           plain step at pos 64 and 1024, each with K3's and K1's share
   spec_gqa_self  TinyLlama as its own draft at spec_tick 7: accept >= 0.9
   model_yi     Yi-34B int8 (random weights from a seed at its published
            width: GQA group 7, 56 heads over 8 kv heads, head_dim 128)
@@ -235,7 +252,7 @@ Phases, in order (any failure raises and the script exits non-zero):
            `--quant int4`, the v2 one again with `--scale-dtype bf16`, and a
            TinyLlama-width 2-layer v2 file with `--spec ngram` (T 8)
 
-Twenty-four main paths, each with the launch counters set to 0 just before it
+Twenty-six main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -258,9 +275,15 @@ under RAMA_ATTN_BLOCK 1 (`serve_ab1`) and 2 (`serve_ab2`, `serve4_ab2` on
 int4), where K14 launches as often as the fused FFN (once a layer of each
 decode step), every launch on split tensor-core attention (`[launches]`:
 `attn_block_mma` / `_simt`), and K4 never; `prefill_t1`, where K9 launches on both
-caches and no decode, chunk or prefill attention does; and the five
-TinyLlama paths (`serve_gqa`, the three `serve_gqa_spec*`, `spec_gqa_self`),
-where every verification chunk must run a row form of more than 8 rows
+caches and no decode, chunk or prefill attention does; the two 64-slot
+paths (`serve_b64`, `serve_b64_spec`), where K3 must launch once a layer
+of every decode step in its "one" form and of every verify round in its
+"rows" form (`ffn_one` equal to `decode_attention`, `ffn_rows` to
+`chunk_attention`: no step or round took the split w13 / w2 route); and
+the five TinyLlama paths (`serve_gqa`, the three `serve_gqa_spec*`,
+`spec_gqa_self`), where every verification chunk must run a row form of
+more than 8 rows (and, at T 8, K3 in its "one" form once a layer of every
+round)
 (the `*_gqa` records: launches in such a form on the mma body, bf16 cache,
 or the walk body, int8 cache, as the C entry reports the form it launched;
 `[launches]` `decode_attention_mma_rows*` / `_walk_rows*`,
@@ -311,7 +334,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
               "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
-              "serve_ab2", "profile_ab", "prefill_t1", "model4", "serve4", "profile4",
+              "serve_ab2", "profile_ab", "prefill_t1", "model_b64", "serve_b64", "profile_b64",
+              "serve_b64_spec", "model4", "serve4", "profile4",
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
               "serve4_ab2", "kernels_gqa", "model_gqa", "serve_gqa", "serve_gqa_spec",
               "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
@@ -357,6 +381,12 @@ SPEC_TICK = 3                 # drafts per verification round: chunks of 4
 PAGE_SIZE = 128               # the paged serving paths' page rows (the server's default)
 PAGED_NUM_PAGES = 64          # their pool: a quarter of the 8 x 32 pages of the dense worst case
 GQA_SPEC_TICK = 7             # TinyLlama's verify rounds of T 8: 64 query rows a kv head (group 8)
+B64_SLOTS = 64                # the wide-batch 7B paths' slots: K3 at M = 64 ("one" form) a step,
+B64_MAX_LEN = 512             # M = 256 ("rows") a verify round of 4; a bf16 cache of 17.2 GB
+# K3's checked row counts past 32: one CTA (33-64), row blocks (65-512;
+# 474 TinyLlama's last fused M under rama_tpu's VMEM rule)
+FFN_CHECK_M = (33, 40, 64, 65, 100, 128, 256, 474, 512)
+FFN_TIME_M = (1, 8, 32, 64, 128, 256)   # K3's timed M at 7B (TinyLlama: 64, 512)
 # (rep, T) of kernels_gqa: 8 / 16 / 32 / 64 query rows a kv head, 9 (a
 # partial m16 block), 16 (a decode step) and 128 (two row groups of 64)
 GQA_FORMS = ((8, 1), (8, 2), (8, 4), (8, 8), (3, 3), (16, 1), (16, 8))
@@ -487,6 +517,29 @@ AB2_INT4_PATH = dict(label="attention block 2 int4", bits=4,
                      forbid={name: "launches_ab2_int4_path" for name in (
                          "decode_attention", "attn_rope_write_layered", "attn_block_layered")},
                      equal={"attn_block_layered_int4": "ffn_int4"})
+# Llama-2-7B int8 at 64 slots (max_len 512): every decode step runs K3 at M
+# = 64 on its "one" form, once a layer of the step (`equal`: as many as the
+# T = 1 attention's launches), and no step the split w13 / w2 route; under
+# n-gram speculation at spec_tick 3 every verify round runs K3 at M = 256
+# on its "rows" form (4 row blocks), once a layer of the round. `mmv`
+# False: no product of these paths need run at M <= 32 (the admissions'
+# last-row logits do only where fewer than 33 requests arrive together)
+B64_SERVE = dict(max_seq_len=B64_MAX_LEN, slots=B64_SLOTS)
+B64_PATH = dict(label="64 slots", bits=8, phases=("model_b64", "serve_b64", "profile_b64"),
+                serve=B64_SERVE, mmv=False,
+                record={name: "launches_b64_path" for name in (
+                    "ffn", "ffn_one", "quant_matmul", "quant_matmul_mma", "decode_attention",
+                    "prefill_attention")},
+                forbid={name: "launches_b64_path" for name in ("ffn_rows", "chunk_attention")},
+                equal={"ffn_one": "decode_attention"})
+B64_SPEC_PATH = dict(label="64 slots speculation T 4", bits=8,
+                     phases=(None, "serve_b64_spec", None),
+                     serve=dict(B64_SERVE, spec_tick=SPEC_TICK), mmv=False,
+                     record={name: "launches_b64_spec_path" for name in (
+                         "ffn", "ffn_rows", "quant_matmul", "quant_matmul_mma",
+                         "chunk_attention", "prefill_attention")},
+                     forbid={name: "launches_b64_spec_path" for name in ("decode_attention",)},
+                     equal={"ffn_rows": "chunk_attention", "ffn_one": "decode_attention"})
 INT4_PATH = dict(label="int4", bits=4, phases=("model4", "serve4", "profile4"),
                  serve={},
                  record={"quant_matmul_int4": "launches", "ffn_int4": "launches",
@@ -511,8 +564,9 @@ INT4_S16_PATH = dict(label="int4 bf16 scales", bits=4, scales="bf16",
 # TinyLlama-1.1B (`model`: its params, GQA group 8, head_dim 64) at its
 # full width: plain decoding; n-gram speculation at spec_tick 7 (verify
 # rounds of T 8: 64 query rows a kv head, M = 64 rows of the weight
-# products: the GEMM, and the FFN's two-K1 route, no K3) on the bf16 cache,
-# at spec_tick 3 (32 rows, M = 32: K3) on the int8 cache and at 7 on an int8
+# products: the GEMM for wqkv / wo / lm_head, K3's "one" form for the FFN,
+# one launch a layer of every round: `equal`) on the bf16 cache, at
+# spec_tick 3 (32 rows, M = 32: K3) on the int8 cache and at 7 on an int8
 # page pool; the target as its own draft at 7. `equal`: every chunk launch
 # of the path ran a form of more than 8 rows (the `*_gqa` records count
 # those by form)
@@ -529,10 +583,11 @@ GQA_SPEC_PATH = dict(label="TinyLlama speculation T 8", model="tinyllama", bits=
                      record={"chunk_attention_gqa": "launches",
                              **{name: "launches_gqa_spec_path" for name in (
                                  "chunk_attention", "quant_matmul", "prefill_attention",
-                                 "quant_matmul_mma")}},
+                                 "quant_matmul_mma", "ffn", "ffn_one")}},
                      forbid={name: "launches_gqa_spec_path" for name in (
-                         "decode_attention", "chunk_attention_q8")},
-                     equal={"chunk_attention_gqa": "chunk_attention"})
+                         "decode_attention", "chunk_attention_q8", "ffn_rows")},
+                     equal={"chunk_attention_gqa": "chunk_attention",
+                            "ffn_one": "chunk_attention"})
 GQA_SPEC_KV8_PATH = dict(label="TinyLlama speculation T 4 int8 KV", model="tinyllama", bits=8,
                          phases=(None, "serve_gqa_spec_kv8", None),
                          serve=dict(GQA_SERVE, spec_tick=SPEC_TICK, kv_quant="int8"),
@@ -551,11 +606,12 @@ GQA_SPEC_PAGED_KV8_PATH = dict(
     record={"paged_chunk_attention_q8_gqa": "launches",
             **{name: "launches_gqa_spec_paged_kv8_path" for name in (
                 "paged_chunk_attention_q8", "write_kv_paged_q8", "write_kv_prefill_paged_q8",
-                "quant_matmul", "prefill_attention", "quant_matmul_mma")}},
+                "quant_matmul", "prefill_attention", "quant_matmul_mma", "ffn", "ffn_one")}},
     forbid={name: "launches_gqa_spec_paged_kv8_path" for name in (
         "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
-        "paged_decode_attention_q8")},
-    equal={"paged_chunk_attention_q8_gqa": "paged_chunk_attention_q8"})
+        "paged_decode_attention_q8", "ffn_rows")},
+    equal={"paged_chunk_attention_q8_gqa": "paged_chunk_attention_q8",
+           "ffn_one": "paged_chunk_attention_q8"})
 GQA_SELF_PATH = dict(label="TinyLlama as its own draft", model="tinyllama", bits=8,
                      phases=(None, "spec_gqa_self", None), serve={},
                      record={name: "launches_gqa_self_path" for name in (
@@ -605,7 +661,8 @@ YI_AB2_PATH = dict(label="Yi-34B attention block 2", model="yi", bits=8,
                    equal=dict([YI_K5, ("attn_block_layered", "ffn")]))
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
-         PREFILL_T1_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH, GQA_PATH, GQA_SPEC_PATH,
+         PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
+         GQA_PATH, GQA_SPEC_PATH,
          GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
          YI_SPEC_PATH, YI_AB2_PATH)
 # every path that launches quant_matmul runs its decode-sized products (M
@@ -613,7 +670,7 @@ PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_P
 # last-row logits) on the swap-AB body: that count goes to the
 # quant_matmul_mmv record, under the same key
 for _path in PATHS:
-    if "quant_matmul" in _path["record"]:
+    if "quant_matmul" in _path["record"] and _path.get("mmv", True):
         _path["record"]["quant_matmul_mmv"] = _path["record"]["quant_matmul"]
 
 
@@ -776,7 +833,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = 0
     for bodies in (pa.launches_by_body, pa.launches_by_form, qm.launches_by_body,
-                   ffn_mod.launches_by_body,
+                   ffn_mod.launches_by_body, ffn_mod.launches_by_form,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
                    qm.launches_by_scale, ffn_mod.launches_by_scale,
                    *da.launches_by_form.values(), *pga.launches_by_form.values()):
@@ -795,6 +852,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             **{f"quant_matmul_scale_{s}": n for s, n in qm.launches_by_scale.items()},
             **{f"ffn_scale_{s}": n for s, n in ffn_mod.launches_by_scale.items()},
             **{f"ffn_{body}": n for body, n in ffn_mod.launches_by_body.items()},
+            # by form: "one" (M <= 64, every row in one CTA), "rows" (row blocks)
+            **{f"ffn_{form}": n for form, n in ffn_mod.launches_by_form.items()},
             "decode_attention": da.launches, "prefill_attention": pa.launches,
             "prefill_attention_mma": pa.launches_by_body["mma"],
             "prefill_attention_simt": pa.launches_by_body["simt"],
@@ -865,7 +924,9 @@ def check_launches(path: dict, launches: dict) -> None:
                          f"the kernel, of the kernel it must launch as often as: the fused "
                          f"FFN, once a layer of a decode step; or the chunk wrapper whose "
                          f"every launch must run a row form of more than 8 rows; or K5, every "
-                         f"launch of a Yi-34B path in its gqa form)")
+                         f"launch of a Yi-34B path in its gqa form; or K3 in its one / rows "
+                         f"form, once a layer of every step or verify round: a step or round "
+                         f"with fewer took the split w13 / w2 route)")
     if "prefill_attention_gqa" not in path.get("equal", {}) and launches.get(
             "prefill_attention_gqa", 0):
         raise SystemExit(f"FAILED: on the {path['label']} main path "
@@ -1076,16 +1137,61 @@ def check_ffn(torch, ffn_mod, label: str, x, w13, w2, layer: int) -> float:
     return compare(torch, f"ffn {label} [{body}]", got, ffn_mod.ffn_plain(x, w13, w2, layer))
 
 
-def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx) -> dict:
-    """K3 at M = 1, 8 and 32 with the layer cycling as in a decode step:
-    CUDA-event and device ms beside the bound (ffn_bytes, or 2 M (K 2H + H
-    N) bf16 operations); at M = 32 also the split route through
-    quant_matmul (w13, then split_h13, silu * c, bf16, w2: the same
-    function in four or more launches, on the swap-AB body) and,
-    at each M, a dense bf16 yardstick (torch.matmul by the layer's w13 and
-    w2 dequantized to bf16 beforehand, the same silu * c between: 2 bytes
-    a weight, no dequantization, not the same function, never called by
-    the port). Returns {M: record}."""
+def check_ffn_any_m(torch, ffn_mod, label: str, w13, w2, rx, layer: int = 1,
+                    twin=None) -> dict:
+    """K3 past 32 rows, at each M of FFN_CHECK_M: within TOL of ffn_plain
+    on both bodies (bf16: one launch on the tensor-core body in the form
+    form_for picks, "one" up to 64 rows, "rows" above, by the counts;
+    fp32: one on the SIMT GEMVs), every bf16 row bit for bit the same as
+    that row computed in calls of 32 rows (the NT 4 form), and, with
+    `twin` (the same weights with f32 scales, w13 / w2 bf16-stored), the
+    same bits as the twin's call. Returns {"max_abs_err", "fp32_max_abs_err",
+    "checked_m"}."""
+    k = w13.k_dim
+    top = max(FFN_CHECK_M)
+    x_all = rx(top, k)
+    ref = torch.cat([ffn_mod.ffn(x_all[i:i + 32].contiguous(), w13, w2, layer)
+                     for i in range(0, top, 32)])
+    errs, errs32 = [], []
+    for m in FFN_CHECK_M:
+        x = x_all[:m].contiguous()
+        form = ffn_mod.form_for(m)
+        bodies, forms = dict(ffn_mod.launches_by_body), dict(ffn_mod.launches_by_form)
+        got = ffn_mod.ffn(x, w13, w2, layer)
+        ran = ({b: ffn_mod.launches_by_body[b] - bodies[b] for b in bodies},
+               {f: ffn_mod.launches_by_form[f] - forms[f] for f in forms})
+        if ran != ({b: int(b == "mma") for b in bodies}, {f: int(f == form) for f in forms}):
+            raise SystemExit(f"FAILED ffn {label} M={m}: launches by body / form {ran}, "
+                             f"expected one on mma, {form}")
+        errs.append(compare(torch, f"ffn {label} M={m} layer={layer} [mma, {form}]", got,
+                            ffn_mod.ffn_plain(x, w13, w2, layer)))
+        same = (got == ref[:m]).all(dim=1)
+        if not bool(same.all()):
+            raise SystemExit(f"FAILED ffn {label} M={m}: rows {torch.nonzero(~same)[:8].tolist()} "
+                             f"differ from the same rows computed 32 at a time")
+        if twin is not None and not torch.equal(got, ffn_mod.ffn(x, *twin, layer)):
+            raise SystemExit(f"FAILED ffn {label} M={m}: bf16 scales differ from the same "
+                             f"scales as f32")
+        errs32.append(check_ffn(torch, ffn_mod, f"{label} M={m} fp32 layer={layer}",
+                                x.float(), w13, w2, layer))
+    log(f"[check] ffn {label} M={list(FFN_CHECK_M)}: every row bit for bit as in 32-row "
+        f"calls{', and as with f32 scales' if twin is not None else ''}")
+    return dict(max_abs_err=max(errs), fp32_max_abs_err=max(errs32),
+                checked_m=list(FFN_CHECK_M))
+
+
+def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx,
+             ms=FFN_TIME_M) -> dict:
+    """K3 at each M of `ms` with the layer cycling as in a decode step:
+    checked against ffn_plain, then CUDA-event and device ms beside the
+    bound (ffn_bytes, or 2 M (K 2H + H N) bf16 operations); at M >= 32 also
+    the split route through quant_matmul (w13, then split_h13, silu * c,
+    bf16, w2: the same function in four or more launches, on the swap-AB
+    body at M <= 32 and the GEMM above; the route the model took past M =
+    32 before K3 served every M) and, at each M, a dense bf16 yardstick
+    (torch.matmul by the layer's w13 and w2 dequantized to bf16 beforehand,
+    the same silu * c between: 2 bytes a weight, no dequantization, not the
+    same function, never called by the port). Returns {M: record}."""
     import torch.nn.functional as F
 
     from rama_tpu_torch.ops.kernels.ffn import split_h13
@@ -1098,7 +1204,7 @@ def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx) -> dict
     k, h = w13.k_dim, w2.k_dim
     n = w2.q.shape[-1]
     out = {}
-    for m in (1, 8, ffn_mod.FFN_MAX_M):
+    for m in ms:
         x = rx(m, k)
 
         def kernel():
@@ -1113,20 +1219,24 @@ def time_ffn(torch, ffn_mod, qm, label: str, w13, w2, n_layers: int, rx) -> dict
             a, c = split_h13(qm.quant_matmul(x, w13, l), w13)
             return qm.quant_matmul((F.silu(a.float()) * c.float()).to(x.dtype), w2, l)
 
+        err = compare(torch, f"ffn {label} timed inputs M={m}", kernel(),
+                      ffn_mod.ffn_plain(x, w13, w2, lay.i))
         b_ms, b_by = bound_ms(ffn_bytes(w13, w2, m), 2 * m * (k * 2 * h + h * n))
-        rec = dict(m=m, ms=time_ms(torch, kernel), device_ms=device_ms_per_call(torch, kernel),
-                   bound_ms=b_ms, bound_by=b_by, dense_ms=time_ms(torch, dense),
+        rec = dict(m=m, form=ffn_mod.form_for(m), max_abs_err=err, ms=time_ms(torch, kernel),
+                   device_ms=device_ms_per_call(torch, kernel), bound_ms=b_ms, bound_by=b_by,
+                   dense_ms=time_ms(torch, dense),
                    dense_device_ms=device_ms_per_call(torch, dense))
-        if m == ffn_mod.FFN_MAX_M:
+        if m >= 32:
             compare(torch, f"ffn {label} split route M={m}", split(),
                     ffn_mod.ffn_plain(x, w13, w2, lay.i))
             rec.update(split_ms=time_ms(torch, split),
                        split_device_ms=device_ms_per_call(torch, split))
-        log(f"[time] ffn {label} M={m} [{ffn_mod.body_for(x.dtype, m)}]: {rec['ms']:.4f} ms, "
-            f"device {rec['device_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{rec['device_ms'] / b_ms:.2f}x)"
+        log(f"[time] ffn {label} M={m} [{ffn_mod.body_for(x.dtype, m)}, {rec['form']}]: "
+            f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {rec['device_ms'] / b_ms:.2f}x)"
             + (f"; split route (quant_matmul w13, silu * c, quant_matmul w2) "
-               f"{rec['split_ms']:.4f} ms, device {rec['split_device_ms']:.4f} ms"
+               f"{rec['split_ms']:.4f} ms, device {rec['split_device_ms']:.4f} ms "
+               f"(K3 / split {rec['device_ms'] / rec['split_device_ms']:.2f})"
                if "split_ms" in rec else "")
             + f"; dense bf16 yardstick (not the same function) {rec['dense_ms']:.4f} ms, "
               f"device {rec['dense_device_ms']:.4f} ms")
@@ -1366,10 +1476,11 @@ def phase_kernels(torch, results: dict) -> None:
     # -- kernel 2: ffn ---------------------------------------------------------
     il = phase_a_tile(H, 8, gs) or 0
     w13, w2 = rq(L, D, 2 * H, il=il), rq(L, H, D)
-    for m in (1, 8, ffn_mod.FFN_MAX_M):
+    for m in (1, 8, 32):
         x = rx(m, D)
         for l in (0, L - 1):
             check_ffn(torch, ffn_mod, f"il={il} M={m} layer={l}", x, w13, w2, l)
+    any_m = check_ffn_any_m(torch, ffn_mod, f"int8 il={il}", w13, w2, rx)
     # plain [W1 | W3] layout and a ragged hidden dim (tiny's 176)
     w13p = QuantizedTensor(q=w13.q[:2], scales=w13.scales[:2], group_size=gs, il=0)
     w2p = QuantizedTensor(q=w2.q[:2], scales=w2.scales[:2], group_size=gs)
@@ -1392,11 +1503,21 @@ def phase_kernels(torch, results: dict) -> None:
         replaces="rama_tpu/ops/pallas/ffn.py:252", max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) il={il}, w2[l] (11008, 4096)",
-        by_m=time_ffn(torch, ffn_mod, qm, "int8", w13, w2, L, rx))
+        any_m=any_m, by_m=time_ffn(torch, ffn_mod, qm, "int8", w13, w2, L, rx))
     # the prefill FFN's split w13 / w2 products through the tensor-core GEMM
     for label, (k, w) in {"w13 M=4096": (D, w13), "w2 M=4096": (H, w2)}.items():
         mma["gemm"][f"int8 {label}"] = time_gemm(torch, qm, f"int8 {label}", rx(4096, k), w, L)
     del w13, w2, w13p, w2p
+    # K3 at TinyLlama-1.1B's FFN (K 2048, H 5632; 8 layers, 280 MB, cycle past
+    # the L2): a verify round of 8 at 8 slots (M = 64) and at 64 slots (512)
+    tcfg = tinyllama_config(ModelConfig)
+    tl_il = phase_a_tile(tcfg.hidden_dim, 8, gs) or 0
+    t13 = rq(8, tcfg.dim, 2 * tcfg.hidden_dim, il=tl_il)
+    t2 = rq(8, tcfg.hidden_dim, tcfg.dim)
+    check_ffn_any_m(torch, ffn_mod, f"TinyLlama int8 il={tl_il}", t13, t2, rx)
+    results["ffn"]["tinyllama"] = time_ffn(torch, ffn_mod, qm, "TinyLlama int8", t13, t2, 8,
+                                           rx, ms=(64, 512))
+    del t13, t2
 
     # -- kernel 3: decode attention --------------------------------------------
     B, nkv, hd, S = 8, cfg.n_kv_heads, cfg.head_dim, cfg.seq_len
@@ -1647,10 +1768,11 @@ def phase_kernels_int4(torch, results: dict) -> None:
     il = phase_a_tile(H, 4, w2.group_size) or 0
     w13 = random_int4_qt(torch, L, D, 2 * H, 64, dev, g, il=il)
     assert il == 256 and w13.group_size == 64
-    for m in (1, 8, ffn_mod.FFN_MAX_M):
+    for m in (1, 8, 32):
         x = rx(m, D)
         for l in (0, L - 1):
             check_ffn(torch, ffn_mod, f"int4 il={il} M={m} layer={l}", x, w13, w2, l)
+    any_m = check_ffn_any_m(torch, ffn_mod, f"int4 il={il}", w13, w2, rx)
     for cfg_name, (d, h, req) in {"tiny": (64, 176, 8), "stories15M": (288, 768, 16)}.items():
         t13 = quantize_int4(torch.randn(1, d, 2 * h, generator=tg), req).to(dev)
         t2 = quantize_int4(torch.randn(1, h, d, generator=tg), req).to(dev)
@@ -1674,7 +1796,7 @@ def phase_kernels_int4(torch, results: dict) -> None:
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"x (8, 4096) bf16, w13[l] (4096, 22016) int4 gs 64 il={il}, "
               f"w2[l] (11008, 4096) int4 gs 16",
-        by_m=time_ffn(torch, ffn_mod, qm, "int4", w13, w2, L, rx))
+        any_m=any_m, by_m=time_ffn(torch, ffn_mod, qm, "int4", w13, w2, L, rx))
     for name in ("quant_matmul_int4", "ffn_int4"):
         r = results[name]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -1884,8 +2006,10 @@ def phase_kernels_s16(torch, results: dict) -> None:
             w2 = random_int4_qt(torch, L, H, D, 64, dev, g)
         (b13, f13), (b2, f2) = s16_pair(torch, w13), s16_pair(torch, w2)
         del w13, w2
+        frec.setdefault("any_m", {})[f"int{bits}"] = check_ffn_any_m(
+            torch, ffn_mod, f"int{bits} bf16 scales", b13, b2, rx, twin=(f13, f2))
         by_m = {}
-        for m in (1, 8, ffn_mod.FFN_MAX_M):
+        for m in (1, 8, 32):
             x = rx(m, D)
             err = check_s16(torch, f"ffn int{bits} M={m} layer=1",
                             lambda s: ffn_mod.ffn(x, *((b13, b2) if s == "bf16" else
@@ -2389,6 +2513,69 @@ def phase_spec_gqa_self(torch, cfg, params, tokenizer, start_count=lambda: None)
         raise SystemExit(f"FAILED spec_gqa_self: accept rate {stats['spec_accept_rate']} < 0.9")
 
 
+def phase_model_b64(torch, cfg, params) -> None:
+    """Llama-2-7B int8 logits at 64 slots through the kernels against the
+    plain path, rel TOL per row, on a bf16 cache of 64 rows: a prefill of 64
+    prompts of 8 tokens, a decode step at 8 (K3 at M = 64: its "one" form,
+    one launch a layer) and forward_chunk at T 4 from 9 (M = 256: the
+    "rows" form, four row blocks, one launch a layer)."""
+    from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk, prefill
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+
+    dev = torch.device("cuda")
+    b = B64_SLOTS
+    g = torch.Generator(device=dev).manual_seed(64)
+    toks = torch.randint(3, cfg.vocab_size, (b, 8), device=dev, generator=g)
+    caches = [KVCache.create(cfg, b, 64, device=dev) for _ in range(2)]
+    with torch.no_grad():
+        lk, lp = (prefill(params, cfg, toks, c, last_only=True, plain=plain)[0]
+                  for c, plain in zip(caches, (False, True)))
+        compare(torch, f"7B int8 logits prefill of {b} prompts (kernels vs plain)", lk[:, -1],
+                lp[:, -1])
+        tok = torch.argmax(lp[:, -1], dim=-1)
+        for what, form, fn in (
+                ("decode step at 8", "one",
+                 lambda c, plain: decode_step(params, cfg, tok, torch.full((b,), 8, device=dev),
+                                              c, plain=plain)[0]),
+                ("forward_chunk T=4 from 9", "rows",
+                 lambda c, plain: forward_chunk(params, cfg, toks[:, :4],
+                                                torch.full((b,), 9, dtype=torch.int32,
+                                                           device=dev), c, plain=plain)[0])):
+            before = dict(ffn_mod.launches_by_form)
+            lk = fn(caches[0], False)
+            ran = {f: ffn_mod.launches_by_form[f] - before[f] for f in before}
+            if ran != {f: cfg.n_layers * (f == form) for f in before}:
+                raise SystemExit(f"FAILED model_b64 {what}: K3 launches by form {ran}, expected "
+                                 f"{cfg.n_layers} on {form}")
+            compare(torch, f"7B int8 logits {what} at {b} slots, K3 {form} form (kernels vs "
+                    f"plain)", lk, fn(caches[1], True))
+    del caches
+    torch.cuda.empty_cache()
+
+
+def profile_b64(torch, cfg, params) -> dict:
+    """Llama-2-7B int8 at 64 slots: decode steps (K3 at M = 64) and verify
+    rounds of 4 (M = 256: K3's rows form, the GEMM for wqkv / wo / lm_head)
+    at pos 64 of a 128-row bf16 cache (phase_profile, the device's events
+    alone): device ms, K3's and K1's ms and share. Returns {"step",
+    "round"}."""
+    from rama_tpu_torch.models.llama import KVCache
+
+    cache = KVCache.create(cfg, B64_SLOTS, 128, device=torch.device("cuda"))
+    out = {what: phase_profile(torch, cfg, params, tag="profile_b64", cache=cache, chunk=chunk,
+                               host_ops=False, slots=B64_SLOTS)
+           for what, chunk in (("step", 1), ("round", SPEC_TICK + 1))}
+    step, rnd = out["step"], out["round"]
+    log(f"[profile_b64] {B64_SLOTS} slots: a step {step['device_ms']:.3f} device ms (K3 "
+        f"{step['k3_ms']:.3f} = {step['k3_share']:.4f}, K1 {step['k1_ms']:.3f} = "
+        f"{step['k1_share']:.4f}); a verify round of {SPEC_TICK + 1} {rnd['device_ms']:.3f} "
+        f"(K3 {rnd['k3_ms']:.3f} = {rnd['k3_share']:.4f}, K1 {rnd['k1_ms']:.3f} = "
+        f"{rnd['k1_share']:.4f}): {rnd['device_ms'] / max(step['device_ms'], 1e-9):.3f}x")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_gqa_spec(torch, cfg, params) -> dict:
     """TinyLlama: a verify round of T 8 (64 query rows a kv head) against a
     plain decode step, 8 slots on a bf16 cache of seq_len rows, at pos 64
@@ -2405,8 +2592,11 @@ def profile_gqa_spec(torch, cfg, params) -> dict:
                            for what, chunk in (("step", 1), ("round", GQA_SPEC_TICK + 1))}
         step, rnd = out[str(start)]["step"], out[str(start)]["round"]
         log(f"[profile_gqa_spec] pos {start}: a verify round of {GQA_SPEC_TICK + 1} "
-            f"{rnd['device_ms']:.3f} device ms (attention {rnd['attn_ms']:.4f}) against a "
-            f"plain step {step['device_ms']:.3f} (attention {step['attn_ms']:.4f}): "
+            f"{rnd['device_ms']:.3f} device ms (attention {rnd['attn_ms']:.4f}; K3 "
+            f"{rnd['k3_ms']:.3f} = {rnd['k3_share']:.4f}, K1 {rnd['k1_ms']:.3f} = "
+            f"{rnd['k1_share']:.4f}) against a plain step {step['device_ms']:.3f} (attention "
+            f"{step['attn_ms']:.4f}; K3 {step['k3_ms']:.3f} = {step['k3_share']:.4f}, K1 "
+            f"{step['k1_ms']:.3f} = {step['k1_share']:.4f}): "
             f"{rnd['device_ms'] / max(step['device_ms'], 1e-9):.3f}x")
     del cache
     torch.cuda.empty_cache()
@@ -4050,10 +4240,12 @@ def cache_bytes(cache) -> int:
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
                 spec_tick: int = 0, paged: bool = False,
-                scale_dtype: str | None = None) -> dict:
-    """The server around an 8-slot engine: 8 concurrent /gen of 32 tokens
-    (greedy and sampled), every stream must end and /metrics count every
-    token. With spec_tick, n-gram speculation that never goes dormant
+                scale_dtype: str | None = None, slots: int = 8) -> dict:
+    """The server around an engine of `slots` slots (8 by default): as many
+    concurrent /gen of 32 tokens (greedy and sampled; past 8 the 8 prompts
+    again with a number appended; a request answered 503, the engine's
+    admission queue of 30 being full, is sent again after 0.25 s), every
+    stream must end and /metrics count every token. With spec_tick, n-gram speculation that never goes dormant
     (spec_min_accept 0), so every tick is a spec tick, and the accept rate
     must be a number. Paged: a pool of PAGED_NUM_PAGES pages of PAGE_SIZE
     rows, every page free again after the run. scale_dtype "bf16": the
@@ -4069,7 +4261,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     from rama_tpu_torch.server.app import build_app
 
     engine = Engine(cfg, params, tokenizer,
-                    EngineConfig(max_batch_size=8, max_seq_len=max_seq_len, decode_tick=8,
+                    EngineConfig(max_batch_size=slots, max_seq_len=max_seq_len, decode_tick=8,
                                  kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
                                  spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
                                  kv_num_pages=PAGED_NUM_PAGES if paged else None,
@@ -4088,21 +4280,31 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         # a dense cache of the same slots and rows: K and V rows, int8 plus
         # a 4-byte scale or bf16
         row = cfg.n_kv_heads * (cfg.head_dim + 4 if kv_quant == "int8" else 2 * cfg.head_dim)
-        dense = 2 * cfg.n_layers * 8 * max_seq_len * row
+        dense = 2 * cfg.n_layers * slots * max_seq_len * row
         log(f"[{tag}] pool of {engine.cache.num_pages} pages x {PAGE_SIZE} rows: "
-            f"{cache_bytes(engine.cache) / 1e9:.3f} GB; a dense cache of 8 slots x "
+            f"{cache_bytes(engine.cache) / 1e9:.3f} GB; a dense cache of {slots} slots x "
             f"{max_seq_len} rows: {dense / 1e9:.3f} GB")
     engine.start()
     prompts = ["Once upon a time", "The little dog", "In a far away land",
                "She opened the door", "Tom and Lily", "The sun was", "A big red ball",
                "One day"]
+    prompts = [p if i < 8 else f"{p} {i}" for i in range(slots) for p in [prompts[i % 8]]]
     steps = 32
+
+    busy = []   # 503s: the engine's admission queue (30 requests) was full
 
     async def one(session, url, prompt, temp):
         t0 = time.perf_counter()
         ttft, n, ended = None, 0, False
-        async with session.get(url, params={"prompt": prompt, "steps": str(steps),
-                                            "temperature": str(temp)}) as resp:
+        while True:   # a client that retries a 503 after 0.25 s (TTFT counts the wait)
+            resp = await session.get(url, params={"prompt": prompt, "steps": str(steps),
+                                                  "temperature": str(temp)})
+            if resp.status != 503:
+                break
+            resp.release()
+            busy.append(prompt)
+            await asyncio.sleep(0.25)
+        async with resp:
             if resp.status != 200:
                 raise SystemExit(f"FAILED {tag}: /gen status {resp.status}")
             async for raw in resp.content:
@@ -4156,6 +4358,8 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     summary = dict(tok_s=total / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
                    ttft_max_ms=ttfts[-1] * 1e3, decode_tok_per_s=stats["decode_tok_per_s"],
                    spec_accept_rate=rate, decode_ticks=stats["decode_ticks"])
+    if busy:
+        log(f"[{tag}] {len(busy)} /gen answered 503 (admission queue full) and were retried")
     log(f"[{tag}] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
         f"{summary['tok_s']:.2f} tok/s aggregate; TTFT p50 {summary['ttft_p50_ms']:.1f} "
         f"ms max {summary['ttft_max_ms']:.1f} ms; decode_tok_per_s "
@@ -4175,10 +4379,11 @@ def step_weight_bytes(params) -> float:
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64, chunk: int = 1, tables=None, host_ops: bool = True) -> dict:
-    """torch.profiler over 8 decode steps at 8 slots (positions start ..
-    start+7; by default on a 128-row bf16 cache; a page pool through
-    `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
+                  start: int = 64, chunk: int = 1, tables=None, host_ops: bool = True,
+                  slots: int = 8) -> dict:
+    """torch.profiler over 8 decode steps at `slots` slots (8 by default;
+    positions start .. start+7; by default on a 128-row bf16 cache; a page
+    pool through `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
     time per step by kernel, device busy share (against the profiled
@@ -4197,18 +4402,18 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
 
     dev = torch.device("cuda")
     if cache is None:
-        cache = KVCache.create(cfg, 8, 128, device=dev)
-    tok = (torch.arange(8 * chunk, device=dev) + 100).view(8, chunk)
+        cache = KVCache.create(cfg, slots, 128, device=dev)
+    tok = (torch.arange(slots * chunk, device=dev) + 100).view(slots, chunk)
 
     def step(tok, p):
-        pos = torch.full((8,), p, device=dev)
+        pos = torch.full((slots,), p, device=dev)
         if tables is not None:
             logits, _ = decode_step_paged(params, cfg, tok[:, 0], pos, cache, tables)
         elif chunk == 1:
             logits, _ = decode_step(params, cfg, tok[:, 0], pos, cache)
         else:
             logits, _ = forward_chunk(params, cfg, tok, pos, cache)
-        return torch.argmax(logits, dim=-1).view(8, chunk)
+        return torch.argmax(logits, dim=-1).view(slots, chunk)
 
     with torch.no_grad():
         for i in range(2):  # warm
@@ -4245,7 +4450,7 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     wbytes = step_weight_bytes(params)
     log(f"[{tag}] weights and scales a step {wbytes / 1e9:.3f} GB: byte bound "
         f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    log(f"[{tag}] {type(cache).__name__} 8 slots x 8 {what} at pos {start}.."
+    log(f"[{tag}] {type(cache).__name__} {slots} slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
         f"{wall / 8 * 1e3:.3f} ms/step (profiler on{'' if host_ops else ', device events only'}), "
         f"{wall_off / 8 * 1e3:.3f} ms/step "
@@ -4664,6 +4869,8 @@ def main() -> int:
                 phase_model_gqa(torch, cfg, params)
             elif model == "model_yi" and model in phases:
                 phase_model_yi(torch, cfg, params)
+            elif model == "model_b64" and model in phases:
+                phase_model_b64(torch, cfg, params)
             elif model == "model4_s16" and model in phases:
                 phase_model(torch, cfg, cast_scales(params), f"int{bits} bf16-scale")
             elif model in phases:
@@ -4694,7 +4901,8 @@ def main() -> int:
                                     ("serve_gqa_spec_kv8", "serve_gqa"),
                                     ("serve_gqa_spec_paged_kv8", "serve_gqa"),
                                     ("serve_yi_kv8", "serve_yi"), ("serve_yi_spec", "serve_yi"),
-                                    ("serve_yi_ab2", "serve_yi")):
+                                    ("serve_yi_ab2", "serve_yi"), ("serve_b64", "serve"),
+                                    ("serve_b64_spec", "serve_b64")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -4713,6 +4921,9 @@ def main() -> int:
                     results[name].setdefault("launches_by_form", {})[key] = {
                         body: {f: launches[f"{FORM_COUNTS[name]}_{body}_rows{f}"]
                                for f in da.FORMS} for body in da.launches_by_form}
+                if name in ("ffn", "ffn_int4"):   # K3's calls by form, both bits together
+                    results[name].setdefault("launches_by_form", {})[key] = {
+                        form: launches[f"ffn_{form}"] for form in ffn_mod.launches_by_form}
         with clock(profile if profile in phases else f"{label}: after the main path"):
             if profile == "profile_kv8" and profile in phases:
                 long = dict(params)
@@ -4729,6 +4940,8 @@ def main() -> int:
                 profile_ab(torch, cfg, params)
             elif profile == "profile_gqa_spec" and profile in phases:
                 profiles[profile] = profile_gqa_spec(torch, cfg, params)
+            elif profile == "profile_b64" and profile in phases:
+                profiles[profile] = profile_b64(torch, cfg, params)
             elif profile == "profile_prefill_yi" and profile in phases:
                 profiles[profile] = profile_yi(torch, cfg, params)
                 if "prefill_attention_gqa" in results:
@@ -4789,7 +5002,8 @@ def main() -> int:
             "launches_ab2_int4_path", "launches_s16_path", "launches_gqa_path",
             "launches_gqa_spec_path", "launches_gqa_spec_kv8_path",
             "launches_gqa_spec_paged_kv8_path", "launches_gqa_self_path", "launches_yi_path",
-            "launches_yi_kv8_path", "launches_yi_spec_path", "launches_yi_ab2_path", "rep8",
+            "launches_yi_kv8_path", "launches_yi_spec_path", "launches_yi_ab2_path",
+            "launches_b64_path", "launches_b64_spec_path", "any_m", "tinyllama", "rep8",
             "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
             "t2", "one_query", "paged")

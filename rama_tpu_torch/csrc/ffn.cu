@@ -1,5 +1,6 @@
-// Kernel 2: the SwiGLU FFN of one layer at decode M (up to a verify round's
-// 32 rows), int8 or packed int4 weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
+// Kernel 2: the SwiGLU FFN of one layer at any M (a decode step's slots, a
+// verify round's slots x tokens), int8 or packed int4 weights,
+// out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
 //
 // Replaces rama_tpu/ops/pallas/ffn.py: ffn_fused_layered (_kernel, its int8
 // and int4 branches), with f32 or bf16-stored scales (the Pallas kernel
@@ -16,26 +17,35 @@
 // w13 (4096 x 22016 int8 + f32 scales, 95.6 MB) and w2 (11008 x 4096, 47.9
 // MB): 143.5 MB, 43 us at 3.35 TB/s; int4 (w13 gs 64, w2 gs 16) 84.5 MB, 25
 // us (bf16 scales: 139.3 MB, 42 us; int4 76.0 MB, 23 us). At M = 32 the
-// 8.7 GFLOP take 9 us of the tensor cores' 989 TFLOP/s.
+// 8.7 GFLOP take 9 us of the tensor cores' 989 TFLOP/s; operations bound it
+// from M ~ 157 (int8) and ~ 93 (int4) on (270.5 MFLOP a row).
 //
 // Two bodies, fixed by the activation dtype before the launch:
 //
-// ffn_mma (bf16, every M <= 32): the swap-AB tensor-core body of
-// swapab.cuh (the tokens on mma.sync's n8 side, so one CTA holds every row
-// of x and each weight byte is read once a call; the raw bytes become
-// bf16(float(q) * s) in registers after ldmatrix.trans), shared with K1's
-// qmv_mma. A CTA owns 256 weight columns (8 warps) over a K split. Phase A
+// ffn_mma (bf16, any M): the swap-AB tensor-core body of swapab.cuh (the
+// tokens on mma.sync's n8 side; the raw bytes become bf16(float(q) * s) in
+// registers after ldmatrix.trans), shared with K1's qmv_mma. Up to 64 rows
+// ("one" form: NT 1 / 2 / 4 / 8 n8 tiles) one CTA holds every row of x, so
+// each weight byte is read once a call; above 64 ("rows" form) the rows
+// split into row blocks of 64 on NT 8, the blocks of a column tile side by
+// side on the grid, so that the later blocks find a weight tile in L2 (a
+// short last block runs NT 8 on zero rows, in the same launch: a second
+// launch at a smaller NT would stream the weights from HBM again). Each
+// block converts its weight bytes to bf16 itself. A CTA owns 256 weight
+// columns (8 warps) over a K split. Phase A
 // (w13): the 256 columns are the W1 and W3 columns of the same 128 hidden
 // units (ColsW13), so the silu(a) * c epilogue has both in one CTA and each
 // weight row is read in runs of 128 bytes; phase B (w2 over h): 256
 // consecutive output columns. K is split across CTAs in whole slabs and
-// whole K blocks, about one wave of two CTAs an SM; the last CTA of a
-// column tile adds the split partials in split order (bit for bit reruns).
+// whole K blocks, about one wave of two CTAs an SM for one row block (the
+// plan does not depend on M, every form holds two CTAs an SM); the last CTA
+// of a (row block, column tile) adds the split partials in split order, so
+// reruns are bit for bit and a row has the same bits at any M.
 //
 // simt (fp32 activations; no serving path runs them): ffn_w13_kernel
 // below, a split-K GEMV on the CUDA cores whose last CTA per hidden tile
-// applies silu(a) * c, then the w2 GEMV of qmv.cuh over h; M in chunks of
-// up to 8 rows (grid z).
+// applies silu(a) * c, then the w2 GEMV of qmv.cuh over h; any M in chunks
+// of up to 8 rows (grid z).
 //
 // w13 column layouts (QuantizedTensor.il): il == 0 is [W1 | W3]; il > 0 is
 // alternating il-wide tiles [W1_0 W3_0 W1_1 W3_1 ...]
@@ -366,12 +376,17 @@ struct ColsW13 {
   }
 };
 
-// grid (tiles, ks), 256 threads, swab_smem_bytes<NT, BITS, 256>() of
-// dynamic shared memory. x (M, K) bf16, M <= 8 NT; q / s rows of `ncols`
-// columns (phase A: w13, 2H; phase B: w2, N); out (M, nout) bf16 (phase A:
-// h, nout = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1)
-// sps) of the ceil(K / 64); `part` an fp32 (ks, M, tiles * 256) workspace
-// when ks > 1, `tickets` one zeroed counter per column tile.
+// grid (tiles * rblocks, ks), 256 threads, swab_smem_bytes<NT, BITS, 256>()
+// of dynamic shared memory. x (M, K) bf16, M <= 8 NT for NT < 8, any M at
+// NT 8: rblocks = ceil(M / 64) row blocks of at most 64 rows, the row
+// blocks of one column tile adjacent on grid x (blockIdx.x = tile * rblocks
+// + rb), so they run side by side and the later ones find the weight tile
+// they all read in L2. q / s rows of `ncols` columns
+// (phase A: w13, 2H; phase B: w2, N); out (M, nout) bf16 (phase A: h, nout
+// = H; phase B: y, nout = N). Split y covers slabs [y sps, (y + 1) sps) of
+// the ceil(K / 64), the same split for every row block; `part` an fp32
+// (rblocks, ks, min(M, 64), tiles * 256) workspace when ks > 1, `tickets`
+// one zeroed counter per (row block, column tile).
 template <int NT, int BITS, bool VEC, bool PHASE_A, typename S>
 __global__ void __launch_bounds__(kFfnMmaThreads, kFfnCtas)
 ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
@@ -380,14 +395,27 @@ ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         int slabs_per_split) {
   constexpr int T = kFfnMmaThreads, LDC = Swab<kFfnBN>::kLdc;
   extern __shared__ __align__(16) unsigned char ffn_smem[];
-  const int tid = threadIdx.x, tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  int tile = blockIdx.x, tiles = gridDim.x;
+  if constexpr (NT == 8) {   // row block rb: rows 64 rb .. of x, h / y, part, tickets
+    const int rblocks = (M + kSwabMaxRows - 1) / kSwabMaxRows;
+    const int rb = blockIdx.x % rblocks, m0 = rb * kSwabMaxRows;
+    tile = blockIdx.x / rblocks;
+    tiles = gridDim.x / rblocks;
+    x += (size_t)m0 * K;
+    out += (size_t)m0 * nout;
+    part += (size_t)rb * gridDim.y * min(M, kSwabMaxRows) * tiles * kFfnBN;
+    tickets += rb * tiles;
+    M = min(M - m0, kSwabMaxRows);
+  }
   using Cols = std::conditional_t<PHASE_A, ColsW13, ColsRange>;
   const Cols cols = [&] {
     if constexpr (PHASE_A) return ColsW13(tile * kFfnMmaUnits, nout, il);
     else return ColsRange{tile * kFfnBN, nout};
   }();
   const float* C = swab_tile<NT, BITS, VEC, kFfnBN>(x, q, s, part, tickets, M, K, ncols, gs,
-                                                    slabs_per_split, cols, ffn_smem);
+                                                    slabs_per_split, cols, ffn_smem, tile,
+                                                    tiles);
   if (C == nullptr) return;   // another split of this tile adds the partials
 
   if constexpr (PHASE_A) {
@@ -408,52 +436,90 @@ ffn_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
+// grid x = tiles * rblocks (NT 8; 1 row block for NT < 8)
 template <int NT, int BITS, bool VEC, bool PHASE_A, typename S>
 cudaError_t launch_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
                            void* tickets, int M, int K, int ncols, int nout, int gs, int il,
-                           int tiles, int ks, int sps, cudaStream_t stream) {
+                           int tiles, int ks, int sps, int rblocks, cudaStream_t stream) {
   constexpr size_t smem = swab_smem_bytes<NT, BITS, kFfnBN>();
   auto kern = ffn_mma<NT, BITS, VEC, PHASE_A, S>;
   static SmemOptIn opt_in;   // one attribute call an instantiation and device
   const cudaError_t e = opt_in.set(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(tiles, ks), kFfnMmaThreads, smem, stream>>>(
+  kern<<<dim3(tiles * rblocks, ks), kFfnMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const S*>(s), static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
       static_cast<unsigned*>(tickets), M, K, ncols, nout, gs, il, sps);
   return cudaGetLastError();
 }
 
+// The form for M rows: the smallest NT that holds them (1 / 2 / 4 n8
+// tiles), else NT 8 over ceil(M / 64) row blocks ("rows" above 64). A
+// `rblocks` other than that raises cudaErrorInvalidValue.
 template <int BITS, bool VEC, bool PHASE_A, typename S>
 cudaError_t launch_ffn_mma_nt(const void* x, const void* q, const void* s, void* out, void* part,
                               void* tickets, int M, int K, int ncols, int nout, int gs, int il,
-                              int tiles, int ks, int sps, cudaStream_t st) {
+                              int tiles, int ks, int sps, int rblocks, cudaStream_t st) {
+  if (M < 1 || rblocks != (M + kSwabMaxRows - 1) / kSwabMaxRows) return cudaErrorInvalidValue;
   if (M <= 8)
     return launch_ffn_mma<1, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
-                                                    nout, gs, il, tiles, ks, sps, st);
+                                                    nout, gs, il, tiles, ks, sps, 1, st);
   if (M <= 16)
     return launch_ffn_mma<2, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
-                                                    nout, gs, il, tiles, ks, sps, st);
+                                                    nout, gs, il, tiles, ks, sps, 1, st);
   if (M <= 32)
     return launch_ffn_mma<4, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
-                                                    nout, gs, il, tiles, ks, sps, st);
-  return cudaErrorInvalidValue;
+                                                    nout, gs, il, tiles, ks, sps, 1, st);
+  return launch_ffn_mma<8, BITS, VEC, PHASE_A, S>(x, q, s, out, part, tickets, M, K, ncols,
+                                                  nout, gs, il, tiles, ks, sps, rblocks, st);
 }
 
 template <int BITS, typename S>
 cudaError_t launch_ffn_mma_bits(bool vec, bool phase_a, const void* x, const void* q,
                                 const void* s, void* out, void* part, void* tickets, int M, int K,
                                 int ncols, int nout, int gs, int il, int tiles, int ks, int sps,
-                                cudaStream_t st) {
+                                int rb, cudaStream_t st) {
   if (phase_a)
     return vec ? launch_ffn_mma_nt<BITS, true, true, S>(x, q, s, out, part, tickets, M, K,
-                                                        ncols, nout, gs, il, tiles, ks, sps, st)
+                                                        ncols, nout, gs, il, tiles, ks, sps, rb,
+                                                        st)
                : launch_ffn_mma_nt<BITS, false, true, S>(x, q, s, out, part, tickets, M, K,
-                                                         ncols, nout, gs, il, tiles, ks, sps, st);
+                                                         ncols, nout, gs, il, tiles, ks, sps, rb,
+                                                         st);
   return vec ? launch_ffn_mma_nt<BITS, true, false, S>(x, q, s, out, part, tickets, M, K, ncols,
-                                                       nout, gs, il, tiles, ks, sps, st)
+                                                       nout, gs, il, tiles, ks, sps, rb, st)
              : launch_ffn_mma_nt<BITS, false, false, S>(x, q, s, out, part, tickets, M, K, ncols,
-                                                        nout, gs, il, tiles, ks, sps, st);
+                                                        nout, gs, il, tiles, ks, sps, rb, st);
+}
+
+// CTAs an SM that ffn_mma<NT, BITS, VEC, PHASE_A, S> gets (occupancy API,
+// with its dynamic shared memory opted into)
+template <int NT, int BITS, bool VEC, bool PHASE_A, typename S>
+cudaError_t ffn_mma_occupancy(int* ctas) {
+  constexpr size_t smem = swab_smem_bytes<NT, BITS, kFfnBN>();
+  auto kern = ffn_mma<NT, BITS, VEC, PHASE_A, S>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, kFfnMmaThreads, smem);
+}
+
+template <int BITS, bool VEC, bool PHASE_A, typename S>
+cudaError_t ffn_mma_occupancy_nt(int nt, int* ctas) {
+  if (nt == 1) return ffn_mma_occupancy<1, BITS, VEC, PHASE_A, S>(ctas);
+  if (nt == 2) return ffn_mma_occupancy<2, BITS, VEC, PHASE_A, S>(ctas);
+  if (nt == 4) return ffn_mma_occupancy<4, BITS, VEC, PHASE_A, S>(ctas);
+  if (nt == 8) return ffn_mma_occupancy<8, BITS, VEC, PHASE_A, S>(ctas);
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS, typename S>
+cudaError_t ffn_mma_occupancy_bits(int nt, bool vec, bool phase_a, int* ctas) {
+  if (vec)
+    return phase_a ? ffn_mma_occupancy_nt<BITS, true, true, S>(nt, ctas)
+                   : ffn_mma_occupancy_nt<BITS, true, false, S>(nt, ctas);
+  return phase_a ? ffn_mma_occupancy_nt<BITS, false, true, S>(nt, ctas)
+                 : ffn_mma_occupancy_nt<BITS, false, false, S>(nt, ctas);
 }
 
 }  // namespace rama
@@ -490,24 +556,40 @@ extern "C" int rama_ffn_w2(const void* h, const void* q2, const void* s2, void* 
 // (ncols = 2H columns, plain or il-interleaved) -> h (M, nout = H) =
 // silu(a) * c; phase_a 0 is h (M, K = H) @ w2 -> y (M, nout = N). `tiles`
 // column tiles (128 hidden units or 256 output columns), `ks` K splits of
-// `sps` 64-row slabs, `part` an fp32 (ks, M, tiles * 256) workspace when ks
-// > 1, `tickets` one zeroed counter per tile. `vec` (the cp.async path):
-// the weight's rows, x's rows and every pointer 16-byte aligned, the
-// column map whole on 16-column runs, gs a multiple of 16 dividing, or a
-// multiple of, a slab's 64 weight rows (int4: 32 byte rows). M <= 32.
+// `sps` 64-row slabs, `rblocks` = ceil(M / 64) row blocks, `part` an fp32
+// (rblocks, ks, min(M, 64), tiles * 256) workspace when ks > 1, `tickets`
+// one zeroed counter per (row block, tile). `vec` (the cp.async path): the
+// weight's rows, x's rows and every pointer 16-byte aligned, the column map
+// whole on 16-column runs, gs a multiple of 16 dividing, or a multiple of,
+// a slab's 64 weight rows (int4: 32 byte rows). Any M >= 1.
 extern "C" int rama_ffn_mma(const void* x, const void* q, const void* s, void* out, void* part,
                             void* tickets, int M, int K, int ncols, int nout, int gs, int il,
-                            int bits, int phase_a, int tiles, int ks, int sps, int vec, int sdt,
-                            void* stream) {
+                            int bits, int phase_a, int tiles, int ks, int sps, int rblocks,
+                            int vec, int sdt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
     using S = typename decltype(t)::type;
     if (bits == 8)
       return rama::launch_ffn_mma_bits<8, S>(vec != 0, phase_a != 0, x, q, s, out, part, tickets,
-                                             M, K, ncols, nout, gs, il, tiles, ks, sps, st);
+                                             M, K, ncols, nout, gs, il, tiles, ks, sps, rblocks,
+                                             st);
     if (bits == 4)
       return rama::launch_ffn_mma_bits<4, S>(vec != 0, phase_a != 0, x, q, s, out, part, tickets,
-                                             M, K, ncols, nout, gs, il, tiles, ks, sps, st);
+                                             M, K, ncols, nout, gs, il, tiles, ks, sps, rblocks,
+                                             st);
+    return cudaErrorInvalidValue;
+  }));
+}
+
+// The CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+// tensor-core body's form with `nt` n8 tiles (1, 2, 4, 8), weight bits,
+// path (vec), phase and scale type, into ctas[0]; launches nothing.
+extern "C" int rama_ffn_mma_occupancy(int nt, int bits, int vec, int phase_a, int sdt,
+                                      int* ctas) {
+  return static_cast<int>(rama::with_scale_type(sdt, [&](auto t) {
+    using S = typename decltype(t)::type;
+    if (bits == 8) return rama::ffn_mma_occupancy_bits<8, S>(nt, vec != 0, phase_a != 0, ctas);
+    if (bits == 4) return rama::ffn_mma_occupancy_bits<4, S>(nt, vec != 0, phase_a != 0, ctas);
     return cudaErrorInvalidValue;
   }));
 }

@@ -457,7 +457,8 @@ qmv_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   extern __shared__ __align__(16) unsigned char mmv_smem[];
   const int n0 = blockIdx.x * BN;
   const float* C = swab_tile<NT, BITS, VEC, BN>(x, q, s, part, tickets, M, K, N, gs,
-                                                slabs_per_split, ColsRange{n0, N}, mmv_smem);
+                                                slabs_per_split, ColsRange{n0, N}, mmv_smem,
+                                                blockIdx.x, gridDim.x);
   if (C == nullptr) return;   // another split of this tile adds the partials
   for (int i = threadIdx.x; i < M * BN; i += BN) {
     const int m = i / BN, lc = i % BN;

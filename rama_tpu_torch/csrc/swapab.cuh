@@ -1,15 +1,16 @@
-// The swap-AB tensor-core body for decode M (up to a verify round's 32
-// rows), shared by the FFN's ffn_mma (ffn.cu: K3, both phases) and the
-// quantized matmul's qmv_mma (quant_matmul.cu: K1 / K2 at M <= 8).
+// The swap-AB tensor-core body for decode M (up to 64 rows a CTA), shared
+// by the FFN's ffn_mma (ffn.cu: K3, both phases, any M as row blocks of
+// 64) and the quantized matmul's qmv_mma (quant_matmul.cu: K1 / K2 at M <=
+// 32).
 //
 // One CTA computes x (M, K) @ dequant(W) over BN weight columns (a column
 // map `Cols`, qslab.cuh) and one split of K, with mma.sync m16n8k16 in the
 // swap-AB orientation: the weight's columns are the 16-row side and the
-// M <= 32 tokens the n8 side (NT = 1, 2 or 4 n8 tiles), so one CTA holds
+// M <= 64 tokens the n8 side (NT = 1, 2, 4 or 8 n8 tiles), so one CTA holds
 // every row of x and each weight byte is read once a call. A warp owns 32
 // columns as two m16 tiles (BN threads a CTA); its accumulators are 2 x NT
 // x 4 floats a thread. K walks in slabs of 64 logical rows that qslab.cuh
-// copies into a cp.async ring (kSwabAhead = 3 slabs in flight: x's rows,
+// copies into a cp.async ring (swab_ahead slabs in flight: x's rows,
 // the raw weight bytes, the scale rows as stored: f32 or bf16, S).
 // ldmatrix.trans reads the raw bytes
 // straight into A-fragment order (two weight columns' k pairs a register)
@@ -18,9 +19,11 @@
 // rows are the B fragments. K is split across CTAs (gridDim.y) in whole
 // slabs and whole K blocks; each split's fp32 partial goes to a workspace
 // and the last CTA of a column tile (an integer ticket) adds them in split
-// order, so reruns are bit for bit. The masked path (VEC false: a width or
-// group size off the 16-byte grid) loads with plain masked reads into the
-// same tiles.
+// order, so reruns are bit for bit, and a row's sums do not depend on the
+// other rows of its CTA (each n8 tile accumulates on its own): the same
+// split plan gives a row the same bits at any NT. The masked path (VEC
+// false: a width or group size off the 16-byte grid) loads with plain
+// masked reads into the same tiles.
 //
 // Fragments: warp w owns slab columns 32 w .. 32 w + 31 as two m16 tiles;
 // in tile i (columns 32 w + 16 i ..) MMA row g is column 32 w + 16 i + 2 g
@@ -38,6 +41,14 @@
 namespace rama {
 
 constexpr int kSwabAhead = 3;   // slabs in flight while one is multiplied
+constexpr int kSwabMaxRows = 64;   // rows of x a CTA holds (NT 8)
+
+// Slabs in flight: kSwabAhead, but two for the 64-row int8 form, whose
+// 30,720-byte stages would leave room for one CTA an SM in a ring of four
+// (3 x 30,720 = 92,160 bytes: two CTAs an SM, as every other form).
+template <int NT, int BITS> __host__ __device__ constexpr int swab_ahead() {
+  return NT == 8 && BITS == 8 ? 2 : kSwabAhead;
+}
 
 // Shared-memory strides of a BN-column CTA (BN threads: a warp per 32 columns).
 template <int BN> struct Swab {
@@ -58,7 +69,8 @@ template <int NT, int BITS, int BN> __host__ __device__ constexpr int swab_stage
 }
 
 template <int NT, int BITS, int BN> constexpr size_t swab_smem_bytes() {
-  constexpr size_t ring = (size_t)(kSwabAhead + 1) * swab_stage_bytes<NT, BITS, BN>();
+  constexpr size_t ring =
+      (size_t)(swab_ahead<NT, BITS>() + 1) * swab_stage_bytes<NT, BITS, BN>();
   constexpr size_t epi = (size_t)swab_x_rows<NT>() * Swab<BN>::kLdc * 4;
   return ring > epi ? ring : epi;
 }
@@ -69,10 +81,10 @@ __device__ __forceinline__ uint32_t pack_ab(float a, float sa, float b, float sb
 }
 
 // The CTA's (M, BN) product over split blockIdx.y of K, column tile
-// blockIdx.x: slabs [y sps, (y + 1) sps) of the ceil(K / 64). x (M, K)
-// bf16, M <= 8 NT; q / s rows of `ncols` columns (s f32 or bf16: S);
-// `part` an fp32 (ks, M, gridDim.x * BN) workspace when ks = gridDim.y >
-// 1, `tickets` one zeroed counter per column tile; smem swab_smem_bytes<NT,
+// `tile` of `tiles`: slabs [y sps, (y + 1) sps) of the ceil(K / 64). x (M,
+// K) bf16, M <= 8 NT; q / s rows of `ncols` columns (s f32 or bf16: S);
+// `part` an fp32 (ks, M, tiles * BN) workspace when ks = gridDim.y > 1,
+// `tickets` one zeroed counter per column tile; smem swab_smem_bytes<NT,
 // BITS, BN>() of dynamic shared memory. Returns the full fp32 sums C[m][lc] (row stride
 // Swab<BN>::kLdc, in smem) to the CTA that holds them -- the only split,
 // or the last of the column tile to finish -- and nullptr to the others.
@@ -81,8 +93,8 @@ __device__ __forceinline__ const float* swab_tile(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const S* __restrict__ s, float* __restrict__ part, unsigned* __restrict__ tickets,
     int M, int K, int ncols, int gs, int slabs_per_split, const Cols& cols,
-    unsigned char* smem) {
-  constexpr int T = Swab<BN>::kThreads, P = kSwabAhead, RS = P + 1;
+    unsigned char* smem, int tile, int tiles) {
+  constexpr int T = Swab<BN>::kThreads, P = swab_ahead<NT, BITS>(), RS = P + 1;
   constexpr int LDQ = Swab<BN>::kLdq, LDC = Swab<BN>::kLdc;
   constexpr int XR = swab_x_rows<NT>();
   constexpr int QR = mma_q_rows<BITS>();
@@ -91,7 +103,7 @@ __device__ __forceinline__ const float* swab_tile(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int tile = blockIdx.x, split = blockIdx.y, ks = gridDim.y;
+  const int split = blockIdx.y, ks = gridDim.y;
   const int nslabs = (K + kMmaBK - 1) / kMmaBK;
   const int s_begin = split * slabs_per_split;
   const int nt = min(nslabs, s_begin + slabs_per_split) - s_begin;
@@ -281,7 +293,7 @@ __device__ __forceinline__ const float* swab_tile(
     // this split's partial, then the last CTA of the column tile adds the
     // ks partials in split order back into C, four columns a thread at a
     // time with four splits' loads in flight
-    const size_t width = (size_t)gridDim.x * BN, sstride = (size_t)M * width;
+    const size_t width = (size_t)tiles * BN, sstride = (size_t)M * width;
     float* mine = part + (size_t)tile * BN;
     for (int i = 4 * tid; i < M * BN; i += 4 * T) {
       const int m = i / BN, lc = i % BN;

@@ -452,12 +452,17 @@ def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index
 
 
 def _ffn_fusable(params: Params, m: int) -> bool:
-    """The fused FFN kernel serves m <= FFN_MAX_M rows of w13 / w2 with the
-    same bits; others take the split w13 / w2 matmuls (rama_tpu's
-    ffn_tileable choice, by shape and bits)."""
+    """Whether a decode step or verify round of m rows takes the fused FFN
+    kernel: quantized w13 / w2 of the same bits, at any m (the kernel runs
+    every m, in row blocks of 64 above 64). Other params take the split w13
+    / w2 matmuls. This is the port's own rule, not rama_tpu's: there
+    `ffn_tileable` fuses only where x and the weight tiles fit its 12 MB
+    VMEM budget (Llama-2-7B int8 up to M 70, int4 58; TinyLlama-1.1B 474 /
+    460; Yi-34B never), so the two packages route some shapes differently
+    (ROADMAP §3). Prefill never fuses, in either package."""
     w13, w2 = params.get("w13"), params.get("w2")
     return (isinstance(w13, QuantizedTensor) and isinstance(w2, QuantizedTensor)
-            and w13.bits == w2.bits and m <= _ffn.FFN_MAX_M)
+            and w13.bits == w2.bits and m >= 1)
 
 
 ATTN_BLOCK = int(os.environ.get("RAMA_ATTN_BLOCK", "0"))
@@ -568,7 +573,8 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
     place (rows at or past the cache end dropped, as JAX's scatter drops
     them; the quantize-and-write chunk kernel on an int8 cache), the chunk
     attention kernel over the stacked cache, wo, then the FFN — fused for
-    B * T <= FFN_MAX_M rows, split w13 / w2 beyond."""
+    quantized w13 / w2 of the same bits at any B * T (`_ffn_fusable`),
+    split w13 / w2 otherwise."""
     b, t = tokens.shape
     dtype = params["final_norm"].dtype
     x = _embed(params["tok_embedding"], tokens, dtype)            # (B, T, D)

@@ -1,20 +1,25 @@
-"""Kernel 2: the SwiGLU FFN of one layer at decode M (up to a verify round's
-32 rows), int8 or packed int4 weights, out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
+"""Kernel 2: the SwiGLU FFN of one layer at any M (a decode step's slots, a
+verify round's slots x tokens), int8 or packed int4 weights,
+out = (silu(x @ W1[l]) * (x @ W3[l])) @ W2[l].
 
 The counterpart of `rama_tpu/ops/pallas/ffn.py`'s `ffn_fused_layered`
-(its int8 and int4 branches). Two launches on the card (`csrc/ffn.cu`):
-the w13 product whose epilogue applies silu(a) * c and writes h in x's
-dtype (the Pallas kernel rounds h to bf16 in VMEM, ffn.py:170; on the bf16
-serving path the rounding is the same), then the w2 product over h. The
-body is fixed by the activation dtype before the launch (`body_for`):
-bf16 takes "mma", the tensor-core body whose CTAs hold every row of x, so
-each weight byte is read once a call at any M <= FFN_MAX_M (`mma_plan`:
-column tiles and K splits; `mma_vec`: cp.async or masked loads); fp32
-takes "simt", the CUDA-core GEMVs (8-row chunks of M). A refused launch
-raises; it never gives way to another body. Each weight's bits choose its
-kernels' instantiation; the int8 and int4 FFNs have their own launch
-counts. Each weight's stored scale dtype (f32, or bf16 after
-`cast_scales`) chooses its scale type (a scale-type code;
+(its int8 and int4 branches), which takes any M. Two launches on the card
+(`csrc/ffn.cu`): the w13 product whose epilogue applies silu(a) * c and
+writes h in x's dtype (the Pallas kernel rounds h to bf16 in VMEM,
+ffn.py:170; on the bf16 serving path the rounding is the same), then the w2
+product over h. The body is fixed by the activation dtype before the
+launch (`body_for`): bf16 takes "mma", the tensor-core body, fp32 "simt",
+the CUDA-core GEMVs (8-row chunks of M). On "mma" a call of M <= FFN_MAX_M
+rows runs the "one" form, whose CTAs hold every row of x, so each weight
+byte is read once a call; a larger M the "rows" form, ceil(M / 64) row
+blocks of 64 side by side on the grid (`form_for`, `mma_plan`: the n8
+tiles, column tiles, K splits and row blocks; `mma_vec`: cp.async or
+masked loads). The K split depends on the shapes, not on M, so a row has
+the same bits in every form. A refused launch raises; it never gives way
+to another body. Each weight's bits choose its kernels' instantiation; the
+int8 and int4 FFNs have their own launch counts, and `launches_by_form`
+counts the calls by form. Each weight's stored scale dtype (f32, or bf16
+after `cast_scales`) chooses its scale type (a scale-type code;
 `launches_by_scale` counts the calls by w13's): a bf16-scale call equals
 the same bodies fed `scales.float()` bit for bit.
 
@@ -31,9 +36,10 @@ import torch.nn.functional as F
 
 from rama_tpu_torch.ops.kernels import build
 from rama_tpu_torch.ops.kernels.build import I, P, require
-from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMS, MMA_BK, SCALE_NAMES,
-                                                     check_weight, layer_of, rows_per_cta,
-                                                     split_k, split_options, weight_ptrs)
+from rama_tpu_torch.ops.kernels.quant_matmul import (_QMV_COLS, _SMEM_PER_CTA, _SMEM_PER_SM,
+                                                     _SMS, MMA_BK, SCALE_NAMES, check_weight,
+                                                     layer_of, rows_per_cta, split_k,
+                                                     split_options, weight_ptrs)
 from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 
 # wrapper calls that launched the kernels since the last reset, by the w13
@@ -41,8 +47,12 @@ from rama_tpu_torch.ops.quant import QuantizedTensor, dequantize, matmul_plain
 launches = {8: 0, 4: 0}
 launches_by_body = {"mma": 0, "simt": 0}   # the same calls by body
 launches_by_scale = {"f32": 0, "bf16": 0}   # ... and by w13's stored scale dtype
+# ... and by form: "one", every row in one CTA (M <= FFN_MAX_M), or "rows",
+# row blocks of FFN_MAX_M
+launches_by_form = {"one": 0, "rows": 0}
 
-FFN_MAX_M = 32    # rows the kernels serve (a verify round of 8 slots x 4 tokens)
+FFN_MAX_M = 64    # rows one tensor-core CTA holds (NT 8 n8 tiles: csrc/swapab.cuh)
+FORMS_NT = (1, 2, 4, 8)   # the tensor-core body's forms: n8 tiles of rows a CTA
 _UNITS = 256      # hidden units per simt w13 CTA (csrc/ffn.cu)
 MMA_COLS = 256            # weight columns a tensor-core CTA (csrc/ffn.cu: kFfnBN)
 MMA_UNITS = MMA_COLS // 2  # hidden units a phase-A CTA (their W1 and W3 columns)
@@ -52,29 +62,62 @@ _MMA_WAVE_FILL = 0.95     # the share of the last wave's CTA slots a plan fills
 _SIGNATURES = {
     "rama_ffn_w13": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "rama_ffn_w2": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    "rama_ffn_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_mma": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_ffn_mma_occupancy": [I, I, I, I, I, P],
 }
 
 
 def body_for(dtype: torch.dtype, m: int) -> str:
-    """The kernel body a CUDA call of m <= FFN_MAX_M rows launches: "mma"
-    (tensor cores) for bf16, "simt" (fp32 on the CUDA cores) for fp32."""
-    require(m <= FFN_MAX_M, f"the FFN kernel serves decode M <= {FFN_MAX_M}, got {m}")
+    """The kernel body a CUDA call of m >= 1 rows launches: "mma" (tensor
+    cores) for bf16, "simt" (fp32 on the CUDA cores) for fp32."""
+    require(m >= 1, f"the FFN kernel serves M >= 1 rows, got {m}")
     return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def form_for(m: int) -> str:
+    """The form a call of m rows runs: "one" (every row in one CTA, m <=
+    FFN_MAX_M) or "rows" (row blocks of FFN_MAX_M rows)."""
+    return "one" if m <= FFN_MAX_M else "rows"
+
+
+def mma_smem_bytes(nt: int, bits: int) -> int:
+    """Dynamic shared memory of the tensor-core body's form with nt n8 tiles
+    (swab_smem_bytes<NT, BITS, 256>, csrc/swapab.cuh): a ring of stages of
+    x rows (bf16, 72 a row), raw weight bytes (272 a row) and four f32-sized
+    scale rows, four stages (three for the 64-row int8 form), or the fp32
+    epilogue tile where that is larger."""
+    xrows = 16 if nt < 2 else 8 * nt
+    qrows = MMA_BK if bits == 8 else MMA_BK // 2
+    stage = xrows * (MMA_BK + 8) * 2 + qrows * (MMA_COLS + 16) + 4 * MMA_COLS * 4
+    stages = 3 if nt == 8 and bits == 8 else 4
+    return max(stages * stage, xrows * (MMA_COLS + 4) * 4)
+
+
+def mma_ctas_per_sm(nt: int, bits: int) -> int:
+    """CTAs of a form an SM holds: the register cap (_MMA_CTAS_PER_SM), or
+    fewer where its shared memory does not fit (the occupancy API on the
+    card: `occupancy`)."""
+    return min(_MMA_CTAS_PER_SM, _SMEM_PER_SM // (mma_smem_bytes(nt, bits) + _SMEM_PER_CTA))
 
 
 @functools.lru_cache(maxsize=None)
 def mma_plan(m: int, k: int, nout: int, k_block: int, phase_a: bool,
-             sms: int = _SMS) -> tuple[int, int, int, int]:
-    """(nt, tiles, ks, sps) of one phase of the tensor-core body: nt n8
-    tiles of tokens (1, 2 or 4: every one of the m rows in one CTA, so the
-    weight is read once), `tiles` column tiles (MMA_UNITS hidden units in
-    phase A, MMA_COLS output columns in phase B), and K split across ks CTAs
-    of sps MMA_BK-row slabs each (quant_matmul.split_options: whole K
-    blocks) -- ks the smallest count whose grid fills its last wave of CTA
-    slots (sms x _MMA_CTAS_PER_SM) to _MMA_WAVE_FILL, else the best fill."""
-    require(1 <= m <= FFN_MAX_M, f"the FFN kernel serves 1 <= M <= {FFN_MAX_M}, got {m}")
-    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+             sms: int = _SMS) -> tuple[int, int, int, int, int]:
+    """(nt, tiles, ks, sps, rblocks) of one phase of the tensor-core body:
+    nt n8 tiles of rows a CTA (1, 2, 4 or 8: the smallest that holds every
+    one of the m rows; 8 above FFN_MAX_M), `tiles` column tiles (MMA_UNITS
+    hidden units in phase A, MMA_COLS output columns in phase B), K split
+    across ks CTAs of sps MMA_BK-row slabs each (quant_matmul.split_options:
+    whole K blocks), and rblocks = ceil(m / FFN_MAX_M) row blocks. ks is the
+    smallest count whose one-row-block grid fills its last wave of CTA slots
+    (sms x _MMA_CTAS_PER_SM, the CTAs an SM every form gets:
+    mma_ctas_per_sm) to _MMA_WAVE_FILL, else the best fill: it depends on
+    the tiles and K, not on m, so a row's split order, and its bits, are the
+    same in every form. The row blocks multiply that grid, whose fill of
+    its last wave is then at least the one-block fill (tiles x ks x rblocks
+    CTAs over the same slots: every form holds _MMA_CTAS_PER_SM)."""
+    require(m >= 1, f"the FFN kernel serves M >= 1 rows, got {m}")
+    nt = next(nt for nt in FORMS_NT if m <= 8 * nt or nt == FORMS_NT[-1])
     tiles = -(-nout // (MMA_UNITS if phase_a else MMA_COLS))
     slots = sms * _MMA_CTAS_PER_SM
     best = None
@@ -85,7 +128,23 @@ def mma_plan(m: int, k: int, nout: int, k_block: int, phase_a: bool,
             best = (fill, ks, sps)
         if fill >= _MMA_WAVE_FILL:
             break
-    return nt, tiles, best[1], best[2]
+    return nt, tiles, best[1], best[2], -(-m // FFN_MAX_M)
+
+
+def occupancy(nt: int, bits: int, vec: bool, phase_a: bool,
+              scale_dtype: torch.dtype = torch.float32) -> int:
+    """The CTAs an SM that the tensor-core body's form gets on the current
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor; launches nothing).
+    Card only."""
+    import ctypes
+
+    lib = build.library("ffn", _SIGNATURES)
+    out = (ctypes.c_int * 1)()
+    code = build.DTYPE_CODES[scale_dtype]
+    build.check(lib, lib.rama_ffn_mma_occupancy(nt, bits, int(vec), int(phase_a), code,
+                                                ctypes.cast(out, ctypes.c_void_p)),
+                "ffn occupancy")
+    return out[0]
 
 
 def mma_vec(qt: QuantizedTensor, ptrs: tuple[int, ...], phase_a: bool) -> bool:
@@ -165,15 +224,15 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
         for phase_a, xin, qt, qp, sp, out in ((True, x, w13, q13, s13, h),
                                               (False, h, w2, q2, s2, y)):
             kdim, nout = xin.shape[1], out.shape[1]
-            _, tiles, ks, sps = mma_plan(m, kdim, nout, qt.k_block, phase_a)
+            _, tiles, ks, sps, rblocks = mma_plan(m, kdim, nout, qt.k_block, phase_a)
             vec = mma_vec(qt, (xin.data_ptr(), qp, sp), phase_a)
-            part = (torch.empty((ks, m, tiles * MMA_COLS), dtype=torch.float32,
-                                device=x.device) if ks > 1 else out)
-            tk = build.tickets(x.device, tiles)
+            part = (torch.empty((rblocks, ks, min(m, FFN_MAX_M), tiles * MMA_COLS),
+                                dtype=torch.float32, device=x.device) if ks > 1 else out)
+            tk = build.tickets(x.device, tiles * rblocks)
             err = lib.rama_ffn_mma(xin.data_ptr(), qp, sp, out.data_ptr(), part.data_ptr(),
                                    tk.data_ptr(), m, kdim, qt.q.shape[-1], nout,
                                    qt.group_size, qt.il if phase_a else 0, qt.bits,
-                                   int(phase_a), tiles, ks, sps, int(vec),
+                                   int(phase_a), tiles, ks, sps, rblocks, int(vec),
                                    build.dtype_code(qt.scales), stream)
             build.check(lib, err, f"ffn ({'w13' if phase_a else 'w2'}, int{qt.bits}, mma)")
     else:
@@ -198,4 +257,5 @@ def ffn(x: torch.Tensor, w13: QuantizedTensor, w2: QuantizedTensor,
     launches[w13.bits] += 1
     launches_by_body[body] += 1
     launches_by_scale[SCALE_NAMES[w13.scales.dtype]] += 1
+    launches_by_form[form_for(m)] += 1
     return y

@@ -152,9 +152,9 @@ def _forward_fused_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos0: t
     for 2 <= T <= 8; the port's `_forward_decode_fused` and
     `_forward_chunk_fused` over pages). Per layer: rmsnorm, wqkv, RoPE, the
     chunk's rows written through the tables before attention, K12's decode
-    (T = 1) or chunk form, wo, the FFN (fused for B * T <= FFN_MAX_M
-    rows). The tables must cover the chunk's positions (the engine
-    reserves pages before each tick)."""
+    (T = 1) or chunk form, wo, the FFN (fused at any B * T where
+    `_ffn_fusable` holds). The tables must cover the chunk's positions (the
+    engine reserves pages before each tick)."""
     ops = _KERNELS
     b, t = tokens.shape
     dtype = params["final_norm"].dtype

@@ -126,9 +126,10 @@ def counters():
              da.launches_flat_q8)
     bodies = (dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body),
               dict(da.launches_by_body), dict(pga.launches_by_body), dict(ab.launches_by_body))
-    k5_forms = dict(pa.launches_by_form)
+    k5_forms, k3_forms = dict(pa.launches_by_form), dict(ffn.launches_by_form)
     yield mods
     pa.launches_by_form.update(k5_forms)
+    ffn.launches_by_form.update(k3_forms)
     ab.launches_by_body.update(bodies[5])
     pa.launches_by_body.update(bodies[0])
     qm.launches_by_body.update(bodies[1])
@@ -1372,12 +1373,54 @@ def test_gqa_spec_paths_need_every_chunk_launch_in_a_wide_form(smoke, name):
     launch of the chunk wrapper did, and fails when one ran the 8-row form
     or when the wrapper never launched."""
     path = getattr(smoke, name)
-    (gqa, wrapper), = path["equal"].items()
+    (gqa, wrapper), = [(k, v) for k, v in path["equal"].items() if k.endswith("_gqa")]
     smoke.check_launches(path, _gqa_launches(smoke, path))
     with pytest.raises(SystemExit, match="as often as"):
         smoke.check_launches(path, _gqa_launches(smoke, path, **{gqa: 3}))
     with pytest.raises(SystemExit, match="never launched"):
         smoke.check_launches(path, _gqa_launches(smoke, path, **{gqa: 0, wrapper: 0}))
+
+
+def test_ffn_launch_counts_by_form_are_read_and_reset(smoke, counters):
+    """K3's calls by form ("one": M <= 64 rows in one CTA; "rows": row
+    blocks) are read as ffn_one / ffn_rows and set to 0 with the rest."""
+    ffn = counters[1]
+    ffn.launches_by_form.update(one=6, rows=2)
+    got = smoke.read_launches(*counters)
+    assert (got["ffn_one"], got["ffn_rows"]) == (6, 2)
+    smoke.reset_launches(*counters)
+    assert ffn.launches_by_form == {"one": 0, "rows": 0}
+
+
+# path, K3's form on it, the count that K3 launches in that form must equal
+# (one a layer of every step or verify round), the form it must not run
+_K3_FORM_PATHS = [("B64_PATH", "ffn_one", "decode_attention", "ffn_rows"),
+                  ("B64_SPEC_PATH", "ffn_rows", "chunk_attention", None),
+                  ("GQA_SPEC_PATH", "ffn_one", "chunk_attention", "ffn_rows"),
+                  ("GQA_SPEC_PAGED_KV8_PATH", "ffn_one", "paged_chunk_attention_q8",
+                   "ffn_rows")]
+
+
+@pytest.mark.parametrize("name,form,per,other", _K3_FORM_PATHS)
+def test_wide_paths_need_k3_once_a_layer_of_every_step_in_its_form(smoke, name, form, per,
+                                                                   other):
+    """The 64-slot 7B paths (decode steps at M = 64: the "one" form; verify
+    rounds of 4 at M = 256: "rows") and TinyLlama's rounds of 8 (M = 64,
+    "one") pass when K3 launched in its form as often as the attention of
+    the steps or rounds (once a layer); a step or round that took the split
+    w13 / w2 route (one fewer) or a launch in the other form fails them."""
+    path = getattr(smoke, name)
+    assert path in smoke.PATHS and path["equal"][form] == per
+    ok = {**_gqa_launches(smoke, path), "ffn_one": 0, "ffn_rows": 0, "decode_attention": 0}
+    ok.update({form: 4, per: 4, **{k: 4 for k in path["record"]}})
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match="split w13 / w2 route"):
+        smoke.check_launches(path, {**ok, form: 3})
+    if other is not None:
+        with pytest.raises(SystemExit, match="launched on"):
+            smoke.check_launches(path, {**ok, other: 1})
+    if name.startswith("B64"):
+        assert "quant_matmul_mmv" not in path["record"] and path["serve"]["slots"] == 64
 
 
 @pytest.mark.parametrize("name", ["INT8_PATH", "SPEC_PATH", "SPEC_PAGED_KV8_PATH"])

@@ -319,6 +319,53 @@ def test_forward_chunk_matches_jax_fused(kv_quant, max_len):
         np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=1e-5, rtol=0)
 
 
+# dim 128, hidden 512 (w13 / w2 group 64): a shape rama_tpu's ffn_tileable
+# takes up to M = 64 and past it, so both packages run the fused FFN
+_FFN_CFG = dict(dim=128, hidden_dim=512, n_layers=2, n_heads=2, n_kv_heads=2, vocab_size=64,
+                seq_len=64)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b,tq", [(8, 8), (10, 8), (16, 5)])
+def test_forward_chunk_matches_jax_fused_past_one_cta(monkeypatch, bits, b, tq):
+    """Verify rounds of b * t = 64 and 80 rows: the port's forward_chunk
+    runs its fused FFN (one K3 call a layer, at any M) and rama_tpu's
+    _forward_chunk_fused its Pallas FFN in interpret mode (ffn_tileable
+    holds there), on the int8 / int4 dim-128 model in fp32. Logits at
+    every chunk column within 2e-2 of max |ref| (the Pallas FFN rounds h to
+    bf16, ffn.py:170; the port's plain FFN keeps fp32: test_torch_ffn's
+    tolerance)."""
+    from rama_tpu.config import ModelConfig as JCfg
+    from rama_tpu.ops.pallas.ffn import ffn_tileable
+
+    jcfg = JCfg(**_FFN_CFG)
+    np_params = random_params(jcfg, seed=5, scale=0.1)
+    jp = jl.fuse_params(jl.quantize_params(jcfg, np_params, bits=bits, group_size=64,
+                                           dtype=jnp.float32), jcfg)
+    assert ffn_tileable(jp["w13"], jp["w2"], max_m=b * tq)
+    cfg = torch_cfg(jcfg)
+    tp = jax_params_to_torch(jcfg, jp)
+    assert tl._ffn_fusable(tp, b * tq)
+    calls = []
+    monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a: calls.append(a[0].shape) or
+                        tl._ffn.ffn(*a))
+    rng = np.random.default_rng(13)
+    p = 9
+    prompt = rng.integers(1, cfg.vocab_size, (b, p)).astype(np.int32)
+    chunk = rng.integers(1, cfg.vocab_size, (b, tq)).astype(np.int32)
+    pos0 = (p - np.arange(b) % 4).astype(np.int32)
+    jc = jl.KVCache.create(jcfg, batch=b, max_len=32, dtype=jnp.float32)
+    _, jc = jl.forward(jp, jcfg, jnp.asarray(prompt),
+                       jnp.arange(p, dtype=jnp.int32)[None, :].repeat(b, 0), jc)
+    tc = tl.KVCache(t(jc.k), t(jc.v))
+    want, _ = jl._forward_chunk_fused(jp, jcfg, jnp.asarray(chunk), jnp.asarray(pos0), jc,
+                                      _interpret=True)
+    got, _ = tl.forward_chunk(tp, cfg, torch.from_numpy(chunk).long(), t(pos0), tc)
+    assert calls == [(b * tq, cfg.dim)] * cfg.n_layers
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-2 * np.abs(want).max(), rtol=0)
+
+
 def test_forward_chunk_routes_by_chunk_length():
     """2 <= T <= 8 takes the fused path; T = 1 and T > 8 the generic
     forward; both agree with the plain fused path at every column."""

@@ -10,6 +10,8 @@ card (whose Python has no JAX, which tests/conftest.py imports):
 Tolerance: bf16 compared in fp32, max |err| <= 2e-2 * max |ref|; fp32 atol
 1e-4 (other summation order)."""
 
+import functools
+
 import pytest
 import torch
 
@@ -218,7 +220,19 @@ def test_quant_matmul_int4_rejects_split_packing_block(dev):
         qm.quant_matmul(torch.randn(1, 48, device=dev), w)
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 32])
+def _ffn_call(ffn, x, w13, w2, layer, body):
+    """One K3 call, asserting one launch on `body` in the form form_for picks."""
+    bodies, forms = dict(ffn.launches_by_body), dict(ffn.launches_by_form)
+    got = ffn.ffn(x, w13, w2, layer)
+    form = ffn.form_for(x.shape[0])
+    assert {b: ffn.launches_by_body[b] - bodies[b] for b in bodies} == {
+        b: int(b == body) for b in bodies}
+    assert {f: ffn.launches_by_form[f] - forms[f] for f in forms} == {
+        f: int(f == form) for f in forms}
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 32, 40, 64, 65, 128, 256])
 @pytest.mark.parametrize("il", [0, 128])
 def test_ffn(dev, m, il):
     from rama_tpu_torch.ops.kernels import ffn
@@ -228,7 +242,7 @@ def test_ffn(dev, m, il):
     w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=64, il=il)
     w2 = _qt(dev, 2, 256, 192, 64, seed=2)
     x = torch.randn(m, 256, device=dev, dtype=torch.bfloat16)
-    _close(ffn.ffn(x, w13, w2, 1), ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+    _close(_ffn_call(ffn, x, w13, w2, 1, "mma"), ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
 
 
 # (K, H, N), w13 interleave tile, int8 group sizes (w13, w2; quantize_int8
@@ -238,7 +252,7 @@ _FFN_SHAPES = {"tiny": ((64, 176, 64), 16, (16, 16), (4, 8)),
                "256": ((256, 256, 192), 128, (64, 64), (16, 16))}
 
 
-@pytest.mark.parametrize("m", [1, 9, 32])
+@pytest.mark.parametrize("m", [1, 9, 32, 40, 64, 65, 128, 256])
 @pytest.mark.parametrize("interleaved", [False, True])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("shape", list(_FFN_SHAPES))
@@ -246,10 +260,12 @@ def test_ffn_tensor_core_body(dev, m, interleaved, bits, shape):
     """The bf16 tensor-core body at the tiny shapes (H 176: a ragged last
     tile of units), the stories15M draft's and 256-wide ones, plain and
     interleaved w13, int8 gs 16 / 32 / 64 and int4 gs 4 / 8 / 16 / 48 (the
-    masked path where the group size is off the 16 grid), M of one, two and
-    four n8 tiles: one launch on mma a call; the same weights with fp32
-    activations one on simt (held to the bf16 bar, as test_ffn_int4: the
-    hidden activation's rounding point differs)."""
+    masked path where the group size is off the 16 grid), M of one, two,
+    four and eight n8 tiles and of two to four 64-row blocks (a short last
+    block at 65 and 40 rows of one): one launch on mma a call, in the form
+    form_for picks; the same weights with fp32 activations one on simt
+    (held to the bf16 bar, as test_ffn_int4: the hidden activation's
+    rounding point differs)."""
     from rama_tpu_torch.ops.kernels import ffn
     from rama_tpu_torch.ops.quant import QuantizedTensor
 
@@ -263,39 +279,90 @@ def test_ffn_tensor_core_body(dev, m, interleaved, bits, shape):
                           il=tile if interleaved else 0)
     for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
         x = torch.randn(m, k, device=dev).to(dtype)
-        before = dict(ffn.launches_by_body)
-        got = ffn.ffn(x, w13, w2, 1)
-        assert {b: ffn.launches_by_body[b] - before[b] for b in before} == {
-            b: int(b == body) for b in before}
-        _close(got, ffn.ffn_plain(x, w13, w2, 1), torch.bfloat16)
+        _close(_ffn_call(ffn, x, w13, w2, 1, body), ffn.ffn_plain(x, w13, w2, 1),
+               torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [1, 8, 32])
-@pytest.mark.parametrize("bits", [8, 4])
-def test_ffn_tensor_core_splits(dev, m, bits):
-    """The 7B FFN (K 4096, H 11008, N 4096; int4 w13 gs 64, w2 gs 16, the
-    il 256 layout) through the split-K plan of both phases and their
-    last-CTA reduces: against the plain version, and twice bit for bit
-    (the split order is fixed)."""
-    from rama_tpu_torch.ops.kernels import ffn
+# (K, H, int4 w2 group size): the 7B FFN and TinyLlama-1.1B's (w2 gs 16 / 32,
+# pick_int4_group_size of H)
+_FFN_MODELS = {"7B": (4096, 11008, 16), "TinyLlama": (2048, 5632, 32)}
+
+
+@functools.lru_cache(maxsize=8)
+def _model_ffn(dev, model, bits, seed, scales="f32"):
+    """One layer of `model`'s FFN (made on the host once for the tests that
+    share it)."""
     from rama_tpu_torch.ops.quant import QuantizedTensor
 
-    k, h = 4096, 11008
+    k, h, gs4 = _FFN_MODELS[model]
     if bits == 8:
-        w13, w2 = _qt(dev, 1, k, 2 * h, 64, seed=m), _qt(dev, 1, h, k, 64, seed=m + 1)
+        w13, w2 = _qt(dev, 1, k, 2 * h, 64, seed=seed), _qt(dev, 1, h, k, 64, seed=seed + 1)
     else:
-        w13, w2 = (_int4_qt(dev, 1, k, 2 * h, 64, seed=m),
-                   _int4_qt(dev, 1, h, k, 16, seed=m + 1))
+        w13, w2 = (_int4_qt(dev, 1, k, 2 * h, 64, seed=seed),
+                   _int4_qt(dev, 1, h, k, gs4, seed=seed + 1))
     w13 = QuantizedTensor(q=w13.q, scales=w13.scales, group_size=w13.group_size, bits=bits,
                           il=256)
+    if scales == "bf16":
+        w13, w2 = _as_bf16_scales(w13)[0], _as_bf16_scales(w2)[0]
+    return w13, w2
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 40, 64, 65, 128, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("model", list(_FFN_MODELS))
+@pytest.mark.parametrize("scales", ["f32", "bf16"])
+def test_ffn_tensor_core_splits(dev, m, bits, model, scales):
+    """The 7B and TinyLlama FFNs (int4 w13 gs 64, w2 gs 16 / 32, the il 256
+    layout; f32 and bf16-stored scales) through the split-K plan of both
+    phases and their last-CTA reduces, one to four row blocks: against the
+    plain version, and twice bit for bit (the split order is fixed); each
+    call one launch on mma in the form form_for picks."""
+    from rama_tpu_torch.ops.kernels import ffn
+
+    w13, w2 = _model_ffn(dev, model, bits, 5, scales)
+    k, h, _ = _FFN_MODELS[model]
     assert ffn.mma_plan(m, k, h, w13.k_block, True)[2] > 1
     assert ffn.mma_plan(m, h, k, w2.k_block, False)[2] > 1
     x = torch.randn(m, k, device=dev).to(torch.bfloat16)
-    before = ffn.launches_by_body["mma"]
-    got = ffn.ffn(x, w13, w2, 0)
+    got = _ffn_call(ffn, x, w13, w2, 0, "mma")
     assert torch.equal(got, ffn.ffn(x, w13, w2, 0))
-    assert ffn.launches_by_body["mma"] == before + 2
     _close(got, ffn.ffn_plain(x, w13, w2, 0), torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("model", list(_FFN_MODELS))
+@pytest.mark.parametrize("scales", ["f32", "bf16"])
+def test_ffn_rows_equal_at_any_m_bit_for_bit(dev, bits, model, scales):
+    """A row of K3 has the same bits whatever M computes it: the rows of
+    an M = 256 call (the rows form, four row blocks) equal the same rows
+    computed in calls of 32 (NT 4) and of 64 (NT 8, one CTA), and those of
+    a 100-row call (a short last block) the first 100 of them (the plan's K
+    split depends on the shapes alone)."""
+    from rama_tpu_torch.ops.kernels import ffn
+
+    w13, w2 = _model_ffn(dev, model, bits, 7, scales)
+    x = torch.randn(256, _FFN_MODELS[model][0], device=dev).to(torch.bfloat16)
+    got = _ffn_call(ffn, x, w13, w2, 0, "mma")
+    for rows in (32, 64):
+        parts = torch.cat([ffn.ffn(x[i:i + rows].contiguous(), w13, w2, 0)
+                           for i in range(0, 256, rows)])
+        assert torch.equal(got, parts), rows
+    assert torch.equal(ffn.ffn(x[:100].contiguous(), w13, w2, 0), got[:100])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("scales", [torch.float32, torch.bfloat16])
+def test_ffn_forms_get_the_ctas_an_sm_the_plan_counts(dev, bits, scales):
+    """Every form of the tensor-core body (1 / 2 / 4 / 8 n8 tiles), both
+    phases and load paths, gets the CTAs an SM that mma_ctas_per_sm (and so
+    the plan's slots) counts: two (occupancy API)."""
+    from rama_tpu_torch.ops.kernels import ffn
+
+    for nt in ffn.FORMS_NT:
+        for vec in (True, False):
+            for phase_a in (True, False):
+                assert ffn.occupancy(nt, bits, vec, phase_a, scales) == \
+                    ffn.mma_ctas_per_sm(nt, bits) == 2
 
 
 @pytest.mark.parametrize("m", [1, 8, 32])

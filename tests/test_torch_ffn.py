@@ -1,7 +1,9 @@
 """Kernel 2's plain version (rama_tpu_torch.ops.kernels.ffn.ffn_plain) against
 rama_tpu's ffn_fused_layered run in interpret mode, for the il-interleaved
 and the plain [W1 | W3] w13 layouts, int8 and packed int4 weights, built by
-each package's own fuse_params from the same numpy weights.
+each package's own fuse_params from the same numpy weights, at M of one
+tensor-core CTA (<= 64) and of several row blocks (M = 33 to 128: the
+Pallas kernel's dequantize path, acc_mode false above M = 32).
 
 Tolerance: the Pallas kernel rounds the hidden activation to bf16
 (ffn.py:170); the plain version keeps it in x's dtype — so fp32 inputs are
@@ -75,10 +77,11 @@ def test_int4_plain_matches_pallas(fused4, interleaved, m, dtype, layer):
     _check_plain_matches_pallas(jp, interleaved, m, dtype, layer)
 
 
-def _check_plain_matches_pallas(jp, interleaved, m, dtype, layer):
+def _layout(jp, interleaved):
+    """rama_tpu's fused (w13, w2): w13 as fuse_params interleaved it, or
+    with the interleave undone (plain [W1 | W3] columns, il = 0)."""
     jw13, jw2 = jp["w13"], jp["w2"]
     if not interleaved:
-        # undo the interleave: plain [W1 | W3] columns, il = 0
         def plain(a):
             *lead, k, n = a.shape
             t = np.asarray(a).reshape(*lead, k, n // 512, 2, 256)
@@ -86,14 +89,43 @@ def _check_plain_matches_pallas(jp, interleaved, m, dtype, layer):
         from rama_tpu.ops.quant import QuantizedTensor
         jw13 = QuantizedTensor(q=plain(jw13.q), scales=plain(jw13.scales),
                                group_size=jw13.group_size, bits=jw13.bits, il=0)
+    return jw13, jw2
+
+
+def _check_plain_matches_pallas(jp, interleaved, m, dtype, layer, scales="f32"):
+    jw13, jw2 = _layout(jp, interleaved)
     tw = jax_params_to_torch(CFG, {"w13": jw13, "w2": jw2})
     assert tw["w13"].il == (256 if interleaved else 0)
+    if scales == "bf16":
+        from rama_tpu.ops import quant as jq
+        from rama_tpu_torch.ops import quant as tq
+
+        jw13, jw2 = (jq.cast_scales({"w13": jw13, "w2": jw2}, jnp.bfloat16)[k]
+                     for k in ("w13", "w2"))
+        tw = tq.cast_scales(tw, torch.bfloat16)
+        assert tw["w13"].scales.dtype == tw["w2"].scales.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tw["w13"].scales.view(torch.int16).numpy(),
+                                      np.asarray(jw13.scales).view(np.int16))
     x = np.random.default_rng(6).standard_normal((m, CFG.dim)).astype(np.float32)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     want = np.asarray(ffn_fused_layered(jnp.asarray(x, jd), jw13, jw2, jnp.int32(layer),
                                         interpret=True).astype(jnp.float32))
     got = ffn_plain(torch.from_numpy(x).to(td), tw["w13"], tw["w2"], layer).float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("scales", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interleaved", [True, False])
+@pytest.mark.parametrize("m", [33, 64, 65, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_plain_matches_pallas_past_one_cta(fused, fused4, bits, m, interleaved, dtype, scales):
+    """M of one 64-row CTA (33, 64) and of two row blocks (65, 128), where
+    the Pallas kernel takes its dequantize path (acc_mode false): int8 and
+    int4 (w13 gs 8, w2 gs 32), both w13 layouts, bf16 and fp32 activations,
+    f32 and bf16-stored scales, layer 1; the file's tolerance."""
+    _check_plain_matches_pallas((fused if bits == 8 else fused4)[0], interleaved, m, dtype, 1,
+                                scales)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -121,6 +153,54 @@ def test_bf16_scales_plain_matches_pallas(fused, fused4, bits, m, dtype, layer):
                                         jnp.int32(layer), interpret=True).astype(jnp.float32))
     got = ffn_plain(torch.from_numpy(x).to(td), tp["w13"], tp["w2"], layer).float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m", [1, 32, 33, 64, 65, 512])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_every_decode_step_and_verify_round_takes_the_fused_ffn(fused, fused4, bits, m):
+    """The port's route (models/llama.py `_ffn_fusable`): quantized w13 /
+    w2 of the same bits take K3 at any M, past one CTA's 64 rows too;
+    mixed bits and unquantized weights take the split matmuls. Not
+    rama_tpu's VMEM rule, which fuses these dim-128 weights at every M
+    here but Llama-2-7B int8 only up to M = 70 (ROADMAP §3)."""
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    tp = (fused if bits == 8 else fused4)[1]
+    assert tl._ffn_fusable(tp, m)
+    other = 4 if bits == 8 else 8
+    w2 = QuantizedTensor(q=tp["w2"].q, scales=tp["w2"].scales, group_size=tp["w2"].group_size,
+                         bits=other)
+    assert not tl._ffn_fusable({**tp, "w2": w2}, m)
+    assert not tl._ffn_fusable({**tp, "w13": tp["w13"].q.float()}, m)
+
+
+@pytest.mark.parametrize("model,bits,last", [("7B", 8, 70), ("7B", 4, 58),
+                                             ("TinyLlama", 8, 474), ("TinyLlama", 4, 507),
+                                             ("Yi-34B", 8, 0), ("Yi-34B", 4, 0)])
+def test_jax_vmem_budget_fuses_fewer_rows_than_the_port(model, bits, last):
+    """rama_tpu's ffn_tileable(max_m = max(M, 8)), the JAX model's rule, at
+    the served models' FFN shapes (int8 gs 64; int4 w13 gs 64, w2 the
+    pick_int4_group_size of H: 16 at 7B, 32 at TinyLlama, 64 at Yi) fuses up
+    to `last` rows, none at Yi-34B; the port's
+    fused FFN serves every M (the deliberate difference of ROADMAP §3).
+    Zero-stride weights: only shapes are read."""
+    from rama_tpu.ops.pallas.ffn import ffn_tileable, phase_a_tile
+    from rama_tpu.ops.quant import QuantizedTensor as JQT
+    from rama_tpu_torch.ops.quant import pick_int4_group_size
+
+    d, h = {"7B": (4096, 11008), "TinyLlama": (2048, 5632), "Yi-34B": (7168, 20480)}[model]
+    gs13, gs2 = 64, 64 if bits == 8 else pick_int4_group_size(h, 64)
+
+    def qt(k, n, gs, il=0):
+        rows = k if bits == 8 else k // 2
+        return JQT(q=np.broadcast_to(np.int8(0), (1, rows, n)),
+                   scales=np.broadcast_to(np.float32(0), (1, k // gs, n)), group_size=gs,
+                   bits=bits, il=il)
+
+    w13, w2 = qt(d, 2 * h, gs13, phase_a_tile(h, bits, gs2) or 0), qt(h, d, gs2)
+    fused = [m for m in (1, 8, last, last + 1, 4096) if ffn_tileable(w13, w2, max_m=max(m, 8))]
+    assert fused == ([1, 8, last] if last else [])
+    assert ffn_mod.body_for(torch.bfloat16, last + 1) == "mma"
 
 
 def test_split_h13_matches_jax(fused):
@@ -164,35 +244,93 @@ def test_body_for_takes_tensor_cores_for_bf16(m):
 
 
 def test_body_for_refuses_rows_past_the_kernel():
-    with pytest.raises(ValueError, match="M <= 32"):
-        ffn_mod.body_for(torch.bfloat16, ffn_mod.FFN_MAX_M + 1)
+    """The kernel serves every M >= 1 (row blocks above FFN_MAX_M); only an
+    empty x is refused."""
+    for m in (ffn_mod.FFN_MAX_M + 1, 256, 512, 4096):
+        assert ffn_mod.body_for(torch.bfloat16, m) == "mma"
+        assert ffn_mod.body_for(torch.float32, m) == "simt"
+    for m in (0, -1):
+        with pytest.raises(ValueError, match="M >= 1"):
+            ffn_mod.body_for(torch.bfloat16, m)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("phase_a", [True, False])
 def test_mma_plan_holds_every_row_in_one_tile(bits, phase_a):
-    """Every M <= 32 fits one CTA's n8 tiles: the grid has no row dimension,
-    so the plan (and each weight byte's one read) is the same at any M."""
+    """Every M <= FFN_MAX_M fits one CTA's n8 tiles (the smallest of 1 / 2 /
+    4 / 8 that holds M) in one row block, so each weight byte is read once,
+    and the grid is the same at any M."""
     k, nout = (4096, 11008) if phase_a else (11008, 4096)
     kb = _7B_BLOCKS[bits][0 if phase_a else 1]
     grid = ffn_mod.mma_plan(1, k, nout, kb, phase_a)[1:]
+    assert grid[-1] == 1
     for m in range(1, ffn_mod.FFN_MAX_M + 1):
         nt, *rest = ffn_mod.mma_plan(m, k, nout, kb, phase_a)
-        assert nt in (1, 2, 4) and m <= 8 * nt < m + 16
+        assert nt in ffn_mod.FORMS_NT and m <= 8 * nt and (nt == 1 or m > 4 * nt)
         assert tuple(rest) == grid
+        assert ffn_mod.form_for(m) == "one"
 
 
-@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("m", [65, 100, 128, 129, 256, 474, 512, 4096])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_mma_plan_fills_the_card_at_7b(m, bits):
-    """Both phases at the 7B shapes give at least one CTA per SM of the
-    H100's 132, and fill their last wave of two-CTA slots to 95 %."""
-    for phase_a, (k, nout) in ((True, (4096, 11008)), (False, (11008, 4096))):
-        _, tiles, ks, _ = ffn_mod.mma_plan(m, k, nout, _7B_BLOCKS[bits][0 if phase_a else 1],
-                                           phase_a)
-        ctas = tiles * ks
-        assert ctas >= 132 and ks > 1
-        assert ctas / (-(-ctas // 264) * 264) >= 0.95
+@pytest.mark.parametrize("phase_a", [True, False])
+def test_mma_plan_takes_row_blocks_past_one_cta(m, bits, phase_a):
+    """Above FFN_MAX_M the plan runs NT 8 over ceil(M / 64) row blocks with
+    the tiles and the K split of M = 1 (ks from the tiles, not from M: a
+    row's split order, and so its bits, is the same in every form)."""
+    k, nout = (4096, 11008) if phase_a else (11008, 4096)
+    kb = _7B_BLOCKS[bits][0 if phase_a else 1]
+    one = ffn_mod.mma_plan(1, k, nout, kb, phase_a)
+    nt, tiles, ks, sps, rblocks = ffn_mod.mma_plan(m, k, nout, kb, phase_a)
+    assert nt == 8 and rblocks == -(-m // ffn_mod.FFN_MAX_M) and rblocks > 1
+    assert (tiles, ks, sps) == one[1:4]
+    assert ffn_mod.form_for(m) == "rows"
+
+
+# (K, H) of each model's FFN and its w13 / w2 K blocks: int8 gs 64; int4 w13
+# gs 64 (packing blocks of 128), w2 pick_int4_group_size's 16 (7B) or 32
+# (TinyLlama's 5632)
+_FFN_MODELS = {"7B": ((4096, 11008), {8: (64, 64), 4: (128, 32)}),
+               "TinyLlama": ((2048, 5632), {8: (64, 64), 4: (128, 64)})}
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("model", list(_FFN_MODELS))
+def test_mma_plan_fills_the_card_at_7b(m, bits, model):
+    """Both phases at the 7B and TinyLlama shapes, row blocks counted
+    (every form holds two CTAs an SM): at least one CTA per SM of
+    the H100's 132, the last wave of two-CTA slots filled to 95 %. One
+    exception, a limit of the split options: TinyLlama's w2 (K 5632, 8
+    column tiles) splits at most 15 ways (SWAB_MAX_SPLITS 16 of whole
+    slabs), so one row block is 120 CTAs and two or more fill their last
+    wave to 120 / 132."""
+    (k, h), blocks = _FFN_MODELS[model]
+    for phase_a, (kin, nout) in ((True, (k, h)), (False, (h, k))):
+        nt, tiles, ks, _, rblocks = ffn_mod.mma_plan(m, kin, nout,
+                                                     blocks[bits][0 if phase_a else 1], phase_a)
+        ctas = tiles * ks * rblocks
+        fill = ctas / (-(-ctas // 264) * 264)
+        assert ks > 1 and ffn_mod.mma_ctas_per_sm(nt, bits) == 2
+        if model == "TinyLlama" and not phase_a:
+            assert (tiles, ks) == (8, 15)
+            assert ctas == 120 if rblocks == 1 else (ctas >= 132 and fill >= 120 / 132 - 1e-9)
+        else:
+            assert ctas >= 132 and fill >= 0.95
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("nt", [1, 2, 4, 8])
+def test_every_form_holds_two_ctas_an_sm(bits, nt):
+    """Each form's shared memory (the ring of swab_smem_bytes; the 64-row
+    int8 form keeps three stages, not four) leaves room for the two CTAs an
+    SM that ffn_mma's register cap allows, so the plan's slots are what
+    every form gets (the card checks the occupancy API: test_torch_cuda)."""
+    assert ffn_mod.mma_ctas_per_sm(nt, bits) == 2
+    smem = ffn_mod.mma_smem_bytes(nt, bits)
+    assert 2 * (smem + 1024) <= 233472
+    want = {(4, 8): 104448, (8, 8): 92160, (8, 4): 88064}
+    assert want.get((nt, bits), smem) == smem
 
 
 @pytest.mark.parametrize("k,k_block", [(4096, 64), (4096, 128), (11008, 64), (11008, 32),
@@ -203,7 +341,7 @@ def test_mma_plan_splits_whole_k_blocks(k, k_block, phase_a):
     """Splits start on whole slabs and whole K blocks (scale groups, int4
     packing blocks), cover every slab once, and leave none empty."""
     nslabs = -(-k // 64)
-    _, _, ks, sps = ffn_mod.mma_plan(8, k, 4096, k_block, phase_a)
+    _, _, ks, sps, _ = ffn_mod.mma_plan(8, k, 4096, k_block, phase_a)
     assert (sps * 64) % k_block == 0 or ks == 1
     assert (ks - 1) * sps < nslabs <= ks * sps
     assert ks == 1 or sps >= 4

@@ -205,8 +205,12 @@ def test_unfused_params_give_the_fused_logits(quant):
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch, quant):
-    """Decode batches above the FFN kernel's M limit run the split w13 / w2
-    matmuls instead of the fused FFN (the JAX package's shape-based choice)."""
+    """Decode batches up to one tensor-core CTA's rows (FFN_MAX_M) and past
+    it (the kernel's row blocks) both run the fused FFN, one call a layer:
+    with quantized w13 / w2 of the same bits no batch takes the split w13 /
+    w2 matmuls any more (those are left to unquantized and mixed-bit
+    params: test_mixed_bits_w13_w2_take_the_split_path); the logits equal
+    the split route's within fp32 rounding."""
     jcfg = tiny_config(seq_len=16)
     cfg, _, tp = both_params(jcfg, random_params(jcfg, seed=5), quant)
     calls = []
@@ -216,7 +220,13 @@ def test_decode_batch_above_ffn_kernel_limit_takes_split_path(monkeypatch, quant
         cache = tl.KVCache.create(cfg, b, 16, torch.float32, "cpu")
         logits, _ = tl.decode_step(tp, cfg, torch.arange(b) % 100, torch.zeros(b).long(), cache)
         assert logits.shape == (b, cfg.vocab_size) and torch.isfinite(logits).all()
-        assert len(calls) == (cfg.n_layers if b <= tl._ffn.FFN_MAX_M else 0)
+        assert len(calls) == cfg.n_layers and all(c[0].shape[0] == b for c in calls)
+        monkeypatch.setattr(tl, "_ffn_fusable", lambda params, m: False)
+        cache = tl.KVCache.create(cfg, b, 16, torch.float32, "cpu")
+        split, _ = tl.decode_step(tp, cfg, torch.arange(b) % 100, torch.zeros(b).long(), cache)
+        monkeypatch.undo()
+        monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a: calls.append(a) or tl._ffn.ffn(*a))
+        torch.testing.assert_close(logits, split, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
