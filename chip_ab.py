@@ -33,7 +33,11 @@ another model:
     form and the full form with int8 and int4 wo, each one's device ms
     and its device ms by kernel, beside K4 over the same rows (its split
     and combine) and the light form followed by K1's wo (the unfused
-    composition of the full form);
+    composition of the full form); the same at Yi-34B's group 7 (56 heads
+    over 8) and at group 8 (64 over 8), 8 layers at S 1024, and, where
+    the tree takes any whole GQA group (attn_block.form_for), at
+    Mistral-Large-Instruct-2407's group 12 (96 over 8); `--k14-only`
+    runs only these;
   - 8-slot 7B int8 verify rounds of 4 and plain decode steps at pos 64 (a
     128-row bf16 cache) and at pos 2048 (4096-row bf16 and int8 caches),
     and decode steps on an int8 page pool (32 pages of 128 rows a slot) at
@@ -71,6 +75,8 @@ def main() -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--k5-only", action="store_true", help="time the prefill attention only")
     ap.add_argument("--ffn-only", action="store_true", help="time the fused FFN (K3) only")
+    ap.add_argument("--k14-only", action="store_true",
+                    help="time the fused attention block (K14) only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
     import torch
@@ -153,6 +159,68 @@ def main() -> int:
 
     if args.ffn_only:
         time_k3()
+        emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+        return 0
+
+    # -- K14: the fused attention block, beside K4 on the same rows -----------------------
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    cos_t, sin_t = _rope_tables(cfg, dev, seq_len=cs.KV8_MAX_LEN)
+
+    def time_k14(label: str, nh: int, nkv: int, layers: tuple) -> None:
+        """K14's light and full forms at nh heads over nkv (wo (nh * hd,
+        nh * hd)), 8 slots, S 1024 and 4096 with `layers` layers cycled."""
+        D = nh * hd
+        for (S, pos), n_l in zip(((1024, [0, 255, 256, 1023, 63, 64, 511, 700]),
+                                  (4096, [0, 63, 1021, 2047, 3000, 4000, 4090, 4092])), layers):
+            pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+            q, kn, vn = rx(B, nh, hd), rx(B, nkv, hd), rx(B, nkv, hd)
+            cos, sin = cos_t[pos.long()], sin_t[pos.long()]
+            kc, vc = rx(n_l, B, nkv, S, hd), rx(n_l, B, nkv, S, hd)
+            wo = {8: QuantizedTensor(
+                q=torch.randint(-127, 128, (n_l, D, D), dtype=torch.int8, device=dev,
+                                generator=g),
+                scales=(torch.rand((n_l, D // 64, D), device=dev, generator=g) + 0.5)
+                / (73 * D ** 0.5), group_size=64, bits=8),
+                4: cs.random_int4_qt(torch, n_l, D, D, 64, dev, g)}
+            lay = cs.Layered(n_l)
+            block = (q, kn, vn, cos, sin, kc, vc)
+
+            def light():
+                return ab.attn_rope_write_layered(*block, pos, lay.next())
+
+            def timed(fn) -> dict:
+                return dict(device_ms=cs.device_ms_per_call(torch, fn),
+                            by_kernel_ms=cs.device_ms_by_kernel(torch, fn))
+
+            rec = {"k4": dict(device_ms=cs.device_ms_per_call(
+                torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next())),
+                **cs.attention_split_combine(torch, lambda: da.decode_attention(
+                    q, kc, vc, pos, lay.next()))), "light": timed(light)}
+            for bits, w in wo.items():
+                rec[f"full int{bits}"] = timed(
+                    lambda w=w: ab.attn_block_layered(*block, w, pos, lay.next()))
+
+                def light_k1(w=w):
+                    l = lay.next()
+                    return qm.quant_matmul(ab.attn_rope_write_layered(*block, pos, l), w, l)
+
+                rec[f"light + K1 wo int{bits}"] = timed(light_k1)
+            rec["light_over_k4"] = rec["light"]["device_ms"] / rec["k4"]["device_ms"]
+            emit(f"attn_block{label} S={S}", **rec)
+            del kc, vc, wo
+            torch.cuda.empty_cache()
+
+    def all_k14() -> None:
+        time_k14("", nh, nkv, (32, 4))
+        time_k14(" Yi-34B group 7", 56, 8, (8, 4))
+        time_k14(" group 8", 64, 8, (8, 4))
+        if hasattr(ab, "form_for"):   # a tree whose K14 takes any whole GQA group
+            time_k14(" Mistral-Large group 12", 96, 8, (8, 4))
+
+    if args.k14_only:
+        all_k14()
         emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
         return 0
 
@@ -265,50 +333,7 @@ def main() -> int:
     del kv, q8p
     torch.cuda.empty_cache()
 
-    # -- K14: the fused attention block, beside K4 on the same rows -----------------------
-    from rama_tpu_torch.ops.kernels import attn_block as ab
-    from rama_tpu_torch.ops.kernels import quant_matmul as qm
-    from rama_tpu_torch.ops.quant import QuantizedTensor
-
-    cos_t, sin_t = _rope_tables(cfg, dev, seq_len=cs.KV8_MAX_LEN)
-    D = nh * hd
-    for S, n_l, pos in ((1024, 32, [0, 255, 256, 1023, 63, 64, 511, 700]),
-                        (4096, 4, [0, 63, 1021, 2047, 3000, 4000, 4090, 4092])):
-        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
-        q, kn, vn = rx(B, nh, hd), rx(B, nkv, hd), rx(B, nkv, hd)
-        cos, sin = cos_t[pos.long()], sin_t[pos.long()]
-        kc, vc = rx(n_l, B, nkv, S, hd), rx(n_l, B, nkv, S, hd)
-        wo = {8: QuantizedTensor(
-            q=torch.randint(-127, 128, (n_l, D, D), dtype=torch.int8, device=dev, generator=g),
-            scales=(torch.rand((n_l, D // 64, D), device=dev, generator=g) + 0.5) / (73 * 64),
-            group_size=64, bits=8), 4: cs.random_int4_qt(torch, n_l, D, D, 64, dev, g)}
-        lay = cs.Layered(n_l)
-        block = (q, kn, vn, cos, sin, kc, vc)
-
-        def light():
-            return ab.attn_rope_write_layered(*block, pos, lay.next())
-
-        def timed(fn) -> dict:
-            return dict(device_ms=cs.device_ms_per_call(torch, fn),
-                        by_kernel_ms=cs.device_ms_by_kernel(torch, fn))
-
-        rec = {"k4": dict(device_ms=cs.device_ms_per_call(
-            torch, lambda: da.decode_attention(q, kc, vc, pos, lay.next())),
-            **cs.attention_split_combine(torch, lambda: da.decode_attention(
-                q, kc, vc, pos, lay.next()))), "light": timed(light)}
-        for bits, w in wo.items():
-            rec[f"full int{bits}"] = timed(
-                lambda w=w: ab.attn_block_layered(*block, w, pos, lay.next()))
-
-            def light_k1(w=w):
-                l = lay.next()
-                return qm.quant_matmul(ab.attn_rope_write_layered(*block, pos, l), w, l)
-
-            rec[f"light + K1 wo int{bits}"] = timed(light_k1)
-        rec["light_over_k4"] = rec["light"]["device_ms"] / rec["k4"]["device_ms"]
-        emit(f"attn_block S={S}", **rec)
-        del kc, vc, wo
-        torch.cuda.empty_cache()
+    all_k14()
 
     # -- 7B int8 verify rounds and decode steps ------------------------------------------
     params = cs.random_params(torch, cfg, dev, bits=8)

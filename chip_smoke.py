@@ -313,6 +313,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import os
@@ -340,7 +341,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve4_ab2", "kernels_gqa", "model_gqa", "serve_gqa", "serve_gqa_spec",
               "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
               "spec_gqa_self", "model_yi", "serve_yi", "profile_prefill_yi", "serve_yi_kv8",
-              "serve_yi_spec", "serve_yi_ab2", "cli")
+              "serve_yi_spec", "serve_yi_ab2", "model_ml", "serve_ml", "serve_ml_ab1",
+              "serve_ml_ab2", "profile_ml_ab", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
@@ -363,7 +365,7 @@ BODY_COUNTS = {
        for name in names},
     **{name: ("prefill_attention", ("mma", "simt"))
        for name in ("prefill_attention", "prefill_attention_gqa")},
-    **{name: ("attn_block", ("mma", "simt")) for name in AB_KERNELS},
+    **{name: ("attn_block", ("mma", "simt")) for name in (*AB_KERNELS, "attn_block_gqa")},
     **{name: ("quant_matmul", ("mmv", "gemv", "mma", "simt"))
        for name in ("quant_matmul", "quant_matmul_int4")},
     **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")},
@@ -487,7 +489,7 @@ AB1_PATH = dict(label="attention block 1", bits=8, phases=("model_attn", "serve_
                         **{name: "launches_ab1_path" for name in (
                             "quant_matmul", "ffn", "prefill_attention")}},
                 forbid={name: "launches_ab1_path" for name in (
-                    "decode_attention", "attn_block_layered")},
+                    "decode_attention", "attn_block_layered", "attn_block_gqa")},
                 equal={"attn_rope_write_layered": "ffn"})
 AB2_PATH = dict(label="attention block 2", bits=8, phases=(None, "serve_ab2", "profile_ab"),
                 serve={}, attn_block=2,
@@ -495,7 +497,7 @@ AB2_PATH = dict(label="attention block 2", bits=8, phases=(None, "serve_ab2", "p
                         **{name: "launches_ab2_path" for name in (
                             "quant_matmul", "ffn", "prefill_attention")}},
                 forbid={name: "launches_ab2_path" for name in (
-                    "decode_attention", "attn_rope_write_layered")},
+                    "decode_attention", "attn_rope_write_layered", "attn_block_gqa")},
                 equal={"attn_block_layered": "ffn"})
 # kernel 9: the generic layer at T = 1 (prefill of a one-token prompt,
 # forward with logit_rows) through the library entry points, the plain
@@ -515,7 +517,8 @@ AB2_INT4_PATH = dict(label="attention block 2 int4", bits=4,
                                  "quant_matmul_int4", "ffn_int4", "quant_matmul",
                                  "prefill_attention")}},
                      forbid={name: "launches_ab2_int4_path" for name in (
-                         "decode_attention", "attn_rope_write_layered", "attn_block_layered")},
+                         "decode_attention", "attn_rope_write_layered", "attn_block_layered",
+                         "attn_block_gqa")},
                      equal={"attn_block_layered_int4": "ffn_int4"})
 # Llama-2-7B int8 at 64 slots (max_len 512): every decode step runs K3 at M
 # = 64 on its "one" form, once a layer of the step (`equal`: as many as the
@@ -657,14 +660,57 @@ YI_AB2_PATH = dict(label="Yi-34B attention block 2", model="yi", bits=8,
                        "prefill_attention_gqa", "prefill_attention", "attn_block_layered",
                        "quant_matmul", "ffn")},
                    forbid={name: "launches_yi_ab2_path" for name in (
-                       "decode_attention", "attn_rope_write_layered")},
+                       "decode_attention", "attn_rope_write_layered", "attn_block_gqa")},
                    equal=dict([YI_K5, ("attn_block_layered", "ffn")]))
+# Mistral-Large-Instruct-2407 (`model`: its params, GQA group 12, head_dim
+# 128, int4 layers at gs 64, f32 scales) at its full width and depth, 8
+# slots at max_len 512: plain decoding (K4 in its 16-row form on every
+# decode step: `equal`, and K5's "gqa" form), and the fused attention
+# block in modes 1 and 2 (K14 once a layer of every decode step, as K3,
+# every launch in the 16-row form: attn_block_gqa counts K14's launches in
+# a form of more than 8 rows; K4 never)
+ML_MAX_LEN = 512
+ML_SERVE = dict(max_seq_len=ML_MAX_LEN)
+ML_PATH = dict(label="Mistral-Large int4", model="ml", bits=4,
+               phases=("model_ml", "serve_ml", None), serve=ML_SERVE,
+               record={name: "launches_ml_path" for name in (
+                   "prefill_attention_gqa", "prefill_attention", "decode_attention",
+                   "decode_attention_mma_rows16", "quant_matmul_int4", "quant_matmul",
+                   "ffn_int4")},
+               forbid={name: "launches_ml_path" for name in (
+                   "chunk_attention", "decode_attention_flat", "decode_attention_mma_rows8",
+                   "attn_rope_write_layered", "attn_block_layered_int4", "attn_block_gqa")},
+               equal=dict([YI_K5, ("decode_attention_mma_rows16", "decode_attention"),
+                           ("decode_attention", "ffn_int4")]))
+ML_AB1_PATH = dict(label="Mistral-Large int4 attention block 1", model="ml", bits=4,
+                   phases=(None, "serve_ml_ab1", None), serve=ML_SERVE, attn_block=1,
+                   record={name: "launches_ml_ab1_path" for name in (
+                       "prefill_attention_gqa", "prefill_attention", "attn_rope_write_layered",
+                       "attn_block_gqa", "quant_matmul_int4", "quant_matmul", "ffn_int4")},
+                   forbid={name: "launches_ml_ab1_path" for name in (
+                       "decode_attention", "attn_block_layered_int4", "attn_block_simt")},
+                   equal=dict([YI_K5, ("attn_rope_write_layered", "ffn_int4"),
+                               ("attn_block_gqa", "attn_rope_write_layered"),
+                               ("attn_block_mma_rows16", "attn_rope_write_layered")]))
+ML_AB2_PATH = dict(label="Mistral-Large int4 attention block 2", model="ml", bits=4,
+                   phases=(None, "serve_ml_ab2", "profile_ml_ab"), serve=ML_SERVE,
+                   attn_block=2,
+                   record={"attn_block_gqa": "launches",
+                           **{name: "launches_ml_ab2_path" for name in (
+                               "prefill_attention_gqa", "prefill_attention",
+                               "attn_block_layered_int4", "quant_matmul_int4", "quant_matmul",
+                               "ffn_int4")}},
+                   forbid={name: "launches_ml_ab2_path" for name in (
+                       "decode_attention", "attn_rope_write_layered", "attn_block_simt")},
+                   equal=dict([YI_K5, ("attn_block_layered_int4", "ffn_int4"),
+                               ("attn_block_gqa", "attn_block_layered_int4"),
+                               ("attn_block_mma_rows16", "attn_block_layered_int4")]))
 PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
          GQA_PATH, GQA_SPEC_PATH,
          GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
-         YI_SPEC_PATH, YI_AB2_PATH)
+         YI_SPEC_PATH, YI_AB2_PATH, ML_PATH, ML_AB1_PATH, ML_AB2_PATH)
 # every path that launches quant_matmul runs its decode-sized products (M
 # <= 32: a step, a verify round, a one-token prefill, the prefill's
 # last-row logits) on the swap-AB body: that count goes to the
@@ -835,6 +881,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
     for bodies in (pa.launches_by_body, pa.launches_by_form, qm.launches_by_body,
                    ffn_mod.launches_by_body, ffn_mod.launches_by_form,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
+                   *ab.launches_by_form.values(),
                    qm.launches_by_scale, ffn_mod.launches_by_scale,
                    *da.launches_by_form.values(), *pga.launches_by_form.values()):
         for body in bodies:
@@ -867,6 +914,11 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
             **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()},
+            # K14 by body and the row form the C entry reports it launched;
+            # attn_block_gqa: its launches in a form of more than 8 rows
+            **{f"attn_block_{body}_rows{f}": n for body, forms in ab.launches_by_form.items()
+               for f, n in forms.items()},
+            "attn_block_gqa": wide(ab.launches_by_form, "mma"),
             # by body and the row form the C entry reports it launched; the `*_gqa`
             # records: a wrapper family's launches in a form of more than 8 rows on
             # the bf16 cache's body (mma) or the int8 cache's (walk)
@@ -1284,6 +1336,19 @@ def yi34b_config(ModelConfig, n_layers: int = 60):
                        rope_theta=5e6)
 
 
+def mistral_large_config(ModelConfig, n_layers: int = 88):
+    """Mistral-Large-Instruct-2407 at its published shape (HF
+    mistralai/Mistral-Large-Instruct-2407, config.json: MistralForCausalLM
+    with no sliding window, the Llama architecture -- no biases, RMSNorm,
+    SwiGLU, RoPE; hidden_size 12288, intermediate_size 28672, 88 layers, 96
+    attention heads over 8 kv heads: GQA group 12, head_dim 128; vocab
+    32768, max_position_embeddings 131072, rope_theta 1e6, rms_norm_eps
+    1e-5, untied embeddings); n_layers cuts the depth."""
+    return ModelConfig(dim=12288, hidden_dim=28672, n_layers=n_layers, n_heads=96,
+                       n_kv_heads=8, vocab_size=32768, seq_len=131072, shared_classifier=False,
+                       rope_theta=1e6)
+
+
 def write_wide_tokenizer(src: Path, dst: Path, vocab_size: int, base: int = 32000) -> Path:
     """A llama2.c tokenizer file of vocab_size pieces for a model whose
     vocabulary is wider than the fixture's: the fixture's `base` pieces as
@@ -1306,16 +1371,22 @@ def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
     """A stacked (l, k, n) int4 weight made on the card: the group size
     quantize_int4 picks for this K, packed bytes whose two nibbles are drawn
     from [-7, 7] (the range quantize_int4 produces, never -8), scales sized
-    so the weights act like ~N(0, 1/K) entries."""
+    so the weights act like ~N(0, 1/K) entries. Made a layer at a time into
+    the preallocated stacked tensors, so the temporaries are one layer's
+    (Mistral-Large's w13 holds 31 GB of packed bytes)."""
     from rama_tpu_torch.ops.quant import QuantizedTensor, pick_int4_group_size
 
     gs = pick_int4_group_size(k, gs)
-    lo, hi = ((torch.randint(0, 15, (l, k // 2, n), dtype=torch.uint8, device=device,
-                             generator=g) + 9) % 16 for _ in range(2))
-    s = (torch.rand((l, k // gs, n), device=device, generator=g) + 0.5) / (
-        INT4_STD * math.sqrt(k))
-    return QuantizedTensor(q=(lo | (hi << 4)).view(torch.int8), scales=s, group_size=gs,
-                           bits=4, il=il)
+    q = torch.empty((l, k // 2, n), dtype=torch.uint8, device=device)
+    s = torch.empty((l, k // gs, n), device=device)
+    for i in range(l):
+        lo, hi = ((torch.randint(0, 15, (k // 2, n), dtype=torch.uint8, device=device,
+                                 generator=g) + 9) % 16 for _ in range(2))
+        torch.bitwise_or(lo, hi << 4, out=q[i])
+        torch.rand((k // gs, n), device=device, generator=g, out=s[i])
+        s[i].add_(0.5).div_(INT4_STD * math.sqrt(k))
+        del lo, hi
+    return QuantizedTensor(q=q.view(torch.int8), scales=s, group_size=gs, bits=4, il=il)
 
 
 def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64):
@@ -2488,13 +2559,122 @@ def profile_yi(torch, cfg, params) -> dict:
     "step", "round"}."""
     out = {"admission": profile_prefill(torch, cfg, params, label="Yi-34B int8")}
     for what, chunk in (("step", 1), ("round", SPEC_TICK + 1)):
-        out[what] = phase_profile(torch, cfg, params, tag="profile_prefill_yi", chunk=chunk,
-                                  host_ops=False)
+        out[what] = phase_profile(torch, cfg, params, tag="profile_prefill_yi", chunk=chunk)
     log(f"[profile_prefill_yi] a verify round of {SPEC_TICK + 1} "
         f"{out['round']['device_ms']:.3f} device ms against a plain step "
         f"{out['step']['device_ms']:.3f}: "
         f"{out['round']['device_ms'] / max(out['step']['device_ms'], 1e-9):.3f}x")
     return out
+
+
+def phase_model_ml(torch, cfg, params, tokenizer, dev=None) -> None:
+    """Mistral-Large-Instruct-2407 int4 logits through the kernels against
+    the plain path (which dequantizes one layer's weight at a time), rel TOL
+    per row, at full depth on bf16 caches of 64 rows: a padded prefill of 8
+    prompts of up to 40 tokens (plen 40, and 4, 5, 6, 10, 11, 29, 30: K5's
+    "gqa" form holds 5 positions of the 12 heads a CTA, each q-tile edge
+    and one past), the logits at each prompt's last row; a decode step at
+    each slot's plen (K4 in its 16-row form); the same decode step under
+    RAMA_ATTN_BLOCK 1 and 2 (K14 once a layer, every launch in the 16-row
+    form), against the plain path under the same mode and the unfused plain
+    step. Then a greedy generate_text of 32 tokens (the context cut to
+    ML_MAX_LEN) must not be degenerate."""
+    import dataclasses
+
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import KVCache, decode_step, forward
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.runtime.generate import generate_text
+
+    dev = dev or torch.device("cuda")
+    lens = torch.tensor([40, 4, 5, 6, 10, 11, 29, 30], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(88)
+    toks = torch.randint(3, cfg.vocab_size, (8, 40), device=dev, generator=g)
+    idx = torch.arange(40, device=dev)[None, :]
+    pos_index = torch.where(idx < lens[:, None], idx, 39)
+    form = da.row_form(1, cfg.n_rep)[0]
+    saved = llama.ATTN_BLOCK
+    llama.ATTN_BLOCK = 0
+    base = [KVCache.create(cfg, 8, 64, device=dev) for _ in range(2)]
+    try:
+        with torch.no_grad():
+            lk, lp = (forward(params, cfg, toks, pos_index, c, plen=lens,
+                              logit_rows=lens.long() - 1, plain=plain)[0]
+                      for c, plain in zip(base, (False, True)))
+            compare(torch, f"Mistral-Large int4 logits of a padded prefill of 8 prompts, plen "
+                    f"{lens.tolist()} (kernels vs plain)", lk[:, 0], lp[:, 0])
+            tok = torch.argmax(lp[:, 0], dim=-1)
+            pos = lens.long()
+
+            def step(mode, plain, c):
+                llama.ATTN_BLOCK = mode
+                cache = KVCache(k=c.k.clone(), v=c.v.clone())
+                logits = decode_step(params, cfg, tok, pos, cache, plain=plain)[0]
+                del cache
+                return logits
+
+            ref = step(0, True, base[1])
+            n4 = (da.launches, da.launches_by_form["mma"][form])
+            got = step(0, False, base[0])
+            n = (da.launches - n4[0], da.launches_by_form["mma"][form] - n4[1])
+            if n != (cfg.n_layers, cfg.n_layers):
+                raise SystemExit(f"FAILED model_ml: K4 launched {n[0]} times in a decode step, "
+                                 f"{n[1]} in its {form}-row form")
+            compare(torch, f"Mistral-Large int4 logits decode step at plen (kernels vs plain, "
+                    f"K4 {form}-row form)", got, ref)
+            for mode in (1, 2):
+                name = "attn_block_layered_int4" if mode == 2 else "attn_rope_write_layered"
+                before = (ab.launches[name], ab.launches_by_form["mma"][form], da.launches)
+                got = step(mode, False, base[0])
+                n = (ab.launches[name] - before[0], ab.launches_by_form["mma"][form] - before[1],
+                     da.launches - before[2])
+                if n != (cfg.n_layers, cfg.n_layers, 0):
+                    raise SystemExit(f"FAILED model_ml: {name} launched {n[0]} times in a "
+                                     f"decode step, {n[1]} in the {form}-row form, K4 {n[2]}")
+                compare(torch, f"Mistral-Large int4 logits decode step, attention block {mode} "
+                        f"(kernels vs plain)", got, step(mode, True, base[1]))
+                compare(torch, f"Mistral-Large int4 logits decode step, attention block {mode} "
+                        f"(kernels vs the unfused plain path)", got, ref)
+    finally:
+        llama.ATTN_BLOCK = saved
+        del base
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    text, ids = generate_text(params, dataclasses.replace(cfg, seq_len=ML_MAX_LEN), tokenizer,
+                              "Once upon a time", steps=32, temperature=0.0)
+    gen = ids[len(tokenizer.encode("Once upon a time")):]
+    log(f"[model_ml] greedy generate_text: {len(ids)} ids in {time.time() - t0:.2f} s; "
+        f"generated {gen[:16]}...")
+    if len(set(gen)) < 2:
+        raise SystemExit(f"FAILED model_ml: degenerate greedy trajectory {gen}")
+
+
+def profile_ml_ab(torch, cfg, params) -> dict:
+    """Mistral-Large int4: device ms (by kernel: K14's split / combine and
+    K1's wo beside K4's 16-row form), host ms and the device busy share per
+    8-slot decode step under RAMA_ATTN_BLOCK 0, 1 and 2, at positions 64
+    and 480 of a 512-row bf16 cache (the serving paths' max_len), in one
+    run."""
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import KVCache
+
+    cache = KVCache.create(cfg, 8, ML_MAX_LEN, device=torch.device("cuda"))
+    table = {}
+    saved = llama.ATTN_BLOCK
+    try:
+        for mode in (0, 1, 2):
+            llama.ATTN_BLOCK = mode
+            for start in (64, 480):
+                table[f"mode {mode} pos {start}"] = phase_profile(
+                    torch, cfg, params, tag=f"profile_ml_ab mode {mode}", cache=cache,
+                    start=start)
+    finally:
+        llama.ATTN_BLOCK = saved
+    del cache
+    torch.cuda.empty_cache()
+    log(f"[profile_ml_ab] per 8-slot decode step: {json.dumps(table)}")
+    return table
 
 
 def phase_spec_gqa_self(torch, cfg, params, tokenizer, start_count=lambda: None) -> None:
@@ -2563,7 +2743,7 @@ def profile_b64(torch, cfg, params) -> dict:
 
     cache = KVCache.create(cfg, B64_SLOTS, 128, device=torch.device("cuda"))
     out = {what: phase_profile(torch, cfg, params, tag="profile_b64", cache=cache, chunk=chunk,
-                               host_ops=False, slots=B64_SLOTS)
+                               slots=B64_SLOTS)
            for what, chunk in (("step", 1), ("round", SPEC_TICK + 1))}
     step, rnd = out["step"], out["round"]
     log(f"[profile_b64] {B64_SLOTS} slots: a step {step['device_ms']:.3f} device ms (K3 "
@@ -2587,8 +2767,7 @@ def profile_gqa_spec(torch, cfg, params) -> dict:
     out = {}
     for start in (64, 1024):
         out[str(start)] = {what: phase_profile(torch, cfg, params, tag="profile_gqa_spec",
-                                               cache=cache, start=start, chunk=chunk,
-                                               host_ops=False)
+                                               cache=cache, start=start, chunk=chunk)
                            for what, chunk in (("step", 1), ("round", GQA_SPEC_TICK + 1))}
         step, rnd = out[str(start)]["step"], out[str(start)]["round"]
         log(f"[profile_gqa_spec] pos {start}: a verify round of {GQA_SPEC_TICK + 1} "
@@ -3865,10 +4044,10 @@ def phase_kernels_attn(torch, results: dict) -> None:
                 dev_ms["unfused_device_ms"] = device_ms_per_call(torch, unfused)
             else:
                 t_k = time_ms(torch, fused)
-            # rows < pos of K and V read once, q / k / v / cos / sin in, the
-            # row written, att out (or wo[l] in and out)
+            # rows < pos of K and V read once, q / k / v and the (B, hd/2) f32
+            # cos / sin rows in, the row written, att out (or wo[l] in and out)
             nb = (int(p.clamp(0, s_ - 1).sum()) * nkv * hd * 2 * 2
-                  + (nh + 2 * nkv) * B * hd * 2 + 2 * B * hd * 4 + B * nkv * hd * 2 * 2
+                  + (nh + 2 * nkv) * B * hd * 2 + B * hd * 4 + B * nkv * hd * 2 * 2
                   + B * nh * hd * 2)
             flops = int((p.clamp(0, s_ - 1) + 1).sum()) * nh * hd * 4
             if wo is not None:
@@ -3912,6 +4091,170 @@ def phase_kernels_attn(torch, results: dict) -> None:
     log(f"[kernel] decode_attention_flat_q8 S=4096: {r['ms']:.4f} ms (K7 {r['k7_same_run_ms']:.4f}"
         f"), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
         f"{json.dumps(r['breakdown'])}")
+    kernels_attn_gqa(torch, results)
+
+
+# K14's GQA groups past 8 (kernels_attn): the 16 / 32 / 64-row forms, row
+# groups of 64 past 64 (65: a last group of one row); 12 is Mistral-Large's
+AB_REPS = (9, 12, 16, 24, 48, 64, 65, 96)
+
+
+def kernels_attn_gqa(torch, results: dict) -> None:
+    """Kernel 14 at the GQA groups of AB_REPS (2 kv heads): both forms,
+    int8 and int4 wo, each against its plain version per (slot, head) row
+    (light) or output row (full), at B 8 over 512 rows and B 1 over 4096,
+    positions on and beside the 64-row split edges and the keys there
+    planted to score high, each launch on the mma body in form_for's row
+    form, the written rows by check_written_rows. Then timed at
+    Mistral-Large's shape (q (8, 96, 128), a cache (8, 8, 8, 512, 128) with
+    the layer cycling, wo[l] (12288, 12288) int8 / int4 gs 64): CUDA-event
+    and device ms by kernel beside K4's 16-row form on the same rows and
+    beside light + K1's wo, the plain version's ms, the bound for this
+    run's positions, the two kernels' occupancy. The attn_block_gqa record."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import _rope_tables
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.ops.quant import QuantizedTensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf, hd = torch.bfloat16, 128
+    ml = mistral_large_config(ModelConfig)
+    cos_t, sin_t = _rope_tables(ml, dev, seq_len=KV8_MAX_LEN)
+
+    def rx(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(bf)
+
+    def wo_pair(layers: int, k: int, n: int):
+        w8 = QuantizedTensor(
+            q=torch.randint(-127, 128, (layers, k, n), dtype=torch.int8, device=dev, generator=g),
+            scales=(torch.rand((layers, k // 64, n), device=dev, generator=g) + 0.5)
+            / (73 * math.sqrt(k)), group_size=64, bits=8)
+        return w8, random_int4_qt(torch, layers, k, n, 64, dev, g)
+
+    def call(name, plain, wo, args, pos, l):
+        fn = getattr(ab, name.replace("_int4", "") + ("_plain" if plain else ""))
+        return fn(*args, pos, l) if wo is None else fn(*args, wo, pos, l)
+
+    def launch(label, name, wo, args, pos, l, form):
+        before = ab.launches_by_form["mma"][form]
+        out = on_body(ab.launches_by_body, "mma", label,
+                      lambda: call(name, False, wo, args, pos, l))
+        if ab.launches_by_form["mma"][form] != before + 1:
+            raise SystemExit(f"FAILED {label}: not launched in the {form}-row form "
+                             f"{ab.launches_by_form['mma']}")
+        return out
+
+    nkv = 2
+    sweep = {}
+    for rep in AB_REPS:
+        nh = nkv * rep
+        form, groups = ab.form_for(bf, rep)
+        wo8, wo4 = wo_pair(2, nh * hd, 256)
+        forms = (("attn_rope_write_layered", None), ("attn_block_layered", wo8),
+                 ("attn_block_layered_int4", wo4))
+        worst = 0.0
+        for b, s_, plist in ((8, 512, [0, 63, 64, 65, 127, 128, 511, 515]),
+                             (1, KV8_MAX_LEN, [4033])):
+            pos = torch.tensor(plist, dtype=torch.int32, device=dev)
+            p = pos.long().clamp(0, s_ - 1)
+            cos, sin = cos_t[p], sin_t[p]
+            c2, s2s = (t[:, None] for t in ab.rope_lane_tables(cos, sin))
+            q = rx(b, nh, hd)
+            qr = ab._rope_lanes(q.float(), c2, s2s).view(b, nkv, rep, hd)
+            kn, vn = rx(b, nkv, hd), rx(b, nkv, hd)
+            base = [rx(2, b, nkv, s_, hd), rx(2, b, nkv, s_, hd)]
+            for bi, pp in enumerate(p.tolist()):   # keys that score high: the split edges
+                for r in {pp - 1, pp + 1, 63, 64, 127, 128, pp // 64 * 64, pp // 64 * 64 - 1}:
+                    if 0 <= r < s_ and r != pp:
+                        base[0][1, bi, :, r] = (qr[bi, :, r % rep] * 0.5).to(bf)
+            for name, wo in forms:
+                got_c, want_c = [t.clone() for t in base], [t.clone() for t in base]
+                label = (f"{name} GQA {rep} ({form}-row form x {groups}) B={b} S={s_} "
+                         f"pos={plist} planted split edges")
+                got = launch(label, name, wo, (q, kn, vn, cos, sin, *got_c), pos, 1, form)
+                want = call(name, True, wo, (q, kn, vn, cos, sin, *want_c), pos, 1)
+                err = compare(torch, label, got, want, per=hd if wo is None else None)
+                worst = max(worst, err)
+                check_written_rows(torch, label, got_c, want_c, base, pos, 1)
+            del base, got_c, want_c
+        sweep[str(rep)] = dict(form=form, groups=groups, max_abs_err=worst)
+        del wo8, wo4
+        torch.cuda.empty_cache()
+
+    # timed at Mistral-Large's shape, the layer cycling over n_l layers
+    n_l, B, S, nkv, nh = 8, 8, ML_MAX_LEN, ml.n_kv_heads, ml.n_heads
+    form = ab.form_for(bf, nh // nkv)[0]
+    pos = torch.tensor([0, 63, 64, 200, 300, 400, 480, 511], dtype=torch.int32, device=dev)
+    p = pos.long()
+    cos, sin = cos_t[p], sin_t[p]
+    q, kn, vn = rx(B, nh, hd), rx(B, nkv, hd), rx(B, nkv, hd)
+    kc, vc = rx(n_l, B, nkv, S, hd), rx(n_l, B, nkv, S, hd)
+    wo8, wo4 = wo_pair(n_l, nh * hd, ml.dim)
+    forms = (("attn_rope_write_layered", None), ("attn_block_layered", wo8),
+             ("attn_block_layered_int4", wo4))
+    args = (q, kn, vn, cos, sin, kc, vc)
+    lay = Layered(n_l)
+
+    def k4():
+        return da.decode_attention(q, kc, vc, pos, lay.next())
+
+    before = da.launches_by_form["mma"][form]
+    k4()
+    if da.launches_by_form["mma"][form] != before + 1:
+        raise SystemExit(f"FAILED K4 at Mistral-Large's shape: not in its {form}-row form")
+    k4_parts = attention_split_combine(torch, k4)
+    k4_dev = device_ms_per_call(torch, k4)
+    x = rx(B, ml.dim)
+    breakdown = {"k4_device_ms": k4_dev, "k4_split_combine_ms": k4_parts,
+                 "kernels": ab.light_occupancy(nh, nkv, S)}
+    out = {}
+    for name, wo in forms:
+        label = f"{name} Mistral-Large shape GQA 12 B=8 S={S} pos={pos.tolist()}"
+        err = compare(torch, label, launch(label, name, wo, args, pos, 0, form),
+                      call(name, True, wo, (q, kn, vn, cos, sin, kc.clone(), vc.clone()), pos,
+                           0), per=hd if wo is None else None)
+
+        def fused(name=name, wo=wo):
+            return call(name, False, wo, args, pos, lay.next())
+
+        dev_ms = {"device_ms": device_ms_per_call(torch, fused),
+                  "by_kernel_ms": device_ms_by_kernel(torch, fused)}
+        dev_ms["over_k4"] = dev_ms["device_ms"] / k4_dev
+        nb = (int(p.clamp(0, S - 1).sum()) * nkv * hd * 2 * 2 + (nh + 2 * nkv) * B * hd * 2
+              + B * hd * 4 + B * nkv * hd * 2 * 2 + B * nh * hd * 2)
+        flops = int((p.clamp(0, S - 1) + 1).sum()) * nh * hd * 4
+        if wo is not None:
+            dev_ms["k1_wo_device_ms"] = device_ms_per_call(
+                torch, lambda wo=wo: qm.quant_matmul(x, wo, lay.next()))
+            dev_ms["light_plus_k1_wo_ms"] = (out["attn_rope_write_layered"]["device_ms"]
+                                             + dev_ms["k1_wo_device_ms"])
+            nb += matmul_bytes(wo, B) - B * (ml.dim + ml.dim) * 2
+            flops += 2 * B * ml.dim * ml.dim
+        b_ms, b_by = bound_ms(nb, flops)
+        t_k = time_ms(torch, fused)
+        t_p = time_ms(torch, lambda name=name, wo=wo: call(name, True, wo, args, pos,
+                                                         lay.next()), reps=3)
+        out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         **dev_ms)
+        log(f"[kernel] {label}: {t_k:.4f} ms, device {dev_ms['device_ms']:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), K4 same rows {k4_dev:.4f} ms "
+            f"{json.dumps(dev_ms)}")
+    light = out["attn_rope_write_layered"]
+    results["attn_block_gqa"] = dict(
+        name="attn_block_gqa", route="cuda", source="rama_tpu_torch/csrc/attn_block.cu",
+        replaces="rama_tpu/ops/pallas/attn_block.py:360", max_abs_err=light["max_abs_err"],
+        ms=light["ms"], plain_ms=light["plain_ms"], bound_ms=light["bound_ms"],
+        bound_by=light["bound_by"], library_ms=None,
+        library_note="n/a: no single PyTorch call ropes, writes a cache row and attends",
+        breakdown={**breakdown, "forms": out}, sweep=sweep,
+        shape=f"q (8, 96, 128) bf16 (GQA 12: the {form}-row form), cache ({n_l}, 8, 8, {S}, "
+              f"128), pos {pos.tolist()}; full: wo[l] (12288, 12288) int8 / int4 gs 64")
+    log(f"[kernel] attn_block_gqa sweep {json.dumps(sweep)}")
+    del kc, vc, wo8, wo4
+    torch.cuda.empty_cache()
 
 
 def phase_model(torch, cfg, params, label: str = "int8", dev=None) -> None:
@@ -4379,22 +4722,21 @@ def step_weight_bytes(params) -> float:
 
 
 def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
-                  start: int = 64, chunk: int = 1, tables=None, host_ops: bool = True,
-                  slots: int = 8) -> dict:
+                  start: int = 64, chunk: int = 1, tables=None, slots: int = 8) -> dict:
     """torch.profiler over 8 decode steps at `slots` slots (8 by default;
     positions start .. start+7; by default on a 128-row bf16 cache; a page
     pool through `tables`) — or, with chunk > 1, 8 verify rounds of `chunk` consecutive
     tokens a slot through forward_chunk (positions start .. start + 8 chunk
     - 1): host wall per step with and without the profiler, device kernel
-    time per step by kernel, device busy share (against the profiled
-    wall), K3's and K1's device time and share of it, the attention's
+    time per step by kernel, device busy share (against the wall with the
+    profiler off, which no profiler setting moves), K3's and K1's device time and share of it, the attention's
     device time (split kernel and combine), and the step's weight and
     scale bytes with their byte bound (step_weight_bytes). Returns
     device_ms, host_ms (profiler off), host_ms_profiled, busy (the device
     busy share), k3_ms, k1_ms, attn_ms and attn_split_ms per step, k3_share,
-    k1_share and weight_gb. host_ops=False records the device's events
-    alone (no host operators: a shorter session, a smaller profiler
-    overhead in the profiled wall)."""
+    k1_share and weight_gb. The profiler records the device's events alone
+    (host operators cost 10-20 s a profile at 7B to 88 layers and inflated
+    the profiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rama_tpu_torch.models.llama import KVCache, decode_step, forward_chunk
@@ -4424,8 +4766,7 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
             step(tok, start + i * chunk)
         torch.cuda.synchronize()
         wall_off = time.perf_counter() - t0
-        activities = [ProfilerActivity.CPU] if host_ops else []
-        with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(8):
                 tok = step(tok, start + i * chunk)
@@ -4446,29 +4787,35 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
     # the decode / chunk attention: its split kernel (either body) and combine
     attn_us = sum(r[0] for r in rows if "dattn_" in r[1])
     split_us = sum(r[0] for r in rows if any(k in r[1] for k in ATTN_SPLIT_KERNELS))
+    # K14's split and combine kernels (its mode-2 wo is K1's)
+    ab_split_us = sum(r[0] for r in rows if "ab_split_kernel" in r[1])
+    ab_comb_us = sum(r[0] for r in rows if "ab_combine_kernel" in r[1])
     what = "decode steps" if chunk == 1 else f"verify rounds of {chunk}"
     wbytes = step_weight_bytes(params)
     log(f"[{tag}] weights and scales a step {wbytes / 1e9:.3f} GB: byte bound "
         f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     log(f"[{tag}] {type(cache).__name__} {slots} slots x 8 {what} at pos {start}.."
         f"{start + 8 * chunk - 1}: host wall "
-        f"{wall / 8 * 1e3:.3f} ms/step (profiler on{'' if host_ops else ', device events only'}), "
+        f"{wall / 8 * 1e3:.3f} ms/step (profiler on, device events only), "
         f"{wall_off / 8 * 1e3:.3f} ms/step "
         f"(profiler off); device kernel time {busy_us / 8 / 1e3:.3f} ms/step; "
-        f"device busy share {busy_us / 1e6 / wall:.3f}; K3 (ffn) {k3_us / 8 / 1e3:.3f} "
+        f"device busy share {busy_us / 1e6 / wall_off:.3f} (of the wall with the profiler "
+        f"off); K3 (ffn) {k3_us / 8 / 1e3:.3f} "
         f"ms/step = {k3_us / max(busy_us, 1e-9):.4f} of the device time; K1 (quant_matmul) "
         f"{k1_us / 8 / 1e3:.3f} ms/step = {k1_us / max(busy_us, 1e-9):.4f}; attention "
-        f"{attn_us / 8 / 1e3:.4f} ms/step (split {split_us / 8 / 1e3:.4f})")
+        f"{attn_us / 8 / 1e3:.4f} ms/step (split {split_us / 8 / 1e3:.4f}); K14 split "
+        f"{ab_split_us / 8 / 1e3:.4f} combine {ab_comb_us / 8 / 1e3:.4f} ms/step")
     ranked = sorted(rows, reverse=True)
     for dt, key, count in ranked[:12] + [r for r in ranked[12:] if "rama::" in r[1]]:
         log(f"[{tag}]   {dt / 8 / 1e3:.4f} ms/step  x{count // 8:<4d} {key[:90]}")
     if not rows:
         log(f"[{tag}] the profiler recorded no device time")
     return dict(device_ms=busy_us / 8 / 1e3, host_ms=wall_off / 8 * 1e3,
-                host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall,
+                host_ms_profiled=wall / 8 * 1e3, busy=busy_us / 1e6 / wall_off,
                 k3_ms=k3_us / 8 / 1e3, k3_share=k3_us / max(busy_us, 1e-9),
                 k1_ms=k1_us / 8 / 1e3, k1_share=k1_us / max(busy_us, 1e-9),
                 attn_ms=attn_us / 8 / 1e3, attn_split_ms=split_us / 8 / 1e3,
+                ab_split_ms=ab_split_us / 8 / 1e3, ab_combine_ms=ab_comb_us / 8 / 1e3,
                 weight_gb=wbytes / 1e9)
 
 
@@ -4828,11 +5175,14 @@ def main() -> int:
     tokenizer = Tokenizer.from_file(fixture, 32000)
     models = {"7b": ("Llama-2-7B", seven_b_config(ModelConfig)),
               "tinyllama": ("TinyLlama-1.1B", tinyllama_config(ModelConfig)),
-              "yi": ("Yi-34B", yi34b_config(ModelConfig))}
-    # Yi-34B's 64000 ids: the fixture's pieces and made-up ones past them
+              "yi": ("Yi-34B", yi34b_config(ModelConfig)),
+              "ml": ("Mistral-Large-Instruct-2407", mistral_large_config(ModelConfig))}
+    # Yi-34B's 64000 ids, Mistral-Large's 32768: the fixture's pieces and
+    # made-up ones past them
     tmp = tempfile.TemporaryDirectory()
-    tokenizers = {"yi": Tokenizer.from_file(write_wide_tokenizer(
-        fixture, Path(tmp.name) / "tokenizer64000.bin", 64000), 64000)}
+    tokenizers = {key: Tokenizer.from_file(write_wide_tokenizer(
+        fixture, Path(tmp.name) / f"tokenizer{n}.bin", n), n)
+        for key, n in (("yi", 64000), ("ml", 32768))}
     dev = torch.device("cuda")
     params, params_key = None, None
     serving: dict = {}
@@ -4845,8 +5195,16 @@ def main() -> int:
         path_tokenizer = tokenizers.get(path.get("model"), tokenizer)
         llama.ATTN_BLOCK = path.get("attn_block", 0)   # as RAMA_ATTN_BLOCK sets it at import
         if params_key != (model_name, bits):   # the int8 KV and spec paths reuse the int8 params
+            if params_key:
+                log(f"[memory] {params_key[0]} int{params_key[1]} paths: peak "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+            # free the last model, its caches and scratch before the next is made
             params = None
+            gc.collect()
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            log(f"[memory] before the {model_name} int{bits} params: "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
             t0 = time.time()
             with clock(f"params {model_name} int{bits}"):
                 params, params_key = random_params(torch, cfg, dev, bits=bits), (model_name, bits)
@@ -4869,6 +5227,8 @@ def main() -> int:
                 phase_model_gqa(torch, cfg, params)
             elif model == "model_yi" and model in phases:
                 phase_model_yi(torch, cfg, params)
+            elif model == "model_ml" and model in phases:
+                phase_model_ml(torch, cfg, params, path_tokenizer)
             elif model == "model_b64" and model in phases:
                 phase_model_b64(torch, cfg, params)
             elif model == "model4_s16" and model in phases:
@@ -4902,7 +5262,8 @@ def main() -> int:
                                     ("serve_gqa_spec_paged_kv8", "serve_gqa"),
                                     ("serve_yi_kv8", "serve_yi"), ("serve_yi_spec", "serve_yi"),
                                     ("serve_yi_ab2", "serve_yi"), ("serve_b64", "serve"),
-                                    ("serve_b64_spec", "serve_b64")):
+                                    ("serve_b64_spec", "serve_b64"),
+                                    ("serve_ml_ab1", "serve_ml"), ("serve_ml_ab2", "serve_ml")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
@@ -4921,6 +5282,10 @@ def main() -> int:
                     results[name].setdefault("launches_by_form", {})[key] = {
                         body: {f: launches[f"{FORM_COUNTS[name]}_{body}_rows{f}"]
                                for f in da.FORMS} for body in da.launches_by_form}
+                if name in (*AB_KERNELS, "attn_block_gqa"):   # K14's calls by form
+                    results[name].setdefault("launches_by_form", {})[key] = {
+                        body: {f: launches[f"attn_block_{body}_rows{f}"] for f in forms}
+                        for body, forms in ab.launches_by_form.items()}
                 if name in ("ffn", "ffn_int4"):   # K3's calls by form, both bits together
                     results[name].setdefault("launches_by_form", {})[key] = {
                         form: launches[f"ffn_{form}"] for form in ffn_mod.launches_by_form}
@@ -4938,6 +5303,10 @@ def main() -> int:
                 phase_spec_draft_ab(torch, cfg, params, tokenizer)
             elif profile == "profile_ab" and profile in phases:
                 profile_ab(torch, cfg, params)
+            elif profile == "profile_ml_ab" and profile in phases:
+                profiles[profile] = profile_ml_ab(torch, cfg, params)
+                if "attn_block_gqa" in results:
+                    results["attn_block_gqa"]["profile"] = profiles[profile]
             elif profile == "profile_gqa_spec" and profile in phases:
                 profiles[profile] = profile_gqa_spec(torch, cfg, params)
             elif profile == "profile_b64" and profile in phases:
@@ -4981,6 +5350,9 @@ def main() -> int:
                         results[name]["admission"] = admission
         torch.cuda.empty_cache()
     llama.ATTN_BLOCK = 0
+    if params_key:
+        log(f"[memory] {params_key[0]} int{params_key[1]} paths: peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
     del params
     tmp.cleanup()
     torch.cuda.empty_cache()
@@ -5003,7 +5375,9 @@ def main() -> int:
             "launches_gqa_spec_path", "launches_gqa_spec_kv8_path",
             "launches_gqa_spec_paged_kv8_path", "launches_gqa_self_path", "launches_yi_path",
             "launches_yi_kv8_path", "launches_yi_spec_path", "launches_yi_ab2_path",
-            "launches_b64_path", "launches_b64_spec_path", "any_m", "tinyllama", "rep8",
+            "launches_b64_path", "launches_b64_spec_path", "launches_ml_path",
+            "launches_ml_ab1_path", "launches_ml_ab2_path", "profile", "sweep", "any_m",
+            "tinyllama", "rep8",
             "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
             "t2", "one_query", "paged")

@@ -472,7 +472,10 @@ def attn_block_mode(params: Params, cfg: ModelConfig, cache, b: int) -> int:
     """The decode step's attention block (rama_tpu's conditions,
     models/llama.py:588-599): ATTN_BLOCK (2 the full fused block, any other
     non-zero value the light one) on a dense KVCache with head_dim 128, a
-    quantized wo and `attn_block_supported`; 0 (unfused) otherwise."""
+    quantized wo and `attn_block_supported`; 0 (unfused) otherwise. Like
+    rama_tpu's, the conditions have no GQA-group term: kernel 14 takes any
+    whole group (its row form, `attn_block.form_for`), so every mode chosen
+    here launches on the card."""
     if (not ATTN_BLOCK or type(cache) is not KVCache or cfg.head_dim != _ab.HEAD_DIM
             or not _ab.attn_block_supported(params.get("wo"), cache.max_len, b)):
         return 0

@@ -21,8 +21,12 @@ On the card one hand-written kernel file (`csrc/attn_block.cu`). bf16
 head, 64-row split of the rows before pos) on the decode attention's
 m16n8k16 body (`csrc/dattn_mma.cuh`), q roped in fp32 and rounded to bf16
 as its operand, then a combine launch that folds in the new row's fp32
-score and writes the row. fp32 ("simt") keeps one CTA per (slot, kv head)
-walking its stripe on the CUDA cores. The full form is the light form,
+score and writes the row. Any whole GQA group: the group's query rows a
+kv head run in the body's row form (`form_for`: 8 rows up to a group of
+8, then 16, 32, 64; above 64 in row groups of 64), the same form the
+decode attention's `row_form` gives T = 1. fp32 ("simt") keeps one CTA per
+(slot, kv head) walking its stripe on the CUDA cores (groups above 8 in
+row groups of 8). The full form is the light form,
 then K1 (`quant_matmul`) on att: the swap-AB tensor-core body on bf16 att,
 the fp32 GEMV on fp32 att -- so mode 2 launches what mode 1 and its wo
 launch do; one cooperative launch of the same work measured slower on an
@@ -39,30 +43,29 @@ import math
 import torch
 
 from rama_tpu_torch.ops.kernels import build
+from rama_tpu_torch.ops.kernels import decode_attention as da
 from rama_tpu_torch.ops.kernels import quant_matmul as _qm
 from rama_tpu_torch.ops.kernels.build import I, P, require
 from rama_tpu_torch.ops.kernels.decode_attention import layer_ptrs
 from rama_tpu_torch.ops.quant import QuantizedTensor, matmul_plain
 
 # launches since the last reset, by form and wo bits (chip_smoke reads them),
-# and every one of them by the body the kernel file reports it ran
+# every one of them by the body the kernel file reports it ran, and by the
+# row form (query rows a CTA) it reports it launched
 launches = {"attn_rope_write_layered": 0, "attn_block_layered": 0,
             "attn_block_layered_int4": 0}
 launches_by_body = {"mma": 0, "simt": 0}
+SIMT_FORMS = (1, 8)   # the fp32 body's query rows a CTA (groups above 8: row groups of 8)
+launches_by_form = {"mma": dict.fromkeys(da.FORMS, 0), "simt": dict.fromkeys(SIMT_FORMS, 0)}
 
 CHUNK = 64        # cache rows a split / tile (csrc/attn_block.cu, kMaxChunk)
 HEAD_DIM = 128    # the kernel's head_dim (kAbHeadDim)
-MAX_REP = 8       # GQA group rows a CTA holds (kMaxRows)
 MAX_SLOTS = 32    # attn_block_supported's batch limit
-# the bf16 combine's shared floats (kAbCombFloats) beside its split weights,
-# under the 48 KB a launch takes without an opt-in
-_COMBINE_FLOATS = MAX_REP * HEAD_DIM + HEAD_DIM + 3 * MAX_REP
-_COMBINE_SMEM = 48 * 1024
 
 _BODIES = {1: "mma", 0: "simt"}   # the body code the C entry reports it launched
 
 _SIGNATURES = {
-    "rama_attn_rope_write": [P] * 11 + [I] * 9 + [P, P, P],
+    "rama_attn_rope_write": [P] * 11 + [I] * 10 + [P, P, P, P],
 }
 
 
@@ -76,6 +79,17 @@ def nsplit(s: int) -> int:
     """64-row splits of the bf16 workspace: every row below the last
     position of a cache of s rows, at least one."""
     return max(1, -(-(s - 1) // CHUNK))
+
+
+def form_for(dtype: torch.dtype, rep: int) -> tuple[int, int]:
+    """(rows, groups): the query rows a CTA of the body `body_for(dtype)`
+    holds for a GQA group of rep, and its row groups a kv head. bf16: the
+    tensor-core bodies' row form of T = 1 (`decode_attention.row_form(1,
+    rep)`: 8 rows up to a group of 8, then 16, 32, 64, groups of 64 past
+    64; csrc form_rows); fp32: 1 row for rep 1, else groups of 8."""
+    if body_for(dtype) == "mma":
+        return da.row_form(1, rep)
+    return (1, 1) if rep == 1 else (8, -(-rep // 8))
 
 
 def attn_block_supported(wo, s: int, b: int) -> bool:
@@ -163,9 +177,8 @@ def _check(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer) -> N
     L, bc, nkv, s, hdc = k_full.shape
     require(hd == HEAD_DIM and hdc == hd, f"head_dim {hd} / cache {hdc}: the kernel takes "
             f"{HEAD_DIM}")
-    require(bc == b and nh % nkv == 0 and nh // nkv <= MAX_REP,
-            f"q {tuple(q.shape)} does not fit cache {tuple(k_full.shape)} (GQA group <= "
-            f"{MAX_REP})")
+    require(bc == b and nkv > 0 and nh % nkv == 0,
+            f"q {tuple(q.shape)} does not fit cache {tuple(k_full.shape)} (a whole GQA group)")
     require(0 <= layer < L, f"layer {layer} out of range for {L} layers")
     require(_rows_ok(q, nh, hd) and _rows_ok(k_new, nkv, hd) and _rows_ok(v_new, nkv, hd)
             and k_new.shape[0] == v_new.shape[0] == b and k_new.stride(0) == v_new.stride(0),
@@ -196,57 +209,72 @@ def _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer
 
 
 def _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer: int,
-           what: str) -> tuple[torch.Tensor, str]:
-    """Launch the light form's kernels (counted by the caller): att (B, nh *
-    hd) in q's dtype, and the body the kernel file reports it ran."""
+           what: str, rows: int | None) -> tuple[torch.Tensor, str]:
+    """Launch the light form's kernels: att (B, nh * hd) in q's dtype, and
+    the body the kernel file reports it ran (the caller counts the launch
+    by name and body; here it is counted by the form the kernel file
+    reports, which must be `form_for`'s, or `rows`)."""
     ptrs, ints = _common_args(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
     b, nh, hd = q.shape
     nkv, s = k_full.shape[2], k_full.shape[3]
+    rep = nh // nkv
     att = torch.empty((b, nh * hd), dtype=q.dtype, device=q.device)
+    body = body_for(q.dtype)
+    form = form_for(q.dtype, rep)[0]
     part_o = part_ml = None
-    if body_for(q.dtype) == "mma":
+    if rows is not None:
+        require(body == "mma" and rows in da.FORMS and rows >= form,
+                f"rows {rows}: only a bf16 launch runs a larger form ({da.FORMS}) than "
+                f"its group's {form}")
+        form = rows
+    if body == "mma":
         ns = nsplit(s)
-        require(4 * (_COMBINE_FLOATS + nh // nkv * ns) <= _COMBINE_SMEM,
-                f"a cache of {s} rows at GQA group {nh // nkv}: the combine's split weights "
-                f"do not fit its shared memory")
         # the splits' partial o (B, nh, ns, hd), then their (m, l) (B, nh, ns, 2)
         scratch = torch.empty(b * nh * ns * (hd + 2), dtype=torch.float32, device=q.device)
         part_o = scratch.data_ptr()
         part_ml = part_o + 4 * b * nh * ns * hd
-    ran = ctypes.c_int(-1)
+    ran, ran_form = ctypes.c_int(-1), ctypes.c_int(0)
     lib = build.library("attn_block", _SIGNATURES)
     err = lib.rama_attn_rope_write(*ptrs, att.data_ptr(), part_o, part_ml, *ints,
-                                   build.dtype_code(q), build.stream_ptr(q),
-                                   ctypes.byref(ran), None)
+                                   build.dtype_code(q), rows or 0, build.stream_ptr(q),
+                                   ctypes.byref(ran), ctypes.byref(ran_form), None)
     build.check(lib, err, what)
-    return att, _BODIES[ran.value]
+    ran_body = _BODIES[ran.value]
+    require(ran_body == body and ran_form.value == form,
+            f"{what}: the kernel ran the {ran_body} body's {ran_form.value}-row form for GQA "
+            f"group {rep}, not the {body} body's {form}-row form the launch was sized for")
+    launches_by_form[body][form] += 1
+    return att, body
 
 
 def attn_rope_write_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos,
-                            layer: int) -> torch.Tensor:
+                            layer: int, *, _rows: int | None = None) -> torch.Tensor:
     """K14, light: q (B, nh, hd), k_new / v_new (B, nkv, hd) UN-roped (any
     slot stride: slices of one wqkv output row), cos_rows / sin_rows (B,
     hd/2) f32 RoPE rows at pos, k_full / v_full (L, B, nkv, S, hd) updated
-    in place at row pos of layer `layer`, pos (B,) int32. Returns att
-    (B, nh * hd) in q's dtype."""
+    in place at row pos of layer `layer`, pos (B,) int32, nh any whole
+    multiple of nkv. Returns att (B, nh * hd) in q's dtype. `_rows`
+    (private, for the card tests): run a larger bf16 row form than the
+    group's."""
     if q.device.type == "cpu":
         return attn_rope_write_layered_plain(q, k_new, v_new, cos_rows, sin_rows, k_full,
                                              v_full, pos, layer)
     _check(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer)
     att, body = _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer,
-                       "attn_rope_write_layered")
+                       "attn_rope_write_layered", _rows)
     launches["attn_rope_write_layered"] += 1
     launches_by_body[body] += 1
     return att
 
 
 def attn_block_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
-                       wo: QuantizedTensor, pos, layer: int) -> torch.Tensor:
+                       wo: QuantizedTensor, pos, layer: int, *,
+                       _rows: int | None = None) -> torch.Tensor:
     """K14, full: attn_rope_write_layered's operands plus wo, the stacked
     (L, nh * hd, N) int8 or int4 weight; returns att @ dequant(wo[layer])
     (B, N) in q's dtype, att in fp32 between the two (bf16: rounded to bf16
     as the wo product's operand). The light form's launches, then K1 on
-    att."""
+    att. `_rows` as attn_rope_write_layered's."""
     if q.device.type == "cpu":
         return attn_block_layered_plain(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
                                         wo, pos, layer)
@@ -256,7 +284,7 @@ def attn_block_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
     require(wo.k_dim == nh * hd, f"wo K {wo.k_dim} != nh * hd {nh * hd}")
     require(b <= MAX_SLOTS, f"{b} slots: the fused block takes at most {MAX_SLOTS}")
     att, body = _light(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full, pos, layer,
-                       f"attn_block_layered (int{wo.bits})")
+                       f"attn_block_layered (int{wo.bits})", _rows)
     out = _qm.quant_matmul(att, wo, layer)
     launches["attn_block_layered" if wo.bits == 8 else "attn_block_layered_int4"] += 1
     launches_by_body[body] += 1
@@ -264,14 +292,15 @@ def attn_block_layered(q, k_new, v_new, cos_rows, sin_rows, k_full, v_full,
 
 
 def light_occupancy(nh: int, nkv: int, s: int = 1024) -> dict:
-    """The bf16 light form's two kernels on the current card, for a cache of
-    s rows: the split kernel's and the combine kernel's resident CTAs per
-    SM, registers and local (spill) bytes per thread, and dynamic shared
-    bytes. Launches nothing."""
+    """The bf16 light form's two kernels on the current card, in
+    `form_for`'s row form for a GQA group of nh / nkv over a cache of s
+    rows: the split kernel's and the combine kernel's resident CTAs per SM,
+    registers and local (spill) bytes per thread, and dynamic shared bytes.
+    Launches nothing."""
     lib = build.library("attn_block", _SIGNATURES)
     out = (ctypes.c_int * 8)()
     build.check(lib, lib.rama_attn_rope_write(
         *[None] * 11, 1, nh, nkv, s, HEAD_DIM, CHUNK, 0, 0, build.DTYPE_CODES[torch.bfloat16],
-        None, None, out), "attn_rope_write occupancy")
+        0, None, None, None, out), "attn_rope_write occupancy")
     keys = ("ctas_per_sm", "registers", "smem_bytes", "local_bytes")
     return {"split": dict(zip(keys, out[:4])), "combine": dict(zip(keys, out[4:]))}

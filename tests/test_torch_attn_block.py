@@ -1,12 +1,14 @@
 """Kernel 14's plain versions (attn_rope_write_layered_plain,
 attn_block_layered_plain) against rama_tpu's attn_rope_write_layered /
 attn_block_layered in interpret mode on the same numpy inputs (int8 and
-int4 wo, GQA rep 1 and 2, positions 0, mid-stripe and S-1, and the card
-kernel's 64-row split edges of a 144-row cache), the port's
-clamp of positions >= S, and the model's RAMA_ATTN_BLOCK modes: a tiny
-head_dim-128 model's decode steps under modes 1 and 2 against the JAX
-package's decode_step (unfused on the CPU), and an engine stream under mode
-2 against mode 0.
+int4 wo, GQA rep 1, 2, 12 and 16, positions 0, mid-stripe and S-1, and the
+card kernel's 64-row split edges of a 144-row cache), the port's
+clamp of positions >= S, the row form of every GQA group the model admits,
+and the model's RAMA_ATTN_BLOCK modes: tiny head_dim-128 models' decode
+steps under modes 1 and 2 against the JAX package's decode_step (unfused on
+the CPU; group 1, 2 and Mistral-Large's 12), an engine stream under mode 2
+against mode 0, and a group-12 engine's streams under mode 2 against the
+JAX engine's.
 
 Tolerances (fp32): attention / wo outputs atol and rtol 1e-4 (same math,
 other summation order); the written cache rows atol 1e-5 (the roped k row:
@@ -28,6 +30,7 @@ from rama_tpu.ops.quant import quantize_int4, quantize_int8
 from rama_tpu.testing.ref_model import random_params, tiny_config
 from rama_tpu_torch.models import llama as tl
 from rama_tpu_torch.ops.kernels import attn_block as ab
+from rama_tpu_torch.ops.kernels import decode_attention as da
 from rama_tpu_torch.ops.quant import QuantizedTensor
 
 torch.set_num_threads(1)
@@ -60,7 +63,7 @@ def make_case(b, nkv, rep, bits, pos, seed, gs=16, s=S):
 # (form, bits, b, nkv, rep, positions[, cache rows]): pos 0 and S-1 in every
 # case of S rows; the split-edge cases hold positions on and around the card
 # kernel's 64-row split edges (63 / 64 / 65, 127 / 128) and the last row of
-# a 144-row cache; at most 8 interpret calls (each a few seconds on the CPU)
+# a 144-row cache; at most 11 interpret calls (each a few seconds on the CPU)
 S_EDGE = 144
 CASES = {
     "light-rep1": ("light", 0, 3, 2, 1, [0, 37, S - 1]),
@@ -71,6 +74,10 @@ CASES = {
     "full-int4-rep2": ("full", 4, 2, 2, 2, [S - 1, 33]),
     "light-split-edges": ("light", 0, 6, 1, 2, [63, 64, 65, 127, 128, S_EDGE - 1], S_EDGE),
     "full-int8-split-edges": ("full", 8, 4, 1, 1, [64, 63, 128, 127], S_EDGE),
+    # GQA groups past 8 (the card's 16-row form): Mistral-Large's 12 and 16
+    "light-rep12-split-edges": ("light", 0, 3, 1, 12, [63, 64, S_EDGE - 1], S_EDGE),
+    "full-int4-rep12": ("full", 4, 2, 1, 12, [0, 37]),
+    "full-int4-rep16-split-edges": ("full", 4, 2, 1, 16, [128, 65], S_EDGE),
 }
 
 
@@ -252,7 +259,8 @@ def fused_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", [1, 2])
-@pytest.mark.parametrize("dim,nh,nkv,bits", [(256, 2, 2, 8), (512, 4, 2, 4)])
+@pytest.mark.parametrize("dim,nh,nkv,bits", [(256, 2, 2, 8), (512, 4, 2, 4),
+                                             (1536, 12, 1, 4)])
 def test_decode_steps_under_attn_block_match_jax(monkeypatch, fused_calls, mode, dim, nh,
                                                  nkv, bits):
     jcfg, cfg, jp, tp = _hd128(dim, nh, nkv, bits, seed=dim + mode)
@@ -326,3 +334,86 @@ def test_engine_stream_under_mode_2_equals_mode_0(monkeypatch, fused_calls):
     assert [len(s) for s in streams[1]] == [12, 7]
     assert fused_calls["attn_block_layered"] > 0 and fused_calls["attn_rope_write_layered"] == 0
 
+
+
+def test_every_admitted_group_has_a_kernel_form(monkeypatch):
+    """Every GQA group 1..128 that attn_block_mode admits (its conditions,
+    like rama_tpu's, have no group term) has a K14 form: on the card's bf16
+    body the decode attention's T = 1 row form (8 rows up to a group of 8,
+    then 16 / 32 / 64, groups of 64 past 64), on the fp32 body 1 or 8 rows
+    in groups of 8; each row group a CTA, every query row covered once.
+    No cache length is refused: the split workspace covers every row below
+    the last position at S 512 / 4096 / 131072 (the combine keeps split
+    weights past the card's shared memory in the workspace)."""
+    d = 128
+    for rep in range(1, 129):
+        jcfg = tiny_config(dim=d * rep, n_heads=rep, n_kv_heads=1, n_layers=1, seq_len=48)
+        cfg = torch_cfg(jcfg)
+        wo = QuantizedTensor(q=torch.zeros(1, d * rep, 128, dtype=torch.int8),
+                             scales=torch.ones(1, d * rep // 64, 128), group_size=64, bits=8)
+        cache = tl.KVCache(k=torch.zeros(1, 2, 1, 48, d), v=torch.zeros(1, 2, 1, 48, d))
+        monkeypatch.setattr(tl, "ATTN_BLOCK", 2)
+        assert tl.attn_block_mode({"wo": wo}, cfg, cache, 2) == 2
+        form, groups = ab.form_for(torch.bfloat16, rep)
+        assert (form, groups) == da.row_form(1, rep)
+        assert form in da.FORMS and (groups == 1 or form == 64)
+        assert form * (groups - 1) < rep <= form * groups
+        sform, sgroups = ab.form_for(torch.float32, rep)
+        assert sform in ab.SIMT_FORMS and sform * (sgroups - 1) < rep <= sform * sgroups
+        for s in (512, 4096, 131072):
+            row = torch.zeros(1, 1, 1, 1, d).expand(1, 2, 1, s, d)   # no bytes of its own
+            big = tl.KVCache(k=row, v=row) if rep in (32, 64) else cache
+            assert tl.attn_block_mode({"wo": wo}, cfg, big, 2) == 2
+            assert (ab.nsplit(s) - 1) * ab.CHUNK < s - 1 <= ab.nsplit(s) * ab.CHUNK
+    assert ab.form_for(torch.bfloat16, 12) == (16, 1)   # Mistral-Large-Instruct-2407
+    assert ab.form_for(torch.bfloat16, 7) == (8, 1)     # Yi-34B: the parent's code
+    assert ab.form_for(torch.bfloat16, 65) == (64, 2)
+
+
+def test_group12_engine_streams_under_mode_2_equal_jax_engine(monkeypatch, fused_calls):
+    """A group-12 model (dim 1536, 12 heads over 1 kv head, head_dim 128,
+    2 layers, int4 gs 16: Mistral-Large-Instruct-2407's group) served by the
+    port's engine under RAMA_ATTN_BLOCK 2 streams the JAX engine's greedy
+    ids (unfused on the CPU: the same function), every decode step through
+    the full form of K14 (its plain version on CPU tensors)."""
+    from rama_tpu.config import EngineConfig as JEcfg
+    from rama_tpu.runtime.engine import Engine as JEngine
+    from rama_tpu.runtime.engine import Request as JRequest
+    from rama_tpu.tokenizer import Tokenizer as JTok
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    jcfg, cfg, jp, tp = _hd128(1536, 12, 1, 4, seed=12)
+    v = cfg.vocab_size
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                        for i in range(v - 3)]
+    prompts = (("abab", 9), ("zq", 6), ("abcabc", 7))
+
+    def serve(engine, cls):
+        engine.start()
+        try:
+            reqs = [cls(prompt=pr, steps=n, temperature=0.0, stop_at_eos=False)
+                    for pr, n in prompts]
+            for r in reqs:
+                engine.submit(r)
+            outs = []
+            for r in reqs:
+                out = []
+                while (t := r.queue.get(timeout=120)) is not None:
+                    out.append(t)
+                outs.append(out)
+        finally:
+            engine.stop()
+        assert all(r.error is None for r in reqs)
+        return outs
+
+    ecfg = dict(max_batch_size=4, decode_tick=4)
+    want = serve(JEngine(jcfg, jp, JTok(vocab, [0.0] * v, max_token_length=4), JEcfg(**ecfg)),
+                 JRequest)
+    monkeypatch.setattr(tl, "ATTN_BLOCK", 2)
+    got = serve(Engine(cfg, tp, Tokenizer(vocab, [0.0] * v, max_token_length=4),
+                       EngineConfig(**ecfg)), Request)
+    assert got == want
+    assert [len(s) for s in got] == [n for _, n in prompts]
+    assert fused_calls["attn_block_layered"] > 0 and fused_calls["attn_rope_write_layered"] == 0

@@ -127,7 +127,10 @@ def counters():
     bodies = (dict(pa.launches_by_body), dict(qm.launches_by_body), dict(ffn.launches_by_body),
               dict(da.launches_by_body), dict(pga.launches_by_body), dict(ab.launches_by_body))
     k5_forms, k3_forms = dict(pa.launches_by_form), dict(ffn.launches_by_form)
+    k14_forms = {body: dict(forms) for body, forms in ab.launches_by_form.items()}
     yield mods
+    for body, forms in k14_forms.items():
+        ab.launches_by_form[body].update(forms)
     pa.launches_by_form.update(k5_forms)
     ffn.launches_by_form.update(k3_forms)
     ab.launches_by_body.update(bodies[5])
@@ -1650,3 +1653,193 @@ def test_model_yi_phase_on_a_tiny_group7_model(smoke, monkeypatch, counters):
     before = pa.launches
     smoke.phase_model_yi(torch, cfg, params, dev=torch.device("cpu"))
     assert pa.launches - before == cfg.n_layers    # the kernel path's prefill, once a layer
+
+
+# -- Mistral-Large-Instruct-2407: K14 at GQA group 12 --------------------------------
+
+ML_PHASES = ("model_ml", "serve_ml", "serve_ml_ab1", "serve_ml_ab2", "profile_ml_ab")
+ML_PATHS = ("ML_PATH", "ML_AB1_PATH", "ML_AB2_PATH")
+
+
+def test_ml_phases_are_known_and_a_subset_is_not_ok(smoke):
+    assert smoke.ALL_PHASES[-1] == "cli"
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    for ph in ML_PHASES:
+        assert ph in smoke.ALL_PHASES
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != ph), dev)
+        assert line == {"ok": False, "skipped_phases": [ph], "device": dev}
+        assert rc == smoke.PARTIAL_RC != 0
+    assert {ph for name in ML_PATHS for ph in getattr(smoke, name)["phases"]} - {None} == set(
+        ML_PHASES)
+    # after every other model: the Yi-34B paths' params are freed first
+    order = [path.get("model", "7b") for path in smoke.PATHS]
+    assert order[-3:] == ["ml"] * 3 and "ml" not in order[:-3]
+
+
+def test_mistral_large_is_the_published_shape(smoke):
+    """Mistral-Large-Instruct-2407's config.json: GQA group 12 (96 heads
+    over 8), head_dim 128, 88 layers, vocab 32768, rope_theta 1e6, untied;
+    its T = 1 decode attention and K14 run the 16-row form; every layer
+    weight is int4 at gs 64, and the params (int4 bytes, f32 scales, the
+    int8 embedding and classifier with their scales) come to ~69.4 GB."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.quant import pick_int4_group_size
+
+    cfg = smoke.mistral_large_config(ModelConfig)
+    assert (cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+            cfg.vocab_size, cfg.seq_len, cfg.shared_classifier, cfg.rope_theta,
+            cfg.norm_eps) == (12288, 28672, 88, 96, 8, 32768, 131072, False, 1e6, 1e-5)
+    assert cfg.n_rep == 12 and cfg.head_dim == 128
+    assert da.row_form(1, cfg.n_rep) == (16, 1) == ab.form_for(torch.bfloat16, cfg.n_rep)
+    D, H, L, V = cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.vocab_size
+    shapes = ((D, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim), (D, D), (D, 2 * H),
+              (H, D))
+    assert {pick_int4_group_size(k, 64) for k, _ in shapes} == {64}
+    weights = sum(L * k * n // 2 + L * k // 64 * n * 4 for k, n in shapes)
+    embed = 2 * (V * D + V * D // 64 * 4)
+    assert 69.0e9 < weights + embed < 69.8e9
+    assert smoke.mistral_large_config(ModelConfig, n_layers=2).n_layers == 2
+    for name in ML_PATHS:
+        path = getattr(smoke, name)
+        assert path["model"] == "ml" and path["bits"] == 4
+        assert path["serve"] == {"max_seq_len": smoke.ML_MAX_LEN} and smoke.ML_MAX_LEN == 512
+        assert path["equal"]["prefill_attention_gqa"] == "prefill_attention"
+
+
+def _ml_launches(path, **over):
+    return {**{k: 88 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+            "prefill_attention_mma": 88, "prefill_attention_simt": 0,
+            "attn_block_mma": 88, "attn_block_mma_rows16": 88, **over}
+
+
+def test_ml_path_needs_every_k4_launch_in_the_16_row_form(smoke):
+    path = smoke.ML_PATH
+    smoke.check_launches(path, _ml_launches(path))
+    with pytest.raises(SystemExit, match="as often as"):
+        smoke.check_launches(path, _ml_launches(path, decode_attention_mma_rows16=87))
+    with pytest.raises(SystemExit, match="launched on the Mistral-Large int4 main"):
+        smoke.check_launches(path, _ml_launches(path, decode_attention_mma_rows8=1))
+    with pytest.raises(SystemExit, match="launched on the Mistral-Large int4 main"):
+        smoke.check_launches(path, _ml_launches(path, attn_block_layered_int4=88))
+
+
+@pytest.mark.parametrize("name,fused", [("ML_AB1_PATH", "attn_rope_write_layered"),
+                                        ("ML_AB2_PATH", "attn_block_layered_int4")])
+def test_ml_attention_block_paths_need_every_k14_launch_in_the_16_row_form(smoke, name, fused):
+    """Under RAMA_ATTN_BLOCK 1 / 2 every Mistral-Large decode step runs K14
+    once a layer (as often as K3), each launch in the 16-row form
+    (attn_block_gqa and attn_block_mma_rows16 as many), K4 never, the SIMT
+    body never."""
+    path = getattr(smoke, name)
+    smoke.check_launches(path, _ml_launches(path))
+    for bad, match in (({"attn_block_gqa": 87}, "as often as"),
+                       ({"attn_block_mma_rows16": 80}, "as often as"),
+                       ({fused: 87}, "as often as"),
+                       ({"decode_attention": 88}, r"\['decode_attention'\] launched"),
+                       ({"attn_block_simt": 1}, "launched on the Mistral"),
+                       ({fused: 0, "attn_block_gqa": 0, "attn_block_mma_rows16": 0,
+                         "ffn_int4": 0}, "never launched")):
+        with pytest.raises(SystemExit, match=match):
+            smoke.check_launches(path, _ml_launches(path, **bad))
+
+
+@pytest.mark.parametrize("name", ["AB1_PATH", "AB2_PATH", "AB2_INT4_PATH", "YI_AB2_PATH"])
+def test_7b_and_yi_attention_block_paths_fail_on_a_k14_launch_in_a_wide_form(smoke, name):
+    """Llama-2-7B (group 1) and Yi-34B (group 7) run K14's 8-row form, the
+    parent's code: a launch in a form of more than 8 rows fails them."""
+    path = getattr(smoke, name)
+    ok = {**{k: 64 for k in path["record"]}, **{k: 0 for k in path["forbid"]},
+          "prefill_attention_mma": 64, "prefill_attention_simt": 0}
+    smoke.check_launches(path, ok)
+    with pytest.raises(SystemExit, match=r"\['attn_block_gqa'\] launched"):
+        smoke.check_launches(path, {**ok, "attn_block_gqa": 1})
+
+
+def test_k14_launch_counts_by_form_are_read_and_reset(smoke, counters):
+    ab = counters[-1]
+    ab.launches_by_form["mma"].update({8: 3, 16: 88, 64: 2})
+    ab.launches_by_form["simt"][8] = 4
+    got = smoke.read_launches(*counters)
+    assert (got["attn_block_mma_rows8"], got["attn_block_mma_rows16"],
+            got["attn_block_mma_rows64"], got["attn_block_simt_rows8"]) == (3, 88, 2, 4)
+    assert got["attn_block_gqa"] == 90      # the mma forms of more than 8 rows
+    assert smoke.BODY_COUNTS["attn_block_gqa"] == ("attn_block", ("mma", "simt"))
+    smoke.reset_launches(*counters)
+    assert not any(n for forms in ab.launches_by_form.values() for n in forms.values())
+
+
+def test_random_int4_weight_is_made_a_layer_at_a_time(smoke):
+    """random_int4_qt fills the stacked tensors layer by layer: every layer
+    drawn (no layer left as the empty tensor's bytes), nibbles in [-7, 7],
+    scales in the ~N(0, 1/K) range."""
+    from rama_tpu_torch.ops.quant import unpack_int4
+
+    g = torch.Generator().manual_seed(3)
+    w = smoke.random_int4_qt(torch, 3, 256, 128, 64, torch.device("cpu"), g)
+    vals = unpack_int4(w.q, w.group_size)
+    assert vals.shape == (3, 256, 128) and int(vals.min()) == -7 and int(vals.max()) == 7
+    lo, hi = 0.5 / (smoke.INT4_STD * 16), 1.5 / (smoke.INT4_STD * 16)
+    assert bool(((w.scales >= lo) & (w.scales <= hi)).all())
+    assert all(float(vals[i].float().std()) > 3 for i in range(3))
+    assert not torch.equal(w.q[0], w.q[1])
+
+
+def test_model_ml_phase_on_a_tiny_group12_model(smoke, monkeypatch, counters):
+    """phase_model_ml's checks on the CPU on a group-12 model (12 heads over
+    1 kv head, head_dim 128, 2 layers, int4; plain against plain, the plain
+    versions counted as the card's launches in the 16-row form): K5 once a
+    layer, K4 once a layer of the mode-0 step, K14 once a layer under modes
+    1 and 2, a non-degenerate greedy run."""
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models import llama
+    from rama_tpu_torch.models.llama import fuse_params, quantize_params
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=1536, hidden_dim=176, n_layers=2, n_heads=12, n_kv_heads=1,
+                      vocab_size=128, seq_len=64)
+    rng = np.random.default_rng(12)
+    L, D, H, V = 2, 1536, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, 128), "wv": (L, D, 128),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    params = fuse_params(quantize_params(cfg, p, bits=4, group_size=16, dtype=torch.float32,
+                                         device="cpu"), cfg)
+    chars = sorted(set("Once upon a time"))
+    vocab = ["<unk>", "<s>", "</s>"] + chars + [f"x{i}" for i in range(V - 3 - len(chars))]
+    tok = Tokenizer(vocab, [0.0] * V, max_token_length=4)
+
+    def count(mod, name, key, by_form):
+        real = getattr(mod, name + "_plain")
+
+        def counted(*a, **k):
+            if isinstance(mod.launches, dict):
+                mod.launches[key(a)] += 1
+            else:
+                mod.launches += 1
+            by_form["mma"][16] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, name + "_plain", counted)
+
+    count(da, "decode_attention", None, da.launches_by_form)
+    count(ab, "attn_rope_write_layered", lambda a: "attn_rope_write_layered",
+          ab.launches_by_form)
+    count(ab, "attn_block_layered", lambda a: "attn_block_layered" + (
+        "_int4" if a[7].bits == 4 else ""), ab.launches_by_form)
+    _count_plain(monkeypatch, pa, "prefill_attention", "launches")
+    monkeypatch.setattr(llama, "ATTN_BLOCK", 0)
+    before = pa.launches, da.launches, ab.launches["attn_block_layered_int4"]
+    smoke.phase_model_ml(torch, cfg, params, tok, dev=torch.device("cpu"))
+    assert pa.launches - before[0] >= cfg.n_layers     # the kernel path's prefill, a layer
+    assert da.launches - before[1] >= cfg.n_layers
+    assert ab.launches["attn_block_layered_int4"] - before[2] == cfg.n_layers
+    assert llama.ATTN_BLOCK == 0

@@ -1484,15 +1484,23 @@ _AB_POSITIONS = {"edges": lambda s: [0, s - 1, s + 3, 63, 64, 65, 1, 128, 17],
 @pytest.mark.parametrize("b,nkv,rep,s", [(3, 2, 1, 72), (2, 4, 2, 200), (9, 2, 4, 64),
                                          (1, 3, 1, 136), (8, 2, 1, 200), (8, 1, 8, 136),
                                          (1, 2, 8, 72), (8, 4, 4, 4096), (1, 1, 2, 4096),
-                                         (8, 8, 7, 200), (1, 2, 7, 4096)])
+                                         (8, 8, 7, 200), (1, 2, 7, 4096),
+                                         # groups past 8: the 16 / 32 / 64-row forms, row
+                                         # groups of 64 past 64 (65: a group of one row)
+                                         (8, 1, 9, 200), (8, 8, 12, 512), (9, 2, 12, 4096),
+                                         (1, 1, 16, 4096), (9, 2, 24, 136), (1, 1, 48, 4096),
+                                         (8, 1, 64, 1024), (9, 1, 65, 200), (1, 1, 96, 4096),
+                                         (8, 1, 96, 512)])
 @pytest.mark.parametrize("positions", ["edges", "more"])
 @pytest.mark.parametrize("form", ["light", 8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attn_block(dev, b, nkv, rep, s, positions, form, dtype):
     """Each form against its plain version, the attention on the body
     body_for picks (bf16: split tensor-core attention, fp32: the SIMT body)
-    and wo on K1, the written cache rows by _check_rows; GQA rep 1 / 2 / 4 /
-    8 and 7 (Yi-34B's group over its 8 kv heads: 7 live rows of 8)."""
+    in the row form form_for picks, and wo on K1, the written cache rows by
+    _check_rows; GQA rep 1 / 2 / 4 / 8, 7 (Yi-34B's group over its 8 kv
+    heads: 7 live rows of 8), and 9 / 12 (Mistral-Large's) / 16 / 24 / 48 /
+    64 / 65 / 96 (row groups of 64, or of 8 on the SIMT body)."""
     from rama_tpu_torch.ops.kernels import attn_block as ab
 
     q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=b * s + rep)
@@ -1500,7 +1508,9 @@ def test_attn_block(dev, b, nkv, rep, s, positions, form, dtype):
     got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
     wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 256, 64, seed=s, bits=form)
     name, body = _ab_name(form), ab.body_for(dtype)
+    rows = ab.form_for(dtype, rep)[0]
     n0, nb = ab.launches[name], dict(ab.launches_by_body)
+    nf = ab.launches_by_form[body][rows]
     got = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), got_c, pos, 1)
     want = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), want_c, pos, 1, plain=True)
     torch.cuda.synchronize()
@@ -1508,20 +1518,85 @@ def test_attn_block(dev, b, nkv, rep, s, positions, form, dtype):
     _check_rows(got_c, want_c, before, pos, 1)
     assert ab.launches[name] == n0 + 1
     assert {k: ab.launches_by_body[k] - nb[k] for k in nb} == {k: int(k == body) for k in nb}
+    assert ab.launches_by_form[body][rows] == nf + 1
 
 
+@pytest.mark.parametrize("rep,rows", [(r, 16) for r in range(1, 9)] + [(3, 32), (8, 64),
+                                                                     (12, 32), (12, 64),
+                                                                     (24, 64)])
+@pytest.mark.parametrize("form", ["light", 4])
+def test_attn_block_larger_form_equals_the_group_form_bit_for_bit(dev, rep, rows, form):
+    """A bf16 launch forced (the private _rows) into a larger row form than
+    its group's (rep 1..8 into the 16-row form, which Mistral-Large's group
+    12 runs; others into 32 / 64) equals the group's own form (8 / 16 / 32)
+    bit for bit, output and written rows: a query row's arithmetic is the
+    same in every form, the extra rows zero queries that store nothing."""
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    b, nkv, s = 8, 2, 1024
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, torch.bfloat16, seed=rep + rows)
+    pos = torch.tensor([0, 63, 64, 65, 500, 1000, 1023, 1027], dtype=torch.int32, device=dev)
+    wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 256, 64, seed=rep, bits=4)
+    outs, caches = [], []
+    for forced in (None, rows):
+        c = [t.clone() for t in before]
+        n0 = ab.launches_by_form["mma"][forced or ab.form_for(torch.bfloat16, rep)[0]]
+        args = (q, kn, vn, cos, sin, *c)
+        out = (ab.attn_rope_write_layered(*args, pos, 1, _rows=forced) if wo is None else
+               ab.attn_block_layered(*args, wo, pos, 1, _rows=forced))
+        assert ab.launches_by_form["mma"][forced or ab.form_for(torch.bfloat16, rep)[0]] == n0 + 1
+        outs.append(out)
+        caches.append(c)
+    torch.cuda.synchronize()
+    assert ab.form_for(torch.bfloat16, rep)[0] < rows
+    assert torch.equal(outs[0], outs[1])
+    for a, b_ in zip(*caches):
+        assert torch.equal(a, b_)
+    with pytest.raises(ValueError, match="larger form"):   # a smaller form than the group's
+        ab.attn_rope_write_layered(q, kn, vn, cos, sin, *before, pos, 1,
+                                   _rows=8 if rep > 8 else 7)
+
+
+@pytest.mark.parametrize("rep,s", [(64, 57344), (32, 131072), (8, 458752)])
+@pytest.mark.parametrize("form", ["light", 4])
+def test_attn_block_long_cache_keeps_split_weights_in_the_workspace(dev, rep, s, form):
+    """A bf16 cache whose split weights (rows x nsplit floats) pass the
+    card's shared memory in the combine (the 64-row form past ~49.6k rows,
+    32 past ~107.6k, 8 past ~455.5k on an H100) is taken: the combine keeps
+    them in the workspace (its shared bytes then hold no weights), and each
+    form is within tolerance of its plain version, the rows written."""
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+
+    b, nkv = 2, 1
+    rows = ab.form_for(torch.bfloat16, rep)[0]
+    comb = ab.light_occupancy(rep * nkv, nkv, s)["combine"]
+    assert comb["smem_bytes"] == 4 * (rows * 128 + 128 + 3 * rows)
+    assert ab.light_occupancy(rep * nkv, nkv, 4096)["combine"]["smem_bytes"] > comb["smem_bytes"]
+    q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, torch.bfloat16, seed=rep)
+    pos = torch.tensor([s - 1, s // 2 + 65], dtype=torch.int32, device=dev)
+    wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 256, 64, seed=rep, bits=4)
+    got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
+    got = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), got_c, pos, 1)
+    want = _ab_call(ab, form, wo, (q, kn, vn, cos, sin), want_c, pos, 1, plain=True)
+    torch.cuda.synchronize()
+    _close_k(got, want, torch.bfloat16)
+    _check_rows(got_c, want_c, before, pos, 1)
+
+
+@pytest.mark.parametrize("rep", [2, 12])
 @pytest.mark.parametrize("form", ["light", 8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attn_block_back_to_back(dev, form, dtype):
+def test_attn_block_back_to_back(dev, form, dtype, rep):
     """Launches back to back with the layer cycling (0, 1, 0, 1, 1) and the
     positions moving on, each against the plain version on its own copy of
     the cache: the split workspaces of one launch carry nothing into the
     next, and K1's split-K tickets under the full form are left zeroed (the
-    ticket buffer is all zero after)."""
+    ticket buffer is all zero after); GQA group 2 and 12 (the 16-row form,
+    or two row groups of 8 on the SIMT body)."""
     from rama_tpu_torch.ops.kernels import attn_block as ab
     from rama_tpu_torch.ops.kernels import build
 
-    b, nkv, rep, s = 8, 2, 2, 200
+    b, nkv, s = 8, 2, 200
     q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=31)
     wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 384, 64, seed=7, bits=form)
     got_c, want_c = [t.clone() for t in before], [t.clone() for t in before]
@@ -1537,16 +1612,18 @@ def test_attn_block_back_to_back(dev, form, dtype):
     assert int(build.tickets(dev, 1).abs().sum()) == 0
 
 
+@pytest.mark.parametrize("rep", [2, 12])
 @pytest.mark.parametrize("form,dtype", [("light", torch.bfloat16), (8, torch.bfloat16),
                                         (4, torch.bfloat16), (8, torch.float32)])
-def test_attn_block_replays_in_a_cuda_graph(dev, form, dtype):
+def test_attn_block_replays_in_a_cuda_graph(dev, form, dtype, rep):
     """Each form captured in a CUDA graph and replayed (twice) equals an
     eager launch on the same inputs bit for bit, output and written rows:
     bf16 light (split + combine) and full (those, then K1's qmv_mma), and
-    the fp32 full form (the SIMT kernel, then K1's fp32 GEMV)."""
+    the fp32 full form (the SIMT kernel, then K1's fp32 GEMV); GQA group 2
+    and 12 (Mistral-Large's: the 16-row form)."""
     from rama_tpu_torch.ops.kernels import attn_block as ab
 
-    b, nkv, rep, s = 8, 4, 2, 1024
+    b, nkv, s = 8, 4, 1024
     q, kn, vn, cos, sin, before = _ab_case(dev, b, nkv, rep, s, dtype, seed=17)
     pos = torch.tensor([0, 63, 64, 65, 500, 1000, 1023, 1027], dtype=torch.int32, device=dev)
     wo = None if form == "light" else _qt(dev, 2, nkv * rep * 128, 512, 64, seed=5, bits=form)
