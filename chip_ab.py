@@ -48,7 +48,24 @@ another model:
   - the fused FFN (K3 / K3'): device ms (torch.profiler) and CUDA-event ms
     a call at the 7B shapes (int8 gs 64; int4 w13 gs 64, w2 gs 16; il 256;
     8 layers cycled), M = 1 / 8 / 32, and, where the tree takes any M, 64 /
-    128 / 256, with the bound beside; `--ffn-only` runs only these.
+    128 / 256, with the bound beside; `--ffn-only` runs only these;
+  - `--write-only`: the int8 row writers K11 / K13 (a) beside the walk
+    that attends to their rows, device ms (CUDA events over a CUDA graph
+    of 20 launches, chip_smoke.graph_device_ms) at the serving shapes: K10
+    _q8 at S 4096, T 4, and K12 _q8 on an int8 pool of 128-row pages at T
+    1 and 4: the walk alone, the standalone writer then the walk, the
+    writer alone, and, on a tree whose walk writes the rows itself (the
+    `k_new` / `v_new` operands), that fused launch; then 8-slot 7B int8
+    verify rounds of 4 on an int8 cache (`profile_spec`'s) and decode steps
+    on an int8 pool (`profile_paged`'s) at pos 64 and 2048: device and host
+    ms a round or step (`--write-kernels`: the kernels alone);
+  - `--summary FILE`: no card; reads the JSON lines of runs in turns (a
+    file of this script's output) and prints, for each measure and each
+    of its times, every tag's runs in the order they ran, their median
+    and quartiles, and in how many pairs (the k-th parent run with the
+    k-th change run) the change reads lower; the change's fused write
+    (`fused_ms`) is also paired with the parent's writer then walk
+    (`writer_then_walk_ms`), the launches its path ran before.
 
 It uses only entry points that every slice of the port since the paged
 cache has, and chip_smoke.py's helpers from its own directory, so it can
@@ -69,6 +86,42 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
+def summarize(path: str, base: str = "parent", other: str = "change",
+              against: tuple = (("fused_ms", "writer_then_walk_ms"),)) -> list[str]:
+    """The lines `--summary` prints for the JSON lines in `path`: for each
+    (measure, key ending in _ms or busy), each tag's runs, median and
+    quartiles, then the pairs of `base` and `other` in which `other` reads
+    lower (the k-th run of each, as many pairs as the shorter has); for
+    each (key of `other`, key of `base`) in `against`, the same pairs
+    across the two keys."""
+    import statistics as st
+
+    runs: dict[tuple, dict[str, list]] = {}
+    for line in Path(path).read_text().splitlines():
+        if not line.startswith("{"):
+            continue
+        r = json.loads(line)
+        for k, x in r.items():
+            if (k.endswith("_ms") or k == "busy") and isinstance(x, (int, float)):
+                runs.setdefault((r["measure"], k), {}).setdefault(r["tag"], []).append(x)
+    out = []
+    for (measure, k), by in sorted(runs.items()):
+        for tag, xs in by.items():
+            q = st.quantiles(xs, n=4) if len(xs) > 1 else [xs[0]] * 3
+            out.append(f"{measure} | {k} | {tag}: n {len(xs)}, median {st.median(xs):.5f}, "
+                       f"quartiles {q[0]:.5f} / {q[2]:.5f}, runs "
+                       + " ".join(f"{x:.5f}" for x in xs))
+        pairs = [(k, k)] + [(ko, kb) for ko, kb in against if ko == k]
+        for ko, kb in pairs:
+            a = runs.get((measure, kb), {}).get(base, [])
+            b = runs.get((measure, ko), {}).get(other, [])
+            if a and b:
+                n = min(len(a), len(b))
+                out.append(f"{measure} | {other} {ko} lower than {base} {kb} in "
+                           f"{sum(b[i] < a[i] for i in range(n))} of {n} pairs")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="checkout whose rama_tpu_torch is timed")
@@ -77,7 +130,16 @@ def main() -> int:
     ap.add_argument("--ffn-only", action="store_true", help="time the fused FFN (K3) only")
     ap.add_argument("--k14-only", action="store_true",
                     help="time the fused attention block (K14) only")
+    ap.add_argument("--write-only", action="store_true",
+                    help="time the int8 row writers beside the walk, and int8 rounds / steps")
+    ap.add_argument("--write-kernels", action="store_true",
+                    help="time the int8 row writers beside the walk only")
+    ap.add_argument("--summary", metavar="FILE",
+                    help="summarize the JSON lines of runs in turns in FILE (no card)")
     args = ap.parse_args()
+    if args.summary:
+        print("\n".join(summarize(args.summary)))
+        return 0
     sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
     import torch
 
@@ -159,6 +221,90 @@ def main() -> int:
 
     if args.ffn_only:
         time_k3()
+        emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+        return 0
+
+    # -- K11 / K13 (a) beside the walk, and int8 rounds / steps ---------------------------
+    def time_writes() -> None:
+        import inspect
+
+        from rama_tpu_torch.ops.kernels import paged_attention as pga
+        from rama_tpu_torch.runtime.paged import QuantPagedKVCache
+
+        fused = "k_new" in inspect.signature(da.chunk_attention_q8).parameters
+        S, T = cs.KV8_MAX_LEN, cs.SPEC_TICK + 1
+        c = cs.quantized_cache(torch, kvw, rx, 4, B, nkv, S, hd)
+        p0 = torch.tensor([0, 63, 1021, 2047, 3000, 4000, 4090, S - T], dtype=torch.int32,
+                          device=dev)
+        q, kn, vn = rx(B, T, nh, hd), rx(B, T, nkv, hd), rx(B, T, nkv, hd)
+        lay = cs.Layered(4)
+
+        def pair():
+            l = lay.next()
+            kvw.write_kv_chunk_q8(*c, kn, vn, p0, l)
+            return da.chunk_attention_q8(q, *c, p0, l)
+
+        fns = {"walk_ms": lambda: da.chunk_attention_q8(q, *c, p0, lay.next()),
+               "writer_then_walk_ms": pair,
+               "writer_ms": lambda: kvw.write_kv_chunk_q8(*c, kn, vn, p0, lay.next())}
+        if fused:
+            fns["fused_ms"] = lambda: da.chunk_attention_q8(q, *c, p0, lay.next(), k_new=kn,
+                                                           v_new=vn)
+        emit(f"K11 in K10 S={S} T={T}", **cs.graph_device_ms(torch, fns))
+        del c
+        mp, ps = S // cs.PAGE_SIZE, cs.PAGE_SIZE
+        for t in (1, T):
+            pos = [0, 127, 128, 255, 1000, 2047, 3000, S - t]
+            tables, npages = cs.paged_tables(torch, [p + t for p in pos], ps, mp, 4, gc)
+            tables, p0 = tables.to(dev), torch.tensor(pos, dtype=torch.int32, device=dev)
+            (k8, ks), (v8, vs) = (kvw.kv_quant_rows(rx(4, npages, nkv, ps, hd, dtype=torch.float32))
+                                  for _ in range(2))
+            pool = (k8, v8, ks, vs)
+            q, kn, vn = rx(B, t, nh, hd), rx(B, t, nkv, hd), rx(B, t, nkv, hd)
+
+            def attend(l, **rows):
+                if t == 1:
+                    rows = {k: r[:, 0] for k, r in rows.items()}
+                    return pga.paged_decode_attention_q8(q[:, 0], *pool, p0, tables, l, **rows)
+                return pga.paged_chunk_attention_q8(q, *pool, p0, tables, l, **rows)
+
+            def pair():
+                l = lay.next()
+                kvw.write_kv_paged_q8(*pool, kn, vn, p0, tables, l)
+                return attend(l)
+
+            fns = {"walk_ms": lambda: attend(lay.next()), "writer_then_walk_ms": pair,
+                   "writer_ms": lambda: kvw.write_kv_paged_q8(*pool, kn, vn, p0, tables,
+                                                              lay.next())}
+            if fused:
+                fns["fused_ms"] = lambda: attend(lay.next(), k_new=kn, v_new=vn)
+            emit(f"K13 (a) in K12 ps={ps} T={t}", **cs.graph_device_ms(torch, fns))
+            del pool, k8, v8
+        torch.cuda.empty_cache()
+        if args.write_kernels:
+            return
+        params = cs.random_params(torch, cfg, dev, bits=8)
+        long = dict(params)
+        long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=S)
+        cache = QuantKVCache.create(cfg, 8, S, device=dev)
+        for start in (64, 2048):
+            r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache,
+                                 start=start, chunk=T)
+            emit(f"profile_spec int8 cache pos {start} chunk {T}", **r)
+        del cache
+        torch.cuda.empty_cache()
+        tables = torch.randperm(8 * mp, generator=torch.Generator().manual_seed(4))
+        tables = tables.view(8, mp).to(torch.int32).to(dev)
+        cache = QuantPagedKVCache.create(cfg, 8 * mp + 1, ps, device=dev)
+        for start in (64, 2048):
+            r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache,
+                                 start=start, tables=tables)
+            emit(f"profile_paged int8 pool pos {start}", **r)
+        del cache, long, params
+        torch.cuda.empty_cache()
+
+    if args.write_only or args.write_kernels:
+        time_writes()
         emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
         return 0
 

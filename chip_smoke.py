@@ -96,8 +96,14 @@ Phases, in order (any failure raises and the script exits non-zero):
            (by the launch counts by body); GQA rep 2 / 4, hd 16 / 48 / 64 /
            128, bf16 (hd 48 / 64 / 128 on the tensor-core body) and fp32
            (the SIMT body; the int8 cache's chunks on the walk body); the
-           chunk writer (K11) exact, with chunks straddling a
-           32-row window and reaching S; K4 at the stories15M draft's
+           standalone chunk writer (K11) exact, with chunks straddling a
+           32-row window and reaching S; K11 inside K10 (the walk given
+           the chunk's rows, at S 4096, T 1 / 2 / 4 / 8, planted rows)
+           against the writer then the walk (bit for bit, cache byte for
+           byte) and the plain version, and its device ms (CUDA events
+           over a CUDA graph of 20 launches) beside the walk alone, the
+           writer then the walk and the writer alone (also K6 and K8 in
+           kernels_kv8, K13 (a) / (b) in kernels_paged); K4 at the stories15M draft's
            head_dim 48; CUDA-event times beside K4 / K6 on the same rows;
            device ms of the split kernel and the combine beside the T = 1
            split on the same rows (the profiled split kernel must be
@@ -132,8 +138,11 @@ Phases, in order (any failure raises and the script exits non-zero):
            (by the counts by body and the profiled split kernel), the
            int8 decode's grid (CTAs launched against the splits with
            work); the paged writers (K13) exact, rows past
-           a table clipped into its last page; CUDA-event times beside the
-           dense kernels on the same rows
+           a table clipped into its last page; K13 (a) inside K12 (the walk
+           given the step's or chunk's rows, T 1 / 4 / 8, planted rows,
+           rows past a table) against the writer then the walk and the
+           plain version, timed as K11 inside K10; CUDA-event times beside
+           the dense kernels on the same rows
   model_paged  7B int8 decode steps and chunks (T 4) through the paged
            kernels against the plain path on a dense cache of the same rows,
            bf16 and int8 pools, positions up to 4092
@@ -206,7 +215,9 @@ Phases, in order (any failure raises and the script exits non-zero):
            versions with planted edges, each launch on its body and row
            form (the counts by body and by the form the C entry reports it
            launched), chunk rows equal to the
-           decode rows bit for bit at rep 3 / 8 / 16, each form's shared
+           decode rows bit for bit at rep 3 / 8 / 16, the int8 walk given
+           the chunk's rows (K11 / K13 (a) inside it) in every form against
+           the writer then the walk and the plain version, each form's shared
            bytes (occupancy API) against form_smem, the SIMT body's row
            groups (fp32); K10 and K12's chunk form timed at TinyLlama's
            shape (8 slots, 4 kv heads, hd 64, S 2048) at T 4 and 8 (and K10
@@ -377,6 +388,10 @@ BODY_COUNTS = {
 # entry reports them): record name -> prefix
 FORM_COUNTS = {name: prefix for name, (prefix, _) in BODY_COUNTS.items()
                if prefix in ("decode_attention", "paged_attention")}
+# launch counts kept in another kernel's record: the walk launches that wrote
+# their rows are K11's / K13 (a)'s launches on the main path
+RECORD_OF = {"write_kv_chunk_q8_fused": "write_kv_chunk_q8",
+             "write_kv_paged_q8_fused": "write_kv_paged_q8"}
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
@@ -430,14 +445,23 @@ SPEC_DRAFT_PATH = dict(label="draft speculation", bits=8,
                                "ffn": "launches_spec_draft_path",
                                "prefill_attention": "launches_spec_draft_path"},
                        forbid={})
+# K11 / K13 (a) on the int8 paths: every verify round's (and paged step's)
+# rows are written by the walk launch that attends to them
+# (`write_kv_*_q8_fused`: that launch's count, which goes to the K11 / K13
+# (a) record, RECORD_OF; `equal`: every walk launch of the path carries
+# rows); the standalone writers never launch there (their count goes to the
+# record's `standalone_launches`)
 SPEC_KV8_PATH = dict(label="speculation int8 KV", bits=8, phases=(None, "serve_spec_kv8", None),
                      serve=dict(spec_tick=SPEC_TICK, max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
-                     record={"chunk_attention_q8": "launches", "write_kv_chunk_q8": "launches",
+                     record={"chunk_attention_q8": "launches",
+                             "write_kv_chunk_q8_fused": "launches",
                              "write_kv_strips_q8": "launches_spec_kv8_path",
                              "quant_matmul": "launches_spec_kv8_path",
                              "ffn": "launches_spec_kv8_path",
                              "prefill_attention": "launches_spec_kv8_path"},
-                     forbid={"decode_attention": "launches_spec_kv8_path"})
+                     forbid={"decode_attention": "launches_spec_kv8_path",
+                             "write_kv_chunk_q8": "standalone_launches"},
+                     equal={"write_kv_chunk_q8_fused": "chunk_attention_q8"})
 # the paged paths: 8 slots at max_len 4096 on a pool of PAGED_NUM_PAGES
 # pages of PAGE_SIZE rows (K12 / K13 where the dense paths run K4, K7,
 # K10, K6, K8, K11; write_kv_paged_q8 is one kernel and one count for the
@@ -453,14 +477,16 @@ PAGED_PATH = dict(label="paged", bits=8, phases=("model_paged", "serve_paged", "
 PAGED_KV8_PATH = dict(label="paged int8 KV", bits=8, phases=(None, "serve_paged_kv8", None),
                       serve=dict(PAGED_SERVE, kv_quant="int8"),
                       record={"paged_decode_attention_q8": "launches",
-                              "write_kv_paged_q8": "launches",
+                              "write_kv_paged_q8_fused": "launches",
                               "write_kv_prefill_paged_q8": "launches",
                               "quant_matmul": "launches_paged_kv8_path",
                               "ffn": "launches_paged_kv8_path",
                               "prefill_attention": "launches_paged_kv8_path"},
-                      forbid={name: "launches_paged_kv8_path" for name in (
-                          "write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8",
-                          "decode_attention")})
+                      forbid={"write_kv_paged_q8": "standalone_launches",
+                              **{name: "launches_paged_kv8_path" for name in (
+                                  "write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8",
+                                  "decode_attention")}},
+                      equal={"write_kv_paged_q8_fused": "paged_decode_attention_q8"})
 SPEC_PAGED_PATH = dict(label="paged speculation", bits=8, phases=(None, "serve_spec_paged", None),
                        serve=dict(PAGED_SERVE, spec_tick=SPEC_TICK),
                        record={"paged_chunk_attention": "launches",
@@ -474,11 +500,14 @@ SPEC_PAGED_KV8_PATH = dict(
     serve=dict(PAGED_SERVE, spec_tick=SPEC_TICK, kv_quant="int8"),
     record={"paged_chunk_attention_q8": "launches",
             **{name: "launches_spec_paged_kv8_path" for name in (
-                "write_kv_paged_q8", "write_kv_prefill_paged_q8", "quant_matmul", "ffn",
+                "write_kv_paged_q8_fused", "write_kv_prefill_paged_q8", "quant_matmul", "ffn",
                 "prefill_attention")}},
-    forbid={name: "launches_spec_paged_kv8_path" for name in (
-        "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
-        "decode_attention", "chunk_attention", "paged_decode_attention_q8")})
+    forbid={"write_kv_paged_q8": "standalone_launches_spec_paged_kv8_path",
+            **{name: "launches_spec_paged_kv8_path" for name in (
+                "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8",
+                "write_kv_strips_q8", "decode_attention", "chunk_attention",
+                "paged_decode_attention_q8")}},
+    equal={"write_kv_paged_q8_fused": "paged_chunk_attention_q8"})
 # the fused attention block (kernel 14) under RAMA_ATTN_BLOCK 1 / 2 on the
 # int8 params, and 2 on the int4 ones (`attn_block`: the mode the path runs
 # under): K14 where the default path runs the RoPE, the row write and K4, 32
@@ -596,25 +625,31 @@ GQA_SPEC_KV8_PATH = dict(label="TinyLlama speculation T 4 int8 KV", model="tinyl
                          serve=dict(GQA_SERVE, spec_tick=SPEC_TICK, kv_quant="int8"),
                          record={"chunk_attention_q8_gqa": "launches",
                                  **{name: "launches_gqa_spec_kv8_path" for name in (
-                                     "chunk_attention_q8", "write_kv_chunk_q8",
+                                     "chunk_attention_q8", "write_kv_chunk_q8_fused",
                                      "write_kv_strips_q8", "quant_matmul", "ffn",
                                      "prefill_attention")}},
-                         forbid={name: "launches_gqa_spec_kv8_path" for name in (
-                             "decode_attention", "decode_attention_q8", "chunk_attention")},
-                         equal={"chunk_attention_q8_gqa": "chunk_attention_q8"})
+                         forbid={"write_kv_chunk_q8": "standalone_launches_gqa_spec_kv8_path",
+                                 **{name: "launches_gqa_spec_kv8_path" for name in (
+                                     "decode_attention", "decode_attention_q8",
+                                     "chunk_attention")}},
+                         equal={"chunk_attention_q8_gqa": "chunk_attention_q8",
+                                "write_kv_chunk_q8_fused": "chunk_attention_q8"})
 GQA_SPEC_PAGED_KV8_PATH = dict(
     label="TinyLlama paged speculation T 8 int8 KV", model="tinyllama", bits=8,
     phases=(None, "serve_gqa_spec_paged_kv8", None),
     serve=dict(GQA_SERVE, paged=True, spec_tick=GQA_SPEC_TICK, kv_quant="int8"),
     record={"paged_chunk_attention_q8_gqa": "launches",
             **{name: "launches_gqa_spec_paged_kv8_path" for name in (
-                "paged_chunk_attention_q8", "write_kv_paged_q8", "write_kv_prefill_paged_q8",
-                "quant_matmul", "prefill_attention", "quant_matmul_mma", "ffn", "ffn_one")}},
-    forbid={name: "launches_gqa_spec_paged_kv8_path" for name in (
-        "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8", "write_kv_strips_q8",
-        "paged_decode_attention_q8", "ffn_rows")},
+                "paged_chunk_attention_q8", "write_kv_paged_q8_fused",
+                "write_kv_prefill_paged_q8", "quant_matmul", "prefill_attention",
+                "quant_matmul_mma", "ffn", "ffn_one")}},
+    forbid={"write_kv_paged_q8": "standalone_launches_gqa_spec_paged_kv8_path",
+            **{name: "launches_gqa_spec_paged_kv8_path" for name in (
+                "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8",
+                "write_kv_strips_q8", "paged_decode_attention_q8", "ffn_rows")}},
     equal={"paged_chunk_attention_q8_gqa": "paged_chunk_attention_q8",
-           "ffn_one": "paged_chunk_attention_q8"})
+           "ffn_one": "paged_chunk_attention_q8",
+           "write_kv_paged_q8_fused": "paged_chunk_attention_q8"})
 GQA_SELF_PATH = dict(label="TinyLlama as its own draft", model="tinyllama", bits=8,
                      phases=(None, "spec_gqa_self", None), serve={},
                      record={name: "launches_gqa_self_path" for name in (
@@ -877,7 +912,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
         for key in counts:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
-    da.launches_flat = da.launches_flat_q8 = 0
+    da.launches_flat = da.launches_flat_q8 = da.launches_write_q8 = pga.launches_write_q8 = 0
     for bodies in (pa.launches_by_body, pa.launches_by_form, qm.launches_by_body,
                    ffn_mod.launches_by_body, ffn_mod.launches_by_form,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
@@ -911,6 +946,9 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "chunk_attention_q8": da.launches_chunk_q8,
             "decode_attention_flat": da.launches_flat,
             "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
+            # the walk launches that wrote their chunk's or step's rows (K11 / K13 (a) fused)
+            "write_kv_chunk_q8_fused": da.launches_write_q8,
+            "write_kv_paged_q8_fused": pga.launches_write_q8,
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
             **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()},
@@ -2147,14 +2185,15 @@ def phase_kernels_s16(torch, results: dict) -> None:
 def check_split_form(label: str, parts: dict, hd: int, form: int) -> None:
     """Fail unless every split kernel that attention_split_combine saw is
     the `form`-row form at head dim hd (its template arguments in the
-    profiler's name, <hd, form>); where the profiler saw none a line says
-    so (the launch counts by form still check it)."""
-    want = f"<{hd}, {form}>"
+    profiler's name, <hd, form> or the walk's <hd, form, write>); where the
+    profiler saw none a line says so (the launch counts by form still check
+    it)."""
+    want = f"<{hd}, {form}"                # the walk's instantiations add <…, WRITE>
     names = parts["split_kernel"]
     if not names:
         log(f"[check] {label}: torch.profiler recorded no split kernel; its form is checked "
             f"by the launch counts by form only")
-    elif not all(want in k for k in names):
+    elif not all(want + ">" in k or want + "," in k for k in names):
         raise SystemExit(f"FAILED {label}: split kernel {names}, not the {form}-row form {want}")
 
 
@@ -2257,6 +2296,12 @@ def phase_kernels_gqa(torch, results: dict) -> None:
                     got = on_form(counts, forms, body, form, label,
                                   lambda: fn(qq, *c, p0, *extra, 1))
                     compare(torch, label, got, plain(qq, *c, p0, *extra, 1), per=hd)
+                if q8:   # the walk launch that writes the chunk's rows (K11 / K13 (a))
+                    kn, vn = rx(B, t, nkv, hd), rx(B, t, nkv, hd)
+                    check_fused_form(
+                        torch, f"{fn.__name__} + rows {kind} rep={rep} T={t} hd={hd} ("
+                        f"{form}-row form x {groups})", c, q, p0, tables if paged else None,
+                        kn, vn, 1, form=form)
                 if t > 1 and rep in (3, 8, 16):
                     chunk = fn(q, *c, p0, *extra, 1)
                     for i in range(t):
@@ -2854,13 +2899,17 @@ def phase_kernels_kv8(torch, results: dict) -> None:
     k, v = rows(B, nkv, hd), rows(B, nkv, hd)
     lay = Layered(L)
     t_k = time_ms(torch, lambda: kvw.write_kv_rows_q8(*c1, k, v, pos, lay.next()))
+    k6_dev = graph_device_ms(torch, {"k6": lambda: kvw.write_kv_rows_q8(*c1, k, v, pos,
+                                                                        lay.next())})["k6"]
     t_p = time_ms(torch, lambda: kvw.write_kv_rows_q8_plain(*c2, k, v, pos, lay.next()))
     n_el = 2 * B * nkv * hd
-    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * nkv * 4 + B * 4, 3 * n_el)
+    b_ms, b_by = bound_ms(write_bytes(B, 1, nkv, hd), 3 * n_el)
+    log(f"[time] write_kv_rows_q8 B={B}: {t_k:.4f} ms (device {k6_dev:.4f}, CUDA events over a "
+        f"graph of 20 launches), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["write_kv_rows_q8"] = dict(
         name="write_kv_rows_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
         replaces="rama_tpu/ops/pallas/kv_write.py:49", max_abs_err=err, ms=t_k,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=k6_dev, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"k/v rows (8, 32, 128) bf16 -> cache (32, 8, 32, {S}, 128) int8 + scales, "
               f"pos {pos.tolist()}")
 
@@ -2889,15 +2938,15 @@ def phase_kernels_kv8(torch, results: dict) -> None:
     T = 16                                              # the serving bucket
     k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
     t_k = time_ms(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
-    k8_dev = device_ms_per_call(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
+    k8_dev = graph_device_ms(torch, {"k8": lambda: kvw.write_kv_strips_q8(*c1, k, v, slots,
+                                                                          T)})["k8"]
     t_p = time_ms(torch, lambda: kvw.write_kv_strips_q8_plain(*c1, k, v, slots, T), reps=5)
     n_el = 2 * L * B * nkv * T * hd
     b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * L * B * nkv * T * 4, 3 * n_el)
     results["write_kv_strips_q8"] = dict(
         name="write_kv_strips_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
         replaces="rama_tpu/ops/pallas/kv_write.py:221", max_abs_err=err, ms=t_k,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        breakdown={"device_ms": k8_dev},
+        device_ms=k8_dev, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"strips (32, 8, 32, 16, 128) bf16 -> slots {slots.tolist()} of the "
               f"(32, 8, 32, {S}, 128) int8 cache")
     del c1, k, v
@@ -2988,13 +3037,17 @@ def phase_kernels_kv8(torch, results: dict) -> None:
 
 
 def attention_bytes_ops(pos0, t: int, s: int, nkv: int, nh: int, hd: int, row_bytes: float,
-                        q_bytes: float) -> tuple[float, float]:
+                        q_bytes: float, written: bool = False) -> tuple[float, float]:
     """Bytes and flops of T-query chunk attention for this run's positions:
     each slot reads its K and V rows 0 .. min(pos0 + T - 1, S - 1) once
     (row_bytes a row and kv head, K and V together), q in and out once;
-    query t does 4 flops per visible row and head dim."""
+    query t does 4 flops per visible row and head dim. `written`: the same
+    launch writes the chunk's rows pos0 .. pos0 + T - 1 (their bytes are
+    counted by write_bytes), so it reads none of them back."""
     p = pos0.long().cpu()
     rows = (p + t - 1).clamp(0, s - 1) + 1
+    if written:
+        rows = rows - ((p + t).clamp(max=s) - p.clamp(max=s)).clamp(min=0)
     seen = sum(int(((p + i).clamp(0, s - 1) + 1).sum()) for i in range(t))
     return float(rows.sum()) * nkv * row_bytes + 2 * q_bytes, seen * nh * hd * 4.0
 
@@ -3169,6 +3222,141 @@ def device_ms_by_kernel(torch, fn, reps: int = 10, tries: int = 3) -> dict:
         if out:
             break
     return out
+
+
+def graph_device_ms(torch, fns: dict, n: int = 20, turns: int = 2) -> dict:
+    """Device ms a call of each fn of `fns` ({name: fn}): CUDA events around
+    the replay of a CUDA graph of n calls of it (captured after a warm-up
+    call on the capture stream), so no host time lies between the
+    launches; the graphs replayed in turns (a, b, c, c, b, a for 2 turns),
+    each fn's the mean of its replays."""
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(n):
+                fn()
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    out = dict.fromkeys(graphs, 0.0)
+    order = list(graphs)
+    for i in range(turns):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            out[name] += start.elapsed_time(end) / n / turns
+    del graphs
+    return out
+
+
+def fused_write_forms(paged: bool, t: int):
+    """(fused, pair, plain) of the int8 walk that writes a chunk's or a
+    step's new rows, each f(cache copy cc, q (B, T, nh, hd), pos0, tables
+    (None: dense), kn / vn (B, T, nkv, hd), layer): the wrapper given k_new
+    / v_new (K10 _q8; K12's int8 decode form at T 1, its chunk form
+    above), the standalone writer (K11 / K13 (a)) followed by the same
+    wrapper without them, and the plain version."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+
+    if not paged:
+        return (lambda cc, q, p0, tb, kn, vn, l: da.chunk_attention_q8(
+                    q, *cc, p0, l, k_new=kn, v_new=vn),
+                lambda cc, q, p0, tb, kn, vn, l: (
+                    kvw.write_kv_chunk_q8(*cc, kn, vn, p0, l),
+                    da.chunk_attention_q8(q, *cc, p0, l))[1],
+                lambda cc, q, p0, tb, kn, vn, l: da.chunk_attention_q8_plain(
+                    q, *cc, p0, l, kn, vn))
+    if t == 1:
+        return (lambda cc, q, p0, tb, kn, vn, l: pga.paged_decode_attention_q8(
+                    q[:, 0], *cc, p0, tb, l, k_new=kn[:, 0], v_new=vn[:, 0]),
+                lambda cc, q, p0, tb, kn, vn, l: (
+                    kvw.write_kv_paged_q8(*cc, kn, vn, p0, tb, l),
+                    pga.paged_decode_attention_q8(q[:, 0], *cc, p0, tb, l))[1],
+                lambda cc, q, p0, tb, kn, vn, l: pga.paged_decode_attention_q8_plain(
+                    q[:, 0], *cc, p0, tb, l, kn[:, 0], vn[:, 0]))
+    return (lambda cc, q, p0, tb, kn, vn, l: pga.paged_chunk_attention_q8(
+                q, *cc, p0, tb, l, k_new=kn, v_new=vn),
+            lambda cc, q, p0, tb, kn, vn, l: (
+                kvw.write_kv_paged_q8(*cc, kn, vn, p0, tb, l),
+                pga.paged_chunk_attention_q8(q, *cc, p0, tb, l))[1],
+            lambda cc, q, p0, tb, kn, vn, l: pga.paged_chunk_attention_q8_plain(
+                q, *cc, p0, tb, l, kn, vn))
+
+
+def check_fused_form(torch, label: str, caches, q, p0, tables, kn, vn, layer: int,
+                     form: int | None = None) -> float:
+    """The int8 walk launch that writes a chunk's or step's new rows kn / vn
+    (fused_write_forms; dense when tables is None), on a copy of `caches`,
+    against the standalone writer followed by the walk without them (pair):
+    outputs bit for bit, cache bytes and scales byte for byte; and against
+    the plain version (the plain writer, then the plain attention) within
+    TOL per row, the cache exactly. The fused call must run once on the
+    walk body (in `form` when given), count one fused write and launch no
+    standalone writer. Returns the max |err| against the plain version."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+
+    paged = tables is not None
+    fused, pair, plain = fused_write_forms(paged, q.shape[1])
+    mod, writer = (pga, "write_kv_paged_q8") if paged else (da, "write_kv_chunk_q8")
+    c_f, c_p, c_r = ([x.clone() for x in caches] for _ in range(3))
+    n0, w0 = mod.launches_write_q8, kvw.launches[writer]
+    call = lambda: fused(c_f, q, p0, tables, kn, vn, layer)   # noqa: E731
+    if form is None:
+        got = on_body(mod.launches_by_body, "walk", label, call)
+    else:
+        got = on_form(mod.launches_by_body, mod.launches_by_form, "walk", form, label, call)
+    if (mod.launches_write_q8 - n0, kvw.launches[writer] - w0) != (1, 0):
+        raise SystemExit(f"FAILED {label}: the fused call counted "
+                         f"{mod.launches_write_q8 - n0} fused writes and "
+                         f"{kvw.launches[writer] - w0} standalone writer launches, not 1 and 0")
+    want = pair(c_p, q, p0, tables, kn, vn, layer)
+    diff = [i for i, (a, b) in enumerate(zip(c_f, c_p)) if not torch.equal(a, b)]
+    if not torch.equal(got, want) or diff:
+        raise SystemExit(f"FAILED {label}: the fused launch differs from the standalone writer "
+                         f"followed by the walk (outputs equal: {torch.equal(got, want)}, cache "
+                         f"tensors {diff} of (k8, v8, ks, vs) differ)")
+    err = compare(torch, f"{label} against the plain writer then the plain attention", got,
+                  plain(c_r, q, p0, tables, kn, vn, layer), per=q.shape[-1])
+    diff = [i for i, (a, b) in enumerate(zip(c_f, c_r)) if not torch.equal(a, b)]
+    if diff:
+        raise SystemExit(f"FAILED {label}: cache tensors {diff} differ from the plain writer's")
+    log(f"[check] {label}: the fused launch equals the writer then the walk bit for bit "
+        f"(outputs) and byte for byte (cache), the plain writer's cache exactly")
+    return err
+
+
+def fused_write_times(torch, label: str, walk, fused, pair, writer) -> dict:
+    """Device ms (graph_device_ms, in turns) of the walk alone, the walk
+    that writes the rows (the fused launch), the standalone writer followed
+    by the walk, and the writer alone, on the same inputs; logged with the
+    fused launch's cost over the walk's."""
+    ms = graph_device_ms(torch, {"walk_ms": walk, "fused_ms": fused,
+                                 "writer_then_walk_ms": pair, "writer_ms": writer})
+    log(f"[time] {label} device ms (CUDA events over a graph of 20 launches, in turns): "
+        f"{json.dumps(ms)}; the fused launch over the walk alone "
+        f"{(ms['fused_ms'] - ms['walk_ms']) * 1e3:.2f} us, the pair over the fused launch "
+        f"{(ms['writer_then_walk_ms'] - ms['fused_ms']) * 1e3:.2f} us")
+    return ms
+
+
+def write_bytes(b: int, t: int, nkv: int, hd: int) -> float:
+    """Bytes a chunk's row write moves: bf16 K and V rows in, int8 rows and
+    f32 scales out, the positions."""
+    n_el = 2 * b * t * nkv * hd
+    return n_el * 2 + n_el + 2 * b * t * nkv * 4 + b * 4
 
 
 def phase_kernels_spec(torch, results: dict) -> None:
@@ -3389,25 +3577,71 @@ def phase_kernels_spec(torch, results: dict) -> None:
     k, v = rows(B, T, nkv, hd), rows(B, T, nkv, hd)
     lay = Layered(4)
     t_k = time_ms(torch, lambda: kvw.write_kv_chunk_q8(*c1, k, v, pos0, lay.next()))
-    k11_dev = device_ms_per_call(torch, lambda: kvw.write_kv_chunk_q8(*c1, k, v, pos0,
-                                                                      lay.next()))
     t_p = time_ms(torch, lambda: kvw.write_kv_chunk_q8_plain(*c2, k, v, pos0, lay.next()))
     k1, v1 = k[:, -1].contiguous(), v[:, -1].contiguous()
     t_k6 = time_ms(torch, lambda: kvw.write_kv_rows_q8(*c1, k1, v1, pos0, lay.next()))
     n_el = 2 * B * T * nkv * hd
-    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * T * nkv * 4 + B * 4, 3 * n_el)
-    log(f"[time] write_kv_chunk_q8 T={T}: {t_k:.4f} ms (device {k11_dev:.4f}), plain "
-        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); write_kv_rows_q8 (one row a slot) "
-        f"{t_k6:.4f} ms")
-    results["write_kv_chunk_q8"] = dict(
-        name="write_kv_chunk_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
-        replaces="rama_tpu/ops/pallas/kv_write.py:136", max_abs_err=err, ms=t_k,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        library_note="no single PyTorch call quantizes rows and scatters them",
-        k6_same_run_ms=t_k6, breakdown={"device_ms": k11_dev},
-        shape=f"k/v rows ({B}, {T}, {nkv}, {hd}) bf16 -> cache (4, {B}, {nkv}, {S}, {hd}) int8 "
-              f"+ scales, pos0 {pos0.tolist()}")
+    b_ms, b_by = bound_ms(write_bytes(B, T, nkv, hd), 3 * n_el)
+    log(f"[time] write_kv_chunk_q8 (standalone) T={T}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); write_kv_rows_q8 (one row a slot) {t_k6:.4f} ms")
+    standalone = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                      k6_same_run_ms=t_k6, source="rama_tpu_torch/csrc/kv_write.cu",
+                      shape=f"k/v rows ({B}, {T}, {nkv}, {hd}) bf16 -> cache (4, {B}, {nkv}, "
+                            f"{S}, {hd}) int8 + scales, pos0 {pos0.tolist()}")
     del c1, c2
+    torch.cuda.empty_cache()
+
+    # -- K11 inside K10: a verify chunk's rows written by the walk launch ---------------
+    c = qcache(2, S)
+    split_edges = [e for c0 in range(64, S, 64) for e in (c0 - 1, c0)] + [S - 1]
+    for t in (1, 2, 4, 8):
+        q, pos0 = rx(B, t, nh, hd), starts(S, t)
+        for planted in (False, True):
+            kn, vn = rx(B, t, nkv, hd), rx(B, t, nkv, hd)
+            if planted:   # the chunk's own rows carry the planted keys of its positions
+                plant_chunk_edges(q, c, pos0, 1, split_edges, kvw)
+                for (b, r), key in chunk_edge_keys(q, pos0, S, ()).items():
+                    if r - int(pos0[b]) < t:
+                        kn[b, r - int(pos0[b])] = group_key(key, nkv).to(bf)
+            for l in (0, 1):
+                check_fused_form(torch, f"chunk_attention_q8 + rows (K11 in K10) S={S} T={t} "
+                                 f"layer={l} pos0={pos0.tolist()}"
+                                 f"{' planted edges' if planted else ''}", c, q, pos0, None, kn,
+                                 vn, l)
+    del c
+    # timed at serve_spec_kv8's shape: 8 slots, T 4, 4096 rows, 4 layers cycled
+    c = qcache(4, S)
+    q, kn, vn = rx(B, T, nh, hd), rx(B, T, nkv, hd), rx(B, T, nkv, hd)
+    err = check_fused_form(torch, f"chunk_attention_q8 + rows (K11 in K10) timed inputs S={S} "
+                           f"T={T}", c, q, long_starts, None, kn, vn, 0)
+    lay = Layered(4)
+    fused, pair, plain = fused_write_forms(False, T)
+    args = (q, long_starts, None, kn, vn)
+    dev_ms = fused_write_times(
+        torch, f"K11 in K10 S={S} T={T}",
+        lambda: da.chunk_attention_q8(q, *c, long_starts, lay.next()),
+        lambda: fused(c, *args, lay.next()), lambda: pair(c, *args, lay.next()),
+        lambda: kvw.write_kv_chunk_q8(*c, kn, vn, long_starts, lay.next()))
+    t_f = time_ms(torch, lambda: fused(c, *args, lay.next()))
+    t_p = time_ms(torch, lambda: plain(c, *args, lay.next()), reps=5)
+    nb, ops = attention_bytes_ops(long_starts, T, S, nkv, nh, hd, 2 * hd + 8, q.numel() * 2,
+                                  written=True)
+    b_ms, b_by = bound_ms(nb + write_bytes(B, T, nkv, hd), ops + 3 * n_el)
+    standalone["device_ms"] = dev_ms["writer_ms"]
+    log(f"[time] chunk_attention_q8 + rows (K11 in K10) S={S} T={T}: {t_f:.4f} ms (device "
+        f"{dev_ms['fused_ms']:.4f}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["write_kv_chunk_q8"] = dict(
+        name="write_kv_chunk_q8", route="cuda", source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:136", max_abs_err=err, ms=t_f,
+        device_ms=dev_ms["fused_ms"], plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        library_note="the rows are written inside K10's int8 walk launch (dattn_walk); no "
+                     "single PyTorch call quantizes rows, scatters them and attends over an "
+                     "int8 cache",
+        breakdown=dict(dev_ms, write_bound_ms=standalone["bound_ms"]), standalone=standalone,
+        shape=f"q ({B}, {T}, {nh}, {hd}) bf16 and k/v rows ({B}, {T}, {nkv}, {hd}) bf16 -> "
+              f"int8 cache (4, {B}, {nkv}, {S}, {hd}) + scales, pos0 {long_starts.tolist()}")
+    del c
     torch.cuda.empty_cache()
 
     # -- K4 at the draft's head_dim 48 (stories15M: 6 heads, rep 1) ---------------
@@ -3675,16 +3909,55 @@ def phase_kernels_paged(torch, results: dict) -> None:
             kvw.write_kv_paged_q8(*t1, k, v, pt, tb.to(dev), 1)
             kvw.write_kv_paged_q8_plain(*t2, k, v, pt, tb.to(dev), 1)
             same(f"write_kv_paged_q8 {cname} hd={d_} ps={ps_} {dt}", t1, t2)
+    # -- K13 (a) inside K12: the step's or chunk's rows written by the walk launch ----
+    # every slot's pages its own, shuffled; 4092 + t - 1 runs past the table
+    # for t > 4 (rows clipped into the slot's page 31, where its queries read
+    # them); planted: the chunk's own rows carry the planted keys
+    for t in (1, 4, 8):
+        p0, tables, _, pools = pools_for(t, PAGE_SIZE)
+        edges = sorted({e for c0 in range(64, S, 64) for e in (c0 - 1, c0)} | {S - 1})
+        q = rx(B, t, nh, hd)
+        for planted in (False, True):
+            kn, vn = rx(B, t, nkv, hd), rx(B, t, nkv, hd)
+            if planted:
+                plant_paged_edges(q, pools, tables, p0, L - 1, edges, kvw)
+                for (b, r), key in chunk_edge_keys(q, p0, S, ()).items():
+                    if r - int(p0[b]) < t:
+                        kn[b, r - int(p0[b])] = group_key(key, nkv).to(bf)
+            for l in (0, L - 1):
+                check_fused_form(torch, f"{'paged_decode' if t == 1 else 'paged_chunk'}"
+                                 f"_attention_q8 + rows (K13 (a) in K12) ps={PAGE_SIZE} T={t} "
+                                 f"layer={l} pos0={p0.tolist()}"
+                                 f"{' planted edges' if planted else ''}", pools, q, p0, tables,
+                                 kn, vn, l)
+    # timed at serve_paged_kv8's (T 1) and serve_spec_paged_kv8's (T 4) shapes: the
+    # walk alone, the fused launch, the standalone writer then the walk, the writer
+    # alone (K13 (a)), and K6 / K11 on a dense cache of the same rows
     timed = {}
     dense8 = [torch.zeros((L, B, nkv, S, hd), dtype=torch.int8, device=dev) for _ in range(2)] + [
         torch.zeros((L, B, nkv, S), device=dev) for _ in range(2)]
     for t in (1, 4):
         p0 = torch.tensor(positions[:-1] + [S - t], dtype=torch.int32)
         tables, npages = paged_tables(torch, [int(p) + t for p in p0], PAGE_SIZE, mp, 4, gc)
-        c1 = rpool(L, npages, PAGE_SIZE)
+        (k8_, ks_), (v8_, vs_) = (kvw.kv_quant_rows(rx(L, npages, nkv, PAGE_SIZE, hd, dtype=f32))
+                                  for _ in range(2))
+        c1 = [k8_, v8_, ks_, vs_]
         k, v = rows(B, t, nkv, hd), rows(B, t, nkv, hd)
+        q = rx(B, t, nh, hd)
         p0, tables = p0.to(dev), tables.to(dev)
+        fused, pair, plain = fused_write_forms(True, t)
+        label = f"K13 (a) in K12 T={t}"
+        err = check_fused_form(torch, f"{label} timed inputs (layer 0)", c1, q, p0, tables, k, v, 0)
         lay = Layered(L)
+        walk = ((lambda: pga.paged_decode_attention_q8(q[:, 0], *c1, p0, tables, lay.next()))
+                if t == 1 else
+                (lambda: pga.paged_chunk_attention_q8(q, *c1, p0, tables, lay.next())))
+        dev_ms = fused_write_times(
+            torch, label, walk, lambda: fused(c1, q, p0, tables, k, v, lay.next()),
+            lambda: pair(c1, q, p0, tables, k, v, lay.next()),
+            lambda: kvw.write_kv_paged_q8(*c1, k, v, p0, tables, lay.next()))
+        t_f = time_ms(torch, lambda: fused(c1, q, p0, tables, k, v, lay.next()))
+        t_fp = time_ms(torch, lambda: plain(c1, q, p0, tables, k, v, lay.next()), reps=5)
         t_k = time_ms(torch, lambda: kvw.write_kv_paged_q8(*c1, k, v, p0, tables, lay.next()))
         t_p = time_ms(torch, lambda: kvw.write_kv_paged_q8_plain(*c1, k, v, p0, tables,
                                                                  lay.next()))
@@ -3694,21 +3967,33 @@ def phase_kernels_paged(torch, results: dict) -> None:
         else:
             t_d = time_ms(torch, lambda: kvw.write_kv_chunk_q8(*dense8, k, v, p0, lay.next()))
         n_el = 2 * B * t * nkv * hd
-        b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * B * t * nkv * 4 + B * 4 + tables.numel() * 4,
-                              3 * n_el)
-        log(f"[time] write_kv_paged_q8 T={t}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}); {'K6' if t == 1 else 'K11'} on a dense cache, same rows "
-            f"{t_d:.4f} ms")
-        timed[t] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None, dense_same_rows_ms=t_d,
-                        library_note="no single PyTorch call quantizes rows and scatters them "
-                                     "through a page table",
-                        shape=f"k/v rows ({B}, {t}, {nkv}, {hd}) bf16 -> pool ({L}, {npages}, "
-                              f"{nkv}, {PAGE_SIZE}, {hd}) int8 + scales, pos0 {p0.tolist()}")
+        w_ms, w_by = bound_ms(write_bytes(B, t, nkv, hd) + tables.numel() * 4, 3 * n_el)
+        nb, ops = attention_bytes_ops(p0, t, S, nkv, nh, hd, 2 * hd + 8, q.numel() * 2,
+                                      written=True)
+        b_ms, b_by = bound_ms(nb + write_bytes(B, t, nkv, hd) + tables.numel() * 4,
+                              ops + 3 * n_el)
+        log(f"[time] {label}: {t_f:.4f} ms (device {dev_ms['fused_ms']:.4f}), plain "
+            f"{t_fp:.4f} ms, bound {b_ms:.4f} ms ({b_by}); write_kv_paged_q8 (standalone) "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {w_ms:.4f} ms ({w_by}); "
+            f"{'K6' if t == 1 else 'K11'} on a dense cache, same rows {t_d:.4f} ms")
+        timed[t] = dict(
+            max_abs_err=err, ms=t_f, device_ms=dev_ms["fused_ms"], plain_ms=t_fp, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library_note="the rows are written inside K12's int8 walk launch (dattn_walk); no "
+                         "single PyTorch call quantizes rows, scatters them through a page "
+                         "table and attends",
+            breakdown=dict(dev_ms, write_bound_ms=w_ms),
+            standalone=dict(max_abs_err=0.0, ms=t_k, device_ms=dev_ms["writer_ms"], plain_ms=t_p,
+                            bound_ms=w_ms, bound_by=w_by, dense_same_rows_ms=t_d,
+                            source="rama_tpu_torch/csrc/kv_write.cu"),
+            shape=f"q ({B}, {t}, {nh}, {hd}) bf16 and k/v rows ({B}, {t}, {nkv}, {hd}) bf16 -> "
+                  f"int8 pool ({L}, {npages}, {nkv}, {PAGE_SIZE}, {hd}) + scales, pos0 "
+                  f"{p0.tolist()}")
+        del c1, k8_, v8_, ks_, vs_
     results["write_kv_paged_q8"] = dict(
-        name="write_kv_paged_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
+        name="write_kv_paged_q8", route="cuda", source="rama_tpu_torch/csrc/decode_attention.cu",
         replaces="rama_tpu/ops/pallas/kv_write.py:395", **timed[1], t4=timed[4])
-    del c1, c2, dense8
+    del c2, dense8
     torch.cuda.empty_cache()
 
     # -- K13 (b): write_kv_prefill_paged_q8 ------------------------------------------
@@ -3737,6 +4022,8 @@ def phase_kernels_paged(torch, results: dict) -> None:
     c1 = rpool(Lm, npages, PAGE_SIZE)
     k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
     t_k = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8(*c1, k, v, tables, T))
+    k13b_dev = graph_device_ms(torch, {"k13b": lambda: kvw.write_kv_prefill_paged_q8(
+        *c1, k, v, tables, T)})["k13b"]
     t_p = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8_plain(*c1, k, v, tables, T),
                   reps=5)
     del c1
@@ -3747,11 +4034,13 @@ def phase_kernels_paged(torch, results: dict) -> None:
     n_el = 2 * Lm * B * nkv * T * hd
     b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * Lm * B * nkv * T * 4 + tables.numel() * 4,
                           3 * n_el)
-    log(f"[time] write_kv_prefill_paged_q8 T={T}: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); K8 on a dense cache, same rows {t_d:.4f} ms")
+    log(f"[time] write_kv_prefill_paged_q8 T={T}: {t_k:.4f} ms (device {k13b_dev:.4f}), plain "
+        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); K8 on a dense cache, same rows "
+        f"{t_d:.4f} ms")
     results["write_kv_prefill_paged_q8"] = dict(
         name="write_kv_prefill_paged_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
-        replaces="rama_tpu/ops/pallas/kv_write.py:303", max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+        replaces="rama_tpu/ops/pallas/kv_write.py:303", max_abs_err=0.0, ms=t_k,
+        device_ms=k13b_dev, plain_ms=t_p,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, dense_same_rows_ms=t_d,
         library_note="no single PyTorch call quantizes strips and scatters them through page "
                      "tables",
@@ -3761,9 +4050,10 @@ def phase_kernels_paged(torch, results: dict) -> None:
     torch.cuda.empty_cache()
     for name in (*forms, "write_kv_paged_q8", "write_kv_prefill_paged_q8"):
         r = results[name]
+        dense = r.get("dense_same_rows_ms") or r["standalone"]["dense_same_rows_ms"]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), dense kernel on the same rows "
-            f"{r['dense_same_rows_ms']:.4f} ms, library n/a")
+            f"{dense:.4f} ms, library n/a")
 
 
 def cache_ulp(torch, x):
@@ -5272,8 +5562,8 @@ def main() -> int:
         if set(main_path) <= set(phases):
             check_launches(path, launches)
         for name, key in {**path["record"], **path["forbid"]}.items():
-            if name in results:
-                results[name][key] = launches[name]
+            if RECORD_OF.get(name, name) in results:
+                results[RECORD_OF.get(name, name)][key] = launches[name]
                 if name in BODY_COUNTS:
                     prefix, bodies = BODY_COUNTS[name]
                     results[name].setdefault("launches_by_body", {})[key] = {
@@ -5380,7 +5670,7 @@ def main() -> int:
             "tinyllama", "rep8",
             "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
-            "t2", "one_query", "paged")
+            "t2", "one_query", "paged", "standalone", "standalone_launches")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,7 +150,30 @@
 //      * a second small kernel (dattn_combine_rows) combines each query
 //        row's <= ceil(S / (tile G)) partials: a warp a row, lane i's split
 //        weight e^(m_i - M) broadcast by shuffles, eight partials in
-//        flight a lane.
+//        flight a lane;
+//      * given a chunk's new K / V rows (kn / vn: a verify round, or a
+//        paged decode step or round), the walk writes them itself,
+//        as K11 (dense) or K13 (a) (paged) would before it: a launch of
+//        their own took 2.0-2.6 us of device time (and ~35 us of host
+//        time) for 0.2-0.8 MB at 7B, far below any bound. Each new row
+//        lands at the slot's position the standalone writer's rule gives
+//        (new_pos: a dense row past S dropped, a pool row past the table
+//        clipped into page mp - 1), so in exactly the tile the unfused
+//        order would read it from; the CTA whose items hold that tile
+//        (each row group's) quantizes the row from kn / vn and stores it
+//        into the cache before its walk starts, and its walk then copies
+//        it like any row (only a CTA's own stores precede its copies, so
+//        only a tile one CTA reaches can take it). The kv head's last row
+//        group walks every tile with a new row. The tiles, splits and
+//        sums stay as they are:
+//        outputs equal the writer followed by the walk bit for bit, the
+//        cache byte for byte. A separate instantiation (dattn_walk<…,
+//        WRITE>) keeps the walk without rows (K7 and K9, which K6 or no
+//        write precede) the parent's code, instruction for instruction.
+//        Only a page that the tables hold twice (one slot's entries or
+//        two slots': the engine's trash page) can show new rows written
+//        through its other entry, or miss them, where the unfused order
+//        shows them (ROADMAP §3).
 //
 // Kernel 12, the paged forms (rama_tpu/ops/pallas/paged_attention.py:
 // _paged_call via paged_decode_attention_layer, _q8, paged_chunk_
@@ -167,6 +190,7 @@
 // a slot pays for the pages it uses whatever mp is (ragged).
 #include "attention.cuh"
 #include "dattn_mma.cuh"
+#include "kv_quant.cuh"
 
 #include <math.h>
 
@@ -192,6 +216,17 @@ __device__ __forceinline__ size_t first_row(const int* tables, int b, int j, int
     return ((size_t)page * nkv + j) * (size_t)ps + s0 % ps;
   }
   return ((size_t)b * nkv + j) * (size_t)S + s0;
+}
+
+// Where the new row at position p of a slot lands among the slot's rows,
+// by the standalone writers' rule: the dense cache's row p, or -1 (dropped)
+// outside [0, S) (K11, kv_write.cu kv_write_chunk); the pool's position
+// max(p, 0), a row past the table (p >= S = mp * ps) at its clip position
+// (mp - 1) ps + p % ps, in-page row p % ps of page mp - 1 (K13 (a),
+// kv_write_paged).
+__device__ __forceinline__ int new_pos(bool paged, int p, int S, int ps) {
+  if (!paged) return p >= 0 && p < S ? p : -1;
+  return p < 0 ? 0 : p < S ? p : S - ps + p % ps;
 }
 
 // Dynamic shared memory of one split CTA, in bytes: the K and V tiles
@@ -541,14 +576,33 @@ __device__ __forceinline__ void walk_seek(Walk& w, const int* first, const int* 
 // rows), then V, which lands while S is scored. Operands and partials as
 // dattn_split's; nsplit = ceil(ceil(S / tile) / G); tile <= kMaxChunk
 // (dividing ps for a pool).
-template <int HD, int ROWS>
+//
+// WRITE: the launch also writes the chunk's new K / V rows kn / vn (B, nq,
+// nkv, HD) bf16 (post RoPE), as K11 (dense) or K13 (a)
+// (paged) would before it. Row t lands at the slot's position new_pos(pos0
+// + t). Before its walk, each CTA quantizes the new rows that land in the
+// tiles of its own items, bit for bit as kv_quant_rows (kv_quant.cuh; warp
+// w takes (row t, k or v) w, w + 4, ...), stores them into the cache, and
+// only then starts the walk, whose copies read them back like any other
+// row: each new row's tile is walked by one CTA a row group, and a CTA's
+// stores precede its own copies (the barrier). Row groups (64-row form)
+// that walk one tile store the same bytes; the kv head's last group walks
+// every tile with a new row. Across CTAs this is a race: one row group's
+// stores may land while another group's CTA copies that tile (cp.async).
+// It is safe only because every writer of a row stores identical bytes
+// (the same rows, quantized by the same code, whatever the group): a
+// change that makes a group's bytes differ (say, a scale per row group)
+// breaks it, and must leave the store to one group with a grid-wide order.
+// The walk itself is the parent's code.
+template <int HD, int ROWS, bool WRITE>
 __global__ void __launch_bounds__(kDaThreads, walk_ctas_per_sm<ROWS>())
-dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
-           const int8_t* __restrict__ vc, const float* __restrict__ ksc,
-           const float* __restrict__ vsc, const int* __restrict__ pos0,
-           float* __restrict__ part_o, float* __restrict__ part_ml, int B, int nh, int nkv,
-           int S, int tile, int G, int nsplit, int nq, float scale,
-           const int* __restrict__ tables, int mp, int ps, int npages) {
+dattn_walk(const __nv_bfloat16* __restrict__ q, int8_t* __restrict__ kc,
+           int8_t* __restrict__ vc, float* __restrict__ ksc, float* __restrict__ vsc,
+           const int* __restrict__ pos0, float* __restrict__ part_o,
+           float* __restrict__ part_ml, int B, int nh, int nkv, int S, int tile, int G,
+           int nsplit, int nq, float scale, const int* __restrict__ tables, int mp, int ps,
+           int npages, const __nv_bfloat16* __restrict__ kn,
+           const __nv_bfloat16* __restrict__ vn) {
   using Sm = WalkSmem<HD, ROWS>;
   constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
   constexpr int NB = RowForm<ROWS>::NB, NH = RowForm<ROWS>::NH;
@@ -589,6 +643,32 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
     for (int b = 0; b < B; ++b) first[b + 1] += first[b];
   }
   __syncthreads();
+
+  // (WRITE) the new rows that land in the tiles this CTA will walk: warp w
+  // quantizes (row t, k or v) jobs w, w + 4, ... of each of its items and
+  // stores them into the cache, before the walk's own copies read them
+  if constexpr (WRITE) {
+    for (int item = blockIdx.x, b = 0; item < first[B]; item += gridDim.x) {
+      while (item >= first[b + 1]) ++b;
+      const int t0 = (item - first[b]) * G;   // the item's tiles [t0, t1)
+      const int lo = t0 * tile, hi = min(t0 + G, ntile[b]) * tile;
+      for (int jb = warp; jb < 2 * nq; jb += kDaWarps) {
+        const int t = jb / 2, lp = new_pos(tables, pos0[b] + t, S, ps);
+        if (lp < lo || lp >= hi) continue;    // the whole warp
+        const bool isv = jb % 2;
+        uint2 u = make_uint2(0u, 0u);
+        if (lane < HD / 4)
+          u = *reinterpret_cast<const uint2*>((isv ? vn : kn) +
+                                              (((size_t)b * nq + t) * nkv + j) * HD + 4 * lane);
+        float sc;
+        const uint32_t packed = quant_row4<HD>(u, lane, sc);
+        const size_t d = first_row(tables, b, j, lp, S, nkv, mp, ps, npages);
+        if (lane < HD / 4) *reinterpret_cast<uint32_t*>((isv ? vc : kc) + d * HD + 4 * lane) = packed;
+        if (lane == 0) (isv ? vsc : ksc)[d] = sc;
+      }
+    }
+    __syncthreads();                          // the stores before any copy of the walk
+  }
 
   // this thread's Q piece where one is enough (tid < ROWS * QCH): row rq of
   // the CTA's rows
@@ -972,6 +1052,9 @@ struct DaArgs {
   int ctas = 0;   // the walk body's CTAs a (kv head, row group)
   int groups = 1;  // row groups a kv head: grid dimension y is nkv * groups
   int* ran = nullptr;  // non-null: set to the query rows a CTA of the launched form
+  // the walk body only: the chunk's new K / V rows (B, nq, nkv, hd) bf16,
+  // written by the launch (dattn_walk); null: none
+  const void *knew = nullptr, *vnew = nullptr;
 };
 
 // Report kern's resident CTAs per SM, registers per thread and shared
@@ -1055,23 +1138,26 @@ cudaError_t launch_mma_hd(const DaArgs& a) {
 }
 
 // The walk body, then its combine (or, with a.occ, the walk kernel's
-// report). Its shared memory grows with B (the walk's table): above 48 KB
-// (past 3,327 slots at hd 128 in the 8-row form, 191 in the 64-row one) it
-// is opted into the card's most, once an instantiation and device.
-template <int HD, int ROWS>
-cudaError_t launch_walk_hd(const DaArgs& a) {
+// report); the instantiation that writes the new rows when a.knew is set.
+// Its shared memory grows with B (the walk's table): above 48 KB (past
+// 3,327 slots at hd 128 in the 8-row form, 191 in the 64-row one) it is
+// opted into the card's most, once an instantiation and device.
+template <int HD, int ROWS, bool WRITE>
+cudaError_t launch_walk(const DaArgs& a) {
   static SmemOptIn opt_in;
   const size_t smem = walk_smem<HD, ROWS>(a.B);
   if (smem > 48 * 1024) {
-    cudaError_t e = opt_in.set(dattn_walk<HD, ROWS>, 0);
+    cudaError_t e = opt_in.set(dattn_walk<HD, ROWS, WRITE>, 0);
     if (e != cudaSuccess) return e;
   }
-  if (a.occ) return report(a, dattn_walk<HD, ROWS>, smem);
+  if (a.occ) return report(a, dattn_walk<HD, ROWS, WRITE>, smem);
   if (a.ctas < 1) return cudaErrorInvalidValue;
-  dattn_walk<HD, ROWS><<<dim3(a.ctas, a.nkv * a.groups), kDaThreads, smem, a.st>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.k),
-      static_cast<const int8_t*>(a.v), a.ks, a.vs, a.pos0, a.part_o, a.part_ml, a.B, a.nh,
-      a.nkv, a.S, a.chunk, a.tiles, a.nsplit, a.nq, a.scale, a.tables, a.mp, a.ps, a.npages);
+  dattn_walk<HD, ROWS, WRITE><<<dim3(a.ctas, a.nkv * a.groups), kDaThreads, smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<int8_t*>(const_cast<void*>(a.k)),
+      static_cast<int8_t*>(const_cast<void*>(a.v)), const_cast<float*>(a.ks),
+      const_cast<float*>(a.vs), a.pos0, a.part_o, a.part_ml, a.B, a.nh, a.nkv, a.S, a.chunk,
+      a.tiles, a.nsplit, a.nq, a.scale, a.tables, a.mp, a.ps, a.npages,
+      static_cast<const __nv_bfloat16*>(a.knew), static_cast<const __nv_bfloat16*>(a.vnew));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int nrows = a.B * a.nq * a.nh;
@@ -1081,6 +1167,11 @@ cudaError_t launch_walk_hd(const DaArgs& a) {
   e = cudaGetLastError();
   if (e == cudaSuccess && a.ran) *a.ran = ROWS;
   return e;
+}
+
+template <int HD, int ROWS>
+cudaError_t launch_walk_hd(const DaArgs& a) {
+  return a.knew ? launch_walk<HD, ROWS, true>(a) : launch_walk<HD, ROWS, false>(a);
 }
 
 // One tensor-core body at head dim HD in the form (form_rows) of the
@@ -1121,6 +1212,9 @@ template <typename T, typename C>
 cudaError_t launch_all(DaArgs a) {
   if (a.chunk <= 0 || a.chunk > kMaxChunk || a.tiles < 1) return cudaErrorInvalidValue;
   if (a.body != kBodyWalk && a.tiles != 1) return cudaErrorInvalidValue;
+  // new rows are written by the walk alone, and come as a pair
+  if ((a.knew || a.vnew) && (a.body != kBodyWalk || !a.knew || !a.vnew))
+    return cudaErrorInvalidValue;
   a.nsplit = ((a.S + a.chunk - 1) / a.chunk + a.tiles - 1) / a.tiles;
   a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
   cudaError_t e;
@@ -1166,8 +1260,12 @@ extern "C" int rama_decode_attention(const void* q, const void* k, const void* v
 // scales; hd a multiple of 16. On the walk body (2) a split is `tiles`
 // tiles of `chunk` rows, walked by `ctas` CTAs a kv head, and the scratch
 // has nsplit = ceil(ceil(S / chunk) / tiles); the SIMT body takes tiles 1.
+// knew / vnew (B, nq, nkv, hd) bf16, the walk body only (null: none): the
+// chunk's new rows, quantized and written at [b, :, pos0[b] + t] (rows
+// outside [0, S) dropped) by the launch, as K11 before it would.
 extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const void* v8,
-                                        const void* ks, const void* vs, const void* pos0,
+                                        const void* ks, const void* vs, const void* knew,
+                                        const void* vnew, const void* pos0,
                                         void* out, void* part_o, void* part_ml, int B, int nq,
                                         int nh, int nkv, int S, int hd, int chunk, int tiles,
                                         int ctas, int dtype, int body, void* stream,
@@ -1180,6 +1278,8 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
   a.ran = form;
   a.tiles = tiles;
   a.ctas = ctas;
+  a.knew = knew;
+  a.vnew = vnew;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1214,9 +1314,12 @@ extern "C" int rama_paged_attention(const void* q, const void* k, const void* v,
 
 // K12 over an int8 pool: k8/v8 point at layer l of (L, npages, nkv, ps, hd)
 // int8, ks/vs at layer l of its (L, npages, nkv, ps) f32 row scales; tiles
-// and ctas as rama_decode_attention_q8's, with S = mp * ps.
+// and ctas as rama_decode_attention_q8's, with S = mp * ps; knew / vnew as
+// there, the rows written through the tables as K13 (a) would (position
+// max(p, 0), a row past the table clipped into page mp - 1; none dropped).
 extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void* v8,
-                                       const void* ks, const void* vs, const void* pos0,
+                                       const void* ks, const void* vs, const void* knew,
+                                       const void* vnew, const void* pos0,
                                        const void* tables, void* out, void* part_o,
                                        void* part_ml, int B, int nq, int nh, int nkv, int mp,
                                        int ps, int npages, int hd, int chunk, int tiles,
@@ -1235,6 +1338,8 @@ extern "C" int rama_paged_attention_q8(const void* q, const void* k8, const void
   a.ran = form;
   a.tiles = tiles;
   a.ctas = ctas;
+  a.knew = knew;
+  a.vnew = vnew;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);

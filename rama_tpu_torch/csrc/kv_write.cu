@@ -22,10 +22,8 @@
 // them; here the quantization is fused into the write, so the row is read
 // once in the activation dtype and written once as int8 + its scale.
 //
-// Row quantization (bit for bit kv_quant_rows): x in f32,
-// scale = max(max|x| / 127, 1e-10), q = round-half-even(x / scale). The
-// division is a true IEEE division (no reciprocal, no fast math), and rintf
-// rounds half to even as jnp.round does.
+// Row quantization: kv_quant.cuh (bit for bit kv_quant_rows), shared with
+// the int8 walk of decode_attention.cu.
 //
 // Bound on the H100: bytes, and far below a launch. K6 at 7B (8 slots, 32
 // kv heads, hd 128, bf16) reads 131 KB and writes 67 KB per layer (K11 at
@@ -34,37 +32,19 @@
 // 34 MB. Design: one warp per (row, k or v); each lane keeps up to 8
 // elements in registers, the absmax is a warp shuffle reduction, the
 // stores are coalesced. No shared memory, no block-wide sync.
-#include "common.cuh"
-
-#include <math.h>
+//
+// Where K11 and K13 (a) run: a launch of their own costs 2.0-2.6 us of
+// device time for 0.06-0.24 us of bytes at 7B, so wherever the attention
+// that follows them takes the int8 walk (bf16 rows at hd 48 / 64 / 128),
+// the walk launch quantizes and writes the chunk's rows itself: the CTA
+// whose items hold a row's tile stores it before its walk copies it
+// (decode_attention.cu dattn_walk, the `kn` / `vn` operands). The kernels below stay the route of every other body (fp32,
+// other head dims) and the fused write's oracle on the card.
+#include "kv_quant.cuh"
 
 namespace rama {
 
 constexpr int kKvThreads = 256;       // 8 warps per CTA
-constexpr int kKvMaxPerLane = 8;      // hd <= 256
-
-// Quantize one row of hd elements (warp-wide) into dst / *dst_scale.
-template <typename T>
-__device__ __forceinline__ void quant_row(const T* __restrict__ src, int8_t* __restrict__ dst,
-                                          float* __restrict__ dst_scale, int hd, int lane) {
-  float x[kKvMaxPerLane];
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < kKvMaxPerLane; ++i) {
-    const int d = lane + 32 * i;
-    x[i] = d < hd ? to_f(src[d]) : 0.f;
-    amax = fmaxf(amax, fabsf(x[i]));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float scale = fmaxf(amax / 127.0f, 1e-10f);
-#pragma unroll
-  for (int i = 0; i < kKvMaxPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) dst[d] = static_cast<int8_t>(rintf(x[i] / scale));
-  }
-  if (lane == 0) *dst_scale = scale;
-}
 
 // K6. Warp w of the grid: w = (b * nkv + h) * 2 + kv. rows (B, nkv, hd);
 // k8/v8 point at layer l of (L, B, nkv, S, hd), ks/vs at layer l of

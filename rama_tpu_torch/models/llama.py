@@ -574,8 +574,10 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
     The decode step's structure with T queries a slot: per layer rmsnorm,
     wqkv, RoPE at pos0 + t, the chunk's rows written into the cache in
     place (rows at or past the cache end dropped, as JAX's scatter drops
-    them; the quantize-and-write chunk kernel on an int8 cache), the chunk
-    attention kernel over the stacked cache, wo, then the FFN — fused for
+    them; on an int8 cache handed to the chunk attention, which quantizes
+    and writes them first), the chunk attention kernel over the stacked
+    cache, wo,
+    then the FFN — fused for
     quantized w13 / w2 of the same bits at any B * T (`_ffn_fusable`),
     split w13 / w2 otherwise."""
     b, t = tokens.shape
@@ -592,9 +594,8 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
         q = apply_rope(q, cos, sin).contiguous()
         k = apply_rope(k, cos, sin)
         if isinstance(cache, QuantKVCache):
-            ops.write_kv_chunk_q8(cache.k, cache.v, cache.ks, cache.vs, k.contiguous(),
-                                  v.contiguous(), p0, l)
-            att = ops.chunk_attention_q8(q, cache.k, cache.v, cache.ks, cache.vs, p0, l)
+            att = ops.chunk_attention_q8(q, cache.k, cache.v, cache.ks, cache.vs, p0, l,
+                                         k_new=k.contiguous(), v_new=v.contiguous())
         else:
             scatter_rows_(cache.k[l], k, pos_index)
             scatter_rows_(cache.v[l], v, pos_index)

@@ -48,6 +48,16 @@ and a decode step of a GQA group <= 8), or 16, 32 or 64 rows of whole m16
 tiles, past 64 rows in row groups of 64 on a grid dimension; the SIMT
 body takes groups of 8. A query row computes the same bits in every form,
 so a verified row equals the decode step's whatever the group.
+
+K11 inside K10: `chunk_attention_q8` with `k_new` / `v_new`, the chunk's
+new rows, writes them first, as `kv_write.write_kv_chunk_q8` would. On the
+card the entry picks who writes them (`walk_writes_rows`): where the
+launch takes the walk body, the walk launch writes them itself (the CTA
+whose items hold a new row's tile quantizes it and stores it into the
+cache before its walk copies it): no launch of its own, the same bytes and
+the same outputs as the writer followed by the walk. On any other body
+the standalone K11 kernel writes them first, in a launch of its own. Its
+plain version is the plain writer followed by the plain attention.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from typing import NamedTuple
 import torch
 
 from rama_tpu_torch.ops.kernels import build
+from rama_tpu_torch.ops.kernels import kv_write as _kvw
 from rama_tpu_torch.ops.kernels.build import I, P, require
 
 launches = 0           # K4 launches since the last reset (chip_smoke reads them)
@@ -69,6 +80,7 @@ launches_chunk_q8 = 0  # K10 launches on an int8 cache
 launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
 launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
 launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
+launches_write_q8 = 0  # K10 int8 launches that also wrote the chunk's rows (K11 fused)
 CHUNK = 64     # cache rows per tile (csrc/decode_attention.cu kMaxChunk, the most it takes)
 FORMS = (8, 16, 32, 64)   # query rows a CTA of the tensor-core bodies (csrc dattn_mma.cuh)
 # the tensor-core bodies' launches by the row form the C entry reports it ran
@@ -82,10 +94,10 @@ BODIES = {"simt": 0, "mma": 1, "walk": 2}   # body codes of the C entries (csrc 
 # ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
     "rama_decode_attention": [P] * 7 + [I] * 9 + [P, P],
-    "rama_decode_attention_q8": [P] * 9 + [I] * 11 + [P, P],
+    "rama_decode_attention_q8": [P] * 11 + [I] * 11 + [P, P],
     "rama_decode_attention_occupancy": [I] * 8 + [P],
     "rama_paged_attention": [P] * 8 + [I] * 11 + [P, P],
-    "rama_paged_attention_q8": [P] * 10 + [I] * 13 + [P, P],
+    "rama_paged_attention_q8": [P] * 12 + [I] * 13 + [P, P],
 }
 
 
@@ -232,12 +244,16 @@ def chunk_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
 
 def chunk_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                              ks: torch.Tensor, vs: torch.Tensor, pos0: torch.Tensor,
-                             layer: int) -> torch.Tensor:
+                             layer: int, k_new: torch.Tensor | None = None,
+                             v_new: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version over the int8 cache: scores (q . k8) * ks /
     sqrt(hd) in fp32, -1e30 mask fill, softmax, then the probabilities
     times the V row scales rounded to q's dtype (the q8 Pallas kernels'
     bf16 cast of probs * vs) before the product with v8. Returns
-    (B, T, nh * hd) in q's dtype."""
+    (B, T, nh * hd) in q's dtype. With k_new / v_new (B, T, nkv, hd) the
+    plain writer (`kv_write.write_kv_chunk_q8_plain`) writes them first."""
+    if new_rows(k_new, v_new) is not None:
+        _kvw.write_kv_chunk_q8_plain(k8, v8, ks, vs, k_new, v_new, pos0, layer)
     k, v = k8[layer].float(), v8[layer].float()      # (B, nkv, S, hd)
     b, t, nh, hd = q.shape
     nkv, s = k.shape[1], k.shape[2]
@@ -293,12 +309,45 @@ def check_caches(q: torch.Tensor, caches: tuple) -> str:
     return body
 
 
+def new_rows(k_new: torch.Tensor | None,
+             v_new: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """(k_new, v_new), the rows an int8 attention call writes first, or
+    None when it writes none; raise if only one of the two is given."""
+    require((k_new is None) == (v_new is None), "k_new and v_new come together")
+    return None if k_new is None else (k_new, v_new)
+
+
+def walk_writes_rows(q: torch.Tensor) -> bool:
+    """Whether an int8 attention launch for q (B, T, nh, hd) writes the new
+    rows it is given itself: on the walk body only (bf16 at a head dim of
+    MMA_HEAD_DIMS). The _q8 entries run the standalone writer (K11 / K13
+    (a), a launch of its own) first on any other body."""
+    return body_for(q.dtype, q.shape[-1], q8=True) == "walk"
+
+
+def rows_ptrs(q: torch.Tensor, rows: tuple | None, nkv: int) -> tuple[int, int]:
+    """The addresses of the new rows (k_new, v_new) a walk launch for q (B,
+    T, nh, hd) writes, (0, 0) for none, after their checks: (B, T, nkv, hd)
+    of q's dtype, contiguous, 16-byte aligned, on q's device (the C entry
+    refuses them off the walk body)."""
+    if rows is None:
+        return 0, 0
+    b, t, _, hd = q.shape
+    require(all(r.shape == (b, t, nkv, hd) and r.dtype == q.dtype and r.is_contiguous()
+                and r.device == q.device and r.data_ptr() % 16 == 0 for r in rows),
+            f"new rows must be contiguous, 16-byte aligned ({b}, {t}, {nkv}, {hd}) {q.dtype} "
+            f"on q's device, got {[tuple(r.shape) for r in rows]}")
+    return rows[0].data_ptr(), rows[1].data_ptr()
+
+
 def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
-            what: str, tiles: int | None = None) -> torch.Tensor:
+            what: str, tiles: int | None = None, rows: tuple | None = None) -> torch.Tensor:
     """Check and launch the kernel for q (B, T, nh, hd) against layer
     `layer` of caches (k, v) or, for an int8 cache, (k8, v8, ks, vs), on
     the body `body_for` picks, over `split_plan`'s splits (G `tiles` on
-    the walk body when given). Returns (B, T, nh * hd) in q's dtype."""
+    the walk body when given); `rows` (k_new, v_new): the int8 cache's new
+    rows, which the walk launch writes first (`rows_ptrs`). Returns (B, T,
+    nh * hd) in q's dtype."""
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
@@ -313,18 +362,23 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
     require(pos0.dtype == torch.int32 and pos0.shape == (b,) and pos0.device == q.device
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
+    require(q8 or rows is None, "new rows are written into an int8 cache only")
+    knew, vnew = rows_ptrs(q, rows, nkv)
     lib = build.library("decode_attention", _SIGNATURES)
     plan = split_plan(s, walk=body == "walk", tiles=tiles)
     out, part_o, part_ml = scratch(q, plan)
-    head = (q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), pos0.data_ptr(),
-            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh, nkv, s, hd)
+    tail = (pos0.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, t, nh,
+            nkv, s, hd)
     ran = ctypes.c_int(0)
     if q8:
         ctas = walk_launch_ctas(q.device.index, b, t, nh, nkv, hd, plan) if body == "walk" else 0
-        err = lib.rama_decode_attention_q8(*head, plan.tile, plan.tiles, ctas, dtype,
-                                           BODIES[body], build.stream_ptr(q), ctypes.byref(ran))
+        err = lib.rama_decode_attention_q8(
+            q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), knew, vnew, *tail,
+            plan.tile, plan.tiles, ctas, dtype, BODIES[body], build.stream_ptr(q),
+            ctypes.byref(ran))
     else:
-        err = lib.rama_decode_attention(*head, plan.tile, dtype, BODIES[body],
+        err = lib.rama_decode_attention(q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s),
+                                        *tail, plan.tile, dtype, BODIES[body],
                                         build.stream_ptr(q), ctypes.byref(ran))
     build.check(lib, err, what)
     count_launch(launches_by_body, launches_by_form, body, ran.value, t, nh // nkv)
@@ -450,14 +504,25 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
 
 def chunk_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                        ks: torch.Tensor, vs: torch.Tensor, pos0: torch.Tensor,
-                       layer: int) -> torch.Tensor:
+                       layer: int, k_new: torch.Tensor | None = None,
+                       v_new: torch.Tensor | None = None) -> torch.Tensor:
     """K10 over an int8 cache: k8/v8 (L, B, nkv, S, hd) int8 with f32 row
-    scales ks/vs (L, B, nkv, S); otherwise as chunk_attention."""
+    scales ks/vs (L, B, nkv, S); otherwise as chunk_attention. With k_new /
+    v_new (B, T, nkv, hd), the chunk's post-RoPE rows, they are first
+    quantized and written at [layer, b, :, pos0[b] + t] (rows at or past S
+    dropped), as write_kv_chunk_q8 would: on the card by the walk launch
+    itself where it takes the walk (`walk_writes_rows`; counted in
+    launches_write_q8), else by K11's own launch first."""
+    rows = new_rows(k_new, v_new)
     if q.device.type == "cpu":
-        return chunk_attention_q8_plain(q, k8, v8, ks, vs, pos0, layer)
-    global launches_chunk_q8
-    out = _launch(q, (k8, v8, ks, vs), pos0, layer, "chunk_attention_q8")
+        return chunk_attention_q8_plain(q, k8, v8, ks, vs, pos0, layer, k_new, v_new)
+    if rows is not None and not walk_writes_rows(q):
+        _kvw.write_kv_chunk_q8(k8, v8, ks, vs, *rows, pos0, layer)
+        rows = None
+    global launches_chunk_q8, launches_write_q8
+    out = _launch(q, (k8, v8, ks, vs), pos0, layer, "chunk_attention_q8", rows=rows)
     launches_chunk_q8 += 1
+    launches_write_q8 += rows is not None
     return out
 
 

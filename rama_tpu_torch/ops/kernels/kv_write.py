@@ -18,6 +18,18 @@ and ks/vs (L, B, nkv, S) f32, or `QuantPagedKVCache`'s pools (L, P, nkv,
 ps, hd) and (L, P, nkv, ps), updated in place (the JAX package donates
 them and returns new arrays).
 
+Where each writer runs in the forwards (models/llama.py, runtime/paged.py):
+K6 writes every dense decode step's rows and K8 / K13 (b) every
+admission's strips. K11 and K13 (a) run as launches of their own only
+where the attention after them does not take the int8 walk (fp32
+activations, a head dim other than 48 / 64 / 128); on the walk, the
+verification chunk's rows (K11) and the paged step's or chunk's rows (K13
+(a)) are written by the attention launch itself, bit for bit as these
+kernels write them (`decode_attention.chunk_attention_q8`,
+`paged_attention.paged_*_attention_q8` with `k_new` / `v_new`, over the
+row quantization of csrc/kv_quant.cuh that both share). The kernels here
+stay that fused write's oracle on the card.
+
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`), which is `kv_quant_rows` followed by an
 index write.
@@ -168,7 +180,8 @@ def write_kv_chunk_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
     """K11: quantize a verification chunk's post-RoPE rows k/v (B, T, nkv,
     hd) and write them, with their scales, at [layer, b, :, pos0[b] + t] of
     the int8 cache, in place (pos0 (B,) int32); rows at or past S are
-    dropped."""
+    dropped. The forward calls it only where the chunk attention does not
+    take the int8 walk, which writes the rows itself (module docstring)."""
     if k.device.type == "cpu":
         return write_kv_chunk_q8_plain(k8, v8, ks, vs, k, v, pos0, layer)
     require(k.device.type == "cuda", f"unsupported device {k.device}")
@@ -298,7 +311,9 @@ def write_kv_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor, pos0: to
     them with their scales into layer `layer` of the int8 pool k8/v8
     (L, P, nkv, ps, hd), ks/vs (L, P, nkv, ps), in place, through the page
     tables (B, mp) int32; rows past a slot's table clip into its page
-    mp - 1 (paged_rows)."""
+    mp - 1 (paged_rows). The paged forward calls it only where the paged
+    attention does not take the int8 walk, which writes the rows itself
+    (module docstring)."""
     if k.device.type == "cpu":
         return write_kv_paged_q8_plain(k8, v8, ks, vs, k, v, pos0, tables, layer)
     require(k.device.type == "cuda", f"unsupported device {k.device}")

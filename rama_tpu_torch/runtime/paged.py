@@ -16,8 +16,8 @@ Compute paths:
   counterpart of both `_forward_decode_fused_paged` and
   `_forward_chunk_fused_paged`): the dense fused forward's structure, with
   the chunk's rows written through the page tables (an index write into
-  the bf16 / f32 pool, the quantize-and-write kernel K13 into the int8
-  pool) and attention read in place from the pool by the paged attention
+  the bf16 / f32 pool; into the int8 pool by K12's int8 entries, which
+  quantize and write them first) and attention read in place from the pool by the paged attention
   kernel K12. No dense view is built; each slot streams only the pages it
   uses.
 - **gather** (any other T, or a page size the kernel does not take; the
@@ -151,7 +151,8 @@ def _forward_fused_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos0: t
     `_forward_decode_fused_paged` for T = 1 and `_forward_chunk_fused_paged`
     for 2 <= T <= 8; the port's `_forward_decode_fused` and
     `_forward_chunk_fused` over pages). Per layer: rmsnorm, wqkv, RoPE, the
-    chunk's rows written through the tables before attention, K12's decode
+    chunk's rows written through the tables before attention (into an int8
+    pool by K12's int8 entry, given the rows), K12's decode
     (T = 1) or chunk form, wo, the FFN (fused at any B * T where
     `_ffn_fusable` holds). The tables must cover the chunk's positions (the
     engine reserves pages before each tick)."""
@@ -178,12 +179,14 @@ def _forward_fused_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos0: t
         q, k, v = _qkv(xb, params, cfg, l, ops)
         q = apply_rope(q, cos, sin).contiguous()
         k = apply_rope(k, cos, sin)
+        rows = {}
         if quant:
-            ops.write_kv_paged_q8(*pools, k.contiguous(), v.contiguous(), p0, tables, l)
+            k, v = k.contiguous(), v.contiguous()
+            rows = dict(k_new=k[:, 0], v_new=v[:, 0]) if t == 1 else dict(k_new=k, v_new=v)
         else:
             put_rows_(cache.k[l], k, pages, offs)
             put_rows_(cache.v[l], v, pages, offs)
-        att = attend(q[:, 0] if t == 1 else q, *pools, p0, tables, l).view(b, t, -1)
+        att = attend(q[:, 0] if t == 1 else q, *pools, p0, tables, l, **rows).view(b, t, -1)
         x = x + _linear(att, params["wo"], ops, l)
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
         x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)

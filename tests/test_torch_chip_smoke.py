@@ -226,22 +226,30 @@ def test_compare_fails_a_dropped_edge_row_of_an_int8_cache(smoke):
 SPEC_KERNELS = ("chunk_attention", "chunk_attention_q8", "write_kv_chunk_q8")
 
 
+def _recorded(smoke) -> set:
+    """The kernels records whose "launches" a main path sets (a count kept
+    in another kernel's record, RECORD_OF, under that record's name)."""
+    return {smoke.RECORD_OF.get(name, name) for path in smoke.PATHS
+            for name, key in path["record"].items() if key == "launches"}
+
+
 def test_every_kernel_has_a_main_path_that_records_its_launches(smoke, counters):
     """The kernels record takes each kernel's launches from a main path:
-    the speculation slice's three kernels from the n-gram spec paths."""
-    recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
-                if key == "launches"}
+    the speculation slice's three kernels from the n-gram spec paths (K11's
+    from the walk launches that write the verify rounds' rows)."""
+    recorded = _recorded(smoke)
     assert set(SPEC_KERNELS) <= recorded
     assert smoke.SPEC_PATH["record"]["chunk_attention"] == "launches"
     assert smoke.SPEC_KV8_PATH["record"]["chunk_attention_q8"] == "launches"
-    assert smoke.SPEC_KV8_PATH["record"]["write_kv_chunk_q8"] == "launches"
+    assert smoke.SPEC_KV8_PATH["record"]["write_kv_chunk_q8_fused"] == "launches"
+    assert smoke.RECORD_OF["write_kv_chunk_q8_fused"] == "write_kv_chunk_q8"
     got = smoke.read_launches(*counters)
-    assert set(got) >= recorded | set(SPEC_KERNELS)
+    assert set(got) >= {n for p in smoke.PATHS for n in p["record"]} | set(SPEC_KERNELS)
 
 
 def _spec_kv8_launches(smoke, **over):
     got = {k: 4 for k in smoke.SPEC_KV8_PATH["record"]}
-    got["decode_attention"] = 0
+    got.update({k: 0 for k in smoke.SPEC_KV8_PATH["forbid"]})
     return {**got, **over}
 
 
@@ -249,9 +257,39 @@ def _spec_kv8_launches(smoke, **over):
                                   "write_kv_strips_q8", "quant_matmul", "ffn",
                                   "prefill_attention"])
 def test_spec_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name):
+    """K11 (write_kv_chunk_q8) runs on this path inside the walk launches
+    that write the rows: its count there is write_kv_chunk_q8_fused."""
+    name = {"write_kv_chunk_q8": "write_kv_chunk_q8_fused"}.get(name, name)
     smoke.check_launches(smoke.SPEC_KV8_PATH, _spec_kv8_launches(smoke))
     with pytest.raises(SystemExit, match="never launched on the speculation int8 KV"):
         smoke.check_launches(smoke.SPEC_KV8_PATH, _spec_kv8_launches(smoke, **{name: 0}))
+
+
+@pytest.mark.parametrize("path_name,walk,fused,writer", [
+    ("SPEC_KV8_PATH", "chunk_attention_q8", "write_kv_chunk_q8_fused", "write_kv_chunk_q8"),
+    ("GQA_SPEC_KV8_PATH", "chunk_attention_q8", "write_kv_chunk_q8_fused", "write_kv_chunk_q8"),
+    ("PAGED_KV8_PATH", "paged_decode_attention_q8", "write_kv_paged_q8_fused",
+     "write_kv_paged_q8"),
+    ("SPEC_PAGED_KV8_PATH", "paged_chunk_attention_q8", "write_kv_paged_q8_fused",
+     "write_kv_paged_q8"),
+    ("GQA_SPEC_PAGED_KV8_PATH", "paged_chunk_attention_q8", "write_kv_paged_q8_fused",
+     "write_kv_paged_q8")])
+def test_int8_paths_fail_unless_every_walk_launch_writes_its_rows(smoke, path_name, walk,
+                                                                  fused, writer):
+    """On the int8 verify and paged paths every walk launch writes its
+    rows (the fused count equals the walk's), the standalone writer (K11 /
+    K13 (a)) never launches, and that count goes to the writer's kernels
+    record; the dense decode step keeps K6."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 3 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
+    smoke.check_launches(path, ok)
+    assert fused in path["record"] and path["equal"][fused] == walk
+    assert smoke.RECORD_OF[fused] == writer and writer in path["forbid"]
+    with pytest.raises(SystemExit, match=rf"\['{writer}'\] launched on the {path['label']}"):
+        smoke.check_launches(path, {**ok, writer: 1})
+    with pytest.raises(SystemExit, match="launches of the kernel"):
+        smoke.check_launches(path, {**ok, fused: 2})
+    assert "write_kv_rows_q8" in smoke.KV8_PATH["record"]
 
 
 def test_spec_kv8_path_fails_when_the_bf16_decode_attention_launched(smoke):
@@ -428,8 +466,7 @@ def test_paged_phases_are_known_and_a_subset_is_not_ok(smoke):
 def test_every_paged_kernel_records_its_launches_on_a_paged_path(smoke, counters):
     """Each of K12's four forms and K13's two writers takes its "launches"
     from a paged serving path, and the counters read them."""
-    recorded = {name for path in smoke.PATHS for name, key in path["record"].items()
-                if key == "launches"}
+    recorded = _recorded(smoke)
     assert set(PAGED_KERNELS) <= recorded
     assert set(smoke.read_launches(*counters)) >= set(PAGED_KERNELS)
     smoke.reset_launches(*counters)
@@ -475,6 +512,10 @@ def test_paged_serve_fails_unless_every_page_is_free_again(smoke, monkeypatch, f
     from rama_tpu_torch.config import ModelConfig
     from rama_tpu_torch.runtime import engine as eng_mod
     from rama_tpu_torch.runtime.paged import PagedKVCache
+    # phase_serve imports the server module: import it first, so that it
+    # binds the real Engine and not the stand-in below (a later test of the
+    # same worker builds engines through it)
+    from rama_tpu_torch.server import app  # noqa: F401
 
     cfg = ModelConfig(dim=64, hidden_dim=96, n_layers=1, n_heads=4, n_kv_heads=4,
                       vocab_size=8, seq_len=32)
@@ -1483,7 +1524,8 @@ def test_on_form_fails_a_launch_in_another_form(smoke):
 @pytest.mark.parametrize("names,ok", [
     (["void rama::dattn_mma<64, 64>"], True), (["void rama::dattn_walk<64, 64>"], True),
     (["void rama::dattn_mma<64, 8>"], False), (["void rama::dattn_mma<128, 64>"], False),
-    ([], True)])
+    ([], True), (["void rama::dattn_walk<64, 64, false>"], True),
+    (["void rama::dattn_walk<64, 64, true>"], True), (["void rama::dattn_walk<64, 8, true>"], False)])
 def test_check_split_form_reads_the_template_arguments(smoke, names, ok):
     parts = {"split_kernel": names}
     if ok:
@@ -1843,3 +1885,20 @@ def test_model_ml_phase_on_a_tiny_group12_model(smoke, monkeypatch, counters):
     assert da.launches - before[1] >= cfg.n_layers
     assert ab.launches["attn_block_layered_int4"] - before[2] == cfg.n_layers
     assert llama.ATTN_BLOCK == 0
+
+
+@pytest.mark.parametrize("written", [False, True])
+def test_attention_bytes_count_a_launchs_own_new_rows_once(smoke, written):
+    """A T-query chunk attention reads each slot's rows 0 .. min(pos0 + T -
+    1, S - 1) once; where the same launch writes the chunk's rows
+    (`written`, the int8 walk given k_new / v_new) their bytes are the
+    writer's (write_bytes) and none of them is read back: rows at or past
+    S are neither written nor read. Slots at 0, mid-cache, reaching S and
+    wholly past it, T 4, S 64."""
+    pos0 = torch.tensor([0, 10, 62, 70], dtype=torch.int32)
+    nb, ops = smoke.attention_bytes_ops(pos0, 4, 64, 2, 4, 16, 40.0, 100.0, written=written)
+    read = [4, 14, 64, 64]
+    new = [4, 4, 2, 0]
+    rows = sum(r - n for r, n in zip(read, new)) if written else sum(read)
+    assert nb == rows * 2 * 40.0 + 200.0
+    assert ops == sum(min(p + i, 63) + 1 for p in (0, 10, 62, 70) for i in range(4)) * 4 * 16 * 4

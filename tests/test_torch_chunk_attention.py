@@ -13,7 +13,10 @@ dtype, so their fp32-q cases are held to the bf16 tolerance too.
 K11: write_kv_chunk_q8_plain byte for byte against write_kv_chunk_q8 after
 kv_quant_rows (atol 0); rows at or past S are dropped as XLA's scatter
 drops them (the Pallas kernel wraps them into the cache's last window, see
-ROADMAP.md)."""
+ROADMAP.md). K11 inside K10 (chunk_attention_q8 with k_new / v_new, the
+route of bf16 verify rounds on the card): its plain version against the
+Pallas writer followed by chunk_attention_layer_q8, outputs at the bf16
+tolerance and the cache exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -270,6 +273,89 @@ def test_scatter_rows_drops_rows_past_the_end(pos):
     got = torch.from_numpy(dst.copy())
     kw.scatter_rows_(got, t(rows), t(pos))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- K11 inside K10: the chunk's rows written by the attention call ----------------
+
+# (T, GQA rep): T 1 .. 8, rep 1 / 4 / 8 (8 to 64 query rows a kv head)
+WRITE_CASES = [(1, 1), (2, 4), (3, 8), (4, 1), (5, 4), (6, 8), (7, 1), (8, 8), (8, 4), (4, 8)]
+
+
+def _write_inputs(rng, L, B, tq, nh, nkv, s, hd):
+    """bf16 q and new rows (as JAX arrays and bf16 tensors of the same
+    values) and an int8 cache of kv_quant_rows'd N(0, 0.5) rows."""
+    q = jnp.asarray(rng.standard_normal((B, tq, nh, hd)), jnp.bfloat16)
+    k, v = (jnp.asarray(rng.standard_normal((B, tq, nkv, hd)) * 3, jnp.bfloat16)
+            for _ in range(2))
+    _, kc, vc = make(L, B, 1, 1, nkv, s, hd, seed=int(rng.integers(1 << 30)))
+    cache = tuple(np.asarray(a) for a in _q8(kc, vc))
+    bf = [t(np.asarray(a.astype(jnp.float32))).bfloat16() for a in (q, k, v)]
+    return (q, k, v), bf, cache
+
+
+@pytest.mark.parametrize("tq,rep", WRITE_CASES)
+def test_chunk_write_in_attention_plain_matches_pallas(tq, rep):
+    """chunk_attention_q8 given the chunk's rows (k_new / v_new: on the
+    CPU the plain writer, then the plain attention) against rama_tpu's
+    write_kv_chunk_q8 after kv_quant_rows followed by
+    chunk_attention_layer_q8, both in interpret mode: bf16, S 128, chunks
+    from a 64-row tile's start, across its edge (63 - T / 2), from the
+    edge and the last that fits, GQA rep 1 / 4 / 8. Outputs within this
+    file's bf16 tolerance; the cache, int8 bytes and f32 scales, exactly."""
+    L, B, nkv, s, hd = 2, 4, 2, 128, 16
+    rng = np.random.default_rng(100 + 10 * tq + rep)
+    (q, k, v), (tq_, tk, tv), cache = _write_inputs(rng, L, B, tq, nkv * rep, nkv, s, hd)
+    pos0 = np.array([0, 64 - max(tq // 2, 1), 64, s - tq], np.int32)
+    (kq, ksc), (vq, vsc) = jl.kv_quant_rows(k), jl.kv_quant_rows(v)
+    jc = j_write_chunk(*(jnp.asarray(c) for c in cache), kq, vq, ksc, vsc, jnp.asarray(pos0),
+                       jnp.int32(1), interpret=True)
+    want = jda.chunk_attention_layer_q8(q, *jc, jnp.asarray(pos0), jnp.int32(1),
+                                        interpret=True)
+    mine = [t(c) for c in cache]
+    got = da.chunk_attention_q8(tq_, *mine, t(pos0), 1, k_new=tk, v_new=tv)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), fp32=False)
+    for a, w in zip(mine, jc):
+        assert np.array_equal(a.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_chunk_write_in_attention_drops_rows_past_the_end(rep):
+    """Chunks reaching S (pos0 S - 2, S - 1), wholly past it (S) and inside
+    it: the rows at or past S are dropped, as the JAX package's XLA scatter
+    drops them (its Pallas writer wraps them: ROADMAP.md), and the queries
+    that see past S see row S - 1 at most. The attention against
+    chunk_attention_layer_q8 in interpret mode over the scattered cache,
+    the cache exactly."""
+    L, B, nkv, s, hd, tq = 2, 4, 2, 64, 16, 4
+    rng = np.random.default_rng(40 + rep)
+    (q, k, v), (tq_, tk, tv), cache = _write_inputs(rng, L, B, tq, nkv * rep, nkv, s, hd)
+    pos0 = np.array([s - 2, s - 1, s, 5], np.int32)
+    (kq, ksc), (vq, vsc) = jl.kv_quant_rows(k), jl.kv_quant_rows(v)
+    jc = _xla_scatter(cache, kq, vq, ksc, vsc, pos0, 0, tq)
+    want = jda.chunk_attention_layer_q8(q, *jc, jnp.asarray(pos0), jnp.int32(0),
+                                        interpret=True)
+    mine = [t(c) for c in cache]
+    got = da.chunk_attention_q8(tq_, *mine, t(pos0), 0, k_new=tk, v_new=tv)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), fp32=False)
+    for a, w in zip(mine, jc):
+        assert np.array_equal(a.numpy(), np.asarray(w))
+
+
+def test_chunk_write_in_attention_is_the_writer_then_the_attention():
+    """On the CPU the call with rows is exactly write_kv_chunk_q8 followed
+    by chunk_attention_q8 without them (outputs and cache bytes, atol 0);
+    a lone k_new or v_new is refused."""
+    rng = np.random.default_rng(8)
+    _, (tq_, tk, tv), cache = _write_inputs(rng, 2, 3, 4, 8, 2, 96, 16)
+    pos0 = torch.tensor([0, 61, 92], dtype=torch.int32)
+    fused, split = [t(c) for c in cache], [t(c) for c in cache]
+    got = da.chunk_attention_q8(tq_, *fused, pos0, 1, k_new=tk, v_new=tv)
+    kw.write_kv_chunk_q8(*split, tk, tv, pos0, 1)
+    want = da.chunk_attention_q8(tq_, *split, pos0, 1)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))
+    with pytest.raises(ValueError, match="k_new and v_new come together"):
+        da.chunk_attention_q8(tq_, *fused, pos0, 1, k_new=tk)
 
 
 # -- forward_chunk --------------------------------------------------------------

@@ -1695,6 +1695,195 @@ def test_int8_decode_attention_replays_in_a_cuda_graph(dev, paged):
         assert torch.equal(out, eager)
 
 
+# -- K11 / K13 (a) inside the int8 walk: the new rows written by the attention launch --
+
+
+# (T, GQA rep) over 2 kv heads: the 8-row form (T 1 / 4 / 8 at rep 1, T 2 at
+# rep 4), 16 rows (T 3 x 5), 32 (T 8 x 4, T 5 x 6), 64 (T 8 x 8, T 3 x 16)
+# and row groups of 64 (T 8 x 12: a partial second group; T 8 x 16)
+WRITE_FORMS = [(1, 1), (4, 1), (8, 1), (2, 4), (3, 5), (8, 4), (5, 6), (8, 8), (3, 16),
+               (8, 12), (8, 16)]
+# dense caches of S rows (2100: splits of G = 2 tiles), or pools of mp
+# pages of ps rows (64- and 128-row pages)
+WRITE_LAYOUTS = {"dense200": (None, 200), "dense2100": (None, 2100), "ps64": (64, 8),
+                 "ps128": (128, 4)}
+
+
+def _write_case(dev, layout, t, rep, hd, seed):
+    """(caches, tables, pos0, q, k_new, v_new) of a fused-write check: an
+    int8 cache (2 layers) of kv_quant_rows'd N(0, 1) rows, bf16 q, and new
+    rows of mixed magnitude with a zero row and .5 ties. Planted edges,
+    dense: a chunk at 0, across a 64-row tile edge, the last that fits,
+    reaching S, wholly past it and further past (rows at or past S
+    dropped); paged (every slot its own shuffled pages): a chunk at 0,
+    across a 64-row tile edge, across a page edge, the last that fits, one
+    running past the slot's table (clipped into its page mp - 1, where its
+    own queries read them) and one wholly past it."""
+    ps, n = WRITE_LAYOUTS[layout]
+    nkv = 2
+    if ps is None:
+        S, tables = n, None
+        pos = [0, 64 - max(t // 2, 1), S - t, S - 2, S, S + 3]
+        shape = (2, len(pos), nkv, S, hd)
+    else:
+        mp = n
+        S = mp * ps
+        pos = [0, 64 - max(t // 2, 1), ps - max(t // 2, 1), S - t, S - 1, S + 5]
+        g = torch.Generator().manual_seed(seed)
+        npages = len(pos) * mp + 2
+        perm = torch.randperm(npages, generator=g)[:len(pos) * mp]
+        tables = perm.view(len(pos), mp).to(torch.int32).to(dev)
+        shape = (2, npages, nkv, ps, hd)
+    b = len(pos)
+    (k8, ks), (v8, vs) = (_quant_rows(torch.randn(shape, device=dev)) for _ in range(2))
+    q = torch.randn(b, t, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    k, v = (_kv_rows(dev, (b, t, nkv, hd), torch.bfloat16, seed=seed + i) for i in (1, 2))
+    return [k8, v8, ks, vs], tables, torch.tensor(pos, dtype=torch.int32, device=dev), q, k, v
+
+
+def _quant_rows(x):
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    return kw.kv_quant_rows(x)
+
+
+def _fused_and_unfused(caches, tables, p0, q, k, v, layer):
+    """(fused output, its cache), (unfused output, its cache): the walk
+    launch given the new rows, against the standalone writer (K11 / K13
+    (a)) followed by the walk without them, each on its own copy."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    fused, split = [c.clone() for c in caches], [c.clone() for c in caches]
+    t = q.shape[1]
+    if tables is None:
+        got = da.chunk_attention_q8(q, *fused, p0, layer, k_new=k, v_new=v)
+        kw.write_kv_chunk_q8(*split, k, v, p0, layer)
+        want = da.chunk_attention_q8(q, *split, p0, layer)
+    elif t == 1:
+        got = pa.paged_decode_attention_q8(q[:, 0], *fused, p0, tables, layer,
+                                           k_new=k[:, 0], v_new=v[:, 0])
+        kw.write_kv_paged_q8(*split, k, v, p0, tables, layer)
+        want = pa.paged_decode_attention_q8(q[:, 0], *split, p0, tables, layer)
+    else:
+        got = pa.paged_chunk_attention_q8(q, *fused, p0, tables, layer, k_new=k, v_new=v)
+        kw.write_kv_paged_q8(*split, k, v, p0, tables, layer)
+        want = pa.paged_chunk_attention_q8(q, *split, p0, tables, layer)
+    return (got, fused), (want, split)
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("t,rep", WRITE_FORMS)
+@pytest.mark.parametrize("layout", list(WRITE_LAYOUTS))
+def test_walk_writes_the_new_rows_as_the_writer_then_the_walk(dev, hd, t, rep, layout):
+    """The int8 walk given a chunk's new rows (K10 / K12 _q8 with k_new /
+    v_new) equals the standalone writer followed by the walk without them,
+    for every row form and row groups, dense and paged, T 1 .. 8, at the
+    planted edges of _write_case: the outputs bit for bit, the cache or
+    pool (int8 bytes and f32 scales) byte for byte, and the plain version
+    within the bf16 tolerance. Each fused call counts one launch on the
+    walk body and one fused write, and none of the standalone writer."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    caches, tables, p0, q, k, v = _write_case(dev, layout, t, rep, hd, seed=hd + 10 * t + rep)
+    mod = da if tables is None else pa
+    for layer in (0, 1):
+        writes, walks = mod.launches_write_q8, mod.launches_by_body["walk"]
+        standalone = dict(kw.launches)
+        (got, fused), (want, split) = _fused_and_unfused(caches, tables, p0, q, k, v, layer)
+        assert mod.launches_write_q8 == writes + 1 and mod.launches_by_body["walk"] == walks + 2
+        assert kw.launches["write_kv_chunk_q8"] + kw.launches["write_kv_paged_q8"] == (
+            standalone["write_kv_chunk_q8"] + standalone["write_kv_paged_q8"] + 1)
+        assert torch.equal(got, want)
+        for a, b in zip(fused, split):
+            assert torch.equal(a, b)
+        if tables is None:
+            plain = [c.clone() for c in caches]
+            ref = da.chunk_attention_q8_plain(q, *plain, p0, layer, k, v)
+        else:
+            plain = [c.clone() for c in caches]
+            ref = pa.paged_chunk_attention_q8_plain(q, *plain, p0, tables, layer, k, v)
+            got = got if got.dim() == 3 else got[:, None]
+        _close(got, ref, torch.bfloat16)
+        for a, b in zip(fused, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("t,rep", [(4, 1), (8, 16)])
+def test_walk_row_write_replays_in_a_cuda_graph(dev, paged, t, rep):
+    """The fused launch (the 8-row form, and two row groups of 64) captured
+    in a CUDA graph after a warm-up launch and replayed twice equals an
+    eager launch on its own copy of the cache: outputs bit for bit, the
+    cache or pool byte for byte (a replay rewrites the same bytes)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    caches, tables, p0, q, k, v = _write_case(dev, "ps128" if paged else "dense2100", t, rep,
+                                              128, seed=31)
+    eager_c, graph_c = [c.clone() for c in caches], [c.clone() for c in caches]
+
+    def call(c):
+        if paged:
+            return pa.paged_chunk_attention_q8(q, *c, p0, tables, 1, k_new=k, v_new=v)
+        return da.chunk_attention_q8(q, *c, p0, 1, k_new=k, v_new=v)
+
+    eager = call(eager_c)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up on the capture stream
+        call(graph_c)
+    torch.cuda.current_stream().wait_stream(stream)
+    mod = pa if paged else da
+    n0 = mod.launches_write_q8
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(graph_c)
+    assert mod.launches_write_q8 == n0 + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(torch.equal(a, b) for a, b in zip(graph_c, eager_c))
+
+
+def test_int8_rows_off_the_walk_take_the_standalone_writer(dev):
+    """Only the int8 walk writes new rows in its launch: fp32 q (the SIMT
+    body) and head_dim 16 given rows run the standalone writer (K11 / K13
+    (a), one launch of its own) first and the attention without them,
+    equal to that pair bit for bit (outputs and cache or pool bytes), with
+    no fused write counted; rows of another shape or dtype on the walk, or
+    one of the two rows alone, are refused before any launch."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+
+    c16, _, p16, q16, k16, v16 = _write_case(dev, "dense200", 4, 1, 16, seed=6)
+    cases = [(c16, None, p16, q16, k16, v16)]
+    for layout in ("dense200", "ps64"):
+        caches, tables, p0, q, k, v = _write_case(dev, layout, 4, 2, 128, seed=5)
+        cases.append((caches, tables, p0, q.float(), k.float(), v.float()))
+    for caches, tables, p0, q, k, v in cases:
+        mod = da if tables is None else pa
+        writer = "write_kv_chunk_q8" if tables is None else "write_kv_paged_q8"
+        n0, w0 = mod.launches_write_q8, kw.launches[writer]
+        (got, fused), (want, split) = _fused_and_unfused(caches, tables, p0, q, k, v, 1)
+        assert (mod.launches_write_q8, kw.launches[writer]) == (n0, w0 + 2)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(fused, split))
+    caches, _, p0, q, k, v = _write_case(dev, "dense200", 4, 1, 128, seed=5)
+    with pytest.raises(ValueError, match="new rows must be"):
+        da.chunk_attention_q8(q, *caches, p0, 0, k_new=k.float(), v_new=v.float())
+    with pytest.raises(ValueError, match="new rows must be"):
+        da.chunk_attention_q8(q, *caches, p0, 0, k_new=k[:, :2].contiguous(),
+                              v_new=v[:, :2].contiguous())
+    with pytest.raises(ValueError, match="come together"):
+        da.chunk_attention_q8(q, *caches, p0, 0, k_new=k)
+
+
 def test_attn_block_refuses_operands_it_does_not_take(dev):
     from rama_tpu_torch.ops.kernels import attn_block as ab
 

@@ -358,3 +358,92 @@ def test_cpu_wrappers_dispatch_to_plain():
     assert tl._KERNELS.write_kv_rows_q8 is kw.write_kv_rows_q8
     assert tl._PLAIN.decode_attention_q8 is da.decode_attention_q8_plain
     assert tl._PLAIN.write_kv_strips_q8 is kw.write_kv_strips_q8_plain
+
+
+class _Recorder:
+    """Kernel entry points that forward every call to `ops` and record it:
+    (name, whether it was given the new rows k_new / v_new)."""
+
+    def __init__(self, ops):
+        self._ops, self.calls = ops, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._ops, name)
+
+        def call(*a, **kw):
+            self.calls.append((name, kw.get("k_new") is not None))
+            return fn(*a, **kw)
+
+        return call
+
+
+@pytest.mark.parametrize("dtype,hd,fused", [(torch.bfloat16, 64, True), (torch.bfloat16, 48, True),
+                                            (torch.float32, 64, False),
+                                            (torch.bfloat16, 16, False)])
+def test_int8_chunk_and_paged_steps_route_their_row_write(monkeypatch, dtype, hd, fused):
+    """Through a recording `_KERNELS` (the non-plain route): a verify chunk
+    over an int8 cache and a paged decode step and chunk over an int8 pool
+    hand their new rows to the attention entry, once a layer, and never
+    call the standalone writer (K11, K13 (a)) themselves, and the logits
+    equal plain=True's exactly (the same plain functions on the CPU) and
+    the dense cache its bytes. Off the CPU the entry picks the writer:
+    where the launch takes the int8 walk (bf16 at head_dim 48 / 64 / 128,
+    `walk_writes_rows`) the launch gets the rows and no writer runs; fp32
+    and another head dim run the standalone writer first, then the launch
+    without rows (meta tensors, the launch and the writers recorded)."""
+    from rama_tpu_torch.ops.kernels import paged_attention as pa
+    from rama_tpu_torch.runtime import paged
+
+    jcfg = tiny_config(dim=2 * hd, hidden_dim=64, n_layers=2, n_heads=2, n_kv_heads=1,
+                       vocab_size=32, seq_len=32)
+    cfg = torch_cfg(jcfg)
+    params = tl.load_params(cfg, random_params(jcfg, seed=3), dtype=dtype, device="cpu")
+    toks = torch.tensor([[5, 9, 3, 7], [2, 8, 4, 1]])
+    pos0 = torch.tensor([3, 9])
+    rec = _Recorder(tl._KERNELS)
+    monkeypatch.setattr(tl, "_KERNELS", rec)
+    monkeypatch.setattr(paged, "_KERNELS", rec)
+    n = cfg.n_layers
+
+    def calls(run) -> list:
+        rec.calls.clear()
+        run()
+        return [c for c in rec.calls if "attention" in c[0] or "write" in c[0]]
+
+    caches = [tl.QuantKVCache.create(cfg, 2, 32, device="cpu") for _ in range(2)]
+    out = {}
+    got = calls(lambda: out.setdefault(0, tl.forward_chunk(params, cfg, toks, pos0,
+                                                           caches[0])[0]))
+    want, _ = tl.forward_chunk(params, cfg, toks, pos0, caches[1], plain=True)
+    assert torch.equal(out[0], want)
+    assert all(torch.equal(a, b) for a, b in zip(vars(caches[0]).values(),
+                                                 vars(caches[1]).values()))
+    assert got == [("chunk_attention_q8", True)] * n
+    tables = torch.tensor([[0, 2], [1, 3]], dtype=torch.int32)
+    for tq, name in ((1, "paged_decode_attention_q8"), (3, "paged_chunk_attention_q8")):
+        pool = paged.QuantPagedKVCache.create(cfg, 5, 16, device="cpu")
+        pos = pos0[:, None] + torch.arange(tq)[None, :]
+        got = calls(lambda: paged.forward_paged(params, cfg, toks[:, :tq], pos, pool, tables))
+        assert got == [(name, True)] * n
+
+    seen = []
+    for mod, launch in ((da, "_launch"), (pa, "_launch")):
+        monkeypatch.setattr(mod, launch, lambda q, *a, rows=None, **kw: seen.append(
+            ("launch", rows is not None)) or torch.empty(2, 1, 2, device="meta"))
+    for writer in ("write_kv_chunk_q8", "write_kv_paged_q8"):
+        monkeypatch.setattr(kw, writer, lambda *a, w=writer: seen.append((w, a[4].dim())))
+    monkeypatch.setattr(da, "launches_chunk_q8", 0)
+    monkeypatch.setattr(da, "launches_write_q8", 0)
+    meta = dict(device="meta", dtype=dtype)
+    q, k8 = torch.empty(2, 3, 2, hd, **meta), torch.empty(2, 2, 1, 32, hd, device="meta")
+    rows, s8 = torch.empty(2, 3, 1, hd, **meta), torch.empty(2, 2, 1, 32, device="meta")
+    p = torch.zeros(2, dtype=torch.int32, device="meta")
+    tab = torch.zeros(2, 2, dtype=torch.int32, device="meta")
+    da.chunk_attention_q8(q, k8, k8, s8, s8, p, 1, k_new=rows, v_new=rows)
+    pa.paged_chunk_attention_q8(q, k8, k8, s8, s8, p, tab, 1, k_new=rows, v_new=rows)
+    pa.paged_decode_attention_q8(q[:, 0], k8, k8, s8, s8, p, tab, 1, k_new=rows[:, 0],
+                                 v_new=rows[:, 0])
+    writers = ["write_kv_chunk_q8", "write_kv_paged_q8", "write_kv_paged_q8"]
+    assert seen == ([("launch", True)] * 3 if fused else
+                    [x for w in writers for x in ((w, 4), ("launch", False))])
+    assert da.walk_writes_rows(q) == fused

@@ -330,6 +330,117 @@ def test_write_kv_prefill_paged_q8_plain_equals_jax(ps, tt):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
+# (page size, T, GQA rep): T 1 .. 8, rep 1 / 4 / 8, pages of 16 / 32 / 64 / 128 rows
+PAGED_WRITE_CASES = [(16, 1, 1), (16, 8, 4), (32, 3, 8), (64, 8, 1), (64, 5, 8), (128, 2, 4),
+                     (16, 4, 1), (32, 6, 4), (128, 7, 8)]
+
+
+def _paged_write_inputs(rng, L, P, B, tq, nh, nkv, ps, hd):
+    """bf16 q and N(0, 1) new rows (JAX arrays and bf16 tensors of the same
+    values: the K12 tests' inputs) and an int8 pool of kv_quant_rows'd
+    N(0, 1) rows."""
+    q = jnp.asarray(rng.standard_normal((B, tq, nh, hd)), jnp.bfloat16)
+    k, v = (jnp.asarray(rng.standard_normal((B, tq, nkv, hd)), jnp.bfloat16) for _ in range(2))
+    (k8, ks), (v8, vs) = (jl.kv_quant_rows(jnp.asarray(a))
+                          for a in _pools(rng, L, P, nkv, ps, hd))
+    bf = [t(np.asarray(a.astype(jnp.float32))).bfloat16() for a in (q, k, v)]
+    return (q, k, v), bf, [np.asarray(a) for a in (k8, v8, ks, vs)]
+
+
+@pytest.mark.parametrize("ps,tq,rep", PAGED_WRITE_CASES)
+def test_paged_write_in_attention_plain_matches_pallas(ps, tq, rep):
+    """paged_decode_attention_q8 (T 1) and paged_chunk_attention_q8 given
+    the rows (k_new / v_new: on the CPU the plain paged writer, then the
+    plain attention) against rama_tpu's write_kv_paged_q8 after
+    kv_quant_rows followed by paged_decode_attention_layer_q8 /
+    paged_chunk_attention_layer_q8, in interpret mode: bf16, tables of
+    two shuffled pages a slot, chunks from a page's start, across a page
+    edge (and, at 128-row pages, a 64-row tile edge), inside a page and
+    the last that fits. Outputs within 1e-2 (this file's bf16 tolerance),
+    the pool exactly."""
+    L, P, B, nkv, hd = 2, 10, 4, 2, 128
+    rng = np.random.default_rng(7 * ps + 3 * tq + rep)
+    (q, k, v), (tq_, tk, tv), pool = _paged_write_inputs(rng, L, P, B, tq, nkv * rep, nkv, ps,
+                                                         hd)
+    tables = rng.permutation(8).reshape(B, 2).astype(np.int32)
+    edge = 64 if ps == 128 else ps
+    pos0 = np.array([ps, edge - max(tq // 2, 1), min(5, ps - tq), 2 * ps - tq], np.int32)
+    (kq, ksc), (vq, vsc) = jl.kv_quant_rows(k), jl.kv_quant_rows(v)
+    jp = jkw.write_kv_paged_q8(*(jnp.asarray(a) for a in pool), kq, vq, ksc, vsc,
+                               jnp.asarray(pos0), jnp.asarray(tables), jnp.int32(1),
+                               interpret=True)
+    args = (jnp.asarray(pos0), jnp.asarray(tables), jnp.int32(1))
+    mine = [t(a) for a in pool]
+    if tq == 1:
+        want = jpa.paged_decode_attention_layer_q8(q[:, 0], *jp, *args, interpret=True)
+        got = pa.paged_decode_attention_q8(tq_[:, 0], *mine, t(pos0), t(tables), 1,
+                                           k_new=tk[:, 0], v_new=tv[:, 0])
+    else:
+        want = jpa.paged_chunk_attention_layer_q8(q, *jp, *args, interpret=True)
+        got = pa.paged_chunk_attention_q8(tq_, *mine, t(pos0), t(tables), 1, k_new=tk,
+                                          v_new=tv)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    for g, w in zip(mine, jp):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("tq,rep", [(1, 1), (4, 4), (8, 8)])
+def test_paged_write_in_attention_clips_rows_past_the_table(tq, rep):
+    """Chunks running past a slot's two table pages (pos0 2 ps - 1, and a
+    slot wholly past them): the rows past the table land in the slot's
+    page mp - 1 at p % ps, as the JAX package's fused paths write them
+    (its XLA pool scatter; its Pallas writer keeps an old row there:
+    ROADMAP.md §4), and the queries read them there (every write first,
+    then every read). The attention against the Pallas q8 functions in
+    interpret mode over the scattered pool, the pool exactly."""
+    L, P, B, nkv, hd, ps = 2, 10, 4, 2, 128, 16
+    rng = np.random.default_rng(90 + tq + rep)
+    (q, k, v), (tq_, tk, tv), pool = _paged_write_inputs(rng, L, P, B, tq, nkv * rep, nkv, ps,
+                                                         hd)
+    tables = rng.permutation(8).reshape(B, 2).astype(np.int32)
+    pos0 = np.array([2 * ps - 1, 2 * ps + 3, 0, ps + 2], np.int32)
+    (kq, ksc), (vq, vsc) = jl.kv_quant_rows(k), jl.kv_quant_rows(v)
+    jp = _j_paged_scatter([jnp.asarray(a) for a in pool], kq, vq, ksc, vsc, pos0, tables, 0, ps)
+    args = (jnp.asarray(pos0), jnp.asarray(tables), jnp.int32(0))
+    mine = [t(a) for a in pool]
+    if tq == 1:
+        want = jpa.paged_decode_attention_layer_q8(q[:, 0], *jp, *args, interpret=True)[:, None]
+        got = pa.paged_decode_attention_q8(tq_[:, 0], *mine, t(pos0), t(tables), 0,
+                                           k_new=tk[:, 0], v_new=tv[:, 0])[:, None]
+    else:
+        want = jpa.paged_chunk_attention_layer_q8(q, *jp, *args, interpret=True)
+        got = pa.paged_chunk_attention_q8(tq_, *mine, t(pos0), t(tables), 0, k_new=tk,
+                                          v_new=tv)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    for g, w in zip(mine, jp):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_paged_write_in_attention_is_the_writer_then_the_attention():
+    """On the CPU the int8 entries given rows are exactly write_kv_paged_q8
+    followed by the entry without them (outputs and pool bytes, atol 0),
+    decode (rows (B, nkv, hd)) and chunk alike."""
+    rng = np.random.default_rng(12)
+    _, (tq_, tk, tv), pool = _paged_write_inputs(rng, 2, 10, 4, 3, 4, 2, 16, 128)
+    tables = t(rng.permutation(8).reshape(4, 2).astype(np.int32))
+    pos0 = torch.tensor([0, 14, 29, 31], dtype=torch.int32)
+    for tq in (1, 3):
+        fused, split = [t(a) for a in pool], [t(a) for a in pool]
+        kn, vn = tk[:, :tq], tv[:, :tq]
+        kw.write_kv_paged_q8(*split, kn, vn, pos0, tables, 1)
+        if tq == 1:
+            got = pa.paged_decode_attention_q8(tq_[:, 0], *fused, pos0, tables, 1,
+                                               k_new=kn[:, 0], v_new=vn[:, 0])
+            want = pa.paged_decode_attention_q8(tq_[:, 0], *split, pos0, tables, 1)
+        else:
+            got = pa.paged_chunk_attention_q8(tq_, *fused, pos0, tables, 1, k_new=kn, v_new=vn)
+            want = pa.paged_chunk_attention_q8(tq_, *split, pos0, tables, 1)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(fused, split))
+
+
 def test_kernel_wrappers_refuse_other_devices(monkeypatch):
     """K12 / K13 on a tensor that is neither on the CPU nor on the card
     raise and never reach their plain versions."""

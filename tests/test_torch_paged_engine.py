@@ -171,6 +171,63 @@ def test_free_slot_writes_land_on_the_trash_page(setup):
     assert not torch.equal(eng.cache.k[:, eng.trash_page], trash_before)
 
 
+@pytest.mark.parametrize("spec_tick", [0, 3])
+def test_no_live_query_reads_a_page_another_slot_writes(setup, monkeypatch, spec_tick):
+    """What lets the int8 walk write a paged step's or chunk's rows inside
+    the attention launch and still equal the standalone writer followed by
+    the attention (every write, then every read; ROADMAP.md §3): in every
+    paged forward an engine on an int8 pool runs (plain ticks or verify
+    rounds of 4, requests ending mid-batch and one running into max_len),
+    every table entry is a page of the pool (none clamped into another
+    slot's page), no slot holds a page twice among the pages it reads and
+    writes, a page that one slot's rows are written to is written or read
+    by no other slot unless it is the trash page, and no live slot's query
+    below max_len reads the trash page."""
+    from rama_tpu_torch.runtime import paged as paged_mod
+
+    _, _, cfg, params, _, tok = setup
+    seen = []
+
+    class Record:
+        def __getattr__(self, name):
+            fn = getattr(tl._KERNELS, name)
+            if not name.startswith("paged_") or not name.endswith("_q8"):
+                return fn
+
+            def call(q, *a, **kw):
+                if a[-1] == 0:                        # layer 0: one record a forward
+                    seen.append((a[-3].tolist(), a[-2].tolist(), 1 if q.dim() == 3 else q.shape[1]))
+                return fn(q, *a, **kw)
+
+            return call
+
+    monkeypatch.setattr(paged_mod, "_KERNELS", Record())
+    eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=3, kv_quant="int8",
+                                                spec_tick=spec_tick, **PAGED))
+    outs, reqs = serve(eng, [("abc", 70), ("zq", 5), ("hello", 20)])
+    assert all(r.error is None for r in reqs) and len(outs[0]) >= 1
+    ps, npages, trash = eng.ecfg.kv_page_size, eng.cache.num_pages, eng.trash_page
+    assert len(seen) > 10
+    for pos0, tables, tq in seen:
+        mp = len(tables[0])
+        assert all(0 <= e < npages for row in tables for e in row)
+        wrote = [{min(max(p + i, 0) // ps, mp - 1) for i in range(tq)} for p in pos0]
+        reads = [range(min(p + tq - 1, mp * ps - 1) // ps + 1) for p in pos0]
+        for row, w, r in zip(tables, wrote, reads):
+            held = [row[g] for g in sorted(w | set(r)) if row[g] != trash]
+            assert len(held) == len(set(held)), (row, w, r)
+        written = [{row[g] for g in w} for row, w in zip(tables, wrote)]
+        read = [{row[g] for g in r} for row, r in zip(tables, reads)]
+        for b, w in enumerate(written):
+            for o in range(len(tables)):
+                if o != b:
+                    assert w & (written[o] | read[o]) <= {trash}, (b, o, pos0, tables)
+        for p, row in zip(pos0, tables):
+            if set(row) != {trash}:                   # a live slot
+                last = min(p + tq, eng.max_len) - 1   # its last query below max_len
+                assert trash not in row[: last // ps + 1], (p, row)
+
+
 def test_loop_error_rebuilds_the_pool_and_the_allocator(setup):
     """An injected device failure mid-stream fails the in-flight request,
     returns its pages, rebuilds a zeroed pool with a fresh allocator and
