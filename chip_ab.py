@@ -49,16 +49,19 @@ another model:
     a call at the 7B shapes (int8 gs 64; int4 w13 gs 64, w2 gs 16; il 256;
     8 layers cycled), M = 1 / 8 / 32, and, where the tree takes any M, 64 /
     128 / 256, with the bound beside; `--ffn-only` runs only these;
-  - `--write-only`: the int8 row writers K11 / K13 (a) beside the walk
-    that attends to their rows, device ms (CUDA events over a CUDA graph
-    of 20 launches, chip_smoke.graph_device_ms) at the serving shapes: K10
-    _q8 at S 4096, T 4, and K12 _q8 on an int8 pool of 128-row pages at T
-    1 and 4: the walk alone, the standalone writer then the walk, the
-    writer alone, and, on a tree whose walk writes the rows itself (the
-    `k_new` / `v_new` operands), that fused launch; then 8-slot 7B int8
-    verify rounds of 4 on an int8 cache (`profile_spec`'s) and decode steps
-    on an int8 pool (`profile_paged`'s) at pos 64 and 2048: device and host
-    ms a round or step (`--write-kernels`: the kernels alone);
+  - `--write-only`: the int8 row writers K6 / K11 / K13 (a) beside the
+    walk that attends to their rows, device ms (CUDA events over a CUDA
+    graph of 20 launches, chip_smoke.graph_device_ms) at the serving
+    shapes: K7 at S 4096 (the decode step), K10 _q8 at S 4096, T 4, and
+    K12 _q8 on an int8 pool of 128-row pages at T 1 and 4: the walk alone,
+    the standalone writer then the walk, the writer alone, and, on a tree
+    whose walk writes the rows itself (the `k_new` / `v_new` operands of
+    that entry), that fused launch; the admission strip writer K13 (b) at
+    8 strips of 16 and of 512 rows into 128-row pages (the tree's own
+    body); then 8-slot 7B int8 decode steps and verify rounds of 4 on an
+    int8 cache (`profile_kv8`'s, `profile_spec`'s) and decode steps on an
+    int8 pool (`profile_paged`'s) at pos 64 and 2048: device and host ms a
+    step or round (`--write-kernels`: the kernels alone);
   - `--summary FILE`: no card; reads the JSON lines of runs in turns (a
     file of this script's output) and prints, for each measure and each
     of its times, every tag's runs in the order they ran, their median
@@ -234,6 +237,24 @@ def main() -> int:
         fused = "k_new" in inspect.signature(da.chunk_attention_q8).parameters
         S, T = cs.KV8_MAX_LEN, cs.SPEC_TICK + 1
         c = cs.quantized_cache(torch, kvw, rx, 4, B, nkv, S, hd)
+        # K6 in K7: the decode step's rows
+        pos = torch.tensor([0, 63, 64, 255, 1023, 2047, 4000, 4095], dtype=torch.int32,
+                           device=dev)
+        q1, k1, v1 = rx(B, nh, hd), rx(B, nkv, hd), rx(B, nkv, hd)
+        lay = cs.Layered(4)
+
+        def pair_k6():
+            l = lay.next()
+            kvw.write_kv_rows_q8(*c, k1, v1, pos, l)
+            return da.decode_attention_q8(q1, *c, pos, l)
+
+        fns = {"walk_ms": lambda: da.decode_attention_q8(q1, *c, pos, lay.next()),
+               "writer_then_walk_ms": pair_k6,
+               "writer_ms": lambda: kvw.write_kv_rows_q8(*c, k1, v1, pos, lay.next())}
+        if "k_new" in inspect.signature(da.decode_attention_q8).parameters:
+            fns["fused_ms"] = lambda: da.decode_attention_q8(q1, *c, pos, lay.next(), k_new=k1,
+                                                            v_new=v1)
+        emit(f"K6 in K7 S={S}", **cs.graph_device_ms(torch, fns))
         p0 = torch.tensor([0, 63, 1021, 2047, 3000, 4000, 4090, S - T], dtype=torch.int32,
                           device=dev)
         q, kn, vn = rx(B, T, nh, hd), rx(B, T, nkv, hd), rx(B, T, nkv, hd)
@@ -281,6 +302,18 @@ def main() -> int:
             emit(f"K13 (a) in K12 ps={ps} T={t}", **cs.graph_device_ms(torch, fns))
             del pool, k8, v8
         torch.cuda.empty_cache()
+        # K13 (b): an admission group's strips, every layer
+        for t in (16, 512):
+            tables, npages = cs.paged_tables(torch, [t] * B, ps, mp, 4, gc)
+            tables = tables.to(dev)
+            pool = [torch.zeros((cfg.n_layers, npages, nkv, ps, hd), dtype=torch.int8,
+                                device=dev) for _ in range(2)] + [
+                torch.zeros((cfg.n_layers, npages, nkv, ps), device=dev) for _ in range(2)]
+            ks_, vs_ = (rx(cfg.n_layers, B, nkv, t, hd) for _ in range(2))
+            emit(f"K13 (b) strips T={t} ps={ps}", **cs.graph_device_ms(torch, {
+                "device_ms": lambda: kvw.write_kv_prefill_paged_q8(*pool, ks_, vs_, tables, t)}))
+            del pool, ks_, vs_
+            torch.cuda.empty_cache()
         if args.write_kernels:
             return
         params = cs.random_params(torch, cfg, dev, bits=8)
@@ -288,6 +321,9 @@ def main() -> int:
         long["rope_cos"], long["rope_sin"] = _rope_tables(cfg, dev, seq_len=S)
         cache = QuantKVCache.create(cfg, 8, S, device=dev)
         for start in (64, 2048):
+            r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache,
+                                 start=start)
+            emit(f"profile_kv8 int8 cache pos {start}", **r)
             r = cs.phase_profile(torch, cfg, long, tag=f"ab {args.tag}", cache=cache,
                                  start=start, chunk=T)
             emit(f"profile_spec int8 cache pos {start} chunk {T}", **r)

@@ -62,7 +62,12 @@ Phases, in order (any failure raises and the script exits non-zero):
            and combine device ms with the bound's share, the grid (CTAs
            launched against the splits with work, beside one CTA a 64-row
            tile), the occupancy, and G (tiles a split) swept over 1 / 2 /
-           4 / 8
+           4 / 8; K6 inside K7 (the walk given the decode step's rows, at S
+           4096, tile edges, S - 1 and a finished slot's overshoot S, S + 3
+           onto row S - 1, planted rows) against K6 then the walk (bit for
+           bit, cache byte for byte) and the plain version, its device ms
+           (a CUDA graph of 20 launches) beside the walk alone, K6 then the
+           walk and K6 alone
   model    Llama-2-7B int8 params from a seed on the card (untied
            classifier), kernel-path logits against the plain path
   generate generate_text, greedy, a few dozen tokens (non-degenerate)
@@ -141,8 +146,12 @@ Phases, in order (any failure raises and the script exits non-zero):
            a table clipped into its last page; K13 (a) inside K12 (the walk
            given the step's or chunk's rows, T 1 / 4 / 8, planted rows,
            rows past a table) against the writer then the walk and the
-           plain version, timed as K11 inside K10; CUDA-event times beside
-           the dense kernels on the same rows
+           plain version, timed as K11 inside K10; K13 (b)'s streaming body
+           (bf16 at hd 48 / 64 / 128) and its warp-a-row body exact at 16-,
+           64- and 128-row pages, odd t_ins, n < K and a clamped table
+           entry, timed at 16 and 512 rows a strip (device ms, CUDA events
+           over a graph of 20, both bodies in turns, the bound's share);
+           CUDA-event times beside the dense kernels on the same rows
   model_paged  7B int8 decode steps and chunks (T 4) through the paged
            kernels against the plain path on a dense cache of the same rows,
            bf16 and int8 pools, positions up to 4092
@@ -248,7 +257,8 @@ Phases, in order (any failure raises and the script exits non-zero):
            width: GQA group 7, 56 heads over 8 kv heads, head_dim 128)
            logits through the kernels against the plain path: a padded
            prefill of 8 prompts (plen on the "gqa" form's 9-position tile
-           edges), a decode step and forward_chunk at T 4 on a bf16 cache
+           edges), a decode step and forward_chunk at T 4 on a bf16 cache,
+           then a decode step on an int8 cache (K6 inside K7's 8-row form)
   serve_yi, serve_yi_kv8, serve_yi_spec, serve_yi_ab2  the server on
            Yi-34B (8 slots, max_len 2048, a 64000-piece tokenizer file made
            from the fixture's pieces): plain decoding on a bf16 cache; on an
@@ -268,8 +278,10 @@ and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
 must have launched; int8 KV (`serve_kv8`), where the int8 cache's three
-kernels, the int8 matmul / FFN and the prefill attention must have, and
-the bf16 decode attention must not; n-gram speculation (`serve_spec`),
+kernels (K6 inside every K7 launch: `write_kv_rows_q8_fused` equal to
+`decode_attention_q8`, K6's own launch never), the int8 matmul / FFN and
+the prefill attention must have, and the bf16 decode attention must not;
+n-gram speculation (`serve_spec`),
 where K10 on the bf16 cache, the matmul, FFN and prefill must have, and
 the T = 1 decode attention must not (every tick verifies a chunk);
 draft-model speculation (`spec_draft`, its spec-off baseline run before
@@ -391,7 +403,10 @@ FORM_COUNTS = {name: prefix for name, (prefix, _) in BODY_COUNTS.items()
 # launch counts kept in another kernel's record: the walk launches that wrote
 # their rows are K11's / K13 (a)'s launches on the main path
 RECORD_OF = {"write_kv_chunk_q8_fused": "write_kv_chunk_q8",
-             "write_kv_paged_q8_fused": "write_kv_paged_q8"}
+             "write_kv_paged_q8_fused": "write_kv_paged_q8",
+             "write_kv_rows_q8_fused": "write_kv_rows_q8",
+             # K13 (b) launches on its warp-a-row body (none on a bf16 hd-128 path)
+             "write_kv_prefill_paged_q8_rows": "write_kv_prefill_paged_q8"}
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
@@ -422,13 +437,18 @@ INT8_PATH = dict(label="int8", bits=8, phases=("model", "generate", "serve", "pr
                          "decode_attention": "launches", "prefill_attention": "launches",
                          "quant_matmul_mma": "launches"},
                  forbid={})
+# K6 on the int8 KV path: every decode step's rows are written by the K7
+# walk launch that attends to them (`write_kv_rows_q8_fused`, K6's record;
+# `equal`: every K7 launch carries rows), never by K6's own launch
 KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "profile_kv8"),
                 serve=dict(max_seq_len=KV8_MAX_LEN, kv_quant="int8"),
-                record={"write_kv_rows_q8": "launches", "decode_attention_q8": "launches",
+                record={"write_kv_rows_q8_fused": "launches", "decode_attention_q8": "launches",
                         "write_kv_strips_q8": "launches",
                         "quant_matmul": "launches_kv8_path", "ffn": "launches_kv8_path",
                         "prefill_attention": "launches_kv8_path"},
-                forbid={"decode_attention": "launches_kv8_path"})
+                forbid={"decode_attention": "launches_kv8_path",
+                        "write_kv_rows_q8": "standalone_launches"},
+                equal={"write_kv_rows_q8_fused": "decode_attention_q8"})
 SPEC_PATH = dict(label="speculation", bits=8,
                  phases=("model_spec", "serve_spec", "profile_spec"),
                  serve=dict(spec_tick=SPEC_TICK),
@@ -465,7 +485,8 @@ SPEC_KV8_PATH = dict(label="speculation int8 KV", bits=8, phases=(None, "serve_s
 # the paged paths: 8 slots at max_len 4096 on a pool of PAGED_NUM_PAGES
 # pages of PAGE_SIZE rows (K12 / K13 where the dense paths run K4, K7,
 # K10, K6, K8, K11; write_kv_paged_q8 is one kernel and one count for the
-# decode rows and the verification chunks)
+# decode rows and the verification chunks; K13 (b) on its streaming body,
+# never the warp-a-row one: `write_kv_prefill_paged_q8_rows` forbidden)
 PAGED_SERVE = dict(max_seq_len=KV8_MAX_LEN, paged=True)
 PAGED_PATH = dict(label="paged", bits=8, phases=("model_paged", "serve_paged", "profile_paged"),
                   serve=PAGED_SERVE,
@@ -483,6 +504,7 @@ PAGED_KV8_PATH = dict(label="paged int8 KV", bits=8, phases=(None, "serve_paged_
                               "ffn": "launches_paged_kv8_path",
                               "prefill_attention": "launches_paged_kv8_path"},
                       forbid={"write_kv_paged_q8": "standalone_launches",
+                              "write_kv_prefill_paged_q8_rows": "rows_body_launches",
                               **{name: "launches_paged_kv8_path" for name in (
                                   "write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8",
                                   "decode_attention")}},
@@ -503,6 +525,7 @@ SPEC_PAGED_KV8_PATH = dict(
                 "write_kv_paged_q8_fused", "write_kv_prefill_paged_q8", "quant_matmul", "ffn",
                 "prefill_attention")}},
     forbid={"write_kv_paged_q8": "standalone_launches_spec_paged_kv8_path",
+            "write_kv_prefill_paged_q8_rows": "rows_body_launches",
             **{name: "launches_spec_paged_kv8_path" for name in (
                 "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8",
                 "write_kv_strips_q8", "decode_attention", "chunk_attention",
@@ -644,6 +667,7 @@ GQA_SPEC_PAGED_KV8_PATH = dict(
                 "write_kv_prefill_paged_q8", "quant_matmul", "prefill_attention",
                 "quant_matmul_mma", "ffn", "ffn_one")}},
     forbid={"write_kv_paged_q8": "standalone_launches_gqa_spec_paged_kv8_path",
+            "write_kv_prefill_paged_q8_rows": "rows_body_launches",
             **{name: "launches_gqa_spec_paged_kv8_path" for name in (
                 "decode_attention_q8", "chunk_attention_q8", "write_kv_chunk_q8",
                 "write_kv_strips_q8", "paged_decode_attention_q8", "ffn_rows")}},
@@ -676,10 +700,11 @@ YI_KV8_PATH = dict(label="Yi-34B int8 KV", model="yi", bits=8,
                    phases=(None, "serve_yi_kv8", None),
                    serve=dict(YI_SERVE, kv_quant="int8"),
                    record={name: "launches_yi_kv8_path" for name in (
-                       "prefill_attention_gqa", "prefill_attention", "write_kv_rows_q8",
+                       "prefill_attention_gqa", "prefill_attention", "write_kv_rows_q8_fused",
                        "decode_attention_q8", "write_kv_strips_q8", "quant_matmul", "ffn")},
-                   forbid={"decode_attention": "launches_yi_kv8_path"},
-                   equal=dict([YI_K5]))
+                   forbid={"decode_attention": "launches_yi_kv8_path",
+                           "write_kv_rows_q8": "standalone_launches_yi_kv8_path"},
+                   equal=dict([YI_K5, ("write_kv_rows_q8_fused", "decode_attention_q8")]))
 YI_SPEC_PATH = dict(label="Yi-34B speculation T 4", model="yi", bits=8,
                     phases=(None, "serve_yi_spec", None),
                     serve=dict(YI_SERVE, spec_tick=SPEC_TICK),
@@ -913,12 +938,14 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
             counts[key] = 0
     da.launches = da.launches_q8 = da.launches_chunk = da.launches_chunk_q8 = pa.launches = 0
     da.launches_flat = da.launches_flat_q8 = da.launches_write_q8 = pga.launches_write_q8 = 0
+    da.launches_write_rows_q8 = 0
     for bodies in (pa.launches_by_body, pa.launches_by_form, qm.launches_by_body,
                    ffn_mod.launches_by_body, ffn_mod.launches_by_form,
                    da.launches_by_body, pga.launches_by_body, ab.launches_by_body,
                    *ab.launches_by_form.values(),
                    qm.launches_by_scale, ffn_mod.launches_by_scale,
-                   *da.launches_by_form.values(), *pga.launches_by_form.values()):
+                   *da.launches_by_form.values(), *pga.launches_by_form.values(),
+                   kvw.launches_by_body):
         for body in bodies:
             bodies[body] = 0
 
@@ -946,9 +973,13 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "chunk_attention_q8": da.launches_chunk_q8,
             "decode_attention_flat": da.launches_flat,
             "decode_attention_flat_q8": da.launches_flat_q8, **kvw.launches, **pga.launches,
-            # the walk launches that wrote their chunk's or step's rows (K11 / K13 (a) fused)
+            # the walk launches that wrote their chunk's or step's rows (K11 / K6 /
+            # K13 (a) fused)
             "write_kv_chunk_q8_fused": da.launches_write_q8,
+            "write_kv_rows_q8_fused": da.launches_write_rows_q8,
             "write_kv_paged_q8_fused": pga.launches_write_q8,
+            # K13 (b) by body: "stream" (bf16 at hd 48 / 64 / 128), "rows"
+            **{f"write_kv_prefill_paged_q8_{b}": n for b, n in kvw.launches_by_body.items()},
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
             **ab.launches, **{f"attn_block_{body}": n for body, n in ab.launches_by_body.items()},
@@ -2523,6 +2554,7 @@ def phase_model_gqa(torch, cfg, params) -> None:
     cache's rows 0-20 (as model_kv8), chunks of 8 from 1000 and 2040."""
     from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, decode_step, forward_chunk,
                                              prefill)
+    from rama_tpu_torch.ops.kernels import decode_attention as da
 
     dev = torch.device("cuda")
     S = cfg.seq_len
@@ -2539,7 +2571,13 @@ def phase_model_gqa(torch, cfg, params) -> None:
                     lk[:, -1], lp[:, -1])
             tok = torch.argmax(lp[:, -1], dim=-1)
             pos = torch.full((2,), 8, device=dev)
+            n0 = da.launches_write_rows_q8
             lk, _ = decode_step(params, cfg, tok, pos, caches[0])
+            fused = da.launches_write_rows_q8 - n0
+            if fused != (cfg.n_layers if cls is QuantKVCache else 0):
+                raise SystemExit(f"FAILED TinyLlama decode step on {cls.__name__}: {fused} K7 "
+                                 f"launches wrote the step's rows (K6 in the walk), not one a "
+                                 f"layer of an int8 cache")
             lp, _ = decode_step(params, cfg, tok, pos, caches[1], plain=True)
             compare(torch, f"TinyLlama int8 logits decode step at 8 on {cls.__name__} "
                     f"(kernels vs plain)", lk, lp)
@@ -2567,8 +2605,13 @@ def phase_model_yi(torch, cfg, params, dev=None) -> None:
     admission, rows past plen writing the last row), the logits at each
     prompt's last row; then a decode step at each slot's plen and
     forward_chunk at T 4 (28 query rows a kv head: the 32-row chunk form)
-    after it. On `dev`, the card unless a test passes the CPU."""
-    from rama_tpu_torch.models.llama import KVCache, decode_step, forward, forward_chunk
+    after it; then the plain cache's rows quantized into two int8 caches
+    and a decode step on each (on the card K7 in its 8-row form at group 7,
+    which writes the step's rows itself: one fused write a layer). On
+    `dev`, the card unless a test passes the CPU."""
+    from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, decode_step, forward,
+                                             forward_chunk, kv_quant_rows)
+    from rama_tpu_torch.ops.kernels import decode_attention as da
 
     dev = dev or torch.device("cuda")
     lens = torch.tensor([40, 9, 10, 17, 18, 27, 28, 36], dtype=torch.int32, device=dev)
@@ -2592,7 +2635,23 @@ def phase_model_yi(torch, cfg, params, dev=None) -> None:
                   for c, plain in zip(caches, (False, True)))
         compare(torch, f"Yi-34B int8 forward_chunk T=4 ({4 * cfg.n_rep} rows a kv head) from "
                 f"plen + 1 (kernels vs plain)", lk, lp)
-    del caches
+        q8 = [QuantKVCache.create(cfg, 8, 64, device=dev) for _ in range(2)]
+        for c in q8:
+            for rows, q, sc in ((caches[1].k, c.k, c.ks), (caches[1].v, c.v, c.vs)):
+                r8, rs = kv_quant_rows(rows)
+                q.copy_(r8)
+                sc.copy_(rs)
+        tok = torch.argmax(lp[:, -1], dim=-1)
+        n0 = da.launches_write_rows_q8
+        lk, lp = (decode_step(params, cfg, tok, lens.long() + 5, c, plain=plain)[0]
+                  for c, plain in zip(q8, (False, True)))
+        compare(torch, "Yi-34B int8 logits decode step at plen + 5 on an int8 cache (kernels "
+                "vs plain)", lk, lp)
+        fused = da.launches_write_rows_q8 - n0
+        if dev.type == "cuda" and fused != cfg.n_layers:
+            raise SystemExit(f"FAILED Yi-34B decode step on an int8 cache: {fused} K7 launches "
+                             f"wrote the step's rows (K6 in the walk), not one a layer")
+    del caches, q8
     torch.cuda.empty_cache()
 
 
@@ -3027,6 +3086,62 @@ def phase_kernels_kv8(torch, results: dict) -> None:
             compare(torch, name, on_body(da.launches_by_body, body, name,
                                          lambda: da.decode_attention_q8(qs, *cs, ps, 1)),
                     da.decode_attention_q8_plain(qs, *cs, ps, 1), per=hd_s)
+
+    # -- K6 inside K7: the decode step's rows written by the walk launch -----------
+    # positions on the 64-row tile edges, S - 1 and a finished slot's
+    # overshoot (S, S + 3: K6's rule, the row on S - 1); planted: the cache's
+    # edge rows carry keys aligned with q, and so does the new row of slot 0
+    c = qcache(2, B, nkv, S, hd)
+    pos_w = torch.tensor([0, 63, 64, 1023, 2047, S - 1, S, S + 3], dtype=torch.int32,
+                         device=dev)
+    q1 = rx(B, 1, nh, hd)
+    for planted in (False, True):
+        kn, vn = rows(B, 1, nkv, hd), rows(B, 1, nkv, hd)
+        if planted:
+            plant_decode_edges_q8(kvw, q1[:, 0], c[0], c[2], pos_w, 1,
+                                  (63, 64, 1023, 1024, 2047, 2048, S - 1))
+            kn[0, 0] = group_key(q1[0, 0] * 0.5, nkv).to(bf)
+        for l in (0, 1):
+            check_fused_form(torch, f"decode_attention_q8 + rows (K6 in K7) S={S} layer={l} "
+                             f"pos={pos_w.tolist()}{' planted edges' if planted else ''}", c, q1,
+                             pos_w, None, kn, vn, l, decode=True)
+    del c
+    # timed at serve_kv8's shape: 8 slots, 4096 rows, 4 layers cycled
+    c = qcache(4, B, nkv, S, hd)
+    q1, kn, vn = rx(B, 1, nh, hd), rx(B, 1, nkv, hd), rx(B, 1, nkv, hd)
+    err = check_fused_form(torch, f"decode_attention_q8 + rows (K6 in K7) timed inputs S={S}", c,
+                           q1, pos_long, None, kn, vn, 0, decode=True)
+    lay = Layered(4)
+    fused, pair, plain = fused_write_forms(False, 1, decode=True)
+    args = (q1, pos_long, None, kn, vn)
+    dev_ms = fused_write_times(
+        torch, f"K6 in K7 S={S}",
+        lambda: da.decode_attention_q8(q1[:, 0], *c, pos_long, lay.next()),
+        lambda: fused(c, *args, lay.next()), lambda: pair(c, *args, lay.next()),
+        lambda: kvw.write_kv_rows_q8(*c, kn[:, 0], vn[:, 0], pos_long, lay.next()))
+    t_f = time_ms(torch, lambda: fused(c, *args, lay.next()))
+    t_fp = time_ms(torch, lambda: plain(c, *args, lay.next()), reps=5)
+    nb, ops = attention_bytes_ops(pos_long, 1, S, nkv, nh, hd, 2 * hd + 8, q1.numel() * 2,
+                                  written=True)
+    n_el = 2 * B * nkv * hd
+    fb_ms, fb_by = bound_ms(nb + write_bytes(B, 1, nkv, hd), ops + 3 * n_el)
+    log(f"[time] decode_attention_q8 + rows (K6 in K7) S={S}: {t_f:.4f} ms (device "
+        f"{dev_ms['fused_ms']:.4f}), plain {t_fp:.4f} ms, bound {fb_ms:.4f} ms ({fb_by})")
+    k6 = results["write_kv_rows_q8"]
+    results["write_kv_rows_q8"] = dict(
+        name="write_kv_rows_q8", route="cuda", source="rama_tpu_torch/csrc/decode_attention.cu",
+        replaces="rama_tpu/ops/pallas/kv_write.py:49", max_abs_err=err, ms=t_f,
+        device_ms=dev_ms["fused_ms"], plain_ms=t_fp, bound_ms=fb_ms, bound_by=fb_by,
+        library_ms=None,
+        library_note="the rows are written inside K7's int8 walk launch (dattn_walk, K6's "
+                     "row rule); no single PyTorch call quantizes rows, scatters them and "
+                     "attends over an int8 cache",
+        breakdown=dict(dev_ms, write_bound_ms=k6["bound_ms"]),
+        standalone=dict(k6, same_call_device_ms=dev_ms["writer_ms"]),
+        shape=f"q ({B}, {nh}, {hd}) bf16 and k/v rows ({B}, {nkv}, {hd}) bf16 -> int8 cache "
+              f"(4, {B}, {nkv}, {S}, {hd}) + scales, pos {pos_long.tolist()}")
+    del c
+    torch.cuda.empty_cache()
     for name in ("write_kv_rows_q8", "write_kv_strips_q8", "decode_attention_q8"):
         r = results[name]
         log(f"[kernel] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -3258,17 +3373,26 @@ def graph_device_ms(torch, fns: dict, n: int = 20, turns: int = 2) -> dict:
     return out
 
 
-def fused_write_forms(paged: bool, t: int):
+def fused_write_forms(paged: bool, t: int, decode: bool = False):
     """(fused, pair, plain) of the int8 walk that writes a chunk's or a
     step's new rows, each f(cache copy cc, q (B, T, nh, hd), pos0, tables
     (None: dense), kn / vn (B, T, nkv, hd), layer): the wrapper given k_new
-    / v_new (K10 _q8; K12's int8 decode form at T 1, its chunk form
-    above), the standalone writer (K11 / K13 (a)) followed by the same
-    wrapper without them, and the plain version."""
+    / v_new (K10 _q8; K7 for the dense decode step, `decode`, T 1; K12's
+    int8 decode form at T 1, its chunk form above), the standalone writer
+    (K11 / K6 / K13 (a)) followed by the same wrapper without them, and
+    the plain version."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kvw
     from rama_tpu_torch.ops.kernels import paged_attention as pga
 
+    if decode:
+        return (lambda cc, q, p0, tb, kn, vn, l: da.decode_attention_q8(
+                    q[:, 0], *cc, p0, l, k_new=kn[:, 0], v_new=vn[:, 0]),
+                lambda cc, q, p0, tb, kn, vn, l: (
+                    kvw.write_kv_rows_q8(*cc, kn[:, 0], vn[:, 0], p0, l),
+                    da.decode_attention_q8(q[:, 0], *cc, p0, l))[1],
+                lambda cc, q, p0, tb, kn, vn, l: da.decode_attention_q8_plain(
+                    q[:, 0], *cc, p0, l, kn[:, 0], vn[:, 0]))
     if not paged:
         return (lambda cc, q, p0, tb, kn, vn, l: da.chunk_attention_q8(
                     q, *cc, p0, l, k_new=kn, v_new=vn),
@@ -3295,32 +3419,35 @@ def fused_write_forms(paged: bool, t: int):
 
 
 def check_fused_form(torch, label: str, caches, q, p0, tables, kn, vn, layer: int,
-                     form: int | None = None) -> float:
+                     form: int | None = None, decode: bool = False) -> float:
     """The int8 walk launch that writes a chunk's or step's new rows kn / vn
-    (fused_write_forms; dense when tables is None), on a copy of `caches`,
-    against the standalone writer followed by the walk without them (pair):
-    outputs bit for bit, cache bytes and scales byte for byte; and against
-    the plain version (the plain writer, then the plain attention) within
-    TOL per row, the cache exactly. The fused call must run once on the
-    walk body (in `form` when given), count one fused write and launch no
+    (fused_write_forms; dense when tables is None; the dense decode step's
+    K7, by K6's rule, with `decode`), on a copy of `caches`, against the
+    standalone writer followed by the walk without them (pair): outputs
+    bit for bit, cache bytes and scales byte for byte; and against the
+    plain version (the plain writer, then the plain attention) within TOL
+    per row, the cache exactly. The fused call must run once on the walk
+    body (in `form` when given), count one fused write and launch no
     standalone writer. Returns the max |err| against the plain version."""
     from rama_tpu_torch.ops.kernels import decode_attention as da
     from rama_tpu_torch.ops.kernels import kv_write as kvw
     from rama_tpu_torch.ops.kernels import paged_attention as pga
 
     paged = tables is not None
-    fused, pair, plain = fused_write_forms(paged, q.shape[1])
-    mod, writer = (pga, "write_kv_paged_q8") if paged else (da, "write_kv_chunk_q8")
+    fused, pair, plain = fused_write_forms(paged, q.shape[1], decode)
+    mod, writer, counter = ((pga, "write_kv_paged_q8", "launches_write_q8") if paged else
+                            (da, "write_kv_rows_q8", "launches_write_rows_q8") if decode else
+                            (da, "write_kv_chunk_q8", "launches_write_q8"))
     c_f, c_p, c_r = ([x.clone() for x in caches] for _ in range(3))
-    n0, w0 = mod.launches_write_q8, kvw.launches[writer]
+    n0, w0 = getattr(mod, counter), kvw.launches[writer]
     call = lambda: fused(c_f, q, p0, tables, kn, vn, layer)   # noqa: E731
     if form is None:
         got = on_body(mod.launches_by_body, "walk", label, call)
     else:
         got = on_form(mod.launches_by_body, mod.launches_by_form, "walk", form, label, call)
-    if (mod.launches_write_q8 - n0, kvw.launches[writer] - w0) != (1, 0):
+    if (getattr(mod, counter) - n0, kvw.launches[writer] - w0) != (1, 0):
         raise SystemExit(f"FAILED {label}: the fused call counted "
-                         f"{mod.launches_write_q8 - n0} fused writes and "
+                         f"{getattr(mod, counter) - n0} fused writes and "
                          f"{kvw.launches[writer] - w0} standalone writer launches, not 1 and 0")
     want = pair(c_p, q, p0, tables, kn, vn, layer)
     diff = [i for i, (a, b) in enumerate(zip(c_f, c_p)) if not torch.equal(a, b)]
@@ -3997,57 +4124,99 @@ def phase_kernels_paged(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
     # -- K13 (b): write_kv_prefill_paged_q8 ------------------------------------------
+    # the streaming body (bf16 at hd 128) at the serving pages (128 rows), at
+    # 16- and 64-row pages (runs of a whole page), an odd t_ins and n < K,
+    # and a table entry past the pool (clamped to its last page); the
+    # warp-a-row body forced on the same inputs; both exact
     Lm = cfg.n_layers
-    for T, t_ins, n in ((16, 16, 8), (512, 512, 8), (512, 300, 3)):
-        tables, npages = paged_tables(torch, [t_ins] * n, PAGE_SIZE, mp, 4, gc)
-        c1 = rpool(Lm, npages, PAGE_SIZE)
-        c2 = [x.clone() for x in c1]
+
+    def k13b_check(label, T, t_ins, n, ps, bodies=("stream",), clamp_entry=False):
+        tables, npages = paged_tables(torch, [t_ins] * n, ps, -(-S // ps), 4, gc)
+        if clamp_entry:   # one page more, which only the clamped entry reaches
+            npages += 1
+            tables[0, 0] = npages + 5
         k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
-        kvw.write_kv_prefill_paged_q8(*c1, k, v, tables.to(dev), t_ins)
-        kvw.write_kv_prefill_paged_q8_plain(*c2, k, v, tables.to(dev), t_ins)
-        same(f"write_kv_prefill_paged_q8 L={Lm} K={B} T={T} t_ins={t_ins} n={n}", c1, c2)
-        del c1, c2, k, v
-    for cname, (n_, d_, ps_) in {"tiny": (2, 16, 16), "stories15M": (6, 48, 32)}.items():
+        for body in bodies:
+            c1 = rpool(Lm, npages, ps)
+            c2 = [x.clone() for x in c1]
+            n0 = kvw.launches_by_body[body]
+            kvw.write_kv_prefill_paged_q8(*c1, k, v, tables.to(dev), t_ins,
+                                          _body=None if body == "stream" else body)
+            if kvw.launches_by_body[body] != n0 + 1:
+                raise SystemExit(f"FAILED write_kv_prefill_paged_q8 {label}: no launch on the "
+                                 f"{body} body ({kvw.launches_by_body})")
+            kvw.write_kv_prefill_paged_q8_plain(*c2, k, v, tables.to(dev), t_ins)
+            same(f"write_kv_prefill_paged_q8 [{body}] {label} L={Lm} K={B} T={T} "
+                 f"t_ins={t_ins} n={n} ps={ps}", c1, c2)
+            del c1, c2
+
+    for T, t_ins, n in ((16, 16, 8), (512, 512, 8), (512, 300, 3)):
+        k13b_check("", T, t_ins, n, PAGE_SIZE, bodies=("stream", "rows"))
+    for ps_, t_ins, n in ((16, 333, 5), (64, 129, 7), (128, 77, 8)):
+        k13b_check("odd t_ins", 512, t_ins, n, ps_, clamp_entry=ps_ == 128)
+    for cname, (n_, d_, ps_) in {"tiny": (2, 16, 16), "stories15M": (6, 48, 32),
+                                 "TinyLlama": (4, 64, 128)}.items():
         tb, npg = paged_tables(torch, [40, 40], ps_, 4, 2, gc)
         t1 = rpool(3, npg, ps_, n_, d_)
         t2 = [x.clone() for x in t1]
         for dt in (bf, f32):
             k, v = rows(3, 3, n_, 64, d_, dtype=dt), rows(3, 3, n_, 64, d_, dtype=dt)
+            body = kvw.prefill_body_for(dt, d_)
+            n0 = kvw.launches_by_body[body]
             kvw.write_kv_prefill_paged_q8(*t1, k, v, tb.to(dev), 40)
             kvw.write_kv_prefill_paged_q8_plain(*t2, k, v, tb.to(dev), 40)
-            same(f"write_kv_prefill_paged_q8 {cname} hd={d_} ps={ps_} {dt}", t1, t2)
-    T = 16                                              # the serving bucket
-    tables, npages = paged_tables(torch, [T] * B, PAGE_SIZE, mp, 4, gc)
-    tables = tables.to(dev)
-    c1 = rpool(Lm, npages, PAGE_SIZE)
-    k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
-    t_k = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8(*c1, k, v, tables, T))
-    k13b_dev = graph_device_ms(torch, {"k13b": lambda: kvw.write_kv_prefill_paged_q8(
-        *c1, k, v, tables, T)})["k13b"]
-    t_p = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8_plain(*c1, k, v, tables, T),
-                  reps=5)
-    del c1
-    dense8 = [torch.zeros((Lm, B, nkv, 64, hd), dtype=torch.int8, device=dev)
-              for _ in range(2)] + [torch.zeros((Lm, B, nkv, 64), device=dev) for _ in range(2)]
-    slots = torch.arange(B, dtype=torch.int32, device=dev)
-    t_d = time_ms(torch, lambda: kvw.write_kv_strips_q8(*dense8, k, v, slots, T))
-    n_el = 2 * Lm * B * nkv * T * hd
-    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * Lm * B * nkv * T * 4 + tables.numel() * 4,
-                          3 * n_el)
-    log(f"[time] write_kv_prefill_paged_q8 T={T}: {t_k:.4f} ms (device {k13b_dev:.4f}), plain "
-        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); K8 on a dense cache, same rows "
-        f"{t_d:.4f} ms")
+            if kvw.launches_by_body[body] != n0 + 1:
+                raise SystemExit(f"FAILED write_kv_prefill_paged_q8 {cname} {dt}: no launch on "
+                                 f"the {body} body ({kvw.launches_by_body})")
+            same(f"write_kv_prefill_paged_q8 [{body}] {cname} hd={d_} ps={ps_} {dt}", t1, t2)
+    # timed at the serving bucket (16 rows) and at an 8 x 512 admission: the
+    # streaming body beside the warp-a-row body (the parent's) on the same inputs
+    timed = {}
+    for T in (16, 512):
+        tables, npages = paged_tables(torch, [T] * B, PAGE_SIZE, mp, 4, gc)
+        tables = tables.to(dev)
+        c1 = rpool(Lm, npages, PAGE_SIZE)
+        k, v = rows(Lm, B, nkv, T, hd), rows(Lm, B, nkv, T, hd)
+        stream = lambda: kvw.write_kv_prefill_paged_q8(*c1, k, v, tables, T)   # noqa: E731
+        rows_body = lambda: kvw.write_kv_prefill_paged_q8(  # noqa: E731
+            *c1, k, v, tables, T, _body="rows")
+        dev_ms = graph_device_ms(torch, {"stream_ms": stream, "rows_ms": rows_body})
+        t_k = time_ms(torch, stream)
+        t_r = time_ms(torch, rows_body)
+        t_p = time_ms(torch, lambda: kvw.write_kv_prefill_paged_q8_plain(*c1, k, v, tables, T),
+                      reps=3 if T > 16 else 5)
+        del c1
+        n_el = 2 * Lm * B * nkv * T * hd
+        b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * Lm * B * nkv * T * 4 + tables.numel() * 4,
+                              3 * n_el)
+        t_d = None
+        if T == 16:
+            dense8 = [torch.zeros((Lm, B, nkv, 64, hd), dtype=torch.int8, device=dev)
+                      for _ in range(2)] + [torch.zeros((Lm, B, nkv, 64), device=dev)
+                                            for _ in range(2)]
+            slots = torch.arange(B, dtype=torch.int32, device=dev)
+            t_d = time_ms(torch, lambda: kvw.write_kv_strips_q8(*dense8, k, v, slots, T))
+            del dense8
+        log(f"[time] write_kv_prefill_paged_q8 T={T}: {t_k:.4f} ms (device "
+            f"{dev_ms['stream_ms']:.4f}, {b_ms / dev_ms['stream_ms']:.2f} of the bound), "
+            f"the warp-a-row body {t_r:.4f} ms (device {dev_ms['rows_ms']:.4f}, "
+            f"{b_ms / dev_ms['rows_ms']:.2f}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+            + (f"; K8 on a dense cache, same rows {t_d:.4f} ms" if t_d is not None else ""))
+        timed[T] = dict(
+            max_abs_err=0.0, ms=t_k, device_ms=dev_ms["stream_ms"], plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, dense_same_rows_ms=t_d,
+            breakdown=dict(bound_share=b_ms / dev_ms["stream_ms"]),
+            rows_body=dict(ms=t_r, device_ms=dev_ms["rows_ms"],
+                           bound_share=b_ms / dev_ms["rows_ms"]),
+            shape=f"strips ({Lm}, {B}, {nkv}, {T}, {hd}) bf16 -> {B} slots' pages of a ({Lm}, "
+                  f"{npages}, {nkv}, {PAGE_SIZE}, {hd}) int8 pool")
+        del k, v
+        torch.cuda.empty_cache()
     results["write_kv_prefill_paged_q8"] = dict(
         name="write_kv_prefill_paged_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
-        replaces="rama_tpu/ops/pallas/kv_write.py:303", max_abs_err=0.0, ms=t_k,
-        device_ms=k13b_dev, plain_ms=t_p,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, dense_same_rows_ms=t_d,
+        replaces="rama_tpu/ops/pallas/kv_write.py:303",
         library_note="no single PyTorch call quantizes strips and scatters them through page "
-                     "tables",
-        shape=f"strips ({Lm}, {B}, {nkv}, {T}, {hd}) bf16 -> {B} slots' pages of a ({Lm}, "
-              f"{npages}, {nkv}, {PAGE_SIZE}, {hd}) int8 pool")
-    del dense8, k, v
-    torch.cuda.empty_cache()
+                     "tables", **timed[16], t512=timed[512])
     for name in (*forms, "write_kv_paged_q8", "write_kv_prefill_paged_q8"):
         r = results[name]
         dense = r.get("dense_same_rows_ms") or r["standalone"]["dense_same_rows_ms"]
@@ -5670,7 +5839,8 @@ def main() -> int:
             "tinyllama", "rep8",
             "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
-            "t2", "one_query", "paged", "standalone", "standalone_launches")
+            "t2", "one_query", "paged", "standalone", "standalone_launches",
+            "standalone_launches_yi_kv8_path", "rows_body", "rows_body_launches", "t512")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,14 +151,15 @@
 //        row's <= ceil(S / (tile G)) partials: a warp a row, lane i's split
 //        weight e^(m_i - M) broadcast by shuffles, eight partials in
 //        flight a lane;
-//      * given a chunk's new K / V rows (kn / vn: a verify round, or a
-//        paged decode step or round), the walk writes them itself,
-//        as K11 (dense) or K13 (a) (paged) would before it: a launch of
-//        their own took 2.0-2.6 us of device time (and ~35 us of host
-//        time) for 0.2-0.8 MB at 7B, far below any bound. Each new row
-//        lands at the slot's position the standalone writer's rule gives
-//        (new_pos: a dense row past S dropped, a pool row past the table
-//        clipped into page mp - 1), so in exactly the tile the unfused
+//      * given a chunk's new K / V rows (kn / vn: a verify round, a dense
+//        or paged decode step, a paged round), the walk writes them
+//        itself, as K11 (dense), K6 (the dense decode step) or K13 (a)
+//        (paged) would before it: a launch of their own took 2.0-3.4 us
+//        of device time (and ~35 us of host time) for 0.2-0.8 MB at 7B,
+//        far below any bound. Each new row lands at the slot's position
+//        the standalone writer's rule gives (new_pos: a dense row past S
+//        dropped, the decode step's row clamped onto row S - 1, a pool row
+//        past the table clipped into page mp - 1), so in exactly the tile the unfused
 //        order would read it from; the CTA whose items hold that tile
 //        (each row group's) quantizes the row from kn / vn and stores it
 //        into the cache before its walk starts, and its walk then copies
@@ -168,8 +169,9 @@
 //        sums stay as they are:
 //        outputs equal the writer followed by the walk bit for bit, the
 //        cache byte for byte. A separate instantiation (dattn_walk<…,
-//        WRITE>) keeps the walk without rows (K7 and K9, which K6 or no
-//        write precede) the parent's code, instruction for instruction.
+//        WRITE>) keeps the walk without rows (K9, and K7 / K10 / K12
+//        called without rows) the parent's code, instruction for
+//        instruction.
 //        Only a page that the tables hold twice (one slot's entries or
 //        two slots': the engine's trash page) can show new rows written
 //        through its other entry, or miss them, where the unfused order
@@ -220,12 +222,14 @@ __device__ __forceinline__ size_t first_row(const int* tables, int b, int j, int
 
 // Where the new row at position p of a slot lands among the slot's rows,
 // by the standalone writers' rule: the dense cache's row p, or -1 (dropped)
-// outside [0, S) (K11, kv_write.cu kv_write_chunk); the pool's position
-// max(p, 0), a row past the table (p >= S = mp * ps) at its clip position
-// (mp - 1) ps + p % ps, in-page row p % ps of page mp - 1 (K13 (a),
-// kv_write_paged).
-__device__ __forceinline__ int new_pos(bool paged, int p, int S, int ps) {
-  if (!paged) return p >= 0 && p < S ? p : -1;
+// outside [0, S) (K11, kv_write.cu kv_write_chunk), or, for the dense
+// decode step's one row a slot (clamp), row clamp(p, 0, S - 1) (K6,
+// kv_write_rows: a finished slot's overshoot lands on the last row, the
+// row its query sees, row_limit); the pool's position max(p, 0), a row
+// past the table (p >= S = mp * ps) at its clip position (mp - 1) ps + p %
+// ps, in-page row p % ps of page mp - 1 (K13 (a), kv_write_paged).
+__device__ __forceinline__ int new_pos(bool paged, bool clamp, int p, int S, int ps) {
+  if (!paged) return clamp ? max(0, min(p, S - 1)) : p >= 0 && p < S ? p : -1;
   return p < 0 ? 0 : p < S ? p : S - ps + p % ps;
 }
 
@@ -578,11 +582,12 @@ __device__ __forceinline__ void walk_seek(Walk& w, const int* first, const int* 
 // (dividing ps for a pool).
 //
 // WRITE: the launch also writes the chunk's new K / V rows kn / vn (B, nq,
-// nkv, HD) bf16 (post RoPE), as K11 (dense) or K13 (a)
-// (paged) would before it. Row t lands at the slot's position new_pos(pos0
-// + t). Before its walk, each CTA quantizes the new rows that land in the
-// tiles of its own items, bit for bit as kv_quant_rows (kv_quant.cuh; warp
-// w takes (row t, k or v) w, w + 4, ...), stores them into the cache, and
+// nkv, HD) bf16 (post RoPE), as K11 (dense), K6 (dense, nq 1, clamp) or
+// K13 (a) (paged) would before it. Row t lands at the slot's position
+// new_pos(pos0 + t), by K6's rule where clamp is set (read only here).
+// Before its walk, each CTA quantizes the new rows that land in the tiles
+// of its own items, bit for bit as kv_quant_rows (kv_quant.cuh; warp w
+// takes (row t, k or v) w, w + 4, ...), stores them into the cache, and
 // only then starts the walk, whose copies read them back like any other
 // row: each new row's tile is walked by one CTA a row group, and a CTA's
 // stores precede its own copies (the barrier). Row groups (64-row form)
@@ -602,7 +607,7 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, int8_t* __restrict__ kc,
            float* __restrict__ part_ml, int B, int nh, int nkv, int S, int tile, int G,
            int nsplit, int nq, float scale, const int* __restrict__ tables, int mp, int ps,
            int npages, const __nv_bfloat16* __restrict__ kn,
-           const __nv_bfloat16* __restrict__ vn) {
+           const __nv_bfloat16* __restrict__ vn, int clamp) {
   using Sm = WalkSmem<HD, ROWS>;
   constexpr int LD = Sm::LD, PLD = Sm::PLD, RLD = Sm::RLD;
   constexpr int NB = RowForm<ROWS>::NB, NH = RowForm<ROWS>::NH;
@@ -653,7 +658,7 @@ dattn_walk(const __nv_bfloat16* __restrict__ q, int8_t* __restrict__ kc,
       const int t0 = (item - first[b]) * G;   // the item's tiles [t0, t1)
       const int lo = t0 * tile, hi = min(t0 + G, ntile[b]) * tile;
       for (int jb = warp; jb < 2 * nq; jb += kDaWarps) {
-        const int t = jb / 2, lp = new_pos(tables, pos0[b] + t, S, ps);
+        const int t = jb / 2, lp = new_pos(tables, clamp, pos0[b] + t, S, ps);
         if (lp < lo || lp >= hi) continue;    // the whole warp
         const bool isv = jb % 2;
         uint2 u = make_uint2(0u, 0u);
@@ -1053,8 +1058,10 @@ struct DaArgs {
   int groups = 1;  // row groups a kv head: grid dimension y is nkv * groups
   int* ran = nullptr;  // non-null: set to the query rows a CTA of the launched form
   // the walk body only: the chunk's new K / V rows (B, nq, nkv, hd) bf16,
-  // written by the launch (dattn_walk); null: none
+  // written by the launch (dattn_walk); null: none. clamp: by K6's rule (the
+  // dense decode step, nq 1), not K11's (new_pos)
   const void *knew = nullptr, *vnew = nullptr;
+  int clamp = 0;
 };
 
 // Report kern's resident CTAs per SM, registers per thread and shared
@@ -1157,7 +1164,8 @@ cudaError_t launch_walk(const DaArgs& a) {
       static_cast<int8_t*>(const_cast<void*>(a.v)), const_cast<float*>(a.ks),
       const_cast<float*>(a.vs), a.pos0, a.part_o, a.part_ml, a.B, a.nh, a.nkv, a.S, a.chunk,
       a.tiles, a.nsplit, a.nq, a.scale, a.tables, a.mp, a.ps, a.npages,
-      static_cast<const __nv_bfloat16*>(a.knew), static_cast<const __nv_bfloat16*>(a.vnew));
+      static_cast<const __nv_bfloat16*>(a.knew), static_cast<const __nv_bfloat16*>(a.vnew),
+      a.clamp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int nrows = a.B * a.nq * a.nh;
@@ -1215,6 +1223,9 @@ cudaError_t launch_all(DaArgs a) {
   // new rows are written by the walk alone, and come as a pair
   if ((a.knew || a.vnew) && (a.body != kBodyWalk || !a.knew || !a.vnew))
     return cudaErrorInvalidValue;
+  // K6's rule only for the dense decode step's one row a slot (two rows
+  // clamped onto row S - 1 would race)
+  if (a.clamp && (!a.knew || a.tables || a.nq != 1)) return cudaErrorInvalidValue;
   a.nsplit = ((a.S + a.chunk - 1) / a.chunk + a.tiles - 1) / a.tiles;
   a.scale = 1.f / sqrtf(static_cast<float>(a.hd));
   cudaError_t e;
@@ -1262,13 +1273,15 @@ extern "C" int rama_decode_attention(const void* q, const void* k, const void* v
 // has nsplit = ceil(ceil(S / chunk) / tiles); the SIMT body takes tiles 1.
 // knew / vnew (B, nq, nkv, hd) bf16, the walk body only (null: none): the
 // chunk's new rows, quantized and written at [b, :, pos0[b] + t] (rows
-// outside [0, S) dropped) by the launch, as K11 before it would.
+// outside [0, S) dropped) by the launch, as K11 before it would; with
+// clamp (nq 1 only), the decode step's rows at [b, :, clamp(pos0[b], 0,
+// S - 1)], as K6 before it would.
 extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const void* v8,
                                         const void* ks, const void* vs, const void* knew,
                                         const void* vnew, const void* pos0,
                                         void* out, void* part_o, void* part_ml, int B, int nq,
                                         int nh, int nkv, int S, int hd, int chunk, int tiles,
-                                        int ctas, int dtype, int body, void* stream,
+                                        int ctas, int clamp, int dtype, int body, void* stream,
                                         int* form) {
   rama::DaArgs a{q, k8, v8, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(pos0), out, static_cast<float*>(part_o),
@@ -1280,6 +1293,7 @@ extern "C" int rama_decode_attention_q8(const void* q, const void* k8, const voi
   a.ctas = ctas;
   a.knew = knew;
   a.vnew = vnew;
+  a.clamp = clamp;
   if (dtype == rama::kBF16) return static_cast<int>(rama::launch_all<__nv_bfloat16, int8_t>(a));
   if (dtype == rama::kF32) return static_cast<int>(rama::launch_all<float, int8_t>(a));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 // Row quantization of the int8 KV cache, shared by the standalone row
-// writers (kv_write.cu: K6, K8, K11, K13) and the int8 walk of the decode
-// attention kernel (decode_attention.cu: dattn_walk), which writes a
-// verification chunk's or a paged step's new rows inside the launch that
+// writers (kv_write.cu: K6, K8, K11, K13; quant_row8: K13 (b)'s streaming
+// body) and the int8 walk of the decode attention kernel
+// (decode_attention.cu: dattn_walk), which writes a verification chunk's,
+// a decode step's or a paged step's new rows inside the launch that
 // attends to them.
 //
 // Bit for bit kv_quant_rows (rama_tpu/models/llama.py:178): x in f32,
@@ -73,6 +74,38 @@ __device__ __forceinline__ uint32_t quant_row4(uint2 u, int lane, float& scale) 
   if (lane < HD / 4) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) packed |= quant_byte(x[e], scale) << (8 * e);
+  }
+  return packed;
+}
+
+// One bf16 row, eight consecutive elements a lane, in a group of LPR
+// consecutive lanes of the warp (a power of two, the row's lanes): u holds
+// the lane's elements 8 i .. 8 i + 7 of the row, i its index in the group,
+// as loaded (16 bytes; zeros on a lane past the row's end). Every lane of
+// the warp takes part in the shuffles, which stay within each group; sets
+// `scale` and returns the lane's eight int8 values packed little-endian
+// (element 8 i at the low byte of .x), to be stored as one 8-byte piece.
+template <int LPR>
+__device__ __forceinline__ uint2 quant_row8(uint4 u, float& scale) {
+  static_assert(LPR >= 1 && LPR <= 32 && (LPR & (LPR - 1)) == 0, "a power-of-two lane group");
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float x[8];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);          // bf16 -> f32, exactly __bfloat162float
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    amax = fmaxf(amax, fmaxf(fabsf(x[2 * i]), fabsf(x[2 * i + 1])));
+  }
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  scale = quant_scale(amax);
+  uint2 packed = make_uint2(0u, 0u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    packed.x |= quant_byte(x[e], scale) << (8 * e);
+    packed.y |= quant_byte(x[4 + e], scale) << (8 * e);
   }
   return packed;
 }

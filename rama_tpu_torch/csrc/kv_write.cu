@@ -25,21 +25,34 @@
 // Row quantization: kv_quant.cuh (bit for bit kv_quant_rows), shared with
 // the int8 walk of decode_attention.cu.
 //
-// Bound on the H100: bytes, and far below a launch. K6 at 7B (8 slots, 32
-// kv heads, hd 128, bf16) reads 131 KB and writes 67 KB per layer (K11 at
-// T = 4 four times that); K8 for
-// an admission of 8 prompts of 16 tokens reads 67 MB of strips and writes
-// 34 MB. Design: one warp per (row, k or v); each lane keeps up to 8
-// elements in registers, the absmax is a warp shuffle reduction, the
-// stores are coalesced. No shared memory, no block-wide sync.
+// Bound on the H100: bytes. K6 at 7B (8 slots, 32 kv heads, hd 128, bf16)
+// reads 131 KB and writes 67 KB per layer (K11 at T = 4 four times that),
+// far below a launch; K8 and K13 (b) for an admission of 8 prompts of 16
+// tokens read 67 MB of strips and write 34 MB (of 512 tokens: 2.15 GB and
+// 1.09 GB, 0.97 ms at 3.35 TB/s). Design of the row writers: one warp per
+// (row, k or v); each lane keeps up to 8 elements in registers, the absmax
+// is a warp shuffle reduction. No shared memory, no block-wide sync.
 //
-// Where K11 and K13 (a) run: a launch of their own costs 2.0-2.6 us of
+// Where K6, K11 and K13 (a) run: a launch of their own costs 2.0-3.4 us of
 // device time for 0.06-0.24 us of bytes at 7B, so wherever the attention
 // that follows them takes the int8 walk (bf16 rows at hd 48 / 64 / 128),
-// the walk launch quantizes and writes the chunk's rows itself: the CTA
-// whose items hold a row's tile stores it before its walk copies it
-// (decode_attention.cu dattn_walk, the `kn` / `vn` operands). The kernels below stay the route of every other body (fp32,
-// other head dims) and the fused write's oracle on the card.
+// the walk launch quantizes and writes the step's or chunk's rows itself:
+// the CTA whose items hold a row's tile stores it before its walk copies
+// it (decode_attention.cu dattn_walk, the `kn` / `vn` operands; K6's clamp
+// of a finished slot's overshoot onto row S - 1 is its `clamp` rule). The
+// row kernels below stay the route of every other body (fp32, other head
+// dims) and the fused write's oracle on the card.
+//
+// K13 (b) in bf16 at hd 48 / 64 / 128 is a streaming kernel
+// (kv_write_prefill_stream): the warp-a-row body ran at 0.27 of its bound
+// with 64-bit divisions and a table read a warp, 2-byte loads and 1-byte
+// stores. One CTA takes a run of up to 64 rows of one (layer, strip) inside
+// one page, of one kv head or, where runs are shorter, of several (one
+// table read, the indices once a CTA), 16-byte loads (8 bf16 a lane, LPR
+// lanes a row), every load of the thread issued before its first reduction
+// (32 KB in flight a CTA at hd 128), 8-byte int8 stores (a row at hd 128
+// one 128-byte line) and the run's scales as contiguous words. fp32 and
+// other head dims keep the warp-a-row body (kv_write_prefill_paged).
 #include "kv_quant.cuh"
 
 namespace rama {
@@ -173,6 +186,114 @@ kv_write_prefill_paged(const A* __restrict__ k, const A* __restrict__ v,
 
 constexpr int kKvWarps = kKvThreads / 32;
 
+// K13 (b), the streaming body (bf16, HD 48 / 64 / 128). CTA (x, y, z) writes
+// rows t in [x R, min(x R + R, t_ins)) (n rows: a run of R rows, run_rows:
+// R divides the page, or is the page) of kv heads h0 .. h0 + nh - 1 (H a
+// CTA, heads_per_run: more than one where the runs are short, so a CTA
+// still moves up to kRunRows rows of K and of V) of strip j, layer l = z,
+// with j, h0 from y; the run lies in page clamp(tables[j, x R / ps], 0,
+// npages - 1) for every head. Its 2 nh n row jobs (the K rows head by
+// head, then the V rows) go 32 / LPR to a warp, the lanes of a row
+// consecutive (LPR: 16 at HD 128, 8 at 64 and 48, of which 6 hold
+// elements), in PASSES passes of kStreamThreads / LPR jobs; every pass's
+// 16-byte load is issued before the first reduction. A row's bytes go out
+// as LPR 8-byte stores, the run's scales through shared memory as n
+// contiguous words a head.
+constexpr int kStreamThreads = 256;
+constexpr int kRunRows = 64;          // rows of K (and of V) a CTA at most
+
+template <int HD>
+__global__ void __launch_bounds__(kStreamThreads)
+kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ tables, int8_t* __restrict__ k8,
+                        int8_t* __restrict__ v8, float* __restrict__ ks, float* __restrict__ vs,
+                        int K, int nkv, int T, int t_ins, int mp, int ps, int npages, int R,
+                        int H) {
+  static_assert(HD % 8 == 0 && HD <= 128, "8 elements a lane, at most 16 lanes a row");
+  constexpr int LPR = HD > 64 ? 16 : 8;                   // lanes a row (power of two)
+  constexpr int JOBS = kStreamThreads / LPR;              // row jobs a pass
+  constexpr int PASSES = 2 * kRunRows / JOBS;
+  __shared__ float sc[2 * kRunRows];
+  const int groups = (nkv + H - 1) / H;                   // head groups a strip
+  const int l = blockIdx.z, j = blockIdx.y / groups, h0 = (blockIdx.y - j * groups) * H;
+  const int nh = min(H, nkv - h0);
+  const int t0 = blockIdx.x * R, n = min(R, t_ins - t0), m = nh * n;   // m rows of K, of V
+  const int page = min(max(tables[j * mp + t0 / ps], 0), npages - 1);
+  const size_t src = (((size_t)l * K + j) * nkv + h0) * T + t0;                // first row read
+  const size_t dst = (((size_t)l * npages + page) * nkv + h0) * ps + t0 % ps;  // first written
+  const __nv_bfloat16* kin = k + src * HD;
+  const __nv_bfloat16* vin = v + src * HD;
+  int8_t* kout = k8 + dst * HD;
+  int8_t* vout = v8 + dst * HD;
+  const int li = threadIdx.x % LPR;                       // the lane's place in its row
+  const int job0 = threadIdx.x / LPR;                     // its job in the first pass
+  const bool act = li * 8 < HD;                           // the lane holds 8 elements
+  // job i: V if i >= m; head hh = (i mod m) / n, row r = (i mod m) % n of the
+  // run. The quotient is e * ceil(2^16 / n) >> 16, exact for e < m <= 64 and
+  // n <= 64 (an integer division a job took 512-row strips from 1.12 to 1.39
+  // ms on an H100: the kernel issues few instructions a byte)
+  const uint32_t inv = (65536u + n - 1) / n;
+  auto where = [&](int i, bool& isv, int& hh, int& r) {
+    isv = i >= m;
+    const int e = i - (isv ? m : 0);
+    hh = static_cast<int>((static_cast<uint32_t>(e) * inv) >> 16);
+    r = e - hh * n;
+  };
+  uint4 u[PASSES];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int job = p * JOBS + job0;
+    u[p] = make_uint4(0u, 0u, 0u, 0u);
+    if (job < 2 * m && act) {
+      bool isv;
+      int hh, r;
+      where(job, isv, hh, r);
+      u[p] = __ldcs(reinterpret_cast<const uint4*>((isv ? vin : kin) + (hh * T + r) * HD) + li);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    if (p * JOBS >= 2 * m) break;                         // the whole CTA
+    const int job = p * JOBS + job0;
+    float scale;
+    const uint2 q = quant_row8<LPR>(u[p], scale);
+    if (job < 2 * m) {
+      bool isv;
+      int hh, r;
+      where(job, isv, hh, r);
+      if (act) *reinterpret_cast<uint2*>((isv ? vout : kout) + (hh * ps + r) * HD + li * 8) = q;
+      if (li == 0) sc[job] = scale;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * m; i += kStreamThreads) {
+    bool isv;
+    int hh, r;
+    where(i, isv, hh, r);
+    (isv ? vs : ks)[dst + hh * ps + r] = sc[i];
+  }
+}
+
+// Rows of a K13 (b) run over pages of ps rows: the page, up to kRunRows;
+// else the largest power of two <= kRunRows dividing ps (64 for 128-row
+// pages), so that no run straddles two pages.
+inline int run_rows(int ps) {
+  if (ps <= kRunRows) return ps;
+  int r = kRunRows;
+  while (ps % r) r /= 2;
+  return r;
+}
+
+// kv heads a CTA of K13 (b)'s streaming body takes, so that its longest run
+// (min(R, t_ins) rows a head) comes to at most kRunRows rows: 4 at 16-row
+// strips or pages, 1 where a run is 64 rows.
+inline int heads_per_run(int R, int t_ins, int nkv) {
+  const int h = kRunRows / (R < t_ins ? R : t_ins);
+  return h < 1 ? 1 : h > nkv ? nkv : h;
+}
+
+enum PrefillBody : int { kPrefillRows = 0, kPrefillStream = 1 };   // kv_write.py PREFILL_BODIES
+
 }  // namespace rama
 
 // K6: k/v (B, nkv, hd) rows; k8/v8/ks/vs point at layer l of the cache.
@@ -292,11 +413,13 @@ extern "C" int rama_kv_write_paged(const void* k, const void* v, const void* pos
 
 // K13 (b): k/v (L, K, nkv, T, hd) strips, tables (n, mp) int32 with n <= K;
 // rows 0 .. t_ins-1 of strip j go through table row j into the whole
-// (L, npages, nkv, ps, hd) pool.
+// (L, npages, nkv, ps, hd) pool. body: kPrefillStream (bf16 at hd 48 / 64 /
+// 128, k / v 16-byte aligned) or kPrefillRows (any).
 extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const void* tables,
                                            void* k8, void* v8, void* ks, void* vs, int L, int K,
                                            int n, int nkv, int T, int t_ins, int mp, int ps,
-                                           int npages, int hd, int dtype, void* stream) {
+                                           int npages, int hd, int dtype, int body,
+                                           void* stream) {
   using namespace rama;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t warps = (size_t)L * n * nkv * t_ins * 2;
@@ -310,6 +433,26 @@ extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const v
   int8_t* v8p = static_cast<int8_t*>(v8);
   float* ksp = static_cast<float*>(ks);
   float* vsp = static_cast<float*>(vs);
+  if (body == kPrefillStream) {
+    if (dtype != kBF16 || (hd != 48 && hd != 64 && hd != 128) || n * nkv > 65535 || L > 65535 ||
+        reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int R = run_rows(ps), H = heads_per_run(R, t_ins, nkv);
+    const dim3 grid((t_ins + R - 1) / R, n * ((nkv + H - 1) / H), L);
+    const auto* kb = static_cast<const __nv_bfloat16*>(k);
+    const auto* vb = static_cast<const __nv_bfloat16*>(v);
+    if (hd == 128)
+      kv_write_prefill_stream<128><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, tb, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, mp, ps, npages, R, H);
+    else if (hd == 64)
+      kv_write_prefill_stream<64><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, tb, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, mp, ps, npages, R, H);
+    else
+      kv_write_prefill_stream<48><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, tb, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, mp, ps, npages, R, H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body != kPrefillRows) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
     kv_write_prefill_paged<__nv_bfloat16><<<(unsigned)blocks, kKvThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), tb, k8p,

@@ -75,8 +75,6 @@ class _Ops:
                                  else _da.decode_attention)
         self.prefill_attention = (_pa.prefill_attention_plain if plain
                                   else _pa.prefill_attention)
-        self.write_kv_rows_q8 = (_kvw.write_kv_rows_q8_plain if plain
-                                 else _kvw.write_kv_rows_q8)
         self.decode_attention_q8 = (_da.decode_attention_q8_plain if plain
                                     else _da.decode_attention_q8)
         # kernel 9: T = 1 attention over one layer's cache (the generic _layer)
@@ -486,8 +484,9 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                           cache: KVCache | QuantKVCache, ops: _Ops):
     """T=1 decode step (rama_tpu's `_forward_decode_fused`): layer-indexed
     quant_matmul for wqkv/wo, the cache row write in place, layer-indexed
-    decode attention, the fused quantized FFN. An int8 cache takes the
-    fused quantize-and-write row kernel and the int8 decode attention.
+    decode attention, the fused quantized FFN. An int8 cache hands the
+    step's rows to the int8 decode attention, which quantizes and writes
+    them (inside its walk launch, or by K6's own launch first).
     Under `attn_block_mode` 1 / 2 the un-roped q / k / v go to kernel 14,
     which ropes, writes the row and attends in one launch (and applies wo
     in mode 2)."""
@@ -511,10 +510,10 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                                                   sin[:, 0], cache.k, cache.v, pos, l)
             elif isinstance(cache, QuantKVCache):
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-                ops.write_kv_rows_q8(cache.k, cache.v, cache.ks, cache.vs,
-                                     k[:, 0].contiguous(), v[:, 0].contiguous(), pos, l)
                 att = ops.decode_attention_q8(q[:, 0].contiguous(), cache.k, cache.v,
-                                              cache.ks, cache.vs, pos, l)
+                                              cache.ks, cache.vs, pos, l,
+                                              k_new=k[:, 0].contiguous(),
+                                              v_new=v[:, 0].contiguous())
             else:
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
                 _write_kv(cache, l, k, v, pos_index)

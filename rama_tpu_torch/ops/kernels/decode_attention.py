@@ -58,6 +58,13 @@ cache before its walk copies it): no launch of its own, the same bytes and
 the same outputs as the writer followed by the walk. On any other body
 the standalone K11 kernel writes them first, in a launch of its own. Its
 plain version is the plain writer followed by the plain attention.
+
+K6 inside K7 alike: `decode_attention_q8` with `k_new` / `v_new`, the
+decode step's new rows, writes them as `kv_write.write_kv_rows_q8` would
+(K6's rule: a finished slot's overshoot past the cache end lands on row S
+- 1, where K11's rule drops a row past S): on the walk by the launch
+itself (counted in `launches_write_rows_q8`), on any other body by K6's
+own launch first.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ launches_flat = 0      # K9 launches on a bf16 / f32 cache (one layer)
 launches_flat_q8 = 0   # K9 launches on an int8 cache (one layer)
 launches_by_body = {"mma": 0, "walk": 0, "simt": 0}   # every launch above (K4, K7, K9, K10) by body
 launches_write_q8 = 0  # K10 int8 launches that also wrote the chunk's rows (K11 fused)
+launches_write_rows_q8 = 0   # K7 launches that also wrote the decode step's rows (K6 fused)
 CHUNK = 64     # cache rows per tile (csrc/decode_attention.cu kMaxChunk, the most it takes)
 FORMS = (8, 16, 32, 64)   # query rows a CTA of the tensor-core bodies (csrc dattn_mma.cuh)
 # the tensor-core bodies' launches by the row form the C entry reports it ran
@@ -94,7 +102,7 @@ BODIES = {"simt": 0, "mma": 1, "walk": 2}   # body codes of the C entries (csrc 
 # ops/kernels/paged_attention.py) included: the library is loaded once
 _SIGNATURES = {
     "rama_decode_attention": [P] * 7 + [I] * 9 + [P, P],
-    "rama_decode_attention_q8": [P] * 11 + [I] * 11 + [P, P],
+    "rama_decode_attention_q8": [P] * 11 + [I] * 12 + [P, P],
     "rama_decode_attention_occupancy": [I] * 8 + [P],
     "rama_paged_attention": [P] * 8 + [I] * 11 + [P, P],
     "rama_paged_attention_q8": [P] * 12 + [I] * 13 + [P, P],
@@ -277,9 +285,14 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                               ks: torch.Tensor, vs: torch.Tensor, pos: torch.Tensor,
-                              layer: int) -> torch.Tensor:
+                              layer: int, k_new: torch.Tensor | None = None,
+                              v_new: torch.Tensor | None = None) -> torch.Tensor:
     """chunk_attention_q8_plain of one query per slot: q (B, nh, hd) ->
-    (B, nh * hd)."""
+    (B, nh * hd). With k_new / v_new (B, nkv, hd) the plain K6 writer
+    (`kv_write.write_kv_rows_q8_plain`: pos clamped to [0, S - 1]) writes
+    them first."""
+    if new_rows(k_new, v_new) is not None:
+        _kvw.write_kv_rows_q8_plain(k8, v8, ks, vs, k_new, v_new, pos, layer)
     return chunk_attention_q8_plain(q[:, None], k8, v8, ks, vs, pos, layer)[:, 0]
 
 
@@ -341,13 +354,15 @@ def rows_ptrs(q: torch.Tensor, rows: tuple | None, nkv: int) -> tuple[int, int]:
 
 
 def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
-            what: str, tiles: int | None = None, rows: tuple | None = None) -> torch.Tensor:
+            what: str, tiles: int | None = None, rows: tuple | None = None,
+            clamp: bool = False) -> torch.Tensor:
     """Check and launch the kernel for q (B, T, nh, hd) against layer
     `layer` of caches (k, v) or, for an int8 cache, (k8, v8, ks, vs), on
     the body `body_for` picks, over `split_plan`'s splits (G `tiles` on
     the walk body when given); `rows` (k_new, v_new): the int8 cache's new
-    rows, which the walk launch writes first (`rows_ptrs`). Returns (B, T,
-    nh * hd) in q's dtype."""
+    rows, which the walk launch writes first (`rows_ptrs`), by K11's rule,
+    or by K6's with `clamp` (T = 1: a row past the cache end on row S - 1).
+    Returns (B, T, nh * hd) in q's dtype."""
     require(q.device.type == "cuda", f"unsupported device {q.device}")
     k, v = caches[0], caches[1]
     q8 = len(caches) == 4
@@ -363,6 +378,8 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
             and pos0.is_contiguous(), "positions must be a contiguous (B,) int32 CUDA tensor")
     dtype = build.dtype_code(q)
     require(q8 or rows is None, "new rows are written into an int8 cache only")
+    require(not clamp or (rows is not None and t == 1),
+            "K6's row rule (clamp) is the decode step's: one new row a slot")
     knew, vnew = rows_ptrs(q, rows, nkv)
     lib = build.library("decode_attention", _SIGNATURES)
     plan = split_plan(s, walk=body == "walk", tiles=tiles)
@@ -374,7 +391,7 @@ def _launch(q: torch.Tensor, caches: tuple, pos0: torch.Tensor, layer: int,
         ctas = walk_launch_ctas(q.device.index, b, t, nh, nkv, hd, plan) if body == "walk" else 0
         err = lib.rama_decode_attention_q8(
             q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s), knew, vnew, *tail,
-            plan.tile, plan.tiles, ctas, dtype, BODIES[body], build.stream_ptr(q),
+            plan.tile, plan.tiles, ctas, int(clamp), dtype, BODIES[body], build.stream_ptr(q),
             ctypes.byref(ran))
     else:
         err = lib.rama_decode_attention(q.data_ptr(), *layer_ptrs(caches, layer * b * nkv * s),
@@ -430,17 +447,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                         ks: torch.Tensor, vs: torch.Tensor, pos: torch.Tensor,
-                        layer: int) -> torch.Tensor:
+                        layer: int, k_new: torch.Tensor | None = None,
+                        v_new: torch.Tensor | None = None) -> torch.Tensor:
     """K7: q (B, nh, hd) against layer `layer` of the int8 caches k8/v8
     (L, B, nkv, S, hd) with f32 row scales ks/vs (L, B, nkv, S), visible
     rows s <= pos[b] (pos (B,) int32, clamped to [0, S-1] on the card).
-    Returns (B, nh * hd) in q's dtype."""
+    With k_new / v_new (B, nkv, hd), the decode step's post-RoPE rows,
+    they are first quantized and written at [layer, b, :, clamp(pos[b], 0,
+    S - 1)], as write_kv_rows_q8 (K6) would: on the card by the walk
+    launch itself where it takes the walk (`walk_writes_rows`; counted in
+    launches_write_rows_q8), else by K6's own launch first. Returns (B, nh
+    * hd) in q's dtype."""
+    rows = new_rows(k_new, v_new)
     if q.device.type == "cpu":
-        return decode_attention_q8_plain(q, k8, v8, ks, vs, pos, layer)
-    global launches_q8
+        return decode_attention_q8_plain(q, k8, v8, ks, vs, pos, layer, k_new, v_new)
     require(q.dim() == 3, "q (B, nh, hd) expected")
-    out = _launch(q[:, None], (k8, v8, ks, vs), pos, layer, "decode_attention_q8")
+    if rows is not None and not walk_writes_rows(q[:, None]):
+        _kvw.write_kv_rows_q8(k8, v8, ks, vs, *rows, pos, layer)
+        rows = None
+    global launches_q8, launches_write_rows_q8
+    if rows is not None:
+        rows = tuple(r[:, None] for r in rows)      # (B, 1, nkv, hd): one row a slot
+    out = _launch(q[:, None], (k8, v8, ks, vs), pos, layer, "decode_attention_q8",
+                  rows=rows, clamp=rows is not None)
     launches_q8 += 1
+    launches_write_rows_q8 += rows is not None
     return out[:, 0]
 
 

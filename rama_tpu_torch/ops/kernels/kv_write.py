@@ -19,16 +19,22 @@ ps, hd) and (L, P, nkv, ps), updated in place (the JAX package donates
 them and returns new arrays).
 
 Where each writer runs in the forwards (models/llama.py, runtime/paged.py):
-K6 writes every dense decode step's rows and K8 / K13 (b) every
-admission's strips. K11 and K13 (a) run as launches of their own only
-where the attention after them does not take the int8 walk (fp32
-activations, a head dim other than 48 / 64 / 128); on the walk, the
-verification chunk's rows (K11) and the paged step's or chunk's rows (K13
-(a)) are written by the attention launch itself, bit for bit as these
-kernels write them (`decode_attention.chunk_attention_q8`,
+K8 / K13 (b) write every admission's strips. K6, K11 and K13 (a) run as
+launches of their own only where the attention after them does not take
+the int8 walk (fp32 activations, a head dim other than 48 / 64 / 128); on
+the walk, the dense decode step's rows (K6, a finished slot's overshoot
+clamped onto the last row), the verification chunk's rows (K11) and the
+paged step's or chunk's rows (K13 (a)) are written by the attention
+launch itself, bit for bit as these kernels write them
+(`decode_attention.decode_attention_q8`, `chunk_attention_q8`,
 `paged_attention.paged_*_attention_q8` with `k_new` / `v_new`, over the
 row quantization of csrc/kv_quant.cuh that both share). The kernels here
 stay that fused write's oracle on the card.
+
+K13 (b) has two bodies (`prefill_body_for`): bf16 strips at a head dim of
+STREAM_HEAD_DIMS take the streaming kernel ("stream": a CTA a run of up to
+64 rows inside one page, 16-byte loads, 8-byte stores), anything else the
+warp-a-row kernel ("rows"); `launches_by_body` counts them.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`), which is `kv_quant_rows` followed by an
@@ -46,13 +52,24 @@ from rama_tpu_torch.ops.kernels.build import I, P, require
 launches = {"write_kv_rows_q8": 0, "write_kv_strips_q8": 0, "write_kv_chunk_q8": 0,
             "write_kv_paged_q8": 0, "write_kv_prefill_paged_q8": 0}
 
+# K13 (b)'s launches by the body it ran (prefill_body_for)
+launches_by_body = {"stream": 0, "rows": 0}
+PREFILL_BODIES = {"rows": 0, "stream": 1}   # body codes of the C entry (csrc rama::PrefillBody)
+STREAM_HEAD_DIMS = (48, 64, 128)            # the streaming K13 (b) kernel's instantiations
+
 _SIGNATURES = {
     "rama_kv_write_rows": [P, P, P, P, P, P, P, I, I, I, I, I, P],
     "rama_kv_write_strips": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     "rama_kv_write_chunk": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "rama_kv_write_paged": [P] * 8 + [I] * 8 + [P],
-    "rama_kv_write_prefill_paged": [P] * 7 + [I] * 11 + [P],
+    "rama_kv_write_prefill_paged": [P] * 7 + [I] * 12 + [P],
 }
+
+
+def prefill_body_for(dtype: torch.dtype, hd: int) -> str:
+    """K13 (b)'s body on the card: "stream" for bf16 strips at a head dim of
+    STREAM_HEAD_DIMS, "rows" (a warp a row) for anything else."""
+    return "stream" if dtype == torch.bfloat16 and hd in STREAM_HEAD_DIMS else "rows"
 
 
 def kv_quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -151,7 +168,9 @@ def write_kv_rows_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, layer: int) -> None:
     """K6: quantize the decode step's post-RoPE rows k/v (B, nkv, hd) and
     write them, with their scales, at [layer, b, :, pos[b]] of the int8
-    cache, in place (pos (B,) int32, clamped to [0, S-1])."""
+    cache, in place (pos (B,) int32, clamped to [0, S-1]). The decode step
+    reaches it only where its attention does not take the int8 walk, which
+    writes the rows itself (module docstring)."""
     if k.device.type == "cpu":
         return write_kv_rows_q8_plain(k8, v8, ks, vs, k, v, pos, layer)
     require(k.device.type == "cuda", f"unsupported device {k.device}")
@@ -340,13 +359,15 @@ def write_kv_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor, pos0: to
 
 
 def write_kv_prefill_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
-                              tables: torch.Tensor, t_ins: int) -> None:
+                              tables: torch.Tensor, t_ins: int, _body: str | None = None) -> None:
     """K13 (b): quantize rows 0:t_ins of the prefilled strips j < len(tables)
     of k/v (L, K, nkv, T, hd) and write them through table row j (tables
     (n, mp) int32, n <= K, t_ins <= mp * ps) into the int8 pool, every
-    layer and slot of the admission group in one launch, in place. Pass
-    only the group's real entries: pad rows would rewrite a real slot's
-    pages with the same rows."""
+    layer and slot of the admission group in one launch, in place, on the
+    body `prefill_body_for` picks (the private `_body` forces "rows", the
+    warp-a-row body, to time it beside the streaming one). Pass only the
+    group's real entries: pad rows would rewrite a real slot's pages with
+    the same rows."""
     if k.device.type == "cpu":
         return write_kv_prefill_paged_q8_plain(k8, v8, ks, vs, k, v, tables, t_ins)
     require(k.device.type == "cuda", f"unsupported device {k.device}")
@@ -364,10 +385,15 @@ def write_kv_prefill_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
     mp = tables.shape[1]
     require(0 < t_ins <= min(T, mp * ps), f"t_ins {t_ins} must be in [1, min(T={T}, "
             f"mp * ps={mp * ps})]")
+    body = _body or prefill_body_for(k.dtype, hd)
+    require(body in PREFILL_BODIES, f"unknown K13 (b) body {body!r}")
+    require(body == "rows" or (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0),
+            "strips must start 16-byte aligned (the streaming body loads 16-byte pieces)")
     lib = build.library("kv_write", _SIGNATURES)
     err = lib.rama_kv_write_prefill_paged(
         k.data_ptr(), v.data_ptr(), tables.data_ptr(), k8.data_ptr(), v8.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), L, K, n, nkv, T, t_ins, mp, ps, num_pages, hd,
-        build.dtype_code(k), build.stream_ptr(k))
+        build.dtype_code(k), PREFILL_BODIES[body], build.stream_ptr(k))
     build.check(lib, err, "write_kv_prefill_paged_q8")
     launches["write_kv_prefill_paged_q8"] += 1
+    launches_by_body[body] += 1

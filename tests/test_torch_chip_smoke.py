@@ -167,19 +167,25 @@ def test_launch_counters_read_and_reset(smoke, counters):
 
 def _kv8_launches(smoke, **over):
     got = {k: 4 for k in smoke.KV8_PATH["record"]}
-    got["decode_attention"] = 0
+    got.update({k: 0 for k in smoke.KV8_PATH["forbid"]})
     return {**got, **over}
 
 
 def test_kv8_path_passes_with_its_kernels_and_no_bf16_attention(smoke):
+    """K6 runs inside every K7 launch on this path: its own launch (the
+    standalone writer) is forbidden there, as the bf16 decode attention."""
     smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke))
-    assert smoke.KV8_PATH["forbid"] == {"decode_attention": "launches_kv8_path"}
+    assert smoke.KV8_PATH["forbid"] == {"decode_attention": "launches_kv8_path",
+                                        "write_kv_rows_q8": "standalone_launches"}
 
 
 @pytest.mark.parametrize("name", ["write_kv_rows_q8", "decode_attention_q8",
                                   "write_kv_strips_q8", "quant_matmul", "ffn",
                                   "prefill_attention"])
 def test_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name):
+    """K6 (write_kv_rows_q8) runs on this path inside the K7 launches that
+    write the step's rows: its count there is write_kv_rows_q8_fused."""
+    name = {"write_kv_rows_q8": "write_kv_rows_q8_fused"}.get(name, name)
     with pytest.raises(SystemExit, match="never launched on the int8 KV main path"):
         smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke, **{name: 0}))
 
@@ -266,6 +272,8 @@ def test_spec_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name)
 
 
 @pytest.mark.parametrize("path_name,walk,fused,writer", [
+    ("KV8_PATH", "decode_attention_q8", "write_kv_rows_q8_fused", "write_kv_rows_q8"),
+    ("YI_KV8_PATH", "decode_attention_q8", "write_kv_rows_q8_fused", "write_kv_rows_q8"),
     ("SPEC_KV8_PATH", "chunk_attention_q8", "write_kv_chunk_q8_fused", "write_kv_chunk_q8"),
     ("GQA_SPEC_KV8_PATH", "chunk_attention_q8", "write_kv_chunk_q8_fused", "write_kv_chunk_q8"),
     ("PAGED_KV8_PATH", "paged_decode_attention_q8", "write_kv_paged_q8_fused",
@@ -276,10 +284,10 @@ def test_spec_kv8_path_fails_when_one_of_its_kernels_never_launched(smoke, name)
      "write_kv_paged_q8")])
 def test_int8_paths_fail_unless_every_walk_launch_writes_its_rows(smoke, path_name, walk,
                                                                   fused, writer):
-    """On the int8 verify and paged paths every walk launch writes its
-    rows (the fused count equals the walk's), the standalone writer (K11 /
-    K13 (a)) never launches, and that count goes to the writer's kernels
-    record; the dense decode step keeps K6."""
+    """On the int8 decode, verify and paged paths every walk launch writes
+    its rows (the fused count equals the walk's), the standalone writer
+    (K6 / K11 / K13 (a)) never launches, and that count goes to the
+    writer's kernels record."""
     path = getattr(smoke, path_name)
     ok = {**{k: 3 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
     smoke.check_launches(path, ok)
@@ -289,7 +297,7 @@ def test_int8_paths_fail_unless_every_walk_launch_writes_its_rows(smoke, path_na
         smoke.check_launches(path, {**ok, writer: 1})
     with pytest.raises(SystemExit, match="launches of the kernel"):
         smoke.check_launches(path, {**ok, fused: 2})
-    assert "write_kv_rows_q8" in smoke.KV8_PATH["record"]
+    assert "write_kv_rows_q8" not in smoke.KV8_PATH["record"]
 
 
 def test_spec_kv8_path_fails_when_the_bf16_decode_attention_launched(smoke):
@@ -476,7 +484,8 @@ def test_every_paged_kernel_records_its_launches_on_a_paged_path(smoke, counters
 @pytest.mark.parametrize("path_name,must,must_not", [
     ("PAGED_PATH", "paged_decode_attention", ["decode_attention", "chunk_attention"]),
     ("PAGED_KV8_PATH", "write_kv_prefill_paged_q8",
-     ["write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8", "decode_attention"]),
+     ["write_kv_rows_q8", "decode_attention_q8", "write_kv_strips_q8", "decode_attention",
+      "write_kv_prefill_paged_q8_rows"]),
     ("SPEC_PAGED_PATH", "paged_chunk_attention",
      ["decode_attention", "chunk_attention", "paged_decode_attention"]),
     ("SPEC_PAGED_KV8_PATH", "paged_chunk_attention_q8",

@@ -1884,6 +1884,163 @@ def test_int8_rows_off_the_walk_take_the_standalone_writer(dev):
         da.chunk_attention_q8(q, *caches, p0, 0, k_new=k)
 
 
+# -- K6 inside K7: the dense decode step's rows written by the walk launch --------
+
+
+# GQA groups of a decode step (T = 1) over 2 kv heads: the 8-row form (rep 1 /
+# 7 / 8), 16 rows (12, 16), 32 (24), 64 (64) and row groups of 64 (96: a
+# partial second group; 128)
+DECODE_WRITE_REPS = [1, 7, 8, 12, 16, 24, 64, 96, 128]
+
+
+def _decode_write_case(dev, S, rep, hd, seed):
+    """(caches, pos, q, k_new, v_new) of a fused decode-step write: an int8
+    cache (2 layers) of kv_quant_rows'd N(0, 1) rows, bf16 q (B, 2 rep, hd),
+    new rows (B, 2, hd) of mixed magnitude with a zero row and .5 ties, at
+    positions 0, on the 64-row tile edges, S - 1 and a finished slot's
+    overshoot S and S + 3 (K6's rule: row S - 1)."""
+    pos = [0, 63, 64, 130, S - 1, S, S + 3]
+    b, nkv = len(pos), 2
+    (k8, ks), (v8, vs) = (_quant_rows(torch.randn(2, b, nkv, S, hd, device=dev))
+                          for _ in range(2))
+    q = torch.randn(b, nkv * rep, hd, device=dev).to(torch.bfloat16)
+    k, v = (_kv_rows(dev, (b, nkv, hd), torch.bfloat16, seed=seed + i) for i in (1, 2))
+    return [k8, v8, ks, vs], torch.tensor(pos, dtype=torch.int32, device=dev), q, k, v
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("rep", DECODE_WRITE_REPS)
+@pytest.mark.parametrize("S", [200, 2100])
+def test_walk_writes_the_decode_steps_rows_as_k6_then_the_walk(dev, hd, rep, S):
+    """K7 given the decode step's rows (decode_attention_q8 with k_new /
+    v_new) equals K6 followed by K7 without them, in every row form and
+    row groups, over splits of one tile (S 200) and of two (S 2100), at
+    the planted positions of _decode_write_case (overshoot rows on row S -
+    1): the outputs bit for bit, the cache (int8 bytes and f32 scales) byte
+    for byte, the plain version within the bf16 tolerance and its cache
+    exactly. Each fused call counts one K7 launch on the walk body in the
+    form row_form gives, one fused write and no K6 launch."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    caches, p0, q, k, v = _decode_write_case(dev, S, rep, hd, seed=hd + rep + S)
+    form = da.row_form(1, rep)[0]
+    for layer in (0, 1):
+        fused, split, plain = ([c.clone() for c in caches] for _ in range(3))
+        n0, w0 = da.launches_write_rows_q8, kw.launches["write_kv_rows_q8"]
+        f0 = da.launches_by_form["walk"][form]
+        got = da.decode_attention_q8(q, *fused, p0, layer, k_new=k, v_new=v)
+        assert (da.launches_write_rows_q8, kw.launches["write_kv_rows_q8"]) == (n0 + 1, w0)
+        assert da.launches_by_form["walk"][form] == f0 + 1
+        kw.write_kv_rows_q8(*split, k, v, p0, layer)
+        want = da.decode_attention_q8(q, *split, p0, layer)
+        assert torch.equal(got, want)
+        for a, b in zip(fused, split):
+            assert torch.equal(a, b)
+        _close(got, da.decode_attention_q8_plain(q, *plain, p0, layer, k, v), torch.bfloat16)
+        for a, b in zip(fused, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rep", [1, 128])
+def test_walk_decode_row_write_replays_in_a_cuda_graph(dev, rep):
+    """The fused decode-step launch (the 8-row form, and two row groups of
+    64) captured in a CUDA graph after a warm-up launch and replayed twice
+    equals an eager launch on its own copy of the cache: outputs bit for
+    bit, the cache byte for byte (a replay rewrites the same bytes)."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+
+    caches, p0, q, k, v = _decode_write_case(dev, 2100, rep, 128, seed=41)
+    eager_c, graph_c = [c.clone() for c in caches], [c.clone() for c in caches]
+    eager = da.decode_attention_q8(q, *eager_c, p0, 1, k_new=k, v_new=v)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up on the capture stream
+        da.decode_attention_q8(q, *graph_c, p0, 1, k_new=k, v_new=v)
+    torch.cuda.current_stream().wait_stream(stream)
+    n0 = da.launches_write_rows_q8
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention_q8(q, *graph_c, p0, 1, k_new=k, v_new=v)
+    assert da.launches_write_rows_q8 == n0 + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(torch.equal(a, b) for a, b in zip(graph_c, eager_c))
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128), (torch.bfloat16, 16)])
+def test_int8_decode_rows_off_the_walk_take_k6(dev, dtype, hd):
+    """Off the walk (fp32 q: the SIMT body; head_dim 16) the decode step's
+    rows given to K7 are written by K6's own launch first, then K7 runs
+    without them: equal to that pair bit for bit (outputs, cache bytes),
+    no fused write counted, K6 once; the C entry refuses K6's row rule
+    (clamp) on more than one row a slot."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    caches, p0, q, k, v = _decode_write_case(dev, 200, 2, hd, seed=7)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    fused, split = [c.clone() for c in caches], [c.clone() for c in caches]
+    n0, w0 = da.launches_write_rows_q8, kw.launches["write_kv_rows_q8"]
+    got = da.decode_attention_q8(q, *fused, p0, 1, k_new=k, v_new=v)
+    assert (da.launches_write_rows_q8, kw.launches["write_kv_rows_q8"]) == (n0, w0 + 1)
+    kw.write_kv_rows_q8(*split, k, v, p0, 1)
+    assert torch.equal(got, da.decode_attention_q8(q, *split, p0, 1))
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))
+    c, p0, q, k, v = _decode_write_case(dev, 200, 2, 128, seed=8)
+    rows = tuple(r[:, None].expand(-1, 2, -1, -1).contiguous() for r in (k, v))
+    with pytest.raises(ValueError, match="one new row a slot"):
+        da._launch(q[:, None].expand(-1, 2, -1, -1).contiguous(), tuple(c), p0, 0,
+                   "decode_attention_q8", rows=rows, clamp=True)
+
+
+# -- K13 (b): the streaming strip writer -----------------------------------------
+
+
+# (page rows, t_ins, strips written n of n + 1, kv heads, head_dim, a table
+# entry past the pool): 8 / 16 / 64 / 128-row pages, odd t_ins, runs of one
+# kv head (64 rows) and of several (short runs: 2 / 4 / 8 heads a CTA, a
+# partial last group at 6 heads), the 7B serving bucket (16 rows, 32 kv
+# heads) and an 8 x 512 admission
+STREAM_CASES = [(8, 13, 3, 2, 128, False), (16, 333, 5, 6, 64, False),
+                (64, 129, 7, 2, 48, False), (128, 77, 2, 3, 128, True),
+                (128, 512, 8, 4, 128, False), (64, 64, 1, 2, 64, True),
+                (128, 16, 8, 32, 128, False), (128, 5, 2, 8, 48, False)]
+
+
+@pytest.mark.parametrize("ps,t_ins,n,nkv,hd,clamp", STREAM_CASES)
+def test_write_kv_prefill_paged_q8_streaming_body(dev, ps, t_ins, n, nkv, hd, clamp):
+    """K13 (b)'s streaming body (bf16 at hd 48 / 64 / 128) equals its plain
+    version and the warp-a-row body byte for byte: shuffled pages, a
+    partial last page, strips longer than t_ins, a pad strip past the
+    group's tables, runs of one kv head and of several, and (clamp) a
+    table entry past the pool, clamped onto a page no other entry holds.
+    Each launch counts on its body."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    assert kw.prefill_body_for(torch.bfloat16, hd) == "stream"
+    mp = -(-t_ins // ps) + 1
+    npages = n * mp + 2
+    g = torch.Generator().manual_seed(ps + t_ins)
+    tables = torch.randperm(npages - 1, generator=g)[:n * mp].view(n, mp).to(torch.int32)
+    if clamp:
+        tables[0, 0] = npages + 4                       # page npages - 1, held by no entry
+    tables = tables.to(dev)
+    base = _q8_cache(dev, 3, npages, nkv, ps, hd, seed=t_ins)
+    k, v = (_kv_rows(dev, (3, n + 1, nkv, t_ins + 3, hd), torch.bfloat16, seed=i)
+            for i in (1, 2))
+    got, rows, want = ([x.clone() for x in base] for _ in range(3))
+    before = dict(kw.launches_by_body)
+    kw.write_kv_prefill_paged_q8(*got, k, v, tables, t_ins)
+    kw.write_kv_prefill_paged_q8(*rows, k, v, tables, t_ins, _body="rows")
+    assert kw.launches_by_body == {"stream": before["stream"] + 1, "rows": before["rows"] + 1}
+    kw.write_kv_prefill_paged_q8_plain(*want, k, v, tables, t_ins)
+    for a, b, c in zip(got, rows, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
 def test_attn_block_refuses_operands_it_does_not_take(dev):
     from rama_tpu_torch.ops.kernels import attn_block as ab
 

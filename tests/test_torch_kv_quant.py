@@ -181,6 +181,67 @@ def test_decode_attention_q8_plain_matches_pallas(s, rep):
                                        rtol=0.05)
 
 
+# (L, hd, S, pos): 1-3 layers, hd 64 / 128, the step's row at 0, on the
+# walk's 64-row tile edges (63 / 64, 127 / 128) and at S - 1
+@pytest.mark.parametrize("L,hd,s,pos", [(1, 64, 128, [0, 63, 64, 127]),
+                                        (2, 128, 256, [0, 63, 64, 255]),
+                                        (3, 64, 192, [127, 128, 191, 5])])
+def test_decode_attention_q8_writes_its_rows_as_jax_writes_them(L, hd, s, pos):
+    """K6 inside K7: decode_attention_q8 given the decode step's rows
+    (k_new / v_new; on the CPU the plain K6 writer, then the plain
+    attention) against rama_tpu's kv_quant_rows + write_kv_rows_q8, then
+    decode_attention_layer_q8 / _tiled_q8, in interpret mode, a layer at a
+    time: the cache's int8 bytes and f32 scales exact, the outputs within
+    JAX's tolerance (atol 0.03, rtol 0.05)."""
+    rng = np.random.default_rng(100 * L + hd + s)
+    B, nkv, rep = len(pos), 2, 2
+    q, k8, v8, ks, vs = _q8_inputs(rng, L, B, nkv, s, hd, rep)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    tq = t(np.asarray(jq.astype(jnp.float32))).to(torch.bfloat16)
+    want_c = [k8, v8, ks, vs]
+    got_c = [t(np.asarray(a)).clone() for a in want_c]
+    p = np.asarray(pos, np.int32)
+    for layer in range(L):
+        jk, jv = (jnp.asarray(rows_with_edges(rng, (B, nkv, hd)), jnp.bfloat16) for _ in "kv")
+        (kq, ksc), (vq, vsc) = jl.kv_quant_rows(jk), jl.kv_quant_rows(jv)
+        want_c = jkw.write_kv_rows_q8(*want_c, kq, vq, ksc, vsc, jnp.asarray(p),
+                                      jnp.int32(layer), interpret=True)
+        tk, tv = (t(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16) for x in (jk, jv))
+        got = da.decode_attention_q8(tq, *got_c, t(p), layer, k_new=tk, v_new=tv)
+        for g, w in zip(got_c, want_c):
+            exact(g, w)
+        for fn in (jda.decode_attention_layer_q8, jda.decode_attention_layer_tiled_q8):
+            want = fn(jq, *want_c, jnp.asarray(p), jnp.int32(layer), interpret=True)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                       atol=0.03, rtol=0.05)
+
+
+@pytest.mark.parametrize("over", [0, 1, 5])
+def test_decode_attention_q8_puts_a_finished_slots_row_on_the_last(over):
+    """A decode step's row at pos S + over (a finished slot's overshoot)
+    lands on row S - 1 by K6's rule, where JAX drops it (a deliberate
+    difference, ROADMAP §3), and that slot attends over rows 0 .. S - 1
+    with it; the other slot's row lands at its pos. Against the rows put
+    into the cache by hand, then the int8 attention without rows: bytes
+    exact, outputs equal."""
+    rng = np.random.default_rng(over)
+    L, B, nkv, s, hd = 2, 2, 2, 64, 64
+    q, k8, v8, ks, vs = _q8_inputs(rng, L, B, nkv, s, hd, 2)
+    tq = t(q).to(torch.bfloat16)
+    got_c = [t(np.asarray(a)).clone() for a in (k8, v8, ks, vs)]
+    want_c = [a.clone() for a in got_c]
+    k, v = (t(rows_with_edges(rng, (B, nkv, hd))).to(torch.bfloat16) for _ in "kv")
+    pos = torch.tensor([s + over, 17], dtype=torch.int32)
+    got = da.decode_attention_q8(tq, *got_c, pos, 1, k_new=k, v_new=v)
+    for rows, q8, sc in ((k, want_c[0], want_c[2]), (v, want_c[1], want_c[3])):
+        r8, rs = kw.kv_quant_rows(rows)
+        for b, p in enumerate([s - 1, 17]):
+            q8[1, b, :, p], sc[1, b, :, p] = r8[b], rs[b]
+    for g, w in zip(got_c, want_c):
+        assert torch.equal(g, w)
+    assert torch.equal(got, da.decode_attention_q8_plain(tq, *want_c, pos, 1))
+
+
 @pytest.mark.parametrize("rep", [1, 2])
 def test_decode_attention_q8_plain_fp32_follows_the_dequant_path(rep):
     """fp32 q: the JAX package's CPU path (_dequant_kv + _attention)."""
@@ -355,7 +416,9 @@ def test_cpu_wrappers_dispatch_to_plain():
     args = (t(q), t(k8), t(v8), t(ks), t(vs), torch.tensor([3, 31], dtype=torch.int32), 1)
     torch.testing.assert_close(da.decode_attention_q8(*args),
                                da.decode_attention_q8_plain(*args), rtol=0, atol=0)
-    assert tl._KERNELS.write_kv_rows_q8 is kw.write_kv_rows_q8
+    # the decode step's row write (K6) goes through the int8 attention entry
+    assert tl._KERNELS.decode_attention_q8 is da.decode_attention_q8
+    assert not hasattr(tl._KERNELS, "write_kv_rows_q8")
     assert tl._PLAIN.decode_attention_q8 is da.decode_attention_q8_plain
     assert tl._PLAIN.write_kv_strips_q8 is kw.write_kv_strips_q8_plain
 
@@ -381,16 +444,17 @@ class _Recorder:
                                             (torch.float32, 64, False),
                                             (torch.bfloat16, 16, False)])
 def test_int8_chunk_and_paged_steps_route_their_row_write(monkeypatch, dtype, hd, fused):
-    """Through a recording `_KERNELS` (the non-plain route): a verify chunk
-    over an int8 cache and a paged decode step and chunk over an int8 pool
-    hand their new rows to the attention entry, once a layer, and never
-    call the standalone writer (K11, K13 (a)) themselves, and the logits
-    equal plain=True's exactly (the same plain functions on the CPU) and
-    the dense cache its bytes. Off the CPU the entry picks the writer:
-    where the launch takes the int8 walk (bf16 at head_dim 48 / 64 / 128,
-    `walk_writes_rows`) the launch gets the rows and no writer runs; fp32
-    and another head dim run the standalone writer first, then the launch
-    without rows (meta tensors, the launch and the writers recorded)."""
+    """Through a recording `_KERNELS` (the non-plain route): a dense decode
+    step and a verify chunk over an int8 cache and a paged decode step and
+    chunk over an int8 pool hand their new rows to the attention entry,
+    once a layer, and never call the standalone writer (K6, K11, K13 (a))
+    themselves, and the logits equal plain=True's exactly (the same plain
+    functions on the CPU) and the dense cache its bytes. Off the CPU the
+    entry picks the writer: where the launch takes the int8 walk (bf16 at
+    head_dim 48 / 64 / 128, `walk_writes_rows`) the launch gets the rows
+    and no writer runs; fp32 and another head dim run the standalone
+    writer first, then the launch without rows (meta tensors, the launch
+    and the writers recorded)."""
     from rama_tpu_torch.ops.kernels import paged_attention as pa
     from rama_tpu_torch.runtime import paged
 
@@ -419,6 +483,14 @@ def test_int8_chunk_and_paged_steps_route_their_row_write(monkeypatch, dtype, hd
     assert all(torch.equal(a, b) for a, b in zip(vars(caches[0]).values(),
                                                  vars(caches[1]).values()))
     assert got == [("chunk_attention_q8", True)] * n
+    # the dense decode step (T = 1), one slot past the cache end (K6's rule)
+    step = toks[:, :1], torch.tensor([[31], [40]])
+    got = calls(lambda: out.setdefault(1, tl.forward(params, cfg, *step, caches[0])[0]))
+    want, _ = tl.forward(params, cfg, *step, caches[1], plain=True)
+    assert torch.equal(out[1], want)
+    assert all(torch.equal(a, b) for a, b in zip(vars(caches[0]).values(),
+                                                 vars(caches[1]).values()))
+    assert got == [("decode_attention_q8", True)] * n
     tables = torch.tensor([[0, 2], [1, 3]], dtype=torch.int32)
     for tq, name in ((1, "paged_decode_attention_q8"), (3, "paged_chunk_attention_q8")):
         pool = paged.QuantPagedKVCache.create(cfg, 5, 16, device="cpu")
@@ -430,10 +502,12 @@ def test_int8_chunk_and_paged_steps_route_their_row_write(monkeypatch, dtype, hd
     for mod, launch in ((da, "_launch"), (pa, "_launch")):
         monkeypatch.setattr(mod, launch, lambda q, *a, rows=None, **kw: seen.append(
             ("launch", rows is not None)) or torch.empty(2, 1, 2, device="meta"))
-    for writer in ("write_kv_chunk_q8", "write_kv_paged_q8"):
+    for writer in ("write_kv_rows_q8", "write_kv_chunk_q8", "write_kv_paged_q8"):
         monkeypatch.setattr(kw, writer, lambda *a, w=writer: seen.append((w, a[4].dim())))
     monkeypatch.setattr(da, "launches_chunk_q8", 0)
     monkeypatch.setattr(da, "launches_write_q8", 0)
+    monkeypatch.setattr(da, "launches_q8", 0)
+    monkeypatch.setattr(da, "launches_write_rows_q8", 0)
     meta = dict(device="meta", dtype=dtype)
     q, k8 = torch.empty(2, 3, 2, hd, **meta), torch.empty(2, 2, 1, 32, hd, device="meta")
     rows, s8 = torch.empty(2, 3, 1, hd, **meta), torch.empty(2, 2, 1, 32, device="meta")
@@ -443,7 +517,10 @@ def test_int8_chunk_and_paged_steps_route_their_row_write(monkeypatch, dtype, hd
     pa.paged_chunk_attention_q8(q, k8, k8, s8, s8, p, tab, 1, k_new=rows, v_new=rows)
     pa.paged_decode_attention_q8(q[:, 0], k8, k8, s8, s8, p, tab, 1, k_new=rows[:, 0],
                                  v_new=rows[:, 0])
-    writers = ["write_kv_chunk_q8", "write_kv_paged_q8", "write_kv_paged_q8"]
-    assert seen == ([("launch", True)] * 3 if fused else
-                    [x for w in writers for x in ((w, 4), ("launch", False))])
+    da.decode_attention_q8(q[:, 0], k8, k8, s8, s8, p, 1, k_new=rows[:, 0], v_new=rows[:, 0])
+    writers = [("write_kv_chunk_q8", 4), ("write_kv_paged_q8", 4), ("write_kv_paged_q8", 4),
+               ("write_kv_rows_q8", 3)]
+    assert seen == ([("launch", True)] * 4 if fused else
+                    [x for w in writers for x in (w, ("launch", False))])
     assert da.walk_writes_rows(q) == fused
+    assert (da.launches_q8, da.launches_write_rows_q8) == (1, int(fused))

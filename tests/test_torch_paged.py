@@ -308,20 +308,24 @@ def test_write_kv_paged_q8_clips_rows_past_the_table():
     assert int(pool[0][0, 4].abs().sum()) == 0
 
 
-@pytest.mark.parametrize("ps,tt", [(16, 40), (128, 130), (32, 32)])
+# (page rows, t_ins): partial last pages (t_ins not a multiple of the page:
+# 40, 130, 13, 21), 8-row pages
+@pytest.mark.parametrize("ps,tt", [(16, 40), (128, 130), (32, 32), (8, 13), (8, 64), (16, 21)])
 def test_write_kv_prefill_paged_q8_plain_equals_jax(ps, tt):
     """K13 (b) byte for byte against the Pallas strip writer (one slot a
     call there; two strips of a group in one call here), partial last
-    pages included."""
-    rng = np.random.default_rng(19 + ps)
-    L, P, nkv, hd = 2, 8, 2, 128
-    pool = _q8_pool(rng, L, P, nkv, ps, hd)
-    strips = [_rows(rng, (L, 3, nkv, tt, hd)) for _ in range(2)]
+    pages included, from strips 3 rows longer than t_ins (rows past t_ins
+    never written)."""
+    rng = np.random.default_rng(19 + ps + tt)
+    L, nkv, hd = 2, 2, 128
     npg = -(-tt // ps)
+    P = max(8, 2 * npg + 2)
+    pool = _q8_pool(rng, L, P, nkv, ps, hd)
+    strips = [_rows(rng, (L, 3, nkv, tt + 3, hd)) for _ in range(2)]
     rows = rng.permutation(P)[: 2 * npg].reshape(2, npg).astype(np.int32)
     want = [jnp.asarray(a) for a in pool]
     for j in range(2):
-        (kq, ksc), (vq, vsc) = (jl.kv_quant_rows(jnp.asarray(x[:, j])) for x in strips)
+        (kq, ksc), (vq, vsc) = (jl.kv_quant_rows(jnp.asarray(x[:, j, :, :tt])) for x in strips)
         want = jkw.write_kv_prefill_paged_q8(*want, kq, vq, ksc, vsc, jnp.asarray(rows[j]),
                                              interpret=True)
     got = [t(a) for a in pool]
