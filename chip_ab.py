@@ -56,12 +56,17 @@ another model:
     K12 _q8 on an int8 pool of 128-row pages at T 1 and 4: the walk alone,
     the standalone writer then the walk, the writer alone, and, on a tree
     whose walk writes the rows itself (the `k_new` / `v_new` operands of
-    that entry), that fused launch; the admission strip writer K13 (b) at
-    8 strips of 16 and of 512 rows into 128-row pages (the tree's own
-    body); then 8-slot 7B int8 decode steps and verify rounds of 4 on an
+    that entry), that fused launch; the admission strip writers K13 (b) at
+    8 strips of 16 and of 512 rows into 128-row pages and K8 at the same
+    strips into the 8-slot dense int8 cache of 4096 rows (each the tree's
+    own body); then 8-slot 7B int8 decode steps and verify rounds of 4 on an
     int8 cache (`profile_kv8`'s, `profile_spec`'s) and decode steps on an
     int8 pool (`profile_paged`'s) at pos 64 and 2048: device and host ms a
     step or round (`--write-kernels`: the kernels alone);
+  - `--sass PARENT.so CHANGE.so --match REGEX`: no card; disassembles
+    both libraries with the toolkit's `cuobjdump -sass` and, for each
+    kernel whose mangled name matches REGEX in both, prints how many of
+    its instructions differ (addresses and encodings left out);
   - `--summary FILE`: no card; reads the JSON lines of runs in turns (a
     file of this script's output) and prints, for each measure and each
     of its times, every tag's runs in the order they ran, their median
@@ -83,6 +88,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -125,6 +131,49 @@ def summarize(path: str, base: str = "parent", other: str = "change",
     return out
 
 
+def sass_functions(lib: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its SASS instructions} of a library, from
+    `cuobjdump -sass`, each instruction without its address and encoding
+    comments."""
+    import re
+    import subprocess
+
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
+                         check=True, timeout=600).stdout
+    funcs: dict[str, list[str]] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and (ins := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            funcs[name].append(ins.group(1))
+    return funcs
+
+
+def sass_diff(old: str, new: str, match: str) -> list[str]:
+    """The lines `--sass` prints: each kernel matching `match` in both
+    libraries, its instruction counts and how many instructions differ."""
+    import difflib
+    import re
+
+    a, b = sass_functions(old), sass_functions(new)
+    out = []
+    for name in sorted(n for n in a if re.search(match, n)):
+        if name not in b:
+            out.append(f"{name}: only in {old}")
+            continue
+        sm = difflib.SequenceMatcher(a=a[name], b=b[name], autojunk=False)
+        differ = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in sm.get_opcodes()
+                     if tag != "equal")
+        out.append(f"{name}: {len(a[name])} / {len(b[name])} instructions, {differ} differ")
+    for name in sorted(n for n in b if re.search(match, n) and n not in a):
+        out.append(f"{name}: only in {new}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="checkout whose rama_tpu_torch is timed")
@@ -139,9 +188,15 @@ def main() -> int:
                     help="time the int8 row writers beside the walk only")
     ap.add_argument("--summary", metavar="FILE",
                     help="summarize the JSON lines of runs in turns in FILE (no card)")
+    ap.add_argument("--sass", nargs=2, metavar=("PARENT_SO", "CHANGE_SO"),
+                    help="count the SASS instructions that differ between two libraries")
+    ap.add_argument("--match", default=".", help="--sass: kernels whose name matches")
     args = ap.parse_args()
     if args.summary:
         print("\n".join(summarize(args.summary)))
+        return 0
+    if args.sass:
+        print("\n".join(sass_diff(*args.sass, args.match)))
         return 0
     sys.path.insert(0, str(Path(args.root).resolve()))    # the tree under test
     import torch
@@ -314,6 +369,19 @@ def main() -> int:
                 "device_ms": lambda: kvw.write_kv_prefill_paged_q8(*pool, ks_, vs_, tables, t)}))
             del pool, ks_, vs_
             torch.cuda.empty_cache()
+        # K8: an admission group's strips into the 8-slot dense int8 cache of
+        # 4096 rows, every layer (the tree's own body)
+        c8 = [torch.zeros((cfg.n_layers, B, nkv, S, hd), dtype=torch.int8, device=dev)
+              for _ in range(2)] + [torch.zeros((cfg.n_layers, B, nkv, S), device=dev)
+                                    for _ in range(2)]
+        slots = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], dtype=torch.int32, device=dev)
+        for t in (16, 512):
+            ks_, vs_ = (rx(cfg.n_layers, B, nkv, t, hd) for _ in range(2))
+            emit(f"K8 strips T={t} S={S}", **cs.graph_device_ms(torch, {
+                "device_ms": lambda: kvw.write_kv_strips_q8(*c8, ks_, vs_, slots, t)}))
+            del ks_, vs_
+        del c8
+        torch.cuda.empty_cache()
         if args.write_kernels:
             return
         params = cs.random_params(torch, cfg, dev, bits=8)

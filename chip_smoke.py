@@ -53,7 +53,14 @@ Phases, in order (any failure raises and the script exits non-zero):
   kernels_kv8  the int8 KV cache's kernels: the row writer and the strip
            inserter (exact: int8 bytes and f32 scales at atol 0) at the 7B
            shapes of an 8-slot 4096-row cache, layers 0 and 31, and at the
-           tiny / stories15M shapes; the int8 decode attention (rel 0.05
+           tiny / stories15M shapes; the strip inserter K8 on its streaming
+           body (bf16 at hd 48 / 64 / 128) and its warp-a-row body, each
+           byte for byte against the plain version at 7B 8 x 16 and 8 x 512,
+           t_ins 300 of 512 with n = 3, S = 1000, hd 64 / 48, a duplicate
+           slot, slots -1 and B (no byte of the cache moves) and a CUDA
+           graph replay, both bodies timed at 8 x 16 and 8 x 512 (device ms
+           over graphs of 20 in turns, the bound's share); the int8 decode
+           attention (rel 0.05
            per (slot, head)) at S 4096 and at S 1024 with the bf16
            kernel's positions, with planted edge rows, GQA rep 2 and 4,
            fp32 and bf16 q, each launch on the body body_for picks (bf16:
@@ -87,6 +94,12 @@ Phases, in order (any failure raises and the script exits non-zero):
            at positions 8, 9, 1500 and 4000 (RoPE tabulated to 4096); the
            gap to the bf16-cache logits is printed, not gated
   serve_kv8    the server with an 8-slot int8 KV cache at max_len 4096
+  serve_warmup serve_kv8 in a fresh process whose compile_cache is a new
+           directory under build/ holding this run's built libraries: no
+           nvcc runs; Engine.warmup(max_prompt=64) builds nothing and loads
+           every library, then serving loads no library and admits only
+           warmed (k, T) buckets; the greedy streams equal serve_kv8's; the
+           first request's TTFT beside serve_kv8's
   profile_kv8  the profile of 8-slot decode steps on the int8 cache, at
            positions 64 and 2048
   model4   Llama-2-7B int4 params (int4 layers, int8 embedding and
@@ -340,6 +353,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -354,7 +368,8 @@ BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 TOL = 0.05                    # max |err| / max |ref| (bench.py:65-72)
 ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_spec",
               "kernels_paged", "kernels_attn", "model", "generate", "serve", "profile",
-              "profile_prefill", "model_kv8", "serve_kv8", "profile_kv8", "model_spec",
+              "profile_prefill", "model_kv8", "serve_kv8", "profile_kv8", "serve_warmup",
+              "model_spec",
               "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
               "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
@@ -394,6 +409,7 @@ BODY_COUNTS = {
     **{name: ("ffn", ("mma", "simt")) for name in ("ffn", "ffn_int4")},
     **{name: ("decode_attention", ("mma", "walk", "simt"))
        for name in ("chunk_attention_gqa", "chunk_attention_q8_gqa")},
+    "write_kv_strips_q8": ("write_kv_strips_q8", ("stream", "rows")),
     "paged_chunk_attention_q8_gqa": ("paged_attention", ("mma", "walk", "simt"))}
 # the decode-attention records whose launches are also counted by body and
 # row form (the tensor-core bodies' 8 / 16 / 32 / 64-row forms, as the C
@@ -405,8 +421,16 @@ FORM_COUNTS = {name: prefix for name, (prefix, _) in BODY_COUNTS.items()
 RECORD_OF = {"write_kv_chunk_q8_fused": "write_kv_chunk_q8",
              "write_kv_paged_q8_fused": "write_kv_paged_q8",
              "write_kv_rows_q8_fused": "write_kv_rows_q8",
-             # K13 (b) launches on its warp-a-row body (none on a bf16 hd-128 path)
+             # K8's / K13 (b)'s launches by body (none on the warp-a-row body on a
+             # bf16 path at hd 48 / 64 / 128)
+             "write_kv_strips_q8_stream": "write_kv_strips_q8",
+             "write_kv_strips_q8_rows": "write_kv_strips_q8",
              "write_kv_prefill_paged_q8_rows": "write_kv_prefill_paged_q8"}
+# K8 on a dense int8-cache path: every launch on the streaming body
+# (`equal`), none on the warp-a-row body
+K8_STREAM = dict(record={"write_kv_strips_q8_stream": "stream_body_launches"},
+                 forbid={"write_kv_strips_q8_rows": "rows_body_launches"},
+                 equal={"write_kv_strips_q8_stream": "write_kv_strips_q8"})
 PARTIAL_RC = 4                # exit code of a run that skipped phases
 KV8_MAX_LEN = 4096            # Llama-2-7B's published context
 SPEC_TICK = 3                 # drafts per verification round: chunks of 4
@@ -449,6 +473,14 @@ KV8_PATH = dict(label="int8 KV", bits=8, phases=("model_kv8", "serve_kv8", "prof
                 forbid={"decode_attention": "launches_kv8_path",
                         "write_kv_rows_q8": "standalone_launches"},
                 equal={"write_kv_rows_q8_fused": "decode_attention_q8"})
+# the int8 KV path again in a fresh process after Engine.warmup, its kernels
+# built by this run and loaded from a new compile_cache directory: the same
+# kernels, each launch counted from the end of the warmup on
+WARMUP_PATH = dict(label="int8 KV after warmup", bits=8, phases=(None, "serve_warmup", None),
+                   serve=KV8_PATH["serve"], warmup=64,
+                   record={name: "launches_warmup_path" for name in KV8_PATH["record"]},
+                   forbid={name: "launches_warmup_path" for name in KV8_PATH["forbid"]},
+                   equal=dict(KV8_PATH["equal"]))
 SPEC_PATH = dict(label="speculation", bits=8,
                  phases=("model_spec", "serve_spec", "profile_spec"),
                  serve=dict(spec_tick=SPEC_TICK),
@@ -765,7 +797,7 @@ ML_AB2_PATH = dict(label="Mistral-Large int4 attention block 2", model="ml", bit
                    equal=dict([YI_K5, ("attn_block_layered_int4", "ffn_int4"),
                                ("attn_block_gqa", "attn_block_layered_int4"),
                                ("attn_block_mma_rows16", "attn_block_layered_int4")]))
-PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
+PATHS = (INT8_PATH, KV8_PATH, WARMUP_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
          GQA_PATH, GQA_SPEC_PATH,
@@ -778,6 +810,9 @@ PATHS = (INT8_PATH, KV8_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_P
 for _path in PATHS:
     if "quant_matmul" in _path["record"] and _path.get("mmv", True):
         _path["record"]["quant_matmul_mmv"] = _path["record"]["quant_matmul"]
+    if "write_kv_strips_q8" in _path["record"]:
+        for _part in ("record", "forbid", "equal"):
+            _path.setdefault(_part, {}).update(K8_STREAM[_part])
 
 
 def log(msg: str) -> None:
@@ -945,7 +980,7 @@ def reset_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> None:
                    *ab.launches_by_form.values(),
                    qm.launches_by_scale, ffn_mod.launches_by_scale,
                    *da.launches_by_form.values(), *pga.launches_by_form.values(),
-                   kvw.launches_by_body):
+                   kvw.launches_by_body, kvw.strips_launches_by_body):
         for body in bodies:
             bodies[body] = 0
 
@@ -978,7 +1013,8 @@ def read_launches(qm, ffn_mod, da, pa, kvw, pga, ab) -> dict:
             "write_kv_chunk_q8_fused": da.launches_write_q8,
             "write_kv_rows_q8_fused": da.launches_write_rows_q8,
             "write_kv_paged_q8_fused": pga.launches_write_q8,
-            # K13 (b) by body: "stream" (bf16 at hd 48 / 64 / 128), "rows"
+            # K8 and K13 (b) by body: "stream" (bf16 at hd 48 / 64 / 128), "rows"
+            **{f"write_kv_strips_q8_{b}": n for b, n in kvw.strips_launches_by_body.items()},
             **{f"write_kv_prefill_paged_q8_{b}": n for b, n in kvw.launches_by_body.items()},
             **{f"decode_attention_{body}": n for body, n in da.launches_by_body.items()},
             **{f"paged_attention_{body}": n for body, n in pga.launches_by_body.items()},
@@ -2973,42 +3009,124 @@ def phase_kernels_kv8(torch, results: dict) -> None:
               f"pos {pos.tolist()}")
 
     # -- K8: write_kv_strips_q8 --------------------------------------------------
-    for a, b in zip(c2, c1):   # the timed launches wrote other layers in each copy
-        a.copy_(b)
+    # the streaming body (bf16 at hd 48 / 64 / 128) and the warp-a-row body
+    # forced on the same inputs, each byte for byte against the plain version
+    # (every int8 byte and f32 scale of the cache): the 7B serving bucket
+    # (8 x 16: runs of 4 kv heads), an 8 x 512 admission (runs of 64 rows),
+    # t_ins 300 of T 512 with n = 3 < K, S = 1000 (no multiple of 64),
+    # TinyLlama's hd 64 and stories15M's hd 48 (short strips: several heads
+    # a CTA), a duplicate slot (identical strips) and slots -1 and B (written
+    # nowhere: the cache's bytes must not move)
+    del c2
+    torch.cuda.empty_cache()
+
+    def k8_check(label, c, k, v, slots, t_ins, bodies=("stream", "rows")):
+        base = [x.clone() for x in c]
+        want = [x.clone() for x in c]
+        kvw.write_kv_strips_q8_plain(*want, k, v, slots, t_ins)
+        hd_, B_ = c[0].shape[4], c[0].shape[1]
+        for body in bodies:
+            n0 = kvw.strips_launches_by_body[body]
+            kvw.write_kv_strips_q8(*c, k, v, slots, t_ins,
+                                   _body=None if body == kvw.prefill_body_for(k.dtype, hd_)
+                                   else body)
+            if kvw.strips_launches_by_body[body] != n0 + 1:
+                raise SystemExit(f"FAILED write_kv_strips_q8 {label}: no launch on the {body} "
+                                 f"body ({kvw.strips_launches_by_body})")
+            same(f"write_kv_strips_q8 [{body}] {label} slots={slots.tolist()} t_ins={t_ins}",
+                 c, want)
+            keep = [b_ for b_ in range(B_) if b_ not in slots.tolist()]
+            if keep and any(not torch.equal(x[:, keep], y[:, keep]) for x, y in zip(c, base)):
+                raise SystemExit(f"FAILED write_kv_strips_q8 [{body}] {label}: a slot no strip "
+                                 f"names moved")
+            for x, y in zip(c, base):
+                x.copy_(y)
+        del base, want
+        return 0.0
+
     slots = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], dtype=torch.int32, device=dev)
     for T, t_ins, n in ((16, 16, 8), (512, 512, 8), (512, 300, 3)):
         k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
-        kvw.write_kv_strips_q8(*c1, k, v, slots[:n], t_ins)
-        kvw.write_kv_strips_q8_plain(*c2, k, v, slots[:n], t_ins)
-        err = same(f"write_kv_strips_q8 L={L} K={B} T={T} t_ins={t_ins} slots="
-                   f"{slots[:n].tolist()}", c1, c2)
+        err = k8_check(f"7B L={L} K={B} T={T} S={S}", c1, k, v, slots[:n], t_ins)
         del k, v
+    edge = {   # (layers, slots, kv heads, S, T, t_ins, head_dim, slots)
+        "S=1000": (4, 4, 32, 1000, 1000, 1000, 128, [2, 0, 3]),
+        "S=1000 t_ins=999": (4, 4, 32, 1000, 1000, 999, 128, [1, 3]),
+        "TinyLlama hd=64": (4, 8, 4, 2048, 64, 40, 64, [6, 1, 3, 0]),
+        "stories15M hd=48": (6, 4, 6, 256, 16, 16, 48, [3, 1, 0]),
+        "duplicate slot": (4, 8, 32, 512, 16, 16, 128, [4, 1, 1, 6]),
+        "slots -1 and B": (4, 8, 32, 512, 64, 64, 128, [-1, 2, 8, 5]),
+    }
+    for label, (l_, b_, n_, s_, T, t_ins, d_, sl) in edge.items():
+        c = rcache(l_, b_, n_, s_, d_)
+        k, v = rows(l_, len(sl), n_, T, d_), rows(l_, len(sl), n_, T, d_)
+        for j in range(1, len(sl)):
+            if sl[j] == sl[j - 1]:                      # identical strips
+                k[:, j], v[:, j] = k[:, j - 1], v[:, j - 1]
+        k8_check(label, c, k, v, torch.tensor(sl, dtype=torch.int32, device=dev), t_ins)
+        del c, k, v
     for cname, (l_, n_, s_, d_) in {"tiny": (3, 2, 48, 16), "stories15M": (6, 6, 64, 48)}.items():
         t1 = rcache(l_, 4, n_, s_, d_)
-        t2 = [t.clone() for t in t1]
-        for dt in (bf, f32):
-            k, v = rows(l_, 3, n_, 16, d_, dtype=dt), rows(l_, 3, n_, 16, d_, dtype=dt)
-            st = torch.tensor([3, 1, 1], dtype=torch.int32, device=dev)
-            v[:, 2], k[:, 2] = v[:, 1], k[:, 1]         # a duplicate slot, identical strips
-            kvw.write_kv_strips_q8(*t1, k, v, st, 16)
-            kvw.write_kv_strips_q8_plain(*t2, k, v, st, 16)
-            same(f"write_kv_strips_q8 {cname} hd={d_} {dt}", t1, t2)
-    del c2
-    T = 16                                              # the serving bucket
-    k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
-    t_k = time_ms(torch, lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T))
-    k8_dev = graph_device_ms(torch, {"k8": lambda: kvw.write_kv_strips_q8(*c1, k, v, slots,
-                                                                          T)})["k8"]
-    t_p = time_ms(torch, lambda: kvw.write_kv_strips_q8_plain(*c1, k, v, slots, T), reps=5)
-    n_el = 2 * L * B * nkv * T * hd
-    b_ms, b_by = bound_ms(n_el * 2 + n_el + 2 * L * B * nkv * T * 4, 3 * n_el)
+        k, v = rows(l_, 3, n_, 16, d_, dtype=f32), rows(l_, 3, n_, 16, d_, dtype=f32)
+        v[:, 2], k[:, 2] = v[:, 1], k[:, 1]
+        k8_check(f"{cname} hd={d_} fp32", t1, k, v,
+                 torch.tensor([3, 1, 1], dtype=torch.int32, device=dev), 16, bodies=("rows",))
+    # a replay from a CUDA graph writes the eager launch's bytes
+    c = rcache(4, B, nkv, 512, hd)
+    k, v = rows(4, B, nkv, 40, hd), rows(4, B, nkv, 40, hd)
+    eager, graph_c = [x.clone() for x in c], [x.clone() for x in c]
+    kvw.write_kv_strips_q8(*eager, k, v, slots[:5], 40)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kvw.write_kv_strips_q8(*graph_c, k, v, slots[:5], 40)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kvw.write_kv_strips_q8(*graph_c, k, v, slots[:5], 40)
+    for x, y in zip(graph_c, c):
+        x.copy_(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    same("write_kv_strips_q8 [stream] replayed from a CUDA graph", graph_c, eager)
+    del c, k, v, eager, graph_c, graph
+    # timed at the serving bucket (16 rows) and at an 8 x 512 admission: the
+    # streaming body beside the warp-a-row body (the parent's) on the same
+    # inputs, graphs of 20 in turns
+    timed = {}
+    for T in (16, 512):
+        k, v = rows(L, B, nkv, T, hd), rows(L, B, nkv, T, hd)
+        stream = lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T)   # noqa: E731
+        rows_body = lambda: kvw.write_kv_strips_q8(*c1, k, v, slots, T,  # noqa: E731
+                                                   _body="rows")
+        dev_ms = graph_device_ms(torch, {"stream_ms": stream, "rows_ms": rows_body})
+        t_k = time_ms(torch, stream)
+        t_r = time_ms(torch, rows_body)
+        t_p = time_ms(torch, lambda: kvw.write_kv_strips_q8_plain(*c1, k, v, slots, T),
+                      reps=3 if T > 16 else 5)
+        n_el = 2 * L * B * nkv * T * hd
+        nbytes = n_el * 2 + n_el + 2 * L * B * nkv * T * 4 + slots.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 3 * n_el)
+        log(f"[time] write_kv_strips_q8 T={T}: {t_k:.4f} ms (device {dev_ms['stream_ms']:.4f}, "
+            f"{b_ms / dev_ms['stream_ms']:.2f} of the bound), the warp-a-row body {t_r:.4f} ms "
+            f"(device {dev_ms['rows_ms']:.4f}, {b_ms / dev_ms['rows_ms']:.2f}), plain "
+            f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}) for {nbytes / 1e6:.1f} MB")
+        timed[T] = dict(
+            max_abs_err=err, ms=t_k, device_ms=dev_ms["stream_ms"], plain_ms=t_p,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            breakdown=dict(bound_share=b_ms / dev_ms["stream_ms"]),
+            rows_body=dict(ms=t_r, device_ms=dev_ms["rows_ms"],
+                           bound_share=b_ms / dev_ms["rows_ms"]),
+            shape=f"strips ({L}, {B}, {nkv}, {T}, {hd}) bf16 -> slots {slots.tolist()} of the "
+                  f"({L}, {B}, {nkv}, {S}, {hd}) int8 cache")
+        del k, v
+        torch.cuda.empty_cache()
     results["write_kv_strips_q8"] = dict(
         name="write_kv_strips_q8", route="cuda", source="rama_tpu_torch/csrc/kv_write.cu",
-        replaces="rama_tpu/ops/pallas/kv_write.py:221", max_abs_err=err, ms=t_k,
-        device_ms=k8_dev, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"strips (32, 8, 32, 16, 128) bf16 -> slots {slots.tolist()} of the "
-              f"(32, 8, 32, {S}, 128) int8 cache")
-    del c1, k, v
+        replaces="rama_tpu/ops/pallas/kv_write.py:221",
+        library_note="no single PyTorch call quantizes strips and scatters them into slots",
+        **timed[16], t512=timed[512])
+    del c1
     torch.cuda.empty_cache()
 
     # -- K7: decode_attention_q8 -------------------------------------------------
@@ -5042,7 +5160,8 @@ def cache_bytes(cache) -> int:
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
                 spec_tick: int = 0, paged: bool = False,
-                scale_dtype: str | None = None, slots: int = 8) -> dict:
+                scale_dtype: str | None = None, slots: int = 8, warmup: int | None = None,
+                compile_cache: str | None = None, start_count=lambda: None) -> dict:
     """The server around an engine of `slots` slots (8 by default): as many
     concurrent /gen of 32 tokens (greedy and sampled; past 8 the 8 prompts
     again with a number appended; a request answered 503, the engine's
@@ -5051,8 +5170,14 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     (spec_min_accept 0), so every tick is a spec tick, and the accept rate
     must be a number. Paged: a pool of PAGED_NUM_PAGES pages of PAGE_SIZE
     rows, every page free again after the run. scale_dtype "bf16": the
-    engine stores every quantized leaf's scales in bf16 (checked). Returns
-    tok/s, TTFT p50 / max and the accept rate."""
+    engine stores every quantized leaf's scales in bf16 (checked). With
+    `warmup` (a fresh process: nothing built or loaded yet), the engine
+    builds into and loads from `compile_cache`, runs Engine.warmup(
+    max_prompt=warmup) before start() (warm_up), then `start_count()`;
+    after the run no library may have been built or loaded and every
+    (k, T) prefill bucket served must have been warmed. Returns tok/s, TTFT
+    p50 / max / of the first request sent, the accept rate and the greedy
+    streams' text by prompt."""
     import aiohttp
     from aiohttp import web
 
@@ -5067,7 +5192,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                                  kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
                                  spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
                                  kv_num_pages=PAGED_NUM_PAGES if paged else None,
-                                 scale_dtype=scale_dtype))
+                                 scale_dtype=scale_dtype, compile_cache=compile_cache))
     stored = {getattr(p, "scales", None) is not None and p.scales.dtype
               for p in engine.params.values()} - {False}
     if stored != {torch.bfloat16 if scale_dtype == "bf16" else torch.float32}:
@@ -5086,6 +5211,8 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         log(f"[{tag}] pool of {engine.cache.num_pages} pages x {PAGE_SIZE} rows: "
             f"{cache_bytes(engine.cache) / 1e9:.3f} GB; a dense cache of {slots} slots x "
             f"{max_seq_len} rows: {dense / 1e9:.3f} GB")
+    warm = warm_up(engine, warmup, tag) if warmup is not None else None
+    start_count()
     engine.start()
     prompts = ["Once upon a time", "The little dog", "In a far away land",
                "She opened the door", "Tom and Lily", "The sun was", "A big red ball",
@@ -5097,7 +5224,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
 
     async def one(session, url, prompt, temp):
         t0 = time.perf_counter()
-        ttft, n, ended = None, 0, False
+        ttft, n, ended, text = None, 0, False, []
         while True:   # a client that retries a 503 after 0.25 s (TTFT counts the wait)
             resp = await session.get(url, params={"prompt": prompt, "steps": str(steps),
                                                   "temperature": str(temp)})
@@ -5113,12 +5240,13 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 line = raw.decode().rstrip("\n")
                 if line.startswith("data: "):
                     n += 1
+                    text.append(line[len("data: "):])
                     if ttft is None:
                         ttft = time.perf_counter() - t0
                 elif line.startswith("event: error"):
                     raise SystemExit(f"FAILED {tag}: error event for {prompt!r}")
             ended = True
-        return ttft, n, ended
+        return ttft, n, ended, "".join(text)
 
     async def run():
         app = build_app(engine, default_steps=steps)
@@ -5148,18 +5276,23 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     if paged and engine.allocator.available() != PAGED_NUM_PAGES:
         raise SystemExit(f"FAILED {tag}: {engine.allocator.available()} of {PAGED_NUM_PAGES} "
                          f"pages free after the run")
-    total = sum(n for _, n, _ in outs)
-    if not all(ended and n > 0 for _, n, ended in outs):
+    total = sum(n for _, n, _, _ in outs)
+    if not all(ended and n > 0 for _, n, ended, _ in outs):
         raise SystemExit(f"FAILED {tag}: a stream did not finish {outs}")
     if stats["tokens_generated"] < total or stats["engine_errors"]:
         raise SystemExit(f"FAILED {tag}: /metrics {stats} vs {total} streamed")
     rate = stats["spec_accept_rate"]
     if spec_tick and not isinstance(rate, float):
         raise SystemExit(f"FAILED {tag}: spec_accept_rate {rate!r} is not a number")
-    ttfts = sorted(t for t, _, _ in outs)
+    ttfts = sorted(t for t, _, _, _ in outs)
     summary = dict(tok_s=total / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
-                   ttft_max_ms=ttfts[-1] * 1e3, decode_tok_per_s=stats["decode_tok_per_s"],
-                   spec_accept_rate=rate, decode_ticks=stats["decode_ticks"])
+                   ttft_max_ms=ttfts[-1] * 1e3, ttft_first_ms=outs[0][0] * 1e3,
+                   decode_tok_per_s=stats["decode_tok_per_s"],
+                   spec_accept_rate=rate, decode_ticks=stats["decode_ticks"],
+                   greedy={p: out[3] for i, (p, out) in enumerate(zip(prompts, outs))
+                           if i % 2 == 0})
+    if warm is not None:
+        summary["warmup"] = warm_checked(warm, tag)
     if busy:
         log(f"[{tag}] {len(busy)} /gen answered 503 (admission queue full) and were retried")
     log(f"[{tag}] {len(outs)} concurrent /gen, {total} tokens in {wall:.3f} s: "
@@ -5168,6 +5301,137 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         f"{stats['decode_tok_per_s']:.2f}; spec_accept_rate {rate} ({card})")
     log(f"[{tag}] metrics phases {json.dumps(stats['phases'])}")
     return summary
+
+
+def warm_up(engine, max_prompt: int, tag: str) -> dict:
+    """Engine.warmup(max_prompt) on an engine of a process that has built
+    and loaded no kernel library yet: no nvcc may run, every library must
+    be loaded by the end of it, and the (k, T) prefill buckets it ran are
+    kept; a spy on the engine's prefill then records every bucket served
+    (warm_checked reads both)."""
+    from rama_tpu_torch.ops.kernels import build
+
+    if build.counts != {"builds": 0, "loads": 0}:
+        raise SystemExit(f"FAILED {tag}: kernels built or loaded before warmup {build.counts}")
+    buckets: list = []
+    prefill = engine._dev_prefill_insert
+
+    def spy(tokens, *args, **kw):
+        buckets.append(tuple(tokens.shape))
+        return prefill(tokens, *args, **kw)
+
+    engine._dev_prefill_insert = spy
+    w = engine.warmup(max_prompt=max_prompt)
+    if build.counts != {"builds": 0, "loads": len(build.SOURCES)}:
+        raise SystemExit(f"FAILED {tag}: warmup left {build.counts} nvcc runs / library loads; "
+                         f"want 0 / {len(build.SOURCES)} (libraries in {build.BUILD_DIR})")
+    warmed = sorted(set(buckets))
+    buckets.clear()
+    log(f"[{tag}] warmup: {w['programs']} programs in {w['seconds']:.1f}s (max_prompt "
+        f"{max_prompt}; {len(build.SOURCES)} libraries loaded from {build.BUILD_DIR}, no nvcc "
+        f"run; prefill buckets (k, T) {warmed})")
+    return dict(programs=w["programs"], seconds=w["seconds"], warmed=warmed, served=buckets)
+
+
+def warm_checked(warm: dict, tag: str) -> dict:
+    """After a warmed engine served: no library built or loaded since the
+    warmup, every (k, T) bucket served among the warmed ones."""
+    from rama_tpu_torch.ops.kernels import build
+
+    served = sorted(set(warm["served"]))
+    if build.counts != {"builds": 0, "loads": len(build.SOURCES)}:
+        raise SystemExit(f"FAILED {tag}: serving after warmup built or loaded a library "
+                         f"{build.counts}")
+    cold = [b for b in served if b not in warm["warmed"]]
+    if not served or cold:
+        raise SystemExit(f"FAILED {tag}: prefill buckets {cold} served cold (warmed "
+                         f"{warm['warmed']}, served {served})")
+    log(f"[{tag}] after warmup: served buckets {served}, all warmed; {build.counts}")
+    return dict(warm, served=served, counts=dict(build.counts))
+
+
+WARMUP_RESULT = "[serve_warmup-result] "   # the child's summary line
+
+
+def phase_serve_warmup(torch, card: str, serving: dict) -> dict:
+    """serve_kv8 in a fresh process after Engine.warmup: this run's built
+    libraries copied into a new directory under build/, which the child's
+    compile_cache names (warmup_child). Its greedy streams must equal
+    serve_kv8's in this run; its launch counts (from the end of the warmup)
+    come back with its summary."""
+    from rama_tpu_torch.ops.kernels import build
+
+    cache = ROOT / "build" / f"compile_cache_{os.getpid()}"
+    shutil.rmtree(cache, ignore_errors=True)
+    cache.mkdir(parents=True)
+    for name in build.SOURCES:
+        lib = build._lib_path(name)
+        for f in (lib, lib.with_suffix(".log")):
+            shutil.copy2(f, cache / f.name)
+    torch.cuda.empty_cache()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--warmup-child",
+                               str(cache)], capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(WARMUP_RESULT):
+            result = json.loads(line[len(WARMUP_RESULT):])
+        else:
+            log(f"  {line}")
+    if proc.returncode or result is None:
+        raise SystemExit(f"FAILED serve_warmup: the child exited {proc.returncode}: "
+                         f"{proc.stderr[-4000:]}")
+    plain = serving.get("serve_kv8")
+    if plain is not None:
+        differ = [p for p, text in result["greedy"].items() if plain["greedy"].get(p) != text]
+        if differ:
+            raise SystemExit(f"FAILED serve_warmup: greedy streams of {differ} differ from "
+                             f"serve_kv8's: {result['greedy']} vs {plain['greedy']}")
+        log(f"[serve_warmup] {len(result['greedy'])} greedy streams equal serve_kv8's")
+    log(f"[serve_warmup] first request's TTFT {result['ttft_first_ms']:.1f} ms after warmup "
+        f"(p50 {result['ttft_p50_ms']:.1f}, max {result['ttft_max_ms']:.1f}); serve_kv8 in "
+        f"this run: " + (f"{plain['ttft_first_ms']:.1f} ms (p50 {plain['ttft_p50_ms']:.1f}, max "
+                         f"{plain['ttft_max_ms']:.1f})" if plain else "not run") + f" ({card})")
+    return result
+
+
+def warmup_child(cache: str) -> int:
+    """The fresh process of serve_warmup: the 7B int8 params from the seed
+    of every path, then phase_serve with WARMUP_PATH's settings, its
+    warmup and `cache` as compile_cache; prints its summary with the launch
+    counts on a WARMUP_RESULT line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    modules = (qm, ffn_mod, da, pa, kvw, pga, ab)
+    cfg = seven_b_config(ModelConfig)
+    t0 = time.time()
+    params = random_params(torch, cfg, torch.device("cuda"), bits=8)
+    torch.cuda.synchronize()
+    log(f"[serve_warmup] child: Llama-2-7B int8 params on the card in {time.time() - t0:.1f} s")
+    tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    summary = phase_serve(torch, cfg, params, tokenizer, nvidia_smi_line(), tag="serve_warmup",
+                          **WARMUP_PATH["serve"], warmup=WARMUP_PATH["warmup"],
+                          compile_cache=cache, start_count=lambda: reset_launches(*modules))
+    summary["launches"] = read_launches(*modules)
+    print(WARMUP_RESULT + json.dumps(summary), flush=True)
+    return 0
 
 
 def step_weight_bytes(params) -> float:
@@ -5585,7 +5849,11 @@ def phase_cli(torch) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--warmup-child", metavar="DIR", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.warmup_child:   # serve_warmup's fresh process
+        return warmup_child(args.warmup_child)
+    phases = args.phases.split(",")
     unknown = set(phases) - set(ALL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}; the phases are {','.join(ALL_PHASES)}")
@@ -5695,9 +5963,13 @@ def main() -> int:
             elif model in phases:
                 phase_model(torch, cfg, params, f"int{bits}")
         reset_launches(*modules)
+        launches = None
         for ph in (p for p in main_path if p in phases):
             with clock(ph):
-                if ph == "generate":
+                if ph == "serve_warmup":   # counted in its own process
+                    serving[ph] = phase_serve_warmup(torch, card, serving)
+                    launches = serving[ph].pop("launches")
+                elif ph == "generate":
                     phase_generate(torch, cfg, params, tokenizer)
                 elif ph == "prefill_t1":
                     phase_prefill_t1(torch, cfg, params)
@@ -5722,11 +5994,13 @@ def main() -> int:
                                     ("serve_yi_kv8", "serve_yi"), ("serve_yi_spec", "serve_yi"),
                                     ("serve_yi_ab2", "serve_yi"), ("serve_b64", "serve"),
                                     ("serve_b64_spec", "serve_b64"),
-                                    ("serve_ml_ab1", "serve_ml"), ("serve_ml_ab2", "serve_ml")):
+                                    ("serve_ml_ab1", "serve_ml"), ("serve_ml_ab2", "serve_ml"),
+                                    ("serve_warmup", "serve_kv8")):
             if spec_tag in main_path and spec_tag in serving:
                 log(f"[{spec_tag}] against {plain_tag} in this run: "
                     f"{json.dumps({spec_tag: serving[spec_tag], plain_tag: serving.get(plain_tag)})}")
-        launches = read_launches(*modules)
+        if launches is None:
+            launches = read_launches(*modules)
         log(f"[launches] {label} main path ({' + '.join(main_path)}): {launches}")
         if set(main_path) <= set(phases):
             check_launches(path, launches)
@@ -5840,7 +6114,8 @@ def main() -> int:
             "launches_by_body",
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
             "t2", "one_query", "paged", "standalone", "standalone_launches",
-            "standalone_launches_yi_kv8_path", "rows_body", "rows_body_launches", "t512")
+            "standalone_launches_yi_kv8_path", "rows_body", "rows_body_launches", "t512",
+            "launches_warmup_path", "stream_body_launches")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,12 +110,16 @@ class EngineConfig:
     kv_page_size: int = 128
     kv_num_pages: int | None = None
 
-    # Fields of features not ported yet (ROADMAP.md); setting any of them
-    # makes the Engine raise NotImplementedError.
+    # Weight-quant scales stored in bf16 ("bf16") or as quantized (None).
+    scale_dtype: str | None = None
+    # Directory the CUDA kernels are built into and loaded from (None: the
+    # default build directory; ops/kernels/build.py).
+    compile_cache: str | None = None
+
+    # Fields of features not ported yet (ROADMAP.md); setting prefill_chunk
+    # or the parallelism fields makes the Engine raise NotImplementedError.
     prefill_chunk: int = 0
     prefill_chunk_min: int | None = None
-    scale_dtype: str | None = None
     tp_size: int = 1
     dp_size: int = 1
     seq_par: bool = False
-    compile_cache: str | None = None

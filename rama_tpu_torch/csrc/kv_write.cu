@@ -43,16 +43,19 @@
 // row kernels below stay the route of every other body (fp32, other head
 // dims) and the fused write's oracle on the card.
 //
-// K13 (b) in bf16 at hd 48 / 64 / 128 is a streaming kernel
-// (kv_write_prefill_stream): the warp-a-row body ran at 0.27 of its bound
-// with 64-bit divisions and a table read a warp, 2-byte loads and 1-byte
+// K8 and K13 (b) in bf16 at hd 48 / 64 / 128 share one streaming body
+// (strip_stream; kernels kv_write_strips_stream and kv_write_prefill_stream):
+// their warp-a-row bodies ran at 0.29 and 0.27 of the bound with 64-bit
+// divisions and a slot or table read a warp, 2-byte loads and 1-byte
 // stores. One CTA takes a run of up to 64 rows of one (layer, strip) inside
-// one page, of one kv head or, where runs are shorter, of several (one
-// table read, the indices once a CTA), 16-byte loads (8 bf16 a lane, LPR
-// lanes a row), every load of the thread issued before its first reduction
-// (32 KB in flight a CTA at hd 128), 8-byte int8 stores (a row at hd 128
-// one 128-byte line) and the run's scales as contiguous words. fp32 and
-// other head dims keep the warp-a-row body (kv_write_prefill_paged).
+// one slot or page, of one kv head or, where runs are shorter, of several
+// (one slot or table read, the indices once a CTA), 16-byte loads (8 bf16 a
+// lane, LPR lanes a row), every load of the thread issued before its first
+// reduction (32 KB in flight a CTA at hd 128), 8-byte int8 stores (a row at
+// hd 128 one 128-byte line) and the run's scales as contiguous words. fp32
+// and other head dims keep the warp-a-row bodies (kv_write_strips,
+// kv_write_prefill_paged), which stay the streaming body's oracle on the
+// card.
 #include "kv_quant.cuh"
 
 namespace rama {
@@ -186,29 +189,48 @@ kv_write_prefill_paged(const A* __restrict__ k, const A* __restrict__ v,
 
 constexpr int kKvWarps = kKvThreads / 32;
 
-// K13 (b), the streaming body (bf16, HD 48 / 64 / 128). CTA (x, y, z) writes
-// rows t in [x R, min(x R + R, t_ins)) (n rows: a run of R rows, run_rows:
-// R divides the page, or is the page) of kv heads h0 .. h0 + nh - 1 (H a
-// CTA, heads_per_run: more than one where the runs are short, so a CTA
-// still moves up to kRunRows rows of K and of V) of strip j, layer l = z,
-// with j, h0 from y; the run lies in page clamp(tables[j, x R / ps], 0,
-// npages - 1) for every head. Its 2 nh n row jobs (the K rows head by
-// head, then the V rows) go 32 / LPR to a warp, the lanes of a row
-// consecutive (LPR: 16 at HD 128, 8 at 64 and 48, of which 6 hold
-// elements), in PASSES passes of kStreamThreads / LPR jobs; every pass's
-// 16-byte load is issued before the first reduction. A row's bytes go out
-// as LPR 8-byte stores, the run's scales through shared memory as n
-// contiguous words a head.
+// The streaming strip writer of K8 and K13 (b) (bf16, HD 48 / 64 / 128).
+// CTA (x, y, z) writes rows t in [x R, min(x R + R, t_ins)) (n rows: a run
+// of R rows) of kv heads h0 .. h0 + nh - 1 (H a CTA, heads_per_run: more
+// than one where the runs are short, so a CTA still moves up to kRunRows
+// rows of K and of V) of strip j, layer l = z, with j, h0 from y. The run
+// lies in one block of `rows` rows a head, for every head:
+//   K13 (b): the page clamp(index[j, x R / rows], 0, nblk - 1) of the pool
+//            (rows = ps; R divides the page or is the page, run_rows, so no
+//            run straddles two pages);
+//   K8 (DENSE): the slot index[j] of the cache (rows = S; R = kRunRows at
+//            any S, a strip being contiguous over S). A slot outside [0,
+//            nblk) is written nowhere: the CTA leaves before it loads.
+//            Two strips for one slot (batch padding repeats an entry)
+//            store into the same rows from two CTAs in any order; that is
+//            safe only because such strips, and so their bytes, are
+//            identical.
+// The run's 2 nh n row jobs (the K rows head by head, then the V rows) go
+// 32 / LPR to a warp, the lanes of a row consecutive (LPR: 16 at HD 128, 8
+// at 64 and 48, of which 6 hold elements), in PASSES passes of
+// kStreamThreads / LPR jobs; every pass's 16-byte load is issued before the
+// first reduction. A row's bytes go out as LPR 8-byte stores, the run's
+// scales through shared memory as n contiguous words a head.
 constexpr int kStreamThreads = 256;
 constexpr int kRunRows = 64;          // rows of K (and of V) a CTA at most
 
-template <int HD>
-__global__ void __launch_bounds__(kStreamThreads)
-kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                        const int* __restrict__ tables, int8_t* __restrict__ k8,
-                        int8_t* __restrict__ v8, float* __restrict__ ks, float* __restrict__ vs,
-                        int K, int nkv, int T, int t_ins, int mp, int ps, int npages, int R,
-                        int H) {
+// Row r of head hh of a run, in rows of a head stride apart: in 64-bit for
+// the dense cache (a head of S rows, S up to the longest cache), in 32-bit
+// for the pool and the scratch strips, as K13 (b) was first built.
+template <bool WIDE>
+__device__ __forceinline__ auto run_row(int hh, int stride, int r) {
+  if constexpr (WIDE)
+    return static_cast<size_t>(hh) * stride + r;
+  else
+    return hh * stride + r;
+}
+
+template <int HD, bool DENSE>
+__device__ __forceinline__ void strip_stream(
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ index, int8_t* __restrict__ k8, int8_t* __restrict__ v8,
+    float* __restrict__ ks, float* __restrict__ vs, int K, int nkv, int T, int t_ins, int mp,
+    int rows, int nblk, int R, int H) {
   static_assert(HD % 8 == 0 && HD <= 128, "8 elements a lane, at most 16 lanes a row");
   constexpr int LPR = HD > 64 ? 16 : 8;                   // lanes a row (power of two)
   constexpr int JOBS = kStreamThreads / LPR;              // row jobs a pass
@@ -218,9 +240,16 @@ kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16
   const int l = blockIdx.z, j = blockIdx.y / groups, h0 = (blockIdx.y - j * groups) * H;
   const int nh = min(H, nkv - h0);
   const int t0 = blockIdx.x * R, n = min(R, t_ins - t0), m = nh * n;   // m rows of K, of V
-  const int page = min(max(tables[j * mp + t0 / ps], 0), npages - 1);
+  int blk;                                                // the slot or the page
+  if constexpr (DENSE) {
+    blk = index[j];
+    if (blk < 0 || blk >= nblk) return;                   // never written out of the cache
+  } else {
+    blk = min(max(index[j * mp + t0 / rows], 0), nblk - 1);
+  }
   const size_t src = (((size_t)l * K + j) * nkv + h0) * T + t0;                // first row read
-  const size_t dst = (((size_t)l * npages + page) * nkv + h0) * ps + t0 % ps;  // first written
+  const size_t dst = (((size_t)l * nblk + blk) * nkv + h0) * rows +            // first written
+                     (DENSE ? t0 : t0 % rows);
   const __nv_bfloat16* kin = k + src * HD;
   const __nv_bfloat16* vin = v + src * HD;
   int8_t* kout = k8 + dst * HD;
@@ -248,7 +277,8 @@ kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16
       bool isv;
       int hh, r;
       where(job, isv, hh, r);
-      u[p] = __ldcs(reinterpret_cast<const uint4*>((isv ? vin : kin) + (hh * T + r) * HD) + li);
+      u[p] = __ldcs(reinterpret_cast<const uint4*>((isv ? vin : kin) +
+                                                   run_row<DENSE>(hh, T, r) * HD) + li);
     }
   }
 #pragma unroll
@@ -261,7 +291,9 @@ kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16
       bool isv;
       int hh, r;
       where(job, isv, hh, r);
-      if (act) *reinterpret_cast<uint2*>((isv ? vout : kout) + (hh * ps + r) * HD + li * 8) = q;
+      if (act)
+        *reinterpret_cast<uint2*>((isv ? vout : kout) + run_row<DENSE>(hh, rows, r) * HD +
+                                  li * 8) = q;
       if (li == 0) sc[job] = scale;
     }
   }
@@ -270,8 +302,34 @@ kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16
     bool isv;
     int hh, r;
     where(i, isv, hh, r);
-    (isv ? vs : ks)[dst + hh * ps + r] = sc[i];
+    if constexpr (DENSE)
+      (isv ? vs : ks)[dst + run_row<true>(hh, rows, r)] = sc[i];
+    else
+      (isv ? vs : ks)[dst + hh * rows + r] = sc[i];
   }
+}
+
+// K13 (b)'s streaming body: the run in page clamp(tables[j, x R / ps], 0,
+// npages - 1) of the (L, npages, nkv, ps, hd) pool, R = run_rows(ps).
+template <int HD>
+__global__ void __launch_bounds__(kStreamThreads)
+kv_write_prefill_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ tables, int8_t* __restrict__ k8,
+                        int8_t* __restrict__ v8, float* __restrict__ ks, float* __restrict__ vs,
+                        int K, int nkv, int T, int t_ins, int mp, int ps, int npages, int R,
+                        int H) {
+  strip_stream<HD, false>(k, v, tables, k8, v8, ks, vs, K, nkv, T, t_ins, mp, ps, npages, R, H);
+}
+
+// K8's streaming body: the run in slot slots[j] of the (L, B, nkv, S, hd)
+// cache, runs of kRunRows rows at any S.
+template <int HD>
+__global__ void __launch_bounds__(kStreamThreads)
+kv_write_strips_stream(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                       const int* __restrict__ slots, int8_t* __restrict__ k8,
+                       int8_t* __restrict__ v8, float* __restrict__ ks, float* __restrict__ vs,
+                       int K, int nkv, int T, int t_ins, int B, int S, int H) {
+  strip_stream<HD, true>(k, v, slots, k8, v8, ks, vs, K, nkv, T, t_ins, 0, S, B, kRunRows, H);
 }
 
 // Rows of a K13 (b) run over pages of ps rows: the page, up to kRunRows;
@@ -284,7 +342,7 @@ inline int run_rows(int ps) {
   return r;
 }
 
-// kv heads a CTA of K13 (b)'s streaming body takes, so that its longest run
+// kv heads a CTA of the streaming body takes, so that its longest run
 // (min(R, t_ins) rows a head) comes to at most kRunRows rows: 4 at 16-row
 // strips or pages, 1 where a run is 64 rows.
 inline int heads_per_run(int R, int t_ins, int nkv) {
@@ -292,7 +350,16 @@ inline int heads_per_run(int R, int t_ins, int nkv) {
   return h < 1 ? 1 : h > nkv ? nkv : h;
 }
 
-enum PrefillBody : int { kPrefillRows = 0, kPrefillStream = 1 };   // kv_write.py PREFILL_BODIES
+// the body codes of K8's and K13 (b)'s C entries (kv_write.py STRIP_BODIES)
+enum StripBody : int { kStripRows = 0, kStripStream = 1 };
+
+// The streaming body's refusals (a zero-size strip set never reaches it).
+inline bool stream_takes(const void* k, const void* v, int n, int nkv, int L, int hd,
+                         int dtype) {
+  return dtype == kBF16 && (hd == 48 || hd == 64 || hd == 128) && n * nkv <= 65535 &&
+         L <= 65535 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
 
 }  // namespace rama
 
@@ -351,11 +418,12 @@ extern "C" int rama_kv_write_chunk(const void* k, const void* v, const void* pos
 
 // K8: k/v (L, K, nkv, T, hd) strips, slots (n,) int32 with n <= K; rows
 // 0 .. t_ins-1 of strip j go to slot slots[j] of the whole (L, B, nkv, S,
-// hd) cache.
+// hd) cache (a slot outside [0, B) nowhere). body: kStripStream (bf16 at hd
+// 48 / 64 / 128, k / v 16-byte aligned) or kStripRows (any).
 extern "C" int rama_kv_write_strips(const void* k, const void* v, const void* slots, void* k8,
                                     void* v8, void* ks, void* vs, int L, int K, int n, int B,
                                     int nkv, int T, int S, int t_ins, int hd, int dtype,
-                                    void* stream) {
+                                    int body, void* stream) {
   using namespace rama;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t warps = (size_t)L * n * nkv * t_ins * 2;
@@ -368,6 +436,24 @@ extern "C" int rama_kv_write_strips(const void* k, const void* v, const void* sl
   int8_t* v8p = static_cast<int8_t*>(v8);
   float* ksp = static_cast<float*>(ks);
   float* vsp = static_cast<float*>(vs);
+  if (body == kStripStream) {
+    if (!stream_takes(k, v, n, nkv, L, hd, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+    const int H = heads_per_run(kRunRows, t_ins, nkv);
+    const dim3 grid((t_ins + kRunRows - 1) / kRunRows, n * ((nkv + H - 1) / H), L);
+    const auto* kb = static_cast<const __nv_bfloat16*>(k);
+    const auto* vb = static_cast<const __nv_bfloat16*>(v);
+    if (hd == 128)
+      kv_write_strips_stream<128><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, sl, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, B, S, H);
+    else if (hd == 64)
+      kv_write_strips_stream<64><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, sl, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, B, S, H);
+    else
+      kv_write_strips_stream<48><<<grid, kStreamThreads, 0, st>>>(
+          kb, vb, sl, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, B, S, H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body != kStripRows) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
     kv_write_strips<__nv_bfloat16><<<(unsigned)blocks, kKvThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), sl, k8p,
@@ -413,8 +499,8 @@ extern "C" int rama_kv_write_paged(const void* k, const void* v, const void* pos
 
 // K13 (b): k/v (L, K, nkv, T, hd) strips, tables (n, mp) int32 with n <= K;
 // rows 0 .. t_ins-1 of strip j go through table row j into the whole
-// (L, npages, nkv, ps, hd) pool. body: kPrefillStream (bf16 at hd 48 / 64 /
-// 128, k / v 16-byte aligned) or kPrefillRows (any).
+// (L, npages, nkv, ps, hd) pool. body: kStripStream (bf16 at hd 48 / 64 /
+// 128, k / v 16-byte aligned) or kStripRows (any).
 extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const void* tables,
                                            void* k8, void* v8, void* ks, void* vs, int L, int K,
                                            int n, int nkv, int T, int t_ins, int mp, int ps,
@@ -433,10 +519,8 @@ extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const v
   int8_t* v8p = static_cast<int8_t*>(v8);
   float* ksp = static_cast<float*>(ks);
   float* vsp = static_cast<float*>(vs);
-  if (body == kPrefillStream) {
-    if (dtype != kBF16 || (hd != 48 && hd != 64 && hd != 128) || n * nkv > 65535 || L > 65535 ||
-        reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (body == kStripStream) {
+    if (!stream_takes(k, v, n, nkv, L, hd, dtype)) return static_cast<int>(cudaErrorInvalidValue);
     const int R = run_rows(ps), H = heads_per_run(R, t_ins, nkv);
     const dim3 grid((t_ins + R - 1) / R, n * ((nkv + H - 1) / H), L);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
@@ -452,7 +536,7 @@ extern "C" int rama_kv_write_prefill_paged(const void* k, const void* v, const v
           kb, vb, tb, k8p, v8p, ksp, vsp, K, nkv, T, t_ins, mp, ps, npages, R, H);
     return static_cast<int>(cudaGetLastError());
   }
-  if (body != kPrefillRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (body != kStripRows) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
     kv_write_prefill_paged<__nv_bfloat16><<<(unsigned)blocks, kKvThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), tb, k8p,

@@ -11,11 +11,15 @@ of them started together — into a shared library with a plain C interface:
 per file; `-split-compile=4` runs a file's optimisation passes on up to
 four threads, which about halves the build of `ffn.cu` and
 `quant_matmul.cu`, the files that instantiate every body for both weight
-scale types). The libraries land in `build/rama_tpu_torch/` under the
-checkout (listed in .gitignore), named by a hash of the sources and flags,
-so an edited kernel is rebuilt and an unchanged one is reused. They are
-loaded with ctypes; pointers and the stream pass as `c_void_p`, every C
-entry returns `cudaGetLastError()` and `check` raises on a non-zero code.
+scale types). The libraries land in the build directory, by default
+`build/rama_tpu_torch/` under the checkout (listed in .gitignore;
+`set_build_dir` names another: EngineConfig.compile_cache), named by a
+hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is reused from any process. They are loaded with ctypes;
+pointers and the stream pass as `c_void_p`, every C entry returns
+`cudaGetLastError()` and `check` raises on a non-zero code. `load_all`
+builds and loads every library at once (Engine.warmup), and `counts` keeps
+the nvcc runs and library loads of the process.
 
 There is no fallback: a missing `nvcc` or a failed build raises.
 """
@@ -33,7 +37,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rama_tpu_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rama_tpu_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR   # where libraries are built and loaded from (set_build_dir)
 SOURCES = ("quant_matmul", "ffn", "decode_attention", "prefill_attention", "kv_write",
            "attn_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +51,21 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # name -> nvcc output (-Xptxas -v report)
+counts = {"builds": 0, "loads": 0}  # nvcc runs and libraries loaded by this process
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from `path` from now on (EngineConfig.
+    compile_cache). A process never mixes libraries of two directories:
+    naming another directory once a library is loaded raises."""
+    global BUILD_DIR
+    path = Path(path).expanduser().resolve()
+    with _lock:
+        if path != BUILD_DIR and _libs:
+            raise RuntimeError(f"kernel libraries are already loaded from {BUILD_DIR}; "
+                               f"this process cannot load them from {path}")
+        BUILD_DIR = path
+    return path
 
 
 def nvcc_path() -> str:
@@ -90,6 +110,7 @@ def build_all() -> dict[str, str]:
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, out)
+            counts["builds"] += 1
         failed = []
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
@@ -121,7 +142,18 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+            counts["loads"] += 1
         return _libs[name]
+
+
+def load_all() -> None:
+    """Build every missing library, then load each one with its C entries
+    declared: after this no kernel call of the process runs nvcc or loads a
+    library (Engine.warmup)."""
+    import importlib
+
+    for name in SOURCES:
+        library(name, importlib.import_module(f"rama_tpu_torch.ops.kernels.{name}")._SIGNATURES)
 
 
 _tickets: dict[torch.device, torch.Tensor] = {}

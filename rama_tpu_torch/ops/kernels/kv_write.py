@@ -31,10 +31,13 @@ launch itself, bit for bit as these kernels write them
 row quantization of csrc/kv_quant.cuh that both share). The kernels here
 stay that fused write's oracle on the card.
 
-K13 (b) has two bodies (`prefill_body_for`): bf16 strips at a head dim of
-STREAM_HEAD_DIMS take the streaming kernel ("stream": a CTA a run of up to
-64 rows inside one page, 16-byte loads, 8-byte stores), anything else the
-warp-a-row kernel ("rows"); `launches_by_body` counts them.
+K8 and K13 (b) each have two bodies (`prefill_body_for`): bf16 strips at a
+head dim of STREAM_HEAD_DIMS take the streaming kernel ("stream": a CTA a
+run of up to 64 rows inside one slot or page, 16-byte loads, 8-byte
+stores; one body for both writers), anything else the warp-a-row kernel
+("rows"); `strips_launches_by_body` (K8) and `launches_by_body` (K13 (b))
+count them. The warp-a-row bodies are routes chosen by dtype and head dim,
+never a fallback of the streaming one.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (`*_plain`), which is `kv_quant_rows` followed by an
@@ -52,14 +55,15 @@ from rama_tpu_torch.ops.kernels.build import I, P, require
 launches = {"write_kv_rows_q8": 0, "write_kv_strips_q8": 0, "write_kv_chunk_q8": 0,
             "write_kv_paged_q8": 0, "write_kv_prefill_paged_q8": 0}
 
-# K13 (b)'s launches by the body it ran (prefill_body_for)
+# K8's and K13 (b)'s launches by the body each ran (prefill_body_for)
+strips_launches_by_body = {"stream": 0, "rows": 0}
 launches_by_body = {"stream": 0, "rows": 0}
-PREFILL_BODIES = {"rows": 0, "stream": 1}   # body codes of the C entry (csrc rama::PrefillBody)
-STREAM_HEAD_DIMS = (48, 64, 128)            # the streaming K13 (b) kernel's instantiations
+PREFILL_BODIES = {"rows": 0, "stream": 1}   # body codes of both C entries (csrc rama::StripBody)
+STREAM_HEAD_DIMS = (48, 64, 128)            # the streaming body's instantiations
 
 _SIGNATURES = {
     "rama_kv_write_rows": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    "rama_kv_write_strips": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    "rama_kv_write_strips": [P] * 7 + [I] * 11 + [P],
     "rama_kv_write_chunk": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "rama_kv_write_paged": [P] * 8 + [I] * 8 + [P],
     "rama_kv_write_prefill_paged": [P] * 7 + [I] * 12 + [P],
@@ -67,9 +71,18 @@ _SIGNATURES = {
 
 
 def prefill_body_for(dtype: torch.dtype, hd: int) -> str:
-    """K13 (b)'s body on the card: "stream" for bf16 strips at a head dim of
-    STREAM_HEAD_DIMS, "rows" (a warp a row) for anything else."""
+    """K8's and K13 (b)'s body on the card: "stream" for bf16 strips at a
+    head dim of STREAM_HEAD_DIMS, "rows" (a warp a row) for anything else."""
     return "stream" if dtype == torch.bfloat16 and hd in STREAM_HEAD_DIMS else "rows"
+
+
+def _body_of(forced: str | None, k: torch.Tensor, v: torch.Tensor, hd: int) -> str:
+    """The body a strip writer launches: `forced`, else prefill_body_for's."""
+    body = forced or prefill_body_for(k.dtype, hd)
+    require(body in PREFILL_BODIES, f"unknown strip writer body {body!r}")
+    require(body == "rows" or (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0),
+            "strips must start 16-byte aligned (the streaming body loads 16-byte pieces)")
+    return body
 
 
 def kv_quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -143,13 +156,14 @@ def write_kv_strips_q8_plain(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
                              slots: torch.Tensor, t_ins: int) -> None:
     """Plain PyTorch version: quantize rows 0:t_ins of strips j < len(slots)
     of the (L, K, nkv, T, hd) scratch and write them at [:, slots[j], :,
-    0:t_ins]."""
-    n = slots.shape[0]
+    0:t_ins]; a strip whose slot lies outside [0, B) is written nowhere, as
+    the kernel leaves it."""
     idx = slots.long()
+    keep = ((idx >= 0) & (idx < k8.shape[1])).nonzero()[:, 0]
     for strips, q8, sc in ((k, k8, ks), (v, v8, vs)):
-        q, s = kv_quant_rows(strips[:, :n, :, :t_ins])
-        q8[:, idx, :, :t_ins] = q
-        sc[:, idx, :, :t_ins] = s
+        q, s = kv_quant_rows(strips[:, keep, :, :t_ins])
+        q8[:, idx[keep], :, :t_ins] = q
+        sc[:, idx[keep], :, :t_ins] = s
 
 
 def _check_cache(k8, v8, ks, vs) -> None:
@@ -225,11 +239,14 @@ def write_kv_chunk_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
 
 
 def write_kv_strips_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
-                       slots: torch.Tensor, t_ins: int) -> None:
+                       slots: torch.Tensor, t_ins: int, _body: str | None = None) -> None:
     """K8: quantize rows 0:t_ins of the prefilled strips j < len(slots) of
     k/v (L, K, nkv, T, hd) and write them at [:, slots[j], :, 0:t_ins] of
-    the int8 cache, every layer in one launch, in place. Duplicate slots
-    entries must carry identical strips (batch padding does)."""
+    the int8 cache, every layer in one launch, in place, on the body
+    `prefill_body_for` picks (the private `_body` forces "rows", the
+    warp-a-row body, to time it beside the streaming one). A slot outside
+    [0, B) is written nowhere. Duplicate slots entries must carry identical
+    strips (batch padding does)."""
     if k.device.type == "cpu":
         return write_kv_strips_q8_plain(k8, v8, ks, vs, k, v, slots, t_ins)
     require(k.device.type == "cuda", f"unsupported device {k.device}")
@@ -246,13 +263,15 @@ def write_kv_strips_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
     require(slots.dtype == torch.int32 and slots.dim() == 1 and slots.device == k.device
             and slots.is_contiguous() and slots.shape[0] <= K,
             "slots must be a contiguous (n,) int32 CUDA tensor with n <= K")
+    body = _body_of(_body, k, v, hd)
     lib = build.library("kv_write", _SIGNATURES)
     err = lib.rama_kv_write_strips(
         k.data_ptr(), v.data_ptr(), slots.data_ptr(), k8.data_ptr(), v8.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), L, K, slots.shape[0], B, nkv, T, S, t_ins, hd,
-        build.dtype_code(k), build.stream_ptr(k))
+        build.dtype_code(k), PREFILL_BODIES[body], build.stream_ptr(k))
     build.check(lib, err, "write_kv_strips_q8")
     launches["write_kv_strips_q8"] += 1
+    strips_launches_by_body[body] += 1
 
 
 # -- K13: the paged pool ------------------------------------------------------
@@ -385,10 +404,7 @@ def write_kv_prefill_paged_q8(k8, v8, ks, vs, k: torch.Tensor, v: torch.Tensor,
     mp = tables.shape[1]
     require(0 < t_ins <= min(T, mp * ps), f"t_ins {t_ins} must be in [1, min(T={T}, "
             f"mp * ps={mp * ps})]")
-    body = _body or prefill_body_for(k.dtype, hd)
-    require(body in PREFILL_BODIES, f"unknown K13 (b) body {body!r}")
-    require(body == "rows" or (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0),
-            "strips must start 16-byte aligned (the streaming body loads 16-byte pieces)")
+    body = _body_of(_body, k, v, hd)
     lib = build.library("kv_write", _SIGNATURES)
     err = lib.rama_kv_write_prefill_paged(
         k.data_ptr(), v.data_ptr(), tables.data_ptr(), k8.data_ptr(), v8.data_ptr(),

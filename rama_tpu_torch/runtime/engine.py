@@ -46,7 +46,14 @@ What it keeps from the JAX engine:
 - **bf16-stored weight scales** (`scale_dtype="bf16"`): the target's
   params are fused, then `cast_scales` stores every quantized leaf's scales
   in bf16 (the draft's stay as loaded, as in the JAX engine); the kernels
-  read them as they are.
+  read them as they are;
+- **warmup and the compile cache**: `warmup()` builds and loads every
+  kernel library, then runs every tick, spec and prefill bucket the loop
+  can dispatch once, so no nvcc run, library load, shared-memory opt-in or
+  allocator growth lands inside a request; `compile_cache` names the
+  directory the kernels are built into and loaded from (a later process
+  reuses its libraries: the counterpart of JAX's persistent compilation
+  cache).
 
 Not ported yet (ROADMAP.md): pipelined/chained ticks (and chained spec
 ticks), async-firsts admission, chunked prefill, tensor/data/sequence
@@ -64,7 +71,7 @@ import threading
 import time
 import traceback
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Optional
 
 import numpy as np
@@ -73,7 +80,7 @@ import torch
 from rama_tpu_torch.config import EngineConfig, ModelConfig
 from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables, check_chunk,
                                          decode_step, forward, forward_chunk, fuse_params)
-from rama_tpu_torch.ops.kernels import paged_attention
+from rama_tpu_torch.ops.kernels import build, paged_attention
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
 from rama_tpu_torch.ops.quant import cast_scales
 from rama_tpu_torch.runtime.paged import (PageAllocator, PagedKVCache, QuantPagedKVCache,
@@ -163,7 +170,6 @@ _UNPORTED = (
     ("tp_size", 1, "tensor/data/sequence parallelism"),
     ("dp_size", 1, "tensor/data/sequence parallelism"),
     ("seq_par", False, "tensor/data/sequence parallelism"),
-    ("compile_cache", None, "compile cache (no counterpart yet)"),
 )
 
 
@@ -195,6 +201,10 @@ class Engine:
         self.tokenizer = tokenizer
         self.ecfg = engine_config or EngineConfig()
         check_ported(self.ecfg)
+        if self.ecfg.compile_cache:
+            # the kernels' build directory, as JAX's engine enables its
+            # persistent compilation cache (engine.py:603-606)
+            build.set_build_dir(self.ecfg.compile_cache)
         self.kv_quant = self.ecfg.kv_quant
         if self.kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {self.kv_quant!r}")
@@ -338,6 +348,97 @@ class Engine:
         self._wake.set()
         if self._thread:
             self._thread.join(timeout=30)
+
+    @torch.no_grad()
+    def warmup(self, max_prompt: int | None = None) -> dict:
+        """Run once every device path the serving loop can dispatch, before
+        any traffic (rama_tpu's Engine.warmup, engine.py:936-1060). On the
+        card it first builds and loads every kernel library
+        (`build.load_all`: no nvcc run and no library load after it). Then
+        the decode ticks at n = decode_tick halved down to 1, the spec
+        ticks at m = spec_rounds halved down to 1, and every (k_pad, t_pad)
+        prefill bucket `_start_requests` can emit (t_pad from 16 doubling
+        up to min(max_prompt + 1, max_len), capped at max_len; max_prompt
+        None: up to max_len), each through `_dev_prefill_insert` and, in
+        draft mode, `_dev_draft_prefill`. Each runs greedy, then sampled at
+        temperature 1 and top_p 1 (which takes the top-k, the full sort and
+        the nucleus walk): the port's two sampling routes are separate
+        code, where JAX's one program covers both. Each dispatch pays the
+        one-time costs of its launches (a launcher's shared-memory opt-in,
+        the split-K ticket buffer, the caching allocator's growth to the
+        bucket's peak, each PyTorch kernel's first load) and ends in a
+        device sync.
+
+        Dummy traffic from position 0: the ticks write every slot's
+        first rows (as free slots' rows are written while serving), the
+        prefill buckets slot 0's; warmup then zeroes the dense caches (the
+        target's and the draft's), so serving starts on a fresh cache. On a
+        page pool every page-table row points at the trash page, which
+        takes every write, and no page is reserved. The draft resync is not
+        warmed, as in JAX: after warmup it builds and loads no library.
+        Call it on an idle engine, before start(). Returns {"programs": the
+        dispatches, counted as JAX counts its programs, "seconds": wall}."""
+        if self._thread is not None or not all(s.free for s in self.slots):
+            raise RuntimeError("warmup runs on an idle engine, before start()")
+        t0 = time.time()
+        if self.device.type == "cuda":
+            build.load_all()
+        b = len(self.slots)
+        zi = np.zeros(b, np.int64)
+
+        def routes(rows: int):
+            """(temperatures, top_ps) of the greedy and the sampled route."""
+            return ((np.zeros(rows, np.float32), np.full(rows, 0.9, np.float32)),
+                    (np.ones(rows, np.float32), np.ones(rows, np.float32)))
+
+        count = 0
+        n = max(1, self.ecfg.decode_tick)   # the budget shrink: powers of two <= the tick
+        while True:
+            for temps, tps in routes(b):
+                self._dev_tick(zi, zi, temps, tps, n)
+            count += 1
+            if n == 1:
+                break
+            n //= 2
+        if self.spec:
+            m = self.spec_rounds            # the m-shrink ladder
+            while True:
+                for temps, tps in routes(b):
+                    self._dev_spec_tick(zi, zi, temps, tps, self._hist_matrix(), self.spec, m)
+                count += 1
+                if m == 1:
+                    break
+                m //= 2
+        hi = min((max_prompt or self.max_len) + 1, self.max_len)
+        ts, t = [], 16
+        while True:
+            ts.append(min(t, self.max_len))
+            if t >= hi:
+                break
+            t *= 2
+        for t_pad in ts:
+            for k_pad in sorted({_bucket_k(nn, 1, b, t_pad) for nn in range(1, b + 1)}):
+                tokens = np.zeros((k_pad, t_pad), np.int64)
+                lens = np.ones(k_pad, np.int32)
+                for temps, tps in routes(k_pad):
+                    # ends in a fetch of the first tokens: a sync after the strip write
+                    self._dev_prefill_insert(tokens, lens, temps, tps,
+                                             np.zeros((k_pad, 2), np.int64), [0])
+                count += 1
+                if self.draft_mode:
+                    self._dev_draft_prefill(tokens, lens, [0])
+                    self._sync()
+                    count += 1
+        for cache in (self.cache, self.dcache):
+            if isinstance(cache, (KVCache, QuantKVCache)):
+                for f in fields(cache):
+                    getattr(cache, f.name).zero_()
+        self._sync()
+        return {"programs": count, "seconds": time.time() - t0}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- admission ------------------------------------------------------------
 

@@ -14,7 +14,8 @@ package's app:
 Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
           [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda] \
           [--kv-quant int8] [--paged [--page-size 128]] [--spec-tick 3 \
-          [--spec-mode draft --spec-draft-model draft.bin]]
+          [--spec-mode draft --spec-draft-model draft.bin]] \
+          [--warmup [--warmup-max-prompt 512]] [--compile-cache DIR]
 """
 
 from __future__ import annotations
@@ -150,7 +151,7 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 kv_quant: str | None = None, spec_tick: int = 0,
                 spec_mode: str = "ngram", spec_draft_model: str | None = None,
                 paged: bool = False, page_size: int = 128,
-                scale_dtype: str | None = None) -> Engine:
+                scale_dtype: str | None = None, compile_cache: str | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
@@ -164,7 +165,8 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
                         max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
                         spec_tick=spec_tick, spec_mode=spec_mode, paged_kv=paged,
-                        kv_page_size=page_size, scale_dtype=scale_dtype)
+                        kv_page_size=page_size, scale_dtype=scale_dtype,
+                        compile_cache=compile_cache)
     return Engine(cfg, params, tokenizer, ecfg, draft=draft)
 
 
@@ -176,8 +178,6 @@ _UNPORTED_FLAGS = (
     ("--dp", "dp", 1, "tensor/data/sequence parallelism"),
     ("--seq-par", "seq_par", False, "tensor/data/sequence parallelism"),
     ("--coordinator", "coordinator", None, "multi-host serving"),
-    ("--warmup", "warmup", False, "engine warmup (no compile step to warm yet)"),
-    ("--compile-cache", "compile_cache", None, "compile cache"),
 )
 
 
@@ -214,8 +214,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--seq-par", action="store_true")
     ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--warmup", action="store_true")
-    ap.add_argument("--compile-cache", default=None)
+    ap.add_argument("--warmup", action="store_true",
+                    help="before accepting traffic, build and load every kernel and run "
+                         "every decode tick and (k, T) prefill bucket once (no build or "
+                         "first use inside a request; pair with --compile-cache to build "
+                         "once a machine)")
+    ap.add_argument("--warmup-max-prompt", type=int, default=None,
+                    help="bound the warmed prefill T buckets to this prompt length "
+                         "(default: up to --max-seq-len)")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="directory the CUDA kernels are built into and loaded from "
+                         "(default build/rama_tpu_torch under the checkout)")
     return ap
 
 
@@ -231,7 +240,10 @@ def main(argv=None) -> int:
                          kv_quant=args.kv_quant, spec_tick=args.spec_tick,
                          spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
                          paged=args.paged, page_size=args.page_size,
-                         scale_dtype=args.scale_dtype)
+                         scale_dtype=args.scale_dtype, compile_cache=args.compile_cache)
+    if args.warmup:
+        w = engine.warmup(max_prompt=args.warmup_max_prompt)
+        print(f"warmup: {w['programs']} programs in {w['seconds']:.1f}s", file=sys.stderr)
     engine.start()
     try:
         host, _, port = args.address.rpartition(":")

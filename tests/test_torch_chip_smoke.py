@@ -173,10 +173,12 @@ def _kv8_launches(smoke, **over):
 
 def test_kv8_path_passes_with_its_kernels_and_no_bf16_attention(smoke):
     """K6 runs inside every K7 launch on this path: its own launch (the
-    standalone writer) is forbidden there, as the bf16 decode attention."""
+    standalone writer) is forbidden there, as the bf16 decode attention and
+    K8's warp-a-row body (every K8 launch takes the streaming one)."""
     smoke.check_launches(smoke.KV8_PATH, _kv8_launches(smoke))
     assert smoke.KV8_PATH["forbid"] == {"decode_attention": "launches_kv8_path",
-                                        "write_kv_rows_q8": "standalone_launches"}
+                                        "write_kv_rows_q8": "standalone_launches",
+                                        "write_kv_strips_q8_rows": "rows_body_launches"}
 
 
 @pytest.mark.parametrize("name", ["write_kv_rows_q8", "decode_attention_q8",
@@ -1911,3 +1913,178 @@ def test_attention_bytes_count_a_launchs_own_new_rows_once(smoke, written):
     rows = sum(r - n for r, n in zip(read, new)) if written else sum(read)
     assert nb == rows * 2 * 40.0 + 200.0
     assert ops == sum(min(p + i, 63) + 1 for p in (0, 10, 62, 70) for i in range(4)) * 4 * 16 * 4
+
+
+@pytest.mark.parametrize("path_name", ["KV8_PATH", "SPEC_KV8_PATH", "YI_KV8_PATH",
+                                       "GQA_SPEC_KV8_PATH", "WARMUP_PATH"])
+def test_dense_int8_paths_run_every_k8_launch_on_the_streaming_body(smoke, path_name):
+    """On every dense int8-cache path K8 (write_kv_strips_q8) launches its
+    streaming body only: its stream count equals its total, its warp-a-row
+    body never launches, and both counts go to K8's record."""
+    path = getattr(smoke, path_name)
+    ok = {**{k: 3 for k in path["record"]}, **{k: 0 for k in path["forbid"]}}
+    smoke.check_launches(path, ok)
+    assert path["equal"]["write_kv_strips_q8_stream"] == "write_kv_strips_q8"
+    assert smoke.RECORD_OF["write_kv_strips_q8_rows"] == "write_kv_strips_q8"
+    assert smoke.BODY_COUNTS["write_kv_strips_q8"] == ("write_kv_strips_q8", ("stream", "rows"))
+    with pytest.raises(SystemExit, match=r"\['write_kv_strips_q8_rows'\] launched"):
+        smoke.check_launches(path, {**ok, "write_kv_strips_q8_rows": 1})
+    with pytest.raises(SystemExit, match="launches of the kernel"):
+        smoke.check_launches(path, {**ok, "write_kv_strips_q8_stream": 2})
+
+
+def test_k8_counts_by_body_are_read_and_reset(smoke, counters):
+    kvw.strips_launches_by_body.update(stream=5, rows=2)
+    try:
+        got = smoke.read_launches(*counters)
+        assert (got["write_kv_strips_q8_stream"], got["write_kv_strips_q8_rows"]) == (5, 2)
+        smoke.reset_launches(*counters)
+        assert kvw.strips_launches_by_body == {"stream": 0, "rows": 0}
+    finally:
+        kvw.strips_launches_by_body.update(stream=0, rows=0)
+
+
+def test_warmup_path_is_the_int8_kv_path_after_warmup(smoke):
+    """serve_warmup serves serve_kv8's engine settings in a fresh process
+    after warmup(max_prompt=64), judged by the int8 KV path's kernels."""
+    w, kv8 = smoke.WARMUP_PATH, smoke.KV8_PATH
+    assert w["phases"] == (None, "serve_warmup", None) and "serve_warmup" in smoke.ALL_PHASES
+    assert w["serve"] == kv8["serve"] and w["warmup"] == 64
+    assert set(w["record"]) == set(kv8["record"]) and set(w["forbid"]) == set(kv8["forbid"])
+    assert w["equal"] == kv8["equal"]
+    assert smoke.PATHS.index(w) == smoke.PATHS.index(kv8) + 1   # on the same params
+
+
+def test_warm_up_and_warm_checked_on_a_cpu_engine(smoke, monkeypatch):
+    """warm_up refuses a process that built or loaded a library before the
+    warmup, and one whose warmup did not load every library; warm_checked
+    refuses a library loaded after it and a prefill bucket served cold
+    (on the CPU the loads are stood in for)."""
+    from rama_tpu.testing.ref_model import random_params, tiny_config
+
+    from _torch_port import torch_cfg
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.models.llama import load_params
+    from rama_tpu_torch.ops.kernels import build
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    jcfg = tiny_config(seq_len=64)
+    cfg = torch_cfg(jcfg)
+    params = load_params(cfg, random_params(jcfg, seed=3), dtype=torch.float32, device="cpu")
+    vocab = ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(cfg.vocab_size - 3)]
+    tok = Tokenizer(vocab, [0.0] * cfg.vocab_size, max_token_length=4)
+    counts = {"builds": 0, "loads": 0}
+    monkeypatch.setattr(build, "counts", counts)
+    eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=2))
+    with pytest.raises(SystemExit, match="warmup left"):
+        smoke.warm_up(eng, 20, "t")     # a CPU engine loads no library
+    counts["loads"] = 1
+    with pytest.raises(SystemExit, match="before warmup"):
+        smoke.warm_up(Engine(cfg, params, tok, EngineConfig(max_batch_size=2)), 20, "t")
+    counts["loads"] = 0
+    eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=2))
+    warmup = eng.warmup
+
+    def loading_warmup(max_prompt=None):   # as an engine on the card loads them
+        counts["loads"] = len(build.SOURCES)
+        return warmup(max_prompt)
+
+    eng.warmup = loading_warmup
+    warm = smoke.warm_up(eng, 20, "t")
+    assert warm["warmed"] == [(2, 16), (2, 32)] and warm["programs"] == 6
+    eng.start()
+    try:
+        req = eng.submit(Request(prompt="", steps=3, temperature=0.0))
+        while req.queue.get(timeout=60) is not None:
+            pass
+    finally:
+        eng.stop()
+    assert smoke.warm_checked(dict(warm), "t")["served"] == [(2, 16)]
+    with pytest.raises(SystemExit, match="served cold"):
+        smoke.warm_checked(dict(warm, served=[(2, 16), (2, 64)]), "t")
+    counts["loads"] += 1
+    with pytest.raises(SystemExit, match="built or loaded a library"):
+        smoke.warm_checked(dict(warm), "t")
+
+
+def test_phase_serve_after_warmup_on_a_cpu_engine(smoke, monkeypatch, tmp_path):
+    """serve_warmup's serving half on a tiny int8 engine on the CPU, at the
+    path's settings (int8 cache, max_len 4096, warmup(max_prompt=64)): the
+    engine gets the compile cache, the counts start after the warmup, and
+    the summary carries the warmed and served buckets, the greedy streams
+    and the first request's TTFT (the card's library loads stood in for)."""
+    from rama_tpu.testing.ref_model import random_params, tiny_config
+
+    from _torch_port import torch_cfg
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.ops.kernels import build
+    from rama_tpu_torch.runtime.engine import Engine
+    from rama_tpu_torch.server import app  # noqa: F401  (binds the real Engine)
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    jcfg = tiny_config(vocab_size=32000, seq_len=64)
+    cfg = torch_cfg(jcfg)
+    params = quantize_params(cfg, random_params(jcfg, seed=2), bits=8, group_size=16,
+                             dtype=torch.float32, device="cpu")
+    tok = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    counts = {"builds": 0, "loads": 0}
+    monkeypatch.setattr(build, "counts", counts)
+    monkeypatch.setattr(build, "BUILD_DIR", build.DEFAULT_BUILD_DIR)
+    warmup, started = Engine.warmup, []
+
+    def loading_warmup(self, max_prompt=None):   # as an engine on the card loads them
+        counts["loads"] = len(build.SOURCES)
+        return warmup(self, max_prompt)
+
+    monkeypatch.setattr(Engine, "warmup", loading_warmup)
+    out = smoke.phase_serve(torch, cfg, params, tok, "card", tag="serve_warmup",
+                            **smoke.WARMUP_PATH["serve"], warmup=smoke.WARMUP_PATH["warmup"],
+                            compile_cache=str(tmp_path / "cache"),
+                            start_count=lambda: started.append(counts["loads"]))
+    assert started == [len(build.SOURCES)]
+    assert build.BUILD_DIR == (tmp_path / "cache").resolve()
+    w = out["warmup"]
+    assert w["programs"] == 8 and w["warmed"] == [(8, 16), (8, 32), (8, 64), (8, 128)]
+    assert w["served"] == [(8, 16)]
+    assert len(out["greedy"]) == 4 and all(out["greedy"].values())
+    assert out["ttft_first_ms"] > 0
+
+
+def test_phase_serve_warmup_reads_the_child_and_holds_its_streams(smoke, monkeypatch,
+                                                                  tmp_path):
+    """The parent half: this run's libraries are copied into a fresh
+    directory under build/ for the child, which is removed afterwards; the
+    child's summary line is read back; its greedy streams must equal
+    serve_kv8's."""
+    import json
+    import subprocess
+
+    from rama_tpu_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "libs")
+    (tmp_path / "libs").mkdir()
+    for name in build.SOURCES:
+        build._lib_path(name).write_text("lib")
+        build._lib_path(name).with_suffix(".log").write_text("log")
+    seen = {}
+    child = {"greedy": {"Once upon a time": "abc"}, "ttft_first_ms": 5.0, "ttft_p50_ms": 6.0,
+             "ttft_max_ms": 7.0, "launches": {"ffn": 3}}
+
+    def run(cmd, **kw):
+        cache = pathlib.Path(cmd[cmd.index("--warmup-child") + 1])
+        seen["files"] = sorted(p.name for p in cache.iterdir())
+        seen["cache"] = cache
+        return subprocess.CompletedProcess(cmd, 0, "[serve_warmup] child line\n"
+                                           + smoke.WARMUP_RESULT + json.dumps(child) + "\n", "")
+
+    monkeypatch.setattr(smoke.subprocess, "run", run)
+    plain = {"greedy": {"Once upon a time": "abc"}, "ttft_first_ms": 9.0, "ttft_p50_ms": 9.0,
+             "ttft_max_ms": 9.0}
+    got = smoke.phase_serve_warmup(torch, "card", {"serve_kv8": plain})
+    assert got == child
+    assert seen["cache"].parent == ROOT / "build" and not seen["cache"].exists()
+    assert len(seen["files"]) == 2 * len(build.SOURCES)
+    plain["greedy"]["Once upon a time"] = "abd"
+    with pytest.raises(SystemExit, match="differ from serve_kv8's"):
+        smoke.phase_serve_warmup(torch, "card", {"serve_kv8": plain})

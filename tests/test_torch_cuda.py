@@ -2041,6 +2041,86 @@ def test_write_kv_prefill_paged_q8_streaming_body(dev, ps, t_ins, n, nkv, hd, cl
         assert torch.equal(a, c) and torch.equal(b, c)
 
 
+# -- K8: the streaming strip writer on the dense cache ---------------------------
+
+# (layers, slots B, kv heads, cache rows S, strip rows T, t_ins, strips
+# written n of K, head_dim, slots): the 7B serving bucket (16 rows: runs of
+# 4 heads), an 8 x 512 admission (runs of 64 rows), t_ins 300 of 512 with n
+# = 3 < K, S = 1000 (not a multiple of 64) with t_ins 1000, TinyLlama's hd
+# 64 (4 kv heads), hd 48 with short strips (5 rows: 6 heads a CTA of 6), a
+# duplicate slot carrying an identical strip, and slots -1 and B (written
+# nowhere: the cache's bytes stay)
+K8_STREAM_CASES = [(2, 8, 32, 256, 16, 16, 8, 128, [5, 2, 7, 0, 3, 6, 1, 4]),
+                   (2, 8, 4, 512, 512, 512, 8, 128, [5, 2, 7, 0, 3, 6, 1, 4]),
+                   (2, 6, 4, 600, 512, 300, 3, 128, [4, 0, 2]),
+                   (2, 3, 2, 1000, 1000, 1000, 2, 128, [2, 0]),
+                   (3, 5, 4, 128, 40, 33, 4, 64, [1, 4, 0, 3]),
+                   (3, 4, 6, 64, 16, 5, 3, 48, [3, 1, 2]),
+                   (2, 5, 4, 96, 64, 64, 4, 128, [4, 1, 1, 3]),
+                   (2, 5, 4, 96, 64, 64, 4, 64, [-1, 2, 5, 0])]
+
+
+@pytest.mark.parametrize("L,B,nkv,S,T,t_ins,n,hd,slots", K8_STREAM_CASES)
+def test_write_kv_strips_q8_streaming_body(dev, L, B, nkv, S, T, t_ins, n, hd, slots):
+    """K8's streaming body (bf16 at hd 48 / 64 / 128) equals its plain
+    version and the warp-a-row body byte for byte (int8 rows and f32
+    scales of the whole cache): runs of 64 rows at any S, several kv heads
+    a CTA on short strips, n < K strips, a duplicate slot (identical
+    strips) and slots outside [0, B) written nowhere. Each launch counts
+    on its body."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    assert kw.prefill_body_for(torch.bfloat16, hd) == "stream"
+    base = _q8_cache(dev, L, B, nkv, S, hd, seed=S + t_ins)
+    k, v = (_kv_rows(dev, (L, n + 1, nkv, T, hd), torch.bfloat16, seed=i) for i in (3, 4))
+    for j in range(1, n):
+        if slots[j] == slots[j - 1]:
+            k[:, j], v[:, j] = k[:, j - 1], v[:, j - 1]
+    sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+    got, rows, want = ([x.clone() for x in base] for _ in range(3))
+    before = dict(kw.strips_launches_by_body)
+    kw.write_kv_strips_q8(*got, k, v, sl, t_ins)
+    kw.write_kv_strips_q8(*rows, k, v, sl, t_ins, _body="rows")
+    assert kw.strips_launches_by_body == {"stream": before["stream"] + 1,
+                                          "rows": before["rows"] + 1}
+    kw.write_kv_strips_q8_plain(*want, k, v, sl, t_ins)
+    for a, b, c in zip(got, rows, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    out = [s for s in slots if not 0 <= s < B]
+    if out:   # the strips of out-of-range slots moved no byte
+        keep = [s for s in range(B) if s not in slots]
+        for a, c in zip(got, base):
+            assert torch.equal(a[:, keep], c[:, keep])
+
+
+def test_write_kv_strips_q8_streaming_body_replays_in_a_cuda_graph(dev):
+    """K8's streaming launch captured in a CUDA graph: each replay writes
+    the bytes the eager launch wrote."""
+    from rama_tpu_torch.ops.kernels import kv_write as kw
+
+    base = _q8_cache(dev, 2, 6, 8, 256, 128, seed=9)
+    k, v = (_kv_rows(dev, (2, 4, 8, 100, 128), torch.bfloat16, seed=i) for i in (5, 6))
+    sl = torch.tensor([5, 0, 3, 2], dtype=torch.int32, device=dev)
+    eager, graph_c = [x.clone() for x in base], [x.clone() for x in base]
+    kw.write_kv_strips_q8(*eager, k, v, sl, 100)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up on the capture stream
+        kw.write_kv_strips_q8(*graph_c, k, v, sl, 100)
+    torch.cuda.current_stream().wait_stream(stream)
+    n0 = kw.strips_launches_by_body["stream"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kw.write_kv_strips_q8(*graph_c, k, v, sl, 100)
+    assert kw.strips_launches_by_body["stream"] == n0 + 1
+    for _ in range(2):
+        for x, b in zip(graph_c, base):
+            x.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(graph_c, eager))
+
+
 def test_attn_block_refuses_operands_it_does_not_take(dev):
     from rama_tpu_torch.ops.kernels import attn_block as ab
 

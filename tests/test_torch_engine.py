@@ -276,7 +276,7 @@ def test_long_context_beyond_checkpoint_seq_len():
 @pytest.mark.parametrize("field,value", [
     ("paged_kv", True), ("kv_quant", "int4"), ("spec_tick", 3),
     ("prefill_chunk", 16), ("scale_dtype", "bf16"), ("tp_size", 2),
-    ("dp_size", 2), ("seq_par", True), ("compile_cache", "/tmp/x"),
+    ("dp_size", 2), ("seq_par", True),
 ])
 def test_unported_engine_config_raises(engine_setup, field, value):
     """Unported features raise NotImplementedError; kv_quant is ported for

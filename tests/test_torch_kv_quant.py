@@ -155,6 +155,66 @@ def test_write_kv_strips_q8_takes_a_prefix_of_rows_and_strips():
         assert torch.equal(now, was)
 
 
+@pytest.mark.parametrize("dtype,hd,body", [
+    (torch.bfloat16, 48, "stream"), (torch.bfloat16, 64, "stream"),
+    (torch.bfloat16, 128, "stream"), (torch.float32, 128, "rows"),
+    (torch.float32, 64, "rows"), (torch.bfloat16, 96, "rows"), (torch.bfloat16, 16, "rows")])
+def test_strip_writers_pick_their_body_by_dtype_and_head_dim(dtype, hd, body):
+    """K8 and K13 (b) launch the streaming body for bf16 strips at head dim
+    48 / 64 / 128 and the warp-a-row body for anything else; the choice
+    depends on nothing but the dtype and the head dim."""
+    assert kw.prefill_body_for(dtype, hd) == body
+    assert (hd in kw.STREAM_HEAD_DIMS and dtype == torch.bfloat16) == (body == "stream")
+    assert kw.PREFILL_BODIES == {"rows": 0, "stream": 1}
+
+
+# (head_dim, t_ins of a 20-row strip, slots with a duplicate carrying an
+# identical strip): the streaming body's head dims
+@pytest.mark.parametrize("hd", [48, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_write_kv_strips_q8_plain_equals_jax_at_stream_head_dims(hd, dtype):
+    rng = np.random.default_rng(hd)
+    L, B, nkv, s, tt = 2, 5, 3, 40, 20
+    cache = _cache(rng, L, B, nkv, s, hd)
+    strips = [rows_with_edges(rng, (L, 4, nkv, tt, hd)) for _ in range(2)]
+    slots = np.array([3, 0, 4, 4], np.int32)
+    for x in strips:
+        x[:, 3] = x[:, 2]
+    js = [jnp.asarray(x, getattr(jnp, dtype)) for x in strips]
+    (kq, ksc), (vq, vsc) = (jl.kv_quant_rows(x) for x in js)
+    want = jkw.write_kv_strips_q8(*(jnp.asarray(a.numpy()) for a in cache), kq, vq, ksc, vsc,
+                                  jnp.asarray(slots), interpret=True)
+    got = [a.clone() for a in cache]
+    tk, tv = (t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype)) for x in js)
+    kw.write_kv_strips_q8(*got, tk, tv, t(slots), tt)
+    for g, w in zip(got, want):
+        exact(g, w)
+
+
+@pytest.mark.parametrize("slots", [[-1, 1], [1, 5], [-3, 2, 6, 0], [7, -1]])
+def test_write_kv_strips_q8_writes_an_out_of_range_slot_nowhere(slots):
+    """A strip whose slot lies outside [0, B) is written nowhere, as the
+    kernel leaves it: the JAX kernel does not define that case, so the
+    port's own rule holds (the plain version used to wrap -1 onto slot B -
+    1 and raise on B); the strips of slots in range land as usual."""
+    rng = np.random.default_rng(len(slots))
+    B = 5
+    cache = _cache(rng, 2, B, 2, 24, 64)
+    before = [a.clone() for a in cache]
+    k, v = (t(rows_with_edges(rng, (2, len(slots), 2, 16, 64))) for _ in range(2))
+    kw.write_kv_strips_q8_plain(*cache, k, v, torch.tensor(slots, dtype=torch.int32), 16)
+    kept = [j for j, s in enumerate(slots) if 0 <= s < B]
+    for strip, q8, sc, q8_0, sc_0 in ((k, cache[0], cache[2], before[0], before[2]),
+                                      (v, cache[1], cache[3], before[1], before[3])):
+        q, s = tl.kv_quant_rows(strip[:, kept, :, :16])
+        idx = [slots[j] for j in kept]
+        exact(q8[:, idx, :, :16], q.numpy())
+        exact(sc[:, idx, :, :16], s.numpy())
+        q8_0[:, idx, :, :16], sc_0[:, idx, :, :16] = q, s
+    for now, was in zip(cache, before):
+        assert torch.equal(now, was)
+
+
 def _q8_inputs(rng, L, B, nkv, s, hd, rep):
     k = rng.standard_normal((L, B, nkv, s, hd)).astype(np.float32)
     v = rng.standard_normal((L, B, nkv, s, hd)).astype(np.float32)
