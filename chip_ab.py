@@ -63,6 +63,12 @@ another model:
     int8 cache (`profile_kv8`'s, `profile_spec`'s) and decode steps on an
     int8 pool (`profile_paged`'s) at pos 64 and 2048: device and host ms a
     step or round (`--write-kernels`: the kernels alone);
+  - `--sampler-only`: the engine's keyed sampler (`sample_batched_keyed`,
+    temperature 1.0, top-p 0.9: the server's sampled defaults) over the
+    logits of an 8-slot decode step (8 x 32000) and of an 8-slot verify
+    round of 4 (32 x 32000), peaked (every row's nucleus inside the top
+    1024: the capped walk's case) and flat (the full sort's case): device
+    ms (torch.profiler) and CUDA-event ms a call;
   - `--sass PARENT.so CHANGE.so --match REGEX`: no card; disassembles
     both libraries with the toolkit's `cuobjdump -sass` and, for each
     kernel whose mangled name matches REGEX in both, prints how many of
@@ -186,6 +192,8 @@ def main() -> int:
                     help="time the int8 row writers beside the walk, and int8 rounds / steps")
     ap.add_argument("--write-kernels", action="store_true",
                     help="time the int8 row writers beside the walk only")
+    ap.add_argument("--sampler-only", action="store_true",
+                    help="time the keyed sampler over a step's and a round's logits only")
     ap.add_argument("--summary", metavar="FILE",
                     help="summarize the JSON lines of runs in turns in FILE (no card)")
     ap.add_argument("--sass", nargs=2, metavar=("PARENT_SO", "CHANGE_SO"),
@@ -243,6 +251,25 @@ def main() -> int:
             rec["library_ms"] = cs.time_ms(torch, lambda: lib(lay.next()))
             rec["library_device_ms"] = cs.device_ms_per_call(torch, lambda: lib(lay.next()))
         emit(measure, **rec)
+
+    if args.sampler_only:
+        from rama_tpu_torch.runtime.sampler import sample_batched_keyed
+
+        for rows, what in ((B, "step"), (B * (cs.SPEC_TICK + 1), "round")):
+            keys = torch.randint(0, 1 << 32, (rows, 2), device=dev, generator=g)
+            pos = torch.arange(rows, device=dev) + 64
+            temps, tps = (torch.full((rows,), v, device=dev) for v in (1.0, 0.9))
+            for scale, case in ((8.0, "peaked"), (0.05, "flat")):
+                logits = torch.randn(rows, cfg.vocab_size, device=dev, generator=g) * scale
+
+                def draw():
+                    return sample_batched_keyed(logits, keys, pos, temps, tps)
+
+                emit(f"sampler {what} {rows} x {cfg.vocab_size} {case}",
+                     device_ms=cs.device_ms_per_call(torch, draw),
+                     ms=cs.time_ms(torch, draw))
+        emit("card", card=cs.nvidia_smi_line(), kind=torch.cuda.get_device_name(0))
+        return 0
 
     # -- K3: the fused FFN ------------------------------------------------------------
     from rama_tpu_torch.ops.kernels import ffn as ffn_mod

@@ -172,6 +172,17 @@ Phases, in order (any failure raises and the script exits non-zero):
            the server on 8 slots at max_len 4096 over a pool of 64 pages of
            128 rows (a quarter of the dense worst case): bf16 / int8 pool,
            plain or spec_tick 3; every page free again after each run
+  serve_pipe   the pipelined loop: Llama-2-7B int8 on the 8-slot int8 KV
+           cache at max_len 4096, three in-process engines (plain, n-gram
+           spec_tick 3, the paged int8 pool), each serving 16 requests of
+           32 tokens (half greedy, half sampled at temperature 1.0, top-p
+           0.9; request 1 alone, 2-8 on its first token, 9-16 on theirs)
+           at _PIPELINE_DEPTH 1 / 3 / 3 / 1, then profiled at 3: the
+           same token ids in every run, at depth 3 >= 1 chained tick and
+           >= 1 admission dispatched behind a tick in flight, every tick
+           and admission dispatch under set_sync_debug_mode("error") with
+           no engine error; logs tok/s, the device busy share and the
+           mid-stream TTFT by depth (no gate)
   profile_paged  device ms per 8-slot decode step on a bf16 and an int8
            pool at positions 64 and 2048, beside the dense cache's, each
            with the attention's device ms
@@ -372,7 +383,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "model_spec",
               "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
-              "serve_spec_paged", "serve_spec_paged_kv8", "model_attn", "serve_ab1",
+              "serve_spec_paged", "serve_spec_paged_kv8", "serve_pipe", "model_attn", "serve_ab1",
               "serve_ab2", "profile_ab", "prefill_t1", "model_b64", "serve_b64", "profile_b64",
               "serve_b64_spec", "model4", "serve4", "profile4",
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
@@ -563,6 +574,34 @@ SPEC_PAGED_KV8_PATH = dict(
                 "write_kv_strips_q8", "decode_attention", "chunk_attention",
                 "paged_decode_attention_q8")}},
     equal={"write_kv_paged_q8_fused": "paged_chunk_attention_q8"})
+# the pipelined loop (serve_pipe): the int8 KV cache's plain ticks (K7 with
+# K6's rows), its n-gram verify rounds (K10 with K11's rows) and the paged
+# int8 pool's steps (K12 with K13 (a)'s rows), each engine's admissions
+# through K8 or K13 (b), every tick chained or dispatched behind another
+PIPE_SERVE = dict(max_batch_size=8, max_seq_len=KV8_MAX_LEN, decode_tick=8, kv_quant="int8",
+                  spec_mode="ngram", spec_min_accept=0.0)
+PIPE_ENGINES = (("plain", {}), ("spec", dict(spec_tick=SPEC_TICK)),
+                ("paged", dict(paged_kv=True, kv_page_size=PAGE_SIZE,
+                               kv_num_pages=PAGED_NUM_PAGES)))
+PIPE_TURNS = (1, 3, 3, 1)     # _PIPELINE_DEPTH of the timed runs, in ABBA turns
+PIPE_STEPS = 32
+PIPE_PATH = dict(label="pipelined loop", bits=8, phases=(None, "serve_pipe", None), serve={},
+                 record={name: "launches_pipe_path" for name in (
+                     "decode_attention_q8", "write_kv_rows_q8_fused", "chunk_attention_q8",
+                     "write_kv_chunk_q8_fused", "paged_decode_attention_q8",
+                     "write_kv_paged_q8_fused", "write_kv_strips_q8",
+                     "write_kv_prefill_paged_q8", "quant_matmul", "ffn", "prefill_attention",
+                     "quant_matmul_mma")},
+                 forbid={"write_kv_rows_q8": "standalone_launches_pipe_path",
+                         "write_kv_chunk_q8": "standalone_launches_pipe_path",
+                         "write_kv_paged_q8": "standalone_launches_pipe_path",
+                         "write_kv_prefill_paged_q8_rows": "rows_body_launches_pipe_path",
+                         **{name: "launches_pipe_path" for name in (
+                             "decode_attention", "chunk_attention", "paged_decode_attention",
+                             "paged_chunk_attention_q8")}},
+                 equal={"write_kv_rows_q8_fused": "decode_attention_q8",
+                        "write_kv_chunk_q8_fused": "chunk_attention_q8",
+                        "write_kv_paged_q8_fused": "paged_decode_attention_q8"})
 # the fused attention block (kernel 14) under RAMA_ATTN_BLOCK 1 / 2 on the
 # int8 params, and 2 on the int4 ones (`attn_block`: the mode the path runs
 # under): K14 where the default path runs the RoPE, the row write and K4, 32
@@ -798,7 +837,7 @@ ML_AB2_PATH = dict(label="Mistral-Large int4 attention block 2", model="ml", bit
                                ("attn_block_gqa", "attn_block_layered_int4"),
                                ("attn_block_mma_rows16", "attn_block_layered_int4")]))
 PATHS = (INT8_PATH, KV8_PATH, WARMUP_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
-         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, AB1_PATH, AB2_PATH,
+         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, PIPE_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
          GQA_PATH, GQA_SPEC_PATH,
          GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
@@ -5434,6 +5473,211 @@ def warmup_child(cache: str) -> int:
     return 0
 
 
+def pipe_prompts() -> list:
+    """serve_pipe's 16 prompts: the serving paths' 8, then the same 8 with a
+    number appended."""
+    base = ["Once upon a time", "The little dog", "In a far away land", "She opened the door",
+            "Tom and Lily", "The sun was", "A big red ball", "One day"]
+    return base + [f"{p} {i + 8}" for i, p in enumerate(base)]
+
+
+def profiled_device_s(torch, prof) -> float:
+    """Seconds of every GPU activity a torch.profiler session recorded, read
+    from its kineto events (no per-event parsing into FunctionEvents, which
+    takes tens of seconds for the ~10^5 kernels of a served run), or from
+    key_averages where the session keeps no kineto results."""
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is not None:
+        cuda = torch.autograd.DeviceType.CUDA
+        return sum(e.duration_ns() for e in res.events() if e.device_type() == cuda) / 1e9
+    return sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+               for ev in prof.key_averages() if ev.device_type.name == "CUDA") / 1e6
+
+
+def pipe_run(torch, cfg, params, tokenizer, kw: dict, depth: int, warm: bool = False,
+             profiled: bool = False) -> dict:
+    """One serve_pipe run: an in-process Engine (PIPE_SERVE plus `kw`) at
+    _PIPELINE_DEPTH `depth` serves 16 requests of PIPE_STEPS tokens (EOS
+    does not end them), even ones greedy, odd ones sampled (temperature
+    1.0, top-p 0.9). The first is submitted alone, the next 7 once it has
+    its first token (while its first tick is being dispatched: they are
+    admitted behind it) and the last 8 once the first 8 have theirs (they
+    wait for free slots, and while they wait no tick chains). Every tick's
+    dispatch, chained or not, and every admission dispatch runs under
+    torch.cuda.set_sync_debug_mode("error"): a sync
+    there raises, the loop counts an engine error, and the run fails.
+    `warm`: Engine.warmup(max_prompt=16) first (untimed); `profiled`: the
+    run under torch.profiler (CUDA events only). Returns the token ids by
+    request, the wall (first submission to the last stream's end), tok/s,
+    the TTFT p50 of requests 2-8 (admitted mid-stream) and of the last 8,
+    the counts of successful chained dispatches and of admissions
+    dispatched with a tick in flight, the engine's ticks, prefill groups
+    and phase seconds (`breakdown`), and with `profiled` the device kernel
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.runtime import engine as eng_mod
+    from rama_tpu_torch.runtime.engine import Engine, Request
+
+    saved = eng_mod._PIPELINE_DEPTH
+    eng_mod._PIPELINE_DEPTH = depth
+    t_setup = time.perf_counter()
+    eng = Engine(cfg, params, tokenizer, EngineConfig(**PIPE_SERVE, **kw))
+    if warm:
+        eng.warmup(max_prompt=16)
+    t_setup = time.perf_counter() - t_setup
+    counts = {"_dispatch_chained": 0, "_dispatch_spec_chained": 0, "_admit_dispatch": 0}
+    for name in (*counts, "_dev_tick_async", "_dev_spec_tick"):   # fresh ticks too
+        def strict(*a, _name=name, _orig=getattr(eng, name)):
+            behind = bool(eng._inflight_q or eng._spec_inflight_q)
+            jobs = len(eng._admit_jobs)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = _orig(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            if _name in counts and (out is not None or (_name == "_admit_dispatch" and behind
+                                                        and len(eng._admit_jobs) > jobs)):
+                counts[_name] += 1
+            return out
+
+        setattr(eng, name, strict)
+    reqs = [Request(prompt=p, steps=PIPE_STEPS, temperature=0.0 if i % 2 == 0 else 1.0,
+                    top_p=0.9, stop_at_eos=False) for i, p in enumerate(pipe_prompts())]
+    ids = {id(r): [] for r in reqs}
+    emit = eng._emit
+
+    def record(slot, token):
+        ids[id(slot.request)].append(token)
+        emit(slot, token)
+
+    eng._emit = record
+
+    def submit_after(part, firsts):
+        """Submit `part` once every request of `firsts` has its first token."""
+        while not all(r.first_token_at for r in firsts):
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit(f"FAILED serve_pipe: no first token in 300 s {kw}")
+            time.sleep(0.001)
+        for r in part:
+            r.submitted_at = time.time()
+            eng.submit(r)
+
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
+    try:
+        with ctx as prof:
+            eng.start()
+            t0 = time.perf_counter()
+            submit_after(reqs[:1], [])
+            submit_after(reqs[1:8], reqs[:1])
+            submit_after(reqs[8:], reqs[:8])
+            total = 0
+            for r in reqs:
+                while (t := r.queue.get(timeout=300)) is not None:
+                    total += 1
+            wall = time.perf_counter() - t0
+            eng.stop()
+            torch.cuda.synchronize()
+    finally:
+        eng.stop()
+        eng_mod._PIPELINE_DEPTH = saved
+    errors = eng.stats()["engine_errors"]
+    if errors or any(r.error for r in reqs) or total != 16 * PIPE_STEPS:
+        raise SystemExit(f"FAILED serve_pipe: depth {depth} {kw}: engine_errors {errors}, "
+                         f"request errors {[r.error for r in reqs]}, {total} tokens of "
+                         f"{16 * PIPE_STEPS}")
+
+    def p50(rs):
+        t = sorted((r.first_token_at - r.submitted_at) * 1e3 for r in rs)
+        return t[len(t) // 2]
+
+    out = dict(ids=[ids[id(r)] for r in reqs], wall_s=wall, tok_s=total / wall, setup_s=t_setup,
+               ttft_mid_ms=p50(reqs[1:8]), ttft_second_ms=p50(reqs[8:]),
+               chained=counts["_dispatch_chained"], spec_chained=counts["_dispatch_spec_chained"],
+               async_admissions=counts["_admit_dispatch"])
+    if profiled:
+        out["kernel_s"] = profiled_device_s(torch, prof)
+    ph = eng.phases
+    out["breakdown"] = dict(ticks=eng.metrics["decode_ticks"], prefills=ph.counts["prefill"],
+                            **{f"{k}_s": round(ph.totals[k], 4)
+                               for k in ("dispatch", "fetch", "emit", "admit", "prefill")})
+    del eng
+    gc.collect()
+    return out
+
+
+def phase_serve_pipe(torch, cfg, params, tokenizer, card: str) -> dict:
+    """The pipelined loop at Llama-2-7B int8's full width and depth on the
+    int8 KV cache at max_len 4096, 8 slots, ticks of 8: three engines
+    (plain, n-gram spec_tick 3, the paged int8 pool of PAGED_NUM_PAGES
+    pages), each run (pipe_run) at _PIPELINE_DEPTH 1 / 3 / 3 / 1 in turns
+    with the profiler off (the first run after an untimed warmup), then at
+    3 under the profiler (the depth moves no device work: every run serves
+    the same ticks and prefill groups, logged by run, so its kernel time
+    is every run's). Per engine: every run must give every
+    request the same token ids (greedy and sampled: draws are keyed by slot
+    key and position); the depth-3 runs must have chained at least one plain
+    tick (plain, paged) or spec tick (spec) and dispatched at least one
+    admission behind a tick in flight; no run may count an engine error (a
+    sync inside a tick's or an admission's dispatch is one). Logs tok/s, the
+    device busy share (profiler kernel time over the profiler-off wall of
+    the same depth) and the TTFT p50 of the mid-stream admissions by depth
+    (no gate on them). Returns them by engine."""
+    from rama_tpu_torch.models.llama import _rope_tables, fuse_params
+
+    # fused once, RoPE to the cache length: every engine serves these as given
+    served = fuse_params(dict(params), cfg)
+    served["rope_cos"], served["rope_sin"] = _rope_tables(cfg, params["final_norm"].device,
+                                                          seq_len=KV8_MAX_LEN)
+    summary = {}
+    for name, kw in PIPE_ENGINES:
+        t0 = time.time()
+        runs = [pipe_run(torch, cfg, served, tokenizer, kw, d, warm=i == 0)
+                for i, d in enumerate(PIPE_TURNS)]
+        profiled = pipe_run(torch, cfg, served, tokenizer, kw, 3, profiled=True)
+        differ = [i for i, r in enumerate(runs + [profiled]) if r["ids"] != runs[0]["ids"]]
+        if differ:
+            raise SystemExit(f"FAILED serve_pipe: {name}: the token ids of runs {differ} "
+                             f"(depths {PIPE_TURNS} + profiled 3) differ from the first's")
+        deep = [r for r, d in zip(runs, PIPE_TURNS) if d == 3]
+        chained = sum(r["spec_chained" if "spec_tick" in kw else "chained"] for r in deep)
+        admits = sum(r["async_admissions"] for r in deep)
+        if chained < 1 or admits < 1:
+            raise SystemExit(f"FAILED serve_pipe: {name}: at depth 3 {chained} chained "
+                             f"dispatches, {admits} admissions behind a tick in flight; "
+                             f"want >= 1 of each")
+        for i, r in enumerate(runs + [profiled]):
+            log(f"[serve_pipe] {name} run {i + 1} depth "
+                f"{(PIPE_TURNS + (3,))[i]}{' profiled' if i >= len(runs) else ''}: setup "
+                f"{r['setup_s']:.3f} s, wall "
+                f"{r['wall_s']:.3f} s, {r['tok_s']:.2f} tok/s, {json.dumps(r['breakdown'])}"
+                + (f", device kernel time {r['kernel_s']:.3f} s" if "kernel_s" in r else ""))
+        by = {}
+        for d in (1, 3):
+            turns = [r for r, dd in zip(runs, PIPE_TURNS) if dd == d]
+            wall = sum(r["wall_s"] for r in turns) / len(turns)
+            by[d] = dict(tok_s=[r["tok_s"] for r in turns],
+                         busy=profiled["kernel_s"] / wall,
+                         ttft_mid_ms=[r["ttft_mid_ms"] for r in turns],
+                         ttft_second_ms=[r["ttft_second_ms"] for r in turns],
+                         chained=[r["chained"] + r["spec_chained"] for r in turns],
+                         async_admissions=[r["async_admissions"] for r in turns])
+        summary[name] = by
+        log(f"[serve_pipe] {name}: 16 x {PIPE_STEPS} tokens, ids equal in all "
+            f"{len(runs) + 1} runs; tok/s depth 1 {by[1]['tok_s']} depth 3 {by[3]['tok_s']} "
+            f"(turns {PIPE_TURNS}); device busy share depth 1 {by[1]['busy']:.4f} depth 3 "
+            f"{by[3]['busy']:.4f} (kernel time of the profiled run); TTFT p50 of the "
+            f"mid-stream admissions (requests 2-8) ms "
+            f"depth 1 {by[1]['ttft_mid_ms']} depth 3 {by[3]['ttft_mid_ms']}, of the last 8 "
+            f"depth 1 {by[1]['ttft_second_ms']} depth 3 {by[3]['ttft_second_ms']}; chained "
+            f"dispatches depth 3 {by[3]['chained']}, admissions behind a tick depth 3 "
+            f"{by[3]['async_admissions']}; no sync in a tick or admission dispatch; "
+            f"{time.time() - t0:.1f} s ({card})")
+    return summary
+
+
 def step_weight_bytes(params) -> float:
     """Bytes of weights and scales one decode step streams: every layer of
     the quantized matrices and the classifier, each value and scale read
@@ -5973,6 +6217,8 @@ def main() -> int:
                     phase_generate(torch, cfg, params, tokenizer)
                 elif ph == "prefill_t1":
                     phase_prefill_t1(torch, cfg, params)
+                elif ph == "serve_pipe":
+                    serving[ph] = phase_serve_pipe(torch, cfg, params, tokenizer, card)
                 elif ph == "spec_draft":
                     phase_spec_draft(torch, cfg, params, tokenizer,
                                      start_count=lambda: reset_launches(*modules))
@@ -6115,7 +6361,8 @@ def main() -> int:
             "launches_by_form", "gemm", "by_m", "mmv", "device_ms", "f32_device_ms", "s16",
             "t2", "one_query", "paged", "standalone", "standalone_launches",
             "standalone_launches_yi_kv8_path", "rows_body", "rows_body_launches", "t512",
-            "launches_warmup_path", "stream_body_launches")
+            "launches_warmup_path", "stream_body_launches", "launches_pipe_path",
+            "standalone_launches_pipe_path", "rows_body_launches_pipe_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,10 +53,22 @@ What it keeps from the JAX engine:
   allocator growth lands inside a request; `compile_cache` names the
   directory the kernels are built into and loaded from (a later process
   reuses its libraries: the counterpart of JAX's persistent compilation
-  cache).
+  cache);
+- the **pipelined loop** (rama_tpu's `_loop_once`, engine.py:1729-1862): up
+  to `_PIPELINE_DEPTH` plain or spec ticks in flight, each successor
+  dispatched from the device-resident tokens (`_dispatch_chained`) or
+  (tokens, pos, hist) carries (`_dispatch_spec_chained`) of the tick before
+  it, and each tick's results fetched one tick behind (`_process_inflight`,
+  `_process_spec_inflight`); **async-firsts admission**: a queued request's
+  prefill is dispatched behind the in-flight ticks (`_admit_dispatch`, its
+  slot marked `prefilling`) and its first token fetched and emitted once
+  they drain (`_complete_admit_jobs`). No dispatch waits for the device: on
+  the card every host array goes up through pinned memory without a stream
+  sync (`_upload`), every fetch is a copy into pinned memory behind a
+  recorded event that the processing step waits on (`_start_fetch`,
+  `_fetched`), and the sampler picks its walk on the device.
 
-Not ported yet (ROADMAP.md): pipelined/chained ticks (and chained spec
-ticks), async-firsts admission, chunked prefill, tensor/data/sequence
+Not ported yet (ROADMAP.md): chunked prefill, tensor/data/sequence
 parallelism (the paged pool's dp sharding with it), multi-host. Their
 EngineConfig fields raise NotImplementedError when set.
 
@@ -66,6 +78,7 @@ the async server. Tokens stream per request through `Request.queue`.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -111,10 +124,14 @@ class Request:
 
 
 class _Slot:
-    __slots__ = ("request", "pos", "generated", "last_token", "hist", "draft_pos")
+    __slots__ = ("request", "pos", "generated", "last_token", "hist", "draft_pos",
+                 "prefilling")
 
     def __init__(self):
         self.request: Request | None = None
+        # assigned at admission dispatch, until its first token is fetched
+        # (_complete_admit_jobs): no tick runs it meanwhile
+        self.prefilling = False
         self.pos = 0
         self.generated = 0
         self.last_token = 0
@@ -163,6 +180,15 @@ def _prefill_k_cap(t_pad: int, dp: int = 1) -> int:
 # dormancy decision (rama_tpu/runtime/engine.py:143-147)
 _SPEC_DORMANT_TICKS = 64
 _SPEC_PROBE_ROUNDS = 8
+
+# Dispatched-but-unfetched ticks kept in flight (the chain depth;
+# rama_tpu/runtime/engine.py:149-155). One tick in flight only hides the
+# ~25 ms host round-trip when a dispatch's device time exceeds it; short
+# ticks / small batches starve the device in the dispatch gap (measured:
+# b=1 int4 spec dispatches at ~33 ms device lost to plain, b=8 plain at
+# ~87 ms did not). Three keeps the device fed through one full round-trip
+# of jitter either side.
+_PIPELINE_DEPTH = 3
 
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
@@ -258,6 +284,13 @@ class Engine:
         # ticks, then probes again
         self._spec_window: "deque[float]" = deque(maxlen=64)
         self._spec_dormant = 0
+        # the pipeline: dispatched-but-unfetched plain and spec ticks, the
+        # admissions whose first tokens are not fetched yet, and the last
+        # spec tick's device carries (tokens, pos, hist)
+        self._inflight_q: deque = deque()
+        self._spec_inflight_q: deque = deque()
+        self._admit_jobs: list = []
+        self._last_spec = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
@@ -405,6 +438,7 @@ class Engine:
             while True:
                 for temps, tps in routes(b):
                     self._dev_spec_tick(zi, zi, temps, tps, self._hist_matrix(), self.spec, m)
+                    self._sync()
                 count += 1
                 if m == 1:
                     break
@@ -421,9 +455,9 @@ class Engine:
                 tokens = np.zeros((k_pad, t_pad), np.int64)
                 lens = np.ones(k_pad, np.int32)
                 for temps, tps in routes(k_pad):
-                    # ends in a fetch of the first tokens: a sync after the strip write
                     self._dev_prefill_insert(tokens, lens, temps, tps,
                                              np.zeros((k_pad, 2), np.int64), [0])
+                    self._sync()
                 count += 1
                 if self.draft_mode:
                     self._dev_draft_prefill(tokens, lens, [0])
@@ -433,6 +467,7 @@ class Engine:
             if isinstance(cache, (KVCache, QuantKVCache)):
                 for f in fields(cache):
                     getattr(cache, f.name).zero_()
+        self._last_spec = None
         self._sync()
         return {"programs": count, "seconds": time.time() - t0}
 
@@ -440,11 +475,55 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- host <-> device without a stream sync ---------------------------------
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy goes
+        from pinned memory with non_blocking, so the dispatch never waits
+        for the stream (a pageable copy ends in a stream sync); PyTorch's
+        caching host allocator keeps the pinned block until the copy ran,
+        and the copy is a snapshot of the array as it is now (the page
+        tables change while ticks are in flight)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _start_fetch(self, t: torch.Tensor):
+        """Queue the copy of device tensor t into pinned host memory behind
+        the work that makes it, and an event after it: (host tensor, event
+        or None on the CPU). `_fetched` waits for the event."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _fetched(fetch) -> np.ndarray:
+        """The host copy of a `_start_fetch`, once the device has made it."""
+        host, done = fetch
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
     # -- admission ------------------------------------------------------------
 
     def _admit(self):
         """Admit every queued request a free slot exists for, prefilling the
-        burst in one padded (k, T) forward per area-capped group."""
+        burst in one padded (k, T) forward per area-capped group, and emit
+        the first tokens."""
+        self._admit_dispatch()
+        self._complete_admit_jobs()
+
+    def _admit_dispatch(self):
+        """Dispatch-side half of admission (rama_tpu's _admit_dispatch):
+        grab free slots and dispatch the batched prefill(s). The first
+        tokens stay on the device in self._admit_jobs until
+        _complete_admit_jobs fetches and emits them, so the dispatch can
+        queue behind in-flight ticks (async-firsts admission)."""
         batch: list[tuple[int, _Slot, Request]] = []
         for i, slot in enumerate(self.slots):
             if not slot.free:
@@ -464,9 +543,29 @@ class Engine:
             for i, slot, req in batch:
                 self._release_pages(i)
                 slot.request = None
+                slot.prefilling = False
                 if req.error is None:
                     req.error = "engine error during prefill"
                     req.queue.put(None)
+
+    def _complete_admit_jobs(self):
+        """Fetch the first tokens of every dispatched-but-unfetched prefill
+        group (waits until the device has made them) and emit them. Entries
+        whose slot was reassigned or failed since dispatch are skipped."""
+        while self._admit_jobs:
+            job = self._admit_jobs.pop(0)
+            firsts = self._fetched(job["firsts"])
+            for j, (slot_idx, slot, req, ids, key) in enumerate(job["entries"]):
+                if slot.request is not req:
+                    continue
+                slot.prefilling = False
+                slot.last_token = int(firsts[j])
+                if req.echo_prompt:
+                    # the reference stream re-emits prompt tokens while forcing
+                    # them (mod.rs:227-241)
+                    for t in req.prompt_ids:
+                        req.queue.put(self.tokenizer.decode_token(t))
+                self._emit(slot, slot.last_token)
 
     def _start_requests(self, batch):
         entries = []
@@ -488,7 +587,7 @@ class Engine:
         t_all = min(_bucket(max(len(e[3]) for e in entries)), self.max_len)
         c = _prefill_k_cap(t_all)
         for i in range(0, len(entries), c):
-            self._prefill_group(entries[i:i + c])
+            self._dispatch_prefill_group(entries[i:i + c])
 
     def _pad_entries(self, entries):
         """Pad entries to one (k_pad, t_pad) bucket; pad rows duplicate the
@@ -510,63 +609,60 @@ class Engine:
             keys[j] = key
         return tokens, true_lens, temps, top_ps, keys
 
-    def _prefill_group(self, entries):
+    def _dispatch_prefill_group(self, entries):
         tokens, true_lens, temps, top_ps, keys = self._pad_entries(entries)
         slots = [e[0] for e in entries]
         with self.phases.phase("prefill"):
-            firsts = self._dev_prefill_insert(tokens, true_lens, temps, top_ps, keys, slots)
+            firsts = self._start_fetch(
+                self._dev_prefill_insert(tokens, true_lens, temps, top_ps, keys, slots))
             if self.draft_mode:
                 self._dev_draft_prefill(tokens, true_lens, slots)
-        for j, (slot_idx, slot, req, ids, key) in enumerate(entries):
+        for slot_idx, slot, req, ids, key in entries:
             self.slot_keys[slot_idx] = key
+            # the slot is assigned at dispatch (prefilling until its first
+            # token is fetched), so a second dispatch cannot take it
             slot.request = req
+            slot.prefilling = True
             slot.pos = len(ids)            # next decode position
             slot.draft_pos = len(ids)      # draft cache rows 0..len-1 written
             slot.generated = 0
-            slot.last_token = int(firsts[j])
             # _emit writes every emitted token at its position, `first` included
             slot.hist = np.zeros(self._hist_cap, np.int64)
             slot.hist[: len(ids)] = ids
-            if req.echo_prompt:
-                # the reference stream re-emits prompt tokens while forcing
-                # them (mod.rs:227-241)
-                for t in req.prompt_ids:
-                    req.queue.put(self.tokenizer.decode_token(t))
-            self._emit(slot, slot.last_token)
+        self._admit_jobs.append({"entries": entries, "firsts": firsts})
 
     @torch.no_grad()
     def _dev_prefill_insert(self, tokens, true_lens, temps, top_ps, keys,
-                            slots: list[int]) -> np.ndarray:
+                            slots: list[int]) -> torch.Tensor:
         """Batched (k, T) prefill into a scratch cache, first-token sampling
         at each row's last real query (position true_lens-1, keyed like the
         decode ticks), then the scratch rows copied into the slots — for an
         int8 cache quantized and inserted by the strip writer, every slot
         and layer in one launch. The scratch is in the activation dtype
-        (the JAX engine's is bf16 whatever the params)."""
-        dev = self.device
+        (the JAX engine's is bf16 whatever the params). Returns the (k,)
+        first tokens on the device, unfetched."""
         t_pad = tokens.shape[1]
-        lens = torch.from_numpy(true_lens).to(dev)
+        lens = self._upload(true_lens)
         last, scratch = self._prefill_scratch(self.params, self.cfg, tokens, lens)
         if (temps > 0).any():
-            firsts = sample_batched_keyed(
-                last[:, 0], torch.from_numpy(keys).to(dev), lens.long() - 1,
-                torch.from_numpy(temps).to(dev), torch.from_numpy(top_ps).to(dev))
+            firsts = sample_batched_keyed(last[:, 0], self._upload(keys), lens.long() - 1,
+                                          self._upload(temps), self._upload(top_ps))
         else:
             firsts = sample_greedy(last[:, 0])
         if self.paged:
             # the group's real entries only: pad rows duplicate the last one
-            tables = torch.from_numpy(self.page_tables[slots]).to(dev)
-            insert_prefill_paged(self.cache, scratch.k, scratch.v, tables,
+            insert_prefill_paged(self.cache, scratch.k, scratch.v,
+                                 self._upload(self.page_tables[slots]),
                                  min(t_pad, self.pages_per_slot * self.cache.page_size))
-            return firsts.cpu().numpy()
+            return firsts
         t_ins = min(t_pad, self.max_len)
         if isinstance(self.cache, QuantKVCache):
             c = self.cache
             write_kv_strips_q8(c.k, c.v, c.ks, c.vs, scratch.k, scratch.v,
-                               torch.tensor(slots, dtype=torch.int32, device=dev), t_ins)
+                               self._upload(np.asarray(slots, np.int32)), t_ins)
         else:
             _copy_strips(self.cache, scratch, slots, t_ins)
-        return firsts.cpu().numpy()
+        return firsts
 
     def _prefill_scratch(self, params, cfg: ModelConfig, tokens: np.ndarray,
                          lens: torch.Tensor):
@@ -580,7 +676,7 @@ class Engine:
         idx = torch.arange(t_pad, device=dev)[None, :]
         # padded positions write the last scratch row; no real query sees it
         pos_index = torch.where(idx < lens[:, None], idx, t_pad - 1)
-        return forward(params, cfg, torch.from_numpy(tokens).to(dev), pos_index, scratch,
+        return forward(params, cfg, self._upload(tokens), pos_index, scratch,
                        plen=lens, logit_rows=lens.long() - 1)
 
     @torch.no_grad()
@@ -591,23 +687,29 @@ class Engine:
         _draft_prefill_insert)."""
         t_ins = min(tokens.shape[1], self.max_len)
         _, scratch = self._prefill_scratch(self.dparams, self.dcfg, tokens,
-                                           torch.from_numpy(true_lens).to(self.device))
+                                           self._upload(true_lens))
         _copy_strips(self.dcache, scratch, slots, t_ins)
 
     # -- decode -----------------------------------------------------------------
 
-    @torch.no_grad()
     def _dev_tick(self, tokens, pos, temps, tps, n: int) -> np.ndarray:
+        """Blocking decode tick (fetches the sampled tokens); warmup's."""
+        return self._fetched(self._start_fetch(self._dev_tick_async(tokens, pos, temps, tps, n)))
+
+    @torch.no_grad()
+    def _dev_tick_async(self, tokens, pos, temps, tps, n: int) -> torch.Tensor:
         """n sampled decode steps for all slots; the sampled tokens feed the
-        next step on the device and are fetched once, as (n, B)."""
-        dev = self.device
-        tok = torch.from_numpy(tokens).to(dev)
-        p = torch.from_numpy(pos).to(dev)
+        next step on the device. Returns the DEVICE (n, B) tokens without
+        waiting for them: the last row feeds a chained successor tick.
+        `tokens` may be a host array or a device row of an earlier tick's
+        output; the page tables go up as they are now."""
+        tok = tokens if isinstance(tokens, torch.Tensor) else self._upload(tokens)
+        p = self._upload(pos)
         sampled = bool((temps > 0).any())
         if sampled:
-            keys = torch.from_numpy(self.slot_keys).to(dev)
-            t = torch.from_numpy(temps).to(dev)
-            tp = torch.from_numpy(tps).to(dev)
+            keys = self._upload(self.slot_keys)
+            t = self._upload(temps)
+            tp = self._upload(tps)
         tables = self._device_tables()
         outs = []
         for _ in range(n):
@@ -620,7 +722,7 @@ class Engine:
                    else sample_greedy(logits))
             outs.append(tok)
             p = p + 1
-        return torch.stack(outs).cpu().numpy()
+        return torch.stack(outs)
 
     def _emit(self, slot: _Slot, token: int):
         req = slot.request
@@ -644,6 +746,7 @@ class Engine:
     def _finish(self, slot: _Slot):
         slot.request.queue.put(None)  # end-of-stream sentinel
         slot.request = None
+        slot.prefilling = False
         self._release_pages(self.slots.index(slot))
         self.metrics["requests_completed"] += 1
 
@@ -665,19 +768,44 @@ class Engine:
             self.allocator.release(i)
             self.page_tables[i, :] = self.trash_page
 
-    def _reserve_tick_pages(self, pos: np.ndarray, n: int) -> None:
+    def _reserve_tick_pages(self, pos: np.ndarray, n: int, finish_on_fail: bool) -> bool:
         """Grow every active slot's table to cover the n positions a tick
-        writes (rama_tpu's _reserve_tick_pages); a slot the pool cannot
-        grow ends with "out of KV cache pages"."""
+        writes (rama_tpu's _reserve_tick_pages, engine.py:2060). False if a
+        slot cannot be grown: with finish_on_fail that slot's request ends
+        with "out of KV cache pages" (a fresh dispatch), otherwise the
+        caller declines to chain and the next fresh dispatch handles it."""
         if not self.paged:
-            return
+            return True
+        ok = True
         for i, s in enumerate(self.slots):
             if not s.free and not self._reserve(i, min(int(pos[i]) + n, self.max_len)):
-                s.request.error = "out of KV cache pages"
-                self._finish(s)
+                ok = False
+                if finish_on_fail:
+                    s.request.error = "out of KV cache pages"
+                    self._finish(s)
+        return ok
 
     def _device_tables(self) -> torch.Tensor | None:
-        return torch.from_numpy(self.page_tables).to(self.device) if self.paged else None
+        """This dispatch's snapshot of the page tables (None: dense)."""
+        return self._upload(self.page_tables) if self.paged else None
+
+    @contextlib.contextmanager
+    def _tick_phase(self, name: str):
+        """A tick's "dispatch" or "fetch" phase, its host time also counted
+        in decode_s. rama_tpu counts the fetch alone (engine.py:2040-2045),
+        its dispatch being asynchronous; the port's dispatch launches the
+        tick's kernels from the host, so decode_s counts both, and
+        decode_tok_per_s stays tick tokens over the host time of ticks."""
+        t0 = time.time()
+        with self.phases.phase(name):
+            yield
+        self.metrics["decode_s"] += time.time() - t0
+
+    def _reqs(self) -> list:
+        """Each slot's request as a dispatch sees it (None: free or
+        prefilling); processing discards the rows of a slot whose request
+        changed since."""
+        return [None if s.prefilling else s.request for s in self.slots]
 
     def _loop(self):
         # a device-loop error fails the in-flight requests, rebuilds the
@@ -688,18 +816,74 @@ class Engine:
             except Exception:  # noqa: BLE001 — engine thread must survive
                 traceback.print_exc()
                 self.metrics["engine_errors"] += 1
+                self._inflight_q.clear()
+                self._spec_inflight_q.clear()
+                self._admit_jobs.clear()  # their slots finish below
+                self._last_spec = None
                 for s in self.slots:
                     if not s.free:
+                        s.prefilling = False
                         s.request.error = "engine error during decode"
                         self._finish(s)
                 self.cache = self._create_cache(len(self.slots))
                 if self.draft_mode:
                     self.dcache = self._create_draft_cache(len(self.slots))
+        # graceful stop: the in-flight ticks' tokens and the async-admitted
+        # first tokens reach their streams instead of vanishing with the
+        # thread (engine.py:1654-1697)
+        while self._inflight_q:
+            try:
+                self._process_inflight(self._inflight_q.popleft())
+            except Exception:  # noqa: BLE001
+                self._inflight_q.clear()
+        while self._spec_inflight_q:
+            try:
+                self._process_spec_inflight(self._spec_inflight_q.popleft())
+            except Exception:  # noqa: BLE001
+                self._spec_inflight_q.clear()
+        try:
+            self._complete_admit_jobs()
+        except Exception:  # noqa: BLE001
+            self._admit_jobs.clear()
 
     def _loop_once(self):
+        """One iteration of rama_tpu's pipelined loop (engine.py:1729-1862):
+        while tick k's tokens are still on the device, ticks k+1.. are
+        dispatched from its device output (up to _PIPELINE_DEPTH in
+        flight), then k's tokens are fetched and emitted, so the host's
+        fetch, emit and next dispatch overlap device work. The chain breaks
+        whenever host state must reach the next tick (a queued admission,
+        engine stop)."""
+        if self._inflight_q or self._spec_inflight_q:
+            # async-firsts admission: the prefill queues behind the in-flight
+            # ticks; its first tokens stay on the device until the drain, and
+            # no tick chains meanwhile (_chain_ok) so none lands after the
+            # insert with stale rows
+            if (self.admission.qsize() > 0 and not self._admit_jobs
+                    and not self._stop.is_set()):
+                with self.phases.phase("admit"):
+                    self._admit_dispatch()
+        if self._inflight_q:
+            while len(self._inflight_q) < _PIPELINE_DEPTH and self._chain_ok():
+                nxt = self._dispatch_chained(self._inflight_q[-1])
+                if nxt is None:
+                    break
+                self._inflight_q.append(nxt)
+            self._process_inflight(self._inflight_q.popleft())
+            if self._inflight_q:
+                return
+        if self._spec_inflight_q:
+            while len(self._spec_inflight_q) < _PIPELINE_DEPTH and self._spec_chain_ok():
+                nxt = self._dispatch_spec_chained(self._spec_inflight_q[-1])
+                if nxt is None:
+                    break
+                self._spec_inflight_q.append(nxt)
+            self._process_spec_inflight(self._spec_inflight_q.popleft())
+            if self._spec_inflight_q:
+                return
         with self.phases.phase("admit"):
             self._admit()
-        active = [s for s in self.slots if not s.free]
+        active = [s for s in self.slots if not s.free and not s.prefilling]
         if not active:
             self._wake.wait(timeout=0.05)
             self._wake.clear()
@@ -710,48 +894,16 @@ class Engine:
         temps = np.zeros(b, np.float32)
         tps = np.full(b, 0.9, np.float32)
         for i, s in enumerate(self.slots):
-            if s.free:
+            if s.free or s.prefilling:
                 continue
             tokens[i] = s.last_token
             pos[i] = s.pos
             temps[i] = s.request.temperature
             tps[i] = s.request.top_p
-        if self._spec_tick(active, tokens, pos, temps, tps):
-            return
-        if self._spec_dormant > 0:
-            self._spec_dormant -= 1  # count down to the next spec probe
-        # shrink the tick so no slot overshoots its remaining budget by much
-        n = self.ecfg.decode_tick
-        remaining = min(s.request.steps - s.generated for s in active)
-        while n > 1 and n // 2 >= remaining:
-            n //= 2
-        self._reserve_tick_pages(pos, n)
-        t0 = time.time()
-        with self.phases.phase("decode"):
-            out = self._dev_tick(tokens, pos, temps, tps, n)
-        self.metrics["decode_ticks"] += 1
-        self.metrics["decode_s"] += time.time() - t0
-        with self.phases.phase("emit"):
-            for i, s in enumerate(self.slots):
-                if s.free:
-                    continue
-                for j in range(n):
-                    s.pos += 1
-                    s.last_token = int(out[j, i])
-                    self.metrics["tick_tokens"] += 1
-                    self._emit(s, s.last_token)
-                    if s.free:  # finished mid-tick; drop the overshoot
-                        break
-
-    # -- speculation --------------------------------------------------------
-
-    def _spec_tick(self, active, tokens, pos, temps, tps) -> bool:
-        """Serve one spec tick of m rounds if speculation is on and awake;
-        False leaves the tick to plain decode (m = 0: dormant, or no room
-        before the cache end). The host rules of rama_tpu's engine
-        (:1815-1828): every chunk position stays < max_len (pos + m(k+1) <=
-        max_len), and m halves while half of it still covers the tightest
-        remaining budget (each round emits at least one token)."""
+        # a spec tick of m rounds (engine.py:1815-1828): every chunk position
+        # stays < max_len (pos + m(k+1) <= max_len), and m halves while half
+        # of it still covers the tightest remaining budget (each round emits
+        # at least one token); m = 0 (dormant, or no room) serves a plain tick
         k = self.spec
         m = self.spec_rounds if (k and not self._spec_dormant) else 0
         if m:
@@ -761,20 +913,194 @@ class Engine:
             remaining = min(s.request.steps - s.generated for s in active)
             while m > 1 and m // 2 >= remaining:
                 m //= 2
-        if not m:
-            return False
-        self._reserve_tick_pages(pos, m * (k + 1))
-        if self.draft_mode:
-            with self.phases.phase("draft_resync"):
-                self._maybe_draft_resync()
-        t0 = time.time()
-        with self.phases.phase("decode"):
-            out = self._dev_spec_tick(tokens, pos, temps, tps, self._hist_matrix(), k, m)
+        if m:
+            self._reserve_tick_pages(pos, m * (k + 1), finish_on_fail=True)
+            if self.draft_mode:
+                with self.phases.phase("draft_resync"):
+                    self._maybe_draft_resync()
+            with self._tick_phase("dispatch"):
+                out = self._dev_spec_tick(tokens, pos, temps, tps, self._hist_matrix(), k, m)
+            self._spec_inflight_q.append(
+                {"fetch": self._start_fetch(out), "pos": pos, "m": m, "k": k, "temps": temps,
+                 "tps": tps, "carry": self._last_spec, "gen_ahead": m * (k + 1),
+                 "reqs": self._reqs()})
+            return
+        # shrink the tick so no slot overshoots its remaining budget by much
+        n = self.ecfg.decode_tick
+        remaining = min(s.request.steps - s.generated for s in active)
+        while n > 1 and n // 2 >= remaining:
+            n //= 2
+        self._reserve_tick_pages(pos, n, finish_on_fail=True)
+        with self._tick_phase("dispatch"):
+            out = self._dev_tick_async(tokens, pos, temps, tps, n)
+        self._inflight_q.append(
+            {"out": out, "fetch": self._start_fetch(out), "n": n, "pos": pos, "temps": temps,
+             "tps": tps, "gen_ahead": n, "reqs": self._reqs()})
+
+    def _chain_ok(self) -> bool:
+        """Dispatch plain tick k+1 from tick k's device tokens? Only when no
+        host state change is pending (rama_tpu's _chain_ok): the admission
+        queue is empty and no async-admitted prefill is unfetched (a chained
+        tick after the insert would overwrite the new slot's rows),
+        speculation is off or dormant (spec ticks chain through
+        _dispatch_spec_chained), and the engine is not stopping."""
+        return ((not self.spec or self._spec_dormant > 0)
+                and self.admission.qsize() == 0
+                and not self._admit_jobs
+                and not self._stop.is_set())
+
+    def _dispatch_chained(self, inf):
+        """Dispatch the successor of in-flight tick `inf` (the newest)
+        before fetching it. Tokens come from its device output (out[-1]),
+        positions are its positions + n for the slots still serving the
+        request they served then (0 for the rest), temperatures and top-ps
+        its own. Slots that finish inside an in-flight tick waste their
+        chained rows (discarded at emit; their KV writes land above any
+        attended position). None: nothing worth chaining."""
+        b = len(self.slots)
+        pos = np.zeros(b, np.int64)
+        act = []
+        for i, s in enumerate(self.slots):
+            if not s.free and s.request is inf["reqs"][i]:
+                pos[i] = inf["pos"][i] + inf["n"]
+                act.append(s)
+        if not act:
+            return None
+        # assume every in-flight tick emits fully: gen_ahead counts the
+        # whole unfetched pipeline, not just the newest tick
+        remaining = min(s.request.steps - (s.generated + inf["gen_ahead"]) for s in act)
+        if remaining <= 0:
+            return None
+        n = self.ecfg.decode_tick
+        while n > 1 and n // 2 >= remaining:
+            n //= 2
+        if not self._reserve_tick_pages(pos, n, finish_on_fail=False):
+            return None
+        with self._tick_phase("dispatch"):
+            out = self._dev_tick_async(inf["out"][-1], pos, inf["temps"], inf["tps"], n)
+        return {"out": out, "fetch": self._start_fetch(out), "n": n, "pos": pos,
+                "temps": inf["temps"], "tps": inf["tps"], "reqs": inf["reqs"],
+                "gen_ahead": inf["gen_ahead"] + n}
+
+    def _process_inflight(self, inf):
+        """Fetch in-flight tick `inf`'s tokens (waits until the device has
+        made them) and emit them. Slots whose request changed since
+        dispatch discard their rows."""
+        with self._tick_phase("fetch"):
+            out = self._fetched(inf["fetch"])                   # (n, B)
         self.metrics["decode_ticks"] += 1
-        self.metrics["decode_s"] += time.time() - t0
+        if self._spec_dormant > 0:
+            self._spec_dormant -= 1  # count down to the next spec probe
         with self.phases.phase("emit"):
-            self._emit_spec(out[..., :k + 1], out[..., k + 1], k)
-        return True
+            for i, s in enumerate(self.slots):
+                if s.free or s.request is not inf["reqs"][i]:
+                    continue
+                for j in range(out.shape[0]):
+                    s.pos += 1
+                    s.last_token = int(out[j, i])
+                    self.metrics["tick_tokens"] += 1
+                    self._emit(s, s.last_token)
+                    if s.free:  # finished mid-tick; drop the overshoot
+                        break
+
+    # -- speculation --------------------------------------------------------
+
+    def _spec_chain_ok(self) -> bool:
+        """Dispatch spec tick k+1 from tick k's device carries? The host
+        conditions of _chain_ok without the speculation one (rama_tpu's
+        _spec_chain_ok)."""
+        return bool(self.spec and self.admission.qsize() == 0
+                    and not self._admit_jobs
+                    and not self._stop.is_set())
+
+    def _dispatch_spec_chained(self, inf):
+        """Dispatch the successor of in-flight spec tick `inf` (the newest)
+        from its device carries (tokens, pos, hist). The host knows only
+        the worst-case positions (every round fully accepted), so the
+        m-shrink and the page reservation use those: conservative, never
+        unsafe. A slot no longer serving its request restarts at position
+        0, as a free slot does in a fresh dispatch. None: nothing worth
+        chaining."""
+        if inf["carry"] is None:
+            return None
+        k = inf["k"]
+        b = len(self.slots)
+        act = [(i, s) for i, s in enumerate(self.slots)
+               if not s.free and s.request is inf["reqs"][i]]
+        if not act:
+            return None
+        pos_wc = np.zeros(b, np.int64)
+        for i, _ in act:
+            pos_wc[i] = inf["pos"][i] + inf["m"] * (k + 1)
+        m = self.spec_rounds
+        worst = max(pos_wc[i] for i, _ in act)
+        while m and worst + m * (k + 1) > self.max_len:
+            m //= 2
+        if not m:
+            return None
+        remaining = min(s.request.steps - (s.generated + inf["gen_ahead"]) for _, s in act)
+        if remaining <= 0:
+            return None
+        while m > 1 and m // 2 >= remaining:
+            m //= 2
+        if not self._reserve_tick_pages(pos_wc, m * (k + 1), finish_on_fail=False):
+            return None
+        toks_d, pos_d, hist_d = inf["carry"]
+        live = np.zeros(b, np.int64)
+        live[[i for i, _ in act]] = 1
+        with self._tick_phase("dispatch"):
+            out = self._dev_spec_tick(toks_d, pos_d * self._upload(live), inf["temps"],
+                                      inf["tps"], hist_d, k, m)
+        return {"fetch": self._start_fetch(out), "pos": pos_wc, "m": m, "k": k,
+                "temps": inf["temps"], "tps": inf["tps"], "carry": self._last_spec,
+                "reqs": inf["reqs"], "gen_ahead": inf["gen_ahead"] + m * (k + 1)}
+
+    def _process_spec_inflight(self, inf):
+        """Fetch in-flight spec tick `inf`'s samples and accepts (waits until
+        the device has made them) and emit, round by round, each round's
+        accepted drafts plus the token after them; a slot that finishes
+        drops the rest, and slots whose request changed since dispatch
+        discard their rows. Then the accept-rate bookkeeping and adaptive
+        dormancy (rama_tpu's _process_spec_inflight): below
+        spec_min_accept over the last rounds plain ticks serve faster, so
+        spec sleeps for _SPEC_DORMANT_TICKS."""
+        k = inf["k"]
+        with self._tick_phase("fetch"):
+            out = self._fetched(inf["fetch"])                   # (m, B, k + 2)
+        self.metrics["decode_ticks"] += 1
+        samples, accepts = out[..., :k + 1], out[..., k + 1]
+        with self.phases.phase("emit"):
+            for r in range(inf["m"]):
+                drafted = accepted = 0
+                for i, s in enumerate(self.slots):
+                    if s.free or s.request is not inf["reqs"][i]:
+                        continue
+                    a = int(accepts[r, i])
+                    drafted += k
+                    accepted += a
+                    for j in range(a + 1):
+                        s.pos += 1
+                        s.last_token = int(samples[r, i, j])
+                        self.metrics["tick_tokens"] += 1
+                        self._emit(s, s.last_token)
+                        if s.free:
+                            break
+                self.metrics["spec_drafted"] += drafted
+                self.metrics["spec_accepted"] += accepted
+                if drafted:
+                    self._spec_window.append(accepted / drafted)
+        if self.draft_mode:
+            # the rounds' draft steps wrote rows through each slot's position
+            # (engine.py:2016-2021)
+            for i, s in enumerate(self.slots):
+                if not s.free and s.request is inf["reqs"][i]:
+                    s.draft_pos = s.pos
+        thr = self.ecfg.spec_min_accept
+        if (thr > 0 and len(self._spec_window) >= _SPEC_PROBE_ROUNDS
+                and sum(self._spec_window) / len(self._spec_window) < thr):
+            self._spec_dormant = _SPEC_DORMANT_TICKS
+            self._spec_window.clear()
+            self.metrics["spec_dormancies"] += 1
 
     def _hist_matrix(self) -> np.ndarray:
         """(B, cap + 1) token histories by position (zeros for free slots);
@@ -786,26 +1112,30 @@ class Engine:
         return h
 
     @torch.no_grad()
-    def _dev_spec_tick(self, tokens, pos, temps, tps, hist, k: int, m: int) -> np.ndarray:
+    def _dev_spec_tick(self, tokens, pos, temps, tps, hist, k: int, m: int) -> torch.Tensor:
         """m speculative rounds for all slots on the device; tokens, positions
-        and histories stay tensors between rounds, and the samples and
-        accepts are fetched once, as (m, B, k + 2): columns 0..k the
-        round's samples, column k + 1 its accept count."""
-        dev = self.device
-        tok = torch.from_numpy(tokens).to(dev)
-        p = torch.from_numpy(pos).to(dev)
-        h = torch.from_numpy(hist).to(dev)
+        and histories stay tensors between rounds. Returns the DEVICE (m, B,
+        k + 2) samples and accepts without waiting for them (columns 0..k
+        the round's samples, column k + 1 its accept count) and keeps the
+        final (tokens, pos, hist) carries in self._last_spec, from which a
+        chained successor dispatches. `tokens` / `pos` / `hist` may be host
+        arrays or an earlier tick's carries."""
+        def dev(a):
+            return a if isinstance(a, torch.Tensor) else self._upload(a)
+
+        tok, p, h = dev(tokens), dev(pos), dev(hist)
         keys = t = tp = None
         if (temps > 0).any():
-            keys = torch.from_numpy(self.slot_keys).to(dev)
-            t = torch.from_numpy(temps).to(dev)
-            tp = torch.from_numpy(tps).to(dev)
+            keys = self._upload(self.slot_keys)
+            t = self._upload(temps)
+            tp = self._upload(tps)
         tables = self._device_tables()
         outs = []
         for _ in range(m):
             tok, p, samples, accept = self._spec_round(tok, p, h, keys, t, tp, k, tables)
             outs.append(torch.cat([samples, accept[:, None]], dim=1))
-        return torch.stack(outs).cpu().numpy()
+        self._last_spec = (tok, p, h)
+        return torch.stack(outs)
 
     def _spec_round(self, tok, pos, hist, keys, temps, tps, k: int, tables=None):
         """One round (rama_tpu's _spec_round): draft k tokens per slot,
@@ -856,43 +1186,6 @@ class Engine:
             outs.append(tok)
         return torch.stack(outs[:k], dim=1)
 
-    def _emit_spec(self, samples: np.ndarray, accepts: np.ndarray, k: int) -> None:
-        """Emit each round's accepted drafts plus the token after them, round
-        by round; a slot that finishes drops the rest. Then the accept-rate
-        bookkeeping and adaptive dormancy (rama_tpu's
-        _process_spec_inflight): below spec_min_accept over the last rounds,
-        plain ticks serve faster, so spec sleeps for _SPEC_DORMANT_TICKS."""
-        for r in range(samples.shape[0]):
-            drafted = accepted = 0
-            for i, s in enumerate(self.slots):
-                if s.free:
-                    continue
-                a = int(accepts[r, i])
-                drafted += k
-                accepted += a
-                for j in range(a + 1):
-                    s.pos += 1
-                    s.last_token = int(samples[r, i, j])
-                    self.metrics["tick_tokens"] += 1
-                    self._emit(s, s.last_token)
-                    if s.free:
-                        break
-            self.metrics["spec_drafted"] += drafted
-            self.metrics["spec_accepted"] += accepted
-            if drafted:
-                self._spec_window.append(accepted / drafted)
-        if self.draft_mode:
-            # the rounds' draft steps wrote rows through each slot's position
-            for s in self.slots:
-                if not s.free:
-                    s.draft_pos = s.pos
-        thr = self.ecfg.spec_min_accept
-        if (thr > 0 and len(self._spec_window) >= _SPEC_PROBE_ROUNDS
-                and sum(self._spec_window) / len(self._spec_window) < thr):
-            self._spec_dormant = _SPEC_DORMANT_TICKS
-            self._spec_window.clear()
-            self.metrics["spec_dormancies"] += 1
-
     @torch.no_grad()
     def _maybe_draft_resync(self) -> None:
         """Replay every stale slot's emitted gap (positions draft_pos ..
@@ -915,10 +1208,9 @@ class Engine:
             tokens[i] = s.hist[idx]
             pos_index[i] = idx
             s.draft_pos = s.pos
-        dev = self.device
-        _, self.dcache = forward(self.dparams, self.dcfg, torch.from_numpy(tokens).to(dev),
-                                 torch.from_numpy(pos_index).to(dev), self.dcache,
-                                 logit_rows=torch.zeros(b, dtype=torch.int64, device=dev))
+        _, self.dcache = forward(self.dparams, self.dcfg, self._upload(tokens),
+                                 self._upload(pos_index), self.dcache,
+                                 logit_rows=torch.zeros(b, dtype=torch.int64, device=self.device))
         self.metrics["draft_resyncs"] += 1
 
     # -- observability ------------------------------------------------------
@@ -934,8 +1226,8 @@ class Engine:
             "max_slots": len(self.slots),
             "queue_depth": self.admission.qsize(),
             "decode_ticks": m["decode_ticks"],
-            # tick-emitted tokens over tick time (host clock around work
-            # that ends in a device sync); prefill-sampled firsts excluded
+            # tick-emitted tokens over the ticks' dispatch and fetch time
+            # (host clock, _tick_phase); prefill-sampled firsts excluded
             "decode_tok_per_s": (m["tick_tokens"] / m["decode_s"]
                                  if m["decode_s"] else 0.0),
             "spec_accept_rate": (m["spec_accepted"] / m["spec_drafted"]

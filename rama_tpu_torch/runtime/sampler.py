@@ -23,8 +23,9 @@ import torch
 
 # top-k prefilter width: when the nucleus provably closes within the top
 # TOPK_CAP probabilities (or everything past them is under the top-p floor)
-# the CDF walk runs on (B, TOPK_CAP); otherwise the exact full sort runs.
-# Results are identical to the always-full-sort path (sampler.py:30-37).
+# for every row, the CDF walk over (B, TOPK_CAP) gives the ids; otherwise
+# the exact full sort's walk does. Results are identical to the
+# always-full-sort path (sampler.py:30-37).
 TOPK_CAP = 1024
 
 
@@ -58,7 +59,13 @@ def _full_sort(probs):
 def _top_p_from_u(logits: torch.Tensor, u: torch.Tensor, temperature, top_p
                   ) -> torch.Tensor:
     """Nucleus sampling over (B, V) logits with one uniform u (B,) in [0, 1)
-    per row -> (B,) int64 ids. temperature / top_p: scalars or (B,)."""
+    per row -> (B,) int64 ids. temperature / top_p: scalars or (B,).
+
+    Past 2 * TOPK_CAP ids the choice between the capped walk and the full
+    sort's is made on the device, as JAX's `lax.cond(jnp.all(row_exact),
+    ...)` makes it (sampler.py:102): both walks run and a 0-d `where`
+    picks one, so no host read stalls a dispatch (a chained sampled tick
+    would otherwise wait for the device)."""
     b, v = logits.shape
     dev = logits.device
     logits = logits.float()
@@ -75,10 +82,9 @@ def _top_p_from_u(logits: torch.Tensor, u: torch.Tensor, temperature, top_p
     topv, topi = torch.topk(probs, TOPK_CAP, dim=-1, sorted=True)
     kept_cap = torch.where(topv > cutoff, topv, torch.zeros_like(topv))
     row_exact = (topv[:, -1] <= cutoff[:, 0]) | (kept_cap.sum(dim=-1) > tp[:, 0])
-    if bool(row_exact.all()):
-        return _nucleus_walk(topv, topi, u, tp, cutoff)
+    capped = _nucleus_walk(topv, topi, u, tp, cutoff)
     sp, si = _full_sort(probs)
-    return _nucleus_walk(sp, si, u, tp, cutoff)
+    return torch.where(row_exact.all(), capped, _nucleus_walk(sp, si, u, tp, cutoff))
 
 
 _M32 = 0xFFFFFFFF

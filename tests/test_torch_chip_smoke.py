@@ -11,6 +11,7 @@ tiny head_dim-128 model (the kernels' plain versions, counted)."""
 import importlib.util
 import pathlib
 import sys
+import time
 
 import pytest
 import torch
@@ -2088,3 +2089,122 @@ def test_phase_serve_warmup_reads_the_child_and_holds_its_streams(smoke, monkeyp
     plain["greedy"]["Once upon a time"] = "abd"
     with pytest.raises(SystemExit, match="differ from serve_kv8's"):
         smoke.phase_serve_warmup(torch, "card", {"serve_kv8": plain})
+
+
+def test_pipe_phase_is_known_and_a_subset_is_not_ok(smoke):
+    assert "serve_pipe" in smoke.ALL_PHASES and smoke.ALL_PHASES[-1] == "cli"
+    assert smoke.PIPE_PATH in smoke.PATHS and smoke.PIPE_PATH["phases"] == (None, "serve_pipe",
+                                                                            None)
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != "serve_pipe"), dev)
+    assert line == {"ok": False, "skipped_phases": ["serve_pipe"], "device": dev}
+    assert rc == smoke.PARTIAL_RC
+
+
+def _pipe_launches(smoke, **over):
+    path = smoke.PIPE_PATH
+    got = {k: 4 for k in path["record"]}
+    got.update({k: 0 for k in path["forbid"]})
+    return {**got, **over}
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"chunk_attention_q8": 0, "write_kv_chunk_q8_fused": 0}, "never launched"),
+    ({"write_kv_prefill_paged_q8": 0}, "never launched"),
+    ({"write_kv_rows_q8": 1}, "launched on the pipelined loop"),
+    ({"write_kv_paged_q8": 2}, "launched on the pipelined loop"),
+    ({"decode_attention": 1}, "launched on the pipelined loop"),
+    ({"write_kv_chunk_q8_fused": 3}, "launches of the kernel"),
+    ({"write_kv_strips_q8_stream": 3}, "launches of the kernel")])
+def test_pipe_path_needs_the_three_engines_kernels(smoke, over, match):
+    """serve_pipe's three engines run K7, K10 and K12 over int8 caches, each
+    walk launch writing its rows, and K8 / K13 (b) on the streaming body."""
+    smoke.check_launches(smoke.PIPE_PATH, _pipe_launches(smoke))
+    with pytest.raises(SystemExit, match=match):
+        smoke.check_launches(smoke.PIPE_PATH, _pipe_launches(smoke, **over))
+
+
+def _tiny_int8_model():
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=64)
+    rng = np.random.default_rng(3)
+    L, D, H, V = 2, 64, 176, 128
+    p = {n: (rng.standard_normal(s) * 0.1).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, 32), "wv": (L, D, 32),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                        for i in range(V - 3)]
+    params = quantize_params(cfg, p, group_size=16, dtype=torch.float32, device="cpu")
+    return cfg, params, Tokenizer(vocab, [0.0] * V)
+
+
+def test_serve_pipe_phase_on_a_tiny_model(smoke, monkeypatch):
+    """The phase's logic on the CPU (the card's sync debug mode, synchronize
+    and profiler stubbed): each engine's ids agree across the six runs, the
+    depth-3 runs chain and admit behind in-flight ticks, every tick and
+    admission dispatch ran with the debug mode at "error", and a run that
+    counts an engine error fails the phase."""
+    import torch.profiler
+
+    modes = []
+
+    class Profile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: modes[-1] if modes else 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Profile())
+    # the tiny model's n-gram drafts land more often than the 7B's random
+    # weights' (accept ~0.02): one round a spec tick leaves a chain room
+    # within the 32-token budgets
+    engines = dict(smoke.PIPE_ENGINES)
+    engines["spec"] = dict(engines["spec"], spec_rounds=1)
+    monkeypatch.setattr(smoke, "PIPE_ENGINES", tuple(engines.items()))
+    from rama_tpu_torch.runtime.engine import Engine
+
+    def host_bound(name):
+        """A tick's dispatch as slow as the card's host-bound one, so the
+        next requests arrive while it is in flight, as there."""
+        orig = getattr(Engine, name)
+
+        def call(self, *a, **kw):
+            time.sleep(0.02)
+            return orig(self, *a, **kw)
+
+        monkeypatch.setattr(Engine, name, call)
+
+    for name in ("_dev_tick_async", "_dev_spec_tick"):
+        host_bound(name)
+    cfg, params, tok = _tiny_int8_model()
+    summary = smoke.phase_serve_pipe(torch, cfg, params, tok, "cpu")
+    assert set(summary) == {"plain", "spec", "paged"}
+    for by in summary.values():
+        assert all(n >= 1 for n in by[3]["chained"]) and not any(by[1]["chained"])
+        assert sum(by[3]["async_admissions"]) >= 1 and len(by[1]["tok_s"]) == 2
+    assert "error" in modes and modes[-1] == 0
+
+    orig = Engine._dispatch_chained
+
+    def syncing(self, inf):
+        self.metrics["engine_errors"] += 1          # as a sync raising in the loop counts
+        return orig(self, inf)
+
+    monkeypatch.setattr(Engine, "_dispatch_chained", syncing)
+    with pytest.raises(SystemExit, match="engine_errors"):
+        smoke.pipe_run(torch, cfg, params, tok, {}, 3)

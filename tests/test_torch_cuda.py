@@ -2238,3 +2238,113 @@ def test_engine_under_attn_block_on_card_never_runs_k4(dev, monkeypatch, mode):
         if device != "cpu":
             assert ab.launches[name] > before
     assert streams[0] == streams[1]
+
+
+def test_top_p_chooses_its_walk_without_a_sync(dev):
+    """The sampler at V = 32000 (peaked rows, a flat row that forces the full
+    sort, and an all-peaked batch) runs under set_sync_debug_mode("error"):
+    no host read on the way, and the ids equal the CPU's."""
+    from rama_tpu_torch.runtime.sampler import _top_p_from_u
+
+    g = torch.Generator().manual_seed(11)
+    for flat_rows in (0, 1):
+        scales = torch.full((8, 1), 8.0)
+        scales[:flat_rows] = 0.05
+        logits = torch.randn(8, 32000, generator=g) * scales
+        u = torch.rand(8, generator=g)
+        temps, tps = torch.full((8,), 0.9), torch.full((8,), 0.9)
+        want = _top_p_from_u(logits, u, temps, tps)
+        args = [x.to(dev) for x in (logits, u, temps, tps)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = _top_p_from_u(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kv_quant,spec_tick,paged", [(None, 0, False), ("int8", 0, False),
+                                                      ("int8", 3, False), ("int8", 0, True),
+                                                      (None, 3, True)])
+def test_pipelined_dispatch_never_syncs_on_the_card(dev, kv_quant, spec_tick, paged):
+    """The pipelined loop on the card: every chained plain or spec dispatch
+    and every admission dispatched behind in-flight ticks runs under
+    set_sync_debug_mode("error") (a sync raises, the loop counts an engine
+    error); at least one of each ran, no error was counted, and the greedy
+    and sampled streams equal the CPU engine's."""
+    import numpy as np
+
+    from rama_tpu_torch.config import EngineConfig, ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.runtime.engine import Engine, Request
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=128)
+    rng = np.random.default_rng(3)
+    L, D, H, V, KV = 2, 256, 512, 128, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, KV), "wv": (L, D, KV),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                        for i in range(V - 3)]
+    tok = Tokenizer(vocab, [0.0] * V)
+    outs = []
+    for device in ("cpu", dev):
+        eng = Engine(cfg, quantize_params(cfg, p, group_size=64, dtype=torch.float32,
+                                          device=device),
+                     tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant,
+                                       spec_tick=spec_tick, spec_min_accept=0.0,
+                                       paged_kv=paged, kv_page_size=16))
+        late = Request(prompt="zq", steps=12, temperature=0.9)
+        counts = {"_dispatch_chained": 0, "_dispatch_spec_chained": 0, "_admit_dispatch": 0}
+        for name in counts:
+            orig = getattr(eng, name)
+
+            def strict(*a, _name=name, _orig=orig):
+                behind = bool(eng._inflight_q or eng._spec_inflight_q)
+                if device != "cpu":
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = _orig(*a)
+                finally:
+                    if device != "cpu":
+                        torch.cuda.set_sync_debug_mode(0)
+                if out is not None or (_name == "_admit_dispatch" and behind
+                                       and eng._admit_jobs):
+                    counts[_name] += 1
+                return out
+
+            setattr(eng, name, strict)
+        name = "_process_spec_inflight" if spec_tick else "_process_inflight"
+        process = getattr(eng, name)
+
+        def submit_late(inf):
+            out = process(inf)
+            if not late.prompt_ids:
+                eng.submit(late)         # arrives while ticks are in flight
+            return out
+
+        setattr(eng, name, submit_late)
+        reqs = [Request(prompt="abc", steps=60, temperature=0.0, stop_at_eos=False),
+                Request(prompt="ab" * 5, steps=50, temperature=0.8, stop_at_eos=False)]
+        eng.start()
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = []
+            for r in reqs + [late]:
+                toks = []
+                while (t := r.queue.get(timeout=300)) is not None:
+                    toks.append(t)
+                got.append(toks)
+        finally:
+            eng.stop()
+        assert eng.stats()["engine_errors"] == 0 and all(r.error is None for r in reqs)
+        assert counts["_dispatch_spec_chained" if spec_tick else "_dispatch_chained"] >= 1
+        assert counts["_admit_dispatch"] >= 1, counts
+        outs.append(got)
+    assert outs[0] == outs[1]

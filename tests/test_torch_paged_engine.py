@@ -166,9 +166,25 @@ def test_free_slot_writes_land_on_the_trash_page(setup):
     _, _, cfg, params, _, tok = setup
     eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=2, decode_tick=2, **PAGED))
     trash_before = eng.cache.k[:, eng.trash_page].clone()
+    chained = _count_chained(eng, "_dispatch_chained")
     outs, _ = serve(eng, [("abc", 20), ("zq", 2)])
     assert outs[0] == solo[0]
     assert not torch.equal(eng.cache.k[:, eng.trash_page], trash_before)
+    assert chained                        # ticks ran chained from device tokens too
+
+
+def _count_chained(eng, name: str) -> list:
+    """Record the successors `name` (the engine's chained dispatch) made."""
+    orig, made = getattr(eng, name), []
+
+    def call(inf):
+        nxt = orig(inf)
+        if nxt is not None:
+            made.append(nxt)
+        return nxt
+
+    setattr(eng, name, call)
+    return made
 
 
 @pytest.mark.parametrize("spec_tick", [0, 3])
@@ -204,8 +220,10 @@ def test_no_live_query_reads_a_page_another_slot_writes(setup, monkeypatch, spec
     monkeypatch.setattr(paged_mod, "_KERNELS", Record())
     eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=3, kv_quant="int8",
                                                 spec_tick=spec_tick, **PAGED))
+    chained = _count_chained(eng, "_dispatch_spec_chained" if spec_tick else "_dispatch_chained")
     outs, reqs = serve(eng, [("abc", 70), ("zq", 5), ("hello", 20)])
     assert all(r.error is None for r in reqs) and len(outs[0]) >= 1
+    assert chained                        # forwards of chained ticks are among those checked
     ps, npages, trash = eng.ecfg.kv_page_size, eng.cache.num_pages, eng.trash_page
     assert len(seen) > 10
     for pos0, tables, tq in seen:

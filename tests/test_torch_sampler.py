@@ -80,3 +80,58 @@ def test_keyed_batch_greedy_rows_and_sampled_rows():
     assert ids[0] == sample_greedy(logits)[0]
     want = _top_p_from_u(logits, uniform_from_key(keys, pos), temps, tps)
     torch.testing.assert_close(ids[1:], want[1:], rtol=0, atol=0)
+
+
+def _row_exact(logits: np.ndarray, temp: float, top_p: float) -> np.ndarray:
+    """Rows whose nucleus the top-TOPK_CAP walk gives exactly (the rule of
+    both samplers: everything past the cap under the top-p floor, or the
+    nucleus closing inside the cap)."""
+    from rama_tpu_torch.runtime.sampler import TOPK_CAP
+
+    x = torch.from_numpy(logits) * (1.0 / temp if temp < 1.0 else 1.0)
+    probs = torch.softmax(x, dim=-1)
+    top = torch.topk(probs, TOPK_CAP, dim=-1).values
+    cutoff = (1.0 - top_p) / (logits.shape[1] - 1)
+    kept = torch.where(top > cutoff, top, torch.zeros_like(top)).sum(dim=-1)
+    return ((top[:, -1] <= cutoff) | (kept > top_p)).numpy()
+
+
+@pytest.mark.parametrize("case", ["capped", "full", "mixed"])
+def test_the_walk_chosen_on_the_device_matches_jax(case):
+    """At V = 32000 the capped walk serves a batch whose every row is
+    exact within the top 1024, the full sort's walk a batch with one row
+    that is not: the ids equal JAX's lax.cond in all three cases (every row
+    capped, every row full, one flat row among peaked ones)."""
+    rng = np.random.default_rng(23)
+    b, v, temp, top_p = 8, 32000, 0.9, 0.9
+    scales = {"capped": [8.0] * b, "full": [0.05] * b, "mixed": [8.0] * (b - 1) + [0.05]}[case]
+    logits = (rng.standard_normal((b, v)) * np.array(scales)[:, None]).astype(np.float32)
+    exact = _row_exact(logits, temp, top_p)
+    assert {"capped": exact.all(), "full": not exact.any(),
+            "mixed": exact[:-1].all() and not exact[-1]}[case]
+    for seed in range(3):
+        u = np.random.default_rng(seed).uniform(size=b).astype(np.float32)
+        want = np.asarray(j_top_p(jnp.asarray(logits), jnp.asarray(u), temp, top_p))
+        got = _top_p_from_u(torch.from_numpy(logits), torch.from_numpy(u),
+                            torch.full((b,), temp), torch.full((b,), top_p))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_top_p_reads_nothing_on_the_host(monkeypatch):
+    """No tensor is turned into a Python value on the way (a host read, a
+    stream sync on the card): the walk is chosen by a 0-d where."""
+    def refuse(*_):
+        raise AssertionError("a host read of a tensor")
+
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy((rng.standard_normal((4, 32000)) * 4).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=4).astype(np.float32))
+    for name in ("__bool__", "item", "tolist", "__int__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    ids = sample_batched_keyed(logits, torch.tensor([[1, 2]] * 4), torch.arange(4),
+                               torch.tensor([0.0, 0.7, 1.0, 1.3]), torch.full((4,), 0.9))
+    monkeypatch.undo()
+    assert ids.shape == (4,) and ids[0] == sample_greedy(logits)[0]
+    want = _top_p_from_u(logits, uniform_from_key(torch.tensor([[1, 2]] * 4), torch.arange(4)),
+                         torch.tensor([0.0, 0.7, 1.0, 1.3]), torch.full((4,), 0.9))
+    torch.testing.assert_close(ids[1:], want[1:], rtol=0, atol=0)
