@@ -183,6 +183,42 @@ Phases, in order (any failure raises and the script exits non-zero):
            and admission dispatch under set_sync_debug_mode("error") with
            no engine error; logs tok/s, the device busy share and the
            mid-stream TTFT by depth (no gate)
+  serve_chunk  chunked prefill: Llama-2-7B int8 at max_len 4096, 8 slots,
+           ticks of 8, on three in-process engines (a bf16 and an int8 dense
+           cache, an int8 pool of 64 pages of 128 rows), each run with
+           prefill_chunk 0 and 256 (prefill_chunk_min 1024) in ABBA turns
+           (the second B and A under the profiler, CUDA only): six short
+           requests of 64 tokens (3 greedy, 3 sampled), then, once each
+           has its first token, two greedy long prompts of 3000 and 1500
+           tokens (a passage's ids repeated) of 32 tokens. Gates: every
+           stream its token count and the engine's count of every token;
+           the short streams' ids equal across the four runs; each long
+           prompt's first-token logits in the job's `last` within TOL of
+           the direct prefill's, and its slot's cache rows 0..plen-1
+           after the finisher (dequantized on the int8 caches) within TOL
+           of the direct admission's, by (layer, kv head); every chunk's
+           quant_matmul launches on the tensor-core bodies, none of K5; K8
+           once a job on the int8 cache, K13 (b) once a job on the pool;
+           >= 1 non-final chunk dispatched behind a tick in flight; every
+           tick, admission, chunk and finisher dispatch under
+           set_sync_debug_mode("error") with no engine error. Records (no
+           gate): tok/s, the long prompts' TTFT, the largest gap between
+           two emissions of a short stream while a long prompt admits,
+           chunks, jobs, chunks behind a tick, the busy share
+  profile_chunk  after serve_chunk's launches are read: a chunk at off 0
+           and 2048 of a 4096-row job timed (CUDA events, device ms)
+           beside its 32 layers' masked attention alone (the K10 candidate)
+  chat     a ChatSession on the 7B int8 params (bf16 cache, the model's
+           1024-row context): three greedy turns of up to 32 tokens with a
+           system prompt; each turn's last-prefill logits within TOL of
+           the plain path on a copy of the cache, the running position the
+           templates' lengths plus the emitted tokens, the decode steps on
+           K1 / K3 / K4's tensor-core bodies and no K5 launch
+  eval     perplexity on the 7B int8 params over ~4000 tokens (window 512,
+           batch 4: K5 and the GEMM, full logits), with the kernels and then
+           the plain path: the first batch's full logits within TOL of the
+           plain path's, row by row, and the nll within EVAL_NLL_GAP (rel);
+           logs both values, the gap and the seconds each took
   profile_paged  device ms per 8-slot decode step on a bf16 and an int8
            pool at positions 64 and 2048, beside the dense cache's, each
            with the attention's device ms
@@ -294,10 +330,13 @@ Phases, in order (any failure raises and the script exits non-zero):
            round of 4 at pos 64 (device ms by kernel)
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, a v0 one with
-           `--quant int4`, the v2 one again with `--scale-dtype bf16`, and a
-           TinyLlama-width 2-layer v2 file with `--spec ngram` (T 8)
+           `--quant int4`, the v2 one again with `--scale-dtype bf16`, a
+           TinyLlama-width 2-layer v2 file with `--spec ngram` (T 8), then
+           `generate -o chat` on the v2 file with two user lines and `exit`
+           on stdin (rc 0, two replies) and `eval --text` on a file it
+           writes (rc 0, one JSON line with a finite perplexity)
 
-Twenty-six main paths, each with the launch counters set to 0 just before it
+The main paths, each with the launch counters set to 0 just before it
 and read just after (`PATHS`; the four paged ones: K12 decode and K13
 on the pools, K12 chunk under speculation, never K4 / K7 / K10 / K6 / K8 /
 K11): int8 (`generate` + `serve`), where every int8 kernel
@@ -330,7 +369,12 @@ of every decode step in its "one" form and of every verify round in its
 the five TinyLlama paths (`serve_gqa`, the three `serve_gqa_spec*`,
 `spec_gqa_self`), where every verification chunk must run a row form of
 more than 8 rows (and, at T 8, K3 in its "one" form once a layer of every
-round)
+round); chunked prefill (`serve_chunk`), where K4, K7 with K6's rows, K12
+with K13 (a)'s, K8, K13 (b), K5 (the direct admissions), the matmul and
+the FFN must have, and no chunk attention; the chat loop (`chat`), where
+the matmul, the FFN and K4 must have and K5 must not; `eval`, where K5
+and the GEMM must have and no decode-sized product, K3 or decode
+attention may
 (the `*_gqa` records: launches in such a form on the mma body, bf16 cache,
 or the walk body, int8 cache, as the C entry reports the form it launched;
 `[launches]` `decode_attention_mma_rows*` / `_walk_rows*`,
@@ -383,7 +427,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "model_spec",
               "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
-              "serve_spec_paged", "serve_spec_paged_kv8", "serve_pipe", "model_attn", "serve_ab1",
+              "serve_spec_paged", "serve_spec_paged_kv8", "serve_pipe", "serve_chunk",
+              "profile_chunk", "chat", "eval", "model_attn", "serve_ab1",
               "serve_ab2", "profile_ab", "prefill_t1", "model_b64", "serve_b64", "profile_b64",
               "serve_b64_spec", "model4", "serve4", "profile4",
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
@@ -602,6 +647,59 @@ PIPE_PATH = dict(label="pipelined loop", bits=8, phases=(None, "serve_pipe", Non
                  equal={"write_kv_rows_q8_fused": "decode_attention_q8",
                         "write_kv_chunk_q8_fused": "chunk_attention_q8",
                         "write_kv_paged_q8_fused": "paged_decode_attention_q8"})
+# chunked prefill (serve_chunk): a bf16 dense cache's ticks (K4), an int8
+# cache's (K7 with K6's rows) and an int8 pool's (K12 with K13 (a)'s), the
+# short prompts admitted directly (K5; K8 / K13 (b)), the long ones by K5 in
+# the direct runs and by chunk jobs in the chunked ones (the masked
+# attention in plain PyTorch, the job's strips through K8 / K13 (b) or a
+# copy), the GEMM for every chunk; no chunk attention (no speculation)
+CHUNK_SERVE = dict(max_batch_size=8, max_seq_len=KV8_MAX_LEN, decode_tick=8)
+CHUNK_ENGINES = (("bf16", {}), ("int8", dict(kv_quant="int8")),
+                 ("paged", dict(kv_quant="int8", paged_kv=True, kv_page_size=PAGE_SIZE,
+                                kv_num_pages=PAGED_NUM_PAGES)))
+CHUNK_MODE = dict(prefill_chunk=256, prefill_chunk_min=1024)
+CHUNK_TURNS = (False, True, True, False)    # chunked off / on in ABBA turns
+CHUNK_SHORT = ("Once upon a time", "The little dog ran", "In a far away land",
+               "She opened the door", "Tom and Lily played", "The sun was hot")
+CHUNK_SHORT_STEPS, CHUNK_LONG_STEPS = 64, 32
+CHUNK_LONG = (3000, 1500)   # the long prompts' tokens (BOS not counted)
+CHUNK_PATH = dict(label="chunked prefill", bits=8, phases=(None, "serve_chunk", "profile_chunk"),
+                  serve={},
+                  record={name: "launches_chunk_path" for name in (
+                      "decode_attention", "decode_attention_q8", "write_kv_rows_q8_fused",
+                      "paged_decode_attention_q8", "write_kv_paged_q8_fused",
+                      "write_kv_strips_q8", "write_kv_prefill_paged_q8", "quant_matmul",
+                      "quant_matmul_mma", "ffn", "prefill_attention")},
+                  forbid={"write_kv_rows_q8": "standalone_launches_chunk_path",
+                          "write_kv_paged_q8": "standalone_launches_chunk_path",
+                          "write_kv_prefill_paged_q8_rows": "rows_body_launches_chunk_path",
+                          **{name: "launches_chunk_path" for name in (
+                              "chunk_attention", "chunk_attention_q8", "paged_decode_attention",
+                              "paged_chunk_attention", "paged_chunk_attention_q8")}},
+                  equal={"write_kv_rows_q8_fused": "decode_attention_q8",
+                         "write_kv_paged_q8_fused": "paged_decode_attention_q8"})
+# the chat loop: each turn's template prefilled mid-sequence (the masked
+# attention, the matmuls at M = its bucket), then decode steps (K1 / K3 / K4)
+CHAT_SYSTEM = ("You are a helpful assistant who tells short stories to small children, "
+               "always kind and always brief.")
+CHAT_TURNS = ("Tell me a story about a dog.", "What was the dog's name?",
+              "Now tell me one about a cat.")
+CHAT_PATH = dict(label="chat", bits=8, phases=(None, "chat", None), serve={},
+                 record={name: "launches_chat_path" for name in (
+                     "quant_matmul", "ffn", "decode_attention")},
+                 forbid={name: "launches_chat_path" for name in (
+                     "prefill_attention", "chunk_attention", "decode_attention_q8")})
+# eval: batches of 4 windows of 512 prefilled from position 0 with full
+# logits: K5, every product on the GEMM (M = 2048), the FFN split
+EVAL_WINDOW, EVAL_BATCH, EVAL_TOKENS = 512, 4, 4000
+# the nll's rel gap, kernels against plain: 4.68e-5 measured at 7B int8 on
+# the H100; logits all equal (a dead kernel) score ln(32000), 3.1e-2 away
+EVAL_NLL_GAP = 1e-3
+EVAL_PATH = dict(label="eval", bits=8, phases=(None, "eval", None), serve={}, mmv=False,
+                 record={name: "launches_eval_path" for name in (
+                     "quant_matmul", "quant_matmul_mma", "prefill_attention")},
+                 forbid={name: "launches_eval_path" for name in (
+                     "quant_matmul_mmv", "ffn", "decode_attention")})
 # the fused attention block (kernel 14) under RAMA_ATTN_BLOCK 1 / 2 on the
 # int8 params, and 2 on the int4 ones (`attn_block`: the mode the path runs
 # under): K14 where the default path runs the RoPE, the row write and K4, 32
@@ -837,7 +935,8 @@ ML_AB2_PATH = dict(label="Mistral-Large int4 attention block 2", model="ml", bit
                                ("attn_block_gqa", "attn_block_layered_int4"),
                                ("attn_block_mma_rows16", "attn_block_layered_int4")]))
 PATHS = (INT8_PATH, KV8_PATH, WARMUP_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
-         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, PIPE_PATH, AB1_PATH, AB2_PATH,
+         PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, PIPE_PATH, CHUNK_PATH, CHAT_PATH,
+         EVAL_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
          GQA_PATH, GQA_SPEC_PATH,
          GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
@@ -5494,6 +5593,74 @@ def profiled_device_s(torch, prof) -> float:
                for ev in prof.key_averages() if ev.device_type.name == "CUDA") / 1e6
 
 
+def strict_dispatch(torch, eng, name: str, hook=None) -> None:
+    """Wrap eng.<name> so that every call runs under
+    torch.cuda.set_sync_debug_mode("error"): a sync inside raises, and the
+    loop counts an engine error. hook(*args), if given, runs just before
+    the dispatch and returns a function called with its result after it."""
+    orig = getattr(eng, name)
+
+    def call(*a):
+        done = hook(*a) if hook else None
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        if done:
+            done(out)
+        return out
+
+    setattr(eng, name, call)
+
+
+def on_emit(eng, fn) -> None:
+    """Call fn(slot, token) on every token the engine emits, before it
+    streams it."""
+    emit = eng._emit
+
+    def record(slot, token):
+        fn(slot, token)
+        emit(slot, token)
+
+    eng._emit = record
+
+
+def serve_run(torch, eng, reqs, submit, profiled: bool) -> dict:
+    """Start `eng`, call submit(t0) (which submits the requests, `reqs` all
+    of them in the end), then stream every request to its end. `profiled`:
+    the run under torch.profiler (CUDA events only). Returns the tokens
+    streamed, the wall (t0 to the last stream's end), tok/s and, with
+    `profiled`, the device kernel seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
+    try:
+        with ctx as prof:
+            eng.start()
+            t0 = time.perf_counter()
+            submit(t0)
+            total = 0
+            for r in reqs:
+                while r.queue.get(timeout=300) is not None:
+                    total += 1
+            wall = time.perf_counter() - t0
+            eng.stop()
+            torch.cuda.synchronize()
+    finally:
+        eng.stop()
+    out = dict(total=total, wall_s=wall, tok_s=total / wall)
+    if profiled:
+        out["kernel_s"] = profiled_device_s(torch, prof)
+    return out
+
+
+def phase_seconds(eng, names) -> dict:
+    """The engine's PhaseTimer totals of `names`, as <name>_s."""
+    return {f"{k}_s": round(eng.phases.totals[k], 4) for k in names}
+
+
 def pipe_run(torch, cfg, params, tokenizer, kw: dict, depth: int, warm: bool = False,
              profiled: bool = False) -> dict:
     """One serve_pipe run: an in-process Engine (PIPE_SERVE plus `kw`) at
@@ -5514,8 +5681,6 @@ def pipe_run(torch, cfg, params, tokenizer, kw: dict, depth: int, warm: bool = F
     dispatched with a tick in flight, the engine's ticks, prefill groups
     and phase seconds (`breakdown`), and with `profiled` the device kernel
     seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rama_tpu_torch.config import EngineConfig
     from rama_tpu_torch.runtime import engine as eng_mod
     from rama_tpu_torch.runtime.engine import Engine, Request
@@ -5528,61 +5693,48 @@ def pipe_run(torch, cfg, params, tokenizer, kw: dict, depth: int, warm: bool = F
         eng.warmup(max_prompt=16)
     t_setup = time.perf_counter() - t_setup
     counts = {"_dispatch_chained": 0, "_dispatch_spec_chained": 0, "_admit_dispatch": 0}
-    for name in (*counts, "_dev_tick_async", "_dev_spec_tick"):   # fresh ticks too
-        def strict(*a, _name=name, _orig=getattr(eng, name)):
+
+    def counted(name):
+        def hook(*a):
             behind = bool(eng._inflight_q or eng._spec_inflight_q)
             jobs = len(eng._admit_jobs)
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = _orig(*a)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            if _name in counts and (out is not None or (_name == "_admit_dispatch" and behind
-                                                        and len(eng._admit_jobs) > jobs)):
-                counts[_name] += 1
-            return out
 
-        setattr(eng, name, strict)
+            def done(out):
+                if out is not None or (name == "_admit_dispatch" and behind
+                                       and len(eng._admit_jobs) > jobs):
+                    counts[name] += 1
+            return done
+        return hook
+
+    for name in counts:
+        strict_dispatch(torch, eng, name, counted(name))
+    for name in ("_dev_tick_async", "_dev_spec_tick"):     # fresh ticks too
+        strict_dispatch(torch, eng, name)
     reqs = [Request(prompt=p, steps=PIPE_STEPS, temperature=0.0 if i % 2 == 0 else 1.0,
                     top_p=0.9, stop_at_eos=False) for i, p in enumerate(pipe_prompts())]
     ids = {id(r): [] for r in reqs}
-    emit = eng._emit
+    on_emit(eng, lambda slot, token: ids[id(slot.request)].append(token))
 
-    def record(slot, token):
-        ids[id(slot.request)].append(token)
-        emit(slot, token)
+    def submit(t0):
+        def submit_after(part, firsts):
+            """Submit `part` once every request of `firsts` has its first token."""
+            while not all(r.first_token_at for r in firsts):
+                if time.perf_counter() - t0 > 300:
+                    raise SystemExit(f"FAILED serve_pipe: no first token in 300 s {kw}")
+                time.sleep(0.001)
+            for r in part:
+                r.submitted_at = time.time()
+                eng.submit(r)
 
-    eng._emit = record
+        submit_after(reqs[:1], [])
+        submit_after(reqs[1:8], reqs[:1])
+        submit_after(reqs[8:], reqs[:8])
 
-    def submit_after(part, firsts):
-        """Submit `part` once every request of `firsts` has its first token."""
-        while not all(r.first_token_at for r in firsts):
-            if time.perf_counter() - t0 > 300:
-                raise SystemExit(f"FAILED serve_pipe: no first token in 300 s {kw}")
-            time.sleep(0.001)
-        for r in part:
-            r.submitted_at = time.time()
-            eng.submit(r)
-
-    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
     try:
-        with ctx as prof:
-            eng.start()
-            t0 = time.perf_counter()
-            submit_after(reqs[:1], [])
-            submit_after(reqs[1:8], reqs[:1])
-            submit_after(reqs[8:], reqs[:8])
-            total = 0
-            for r in reqs:
-                while (t := r.queue.get(timeout=300)) is not None:
-                    total += 1
-            wall = time.perf_counter() - t0
-            eng.stop()
-            torch.cuda.synchronize()
+        run = serve_run(torch, eng, reqs, submit, profiled)
     finally:
-        eng.stop()
         eng_mod._PIPELINE_DEPTH = saved
+    total = run.pop("total")
     errors = eng.stats()["engine_errors"]
     if errors or any(r.error for r in reqs) or total != 16 * PIPE_STEPS:
         raise SystemExit(f"FAILED serve_pipe: depth {depth} {kw}: engine_errors {errors}, "
@@ -5593,16 +5745,14 @@ def pipe_run(torch, cfg, params, tokenizer, kw: dict, depth: int, warm: bool = F
         t = sorted((r.first_token_at - r.submitted_at) * 1e3 for r in rs)
         return t[len(t) // 2]
 
-    out = dict(ids=[ids[id(r)] for r in reqs], wall_s=wall, tok_s=total / wall, setup_s=t_setup,
+    out = dict(ids=[ids[id(r)] for r in reqs], **run, setup_s=t_setup,
                ttft_mid_ms=p50(reqs[1:8]), ttft_second_ms=p50(reqs[8:]),
                chained=counts["_dispatch_chained"], spec_chained=counts["_dispatch_spec_chained"],
                async_admissions=counts["_admit_dispatch"])
-    if profiled:
-        out["kernel_s"] = profiled_device_s(torch, prof)
-    ph = eng.phases
-    out["breakdown"] = dict(ticks=eng.metrics["decode_ticks"], prefills=ph.counts["prefill"],
-                            **{f"{k}_s": round(ph.totals[k], 4)
-                               for k in ("dispatch", "fetch", "emit", "admit", "prefill")})
+    out["breakdown"] = dict(ticks=eng.metrics["decode_ticks"],
+                            prefills=eng.phases.counts["prefill"],
+                            **phase_seconds(eng, ("dispatch", "fetch", "emit", "admit",
+                                                  "prefill")))
     del eng
     gc.collect()
     return out
@@ -5676,6 +5826,441 @@ def phase_serve_pipe(torch, cfg, params, tokenizer, card: str) -> dict:
             f"{by[3]['async_admissions']}; no sync in a tick or admission dispatch; "
             f"{time.time() - t0:.1f} s ({card})")
     return summary
+
+
+class PreEncoded:
+    """A tokenizer whose encode returns given ids for given texts (and
+    delegates everything else): the long prompts' ids are a passage's ids
+    repeated, handed to the engine without the pure-Python BPE, which takes
+    ~18 s a 3000-token text."""
+
+    def __init__(self, tokenizer, known: dict):
+        self._tok, self._known = tokenizer, known
+
+    def encode(self, text, *a, **kw):
+        return list(self._known[text]) if text in self._known else self._tok.encode(text, *a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+
+CHUNK_PASSAGE = ("Once upon a time, there was a little girl named Lily. She loved to play "
+                 "outside in the sunshine with her dog Max. One day they found a big red ball "
+                 "in the park and played with it until the sun went down. ")
+
+
+def repeated_prompts(tokenizer, lengths) -> tuple:
+    """(texts, PreEncoded tokenizer) for prompts of the given token counts:
+    the passage's ids repeated and cut to each count."""
+    ids = tokenizer.encode(CHUNK_PASSAGE, strict=False)
+    known = {f"{CHUNK_PASSAGE.strip()} [{n} tokens]": (ids * (n // len(ids) + 1))[:n]
+             for n in lengths}
+    return tuple(known), PreEncoded(tokenizer, known)
+
+
+def slot_rows(torch, eng, i: int, plen: int):
+    """Slot i's cache rows 0..plen-1 as bf16 (L, nkv, plen, hd) k and v,
+    dequantized on an int8 cache, read through its page-table row on a
+    pool."""
+    c = eng.cache
+    quant = hasattr(c, "ks")
+
+    def rows(a):
+        if not eng.paged:
+            return a[:, i, :, :plen]
+        g = a[:, torch.as_tensor(eng.page_tables[i], device=a.device).long()].transpose(1, 2)
+        return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])[:, :, :plen]
+
+    k, v = rows(c.k), rows(c.v)
+    if quant:
+        k, v = k.float() * rows(c.ks)[..., None], v.float() * rows(c.vs)[..., None]
+    # a copy, never a view of the live cache (later ticks write the slot)
+    return k.to(torch.bfloat16, copy=True), v.to(torch.bfloat16, copy=True)
+
+
+FINISH_WRITERS = ("write_kv_strips_q8", "write_kv_prefill_paged_q8")   # K8, K13 (b)
+
+
+def check_chunk_launches(before: dict, after: dict, k5: int) -> None:
+    """A chunk's quant_matmul launches (counts by body before and after it)
+    all on the tensor-core bodies, at least one, and no K5 launch."""
+    body = {k: after[k] - n for k, n in before.items()}
+    if body["gemv"] or body["simt"] or not (body["mma"] + body["mmv"]) or k5:
+        raise SystemExit(f"FAILED serve_chunk: a chunk's quant_matmul launches by body "
+                         f"{body}, K5 launches {k5}: every chunk product on the tensor-core "
+                         f"bodies, no K5 launch")
+
+
+def check_finish_launches(got: dict, writer: str | None, kw: dict) -> None:
+    """A finisher's strip-writer launches: one of `writer` (K8 on an int8
+    cache, K13 (b) on an int8 pool), none of the other, none on bf16."""
+    want = {k: int(k == writer) for k in FINISH_WRITERS}
+    if got != want:
+        raise SystemExit(f"FAILED serve_chunk: a finisher launched {got}, want {want} ({kw})")
+
+
+def chunk_run(torch, cfg, params, tokenizer, kw: dict, chunked: bool, modules,
+              profiled: bool = False) -> dict:
+    """One serve_chunk run: an in-process Engine (CHUNK_SERVE plus `kw`, with
+    CHUNK_MODE when `chunked`) serves the six short requests, then on their
+    first tokens the two long prompts. Every tick, admission, chunk and
+    finisher dispatch runs under torch.cuda.set_sync_debug_mode("error")
+    (a sync raises inside the loop, which counts an engine error). Checks,
+    as they happen: every chunk's quant_matmul launches on the tensor-core
+    bodies and none of K5; each finisher one K8 (int8 cache) or K13 (b)
+    (int8 pool) launch, none on a bf16 cache. Returns the ids by request,
+    each long prompt's first-token logits (the job's `last`, or the direct
+    prefill's) and its slot's rows at its first token, the wall, tok/s,
+    the long prompts' TTFT, the largest emission gap of a short stream
+    while a long prompt admits, chunks / jobs / chunks behind a tick, the
+    engine's phase seconds, and with `profiled` the device kernel seconds."""
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.runtime.engine import Engine, Request
+
+    qm, _, _, pa, kvw, _, _ = modules
+    texts, tok = repeated_prompts(tokenizer, CHUNK_LONG)
+    eng = Engine(cfg, params, tok, EngineConfig(**CHUNK_SERVE, **kw,
+                                                **(CHUNK_MODE if chunked else {})))
+    counts = dict(chunks=0, behind=0, jobs=0)
+    lasts, rows = {}, {}
+    writer = ("write_kv_prefill_paged_q8" if eng.paged else
+              "write_kv_strips_q8" if eng.kv_quant else None)
+
+    def timed(name, check=None):
+        def hook(*a):
+            before = (dict(qm.launches_by_body), pa.launches, dict(kvw.launches))
+            behind = bool(eng._inflight_q or eng._spec_inflight_q)
+            if name == "_dev_pf_finish":
+                job = a[0]
+                for j, e in enumerate(job["entries"]):
+                    lasts[len(e[3]) - 1] = job["last"][j].clone()
+            t0 = time.perf_counter()
+
+            def done(out):
+                timeline.append((name, t0, time.perf_counter()))
+                if check:
+                    check(before, behind)
+            return done
+        return hook
+
+    timeline = []       # (method, host start, host end) of each dispatch and tick fetch
+    process = eng._process_inflight
+
+    def timed_process(inf):
+        t0 = time.perf_counter()
+        process(inf)
+        timeline.append(("_process_inflight", t0, time.perf_counter()))
+
+    eng._process_inflight = timed_process
+
+    on_card = eng.device.type == "cuda"   # a CPU tensor's plain version counts no launch
+
+    def chunk_check(before, behind):
+        if on_card:
+            check_chunk_launches(before[0], qm.launches_by_body, pa.launches - before[1])
+        counts["chunks"] += 1
+        counts["behind"] += behind
+
+    def finish_check(before, behind):
+        if on_card:
+            check_finish_launches({k: kvw.launches[k] - before[2][k] for k in FINISH_WRITERS},
+                                  writer, kw)
+        counts["jobs"] += 1
+
+    for name, check in (("_dev_tick_async", None), ("_admit_dispatch", None),
+                        ("_dev_pf_chunk", chunk_check), ("_dev_pf_finish", finish_check)):
+        strict_dispatch(torch, eng, name, timed(name, check))
+    scratch = eng._prefill_scratch
+
+    def direct_last(params_, cfg_, tokens, lens):
+        """A direct prefill: each long prompt's row of its last logits."""
+        last, sc = scratch(params_, cfg_, tokens, lens)
+        for j, n in enumerate(pads[-1]):
+            if n - 1 in CHUNK_LONG:
+                lasts[int(n) - 1] = last[j, 0].clone()
+        return last, sc
+
+    eng._prefill_scratch = direct_last
+    pad_entries, pads = eng._pad_entries, []
+
+    def padded(entries):
+        out = pad_entries(entries)
+        pads.append(out[1])                       # the group's true lengths, on the host
+        return out
+
+    eng._pad_entries = padded
+    reqs = [Request(prompt=p, steps=CHUNK_SHORT_STEPS, temperature=0.0 if i % 2 == 0 else 1.0,
+                    top_p=0.9, stop_at_eos=False) for i, p in enumerate(CHUNK_SHORT)]
+    longs = [Request(prompt=t, steps=CHUNK_LONG_STEPS, temperature=0.0, stop_at_eos=False)
+             for t in texts]
+    ids = {id(r): [] for r in reqs + longs}
+    times = {id(r): [] for r in reqs}
+    long_ids = {id(r) for r in longs}
+
+    def record(slot, token):
+        req = slot.request
+        if id(req) in long_ids and not ids[id(req)]:
+            n = len(req.prompt_ids)
+            rows[n] = slot_rows(torch, eng, eng.slots.index(slot), n + 1)
+        ids[id(req)].append(token)
+        if id(req) in times:
+            times[id(req)].append(time.perf_counter())
+
+    on_emit(eng, record)
+    t_long = None
+
+    def submit(t0):
+        nonlocal t_long
+        for r in reqs:
+            eng.submit(r)
+        while not all(r.first_token_at for r in reqs):
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit(f"FAILED serve_chunk: no first token in 300 s {kw}")
+            time.sleep(0.001)
+        t_long = time.perf_counter()
+        for r in longs:
+            r.submitted_at = time.time()
+            eng.submit(r)
+
+    run = serve_run(torch, eng, reqs + longs, submit, profiled)
+    total = run.pop("total")
+    errors = eng.stats()["engine_errors"]
+    want = len(reqs) * CHUNK_SHORT_STEPS + len(longs) * CHUNK_LONG_STEPS
+    if errors or any(r.error for r in reqs + longs) or total != want or \
+            eng.stats()["tokens_generated"] != want:
+        raise SystemExit(f"FAILED serve_chunk: {kw} chunked {chunked}: engine_errors {errors}, "
+                         f"request errors {[r.error for r in reqs + longs]}, {total} tokens "
+                         f"streamed, {eng.stats()['tokens_generated']} counted, of {want}")
+    t_done = max(r.first_token_at for r in longs) - time.time() + time.perf_counter()
+    gap, a, b = max(((b - a, a, b) for r in reqs for a, b in zip(times[id(r)], times[id(r)][1:])
+                     if b > t_long and a < t_done), default=(0.0, 0.0, 0.0))
+    # what the host did inside the largest gap: calls and seconds by method
+    in_gap = {}
+    for name, t0, t1 in timeline:
+        if t1 > a and t0 < b:
+            n, sec = in_gap.get(name, (0, 0.0))
+            in_gap[name] = (n + 1, round(sec + min(t1, b) - max(t0, a), 4))
+    out = dict(ids=[ids[id(r)] for r in reqs], lasts=lasts, rows=rows, **run,
+               ttft_long_ms=[(r.first_token_at - r.submitted_at) * 1e3 for r in longs],
+               max_gap_ms=gap * 1e3, in_gap=in_gap, **counts,
+               breakdown=phase_seconds(eng, ("dispatch", "fetch", "emit", "admit", "prefill",
+                                             "pf_chunk")))
+    if chunked and not counts["jobs"] or set(lasts) != set(CHUNK_LONG):
+        raise SystemExit(f"FAILED serve_chunk: {counts['jobs']} jobs, the logits of "
+                         f"{sorted(lasts)} long prompts taken ({kw}, chunked {chunked})")
+    del eng
+    gc.collect()
+    return out
+
+
+def chunk_cost(torch, cfg, params) -> dict:
+    """A chunk of 256 at off 0 and at off 2048 of a (1, 4096) job (CUDA
+    events over 3 reps after a warm one; device ms by torch.profiler),
+    beside its 32 layers' masked attention alone on the same shapes: the
+    device share a K10-style kernel over only the rows < off + C could
+    take."""
+    from rama_tpu_torch.models.llama import KVCache, _attention
+    from rama_tpu_torch.runtime.engine import _prefill_chunk_step
+
+    dev = params["final_norm"].device
+    g = torch.Generator(device=dev).manual_seed(0)
+    t_pad, c = KV8_MAX_LEN, CHUNK_MODE["prefill_chunk"]
+    scratch = KVCache.create(cfg, 1, t_pad, device=dev)
+    scratch.k.normal_(generator=g)
+    scratch.v.normal_(generator=g)
+    lens = torch.tensor([CHUNK_LONG[0] + 1], device=dev)
+    last = torch.zeros(1, cfg.vocab_size, device=dev)
+    out = {}
+    for off in (0, t_pad // 2):
+        tokens = torch.randint(3, cfg.vocab_size, (1, c), device=dev, generator=g)
+
+        def chunk():
+            _prefill_chunk_step(params, cfg, tokens, lens, off, scratch, last)
+
+        chunk_ms = time_ms(torch, chunk, reps=3, warmup=1)
+        q = torch.randn(1, c, cfg.n_heads, cfg.head_dim, device=dev, generator=g,
+                        dtype=torch.bfloat16)
+        pos = off + torch.arange(c, device=dev)[None]
+        mask = torch.arange(t_pad, device=dev)[None, None, :] <= pos[:, :, None]
+
+        def attention():
+            for l in range(cfg.n_layers):
+                _attention(q, scratch.k[l], scratch.v[l], mask)
+
+        attn_ms = time_ms(torch, attention, reps=3, warmup=1)
+        chunk_dev, attn_dev = (device_ms_per_call(torch, fn, reps=3) for fn in (chunk, attention))
+        out[f"off{off}"] = dict(chunk_ms=chunk_ms, attention_ms=attn_ms,
+                                chunk_device_ms=chunk_dev, attention_device_ms=attn_dev,
+                                attention_device_share=attn_dev / chunk_dev)
+    del scratch
+    return out
+
+
+def phase_serve_chunk(torch, cfg, params, tokenizer, card: str, modules) -> dict:
+    """Chunked prefill at Llama-2-7B int8's full width and depth on three
+    engines (CHUNK_ENGINES), each run (chunk_run) with prefill_chunk 0 and
+    256 in ABBA turns (CHUNK_TURNS; the second B and A profiled). Per
+    engine: the short streams' ids equal in all four runs; the chunked
+    runs' long-prompt logits and slot rows within TOL of the direct runs'
+    (the first direct run's); >= 1 chunk behind a tick in flight. Logs
+    tok/s, the long prompts' TTFT, the largest short-stream emission gap
+    while a long prompt admits, chunks / jobs / behind and the busy share
+    by mode (no gate). Returns them by engine."""
+    from rama_tpu_torch.models.llama import _rope_tables, fuse_params
+
+    served = fuse_params(dict(params), cfg)
+    served["rope_cos"], served["rope_sin"] = _rope_tables(cfg, params["final_norm"].device,
+                                                          seq_len=KV8_MAX_LEN)
+    summary = {}
+    for name, kw in CHUNK_ENGINES:
+        t0 = time.time()
+        runs, ref = [], None
+        for i, chunked in enumerate(CHUNK_TURNS):
+            r = chunk_run(torch, cfg, served, tokenizer, kw, chunked, modules, profiled=i >= 2)
+            if not chunked and ref is None:
+                ref = r
+            elif chunked:
+                for n in CHUNK_LONG:
+                    compare(torch, f"serve_chunk {name}: {n}-token prompt first-token logits "
+                            f"(the job's last vs the direct prefill's)", r["lasts"][n][None],
+                            ref["lasts"][n][None])
+                    for kv, got, want in zip("kv", r["rows"][n], ref["rows"][n]):
+                        compare(torch, f"serve_chunk {name}: {n}-token prompt slot {kv} rows "
+                                f"after the finisher vs the direct admission's, by (layer, "
+                                f"kv head)", got, want, per=got.shape[-2] * got.shape[-1])
+            if r is not ref:
+                del r["lasts"], r["rows"]
+            runs.append(r)
+            torch.cuda.empty_cache()
+        del ref["lasts"], ref["rows"]
+        differ = [i for i, r in enumerate(runs) if r["ids"] != runs[0]["ids"]]
+        if differ:
+            raise SystemExit(f"FAILED serve_chunk: {name}: the short streams' ids of runs "
+                             f"{differ} (chunked {CHUNK_TURNS}) differ from the first's")
+        behind = sum(r["behind"] for r, c in zip(runs, CHUNK_TURNS) if c)
+        if behind < 1:
+            raise SystemExit(f"FAILED serve_chunk: {name}: no non-final chunk was dispatched "
+                             f"behind a tick in flight")
+        for i, r in enumerate(runs):
+            log(f"[serve_chunk] {name} run {i + 1} chunked {CHUNK_TURNS[i]}"
+                f"{' profiled' if i >= 2 else ''}: wall {r['wall_s']:.3f} s, "
+                f"{r['tok_s']:.2f} tok/s, long TTFT ms {[round(x, 1) for x in r['ttft_long_ms']]}, "
+                f"max short-stream gap while a long prompt admits {r['max_gap_ms']:.1f} ms "
+                f"(inside it, calls and host s by method: {json.dumps(r['in_gap'])}), "
+                f"chunks {r['chunks']} jobs {r['jobs']} behind a tick {r['behind']}, "
+                f"{json.dumps(r['breakdown'])}"
+                + (f", device kernel time {r['kernel_s']:.3f} s" if "kernel_s" in r else ""))
+        by = {}
+        for mode in (False, True):
+            turns = [r for r, c in zip(runs, CHUNK_TURNS) if c == mode]
+            off, prof = turns[0], turns[1]
+            by["chunked" if mode else "direct"] = dict(
+                tok_s=[r["tok_s"] for r in turns], ttft_long_ms=[r["ttft_long_ms"] for r in turns],
+                max_gap_ms=[r["max_gap_ms"] for r in turns], in_gap=[r["in_gap"] for r in turns],
+                chunks=[r["chunks"] for r in turns], jobs=[r["jobs"] for r in turns],
+                behind=[r["behind"] for r in turns], busy=prof["kernel_s"] / off["wall_s"],
+                breakdown=[r["breakdown"] for r in turns])
+        summary[name] = by
+        log(f"[serve_chunk] {name}: {json.dumps(by)}; short ids equal in all 4 runs, long "
+            f"logits and rows within {TOL}; {time.time() - t0:.1f} s ({card})")
+    del served
+    return summary
+
+
+def profile_chunk(torch, cfg, params, card: str) -> dict:
+    """chunk_cost on the served params (RoPE tabulated to KV8_MAX_LEN), run
+    in the chunked path's profile slot: after its launches were read, so
+    these direct chunk steps count in no record of the main path."""
+    from rama_tpu_torch.models.llama import _rope_tables, fuse_params
+
+    served = fuse_params(dict(params), cfg)
+    served["rope_cos"], served["rope_sin"] = _rope_tables(cfg, params["final_norm"].device,
+                                                          seq_len=KV8_MAX_LEN)
+    out = chunk_cost(torch, cfg, served)
+    log(f"[profile_chunk] chunk cost (CUDA events): {json.dumps(out)} ({card})")
+    del served
+    return out
+
+
+def phase_chat(torch, cfg, params, tokenizer, card: str) -> dict:
+    """Three greedy turns of a ChatSession on the card (bf16 cache of the
+    model's context): each turn's last-prefill logits against the plain
+    path on a copy of the cache as it was, and the running position after
+    each turn against the templates' lengths plus the emitted tokens."""
+    import copy
+
+    from rama_tpu_torch.models.llama import KVCache
+    from rama_tpu_torch.runtime.chat import ChatSession
+
+    s = ChatSession(params, cfg, tokenizer, temperature=0.0, system=CHAT_SYSTEM)
+    prefill, lens = s._prefill_chunk, []
+
+    def checked(ids):
+        ref = copy.copy(s)
+        ref.cache, ref.plain = KVCache(k=s.cache.k.clone(), v=s.cache.v.clone()), True
+        want = ChatSession._prefill_chunk(ref, ids)
+        got = prefill(ids)
+        compare(torch, f"chat turn {s.turns + 1} ({len(ids)}-token template at pos "
+                f"{s.pos - len(ids)}) last-prefill logits (kernels vs plain)", got[None],
+                want[None])
+        lens.append(len(ids))
+        del ref
+        return got
+
+    s._prefill_chunk = checked
+    out, emitted = [], 0
+    for text in CHAT_TURNS:
+        t0 = time.perf_counter()
+        pieces = list(s.turn(text, max_new=32))
+        torch.cuda.synchronize()
+        emitted += len(pieces)
+        if s.pos != sum(lens) + emitted:
+            raise SystemExit(f"FAILED chat: position {s.pos} after turn {s.turns}, want the "
+                             f"templates' {sum(lens)} + the emitted {emitted}")
+        out.append(dict(template=lens[-1], tokens=len(pieces),
+                        seconds=time.perf_counter() - t0, reply="".join(pieces)[:60]))
+    log(f"[chat] {json.dumps(out)}; position {s.pos} ({card})")
+    return dict(turns=out, pos=s.pos)
+
+
+def phase_eval(torch, cfg, params, tokenizer, card: str) -> dict:
+    """perplexity over EVAL_TOKENS tokens (window 512, batch 4) with the
+    kernels and with the plain path: the full logits its first batch scores
+    with (each window's rows) within TOL of the plain path's, row by row,
+    and the two nll values within EVAL_NLL_GAP (rel)."""
+    import rama_tpu_torch.eval as ev
+
+    (text,), tok = repeated_prompts(tokenizer, (EVAL_TOKENS,))
+    out, firsts, prefill = {}, {}, ev.prefill
+
+    def kept(name):
+        def run(*a, **kw):
+            logits, cache = prefill(*a, **kw)
+            firsts.setdefault(name, logits)
+            return logits, cache
+        return run
+
+    for name, plain in (("kernels", False), ("plain", True)):
+        ev.prefill = kept(name)
+        try:
+            t0 = time.perf_counter()
+            out[name] = ev.perplexity(params, cfg, tok, text, window=EVAL_WINDOW,
+                                      batch=EVAL_BATCH, plain=plain)
+            torch.cuda.synchronize()
+            out[name]["seconds"] = time.perf_counter() - t0
+        finally:
+            ev.prefill = prefill
+    out["logits_max_abs_err"] = compare(
+        torch, f"eval: the first batch's full logits {tuple(firsts['plain'].shape)} "
+        f"(kernels vs plain)", firsts["kernels"], firsts["plain"])
+    del firsts
+    gap = abs(out["kernels"]["nll"] - out["plain"]["nll"]) / abs(out["plain"]["nll"])
+    out["nll_rel_gap"] = gap
+    log(f"[eval] {json.dumps(out)} ({card})")
+    if not math.isfinite(out["kernels"]["perplexity"]) or gap > EVAL_NLL_GAP:
+        raise SystemExit(f"FAILED eval: nll {out['kernels']['nll']} with the kernels, "
+                         f"{out['plain']['nll']} plain: rel gap {gap:.3e} > {EVAL_NLL_GAP}")
+    return out
 
 
 def step_weight_bytes(params) -> float:
@@ -6029,7 +6614,9 @@ def profile_ab(torch, cfg, params) -> dict:
 def phase_cli(torch) -> None:
     """The CLI on a synthetic stories15M-shaped checkpoint: a v2 file (int8
     as stored), a v0 file quantized to int4 at load, and the v2 file with
-    its scales stored in bf16 (--scale-dtype bf16); then a v2 file of
+    its scales stored in bf16 (--scale-dtype bf16), the v2 file through
+    `generate -o chat` (two user lines, then exit: two replies) and `eval`
+    (one JSON line, a finite perplexity); then a v2 file of
     TinyLlama-1.1B's width cut to 2 layers (tied classifier: a 22-layer v0
     file would be 4.4 GB of fp32) through `generate --spec ngram` at the
     CLI's default --spec-k 8 (64 query rows a kv head)."""
@@ -6062,6 +6649,34 @@ def phase_cli(torch) -> None:
                 f"{out.stderr.strip()[-300:]}")
             if out.returncode != 0:
                 raise SystemExit(f"FAILED cli {' '.join(flags)}: {out.stderr[-2000:]}")
+        tok = str(ROOT / "tests" / "fixtures" / "tokenizer.bin")
+        # the chat loop on stdin: two user lines, then exit
+        out = subprocess.run([sys.executable, "-m", "rama_tpu_torch.cli", "generate", "-m", v2,
+                              "-t", tok, "-o", "chat", "-p", "You are terse.", "-s", "16", "-r",
+                              "0", "--device", "cuda"],
+                             input="Hello there\nTell me a story\nexit\n", capture_output=True,
+                             text=True, timeout=300, cwd=ROOT)
+        replies = out.stdout.count("Assistant: ")
+        log(f"[cli] -o chat rc {out.returncode}, {replies} replies; stdout tail: "
+            f"{out.stdout.strip()[-300:]!r}")
+        if out.returncode != 0 or replies != 2:
+            raise SystemExit(f"FAILED cli -o chat: rc {out.returncode}, {replies} replies: "
+                             f"{out.stdout[-1000:]} {out.stderr[-2000:]}")
+        # eval on a text file (the default --dtype float32)
+        text = os.path.join(d, "text.txt")
+        with open(text, "w") as f:
+            f.write("Once upon a time, there was a little girl named Lily. She loved to play "
+                    "outside in the sunshine. One day she saw a big red ball in the park. " * 4)
+        out = subprocess.run([sys.executable, "-m", "rama_tpu_torch.cli", "eval", "-m", v2, "-t",
+                              tok, "--text", text, "--window", "64", "--batch", "2",
+                              "--device", "cuda"],
+                             capture_output=True, text=True, timeout=300, cwd=ROOT)
+        lines = out.stdout.strip().splitlines()
+        got = json.loads(lines[0]) if out.returncode == 0 and len(lines) == 1 else {}
+        log(f"[cli] eval rc {out.returncode}: {out.stdout.strip()[-300:]}")
+        if not math.isfinite(got.get("perplexity", math.nan)):
+            raise SystemExit(f"FAILED cli eval: rc {out.returncode}, stdout {out.stdout[-1000:]} "
+                             f"{out.stderr[-2000:]}")
 
     tcfg = tinyllama_config(ModelConfig, n_layers=2).replace(shared_classifier=True)
     L, D, H, KV = tcfg.n_layers, tcfg.dim, tcfg.hidden_dim, tcfg.kv_dim
@@ -6219,6 +6834,12 @@ def main() -> int:
                     phase_prefill_t1(torch, cfg, params)
                 elif ph == "serve_pipe":
                     serving[ph] = phase_serve_pipe(torch, cfg, params, tokenizer, card)
+                elif ph == "serve_chunk":
+                    serving[ph] = phase_serve_chunk(torch, cfg, params, tokenizer, card, modules)
+                elif ph == "chat":
+                    serving[ph] = phase_chat(torch, cfg, params, tokenizer, card)
+                elif ph == "eval":
+                    serving[ph] = phase_eval(torch, cfg, params, tokenizer, card)
                 elif ph == "spec_draft":
                     phase_spec_draft(torch, cfg, params, tokenizer,
                                      start_count=lambda: reset_launches(*modules))
@@ -6278,6 +6899,8 @@ def main() -> int:
                 del cache, long
             elif profile == "profile_paged" and profile in phases:
                 profile_paged(torch, cfg, params)
+            elif profile == "profile_chunk" and profile in phases:
+                profiles[profile] = profile_chunk(torch, cfg, params, card)
             elif profile == "spec_draft_ab" and profile in phases:
                 phase_spec_draft_ab(torch, cfg, params, tokenizer)
             elif profile == "profile_ab" and profile in phases:
@@ -6362,7 +6985,9 @@ def main() -> int:
             "t2", "one_query", "paged", "standalone", "standalone_launches",
             "standalone_launches_yi_kv8_path", "rows_body", "rows_body_launches", "t512",
             "launches_warmup_path", "stream_body_launches", "launches_pipe_path",
-            "standalone_launches_pipe_path", "rows_body_launches_pipe_path")
+            "standalone_launches_pipe_path", "rows_body_launches_pipe_path",
+            "launches_chunk_path", "standalone_launches_chunk_path",
+            "rows_body_launches_chunk_path", "launches_chat_path", "launches_eval_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

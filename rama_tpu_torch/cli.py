@@ -1,18 +1,23 @@
-"""Command-line generation — the port of rama_tpu/cli.py `generate`
-(the reference's `engine` binary, engine/src/main.rs:20-105).
+"""Command line — the port of rama_tpu/cli.py `generate` and `eval` (the
+reference's `engine` binary, engine/src/main.rs:20-105).
 
     python -m rama_tpu_torch.cli generate -m model.bin -t tokenizer.bin \
         -p "once upon a time" -s 200 -r 0.9 --device cuda
+    python -m rama_tpu_torch.cli generate -m model.bin -t tokenizer.bin \
+        -o chat -p "You are terse." -s 128
+    python -m rama_tpu_torch.cli eval -m model.bin -t tokenizer.bin --text wiki.txt
 
-Loads a v0/v1/v2 .bin checkpoint, runs generation on `--device` (cuda by
-default; it raises without a GPU unless `--device cpu` is given), prints
-the text and a tok/s line computed the reference way: (steps - 1) / elapsed
-(engine/src/main.rs:100-103). `--spec ngram|draft` (with `--spec-k` and
-`--draft-model`) generates speculatively and prints a `[spec]` line of
-rounds and accepted drafts first. `--scale-dtype bf16` stores the
-quantized weights' scales in bf16 after fusing (`cast_scales`), as
-rama_tpu/cli.py:124 does. Flags of features not ported yet exit with
-status 2 and name the ROADMAP item.
+`generate` loads a v0/v1/v2 .bin checkpoint, runs generation on `--device`
+(cuda by default; it raises without a GPU unless `--device cpu` is given),
+prints the text and a tok/s line computed the reference way: (steps - 1)
+/ elapsed (engine/src/main.rs:100-103). `--spec ngram|draft` (with
+`--spec-k` and `--draft-model`) generates speculatively and prints a
+`[spec]` line of rounds and accepted drafts first. `--scale-dtype bf16`
+stores the quantized weights' scales in bf16 after fusing (`cast_scales`),
+as rama_tpu/cli.py:124 does. `-o chat` runs the chat loop on stdin
+(runtime/chat.py): `-p` is the system prompt and `-s` each reply's most
+tokens. `eval` prints one JSON line of perplexity over a text file
+(eval.py), with rama_tpu's flags (`--dtype` float32 by default).
 """
 
 from __future__ import annotations
@@ -59,14 +64,22 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--draft-model", default=None, help="draft .bin for --spec draft")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a GPU) or cpu")
+    v = sub.add_parser("eval", help="perplexity over a text file (e.g. wikitext-2's test "
+                                    "split for the int8 / int4 quality gates)")
+    v.add_argument("-m", "--model", required=True)
+    v.add_argument("-t", "--tokenizer", required=True)
+    v.add_argument("--text", required=True, help="path to a plain-text file")
+    v.add_argument("--quant", default="auto", choices=["auto", "none", "int8", "int4"])
+    v.add_argument("--dtype", default="float32", choices=list(_DTYPES))
+    v.add_argument("--scale-dtype", default=None, choices=["bf16"],
+                   help="store weight-quant scales in bf16 (the serving option's quality "
+                        "delta, by perplexity)")
+    v.add_argument("--window", type=int, default=512)
+    v.add_argument("--batch", type=int, default=4)
+    v.add_argument("--max-tokens", type=int, default=None)
+    v.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default; raises without a GPU) or cpu")
     return ap
-
-
-def unported(args) -> str | None:
-    """The ROADMAP item a flag asks for that this port does not have yet."""
-    if args.mode == "chat":
-        return "-o chat: the chat loop (chat.py)"
-    return None
 
 
 def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
@@ -102,11 +115,6 @@ def cmd_generate(args) -> int:
     from rama_tpu_torch.runtime.speculative import generate_text_speculative
     from rama_tpu_torch.tokenizer import Tokenizer
 
-    missing = unported(args)
-    if missing:
-        print(f"{missing} is not ported to rama_tpu_torch yet (ROADMAP.md)",
-              file=sys.stderr)
-        return 2
     if args.spec == "draft" and not args.draft_model:
         print("--spec draft requires --draft-model", file=sys.stderr)
         return 2
@@ -114,6 +122,13 @@ def cmd_generate(args) -> int:
     if args.scale_dtype:
         params = cast_scales(params, torch.bfloat16)
     tokenizer = Tokenizer.from_file(args.tokenizer, cfg.vocab_size)
+    if args.mode == "chat":
+        # run.c's chat convention: -p is the system prompt, EOS ends a reply
+        from rama_tpu_torch.runtime.chat import chat_repl
+
+        return chat_repl(params, cfg, tokenizer, temperature=args.temperature,
+                         top_p=args.topp, seed=args.seed, system=args.prompt or None,
+                         max_new=args.step, cache_dtype=dtype)
     draft = None
     if args.spec == "draft":
         dcfg, dparams, _ = load_model(args.draft_model, "none", args.dtype, args.device)
@@ -145,10 +160,30 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    import json
+
+    from rama_tpu_torch.eval import perplexity
+    from rama_tpu_torch.ops.quant import cast_scales
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg, params, _ = load_model(args.model, args.quant, args.dtype, args.device)
+    if args.scale_dtype:
+        params = cast_scales(params, torch.bfloat16)
+    tokenizer = Tokenizer.from_file(args.tokenizer, cfg.vocab_size)
+    with open(args.text) as f:
+        text = f.read()
+    print(json.dumps(perplexity(params, cfg, tokenizer, text, window=args.window,
+                                batch=args.batch, max_tokens=args.max_tokens)))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "generate":
         return cmd_generate(args)
+    if args.cmd == "eval":
+        return cmd_eval(args)
     return 1
 
 

@@ -388,8 +388,8 @@ def _attention(q, k_cache, v_cache, pos_mask):
     nkv = k_cache.shape[1]
     qg = q.reshape(b, t, nkv, nh // nkv, hd).float()
     scores = torch.einsum("btkrh,bksh->btkrs", qg, k_cache.float()) / math.sqrt(hd)
-    scores = torch.where(pos_mask[:, :, None, None, :], scores,
-                         torch.tensor(-1e30, device=q.device))
+    # a fill, not a host scalar copied up: no stream sync on the card
+    scores = scores.masked_fill(~pos_mask[:, :, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("btkrs,bksh->btkrh", probs.to(v_cache.dtype).float(),
                        v_cache.float())

@@ -66,11 +66,27 @@ What it keeps from the JAX engine:
   the card every host array goes up through pinned memory without a stream
   sync (`_upload`), every fetch is a copy into pinned memory behind a
   recorded event that the processing step waits on (`_start_fetch`,
-  `_fetched`), and the sampler picks its walk on the device.
+  `_fetched`), and the sampler picks its walk on the device;
+- **chunked prefill** (`prefill_chunk` = C, rama_tpu's engine.py:504-552,
+  1405-1510): a prompt longer than `prefill_chunk_min` (default 4 C) is
+  admitted by a background job (`_pf_job`, one at a time, the rest in
+  `_pf_pending`) that forwards its (k, C) columns [off, off + C) into the
+  job's scratch, one chunk an iteration of the loop (`_prefill_chunk_step`,
+  the masked attention over the scratch), so that a long admission is meant
+  to hold up the active streams by one chunk forward instead of one
+  whole-prompt forward. On a loop whose tick dispatch is host-bound it does
+  not: the largest stall is the pipeline's refill after a drain, which
+  both modes pay, while chunking costs tok/s and long-prompt TTFT
+  (PERF.md §6). Non-final chunks ride along behind the ticks in flight; the final chunk
+  is held back (no tick chains while it is pending) and dispatched with
+  none in flight, followed by the finisher (`_dev_pf_finish`): the firsts
+  sampled from the captured last-row logits, the strips inserted through
+  the direct admission's writers (K8, K13 (b), the bf16 copy), then the
+  one blocking fetch of the firsts.
 
-Not ported yet (ROADMAP.md): chunked prefill, tensor/data/sequence
-parallelism (the paged pool's dp sharding with it), multi-host. Their
-EngineConfig fields raise NotImplementedError when set.
+Not ported yet (ROADMAP.md): tensor/data/sequence parallelism (the paged
+pool's dp sharding with it), multi-host. Their EngineConfig fields raise
+NotImplementedError when set.
 
 Threading: one engine thread owns the device loop; request queues bridge to
 the async server. Tokens stream per request through `Request.queue`.
@@ -192,7 +208,6 @@ _PIPELINE_DEPTH = 3
 
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
-    ("prefill_chunk", 0, "chunked prefill"),
     ("tp_size", 1, "tensor/data/sequence parallelism"),
     ("dp_size", 1, "tensor/data/sequence parallelism"),
     ("seq_par", False, "tensor/data/sequence parallelism"),
@@ -204,6 +219,32 @@ def _copy_strips(cache: KVCache, scratch: KVCache, slots: list[int], t_ins: int)
     for j, slot_idx in enumerate(slots):
         cache.k[:, slot_idx, :, :t_ins].copy_(scratch.k[:, j, :, :t_ins])
         cache.v[:, slot_idx, :, :t_ins].copy_(scratch.v[:, j, :, :t_ins])
+
+
+@torch.no_grad()
+def _prefill_chunk_step(params, cfg: ModelConfig, tokens_chunk: torch.Tensor,
+                        true_lens: torch.Tensor, off: int, scratch: KVCache,
+                        last: torch.Tensor):
+    """One chunk of a background prefill job (rama_tpu's _prefill_chunk_step,
+    engine.py:504-532): forward the (k, C) prompt columns [off, off + C)
+    into the job's scratch (attending every column prefilled before), the
+    classifier only at each row's candidate last column
+    clip(true_lens - 1 - off, 0, C - 1), and take those logits into the
+    (k, V) `last` where the row's last position falls inside this chunk.
+    Columns past a row's length write the last scratch row, which no real
+    query reads; rows whose prompt ended in an earlier chunk compute clamped
+    rows that nothing reads. The chunk is not from position 0, so its
+    attention is the masked one over the scratch (`forward` without `plen`).
+    Returns (scratch, last)."""
+    c = tokens_chunk.shape[1]
+    lens = true_lens.long()
+    idx = off + torch.arange(c, device=tokens_chunk.device)[None, :]
+    pos_index = torch.where(idx < lens[:, None], idx, scratch.max_len - 1)
+    sel = lens - 1 - off
+    take, scratch = forward(params, cfg, tokens_chunk, pos_index, scratch,
+                            logit_rows=sel.clamp(0, c - 1))
+    last = torch.where(((sel >= 0) & (sel < c))[:, None], take[:, 0], last)
+    return scratch, last
 
 
 def check_ported(ecfg: EngineConfig) -> None:
@@ -253,6 +294,15 @@ class Engine:
             raise ValueError("spec_mode='draft' requires draft=(draft_cfg, draft_params)")
         if self.spec:
             check_chunk(cfg, self.spec + 1, self.device)   # the verification chunk
+        self.pf_chunk = self.ecfg.prefill_chunk
+        if self.pf_chunk and (self.pf_chunk < 16 or self.pf_chunk & (self.pf_chunk - 1)):
+            raise ValueError(f"prefill_chunk {self.pf_chunk} must be a power of two >= 16")
+        # prompts LONGER than pf_engage take the chunked job; shorter ones the
+        # direct one-dispatch prefill
+        self.pf_engage = (self.ecfg.prefill_chunk_min
+                          if self.ecfg.prefill_chunk_min is not None else 4 * self.pf_chunk)
+        if self.pf_chunk and self.pf_engage < self.pf_chunk:
+            raise ValueError("prefill_chunk_min must be >= prefill_chunk")
         self.paged = self.ecfg.paged_kv
         if self.paged:
             ps = self.ecfg.kv_page_size
@@ -291,6 +341,10 @@ class Engine:
         self._spec_inflight_q: deque = deque()
         self._admit_jobs: list = []
         self._last_spec = None
+        # chunked prefill: the one active job and the entries waiting for it
+        # (their slots assigned, prefilling)
+        self._pf_job: dict | None = None
+        self._pf_pending: list = []
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
@@ -393,7 +447,11 @@ class Engine:
         prefill bucket `_start_requests` can emit (t_pad from 16 doubling
         up to min(max_prompt + 1, max_len), capped at max_len; max_prompt
         None: up to max_len), each through `_dev_prefill_insert` and, in
-        draft mode, `_dev_draft_prefill`. Each runs greedy, then sampled at
+        draft mode, `_dev_draft_prefill`; with `prefill_chunk` the buckets
+        above _bucket(pf_engage) leave that ladder, and every bucket from
+        _bucket(pf_engage) up runs a chunked job's chunk at off 0 and its
+        finisher (two programs, and the draft's prefill in draft mode; JAX's
+        chunked section, engine.py:1021-1075). Each runs greedy, then sampled at
         temperature 1 and top_p 1 (which takes the top-k, the full sort and
         the nucleus walk): the port's two sampling routes are separate
         code, where JAX's one program covers both. Each dispatch pays the
@@ -451,18 +509,34 @@ class Engine:
                 break
             t *= 2
         for t_pad in ts:
+            # JAX's split: direct up to _bucket(pf_engage), chunked from it on
+            direct = not self.pf_chunk or t_pad <= _bucket(self.pf_engage)
+            chunked = self.pf_chunk and t_pad >= _bucket(self.pf_engage)
             for k_pad in sorted({_bucket_k(nn, 1, b, t_pad) for nn in range(1, b + 1)}):
                 tokens = np.zeros((k_pad, t_pad), np.int64)
                 lens = np.ones(k_pad, np.int32)
-                for temps, tps in routes(k_pad):
-                    self._dev_prefill_insert(tokens, lens, temps, tps,
-                                             np.zeros((k_pad, 2), np.int64), [0])
-                    self._sync()
-                count += 1
-                if self.draft_mode:
-                    self._dev_draft_prefill(tokens, lens, [0])
-                    self._sync()
+                keys = np.zeros((k_pad, 2), np.int64)
+                if direct:
+                    for temps, tps in routes(k_pad):
+                        self._dev_prefill_insert(tokens, lens, temps, tps, keys, [0])
+                        self._sync()
                     count += 1
+                    if self.draft_mode:
+                        self._dev_draft_prefill(tokens, lens, [0])
+                        self._sync()
+                        count += 1
+                if chunked:
+                    # the job's programs: a chunk at off 0 and the finisher
+                    # (engine.py:1021-1075)
+                    job = self._pf_new_job([], tokens, lens, *routes(k_pad)[0], keys, [0])
+                    self._dev_pf_chunk(job)
+                    for temps, tps in routes(k_pad):
+                        self._fetched(self._dev_pf_finish(dict(job, temps=temps, top_ps=tps)))
+                    count += 2
+                    if self.draft_mode:
+                        self._dev_draft_prefill(tokens, lens, [0])
+                        self._sync()
+                        count += 1
         for cache in (self.cache, self.dcache):
             if isinstance(cache, (KVCache, QuantKVCache)):
                 for f in fields(cache):
@@ -555,17 +629,35 @@ class Engine:
         while self._admit_jobs:
             job = self._admit_jobs.pop(0)
             firsts = self._fetched(job["firsts"])
-            for j, (slot_idx, slot, req, ids, key) in enumerate(job["entries"]):
-                if slot.request is not req:
-                    continue
-                slot.prefilling = False
-                slot.last_token = int(firsts[j])
-                if req.echo_prompt:
-                    # the reference stream re-emits prompt tokens while forcing
-                    # them (mod.rs:227-241)
-                    for t in req.prompt_ids:
-                        req.queue.put(self.tokenizer.decode_token(t))
-                self._emit(slot, slot.last_token)
+            for j, (_, slot, req, _, _) in enumerate(job["entries"]):
+                if slot.request is req:
+                    self._emit_first(slot, int(firsts[j]))
+
+    def _seat(self, entry) -> None:
+        """Slot bookkeeping of an admitted entry (slot index, slot, request,
+        [BOS] + prompt ids, key): its key, next decode position, draft rows
+        and token history. The slot stays prefilling until its first token
+        is fetched."""
+        slot_idx, slot, req, ids, key = entry
+        self.slot_keys[slot_idx] = key
+        slot.request = req
+        slot.prefilling = True
+        slot.pos = len(ids)            # next decode position
+        slot.draft_pos = len(ids)      # draft cache rows 0..len-1 written
+        slot.generated = 0
+        # _emit writes every emitted token at its position, `first` included
+        slot.hist = np.zeros(self._hist_cap, np.int64)
+        slot.hist[: len(ids)] = ids
+
+    def _emit_first(self, slot: _Slot, first: int) -> None:
+        slot.prefilling = False
+        slot.last_token = first
+        if slot.request.echo_prompt:
+            # the reference stream re-emits prompt tokens while forcing them
+            # (mod.rs:227-241)
+            for t in slot.request.prompt_ids:
+                slot.request.queue.put(self.tokenizer.decode_token(t))
+        self._emit(slot, first)
 
     def _start_requests(self, batch):
         entries = []
@@ -582,6 +674,17 @@ class Engine:
                 req.queue.put(None)
                 continue
             entries.append((slot_idx, slot, req, ids, key))
+        if self.pf_chunk:
+            # prompts longer than pf_engage go to the background job
+            # (engine.py:1312-1328); their slots are taken now, prefilling
+            long = [e for e in entries if len(e[3]) > self.pf_engage]
+            entries = [e for e in entries if len(e[3]) <= self.pf_engage]
+            for e in long:
+                e[1].request = e[2]
+                e[1].prefilling = True
+            self._pf_pending += long
+            if long:
+                self._pf_maybe_start()
         if not entries:
             return
         t_all = min(_bucket(max(len(e[3]) for e in entries)), self.max_len)
@@ -617,18 +720,9 @@ class Engine:
                 self._dev_prefill_insert(tokens, true_lens, temps, top_ps, keys, slots))
             if self.draft_mode:
                 self._dev_draft_prefill(tokens, true_lens, slots)
-        for slot_idx, slot, req, ids, key in entries:
-            self.slot_keys[slot_idx] = key
-            # the slot is assigned at dispatch (prefilling until its first
-            # token is fetched), so a second dispatch cannot take it
-            slot.request = req
-            slot.prefilling = True
-            slot.pos = len(ids)            # next decode position
-            slot.draft_pos = len(ids)      # draft cache rows 0..len-1 written
-            slot.generated = 0
-            # _emit writes every emitted token at its position, `first` included
-            slot.hist = np.zeros(self._hist_cap, np.int64)
-            slot.hist[: len(ids)] = ids
+        for entry in entries:
+            # the slot is assigned at dispatch, so a second dispatch cannot take it
+            self._seat(entry)
         self._admit_jobs.append({"entries": entries, "firsts": firsts})
 
     @torch.no_grad()
@@ -641,28 +735,126 @@ class Engine:
         and layer in one launch. The scratch is in the activation dtype
         (the JAX engine's is bf16 whatever the params). Returns the (k,)
         first tokens on the device, unfetched."""
-        t_pad = tokens.shape[1]
         lens = self._upload(true_lens)
         last, scratch = self._prefill_scratch(self.params, self.cfg, tokens, lens)
+        firsts = self._sample_firsts(last[:, 0], lens, temps, top_ps, keys)
+        self._insert_strips(scratch, slots)
+        return firsts
+
+    def _sample_firsts(self, last, lens: torch.Tensor, temps, top_ps, keys) -> torch.Tensor:
+        """(k,) first tokens from the (k, V) last-row logits, each keyed at
+        its position true_lens - 1 as every other sampling site is."""
         if (temps > 0).any():
-            firsts = sample_batched_keyed(last[:, 0], self._upload(keys), lens.long() - 1,
-                                          self._upload(temps), self._upload(top_ps))
-        else:
-            firsts = sample_greedy(last[:, 0])
+            return sample_batched_keyed(last, self._upload(keys), lens.long() - 1,
+                                        self._upload(temps), self._upload(top_ps))
+        return sample_greedy(last)
+
+    def _insert_strips(self, scratch: KVCache, slots: list[int], rows=None) -> None:
+        """Rows 0:t_ins of scratch strips j < len(slots) into the slots' cache
+        rows (pad strips duplicate the last real one and are not written):
+        the int8 cache's strip writer K8, the int8 pool's K13 (b) through
+        the page-table rows `rows` (default: the slots' rows now), or a copy
+        into a bf16 / f32 cache or pool."""
+        t_pad = scratch.max_len
         if self.paged:
-            # the group's real entries only: pad rows duplicate the last one
             insert_prefill_paged(self.cache, scratch.k, scratch.v,
-                                 self._upload(self.page_tables[slots]),
+                                 self._upload(self.page_tables[slots] if rows is None else rows),
                                  min(t_pad, self.pages_per_slot * self.cache.page_size))
-            return firsts
-        t_ins = min(t_pad, self.max_len)
-        if isinstance(self.cache, QuantKVCache):
+        elif isinstance(self.cache, QuantKVCache):
             c = self.cache
             write_kv_strips_q8(c.k, c.v, c.ks, c.vs, scratch.k, scratch.v,
-                               self._upload(np.asarray(slots, np.int32)), t_ins)
+                               self._upload(np.asarray(slots, np.int32)),
+                               min(t_pad, self.max_len))
         else:
-            _copy_strips(self.cache, scratch, slots, t_ins)
-        return firsts
+            _copy_strips(self.cache, scratch, slots, min(t_pad, self.max_len))
+
+    # -- chunked prefill (a background job interleaved with the ticks) --------
+
+    def _pf_new_job(self, entries, tokens, true_lens, temps, top_ps, keys,
+                    slots: list[int]) -> dict:
+        """A job over one padded (k_pad, t_pad) bucket: its scratch, its (k,
+        V) last-row logits, the next chunk's offset, and the page-table rows
+        its strips go to (as they are at its start)."""
+        k_pad, t_pad = tokens.shape
+        return {"entries": entries, "tokens": tokens, "true_lens": true_lens,
+                "lens": self._upload(true_lens), "temps": temps, "top_ps": top_ps,
+                "keys": keys, "slots": slots,
+                "rows": self.page_tables[slots].copy() if self.paged else None,
+                "scratch": KVCache.create(self.cfg, batch=k_pad, max_len=t_pad,
+                                          dtype=self.dtype, device=self.device),
+                "last": torch.zeros((k_pad, self.cfg.vocab_size), dtype=torch.float32,
+                                    device=self.device),
+                "off": 0}
+
+    def _pf_maybe_start(self):
+        """Start a job over the pending entries that fit the direct
+        admission's area cap (engine.py:1407-1436); the rest wait for it."""
+        if self._pf_job is not None or not self._pf_pending:
+            return
+        t_all = min(_bucket(max(len(e[3]) for e in self._pf_pending)), self.max_len)
+        c = _prefill_k_cap(t_all)
+        entries, self._pf_pending = self._pf_pending[:c], self._pf_pending[c:]
+        self._pf_job = self._pf_new_job(entries, *self._pad_entries(entries),
+                                        [e[0] for e in entries])
+
+    def _pf_step(self):
+        """Dispatch one chunk of the active job (no fetch) and, when the
+        chunk covers every row's prompt, finish the job."""
+        job = self._pf_job
+        self._dev_pf_chunk(job)
+        job["off"] += self.pf_chunk
+        if job["off"] >= int(job["true_lens"].max()):
+            self._pf_finish_job()
+
+    def _pf_final_chunk_pending(self) -> bool:
+        """Whether the active job's next chunk covers its prompts, so that
+        dispatching it runs the finisher (engine.py:1881)."""
+        job = self._pf_job
+        return (job is not None
+                and job["off"] + self.pf_chunk >= int(job["true_lens"].max()))
+
+    @torch.no_grad()
+    def _dev_pf_chunk(self, job) -> None:
+        """The job's chunk at job["off"] on the device: its token columns go
+        up pinned and non-blocking, the scratch and `last` are updated."""
+        c, off = self.pf_chunk, job["off"]
+        chunk = np.zeros((job["tokens"].shape[0], c), np.int64)
+        w = job["tokens"][:, off:off + c]
+        chunk[:, : w.shape[1]] = w
+        job["scratch"], job["last"] = _prefill_chunk_step(
+            self.params, self.cfg, self._upload(chunk), job["lens"], off, job["scratch"],
+            job["last"])
+
+    def _pf_finish_job(self):
+        """The finisher (engine.py:1470-1508): firsts and inserts dispatched,
+        the draft prefilled over the whole prompts in one forward (draft
+        mode), then the one blocking fetch, and each entry's slot seated
+        and its first token emitted; a slot whose request left it while it
+        was prefilling is skipped. Then the next pending job starts."""
+        job = self._pf_job
+        fetch = self._dev_pf_finish(job)
+        if self.draft_mode:
+            self._dev_draft_prefill(job["tokens"], job["true_lens"], job["slots"])
+        firsts = self._fetched(fetch)
+        for j, entry in enumerate(job["entries"]):
+            slot, req = entry[1], entry[2]
+            if slot.request is not req:
+                continue
+            self._seat(entry)
+            self._emit_first(slot, int(firsts[j]))
+        self._pf_job = None
+        self._pf_maybe_start()
+
+    @torch.no_grad()
+    def _dev_pf_finish(self, job):
+        """The finisher's device half (rama_tpu's _prefill_finish /
+        _prefill_finish_paged): the firsts sampled from `last`, the scratch
+        strips inserted, the firsts' fetch started (returned, not waited
+        for)."""
+        firsts = self._sample_firsts(job["last"], job["lens"], job["temps"], job["top_ps"],
+                                     job["keys"])
+        self._insert_strips(job["scratch"], job["slots"], job["rows"])
+        return self._start_fetch(firsts)
 
     def _prefill_scratch(self, params, cfg: ModelConfig, tokens: np.ndarray,
                          lens: torch.Tensor):
@@ -820,6 +1012,8 @@ class Engine:
                 self._spec_inflight_q.clear()
                 self._admit_jobs.clear()  # their slots finish below
                 self._last_spec = None
+                self._pf_job = None
+                self._pf_pending = []
                 for s in self.slots:
                     if not s.free:
                         s.prefilling = False
@@ -863,6 +1057,13 @@ class Engine:
                     and not self._stop.is_set()):
                 with self.phases.phase("admit"):
                     self._admit_dispatch()
+            # chunked prefill rides along: one non-final chunk each iteration
+            # (it touches only the job's scratch); the final one waits for
+            # the drain, as its finisher writes the slot cache
+            # (engine.py:1753-1763)
+            if self._pf_job is not None and not self._pf_final_chunk_pending():
+                with self.phases.phase("pf_chunk"):
+                    self._pf_step()
         if self._inflight_q:
             while len(self._inflight_q) < _PIPELINE_DEPTH and self._chain_ok():
                 nxt = self._dispatch_chained(self._inflight_q[-1])
@@ -883,10 +1084,16 @@ class Engine:
                 return
         with self.phases.phase("admit"):
             self._admit()
+        if self._pf_job is not None:
+            # one chunk an iteration: active streams wait one chunk forward,
+            # not a whole prompt's
+            with self.phases.phase("pf_chunk"):
+                self._pf_step()
         active = [s for s in self.slots if not s.free and not s.prefilling]
         if not active:
-            self._wake.wait(timeout=0.05)
-            self._wake.clear()
+            if self._pf_job is None:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
             return
         b = len(self.slots)
         tokens = np.zeros(b, np.int64)
@@ -943,10 +1150,12 @@ class Engine:
         queue is empty and no async-admitted prefill is unfetched (a chained
         tick after the insert would overwrite the new slot's rows),
         speculation is off or dormant (spec ticks chain through
-        _dispatch_spec_chained), and the engine is not stopping."""
+        _dispatch_spec_chained), no chunked-prefill job is one chunk from
+        its finisher (the same hazard), and the engine is not stopping."""
         return ((not self.spec or self._spec_dormant > 0)
                 and self.admission.qsize() == 0
                 and not self._admit_jobs
+                and not self._pf_final_chunk_pending()
                 and not self._stop.is_set())
 
     def _dispatch_chained(self, inf):
@@ -1011,6 +1220,7 @@ class Engine:
         _spec_chain_ok)."""
         return bool(self.spec and self.admission.qsize() == 0
                     and not self._admit_jobs
+                    and not self._pf_final_chunk_pending()
                     and not self._stop.is_set())
 
     def _dispatch_spec_chained(self, inf):
@@ -1107,7 +1317,7 @@ class Engine:
         the last column takes the round's writes past a history's end."""
         h = np.zeros((len(self.slots), self._hist_cap + 1), np.int64)
         for i, s in enumerate(self.slots):
-            if not s.free:
+            if not s.free and s.hist is not None:
                 h[i, : self._hist_cap] = s.hist
         return h
 
@@ -1193,7 +1403,8 @@ class Engine:
         padded (B, T) forward over its cache (rama_tpu's
         _maybe_draft_resync / _draft_resync). Padding repeats each slot's
         last position: identical rows, a harmless duplicate write."""
-        stale = [s for s in self.slots if not s.free and s.draft_pos < s.pos]
+        stale = [s for s in self.slots
+                 if not s.free and not s.prefilling and s.draft_pos < s.pos]
         if not stale:
             return
         b = len(self.slots)
@@ -1202,7 +1413,7 @@ class Engine:
         tokens = np.zeros((b, t_pad), np.int64)
         pos_index = np.zeros((b, t_pad), np.int64)
         for i, s in enumerate(self.slots):
-            if s.free:
+            if s.free or s.prefilling:   # a chunked job's slot: its prefill writes its rows
                 continue
             idx = np.minimum(s.draft_pos + np.arange(t_pad), s.pos - 1)
             tokens[i] = s.hist[idx]

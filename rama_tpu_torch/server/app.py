@@ -15,6 +15,7 @@ Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
           [--address 0.0.0.0:3000] [--quant auto] [--batch 8] [--device cuda] \
           [--kv-quant int8] [--paged [--page-size 128]] [--spec-tick 3 \
           [--spec-mode draft --spec-draft-model draft.bin]] \
+          [--prefill-chunk 256 [--prefill-chunk-min 1024]] \
           [--warmup [--warmup-max-prompt 512]] [--compile-cache DIR]
 """
 
@@ -151,7 +152,8 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 kv_quant: str | None = None, spec_tick: int = 0,
                 spec_mode: str = "ngram", spec_draft_model: str | None = None,
                 paged: bool = False, page_size: int = 128,
-                scale_dtype: str | None = None, compile_cache: str | None = None) -> Engine:
+                scale_dtype: str | None = None, compile_cache: str | None = None,
+                prefill_chunk: int = 0, prefill_chunk_min: int | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.tokenizer import Tokenizer
 
@@ -166,14 +168,14 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                         max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
                         spec_tick=spec_tick, spec_mode=spec_mode, paged_kv=paged,
                         kv_page_size=page_size, scale_dtype=scale_dtype,
-                        compile_cache=compile_cache)
+                        compile_cache=compile_cache, prefill_chunk=prefill_chunk,
+                        prefill_chunk_min=prefill_chunk_min)
     return Engine(cfg, params, tokenizer, ecfg, draft=draft)
 
 
 # server flags of the JAX package whose features are not ported yet:
 # (flag, attribute, value when unset, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("--prefill-chunk", "prefill_chunk", 0, "chunked prefill"),
     ("--tp", "tp", 1, "tensor/data/sequence parallelism"),
     ("--dp", "dp", 1, "tensor/data/sequence parallelism"),
     ("--seq-par", "seq_par", False, "tensor/data/sequence parallelism"),
@@ -209,7 +211,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "draft model (--spec-draft-model)")
     ap.add_argument("--spec-draft-model", default=None, metavar="BIN",
                     help=".bin checkpoint for --spec-mode draft (same vocab)")
-    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill, rama_tpu's ride-along policy: prompts longer "
+                         "than --prefill-chunk-min admit through a background job of "
+                         "forwards of this many tokens, one a loop iteration behind the "
+                         "ticks in flight; the final chunk and the insert wait for the "
+                         "ticks to drain. On the host-bound loop it lowers tok/s and "
+                         "raises long-prompt TTFT, and does not shorten the largest stall "
+                         "(PERF.md section 6) (0 = off; a power of two >= 16)")
+    ap.add_argument("--prefill-chunk-min", type=int, default=None,
+                    help="only prompts LONGER than this take the chunked job (default 4x "
+                         "--prefill-chunk)")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--seq-par", action="store_true")
@@ -240,7 +252,9 @@ def main(argv=None) -> int:
                          kv_quant=args.kv_quant, spec_tick=args.spec_tick,
                          spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
                          paged=args.paged, page_size=args.page_size,
-                         scale_dtype=args.scale_dtype, compile_cache=args.compile_cache)
+                         scale_dtype=args.scale_dtype, compile_cache=args.compile_cache,
+                         prefill_chunk=args.prefill_chunk,
+                         prefill_chunk_min=args.prefill_chunk_min)
     if args.warmup:
         w = engine.warmup(max_prompt=args.warmup_max_prompt)
         print(f"warmup: {w['programs']} programs in {w['seconds']:.1f}s", file=sys.stderr)

@@ -89,3 +89,23 @@ def write_tokenizer_bin(path, vocab_size) -> str:
             f.write(struct.pack("<fi", 0.0, len(b)))
             f.write(b)
     return str(path)
+
+
+def jax_prefill_repeating_the_last_token(self, ids):
+    """rama_tpu's ChatSession._prefill_chunk with its pad columns holding
+    the last real token instead of 0 (the port's pad: rama_tpu's pad-0
+    columns overwrite the last real row, tests/test_torch_chat.py)."""
+    import jax.numpy as jnp
+
+    from rama_tpu.models import llama as jl
+    from rama_tpu.runtime import chat as j_chat
+
+    true = len(ids)
+    t_pad = j_chat._bucket(true)
+    padded = np.asarray([ids[min(i, true - 1)] for i in range(t_pad)], np.int32)
+    idx = jnp.arange(t_pad)
+    pos_index = jnp.where(idx < true, self.pos + idx, self.pos + true - 1)[None, :]
+    logits, self.cache = jl.forward(self.params, self.cfg, jnp.asarray(padded)[None, :],
+                                    pos_index, self.cache)
+    self.pos += true
+    return logits[0, true - 1]

@@ -2124,7 +2124,7 @@ def test_pipe_path_needs_the_three_engines_kernels(smoke, over, match):
         smoke.check_launches(smoke.PIPE_PATH, _pipe_launches(smoke, **over))
 
 
-def _tiny_int8_model():
+def _tiny_int8_model(seq_len: int = 64):
     import numpy as np
 
     from rama_tpu_torch.config import ModelConfig
@@ -2132,7 +2132,7 @@ def _tiny_int8_model():
     from rama_tpu_torch.tokenizer import Tokenizer
 
     cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=2, n_heads=4, n_kv_heads=2,
-                      vocab_size=128, seq_len=64)
+                      vocab_size=128, seq_len=seq_len)
     rng = np.random.default_rng(3)
     L, D, H, V = 2, 64, 176, 128
     p = {n: (rng.standard_normal(s) * 0.1).astype(np.float32) for n, s in {
@@ -2208,3 +2208,232 @@ def test_serve_pipe_phase_on_a_tiny_model(smoke, monkeypatch):
     monkeypatch.setattr(Engine, "_dispatch_chained", syncing)
     with pytest.raises(SystemExit, match="engine_errors"):
         smoke.pipe_run(torch, cfg, params, tok, {}, 3)
+
+
+def test_chunk_chat_eval_phases_are_known_and_a_subset_is_not_ok(smoke):
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    assert smoke.ALL_PHASES[-1] == "cli"
+    for ph, path, profile in (("serve_chunk", smoke.CHUNK_PATH, "profile_chunk"),
+                              ("chat", smoke.CHAT_PATH, None),
+                              ("eval", smoke.EVAL_PATH, None)):
+        assert ph in smoke.ALL_PHASES and path in smoke.PATHS
+        assert path["phases"] == (None, ph, profile)
+        for skip in filter(None, (ph, profile)):
+            line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != skip), dev)
+            assert line == {"ok": False, "skipped_phases": [skip], "device": dev}
+            assert rc == smoke.PARTIAL_RC
+
+
+def _path_launches(path, **over):
+    got = {k: 4 for k in path["record"]}
+    got.update({k: 0 for k in path["forbid"]})
+    return {**got, **over}
+
+
+@pytest.mark.parametrize("name,over,match", [
+    ("CHUNK_PATH", {"write_kv_prefill_paged_q8": 0}, "never launched"),
+    ("CHUNK_PATH", {"write_kv_strips_q8": 0}, "never launched"),
+    ("CHUNK_PATH", {"chunk_attention": 1}, "launched on the chunked prefill"),
+    ("CHUNK_PATH", {"write_kv_rows_q8": 2}, "launched on the chunked prefill"),
+    ("CHUNK_PATH", {"write_kv_rows_q8_fused": 3}, "launches of the kernel"),
+    ("CHUNK_PATH", {"quant_matmul_simt": 1, "quant_matmul_mma": 4}, "SIMT body"),
+    ("CHAT_PATH", {"prefill_attention": 2}, "launched on the chat"),
+    ("CHAT_PATH", {"ffn": 0}, "never launched"),
+    ("CHAT_PATH", {"ffn_simt": 1, "ffn_mma": 4}, "SIMT body"),
+    ("EVAL_PATH", {"quant_matmul_mmv": 1}, "launched on the eval"),
+    ("EVAL_PATH", {"prefill_attention": 0}, "never launched"),
+    ("EVAL_PATH", {"ffn": 2}, "launched on the eval")])
+def test_chunk_chat_eval_paths_need_their_kernels(smoke, name, over, match):
+    """serve_chunk runs K4, K7 (K6 inside), K12 (K13 (a) inside), K8 and
+    K13 (b) on the streaming body, K5, the GEMM and K3, no chunk attention;
+    chat the matmul, K3 and K4, no K5; eval K5 and the GEMM only."""
+    path = getattr(smoke, name)
+    smoke.check_launches(path, _path_launches(path))
+    with pytest.raises(SystemExit, match=match):
+        smoke.check_launches(path, _path_launches(path, **over))
+
+
+def test_chunk_and_finisher_launch_checks(smoke):
+    body = {"mmv": 1, "gemv": 0, "mma": 5, "simt": 0}
+    smoke.check_chunk_launches(body, dict(body, mma=12, mmv=2), 0)
+    for after, k5 in ((dict(body, gemv=1, mma=9), 0), (dict(body, simt=2), 0), (body, 0),
+                      (dict(body, mma=9), 1)):
+        with pytest.raises(SystemExit, match="tensor-core bodies"):
+            smoke.check_chunk_launches(body, after, k5)
+    k8, k13 = smoke.FINISH_WRITERS
+    smoke.check_finish_launches({k8: 1, k13: 0}, k8, {})
+    smoke.check_finish_launches({k8: 0, k13: 1}, k13, {})
+    smoke.check_finish_launches({k8: 0, k13: 0}, None, {})
+    for got, writer in (({k8: 2, k13: 0}, k8), ({k8: 1, k13: 0}, k13), ({k8: 0, k13: 1}, None)):
+        with pytest.raises(SystemExit, match="a finisher launched"):
+            smoke.check_finish_launches(got, writer, {})
+
+
+def _modules():
+    """The kernel wrappers' modules, in chip_smoke's order."""
+    from rama_tpu_torch.ops.kernels import attn_block, decode_attention, ffn, kv_write
+    from rama_tpu_torch.ops.kernels import paged_attention, prefill_attention, quant_matmul
+
+    return (quant_matmul, ffn, decode_attention, prefill_attention, kv_write, paged_attention,
+            attn_block)
+
+
+def _cpu_card_stubs(monkeypatch):
+    """The card's sync debug mode, synchronize, CUDA-event timer and
+    profiler, stood in for on the CPU; returns the debug modes set."""
+    import torch.profiler
+
+    modes = []
+
+    class Profile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: modes[-1] if modes else 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Profile())
+    return modes
+
+
+def test_serve_chunk_phase_on_a_tiny_model(smoke, monkeypatch):
+    """The phase's logic on the CPU at the tiny model's 64-row context
+    (chunks of 16 above 32 tokens, long prompts of 48 and 36, a pool of
+    16-row pages): each engine's short ids agree across the four runs, the
+    chunked runs' long logits and slot rows agree with the direct run's,
+    chunks ride behind ticks in flight, every dispatch ran with the debug
+    mode at "error", the chunk cost is taken; a run that counts an engine
+    error fails the phase."""
+    from rama_tpu_torch.runtime.engine import Engine
+
+    modes = _cpu_card_stubs(monkeypatch)
+    monkeypatch.setattr(smoke, "KV8_MAX_LEN", 64)
+    monkeypatch.setattr(smoke, "CHUNK_SERVE", dict(smoke.CHUNK_SERVE, max_seq_len=64))
+    monkeypatch.setattr(smoke, "CHUNK_ENGINES", (
+        ("bf16", {}), ("int8", dict(kv_quant="int8")),
+        ("paged", dict(kv_quant="int8", paged_kv=True, kv_page_size=16, kv_num_pages=32))))
+    monkeypatch.setattr(smoke, "CHUNK_MODE", dict(prefill_chunk=16, prefill_chunk_min=32))
+    monkeypatch.setattr(smoke, "CHUNK_LONG", (48, 36))
+    monkeypatch.setattr(smoke, "CHUNK_SHORT_STEPS", 24)
+    monkeypatch.setattr(smoke, "CHUNK_LONG_STEPS", 6)
+    monkeypatch.setattr(smoke, "time_ms", lambda torch, fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    orig = Engine._dev_tick_async
+
+    def host_bound(self, *a, **kw):
+        """A tick's dispatch as slow as the card's host-bound one, so the
+        long prompts' chunks find ticks in flight, as there."""
+        time.sleep(0.02)
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(Engine, "_dev_tick_async", host_bound)
+    cfg, params, tok = _tiny_int8_model()
+    summary = smoke.phase_serve_chunk(torch, cfg, params, tok, "cpu", _modules())
+    assert set(summary) == {"bf16", "int8", "paged"}
+    for name in ("bf16", "int8", "paged"):
+        by = summary[name]
+        assert sum(by["chunked"]["behind"]) >= 1 and not any(by["direct"]["chunks"])
+        assert all(n >= 1 for n in by["chunked"]["jobs"]) and len(by["direct"]["tok_s"]) == 2
+    assert set(smoke.profile_chunk(torch, cfg, params, "cpu")) == {"off0", "off32"}
+    assert "error" in modes and modes[-1] == 0
+
+    def failing(self, job):
+        self.metrics["engine_errors"] += 1          # as a sync raising in the loop counts
+        return Engine._dev_pf_finish(self, job)
+
+    monkeypatch.setattr(Engine, "_dev_pf_finish", failing)
+    with pytest.raises(SystemExit, match="engine_errors"):
+        smoke.chunk_run(torch, cfg, params, tok, {}, True, _modules())
+
+
+def test_chat_phase_on_a_tiny_model(smoke, monkeypatch):
+    """Three greedy turns on the CPU: every turn's logits against the plain
+    path on a copy of the cache, the position the templates' lengths plus
+    the emitted tokens."""
+    _cpu_card_stubs(monkeypatch)
+    cfg, params, tok = _tiny_int8_model(seq_len=256)
+    out = smoke.phase_chat(torch, cfg, params, tok, "cpu")
+    assert len(out["turns"]) == 3
+    assert out["pos"] == sum(t["template"] + t["tokens"] for t in out["turns"])
+
+
+def test_eval_phase_on_a_tiny_model(smoke, monkeypatch):
+    """perplexity with the kernels' plain versions (the CPU) and with
+    plain=True agree, its first batch's full logits too; an nll gap past
+    EVAL_NLL_GAP fails the phase, and so do logits all equal (a dead
+    kernel: the nll near ln(vocab)) on the kernels' side."""
+    _cpu_card_stubs(monkeypatch)
+    monkeypatch.setattr(smoke, "EVAL_TOKENS", 200)
+    monkeypatch.setattr(smoke, "EVAL_WINDOW", 32)
+    cfg, params, tok = _tiny_int8_model()
+    out = smoke.phase_eval(torch, cfg, params, tok, "cpu")
+    assert out["kernels"]["windows"] == 7 and out["nll_rel_gap"] < 1e-6
+    assert out["logits_max_abs_err"] < 1e-5
+    from rama_tpu_torch import eval as ev
+
+    real, prefill = ev.perplexity, ev.prefill
+
+    def skewed(*a, plain=False, **kw):
+        got = real(*a, plain=plain, **kw)
+        return dict(got, nll=got["nll"] * (1.0 if plain else 1.002))
+
+    monkeypatch.setattr(ev, "perplexity", skewed)
+    with pytest.raises(SystemExit, match="FAILED eval: nll"):
+        smoke.phase_eval(torch, cfg, params, tok, "cpu")
+    monkeypatch.setattr(ev, "perplexity", real)
+
+    def flat(*a, plain=False, **kw):
+        logits, cache = prefill(*a, plain=plain, **kw)
+        return (logits if plain else torch.zeros_like(logits)), cache
+
+    monkeypatch.setattr(ev, "prefill", flat)
+    with pytest.raises(SystemExit, match="FAILED eval: the first batch's full logits"):
+        smoke.phase_eval(torch, cfg, params, tok, "cpu")
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8", "paged_int8"])
+def test_slot_rows_copies_a_slots_rows(smoke, form):
+    """slot_rows reads slot 1's rows 0..plen-1 (dequantized, through its
+    page-table row on a pool) into a bf16 copy: a later write to the cache
+    leaves the copy as it was."""
+    import types
+
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import KVCache, QuantKVCache
+    from rama_tpu_torch.ops.kernels.kv_write import kv_quant_rows
+    from rama_tpu_torch.runtime.paged import QuantPagedKVCache
+
+    cfg = ModelConfig(dim=64, hidden_dim=176, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=64)
+    g = torch.Generator().manual_seed(5)
+    k = torch.randn(2, 3, 2, 64, 16, generator=g).to(torch.bfloat16)   # (L, B, nkv, S, hd)
+    v = torch.randn(2, 3, 2, 64, 16, generator=g).to(torch.bfloat16)
+    eng = types.SimpleNamespace(paged=False)
+    if form == "bf16":
+        eng.cache, want = KVCache(k=k.clone(), v=v.clone()), (k[:, 1, :, :40], v[:, 1, :, :40])
+    else:
+        (k8, ks), (v8, vs) = kv_quant_rows(k.float()), kv_quant_rows(v.float())
+        want = tuple((q[:, 1, :, :40].float() * s[:, 1, :, :40, None]).to(torch.bfloat16)
+                     for q, s in ((k8, ks), (v8, vs)))
+        if form == "int8":
+            eng.cache = QuantKVCache(k=k8, v=v8, ks=ks, vs=vs)
+        else:       # slot 1's 64 rows on pages 6, 2, 9, 0 of 16 rows
+            pool = QuantPagedKVCache.create(cfg, 10, 16, device="cpu")
+            pages = [6, 2, 9, 0]
+            for j, p in enumerate(pages):
+                for dst, src in ((pool.k, k8), (pool.v, v8), (pool.ks, ks), (pool.vs, vs)):
+                    dst[:, p] = src[:, 1, :, 16 * j:16 * (j + 1)]
+            eng.cache, eng.paged = pool, True
+            eng.page_tables = np.array([[1, 1, 1, 1], pages, [3, 3, 3, 3]], np.int32)
+    got = smoke.slot_rows(torch, eng, 1, 40)
+    for cache_part in (eng.cache.k, eng.cache.v):
+        cache_part.zero_()
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.bfloat16 and torch.equal(g_, w)

@@ -1,8 +1,9 @@
-"""rama_tpu_torch.cli `generate` end to end on tiny checkpoints on the CPU:
-flags parse, v0 and v2 checkpoints load (dense, or quantized to int8 or
-int4 at load), streams equal rama_tpu's CLI greedy output, --spec and
---scale-dtype bf16 run, unported flags exit with the ROADMAP item, and the
-default device is cuda (raising without a GPU)."""
+"""rama_tpu_torch.cli `generate` and `eval` end to end on tiny checkpoints
+on the CPU: flags parse, v0 and v2 checkpoints load (dense, or quantized to
+int8 or int4 at load), streams equal rama_tpu's CLI greedy output, --spec,
+--scale-dtype bf16 and -o chat run, `eval` prints rama_tpu's JSON line
+(tests/test_torch_eval.py), and the default device is cuda (raising
+without a GPU)."""
 
 import pytest
 import torch
@@ -66,15 +67,35 @@ def test_parity_loop_flag(artifacts, capsys):
     (["--scale-dtype", "bf16"], "scale"),
     (["--spec", "ngram"], "speculative"), (["-o", "chat"], "chat"),
 ])
-def test_unported_flags_exit_with_roadmap_item(artifacts, capsys, flags, item):
+def test_unported_flags_exit_with_roadmap_item(artifacts, capsys, monkeypatch, flags, item):
     """Unported flags exit 2 naming the ROADMAP item; --spec is ported: it
     runs speculative generation, prints its [spec] line and the greedy text
     of --spec off; --scale-dtype is ported: bf16 scales on the v2 file's
     int8 weights (and on int4 at load) give rama_tpu's CLI's greedy text
     under the same flag, and any other value is refused by argparse in
-    both (exit 2)."""
+    both (exit 2); -o chat is ported: two user lines then `exit` on stdin
+    give rc 0 and two replies, the transcript of rama_tpu's CLI (its
+    session given the port's pad columns, tests/test_torch_chat.py)."""
     model, _, tok = artifacts
     argv = ["generate", "-m", model, "-t", tok, "--device", "cpu", *flags]
+    if flags[0] == "-o":
+        import io
+
+        from _torch_port import jax_prefill_repeating_the_last_token
+        from rama_tpu.runtime import chat as j_chat
+
+        monkeypatch.setattr(j_chat.ChatSession, "_prefill_chunk",
+                            jax_prefill_repeating_the_last_token)
+        common = ["generate", "-m", model, "-t", tok, "-o", "chat", "-p", "be brief", "-s", "6",
+                  "-r", "0", "--dtype", "float32"]
+        outs = []
+        for extra, fn in ((["--device", "cpu"], main), (["--platform", "cpu"], j_main)):
+            monkeypatch.setattr("sys.stdin", io.StringIO("hello\nabc abc\nexit\n"))
+            rc, out, _ = run(common + extra, capsys, fn=fn)
+            assert rc == 0
+            outs.append(out)
+        assert outs[0] == outs[1] and outs[0].count("Assistant: ") == 2
+        return
     if flags[0] == "--scale-dtype":
         for path, quant in ((artifacts[1], "auto"), (artifacts[0], "int4")):
             common = ["generate", "-m", path, "-t", tok, "-p", "abc", "-s", "12", "-r", "0",

@@ -2273,29 +2273,13 @@ def test_pipelined_dispatch_never_syncs_on_the_card(dev, kv_quant, spec_tick, pa
     set_sync_debug_mode("error") (a sync raises, the loop counts an engine
     error); at least one of each ran, no error was counted, and the greedy
     and sampled streams equal the CPU engine's."""
-    import numpy as np
-
-    from rama_tpu_torch.config import EngineConfig, ModelConfig
-    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.config import EngineConfig
     from rama_tpu_torch.runtime.engine import Engine, Request
-    from rama_tpu_torch.tokenizer import Tokenizer
 
-    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
-                      vocab_size=128, seq_len=128)
-    rng = np.random.default_rng(3)
-    L, D, H, V, KV = 2, 256, 512, 128, 128
-    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
-        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, KV), "wv": (L, D, KV),
-        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
-    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
-             final_norm=np.ones(D, np.float32))
-    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
-                                        for i in range(V - 3)]
-    tok = Tokenizer(vocab, [0.0] * V)
     outs = []
     for device in ("cpu", dev):
-        eng = Engine(cfg, quantize_params(cfg, p, group_size=64, dtype=torch.float32,
-                                          device=device),
+        cfg, params, tok = _small_int8_model(device)
+        eng = Engine(cfg, params,
                      tok, EngineConfig(max_batch_size=4, decode_tick=4, kv_quant=kv_quant,
                                        spec_tick=spec_tick, spec_min_accept=0.0,
                                        paged_kv=paged, kv_page_size=16))
@@ -2348,3 +2332,164 @@ def test_pipelined_dispatch_never_syncs_on_the_card(dev, kv_quant, spec_tick, pa
         assert counts["_admit_dispatch"] >= 1, counts
         outs.append(got)
     assert outs[0] == outs[1]
+
+
+def _small_int8_model(device):
+    """A 2-layer model (dim 256, GQA 2, vocab 128, 128 rows), int8 gs 64 on
+    `device`, and its letter tokenizer."""
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=128, seq_len=128)
+    rng = np.random.default_rng(3)
+    L, D, H, V, KV = 2, 256, 512, 128, 128
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, KV), "wv": (L, D, KV),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    vocab = ["<unk>", "<s>", "</s>"] + [chr(97 + i % 26) + str(i // 26) * (i >= 26)
+                                        for i in range(V - 3)]
+    return (cfg, quantize_params(cfg, p, group_size=64, dtype=torch.float32, device=device),
+            Tokenizer(vocab, [0.0] * V))
+
+
+@pytest.mark.parametrize("kv_quant,paged", [(None, False), ("int8", False), ("int8", True),
+                                            (None, True)])
+def test_chunk_step_and_finisher_never_sync_on_the_card(dev, kv_quant, paged):
+    """Chunked prefill on the card: every chunk and finisher dispatch runs
+    under set_sync_debug_mode("error") (a sync raises, the loop counts an
+    engine error); a 75-token prompt takes 5 chunks of 16 while a short
+    stream decodes, each finisher launches K8 on the int8 cache and K13 (b)
+    on the int8 pool once, and the greedy and sampled streams equal the CPU
+    engine's."""
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.runtime.engine import Engine, Request
+
+    outs = []
+    for device in ("cpu", dev):
+        cfg, params, tok = _small_int8_model(device)
+        eng = Engine(cfg, params, tok, EngineConfig(
+            max_batch_size=4, decode_tick=4, kv_quant=kv_quant, paged_kv=paged,
+            kv_page_size=16, prefill_chunk=16, prefill_chunk_min=16))
+        counts = {"_dev_pf_chunk": 0, "_dev_pf_finish": 0}
+        writes = []
+        for name in counts:
+            orig = getattr(eng, name)
+
+            def strict(*a, _name=name, _orig=orig):
+                before = dict(kvw.launches)
+                if device != "cpu":
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = _orig(*a)
+                finally:
+                    if device != "cpu":
+                        torch.cuda.set_sync_debug_mode(0)
+                counts[_name] += 1
+                if _name == "_dev_pf_finish":
+                    writes.append({k: kvw.launches[k] - before[k] for k in (
+                        "write_kv_strips_q8", "write_kv_prefill_paged_q8")})
+                return out
+
+            setattr(eng, name, strict)
+        reqs = [Request(prompt="abc", steps=40, temperature=0.0, stop_at_eos=False),
+                Request(prompt="abcde" * 15, steps=12, temperature=0.8, stop_at_eos=False)]
+        eng.start()
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = []
+            for r in reqs:
+                toks = []
+                while (t := r.queue.get(timeout=300)) is not None:
+                    toks.append(t)
+                got.append(toks)
+        finally:
+            eng.stop()
+        assert eng.stats()["engine_errors"] == 0 and all(r.error is None for r in reqs)
+        assert counts == {"_dev_pf_chunk": 5, "_dev_pf_finish": 1}
+        if device != "cpu":
+            writer = ("write_kv_prefill_paged_q8" if paged and kv_quant else
+                      "write_kv_strips_q8" if kv_quant else None)
+            assert writes == [{k: int(k == writer) for k in writes[0]}]
+        outs.append(got)
+    assert outs[0] == outs[1]
+
+
+def _stories15m_int8(dev):
+    """A stories15M-shaped model (6 layers, dim 288, head_dim 48, the
+    fixture tokenizer's 32000 ids), int8 gs 32, bf16 on the card."""
+    import os
+
+    import numpy as np
+
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import quantize_params
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(dim=288, hidden_dim=768, n_layers=6, n_heads=6, n_kv_heads=6,
+                      vocab_size=32000, seq_len=256)
+    rng = np.random.default_rng(7)
+    L, D, H, V = 6, 288, 768, 32000
+    p = {n: (rng.standard_normal(s) * 0.05).astype(np.float32) for n, s in {
+        "tok_embedding": (V, D), "wq": (L, D, D), "wk": (L, D, D), "wv": (L, D, D),
+        "wo": (L, D, D), "w1": (L, D, H), "w2": (L, H, D), "w3": (L, D, H)}.items()}
+    p.update(attn_norm=np.ones((L, D), np.float32), ffn_norm=np.ones((L, D), np.float32),
+             final_norm=np.ones(D, np.float32))
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "tokenizer.bin")
+    return (cfg, quantize_params(cfg, p, group_size=32, dtype=torch.bfloat16, device=dev),
+            Tokenizer.from_file(path, 32000))
+
+
+def test_chat_turn_and_perplexity_match_plain_on_the_card(dev, monkeypatch):
+    """A stories15M-shaped chat: each of two turns' last-prefill logits
+    through the kernels against plain=True on a copy of the cache, and
+    perplexity over ~136 tokens (window 32, batch 2: 5 windows padded to
+    6) with the kernels against plain=True: the full logits each batch is
+    scored with bf16 within 2e-2, the nll within 1e-3 (rel)."""
+    import copy
+
+    import rama_tpu_torch.eval as ev
+    from rama_tpu_torch.eval import perplexity
+    from rama_tpu_torch.models.llama import KVCache
+    from rama_tpu_torch.runtime.chat import ChatSession
+
+    cfg, params, tok = _stories15m_int8(dev)
+    s = ChatSession(params, cfg, tok, temperature=0.0, system="You are brief.")
+    prefill, checked = s._prefill_chunk, []
+
+    def compare(ids):
+        ref = copy.copy(s)
+        ref.cache, ref.plain = KVCache(k=s.cache.k.clone(), v=s.cache.v.clone()), True
+        want = ChatSession._prefill_chunk(ref, ids)
+        got = prefill(ids)
+        _close(got, want, torch.bfloat16)
+        checked.append(len(ids))
+        return got
+
+    s._prefill_chunk = compare
+    emitted = sum(len(list(s.turn(text, max_new=16))) for text in ("Hello there.",
+                                                                   "Tell me a story."))
+    assert len(checked) == 2 and s.pos == sum(checked) + emitted
+    text = "Once upon a time there was a little girl named Lily who loved the park. " * 8
+    scored, prefill = [], ev.prefill
+
+    def kept(*a, **kw):
+        logits, cache = prefill(*a, **kw)
+        scored.append(logits)
+        return logits, cache
+
+    monkeypatch.setattr(ev, "prefill", kept)
+    got = perplexity(params, cfg, tok, text, window=32, batch=2)
+    want = perplexity(params, cfg, tok, text, window=32, batch=2, plain=True)
+    assert got["tokens"] == want["tokens"] and got["windows"] == want["windows"] >= 4
+    assert len(scored) == 6
+    for g, w in zip(scored[:3], scored[3:]):
+        _close(g, w, torch.bfloat16)
+    assert abs(got["nll"] - want["nll"]) <= 1e-3 * abs(want["nll"])

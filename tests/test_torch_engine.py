@@ -282,11 +282,15 @@ def test_unported_engine_config_raises(engine_setup, field, value):
     """Unported features raise NotImplementedError; kv_quant is ported for
     "int8" and refuses any other value with ValueError, as in rama_tpu;
     spec_tick is ported and refuses draft mode without a draft model;
+    prefill_chunk is ported: a chunk that is not a power of two >= 16, or a
+    prefill_chunk_min below it, raises ValueError, and a 31-token prompt
+    (past a prefill_chunk_min of 16) is served in two chunks of 16 with
+    the oracle's greedy stream;
     paged_kv is ported: a page pool of pages_per_slot pages a slot plus
     one trash page; scale_dtype is ported for "bf16" (every quantized
     leaf's scales stored in bf16) and refuses any other value with
     rama_tpu's ValueError."""
-    _, cfg, np_params, params, tok = engine_setup
+    jcfg, cfg, np_params, params, tok = engine_setup
     if field == "scale_dtype":
         from rama_tpu_torch.models.llama import quantize_params
         from rama_tpu_torch.ops.quant import QuantizedEmbedding, QuantizedTensor
@@ -318,6 +322,20 @@ def test_unported_engine_config_raises(engine_setup, field, value):
     if field == "kv_quant":
         with pytest.raises(ValueError, match="unsupported kv_quant 'int4'"):
             Engine(cfg, params, tok, EngineConfig(**{field: value}))
+        return
+    if field == "prefill_chunk":
+        for bad in (dict(prefill_chunk=24), dict(prefill_chunk=8),
+                    dict(prefill_chunk=16, prefill_chunk_min=8)):
+            with pytest.raises(ValueError):
+                Engine(cfg, params, tok, EngineConfig(**bad))
+        eng = Engine(cfg, params, tok, EngineConfig(max_batch_size=2, prefill_chunk=value))
+        assert (eng.pf_chunk, eng.pf_engage) == (16, 64)
+        eng, (got,) = serve(cfg, params, tok,
+                            EngineConfig(max_batch_size=2, prefill_chunk=value,
+                                         prefill_chunk_min=value),
+                            [Request(prompt="abcdefghij" * 3, steps=6, temperature=0.0)])
+        assert got == oracle(jcfg, np_params, tok, "abcdefghij" * 3, 6)
+        assert eng.phases.counts["pf_chunk"] == 2 and eng.stats()["engine_errors"] == 0
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, params, tok, EngineConfig(**{field: value}))

@@ -230,13 +230,26 @@ class _Idle:
 
 
 @pytest.mark.parametrize("flag", [["--paged"], ["--kv-quant", "int4"], ["--tp", "2"],
-                                  ["--spec-tick", "2"], ["--scale-dtype", "bf16"]])
+                                  ["--spec-tick", "2"], ["--scale-dtype", "bf16"],
+                                  ["--prefill-chunk", "256"]])
 def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
     """Unported flags exit 2 naming ROADMAP.md; --kv-quant takes int8 only,
-    so argparse refuses int4 (exit 2); --spec-tick, --paged and
-    --scale-dtype are ported: main hands them to load_engine (with
-    --spec-mode / --spec-draft-model, and --page-size) and serves;
-    --scale-dtype takes bf16 only, so argparse refuses fp16 (exit 2)."""
+    so argparse refuses int4 (exit 2); --spec-tick, --paged,
+    --scale-dtype and --prefill-chunk are ported: main hands them to
+    load_engine (with --spec-mode / --spec-draft-model, --page-size, and
+    --prefill-chunk-min) and serves; --scale-dtype takes bf16 only, so
+    argparse refuses fp16 (exit 2)."""
+    if flag[0] == "--prefill-chunk":
+        from rama_tpu_torch.server import app
+
+        seen = {}
+        monkeypatch.setattr(app, "load_engine", lambda *a, **kw: seen.update(kw) or _Idle())
+        monkeypatch.setattr(app.web, "run_app", lambda *a, **kw: None)
+        assert main(["-m", "x.bin", "-t", "t.bin", *flag, "--prefill-chunk-min", "1024"]) == 0
+        assert (seen["prefill_chunk"], seen["prefill_chunk_min"]) == (256, 1024)
+        assert main(["-m", "x.bin", "-t", "t.bin"]) == 0
+        assert (seen["prefill_chunk"], seen["prefill_chunk_min"]) == (0, None)
+        return
     if flag[0] == "--scale-dtype":
         from rama_tpu_torch.server import app
 
@@ -327,6 +340,39 @@ def test_load_engine_int4_streams_the_jax_greedy_chain(tmp_path):
         eng.stop()
     assert not events
     assert datas == [eng.tokenizer.decode_token(i).replace("\n", "\\n") for i in ids]
+
+
+def test_load_engine_prefill_chunk_streams_the_unchunked_chain(tmp_path):
+    """`--prefill-chunk 16 --prefill-chunk-min 16`: load_engine hands both
+    to the engine, whose SSE stream of a 31-token prompt (two chunks) is
+    the unchunked engine's, greedy and sampled."""
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.server.app import load_engine
+
+    jcfg = tiny_config(seq_len=64)
+    model = tmp_path / "m.bin"
+    save_v0(str(model), torch_cfg(jcfg), random_params(jcfg, seed=21))
+    tok_path = write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size)
+    streams = []
+    for chunk in ({}, dict(prefill_chunk=16, prefill_chunk_min=16)):
+        eng = load_engine(str(model), tok_path, dtype="float32", batch=2, device="cpu", **chunk)
+        assert (eng.pf_chunk, eng.pf_engage) == ((16, 16) if chunk else (0, 0))
+        eng.start()
+        try:
+            async def fn(client):
+                out = []
+                for temp in ("0.0", "0.8"):
+                    resp = await client.get("/gen", params={
+                        "prompt": "abcdefghij" * 3, "steps": "8", "temperature": temp})
+                    assert resp.status == 200
+                    out.append(parse_sse(await asyncio.wait_for(resp.text(), timeout=120)))
+                return out
+            streams.append(run_client(eng, fn))
+        finally:
+            eng.stop()
+        assert eng.phases.counts["pf_chunk"] == (4 if chunk else 0)
+    assert streams[0] == streams[1]
+    assert all(len(datas) == 8 and not events for _, datas, events in streams[1])
 
 
 def test_load_engine_bf16_scales_stream_the_jax_greedy_chain(tmp_path):

@@ -1,7 +1,8 @@
 """Engine.warmup and the compile cache of rama_tpu_torch against rama_tpu on
 the CPU: warmup dispatches as many programs as the JAX engine's warmup
-counts (dense, int8, paged, n-gram and draft speculation; max_prompt None
-and 20; the tiny model and a stories15M-shaped one), the greedy streams
+counts (dense, int8, paged, n-gram and draft speculation, chunked
+prefill; max_prompt None and 20; the tiny model and a stories15M-shaped
+one), the greedy streams
 after warmup equal the JAX engine's after its warmup, the dense caches are
 left as a fresh engine has them and a page pool differs only in its trash
 page, every prefill bucket served afterwards was warmed, compile_cache
@@ -39,7 +40,8 @@ PROMPTS = (("abab", 12), ("zq", 7), ("abcabcabcabcabcabcab", 9))
 CONFIGS = {"dense": {}, "int8": dict(kv_quant="int8"),
            "paged": dict(paged_kv=True, kv_page_size=16),
            "ngram": dict(spec_tick=3, spec_rounds=4),
-           "draft": dict(spec_tick=3, spec_mode="draft")}
+           "draft": dict(spec_tick=3, spec_mode="draft"),
+           "chunked": dict(prefill_chunk=16, prefill_chunk_min=16)}
 
 
 def _vocab(n):
@@ -108,7 +110,9 @@ def serve(engine, specs=PROMPTS, cls=Request):
 def test_warmup_counts_the_programs_jax_counts(models, model, config, max_prompt):
     """Decode ticks 8 / 4 / 2 / 1, spec ticks 4 / 2 / 1, every (k_pad,
     t_pad) prefill bucket up to min(max_prompt + 1, max_len) (plus the
-    draft's prefill in draft mode): the same count as JAX's programs."""
+    draft's prefill in draft mode; with prefill_chunk 16 the direct ladder
+    up to _bucket(16) and a chunk and a finisher from there on): the same
+    count as JAX's programs."""
     eng, jeng = _engines(models, model, config)
     got, want = eng.warmup(max_prompt=max_prompt), jeng.warmup(max_prompt=max_prompt)
     assert got["programs"] == want["programs"] > 0
