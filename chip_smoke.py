@@ -189,8 +189,9 @@ Phases, in order (any failure raises and the script exits non-zero):
            prefill_chunk 0 and 256 (prefill_chunk_min 1024) in ABBA turns
            (the second B and A under the profiler, CUDA only): six short
            requests of 64 tokens (3 greedy, 3 sampled), then, once each
-           has its first token, two greedy long prompts of 3000 and 1500
-           tokens (a passage's ids repeated) of 32 tokens. Gates: every
+           has its first token, two greedy long prompts of about 3000 and
+           1500 tokens (a passage's text repeated, encoded by the
+           engine's submit with the C++ encoder) of 32 tokens. Gates: every
            stream its token count and the engine's count of every token;
            the short streams' ids equal across the four runs; each long
            prompt's first-token logits in the job's `last` within TOL of
@@ -219,6 +220,18 @@ Phases, in order (any failure raises and the script exits non-zero):
            the plain path: the first batch's full logits within TOL of the
            plain path's, row by row, and the nll within EVAL_NLL_GAP (rel);
            logs both values, the gap and the seconds each took
+  native   the native host library (csrc/native.cpp) on the card's
+           host: a fresh build (seconds); the passage cut to about 1500 /
+           3000 / 4096 tokens encoded by the C++ encoder (median ms of 5)
+           and by the pure-Python loop (one process a text, all at once),
+           ids equal; Llama-2-7B's w2 stack as its file holds it, fp32 (32,
+           4096, 11008), transposed by transpose_batched and by numpy, byte
+           for byte equal (ms each); then the HTTP server on the 7B int8
+           params over an int8 cache (8 slots, max_len 4096) serves the six
+           short streams while one ~3000-token text prompt arrives, encoded
+           by the engine's submit: the long TTFT, the largest gap between
+           two SSE tokens of a short stream while it admits, the share of
+           that gap spent in submit
   profile_paged  device ms per 8-slot decode step on a bf16 and an int8
            pool at positions 64 and 2048, beside the dense cache's, each
            with the attention's device ms
@@ -328,6 +341,16 @@ Phases, in order (any failure raises and the script exits non-zero):
   profile_prefill_yi  one Yi-34B admission of 8 x 512 tokens (K5's device
            ms and share, the GEMM's), an 8-slot decode step and a verify
            round of 4 at pos 64 (device ms by kernel)
+  export   seeded fp32 params at Llama-2-7B's width, 2 layers (32 would
+           write ~27 GB of .pt), as a llama2.c .pt and a two-shard Meta
+           directory in a temporary directory; `python -m
+           rama_tpu_torch.cli export` .pt and Meta to v2 (gs 64), .pt to v1
+           and v0 (four processes at once; host seconds each); both v2 files byte for byte the
+           port's save_v2 of the params, the v0 / v1 files reload to them
+           exactly; the v2 and v0 files through the CLI's load_model on the
+           card (bf16): a prefill and 8 greedy steps, each step's logits
+           within TOL of the params loaded without a file, the v2 run on
+           K1 / K3 / K5 / K4, the v0 run on K5 / K4 and neither K1 nor K3
   cli      a small synthetic v2 checkpoint through `python -m
            rama_tpu_torch.cli generate --device cuda`, a v0 one with
            `--quant int4`, the v2 one again with `--scale-dtype bf16`, a
@@ -374,7 +397,9 @@ with K13 (a)'s, K8, K13 (b), K5 (the direct admissions), the matmul and
 the FFN must have, and no chunk attention; the chat loop (`chat`), where
 the matmul, the FFN and K4 must have and K5 must not; `eval`, where K5
 and the GEMM must have and no decode-sized product, K3 or decode
-attention may
+attention may; `native`, where the int8 cache's kernels (K7 with K6's
+rows, K8 on its streaming body), K5, the GEMM, K1 and K3 must have, and
+no bf16 or chunk attention may
 (the `*_gqa` records: launches in such a form on the mma body, bf16 cache,
 or the walk body, int8 cache, as the C entry reports the form it launched;
 `[launches]` `decode_attention_mma_rows*` / `_walk_rows*`,
@@ -412,6 +437,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -428,7 +454,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "serve_spec", "profile_spec", "spec_draft", "spec_draft_ab", "serve_spec_kv8",
               "model_paged", "serve_paged", "profile_paged", "serve_paged_kv8",
               "serve_spec_paged", "serve_spec_paged_kv8", "serve_pipe", "serve_chunk",
-              "profile_chunk", "chat", "eval", "model_attn", "serve_ab1",
+              "profile_chunk", "chat", "eval", "native", "model_attn", "serve_ab1",
               "serve_ab2", "profile_ab", "prefill_t1", "model_b64", "serve_b64", "profile_b64",
               "serve_b64_spec", "model4", "serve4", "profile4",
               "kernels_s16", "model_s16", "model4_s16", "serve4_s16", "profile4_s16",
@@ -436,7 +462,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
               "spec_gqa_self", "model_yi", "serve_yi", "profile_prefill_yi", "serve_yi_kv8",
               "serve_yi_spec", "serve_yi_ab2", "model_ml", "serve_ml", "serve_ml_ab1",
-              "serve_ml_ab2", "profile_ml_ab", "cli")
+              "serve_ml_ab2", "profile_ml_ab", "export", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
@@ -662,7 +688,7 @@ CHUNK_TURNS = (False, True, True, False)    # chunked off / on in ABBA turns
 CHUNK_SHORT = ("Once upon a time", "The little dog ran", "In a far away land",
                "She opened the door", "Tom and Lily played", "The sun was hot")
 CHUNK_SHORT_STEPS, CHUNK_LONG_STEPS = 64, 32
-CHUNK_LONG = (3000, 1500)   # the long prompts' tokens (BOS not counted)
+CHUNK_LONG = (3000, 1500)   # the long prompts' most tokens (BOS not counted)
 CHUNK_PATH = dict(label="chunked prefill", bits=8, phases=(None, "serve_chunk", "profile_chunk"),
                   serve={},
                   record={name: "launches_chunk_path" for name in (
@@ -700,6 +726,31 @@ EVAL_PATH = dict(label="eval", bits=8, phases=(None, "eval", None), serve={}, mm
                      "quant_matmul", "quant_matmul_mma", "prefill_attention")},
                  forbid={name: "launches_eval_path" for name in (
                      "quant_matmul_mmv", "ffn", "decode_attention")})
+# the native host library (native): a fresh build timed; texts of about
+# 1500 / 3000 tokens and one at Llama-2-7B's context (KV8_MAX_LEN) encoded
+# by the C++ and the pure-Python encoder; Llama-2-7B's w2 stack as its file
+# holds it, (L, out, in), transposed by the threaded C++ transpose and by
+# numpy; then the HTTP server on an int8-cache engine (CHUNK_SERVE) serves
+# the six short streams while one long text prompt of about NATIVE_LONG
+# tokens arrives (K7 with K6's rows, K8 on the streaming body, K5, the GEMM,
+# K1 and K3)
+NATIVE_ENCODE = (1500, 3000, KV8_MAX_LEN)
+NATIVE_LONG = 3000
+NATIVE_TRANSPOSE = (32, 4096, 11008)
+NATIVE_PATH = dict(label="native host library", bits=8, phases=(None, "native", None), serve={},
+                   record={name: "launches_native_path" for name in (
+                       "decode_attention_q8", "write_kv_rows_q8_fused", "write_kv_strips_q8",
+                       "quant_matmul", "quant_matmul_mma", "ffn", "prefill_attention")},
+                   forbid={"write_kv_rows_q8": "standalone_launches_native_path",
+                           **{name: "launches_native_path" for name in (
+                               "decode_attention", "chunk_attention", "chunk_attention_q8",
+                               "paged_decode_attention_q8")}},
+                   equal={"write_kv_rows_q8_fused": "decode_attention_q8"})
+# export: a llama2.c .pt and a two-shard Meta directory of one set of seeded
+# fp32 params at Llama-2-7B's width cut to EXPORT_LAYERS layers (32 layers
+# would write ~27 GB of fp32 .pt), converted by the CLI
+EXPORT_LAYERS = 2
+EXPORT_STEPS = 8
 # the fused attention block (kernel 14) under RAMA_ATTN_BLOCK 1 / 2 on the
 # int8 params, and 2 on the int4 ones (`attn_block`: the mode the path runs
 # under): K14 where the default path runs the RoPE, the row write and K4, 32
@@ -936,7 +987,7 @@ ML_AB2_PATH = dict(label="Mistral-Large int4 attention block 2", model="ml", bit
                                ("attn_block_mma_rows16", "attn_block_layered_int4")]))
 PATHS = (INT8_PATH, KV8_PATH, WARMUP_PATH, SPEC_PATH, SPEC_DRAFT_PATH, SPEC_KV8_PATH, PAGED_PATH,
          PAGED_KV8_PATH, SPEC_PAGED_PATH, SPEC_PAGED_KV8_PATH, PIPE_PATH, CHUNK_PATH, CHAT_PATH,
-         EVAL_PATH, AB1_PATH, AB2_PATH,
+         EVAL_PATH, NATIVE_PATH, AB1_PATH, AB2_PATH,
          PREFILL_T1_PATH, B64_PATH, B64_SPEC_PATH, INT4_PATH, INT4_S16_PATH, AB2_INT4_PATH,
          GQA_PATH, GQA_SPEC_PATH,
          GQA_SPEC_KV8_PATH, GQA_SPEC_PAGED_KV8_PATH, GQA_SELF_PATH, YI_PATH, YI_KV8_PATH,
@@ -980,6 +1031,29 @@ def nvidia_smi_line() -> str:
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def device_times(torch, prof) -> dict:
+    """{name: (device µs, calls)} of every GPU activity a torch.profiler
+    session recorded, read from its kineto events (parsing them into
+    FunctionEvents, as key_averages does, takes ~25 times as long: tens of
+    seconds for the ~10^5 kernels of a served run), or from key_averages
+    where the session keeps no kineto results."""
+    out: dict = {}
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is not None:
+        cuda = torch.autograd.DeviceType.CUDA
+        for e in res.events():
+            if e.device_type() == cuda:
+                us, n = out.get(e.name(), (0.0, 0))
+                out[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+        return out
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if ev.device_type.name == "CUDA" and dt:
+            us, n = out.get(ev.key, (0.0, 0))
+            out[ev.key] = (us + dt, n + ev.count)
+    return out
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -3443,12 +3517,11 @@ def attention_split_combine(torch, fn, reps: int = 10, tries: int = 3) -> dict:
             torch.cuda.synchronize()
         out = {"split_ms": 0.0, "combine_ms": 0.0, "split_kernel": [], "split_grid": [],
                "split_ctas": None}
-        for ev in prof.key_averages():
-            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if any(k in ev.key for k in ATTN_SPLIT_KERNELS):
+        for key, (dt, _) in device_times(torch, prof).items():
+            if any(k in key for k in ATTN_SPLIT_KERNELS):
                 out["split_ms"] += dt / 1e3 / reps
-                out["split_kernel"].append(ev.key.split("(")[0])
-            elif "dattn_combine" in ev.key:
+                out["split_kernel"].append(key.split("(")[0])
+            elif "dattn_combine" in key:
                 out["combine_ms"] += dt / 1e3 / reps
         if out["split_kernel"]:
             with tempfile.TemporaryDirectory() as d:
@@ -3558,11 +3631,7 @@ def device_ms_per_call(torch, fn, reps: int = 10, tries: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type.name == "CUDA":
-                total += (getattr(ev, "device_time_total", None)
-                          or getattr(ev, "cuda_time_total", 0))
+        total = sum(us for us, _ in device_times(torch, prof).values())
         if total > 0:
             return total / 1e3 / reps
     log(f"[device] torch.profiler recorded no device time in {tries} sessions: "
@@ -3585,11 +3654,9 @@ def device_ms_by_kernel(torch, fn, reps: int = 10, tries: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if ev.device_type.name == "CUDA" and dt:
-                key = ev.key.split("(")[0]
-                out[key] = out.get(key, 0.0) + dt / 1e3 / reps
+        for key, (dt, _) in device_times(torch, prof).items():
+            key = key.split("(")[0]
+            out[key] = out.get(key, 0.0) + dt / 1e3 / reps
         if out:
             break
     return out
@@ -5295,6 +5362,26 @@ def cache_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for t in vars(cache).values())
 
 
+@contextlib.asynccontextmanager
+async def serving(engine, default_steps: int):
+    """The server's app around `engine` on a free localhost port, reading
+    request lines up to MAX_REQUEST_LINE as its main does; yields the base
+    URL."""
+    from aiohttp import web
+
+    from rama_tpu_torch.server.app import MAX_REQUEST_LINE, build_app
+
+    runner = web.AppRunner(build_app(engine, default_steps=default_steps),
+                           max_line_size=MAX_REQUEST_LINE)
+    await runner.setup()
+    try:
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        yield f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    finally:
+        await runner.cleanup()
+
+
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
                 spec_tick: int = 0, paged: bool = False,
@@ -5317,13 +5404,11 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     p50 / max / of the first request sent, the accept rate and the greedy
     streams' text by prompt."""
     import aiohttp
-    from aiohttp import web
 
     from rama_tpu_torch.config import EngineConfig
     from rama_tpu_torch.models.llama import KVCache, QuantKVCache
     from rama_tpu_torch.runtime.engine import Engine
     from rama_tpu_torch.runtime.paged import PagedKVCache, QuantPagedKVCache
-    from rama_tpu_torch.server.app import build_app
 
     engine = Engine(cfg, params, tokenizer,
                     EngineConfig(max_batch_size=slots, max_seq_len=max_seq_len, decode_tick=8,
@@ -5387,24 +5472,14 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         return ttft, n, ended, "".join(text)
 
     async def run():
-        app = build_app(engine, default_steps=steps)
-        runner = web.AppRunner(app)
-        await runner.setup()
-        site = web.TCPSite(runner, "127.0.0.1", 0)
-        await site.start()
-        port = site._server.sockets[0].getsockname()[1]
-        base = f"http://127.0.0.1:{port}"
-        try:
-            async with aiohttp.ClientSession() as session:
-                t0 = time.perf_counter()
-                outs = await asyncio.wait_for(asyncio.gather(*[
-                    one(session, base + "/gen", p, 0.0 if i % 2 == 0 else 0.8)
-                    for i, p in enumerate(prompts)]), timeout=600)
-                wall = time.perf_counter() - t0
-                async with session.get(base + "/metrics") as resp:
-                    stats = await resp.json()
-        finally:
-            await runner.cleanup()
+        async with serving(engine, steps) as base, aiohttp.ClientSession() as session:
+            t0 = time.perf_counter()
+            outs = await asyncio.wait_for(asyncio.gather(*[
+                one(session, base + "/gen", p, 0.0 if i % 2 == 0 else 0.8)
+                for i, p in enumerate(prompts)]), timeout=600)
+            wall = time.perf_counter() - t0
+            async with session.get(base + "/metrics") as resp:
+                stats = await resp.json()
         return outs, wall, stats
 
     try:
@@ -5441,12 +5516,19 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     return summary
 
 
+def libraries(build) -> int:
+    """The libraries a warmed process holds: every kernel library and the
+    native host library."""
+    return len(build.SOURCES) + 1
+
+
 def warm_up(engine, max_prompt: int, tag: str) -> dict:
     """Engine.warmup(max_prompt) on an engine of a process that has built
-    and loaded no kernel library yet: no nvcc may run, every library must
-    be loaded by the end of it, and the (k, T) prefill buckets it ran are
-    kept; a spy on the engine's prefill then records every bucket served
-    (warm_checked reads both)."""
+    and loaded no library (its tokenizer loads the native one at its first
+    encode): no compiler may run, every library must be loaded by the end
+    of it, and the (k, T) prefill buckets it ran are kept; a spy on the
+    engine's prefill then records every bucket served (warm_checked reads
+    both)."""
     from rama_tpu_torch.ops.kernels import build
 
     if build.counts != {"builds": 0, "loads": 0}:
@@ -5460,14 +5542,14 @@ def warm_up(engine, max_prompt: int, tag: str) -> dict:
 
     engine._dev_prefill_insert = spy
     w = engine.warmup(max_prompt=max_prompt)
-    if build.counts != {"builds": 0, "loads": len(build.SOURCES)}:
-        raise SystemExit(f"FAILED {tag}: warmup left {build.counts} nvcc runs / library loads; "
-                         f"want 0 / {len(build.SOURCES)} (libraries in {build.BUILD_DIR})")
+    if build.counts != {"builds": 0, "loads": libraries(build)}:
+        raise SystemExit(f"FAILED {tag}: warmup left {build.counts} compiler runs / library "
+                         f"loads; want 0 / {libraries(build)} (libraries in {build.BUILD_DIR})")
     warmed = sorted(set(buckets))
     buckets.clear()
     log(f"[{tag}] warmup: {w['programs']} programs in {w['seconds']:.1f}s (max_prompt "
-        f"{max_prompt}; {len(build.SOURCES)} libraries loaded from {build.BUILD_DIR}, no nvcc "
-        f"run; prefill buckets (k, T) {warmed})")
+        f"{max_prompt}; {len(build.SOURCES)} kernel libraries loaded from {build.BUILD_DIR} "
+        f"and the native one, no compiler run; prefill buckets (k, T) {warmed})")
     return dict(programs=w["programs"], seconds=w["seconds"], warmed=warmed, served=buckets)
 
 
@@ -5477,7 +5559,7 @@ def warm_checked(warm: dict, tag: str) -> dict:
     from rama_tpu_torch.ops.kernels import build
 
     served = sorted(set(warm["served"]))
-    if build.counts != {"builds": 0, "loads": len(build.SOURCES)}:
+    if build.counts != {"builds": 0, "loads": libraries(build)}:
         raise SystemExit(f"FAILED {tag}: serving after warmup built or loaded a library "
                          f"{build.counts}")
     cold = [b for b in served if b not in warm["warmed"]]
@@ -5496,7 +5578,9 @@ def phase_serve_warmup(torch, card: str, serving: dict) -> dict:
     libraries copied into a new directory under build/, which the child's
     compile_cache names (warmup_child). Its greedy streams must equal
     serve_kv8's in this run; its launch counts (from the end of the warmup)
-    come back with its summary."""
+    come back with its summary. The native host library goes with the
+    kernels', so the child runs no compiler."""
+    from rama_tpu_torch import native
     from rama_tpu_torch.ops.kernels import build
 
     cache = ROOT / "build" / f"compile_cache_{os.getpid()}"
@@ -5506,6 +5590,8 @@ def phase_serve_warmup(torch, card: str, serving: dict) -> dict:
         lib = build._lib_path(name)
         for f in (lib, lib.with_suffix(".log")):
             shutil.copy2(f, cache / f.name)
+    lib = native.build_library()
+    shutil.copy2(lib, cache / lib.name)
     torch.cuda.empty_cache()
     try:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--warmup-child",
@@ -5581,16 +5667,8 @@ def pipe_prompts() -> list:
 
 
 def profiled_device_s(torch, prof) -> float:
-    """Seconds of every GPU activity a torch.profiler session recorded, read
-    from its kineto events (no per-event parsing into FunctionEvents, which
-    takes tens of seconds for the ~10^5 kernels of a served run), or from
-    key_averages where the session keeps no kineto results."""
-    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-    if res is not None:
-        cuda = torch.autograd.DeviceType.CUDA
-        return sum(e.duration_ns() for e in res.events() if e.device_type() == cuda) / 1e9
-    return sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-               for ev in prof.key_averages() if ev.device_type.name == "CUDA") / 1e6
+    """Seconds of every GPU activity a torch.profiler session recorded."""
+    return sum(us for us, _ in device_times(torch, prof).values()) / 1e6
 
 
 def strict_dispatch(torch, eng, name: str, hook=None) -> None:
@@ -5828,34 +5906,25 @@ def phase_serve_pipe(torch, cfg, params, tokenizer, card: str) -> dict:
     return summary
 
 
-class PreEncoded:
-    """A tokenizer whose encode returns given ids for given texts (and
-    delegates everything else): the long prompts' ids are a passage's ids
-    repeated, handed to the engine without the pure-Python BPE, which takes
-    ~18 s a 3000-token text."""
-
-    def __init__(self, tokenizer, known: dict):
-        self._tok, self._known = tokenizer, known
-
-    def encode(self, text, *a, **kw):
-        return list(self._known[text]) if text in self._known else self._tok.encode(text, *a, **kw)
-
-    def __getattr__(self, name):
-        return getattr(self._tok, name)
-
-
 CHUNK_PASSAGE = ("Once upon a time, there was a little girl named Lily. She loved to play "
                  "outside in the sunshine with her dog Max. One day they found a big red ball "
                  "in the park and played with it until the sun went down. ")
 
 
-def repeated_prompts(tokenizer, lengths) -> tuple:
-    """(texts, PreEncoded tokenizer) for prompts of the given token counts:
-    the passage's ids repeated and cut to each count."""
-    ids = tokenizer.encode(CHUNK_PASSAGE, strict=False)
-    known = {f"{CHUNK_PASSAGE.strip()} [{n} tokens]": (ids * (n // len(ids) + 1))[:n]
-             for n in lengths}
-    return tuple(known), PreEncoded(tokenizer, known)
+def passage_text(tokenizer, n: int) -> str:
+    """The passage repeated and cut to the most words whose text encodes to
+    at most n tokens (by `tokenizer`: the C++ encoder on the card), found
+    by bisection over the word count."""
+    enc = tokenizer.encode(CHUNK_PASSAGE, strict=False)
+    words = (CHUNK_PASSAGE * (n // max(1, len(enc)) + 2)).split()
+    lo, hi = 1, len(words)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if len(tokenizer.encode(" ".join(words[:mid]), strict=False)) <= n:
+            lo = mid
+        else:
+            hi = mid - 1
+    return " ".join(words[:lo])
 
 
 def slot_rows(torch, eng, i: int, plen: int):
@@ -5903,12 +5972,14 @@ def chunk_run(torch, cfg, params, tokenizer, kw: dict, chunked: bool, modules,
               profiled: bool = False) -> dict:
     """One serve_chunk run: an in-process Engine (CHUNK_SERVE plus `kw`, with
     CHUNK_MODE when `chunked`) serves the six short requests, then on their
-    first tokens the two long prompts. Every tick, admission, chunk and
-    finisher dispatch runs under torch.cuda.set_sync_debug_mode("error")
-    (a sync raises inside the loop, which counts an engine error). Checks,
-    as they happen: every chunk's quant_matmul launches on the tensor-core
-    bodies and none of K5; each finisher one K8 (int8 cache) or K13 (b)
-    (int8 pool) launch, none on a bf16 cache. Returns the ids by request,
+    first tokens the two long prompts (text: the passage cut to about
+    CHUNK_LONG tokens, encoded by the engine's submit). Every tick,
+    admission, chunk and finisher dispatch runs under
+    torch.cuda.set_sync_debug_mode("error") (a sync raises inside the loop,
+    which counts an engine error). Checks, as they happen: every chunk's
+    quant_matmul launches on the tensor-core bodies and none of K5; each
+    finisher one K8 (int8 cache) or K13 (b) (int8 pool) launch, none on a
+    bf16 cache. Returns the ids by request, the long prompts' token counts,
     each long prompt's first-token logits (the job's `last`, or the direct
     prefill's) and its slot's rows at its first token, the wall, tok/s,
     the long prompts' TTFT, the largest emission gap of a short stream
@@ -5918,9 +5989,10 @@ def chunk_run(torch, cfg, params, tokenizer, kw: dict, chunked: bool, modules,
     from rama_tpu_torch.runtime.engine import Engine, Request
 
     qm, _, _, pa, kvw, _, _ = modules
-    texts, tok = repeated_prompts(tokenizer, CHUNK_LONG)
-    eng = Engine(cfg, params, tok, EngineConfig(**CHUNK_SERVE, **kw,
-                                                **(CHUNK_MODE if chunked else {})))
+    texts = [passage_text(tokenizer, n) for n in CHUNK_LONG]
+    long_lens = [len(tokenizer.encode(t, strict=False)) for t in texts]
+    eng = Engine(cfg, params, tokenizer, EngineConfig(**CHUNK_SERVE, **kw,
+                                                      **(CHUNK_MODE if chunked else {})))
     counts = dict(chunks=0, behind=0, jobs=0)
     lasts, rows = {}, {}
     writer = ("write_kv_prefill_paged_q8" if eng.paged else
@@ -5976,7 +6048,7 @@ def chunk_run(torch, cfg, params, tokenizer, kw: dict, chunked: bool, modules,
         """A direct prefill: each long prompt's row of its last logits."""
         last, sc = scratch(params_, cfg_, tokens, lens)
         for j, n in enumerate(pads[-1]):
-            if n - 1 in CHUNK_LONG:
+            if n - 1 in long_lens:
                 lasts[int(n) - 1] = last[j, 0].clone()
         return last, sc
 
@@ -6040,12 +6112,13 @@ def chunk_run(torch, cfg, params, tokenizer, kw: dict, chunked: bool, modules,
         if t1 > a and t0 < b:
             n, sec = in_gap.get(name, (0, 0.0))
             in_gap[name] = (n + 1, round(sec + min(t1, b) - max(t0, a), 4))
-    out = dict(ids=[ids[id(r)] for r in reqs], lasts=lasts, rows=rows, **run,
+    out = dict(ids=[ids[id(r)] for r in reqs], lasts=lasts, rows=rows, long_lens=long_lens,
+               **run,
                ttft_long_ms=[(r.first_token_at - r.submitted_at) * 1e3 for r in longs],
                max_gap_ms=gap * 1e3, in_gap=in_gap, **counts,
                breakdown=phase_seconds(eng, ("dispatch", "fetch", "emit", "admit", "prefill",
                                              "pf_chunk")))
-    if chunked and not counts["jobs"] or set(lasts) != set(CHUNK_LONG):
+    if chunked and not counts["jobs"] or set(lasts) != set(long_lens):
         raise SystemExit(f"FAILED serve_chunk: {counts['jobs']} jobs, the logits of "
                          f"{sorted(lasts)} long prompts taken ({kw}, chunked {chunked})")
     del eng
@@ -6120,7 +6193,7 @@ def phase_serve_chunk(torch, cfg, params, tokenizer, card: str, modules) -> dict
             if not chunked and ref is None:
                 ref = r
             elif chunked:
-                for n in CHUNK_LONG:
+                for n in ref["long_lens"]:
                     compare(torch, f"serve_chunk {name}: {n}-token prompt first-token logits "
                             f"(the job's last vs the direct prefill's)", r["lasts"][n][None],
                             ref["lasts"][n][None])
@@ -6230,7 +6303,7 @@ def phase_eval(torch, cfg, params, tokenizer, card: str) -> dict:
     and the two nll values within EVAL_NLL_GAP (rel)."""
     import rama_tpu_torch.eval as ev
 
-    (text,), tok = repeated_prompts(tokenizer, (EVAL_TOKENS,))
+    text = passage_text(tokenizer, EVAL_TOKENS)
     out, firsts, prefill = {}, {}, ev.prefill
 
     def kept(name):
@@ -6244,7 +6317,7 @@ def phase_eval(torch, cfg, params, tokenizer, card: str) -> dict:
         ev.prefill = kept(name)
         try:
             t0 = time.perf_counter()
-            out[name] = ev.perplexity(params, cfg, tok, text, window=EVAL_WINDOW,
+            out[name] = ev.perplexity(params, cfg, tokenizer, text, window=EVAL_WINDOW,
                                       batch=EVAL_BATCH, plain=plain)
             torch.cuda.synchronize()
             out[name]["seconds"] = time.perf_counter() - t0
@@ -6260,6 +6333,419 @@ def phase_eval(torch, cfg, params, tokenizer, card: str) -> dict:
     if not math.isfinite(out["kernels"]["perplexity"]) or gap > EVAL_NLL_GAP:
         raise SystemExit(f"FAILED eval: nll {out['kernels']['nll']} with the kernels, "
                          f"{out['plain']['nll']} plain: rel gap {gap:.3e} > {EVAL_NLL_GAP}")
+    return out
+
+
+# the pure-Python encoder in a process of its own: the port's tokenizer
+# module alone (no torch), the vocabulary from a JSON file, its own timer
+PLAIN_ENCODE = """
+import json, sys, time
+from rama_tpu_torch.tokenizer import Tokenizer
+with open(sys.argv[1]) as f:
+    a = json.load(f)
+tok = Tokenizer(a["vocab"], a["scores"])
+t0 = time.perf_counter()
+ids = tok.encode(a["text"], strict=False)
+json.dump({"ids": ids, "s": time.perf_counter() - t0}, sys.stdout)
+"""
+
+
+def plain_encodes(tokenizer, texts) -> list:
+    """[(ids, seconds)] of the pure-Python encoder (tokenizer.py's plain
+    version) on each text: one process a text, all started together (the
+    O(n^2) loop takes tens of seconds at 4096 tokens), each timing its own
+    encode."""
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        for i, text in enumerate(texts):
+            arg = os.path.join(d, f"{i}.json")
+            with open(arg, "w") as f:
+                json.dump({"vocab": tokenizer.vocab, "scores": tokenizer.scores, "text": text}, f)
+            procs.append(subprocess.Popen([sys.executable, "-c", PLAIN_ENCODE, arg],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True, cwd=ROOT))
+        out = []
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise SystemExit(f"FAILED native: the plain encoder's process exited "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+            got = json.loads(stdout)
+            out.append((got["ids"], got["s"]))
+    return out
+
+
+def encode_ms(tokenizer, text: str, reps: int = 5) -> tuple[list, float]:
+    """The C++ encoder's ids of `text` and its median ms over `reps` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ids = tokenizer.encode(text, strict=False)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return ids, sorted(times)[reps // 2]
+
+
+def native_serve(torch, cfg, params, tokenizer, card: str) -> dict:
+    """The HTTP server (`serving`) around an int8-cache engine
+    (CHUNK_SERVE): the six short /gen streams (CHUNK_SHORT,
+    CHUNK_SHORT_STEPS tokens), then, once each has its first token, one
+    greedy /gen of the passage cut to about NATIVE_LONG tokens
+    (CHUNK_LONG_STEPS tokens), text encoded by the engine's submit on the
+    server's event loop. Every stream must end (at most its steps: EOS may
+    end one) and /metrics count every token, with no engine error. Returns
+    the long request's TTFT (client side), its prompt's tokens, the largest
+    gap between two SSE tokens of a short stream while the long prompt
+    admits (its send to its first token), and the share of that gap spent
+    in `submit` (host spans of every submit)."""
+    import aiohttp
+
+    from rama_tpu_torch.config import EngineConfig
+    from rama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(cfg, params, tokenizer, EngineConfig(**CHUNK_SERVE, kv_quant="int8"))
+    long_text = passage_text(tokenizer, NATIVE_LONG)
+    spans, plens = [], []     # host (start, end) of every submit; the long prompt's tokens
+    submit = eng.submit
+
+    def timed_submit(req, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return submit(req, *a, **kw)
+        finally:
+            spans.append((t0, time.perf_counter()))
+            if req.prompt == long_text:
+                plens.append(len(req.prompt_ids))
+
+    eng.submit = timed_submit
+
+    async def stream(session, url, params_, times):
+        async with session.get(url, params=params_) as resp:
+            if resp.status != 200:
+                raise SystemExit(f"FAILED native: /gen status {resp.status}: "
+                                 f"{(await resp.text())[:300]}")
+            async for raw in resp.content:
+                line = raw.decode().rstrip("\n")
+                if line.startswith("data: "):
+                    times.append(time.perf_counter())
+                elif line.startswith("event: error"):
+                    raise SystemExit(f"FAILED native: error event {line}")
+
+    async def run():
+        shorts = [[] for _ in CHUNK_SHORT]
+        long_times: list = []
+        async with serving(eng, CHUNK_SHORT_STEPS) as base, \
+                aiohttp.ClientSession() as session:
+            url = base + "/gen"
+            tasks = [asyncio.ensure_future(stream(session, url, dict(
+                prompt=p, steps=str(CHUNK_SHORT_STEPS),
+                temperature="0.0" if i % 2 == 0 else "1.0"), times))
+                for i, (p, times) in enumerate(zip(CHUNK_SHORT, shorts))]
+            t0 = time.perf_counter()
+            while not all(shorts):
+                if time.perf_counter() - t0 > 300 or any(t.done() for t in tasks):
+                    raise SystemExit(f"FAILED native: short streams' first tokens "
+                                     f"{[len(t) for t in shorts]}")
+                await asyncio.sleep(0.001)
+            t_long = time.perf_counter()
+            await asyncio.wait_for(asyncio.gather(*tasks, stream(session, url, dict(
+                prompt=long_text, steps=str(CHUNK_LONG_STEPS), temperature="0.0"),
+                long_times)), timeout=600)
+            async with session.get(base + "/metrics") as resp:
+                stats = await resp.json()
+        return shorts, long_times, t_long, stats
+
+    eng.start()
+    try:
+        shorts, long_times, t_long, stats = asyncio.run(run())
+    finally:
+        eng.stop()
+    total = sum(map(len, shorts)) + len(long_times)
+    if not long_times or max(map(len, shorts)) > CHUNK_SHORT_STEPS or \
+            len(long_times) > CHUNK_LONG_STEPS or stats["engine_errors"] or \
+            stats["tokens_generated"] != total or len(plens) != 1:
+        raise SystemExit(f"FAILED native: streams of {[len(t) for t in shorts]} and "
+                         f"{len(long_times)} tokens (at most {CHUNK_SHORT_STEPS} and "
+                         f"{CHUNK_LONG_STEPS}, EOS ends one); /metrics {stats}; long prompts "
+                         f"submitted {plens}")
+    t_first = long_times[0]
+    gap, a, b = max(((y - x, x, y) for times in shorts for x, y in zip(times, times[1:])
+                     if y > t_long and x < t_first), default=(0.0, 0.0, 0.0))
+    in_submit = sum(max(0.0, min(e, b) - max(s_, a)) for s_, e in spans)
+    long_submit = next(e - s_ for s_, e in spans if s_ >= t_long)
+    return dict(long_prompt_tokens=plens[0], ttft_long_ms=(t_first - t_long) * 1e3,
+                max_gap_ms=gap * 1e3, gap_share_in_submit=in_submit / gap if gap else 0.0,
+                long_submit_ms=long_submit * 1e3, tok_s=total / (long_times[-1] - t_long))
+
+
+def phase_native(torch, cfg, params, tokenizer, card: str, dev=None) -> dict:
+    """The native host library on the card's host: the C++ encoder's ids
+    of the passage cut to about each NATIVE_ENCODE count (median ms of 5
+    calls) and NATIVE_TRANSPOSE fp32, made on `dev` (the card), transposed
+    by transpose_batched (ms), each alone; then the pure-Python encoder on
+    each text (one process a text, all at once: ms each, ids equal to the
+    C++ encoder's) while a fresh build into a temporary directory
+    (seconds) and numpy's transpose (ms, byte for byte transpose_batched's)
+    run; then native_serve. Host times, labelled so."""
+    from rama_tpu_torch import native
+
+    dev = dev or torch.device("cuda")
+    if tokenizer._native_file is None:
+        raise SystemExit("FAILED native: the served tokenizer encodes with the Python loop, "
+                         "not the C++ encoder")
+    t0 = time.perf_counter()
+    texts = [passage_text(tokenizer, n) for n in NATIVE_ENCODE]
+    fast = [encode_ms(tokenizer, t) for t in texts]
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(NATIVE_TRANSPOSE, generator=g, device=dev).cpu().numpy()
+    t1 = time.perf_counter()
+    got = native.transpose_batched(a)
+    cpp_s = time.perf_counter() - t1
+    # the plain encoder's processes (one core each) run while the library is
+    # built afresh and numpy transposes (one core each)
+    result: dict = {}
+    encodes = threading.Thread(
+        target=lambda: result.update(plain=plain_encodes(tokenizer, texts)))
+    encodes.start()
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        built = native.build_library(build_dir=d)
+        build_s = time.perf_counter() - t1
+        if not built.exists():
+            raise SystemExit(f"FAILED native: no library at {built}")
+    t1 = time.perf_counter()
+    want = np.ascontiguousarray(a.transpose(0, 2, 1))
+    numpy_s = time.perf_counter() - t1
+    encodes.join()
+    if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+        raise SystemExit(f"FAILED native: transpose_batched of {NATIVE_TRANSPOSE} differs from "
+                         f"numpy's")
+    transpose = dict(shape=list(NATIVE_TRANSPOSE), gb=a.nbytes / 1e9, cpp_ms=cpp_s * 1e3,
+                     numpy_ms=numpy_s * 1e3, threads=min(os.cpu_count() or 1, 8))
+    del a, got, want
+    if "plain" not in result:
+        raise SystemExit("FAILED native: the plain encoder's processes returned nothing")
+    plain = result["plain"]
+    encode = []
+    for n, text, (ids, ms), (pids, ps) in zip(NATIVE_ENCODE, texts, fast, plain):
+        if ids != pids:
+            raise SystemExit(f"FAILED native: the C++ encoder's {len(ids)} ids of the {n}-token "
+                             f"text differ from the Python encoder's {len(pids)}")
+        encode.append(dict(target=n, tokens=len(ids), chars=len(text), cpp_ms=ms,
+                           python_ms=ps * 1e3))
+    log(f"[native] encoders, host ms (C++ median of 5, alone; Python one call, "
+        f"{len(texts)} processes at once beside the fresh build and numpy's transpose): "
+        f"{json.dumps(encode)} ({card})")
+    log(f"[native] fresh build {build_s:.2f} s ({native.compiler()} "
+        f"{' '.join(native.CXX_FLAGS)}); transpose fp32 {NATIVE_TRANSPOSE}, host ms (C++ "
+        f"alone, numpy beside the plain encodes): {json.dumps(transpose)}, byte for byte "
+        f"equal; {time.perf_counter() - t0:.1f} s ({card})")
+    serve = native_serve(torch, cfg, params, tokenizer, card)
+    log(f"[native] served through HTTP: {json.dumps(serve)} ({card})")
+    return dict(build_s=build_s, encode=encode, transpose=transpose, serve=serve)
+
+
+def export_params(torch, cfg, dev, seed: int = 11) -> dict:
+    """Canonical fp32 params (numpy) from a seed, drawn on `dev`: ~N(0,
+    0.02) weights, unit norms, an untied classifier."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, D, H, V, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size, cfg.kv_dim
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev).mul_(0.02).cpu().numpy()
+
+    return {"tok_embedding": w(V, D), "attn_norm": np.ones((L, D), np.float32),
+            "wq": w(L, D, D), "wk": w(L, D, KV), "wv": w(L, D, KV), "wo": w(L, D, D),
+            "ffn_norm": np.ones((L, D), np.float32), "w1": w(L, D, H), "w2": w(L, H, D),
+            "w3": w(L, D, H), "final_norm": np.ones(D, np.float32), "wcls": w(D, V)}
+
+
+# canonical name -> llama2.c / Meta state-dict name (layer i), and the axis a
+# Meta shard splits (None: every shard holds the whole tensor)
+EXPORT_NAMES = {"attn_norm": ("layers.{i}.attention_norm.weight", None),
+                "wq": ("layers.{i}.attention.wq.weight", 0),
+                "wk": ("layers.{i}.attention.wk.weight", 0),
+                "wv": ("layers.{i}.attention.wv.weight", 0),
+                "wo": ("layers.{i}.attention.wo.weight", 1),
+                "ffn_norm": ("layers.{i}.ffn_norm.weight", None),
+                "w1": ("layers.{i}.feed_forward.w1.weight", 0),
+                "w2": ("layers.{i}.feed_forward.w2.weight", 1),
+                "w3": ("layers.{i}.feed_forward.w3.weight", 0),
+                "tok_embedding": ("tok_embeddings.weight", 1),
+                "final_norm": ("norm.weight", None), "wcls": ("output.weight", 0)}
+
+
+def export_state_dict(torch, cfg, params) -> dict:
+    """The params as a llama2.c / Meta state dict of numpy arrays: matmul
+    weights (out, in), the embedding (V, D), norms as they are."""
+    from rama_tpu_torch.native import transpose_batched
+
+    sd = {}
+    for name, (key, _) in EXPORT_NAMES.items():
+        a = params[name]
+        if name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wcls"):
+            a = transpose_batched(a)
+        if "{i}" in key:
+            for i in range(cfg.n_layers):
+                sd[key.format(i=i)] = a[i]
+        else:
+            sd[key] = a
+    return sd
+
+
+def write_export_inputs(torch, cfg, params, d: str) -> tuple[str, str]:
+    """A llama2.c .pt ({model_args, model} with the '_orig_mod.' prefix of a
+    torch.compile'd model) and a Meta directory (params.json, two
+    consolidated.*.pth shards split on the axes of EXPORT_NAMES) in `d`."""
+    sd = export_state_dict(torch, cfg, params)
+    pt = os.path.join(d, "model.pt")
+    args = dict(dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, vocab_size=cfg.vocab_size, hidden_dim=cfg.hidden_dim,
+                max_seq_len=cfg.seq_len, norm_eps=cfg.norm_eps)
+    torch.save({"model_args": args, "model": {"_orig_mod." + k: torch.from_numpy(v)
+                                              for k, v in sd.items()}}, pt)
+    meta = os.path.join(d, "meta")
+    os.makedirs(meta)
+    with open(os.path.join(meta, "params.json"), "w") as f:
+        json.dump(dict(dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, norm_eps=cfg.norm_eps, vocab_size=-1), f)
+    axes = {key.format(i=i): axis for key, axis in EXPORT_NAMES.values()
+            for i in range(cfg.n_layers)}
+    for j in range(2):
+        shard = {}
+        for k, v in sd.items():
+            part = v if axes[k] is None else np.array_split(v, 2, axis=axes[k])[j]
+            shard[k] = torch.from_numpy(np.ascontiguousarray(part))
+        torch.save(shard, os.path.join(meta, f"consolidated.{j:02d}.pth"))
+    return pt, meta
+
+
+def greedy_logits(torch, cfg, params, prompt, steps: int, dev, feed=None) -> tuple[list, list]:
+    """The last-row logits of a prefill of `prompt`, then of `steps` decode
+    steps, each fed the argmax of the logits before it (or `feed`'s
+    tokens). Returns (logits, tokens fed)."""
+    from rama_tpu_torch.models.llama import KVCache, decode_step, prefill
+
+    cache = KVCache.create(cfg, 1, len(prompt) + steps + 1, dtype=params["final_norm"].dtype,
+                           device=dev)
+    out, fed = [], []
+    with torch.no_grad():
+        logits, _ = prefill(params, cfg, torch.tensor([prompt], device=dev), cache,
+                            last_only=True)
+        out.append(logits[:, -1].float())
+        for i in range(steps):
+            tok = feed[i] if feed else int(torch.argmax(out[-1], dim=-1))
+            fed.append(tok)
+            logits, _ = decode_step(params, cfg, torch.tensor([tok], device=dev),
+                                    torch.tensor([len(prompt) + i], device=dev), cache)
+            out.append(logits.float())
+    return out, fed
+
+
+def phase_export(torch, card: str, modules, cfg=None, dev=None) -> dict:
+    """`python -m rama_tpu_torch.cli export` on a llama2.c .pt and a Meta
+    directory of one set of seeded fp32 params (export_params) at
+    Llama-2-7B's width, EXPORT_LAYERS layers, in a temporary directory the
+    phase removes: .pt and Meta to v2 (gs 64), .pt to v1 and v0, one
+    process each, all at once beside the in-process save_v2 and the runs
+    of the params loaded without a file (host seconds each). Exact checks:
+    both v2 files byte for byte the port's save_v2 of the params; the v0 /
+    v1 files reload to the params exactly.
+    Then each v2 / v0 file through the CLI's load_model on `dev` (bf16; the
+    card): a prefill and EXPORT_STEPS greedy decode steps, each step's
+    logits within TOL of the same params loaded without a file
+    (quantize_params for v2, load_params for v0, teacher-forced on that
+    run's tokens); on the card the v2 run launches K1, K3, K5 and K4, the v0
+    run K5 and K4 and neither K1 nor K3 (the bf16 path)."""
+    import filecmp
+
+    from rama_tpu_torch.checkpoint import load_checkpoint, save_v2
+    from rama_tpu_torch.cli import load_model
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models.llama import fuse_params, load_params, quantize_params
+
+    dev = dev or torch.device("cuda")
+    cfg = cfg or seven_b_config(ModelConfig).replace(n_layers=EXPORT_LAYERS, seq_len=2048)
+    t0 = time.perf_counter()
+    params = export_params(torch, cfg, dev)
+    out: dict = {"layers": cfg.n_layers, "params_gb": sum(a.nbytes for a in params.values()) / 1e9}
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        pt, meta = write_export_inputs(torch, cfg, params, d)
+        out["inputs_s"] = time.perf_counter() - t1
+        # the four conversions at once, one process each
+        files, procs = {}, {}
+        for src, path, version in (("pt", pt, 2), ("meta", meta, 2), ("pt", pt, 1),
+                                   ("pt", pt, 0)):
+            tag = f"{src}_v{version}"
+            files[tag] = os.path.join(d, f"{tag}.bin")
+            procs[tag] = (subprocess.Popen(
+                [sys.executable, "-m", "rama_tpu_torch.cli", "export", path, files[tag],
+                 "--version", str(version), "--group-size", "64"], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, cwd=ROOT), time.perf_counter())
+        ref = os.path.join(d, "save_v2.bin")
+        t1 = time.perf_counter()
+        save_v2(ref, cfg, params, group_size=64)
+        out["save_v2_s"] = time.perf_counter() - t1
+        # the same params loaded without a file, run while the conversions run
+        prompt = [1, 9038, 2501, 263, 931, 29892, 727, 471]
+        bf = torch.bfloat16
+        direct = {"pt_v2": lambda: quantize_params(cfg, params, bits=8, group_size=64,
+                                                   dtype=bf, device=dev),
+                  "pt_v0": lambda: load_params(cfg, params, dtype=bf, device=dev)}
+        refs = {tag: greedy_logits(torch, cfg, fuse_params(make(), cfg), prompt, EXPORT_STEPS,
+                                   dev) for tag, make in direct.items()}
+        secs, t1 = {}, time.perf_counter()
+        while len(secs) < len(procs) and time.perf_counter() - t1 < 900:
+            for tag, (proc, start) in procs.items():
+                if tag not in secs and proc.poll() is not None:
+                    secs[tag] = time.perf_counter() - start
+            time.sleep(0.05)
+        for tag, (proc, _) in procs.items():
+            if tag not in secs:
+                proc.kill()
+            stderr = proc.communicate()[1]
+            if tag not in secs or proc.returncode or (
+                    tag.endswith("v2") and "max quantization group error" not in stderr):
+                raise SystemExit(f"FAILED export {tag}: rc {proc.returncode}: {stderr[-2000:]}")
+        out["cli_s"] = secs
+        for tag in ("pt_v2", "meta_v2"):
+            if not filecmp.cmp(ref, files[tag], shallow=False):
+                raise SystemExit(f"FAILED export: {tag}.bin is not byte for byte the port's "
+                                 f"save_v2 of the params")
+        for tag in ("pt_v1", "pt_v0"):
+            cfg2, back = load_checkpoint(files[tag])
+            bad = [k for k in params if not np.array_equal(back[k], params[k])]
+            if cfg2 != cfg or bad or set(back) != set(params):
+                raise SystemExit(f"FAILED export: {tag}.bin reloads to {cfg2} with {bad} "
+                                 f"differing from the params")
+        log(f"[export] Llama-2-7B width, {cfg.n_layers} layers ({out['params_gb']:.2f} GB fp32): "
+            f".pt and Meta written in {out['inputs_s']:.1f} s; CLI host s (the four processes "
+            f"at once, each from its start to its exit) "
+            f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}, save_v2 in-process "
+            f"beside them {out['save_v2_s']:.2f} s; both v2 files byte for byte save_v2's, v0 "
+            f"/ v1 reload exactly ({card})")
+        on_card = dev.type == "cuda"
+        for tag, (want, fed) in refs.items():
+            _, loaded, _ = load_model(files[tag], "auto", "bfloat16", str(dev))
+            before = read_launches(*modules)
+            got, _ = greedy_logits(torch, cfg, loaded, prompt, EXPORT_STEPS, dev, feed=fed)
+            after = read_launches(*modules)
+            ran = {k: after[k] - before[k] for k in ("quant_matmul", "ffn", "prefill_attention",
+                                                     "decode_attention")}
+            errs = [compare(torch, f"export {tag}: {'prefill' if i == 0 else f'step {i}'} "
+                            f"logits (file vs the params loaded without one)", g, w)
+                    for i, (g, w) in enumerate(zip(got, want))]
+            quant = tag.endswith("v2")
+            if on_card and (not ran["prefill_attention"] or not ran["decode_attention"]
+                            or bool(ran["quant_matmul"]) != quant or bool(ran["ffn"]) != quant):
+                raise SystemExit(f"FAILED export {tag}: launches {ran}: want K5 and K4, and K1 "
+                                 f"and K3 {'too' if quant else 'never (the bf16 path)'}")
+            out[tag] = dict(max_err=max(errs), launches=ran, tokens=fed)
+            del loaded, got, want
+        del refs
+    log(f"[export] logits of v2 (int8) and v0 (bf16) files within {TOL} of the params loaded "
+        f"without a file: {json.dumps({k: out[k] for k in ('pt_v2', 'pt_v0')})}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
     return out
 
 
@@ -6324,11 +6810,7 @@ def phase_profile(torch, cfg, params, tag: str = "profile", cache=None,
                 tok = step(tok, start + i * chunk)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if dt and ev.device_type.name == "CUDA":
-            rows.append((dt, ev.key, ev.count))
+    rows = [(dt, key, n) for key, (dt, n) in device_times(torch, prof).items()]
     busy_us = sum(r[0] for r in rows)
     # K3: both phases of the tensor-core body, or the SIMT w13 kernel (whose
     # w2 GEMV shares qmv_kernel with K1 and is not counted here)
@@ -6401,11 +6883,7 @@ def profile_prefill(torch, cfg, params, label: str = "7B int8") -> dict:
     if logits.shape != (8, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"FAILED profile_prefill: logits {tuple(logits.shape)}, finite "
                          f"{bool(torch.isfinite(logits).all())}")
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if dt and ev.device_type.name == "CUDA":
-            rows.append((dt, ev.key, ev.count))
+    rows = [(dt, key, n) for key, (dt, n) in device_times(torch, prof).items()]
     if not rows:
         raise SystemExit("FAILED profile_prefill: the profiler recorded no device time")
     busy_ms = sum(r[0] for r in rows) / 1e3
@@ -6840,6 +7318,8 @@ def main() -> int:
                     serving[ph] = phase_chat(torch, cfg, params, tokenizer, card)
                 elif ph == "eval":
                     serving[ph] = phase_eval(torch, cfg, params, tokenizer, card)
+                elif ph == "native":
+                    serving[ph] = phase_native(torch, cfg, params, tokenizer, card)
                 elif ph == "spec_draft":
                     phase_spec_draft(torch, cfg, params, tokenizer,
                                      start_count=lambda: reset_launches(*modules))
@@ -6958,6 +7438,10 @@ def main() -> int:
     del params
     tmp.cleanup()
     torch.cuda.empty_cache()
+    if "export" in phases:
+        with clock("export"):
+            phase_export(torch, card, modules)
+        torch.cuda.empty_cache()
     if "cli" in phases:
         with clock("cli"):
             phase_cli(torch)
@@ -6987,7 +7471,8 @@ def main() -> int:
             "launches_warmup_path", "stream_body_launches", "launches_pipe_path",
             "standalone_launches_pipe_path", "rows_body_launches_pipe_path",
             "launches_chunk_path", "standalone_launches_chunk_path",
-            "rows_body_launches_chunk_path", "launches_chat_path", "launches_eval_path")
+            "rows_body_launches_chunk_path", "launches_chat_path", "launches_eval_path",
+            "launches_native_path", "standalone_launches_native_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

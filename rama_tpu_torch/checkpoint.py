@@ -1,5 +1,6 @@
 """Checkpoint IO: llama2.c-format .bin readers and writers (the port's own
-copy of rama_tpu/checkpoint.py: numpy only, transposes in numpy).
+copy of rama_tpu/checkpoint.py: numpy, and the native library's threaded
+transpose).
 
 Formats (written by the reference's export pipeline, engine/export/export.py):
 
@@ -213,10 +214,16 @@ _MATMUL_NAMES_V2 = ["tok_embedding", "wq", "wk", "wv", "wo", "w1", "w2", "w3"]
 
 
 def _to_canonical(name: str, arr: np.ndarray) -> np.ndarray:
-    """File layout (out,in) -> canonical (in,out); embeddings/norms unchanged."""
+    """File layout (out,in) -> canonical (in,out); embeddings/norms unchanged.
+
+    Through the native library's threaded blocked transpose (csrc/native.cpp),
+    as rama_tpu's loader does: the dominant host cost of loading a
+    multi-GB checkpoint."""
     if name in ("tok_embedding", "attn_norm", "ffn_norm", "final_norm"):
         return arr
-    return np.ascontiguousarray(np.swapaxes(arr, -1, -2))
+    from rama_tpu_torch.native import transpose_batched
+
+    return transpose_batched(arr)
 
 
 def load_checkpoint(path: str, dtype=np.float32):
@@ -335,11 +342,13 @@ def load_checkpoint_quantized(path: str) -> QuantParams:
 
 
 def _from_canonical(name: str, arr: np.ndarray) -> np.ndarray:
+    """Canonical (in,out) -> file layout (out,in), by the same threaded
+    transpose as _to_canonical; embeddings/norms unchanged."""
     if name in ("tok_embedding", "attn_norm", "ffn_norm", "final_norm"):
         return arr
-    if arr.ndim == 3:
-        return np.ascontiguousarray(arr.transpose(0, 2, 1))
-    return np.ascontiguousarray(arr.T)
+    from rama_tpu_torch.native import transpose_batched
+
+    return transpose_batched(np.asarray(arr))
 
 
 def compute_freqs(cfg: ModelConfig, dtype=np.float32, seq_len: int | None = None):
@@ -390,6 +399,18 @@ def _write_header_v1v2(f, cfg: ModelConfig, version: int, group_size: int = 0):
     if version == 2:
         f.write(struct.pack("<i", group_size))
     f.write(b"\0" * (HEADER_BYTES_V1V2 - f.tell()))
+
+
+def save_v1(path: str, cfg: ModelConfig, params: dict):
+    """Write the v1 format (export.py:132-180 byte layout)."""
+    with open(path, "wb") as f:
+        _write_header_v1v2(f, cfg, 1)
+        for name in ("attn_norm", "ffn_norm", "final_norm"):
+            _write_f32(f, params[name])
+        for name in _MATMUL_NAMES_V2:
+            _write_f32(f, _from_canonical(name, params[name]))
+        if not cfg.shared_classifier:
+            _write_f32(f, _from_canonical("wcls", params["wcls"]))
 
 
 def save_v2(path: str, cfg: ModelConfig, params: dict, group_size: int = 64):

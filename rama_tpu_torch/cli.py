@@ -1,11 +1,12 @@
-"""Command line — the port of rama_tpu/cli.py `generate` and `eval` (the
-reference's `engine` binary, engine/src/main.rs:20-105).
+"""Command line — the port of rama_tpu/cli.py `generate`, `export` and
+`eval` (the reference's `engine` binary, engine/src/main.rs:20-105).
 
     python -m rama_tpu_torch.cli generate -m model.bin -t tokenizer.bin \
         -p "once upon a time" -s 200 -r 0.9 --device cuda
     python -m rama_tpu_torch.cli generate -m model.bin -t tokenizer.bin \
         -o chat -p "You are terse." -s 128
     python -m rama_tpu_torch.cli eval -m model.bin -t tokenizer.bin --text wiki.txt
+    python -m rama_tpu_torch.cli export llama2c.pt model.bin --version 2 --group-size 64
 
 `generate` loads a v0/v1/v2 .bin checkpoint, runs generation on `--device`
 (cuda by default; it raises without a GPU unless `--device cpu` is given),
@@ -17,7 +18,13 @@ stores the quantized weights' scales in bf16 after fusing (`cast_scales`),
 as rama_tpu/cli.py:124 does. `-o chat` runs the chat loop on stdin
 (runtime/chat.py): `-p` is the system prompt and `-s` each reply's most
 tokens. `eval` prints one JSON line of perplexity over a text file
-(eval.py), with rama_tpu's flags (`--dtype` float32 by default).
+(eval.py), with rama_tpu's flags (`--dtype` float32 by default). `export`
+converts a .bin, a HuggingFace model directory, a llama2.c .pt or a Meta
+directory (export.py; `--source auto` sniffs which) into a v0 / v1 / v2
+.bin, or with `--version -1` a HuggingFace directory, on the host in numpy
+(no device flag, as in rama_tpu); v2 prints its largest quantization
+group error. Text is encoded by the C++ encoder of the native library
+(tokenizer.py).
 """
 
 from __future__ import annotations
@@ -64,6 +71,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--draft-model", default=None, help="draft .bin for --spec draft")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a GPU) or cpu")
+    e = sub.add_parser("export", help="convert checkpoints between formats")
+    e.add_argument("input", help=".bin file, HF model path, llama2.c .pt, or "
+                                 "Meta consolidated dir")
+    e.add_argument("output")
+    e.add_argument("--version", type=int, default=2, choices=[-1, 0, 1, 2],
+                   help="-1 writes a HuggingFace checkpoint directory "
+                        "(reference export.py:508 convention)")
+    e.add_argument("--group-size", type=int, default=64)
+    e.add_argument("--source", default="auto",
+                   choices=["auto", "bin", "hf", "llama2c", "meta"],
+                   help="input format (auto: a directory with params.json -> meta, "
+                        "another directory -> hf, .pt / .pth -> llama2c, else bin)")
     v = sub.add_parser("eval", help="perplexity over a text file (e.g. wikitext-2's test "
                                     "split for the int8 / int4 quality gates)")
     v.add_argument("-m", "--model", required=True)
@@ -178,13 +197,42 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _sniff_source(path: str) -> str:
+    import os
+
+    if os.path.isdir(path):
+        if os.path.exists(os.path.join(path, "params.json")):
+            return "meta"
+        return "hf"
+    if path.endswith((".pt", ".pth")):
+        return "llama2c"
+    return "bin"
+
+
+def cmd_export(args) -> int:
+    from rama_tpu_torch import export
+    from rama_tpu_torch.checkpoint import load_checkpoint, save_v0, save_v1, save_v2
+
+    source = args.source if args.source != "auto" else _sniff_source(args.input)
+    read = {"bin": load_checkpoint, "hf": export.hf_to_params,
+            "llama2c": export.llama2c_pt_to_params, "meta": export.meta_to_params}[source]
+    cfg, params = read(args.input)
+    if args.version == -1:
+        export.params_to_hf(cfg, params, args.output)
+    elif args.version == 0:
+        save_v0(args.output, cfg, params)
+    elif args.version == 1:
+        save_v1(args.output, cfg, params)
+    else:
+        err = save_v2(args.output, cfg, params, group_size=args.group_size)
+        print(f"max quantization group error: {err:.6f}", file=sys.stderr)
+    print(f"wrote {args.output}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd == "generate":
-        return cmd_generate(args)
-    if args.cmd == "eval":
-        return cmd_eval(args)
-    return 1
+    return {"generate": cmd_generate, "export": cmd_export, "eval": cmd_eval}[args.cmd](args)
 
 
 if __name__ == "__main__":

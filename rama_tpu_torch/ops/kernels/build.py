@@ -18,8 +18,10 @@ hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused from any process. They are loaded with ctypes;
 pointers and the stream pass as `c_void_p`, every C entry returns
 `cudaGetLastError()` and `check` raises on a non-zero code. `load_all`
-builds and loads every library at once (Engine.warmup), and `counts` keeps
-the nvcc runs and library loads of the process.
+builds and loads every library at once (Engine.warmup), the native host
+library of rama_tpu_torch/native.py too, and `counts` keeps the compiler
+runs (nvcc, and the host compiler's for the native library) and library
+loads of the process.
 
 There is no fallback: a missing `nvcc` or a failed build raises.
 """
@@ -51,18 +53,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # name -> nvcc output (-Xptxas -v report)
-counts = {"builds": 0, "loads": 0}  # nvcc runs and libraries loaded by this process
+counts = {"builds": 0, "loads": 0}  # compiler runs and libraries loaded by this process
 
 
 def set_build_dir(path) -> Path:
     """Build into and load from `path` from now on (EngineConfig.
     compile_cache). A process never mixes libraries of two directories:
-    naming another directory once a library is loaded raises."""
+    naming another directory once a library (a kernel's, or the native host
+    library of rama_tpu_torch/native.py) is loaded raises."""
     global BUILD_DIR
     path = Path(path).expanduser().resolve()
     with _lock:
         if path != BUILD_DIR and _libs:
-            raise RuntimeError(f"kernel libraries are already loaded from {BUILD_DIR}; "
+            raise RuntimeError(f"libraries are already loaded from {BUILD_DIR}; "
                                f"this process cannot load them from {path}")
         BUILD_DIR = path
     return path
@@ -148,10 +151,14 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
 
 def load_all() -> None:
     """Build every missing library, then load each one with its C entries
-    declared: after this no kernel call of the process runs nvcc or loads a
-    library (Engine.warmup)."""
+    declared, and the native host library (rama_tpu_torch.native): after
+    this no kernel call of the process runs nvcc or loads a library
+    (Engine.warmup)."""
     import importlib
 
+    from rama_tpu_torch import native
+
+    native.load()
     for name in SOURCES:
         library(name, importlib.import_module(f"rama_tpu_torch.ops.kernels.{name}")._SIGNATURES)
 

@@ -62,6 +62,9 @@ f.addEventListener('submit', (e) => {
 
 
 ENGINE_KEY = web.AppKey("engine", Engine)
+# the longest request line the server reads (aiohttp's default is 8190
+# bytes): a /gen prompt of a long context, percent-encoded, fits
+MAX_REQUEST_LINE = 1 << 20
 
 
 def build_app(engine: Engine, default_steps: int = 255) -> web.Application:
@@ -155,8 +158,13 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 scale_dtype: str | None = None, compile_cache: str | None = None,
                 prefill_chunk: int = 0, prefill_chunk_min: int | None = None) -> Engine:
     from rama_tpu_torch.cli import load_model
+    from rama_tpu_torch.ops.kernels import build
     from rama_tpu_torch.tokenizer import Tokenizer
 
+    if compile_cache:
+        # before the checkpoint's transpose loads the native host library:
+        # it comes from the engine's build directory, as the kernels do
+        build.set_build_dir(compile_cache)
     cfg, params, _ = load_model(model_path, quant, dtype, device)
     tokenizer = Tokenizer.from_file(tokenizer_path, cfg.vocab_size)
     draft = None
@@ -262,7 +270,7 @@ def main(argv=None) -> int:
     try:
         host, _, port = args.address.rpartition(":")
         web.run_app(build_app(engine, default_steps=args.steps),
-                    host=host or "0.0.0.0", port=int(port))
+                    host=host or "0.0.0.0", port=int(port), max_line_size=MAX_REQUEST_LINE)
     finally:
         engine.stop()
     return 0

@@ -1,8 +1,7 @@
 """Byte-pair-encoding tokenizer for llama2.c `tokenizer.bin` vocabularies.
 
-The port's own copy of `rama_tpu/tokenizer.py` with the pure-Python encoder
-only (the C++ encoder is later work, see ROADMAP.md). Behavioral parity with
-the reference tokenizer (engine/src/tokenizer/bpe.rs:19-116):
+The port's own copy of `rama_tpu/tokenizer.py`. Behavioral parity with the
+reference tokenizer (engine/src/tokenizer/bpe.rs:19-116):
 
 - **File format** (bpe.rs:29-45): u32 max_token_length, then vocab_size
   records of (f32 score, i32 byte-length, utf-8 bytes).
@@ -11,6 +10,17 @@ the reference tokenizer (engine/src/tokenizer/bpe.rs:19-116):
   whose concatenation exists in the vocab with the highest score.
 - **decode** (bpe.rs:101-116): `<s>`-containing tokens decode to the empty
   string; `<0xAB>` byte tokens decode to that raw byte.
+
+A Tokenizer of `from_file` encodes with the C++ heap encoder of the port's
+native library (rama_tpu_torch.native.NativeTokenizer, O(n log n)), made
+at its first encode: the library is built and loaded then, into the build
+directory current at that moment (an Engine's compile_cache, once an Engine
+names one), and a failed build raises. The pure-Python loop below
+(`_encode_plain`, O(n^2): it rescans every pair after each merge) is its
+plain version, and the encoder of a Tokenizer made from lists. The two
+differ at two edges only, as rama_tpu's two encoders do: the C++ encoder
+trims only " \t\r\n" where str.strip trims every Unicode space, and ends
+the text at a NUL byte (ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ class Tokenizer:
         self.vocab = vocab
         self.scores = scores
         self.max_token_length = max_token_length
+        self._native_file = None   # (path, vocab_size) of from_file: the C++ encoder's
+        self._native = None        # that encoder, made at the first encode
         self.token_to_id = {}
         for i, tok in enumerate(vocab):
             # Last occurrence wins, matching the reference's HashMap insert
@@ -42,7 +54,9 @@ class Tokenizer:
             vocab.append(data[off : off + slen].decode("utf-8"))
             off += slen
             scores.append(score)
-        return cls(vocab, scores, max_len)
+        tok = cls(vocab, scores, max_len)
+        tok._native_file = (str(path), vocab_size)
+        return tok
 
     def encode(self, s: str, strict: bool = True) -> list[int]:
         """Greedy score-maximizing BPE (bpe.rs:50-96 semantics).
@@ -50,6 +64,16 @@ class Tokenizer:
         With strict=True, unknown characters raise KeyError (the reference
         panics, bpe.rs:55); strict=False skips them.
         """
+        if self._native_file is None:
+            return self._encode_plain(s, strict)
+        if self._native is None:
+            from rama_tpu_torch.native import NativeTokenizer
+
+            self._native = NativeTokenizer(*self._native_file)
+        return self._native.encode(s, strict=strict)
+
+    def _encode_plain(self, s: str, strict: bool = True) -> list[int]:
+        """The pure-Python loop: encode's plain version."""
         tokens: list[int] = []
         for ch in s.strip():
             if ch == "\n":

@@ -1958,9 +1958,10 @@ def test_warmup_path_is_the_int8_kv_path_after_warmup(smoke):
 
 def test_warm_up_and_warm_checked_on_a_cpu_engine(smoke, monkeypatch):
     """warm_up refuses a process that built or loaded a library before the
-    warmup, and one whose warmup did not load every library; warm_checked
-    refuses a library loaded after it and a prefill bucket served cold
-    (on the CPU the loads are stood in for)."""
+    warmup (the native host library too), and one whose warmup did not
+    load every library, the native one with the kernels'; warm_checked
+    refuses a library loaded after it and a prefill bucket served cold (on
+    the CPU the loads are stood in for)."""
     from rama_tpu.testing.ref_model import random_params, tiny_config
 
     from _torch_port import torch_cfg
@@ -1988,7 +1989,7 @@ def test_warm_up_and_warm_checked_on_a_cpu_engine(smoke, monkeypatch):
     warmup = eng.warmup
 
     def loading_warmup(max_prompt=None):   # as an engine on the card loads them
-        counts["loads"] = len(build.SOURCES)
+        counts["loads"] = len(build.SOURCES) + 1
         return warmup(max_prompt)
 
     eng.warmup = loading_warmup
@@ -2004,7 +2005,11 @@ def test_warm_up_and_warm_checked_on_a_cpu_engine(smoke, monkeypatch):
     assert smoke.warm_checked(dict(warm), "t")["served"] == [(2, 16)]
     with pytest.raises(SystemExit, match="served cold"):
         smoke.warm_checked(dict(warm, served=[(2, 16), (2, 64)]), "t")
-    counts["loads"] += 1
+    assert smoke.warm_checked(dict(warm), "t")["counts"]["loads"] == len(build.SOURCES) + 1
+    counts["loads"] = len(build.SOURCES)            # the warmup loaded one kernel library less
+    with pytest.raises(SystemExit, match="built or loaded a library"):
+        smoke.warm_checked(dict(warm), "t")
+    counts["loads"] = len(build.SOURCES) + 2
     with pytest.raises(SystemExit, match="built or loaded a library"):
         smoke.warm_checked(dict(warm), "t")
 
@@ -2018,6 +2023,7 @@ def test_phase_serve_after_warmup_on_a_cpu_engine(smoke, monkeypatch, tmp_path):
     from rama_tpu.testing.ref_model import random_params, tiny_config
 
     from _torch_port import torch_cfg
+    from rama_tpu_torch import native
     from rama_tpu_torch.models.llama import quantize_params
     from rama_tpu_torch.ops.kernels import build
     from rama_tpu_torch.runtime.engine import Engine
@@ -2029,13 +2035,16 @@ def test_phase_serve_after_warmup_on_a_cpu_engine(smoke, monkeypatch, tmp_path):
     params = quantize_params(cfg, random_params(jcfg, seed=2), bits=8, group_size=16,
                              dtype=torch.float32, device="cpu")
     tok = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
-    counts = {"builds": 0, "loads": 0}
+    assert tok._native_file is not None           # the C++ encoder, as the child's
+    counts = {"builds": 0, "loads": 0}            # loaded at its first encode, not before
     monkeypatch.setattr(build, "counts", counts)
     monkeypatch.setattr(build, "BUILD_DIR", build.DEFAULT_BUILD_DIR)
+    monkeypatch.setattr(build, "_libs", {})
     warmup, started = Engine.warmup, []
 
     def loading_warmup(self, max_prompt=None):   # as an engine on the card loads them
-        counts["loads"] = len(build.SOURCES)
+        native.load()          # really, from the compile cache (the child's is copied in)
+        counts.update(builds=0, loads=len(build.SOURCES) + 1)
         return warmup(self, max_prompt)
 
     monkeypatch.setattr(Engine, "warmup", loading_warmup)
@@ -2043,8 +2052,9 @@ def test_phase_serve_after_warmup_on_a_cpu_engine(smoke, monkeypatch, tmp_path):
                             **smoke.WARMUP_PATH["serve"], warmup=smoke.WARMUP_PATH["warmup"],
                             compile_cache=str(tmp_path / "cache"),
                             start_count=lambda: started.append(counts["loads"]))
-    assert started == [len(build.SOURCES)]
+    assert started == [len(build.SOURCES) + 1]
     assert build.BUILD_DIR == (tmp_path / "cache").resolve()
+    assert native.lib_path().parent == build.BUILD_DIR and native.NAME in build._libs
     w = out["warmup"]
     assert w["programs"] == 8 and w["warmed"] == [(8, 16), (8, 32), (8, 64), (8, 128)]
     assert w["served"] == [(8, 16)]
@@ -2054,13 +2064,14 @@ def test_phase_serve_after_warmup_on_a_cpu_engine(smoke, monkeypatch, tmp_path):
 
 def test_phase_serve_warmup_reads_the_child_and_holds_its_streams(smoke, monkeypatch,
                                                                   tmp_path):
-    """The parent half: this run's libraries are copied into a fresh
-    directory under build/ for the child, which is removed afterwards; the
-    child's summary line is read back; its greedy streams must equal
-    serve_kv8's."""
+    """The parent half: this run's libraries, the native host library
+    with the kernels', are copied into a fresh directory under build/ for
+    the child, which is removed afterwards; the child's summary line is
+    read back; its greedy streams must equal serve_kv8's."""
     import json
     import subprocess
 
+    from rama_tpu_torch import native
     from rama_tpu_torch.ops.kernels import build
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "libs")
@@ -2068,6 +2079,7 @@ def test_phase_serve_warmup_reads_the_child_and_holds_its_streams(smoke, monkeyp
     for name in build.SOURCES:
         build._lib_path(name).write_text("lib")
         build._lib_path(name).with_suffix(".log").write_text("log")
+    native.lib_path().write_text("lib")           # built: no compiler runs
     seen = {}
     child = {"greedy": {"Once upon a time": "abc"}, "ttft_first_ms": 5.0, "ttft_p50_ms": 6.0,
              "ttft_max_ms": 7.0, "launches": {"ffn": 3}}
@@ -2085,7 +2097,8 @@ def test_phase_serve_warmup_reads_the_child_and_holds_its_streams(smoke, monkeyp
     got = smoke.phase_serve_warmup(torch, "card", {"serve_kv8": plain})
     assert got == child
     assert seen["cache"].parent == ROOT / "build" and not seen["cache"].exists()
-    assert len(seen["files"]) == 2 * len(build.SOURCES)
+    assert len(seen["files"]) == 2 * len(build.SOURCES) + 1
+    assert native.lib_path().name in seen["files"]
     plain["greedy"]["Once upon a time"] = "abd"
     with pytest.raises(SystemExit, match="differ from serve_kv8's"):
         smoke.phase_serve_warmup(torch, "card", {"serve_kv8": plain})
@@ -2437,3 +2450,164 @@ def test_slot_rows_copies_a_slots_rows(smoke, form):
         cache_part.zero_()
     for g_, w in zip(got, want):
         assert g_.dtype == torch.bfloat16 and torch.equal(g_, w)
+
+
+def test_native_and_export_phases_are_known_and_a_subset_is_not_ok(smoke):
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    assert smoke.ALL_PHASES[-2:] == ("export", "cli") and "native" in smoke.ALL_PHASES
+    path = smoke.NATIVE_PATH
+    assert path in smoke.PATHS and path["phases"] == (None, "native", None)
+    for skip in ("native", "export"):
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != skip), dev)
+        assert line == {"ok": False, "skipped_phases": [skip], "device": dev}
+        assert rc == smoke.PARTIAL_RC
+
+
+def test_no_prompt_bypasses_the_engines_encoder(smoke):
+    """The long prompts are text again: the workaround that handed the
+    engine ids (PreEncoded, repeated_prompts) is gone."""
+    assert not hasattr(smoke, "PreEncoded") and not hasattr(smoke, "repeated_prompts")
+    assert "PreEncoded" not in (ROOT / "chip_smoke.py").read_text()
+
+
+@pytest.mark.parametrize("over,match", [
+    ({}, None), ({"decode_attention": 1}, "launched on the native"),
+    ({"write_kv_rows_q8": 2}, "launched on the native"),
+    ({"write_kv_strips_q8": 0}, "never launched"),
+    ({"write_kv_strips_q8_rows": 1}, "launched on the native"),
+    ({"prefill_attention": 0}, "never launched"),
+    ({"write_kv_rows_q8_fused": 3}, "launches of the kernel")])
+def test_native_path_needs_the_int8_cache_engines_kernels(smoke, over, match):
+    path = smoke.NATIVE_PATH
+    launches = _path_launches(path, **over)
+    if match is None:
+        smoke.check_launches(path, launches)
+        return
+    with pytest.raises(SystemExit, match=match):
+        smoke.check_launches(path, launches)
+
+
+@pytest.mark.parametrize("n", [8, 100, 1500])
+def test_passage_text_cuts_to_at_most_n_tokens(smoke, n):
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    text = smoke.passage_text(tok, n)
+    got = len(tok.encode(text, strict=False))
+    assert n - 8 <= got <= n and smoke.CHUNK_PASSAGE.startswith(text[:40])
+
+
+def test_plain_encodes_runs_the_python_loop_in_processes(smoke):
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    texts = [smoke.passage_text(tok, n) for n in (20, 60)]
+    out = smoke.plain_encodes(tok, texts)
+    assert [ids for ids, _ in out] == [tok.encode(t, strict=False) for t in texts]
+    assert all(s > 0 for _, s in out)
+
+
+def _file_tokenizer(tmp_path, tok):
+    """tok's vocabulary in a tokenizer file, read back with the C++ encoder."""
+    import struct
+
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    path = tmp_path / "tok.bin"
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", max(len(v.encode()) for v in tok.vocab)))
+        for v, sc in zip(tok.vocab, tok.scores):
+            f.write(struct.pack("<fi", sc, len(v.encode())) + v.encode())
+    return Tokenizer.from_file(path, len(tok.vocab))
+
+
+def test_native_phase_on_a_tiny_model(smoke, monkeypatch, tmp_path):
+    """The phase's logic on the CPU at the tiny model's 64-row context: a
+    fresh build, both encoders' ids equal on texts of about 20 / 40 / 60
+    tokens, the transpose byte for byte, then the server serves the short
+    streams while a 40-token text prompt arrives (its TTFT, the largest
+    short-stream gap and the share of it in submit); a tokenizer on the
+    Python loop, and encoders that disagree, fail the phase."""
+    import numpy as np
+
+    _cpu_card_stubs(monkeypatch)
+    monkeypatch.setattr(smoke, "NATIVE_ENCODE", (20, 40, 60))
+    monkeypatch.setattr(smoke, "NATIVE_LONG", 40)
+    monkeypatch.setattr(smoke, "NATIVE_TRANSPOSE", (2, 33, 65))
+    monkeypatch.setattr(smoke, "CHUNK_SERVE", dict(smoke.CHUNK_SERVE, max_seq_len=64))
+    monkeypatch.setattr(smoke, "CHUNK_SHORT_STEPS", 8)
+    monkeypatch.setattr(smoke, "CHUNK_LONG_STEPS", 4)
+    cfg, params, plain_tok = _tiny_int8_model()
+    tok = _file_tokenizer(tmp_path, plain_tok)
+    out = smoke.phase_native(torch, cfg, params, tok, "cpu", dev=torch.device("cpu"))
+    assert out["build_s"] > 0 and out["transpose"]["shape"] == [2, 33, 65]
+    assert [e["target"] for e in out["encode"]] == [20, 40, 60]
+    assert all(e["tokens"] <= e["target"] and e["cpp_ms"] > 0 for e in out["encode"])
+    serve = out["serve"]
+    assert 30 <= serve["long_prompt_tokens"] <= 40 and serve["ttft_long_ms"] > 0
+    assert 0.0 <= serve["gap_share_in_submit"] <= 1.0
+    with pytest.raises(SystemExit, match="Python loop"):
+        smoke.phase_native(torch, cfg, params, plain_tok, "cpu", dev=torch.device("cpu"))
+    monkeypatch.setattr(smoke, "plain_encodes", lambda t, texts: [
+        ([0] + t.encode(x, strict=False), 1.0) for x in texts])
+    with pytest.raises(SystemExit, match="differ from the Python encoder"):
+        smoke.phase_native(torch, cfg, params, tok, "cpu", dev=torch.device("cpu"))
+    monkeypatch.setattr(smoke, "plain_encodes", lambda t, texts: [
+        (t.encode(x, strict=False), 1.0) for x in texts])
+    from rama_tpu_torch import native
+
+    monkeypatch.setattr(native, "transpose_batched",
+                        lambda a: np.ascontiguousarray(a.transpose(0, 2, 1))[:, ::-1].copy())
+    with pytest.raises(SystemExit, match="differs from numpy"):
+        smoke.phase_native(torch, cfg, params, tok, "cpu", dev=torch.device("cpu"))
+
+
+def test_export_phase_on_a_tiny_model(smoke, monkeypatch):
+    """The phase on the CPU on a 64-wide, 2-layer model of 32000 ids: the
+    CLI's four conversions, both v2 files byte for byte save_v2's, v0 / v1
+    reloads exact, then the v2 and v0 files' logits (prefill and 8 steps)
+    within TOL of the params loaded without a file; a v2 file of other
+    bytes fails the phase."""
+    from rama_tpu_torch import checkpoint
+    from rama_tpu_torch.config import ModelConfig
+
+    _cpu_card_stubs(monkeypatch)
+    cfg = ModelConfig(dim=64, hidden_dim=128, n_layers=2, n_heads=4, n_kv_heads=4,
+                      vocab_size=32000, seq_len=2048, shared_classifier=False)
+    out = smoke.phase_export(torch, "cpu", _modules(), cfg=cfg, dev=torch.device("cpu"))
+    assert set(out["cli_s"]) == {"pt_v2", "meta_v2", "pt_v1", "pt_v0"}
+    for tag in ("pt_v2", "pt_v0"):
+        assert len(out[tag]["tokens"]) == smoke.EXPORT_STEPS and out[tag]["max_err"] < 1e-2
+    real = checkpoint.save_v2
+    monkeypatch.setattr(checkpoint, "save_v2",
+                        lambda path, c, p, group_size=64: real(path, c, p, group_size=32))
+    with pytest.raises(SystemExit, match="byte for byte"):
+        smoke.phase_export(torch, "cpu", _modules(), cfg=cfg, dev=torch.device("cpu"))
+
+
+def test_device_times_reads_kineto_events_or_key_averages(smoke):
+    """device_times sums each GPU activity's µs and calls by name from the
+    session's kineto events (host events left out), or from key_averages
+    where the session keeps none; profiled_device_s is their total."""
+    import types
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, ns, dev):
+        return types.SimpleNamespace(name=lambda: name, duration_ns=lambda: ns,
+                                     device_type=lambda: dev)
+
+    events = [ev("k1", 2000, cuda), ev("k1", 3000, cuda), ev("k2", 500, cuda),
+              ev("aten::add", 9000, cpu)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    assert smoke.device_times(torch, prof) == {"k1": (5.0, 2), "k2": (0.5, 1)}
+    assert smoke.profiled_device_s(torch, prof) == pytest.approx(5.5e-6)
+
+    def avg(key, us, n, dev):
+        return types.SimpleNamespace(key=key, device_time_total=us, count=n,
+                                     device_type=types.SimpleNamespace(name=dev))
+
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        avg("k1", 5.0, 2, "CUDA"), avg("aten::add", 9.0, 1, "CPU"), avg("k3", 0, 1, "CUDA")])
+    assert smoke.device_times(torch, prof) == {"k1": (5.0, 2)}

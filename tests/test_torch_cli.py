@@ -1,9 +1,12 @@
-"""rama_tpu_torch.cli `generate` and `eval` end to end on tiny checkpoints
-on the CPU: flags parse, v0 and v2 checkpoints load (dense, or quantized to
-int8 or int4 at load), streams equal rama_tpu's CLI greedy output, --spec,
---scale-dtype bf16 and -o chat run, `eval` prints rama_tpu's JSON line
-(tests/test_torch_eval.py), and the default device is cuda (raising
-without a GPU)."""
+"""rama_tpu_torch.cli `generate`, `eval` and `export` end to end on tiny
+checkpoints on the CPU: flags parse, v0 and v2 checkpoints load (dense, or
+quantized to int8 or int4 at load), streams equal rama_tpu's CLI greedy
+output, --spec, --scale-dtype bf16 and -o chat run, `eval` prints
+rama_tpu's JSON line (tests/test_torch_eval.py), the default device is
+cuda (raising without a GPU), and `export` takes rama_tpu's flags and
+rewrites a v0 file as v0 / v1 / v2 (tests/test_torch_export.py holds its
+bytes against rama_tpu's). The tokenizer files encode with the C++
+encoder (Tokenizer.from_file)."""
 
 import pytest
 import torch
@@ -143,3 +146,47 @@ def test_int4_loads_int4_layers_and_int8_classifier(artifacts):
         assert params[name].shape[-2] == params[name].q.shape[-2] * 2
     assert params["wcls"].bits == 8
     assert params["w2"].group_size == 1 and params["wqkv"].group_size == 4  # tiny: 176, 64
+
+
+def _export_actions(parser) -> dict:
+    sub = next(a for a in parser._actions if a.dest == "cmd").choices["export"]
+    return {a.dest: (a.option_strings, a.default, a.choices, a.type) for a in sub._actions
+            if a.dest != "help"}
+
+
+def test_export_subcommand_has_jaxs_flags():
+    """input, output, --version -1/0/1/2 (default 2), --group-size (64),
+    --source auto/bin/hf/llama2c/meta; no device flag, as in rama_tpu."""
+    from rama_tpu.cli import build_parser as j_parser
+    from rama_tpu_torch.cli import build_parser
+
+    mine = _export_actions(build_parser())
+    assert mine == _export_actions(j_parser())
+    assert mine["version"][1:3] == (2, [-1, 0, 1, 2]) and mine["group_size"][1] == 64
+    assert "device" not in mine and "platform" not in mine
+
+
+@pytest.mark.parametrize("version", [0, 1, 2])
+def test_export_rewrites_a_checkpoint(artifacts, tmp_path, capsys, version):
+    """export of the v0 file to each version: the v0 / v1 outputs reload to
+    the v0 file's params exactly, the v2 output to its quantization (the
+    max group error printed) and generates the v2 fixture's greedy text."""
+    import numpy as np
+
+    from rama_tpu_torch.checkpoint import load_checkpoint
+
+    v0, v2, tok = artifacts
+    out = str(tmp_path / f"out_v{version}.bin")
+    rc, _, err = run(["export", v0, out, "--version", str(version), "--group-size", "16"],
+                     capsys)
+    assert rc == 0 and f"wrote {out}" in err
+    (cfg, want), (cfg2, got) = load_checkpoint(v0), load_checkpoint(out)
+    assert cfg2 == cfg
+    if version < 2:
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+        return
+    assert "max quantization group error" in err
+    assert open(out, "rb").read() == open(v2, "rb").read()
+    common = ["generate", "-t", tok, "-p", "abc", "-s", "12", "-r", "0", "--dtype", "float32",
+              "--device", "cpu"]
+    assert run(common + ["-m", out], capsys)[1] == run(common + ["-m", v2], capsys)[1]

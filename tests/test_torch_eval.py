@@ -8,7 +8,9 @@ rel 1e-5, the short-text ValueError, and the CLI's JSON line against
 rama_tpu's scoring cache is bf16 whatever the params; the port's takes the
 params' dtype (the card's kernels take one dtype for the queries and the
 cache). These tests give rama_tpu's scorer an fp32 cache
-(`jax_fp32_cache`), so both compute the same function."""
+(`jax_fp32_cache`), so both compute the same function. Both read the
+fixture tokenizer with Tokenizer.from_file, so both encode with their C++
+encoder, as the CLI's `eval` does."""
 
 import json
 import os
@@ -117,3 +119,23 @@ def test_cli_eval_json_equals_jax(model, jax_fp32_cache, tmp_path, capsys, flags
         lines.append(json.loads(out[0]))
     close(*lines)
     assert set(lines[0]) == {"perplexity", "nll", "tokens", "windows"}
+
+
+def test_a_long_text_is_encoded_by_the_cpp_encoder(model, jax_fp32_cache, monkeypatch):
+    """eval encodes the whole text in one call: a text of ~4100 tokens (the
+    pure-Python loop is O(n^2) and takes seconds at a tenth of it) through
+    the C++ encoder, scored within rel 1e-5 of rama_tpu's (its own C++
+    encoder) on the first 120 tokens; the Python loop is never entered."""
+    jcfg, cfg, _ = model
+    jp, tp = params_of(model, None)
+    tok = Tokenizer.from_file(FIXTURE, 32000)
+
+    def no_python_loop(*a, **kw):
+        raise AssertionError("the Python encoder ran")
+
+    text = TEXT * 20
+    monkeypatch.setattr(Tokenizer, "_encode_plain", no_python_loop)
+    assert len(tok.encode(text, strict=False)) > 4000
+    want = j_eval.perplexity(jp, jcfg, JTok.from_file(FIXTURE, 32000), text, window=32,
+                             batch=2, max_tokens=120)
+    close(perplexity(tp, cfg, tok, text, window=32, batch=2, max_tokens=120), want)

@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +45,41 @@ def test_sources_import_nothing_of_jax_or_rama_tpu(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "rama_tpu"), f"{path}: imports {n}"
+
+
+@pytest.mark.parametrize("module", ["rama_tpu_torch.native", "rama_tpu_torch.export",
+                                    "rama_tpu_torch.tokenizer"])
+def test_host_modules_load_no_jax_and_no_transformers(module):
+    """The native library's bindings, the export module and the tokenizer
+    load neither JAX, nor rama_tpu, nor transformers (imported only by the
+    two HuggingFace functions); the tokenizer module not even torch (the
+    plain encoder's process in chip_smoke.py imports it alone)."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "print(repr(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'rama_tpu', 'transformers', 'torch'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = {k.split(".")[0] for k in ast.literal_eval(out.stdout)}
+    assert loaded <= ({"torch"} if module != "rama_tpu_torch.tokenizer" else set())
+
+
+def test_native_build_raises_without_a_compiler(monkeypatch, tmp_path):
+    """Without the host C++ compiler the native library's build raises:
+    nothing falls back to the Python encoder or transpose."""
+    from rama_tpu_torch import native
+    from rama_tpu_torch.ops.kernels import build
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    fixture = ROOT / "tests" / "fixtures" / "tokenizer.bin"
+    for call in (native.load, lambda: Tokenizer.from_file(fixture, 32000).encode("hello"),
+                 lambda: native.transpose_batched(np.zeros((2, 3), np.float32))):
+        with pytest.raises(RuntimeError, match="compiler"):
+            call()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):

@@ -2,9 +2,13 @@
 the CPU: SSE framing vs the greedy oracle, newline escaping, parameter
 validation, 503 on a full queue, the truncation comment, error events,
 cancel on disconnect, and the auxiliary routes — mirroring
-tests/test_server.py."""
+tests/test_server.py. Every tokenizer here is read from a file, so the
+engines encode with the C++ encoder, as served; a prompt longer than
+aiohttp's default request line reaches the engine."""
 
 import asyncio
+import os
+import struct
 
 import numpy as np
 import pytest
@@ -16,28 +20,36 @@ from rama_tpu.testing.ref_model import RefModel, random_params, tiny_config
 from rama_tpu_torch.config import EngineConfig
 from rama_tpu_torch.models.llama import load_params
 from rama_tpu_torch.runtime.engine import Engine, Request
-from rama_tpu_torch.server.app import build_app, main
+from rama_tpu_torch.server.app import MAX_REQUEST_LINE, build_app, main
 from rama_tpu_torch.tokenizer import BOS_ID, Tokenizer
 
 torch.set_num_threads(1)
 
 
-def make_newline_tokenizer(vocab_size: int) -> Tokenizer:
+def make_newline_tokenizer(vocab_size: int, directory) -> Tokenizer:
     """26 single-char tokens and a tail of newline-bearing tokens, so the
-    generated streams exercise the \\n escaping."""
+    generated streams exercise the \\n escaping; written to a tokenizer
+    file in `directory` and read back by Tokenizer.from_file, so it encodes
+    with the C++ encoder, as the server's does (which reads the file at
+    its first encode)."""
     singles = [chr(ord("a") + i) for i in range(26)]
     tail = [chr(ord("a") + i % 26) + str(i) + "\n"
             for i in range(vocab_size - 3 - len(singles))]
     vocab = ["<unk>", "<s>", "</s>"] + singles + tail
-    return Tokenizer(vocab, [0.0] * vocab_size, max_token_length=8)
+    path = os.path.join(directory, "tok.bin")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", 8))
+        for v in vocab:
+            f.write(struct.pack("<fi", 0.0, len(v.encode())) + v.encode())
+    return Tokenizer.from_file(path, vocab_size)
 
 
 @pytest.fixture(scope="module")
-def served_engine():
+def served_engine(tmp_path_factory):
     jcfg = tiny_config(seq_len=64)
     np_params = random_params(jcfg, seed=77)
     cfg = torch_cfg(jcfg)
-    tok = make_newline_tokenizer(cfg.vocab_size)
+    tok = make_newline_tokenizer(cfg.vocab_size, tmp_path_factory.mktemp("tok"))
     eng = Engine(cfg, load_params(cfg, np_params, dtype=torch.float32, device="cpu"), tok,
                  EngineConfig(max_batch_size=4))
     eng.start()
@@ -131,12 +143,101 @@ def test_gen_truncation_comment(served_engine):
     assert datas
 
 
-def test_gen_503_when_admission_full():
+def test_served_engines_encode_with_the_cpp_encoder(served_engine, tmp_path):
+    """The served tokenizer and load_engine's encode with the C++ encoder,
+    ids equal to the Python loop's on the served prompts."""
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.native import NativeTokenizer
+    from rama_tpu_torch.server.app import load_engine
+
+    tok = served_engine[2]
+    plain = Tokenizer(tok.vocab, tok.scores, tok.max_token_length)
+    for prompt in ("", "abc", "abcd" * 80, "hello world\nagain", "zz q"):
+        assert tok.encode(prompt, strict=False) == plain.encode(prompt, strict=False)
+    assert isinstance(tok._native, NativeTokenizer) and plain._native is None
+    jcfg = tiny_config(seq_len=64)
+    model = str(tmp_path / "m.bin")
+    save_v0(model, torch_cfg(jcfg), random_params(jcfg, seed=1))
+    eng = load_engine(model, write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size),
+                      dtype="float32", batch=2, device="cpu")
+    assert eng.tokenizer.encode("abc") == plain.encode("abc")
+    assert isinstance(eng.tokenizer._native, NativeTokenizer)
+
+
+def test_load_engine_builds_the_native_library_into_the_compile_cache(tmp_path, monkeypatch):
+    """The engine's compile_cache decides where the native library goes:
+    load_engine names the directory before its checkpoint's transpose
+    builds and loads the library, which its tokenizer's encoder then
+    takes."""
+    from rama_tpu_torch import native
+    from rama_tpu_torch.checkpoint import save_v0
+    from rama_tpu_torch.ops.kernels import build
+    from rama_tpu_torch.server.app import load_engine
+
+    jcfg = tiny_config(seq_len=64)
+    model = str(tmp_path / "m.bin")
+    save_v0(model, torch_cfg(jcfg), random_params(jcfg, seed=1))
+    monkeypatch.setattr(build, "BUILD_DIR", build.DEFAULT_BUILD_DIR)
+    monkeypatch.setattr(build, "_libs", {})         # a fresh process
+    cache = tmp_path / "cache"
+    eng = load_engine(model, write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size),
+                      dtype="float32", batch=2, device="cpu", compile_cache=str(cache))
+    assert build.BUILD_DIR == cache.resolve() and list(build._libs) == [native.NAME]
+    eng.tokenizer.encode("abc")
+    assert [p.name for p in cache.iterdir()] == [native.lib_path().name]
+    assert eng.tokenizer._native._lib is build._libs[native.NAME]
+
+
+@pytest.mark.parametrize("limit", [None, MAX_REQUEST_LINE])
+def test_gen_takes_a_long_prompt_in_its_request_line(served_engine, limit):
+    """A prompt of 12000 characters (past aiohttp's default 8190-byte
+    request line) to a server run as main runs it (an AppRunner): refused
+    with 400 at the default limit, streamed (with the truncation comment)
+    at the server's MAX_REQUEST_LINE, which main hands to run_app."""
+    eng = served_engine[3]
+
+    async def main_():
+        import aiohttp
+        from aiohttp import web
+
+        runner = web.AppRunner(build_app(eng), **({"max_line_size": limit} if limit else {}))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        port = site._server.sockets[0].getsockname()[1]
+        try:
+            async with aiohttp.ClientSession() as session:
+                async with session.get(f"http://127.0.0.1:{port}/gen", params={
+                        "prompt": "abc" * 4000, "steps": "2", "temperature": "0.0"}) as resp:
+                    return resp.status, await asyncio.wait_for(resp.text(), timeout=120)
+        finally:
+            await runner.cleanup()
+
+    status, body = asyncio.run(main_())
+    if limit is None:
+        assert status == 400
+        return
+    comments, datas, events = parse_sse(body)
+    assert status == 200 and datas and not events
+    assert any("prompt truncated" in c for c in comments)
+
+
+def test_main_reads_request_lines_up_to_max_request_line(monkeypatch):
+    from rama_tpu_torch.server import app
+
+    seen = {}
+    monkeypatch.setattr(app, "load_engine", lambda *a, **kw: _Idle())
+    monkeypatch.setattr(app.web, "run_app", lambda *a, **kw: seen.update(kw))
+    assert main(["-m", "x.bin", "-t", "t.bin"]) == 0
+    assert seen["max_line_size"] == MAX_REQUEST_LINE >= 4096 * 12
+
+
+def test_gen_503_when_admission_full(tmp_path):
     jcfg = tiny_config(seq_len=32)
     cfg = torch_cfg(jcfg)
     params = load_params(cfg, random_params(jcfg, seed=5), dtype=torch.float32, device="cpu")
     # engine built but NOT started: nothing drains the bounded(30) queue
-    eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size),
+    eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size, tmp_path),
                  EngineConfig(max_batch_size=2))
     for _ in range(30):
         eng.submit(Request(prompt="", steps=1))
@@ -166,13 +267,13 @@ def test_gen_error_event():
     assert "injected failure" in datas
 
 
-def test_client_disconnect_cancels_request():
+def test_client_disconnect_cancels_request(tmp_path):
     """Closing the stream mid-generation marks the request cancelled, and
     the engine frees its slot."""
     jcfg = tiny_config(seq_len=64)
     cfg = torch_cfg(jcfg)
     params = load_params(cfg, random_params(jcfg, seed=6), dtype=torch.float32, device="cpu")
-    eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size),
+    eng = Engine(cfg, params, make_newline_tokenizer(cfg.vocab_size, tmp_path),
                  EngineConfig(max_batch_size=2, decode_tick=1))
     submitted = []
     orig = eng.submit

@@ -345,12 +345,12 @@ def test_load_engine_passes_the_compile_cache(models, tmp_path, monkeypatch):
     from rama_tpu_torch.checkpoint import save_v0
     from rama_tpu_torch.server.app import load_engine
 
-    monkeypatch.setattr(build, "BUILD_DIR", build.DEFAULT_BUILD_DIR)
-    monkeypatch.setattr(build, "_libs", {})
     m = models["tiny"]
     model = tmp_path / "m.bin"
     save_v0(str(model), m["cfg"], m["np"])
     tok = write_tokenizer_bin(tmp_path / "tok.bin", m["cfg"].vocab_size)
+    monkeypatch.setattr(build, "BUILD_DIR", build.DEFAULT_BUILD_DIR)
+    monkeypatch.setattr(build, "_libs", {})         # a fresh process
     eng = load_engine(str(model), str(tok), quant="none", dtype="float32", batch=2,
                       device="cpu", compile_cache=str(tmp_path / "k"))
     assert eng.ecfg.compile_cache == str(tmp_path / "k")
