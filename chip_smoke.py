@@ -341,6 +341,18 @@ Phases, in order (any failure raises and the script exits non-zero):
   profile_prefill_yi  one Yi-34B admission of 8 x 512 tokens (K5's device
            ms and share, the GEMM's), an 8-slot decode step and a verify
            round of 4 at pos 64 (device ms by kernel)
+  serve_tp Llama-2-7B int8 at tensor parallelism 2 (every earlier model
+           freed): tp 1's first-step logits of two seeded 16-token prompts
+           on the card, then two spawned ranks on the one card (gloo, each
+           listed on cuda:0), each making the seeded params and keeping its
+           shard; rank 0's logits within TOL of tp 1's; served plain, with
+           n-gram speculation and on the paged int8 pool (8 x 32 tokens
+           through rank 0's build_app, the other rank in Engine.follow), each
+           rank's launches checked on its local shapes, every follower's
+           device calls' tokens equal to rank 0's, every stream
+           non-degenerate; tok/s and the ranks' device busy share logged
+           (gloo on a shared card: not a scaling result)
+  serve_dp the same for TinyLlama-1.1B int8 at dp 2 x tp 2 (four ranks)
   export   seeded fp32 params at Llama-2-7B's width, 2 layers (32 would
            write ~27 GB of .pt), as a llama2.c .pt and a two-shard Meta
            directory in a temporary directory; `python -m
@@ -462,7 +474,7 @@ ALL_PHASES = ("card", "build", "kernels", "kernels4", "kernels_kv8", "kernels_sp
               "profile_gqa_spec", "serve_gqa_spec_kv8", "serve_gqa_spec_paged_kv8",
               "spec_gqa_self", "model_yi", "serve_yi", "profile_prefill_yi", "serve_yi_kv8",
               "serve_yi_spec", "serve_yi_ab2", "model_ml", "serve_ml", "serve_ml_ab1",
-              "serve_ml_ab2", "profile_ml_ab", "export", "cli")
+              "serve_ml_ab2", "profile_ml_ab", "serve_tp", "serve_dp", "export", "cli")
 INT4_STD = math.sqrt((15 ** 2 - 1) / 12)   # std of a nibble drawn from [-7, 7]
 K1_KERNELS = ("qmv_mma", "qmm_mma", "qmv_kernel", "qmm_tiled")   # quant_matmul's bodies
 ATTN_SPLIT_KERNELS = ("dattn_split", "dattn_mma", "dattn_walk")   # the split kernel's bodies
@@ -1706,7 +1718,8 @@ def random_int4_qt(torch, l, k, n, gs, device, g, il=0):
     return QuantizedTensor(q=q.view(torch.int8), scales=s, group_size=gs, bits=4, il=il)
 
 
-def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64):
+def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64,
+                  fused: bool = True):
     """Llama-2-7B (or another cfg: TinyLlama-1.1B) int8 or int4 params from
     a seed, generated on the card (quantizing 6.7 B fp32 weights on the
     host would take 27 GB and minutes), in the fused layout (wqkv,
@@ -1715,7 +1728,9 @@ def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64
     decode onto one token). int4 layer weights take quantize_int4's group
     sizes (64 for K = 4096, 16 for w2's K = 11008); the embedding and the
     classifier stay int8, as quantize_params(bits=4) leaves them. Scales are
-    sized so the weights act like ~N(0, 1/K) entries."""
+    sized so the weights act like ~N(0, 1/K) entries. `fused` False: wq /
+    wk / wv / w1 / w3 unfused, as a tensor-parallel engine takes them (it
+    shards, then fuses each shard)."""
     from rama_tpu_torch.models.llama import _rope_tables, phase_a_tile
     from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                           pick_int4_group_size)
@@ -1746,12 +1761,16 @@ def random_params(torch, cfg, device, bits: int = 8, seed: int = 0, gs: int = 64
         "attn_norm": torch.ones((L, D), dtype=bf, device=device),
         "ffn_norm": torch.ones((L, D), dtype=bf, device=device),
         "final_norm": torch.ones((D,), dtype=bf, device=device),
-        "wqkv": qt(D, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim),
-        "w13": qt(D, 2 * H, il=phase_a_tile(H, bits, gs2) or 0),
-        "wo": qt(D, D),
-        "w2": qt(H, D),
-        "wcls": cls.as_classifier(),
     }
+    # the generator's draws in this order: the fused params are the same
+    # bytes whatever else is added here
+    if fused:
+        p["wqkv"] = qt(D, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+        p["w13"] = qt(D, 2 * H, il=phase_a_tile(H, bits, gs2) or 0)
+    else:
+        kv = cfg.n_kv_heads * cfg.head_dim
+        p.update(wq=qt(D, D), wk=qt(D, kv), wv=qt(D, kv), w1=qt(D, H), w3=qt(D, H))
+    p.update(wo=qt(D, D), w2=qt(H, D), wcls=cls.as_classifier())
     p["rope_cos"], p["rope_sin"] = _rope_tables(cfg, device)
     return p
 
@@ -5382,11 +5401,27 @@ async def serving(engine, default_steps: int):
         await runner.cleanup()
 
 
+def serve_config(max_seq_len: int = 1024, kv_quant: str | None = None, spec_tick: int = 0,
+                 paged: bool = False, scale_dtype: str | None = None, slots: int = 8,
+                 compile_cache: str | None = None, tp: int = 1, dp: int = 1):
+    """The serving paths' EngineConfig (phase_serve's engine; the followers
+    of serve_tp / serve_dp build theirs from the same)."""
+    from rama_tpu_torch.config import EngineConfig
+
+    return EngineConfig(max_batch_size=slots, max_seq_len=max_seq_len, decode_tick=8,
+                        kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
+                        spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
+                        kv_num_pages=PAGED_NUM_PAGES if paged else None,
+                        scale_dtype=scale_dtype, compile_cache=compile_cache, tp_size=tp,
+                        dp_size=dp)
+
+
 def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
                 max_seq_len: int = 1024, kv_quant: str | None = None,
                 spec_tick: int = 0, paged: bool = False,
                 scale_dtype: str | None = None, slots: int = 8, warmup: int | None = None,
-                compile_cache: str | None = None, start_count=lambda: None) -> dict:
+                compile_cache: str | None = None, start_count=lambda: None,
+                mesh=None, outputs: list | None = None, on_engine=None) -> dict:
     """The server around an engine of `slots` slots (8 by default): as many
     concurrent /gen of 32 tokens (greedy and sampled; past 8 the 8 prompts
     again with a number appended; a request answered 503, the engine's
@@ -5400,22 +5435,25 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     builds into and loads from `compile_cache`, runs Engine.warmup(
     max_prompt=warmup) before start() (warm_up), then `start_count()`;
     after the run no library may have been built or loaded and every
-    (k, T) prefill bucket served must have been warmed. Returns tok/s, TTFT
+    (k, T) prefill bucket served must have been warmed. With `mesh` (rank
+    0 of serve_tp / serve_dp) the engine is that grid's rank 0 (unfused
+    params, sharded by the engine), `outputs` keeps every device call's
+    tokens and on_engine(engine) runs once it is built. Returns tok/s, TTFT
     p50 / max / of the first request sent, the accept rate and the greedy
     streams' text by prompt."""
     import aiohttp
 
-    from rama_tpu_torch.config import EngineConfig
     from rama_tpu_torch.models.llama import KVCache, QuantKVCache
     from rama_tpu_torch.runtime.engine import Engine
     from rama_tpu_torch.runtime.paged import PagedKVCache, QuantPagedKVCache
 
     engine = Engine(cfg, params, tokenizer,
-                    EngineConfig(max_batch_size=slots, max_seq_len=max_seq_len, decode_tick=8,
-                                 kv_quant=kv_quant, spec_tick=spec_tick, spec_mode="ngram",
-                                 spec_min_accept=0.0, paged_kv=paged, kv_page_size=PAGE_SIZE,
-                                 kv_num_pages=PAGED_NUM_PAGES if paged else None,
-                                 scale_dtype=scale_dtype, compile_cache=compile_cache))
+                    serve_config(max_seq_len, kv_quant, spec_tick, paged, scale_dtype, slots,
+                                 compile_cache, mesh.tp if mesh else 1, mesh.dp if mesh else 1),
+                    **({"mesh": mesh} if mesh else {}))
+    engine.outputs = outputs
+    if on_engine:
+        on_engine(engine)
     stored = {getattr(p, "scales", None) is not None and p.scales.dtype
               for p in engine.params.values()} - {False}
     if stored != {torch.bfloat16 if scale_dtype == "bf16" else torch.float32}:
@@ -5486,9 +5524,11 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
         outs, wall, stats = asyncio.run(run())
     finally:
         engine.stop()
-    if paged and engine.allocator.available() != PAGED_NUM_PAGES:
-        raise SystemExit(f"FAILED {tag}: {engine.allocator.available()} of {PAGED_NUM_PAGES} "
-                         f"pages free after the run")
+    # under dp every replica's sub-pool and allocator
+    free = paged and (sum(a.available() for a in engine.allocators) if mesh
+                      else engine.allocator.available())
+    if paged and free != PAGED_NUM_PAGES:
+        raise SystemExit(f"FAILED {tag}: {free} of {PAGED_NUM_PAGES} pages free after the run")
     total = sum(n for _, n, _, _ in outs)
     if not all(ended and n > 0 for _, n, ended, _ in outs):
         raise SystemExit(f"FAILED {tag}: a stream did not finish {outs}")
@@ -5498,7 +5538,7 @@ def phase_serve(torch, cfg, params, tokenizer, card: str, tag: str = "serve",
     if spec_tick and not isinstance(rate, float):
         raise SystemExit(f"FAILED {tag}: spec_accept_rate {rate!r} is not a number")
     ttfts = sorted(t for t, _, _, _ in outs)
-    summary = dict(tok_s=total / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+    summary = dict(tok_s=total / wall, wall_s=wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
                    ttft_max_ms=ttfts[-1] * 1e3, ttft_first_ms=outs[0][0] * 1e3,
                    decode_tok_per_s=stats["decode_tok_per_s"],
                    spec_accept_rate=rate, decode_ticks=stats["decode_ticks"],
@@ -7183,6 +7223,397 @@ def phase_cli(torch) -> None:
             raise SystemExit(f"FAILED cli TinyLlama --spec ngram: {out.stderr[-2000:]}")
 
 
+# serve_tp / serve_dp: tensor and data parallelism as one process a rank (the
+# engine's lockstep follower, Engine.follow). The ranks are spawned here and
+# share the one card, listed once a rank, so their collectives run over gloo
+# (NCCL refuses two ranks on one GPU), which syncs the stream around each:
+# these runs show each kernel on a rank's local shapes, rank 0's logits
+# against tp 1's and the ranks in lockstep through the server, not scaling.
+# Each model is served three times at 8 slots: plain on a bf16 cache, n-gram
+# speculation, and the paged int8 pool; each rank's launches by kernel, the
+# kernels each mode must (and must not) launch as on the one-rank paths.
+PARALLEL = {
+    "serve_tp": dict(label="Llama-2-7B int8 tp 2", model="7b", tp=2, dp=1, seed=26),
+    "serve_dp": dict(label="TinyLlama-1.1B int8 dp 2 x tp 2", model="tinyllama", tp=2, dp=2,
+                     seed=27),
+}
+PARALLEL_MAX_LEN = 1024
+PARALLEL_SLOTS = 8            # the serves' slots (serve_config's), B / dp a replica
+PARALLEL_SERVES = (
+    ("plain", {}, dict(
+        record=("quant_matmul", "quant_matmul_mmv", "quant_matmul_mma", "ffn",
+                "decode_attention", "prefill_attention"),
+        forbid=("chunk_attention",))),
+    ("spec", dict(spec_tick=SPEC_TICK), dict(
+        record=("quant_matmul", "quant_matmul_mmv", "quant_matmul_mma", "ffn",
+                "chunk_attention", "prefill_attention"),
+        forbid=("decode_attention",))),
+    ("paged_kv8", dict(paged=True, kv_quant="int8"), dict(
+        record=("quant_matmul", "quant_matmul_mmv", "quant_matmul_mma", "ffn",
+                "paged_decode_attention_q8", "write_kv_paged_q8_fused",
+                "write_kv_prefill_paged_q8", "prefill_attention"),
+        forbid=("write_kv_paged_q8", "write_kv_prefill_paged_q8_rows", "decode_attention_q8",
+                "write_kv_strips_q8", "decode_attention"),
+        equal={"write_kv_paged_q8_fused": "paged_decode_attention_q8"})),
+)
+PARALLEL_TIMEOUT_S = 900
+
+
+def parallel_path(name: str, mode: str, rank: int) -> dict:
+    """The check_launches path of one serve of serve_tp / serve_dp on one
+    rank (its records under launches_tp_path / launches_dp_path)."""
+    job = PARALLEL[name]
+    _, _, checks = next(s for s in PARALLEL_SERVES if s[0] == mode)
+    key = f"launches_{name.split('_')[1]}_path"
+    return dict(label=f"{job['label']} {mode} rank {rank}", model=job["model"],
+                record={k: key for k in checks["record"]},
+                forbid={k: key for k in checks["forbid"]}, equal=checks.get("equal", {}))
+
+
+def local_shapes(engine) -> dict:
+    """The shapes a rank's engine runs its kernels on: its fused weights'
+    (L, K, N) and its cache's kv heads."""
+    out = {n: list(engine.params[n].shape) for n in ("wqkv", "wo", "w13", "w2", "wcls")}
+    out["w13_il"] = engine.params["w13"].il
+    out["kv_heads"] = engine.cache.k.shape[2]
+    return out
+
+
+def want_shapes(cfg, tp: int) -> dict:
+    d, h, l, hd = cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.head_dim
+    return {"wqkv": [l, d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd // tp],
+            "wo": [l, d // tp, d], "w13": [l, d, 2 * h // tp], "w2": [l, h // tp, d],
+            "wcls": [d, cfg.vocab_size // tp], "kv_heads": cfg.n_kv_heads // tp}
+
+
+PARALLEL_STEPS = 3            # teacher-forced decode steps held against tp 1 after the prefill
+PARALLEL_CHECK_M = (8, 32, 128)   # K1's rows: a decode step, a verify round of 8 x 4, a prefill
+
+
+def parallel_kernel_checks(torch, label: str, params, cfg, slots: int) -> None:
+    """Each kernel of the tp / dp paths on a rank's own shapes (its fused
+    shard `params`, its shard config `cfg`, its `slots`), against its plain
+    version on the same inputs, on the body each one's body_for picks: K1
+    on wqkv / wo / w2 / wcls at PARALLEL_CHECK_M rows (layers 0 and last),
+    K3 on the rank's w13 (its phase-A tile) and w2 at 8 and 32 rows, then at
+    the rank's heads and kv heads K5 (a 64-row admission), K4 and K10 (T 4)
+    over a bf16 cache of PARALLEL_MAX_LEN rows, K12's int8 decode walk that
+    writes the step's rows (K13 (a); check_fused_form) and K13 (b) (an
+    admission's strips into the pool, byte for byte) on pages of PAGE_SIZE
+    rows. Launches made here precede the serves' counts."""
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    dev = params["final_norm"].device
+    g = torch.Generator(device=dev).manual_seed(11)
+    gc = torch.Generator().manual_seed(12)
+    bf = torch.bfloat16
+
+    def rx(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    last = cfg.n_layers - 1
+    for name in ("wqkv", "wo", "w2", "wcls"):
+        w = params[name]
+        for m in PARALLEL_CHECK_M:
+            x = rx(m, w.shape[-2])
+            for layer in ((None,) if len(w.shape) == 2 else (0, last)):
+                check_qm(torch, qm, f"{label} {name} {list(w.shape)} M={m} layer={layer}", x, w,
+                         layer)
+    w13, w2 = params["w13"], params["w2"]
+    for m in (8, 32):
+        x = rx(m, w13.shape[-2])
+        for layer in (0, last):
+            check_ffn(torch, ffn_mod, f"{label} w13 {list(w13.shape)} il={w13.il} w2 "
+                      f"{list(w2.shape)} M={m} layer={layer}", x, w13, w2, layer)
+    b, nh, nkv, hd, s = slots, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PARALLEL_MAX_LEN
+    heads = f"{nh} heads / {nkv} kv heads"
+    t = 64
+    plen = torch.randint(1, t + 1, (b,), generator=gc, dtype=torch.int32).to(dev)
+    k5_check(torch, pa, f"{label} B={b} T={t} {heads}", rx(b, t, nh, hd), rx(b, nkv, t, hd),
+             rx(b, nkv, t, hd), plen)
+    kc, vc = rx(2, b, nkv, s, hd), rx(2, b, nkv, s, hd)
+    pos = torch.randint(0, s, (b,), generator=gc, dtype=torch.int32).to(dev)
+    q = rx(b, nh, hd)
+    got = on_body(da.launches_by_body, da.body_for(bf, hd), f"decode_attention {label}",
+                  lambda: da.decode_attention(q, kc, vc, pos, 1))
+    compare(torch, f"decode_attention {label} B={b} S={s} {heads}", got,
+            da.decode_attention_plain(q, kc, vc, pos, 1), per=hd)
+    q4 = rx(b, SPEC_TICK + 1, nh, hd)
+    pos0 = torch.randint(0, s - SPEC_TICK, (b,), generator=gc, dtype=torch.int32).to(dev)
+    got = on_body(da.launches_by_body, da.body_for(bf, hd), f"chunk_attention {label}",
+                  lambda: da.chunk_attention(q4, kc, vc, pos0, 1))
+    compare(torch, f"chunk_attention {label} B={b} T={SPEC_TICK + 1} S={s} {heads}", got,
+            da.chunk_attention_plain(q4, kc, vc, pos0, 1), per=hd)
+    del kc, vc
+    ps, mp = PAGE_SIZE, s // PAGE_SIZE
+    tables, npages = paged_tables(torch, (pos + 1).tolist(), ps, mp, 2, gc)
+    tables = tables.to(dev)
+    pool = quantized_cache(torch, kvw, rx, 2, npages, nkv, ps, hd)
+    check_fused_form(torch, f"paged_decode_attention_q8 {label} B={b} pages {npages} x {ps} "
+                     f"{heads}", pool, q[:, None], pos, tables, rx(b, 1, nkv, hd),
+                     rx(b, 1, nkv, hd), 1)
+    del pool
+    tables, npages = paged_tables(torch, [t - 3] * b, ps, mp, 2, gc)
+    tables = tables.to(dev)
+    strips = [rx(cfg.n_layers, b, nkv, t, hd) for _ in range(2)]
+    pools = [[torch.zeros((cfg.n_layers, npages, nkv, ps, hd), dtype=torch.int8, device=dev)
+              for _ in range(2)] + [torch.zeros((cfg.n_layers, npages, nkv, ps), device=dev)
+                                    for _ in range(2)] for _ in range(2)]
+    body = kvw.prefill_body_for(bf, hd)
+    n0 = kvw.launches_by_body[body]
+    kvw.write_kv_prefill_paged_q8(*pools[0], *strips, tables, t - 3)
+    kvw.write_kv_prefill_paged_q8_plain(*pools[1], *strips, tables, t - 3)
+    same = [torch.equal(a, c) for a, c in zip(*pools)]
+    if kvw.launches_by_body[body] != n0 + 1 or not all(same):
+        raise SystemExit(f"FAILED write_kv_prefill_paged_q8 {label}: launches on {body} "
+                         f"{kvw.launches_by_body[body] - n0}, (k8, v8, ks, vs) equal to the "
+                         f"plain version's {same}")
+    log(f"[check] write_kv_prefill_paged_q8 [{body}] {label} L={cfg.n_layers} K={b} T={t} "
+        f"{heads}: equal to the plain version byte for byte")
+
+
+def parallel_logits(torch, label: str, mesh, params, cfg, rows, steps) -> list:
+    """A rank's logits of its replica's prompts `rows` (the last position)
+    and of len(steps[0]) teacher-forced decode steps after them (`steps`,
+    its replica's tokens), through the kernels on its shard under the
+    model group, each within TOL of the plain versions on the same shard
+    and group; the replicas' rows gathered over the data group, as numpy:
+    [prefill, step 1, ...] (B, V) each."""
+    from rama_tpu_torch.models import llama as tl
+    from rama_tpu_torch.parallel.mesh import all_gather
+
+    dev, b, t = rows.device, rows.shape[0], rows.shape[1]
+    group = mesh.model_group
+    caches = [tl.KVCache.create(cfg, b, t + steps.shape[1], device=dev) for _ in range(2)]
+    lk, _ = tl.prefill(params, cfg, rows, caches[0], last_only=True, tp_group=group)
+    lp, _ = tl.prefill(params, cfg, rows, caches[1], last_only=True, plain=True, tp_group=group)
+    compare(torch, f"{label} prefill logits (kernels vs plain on the shard)", lk[:, -1],
+            lp[:, -1])
+    out = [lk[:, -1]]
+    for i in range(steps.shape[1]):
+        pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+        lk, _ = tl.decode_step(params, cfg, steps[:, i], pos, caches[0], tp_group=group)
+        lp, _ = tl.decode_step(params, cfg, steps[:, i], pos, caches[1], plain=True,
+                               tp_group=group)
+        compare(torch, f"{label} decode step {i} logits (kernels vs plain on the shard)", lk, lp)
+        out.append(lk)
+    return [all_gather(x.float(), mesh.data_group, 0).cpu().numpy() for x in out]
+
+
+def check_parallel_logits(torch, name: str, reports: list, refs: list) -> float:
+    """Rank 0's prefill logits and each teacher-forced decode step's
+    against tp 1's (`refs`, in the same order) within TOL per row. Returns
+    the max |err|."""
+    label = f"{PARALLEL[name]['label']} rank 0"
+    whats = ["first-step"] + [f"decode step {i}" for i in range(len(refs) - 1)]
+    if len(reports[0]["logits"]) != len(refs):
+        raise SystemExit(f"FAILED {name}: rank 0 reported {len(reports[0]['logits'])} logits, "
+                         f"not {len(refs)}")
+    return max(compare(torch, f"{label} {what} logits (tp {PARALLEL[name]['tp']} x dp "
+                              f"{PARALLEL[name]['dp']} vs tp 1)", torch.from_numpy(got), want)
+               for what, got, want in zip(whats, reports[0]["logits"], refs))
+
+
+def parallel_rank(rank: int, world: int, port: int, job: dict, reports) -> None:
+    """One rank of serve_tp / serve_dp, in a process of its own: join the
+    group and the (dp, tp) grid on the card, make the seeded params (the
+    parent's), compute the first-step logits on its shard (the replicas'
+    rows gathered), then for each serve of PARALLEL_SERVES build the engine
+    from the full params (it keeps its shard) with every launch count at 0,
+    serve it (rank 0 through the server, phase_serve) or follow rank 0, and
+    report its launches, the tokens of each of its device calls, its device
+    seconds under torch.profiler and its kernels' local shapes (rank 0 also
+    the distinct ids of each stream it emitted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models import llama as tl
+    from rama_tpu_torch.ops.kernels import attn_block as ab
+    from rama_tpu_torch.ops.kernels import decode_attention as da
+    from rama_tpu_torch.ops.kernels import ffn as ffn_mod
+    from rama_tpu_torch.ops.kernels import kv_write as kvw
+    from rama_tpu_torch.ops.kernels import paged_attention as pga
+    from rama_tpu_torch.ops.kernels import prefill_attention as pa
+    from rama_tpu_torch.ops.kernels import quant_matmul as qm
+    from rama_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+    from rama_tpu_torch.parallel.mesh import make_mesh
+    from rama_tpu_torch.parallel.tp import shard_config, shard_params
+    from rama_tpu_torch.runtime.engine import Engine
+    from rama_tpu_torch.tokenizer import Tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    modules = (qm, ffn_mod, da, pa, kvw, pga, ab)
+    init_distributed(rank, world, port)
+    mesh = make_mesh(job["tp"], job["dp"], devices=["cuda:0"] * world)
+    cfg = ModelConfig(**job["cfg"])
+    dev = mesh.device
+    params = random_params(torch, cfg, dev, seed=job["seed"], fused=False)
+    tokenizer = Tokenizer.from_file(ROOT / "tests" / "fixtures" / "tokenizer.bin", 32000)
+    report = {"rank": rank, "serves": {}}
+    lcfg = shard_config(cfg, mesh.tp)
+    local = tl.fuse_params(shard_params(params, cfg, mesh), lcfg)
+    b = len(job["tokens"]) // mesh.dp
+    mine = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    label = f"{job['label']} rank {rank}"
+    with torch.no_grad():
+        parallel_kernel_checks(torch, label, local, lcfg, PARALLEL_SLOTS // mesh.dp)
+        report["logits"] = parallel_logits(
+            torch, label, mesh, local, lcfg, torch.tensor(job["tokens"][mine], device=dev),
+            torch.tensor(job["steps"][mine], device=dev))
+    del local
+    want = want_shapes(cfg, mesh.tp)
+    for mode, kw, _ in PARALLEL_SERVES:
+        torch.cuda.empty_cache()
+        shapes, ids = {}, {}
+
+        def on_engine(engine):
+            shapes.update(local_shapes(engine))
+            if rank == 0:
+                on_emit(engine, lambda slot, tok: ids.setdefault(id(slot.request), []).append(tok))
+            got = {k: shapes[k] for k in want}
+            if got != want:
+                raise SystemExit(f"FAILED {job['phase']} {mode} rank {rank}: local shapes "
+                                 f"{got}, not {want}")
+
+        reset_launches(*modules)
+        outputs, summary = [], None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if rank == 0:
+                summary = phase_serve(torch, cfg, params, tokenizer, job["card"],
+                                      tag=f"{job['phase']}_{mode}", max_seq_len=PARALLEL_MAX_LEN,
+                                      mesh=mesh, outputs=outputs, on_engine=on_engine, **kw)
+            else:
+                eng = Engine(cfg, params, tokenizer,
+                             serve_config(PARALLEL_MAX_LEN, tp=mesh.tp, dp=mesh.dp, **kw),
+                             mesh=mesh)
+                eng.outputs = outputs
+                on_engine(eng)
+                eng.follow()
+                del eng
+            torch.cuda.synchronize()
+        report["serves"][mode] = dict(
+            launches=read_launches(*modules), shapes=shapes, summary=summary,
+            distinct=[len(set(v)) for v in ids.values()],
+            outputs=torch.cat([o.flatten() for o in outputs]).cpu().numpy(),
+            device_s=profiled_device_s(torch, prof))
+    shutdown_distributed()
+    reports.put(report)
+
+
+def check_parallel_ranks(name: str, reports: list) -> None:
+    """Fail serve_tp / serve_dp where a rank's serve missed one of its
+    kernels (or ran one it must not: check_launches), where a follower's
+    device calls sampled other tokens than rank 0's, or where one of rank
+    0's 8 streams is degenerate (fewer than 2 distinct ids)."""
+    for mode, got in reports[0]["serves"].items():
+        if len(got["distinct"]) != 8 or min(got["distinct"]) < 2:
+            raise SystemExit(f"FAILED {name} {mode}: distinct ids by stream "
+                             f"{got['distinct']}: a stream is degenerate or missing")
+    for r, rep in enumerate(reports):
+        for mode, got in rep["serves"].items():
+            check_launches(parallel_path(name, mode, r), got["launches"])
+            ref = reports[0]["serves"][mode]["outputs"]
+            if r and not np.array_equal(got["outputs"], ref):
+                raise SystemExit(f"FAILED {name} {mode}: rank {r}'s tokens differ from rank "
+                                 f"0's ({got['outputs'].size} against {ref.size} tokens)")
+
+
+def phase_serve_parallel(torch, card: str, name: str, cfg, results: dict) -> dict:
+    """serve_tp / serve_dp (PARALLEL): tp 1's first-step logits of two
+    seeded 16-token prompts on the card (the reference, then freed); the tp
+    * dp ranks spawned, each on the card, reporting back; rank 0's logits
+    within TOL of tp 1's; every rank's launches and tokens checked
+    (check_parallel_ranks); tok/s and the device busy share (the ranks'
+    profiled kernel seconds over rank 0's serve wall) logged. Returns the
+    summary by serve."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    from rama_tpu_torch.models.llama import KVCache, decode_step, fuse_params, prefill
+    from rama_tpu_torch.server.app import free_port
+
+    job = dict(PARALLEL[name], phase=name, card=card,
+               cfg={f: getattr(cfg, f) for f in ("dim", "hidden_dim", "n_layers", "n_heads",
+                                                 "n_kv_heads", "vocab_size", "seq_len",
+                                                 "shared_classifier", "norm_eps", "rope_theta")})
+    world = job["tp"] * job["dp"]
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(job["seed"])
+    tokens = torch.randint(3, cfg.vocab_size, (2, 16), generator=g)
+    tokens[:, 0] = 1
+    steps = torch.randint(3, cfg.vocab_size, (2, PARALLEL_STEPS), generator=g)
+    job["tokens"], job["steps"] = tokens.tolist(), steps.tolist()
+    params = fuse_params(random_params(torch, cfg, dev, seed=job["seed"], fused=False), cfg)
+    with torch.no_grad():
+        cache = KVCache.create(cfg, 2, 16 + PARALLEL_STEPS, device=dev)
+        logits, _ = prefill(params, cfg, tokens.to(dev), cache, last_only=True)
+        refs = [logits[:, -1].float().cpu()]
+        for i in range(PARALLEL_STEPS):
+            pos = torch.full((2,), 16 + i, dtype=torch.int32, device=dev)
+            logits, _ = decode_step(params, cfg, steps[:, i].to(dev), pos, cache)
+            refs.append(logits.float().cpu())
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, port, job, queue),
+                         name=f"{name}-rank-{r}") for r in range(world)]
+    reports = []
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.time() + PARALLEL_TIMEOUT_S
+        while len(reports) < world:
+            try:
+                reports.append(queue.get(timeout=5))
+            except queue_mod.Empty:     # a rank may have died
+                failed = [p.name for p in procs if p.exitcode not in (None, 0)]
+                if failed or time.time() > deadline:
+                    raise SystemExit(f"FAILED {name}: ranks {failed or 'timed out'}")
+        for p in procs:
+            p.join(timeout=120)
+            if p.exitcode != 0:
+                raise SystemExit(f"FAILED {name}: {p.name} exit code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    reports.sort(key=lambda rep: rep["rank"])
+    err = check_parallel_logits(torch, name, reports, refs)
+    check_parallel_ranks(name, reports)
+    out = {"logits_max_abs_err": err}
+    for mode, _, _ in PARALLEL_SERVES:
+        s = reports[0]["serves"][mode]["summary"]
+        device_s = [rep["serves"][mode]["device_s"] for rep in reports]
+        out[mode] = dict(tok_s=s["tok_s"], wall_s=s["wall_s"], device_s=device_s,
+                         busy=sum(device_s) / s["wall_s"], ttft_p50_ms=s["ttft_p50_ms"],
+                         spec_accept_rate=s["spec_accept_rate"],
+                         tokens=int(reports[0]["serves"][mode]["outputs"].size),
+                         shapes=reports[0]["serves"][mode]["shapes"])
+        log(f"[{name}] {mode}: {s['tok_s']:.2f} tok/s over {s['wall_s']:.3f} s; device busy "
+            f"{out[mode]['busy']:.3f} of the wall (ranks' kernel s {device_s}); gloo on one "
+            f"shared card, not a scaling result ({card})")
+        for r, rep in enumerate(reports):
+            log(f"[launches] {PARALLEL[name]['label']} {mode} rank {r}: "
+                f"{rep['serves'][mode]['launches']}")
+        for kernel in parallel_path(name, mode, 0)["record"]:
+            rec = RECORD_OF.get(kernel, kernel)
+            if rec in results:
+                results[rec].setdefault(f"launches_{name.split('_')[1]}_path", {})[mode] = [
+                    rep["serves"][mode]["launches"][kernel] for rep in reports]
+    log(f"[{name}] local shapes {json.dumps(out['plain']['shapes'])}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -7437,7 +7868,15 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
     del params
     tmp.cleanup()
+    gc.collect()            # engines of the last path hold its params in reference cycles
     torch.cuda.empty_cache()
+    log(f"[memory] after every path: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    for name in PARALLEL:
+        if name in phases:
+            with clock(name):
+                serving[name] = phase_serve_parallel(torch, card, name,
+                                                     models[PARALLEL[name]["model"]][1], results)
+            torch.cuda.empty_cache()
     if "export" in phases:
         with clock("export"):
             phase_export(torch, card, modules)
@@ -7472,7 +7911,8 @@ def main() -> int:
             "standalone_launches_pipe_path", "rows_body_launches_pipe_path",
             "launches_chunk_path", "standalone_launches_chunk_path",
             "rows_body_launches_chunk_path", "launches_chat_path", "launches_eval_path",
-            "launches_native_path", "standalone_launches_native_path")
+            "launches_native_path", "standalone_launches_native_path", "launches_tp_path",
+            "launches_dp_path")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in results.values()]}))
     print(nvidia_smi_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,8 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
-               device: str = "cuda"):
-    """Checkpoint -> (cfg, fused params on `device`, torch dtype)."""
+               device: str = "cuda", fuse: bool = True):
+    """Checkpoint -> (cfg, params on `device`, torch dtype): fused, or as
+    loaded with `fuse` False (a tensor-parallel engine shards, then fuses)."""
     from rama_tpu_torch.checkpoint import (load_checkpoint, load_checkpoint_quantized,
                                            peek_version)
     from rama_tpu_torch.models.llama import (fuse_params, load_params,
@@ -125,7 +126,7 @@ def load_model(model: str, quant: str = "auto", dtype: str = "bfloat16",
         params = load_params(cfg, np_params, dtype=tdtype, device=dev)
     else:
         raise ValueError(f"unknown --quant {quant!r}")
-    return cfg, fuse_params(params, cfg), tdtype
+    return cfg, fuse_params(params, cfg) if fuse else params, tdtype
 
 
 def cmd_generate(args) -> int:

@@ -88,7 +88,8 @@ class EngineConfig:
     quant_group_size: int = 64
     # KV-cache quantization: None | "int8" (per-token-per-head absmax; halves
     # the cache's bytes and doubles the slots a card holds), on the dense
-    # slots or the paged pool; tensor parallelism is not ported.
+    # slots or the paged pool; under tensor parallelism the scales shard
+    # with their rows.
     kv_quant: str | None = None
 
     # Speculative serving (defaults of rama_tpu/config.py:129-160): drafts a
@@ -116,10 +117,13 @@ class EngineConfig:
     # default build directory; ops/kernels/build.py).
     compile_cache: str | None = None
 
-    # Fields of features not ported yet (ROADMAP.md); setting prefill_chunk
-    # or the parallelism fields makes the Engine raise NotImplementedError.
+    # Chunked prefill: prompts longer than prefill_chunk_min (default 4x the
+    # chunk) admit in chunks of prefill_chunk tokens (0 = off).
     prefill_chunk: int = 0
     prefill_chunk_min: int | None = None
+    # Tensor / data parallelism: one process a rank in a torch.distributed
+    # group of tp_size * dp_size ranks (rama_tpu_torch/parallel/). seq_par
+    # is not ported yet (ROADMAP.md): the Engine raises NotImplementedError.
     tp_size: int = 1
     dp_size: int = 1
     seq_par: bool = False

@@ -21,6 +21,12 @@ RAMA_ATTN_BLOCK (read at import into `ATTN_BLOCK`, as rama_tpu reads its
 the fused RoPE + row write + attention kernel with wo separate, 2 the fused
 kernel with wo too (kernel 14, ops/kernels/attn_block.py).
 
+Tensor parallelism (`tp_group`, the counterpart of JAX's `tp_axis`): the
+params and the cache are this rank's shards (parallel/tp.py) and `cfg` the
+shard's config (`shard_config`); the outputs of wo and w2 are all-reduced
+over the group in the activation dtype (JAX's psum) and the vocab-sharded
+logits all-gathered in rank order. None: one rank, no collective.
+
 The KV cache is updated IN PLACE (`index_put_` on the stacked cache, or
 the int8 cache's row writer), where the JAX package donates the cache
 buffer and returns a new one. Two caches: `KVCache` (dense, in the
@@ -54,6 +60,7 @@ from rama_tpu_torch.ops.kernels.kv_write import (chunk_positions, kv_quant_rows,
 from rama_tpu_torch.ops.quant import (QuantizedEmbedding, QuantizedTensor,
                                       from_q80_file_layout, quantize_embedding,
                                       quantize_int4, quantize_int8)
+from rama_tpu_torch.parallel.mesh import all_gather, psum
 from rama_tpu_torch.utils.platform import resolve_device
 
 Params = dict[str, Any]
@@ -411,7 +418,7 @@ def _ffn_block(xb: torch.Tensor, params: Params, l: int, ops: _Ops,
 
 
 def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index, pos_mask,
-           cfg: ModelConfig, plen, ops: _Ops):
+           cfg: ModelConfig, plen, ops: _Ops, tp_group=None):
     """One transformer block over a (B, T) chunk (rama_tpu's `_layer`)."""
     b, t, _ = x.shape
     xb = rmsnorm(x, params["attn_norm"][l], cfg.norm_eps)
@@ -444,9 +451,17 @@ def _layer(x, params, cache: KVCache | QuantKVCache, l: int, cos, sin, pos_index
                                     plen).reshape(b, t, -1)
     else:
         att = _attention(q, cache.k[l], cache.v[l], pos_mask)
-    x = x + _linear(att, params["wo"], ops, l)
+    x = x + psum(_linear(att, params["wo"], ops, l), tp_group)
     xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
-    return x + _ffn_block(xb, params, l, ops, fused_kernel=False)
+    return x + psum(_ffn_block(xb, params, l, ops, fused_kernel=False), tp_group)
+
+
+def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig, ops: _Ops,
+            tp_group=None) -> torch.Tensor:
+    """Final norm and classifier, fp32 logits; a vocab-sharded classifier's
+    logits all-gathered along the vocabulary in rank order."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return all_gather(_linear(x, params["wcls"], ops).float(), tp_group)
 
 
 def _ffn_fusable(params: Params, m: int) -> bool:
@@ -481,7 +496,7 @@ def attn_block_mode(params: Params, cfg: ModelConfig, cache, b: int) -> int:
 
 
 def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
-                          cache: KVCache | QuantKVCache, ops: _Ops):
+                          cache: KVCache | QuantKVCache, ops: _Ops, tp_group=None):
     """T=1 decode step (rama_tpu's `_forward_decode_fused`): layer-indexed
     quant_matmul for wqkv/wo, the cache row write in place, layer-indexed
     decode attention, the fused quantized FFN. An int8 cache hands the
@@ -519,17 +534,16 @@ def _forward_decode_fused(params: Params, cfg: ModelConfig, tokens, pos_index,
                 _write_kv(cache, l, k, v, pos_index)
                 att = ops.decode_attention(q[:, 0].contiguous(), cache.k, cache.v, pos, l)
             attn_out = _linear(att, params["wo"], ops, l)
-        x = x + attn_out[:, None]
+        x = x + psum(attn_out, tp_group)[:, None]
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
-        x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _linear(x, params["wcls"], ops).float(), cache
+        x = x + psum(_ffn_block(xb, params, l, ops, fused_kernel=fused_ffn), tp_group)
+    return _logits(x, params, cfg, ops, tp_group), cache
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             pos_index: torch.Tensor, cache: KVCache | QuantKVCache,
             plen: torch.Tensor | None = None, logit_rows: torch.Tensor | None = None,
-            plain: bool = False):
+            plain: bool = False, tp_group=None):
     """Forward a (B, T) token chunk at per-slot positions pos_index (B, T).
 
     Causal over the cache: position s of slot b is visible to query t iff
@@ -542,11 +556,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     classifier only at column logit_rows[b] of each slot, returning
     (B, 1, V). T=1 without logit_rows takes the fused decode path.
     `plain=True` uses the kernels' plain PyTorch versions on any device.
+    `tp_group`: this rank's model group under tensor parallelism (module
+    docstring); the logits are the full vocabulary's.
     """
     ops = _PLAIN if plain else _KERNELS
     b, t = tokens.shape
     if logit_rows is None and t == 1:
-        return _forward_decode_fused(params, cfg, tokens, pos_index, cache, ops)
+        return _forward_decode_fused(params, cfg, tokens, pos_index, cache, ops, tp_group)
     dtype = params["final_norm"].dtype
     x = _embed(params["tok_embedding"], tokens, dtype)
     idx = pos_index.long().clamp(0, params["rope_cos"].shape[0] - 1)
@@ -557,16 +573,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if plen is not None:
         plen = plen.to(torch.int32).contiguous()
     for l in range(cfg.n_layers):
-        x = _layer(x, params, cache, l, cos, sin, pos_index, pos_mask, cfg, plen, ops)
+        x = _layer(x, params, cache, l, cos, sin, pos_index, pos_mask, cfg, plen, ops,
+                   tp_group)
     if logit_rows is not None:
         rows = logit_rows.long()[:, None, None].expand(b, 1, x.shape[-1])
         x = torch.gather(x, 1, rows)                                 # (B, 1, D)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _linear(x, params["wcls"], ops).float(), cache
+    return _logits(x, params, cfg, ops, tp_group), cache
 
 
 def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
-                         cache: KVCache | QuantKVCache, ops: _Ops):
+                         cache: KVCache | QuantKVCache, ops: _Ops, tp_group=None):
     """Chunk forward of T consecutive tokens per slot at pos0[b] + t — the
     speculative-verification path (rama_tpu's `_forward_chunk_fused`).
 
@@ -599,11 +615,10 @@ def _forward_chunk_fused(params: Params, cfg: ModelConfig, tokens, pos0,
             scatter_rows_(cache.k[l], k, pos_index)
             scatter_rows_(cache.v[l], v, pos_index)
             att = ops.chunk_attention(q, cache.k, cache.v, p0, l)
-        x = x + _linear(att, params["wo"], ops, l)
+        x = x + psum(_linear(att, params["wo"], ops, l), tp_group)
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
-        x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _linear(x, params["wcls"], ops).float(), cache
+        x = x + psum(_ffn_block(xb, params, l, ops, fused_kernel=fused_ffn), tp_group)
+    return _logits(x, params, cfg, ops, tp_group), cache
 
 
 def check_chunk(cfg: ModelConfig, t: int, device: torch.device) -> None:
@@ -616,7 +631,8 @@ def check_chunk(cfg: ModelConfig, t: int, device: torch.device) -> None:
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  pos0: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False):
+                  pos0: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False,
+                  tp_group=None):
     """Forward a (B, T) chunk of CONSECUTIVE tokens per slot: column t of
     slot b sits at position pos0[b] + t (pos0 (B,), within the cache). The
     speculative-verification entry point (runtime.engine spec ticks,
@@ -626,12 +642,14 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     t = tokens.shape[1]
     if 2 <= t <= 8:
         return _forward_chunk_fused(params, cfg, tokens, pos0, cache,
-                                    _PLAIN if plain else _KERNELS)
-    return forward(params, cfg, tokens, chunk_positions(pos0, t), cache, plain=plain)
+                                    _PLAIN if plain else _KERNELS, tp_group)
+    return forward(params, cfg, tokens, chunk_positions(pos0, t), cache, plain=plain,
+                   tp_group=tp_group)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: KVCache | QuantKVCache, last_only: bool = False, plain: bool = False):
+            cache: KVCache | QuantKVCache, last_only: bool = False, plain: bool = False,
+            tp_group=None):
     """Process a whole (B, T) prompt in one batched pass from position 0.
     last_only=True returns (B, 1, V) logits for the final position only."""
     b, t = tokens.shape
@@ -640,13 +658,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rows = torch.full((b,), t - 1, dtype=torch.int64, device=dev) if last_only else None
     return forward(params, cfg, tokens, pos, cache,
                    plen=torch.full((b,), t, dtype=torch.int32, device=dev),
-                   logit_rows=rows, plain=plain)
+                   logit_rows=rows, plain=plain, tp_group=tp_group)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                pos: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False):
+                pos: torch.Tensor, cache: KVCache | QuantKVCache, plain: bool = False,
+                tp_group=None):
     """One decode step for a batch of slots at ragged positions.
     token: (B,) int; pos: (B,) int. Returns (logits (B, V) fp32, cache)."""
     logits, cache = forward(params, cfg, token[:, None], pos[:, None], cache,
-                            plain=plain)
+                            plain=plain, tp_group=tp_group)
     return logits[:, 0], cache

@@ -183,6 +183,22 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return w.reshape(*lead, k, n).to(dtype)
 
 
+def split_groups(qt: QuantizedTensor, new_gs: int) -> QuantizedTensor:
+    """Exactly re-express an int8 tensor with a finer group size (new_gs
+    dividing group_size): each scale row repeated over its sub-groups, so
+    the dequantized weights are bit-identical (rama_tpu/ops/quant.py:148).
+    A row-parallel shard's K must split whole scale groups; int4's packing
+    is tied to its group size, so only int8 regroups."""
+    if qt.bits != 8:
+        raise ValueError("split_groups only supports int8 tensors")
+    if qt.group_size % new_gs != 0:
+        raise ValueError(f"{new_gs} does not divide group_size {qt.group_size}")
+    if new_gs == qt.group_size:
+        return qt
+    s = qt.scales.repeat_interleave(qt.group_size // new_gs, dim=-2)
+    return QuantizedTensor(q=qt.q, scales=s.contiguous(), group_size=new_gs, bits=8, il=qt.il)
+
+
 def from_q80_file_layout(q_file: np.ndarray, s_file: np.ndarray,
                          group_size: int) -> QuantizedTensor:
     """Convert checkpoint.QuantParams entries — int8 (.., out, in) with scales

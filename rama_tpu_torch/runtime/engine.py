@@ -84,9 +84,27 @@ What it keeps from the JAX engine:
   the direct admission's writers (K8, K13 (b), the bf16 copy), then the
   one blocking fetch of the firsts.
 
-Not ported yet (ROADMAP.md): tensor/data/sequence parallelism (the paged
-pool's dp sharding with it), multi-host. Their EngineConfig fields raise
-NotImplementedError when set.
+- **tensor and data parallelism** (`tp_size`, `dp_size`; rama_tpu's mesh
+  paths, engine.py:700-760, and its lockstep follower, `follow()`
+  :1081-1222): one process a rank over torch.distributed
+  (parallel/distributed.py `init_distributed`, parallel/mesh.py
+  `make_mesh`). Every rank builds the Engine from the full params and
+  keeps its own shard (parallel/tp.py `shard_params`, then `fuse_params`
+  on the shard); the forwards all-reduce over the rank's model group and
+  gather the vocab-sharded logits. Rank 0 schedules: before every device
+  dispatch (`_dev_*`, the reset, the stop) it broadcasts a header and the
+  call's host arrays (`_announce`, the `_OP_*` protocol), and every other
+  rank replays the same calls in `follow()`; a chained tick takes the
+  rank's own device copy of the last output. Only the thread that runs
+  the loop broadcasts once the loop is started (the stop too, after its
+  drain), so two threads never share a group. Under dp each data replica
+  holds B / dp slots (its own cache, or its own sub-pool and allocator),
+  prefills only the admitted rows whose slots it holds, and a tick's
+  tokens (and an admission's first tokens) are gathered over the data
+  group, so rank 0 emits every slot's.
+
+Not ported yet (ROADMAP.md): sequence parallelism and multi-host serving
+(`seq_par` raises NotImplementedError when set).
 
 Threading: one engine thread owns the device loop; request queues bridge to
 the async server. Tokens stream per request through `Request.queue`.
@@ -96,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -112,6 +131,10 @@ from rama_tpu_torch.models.llama import (KVCache, QuantKVCache, _rope_tables, ch
 from rama_tpu_torch.ops.kernels import build, paged_attention
 from rama_tpu_torch.ops.kernels.kv_write import write_kv_strips_q8
 from rama_tpu_torch.ops.quant import cast_scales
+from rama_tpu_torch.parallel.distributed import broadcast_step, is_primary, world_size
+from rama_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh, psum
+from rama_tpu_torch.parallel.tp import (replicate_params, shard_config, shard_params,
+                                        validate_tp)
 from rama_tpu_torch.runtime.paged import (PageAllocator, PagedKVCache, QuantPagedKVCache,
                                           decode_step_paged, forward_paged,
                                           insert_prefill_paged)
@@ -206,11 +229,15 @@ _SPEC_PROBE_ROUNDS = 8
 # of jitter either side.
 _PIPELINE_DEPTH = 3
 
+# Lockstep control ops, broadcast rank 0 -> the other ranks before each
+# device call (parallel.distributed.broadcast_step; rama_tpu's _OP_*,
+# engine.py:138-141). Header: int64[4] [op, arg0, arg1, arg2].
+(_OP_TICK, _OP_PREFILL, _OP_RESET, _OP_STOP, _OP_SPEC,
+ _OP_PFSTART, _OP_PFCHUNK, _OP_PFDONE, _OP_DRSYNC) = range(9)
+
 _UNPORTED = (
     # (field, value when off, ROADMAP item)
-    ("tp_size", 1, "tensor/data/sequence parallelism"),
-    ("dp_size", 1, "tensor/data/sequence parallelism"),
-    ("seq_par", False, "tensor/data/sequence parallelism"),
+    ("seq_par", False, "sequence parallelism"),
 )
 
 
@@ -224,7 +251,7 @@ def _copy_strips(cache: KVCache, scratch: KVCache, slots: list[int], t_ins: int)
 @torch.no_grad()
 def _prefill_chunk_step(params, cfg: ModelConfig, tokens_chunk: torch.Tensor,
                         true_lens: torch.Tensor, off: int, scratch: KVCache,
-                        last: torch.Tensor):
+                        last: torch.Tensor, tp_group=None):
     """One chunk of a background prefill job (rama_tpu's _prefill_chunk_step,
     engine.py:504-532): forward the (k, C) prompt columns [off, off + C)
     into the job's scratch (attending every column prefilled before), the
@@ -242,7 +269,7 @@ def _prefill_chunk_step(params, cfg: ModelConfig, tokens_chunk: torch.Tensor,
     pos_index = torch.where(idx < lens[:, None], idx, scratch.max_len - 1)
     sel = lens - 1 - off
     take, scratch = forward(params, cfg, tokens_chunk, pos_index, scratch,
-                            logit_rows=sel.clamp(0, c - 1))
+                            logit_rows=sel.clamp(0, c - 1), tp_group=tp_group)
     last = torch.where(((sel >= 0) & (sel < c))[:, None], take[:, 0], last)
     return scratch, last
 
@@ -257,13 +284,19 @@ def check_ported(ecfg: EngineConfig) -> None:
 
 class Engine:
     """Owns the model, the slot pool and the device loop thread. Runs on the
-    device the params live on."""
+    device the params live on, or under tp / dp on the rank's mesh
+    device."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: Tokenizer,
-                 engine_config: EngineConfig | None = None, draft=None):
+                 engine_config: EngineConfig | None = None, draft=None,
+                 mesh: Mesh | None = None):
         """draft: (draft_cfg, draft_params) for spec_mode "draft" — a small
         resident model that proposes the spec tick's tokens instead of the
-        n-gram lookup."""
+        n-gram lookup. Under tp_size / dp_size > 1 every rank of a process
+        group of tp * dp ranks builds the Engine from the full params
+        (unfused; on the host or a card) and keeps its own shard; `mesh`
+        is the rank's grid (default: make_mesh(tp, dp), each rank on its
+        own GPU). Rank 0 serves; every other rank calls follow()."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.ecfg = engine_config or EngineConfig()
@@ -277,7 +310,24 @@ class Engine:
             raise ValueError(f"unsupported kv_quant {self.kv_quant!r}")
         b = self.ecfg.max_batch_size
         self.max_len = self.ecfg.max_seq_len or cfg.seq_len
-        self.device = params["final_norm"].device
+        self.tp, self.dp = self.ecfg.tp_size, self.ecfg.dp_size
+        if self.dp > 1 and b % self.dp:
+            raise ValueError(f"dp_size {self.dp} does not divide max_batch_size {b}")
+        if self.tp > 1:
+            validate_tp(cfg, self.tp)
+        self.mesh = self._join_mesh(mesh)
+        # rank 0 under a mesh broadcasts each device call to the followers
+        self.leads = self.mesh is not None and is_primary()
+        # the model group's all-reduces, the data group's token gathers
+        self.tp_group = self.mesh.model_group if self.mesh else None
+        self.data_group = self.mesh.data_group if self.mesh else None
+        # this replica's slots [lo, hi) of the B; its forwards and caches run
+        # under the shard's config (parallel/tp.py shard_config)
+        self.b_local = b // self.dp
+        self.lo = (self.mesh.data_index if self.mesh else 0) * self.b_local
+        self.hi = self.lo + self.b_local
+        self.mcfg = shard_config(cfg, self.tp)
+        self.device = self.mesh.device if self.mesh else params["final_norm"].device
         # activations and the cache share the params' float dtype (the JAX
         # engine keeps a bf16 cache under fp32 params; the kernels here
         # take one dtype per call)
@@ -307,9 +357,15 @@ class Engine:
         if self.paged:
             ps = self.ecfg.kv_page_size
             self.pages_per_slot = -(-self.max_len // ps)
-            # one extra "trash" page absorbs the unconditional KV writes of
-            # free slots, so stale table rows never touch a live page
-            self.trash_page = self.ecfg.kv_num_pages or b * self.pages_per_slot
+            num_pages = self.ecfg.kv_num_pages or b * self.pages_per_slot
+            if num_pages % self.dp:
+                raise ValueError(f"kv_num_pages {num_pages} not divisible by dp_size {self.dp}")
+            # each data replica owns a sub-pool of num_pages / dp pages and
+            # its own allocator, its tables holding LOCAL page ids
+            # (rama_tpu/parallel/tp.py:305-320); one extra "trash" page a
+            # sub-pool absorbs the unconditional KV writes of free slots, so
+            # stale table rows never touch a live page
+            self.trash_page = num_pages // self.dp
             self._check_paged(cfg, ps)
         # the target's stored weight scales in scale_dtype; the draft's stay
         # as loaded, as in the JAX engine (engine.py:693-699)
@@ -318,8 +374,9 @@ class Engine:
         self.dcfg = self.dparams = self.dcache = None
         if self.draft_mode:
             self.dcfg = draft[0]
-            self.dparams = self._serving_params(self.dcfg, draft[1])
-            self.dcache = self._create_draft_cache(b)
+            # replicated on every rank (rama_tpu/parallel/tp.py:77-86)
+            self.dparams = self._serving_params(self.dcfg, draft[1], shard=False)
+            self.dcache = self._create_draft_cache(self.b_local)
         self.slots = [_Slot() for _ in range(b)]
         # per-slot history capacity: sized so spec-round writes (<= max_len)
         # always fit
@@ -341,6 +398,14 @@ class Engine:
         self._spec_inflight_q: deque = deque()
         self._admit_jobs: list = []
         self._last_spec = None
+        # the newest plain tick's device tokens, which a chained tick (and a
+        # follower's replay of one) starts from
+        self._last_out = None
+        # a list: every device call's sampled tokens are kept in it
+        # (_log_output); None: not kept
+        self.outputs: list | None = None
+        # the stop broadcast to the followers (once)
+        self._followers_stopped = False
         # chunked prefill: the one active job and the entries waiting for it
         # (their slots assigned, prefilling)
         self._pf_job: dict | None = None
@@ -363,11 +428,36 @@ class Engine:
             "draft_resyncs": 0,     # draft-cache gap replays
         }
 
-    def _serving_params(self, cfg: ModelConfig, params, scale_dtype: str | None = None):
+    def _join_mesh(self, mesh: Mesh | None) -> Mesh | None:
+        """The rank's (dp, tp) grid: None for one rank; under tp / dp > 1
+        the process group must hold exactly tp * dp ranks."""
+        n = self.tp * self.dp
+        if n == 1:
+            return None
+        if world_size() != n:
+            raise ValueError(f"tp_size {self.tp} x dp_size {self.dp} runs one process a rank: "
+                             f"call rama_tpu_torch.parallel.distributed.init_distributed("
+                             f"rank, {n}, port) in each of {n} processes first (this "
+                             f"process's world has {world_size()} rank(s))")
+        mesh = mesh or make_mesh(self.tp, self.dp)
+        if (mesh.dp, mesh.tp) != (self.dp, self.tp):
+            raise ValueError(f"mesh (dp {mesh.dp}, tp {mesh.tp}) does not match dp_size "
+                             f"{self.dp}, tp_size {self.tp}")
+        return mesh
+
+    def _serving_params(self, cfg: ModelConfig, params, scale_dtype: str | None = None,
+                        shard: bool = True):
         """Fused params with RoPE tabulated out to the cache length
         (long-context serving), and with scale_dtype "bf16" every quantized
         leaf's scales stored in bf16 (cast after fusing, as
-        rama_tpu/runtime/engine.py:693-699 does)."""
+        rama_tpu/runtime/engine.py:693-699 does). Under a mesh: this rank's
+        shard first (`shard`, each leaf's slice copied alone to the rank's
+        device), fused under the shard's config; else every leaf whole on
+        the rank's device."""
+        if self.mesh:
+            params = (shard_params(params, cfg, self.mesh) if shard
+                      else replicate_params(params, self.device))
+            cfg = shard_config(cfg, self.tp) if shard else cfg
         params = dict(params)
         if params["rope_cos"].shape[0] < self.max_len:
             params["rope_cos"], params["rope_sin"] = _rope_tables(
@@ -393,22 +483,34 @@ class Engine:
                               self.kv_quant == "int8")
 
     def _create_cache(self, batch: int):
-        """The slot cache, or the page pool (and a fresh allocator and
-        all-trash page tables) in paged mode."""
+        """This replica's cache for `batch` slots in all: its batch / dp
+        slots of the dense cache, or its sub-pool (and fresh allocators, one
+        a replica, and all-trash page tables for the batch) in paged mode;
+        the shard's kv heads."""
+        cfg = self.mcfg
         if self.paged:
             ps = self.ecfg.kv_page_size
-            self.allocator = PageAllocator(self.trash_page, ps, batch)
+            self.allocators = [PageAllocator(self.trash_page, ps, batch) for _ in range(self.dp)]
+            self.allocator = self.allocators[0]
             self.page_tables = np.full((batch, self.pages_per_slot), self.trash_page, np.int32)
             if self.kv_quant == "int8":
-                return QuantPagedKVCache.create(self.cfg, self.trash_page + 1, ps,
-                                                device=self.device)
-            return PagedKVCache.create(self.cfg, self.trash_page + 1, ps, dtype=self.dtype,
+                return QuantPagedKVCache.create(cfg, self.trash_page + 1, ps, device=self.device)
+            return PagedKVCache.create(cfg, self.trash_page + 1, ps, dtype=self.dtype,
                                        device=self.device)
         if self.kv_quant == "int8":
-            return QuantKVCache.create(self.cfg, batch=batch, max_len=self.max_len,
+            return QuantKVCache.create(cfg, batch=batch // self.dp, max_len=self.max_len,
                                        device=self.device)
-        return KVCache.create(self.cfg, batch=batch, max_len=self.max_len,
+        return KVCache.create(cfg, batch=batch // self.dp, max_len=self.max_len,
                               dtype=self.dtype, device=self.device)
+
+    def _alloc(self, i: int) -> PageAllocator:
+        """The page allocator of the replica that holds slot i."""
+        return self.allocators[i // self.b_local]
+
+    def _local(self, a):
+        """This replica's rows [lo, hi) of a (B, ...) host array or device
+        tensor over every slot (itself at dp 1)."""
+        return a if self.dp == 1 else a[self.lo:self.hi]
 
     # -- public API ---------------------------------------------------------
 
@@ -431,10 +533,31 @@ class Engine:
         self._thread.start()
 
     def stop(self):
+        """Stop the loop (draining what is in flight). Under a mesh the
+        stop that ends the followers' follow() is broadcast by the thread
+        that runs the group's collectives: the loop's own thread after its
+        drain, or, where no loop was started, this one. A loop still
+        running after the join's timeout (inside a collective) is left to
+        the group's timeout, which ends the followers too."""
         self._stop.set()
         self._wake.set()
         if self._thread:
             self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                print("engine: the loop did not stop within 30 s; the followers end at the "
+                      "group's timeout", file=sys.stderr)
+        else:
+            self._stop_followers()
+
+    def _stop_followers(self) -> None:
+        """Rank 0's stop broadcast, once. A follower already gone makes it
+        raise: printed, not raised."""
+        if self.leads and not self._followers_stopped:
+            self._followers_stopped = True
+            try:
+                self._announce(_OP_STOP)
+            except Exception:  # noqa: BLE001 — a dead follower cannot hear it
+                traceback.print_exc()
 
     @torch.no_grad()
     def warmup(self, max_prompt: int | None = None) -> dict:
@@ -512,7 +635,7 @@ class Engine:
             # JAX's split: direct up to _bucket(pf_engage), chunked from it on
             direct = not self.pf_chunk or t_pad <= _bucket(self.pf_engage)
             chunked = self.pf_chunk and t_pad >= _bucket(self.pf_engage)
-            for k_pad in sorted({_bucket_k(nn, 1, b, t_pad) for nn in range(1, b + 1)}):
+            for k_pad in sorted({_bucket_k(nn, self.dp, b, t_pad) for nn in range(1, b + 1)}):
                 tokens = np.zeros((k_pad, t_pad), np.int64)
                 lens = np.ones(k_pad, np.int32)
                 keys = np.zeros((k_pad, 2), np.int64)
@@ -537,13 +660,27 @@ class Engine:
                         self._dev_draft_prefill(tokens, lens, [0])
                         self._sync()
                         count += 1
-        for cache in (self.cache, self.dcache):
-            if isinstance(cache, (KVCache, QuantKVCache)):
-                for f in fields(cache):
-                    getattr(cache, f.name).zero_()
+        self._reset_cache(zero=True)
         self._last_spec = None
         self._sync()
         return {"programs": count, "seconds": time.time() - t0}
+
+    def _reset_cache(self, zero: bool = False) -> None:
+        """Fresh caches: the dense ones (the target's, the draft's) zeroed in
+        place (`zero`, warmup's), or every cache, pool, allocator and page
+        table made anew (the loop's error path: a half-written cache is
+        dropped). Rank 0 then has the followers do the same (_OP_RESET)."""
+        if zero:
+            for cache in (self.cache, self.dcache):
+                if isinstance(cache, (KVCache, QuantKVCache)):
+                    for f in fields(cache):
+                        getattr(cache, f.name).zero_()
+        else:
+            self.cache = self._create_cache(len(self.slots))
+            if self.draft_mode:
+                self.dcache = self._create_draft_cache(self.b_local)
+        if self.leads:
+            self._announce(_OP_RESET, int(zero))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -625,13 +762,34 @@ class Engine:
     def _complete_admit_jobs(self):
         """Fetch the first tokens of every dispatched-but-unfetched prefill
         group (waits until the device has made them) and emit them. Entries
-        whose slot was reassigned or failed since dispatch are skipped."""
+        whose slot was reassigned or failed since dispatch are skipped. A job
+        leaves the list only once its tokens are out, so a failure leaves it
+        for `_fail_admit_jobs`."""
         while self._admit_jobs:
-            job = self._admit_jobs.pop(0)
+            job = self._admit_jobs[0]
             firsts = self._fetched(job["firsts"])
             for j, (_, slot, req, _, _) in enumerate(job["entries"]):
                 if slot.request is req:
                     self._emit_first(slot, int(firsts[j]))
+            self._admit_jobs.pop(0)
+
+    def _fail_admit_jobs(self):
+        """End every entry of the unfetched admissions whose slot still holds
+        its request with an error and its sentinel, its pages released (the
+        `_admit_dispatch` failure path), and clear them: a stop whose drain
+        fails leaves no client waiting. rama_tpu's drain clears them
+        silently (engine.py:1697; ROADMAP §3)."""
+        for job in self._admit_jobs:
+            for i, slot, req, _, _ in job["entries"]:
+                if slot.request is not req:
+                    continue
+                self._release_pages(i)
+                slot.request = None
+                slot.prefilling = False
+                if req.error is None:
+                    req.error = "engine error during prefill"
+                    req.queue.put(None)
+        self._admit_jobs.clear()
 
     def _seat(self, entry) -> None:
         """Slot bookkeeping of an admitted entry (slot index, slot, request,
@@ -688,7 +846,7 @@ class Engine:
         if not entries:
             return
         t_all = min(_bucket(max(len(e[3]) for e in entries)), self.max_len)
-        c = _prefill_k_cap(t_all)
+        c = _prefill_k_cap(t_all, self.dp)
         for i in range(0, len(entries), c):
             self._dispatch_prefill_group(entries[i:i + c])
 
@@ -697,7 +855,7 @@ class Engine:
         last real request."""
         n_real = len(entries)
         t_pad = min(_bucket(max(len(e[3]) for e in entries)), self.max_len)
-        k_pad = _bucket_k(n_real, 1, len(self.slots), t_pad)
+        k_pad = _bucket_k(n_real, self.dp, len(self.slots), t_pad)
         tokens = np.zeros((k_pad, t_pad), np.int64)
         true_lens = np.ones(k_pad, np.int32)
         temps = np.zeros(k_pad, np.float32)
@@ -725,6 +883,156 @@ class Engine:
             self._seat(entry)
         self._admit_jobs.append({"entries": entries, "firsts": firsts})
 
+    # -- the lockstep protocol (rank 0 -> the other ranks) -------------------------
+
+    def _announce(self, op: int, a0: int = 0, a1: int = 0, a2: int = 0, *arrays) -> None:
+        """Broadcast the header [op, a0, a1, a2] and the call's host arrays
+        before a device call, which every other rank's follow() then
+        replays (rama_tpu's _broadcast_* before each dispatch). Only where
+        the engine `leads` (rank 0 under a mesh): its callers check, so one
+        rank builds no payload."""
+        broadcast_step([np.asarray([op, a0, a1, a2], np.int64)])
+        if arrays:
+            broadcast_step(list(arrays))
+
+    def _tables_payload(self) -> list:
+        return [self.page_tables] if self.paged else []
+
+    def _group_payload(self, tokens, true_lens, temps, top_ps, keys, slots) -> list:
+        """An admission group's host arrays, in the protocol's dtypes: the
+        (k_pad, t_pad) tokens, per-row lengths, temperatures, top-ps and
+        keys, the real rows' slots, and in paged mode their page-table
+        rows."""
+        payload = [np.asarray(tokens, np.int64), np.asarray(true_lens, np.int32),
+                   np.asarray(temps, np.float32), np.asarray(top_ps, np.float32),
+                   np.asarray(keys, np.int64), np.asarray(slots, np.int64)]
+        return payload + ([self.page_tables[list(slots)]] if self.paged else [])
+
+    def _receive_group(self, k_pad: int, t_pad: int, n_real: int):
+        """A follower's copy of `_group_payload` (page-table rows stored)."""
+        got = broadcast_step(
+            [np.zeros((k_pad, t_pad), np.int64), np.zeros(k_pad, np.int32),
+             np.zeros(k_pad, np.float32), np.zeros(k_pad, np.float32),
+             np.zeros((k_pad, 2), np.int64), np.zeros(n_real, np.int64)]
+            + ([np.zeros((n_real, self.pages_per_slot), np.int32)] if self.paged else []))
+        slots = got[5].tolist()
+        if self.paged:
+            self.page_tables[slots] = got[6]
+        return (*got[:5], slots)
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """Run this rank as a follower (rank != 0; rama_tpu's follow(),
+        engine.py:1081-1222): replay rank 0's device calls from the
+        broadcast protocol, op for op, so every rank issues the same
+        collectives on the same host values. A chained tick takes this
+        rank's own device copy of the last output (spec: of the last
+        carries). Returns when rank 0 broadcasts the stop; raises (ending the
+        process's part in the group) when a collective fails."""
+        b = len(self.slots)
+
+        def host(*shapes_dtypes):
+            return broadcast_step([np.zeros(s, d) for s, d in shapes_dtypes])
+
+        per_slot = [((b,), np.float32), ((b,), np.float32), ((b, 2), np.int64)]
+        tables = [((b, self.pages_per_slot), np.int32)] if self.paged else []
+        while True:
+            (header,) = broadcast_step([np.zeros(4, np.int64)])
+            op, a0, a1, a2 = (int(v) for v in header)
+            if op == _OP_STOP:
+                return
+            if op == _OP_RESET:
+                self._reset_cache(zero=bool(a0))
+            elif op == _OP_TICK:
+                n, chained = a0, bool(a1)
+                got = host(*([] if chained else [((b,), np.int64)]), ((b,), np.int64),
+                           *per_slot, *tables)
+                tokens = self._last_out[-1] if chained else got.pop(0)
+                pos, temps, tps, self.slot_keys = got[:4]
+                if self.paged:
+                    self.page_tables = got[4]
+                self._dev_tick_async(tokens, pos, temps, tps, n)
+            elif op == _OP_PREFILL:
+                tokens, lens, temps, tps, keys, slots = self._receive_group(a0, a1, a2)
+                self._dev_prefill_insert(tokens, lens, temps, tps, keys, slots)
+                if self.draft_mode:
+                    self._dev_draft_prefill(tokens, lens, slots)
+            elif op == _OP_SPEC:
+                k, m, chained = a0, a1, bool(a2)
+                head = ([((b,), np.int64)] if chained else
+                        [((b,), np.int64), ((b,), np.int64), ((b, self._hist_cap + 1), np.int64)])
+                got = host(*head, *per_slot, *tables)
+                if chained:
+                    live = got.pop(0)
+                    tokens, pos, hist = self._last_spec
+                    pos = pos * self._upload(self._local(live))
+                else:
+                    live = None
+                    tokens, pos, hist = got[:3]
+                    got = got[3:]
+                temps, tps, self.slot_keys = got[:3]
+                if self.paged:
+                    self.page_tables = got[3]
+                self._dev_spec_tick(tokens, pos, temps, tps, hist, k, m, live)
+            elif op == _OP_DRSYNC:
+                tokens, pos_index = host(((b, a0), np.int64), ((b, a0), np.int64))
+                self._dev_draft_resync(tokens, pos_index)
+            elif op == _OP_PFSTART:
+                group = self._receive_group(a0, a1, a2)
+                self._pf_job = self._pf_new_job([], *group)
+            elif op == _OP_PFCHUNK:
+                self._pf_job["off"] = a0
+                self._dev_pf_chunk(self._pf_job)
+            elif op == _OP_PFDONE:
+                job = self._pf_job
+                k_pad = job["tokens"].shape[0]
+                job["temps"], job["top_ps"] = host(((k_pad,), np.float32),
+                                                   ((k_pad,), np.float32))
+                self._dev_pf_finish(job)
+                if self.draft_mode:
+                    self._dev_draft_prefill(job["tokens"], job["true_lens"], job["slots"])
+            else:
+                raise RuntimeError(f"unknown lockstep op {op}")
+
+    # -- a data replica's share of an admission ------------------------------------
+
+    def _replica_rows(self, slots: list[int], t_pad: int):
+        """The rows of an admission group (real rows in `slots` order) this
+        data replica prefills: (js, rows) with js the indices of the rows
+        whose slots it holds and `rows` those indices padded to its own (k,
+        T) bucket by repeating the last; at dp 1 every row as it is (rows
+        None)."""
+        if self.dp == 1:
+            return list(range(len(slots))), None
+        js = [j for j, s in enumerate(slots) if self.lo <= s < self.hi]
+        if not js:
+            return js, []
+        k = _bucket_k(len(js), 1, self.b_local, t_pad)
+        return js, [js[min(i, len(js) - 1)] for i in range(k)]
+
+    @staticmethod
+    def _pick(a, rows):
+        return a if rows is None else a[rows]
+
+    def _join_firsts(self, firsts: torch.Tensor | None, js: list[int], k_pad: int):
+        """The group's (k_pad,) first tokens on every rank: this replica's at
+        its rows js, summed over the data group with the other replicas'
+        (each row is one replica's; the rest hold zeros). At dp 1 the
+        replica's own."""
+        if self.dp == 1:
+            return firsts
+        out = torch.zeros(k_pad, dtype=torch.int64, device=self.device)
+        if js:
+            out[self._upload(np.asarray(js, np.int64))] = firsts[: len(js)]
+        return psum(out, self.data_group)
+
+    def _log_output(self, t: torch.Tensor) -> torch.Tensor:
+        """Keep a device call's sampled tokens in `outputs` when it is a
+        list (a harness compares the ranks' copies)."""
+        if self.outputs is not None:
+            self.outputs.append(t)
+        return t
+
     @torch.no_grad()
     def _dev_prefill_insert(self, tokens, true_lens, temps, top_ps, keys,
                             slots: list[int]) -> torch.Tensor:
@@ -733,13 +1041,22 @@ class Engine:
         decode ticks), then the scratch rows copied into the slots — for an
         int8 cache quantized and inserted by the strip writer, every slot
         and layer in one launch. The scratch is in the activation dtype
-        (the JAX engine's is bf16 whatever the params). Returns the (k,)
-        first tokens on the device, unfetched."""
-        lens = self._upload(true_lens)
-        last, scratch = self._prefill_scratch(self.params, self.cfg, tokens, lens)
-        firsts = self._sample_firsts(last[:, 0], lens, temps, top_ps, keys)
-        self._insert_strips(scratch, slots)
-        return firsts
+        (the JAX engine's is bf16 whatever the params). Under dp a replica
+        prefills only the rows of its own slots. Returns the (k,) first
+        tokens on the device, unfetched."""
+        if self.leads:
+            self._announce(_OP_PREFILL, *tokens.shape, len(slots),
+                           *self._group_payload(tokens, true_lens, temps, top_ps, keys, slots))
+        js, rows = self._replica_rows(slots, tokens.shape[1])
+        firsts = None
+        if js:
+            lens = self._upload(self._pick(true_lens, rows))
+            last, scratch = self._prefill_scratch(self.params, self.mcfg,
+                                                  self._pick(tokens, rows), lens)
+            firsts = self._sample_firsts(last[:, 0], lens, self._pick(temps, rows),
+                                         self._pick(top_ps, rows), self._pick(keys, rows))
+            self._insert_strips(scratch, [slots[j] for j in js])
+        return self._log_output(self._join_firsts(firsts, js, tokens.shape[0]))
 
     def _sample_firsts(self, last, lens: torch.Tensor, temps, top_ps, keys) -> torch.Tensor:
         """(k,) first tokens from the (k, V) last-row logits, each keyed at
@@ -754,7 +1071,8 @@ class Engine:
         rows (pad strips duplicate the last real one and are not written):
         the int8 cache's strip writer K8, the int8 pool's K13 (b) through
         the page-table rows `rows` (default: the slots' rows now), or a copy
-        into a bf16 / f32 cache or pool."""
+        into a bf16 / f32 cache or pool. `slots` are global; this replica's
+        cache holds slot s at s - lo."""
         t_pad = scratch.max_len
         if self.paged:
             insert_prefill_paged(self.cache, scratch.k, scratch.v,
@@ -763,10 +1081,11 @@ class Engine:
         elif isinstance(self.cache, QuantKVCache):
             c = self.cache
             write_kv_strips_q8(c.k, c.v, c.ks, c.vs, scratch.k, scratch.v,
-                               self._upload(np.asarray(slots, np.int32)),
+                               self._upload(np.asarray(slots, np.int32) - self.lo),
                                min(t_pad, self.max_len))
         else:
-            _copy_strips(self.cache, scratch, slots, min(t_pad, self.max_len))
+            _copy_strips(self.cache, scratch, [s - self.lo for s in slots],
+                         min(t_pad, self.max_len))
 
     # -- chunked prefill (a background job interleaved with the ticks) --------
 
@@ -774,16 +1093,24 @@ class Engine:
                     slots: list[int]) -> dict:
         """A job over one padded (k_pad, t_pad) bucket: its scratch, its (k,
         V) last-row logits, the next chunk's offset, and the page-table rows
-        its strips go to (as they are at its start)."""
+        its strips go to (as they are at its start). Under dp the device
+        half (`js`, `rows`, `lens`, scratch, last) covers the replica's own
+        rows only (none: no scratch)."""
         k_pad, t_pad = tokens.shape
+        if self.leads:
+            self._announce(_OP_PFSTART, k_pad, t_pad, len(slots),
+                           *self._group_payload(tokens, true_lens, temps, top_ps, keys, slots))
+        js, rows = self._replica_rows(slots, t_pad)
+        k = k_pad if rows is None else len(rows)
         return {"entries": entries, "tokens": tokens, "true_lens": true_lens,
-                "lens": self._upload(true_lens), "temps": temps, "top_ps": top_ps,
-                "keys": keys, "slots": slots,
+                "temps": temps, "top_ps": top_ps, "keys": keys, "slots": slots,
                 "rows": self.page_tables[slots].copy() if self.paged else None,
-                "scratch": KVCache.create(self.cfg, batch=k_pad, max_len=t_pad,
-                                          dtype=self.dtype, device=self.device),
-                "last": torch.zeros((k_pad, self.cfg.vocab_size), dtype=torch.float32,
-                                    device=self.device),
+                "js": js, "sel": rows,
+                "lens": self._upload(self._pick(true_lens, rows)) if js else None,
+                "scratch": (KVCache.create(self.mcfg, batch=k, max_len=t_pad, dtype=self.dtype,
+                                           device=self.device) if js else None),
+                "last": (torch.zeros((k, self.cfg.vocab_size), dtype=torch.float32,
+                                     device=self.device) if js else None),
                 "off": 0}
 
     def _pf_maybe_start(self):
@@ -792,7 +1119,7 @@ class Engine:
         if self._pf_job is not None or not self._pf_pending:
             return
         t_all = min(_bucket(max(len(e[3]) for e in self._pf_pending)), self.max_len)
-        c = _prefill_k_cap(t_all)
+        c = _prefill_k_cap(t_all, self.dp)
         entries, self._pf_pending = self._pf_pending[:c], self._pf_pending[c:]
         self._pf_job = self._pf_new_job(entries, *self._pad_entries(entries),
                                         [e[0] for e in entries])
@@ -818,12 +1145,17 @@ class Engine:
         """The job's chunk at job["off"] on the device: its token columns go
         up pinned and non-blocking, the scratch and `last` are updated."""
         c, off = self.pf_chunk, job["off"]
-        chunk = np.zeros((job["tokens"].shape[0], c), np.int64)
-        w = job["tokens"][:, off:off + c]
+        if self.leads:
+            self._announce(_OP_PFCHUNK, off)
+        if not job["js"]:
+            return
+        tokens = self._pick(job["tokens"], job["sel"])
+        chunk = np.zeros((tokens.shape[0], c), np.int64)
+        w = tokens[:, off:off + c]
         chunk[:, : w.shape[1]] = w
         job["scratch"], job["last"] = _prefill_chunk_step(
-            self.params, self.cfg, self._upload(chunk), job["lens"], off, job["scratch"],
-            job["last"])
+            self.params, self.mcfg, self._upload(chunk), job["lens"], off, job["scratch"],
+            job["last"], self.tp_group)
 
     def _pf_finish_job(self):
         """The finisher (engine.py:1470-1508): firsts and inserts dispatched,
@@ -851,16 +1183,26 @@ class Engine:
         _prefill_finish_paged): the firsts sampled from `last`, the scratch
         strips inserted, the firsts' fetch started (returned, not waited
         for)."""
-        firsts = self._sample_firsts(job["last"], job["lens"], job["temps"], job["top_ps"],
-                                     job["keys"])
-        self._insert_strips(job["scratch"], job["slots"], job["rows"])
-        return self._start_fetch(firsts)
+        if self.leads:
+            self._announce(_OP_PFDONE, 0, 0, 0, np.asarray(job["temps"], np.float32),
+                           np.asarray(job["top_ps"], np.float32))
+        js, rows = job["js"], job["sel"]
+        firsts = None
+        if js:
+            firsts = self._sample_firsts(job["last"], job["lens"], self._pick(job["temps"], rows),
+                                         self._pick(job["top_ps"], rows),
+                                         self._pick(job["keys"], rows))
+            self._insert_strips(job["scratch"], [job["slots"][j] for j in js],
+                                None if job["rows"] is None else job["rows"][js])
+        firsts = self._join_firsts(firsts, js, job["tokens"].shape[0])
+        return self._start_fetch(self._log_output(firsts))
 
     def _prefill_scratch(self, params, cfg: ModelConfig, tokens: np.ndarray,
                          lens: torch.Tensor):
         """Prefill the padded (k, T) prompts into a scratch cache of the
         params' dtype. Returns (logits at each row's last real query
-        (k, 1, V), scratch)."""
+        (k, 1, V), scratch). The target's shard all-reduces over the model
+        group; the draft runs replicated, with no collective."""
         dev = self.device
         k, t_pad = tokens.shape
         scratch = KVCache.create(cfg, batch=k, max_len=t_pad,
@@ -869,18 +1211,23 @@ class Engine:
         # padded positions write the last scratch row; no real query sees it
         pos_index = torch.where(idx < lens[:, None], idx, t_pad - 1)
         return forward(params, cfg, self._upload(tokens), pos_index, scratch,
-                       plen=lens, logit_rows=lens.long() - 1)
+                       plen=lens, logit_rows=lens.long() - 1,
+                       tp_group=self.tp_group if params is self.params else None)
 
     @torch.no_grad()
     def _dev_draft_prefill(self, tokens, true_lens, slots: list[int]) -> None:
         """Draft mode: prefill the DRAFT model over the same padded prompts
         and copy its rows into the slots of the draft cache (the draft must
         see the prompt before it can propose; rama_tpu's
-        _draft_prefill_insert)."""
+        _draft_prefill_insert). The draft is replicated: no collective;
+        under dp a replica prefills its own slots' rows."""
         t_ins = min(tokens.shape[1], self.max_len)
-        _, scratch = self._prefill_scratch(self.dparams, self.dcfg, tokens,
-                                           self._upload(true_lens))
-        _copy_strips(self.dcache, scratch, slots, t_ins)
+        js, rows = self._replica_rows(slots, tokens.shape[1])
+        if not js:
+            return
+        _, scratch = self._prefill_scratch(self.dparams, self.dcfg, self._pick(tokens, rows),
+                                           self._upload(self._pick(true_lens, rows)))
+        _copy_strips(self.dcache, scratch, [slots[j] - self.lo for j in js], t_ins)
 
     # -- decode -----------------------------------------------------------------
 
@@ -894,27 +1241,37 @@ class Engine:
         next step on the device. Returns the DEVICE (n, B) tokens without
         waiting for them: the last row feeds a chained successor tick.
         `tokens` may be a host array or a device row of an earlier tick's
-        output; the page tables go up as they are now."""
-        tok = tokens if isinstance(tokens, torch.Tensor) else self._upload(tokens)
-        p = self._upload(pos)
+        output (a chained tick: the newest one's); the page tables go up as
+        they are now. Under dp the replica steps its own slots and the
+        (n, B) tokens are gathered over the data group."""
+        chained = isinstance(tokens, torch.Tensor)
+        if self.leads:
+            self._announce(_OP_TICK, n, int(chained), 0,
+                           *([] if chained else [np.asarray(tokens, np.int64)]),
+                           np.asarray(pos, np.int64), np.asarray(temps, np.float32),
+                           np.asarray(tps, np.float32), self.slot_keys, *self._tables_payload())
+        tok = self._local(tokens) if chained else self._upload(self._local(tokens))
+        p = self._upload(self._local(pos))
         sampled = bool((temps > 0).any())
         if sampled:
-            keys = self._upload(self.slot_keys)
-            t = self._upload(temps)
-            tp = self._upload(tps)
+            keys = self._upload(self._local(self.slot_keys))
+            t = self._upload(self._local(temps))
+            tp = self._upload(self._local(tps))
         tables = self._device_tables()
         outs = []
         for _ in range(n):
             if self.paged:
-                logits, self.cache = decode_step_paged(self.params, self.cfg, tok, p, self.cache,
-                                                       tables)
+                logits, self.cache = decode_step_paged(self.params, self.mcfg, tok, p, self.cache,
+                                                       tables, self.tp_group)
             else:
-                logits, self.cache = decode_step(self.params, self.cfg, tok, p, self.cache)
+                logits, self.cache = decode_step(self.params, self.mcfg, tok, p, self.cache,
+                                                 tp_group=self.tp_group)
             tok = (sample_batched_keyed(logits, keys, p, t, tp) if sampled
                    else sample_greedy(logits))
             outs.append(tok)
             p = p + 1
-        return torch.stack(outs)
+        self._last_out = all_gather(torch.stack(outs), self.data_group, 1)
+        return self._log_output(self._last_out)
 
     def _emit(self, slot: _Slot, token: int):
         req = slot.request
@@ -946,18 +1303,18 @@ class Engine:
 
     def _reserve(self, i: int, rows: int) -> bool:
         """Grow slot i's pages to cover `rows` positions and copy its table
-        into the page tables; False (nothing reserved) if the pool is out of
-        pages."""
-        if self.allocator.reserve(i, rows) < 0:
+        into the page tables; False (nothing reserved) if its replica's pool
+        is out of pages."""
+        if self._alloc(i).reserve(i, rows) < 0:
             return False
-        table = self.allocator.table(i)
+        table = self._alloc(i).table(i)
         self.page_tables[i, : len(table)] = table
         return True
 
     def _release_pages(self, i: int) -> None:
         """Slot i's pages back to the pool, its table row onto the trash page."""
         if self.paged:
-            self.allocator.release(i)
+            self._alloc(i).release(i)
             self.page_tables[i, :] = self.trash_page
 
     def _reserve_tick_pages(self, pos: np.ndarray, n: int, finish_on_fail: bool) -> bool:
@@ -978,8 +1335,9 @@ class Engine:
         return ok
 
     def _device_tables(self) -> torch.Tensor | None:
-        """This dispatch's snapshot of the page tables (None: dense)."""
-        return self._upload(self.page_tables) if self.paged else None
+        """This dispatch's snapshot of the replica's page-table rows (None:
+        dense)."""
+        return self._upload(self._local(self.page_tables)) if self.paged else None
 
     @contextlib.contextmanager
     def _tick_phase(self, name: str):
@@ -1019,9 +1377,11 @@ class Engine:
                         s.prefilling = False
                         s.request.error = "engine error during decode"
                         self._finish(s)
-                self.cache = self._create_cache(len(self.slots))
-                if self.draft_mode:
-                    self.dcache = self._create_draft_cache(len(self.slots))
+                try:
+                    self._reset_cache()
+                except Exception:  # noqa: BLE001 — a follower gone: the reset
+                    traceback.print_exc()   # stays local; the next collective raises
+
         # graceful stop: the in-flight ticks' tokens and the async-admitted
         # first tokens reach their streams instead of vanishing with the
         # thread (engine.py:1654-1697)
@@ -1038,7 +1398,9 @@ class Engine:
         try:
             self._complete_admit_jobs()
         except Exception:  # noqa: BLE001
-            self._admit_jobs.clear()
+            traceback.print_exc()
+            self._fail_admit_jobs()
+        self._stop_followers()
 
     def _loop_once(self):
         """One iteration of rama_tpu's pipelined loop (engine.py:1729-1862):
@@ -1259,8 +1621,8 @@ class Engine:
         live = np.zeros(b, np.int64)
         live[[i for i, _ in act]] = 1
         with self._tick_phase("dispatch"):
-            out = self._dev_spec_tick(toks_d, pos_d * self._upload(live), inf["temps"],
-                                      inf["tps"], hist_d, k, m)
+            out = self._dev_spec_tick(toks_d, pos_d * self._upload(self._local(live)),
+                                      inf["temps"], inf["tps"], hist_d, k, m, live)
         return {"fetch": self._start_fetch(out), "pos": pos_wc, "m": m, "k": k,
                 "temps": inf["temps"], "tps": inf["tps"], "carry": self._last_spec,
                 "reqs": inf["reqs"], "gen_ahead": inf["gen_ahead"] + m * (k + 1)}
@@ -1322,30 +1684,44 @@ class Engine:
         return h
 
     @torch.no_grad()
-    def _dev_spec_tick(self, tokens, pos, temps, tps, hist, k: int, m: int) -> torch.Tensor:
+    def _dev_spec_tick(self, tokens, pos, temps, tps, hist, k: int, m: int,
+                       live: np.ndarray | None = None) -> torch.Tensor:
         """m speculative rounds for all slots on the device; tokens, positions
         and histories stay tensors between rounds. Returns the DEVICE (m, B,
         k + 2) samples and accepts without waiting for them (columns 0..k
         the round's samples, column k + 1 its accept count) and keeps the
         final (tokens, pos, hist) carries in self._last_spec, from which a
         chained successor dispatches. `tokens` / `pos` / `hist` may be host
-        arrays or an earlier tick's carries."""
+        arrays or an earlier tick's carries (a chained tick: the newest
+        carries, `pos` zeroed where `live` (B,) is 0; rank 0 sends `live`
+        to the followers, which zero their own carries so). Under dp the
+        replica runs its own slots and the samples are gathered over the
+        data group."""
+        chained = isinstance(tokens, torch.Tensor)
+        if self.leads:
+            self._announce(_OP_SPEC, k, m, int(chained),
+                           *([np.asarray(live, np.int64)] if chained else
+                             [np.asarray(tokens, np.int64), np.asarray(pos, np.int64),
+                              np.asarray(hist, np.int64)]),
+                           np.asarray(temps, np.float32), np.asarray(tps, np.float32),
+                           self.slot_keys, *self._tables_payload())
+
         def dev(a):
-            return a if isinstance(a, torch.Tensor) else self._upload(a)
+            return a if isinstance(a, torch.Tensor) else self._upload(self._local(a))
 
         tok, p, h = dev(tokens), dev(pos), dev(hist)
         keys = t = tp = None
         if (temps > 0).any():
-            keys = self._upload(self.slot_keys)
-            t = self._upload(temps)
-            tp = self._upload(tps)
+            keys = self._upload(self._local(self.slot_keys))
+            t = self._upload(self._local(temps))
+            tp = self._upload(self._local(tps))
         tables = self._device_tables()
         outs = []
         for _ in range(m):
             tok, p, samples, accept = self._spec_round(tok, p, h, keys, t, tp, k, tables)
             outs.append(torch.cat([samples, accept[:, None]], dim=1))
         self._last_spec = (tok, p, h)
-        return torch.stack(outs)
+        return self._log_output(all_gather(torch.stack(outs), self.data_group, 1))
 
     def _spec_round(self, tok, pos, hist, keys, temps, tps, k: int, tables=None):
         """One round (rama_tpu's _spec_round): draft k tokens per slot,
@@ -1364,10 +1740,11 @@ class Engine:
         chunk = torch.cat([tok[:, None], drafts], dim=1)                # (B, k+1)
         cols = pos[:, None] + torch.arange(k + 1, device=dev)[None, :]  # chunk positions
         if tables is None:
-            logits, self.cache = forward_chunk(self.params, self.cfg, chunk, pos, self.cache)
+            logits, self.cache = forward_chunk(self.params, self.mcfg, chunk, pos, self.cache,
+                                               tp_group=self.tp_group)
         else:
-            logits, self.cache = forward_paged(self.params, self.cfg, chunk, cols, self.cache,
-                                               tables)
+            logits, self.cache = forward_paged(self.params, self.mcfg, chunk, cols, self.cache,
+                                               tables, self.tp_group)
         flat = logits.reshape(b * (k + 1), -1)
         if keys is None:
             samples = sample_greedy(flat)
@@ -1419,10 +1796,19 @@ class Engine:
             tokens[i] = s.hist[idx]
             pos_index[i] = idx
             s.draft_pos = s.pos
-        _, self.dcache = forward(self.dparams, self.dcfg, self._upload(tokens),
-                                 self._upload(pos_index), self.dcache,
-                                 logit_rows=torch.zeros(b, dtype=torch.int64, device=self.device))
+        self._dev_draft_resync(tokens, pos_index)
         self.metrics["draft_resyncs"] += 1
+
+    @torch.no_grad()
+    def _dev_draft_resync(self, tokens: np.ndarray, pos_index: np.ndarray) -> None:
+        """The resync's forward of the (B, T) gap tokens at their positions
+        over the draft cache (the replica's own slots under dp)."""
+        if self.leads:
+            self._announce(_OP_DRSYNC, tokens.shape[1], 0, 0, tokens, pos_index)
+        _, self.dcache = forward(self.dparams, self.dcfg, self._upload(self._local(tokens)),
+                                 self._upload(self._local(pos_index)), self.dcache,
+                                 logit_rows=torch.zeros(self.b_local, dtype=torch.int64,
+                                                        device=self.device))
 
     # -- observability ------------------------------------------------------
 

@@ -47,11 +47,12 @@ import torch
 
 from rama_tpu_torch.config import ModelConfig
 from rama_tpu_torch.models.llama import (_KERNELS, _attention, _dequant_kv, _embed,
-                                         _ffn_block, _ffn_fusable, _linear, _qkv,
+                                         _ffn_block, _ffn_fusable, _linear, _logits, _qkv,
                                          apply_rope, rmsnorm)
 from rama_tpu_torch.ops.kernels.kv_write import (chunk_positions, kv_quant_rows, paged_rows,
                                                   put_rows_, put_strips_, scatter_rows_)
 from rama_tpu_torch.ops.kernels.paged_attention import gather_pages
+from rama_tpu_torch.parallel.mesh import psum
 from rama_tpu_torch.utils.platform import resolve_device
 
 
@@ -145,7 +146,8 @@ class PageAllocator:
 
 
 def _forward_fused_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos0: torch.Tensor,
-                         cache: PagedKVCache | QuantPagedKVCache, tables: torch.Tensor):
+                         cache: PagedKVCache | QuantPagedKVCache, tables: torch.Tensor,
+                         tp_group=None):
     """Forward of T = 1 .. 8 consecutive tokens a slot, column t at pos0[b]
     + t, against the page pool, every read in place (rama_tpu's
     `_forward_decode_fused_paged` for T = 1 and `_forward_chunk_fused_paged`
@@ -187,16 +189,15 @@ def _forward_fused_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos0: t
             put_rows_(cache.k[l], k, pages, offs)
             put_rows_(cache.v[l], v, pages, offs)
         att = attend(q[:, 0] if t == 1 else q, *pools, p0, tables, l, **rows).view(b, t, -1)
-        x = x + _linear(att, params["wo"], ops, l)
+        x = x + psum(_linear(att, params["wo"], ops, l), tp_group)
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
-        x = x + _ffn_block(xb, params, l, ops, fused_kernel=fused_ffn)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _linear(x, params["wcls"], ops).float(), cache
+        x = x + psum(_ffn_block(xb, params, l, ops, fused_kernel=fused_ffn), tp_group)
+    return _logits(x, params, cfg, ops, tp_group), cache
 
 
 def _forward_gather_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                           pos_index: torch.Tensor, cache: PagedKVCache | QuantPagedKVCache,
-                          tables: torch.Tensor):
+                          tables: torch.Tensor, tp_group=None):
     """The generic path of rama_tpu's `forward_paged` (any T, any positions;
     the CPU only): per layer each slot's pages are gathered into a dense
     view — an int8 pool dequantized to bf16, as the JAX package's
@@ -243,15 +244,15 @@ def _forward_gather_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             put_rows_(cache.k[l], k, pages, offs)
             put_rows_(cache.v[l], v, pages, offs)
-        x = x + _linear(att, params["wo"], ops, l)
+        x = x + psum(_linear(att, params["wo"], ops, l), tp_group)
         xb = rmsnorm(x, params["ffn_norm"][l], cfg.norm_eps)
-        x = x + _ffn_block(xb, params, l, ops, fused_kernel=False)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _linear(x, params["wcls"], ops).float(), cache
+        x = x + psum(_ffn_block(xb, params, l, ops, fused_kernel=False), tp_group)
+    return _logits(x, params, cfg, ops, tp_group), cache
 
 
 def forward_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos_index: torch.Tensor,
-                  cache: PagedKVCache | QuantPagedKVCache, page_tables: torch.Tensor):
+                  cache: PagedKVCache | QuantPagedKVCache, page_tables: torch.Tensor,
+                  tp_group=None):
     """Forward a (B, T) chunk against the page pool.
 
     page_tables (B, mp) int32 page ids (entries past a slot's last used page
@@ -262,19 +263,22 @@ def forward_paged(params, cfg: ModelConfig, tokens: torch.Tensor, pos_index: tor
     stripes (rama_tpu's paged_attn_supported; whole GQA groups ModelConfig
     guarantees, and the kernels' own limits their wrappers check); any
     other T or page size the gather path (the CPU only). Returns (logits
-    (B, T, V) fp32, cache) with the pool updated in place."""
+    (B, T, V) fp32, cache) with the pool updated in place. `tp_group`: as
+    models.llama.forward's."""
     t = tokens.shape[1]
     if 1 <= t <= 8 and cache.page_size % 8 == 0:
-        return _forward_fused_paged(params, cfg, tokens, pos_index[:, 0], cache, page_tables)
-    return _forward_gather_paged(params, cfg, tokens, pos_index, cache, page_tables)
+        return _forward_fused_paged(params, cfg, tokens, pos_index[:, 0], cache, page_tables,
+                                    tp_group)
+    return _forward_gather_paged(params, cfg, tokens, pos_index, cache, page_tables, tp_group)
 
 
 def decode_step_paged(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor,
-                      cache: PagedKVCache | QuantPagedKVCache, page_tables: torch.Tensor):
+                      cache: PagedKVCache | QuantPagedKVCache, page_tables: torch.Tensor,
+                      tp_group=None):
     """One decode step against the pool: token (B,), pos (B,). Returns
     (logits (B, V) fp32, cache)."""
     logits, cache = forward_paged(params, cfg, token[:, None], pos[:, None], cache,
-                                  page_tables)
+                                  page_tables, tp_group)
     return logits[:, 0], cache
 
 

@@ -16,19 +16,33 @@ Run:  python -m rama_tpu_torch.server.app -m model.bin -t tokenizer.bin \
           [--kv-quant int8] [--paged [--page-size 128]] [--spec-tick 3 \
           [--spec-mode draft --spec-draft-model draft.bin]] \
           [--prefill-chunk 256 [--prefill-chunk-min 1024]] \
-          [--warmup [--warmup-max-prompt 512]] [--compile-cache DIR]
+          [--warmup [--warmup-max-prompt 512]] [--compile-cache DIR] \
+          [--tp 2] [--dp 2]
+
+With --tp / --dp the server runs tp * dp processes, one a rank (rama_tpu's
+multi-host layout on one host, parallel/distributed.py): this process is
+rank 0 and fronts HTTP, tokenization and scheduling; it spawns the other
+ranks, each of which loads the checkpoint on the host, keeps its shard and
+replays rank 0's device calls (Engine.follow). Each rank runs on its own GPU
+(--device cuda), or all on the CPU (--device cpu). Stopping the server stops
+and joins them.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import multiprocessing
 import queue as queue_mod
+import socket
 import sys
+import traceback
 
 from aiohttp import web
 
 from rama_tpu_torch.config import EngineConfig
+from rama_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+from rama_tpu_torch.parallel.mesh import make_mesh
 from rama_tpu_torch.runtime.engine import Engine, Request
 
 HTML_PAGE = """<!DOCTYPE html>
@@ -156,7 +170,12 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
                 spec_mode: str = "ngram", spec_draft_model: str | None = None,
                 paged: bool = False, page_size: int = 128,
                 scale_dtype: str | None = None, compile_cache: str | None = None,
-                prefill_chunk: int = 0, prefill_chunk_min: int | None = None) -> Engine:
+                prefill_chunk: int = 0, prefill_chunk_min: int | None = None,
+                tp: int = 1, dp: int = 1, mesh=None) -> Engine:
+    """The engine of a checkpoint (rama_tpu's load_engine,
+    server/app.py:154-192). Under tp / dp > 1 (inside a process group of tp
+    * dp ranks) the checkpoint loads on the host and the Engine copies only
+    this rank's shard to its device (`mesh`, default: its own GPU)."""
     from rama_tpu_torch.cli import load_model
     from rama_tpu_torch.ops.kernels import build
     from rama_tpu_torch.tokenizer import Tokenizer
@@ -165,28 +184,28 @@ def load_engine(model_path: str, tokenizer_path: str, quant: str = "auto",
         # before the checkpoint's transpose loads the native host library:
         # it comes from the engine's build directory, as the kernels do
         build.set_build_dir(compile_cache)
-    cfg, params, _ = load_model(model_path, quant, dtype, device)
+    load_on = "cpu" if tp * dp > 1 else device
+    # a tensor-parallel rank fuses its own shard
+    cfg, params, _ = load_model(model_path, quant, dtype, load_on, fuse=tp == 1)
     tokenizer = Tokenizer.from_file(tokenizer_path, cfg.vocab_size)
     draft = None
     if spec_draft_model:
         # dense in the server's dtype: a draft model is small enough that
         # quantizing it buys nothing (rama_tpu's load_engine)
-        draft = load_model(spec_draft_model, "none", dtype, device)[:2]
+        draft = load_model(spec_draft_model, "none", dtype, load_on)[:2]
     ecfg = EngineConfig(model_path=model_path, tokenizer_path=tokenizer_path,
                         max_batch_size=batch, max_seq_len=max_seq_len, kv_quant=kv_quant,
                         spec_tick=spec_tick, spec_mode=spec_mode, paged_kv=paged,
                         kv_page_size=page_size, scale_dtype=scale_dtype,
                         compile_cache=compile_cache, prefill_chunk=prefill_chunk,
-                        prefill_chunk_min=prefill_chunk_min)
-    return Engine(cfg, params, tokenizer, ecfg, draft=draft)
+                        prefill_chunk_min=prefill_chunk_min, tp_size=tp, dp_size=dp)
+    return Engine(cfg, params, tokenizer, ecfg, draft=draft, mesh=mesh)
 
 
 # server flags of the JAX package whose features are not ported yet:
 # (flag, attribute, value when unset, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("--tp", "tp", 1, "tensor/data/sequence parallelism"),
-    ("--dp", "dp", 1, "tensor/data/sequence parallelism"),
-    ("--seq-par", "seq_par", False, "tensor/data/sequence parallelism"),
+    ("--seq-par", "seq_par", False, "sequence parallelism"),
     ("--coordinator", "coordinator", None, "multi-host serving"),
 )
 
@@ -230,8 +249,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk-min", type=int, default=None,
                     help="only prompts LONGER than this take the chunked job (default 4x "
                          "--prefill-chunk)")
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (one process each; their model collectives "
+                         "run over NCCL on a GPU each, gloo on the CPU)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas of --tp ranks each, --batch / dp slots "
+                         "each")
     ap.add_argument("--seq-par", action="store_true")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--warmup", action="store_true",
@@ -248,6 +271,41 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _rank_engine(args, rank: int, world: int, port: int) -> Engine:
+    """Join the world as `rank` and build this rank's engine (its shard);
+    the ranks share nothing but the process group."""
+    mesh = None
+    if world > 1:
+        init_distributed(rank, world, port)
+        # every rank on the CPU, or each on its own GPU (NCCL)
+        mesh = make_mesh(args.tp, args.dp,
+                         devices=["cpu"] * world if args.device == "cpu" else None)
+    return load_engine(args.model, args.tokenizer, args.quant, args.dtype,
+                       args.batch, max_seq_len=args.max_seq_len, device=args.device,
+                       kv_quant=args.kv_quant, spec_tick=args.spec_tick,
+                       spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
+                       paged=args.paged, page_size=args.page_size,
+                       scale_dtype=args.scale_dtype, compile_cache=args.compile_cache,
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_chunk_min=args.prefill_chunk_min, tp=args.tp, dp=args.dp,
+                       mesh=mesh)
+
+
+def _follower(args, rank: int, world: int, port: int) -> None:
+    """A spawned rank: its engine replays rank 0's device calls until rank
+    0 stops (or a collective fails, which ends the process), then it leaves
+    the group with the others."""
+    _rank_engine(args, rank, world, port).follow()
+    shutdown_distributed()
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (the process group's store)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag, attr, off, item in _UNPORTED_FLAGS:
@@ -255,24 +313,36 @@ def main(argv=None) -> int:
             print(f"{flag}: {item} is not ported to rama_tpu_torch yet (ROADMAP.md)",
                   file=sys.stderr)
             return 2
-    engine = load_engine(args.model, args.tokenizer, args.quant, args.dtype,
-                         args.batch, max_seq_len=args.max_seq_len, device=args.device,
-                         kv_quant=args.kv_quant, spec_tick=args.spec_tick,
-                         spec_mode=args.spec_mode, spec_draft_model=args.spec_draft_model,
-                         paged=args.paged, page_size=args.page_size,
-                         scale_dtype=args.scale_dtype, compile_cache=args.compile_cache,
-                         prefill_chunk=args.prefill_chunk,
-                         prefill_chunk_min=args.prefill_chunk_min)
-    if args.warmup:
-        w = engine.warmup(max_prompt=args.warmup_max_prompt)
-        print(f"warmup: {w['programs']} programs in {w['seconds']:.1f}s", file=sys.stderr)
-    engine.start()
+    world = args.tp * args.dp
+    port = free_port() if world > 1 else 0
+    ctx = multiprocessing.get_context("spawn")
+    followers = [ctx.Process(target=_follower, args=(args, r, world, port),
+                             name=f"rama-rank-{r}") for r in range(1, world)]
+    for p in followers:
+        p.start()
+    engine = None
     try:
-        host, _, port = args.address.rpartition(":")
+        engine = _rank_engine(args, 0, world, port)
+        if args.warmup:
+            w = engine.warmup(max_prompt=args.warmup_max_prompt)
+            print(f"warmup: {w['programs']} programs in {w['seconds']:.1f}s", file=sys.stderr)
+        engine.start()
+        host, _, http_port = args.address.rpartition(":")
         web.run_app(build_app(engine, default_steps=args.steps),
-                    host=host or "0.0.0.0", port=int(port), max_line_size=MAX_REQUEST_LINE)
+                    host=host or "0.0.0.0", port=int(http_port), max_line_size=MAX_REQUEST_LINE)
     finally:
-        engine.stop()
+        if engine is not None:
+            engine.stop()           # the followers' follow() returns
+            if world > 1:
+                try:
+                    shutdown_distributed()
+                except Exception:  # noqa: BLE001 — a follower gone: joined below
+                    traceback.print_exc()
+        for p in followers:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
     return 0
 
 

@@ -13,6 +13,7 @@ import pathlib
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -2611,3 +2612,119 @@ def test_device_times_reads_kineto_events_or_key_averages(smoke):
     prof = types.SimpleNamespace(key_averages=lambda: [
         avg("k1", 5.0, 2, "CUDA"), avg("aten::add", 9.0, 1, "CPU"), avg("k3", 0, 1, "CUDA")])
     assert smoke.device_times(torch, prof) == {"k1": (5.0, 2)}
+
+
+def test_parallel_phases_are_known_and_a_subset_is_not_ok(smoke):
+    """serve_tp (7B tp 2) and serve_dp (TinyLlama dp 2 x tp 2) are phases of
+    every full run; a run without one of them is not ok."""
+    assert {"serve_tp", "serve_dp"} <= set(smoke.ALL_PHASES) and set(smoke.PARALLEL) == {
+        "serve_tp", "serve_dp"}
+    assert (smoke.PARALLEL["serve_tp"]["tp"], smoke.PARALLEL["serve_tp"]["dp"]) == (2, 1)
+    assert (smoke.PARALLEL["serve_dp"]["tp"], smoke.PARALLEL["serve_dp"]["dp"]) == (2, 2)
+    dev = {"platform": "gpu", "kind": "x", "count": 1}
+    for name in smoke.PARALLEL:
+        line, rc = smoke.final_line(tuple(p for p in smoke.ALL_PHASES if p != name), dev)
+        assert line["ok"] is False and line["skipped_phases"] == [name] and rc != 0
+
+
+def _parallel_reports(smoke, counters, world: int):
+    """Reports of `world` ranks whose every serve launched each kernel its
+    mode records (the `equal` pairs as often) and sampled the same tokens."""
+    reports = []
+    for r in range(world):
+        serves = {}
+        for mode, _, checks in smoke.PARALLEL_SERVES:
+            smoke.reset_launches(*counters)
+            launches = smoke.read_launches(*counters)
+            for k in checks["record"]:
+                launches[k] = 32
+            launches["ffn_mma"] = launches["quant_matmul_mma"] = launches["ffn"]
+            launches["prefill_attention_mma"] = launches["prefill_attention"]
+            for fam in ("decode_attention", "paged_attention"):
+                if any(launches.get(n) for n in smoke.ATTN_FAMILIES[fam][0]):
+                    body = "walk" if mode == "paged_kv8" else "mma"
+                    launches[f"{fam}_{body}"] = 32
+            serves[mode] = {"launches": launches, "outputs": np.arange(40) % 7,
+                            "distinct": [5] * 8}
+        reports.append({"rank": r, "serves": serves})
+    return reports
+
+
+@pytest.mark.parametrize("name", ["serve_tp", "serve_dp"])
+def test_parallel_path_fails_a_rank_without_a_kernel(smoke, counters, name):
+    world = smoke.PARALLEL[name]["tp"] * smoke.PARALLEL[name]["dp"]
+    reports = _parallel_reports(smoke, counters, world)
+    smoke.check_parallel_ranks(name, reports)
+    reports[world - 1]["serves"]["spec"]["launches"]["chunk_attention"] = 0
+    with pytest.raises(SystemExit, match=r"\['chunk_attention'\] never launched"):
+        smoke.check_parallel_ranks(name, reports)
+
+
+def test_parallel_path_fails_a_follower_whose_tokens_differ(smoke, counters):
+    reports = _parallel_reports(smoke, counters, 2)
+    reports[1]["serves"]["paged_kv8"]["outputs"] = reports[1]["serves"]["paged_kv8"][
+        "outputs"].copy()
+    reports[1]["serves"]["paged_kv8"]["outputs"][17] += 1
+    with pytest.raises(SystemExit, match="rank 1's tokens differ from rank 0's"):
+        smoke.check_parallel_ranks("serve_tp", reports)
+
+
+def test_parallel_path_fails_a_degenerate_stream(smoke, counters):
+    reports = _parallel_reports(smoke, counters, 4)
+    reports[0]["serves"]["plain"]["distinct"][3] = 1
+    with pytest.raises(SystemExit, match="serve_dp plain: distinct ids by stream"):
+        smoke.check_parallel_ranks("serve_dp", reports)
+
+
+def test_parallel_local_shapes_are_the_shards(smoke):
+    """want_shapes at Llama-2-7B tp 2: the kernels' local shapes the issue
+    names (wqkv N 6144, wo K 2048, w13 N 11008, w2 K 5504, lm_head N 16000,
+    16 kv heads)."""
+    from rama_tpu_torch.config import ModelConfig
+
+    want = smoke.want_shapes(smoke.seven_b_config(ModelConfig), 2)
+    assert want == {"wqkv": [32, 4096, 6144], "wo": [32, 2048, 4096],
+                    "w13": [32, 4096, 11008], "w2": [32, 5504, 4096], "wcls": [4096, 16000],
+                    "kv_heads": 16}
+
+
+@pytest.mark.parametrize("index", [0, 2])
+def test_parallel_logits_fail_where_rank_0_leaves_tp_1(smoke, index):
+    """Rank 0's first-step logits and each teacher-forced decode step's are
+    held against tp 1's: equal ones pass, one row off fails, naming it."""
+    g = np.random.default_rng(5)
+    refs = [torch.from_numpy(g.standard_normal((2, 64)).astype(np.float32))
+            for _ in range(smoke.PARALLEL_STEPS + 1)]
+    reports = [{"logits": [r.numpy().copy() for r in refs]}]
+    assert smoke.check_parallel_logits(torch, "serve_tp", reports, refs) == 0.0
+    reports[0]["logits"][index][1] += 1.0
+    what = "first-step" if index == 0 else f"decode step {index - 1}"
+    with pytest.raises(SystemExit, match=f"FAILED .*rank 0 {what} logits"):
+        smoke.check_parallel_logits(torch, "serve_tp", reports, refs)
+
+
+def test_parallel_logits_catch_a_decode_kernel_off_its_plain_version(smoke, monkeypatch):
+    """parallel_logits on a one-rank grid of a tiny int8 model: the kernels'
+    path equals the plain one on the CPU, and a K3 that is off its plain
+    version fails the first decode step (prefill runs the FFN split)."""
+    from rama_tpu_torch.config import ModelConfig
+    from rama_tpu_torch.models import llama as tl
+    from rama_tpu_torch.parallel.mesh import Mesh
+
+    cfg = ModelConfig(dim=128, hidden_dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=96, seq_len=64)
+    params = smoke.random_params(torch, cfg, torch.device("cpu"), seed=1, fused=False)
+    params = tl.fuse_params({k: v.float() if isinstance(v, torch.Tensor) else v
+                             for k, v in params.items()}, cfg)
+    mesh = Mesh(ranks=np.zeros((1, 1), int), rank=0, device=torch.device("cpu"), backend=None,
+                model_group=None, data_group=None)
+    rows = torch.randint(3, 96, (2, 16), generator=torch.Generator().manual_seed(2))
+    steps = torch.randint(3, 96, (2, smoke.PARALLEL_STEPS),
+                          generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        out = smoke.parallel_logits(torch, "tiny", mesh, params, cfg, rows, steps)
+        assert [o.shape for o in out] == [(2, 96)] * (smoke.PARALLEL_STEPS + 1)
+        ffn = tl._KERNELS.ffn
+        monkeypatch.setattr(tl._KERNELS, "ffn", lambda *a, **k: ffn(*a, **k) * 3.0)
+        with pytest.raises(SystemExit, match="tiny decode step 0 logits"):
+            smoke.parallel_logits(torch, "tiny", mesh, params, cfg, rows, steps)

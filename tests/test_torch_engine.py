@@ -279,7 +279,9 @@ def test_long_context_beyond_checkpoint_seq_len():
     ("dp_size", 2), ("seq_par", True),
 ])
 def test_unported_engine_config_raises(engine_setup, field, value):
-    """Unported features raise NotImplementedError; kv_quant is ported for
+    """Unported features (seq_par) raise NotImplementedError; tp_size and
+    dp_size are ported and, outside a process group of tp * dp ranks, raise
+    ValueError naming init_distributed; kv_quant is ported for
     "int8" and refuses any other value with ValueError, as in rama_tpu;
     spec_tick is ported and refuses draft mode without a draft model;
     prefill_chunk is ported: a chunk that is not a power of two >= 16, or a
@@ -336,6 +338,12 @@ def test_unported_engine_config_raises(engine_setup, field, value):
                             [Request(prompt="abcdefghij" * 3, steps=6, temperature=0.0)])
         assert got == oracle(jcfg, np_params, tok, "abcdefghij" * 3, 6)
         assert eng.phases.counts["pf_chunk"] == 2 and eng.stats()["engine_errors"] == 0
+        return
+    if field in ("tp_size", "dp_size"):
+        # ported: one process a rank, so outside a process group of tp * dp
+        # ranks the Engine refuses, naming init_distributed
+        with pytest.raises(ValueError, match="init_distributed"):
+            Engine(cfg, params, tok, EngineConfig(**{field: value}))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, params, tok, EngineConfig(**{field: value}))

@@ -332,9 +332,12 @@ class _Idle:
 
 @pytest.mark.parametrize("flag", [["--paged"], ["--kv-quant", "int4"], ["--tp", "2"],
                                   ["--spec-tick", "2"], ["--scale-dtype", "bf16"],
-                                  ["--prefill-chunk", "256"]])
-def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
-    """Unported flags exit 2 naming ROADMAP.md; --kv-quant takes int8 only,
+                                  ["--prefill-chunk", "256"], ["--seq-par"],
+                                  ["--coordinator", "127.0.0.1:1234"]])
+def test_main_rejects_unported_flags(flag, capsys, monkeypatch, tmp_path):
+    """Unported flags exit 2 naming ROADMAP.md; --tp is ported: outside a
+    process group load_engine(tp=2) refuses with ValueError naming
+    init_distributed (main makes the group); --kv-quant takes int8 only,
     so argparse refuses int4 (exit 2); --spec-tick, --paged,
     --scale-dtype and --prefill-chunk are ported: main hands them to
     load_engine (with --spec-mode / --spec-draft-model, --page-size, and
@@ -387,6 +390,17 @@ def test_main_rejects_unported_flags(flag, capsys, monkeypatch):
                      "--spec-draft-model", "d.bin"]) == 0
         assert (seen["spec_tick"], seen["spec_mode"], seen["spec_draft_model"]) == \
             (2, "draft", "d.bin")
+        return
+    if flag[0] == "--tp":
+        from rama_tpu_torch.checkpoint import save_v0
+        from rama_tpu_torch.server.app import load_engine
+
+        jcfg = tiny_config(seq_len=32)
+        model = tmp_path / "m.bin"
+        save_v0(str(model), torch_cfg(jcfg), random_params(jcfg, seed=21))
+        tok_path = write_tokenizer_bin(tmp_path / "tok.bin", jcfg.vocab_size)
+        with pytest.raises(ValueError, match="init_distributed"):
+            load_engine(str(model), tok_path, dtype="float32", batch=2, device="cpu", tp=2)
         return
     if flag[0] == "--kv-quant":
         with pytest.raises(SystemExit) as exc:
